@@ -1,0 +1,3 @@
+from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig  # noqa: F401
+from fedml_tpu_torch.algorithms.fedavg_robust import (  # noqa: F401
+    FedAvgRobust, FedAvgRobustConfig)

@@ -1,0 +1,269 @@
+"""Fused robust aggregation: clip + weak-DP noise + weighted mean.
+
+Port of ``fedml_tpu/core/pallas_agg.py::make_fused_robust_aggregate``.  On
+the GPU each float leaf is one launch of the hand-written CUDA kernel
+``csrc/robust_agg.cu`` (the port of the Pallas ``_agg_kernel``):
+
+    out = sum_i r_i * (g + s_i * (x_i - g) + sigma * n_i)
+
+with r_i the normalised sample weights, s_i the per-client norm-diff clip
+scale and n_i the JAX package's murmur3 counter PRG + Box-Muller stream,
+reproduced bit for bit in its uniforms.  The clip scales need the global
+update norm across all leaves, so they are a torch reduction before the
+launches (``_clip_scales``), as they were an XLA reduction in JAX.
+
+``robust_agg_plain`` is the same arithmetic written step by step in
+PyTorch.  The wrapper ``robust_agg`` takes it only for tensors on the CPU;
+a CUDA tensor gets the kernel or an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.core.robust import (_masked_global_norm,
+                                         default_is_weight_param)
+
+# The JAX kernel's VMEM budget caps the cohort; the CUDA kernel has no such
+# limit, but both packages refuse the same cohorts.
+MAX_CLIENTS = 512
+
+# launches of each kernel since the last reset (the wrapper adds one per
+# launch and nowhere else)
+launch_counts = {"robust_agg": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# the noise stream, in int64 tensors holding uint32 values
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for x < 2^32.  Tensors split c into 16-bit halves
+    so no int64 product overflows."""
+    if not isinstance(x, torch.Tensor):
+        return (x * c) & _M32
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix(x):
+    """murmur3's 32-bit finaliser on a Python int or an int64 tensor."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _index_hash(d: int, device) -> torch.Tensor:
+    idx = torch.arange(d, dtype=torch.int64, device=device)
+    return _fmix((_mul32(idx, 0x9E3779B9) + 1) & _M32)
+
+
+def _seed_salts(seed0: int, seed1: int) -> Tuple[int, int]:
+    return (_fmix(seed0 & _M32), _fmix((seed1 & _M32) ^ 0x5BD1E995))
+
+
+def _client_salt(s0: int, s1: int, i: int) -> int:
+    return _fmix(s0 ^ ((s1 + _mul32(i, 0x85EBCA6B)) & _M32))
+
+
+def _uniforms(idx_h: torch.Tensor, salt: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two f32 uniforms per element: u1 in (0, 1), u2 in [0, 1)."""
+    bits1 = _fmix(idx_h ^ salt)
+    bits2 = _fmix(bits1 ^ 0x27D4EB2F)
+    u1 = (bits1 >> 8).to(torch.float32) * (2.0 ** -24) + (2.0 ** -25)
+    u2 = (bits2 >> 8).to(torch.float32) * (2.0 ** -24)
+    return u1, u2
+
+
+def _gaussian(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
+def noise_uniforms_plain(d: int, seed0: int, seed1: int, client: int,
+                         device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    s0, s1 = _seed_salts(seed0, seed1)
+    return _uniforms(_index_hash(d, device), _client_salt(s0, s1, client))
+
+
+# ---------------------------------------------------------------------------
+# the plain version and the kernel wrapper
+# ---------------------------------------------------------------------------
+
+def robust_agg_plain(x: torch.Tensor, g: torch.Tensor, scales: torch.Tensor,
+                     ratios: torch.Tensor, seed0: int, seed1: int,
+                     sigma: float) -> torch.Tensor:
+    """What the kernel computes, one client at a time, in f32.  x [N, D],
+    g [D], scales and ratios [N]; returns [D] in g's dtype."""
+    n, d = x.shape
+    gf = g.to(torch.float32)
+    acc = torch.zeros(d, dtype=torch.float32, device=x.device)
+    if sigma:
+        idx_h = _index_hash(d, x.device)
+        s0, s1 = _seed_salts(seed0, seed1)
+    for i in range(n):
+        term = gf + scales[i] * (x[i].to(torch.float32) - gf)
+        if sigma:
+            u1, u2 = _uniforms(idx_h, _client_salt(s0, s1, i))
+            term = term + sigma * _gaussian(u1, u2)
+        acc = acc + ratios[i] * term
+    return acc.to(g.dtype)
+
+
+_lib_handle = None
+
+
+def _lib():
+    """The kernel library, built from source at first use."""
+    global _lib_handle
+    if _lib_handle is None:
+        from fedml_tpu_torch.utils import cuda_build
+        lib = cuda_build.load("robust_agg")
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.robust_agg_f32.argtypes = [p, p, p, p, p, i64, i64, i32, i32,
+                                       ctypes.c_float, p]
+        lib.robust_agg_f32.restype = i32
+        lib.noise_uniforms_f32.argtypes = [p, p, i64, i32, i32, i32, p]
+        lib.noise_uniforms_f32.restype = i32
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _int32(v: int) -> int:
+    """Reinterpret the low 32 bits as a signed int32."""
+    v &= _M32
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"robust_agg: {msg}")
+
+
+def robust_agg(x: torch.Tensor, g: torch.Tensor, scales: torch.Tensor,
+               ratios: torch.Tensor, seed0: int, seed1: int,
+               sigma: float) -> torch.Tensor:
+    """One leaf of the fused aggregate: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return robust_agg_plain(x, g, scales, ratios, seed0, seed1, sigma)
+    _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    _check(all(t.device == x.device for t in (g, scales, ratios)),
+           "x, g, scales and ratios must be on one device")
+    _check(all(t.dtype == torch.float32 for t in (x, g, scales, ratios)),
+           "the kernel takes float32 tensors")
+    _check(all(t.is_contiguous() for t in (x, g, scales, ratios)),
+           "tensors must be contiguous")
+    _check(x.dim() == 2 and g.shape == (x.shape[1],)
+           and scales.shape == ratios.shape == (x.shape[0],),
+           f"shapes x {tuple(x.shape)}, g {tuple(g.shape)}, scales "
+           f"{tuple(scales.shape)}, ratios {tuple(ratios.shape)}")
+    out = torch.empty_like(g)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().robust_agg_f32(
+            x.data_ptr(), g.data_ptr(), scales.data_ptr(), ratios.data_ptr(),
+            out.data_ptr(), x.shape[0], x.shape[1], _int32(seed0),
+            _int32(seed1), float(sigma), stream)
+    if rc != 0:
+        raise RuntimeError(f"robust_agg kernel launch failed: CUDA error "
+                           f"{rc}")
+    launch_counts["robust_agg"] += 1
+    return out
+
+
+def noise_uniforms(d: int, seed0: int, seed1: int, client: int,
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's uniforms for one client (a probe of the noise stream;
+    the aggregation path never calls it)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return noise_uniforms_plain(d, seed0, seed1, client)
+    u1 = torch.empty(d, dtype=torch.float32, device=device)
+    u2 = torch.empty_like(u1)
+    with torch.cuda.device(device):
+        rc = _lib().noise_uniforms_f32(
+            u1.data_ptr(), u2.data_ptr(), d, _int32(seed0), _int32(seed1),
+            client, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"noise_uniforms kernel launch failed: CUDA "
+                           f"error {rc}")
+    return u1, u2
+
+
+# ---------------------------------------------------------------------------
+# the aggregate the cohort engine calls
+# ---------------------------------------------------------------------------
+
+def _clip_scales(stacked: Tree, global_params: Tree, norm_bound: float,
+                 is_weight) -> torch.Tensor:
+    """Per-client min(1, bound / ||x_i - g||) over weight leaves, from the
+    same norm helper as the unfused clip, so "which leaves count" cannot
+    drift between the two backends."""
+    diff = {k: stacked[k] - global_params[k] for k in stacked}
+    norms = _masked_global_norm(diff, is_weight, batch_dims=1)
+    return torch.clamp(norm_bound / torch.clamp(norms, min=1e-12), max=1.0)
+
+
+def make_fused_robust_aggregate(norm_bound: Optional[float] = None,
+                                noise_std: float = 0.0,
+                                is_weight=default_is_weight_param):
+    """Returns ``aggregate(stacked, weights, global_params, seed_words)``
+    (``needs_global`` is set, so the cohort engine passes the round
+    context).  ``norm_bound=None`` disables clipping, ``noise_std=0`` the
+    noise.  ``seed_words`` are the round's two int32 seed words; leaf
+    ``li`` (in JAX's leaf order) is keyed by ``seed + li * 31337`` with
+    int32 wraparound."""
+
+    def aggregate(stacked: Tree, weights: torch.Tensor, global_params: Tree,
+                  seed_words: Sequence[int]) -> Tree:
+        w = torch.as_tensor(weights, dtype=torch.float32)
+        ratios = (w / torch.clamp(w.sum(), min=1e-12)).contiguous()
+        n = int(w.shape[0])
+        if n > MAX_CLIENTS:
+            raise ValueError(
+                f"cohort of {n} clients exceeds the fused kernel's limit "
+                f"(max {MAX_CLIENTS}); use the torch defense backend for "
+                f"cohorts this large")
+        ones = torch.ones(n, dtype=torch.float32, device=w.device)
+        if norm_bound is not None:
+            scales = _clip_scales(stacked, global_params, norm_bound,
+                                  is_weight).contiguous()
+        else:
+            scales = ones
+        seed0, seed1 = (int(s) for s in seed_words)
+        out = {}
+        for li, k in enumerate(tree_keys(stacked)):
+            x, g = stacked[k], global_params[k]
+            if not x.dtype.is_floating_point:
+                r = ratios.reshape((-1,) + (1,) * (x.dim() - 1))
+                out[k] = (x.to(torch.float32) * r).sum(0).to(x.dtype)
+                continue
+            # the kernel works in f32 and the result takes g's dtype, as in
+            # the Pallas kernel (a no-op for f32 leaves)
+            agg = robust_agg(
+                x.reshape(n, -1).to(torch.float32).contiguous(),
+                g.reshape(-1).to(torch.float32).contiguous(),
+                scales if is_weight(k) else ones, ratios,
+                _int32(seed0 + li * 31337), _int32(seed1 + li * 31337),
+                float(noise_std))
+            out[k] = agg.reshape(g.shape).to(g.dtype)
+        return out
+
+    aggregate.needs_global = True
+    return aggregate

@@ -1,0 +1,47 @@
+"""Dataset registry for the port: the hermetic twins of this slice.
+
+Port of ``fedml_tpu/data/registry.py`` restricted to ``mnist``,
+``mnist_learnable_twin`` and ``femnist`` (28x28x1, 62 classes).  The real
+on-disk loaders (LEAF, TFF h5) arrive with a later slice of the port."""
+
+from __future__ import annotations
+
+import inspect
+from functools import partial
+from typing import Callable, Dict, Optional
+
+from fedml_tpu_torch.data.stacking import FederatedData
+from fedml_tpu_torch.data.synthetic import (mnist_learnable_twin,
+                                            synthetic_federated_dataset)
+
+_REGISTRY: Dict[str, Callable[..., FederatedData]] = {
+    "mnist": partial(synthetic_federated_dataset, sample_shape=(784,),
+                     class_num=10),
+    "mnist_learnable_twin": mnist_learnable_twin,
+    "femnist": partial(synthetic_federated_dataset, sample_shape=(28, 28, 1),
+                       class_num=62),
+}
+
+
+def dataset_names():
+    return sorted(_REGISTRY)
+
+
+def _accepted_kwargs(fn, kw: Dict) -> Dict:
+    """Keep only the kwargs ``fn`` accepts (twins differ in signature)."""
+    params = inspect.signature(fn).parameters
+    return {k: v for k, v in kw.items() if k in params}
+
+
+def load_data(name: str, data_dir: Optional[str] = None,
+              **kw) -> FederatedData:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown dataset {name!r}; have {dataset_names()}")
+    if data_dir is not None:
+        raise NotImplementedError(
+            f"dataset {name!r}: the port has no on-disk loaders yet; the "
+            f"real LEAF/TFF loaders arrive with the data-loader slice "
+            f"(ROADMAP Queue 1, the long tail).  Drop --data_dir to use the "
+            f"hermetic twin")
+    twin = _REGISTRY[name]
+    return twin(**_accepted_kwargs(twin, kw))

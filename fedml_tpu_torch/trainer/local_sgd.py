@@ -1,0 +1,85 @@
+"""Local training of one client (port of ``fedml_tpu/trainer/local_sgd.py``).
+
+``train(params, data)`` runs ``epochs * S`` optimizer steps over the
+client's S batches, in order, with a fresh optimizer state on every call
+(the reference builds its optimizer inside ``train`` each round).  The body
+is written so that ``torch.func.vmap`` can map it over a stacked client
+axis: gradients come from ``torch.func.grad``, and the data-dependent
+choices (clipping, skipping a fully padded batch) are ``torch.where``, not
+Python branches."""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch.func import grad
+
+from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.trainer.workload import Workload
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
+    """optax.clip_by_global_norm: keep the gradient when its global norm
+    is below ``max_norm``, else ``g / norm * max_norm`` (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``)."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(grads[k]))
+                          for k in tree_keys(grads)))
+    keep = norm < max_norm
+    return {k: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
+            for k, g in grads.items()}
+
+
+def _select(cond: torch.Tensor, new, old):
+    """``new`` where ``cond`` else ``old``, leaf by leaf over nested
+    dicts."""
+    if isinstance(new, dict):
+        return {k: _select(cond, new[k], old[k]) for k in new}
+    return torch.where(cond, new, old)
+
+
+def make_local_trainer(workload: Workload, optimizer, epochs: int):
+    """Returns ``train(params, data) -> (new_params, metrics)`` over data
+    leaves ``[S, B, ...]`` with ``mask`` ``[S, B]``."""
+
+    grad_fn = grad(workload.loss_fn, has_aux=True)
+
+    def train(params: Tree, data: Dict[str, torch.Tensor]
+              ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+        opt_state = optimizer.init(params)
+        num_steps = data["mask"].shape[0]
+        losses = []
+        for step in range(epochs * num_steps):
+            batch = {k: v[step % num_steps] for k, v in data.items()}
+            grads, aux = grad_fn(params, batch)
+            if workload.grad_clip_norm is not None:
+                grads = clip_by_global_norm(grads, workload.grad_clip_norm)
+            updates, new_state = optimizer.update(grads, opt_state, params)
+            new_params = {k: (params[k] + updates[k]).to(params[k].dtype)
+                          for k in params}
+            # a fully padded batch leaves params and optimizer state as
+            # they were (SGD's gradient is 0 there anyway; Adam's eps would
+            # still move them)
+            got_data = torch.sum(batch["mask"]) > 0
+            params = _select(got_data, new_params, params)
+            opt_state = _select(got_data, new_state, opt_state)
+            losses.append(aux["loss"])
+        return params, {"train_loss_per_step": torch.stack(losses)}
+
+    return train
+
+
+def make_evaluator(workload: Workload):
+    """Returns ``evaluate(params, data) -> summed metrics`` over ``[..., B]``
+    batch stacks.  The metrics are sums, so all leading axes fold into one
+    batch."""
+
+    def evaluate(params: Tree, data: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        lead = data["mask"].dim()
+        flat = {k: v.reshape((-1,) + tuple(v.shape[lead:]))
+                for k, v in data.items()}
+        with torch.no_grad():
+            return workload.metric_fn(params, flat)
+
+    return evaluate

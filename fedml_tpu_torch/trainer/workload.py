@@ -1,0 +1,149 @@
+"""Client workload contract (port of ``fedml_tpu/trainer/workload.py``).
+
+A ``Workload`` bundles an ``nn.Module`` with pure functions over a flat
+parameter dict (``loss_fn``, ``metric_fn``), so local training can take
+gradients with ``torch.func`` and map over a stacked client axis.  Batches
+are dicts ``{"x": [B, ...], "y": [B], "mask": [B]}``; the mask keeps padded
+rows out of loss, gradient and metrics."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
+
+from fedml_tpu_torch.core.pytree import Tree, tree_keys
+
+Batch = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# client optimizers, written out so they match optax's arithmetic
+# ---------------------------------------------------------------------------
+
+class SGD:
+    """optax.sgd(lr): the update is ``-lr * g``."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params: Tree) -> Dict:
+        return {}
+
+    def update(self, grads: Tree, state: Dict, params: Tree):
+        return {k: (-self.lr) * g for k, g in grads.items()}, state
+
+
+class AMSGrad:
+    """optax ``add_decayed_weights(wd) -> scale_by_amsgrad() ->
+    scale(-lr)``.  optax takes the running max over the *bias-corrected*
+    second moment, where ``torch.optim.Adam(amsgrad=True)`` takes it over
+    the raw one, so torch's optimizer cannot stand in for it."""
+
+    def __init__(self, lr: float, wd: float = 0.0, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.wd, self.b1, self.b2, self.eps = lr, wd, b1, b2, eps
+
+    def init(self, params: Tree) -> Dict:
+        z = {k: torch.zeros_like(v) for k, v in params.items()}
+        device = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                "mu": z, "nu": dict(z), "nu_max": dict(z)}
+
+    def update(self, grads: Tree, state: Dict, params: Tree):
+        b1, b2 = self.b1, self.b2
+        count = state["count"] + 1
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32), c)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32), c)
+        mu, nu, nu_max, updates = {}, {}, {}, {}
+        for k in tree_keys(grads):
+            g = grads[k] + self.wd * params[k]
+            mu[k] = (1 - b1) * g + b1 * state["mu"][k]
+            nu[k] = (1 - b2) * (g * g) + b2 * state["nu"][k]
+            nu_max[k] = torch.maximum(state["nu_max"][k], nu[k] / bc2)
+            u = (mu[k] / bc1) / (torch.sqrt(nu_max[k]) + self.eps)
+            updates[k] = (-self.lr) * u
+        return updates, {"count": count, "mu": mu, "nu": nu,
+                         "nu_max": nu_max}
+
+
+def make_client_optimizer(name: str, lr: float, wd: float = 0.0):
+    """"sgd" -> plain SGD(lr); anything else -> AMSGrad with coupled
+    weight decay."""
+    if name == "sgd":
+        return SGD(lr)
+    return AMSGrad(lr, wd)
+
+
+# ---------------------------------------------------------------------------
+# the workload
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """``loss_fn(params, batch) -> (loss, aux)``;
+    ``metric_fn(params, batch) -> dict of summable metrics`` (including
+    ``correct``, ``loss_sum`` and ``total``)."""
+    model: nn.Module
+    loss_fn: Callable[[Tree, Batch], tuple]
+    metric_fn: Callable[[Tree, Batch], Dict[str, torch.Tensor]]
+    grad_clip_norm: Optional[float] = None
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device="cpu") -> Tree:
+        """Fresh parameters in JAX's leaf order, drawn on the CPU from
+        ``generator`` (so one seed gives the same weights on any device)."""
+        for m in self.model.modules():
+            if m is not self.model and hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+        params = {k.replace(".", "/"): p.detach().clone()
+                  for k, p in self.model.named_parameters()}
+        return {k: params[k].to(device) for k in tree_keys(params)}
+
+
+def apply_model(model: nn.Module, params: Tree, x: torch.Tensor
+                ) -> torch.Tensor:
+    return functional_call(model, {k.replace("/", "."): v
+                                   for k, v in params.items()}, (x,))
+
+
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def ClassificationWorkload(model: nn.Module, num_classes: int,
+                           grad_clip_norm: Optional[float] = 1.0
+                           ) -> Workload:
+    """Softmax cross-entropy on logits, mean over valid rows; metrics sum
+    top-1 (and top-5 above 5 classes) hits, loss and row count."""
+
+    def _ce(params, batch):
+        logits = apply_model(model, params, batch["x"]).to(torch.float32)
+        ce = F.cross_entropy(logits, batch["y"].long(), reduction="none")
+        return logits, ce
+
+    def loss_fn(params, batch):
+        _, ce = _ce(params, batch)
+        loss = _masked_mean(ce, batch["mask"])
+        return loss, {"loss": loss}
+
+    def metric_fn(params, batch):
+        logits, ce = _ce(params, batch)
+        y, mask = batch["y"].long(), batch["mask"]
+        pred = torch.argmax(logits, dim=-1)
+        out = {"correct": torch.sum((pred == y) * mask),
+               "loss_sum": torch.sum(ce * mask),
+               "total": torch.sum(mask)}
+        if num_classes > 5:
+            top5 = torch.topk(logits, 5, dim=-1).indices
+            in5 = torch.any(top5 == y[..., None], dim=-1)
+            out["correct_top5"] = torch.sum(in5 * mask)
+        return out
+
+    return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
+                    grad_clip_norm=grad_clip_norm)

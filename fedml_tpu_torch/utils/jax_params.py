@@ -1,0 +1,45 @@
+"""Carry parameters across the JAX package and the port.
+
+The port stores parameters in flax's layout (conv kernels HWIO, dense
+kernels ``[in, out]``) under flax's paths, so the carry is a renaming:
+``{"Dense_0": {"kernel": a}}`` <-> ``{"Dense_0/kernel": tensor(a)}``.
+Inputs and outputs on the JAX side are nested dicts of numpy arrays (pass
+``jax.tree.map(np.asarray, params)``); this module imports no JAX."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from fedml_tpu_torch.core.pytree import Tree, tree_keys
+
+
+def params_from_numpy(tree: Dict[str, Any], device="cpu") -> Tree:
+    """Nested dict of arrays -> the port's flat dict, in JAX's leaf
+    order."""
+    flat: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(v, path)
+            else:
+                flat[path] = torch.as_tensor(np.array(v)).to(device)
+
+    walk(tree, "")
+    return {k: flat[k] for k in tree_keys(flat)}
+
+
+def params_to_numpy(params: Tree) -> Dict[str, Any]:
+    """The port's flat dict -> nested dict of numpy arrays."""
+    out: Dict[str, Any] = {}
+    for k in tree_keys(params):
+        *parents, leaf = k.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = params[k].detach().cpu().numpy()
+    return out

@@ -1,0 +1,67 @@
+"""The PyTorch port stands alone: every module of ``fedml_tpu_torch``, and
+``chip_smoke.py``, imports with JAX and the JAX package blocked, and the
+GPU entry points refuse to run without a GPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "fedml_tpu")
+
+_IMPORT_ALL = f"""
+import sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None          # any import of it raises ImportError
+import importlib, pkgutil
+import fedml_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(fedml_tpu_torch.__path__,
+                                              "fedml_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in {BLOCKED!r} and sys.modules[k] is not None)
+assert not leaked, leaked
+print(len(mods))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def _run(args, **kw):
+    return subprocess.run([sys.executable, *args], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120, **kw)
+
+
+def test_port_imports_without_jax():
+    out = _run(["-c", _IMPORT_ALL])
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_chip_smoke_refuses_without_gpu():
+    """No GPU here: chip_smoke.py must exit non-zero and print no result."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-GPU refusal cannot be shown")
+    out = _run([str(ROOT / "chip_smoke.py")])
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_cli_refuses_without_gpu_unless_cpu_asked():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-GPU refusal cannot be shown")
+    out = _run(["-m", "fedml_tpu_torch", "--comm_round", "1"])
+    assert out.returncode != 0
+    assert "--platform cpu" in out.stderr
