@@ -18,7 +18,19 @@ each printed as it ends; any failure exits non-zero:
    rounds, through the CLI's runner; the kernel's launches in that run
    must cover every leaf of every round.  Then one round from the same
    init and seed words with TF32 off, held against the port on the CPU;
-5. a JSON line with each kernel's numbers, and a last line
+5. kernel secagg_mask — the fused quantize + pairwise-mask kernel against
+   its plain PyTorch version at every leaf size of the CNN (and one odd
+   size), groups of 5 and 10: bit-equal ring values, and the masked ring
+   sum equal to the unmasked one (the masks cancel on the card); kernel /
+   plain times, the wrapper's host cost, the bytes and operations bounds;
+6. turboaggregate slice — secure FedAvg (two groups of 5, cuda backend) on
+   the same CNN, data and widths, 3 rounds through the CLI's runner: the
+   kernel launches exactly 8 leaves x 2 groups x 3 rounds; a per-part
+   split of a round and the device's idle share; one round with TF32 off
+   against the CPU (limit clients_per_group / scale + 1e-4); one round
+   with group 1 recovered from its LCC shares against the direct round
+   (limit 1e-3);
+7. a JSON line with each kernel's numbers, and a last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, when there is
@@ -27,6 +39,7 @@ no CUDA device or when the checkout around this file is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -40,12 +53,17 @@ N_CLIENTS = 10
 SIGMA = 0.025                  # the weak-DP stddev of the slice
 KERNEL_TOL = 1e-5              # kernel vs plain, same device
 ROUND_TOL = 1e-4               # GPU round (TF32 off) vs CPU round
-SLICE_ARGS = ["--algo", "fedavg_robust", "--model", "cnn_fedavg",
-              "--dataset", "femnist", "--defense", "weak_dp",
-              "--defense_backend", "cuda", "--client_num_in_total", "3400",
-              "--client_num_per_round", str(N_CLIENTS), "--batch_size", "20",
-              "--lr", "0.1", "--epochs", "1", "--comm_round", "3",
-              "--frequency_of_the_test", "1000", "--log_stdout", "false"]
+COMMON_ARGS = ["--model", "cnn_fedavg", "--dataset", "femnist",
+               "--client_num_in_total", "3400",
+               "--client_num_per_round", str(N_CLIENTS), "--batch_size", "20",
+               "--lr", "0.1", "--epochs", "1", "--comm_round", "3",
+               "--frequency_of_the_test", "1000", "--log_stdout", "false"]
+SLICE_ARGS = ["--algo", "fedavg_robust", "--defense", "weak_dp",
+              "--defense_backend", "cuda", *COMMON_ARGS]
+TURBO_ARGS = ["--algo", "turboaggregate", "--group_num", "2",
+              "--secagg_backend", "cuda", *COMMON_ARGS]
+GROUP_SIZES = (5, 10)          # secagg_mask check: the slice's group, 2x
+DROPOUT_TOL = 1e-3             # tests/test_secure.py's recovery limit
 
 
 def fail(msg: str) -> None:
@@ -297,6 +315,22 @@ def profile_rounds(data_cfg, data, rounds: int = 5):
     return result
 
 
+@contextlib.contextmanager
+def tf32_off():
+    """Full-f32 convolutions and matmuls inside the block, the previous
+    settings after it."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def round_parity(data_cfg, data):
     """One round on the GPU with TF32 off against the same round on the
     CPU: same init, same cohort, same seed words."""
@@ -310,29 +344,287 @@ def round_parity(data_cfg, data):
     from fedml_tpu_torch.experiments.main import (_fedavg_cfg_kwargs,
                                                   _make_workload)
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(data_cfg, comm_round=1)
     ids = sample_clients(0, data.client_num, cfg.client_num_per_round)
     words = round_seed_words(cfg.seed, 0)
     out = {}
-    for dev in ("cuda", "cpu"):
-        algo = FedAvgRobust(_make_workload(cfg, data), data,
-                            FedAvgRobustConfig(
-                                defense=cfg.defense,
-                                norm_bound=cfg.norm_bound,
-                                stddev=cfg.stddev,
-                                defense_backend=cfg.defense_backend,
-                                **_fedavg_cfg_kwargs(cfg)), device=dev)
-        cohort = gather_cohort(data.train, ids,
-                               pad_to=cfg.client_num_per_round, device=dev)
-        params, _ = algo.cohort_step(algo.init_params(), cohort, words)
-        out[dev] = {k: v.cpu() for k, v in params.items()}
+    with tf32_off():
+        for dev in ("cuda", "cpu"):
+            algo = FedAvgRobust(_make_workload(cfg, data), data,
+                                FedAvgRobustConfig(
+                                    defense=cfg.defense,
+                                    norm_bound=cfg.norm_bound,
+                                    stddev=cfg.stddev,
+                                    defense_backend=cfg.defense_backend,
+                                    **_fedavg_cfg_kwargs(cfg)), device=dev)
+            cohort = gather_cohort(data.train, ids,
+                                   pad_to=cfg.client_num_per_round,
+                                   device=dev)
+            params, _ = algo.cohort_step(algo.init_params(), cohort, words)
+            out[dev] = {k: v.cpu() for k, v in params.items()}
     diff = max(float((out["cuda"][k] - out["cpu"][k]).abs().max())
                for k in out["cpu"])
     phase("slice round vs cpu", max_abs_diff=diff, tol=ROUND_TOL, tf32=False)
     if not diff <= ROUND_TOL:
         fail(f"GPU round differs from the CPU round by {diff} > {ROUND_TOL}")
+    return diff
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host time of one call of ``fn`` (µs): the enqueue cost, with the
+    device drained before and after."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def secagg_mask_bounds(rows: int, n: int, d: int):
+    """Bytes and operations the kernel must move and do for ``rows`` client
+    rows of an ``n``-client group over ``d`` elements: x read and the ring
+    values written once (plus weights and seeds); per (row, element) 15
+    operations for the quantize and the index hash, 10 per partner."""
+    nbytes = 4 * (2 * rows * d + rows + 2 * rows * n)
+    ops = rows * d * (15 + 10 * (n - 1))
+    return nbytes, ops
+
+
+def check_secagg_kernel(leaf_sizes):
+    """Phase 5: secagg_mask against quantize_mask_plain on the card."""
+    import torch
+    from fedml_tpu_torch.core import prng
+    from fedml_tpu_torch.secure import fused_mask as fm
+    from fedml_tpu_torch.secure.secagg import (quantize, ring_budget_scale,
+                                               ring_sum)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    clip = 2.0**14
+    sizes = dict(leaf_sizes, odd=1_000_003)
+    rows_out, worst = [], 0
+    for n in GROUP_SIZES:
+        scale = ring_budget_scale(n, clip)
+        base = fm.pair_seeds(prng.fold_in(prng.key(0), n), 0, n, n)
+        for li, (name, d) in enumerate(sizes.items()):
+            x = torch.randn(n, d, generator=gen, device=dev) * 3
+            w = torch.rand(n, generator=gen, device=dev) + 0.5
+            w[-1] = 0.0
+            w = (w / w.sum()).contiguous()
+            seeds = torch.as_tensor(fm.leaf_seeds(base, li)).to(dev)
+            args = (x, w, seeds, 0, scale, clip)
+            got = fm.quantize_mask(*args)
+            want = fm.quantize_mask_plain(*args)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64))
+                      .abs().max())
+            worst = max(worst, err)
+            if not torch.equal(got, want):
+                fail(f"secagg_mask {name} (D={d}, N={n}): ring values differ "
+                     f"from the plain version (max abs {err})")
+            q = quantize({"x": x * w[:, None]}, scale, clip)["x"]
+            cancel = torch.equal(ring_sum({"x": got})["x"],
+                                 ring_sum({"x": q})["x"])
+            if not cancel:
+                fail(f"secagg_mask {name} (D={d}, N={n}): the masks do not "
+                     f"cancel in the ring sum")
+            kernel = lambda: fm.quantize_mask(*args)
+            plain = lambda: fm.quantize_mask_plain(*args)
+            call_ms = time_ms(kernel, reps=50)
+            if n == GROUP_SIZES[0]:           # the main path's group size
+                ms = device_ms(kernel, 20, "secagg_mask_kernel") or call_ms
+                plain_ms = device_ms(plain, 3) or time_ms(plain, 3, trials=3)
+            else:                             # CUDA events only
+                ms, plain_ms = call_ms, time_ms(plain, 3, trials=3)
+            nbytes, ops = secagg_mask_bounds(n, n, d)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           ops / FP32_OPS_PER_S) * 1e3
+            row = dict(leaf=name, d=d, n=n, bit_equal=True,
+                       masks_cancel=cancel, max_abs_err=err, ms=ms,
+                       call_ms=call_ms, host_us=host_us(kernel),
+                       plain_ms=plain_ms, bound_us=bound_ms * 1e3,
+                       bytes_us=nbytes / HBM_BYTES_PER_S * 1e6,
+                       ops_us=ops / FP32_OPS_PER_S * 1e6,
+                       bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                                 >= ops / FP32_OPS_PER_S else "operations"))
+            phase("kernel secagg_mask", **row)
+            rows_out.append(row)
+            del x, got, want, q
+    return rows_out, worst
+
+
+def _turbo(cfg, data, device):
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregate
+    from fedml_tpu_torch.experiments.main import (_make_workload,
+                                                  turboaggregate_config)
+    return TurboAggregate(_make_workload(cfg, data), data,
+                          turboaggregate_config(cfg), device=device)
+
+
+def run_turbo_slice(turbo_cfg, data):
+    """Phase 6: secure FedAvg at full width through the CLI's runner."""
+    import torch
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.experiments.main import run_turboaggregate
+    from fedml_tpu_torch.secure import fused_mask
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    fused_agg.reset_launch_counts()
+    fused_mask.reset_launch_counts()
+    t0 = time.perf_counter()
+    with MetricsSink(None) as sink:
+        summary = run_turboaggregate(turbo_cfg, data, sink)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fused_mask.launch_counts["secagg_mask"]
+    need = 8 * turbo_cfg.group_num * turbo_cfg.comm_round
+    if launches != need:
+        fail(f"turboaggregate launched secagg_mask {launches} times, need "
+             f"exactly {need} (8 leaves x {turbo_cfg.group_num} groups x "
+             f"{turbo_cfg.comm_round} rounds)")
+    if fused_agg.launch_counts["robust_agg"]:
+        fail("turboaggregate launched robust_agg")
+    if not summary.get("params_finite"):
+        fail("turboaggregate produced non-finite parameters")
+    phase("turboaggregate slice", launches=launches, run_s=run_s,
+          rounds_per_s=summary["rounds_per_s"],
+          test_acc=summary["test_acc"], test_loss=summary["test_loss"],
+          train_acc=summary["train_acc"], params_finite=True)
+    return launches, summary
+
+
+def profile_turbo(turbo_cfg, data, rounds: int = 5):
+    """Where a secure round's time goes: host timers (synchronised) around
+    the gather, local SGD, the mask kernel, the ring sum + dequantize and
+    the group combine, summed over the groups of a round; then
+    torch.profiler over ``rounds`` whole rounds for the device's idle
+    share.  Launches here come after the main path's counts were read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fedml_tpu_torch.core.pytree import tree_weighted_mean
+    from fedml_tpu_torch.data.stacking import gather_cohort
+    from fedml_tpu_torch.parallel.cohort import train_cohort
+    from fedml_tpu_torch.secure.secagg import ring_sum
+
+    algo = _turbo(turbo_cfg, data, "cuda")
+    agg = algo.secagg
+    params = algo.init_params()
+    names = ("gather_ms", "train_ms", "mask_ms", "ring_sum_dequant_ms",
+             "combine_ms")
+    parts = {k: [] for k in names}
+    by_group = [[] for _ in range(turbo_cfg.group_num)]
+
+    def tick(t):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        return now, (now - t) * 1e3
+
+    for r in range(rounds + 1):                   # round 0 is warm-up
+        acc = dict.fromkeys(names, 0.0)
+        means, weights = [], []
+        keys = algo.group_keys(r)
+        for g, gids in enumerate(algo.group_ids(r)):
+            t = time.perf_counter()
+            cohort = gather_cohort(data.train, gids,
+                                   pad_to=agg.num_clients, device="cuda")
+            t, dt = tick(t)
+            acc["gather_ms"] += dt
+            trained, _ = train_cohort(algo._local_train, params, cohort)
+            t, dt = tick(t)
+            acc["train_ms"] += dt
+            if r:
+                by_group[g].append(dt)
+            num = cohort["num_samples"].to(torch.float32)
+            w = num / torch.clamp(num.sum(), min=1e-12)
+            masked = agg.mask_rows(trained, w, 0, keys[g])
+            t, dt = tick(t)
+            acc["mask_ms"] += dt
+            means.append(agg.unmask_sum(ring_sum(masked), 1.0))
+            weights.append(float(num.sum()))
+            t, dt = tick(t)
+            acc["ring_sum_dequant_ms"] += dt
+        t = time.perf_counter()
+        params = tree_weighted_mean(means, torch.tensor(weights))
+        _, acc["combine_ms"] = tick(t)
+        if r:
+            for k in names:
+                parts[k].append(acc[k])
+    row = {k: statistics.median(v) for k, v in parts.items()}
+    row["round_ms"] = sum(row.values())
+    row["train_ms_by_group"] = [statistics.median(v) for v in by_group]
+    alone = []                  # one group's local SGD, back to back
+    for _ in range(5):
+        t = time.perf_counter()
+        train_cohort(algo._local_train, params, cohort)
+        alone.append(tick(t)[1])
+    row["train_ms_one_group_alone"] = statistics.median(alone)
+
+    def run_rounds():
+        p = params
+        for r in range(rounds):
+            p = algo.train_round(p, r)
+        torch.cuda.synchronize()
+
+    run_rounds()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_rounds()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
+    busy_us = sum(_self_device_us(e) for e in events)
+    row["profiled_round_ms"] = wall_us / rounds / 1e3
+    row["device_busy_ms_per_round"] = busy_us / rounds / 1e3
+    row["device_idle_share"] = (1 - busy_us / wall_us) if busy_us else None
+    row["kernel_launches_per_round"] = sum(e.count for e in events) / rounds
+    row["mask_kernel_device_ms_per_round"] = sum(
+        _self_device_us(e) for e in events
+        if "secagg_mask_kernel" in e.key) / rounds / 1e3
+    top = sorted(events, key=_self_device_us, reverse=True)[:6]
+    row["top_device_us_per_round"] = {
+        e.key[:60]: _self_device_us(e) / rounds for e in top}
+    phase("profile turboaggregate", **row)
+    return row
+
+
+def turbo_round_parity(turbo_cfg, data):
+    """One secure round with TF32 off on the GPU against the same round on
+    the CPU, from the same carried init: each client's quantized value may
+    flip by one quantum."""
+    algo = {dev: _turbo(turbo_cfg, data, dev) for dev in ("cuda", "cpu")}
+    init = algo["cpu"].init_params()
+    out = {}
+    with tf32_off():
+        for dev, a in algo.items():
+            params = a.train_round({k: v.to(dev) for k, v in init.items()},
+                                   0)
+            out[dev] = {k: v.cpu() for k, v in params.items()}
+    tol = algo["cpu"].cfg.clients_per_group / algo["cpu"].quant_scale + 1e-4
+    diff = max(float((out["cuda"][k] - out["cpu"][k]).abs().max())
+               for k in out["cpu"])
+    phase("turboaggregate round vs cpu", max_abs_diff=diff, tol=tol,
+          tf32=False)
+    if not diff <= tol:
+        fail(f"GPU secure round differs from the CPU round by {diff} > {tol}")
+    return diff
+
+
+def turbo_dropout(turbo_cfg, data):
+    """One round with group 1's partial recovered from its LCC shares,
+    against the direct round, on the GPU."""
+    a = _turbo(turbo_cfg, data, "cuda")
+    init = a.init_params()
+    direct = a.train_round(init, 0)
+    recovered = a.train_round(init, 0, dropped_groups=[1])
+    diff = max(float((direct[k] - recovered[k]).abs().max()) for k in direct)
+    phase("turboaggregate dropout", max_abs_diff=diff, tol=DROPOUT_TOL,
+          dropped_groups=[1])
+    if not diff < DROPOUT_TOL:
+        fail(f"LCC-recovered round differs from the direct one by {diff}")
     return diff
 
 
@@ -377,6 +669,13 @@ def main() -> None:
     profile_rounds(cfg, data)
     round_diff = round_parity(cfg, data)
 
+    mask_rows, mask_worst = check_secagg_kernel(leaf_sizes)
+    turbo_cfg = config_from_argv(TURBO_ARGS)
+    mask_launches, turbo = run_turbo_slice(turbo_cfg, data)
+    profile_turbo(turbo_cfg, data)
+    turbo_diff = turbo_round_parity(turbo_cfg, data)
+    dropout_diff = turbo_dropout(turbo_cfg, data)
+
     path = [r for r in rows if r["leaf"] in leaf_sizes]
     noisy = [r for r in path if r["sigma"]]
     clean = [r for r in path if not r["sigma"]]
@@ -392,9 +691,28 @@ def main() -> None:
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in clean),
     }]
+    # one round of the secure slice: 8 leaves x group_num groups of 5
+    group = [r for r in mask_rows if r["leaf"] in leaf_sizes
+             and r["n"] == GROUP_SIZES[0]]
+    per_round = turbo_cfg.group_num
+    kernels.append({
+        "name": "secagg_mask", "route": "cuda",
+        "source": "fedml_tpu_torch/csrc/secagg_mask.cu",
+        "replaces": "fedml_tpu/secure/pallas_mask.py:72",
+        "launches": mask_launches, "max_abs_err": mask_worst,
+        "ms": per_round * sum(r["ms"] for r in group),
+        "plain_ms": per_round * sum(r["plain_ms"] for r in group),
+        "bound_ms": per_round * sum(r["bound_us"] for r in group) / 1e3,
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in group)
+                     else "operations"),
+        "library_ms": None,
+    })
     phase("done", seconds=time.perf_counter() - t_start,
           round_vs_cpu_max_abs_diff=round_diff,
-          rounds_per_s=summary["rounds_per_s"])
+          rounds_per_s=summary["rounds_per_s"],
+          turbo_round_vs_cpu_max_abs_diff=turbo_diff,
+          turbo_dropout_max_abs_diff=dropout_diff,
+          turbo_rounds_per_s=turbo["rounds_per_s"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,11 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-import numpy as np
 import torch
 
+from fedml_tpu_torch.core import prng
 from fedml_tpu_torch.core.pytree import Tree
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.data.stacking import (FederatedData, gather_cohort,
@@ -67,10 +67,45 @@ def sweep_eval_chunks(stacked, chunk: int, run_chunk, device):
     return total
 
 
-def round_seed_words(seed: int, round_idx: int) -> Tuple[int, int]:
-    """The two int32 words that key one round's defense noise."""
-    words = np.random.SeedSequence([seed, round_idx]).generate_state(2)
-    return tuple(int(w) for w in words.view(np.int32))
+def evaluate_global(eval_cohort, data: FederatedData, params: Tree,
+                    chunk: int, device) -> Dict[str, float]:
+    """Weighted train/test metrics of ``params`` over all clients, swept in
+    chunks of ``chunk`` clients when the corpus is larger."""
+    out: Dict[str, float] = {}
+    for split, stacked in (("train", data.train), ("test", data.test)):
+        if stacked is None:
+            continue
+        if chunk and stacked["num_samples"].shape[0] > chunk:
+            m = sweep_eval_chunks(
+                stacked, chunk, lambda part, lo: eval_cohort(params, part),
+                device)
+        else:
+            m = eval_cohort(params, to_device(stacked, device))
+        out.update(stats_from_metrics(m, prefix=f"{split}_"))
+    return out
+
+
+def round_keys(seed: int, drew_init: bool) -> Iterator[prng.Key]:
+    """The round keys of the JAX package's ``FedAvg.run``: from
+    ``key(seed)``, one ``split`` for the init when the run draws its own
+    weights, then one ``split`` per round."""
+    rng = prng.key(seed)
+    if drew_init:
+        rng, _ = prng.split(rng)
+    while True:
+        rng, round_key = prng.split(rng)
+        yield round_key
+
+
+def round_seed_words(seed: int, round_idx: int,
+                     drew_init: bool = True) -> Tuple[int, int]:
+    """The two int32 words that key one round's defense noise: the first
+    two words of that round's key, as the JAX package's fused aggregate
+    takes them."""
+    keys = round_keys(seed, drew_init)
+    for _ in range(round_idx):
+        next(keys)
+    return prng.key_words_int32(next(keys))
 
 
 class FedAvg:
@@ -95,9 +130,6 @@ class FedAvg:
         return sample_clients(round_idx, self.data.client_num,
                               self.cfg.client_num_per_round)
 
-    def _round_seed_words(self, round_idx: int) -> Tuple[int, int]:
-        return round_seed_words(self.cfg.seed, round_idx)
-
     def init_params(self) -> Tree:
         """Fresh weights from ``cfg.seed``, drawn on the CPU, so a seed
         gives the same init on every device."""
@@ -106,6 +138,7 @@ class FedAvg:
 
     def run(self, params: Optional[Tree] = None) -> Tree:
         cfg = self.cfg
+        keys = round_keys(cfg.seed, drew_init=params is None)
         if params is None:
             params = self.init_params()
         params = {k: v.to(self.device) for k, v in params.items()}
@@ -116,7 +149,7 @@ class FedAvg:
                                    pad_to=cfg.client_num_per_round,
                                    device=self.device)
             params, _ = self.cohort_step(params, cohort,
-                                         self._round_seed_words(round_idx))
+                                         prng.key_words_int32(next(keys)))
             synchronize(self.device)
             round_s = time.perf_counter() - t0
             self.round_times.append(round_s)
@@ -134,18 +167,5 @@ class FedAvg:
     def evaluate_global(self, params: Tree) -> Dict[str, float]:
         """Weighted train/test metrics over all clients, swept in chunks of
         ``eval_chunk_clients`` clients when the corpus is larger."""
-        out: Dict[str, float] = {}
-        for split, stacked in (("train", self.data.train),
-                               ("test", self.data.test)):
-            if stacked is None:
-                continue
-            chunk = self.cfg.eval_chunk_clients
-            if chunk and stacked["num_samples"].shape[0] > chunk:
-                m = sweep_eval_chunks(
-                    stacked, chunk,
-                    lambda part, lo: self._eval_cohort(params, part),
-                    self.device)
-            else:
-                m = self._eval_cohort(params, to_device(stacked, self.device))
-            out.update(stats_from_metrics(m, prefix=f"{split}_"))
-        return out
+        return evaluate_global(self._eval_cohort, self.data, params,
+                               self.cfg.eval_chunk_clients, self.device)

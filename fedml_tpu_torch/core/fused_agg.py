@@ -25,6 +25,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from fedml_tpu_torch.core.murmur import (M32, fmix, index_hash, mul32,
+                                         seed_salts, to_int32)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
 from fedml_tpu_torch.core.robust import (_masked_global_norm,
                                          default_is_weight_param)
@@ -47,45 +49,15 @@ def reset_launch_counts() -> None:
 # the noise stream, in int64 tensors holding uint32 values
 # ---------------------------------------------------------------------------
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c: int):
-    """(x * c) mod 2^32 for x < 2^32.  Tensors split c into 16-bit halves
-    so no int64 product overflows."""
-    if not isinstance(x, torch.Tensor):
-        return (x * c) & _M32
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _fmix(x):
-    """murmur3's 32-bit finaliser on a Python int or an int64 tensor."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def _index_hash(d: int, device) -> torch.Tensor:
-    idx = torch.arange(d, dtype=torch.int64, device=device)
-    return _fmix((_mul32(idx, 0x9E3779B9) + 1) & _M32)
-
-
-def _seed_salts(seed0: int, seed1: int) -> Tuple[int, int]:
-    return (_fmix(seed0 & _M32), _fmix((seed1 & _M32) ^ 0x5BD1E995))
-
-
 def _client_salt(s0: int, s1: int, i: int) -> int:
-    return _fmix(s0 ^ ((s1 + _mul32(i, 0x85EBCA6B)) & _M32))
+    return fmix(s0 ^ ((s1 + mul32(i, 0x85EBCA6B)) & M32))
 
 
 def _uniforms(idx_h: torch.Tensor, salt: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two f32 uniforms per element: u1 in (0, 1), u2 in [0, 1)."""
-    bits1 = _fmix(idx_h ^ salt)
-    bits2 = _fmix(bits1 ^ 0x27D4EB2F)
+    bits1 = fmix(idx_h ^ salt)
+    bits2 = fmix(bits1 ^ 0x27D4EB2F)
     u1 = (bits1 >> 8).to(torch.float32) * (2.0 ** -24) + (2.0 ** -25)
     u2 = (bits2 >> 8).to(torch.float32) * (2.0 ** -24)
     return u1, u2
@@ -97,8 +69,8 @@ def _gaussian(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
 
 def noise_uniforms_plain(d: int, seed0: int, seed1: int, client: int,
                          device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    s0, s1 = _seed_salts(seed0, seed1)
-    return _uniforms(_index_hash(d, device), _client_salt(s0, s1, client))
+    s0, s1 = seed_salts(seed0, seed1)
+    return _uniforms(index_hash(d, device), _client_salt(s0, s1, client))
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +86,8 @@ def robust_agg_plain(x: torch.Tensor, g: torch.Tensor, scales: torch.Tensor,
     gf = g.to(torch.float32)
     acc = torch.zeros(d, dtype=torch.float32, device=x.device)
     if sigma:
-        idx_h = _index_hash(d, x.device)
-        s0, s1 = _seed_salts(seed0, seed1)
+        idx_h = index_hash(d, x.device)
+        s0, s1 = seed_salts(seed0, seed1)
     for i in range(n):
         term = gf + scales[i] * (x[i].to(torch.float32) - gf)
         if sigma:
@@ -142,12 +114,6 @@ def _lib():
         lib.noise_uniforms_f32.restype = i32
         _lib_handle = lib
     return _lib_handle
-
-
-def _int32(v: int) -> int:
-    """Reinterpret the low 32 bits as a signed int32."""
-    v &= _M32
-    return v - (1 << 32) if v >= (1 << 31) else v
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -178,8 +144,8 @@ def robust_agg(x: torch.Tensor, g: torch.Tensor, scales: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib().robust_agg_f32(
             x.data_ptr(), g.data_ptr(), scales.data_ptr(), ratios.data_ptr(),
-            out.data_ptr(), x.shape[0], x.shape[1], _int32(seed0),
-            _int32(seed1), float(sigma), stream)
+            out.data_ptr(), x.shape[0], x.shape[1], to_int32(seed0),
+            to_int32(seed1), float(sigma), stream)
     if rc != 0:
         raise RuntimeError(f"robust_agg kernel launch failed: CUDA error "
                            f"{rc}")
@@ -198,8 +164,9 @@ def noise_uniforms(d: int, seed0: int, seed1: int, client: int,
     u2 = torch.empty_like(u1)
     with torch.cuda.device(device):
         rc = _lib().noise_uniforms_f32(
-            u1.data_ptr(), u2.data_ptr(), d, _int32(seed0), _int32(seed1),
-            client, torch.cuda.current_stream(device).cuda_stream)
+            u1.data_ptr(), u2.data_ptr(), d, to_int32(seed0),
+            to_int32(seed1), client,
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"noise_uniforms kernel launch failed: CUDA "
                            f"error {rc}")
@@ -260,7 +227,7 @@ def make_fused_robust_aggregate(norm_bound: Optional[float] = None,
                 x.reshape(n, -1).to(torch.float32).contiguous(),
                 g.reshape(-1).to(torch.float32).contiguous(),
                 scales if is_weight(k) else ones, ratios,
-                _int32(seed0 + li * 31337), _int32(seed1 + li * 31337),
+                to_int32(seed0 + li * 31337), to_int32(seed1 + li * 31337),
                 float(noise_std))
             out[k] = agg.reshape(g.shape).to(g.dtype)
         return out

@@ -1,7 +1,7 @@
 """The experiment config of the port (the subset of
 ``fedml_tpu/experiments/config.py`` this slice runs, same flag names and
-defaults).  ``defense_backend`` takes the port's names: ``torch`` (twin of
-``xla``) and ``cuda`` (twin of ``pallas``)."""
+defaults).  ``defense_backend`` and ``secagg_backend`` take the port's
+names: ``torch`` (twin of ``xla``) and ``cuda`` (twin of ``pallas``)."""
 
 from __future__ import annotations
 
@@ -33,6 +33,10 @@ class ExperimentConfig:
     stddev: float = 0.025                # robust: weak-DP noise
     defense: str = "weak_dp"             # robust: none|norm_diff_clipping|weak_dp
     defense_backend: str = "torch"       # robust: "torch" | "cuda" (fused)
+
+    group_num: int = 2                   # turboaggregate: groups per round
+    drop_tolerance: int = 1              # turboaggregate
+    secagg_backend: str = "torch"        # turboaggregate: "torch" | "cuda"
 
     mesh_clients: int = 0                # >0 is not ported (refused)
     client_axis: str = "vmap"            # "vmap" | "scan"

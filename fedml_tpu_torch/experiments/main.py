@@ -1,14 +1,19 @@
 """``python -m fedml_tpu_torch`` — the port's entry point.
 
-Runs ``fedavg`` and ``fedavg_robust`` on the hermetic twins, on the GPU
-unless ``--platform cpu`` is given, writes ``metrics.jsonl`` and
-``summary.json`` into ``--run_dir`` and prints one final JSON summary
-line.  Example, the FEMNIST-CNN defended-FedAvg configuration:
+Runs ``fedavg``, ``fedavg_robust`` and ``turboaggregate`` on the hermetic
+twins, on the GPU unless ``--platform cpu`` is given, writes
+``metrics.jsonl`` and ``summary.json`` into ``--run_dir`` and prints one
+final JSON summary line.  Examples, the FEMNIST-CNN configurations of the
+defended FedAvg and of secure FedAvg:
 
     python -m fedml_tpu_torch --algo fedavg_robust --model cnn_fedavg \\
         --dataset femnist --defense weak_dp --defense_backend cuda \\
         --client_num_in_total 3400 --client_num_per_round 10 \\
         --batch_size 20 --lr 0.1 --epochs 1 --comm_round 3
+    python -m fedml_tpu_torch --algo turboaggregate --model cnn_fedavg \\
+        --dataset femnist --client_num_in_total 3400 \\
+        --client_num_per_round 10 --group_num 2 --batch_size 20 --lr 0.1 \\
+        --epochs 1 --comm_round 3 --secagg_backend cuda
 """
 
 from __future__ import annotations
@@ -88,6 +93,28 @@ def run_fedavg_robust(cfg, data, sink):
         defense=cfg.defense, norm_bound=cfg.norm_bound, stddev=cfg.stddev,
         defense_backend=cfg.defense_backend, **_fedavg_cfg_kwargs(cfg)),
         sink=sink, device=cfg.platform)
+    return _summary(algo, algo.run())
+
+
+def turboaggregate_config(cfg: ExperimentConfig):
+    """The JAX runner's mapping: groups of ``max(2, per_round //
+    group_num)`` clients."""
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateConfig
+    return TurboAggregateConfig(
+        comm_round=cfg.comm_round, group_num=cfg.group_num,
+        clients_per_group=max(2, cfg.client_num_per_round // cfg.group_num),
+        drop_tolerance=cfg.drop_tolerance, epochs=cfg.epochs, lr=cfg.lr,
+        client_optimizer=cfg.client_optimizer, seed=cfg.seed,
+        secagg_backend=cfg.secagg_backend,
+        eval_chunk_clients=cfg.eval_chunk_clients)
+
+
+@runner("turboaggregate")
+def run_turboaggregate(cfg, data, sink):
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregate
+    algo = TurboAggregate(_make_workload(cfg, data), data,
+                          turboaggregate_config(cfg), sink=sink,
+                          device=cfg.platform)
     return _summary(algo, algo.run())
 
 

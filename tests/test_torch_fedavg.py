@@ -3,9 +3,9 @@
 Port twins of ``tests/test_fedavg_oracle.py`` (full-batch FedAvg ==
 centralized, cohort == sequential clients, scan == vmap, chunked eval ==
 one sweep, padded clients are no-ops), and whole runs from a shared init
-with the port's round seed words replaced by the JAX package's (the
-``key_data`` of each round's key), so the fused defense's noise stream is
-the same on both sides.  Tolerances are stated per test; they cover f32
+and one ``seed``: the port's round seed words follow the JAX package's
+threefry key chain (the ``key_data`` of each round's key), so the fused
+defense's noise stream is the same on both sides.  Tolerances are stated per test; they cover f32
 sums taken in another order and a few ulps of log/cos in the noise."""
 
 import dataclasses
@@ -29,6 +29,7 @@ from fedml_tpu.models import LogisticRegression as JLR
 from fedml_tpu.trainer.workload import ClassificationWorkload as JWorkload
 from fedml_tpu_torch.algorithms import (FedAvg, FedAvgConfig, FedAvgRobust,
                                         FedAvgRobustConfig)
+from fedml_tpu_torch.algorithms.fedavg import round_seed_words
 from fedml_tpu_torch.core import fused_agg
 from fedml_tpu_torch.core.pytree import tree_weighted_mean
 from fedml_tpu_torch.data import load_data
@@ -79,6 +80,19 @@ def _jax_round_words(key, rounds):
         data = np.asarray(jax.random.key_data(round_key)).astype(np.uint32)
         words.append(tuple(int(v) for v in data.view(np.int32)[:2]))
     return words
+
+
+@pytest.mark.parametrize("drew_init", [False, True])
+@pytest.mark.parametrize("seed", [0, 4, 9, 12345, 2**31 - 1])
+def test_round_seed_words_follow_jax_chain(seed, drew_init):
+    """The port's round seed words == the words JAX's FedAvg.run hands its
+    fused aggregate: key(seed), one split for the init when the run draws
+    its own weights, then one split per round."""
+    key = jax.random.key(seed)
+    if drew_init:
+        key, _ = jax.random.split(key)
+    want = _jax_round_words(key, 4)
+    assert [round_seed_words(seed, r, drew_init) for r in range(4)] == want
 
 
 def _close(got, want, atol, rtol=0.0):
@@ -180,21 +194,20 @@ def test_padded_dummy_clients_are_noops():
 
 
 def _robust_pair(defense, j_data, t_data, jwl, twl, rounds, per_round, lr,
-                 key):
+                 seed):
     """JAX (pallas backend, interpreter) and port (cuda backend, plain on
-    the CPU) runs of FedAvgRobust from one init and one seed schedule."""
+    the CPU) runs of FedAvgRobust from one init and one seed: each package
+    derives its own round seed words."""
     common = dict(comm_round=rounds, client_num_per_round=per_round,
                   batch_size=int(t_data.train["x"].shape[2]), lr=lr,
                   frequency_of_the_test=1000, defense=defense,
-                  norm_bound=0.5, stddev=0.01)
+                  norm_bound=0.5, stddev=0.01, seed=seed)
     j_algo = JRobust(jwl, j_data, JRobustConfig(defense_backend="pallas",
                                                 **common))
     p0, tp0 = _shared_init(jwl, j_data)
-    want = j_algo.run(params=jax.tree.map(jnp.copy, p0), rng=key)
+    want = j_algo.run(params=jax.tree.map(jnp.copy, p0))
     algo = FedAvgRobust(twl, t_data, FedAvgRobustConfig(
         defense_backend="cuda", **common), device="cpu")
-    words = _jax_round_words(key, rounds)
-    algo._round_seed_words = lambda r: words[r]
     got = algo.run(params=tp0)
     return got, want, algo, j_algo, p0
 
@@ -210,7 +223,7 @@ def test_robust_three_rounds_lr_matches_jax(defense):
     jwl, twl = _lr_pair(dim=784, classes=10, clip=1.0)
     got, want, algo, j_algo, p0 = _robust_pair(
         defense, j_data, t_data, jwl, twl, rounds=3, per_round=5, lr=0.1,
-        key=jax.random.key(4))
+        seed=4)
     _close(got, want, atol=2e-5)
     moved = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
                 for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(p0)))
@@ -234,7 +247,7 @@ def test_robust_one_round_cnn_matches_jax():
     fused_agg.reset_launch_counts()
     got, want, _, _, _ = _robust_pair(
         "weak_dp", j_data, t_data, jwl, twl, rounds=1, per_round=3, lr=0.1,
-        key=jax.random.key(9))
+        seed=9)
     _close(got, want, atol=5e-5)
     assert fused_agg.launch_counts["robust_agg"] == 0   # CPU: plain version
 

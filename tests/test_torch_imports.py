@@ -45,7 +45,27 @@ def _run(args, **kw):
 def test_port_imports_without_jax():
     out = _run(["-c", _IMPORT_ALL])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    assert int(out.stdout.strip().splitlines()[-1]) >= 26
+
+
+SLICE_MODULES = ("fedml_tpu_torch.core.prng", "fedml_tpu_torch.core.murmur",
+                 "fedml_tpu_torch.secure", "fedml_tpu_torch.secure.field",
+                 "fedml_tpu_torch.secure.secagg",
+                 "fedml_tpu_torch.secure.fused_mask",
+                 "fedml_tpu_torch.algorithms.turboaggregate")
+
+
+def test_secure_slice_modules_import_without_jax():
+    """The secure-aggregation slice's modules, each named, import with JAX
+    and the JAX package blocked (its numpy field module included: the port
+    keeps its own copy)."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            f"    importlib.import_module(m)\nprint('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_chip_smoke_refuses_without_gpu():
