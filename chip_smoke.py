@@ -30,7 +30,20 @@ each printed as it ends; any failure exits non-zero:
    against the CPU (limit clients_per_group / scale + 1e-4); one round
    with group 1 recovered from its LCC shares against the direct round
    (limit 1e-3);
-7. a JSON line with each kernel's numbers, and a last line
+7. kernel shard_finalize — the fused shard finalize (K2) against its plain
+   PyTorch version at the FEMNIST CNN's four shard sizes at S=4, at S=1
+   and at one odd size, sigma 0 (bit-equal) and 0.025 (bit-equal noise
+   uniforms; the output within 1e-6 abs), with a non-zero step and shard
+   salt: device time per launch, the wrapper's host cost, the plain
+   version's and ``torch.div``'s times, the bytes and operations bounds;
+8. cross-silo slice — live cross-silo FedAvg over the in-process hub with
+   the sharded spine (S=4, K2 on, clip 5.0, sigma 0.025) on the same CNN,
+   data and widths, 3 rounds through the CLI's runner: K2 launches exactly
+   4 x 3 times and K1 and K3 never; a per-part split of 5 rounds
+   (broadcast, wire, silo training, admission, fold, finalize, eval), the
+   kernel launches per round and the device's idle share; one round with
+   TF32 off against the CPU (limit 1e-4);
+9. a JSON line with each kernel's numbers, and a last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, when there is
@@ -64,6 +77,12 @@ TURBO_ARGS = ["--algo", "turboaggregate", "--group_num", "2",
               "--secagg_backend", "cuda", *COMMON_ARGS]
 GROUP_SIZES = (5, 10)          # secagg_mask check: the slice's group, 2x
 DROPOUT_TOL = 1e-3             # tests/test_secure.py's recovery limit
+SILO_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
+             "--agg_mode", "stream", "--model_shards", "4",
+             "--fused_finalize", "on", "--norm_clip", "5.0",
+             "--agg_noise_std", str(SIGMA), *COMMON_ARGS]
+K2_STEP = 7                    # shard_finalize check: a non-zero round step
+K2_NOISE_TOL = 1e-6            # K2 vs plain at sigma > 0 if not bit-equal
 
 
 def fail(msg: str) -> None:
@@ -628,6 +647,276 @@ def turbo_dropout(turbo_cfg, data):
     return diff
 
 
+def shard_finalize_bounds(d: int, sigma: float):
+    """Bytes and operations K2 must move and do over a ``d``-element
+    shard: the accumulator read once and the output written once; per
+    element one division and, at sigma > 0, the noise (index hash, two
+    murmur finalisers, two uniforms, log, sqrt and cos: ~35 operations, as
+    PERF.md reckons K1's noise) plus its multiply and add."""
+    return 8 * d, d * (1 + (37 if sigma else 0))
+
+
+def check_shard_finalize(shard_sizes):
+    """Phase 7: shard_finalize against shard_finalize_plain on the card."""
+    import torch
+    from fedml_tpu_torch.core import fused_agg as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sizes = dict(shard_sizes, full=sum(shard_sizes.values()), odd=1_000_003)
+    rows, worst = [], 0.0
+    for salt, (name, d) in enumerate(sizes.items(), start=1):
+        acc = torch.randn(d, generator=gen, device=dev) * 40
+        wsum = 123.0
+        seed_word = fa.shard_seed_word(0, salt)
+        for sigma in (0.0, SIGMA):
+            args = (acc, wsum, seed_word, K2_STEP, sigma)
+            got = fa.shard_finalize(*args)
+            want = fa.shard_finalize_plain(*args)
+            torch.cuda.synchronize()
+            bit_equal = torch.equal(got.view(torch.int32),
+                                    want.view(torch.int32))
+            err = float((got - want).abs().max())
+            ulps = int((got.view(torch.int32).to(torch.int64)
+                        - want.view(torch.int32).to(torch.int64))
+                       .abs().max())
+            worst = max(worst, err)
+            if not sigma and not bit_equal:
+                fail(f"shard_finalize {name} (D={d}): sigma=0 is not "
+                     f"bit-equal to the plain division (max abs {err})")
+            if sigma and not err <= K2_NOISE_TOL:
+                fail(f"shard_finalize {name} (D={d}, sigma={sigma}): max "
+                     f"abs err {err} ({ulps} ulps) > {K2_NOISE_TOL}")
+            uniforms_equal = None
+            if sigma:
+                ku = fa.shard_uniforms(d, seed_word, K2_STEP, dev)
+                pu = fa.shard_uniforms_plain(d, seed_word, K2_STEP, dev)
+                uniforms_equal = all(
+                    torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(ku, pu))
+                if not uniforms_equal:
+                    fail(f"shard_finalize {name}: noise uniforms differ "
+                         f"from the plain version")
+            kernel = lambda: fa.shard_finalize(*args)
+            plain = lambda: fa.shard_finalize_plain(*args)
+            call_ms = time_ms(kernel, reps=50)
+            ms = device_ms(kernel, 20, "shard_finalize_kernel") or call_ms
+            plain_ms = device_ms(plain, 5) or time_ms(plain, 5, trials=3)
+            library_ms = None
+            if not sigma:
+                library = lambda: torch.div(acc, wsum)
+                library_ms = device_ms(library, 20) or time_ms(library, 50)
+            nbytes, ops = shard_finalize_bounds(d, sigma)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           ops / FP32_OPS_PER_S) * 1e3
+            row = dict(shard=name, d=d, sigma=sigma, bit_equal=bit_equal,
+                       max_ulps=ulps, max_abs_err=err,
+                       uniforms_bit_equal=uniforms_equal, ms=ms,
+                       call_ms=call_ms, host_us=host_us(kernel),
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_us=bound_ms * 1e3,
+                       bytes_us=nbytes / HBM_BYTES_PER_S * 1e6,
+                       ops_us=ops / FP32_OPS_PER_S * 1e6,
+                       bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                                 >= ops / FP32_OPS_PER_S else "operations"))
+            phase("kernel shard_finalize", **row)
+            rows.append(row)
+            del got, want
+        del acc
+    return rows, worst
+
+
+def run_silo_slice(silo_cfg, data):
+    """Phase 8: live cross-silo FedAvg with the sharded spine at full
+    width through the CLI's runner."""
+    import torch
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.experiments.main import run_cross_silo
+    from fedml_tpu_torch.secure import fused_mask
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    fused_agg.reset_launch_counts()
+    fused_mask.reset_launch_counts()
+    t0 = time.perf_counter()
+    with MetricsSink(None) as sink:
+        summary = run_cross_silo(silo_cfg, data, sink)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fused_agg.launch_counts["shard_finalize"]
+    need = silo_cfg.model_shards * silo_cfg.comm_round
+    if launches != need:
+        fail(f"cross_silo launched shard_finalize {launches} times, need "
+             f"exactly {need} ({silo_cfg.model_shards} shards x "
+             f"{silo_cfg.comm_round} rounds)")
+    if fused_agg.launch_counts["robust_agg"] \
+            or fused_mask.launch_counts["secagg_mask"]:
+        fail("cross_silo launched robust_agg or secagg_mask")
+    if not summary.get("params_finite"):
+        fail("cross_silo produced non-finite parameters")
+    phase("cross_silo slice", launches=launches, run_s=run_s,
+          rounds_per_s=summary["rounds_per_s"],
+          test_acc=summary["test_acc"], test_loss=summary["test_loss"],
+          train_acc=summary["train_acc"], params_finite=True)
+    return launches, summary
+
+
+class PartTimer:
+    """Exclusive host time (synchronised) of wrapped methods, by part:
+    time spent in a wrapped call nested inside another is charged to the
+    inner part only."""
+
+    def __init__(self):
+        self.totals = {}
+        self._stack = []
+
+    def wrap(self, owner, attr: str, part: str) -> None:
+        import torch
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                inner = self._stack.pop()
+                self.totals[part] = self.totals.get(part, 0.0) + dt - inner
+                if self._stack:
+                    self._stack[-1] += dt
+
+        setattr(owner, attr, timed)
+
+
+def profile_silo(silo_cfg, data, rounds: int = 5):
+    """Where a cross-silo round's time goes: exclusive host time
+    (synchronised) of each part over ``rounds`` rounds after a warm-up
+    round, evaluating every round; then torch.profiler over ``rounds``
+    whole rounds (no evaluation inside the window) for the device's busy
+    share, its launches and K2's device time.  Launches here come after
+    the main path's counts were read."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fedml_tpu_torch.experiments.main import CrossSiloFederation
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    cfg = dataclasses.replace(silo_cfg, comm_round=rounds + 1,
+                              frequency_of_the_test=1)
+    timer = PartTimer()
+    per_round = []
+    with MetricsSink(None) as sink:
+        fed = CrossSiloFederation(cfg, data, sink)
+        server = fed.server
+        timer.wrap(server, "_broadcast", "broadcast_ms")
+        timer.wrap(fed.hub, "route", "wire_encode_decode_ms")
+        for silo in fed.silos:
+            timer.wrap(silo, "_train", "silo_train_ms")
+            timer.wrap(silo, "_on_shard_sync", "silo_join_split_ms")
+        timer.wrap(server.shard_wire.admission, "offer", "admission_ms")
+        timer.wrap(server.stream_agg, "fold_slices", "fold_ms")
+        timer.wrap(server.stream_agg, "finalize", "finalize_ms")
+        timer.wrap(server, "on_round_done", "eval_ms")
+        done = server.on_round_done
+        mark = {"t": time.perf_counter(), "totals": {}}
+
+        def on_round_done(r, params):
+            done(r, params)
+            now = time.perf_counter()
+            row = {k: (v - mark["totals"].get(k, 0.0)) * 1e3
+                   for k, v in timer.totals.items()}
+            row["round_ms"] = (now - mark["t"]) * 1e3
+            row["other_ms"] = row["round_ms"] - sum(
+                v for k, v in row.items() if k != "round_ms")
+            per_round.append(row)
+            mark.update(t=now, totals=dict(timer.totals))
+
+        server.on_round_done = on_round_done
+        fed.run()
+    steady = per_round[1:]
+    row = {k: statistics.median(r.get(k, 0.0) for r in steady)
+           for k in steady[0]}
+
+    # the device's view: rounds 1..rounds, started after round 0's
+    # evaluation and stopped before the last round's
+    cfg = dataclasses.replace(silo_cfg, comm_round=rounds + 1,
+                              frequency_of_the_test=1000)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+    with MetricsSink(None) as sink:
+        fed = CrossSiloFederation(cfg, data, sink)
+        done = fed.server.on_round_done
+
+        def on_round_done(r, params):
+            if r == rounds:
+                torch.cuda.synchronize()
+                window["wall_us"] = (time.perf_counter() - window["t0"]) * 1e6
+                prof.stop()
+            done(r, params)
+            if r == 0:
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+
+        fed.server.on_round_done = on_round_done
+        fed.run()
+    events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
+    busy_us = sum(_self_device_us(e) for e in events)
+    wall_us = window["wall_us"]
+    row["profiled_round_ms"] = wall_us / rounds / 1e3
+    row["device_busy_ms_per_round"] = busy_us / rounds / 1e3
+    row["device_idle_share"] = (1 - busy_us / wall_us) if busy_us else None
+    row["kernel_launches_per_round"] = sum(e.count for e in events) / rounds
+    k2 = [e for e in events if "shard_finalize_kernel" in e.key]
+    row["k2_launches_per_round"] = sum(e.count for e in k2) / rounds
+    row["k2_device_ms_per_round"] = sum(
+        _self_device_us(e) for e in k2) / rounds / 1e3
+    row["k2_share_of_round"] = (row["k2_device_ms_per_round"]
+                                / row["profiled_round_ms"])
+    top = sorted(events, key=_self_device_us, reverse=True)[:6]
+    row["top_device_us_per_round"] = {
+        e.key[:60]: _self_device_us(e) / rounds for e in top}
+    phase("profile cross_silo", **row)
+    return row
+
+
+def silo_round_parity(silo_cfg, data):
+    """One cross-silo round with TF32 off on the GPU against the same
+    round on the CPU, from one init (no evaluation)."""
+    import dataclasses
+    import torch
+    from fedml_tpu_torch.experiments.main import CrossSiloFederation
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    out = {}
+    with MetricsSink(None) as sink:
+        cpu = CrossSiloFederation(dataclasses.replace(
+            silo_cfg, comm_round=1, platform="cpu"), data, sink)
+        init = {k: v.clone() for k, v in cpu.server.params.items()}
+        gpu = CrossSiloFederation(dataclasses.replace(
+            silo_cfg, comm_round=1, platform="cuda"), data, sink,
+            init_params=init)
+        with tf32_off():
+            for name, fed in (("cuda", gpu), ("cpu", cpu)):
+                fed.server.on_round_done = None
+                fed.run()
+                out[name] = {k: v.cpu() for k, v in fed.server.params.items()}
+    diff = max(float((out["cuda"][k] - out["cpu"][k]).abs().max())
+               for k in out["cpu"])
+    moved = max(float((out["cpu"][k] - init[k]).abs().max()) for k in init)
+    phase("cross_silo round vs cpu", max_abs_diff=diff, tol=ROUND_TOL,
+          tf32=False, moved_from_init=moved)
+    if not moved > 10 * ROUND_TOL:
+        fail(f"the cross-silo round left the global where it was "
+             f"(moved {moved})")
+    if not diff <= ROUND_TOL:
+        fail(f"GPU cross-silo round differs from the CPU round by {diff} > "
+             f"{ROUND_TOL}")
+    return diff
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -676,6 +965,17 @@ def main() -> None:
     turbo_diff = turbo_round_parity(turbo_cfg, data)
     dropout_diff = turbo_dropout(turbo_cfg, data)
 
+    from fedml_tpu_torch.shard_spine import build_shard_plan
+    silo_cfg = config_from_argv(SILO_ARGS)
+    plan = build_shard_plan({k.replace(".", "/"): p.detach()
+                             for k, p in cnn.items()}, silo_cfg.model_shards)
+    shard_sizes = {f"s{i}": plan.slice_numel(i)
+                   for i in range(plan.num_shards)}
+    k2_rows, k2_worst = check_shard_finalize(shard_sizes)
+    k2_launches, silo = run_silo_slice(silo_cfg, data)
+    profile_silo(silo_cfg, data)
+    silo_diff = silo_round_parity(silo_cfg, data)
+
     path = [r for r in rows if r["leaf"] in leaf_sizes]
     noisy = [r for r in path if r["sigma"]]
     clean = [r for r in path if not r["sigma"]]
@@ -707,12 +1007,31 @@ def main() -> None:
                      else "operations"),
         "library_ms": None,
     })
+    # one round of the cross-silo slice: one launch per S=4 shard
+    shards = [r for r in k2_rows if r["shard"] in shard_sizes
+              and r["sigma"]]
+    clean = [r for r in k2_rows if r["shard"] in shard_sizes
+             and not r["sigma"]]
+    kernels.append({
+        "name": "shard_finalize", "route": "cuda",
+        "source": "fedml_tpu_torch/csrc/shard_finalize.cu",
+        "replaces": "fedml_tpu/core/pallas_agg.py:140",
+        "launches": k2_launches, "max_abs_err": k2_worst,
+        "ms": sum(r["ms"] for r in shards),
+        "plain_ms": sum(r["plain_ms"] for r in shards),
+        "bound_ms": sum(r["bound_us"] for r in shards) / 1e3,
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                    for r in shards) else "operations"),
+        "library_ms": sum(r["library_ms"] for r in clean),
+    })
     phase("done", seconds=time.perf_counter() - t_start,
           round_vs_cpu_max_abs_diff=round_diff,
           rounds_per_s=summary["rounds_per_s"],
           turbo_round_vs_cpu_max_abs_diff=turbo_diff,
           turbo_dropout_max_abs_diff=dropout_diff,
-          turbo_rounds_per_s=turbo["rounds_per_s"])
+          turbo_rounds_per_s=turbo["rounds_per_s"],
+          silo_round_vs_cpu_max_abs_diff=silo_diff,
+          silo_rounds_per_s=silo["rounds_per_s"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Fused robust aggregation: clip + weak-DP noise + weighted mean.
+"""The fused aggregation kernels: robust aggregation (K1) and the shard
+finalize (K2).
 
-Port of ``fedml_tpu/core/pallas_agg.py::make_fused_robust_aggregate``.  On
-the GPU each float leaf is one launch of the hand-written CUDA kernel
+**K1** — port of ``fedml_tpu/core/pallas_agg.py::make_fused_robust_aggregate``.
+On the GPU each float leaf is one launch of the hand-written CUDA kernel
 ``csrc/robust_agg.cu`` (the port of the Pallas ``_agg_kernel``):
 
     out = sum_i r_i * (g + s_i * (x_i - g) + sigma * n_i)
@@ -12,9 +13,14 @@ reproduced bit for bit in its uniforms.  The clip scales need the global
 update norm across all leaves, so they are a torch reduction before the
 launches (``_clip_scales``), as they were an XLA reduction in JAX.
 
-``robust_agg_plain`` is the same arithmetic written step by step in
-PyTorch.  The wrapper ``robust_agg`` takes it only for tensors on the CPU;
-a CUDA tensor gets the kernel or an exception.
+**K2** — port of ``make_fused_shard_finalize``: one launch per shard of the
+sharded streaming fold (``csrc/shard_finalize.cu``, the port of the Pallas
+``_finalize_kernel``) computes ``acc / wsum (+ sigma * n)`` over the
+shard's float pieces concatenated in slice-key order.
+
+``robust_agg_plain`` and ``shard_finalize_plain`` are the same arithmetic
+written step by step in PyTorch.  The wrappers take them only for tensors
+on the CPU; a CUDA tensor gets the kernel or an exception.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ MAX_CLIENTS = 512
 
 # launches of each kernel since the last reset (the wrapper adds one per
 # launch and nowhere else)
-launch_counts = {"robust_agg": 0}
+launch_counts = {"robust_agg": 0, "shard_finalize": 0}
 
 
 def reset_launch_counts() -> None:
@@ -114,6 +120,25 @@ def _lib():
         lib.noise_uniforms_f32.restype = i32
         _lib_handle = lib
     return _lib_handle
+
+
+_k2_handle = None
+
+
+def _k2_lib():
+    """The shard-finalize kernel library, built from source at first use."""
+    global _k2_handle
+    if _k2_handle is None:
+        from fedml_tpu_torch.utils import cuda_build
+        lib = cuda_build.load("shard_finalize")
+        p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_float)
+        lib.shard_finalize_f32.argtypes = [p, p, i64, f32, i32, i32, f32, p]
+        lib.shard_finalize_f32.restype = i32
+        lib.shard_uniforms_f32.argtypes = [p, p, i64, i32, i32, p]
+        lib.shard_uniforms_f32.restype = i32
+        _k2_handle = lib
+    return _k2_handle
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -234,3 +259,117 @@ def make_fused_robust_aggregate(norm_bound: Optional[float] = None,
 
     aggregate.needs_global = True
     return aggregate
+
+
+# ---------------------------------------------------------------------------
+# K2: the fused shard finalize of the sharded streaming fold
+# ---------------------------------------------------------------------------
+
+def shard_seed_word(seed: int, shard: int) -> int:
+    """The shard's seed word, ``seed ^ (shard * 0x9E3779B9)`` mod 2^32, as
+    an int32: decorrelates the shards' noise streams."""
+    return to_int32((int(seed) & M32) ^ mul32(int(shard) & M32, 0x9E3779B9))
+
+
+def _shard_salt(seed_word: int, step: int) -> int:
+    s0, s1 = seed_salts(seed_word, step)
+    return fmix(s0 ^ s1)
+
+
+def shard_uniforms_plain(d: int, seed_word: int, step: int, device="cpu"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _uniforms(index_hash(d, device), _shard_salt(seed_word, step))
+
+
+def shard_finalize_plain(acc: torch.Tensor, wsum: float, seed_word: int,
+                         step: int, sigma: float) -> torch.Tensor:
+    """What K2 computes, step by step: ``acc / wsum`` (an IEEE division by
+    a device scalar, never a multiply by its reciprocal) plus, at sigma >
+    0, ``sigma * n[d]`` for the flat index d.  acc is [D] f32."""
+    out = acc / torch.tensor(wsum, dtype=torch.float32, device=acc.device)
+    if sigma:
+        u1, u2 = shard_uniforms_plain(acc.shape[0], seed_word, step,
+                                      acc.device)
+        out = out + sigma * _gaussian(u1, u2)
+    return out
+
+
+def shard_finalize(acc: torch.Tensor, wsum: float, seed_word: int, step: int,
+                   sigma: float) -> torch.Tensor:
+    """One shard's finalize: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor.  ``wsum``, ``seed_word`` and ``step`` are
+    host scalars."""
+    if acc.device.type == "cpu":
+        return shard_finalize_plain(acc, wsum, seed_word, step, sigma)
+    if acc.device.type != "cuda":
+        raise ValueError(f"shard_finalize: unsupported device {acc.device}")
+    if acc.dtype != torch.float32 or acc.dim() != 1 \
+            or not acc.is_contiguous():
+        raise ValueError(f"shard_finalize: the kernel takes a contiguous "
+                         f"1-D float32 tensor, got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    out = torch.empty_like(acc)
+    with torch.cuda.device(acc.device):
+        rc = _k2_lib().shard_finalize_f32(
+            acc.data_ptr(), out.data_ptr(), acc.shape[0], float(wsum),
+            to_int32(seed_word), to_int32(step), float(sigma),
+            torch.cuda.current_stream(acc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"shard_finalize kernel launch failed: CUDA error "
+                           f"{rc}")
+    launch_counts["shard_finalize"] += 1
+    return out
+
+
+def shard_uniforms(d: int, seed_word: int, step: int, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's noise uniforms (a probe of the stream; the finalize
+    path never calls it)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return shard_uniforms_plain(d, seed_word, step)
+    u1 = torch.empty(d, dtype=torch.float32, device=device)
+    u2 = torch.empty_like(u1)
+    with torch.cuda.device(device):
+        rc = _k2_lib().shard_uniforms_f32(
+            u1.data_ptr(), u2.data_ptr(), d, to_int32(seed_word),
+            to_int32(step), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"shard_uniforms kernel launch failed: CUDA "
+                           f"error {rc}")
+    return u1, u2
+
+
+def make_fused_shard_finalize(*, noise_std: float = 0.0, seed: int = 0,
+                              shard_salt: int = 0):
+    """The fused finalize of one shard: ``fn(acc_pieces, wsum, ref_pieces,
+    step) -> out_pieces``, the pieces keyed like the shard's wire slice
+    body.  Float pieces are concatenated in sorted key order into one f32
+    buffer and finalized by ONE `shard_finalize` launch; integer pieces
+    (step counters) take the scalar epilogue ``(acc / wsum)`` cast back,
+    never noised.  Each piece leaves in its reference dtype."""
+    seed_word = shard_seed_word(seed, shard_salt)
+    sigma = float(noise_std)
+
+    def finalize(acc_pieces, wsum: float, ref_pieces, step: int):
+        keys = sorted(acc_pieces)
+        fkeys = [k for k in keys if ref_pieces[k].dtype.is_floating_point]
+        out = {}
+        for k in keys:
+            if k not in fkeys:
+                a = acc_pieces[k]
+                w = torch.tensor(wsum, dtype=a.dtype, device=a.device)
+                out[k] = (a / w).to(ref_pieces[k].dtype)
+        if fkeys:
+            flat = torch.cat([acc_pieces[k].to(torch.float32).reshape(-1)
+                              for k in fkeys])
+            flat_out = shard_finalize(flat, wsum, seed_word, int(step), sigma)
+            off = 0
+            for k in fkeys:
+                n = acc_pieces[k].numel()
+                out[k] = flat_out[off:off + n].reshape(
+                    acc_pieces[k].shape).to(ref_pieces[k].dtype)
+                off += n
+        return out
+
+    return finalize

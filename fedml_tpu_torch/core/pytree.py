@@ -7,8 +7,10 @@ per-leaf noise seeds depend on."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+import warnings
+from typing import Any, Dict, List, Mapping, Sequence, Union
 
+import numpy as np
 import torch
 
 Tree = Dict[str, torch.Tensor]
@@ -54,3 +56,86 @@ def tree_weighted_mean(trees: Union[Sequence[Tree], Tree],
         return (x.to(acc) * r.to(acc)).sum(0).to(x.dtype)
 
     return tree_map(_avg, stacked)
+
+
+# ---------------------------------------------------------------------------
+# the wire layout: the JAX package's nested dicts of numpy arrays
+# ---------------------------------------------------------------------------
+
+def nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"Dense_0/kernel": x}`` -> ``{"Dense_0": {"kernel": x}}``, the
+    nested layout the JAX package (and so the wire) keeps; leaves are
+    passed through."""
+    out: Dict[str, Any] = {}
+    for k in tree_keys(flat):
+        *parents, leaf = k.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = flat[k]
+    return out
+
+
+def flatten_nested(tree: Mapping[str, Any], prefix: str = ""
+                   ) -> Dict[str, Any]:
+    """The inverse of `nest`: nested dicts -> a flat dict keyed by the
+    ``/``-joined path, in JAX's leaf order."""
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(flatten_nested(v, path))
+        else:
+            flat[path] = v
+    return {k: flat[k] for k in tree_keys(flat)}
+
+
+def host_array(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def as_tensor(x, device) -> torch.Tensor:
+    """A tensor, or a host array (possibly a read-only view into a wire
+    frame), as a tensor on ``device``.  A host array is wrapped without a
+    copy on the way there; the callers only read it."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # read-only buffer
+        return torch.as_tensor(np.asarray(x)).to(device)
+
+
+def to_host(tree):
+    """Every leaf of a nested dict/list/tuple tree as a host numpy array
+    (one device-to-host copy per tensor leaf)."""
+    if isinstance(tree, Mapping):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    return host_array(tree)
+
+
+class HostMirror:
+    """Identity-keyed memo of a flat params dict's host copy in the wire
+    layout (nested numpy).
+
+    The server actor reads the global's host form several times per
+    round (broadcast payload, admission reference, staging refill); this
+    keeps ONE device-to-host transfer per distinct params value — the
+    mirror invalidates when the params OBJECT is replaced, which is how
+    every aggregation produces a new global.  Do not mutate a mirrored
+    tree's leaves in place."""
+
+    __slots__ = ("_key", "_host")
+
+    def __init__(self):
+        self._key = self._host = None
+
+    def get(self, params: Tree) -> Dict[str, Any]:
+        if self._host is None or self._key is not params:
+            self._key = params
+            self._host = to_host(nest(params))
+        return self._host

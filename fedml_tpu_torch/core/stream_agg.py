@@ -1,0 +1,290 @@
+"""Streaming O(model)-memory mean aggregation, folded at arrival.
+
+Port of ``fedml_tpu/core/stream_agg.py`` (the ``mean`` regime).  Each
+admitted upload folds into running state on the receive path,
+
+    acc += clip(upload, reference) * w,      wsum += w,
+
+and the barrier close does one ``finalize``: ``acc / wsum`` plus the
+round's weak-DP noise.  Nothing model-sized is held per silo.
+
+The arithmetic is the JAX package's, operation for operation, so that on
+the CPU the two packages agree bit for bit where XLA's CPU code and
+PyTorch's CPU kernels round alike:
+
+* the fold is one fused multiply-add per element (``acc.add_(u,
+  alpha=w)``), which is how XLA compiles ``acc + u * w``; the clip's
+  ``g + (u - g) * scale`` likewise (``torch.add(g, u - g, alpha=scale)``);
+* the clip scale is the JAX package's ``min(1, bound / max(||u - g||,
+  1e-12))`` in f32, but XLA and PyTorch sum the squares in different
+  orders, so a clipped fold agrees with JAX's to float tolerance, not
+  bits;
+* the wave fold is a sequential per-slot loop, never a ``sum(dim=0)``
+  (which would reorder the additions); a weight-0 slot adds an exact
+  ``+0.0``;
+* the accumulator dtype follows `acc_dtype` (floats in their own dtype,
+  ints in f32), shared with the sharded spine (`zeros_acc_like`).
+
+``wsum``, the clip scale and the step are host scalars: the scale costs
+one ``.item()`` (a device sync) per clipped fold.
+
+The weak-DP noise of this (unfused) finalize comes from a
+``torch.Generator`` seeded from the JAX key chain's words
+(``fold_in(key(seed), step)``): the same distribution as JAX's threefry
+normal, not the same bits.  The order-statistic rules (the reservoir
+regime) need ``robust/defense.py``, which is not ported yet; they are
+refused by name.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Dict, Iterable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from fedml_tpu_torch.core import prng
+from fedml_tpu_torch.core.pytree import (Tree, acc_dtype, as_tensor,
+                                         tree_keys)
+from fedml_tpu_torch.core.robust import (add_gaussian_noise,
+                                         default_is_weight_param)
+from fedml_tpu_torch.obs import telemetry
+
+log = logging.getLogger(__name__)
+
+STREAM_MODES = ("stream", "stack")
+ROBUST_AGG_METHODS = ("mean", "coordinate_median", "trimmed_mean", "krum",
+                      "multi_krum", "geometric_median")
+
+
+def zeros_acc_like(reference: Tree) -> Tree:
+    """A fresh fold accumulator for ``reference``: same shapes and device,
+    leaves in `acc_dtype`.  Shared with the sharded spine — the
+    accumulator-dtype contract must stay one definition."""
+    return {k: torch.zeros(v.shape, dtype=acc_dtype(v.dtype), device=v.device)
+            for k, v in reference.items()}
+
+
+def update_sumsq(upload: Tree, reference: Tree, keys: Iterable[str]
+                 ) -> torch.Tensor:
+    """``sum((u - g)^2)`` over ``keys`` in that order: the difference in
+    the leaf's own dtype, squared and summed in f32, the per-leaf sums
+    added in order — the JAX package's norm, step for step."""
+    total = 0.0
+    for k in keys:
+        d = upload[k] - reference[k]
+        total = total + torch.sum(torch.square(d.to(torch.float32)))
+    return torch.as_tensor(total, dtype=torch.float32)
+
+
+def clip_scale(partials: Sequence[float], norm_clip: float) -> float:
+    """``min(1, clip / max(sqrt(sum partials), 1e-12))`` in f32 on the
+    host, the partials summed in the order given."""
+    total = np.float32(0.0)
+    for p in partials:
+        total = np.float32(total + np.float32(p))
+    norm = np.sqrt(total)
+    return float(min(np.float32(1.0),
+                     np.float32(norm_clip) / max(norm, np.float32(1e-12))))
+
+
+def fold_pieces(acc: Tree, upload: Tree, reference: Tree, weight: float,
+                scale: Optional[float], clipped: Callable[[str], bool]
+                ) -> None:
+    """``acc[k] += clip(u[k]) * weight`` in place, one fused multiply-add
+    per element; ``clipped(k)`` selects the leaves the clip ``scale``
+    applies to (``scale=None``: no clip)."""
+    for k in sorted(acc):
+        a, u = acc[k], upload[k]
+        if scale is not None and clipped(k):
+            g = reference[k]
+            if u.dtype.is_floating_point:
+                u = torch.add(g, u - g, alpha=scale)
+            else:   # JAX casts the scale to the leaf's integer dtype
+                u = g + (u - g) * int(scale)
+        a.add_(u.to(a.dtype), alpha=weight)
+
+
+def noise_generator(seed: int, step: int, device,
+                    shard: Optional[int] = None) -> torch.Generator:
+    """A generator seeded from the words of ``fold_in(key(seed), step)``
+    (and ``fold_in(., shard)`` for a shard's stream)."""
+    key = prng.fold_in(prng.key(seed), int(step) & 0xFFFFFFFF)
+    if shard is not None:
+        key = prng.fold_in(key, shard)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((key[0] << 32) | key[1])
+    return gen
+
+
+def divide(acc: Tree, wsum: float, reference: Tree) -> Tree:
+    """``acc / wsum`` (an IEEE division by a device scalar) cast to each
+    reference leaf's dtype."""
+    out = {}
+    for k in sorted(acc):
+        a = acc[k]
+        w = torch.tensor(wsum, dtype=a.dtype, device=a.device)
+        out[k] = (a / w).to(reference[k].dtype)
+    return out
+
+
+class StreamingAggregator:
+    """O(model)-memory fold-at-arrival (defended) mean.
+
+    Round protocol::
+
+        agg.reset(global_params)          # round open (broadcast)
+        agg.fold(upload, num_samples)     # per admitted upload, at arrival
+        new_global = agg.finalize(step)   # barrier close
+
+    Trees are the port's flat dicts; an upload may hold host arrays (the
+    decoded wire frame), which move to the aggregator's device.
+    ``template`` fixes the leaf set and the device (``device`` overrides
+    it); ``norm_clip > 0`` clips each upload against the round's
+    reference, ``noise_std > 0`` noises the finalize.
+    """
+
+    def __init__(self, template: Tree, *, method: str = "mean",
+                 kind: str = "params", norm_clip: float = 0.0,
+                 noise_std: float = 0.0, seed: int = 0,
+                 is_weight=default_is_weight_param, device=None):
+        if method not in ROBUST_AGG_METHODS:
+            raise ValueError(f"unknown streaming aggregation method "
+                             f"{method!r}; available: {ROBUST_AGG_METHODS}")
+        if method != "mean":
+            raise NotImplementedError(
+                f"streaming {method!r} needs the order-statistic reservoir "
+                f"over robust/defense.py, which is not ported yet (ROADMAP "
+                f"Queue 1 item 5); the port streams the mean only")
+        if kind not in ("params", "delta"):
+            raise ValueError(f"kind must be 'params' or 'delta', got {kind!r}")
+        if norm_clip < 0 or noise_std < 0:
+            raise ValueError(f"norm_clip/noise_std must be >= 0, got "
+                             f"{norm_clip}/{noise_std}")
+        self.method = method
+        self.kind = kind
+        self.norm_clip = float(norm_clip)
+        self.noise_std = float(noise_std)
+        self.seed = int(seed)
+        self.defended = norm_clip > 0 or noise_std > 0
+        self._keys = tree_keys(template)
+        self._weights = [k for k in self._keys if is_weight(k)]
+        self._is_weight = is_weight
+        if device is None:
+            device = next((v.device for v in template.values()
+                           if isinstance(v, torch.Tensor)), "cpu")
+        self.device = torch.device(device)
+        reg = telemetry.get_registry()
+        self._c_folds = reg.counter("fedml_stream_folds_total")
+        self._h_finalize = reg.histogram("fedml_stream_finalize_seconds")
+        self._reference: Optional[Tree] = None
+        self._acc: Optional[Tree] = None
+        self._wsum = np.float32(0.0)
+        self.count = 0
+        self.weight_total = 0.0
+
+    @property
+    def reference(self) -> Optional[Tree]:
+        """The round's clip reference (None between rounds)."""
+        return self._reference
+
+    def _on_device(self, tree) -> Tree:
+        return {k: as_tensor(tree[k], self.device) for k in self._keys}
+
+    def reset(self, reference: Tree) -> None:
+        """Open a round against ``reference`` (the current global);
+        ``kind="delta"`` clips against zeros instead."""
+        ref = self._on_device(reference)
+        if self.kind == "delta":
+            ref = {k: torch.zeros_like(v) for k, v in ref.items()}
+        self._reference = ref
+        self._acc = None
+        self._wsum = np.float32(0.0)
+        self.count = 0
+        self.weight_total = 0.0
+
+    def _ensure_acc(self) -> None:
+        if self._acc is None:
+            self._acc = zeros_acc_like(self._reference)
+            self._wsum = np.float32(0.0)
+
+    def _fold_one(self, upload: Tree, weight) -> None:
+        scale = None
+        if self.norm_clip > 0:
+            scale = clip_scale(
+                [update_sumsq(upload, self._reference, self._weights).item()],
+                self.norm_clip)
+        w = np.float32(weight)
+        fold_pieces(self._acc, upload, self._reference, float(w), scale,
+                    self._is_weight)
+        self._wsum = np.float32(self._wsum + w)
+
+    def fold(self, upload, weight) -> None:
+        """Fold one ADMITTED upload at arrival."""
+        if self._reference is None:
+            raise RuntimeError("fold() before reset(): the round's clip "
+                               "reference is not set")
+        upload = self._on_device(upload)
+        self._ensure_acc()
+        self._fold_one(upload, weight)
+        self._c_folds.inc()
+        self.count += 1
+        self.weight_total += float(weight)
+
+    def fold_wave(self, stacked, weights) -> None:
+        """Fold a ``[wave, ...]`` stack slot by slot, in slot order — the
+        per-upload fold's exact sequence.  Weight-0 slots add an exact
+        ``+0.0`` and do not count as folds."""
+        if self._reference is None:
+            raise RuntimeError("fold_wave() before reset(): the round's "
+                               "clip reference is not set")
+        stacked = self._on_device(stacked)
+        w_host = np.asarray(weights, np.float32)
+        self._ensure_acc()
+        for i, w in enumerate(w_host):
+            self._fold_one({k: v[i] for k, v in stacked.items()}, w)
+        live = int((w_host > 0).sum())
+        self._c_folds.inc(live)
+        self.count += live
+        for w in w_host:   # slot-order sequential host adds
+            self.weight_total += float(w)
+
+    def finalize(self, step: int) -> Tree:
+        """Close the round: ``acc / wsum`` (+ noise keyed by ``step``).
+        Callers must skip aggregation on a round with no folds."""
+        if self.count == 0:
+            raise RuntimeError("finalize() with no folded uploads; the "
+                               "caller must skip aggregation on an empty "
+                               "round")
+        t0 = time.perf_counter()
+        out = divide(self._acc, float(self._wsum), self._reference)
+        if self.noise_std > 0:
+            out = add_gaussian_noise(
+                out, noise_generator(self.seed, step, self.device),
+                self.noise_std)
+        self._acc = None
+        self._h_finalize.observe(time.perf_counter() - t0)
+        return out
+
+    def state_dict(self) -> Dict[str, object]:
+        """Host snapshot of the fold state: the accumulator leaves in key
+        order (their own dtype), ``wsum`` f32, the counts."""
+        return {
+            "acc": (None if self._acc is None else
+                    [self._acc[k].cpu().numpy() for k in self._keys]),
+            "wsum": np.float32(self._wsum),
+            "count": int(self.count),
+            "weight_total": float(self.weight_total)}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        if self._reference is None:
+            raise RuntimeError("load_state_dict before reset(): the round's "
+                               "clip reference is not set")
+        if state.get("acc") is not None:
+            self._acc = {k: torch.as_tensor(np.array(a)).to(self.device)
+                         for k, a in zip(self._keys, state["acc"])}
+            self._wsum = np.float32(state["wsum"])
+        self.count = int(state["count"])
+        self.weight_total = float(state["weight_total"])

@@ -34,52 +34,27 @@
 //
 // Floating point: built with -fmad=false, so no multiply-add is contracted
 // and every operation rounds where the step-by-step PyTorch version
-// (fused_agg.py::robust_agg_plain) rounds; the uniforms use explicit
-// round-to-nearest intrinsics as well.  logf, cosf and sqrtf are the
-// precise CUDA versions (no --use_fast_math).
+// (fused_agg.py::robust_agg_plain) rounds.  The noise stream's device
+// functions live in murmur.cuh, shared with shard_finalize.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "murmur.cuh"
+
 namespace {
+
+using murmur::fmix;
+using murmur::gaussian;
+using murmur::index_hash;
+using murmur::uniforms;
 
 constexpr int kThreads = 256;
 constexpr int kPerThread = 4;
 
-__host__ __device__ __forceinline__ uint32_t fmix(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t index_hash(uint32_t d) {
-  return fmix(d * 0x9E3779B9u + 1u);
-}
-
 __device__ __forceinline__ uint32_t client_salt(uint32_t s0, uint32_t s1,
                                                 uint32_t i) {
   return fmix(s0 ^ (s1 + i * 0x85EBCA6Bu));
-}
-
-// (bits >> 8) < 2^24, so the int -> float conversion is exact.
-__device__ __forceinline__ void uniforms(uint32_t idx_h, uint32_t salt,
-                                         float* u1, float* u2) {
-  const uint32_t b1 = fmix(idx_h ^ salt);
-  const uint32_t b2 = fmix(b1 ^ 0x27D4EB2Fu);
-  *u1 = __fadd_rn(__fmul_rn(static_cast<float>(static_cast<int>(b1 >> 8)),
-                            5.9604644775390625e-08f),   // 2^-24
-                  2.98023223876953125e-08f);            // 2^-25
-  *u2 = __fmul_rn(static_cast<float>(static_cast<int>(b2 >> 8)),
-                  5.9604644775390625e-08f);
-}
-
-__device__ __forceinline__ float gaussian(uint32_t idx_h, uint32_t salt) {
-  float u1, u2;
-  uniforms(idx_h, salt, &u1, &u2);
-  return sqrtf(-2.0f * logf(u1)) * cosf(6.28318548202514648f * u2);
 }
 
 template <bool kVec, bool kNoise>
@@ -179,8 +154,8 @@ extern "C" int robust_agg_f32(const float* x, const float* g,
                               int seed0, int seed1, float sigma,
                               void* stream) {
   if (d <= 0) return 0;
-  const uint32_t s0 = fmix(static_cast<uint32_t>(seed0));
-  const uint32_t s1 = fmix(static_cast<uint32_t>(seed1) ^ 0x5BD1E995u);
+  const uint32_t s0 = murmur::salt0(seed0);
+  const uint32_t s1 = murmur::salt1(seed1);
   auto st = static_cast<cudaStream_t>(stream);
   const bool vec = (d % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
@@ -200,8 +175,7 @@ extern "C" int noise_uniforms_f32(float* u1, float* u2, long long d,
   const unsigned blocks = static_cast<unsigned>((d + kThreads - 1) / kThreads);
   noise_uniforms_kernel<<<blocks, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      u1, u2, d, fmix(static_cast<uint32_t>(seed0)),
-      fmix(static_cast<uint32_t>(seed1) ^ 0x5BD1E995u),
+      u1, u2, d, murmur::salt0(seed0), murmur::salt1(seed1),
       static_cast<uint32_t>(client));
   return static_cast<int>(cudaGetLastError());
 }

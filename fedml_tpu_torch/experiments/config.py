@@ -1,7 +1,8 @@
 """The experiment config of the port (the subset of
-``fedml_tpu/experiments/config.py`` this slice runs, same flag names and
-defaults).  ``defense_backend`` and ``secagg_backend`` take the port's
-names: ``torch`` (twin of ``xla``) and ``cuda`` (twin of ``pallas``)."""
+``fedml_tpu/experiments/config.py`` the ported slices run, same flag names
+and defaults, plus the cross-silo flags that are refused by name).
+``defense_backend`` and ``secagg_backend`` take the port's names:
+``torch`` (twin of ``xla``) and ``cuda`` (twin of ``pallas``)."""
 
 from __future__ import annotations
 
@@ -37,6 +38,46 @@ class ExperimentConfig:
     group_num: int = 2                   # turboaggregate: groups per round
     drop_tolerance: int = 1              # turboaggregate
     secagg_backend: str = "torch"        # turboaggregate: "torch" | "cuda"
+
+    # cross_silo: the live federation over the in-process hub
+    silo_backend: str = "local"          # "local" (grpc/mqtt refused)
+    agg_mode: str = "stack"              # "stack" | "stream"
+    model_shards: int = 0                # >0: the sharded spine (stream)
+    fused_finalize: str = "auto"         # shard finalize: auto|on|off (K2)
+    robust_agg: str = "mean"             # other rules are refused
+    norm_clip: float = 0.0               # >0: clip each upload's update
+    agg_noise_std: float = 0.0           # >0: weak-DP noise at finalize
+    straggler_policy: str = "wait"       # wait | drop | abort
+    round_timeout_s: float = 0.0         # 0 = no straggler timer
+    min_silo_frac: float = 0.5           # drop-policy quorum
+    admission: str = "auto"              # upload screens: auto|on|off
+    max_num_samples: float = 1e6         # admission: num_samples cap
+    norm_screen_k: float = 6.0           # admission: median + k * MAD
+    norm_screen_window: int = 64         # admission: norm history
+    norm_screen_min_history: int = 8     # admission: warm-up norms
+    strikes_to_quarantine: int = 3       # TrustTracker
+    quarantine_rounds: int = 4           # TrustTracker
+    probation_rounds: int = 2            # TrustTracker
+    # cross_silo options of the JAX package that are refused by name
+    secagg: str = "off"
+    edge_aggregators: int = 0
+    wire_compression: str = "none"
+    error_feedback: bool = False
+    chaos_drop: float = 0.0
+    chaos_delay: float = 0.0
+    chaos_dup: float = 0.0
+    chaos_reorder: float = 0.0
+    chaos_corrupt: float = 0.0
+    heartbeat_s: float = 0.0
+    dead_after_s: float = 0.0
+    serve_port: int = 0
+    ingest_pipeline: bool = False
+    journal: bool = False
+    health: bool = False
+    server_opt: str = "plain"
+    adaptive: bool = False
+    adversary: str = ""
+    mesh_stages: int = 0
 
     mesh_clients: int = 0                # >0 is not ported (refused)
     client_axis: str = "vmap"            # "vmap" | "scan"

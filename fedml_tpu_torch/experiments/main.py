@@ -1,10 +1,11 @@
 """``python -m fedml_tpu_torch`` — the port's entry point.
 
-Runs ``fedavg``, ``fedavg_robust`` and ``turboaggregate`` on the hermetic
-twins, on the GPU unless ``--platform cpu`` is given, writes
-``metrics.jsonl`` and ``summary.json`` into ``--run_dir`` and prints one
-final JSON summary line.  Examples, the FEMNIST-CNN configurations of the
-defended FedAvg and of secure FedAvg:
+Runs ``fedavg``, ``fedavg_robust``, ``turboaggregate`` and ``cross_silo``
+on the hermetic twins, on the GPU unless ``--platform cpu`` is given,
+writes ``metrics.jsonl`` and ``summary.json`` into ``--run_dir`` and
+prints one final JSON summary line.  Examples, the FEMNIST-CNN
+configurations of the defended FedAvg, of secure FedAvg and of the live
+cross-silo federation with the sharded spine:
 
     python -m fedml_tpu_torch --algo fedavg_robust --model cnn_fedavg \\
         --dataset femnist --defense weak_dp --defense_backend cuda \\
@@ -14,6 +15,11 @@ defended FedAvg and of secure FedAvg:
         --dataset femnist --client_num_in_total 3400 \\
         --client_num_per_round 10 --group_num 2 --batch_size 20 --lr 0.1 \\
         --epochs 1 --comm_round 3 --secagg_backend cuda
+    python -m fedml_tpu_torch --algo cross_silo --silo_backend local \\
+        --model cnn_fedavg --dataset femnist --client_num_in_total 3400 \\
+        --client_num_per_round 10 --batch_size 20 --lr 0.1 --epochs 1 \\
+        --agg_mode stream --model_shards 4 --fused_finalize on \\
+        --norm_clip 5.0 --agg_noise_std 0.025 --comm_round 3
 """
 
 from __future__ import annotations
@@ -21,9 +27,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import time
 from typing import Any, Callable, Dict
 
-from fedml_tpu_torch.device import resolve_device
+import torch
+
+from fedml_tpu_torch.device import resolve_device, synchronize
 from fedml_tpu_torch.experiments.config import (ExperimentConfig,
                                                 config_from_argv)
 from fedml_tpu_torch.experiments.models import create_workload, sample_shape_of
@@ -118,11 +127,268 @@ def run_turboaggregate(cfg, data, sink):
     return _summary(algo, algo.run())
 
 
+def _silo_training_setup(cfg, data, wl, device, init_params=None):
+    """The initial global and the per-silo ``train_fn(params, client_idx,
+    round_idx)`` factory: each silo trains its sampled client's shard on
+    ``device`` with the local trainer.  ``init_params`` (a flat dict)
+    replaces the seeded init, as a test does to carry the JAX package's
+    weights across."""
+    from fedml_tpu_torch.core.pytree import as_tensor
+    from fedml_tpu_torch.trainer.local_sgd import make_local_trainer
+    from fedml_tpu_torch.trainer.workload import make_client_optimizer
+
+    local = make_local_trainer(
+        wl, make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd),
+        cfg.epochs)
+
+    def make_train_fn(silo_id):
+        # the CNN has no dropout, so the silo's key of the JAX chain
+        # (`silo_key`) has nothing to seed
+        def train_fn(params, client_idx, round_idx):
+            shard = {k: torch.as_tensor(data.train[k][client_idx]).to(device)
+                     for k in ("x", "y", "mask")}
+            new, _ = local({k: as_tensor(v, device)
+                            for k, v in params.items()}, shard)
+            return new, float(data.train["num_samples"][client_idx])
+        return train_fn
+
+    if init_params is None:
+        init_params = wl.init(torch.Generator().manual_seed(cfg.seed), device)
+    return {k: v.to(device) for k, v in init_params.items()}, make_train_fn
+
+
+def silo_key(seed: int, round_idx: int, silo_id: int):
+    """The JAX runner's per-silo local-training key: ``fold_in(round key,
+    silo_id - 1)`` on `FedAvg.run`'s split chain (one split for the init,
+    one per round)."""
+    from fedml_tpu_torch.algorithms.fedavg import round_keys
+    from fedml_tpu_torch.core import prng
+    keys = round_keys(seed, drew_init=True)
+    for _ in range(round_idx):
+        next(keys)
+    return prng.fold_in(next(keys), silo_id - 1)
+
+
+def _robust_setup(cfg: ExperimentConfig, template):
+    """The replicated path's admission pipeline (``--admission auto`` arms
+    it whenever a defense flag is set) and streaming fold (``--agg_mode
+    stream``; None in stack mode, which runs the plain weighted mean)."""
+    from fedml_tpu_torch.core.pytree import nest, to_host
+    from fedml_tpu_torch.core.stream_agg import StreamingAggregator
+    from fedml_tpu_torch.robust import AdmissionPipeline
+
+    robust_on = cfg.norm_clip > 0 or cfg.agg_noise_std > 0
+    admission = None
+    if cfg.admission == "on" or (cfg.admission == "auto" and robust_on):
+        admission = AdmissionPipeline(
+            to_host(nest(template)), kind="params",
+            max_num_samples=cfg.max_num_samples, norm_k=cfg.norm_screen_k,
+            norm_window=cfg.norm_screen_window,
+            norm_min_history=cfg.norm_screen_min_history,
+            trust=_trust_tracker(cfg))
+    stream = None
+    if cfg.agg_mode == "stream":
+        stream = StreamingAggregator(
+            template, method=cfg.robust_agg, kind="params",
+            norm_clip=cfg.norm_clip, noise_std=cfg.agg_noise_std,
+            seed=cfg.seed)
+    return admission, stream
+
+
+def _trust_tracker(cfg: ExperimentConfig):
+    from fedml_tpu_torch.robust import TrustTracker
+    return TrustTracker(strikes_to_quarantine=cfg.strikes_to_quarantine,
+                        quarantine_rounds=cfg.quarantine_rounds,
+                        probation_rounds=cfg.probation_rounds)
+
+
+class CrossSiloFederation:
+    """Distributed FedAvg over the actor/transport layer: the server and
+    ``client_num_per_round`` silo actors in-process on one `LocalHub`
+    (every frame through the wire codec), driven by the synchronous pump.
+    ``--model_shards S`` runs the sharded spine: per-shard slice frames,
+    per-shard admission and fold, and one K2 launch per shard per round
+    with ``--fused_finalize on`` (or ``auto`` on the GPU).
+
+    Built, then ``run()``; ``server.params`` is the global.
+    ``init_params`` (a flat dict) replaces the seeded init."""
+
+    def __init__(self, cfg, data, sink, init_params=None):
+        from fedml_tpu_torch.algorithms.cross_silo import (FedAvgClientActor,
+                                                           FedAvgServerActor)
+        from fedml_tpu_torch.comm.local import LocalHub
+        from fedml_tpu_torch.parallel.cohort import cohort_eval
+        from fedml_tpu_torch.shard_spine import build_shard_spine
+        from fedml_tpu_torch.trainer.local_sgd import make_evaluator
+
+        self.cfg, self.data, self.sink = cfg, data, sink
+        self.device = resolve_device(cfg.platform)
+        wl = _make_workload(cfg, data)
+        init, make_train_fn = _silo_training_setup(cfg, data, wl,
+                                                   self.device, init_params)
+        n_silos = min(cfg.client_num_per_round, data.client_num)
+        spine = None
+        if cfg.model_shards > 0:
+            spine = build_shard_spine(
+                init, num_shards=cfg.model_shards, norm_clip=cfg.norm_clip,
+                noise_std=cfg.agg_noise_std, seed=cfg.seed,
+                fused=cfg.fused_finalize,
+                max_num_samples=cfg.max_num_samples,
+                norm_k=cfg.norm_screen_k, norm_window=cfg.norm_screen_window,
+                norm_min_history=cfg.norm_screen_min_history,
+                trust=_trust_tracker(cfg))
+            admission, stream = None, spine.agg
+        else:
+            admission, stream = _robust_setup(cfg, init)
+        self._eval_cohort = cohort_eval(make_evaluator(wl))
+        self._freq = (max(cfg.comm_round, 1) if cfg.ci
+                      else cfg.frequency_of_the_test)
+        self.history: list = []
+        self.round_times: list = []
+        self._t0 = time.perf_counter()
+        self.hub = LocalHub(codec_roundtrip=True)
+        self.server = FedAvgServerActor(
+            self.hub.transport(0), init, data.client_num, n_silos,
+            cfg.comm_round, on_round_done=self._on_round_done,
+            straggler_policy=cfg.straggler_policy,
+            round_timeout_s=cfg.round_timeout_s or None,
+            min_silo_frac=cfg.min_silo_frac, admission=admission,
+            stream_agg=stream, shard_wire=spine)
+        self.silos = [FedAvgClientActor(g, self.hub.transport(g),
+                                        make_train_fn(g))
+                      for g in range(1, n_silos + 1)]
+        for actor in [self.server] + self.silos:
+            actor.register_handlers()
+
+    def _on_round_done(self, r, params):
+        from fedml_tpu_torch.algorithms.fedavg import evaluate_global
+        synchronize(self.device)
+        self.round_times.append(time.perf_counter() - self._t0)
+        if r % self._freq == 0 or r == self.cfg.comm_round - 1:
+            stats = evaluate_global(self._eval_cohort, self.data, params,
+                                    self.cfg.eval_chunk_clients, self.device)
+            stats.update(round=r, round_s=self.round_times[-1])
+            logger.info("round %d: %s", r, stats)
+            self.history.append(stats)
+            self.sink.log(stats, step=r)
+        self._t0 = time.perf_counter()   # evaluation is not round time
+
+    def run(self) -> Dict[str, Any]:
+        """Drive the federation to its end; the last evaluation, the
+        steady round rate (rounds after the first) and whether the global
+        is finite."""
+        server = self.server
+        try:
+            self._t0 = time.perf_counter()
+            server.start()
+            self.hub.pump()
+        finally:
+            server.finish()   # idempotent; joins the straggler timer
+        if server.round_idx < self.cfg.comm_round and not server.aborted:
+            raise RuntimeError(f"the federation stalled at round "
+                               f"{server.round_idx} of {self.cfg.comm_round}")
+        steady = self.round_times[1:] or self.round_times
+        out = dict(self.history[-1]) if self.history else {}
+        out["rounds_per_s"] = len(steady) / sum(steady) if steady else 0.0
+        out["params_finite"] = all(bool(v.isfinite().all())
+                                   for v in server.params.values())
+        return out
+
+
+@runner("cross_silo")
+def run_cross_silo(cfg, data, sink):
+    return CrossSiloFederation(cfg, data, sink).run()
+
+
+# cross-silo flags of the JAX package the port refuses, with what they
+# need: (default, the ROADMAP item that brings it)
+REFUSED_FLAGS = {
+    "secagg": ("off", "live SecAgg over the wire, secure/protocol.py "
+                      "(ROADMAP Queue 1 item 3)"),
+    "edge_aggregators": (0, "algorithms/hierarchical.py (ROADMAP Queue 1 "
+                            "item 8)"),
+    "wire_compression": ("none", "comm/compress.py (ROADMAP Queue 1 item 8)"),
+    "error_feedback": (False, "comm/compress.py (ROADMAP Queue 1 item 8)"),
+    "heartbeat_s": (0.0, "heartbeats and the failure detector (ROADMAP "
+                         "Queue 1 item 3)"),
+    "dead_after_s": (0.0, "heartbeats and the failure detector (ROADMAP "
+                          "Queue 1 item 3)"),
+    "serve_port": (0, "serve/ (ROADMAP Queue 1 item 11)"),
+    "ingest_pipeline": (False, "comm/ingest.py (ROADMAP Queue 1 item 8)"),
+    "journal": (False, "utils/journal.py and robust/faultline.py (ROADMAP "
+                       "Queue 1 item 3)"),
+    "health": (False, "obs/health.py (ROADMAP Queue 1 item 9)"),
+    "server_opt": ("plain", "server_opt/ (ROADMAP Queue 1 item 7)"),
+    "adaptive": (False, "server_opt/controller.py (ROADMAP Queue 1 item 7)"),
+    "adversary": ("", "robust/adversary.py (ROADMAP Queue 1 item 8)"),
+    "mesh_stages": (0, "parallel/pipeline.py (ROADMAP Queue 1 item 10)"),
+    **{f"chaos_{k}": (0.0, "comm/chaos.py (ROADMAP Queue 1 item 3)")
+       for k in ("drop", "delay", "dup", "reorder", "corrupt")},
+}
+
+
+def check_cross_silo(cfg: ExperimentConfig) -> None:
+    """The JAX package's gates on the cross-silo flags, and the port's
+    refusals of what it does not run yet."""
+    for flag, (default, needs) in REFUSED_FLAGS.items():
+        if getattr(cfg, flag) != default:
+            raise NotImplementedError(
+                f"--{flag} is not ported yet; it needs {needs}")
+    if cfg.silo_backend != "local":
+        raise NotImplementedError(
+            f"--silo_backend {cfg.silo_backend} is not ported yet; the "
+            f"port runs the in-process hub only (comm/grpc_transport.py and "
+            f"comm/mqtt_*: ROADMAP Queue 1 item 3)")
+    if cfg.robust_agg != "mean":
+        raise NotImplementedError(
+            f"--robust_agg {cfg.robust_agg} is not ported yet; the "
+            f"order-statistic rules need robust/defense.py (ROADMAP Queue 1 "
+            f"item 5)")
+    if cfg.admission not in ("auto", "on", "off"):
+        raise ValueError(f"--admission must be auto|on|off, "
+                         f"got {cfg.admission!r}")
+    from fedml_tpu_torch.core.stream_agg import STREAM_MODES
+    if cfg.agg_mode not in STREAM_MODES:
+        raise ValueError(f"--agg_mode must be one of {STREAM_MODES}, "
+                         f"got {cfg.agg_mode!r}")
+    if cfg.agg_mode == "stack" and (cfg.norm_clip > 0
+                                    or cfg.agg_noise_std > 0):
+        raise NotImplementedError(
+            "defended --agg_mode stack (--norm_clip/--agg_noise_std) is not "
+            "ported yet; it needs robust/defense.py (ROADMAP Queue 1 item "
+            "5) — pass --agg_mode stream")
+    if cfg.model_shards < 0:
+        raise ValueError(f"--model_shards must be >= 0, got "
+                         f"{cfg.model_shards}")
+    if cfg.fused_finalize not in ("auto", "on", "off"):
+        raise ValueError(f"--fused_finalize must be auto|on|off, got "
+                         f"{cfg.fused_finalize!r}")
+    if cfg.fused_finalize != "auto" and cfg.model_shards < 1:
+        raise ValueError(
+            "--fused_finalize selects the SHARD finalize backend and needs "
+            "--model_shards >= 1; alone it would be silently ignored")
+    if cfg.model_shards > 0:
+        if cfg.algo != "cross_silo":
+            raise ValueError(
+                f"--model_shards is the sharded cross-silo spine and applies "
+                f"to --algo cross_silo only; --algo {cfg.algo} would "
+                f"silently run whole-model")
+        if cfg.agg_mode != "stream":
+            raise ValueError(
+                "--model_shards shards the STREAMING fold state — pass "
+                "--agg_mode stream")
+        if cfg.admission == "off":
+            raise ValueError(
+                "--model_shards requires the admission screens: the "
+                "per-shard structural fingerprint IS the wire protocol")
+
+
 def check_config(cfg: ExperimentConfig) -> None:
     """Refuse, by name, what the port does not run yet."""
     if cfg.algo not in RUNNERS:
         raise KeyError(f"--algo {cfg.algo!r} is not ported yet; the port "
                        f"has {sorted(RUNNERS)}")
+    check_cross_silo(cfg)
     if cfg.mesh_clients:
         raise NotImplementedError(
             "--mesh_clients is not ported yet; the mesh paths arrive with "

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each source under ``fedml_tpu_torch/csrc/`` compiles, at first use, into a
+Each source under ``fedml_tpu_torch/csrc/`` (``*.cu``, which may include
+the shared ``*.cuh`` headers beside them) compiles, at first use, into a
 shared library with a plain C interface for ``sm_90a`` (Hopper).  The
 library is cached in ``build/kernels/`` at the repository root (or
 ``$FEDML_TORCH_BUILD_DIR``) under a name that hashes the source and the
@@ -49,7 +50,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The cached library's path: it hashes the source, every shared
+    header under ``csrc/`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 

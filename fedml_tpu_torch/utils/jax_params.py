@@ -13,33 +13,16 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.core.pytree import Tree, flatten_nested, nest, to_host
 
 
 def params_from_numpy(tree: Dict[str, Any], device="cpu") -> Tree:
     """Nested dict of arrays -> the port's flat dict, in JAX's leaf
     order."""
-    flat: Dict[str, torch.Tensor] = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            path = f"{prefix}/{k}" if prefix else str(k)
-            if isinstance(v, dict):
-                walk(v, path)
-            else:
-                flat[path] = torch.as_tensor(np.array(v)).to(device)
-
-    walk(tree, "")
-    return {k: flat[k] for k in tree_keys(flat)}
+    return {k: torch.as_tensor(np.array(v)).to(device)
+            for k, v in flatten_nested(tree).items()}
 
 
 def params_to_numpy(params: Tree) -> Dict[str, Any]:
     """The port's flat dict -> nested dict of numpy arrays."""
-    out: Dict[str, Any] = {}
-    for k in tree_keys(params):
-        *parents, leaf = k.split("/")
-        node = out
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = params[k].detach().cpu().numpy()
-    return out
+    return to_host(nest(params))
