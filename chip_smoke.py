@@ -43,7 +43,28 @@ each printed as it ends; any failure exits non-zero:
    (broadcast, wire, silo training, admission, fold, finalize, eval), the
    kernel launches per round and the device's idle share; one round with
    TF32 off against the CPU (limit 1e-4);
-9. a JSON line with each kernel's numbers, and a last line
+9. kernel flash_attention — K4's forward (K4f) and its backward's dK/dV
+   (K4dkv) and dQ (K4dq) kernels against their plain PyTorch versions
+   (TF32 off; o, m, l within 1e-5 x max|ref|, dq, dk, dv within 1e-4 x
+   max|ref|) at [B, T, H, d] = [2, 2048, 8, 32] (bench.py's step),
+   [8, 2048, 8, 32] (4 clients x B=2 folded by vmap), T=128 and T=384:
+   device time per launch (CUDA events, median of 20), the plain
+   versions' times, ``scaled_dot_product_attention``'s forward and
+   forward + backward (a yardstick), the f32 operations and bytes bounds
+   and the wrappers' host cost;
+10. transformer slice — FedAvg through the API on bench.py's long-context
+   TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
+   T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
+   rounds: each K4 kernel launches exactly n_layers x S x rounds times in
+   training, evaluation launches K4f only; a per-part split of a round,
+   its launches and the device's idle share; one round with TF32 off
+   against the same round with flash off (auto-blockwise, limit 1e-4);
+   bench.py's long-context grad step (B=2, T=2048, 10 steps), flash on
+   and off;
+11. transformer cli — 3 rounds of the dense Shakespeare transformer (the
+   JAX CLI's widths, 715 clients, 10 per round, B=4, SGD lr 1) through
+   the CLI's runner: rounds/s and a finite loss;
+12. a JSON line with each kernel's numbers, and a last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, when there is
@@ -917,6 +938,393 @@ def silo_round_parity(silo_cfg, data):
     return diff
 
 
+# ---------------------------------------------------------------------------
+# slice 4: FedAvg on the transformer LM, through K4 (flash attention)
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = {               # [B, T, H, d], as the model calls the kernels
+    "bench": (2, 2048, 8, 32),     # bench.py's long-context step
+    "vmap": (8, 2048, 8, 32),      # 4 clients x B=2, the vmap fold
+    "t128": (2, 128, 8, 32),       # one 128 block: diagonal tiles only
+    "t384": (2, 384, 8, 32),       # three blocks
+}
+FLASH_O_TOL = 1e-5             # x max|ref|: o, m, l against the plain version
+FLASH_GRAD_TOL = 1e-4          # x max|ref|: dq, dk, dv
+# bench.py:514-521's model, trained through the FedAvg API
+LM = dict(vocab_size=256, d_model=256, n_heads=8, n_layers=2, d_ff=1024,
+          max_len=2048)
+LM_DATA = dict(sample_shape=(2048,), sequence_vocab=256, class_num=256,
+               num_clients=16, samples_per_client=4, batch_size=2)
+LM_FEDAVG = dict(client_num_per_round=4, batch_size=2, lr=0.1, epochs=1,
+                 client_axis="vmap")
+LM_ROUNDS = 3
+LM_BENCH_STEPS = 10
+LM_BENCH_BLOCK = 256           # bench.py's blockwise attention block
+# the dense CLI path: the JAX CLI's transformer widths on the Shakespeare
+# twin, BASELINE.md row 20's clients (715, 10 per round, B=4, SGD lr 1, E=1)
+CLI_LM_ARGS = ["--algo", "fedavg", "--model", "transformer", "--dataset",
+               "shakespeare", "--client_num_in_total", "715",
+               "--client_num_per_round", "10", "--batch_size", "4", "--lr",
+               "1.0", "--epochs", "1", "--comm_round", "3",
+               "--frequency_of_the_test", "1000", "--log_stdout", "false"]
+# the library's kernel bodies: _flash_attention_kernel,
+# _flash_attention_dkv_kernel and _flash_attention_dq_kernel
+K4_REPLACES = {"flash_fwd": 331, "flash_bwd_dkv": 796, "flash_bwd_dq": 1146}
+
+
+def launch_ms(fn, n: int = 20) -> float:
+    """Median device time (ms) of one call of ``fn``: CUDA events around
+    each of ``n`` calls, after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def flash_bounds(b: int, h: int, t: int, d: int):
+    """Per kernel: (least ms, what bounds it).  Bytes: each input read
+    once, each output written once ([B, H, T, d] rows, [B, H, T] m, l,
+    di).  Operations: the causal half's multiply-adds, 2 each: 4 d per
+    visible (query, key) pair forward, 8 d for dK/dV, 6 d for dQ."""
+    rows, vecs = 4 * b * h * t * d, 4 * b * h * t
+    pairs = b * h * t * (t + 1) / 2
+    work = {"flash_fwd": (4 * rows + 2 * vecs, 4 * d * pairs),
+            "flash_bwd_dkv": (6 * rows + 3 * vecs, 8 * d * pairs),
+            "flash_bwd_dq": (5 * rows + 3 * vecs, 6 * d * pairs)}
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_flash_kernel():
+    """Phase: K4f, K4dkv and K4dq against their plain versions on the card
+    (TF32 off), at every shape of FLASH_SHAPES; their times, the plain
+    versions', scaled_dot_product_attention's (a yardstick the port never
+    calls) and the wrappers' host cost."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from fedml_tpu_torch.models import flash_attention as fa
+
+    rows, worst = {}, {n: 0.0 for n in fa.launch_counts}
+    with tf32_off():
+        for shape_name, (b, t, h, d) in FLASH_SHAPES.items():
+            rng = np.random.RandomState(b * 10000 + t)
+            q, k, v, do = (torch.tensor(rng.randn(b, h, t, d)
+                                        .astype(np.float32)).cuda()
+                           for _ in range(4))
+            o, m, l = fa.flash_fwd(q, k, v)
+            po, pm, pl = fa.flash_fwd_plain(q, k, v)
+            di = (po * do).sum(-1)
+            bwd = (q, k, v, do, pm, pl, di)
+            dk, dv = fa.flash_bwd_dkv(*bwd)
+            pdk, pdv = fa.flash_bwd_dkv_plain(*bwd)
+            dq = fa.flash_bwd_dq(*bwd)
+            pdq = fa.flash_bwd_dq_plain(*bwd)
+            torch.cuda.synchronize()
+            errs = {}
+            for key, kernel, got, want, tol in (
+                    ("o", "flash_fwd", o, po, FLASH_O_TOL),
+                    ("m", "flash_fwd", m, pm, FLASH_O_TOL),
+                    ("l", "flash_fwd", l, pl, FLASH_O_TOL),
+                    ("dk", "flash_bwd_dkv", dk, pdk, FLASH_GRAD_TOL),
+                    ("dv", "flash_bwd_dkv", dv, pdv, FLASH_GRAD_TOL),
+                    ("dq", "flash_bwd_dq", dq, pdq, FLASH_GRAD_TOL)):
+                err = float((got - want).abs().max())
+                limit = tol * float(want.abs().max())
+                errs[key] = err
+                if key not in ("m", "l"):
+                    worst[kernel] = max(worst[kernel], err)
+                if not err <= limit:
+                    fail(f"{kernel} {shape_name} {(b, t, h, d)}: {key} max "
+                         f"abs err {err} > {limit} ({tol} x max|ref|)")
+            calls = {
+                "flash_fwd": (lambda: fa.flash_fwd(q, k, v),
+                              lambda: fa.flash_fwd_plain(q, k, v)),
+                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+                                  lambda: fa.flash_bwd_dkv_plain(*bwd)),
+                "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd),
+                                 lambda: fa.flash_bwd_dq_plain(*bwd)),
+            }
+            bounds = flash_bounds(b, h, t, d)
+            row = {"shape_BTHd": [b, t, h, d], "max_abs_err": errs}
+            for name, (kernel, plain) in calls.items():
+                row[name] = dict(ms=launch_ms(kernel, 20),
+                                 plain_ms=launch_ms(plain, 5),
+                                 bound_ms=bounds[name][0],
+                                 bound_by=bounds[name][1],
+                                 host_us=host_us(kernel, 20))
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                     is_causal=True)
+                torch.autograd.grad(out, (qg, kg, vg), do)
+
+            row["sdpa_fwd_ms"] = launch_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True), 20)
+            row["sdpa_fwd_bwd_ms"] = launch_ms(sdpa_fwd_bwd, 10)
+            row["k4_fwd_bwd_ms"] = sum(row[n]["ms"] for n in calls)
+            phase("kernel flash_attention", shape=shape_name, **row)
+            rows[shape_name] = row
+            del q, k, v, do, qg, kg, vg
+    return rows, worst
+
+
+def lm_data():
+    from fedml_tpu_torch.data.synthetic import synthetic_federated_dataset
+    return synthetic_federated_dataset(**LM_DATA)
+
+
+def lm_fedavg(data, use_flash: bool, comm_round: int = LM_ROUNDS):
+    from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
+    from fedml_tpu_torch.models import TransformerLM
+    from fedml_tpu_torch.trainer.workload import NWPWorkload
+    return FedAvg(NWPWorkload(TransformerLM(**LM, use_flash=use_flash)),
+                  data, FedAvgConfig(comm_round=comm_round,
+                                     frequency_of_the_test=comm_round,
+                                     **LM_FEDAVG), device="cuda")
+
+
+def run_lm_slice(data):
+    """The transformer slice's main path: FedAvg through the API on the
+    flash model, LM_ROUNDS rounds with an evaluation at the first and the
+    last.  Every K4 kernel must launch n_layers x S x rounds times in the
+    training window; evaluation launches only K4f (counted apart)."""
+    import torch
+    from fedml_tpu_torch.models import flash_attention as fa
+
+    algo = lm_fedavg(data, use_flash=True)
+    evaluate, eval_counts = algo.evaluate_global, dict.fromkeys(
+        fa.launch_counts, 0)
+
+    def counted_eval(params):
+        before = dict(fa.launch_counts)
+        out = evaluate(params)
+        for k in before:
+            eval_counts[k] += fa.launch_counts[k] - before[k]
+        return out
+
+    algo.evaluate_global = counted_eval
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = algo.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    total = dict(fa.launch_counts)
+    train = {k: total[k] - eval_counts[k] for k in total}
+    steps = int(data.train["mask"].shape[1]) * LM_FEDAVG["epochs"]
+    need = LM["n_layers"] * steps * LM_ROUNDS
+    if any(n != need for n in train.values()):
+        fail(f"the transformer slice's training launched {train}; each K4 "
+             f"kernel must launch n_layers x S x rounds = {need} times")
+    if eval_counts["flash_bwd_dkv"] or eval_counts["flash_bwd_dq"] \
+            or not eval_counts["flash_fwd"]:
+        fail(f"evaluation launched {eval_counts}; it runs K4f only")
+    last = algo.history[-1]
+    finite = all(bool(v.isfinite().all()) for v in params.values())
+    if not finite or not all(
+            float(last[k]) == float(last[k]) for k in ("train_loss",
+                                                       "test_loss")):
+        fail(f"the transformer slice produced non-finite values: {last}")
+    steady = algo.round_times[1:]
+    phase("transformer slice", train_launches=train,
+          eval_launches=eval_counts, launches_per_round=need // LM_ROUNDS,
+          steps_per_round=steps, run_s=run_s,
+          rounds_per_s=len(steady) / sum(steady),
+          train_loss=last["train_loss"], test_loss=last["test_loss"],
+          test_acc=last["test_acc"], params_finite=finite,
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return total, need // LM_ROUNDS, len(steady) / sum(steady)
+
+
+def profile_lm(data, rounds: int = 5):
+    """Where a transformer round's time goes: host timers (synchronised)
+    around the cohort gather, the local SGD and the weighted mean; then
+    torch.profiler over ``rounds`` whole rounds for the device's busy
+    share, the launches per round and K4's share of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fedml_tpu_torch.core.pytree import tree_weighted_mean
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.stacking import gather_cohort
+    from fedml_tpu_torch.parallel.cohort import train_cohort
+
+    algo = lm_fedavg(data, use_flash=True)
+    m = LM_FEDAVG["client_num_per_round"]
+    params = algo.init_params()
+    parts = {"gather_ms": [], "train_ms": [], "aggregate_ms": []}
+    for r in range(rounds + 1):                  # round 0 is warm-up
+        t0 = time.perf_counter()
+        cohort = gather_cohort(data.train,
+                               sample_clients(r, data.client_num, m),
+                               pad_to=m, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stacked, _ = train_cohort(algo._local_train, params, cohort,
+                                  client_axis="vmap")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params = tree_weighted_mean(stacked, cohort["num_samples"])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if r:
+            parts["gather_ms"].append((t1 - t0) * 1e3)
+            parts["train_ms"].append((t2 - t1) * 1e3)
+            parts["aggregate_ms"].append((t3 - t2) * 1e3)
+    row = {k: statistics.median(v) for k, v in parts.items()}
+    row["round_ms"] = sum(row.values())
+
+    def run_rounds():
+        p = params
+        for r in range(rounds):
+            cohort = gather_cohort(data.train,
+                                   sample_clients(r, data.client_num, m),
+                                   pad_to=m, device="cuda")
+            p, _ = algo.cohort_step(p, cohort)
+        torch.cuda.synchronize()
+
+    run_rounds()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_rounds()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
+    busy_us = sum(_self_device_us(e) for e in events)
+    k4_us = sum(_self_device_us(e) for e in events if "flash_" in e.key)
+    row["profiled_round_ms"] = wall_us / rounds / 1e3
+    row["device_busy_ms_per_round"] = busy_us / rounds / 1e3
+    row["k4_device_ms_per_round"] = k4_us / rounds / 1e3
+    row["device_idle_share"] = (1 - busy_us / wall_us) if busy_us else None
+    row["kernel_launches_per_round"] = sum(e.count for e in events) / rounds
+    top = sorted(events, key=_self_device_us, reverse=True)[:6]
+    row["top_device_us_per_round"] = {
+        e.key[:60]: _self_device_us(e) / rounds for e in top}
+    phase("profile transformer", **row)
+    return row
+
+
+def lm_round_parity(data):
+    """One round with TF32 off through K4 against the same round with
+    ``use_flash=False`` (at T=2048 the JAX package's non-flash path:
+    auto-blockwise attention, block 512), from one init and one cohort."""
+    import torch
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.stacking import gather_cohort
+
+    m = LM_FEDAVG["client_num_per_round"]
+    cohort = gather_cohort(data.train, sample_clients(0, data.client_num, m),
+                           pad_to=m, device="cuda")
+    out = {}
+    with tf32_off():
+        for use_flash in (True, False):
+            algo = lm_fedavg(data, use_flash, comm_round=1)
+            init = algo.init_params()
+            params, _ = algo.cohort_step(init, cohort)
+            out[use_flash] = {k: v.cpu() for k, v in params.items()}
+    init = {k: v.cpu() for k, v in init.items()}
+    diff = max(float((out[True][k] - out[False][k]).abs().max())
+               for k in init)
+    moved = max(float((out[False][k] - init[k]).abs().max()) for k in init)
+    phase("transformer round flash vs blockwise", max_abs_diff=diff,
+          tol=ROUND_TOL, tf32=False, moved_from_init=moved)
+    if not moved > 10 * ROUND_TOL:
+        fail(f"the transformer round left the global where it was "
+             f"(moved {moved})")
+    if not diff <= ROUND_TOL:
+        fail(f"the flash round differs from the blockwise round by {diff} "
+             f"> {ROUND_TOL}")
+    return diff
+
+
+def lm_bench_step():
+    """bench.py's long-context grad step (B=2, T=2048, LM_BENCH_STEPS
+    steps): the gradient of the mean next-token cross-entropy, flash on
+    and off (off is bench.py's blockwise attention, block 256)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.func import grad
+    from fedml_tpu_torch.models import TransformerLM
+    from fedml_tpu_torch.trainer.workload import NWPWorkload, apply_model
+
+    b, t = 2, LM["max_len"]
+    toks = torch.tensor(np.random.RandomState(0).randint(
+        0, LM["vocab_size"], (b, t)))
+    toks = toks.cuda()
+    y = torch.cat([toks[:, 1:], toks[:, :1]], dim=1).reshape(-1)
+    out = {}
+    for use_flash in (True, False):
+        model = TransformerLM(**LM, use_flash=use_flash,
+                              block_size=None if use_flash
+                              else LM_BENCH_BLOCK)
+        params = NWPWorkload(model).init(torch.Generator().manual_seed(0),
+                                         "cuda")
+
+        def loss_fn(p):
+            logits = apply_model(model, p, toks).float()
+            return F.cross_entropy(logits.reshape(b * t, -1), y)
+
+        step = grad(loss_fn)
+        step(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_BENCH_STEPS):
+            g = step(params)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / LM_BENCH_STEPS
+        if not all(bool(v.isfinite().all()) for v in g.values()):
+            fail(f"the long-context grad step (flash={use_flash}) is not "
+                 f"finite")
+        out["flash" if use_flash else "blockwise"] = dict(
+            step_ms=step_s * 1e3, steps_per_s=1 / step_s,
+            tokens_per_s=b * t / step_s)
+    phase("transformer long-context grad step", **out)
+    return out
+
+
+def run_lm_cli():
+    """The dense CLI path: 3 rounds of the Shakespeare transformer through
+    the CLI's runner."""
+    import torch
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import (load_experiment_data,
+                                                  run_fedavg)
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    cfg = config_from_argv(CLI_LM_ARGS)
+    t0 = time.perf_counter()
+    data = load_experiment_data(cfg)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with MetricsSink(None) as sink:
+        summary = run_fedavg(cfg, data, sink)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    loss = float(summary["train_loss"])
+    if not summary.get("params_finite") or not loss == loss:
+        fail(f"the transformer CLI run is not finite: {summary}")
+    phase("transformer cli", data_s=data_s, run_s=run_s,
+          rounds_per_s=summary["rounds_per_s"], train_loss=loss,
+          test_loss=summary["test_loss"], test_acc=summary["test_acc"],
+          params_finite=True)
+    return summary
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -976,6 +1384,14 @@ def main() -> None:
     profile_silo(silo_cfg, data)
     silo_diff = silo_round_parity(silo_cfg, data)
 
+    flash_rows, flash_worst = check_flash_kernel()
+    data_lm = lm_data()
+    k4_launches, k4_per_round, lm_rounds_per_s = run_lm_slice(data_lm)
+    profile_lm(data_lm)
+    lm_diff = lm_round_parity(data_lm)
+    lm_bench = lm_bench_step()
+    lm_cli = run_lm_cli()
+
     path = [r for r in rows if r["leaf"] in leaf_sizes]
     noisy = [r for r in path if r["sigma"]]
     clean = [r for r in path if not r["sigma"]]
@@ -1024,6 +1440,24 @@ def main() -> None:
                                     for r in shards) else "operations"),
         "library_ms": sum(r["library_ms"] for r in clean),
     })
+    # one training round of the transformer slice: n_layers x S launches of
+    # each K4 kernel at the vmapped shape (4 clients x B=2)
+    vmapped = flash_rows["vmap"]
+    for name, line in K4_REPLACES.items():
+        row = vmapped[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": ("jax/experimental/pallas/ops/tpu/flash_attention.py"
+                         f":{line} (via fedml_tpu/models/transformer.py:55)"),
+            "launches": k4_launches[name], "max_abs_err": flash_worst[name],
+            "ms": k4_per_round * row["ms"],
+            "plain_ms": k4_per_round * row["plain_ms"],
+            "bound_ms": k4_per_round * row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": (k4_per_round * vmapped["sdpa_fwd_ms"]
+                           if name == "flash_fwd" else None),
+        })
     phase("done", seconds=time.perf_counter() - t_start,
           round_vs_cpu_max_abs_diff=round_diff,
           rounds_per_s=summary["rounds_per_s"],
@@ -1031,7 +1465,12 @@ def main() -> None:
           turbo_dropout_max_abs_diff=dropout_diff,
           turbo_rounds_per_s=turbo["rounds_per_s"],
           silo_round_vs_cpu_max_abs_diff=silo_diff,
-          silo_rounds_per_s=silo["rounds_per_s"])
+          silo_rounds_per_s=silo["rounds_per_s"],
+          lm_flash_vs_blockwise_max_abs_diff=lm_diff,
+          lm_rounds_per_s=lm_rounds_per_s,
+          lm_bench_tokens_per_s={k: v["tokens_per_s"]
+                                 for k, v in lm_bench.items()},
+          lm_cli_rounds_per_s=lm_cli["rounds_per_s"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

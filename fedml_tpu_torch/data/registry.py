@@ -1,7 +1,9 @@
 """Dataset registry for the port: the hermetic twins of this slice.
 
 Port of ``fedml_tpu/data/registry.py`` restricted to ``mnist``,
-``mnist_learnable_twin`` and ``femnist`` (28x28x1, 62 classes).  The real
+``mnist_learnable_twin``, ``femnist`` (28x28x1, 62 classes) and the
+next-word twins ``shakespeare`` and ``fed_shakespeare`` (80 tokens, vocab
+90) and ``stackoverflow_nwp`` (20 tokens, vocab 10004).  The real
 on-disk loaders (LEAF, TFF h5) arrive with a later slice of the port."""
 
 from __future__ import annotations
@@ -20,6 +22,14 @@ _REGISTRY: Dict[str, Callable[..., FederatedData]] = {
     "mnist_learnable_twin": mnist_learnable_twin,
     "femnist": partial(synthetic_federated_dataset, sample_shape=(28, 28, 1),
                        class_num=62),
+    "shakespeare": partial(synthetic_federated_dataset, sample_shape=(80,),
+                           sequence_vocab=90, class_num=90),
+    "fed_shakespeare": partial(synthetic_federated_dataset,
+                               sample_shape=(80,), sequence_vocab=90,
+                               class_num=90),
+    "stackoverflow_nwp": partial(synthetic_federated_dataset,
+                                 sample_shape=(20,), sequence_vocab=10004,
+                                 class_num=10004),
 }
 
 

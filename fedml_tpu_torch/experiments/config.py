@@ -79,6 +79,12 @@ class ExperimentConfig:
     adversary: str = ""
     mesh_stages: int = 0
 
+    # transformer attention (NWP datasets)
+    attn_block_size: int = 0             # >0: blockwise attention
+    attn_flash: bool = False             # the flash kernel (K4)
+    moe_experts: int = 0                 # >0 is not ported (refused)
+    mesh_sequence: int = 0               # >0 is not ported (refused)
+
     mesh_clients: int = 0                # >0 is not ported (refused)
     client_axis: str = "vmap"            # "vmap" | "scan"
     eval_chunk_clients: int = 1024       # evaluate_global clients per call

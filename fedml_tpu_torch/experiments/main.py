@@ -5,7 +5,8 @@ on the hermetic twins, on the GPU unless ``--platform cpu`` is given,
 writes ``metrics.jsonl`` and ``summary.json`` into ``--run_dir`` and
 prints one final JSON summary line.  Examples, the FEMNIST-CNN
 configurations of the defended FedAvg, of secure FedAvg and of the live
-cross-silo federation with the sharded spine:
+cross-silo federation with the sharded spine, and FedAvg on the
+transformer LM over the Shakespeare twin:
 
     python -m fedml_tpu_torch --algo fedavg_robust --model cnn_fedavg \\
         --dataset femnist --defense weak_dp --defense_backend cuda \\
@@ -20,6 +21,10 @@ cross-silo federation with the sharded spine:
         --client_num_per_round 10 --batch_size 20 --lr 0.1 --epochs 1 \\
         --agg_mode stream --model_shards 4 --fused_finalize on \\
         --norm_clip 5.0 --agg_noise_std 0.025 --comm_round 3
+    python -m fedml_tpu_torch --algo fedavg --model transformer \\
+        --dataset shakespeare --client_num_in_total 715 \\
+        --client_num_per_round 10 --batch_size 4 --lr 1.0 --epochs 1 \\
+        --comm_round 3
 """
 
 from __future__ import annotations
@@ -71,7 +76,10 @@ def _fedavg_cfg_kwargs(cfg: ExperimentConfig) -> Dict[str, Any]:
 
 def _make_workload(cfg: ExperimentConfig, data):
     return create_workload(cfg.model, cfg.dataset, data.class_num,
-                           sample_shape_of(data))
+                           sample_shape_of(data),
+                           attn_block_size=cfg.attn_block_size,
+                           attn_flash=cfg.attn_flash,
+                           moe_experts=cfg.moe_experts)
 
 
 def _summary(algo, params) -> Dict[str, Any]:
@@ -389,6 +397,15 @@ def check_config(cfg: ExperimentConfig) -> None:
         raise KeyError(f"--algo {cfg.algo!r} is not ported yet; the port "
                        f"has {sorted(RUNNERS)}")
     check_cross_silo(cfg)
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "--moe_experts is not ported yet; the Switch MoE FFN "
+            "(models/moe.py) is what remains of ROADMAP Queue 1 item 4")
+    if cfg.mesh_sequence:
+        raise NotImplementedError(
+            "--mesh_sequence is not ported yet; sequence parallelism "
+            "(parallel/ring_attention.py, sequence.py) arrives over "
+            "torch.distributed with ROADMAP Queue 1 item 10")
     if cfg.mesh_clients:
         raise NotImplementedError(
             "--mesh_clients is not ported yet; the mesh paths arrive with "

@@ -1,5 +1,6 @@
 """Model x dataset factory (port of ``fedml_tpu/experiments/models.py``)
-for the models of this slice: ``lr`` and ``cnn_fedavg``."""
+for the models of the ported slices: ``lr`` and ``cnn_fedavg`` on the
+image twins, ``transformer`` on the next-word twins."""
 
 from __future__ import annotations
 
@@ -8,12 +9,38 @@ from typing import Sequence
 import numpy as np
 
 from fedml_tpu_torch.data.stacking import FederatedData
-from fedml_tpu_torch.models import CNNOriginalFedAvg, LogisticRegression
-from fedml_tpu_torch.trainer.workload import ClassificationWorkload, Workload
+from fedml_tpu_torch.models import (CNNOriginalFedAvg, LogisticRegression,
+                                    TransformerLM)
+from fedml_tpu_torch.trainer.workload import (ClassificationWorkload,
+                                              NWPWorkload, Workload)
+
+# next-word/char-prediction datasets -> NWP workload
+_NWP_DATASETS = {"shakespeare", "fed_shakespeare", "stackoverflow_nwp"}
 
 
 def create_workload(model_name: str, dataset: str, class_num: int,
-                    sample_shape: Sequence[int]) -> Workload:
+                    sample_shape: Sequence[int], attn_block_size: int = 0,
+                    attn_flash: bool = False,
+                    moe_experts: int = 0) -> Workload:
+    """``attn_block_size`` > 0 gives the transformer blockwise attention;
+    ``attn_flash`` the flash kernel (K4) instead."""
+    if (attn_block_size or attn_flash or moe_experts) \
+            and model_name != "transformer":
+        raise ValueError("--attn_block_size/--attn_flash/--moe_experts "
+                         "only apply to --model transformer")
+    if attn_block_size and attn_flash:
+        raise ValueError("--attn_block_size and --attn_flash are mutually "
+                         "exclusive attention backends; pick one")
+    if dataset in _NWP_DATASETS:
+        if model_name != "transformer":
+            raise KeyError(
+                f"model {model_name!r} on {dataset!r} is not ported yet: the "
+                f"port runs --model transformer there (the LSTMs of "
+                f"models/rnn.py arrive with ROADMAP Queue 1 item 10)")
+        return NWPWorkload(TransformerLM(vocab_size=class_num,
+                                         block_size=attn_block_size or None,
+                                         use_flash=attn_flash,
+                                         moe_experts=moe_experts))
     input_dim = int(np.prod(sample_shape))
     small = class_num <= 10
     factories = {
@@ -22,7 +49,8 @@ def create_workload(model_name: str, dataset: str, class_num: int,
     }
     if model_name not in factories:
         raise KeyError(f"model {model_name!r} is not ported yet; the port "
-                       f"has {sorted(factories)}")
+                       f"has {sorted(factories)} on image datasets and "
+                       f"'transformer' on {sorted(_NWP_DATASETS)}")
     # grad-clip 1.0, as the reference's classification trainer
     return ClassificationWorkload(factories[model_name](),
                                   num_classes=class_num, grad_clip_norm=1.0)

@@ -1,0 +1,141 @@
+"""Decoder-only transformer LM (port of ``fedml_tpu/models/transformer.py``).
+
+Pre-LN blocks (LN -> causal MHA -> residual, LN -> GELU MLP -> residual),
+learned positional embeddings, final LN -> vocab head; ``[B, T]`` tokens in,
+``[B, T, V]`` per-position logits out (the NWP workload's contract).
+
+Parameters keep flax's auto-names and layouts, so weights carry across by
+renaming: ``tok_embed/embedding``, ``pos_embed/embedding``,
+``attn_{i}/{query,key,value,out}/{kernel,bias}``, ``LayerNorm_{0..2L}``
+(block i owns ``2i`` and ``2i+1``, the final norm is ``2L``),
+``Dense_{0..2L-1}`` (block i owns ``2i`` and ``2i+1``) and
+``lm_head/{kernel,bias}``.
+
+Attention takes the JAX module's branches in its order: the flash kernel
+(``use_flash``, K4 in ``models/flash_attention.py``), then ``block_size``,
+then blockwise above ``auto_block_len`` (``_auto_block``), then dense.
+Incremental decode (``cache=``), sequence parallelism (``ring_axis``),
+the Switch MoE FFN and dropout are refused by name until their slices."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fedml_tpu_torch.models.flash_attention import flash_attention
+from fedml_tpu_torch.models.layers import Dense, DenseGeneral, Embed, LayerNorm
+from fedml_tpu_torch.parallel.ring_attention import (blockwise_attention,
+                                                     full_attention)
+
+_DECODE_TODO = ("incremental decode (cache=, init_decode_cache) is not "
+                "ported yet; it arrives with serving, serve/decode.py "
+                "(ROADMAP Queue 1 item 11)")
+
+
+def _auto_block(t: int, threshold: int, max_block: int = 512,
+                min_block: int = 64) -> Optional[int]:
+    """Largest kv-block size in [min_block, max_block] dividing ``t``, or
+    None when ``t <= threshold`` or no such divisor exists."""
+    if t <= threshold:
+        return None
+    for b in range(min(max_block, t), min_block - 1, -1):
+        if t % b == 0:
+            return b
+    return None
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, n_heads: int, d_model: int,
+                 block_size: Optional[int] = None, use_flash: bool = False,
+                 auto_block_len: int = 1024):
+        super().__init__()
+        d_head = d_model // n_heads
+        self.block_size = block_size
+        self.use_flash = use_flash
+        self.auto_block_len = auto_block_len
+        self.query = DenseGeneral((d_model,), (n_heads, d_head))
+        self.key = DenseGeneral((d_model,), (n_heads, d_head))
+        self.value = DenseGeneral((d_model,), (n_heads, d_head))
+        self.out = DenseGeneral((n_heads, d_head), (d_model,))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        t = x.shape[1]
+        if self.use_flash:
+            out = flash_attention(q, k, v)
+        elif self.block_size is not None:
+            out = blockwise_attention(q, k, v, positions, positions,
+                                      self.block_size)
+        elif (blk := _auto_block(t, self.auto_block_len)) is not None:
+            out = blockwise_attention(q, k, v, positions, positions, blk)
+        else:
+            out = full_attention(q, k, v, positions, positions)
+        return self.out(out.to(x.dtype))
+
+
+def init_decode_cache(*args, **kwargs):
+    """Refused: see ``_DECODE_TODO``."""
+    raise NotImplementedError(_DECODE_TODO)
+
+
+class TransformerLM(nn.Module):
+    """Per-position next-token logits, causal; flax's defaults (d_model
+    128, 4 heads, 2 layers, d_ff 512, max_len 2048)."""
+
+    def __init__(self, vocab_size: int, d_model: int = 128, n_heads: int = 4,
+                 n_layers: int = 2, d_ff: int = 512, max_len: int = 2048,
+                 dropout_rate: float = 0.0, block_size: Optional[int] = None,
+                 use_flash: bool = False, auto_block_len: int = 1024,
+                 moe_experts: int = 0):
+        super().__init__()
+        if dropout_rate:
+            raise NotImplementedError(
+                "dropout_rate > 0 is not ported yet: threefry and torch "
+                "draw different dropout masks, so the port cannot be held "
+                "to the JAX model in training (the reason CNNDropOut waits, "
+                "ROADMAP Queue 1 item 5)")
+        if moe_experts:
+            raise NotImplementedError(
+                "moe_experts > 0 (the Switch MoE FFN, models/moe.py) is not "
+                "ported yet; it is what remains of ROADMAP Queue 1 item 4")
+        self.n_layers = n_layers
+        self.max_len = max_len
+        self.tok_embed = Embed(vocab_size, d_model)
+        self.pos_embed = Embed(max_len, d_model)
+        for i in range(n_layers):
+            setattr(self, f"attn_{i}", CausalSelfAttention(
+                n_heads, d_model, block_size=block_size, use_flash=use_flash,
+                auto_block_len=auto_block_len))
+            setattr(self, f"LayerNorm_{2 * i}", LayerNorm(d_model))
+            setattr(self, f"LayerNorm_{2 * i + 1}", LayerNorm(d_model))
+            setattr(self, f"Dense_{2 * i}", Dense(d_model, d_ff))
+            setattr(self, f"Dense_{2 * i + 1}", Dense(d_ff, d_model))
+        setattr(self, f"LayerNorm_{2 * n_layers}", LayerNorm(d_model))
+        self.lm_head = Dense(d_model, vocab_size)
+
+    def forward(self, input_seq: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                ring_axis: Optional[str] = None, cache=None) -> torch.Tensor:
+        if cache is not None:
+            raise NotImplementedError(_DECODE_TODO)
+        if ring_axis is not None:
+            raise NotImplementedError(
+                "ring_axis (sequence-parallel ring attention) is not ported "
+                "yet; it arrives with parallel/ring_attention.py over "
+                "torch.distributed (ROADMAP Queue 1 item 10)")
+        t = input_seq.shape[1]
+        if positions is None:
+            positions = torch.arange(t, device=input_seq.device)
+        x = self.tok_embed(input_seq) + self.pos_embed(positions)[None]
+        for i in range(self.n_layers):
+            h = getattr(self, f"LayerNorm_{2 * i}")(x)
+            x = x + getattr(self, f"attn_{i}")(h, positions)
+            h = getattr(self, f"LayerNorm_{2 * i + 1}")(x)
+            h = F.gelu(getattr(self, f"Dense_{2 * i}")(h), approximate="tanh")
+            x = x + getattr(self, f"Dense_{2 * i + 1}")(h)
+        x = getattr(self, f"LayerNorm_{2 * self.n_layers}")(x)
+        return self.lm_head(x)

@@ -147,3 +147,54 @@ def ClassificationWorkload(model: nn.Module, num_classes: int,
 
     return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
                     grad_clip_norm=grad_clip_norm)
+
+
+def make_nwp_loss_metrics(forward, pad_id: int = 0):
+    """The NWP loss and metric semantics (``make_nwp_loss_metrics`` of the
+    JAX package): per-position cross-entropy averaged over the non-pad
+    positions of valid rows, and summable ``correct`` / ``loss_sum`` /
+    ``total`` metrics.  ``forward(params, x) -> logits [B, T, V]``."""
+
+    def _position_mask(batch):
+        return (batch["y"] != pad_id).to(torch.float32) \
+            * batch["mask"][:, None]
+
+    def _ce(params, batch):
+        logits = forward(params, batch["x"]).to(torch.float32)
+        b, t, v = logits.shape
+        ce = F.cross_entropy(logits.reshape(b * t, v),
+                             batch["y"].reshape(b * t).long(),
+                             reduction="none").reshape(b, t)
+        return logits, ce
+
+    def loss_fn(params, batch):
+        _, ce = _ce(params, batch)
+        m = _position_mask(batch)
+        loss = torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+        return loss, {"loss": loss}
+
+    def metric_fn(params, batch):
+        logits, ce = _ce(params, batch)
+        m = _position_mask(batch)
+        pred = torch.argmax(logits, dim=-1)
+        return {"correct": torch.sum((pred == batch["y"].long()) * m),
+                "loss_sum": torch.sum(ce * m),
+                "total": torch.sum(m)}
+
+    return loss_fn, metric_fn
+
+
+def NWPWorkload(model: nn.Module, pad_id: int = 0,
+                grad_clip_norm: Optional[float] = None,
+                compute_dtype=None) -> Workload:
+    """Next-word/char prediction over ``[B, T, V]`` logits.  The JAX
+    package's MoE balance term has no counterpart: the port's transformer
+    refuses ``moe_experts``."""
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "compute_dtype (mixed precision) is not ported yet; the port's "
+            "workloads and kernels run f32")
+    loss_fn, metric_fn = make_nwp_loss_metrics(
+        lambda params, x: apply_model(model, params, x), pad_id)
+    return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
+                    grad_clip_norm=grad_clip_norm)

@@ -1,7 +1,8 @@
 """Carry parameters across the JAX package and the port.
 
 The port stores parameters in flax's layout (conv kernels HWIO, dense
-kernels ``[in, out]``) under flax's paths, so the carry is a renaming:
+kernels ``[in, out]``, attention kernels ``[d_model, H, d_head]`` and
+``[H, d_head, d_model]``) under flax's paths, so the carry is a renaming:
 ``{"Dense_0": {"kernel": a}}`` <-> ``{"Dense_0/kernel": tensor(a)}``.
 Inputs and outputs on the JAX side are nested dicts of numpy arrays (pass
 ``jax.tree.map(np.asarray, params)``); this module imports no JAX."""

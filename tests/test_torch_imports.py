@@ -94,6 +94,29 @@ def test_cross_silo_slice_modules_import_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+TRANSFORMER_MODULES = (
+    "fedml_tpu_torch.parallel.ring_attention",
+    "fedml_tpu_torch.models.layers", "fedml_tpu_torch.models.flash_attention",
+    "fedml_tpu_torch.models.transformer", "fedml_tpu_torch.trainer.workload",
+    "fedml_tpu_torch.data.registry", "fedml_tpu_torch.experiments.models",
+    "fedml_tpu_torch.experiments.config", "fedml_tpu_torch.utils.jax_params")
+
+
+def test_transformer_slice_modules_import_without_jax():
+    """The transformer slice's modules, each named, import with JAX and the
+    JAX package blocked, and importing them builds no kernel (the flash
+    kernel's library is built at its first launch)."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {TRANSFORMER_MODULES!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"fa = sys.modules['fedml_tpu_torch.models.flash_attention']\n"
+            f"assert fa._lib_handle is None\nprint('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_chip_smoke_refuses_without_gpu():
     """No GPU here: chip_smoke.py must exit non-zero and print no result."""
     import torch
