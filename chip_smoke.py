@@ -43,15 +43,18 @@ each printed as it ends; any failure exits non-zero:
    (broadcast, wire, silo training, admission, fold, finalize, eval), the
    kernel launches per round and the device's idle share; one round with
    TF32 off against the CPU (limit 1e-4);
-9. kernel flash_attention — K4's forward (K4f) and its backward's dK/dV
-   (K4dkv) and dQ (K4dq) kernels against their plain PyTorch versions
-   (TF32 off; o, m, l within 1e-5 x max|ref|, dq, dk, dv within 1e-4 x
-   max|ref|) at [B, T, H, d] = [2, 2048, 8, 32] (bench.py's step),
-   [8, 2048, 8, 32] (4 clients x B=2 folded by vmap), T=128 and T=384:
-   device time per launch (CUDA events, median of 20), the plain
-   versions' times, ``scaled_dot_product_attention``'s forward and
-   forward + backward (a yardstick), the f32 operations and bytes bounds
-   and the wrappers' host cost;
+9. kernel flash_attention — what the compiler made of K4 (each kernel's
+   registers, spills and shared memory from ptxas and the library; with
+   ``cuobjdump``, its tensor-core instructions in SASS: K4f and K4dkv must
+   have some); then K4's forward (K4f) and its backward's dK/dV (K4dkv)
+   and dQ (K4dq) kernels against their plain PyTorch versions (TF32 off;
+   o, m, l within 1e-5 x max|ref|, dq, dk, dv within 1e-4 x max|ref|) at
+   [B, T, H, d] = [2, 2048, 8, 32] (bench.py's step), [8, 2048, 8, 32] (4
+   clients x B=2 folded by vmap), T=128 and T=384: device time per launch
+   (CUDA events, median of 20), the plain versions' times,
+   ``scaled_dot_product_attention``'s forward and forward + backward (a
+   yardstick), the bounds (bytes, TF32 products, exps at the SM's maximum
+   clock; the f32 SIMT bound beside them) and the wrappers' host cost;
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
@@ -64,7 +67,8 @@ each printed as it ends; any failure exits non-zero:
 11. transformer cli — 3 rounds of the dense Shakespeare transformer (the
    JAX CLI's widths, 715 clients, 10 per round, B=4, SGD lr 1) through
    the CLI's runner: rounds/s and a finite loss;
-12. a JSON line with each kernel's numbers, and a last line
+12. a JSON line with each kernel's numbers (K1 and K2 also at their
+   library call's configuration, sigma 0), and a last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, when there is
@@ -75,6 +79,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -83,6 +89,9 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor fp32
+TF32_OPS_PER_S = 495e12        # H100 SXM data sheet, dense TF32 tensor cores
+SFU_EXPS_PER_CLOCK = 16 * 132  # ex2 on the special-function units: 16 a
+                               # clock on each of the H100 SXM's 132 SMs
 N_CLIENTS = 10
 SIGMA = 0.025                  # the weak-DP stddev of the slice
 KERNEL_TOL = 1e-5              # kernel vs plain, same device
@@ -744,6 +753,23 @@ def check_shard_finalize(shard_sizes):
             rows.append(row)
             del got, want
         del acc
+    # sigma = 0 once more, the path's shards in reverse order and `div`
+    # timed before the kernel: does a gap seen in the first shard timed
+    # follow the shard or the order?
+    again = {}
+    for name, d in reversed(list(shard_sizes.items())):
+        acc = torch.randn(d, generator=gen, device=dev) * 40
+        args = (acc, 123.0, fa.shard_seed_word(0, 1), K2_STEP, 0.0)
+        library = lambda: torch.div(acc, 123.0)
+        kernel = lambda: fa.shard_finalize(*args)
+        library_ms = device_ms(library, 20) or time_ms(library, 50)
+        ms = (device_ms(kernel, 20, "shard_finalize_kernel")
+              or time_ms(kernel, 50))
+        again[name] = dict(d=d, ms=ms, library_ms=library_ms)
+        del acc
+    phase("kernel shard_finalize retimed", sigma=0.0, order=list(again),
+          shards=again, ms=sum(r["ms"] for r in again.values()),
+          library_ms=sum(r["library_ms"] for r in again.values()))
     return rows, worst
 
 
@@ -990,11 +1016,29 @@ def launch_ms(fn, n: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def flash_bounds(b: int, h: int, t: int, d: int):
-    """Per kernel: (least ms, what bounds it).  Bytes: each input read
-    once, each output written once ([B, H, T, d] rows, [B, H, T] m, l,
-    di).  Operations: the causal half's multiply-adds, 2 each: 4 d per
-    visible (query, key) pair forward, 8 d for dK/dV, 6 d for dQ."""
+def sm_clocks_hz():
+    """The SM clock now and its maximum (``nvidia-smi``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    now, top = out.stdout.strip().splitlines()[0].split(",")
+    return float(now) * 1e6, float(top) * 1e6
+
+
+def flash_bounds(b: int, h: int, t: int, d: int, sm_hz: float):
+    """Per kernel, the least time the card could take (ms): the largest of
+    its bytes over 3.35 TB/s (each input read once, each output written
+    once: [B, H, T, d] rows, [B, H, T] m, l, di), its multiply-adds over
+    the 495 TFLOP/s TF32 tensor-core rate (the causal half, 2 operations
+    each: 4 d per visible (query, key) pair forward, 8 d for dK/dV, 6 d
+    for dQ) and its exps (one per visible pair) at the SFU's 16 per clock
+    per SM at the SM clock ``sm_hz``.  ``bound_by`` is "bytes" or
+    "operations" (products or exps; ``bound_term`` says which).  The same
+    operations over the 67 TFLOP/s f32 rate outside the tensor cores stay
+    beside them as ``f32_simt_bound_ms``."""
     rows, vecs = 4 * b * h * t * d, 4 * b * h * t
     pairs = b * h * t * (t + 1) / 2
     work = {"flash_fwd": (4 * rows + 2 * vecs, 4 * d * pairs),
@@ -1002,23 +1046,124 @@ def flash_bounds(b: int, h: int, t: int, d: int):
             "flash_bwd_dq": (5 * rows + 3 * vecs, 6 * d * pairs)}
     out = {}
     for name, (nbytes, ops) in work.items():
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-        out[name] = (max(t_bytes, t_ops) * 1e3,
-                     "bytes" if t_bytes >= t_ops else "operations")
+        terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "tf32": ops / TF32_OPS_PER_S * 1e3,
+                 "exp": pairs / (SFU_EXPS_PER_CLOCK * sm_hz) * 1e3}
+        term = max(terms, key=terms.get)
+        out[name] = dict(bound_ms=terms[term],
+                         bound_by="bytes" if term == "bytes"
+                         else "operations",
+                         bound_term=term,
+                         **{f"{k}_ms": v for k, v in terms.items()},
+                         f32_simt_bound_ms=ops / FP32_OPS_PER_S * 1e3)
     return out
+
+
+def ptxas_report(log: str):
+    """Registers, spills and static shared memory of each entry function,
+    from ``nvcc -Xptxas -v``'s log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            fn = hit.group(1)
+            out[fn] = {}
+        elif fn is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("smem_static", r"(\d+) bytes smem")):
+                hit = re.search(pat, line)
+                if hit:
+                    out[fn][key] = int(hit.group(1))
+    return out
+
+
+def sass_tensor_core_counts(lib_path: Path):
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel's SASS, by
+    entry function; None when the toolkit has no ``cuobjdump``."""
+    from fedml_tpu_torch.utils import cuda_build
+    tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()[:500]}")
+    return tensor_core_counts(out.stdout)
+
+
+def tensor_core_counts(sass: str):
+    """HMMA and HGMMA instructions in each function of ``cuobjdump -sass``
+    output, by function name."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def flash_smem_bytes(kernel: str, d: int) -> int:
+    """The dynamic shared memory (bytes) a launch of ``kernel`` takes at
+    head size ``d``: ``fwd_smem_bytes`` and ``dkv_smem_bytes`` of
+    ``csrc/flash_attention.cu``, two buffers of 64-row tiles padded to
+    d + 4 floats (K4f: K and V; K4dkv: Q and dO, then m, l and di); K4dq
+    takes none."""
+    tile = 64 * (d + 4)
+    per_buffer = {"flash_fwd": 2 * tile, "flash_bwd_dkv": 2 * tile + 3 * 64,
+                  "flash_bwd_dq": 0}[kernel]
+    return 2 * per_buffer * 4
+
+
+def check_flash_build(lib_path: Path):
+    """What the compiler made of K4: each kernel's registers, spills and
+    shared memory (static from ptxas, dynamic from the kernels' formula),
+    and its tensor-core instructions in SASS.  Fails if an instantiation of
+    K4f or K4dkv has none."""
+    from fedml_tpu_torch.models import flash_attention as fa
+    from fedml_tpu_torch.utils import cuda_build
+    ptxas = ptxas_report(cuda_build.build_log("flash_attention"))
+    sass = sass_tensor_core_counts(lib_path)
+    if sass is None:
+        print("cuobjdump not found: tensor-core instructions not counted",
+              flush=True)
+    report = {}
+    for kernel in fa.launch_counts:
+        for d in fa.KERNEL_HEAD_DIMS:
+            key = f"{kernel}_kernelILi{d}E"
+            [fn] = [f for f in ptxas if key in f]
+            row = dict(ptxas[fn], smem_dynamic=flash_smem_bytes(kernel, d))
+            if sass is not None:
+                row["tensor_core_sass"] = sum(
+                    n for f, n in sass.items() if key in f)
+                if kernel != "flash_bwd_dq" and not row["tensor_core_sass"]:
+                    fail(f"{kernel} (d={d}) has no tensor-core instruction "
+                         f"in its SASS")
+            report[f"{kernel}/d{d}"] = row
+    phase("kernel flash_attention build", kernels=report,
+          sass_checked=sass is not None)
+    return report
 
 
 def check_flash_kernel():
     """Phase: K4f, K4dkv and K4dq against their plain versions on the card
     (TF32 off), at every shape of FLASH_SHAPES; their times, the plain
     versions', scaled_dot_product_attention's (a yardstick the port never
-    calls) and the wrappers' host cost."""
+    calls), the bounds at the SM's maximum clock and the wrappers' host
+    cost."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from fedml_tpu_torch.models import flash_attention as fa
 
     rows, worst = {}, {n: 0.0 for n in fa.launch_counts}
+    sm_now_hz, sm_hz = sm_clocks_hz()
+    phase("kernel flash_attention clocks", sm_clock_mhz=sm_now_hz / 1e6,
+          sm_clock_max_mhz=sm_hz / 1e6)
     with tf32_off():
         for shape_name, (b, t, h, d) in FLASH_SHAPES.items():
             rng = np.random.RandomState(b * 10000 + t)
@@ -1034,7 +1179,7 @@ def check_flash_kernel():
             dq = fa.flash_bwd_dq(*bwd)
             pdq = fa.flash_bwd_dq_plain(*bwd)
             torch.cuda.synchronize()
-            errs = {}
+            errs, rel = {}, {}
             for key, kernel, got, want, tol in (
                     ("o", "flash_fwd", o, po, FLASH_O_TOL),
                     ("m", "flash_fwd", m, pm, FLASH_O_TOL),
@@ -1045,6 +1190,7 @@ def check_flash_kernel():
                 err = float((got - want).abs().max())
                 limit = tol * float(want.abs().max())
                 errs[key] = err
+                rel[key] = err / float(want.abs().max())
                 if key not in ("m", "l"):
                     worst[kernel] = max(worst[kernel], err)
                 if not err <= limit:
@@ -1058,14 +1204,13 @@ def check_flash_kernel():
                 "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd),
                                  lambda: fa.flash_bwd_dq_plain(*bwd)),
             }
-            bounds = flash_bounds(b, h, t, d)
-            row = {"shape_BTHd": [b, t, h, d], "max_abs_err": errs}
+            bounds = flash_bounds(b, h, t, d, sm_hz)
+            row = {"shape_BTHd": [b, t, h, d], "max_abs_err": errs,
+                   "err_over_max_ref": rel}
             for name, (kernel, plain) in calls.items():
                 row[name] = dict(ms=launch_ms(kernel, 20),
                                  plain_ms=launch_ms(plain, 5),
-                                 bound_ms=bounds[name][0],
-                                 bound_by=bounds[name][1],
-                                 host_us=host_us(kernel, 20))
+                                 host_us=host_us(kernel, 20), **bounds[name])
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
             def sdpa_fwd_bwd():
@@ -1082,6 +1227,102 @@ def check_flash_kernel():
             rows[shape_name] = row
             del q, k, v, do, qg, kg, vg
     return rows, worst
+
+
+# a NaN in q and one in dO at (b, h, row) of the t384 shape
+FLASH_NAN_AT = {"q": (0, 1, 200), "do": (1, 5, 70)}
+
+
+def flash_nan_inputs(device):
+    """q, k, v, dO [B, H, T, d] of the t384 shape, unit normal from a
+    seed, with one NaN in the q row and one in the dO row of
+    FLASH_NAN_AT."""
+    import numpy as np
+    import torch
+    b, t, h, d = FLASH_SHAPES["t384"]
+    rng = np.random.RandomState(384)
+    q, k, v, do = (torch.tensor(rng.randn(b, h, t, d).astype(np.float32),
+                                device=device) for _ in range(4))
+    q[(*FLASH_NAN_AT["q"], 3)] = float("nan")
+    do[(*FLASH_NAN_AT["do"], 5)] = float("nan")
+    return q, k, v, do
+
+
+def flash_chain(q, k, v, do, fwd, dkv, dq):
+    """The model's chain through three attention functions: the forward,
+    di = sum(o dO), then both backward halves on the forward's m and l."""
+    o, m, l = fwd(q, k, v)
+    di = (o * do).sum(-1)
+    dk, dv = dkv(q, k, v, do, m, l, di)
+    return {"o": o, "dk": dk, "dv": dv, "dq": dq(q, k, v, do, m, l, di)}
+
+
+def flash_nan_rows(shape):
+    """[B, H, T] masks of the output rows that depend on FLASH_NAN_AT's
+    NaNs through visible (query, key) pairs and so must be NaN: q's row r
+    reaches o and dq at r and dk, dv at keys <= r; dO's row r reaches dq
+    at r and dk, dv at keys <= r."""
+    import torch
+    b, h, t = shape
+    must = {n: torch.zeros(b, h, t, dtype=torch.bool)
+            for n in ("o", "dk", "dv", "dq")}
+    for src, (bi, hi, r) in FLASH_NAN_AT.items():
+        if src == "q":
+            must["o"][bi, hi, r] = True
+        must["dq"][bi, hi, r] = True
+        must["dk"][bi, hi, :r + 1] = True
+        must["dv"][bi, hi, :r + 1] = True
+    return must
+
+
+def flash_nan_problems(got, want):
+    """What is wrong with the outputs ``got`` of a chain through
+    FLASH_NAN_AT's inputs against the plain chain's ``want``: a row that
+    must be NaN and is not, or, on the rows where ``want`` is finite, an
+    error over the chip limits (1e-5 x max|ref| for o, 1e-4 for the
+    gradients).  The plain versions' dense products spread a NaN further
+    (0 x NaN past the diagonal), so rows outside the dependent ones may be
+    NaN on either side only where ``want`` has them."""
+    problems = []
+    must = flash_nan_rows(want["o"].shape[:3])
+    for name, ref in want.items():
+        out = got[name]
+        nan_rows = out.isnan().any(-1).cpu()
+        missing = int((must[name] & ~nan_rows).sum())
+        if missing:
+            problems.append(f"{name}: {missing} rows that depend on a NaN "
+                            f"input are not NaN")
+        finite = ~ref.isnan().any(-1)
+        tol = FLASH_O_TOL if name == "o" else FLASH_GRAD_TOL
+        err = float((out[finite] - ref[finite]).abs().max())
+        limit = tol * float(ref[finite].abs().max())
+        if not err <= limit:
+            problems.append(f"{name}: max abs err {err} > {limit} on the "
+                            f"rows the plain version keeps finite")
+    return problems
+
+
+def check_flash_nan():
+    """Phase: a NaN in q and in dO comes out of K4f, K4dkv and K4dq as
+    NaN wherever it reaches through a visible pair (the plain versions'
+    behaviour), and the other rows keep to the chip limits."""
+    import torch
+    from fedml_tpu_torch.models import flash_attention as fa
+    with tf32_off():
+        inputs = flash_nan_inputs("cuda")
+        got = flash_chain(*inputs, fa.flash_fwd, fa.flash_bwd_dkv,
+                          fa.flash_bwd_dq)
+        want = flash_chain(*inputs, fa.flash_fwd_plain,
+                           fa.flash_bwd_dkv_plain, fa.flash_bwd_dq_plain)
+        torch.cuda.synchronize()
+    problems = flash_nan_problems(got, want)
+    phase("kernel flash_attention nan", nan_at=FLASH_NAN_AT,
+          nan_rows={n: int(x.isnan().any(-1).sum()) for n, x in got.items()},
+          plain_nan_rows={n: int(x.isnan().any(-1).sum())
+                          for n, x in want.items()},
+          problems=problems)
+    if problems:
+        fail(f"flash attention with NaN inputs: {problems}")
 
 
 def lm_data():
@@ -1384,7 +1625,9 @@ def main() -> None:
     profile_silo(silo_cfg, data)
     silo_diff = silo_round_parity(silo_cfg, data)
 
+    flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
+    check_flash_nan()
     data_lm = lm_data()
     k4_launches, k4_per_round, lm_rounds_per_s = run_lm_slice(data_lm)
     profile_lm(data_lm)
@@ -1406,6 +1649,9 @@ def main() -> None:
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in noisy)
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in clean),
+        # the kernel at the library call's configuration (sigma = 0): no
+        # single PyTorch call computes the noisy function
+        "ms_at_library_config": sum(r["ms"] for r in clean),
     }]
     # one round of the secure slice: 8 leaves x group_num groups of 5
     group = [r for r in mask_rows if r["leaf"] in leaf_sizes
@@ -1439,6 +1685,7 @@ def main() -> None:
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
                                     for r in shards) else "operations"),
         "library_ms": sum(r["library_ms"] for r in clean),
+        "ms_at_library_config": sum(r["ms"] for r in clean),
     })
     # one training round of the transformer slice: n_layers x S launches of
     # each K4 kernel at the vmapped shape (4 clients x B=2)
@@ -1454,7 +1701,9 @@ def main() -> None:
             "ms": k4_per_round * row["ms"],
             "plain_ms": k4_per_round * row["plain_ms"],
             "bound_ms": k4_per_round * row["bound_ms"],
-            "bound_by": row["bound_by"],
+            "bound_by": row["bound_by"], "bound_term": row["bound_term"],
+            "tensor_core_sass": flash_build[f"{name}/d32"].get(
+                "tensor_core_sass"),
             "library_ms": (k4_per_round * vmapped["sdpa_fwd_ms"]
                            if name == "flash_fwd" else None),
         })

@@ -1,4 +1,4 @@
-// Causal flash attention, forward and backward, in f32 (K4).
+// Causal flash attention, forward and backward, on f32 data (K4).
 //
 // Replaces the three TPU kernels of JAX's Pallas library flash attention
 // (jax/experimental/pallas/ops/tpu/flash_attention.py), which
@@ -16,50 +16,507 @@
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [BH, T, D] contiguous f32 (B and H
 // folded; the wrapper transposes the model's [B, T, H, D]); m, l, di are
-// [BH, T].  T is a multiple of 128 (the library's block, checked by the
-// wrapper) and D is 16, 32 or 64 (the wrapper refuses other head sizes on
-// the card).  Key c is visible to query r when c <= r.  The split of the
-// backward into a dK/dV pass and a dQ pass is the library's: each output
-// element is owned by one thread, so the gradients need no atomics and are
-// deterministic.
+// [BH, T].  Every pointer is 16-byte aligned (checked by the wrapper).  T
+// is a multiple of 128 (the library's block, checked by the wrapper) and D
+// is 16, 32 or 64 (the wrapper refuses other head sizes on the card).  Key
+// c is visible to query r when c <= r.  The split of the backward into a
+// dK/dV pass and a dQ pass is the library's: each output element has one
+// owner, so the gradients need no atomics and are deterministic.
 //
-// What bounds it: f32 operations.  Counting the causal half only, a (b, h)
-// pair costs 4 T^2 D / 2 operations forward, 8 T^2 D / 2 for dK/dV and
-// 6 T^2 D / 2 for dQ; at T = 2048, D = 32 that is 268 M, 537 M and 403 M
-// against 0.5-1 MB of traffic, so the bound is the H100 SXM's 67 TFLOP/s
-// outside the tensor cores (data sheet), not its 3.35 TB/s.
+// What bounds them.  Per visible (query, key) pair the forward does 2 D
+// multiply-adds (a score and its share of P V), dK/dV 4 D and dQ 3 D, and
+// each does one exp; each reads its inputs and writes its outputs, a few
+// rows of D floats per row, once.  At T = 2048, D = 32 that is 64-128
+// multiply-adds per pair against about 1 KB of traffic per row, so the
+// bytes at 3.35 TB/s are never the bound: the products at the H100 SXM's
+// 495 TFLOP/s TF32 tensor-core rate and the exps at the SFU's 16 per clock
+// per SM take about the same time (chip_smoke.py::flash_bounds computes
+// all three terms).
 //
-// The simple design (SIMT FMAs, no tensor cores): one block of 64 threads
-// per (bh, 64-row tile); each thread owns one row of the tile it writes and
-// keeps that row's operands and accumulators in registers.  The other
-// operand's 64-row tiles are staged in shared memory and read by all
-// threads of a warp at one address (a broadcast, 16 bytes a load), so each
-// shared load feeds four FMAs.  Tiles strictly above the diagonal are never
-// visited; on the diagonal tile the masked pairs are skipped.
+// K4f and K4dkv run their products on the tensor cores
+// (mma.sync.m16n8k8, TF32 inputs, f32 accumulators) in three passes:
+// each f32 operand a is split into hi = tf32(a) (cvt.rna's rounding) and
+// lo = a - hi (exact) truncated to TF32, and a*b is taken as
+// lo*hi + hi*lo + hi*hi, dropping lo*lo: near-f32 products (relative error
+// about 2^-21) at a third of the TF32 rate.  One pass would keep 10
+// mantissa bits and put the scores' relative error near 5e-4, which the
+// 1e-5 x max|ref| limit on o does not allow.  So their floor is three
+// times the TF32 term of the bound.  mma.sync rather than wgmma: TF32
+// wgmma reads both operands K-major from shared memory as they are, so
+// every lo part and every transposed operand (V for P V; Q and dO for the
+// dK/dV sums) would be a further shared tile; with mma.sync the split and
+// the transposes are register and index work.
 //
-//   forward: thread = query row; walks key tiles 0..diagonal; scores 16
-//            keys at a time into registers, then one online-softmax
-//            rescale per 16 keys; O = acc / l at the end.
-//   dK/dV:   thread = key row; walks query tiles diagonal..end; recomputes
-//            p = exp(s - m) * (1/l) per pair; dV += p dO, dK += ds Q with
-//            ds = p (dO.v - di) scale.
-//   dQ:      thread = query row; walks key tiles 0..diagonal; dQ += ds K.
+// The design of K4f and K4dkv:
+//   * 4 warps a block, 16 rows a warp, one 64-row tile a block; the warp's
+//     own operand (the Q rows in K4f; the K and V rows in K4dkv) is split
+//     into hi/lo fragments once and kept in registers for the whole walk.
+//   * The other operand's 64-row tiles (K, V; or Q, dO, m, l, di) are
+//     double-buffered in shared memory with 16-byte cp.async copies: the
+//     next tile lands while the current one is computed.  In [BH, T, D] a
+//     tile of one (b, h) is one contiguous run.  Shared rows are padded to
+//     D + 4 floats, so every fragment load (8 rows x 4 columns, or 4 row
+//     pairs x 8 columns, per warp) hits 32 different banks.
+//   * P (or dS) goes from the accumulator to the next product without a
+//     trip through shared memory: an m16n8k8 accumulator holds columns
+//     (2t, 2t+1) of rows g and g+8 (g = lane/4, t = lane%4), and the A
+//     fragment wants k = t and t+4.  A sum over keys does not care about
+//     their order, so columns (2t, 2t+1) serve as k = (t, t+4), and the B
+//     rows (V; or dO and Q) are read in the same permuted order.
+//   * K4f walks key tiles 0..diagonal, 32 keys at a time: S = Q K^T *
+//     scale, the online softmax on the accumulator fragments (row max and
+//     sum by quad shuffles, __expf), O = O corr + P V; only the diagonal
+//     tile is masked; at the end o = acc / l and m, l as the library keeps
+//     them.
+//   * K4dkv owns 64 key rows and walks query tiles diagonal..end, 16
+//     queries at a time: S^T = K Q^T, P^T = exp(S^T * scale - m) * (1/l),
+//     dP^T = V dO^T, dS^T = P^T (dP^T - di) scale, then dV += P^T dO and
+//     dK += dS^T Q.  1/l is taken once per query and tile.
+//   * On the diagonal tile a warp skips the keys (K4f) or queries (K4dkv)
+//     that none of its rows pairs with.
+//   * The running sums (O, dK, dV) are f32 registers outside the tensor
+//     cores: each product over 32 keys or 16 queries starts from zero in
+//     the accumulator and is then added in f32.  The tensor cores'
+//     accumulation is not round-to-nearest: one long sum kept in their
+//     accumulator ended about ten times further from the plain version
+//     (dK, dV at T = 2048) than these partial sums do.
+//   * Tiles above the diagonal are never visited, and the heaviest tiles
+//     of every (b, h) are dispatched first (the grid's y order).
+//
+// K4dq keeps the first, SIMT design (its redesign is the next step): one
+// block of 64 threads per (bh, 64-row tile), one query row per thread held
+// in registers, the K and V tiles staged in shared memory and read by
+// broadcast, f32 FMAs.
 //
 // Floating point: the shared build flags carry -fmad=false (K1 and K2 need
-// it for their bit-equality); this file writes its FMAs as fmaf, which is
-// fused whatever that flag says.  exp is __expf (ex2.approx): at most a
-// few ulps where the probabilities matter.  The results are held to the
-// plain PyTorch versions (models/flash_attention.py) within a tolerance,
-// not bit for bit.  wgmma/TMA tiles are work for a later change.
+// it for their bit-equality); the SIMT kernel writes its FMAs as fmaf,
+// which is fused whatever that flag says.  exp is __expf (ex2.approx): at
+// most a few ulps where the probabilities matter.  The results are held to
+// the plain PyTorch versions (models/flash_attention.py) within a
+// tolerance, not bit for bit.  A NaN in an input comes out as NaN in every
+// output it reaches through a visible pair, as in the plain versions
+// (chip_smoke.py checks it).
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 64;    // rows of every tile; threads per block
-constexpr int kChunk = 16;   // keys the forward scores before a rescale
+constexpr int kTile = 64;    // rows of every tile; threads of a SIMT block
+constexpr int kWarps = 4;    // tensor-core kernels: 16 rows a warp
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// ---------------------------------------------------------------------------
+// tensor-core kernels: K4f and K4dkv
+// ---------------------------------------------------------------------------
+
+// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, the low 13
+// bits cleared) as an integer add and mask: ptxas expands the cvt into four
+// instructions around an inf check, and the split is most of these
+// kernels' ALU work.  The two agree on every finite input and on inf.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, both TF32: hi = tf32_rna(x); lo = x - hi, exact in f32, with
+// its low 13 bits cleared (truncated; its 12 significant bits lose the last,
+// 2^-23 of x at most).  A NaN reaches the products through lo: the add may
+// carry a NaN's payload into hi's sign or exponent (0x7FFFFFFF becomes -0),
+// but x - hi is then the canonical NaN, which the mask keeps a NaN.  So a
+// NaN input makes NaN outputs, as in the plain versions; an inf makes NaN
+// (inf - inf) where f32 products would make inf.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;
+}
+
+// d += a b for one m16n8k8 tile
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += (ahi + alo)(b0, b1) in three passes, the small terms first; b0 and
+// b1 are the B fragment's f32 values, split here
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], float b0,
+                                     float b1) {
+  uint32_t h0, l0, h1, l1;
+  split(b0, h0, l0);
+  split(b1, h1, l1);
+  mma(d, alo, h0, h1);
+  mma(d, ahi, l0, l1);
+  mma(d, ahi, h0, h1);
+}
+
+// The A fragment (hi, lo) of a 16 x 8 tile from an accumulator tile c
+// through the key permutation: columns (2t, 2t+1) serve as k = (t, t+4).
+__device__ __forceinline__ void split_acc(const float (&c)[4],
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);   // (g, 2t)       -> (g, t)
+  split(c[2], hi[1], lo[1]);   // (g + 8, 2t)   -> (g + 8, t)
+  split(c[1], hi[2], lo[2]);   // (g, 2t + 1)   -> (g, t + 4)
+  split(c[3], hi[3], lo[3]);   // (g + 8, 2t+1) -> (g + 8, t + 4)
+}
+
+// The A fragments (hi, lo) of rows (row, row + 8) of a [., D] f32 array in
+// device memory, k-step s covering columns 8s..8s+7.
+template <int D>
+__device__ __forceinline__ void split_rows(const float* __restrict__ row,
+                                           int t, uint32_t (&hi)[D / 8][4],
+                                           uint32_t (&lo)[D / 8][4]) {
+#pragma unroll
+  for (int s = 0; s < D / 8; ++s) {
+    const float* p = row + 8 * s + t;
+    split(__ldg(p), hi[s][0], lo[s][0]);
+    split(__ldg(p + 8 * D), hi[s][1], lo[s][1]);
+    split(__ldg(p + 4), hi[s][2], lo[s][2]);
+    split(__ldg(p + 8 * D + 4), hi[s][3], lo[s][3]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared rows are padded to D + 4 floats: fragment loads are conflict-free
+template <int D>
+constexpr int kPitch = D + 4;
+
+// Start copying one [kTile, D] tile (contiguous rows) into a padded
+// [kTile][D + 4] shared tile.
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const float* __restrict__ src) {
+  for (int i = threadIdx.x; i < kTile * D / 4; i += kThreads)
+    cp_async16(dst + (i / (D / 4)) * kPitch<D> + 4 * (i % (D / 4)),
+               src + 4 * i);
+}
+
+// sum += A B over one 16-row chunk: A's two k-steps are the accumulator
+// tiles a[0], a[1] through the permutation, B's rows are read from a padded
+// shared tile in the same order (row0 = the chunk's first row + 2t).  The
+// chunk's sum starts from zero and is added to the running sum in f32: the
+// tensor cores' accumulation is not f32 round-to-nearest, so no long sum
+// stays in their accumulator.
+template <int D>
+__device__ __forceinline__ void add_chunk(float (&sum)[D / 8][4],
+                                          const float (&a)[2][4],
+                                          const float* b, int row0, int g) {
+  float part[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    uint32_t hi[4], lo[4];
+    split_acc(a[j], hi, lo);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float* bp = b + (row0 + 8 * j) * kPitch<D> + 8 * n + g;
+      mma3(part[n], hi, lo, bp[0], bp[kPitch<D>]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[n][e] += part[n][e];
+}
+
+// [2 buffers][K, V] tiles
+template <int D>
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return 2 * 2 * kTile * kPitch<D> * 4;
+}
+
+// one buffer: the Q and dO tiles, then the m, l and di rows
+template <int D>
+__host__ __device__ constexpr int dkv_buffer_floats() {
+  return 2 * kTile * kPitch<D> + 3 * kTile;
+}
+
+template <int D>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return 2 * dkv_buffer_floats<D>() * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int t,
+                 float scale) {
+  constexpr int P = kPitch<D>, KS = D / 8;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int n_tiles = t / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;   // the longest rows start first
+  const int64_t bh = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int r0 = 16 * warp + g;              // rows r0 and r0 + 8 of the tile
+  const int64_t row0 = bh * t + static_cast<int64_t>(qt) * kTile + r0;
+  const float* const kbh = k + bh * t * D;
+  const float* const vbh = v + bh * t * D;
+
+  stage_tile<D>(smem, kbh);
+  stage_tile<D>(smem + kTile * P, vbh);
+  cp_async_commit();
+
+  uint32_t qhi[KS][4], qlo[KS][4];
+  split_rows<D>(q + row0 * D, tq, qhi, qlo);
+  float acc[KS][4];                          // O: dims 8n + 2t, 8n + 2t + 1
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};       // rows r0, r0 + 8
+  float l[2] = {0.0f, 0.0f};                 // this thread's columns only
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const float* const ks = smem + (kt & 1) * 2 * kTile * P;
+    const float* const vs = ks + kTile * P;
+    if (kt < qt) {
+      float* const next = smem + ((kt + 1) & 1) * 2 * kTile * P;
+      stage_tile<D>(next, kbh + static_cast<int64_t>(kt + 1) * kTile * D);
+      stage_tile<D>(next + kTile * P,
+                    vbh + static_cast<int64_t>(kt + 1) * kTile * D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bool diag = kt == qt;
+    // 32 keys at a time: n-tile j holds keys c0 + 8j + 2t (+1)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;
+      // on the diagonal, keys past the warp's last row are all masked; a
+      // half that is visited has a visible key for every row
+      if (diag && c0 > 16 * warp + 15) continue;
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+        for (int st = 0; st < KS; ++st) {
+          const float* kp = ks + (c0 + 8 * j + g) * P + 8 * st + tq;
+          mma3(s[j], qhi[st], qlo[st], kp[0], kp[4]);
+        }
+      }
+      // scale, mask the diagonal, and the online softmax's rescale
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale;
+          if (diag && c0 + 8 * j + 2 * tq + (e & 1) > r0 + 8 * (e >> 1))
+            x = -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+        corr[h] = __expf(m[h] - mx[h]);
+        m[h] = mx[h];
+        l[h] *= corr[h];
+      }
+      // this half's P V from zero, P from the accumulator through the key
+      // permutation; then O = O corr + P V in f32 (as in add_chunk)
+      float pv[KS][4];
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = __expf(s[j][e] - m[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+        uint32_t phi[4], plo[4];
+        split_acc(s[j], phi, plo);
+#pragma unroll
+        for (int n = 0; n < KS; ++n) {
+          const float* vp = vs + (c0 + 8 * j + 2 * tq) * P + 8 * n + g;
+          mma3(pv[n], phi, plo, vp[0], vp[P]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = acc[n][e] * corr[e >> 1] + pv[n][e];
+    }
+    __syncthreads();   // the next iteration's copy reuses this buffer
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+    const int col = 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(o + row0 * D + col) =
+        make_float2(acc[n][0] / l[0], acc[n][1] / l[0]);
+    *reinterpret_cast<float2*>(o + (row0 + 8) * D + col) =
+        make_float2(acc[n][2] / l[1], acc[n][3] / l[1]);
+  }
+  if (tq == 0) {
+    m_out[row0] = m[0]; m_out[row0 + 8] = m[1];
+    l_out[row0] = l[0]; l_out[row0 + 8] = l[1];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 3 : 1)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ m, const float* __restrict__ l,
+                     const float* __restrict__ di, float* __restrict__ dk,
+                     float* __restrict__ dv, int t, float scale) {
+  constexpr int P = kPitch<D>, KS = D / 8;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int n_tiles = t / kTile;
+  const int kt = blockIdx.y;                 // the longest walks start first
+  const int64_t bh = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int c0 = 16 * warp + g;              // keys c0 and c0 + 8 of the tile
+  const int64_t key0 = bh * t + static_cast<int64_t>(kt) * kTile + c0;
+
+  // one buffer: Q [kTile][P], dO [kTile][P], then m, l, di [kTile] each
+  auto stage_queries = [&](int qt) {
+    float* const buf = smem + ((qt - kt) & 1) * dkv_buffer_floats<D>();
+    const int64_t r = bh * t + static_cast<int64_t>(qt) * kTile;
+    stage_tile<D>(buf, q + r * D);
+    stage_tile<D>(buf + kTile * P, dout + r * D);
+    float* const vecs = buf + 2 * kTile * P;
+    const int i = threadIdx.x;
+    if (i < 3 * kTile / 4) {
+      const float* src = (i < kTile / 4) ? m : (i < kTile / 2) ? l : di;
+      cp_async16(vecs + 4 * i, src + r + 4 * (i % (kTile / 4)));
+    }
+    cp_async_commit();
+  };
+  stage_queries(kt);
+
+  uint32_t khi[KS][4], klo[KS][4], vhi[KS][4], vlo[KS][4];
+  split_rows<D>(k + key0 * D, tq, khi, klo);
+  split_rows<D>(v + key0 * D, tq, vhi, vlo);
+  float dka[KS][4], dva[KS][4];              // dims 8n + 2t, 8n + 2t + 1
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) { dka[n][e] = 0.0f; dva[n][e] = 0.0f; }
+
+  for (int qt = kt; qt < n_tiles; ++qt) {
+    float* const qs = smem + ((qt - kt) & 1) * dkv_buffer_floats<D>();
+    const float* const dos = qs + kTile * P;
+    const float* const ms = qs + 2 * kTile * P;
+    float* const inv_ls = qs + 2 * kTile * P + kTile;
+    const float* const dis = inv_ls + kTile;
+    if (qt + 1 < n_tiles) {
+      stage_queries(qt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // l -> 1/l in place, once per query instead of once per use
+    if (threadIdx.x < kTile)
+      inv_ls[threadIdx.x] = 1.0f / inv_ls[threadIdx.x];
+    __syncthreads();
+    const bool diag = qt == kt;
+    // 16 queries at a time: n-tile j holds queries q0 + 8j + 2t (+1)
+#pragma unroll
+    for (int chunk = 0; chunk < 4; ++chunk) {
+      const int q0 = 16 * chunk;
+      if (diag && q0 + 15 < 16 * warp) continue;   // sees none of its keys
+      float sa[2][4], dpa[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { sa[j][e] = 0.0f; dpa[j][e] = 0.0f; }
+#pragma unroll
+        for (int st = 0; st < KS; ++st) {
+          const int off = (q0 + 8 * j + g) * P + 8 * st + tq;
+          mma3(sa[j], khi[st], klo[st], qs[off], qs[off + 4]);
+          mma3(dpa[j], vhi[st], vlo[st], dos[off], dos[off + 4]);
+        }
+      }
+      // P^T = exp(S^T scale - m) / l and dS^T = P^T (dP^T - di) scale
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qc = q0 + 8 * j + 2 * tq;
+        const float2 mq = *reinterpret_cast<const float2*>(ms + qc);
+        const float2 il = *reinterpret_cast<const float2*>(inv_ls + qc);
+        const float2 dq = *reinterpret_cast<const float2*>(dis + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          float p = __expf(sa[j][e] * scale - (odd ? mq.y : mq.x)) *
+                    (odd ? il.y : il.x);
+          if (diag && c0 + 8 * (e >> 1) > qc + odd) p = 0.0f;
+          dpa[j][e] = p * (dpa[j][e] - (odd ? dq.y : dq.x)) * scale;
+          sa[j][e] = p;
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q through the query permutation
+      add_chunk<D>(dva, sa, dos, q0 + 2 * tq, g);
+      add_chunk<D>(dka, dpa, qs, q0 + 2 * tq, g);
+    }
+    __syncthreads();   // the next iteration's copy reuses this buffer
+  }
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+    const int col = 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(dk + key0 * D + col) =
+        make_float2(dka[n][0], dka[n][1]);
+    *reinterpret_cast<float2*>(dk + (key0 + 8) * D + col) =
+        make_float2(dka[n][2], dka[n][3]);
+    *reinterpret_cast<float2*>(dv + key0 * D + col) =
+        make_float2(dva[n][0], dva[n][1]);
+    *reinterpret_cast<float2*>(dv + (key0 + 8) * D + col) =
+        make_float2(dva[n][2], dva[n][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// SIMT kernel: K4dq
+// ---------------------------------------------------------------------------
 
 template <int D>
 __device__ __forceinline__ void load_row(const float* __restrict__ src,
@@ -122,115 +579,6 @@ __device__ __forceinline__ void axpy(float a, const float4 (&x)[D / 4],
 
 template <int D>
 __global__ void __launch_bounds__(kTile)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ m_out, float* __restrict__ l_out, int t,
-                 float scale) {
-  __shared__ float4 ks[kTile][D / 4];
-  __shared__ float4 vs[kTile][D / 4];
-  const int n_tiles = t / kTile;
-  const int qt = n_tiles - 1 - blockIdx.y;   // the longest rows start first
-  const int64_t bh = blockIdx.x;
-  const int r = threadIdx.x;                 // row within the tile
-  const int64_t row = bh * t + static_cast<int64_t>(qt) * kTile + r;
-
-  float qr[D], acc[D];
-  load_row<D>(q + row * D, qr);
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.0f;
-  float m = -INFINITY, l = 0.0f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int64_t key0 = bh * t + static_cast<int64_t>(kt) * kTile;
-    __syncthreads();
-    stage<D>(ks, k + key0 * D);
-    stage<D>(vs, v + key0 * D);
-    __syncthreads();
-    // keys visible to this row in this tile: all, or 0..r on the diagonal
-    const int n_vis = (kt == qt) ? r + 1 : kTile;
-    for (int c0 = 0; c0 < n_vis; c0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float sj = (c0 + j < n_vis) ? dot<D>(qr, ks[c0 + j]) * scale
-                                          : -INFINITY;
-        s[j] = sj;
-        cmax = fmaxf(cmax, sj);
-      }
-      // key c0 is visible, so m_new is finite
-      const float m_new = fmaxf(m, cmax);
-      const float corr = __expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] *= corr;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        if (c0 + j < n_vis) {
-          const float p = __expf(s[j] - m_new);
-          l += p;
-          axpy<D>(p, vs[c0 + j], acc);
-        }
-      }
-      m = m_new;
-    }
-  }
-  const float inv_l = 1.0f / l;
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] *= inv_l;
-  store_row<D>(o + row * D, acc);
-  m_out[row] = m;
-  l_out[row] = l;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTile)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ di, float* __restrict__ dk,
-                     float* __restrict__ dv, int t, float scale) {
-  __shared__ float4 qs[kTile][D / 4];
-  __shared__ float4 dos[kTile][D / 4];
-  __shared__ float ms[kTile], inv_ls[kTile], dis[kTile];
-  const int n_tiles = t / kTile;
-  const int kt = blockIdx.y;                 // the longest walks start first
-  const int64_t bh = blockIdx.x;
-  const int c = threadIdx.x;                 // key row within the tile
-  const int64_t key = bh * t + static_cast<int64_t>(kt) * kTile + c;
-
-  float kr[D], vr[D], dkr[D], dvr[D];
-  load_row<D>(k + key * D, kr);
-  load_row<D>(v + key * D, vr);
-#pragma unroll
-  for (int j = 0; j < D; ++j) { dkr[j] = 0.0f; dvr[j] = 0.0f; }
-
-  for (int qt = kt; qt < n_tiles; ++qt) {
-    const int64_t q0 = bh * t + static_cast<int64_t>(qt) * kTile;
-    __syncthreads();
-    stage<D>(qs, q + q0 * D);
-    stage<D>(dos, dout + q0 * D);
-    ms[threadIdx.x] = m[q0 + threadIdx.x];
-    inv_ls[threadIdx.x] = 1.0f / l[q0 + threadIdx.x];
-    dis[threadIdx.x] = di[q0 + threadIdx.x];
-    __syncthreads();
-    // queries that see this key: all, or c..63 on the diagonal
-    for (int r = (qt == kt) ? c : 0; r < kTile; ++r) {
-      const float s = dot<D>(kr, qs[r]) * scale;
-      const float p = __expf(s - ms[r]) * inv_ls[r];
-      const float dp = dot<D>(vr, dos[r]);
-      const float ds = p * (dp - dis[r]) * scale;
-      axpy<D>(p, dos[r], dvr);
-      axpy<D>(ds, qs[r], dkr);
-    }
-  }
-  store_row<D>(dk + key * D, dkr);
-  store_row<D>(dv + key * D, dvr);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTile)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
@@ -283,12 +631,35 @@ dim3 grid_of(int64_t bh, int t) {
   return dim3(static_cast<unsigned>(bh), t / kTile);
 }
 
+// Dynamic shared memory above 48 KB must be allowed per kernel and device
+// first; `allowed` (one per kernel) keeps a bit per device where it was, so
+// a launch pays for the attribute once.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       std::atomic<uint64_t>& allowed) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (allowed.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) allowed.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* m, float* l, int64_t bh, int t, float scale,
                cudaStream_t stream) {
-  flash_fwd_kernel<D><<<grid_of(bh, t), kTile, 0, stream>>>(q, k, v, o, m,
-                                                             l, t, scale);
+  constexpr int bytes = fwd_smem_bytes<D>();
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t err = allow_smem(flash_fwd_kernel<D>, bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
+      q, k, v, o, m, l, t, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,7 +668,11 @@ int launch_dkv(const float* q, const float* k, const float* v,
                const float* dout, const float* m, const float* l,
                const float* di, float* dk, float* dv, int64_t bh, int t,
                float scale, cudaStream_t stream) {
-  flash_bwd_dkv_kernel<D><<<grid_of(bh, t), kTile, 0, stream>>>(
+  constexpr int bytes = dkv_smem_bytes<D>();
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkv_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
       q, k, v, dout, m, l, di, dk, dv, t, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -162,6 +162,9 @@ def _check_cuda(name: str, q: torch.Tensor, rows, vecs) -> None:
     if any(x.shape != q.shape for x in rows) \
             or any(x.shape != q.shape[:3] for x in vecs):
         bad(f"shapes {[tuple(x.shape) for x in (q, *rows, *vecs)]}")
+    # the kernels copy and load 16 bytes at a time
+    if any(x.data_ptr() % 16 for x in (q, *rows, *vecs)):
+        bad("every tensor must start on a 16-byte boundary")
     if d not in KERNEL_HEAD_DIMS:
         bad(f"head size {d}: the kernel is built for {KERNEL_HEAD_DIMS}")
     if t % BLOCK:

@@ -1,0 +1,149 @@
+"""The pure helpers of ``chip_smoke.py`` that decide what its K4 rows say
+and whether its K4 checks pass: the three-term bound, the parsers of the
+compiler's report and of the SASS, the kernels' shared memory, and the
+NaN check.  They run here on text, numbers and the plain versions on the
+CPU; the card runs the rest."""
+
+import math
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from fedml_tpu_torch.models import flash_attention as fa
+
+MAX_SM_HZ = 1.98e9             # the H100 SXM's maximum SM clock
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelILi32EEEvPKfS2_S2_PfS3_S3_if' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelILi32EEEvPKfS2_S2_PfS3_S3_if
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers
+ptxas info    : Compile time = 161.394 ms
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi32EEEvPKfS2_S2_S2_S2_S2_S2_Pfif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi32EEEvPKfS2_S2_S2_S2_S2_S2_Pfif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 1 barriers, 16384 bytes smem
+"""
+
+SASS = """\
+\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_S3_if
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*49e0*/                   HMMA.1688.F32.TF32 R172, R104, R168, RZ ;
+        /*49f0*/                   HMMA.1688.F32.TF32 R172, R100, R164, R172 ;
+        /*4a00*/                   HGMMA.64x64x8.F32.TF32 R24, gdesc[UR4], R24 ;
+\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi16EEEvPKfS2_S2_S2_S2_S2_S2_Pfif
+        /*0910*/                   FFMA R2, R0, R3, -1 ;
+        /*0920*/                   MOV R4, 0x0 ;
+"""
+
+
+def test_flash_bounds_three_terms_at_the_vmapped_shape():
+    """[8, 2048, 8, 32]: K4f's TF32 term 34.7 us, its exps (one per
+    visible pair) 32.1 us at 1.98 GHz, its bytes 20.3 us; dK/dV and dQ
+    twice and 1.5 times the TF32 term; the f32 SIMT bound stays beside."""
+    b = cs.flash_bounds(8, 8, 2048, 32, MAX_SM_HZ)
+    fwd, dkv, dq = b["flash_fwd"], b["flash_bwd_dkv"], b["flash_bwd_dq"]
+    pairs = 64 * 2048 * 2049 / 2
+    assert fwd["tf32_ms"] == pytest.approx(4 * 32 * pairs / 495e12 * 1e3)
+    assert fwd["tf32_ms"] == pytest.approx(0.0347, abs=1e-4)
+    assert fwd["exp_ms"] == pytest.approx(pairs / (16 * 132 * 1.98e9) * 1e3)
+    assert fwd["exp_ms"] == pytest.approx(0.0321, abs=1e-4)
+    assert fwd["bytes_ms"] == pytest.approx(0.0203, abs=1e-4)
+    assert dkv["tf32_ms"] == pytest.approx(2 * fwd["tf32_ms"])
+    assert dq["tf32_ms"] == pytest.approx(1.5 * fwd["tf32_ms"])
+    for row in b.values():
+        assert row["bound_term"] == "tf32"
+        assert row["bound_by"] == "operations"
+        assert row["bound_ms"] == max(row["tf32_ms"], row["exp_ms"],
+                                      row["bytes_ms"])
+        assert row["f32_simt_bound_ms"] == pytest.approx(
+            row["tf32_ms"] * 495 / 67)
+
+
+@pytest.mark.parametrize("t, term", [(128, "bytes"), (2048, "tf32")])
+def test_flash_bounds_name_the_winning_term(t, term):
+    """Short sequences are bound by their bytes; a slow SM clock makes
+    the exps the bound."""
+    b = cs.flash_bounds(2, 8, t, 32, MAX_SM_HZ)
+    assert b["flash_fwd"]["bound_term"] == term
+    assert b["flash_fwd"]["bound_by"] == ("bytes" if term == "bytes"
+                                          else "operations")
+    slow = cs.flash_bounds(2, 8, 2048, 32, 1e9)["flash_fwd"]
+    assert slow["bound_term"] == "exp"
+    assert slow["bound_by"] == "operations"
+    assert math.isclose(slow["bound_ms"], slow["exp_ms"])
+
+
+def test_ptxas_report_reads_each_entry_function():
+    rep = cs.ptxas_report(PTXAS_LOG)
+    fwd = [v for k, v in rep.items() if "flash_fwd_kernelILi32E" in k]
+    dq = [v for k, v in rep.items() if "flash_bwd_dq_kernelILi32E" in k]
+    assert fwd == [dict(spill_stores=8, spill_loads=4, registers=127)]
+    assert dq == [dict(spill_stores=0, spill_loads=0, registers=166,
+                       smem_static=16384)]
+
+
+def test_tensor_core_counts_reads_hmma_and_hgmma():
+    counts = cs.tensor_core_counts(SASS)
+    assert sorted(counts.values()) == [0, 3]
+    [fwd] = [n for k, n in counts.items() if "flash_fwd_kernel" in k]
+    assert fwd == 3
+
+
+@pytest.mark.parametrize("kernel, d, smem", [
+    ("flash_fwd", 32, 36864), ("flash_fwd", 64, 69632),
+    ("flash_bwd_dkv", 16, 22016), ("flash_bwd_dkv", 32, 38400),
+    ("flash_bwd_dkv", 64, 71168), ("flash_bwd_dq", 32, 0)])
+def test_flash_smem_bytes(kernel, d, smem):
+    """Two buffers of 64-row tiles padded to d + 4 floats (K4dkv's also
+    m, l and di); over 48 KB at d = 64, where the launch must allow it."""
+    assert cs.flash_smem_bytes(kernel, d) == smem
+
+
+@pytest.fixture(scope="module")
+def nan_chain():
+    """The NaN check's inputs through the plain versions on the CPU."""
+    return cs.flash_chain(*cs.flash_nan_inputs("cpu"), fa.flash_fwd_plain,
+                          fa.flash_bwd_dkv_plain, fa.flash_bwd_dq_plain)
+
+
+def test_flash_nan_check_passes_the_plain_versions(nan_chain):
+    """The plain versions put NaN in every row a NaN input reaches through
+    a visible pair (and, through their dense products, more), and agree
+    with themselves elsewhere."""
+    must = cs.flash_nan_rows(nan_chain["o"].shape[:3])
+    for name, out in nan_chain.items():
+        nan_rows = out.isnan().any(-1)
+        assert not (must[name] & ~nan_rows).any(), name
+        assert must[name].any(), name
+    assert cs.flash_nan_problems(nan_chain, nan_chain) == []
+
+
+@pytest.mark.parametrize("name", ["o", "dk", "dv", "dq"])
+def test_flash_nan_check_catches_a_dropped_nan(nan_chain, name):
+    """An output that turns a NaN into a finite number (as a TF32 rounding
+    that carried a NaN's payload into its exponent did) fails."""
+    got = dict(nan_chain, **{name: torch.nan_to_num(nan_chain[name])})
+    [problem] = cs.flash_nan_problems(got, nan_chain)
+    assert problem.startswith(f"{name}: ") and "not NaN" in problem
+
+
+@pytest.mark.parametrize("name, tol", [("o", cs.FLASH_O_TOL),
+                                       ("dk", cs.FLASH_GRAD_TOL)])
+def test_flash_nan_check_holds_finite_rows_to_the_limits(nan_chain, name,
+                                                         tol):
+    """Off the NaN rows the chip limits hold: an error of 2x the limit on
+    one finite element fails, half the limit passes."""
+    ref = nan_chain[name]
+    finite = ~ref.isnan().any(-1)
+    limit = tol * float(ref[finite].abs().max())
+    b, h, r = [int(i[0]) for i in finite.nonzero(as_tuple=True)]
+    for scale, fails in ((2.0, True), (0.5, False)):
+        out = ref.clone()
+        out[b, h, r, 0] += scale * limit
+        problems = cs.flash_nan_problems(dict(nan_chain, **{name: out}),
+                                         nan_chain)
+        assert bool(problems) == fails, (scale, problems)
