@@ -31,11 +31,16 @@ each printed as it ends; any failure exits non-zero:
    with group 1 recovered from its LCC shares against the direct round
    (limit 1e-3);
 7. kernel shard_finalize — the fused shard finalize (K2) against its plain
-   PyTorch version at the FEMNIST CNN's four shard sizes at S=4, at S=1
-   and at one odd size, sigma 0 (bit-equal) and 0.025 (bit-equal noise
-   uniforms; the output within 1e-6 abs), with a non-zero step and shard
-   salt: device time per launch, the wrapper's host cost, the plain
-   version's and ``torch.div``'s times, the bytes and operations bounds;
+   PyTorch version at the FEMNIST CNN's four shard sizes at S=4, at S=1,
+   at sizes 3, 1 and 0 mod 4, at 3 elements (less than one float4) and on
+   a view 4 bytes past a 16-byte boundary (the unaligned path), sigma 0
+   (bit-equal) and 0.025 (bit-equal noise uniforms; the output within
+   1e-6 abs), with a non-zero step and shard salt: device time per launch,
+   the wrapper's host cost, the plain version's time and ``torch.div``'s
+   by a device scalar (the same function, bit for bit) and by a Python
+   float (a multiply by the reciprocal), the bytes and operations bounds;
+   the path's shards at sigma 0 timed again in reverse order, the
+   divisions first;
 8. cross-silo slice — live cross-silo FedAvg over the in-process hub with
    the sharded spine (S=4, K2 on, clip 5.0, sigma 0.025) on the same CNN,
    data and widths, 3 rounds through the CLI's runner: K2 launches exactly
@@ -45,16 +50,19 @@ each printed as it ends; any failure exits non-zero:
    TF32 off against the CPU (limit 1e-4);
 9. kernel flash_attention — what the compiler made of K4 (each kernel's
    registers, spills and shared memory from ptxas and the library; with
-   ``cuobjdump``, its tensor-core instructions in SASS: K4f and K4dkv must
-   have some); then K4's forward (K4f) and its backward's dK/dV (K4dkv)
-   and dQ (K4dq) kernels against their plain PyTorch versions (TF32 off;
-   o, m, l within 1e-5 x max|ref|, dq, dk, dv within 1e-4 x max|ref|) at
-   [B, T, H, d] = [2, 2048, 8, 32] (bench.py's step), [8, 2048, 8, 32] (4
-   clients x B=2 folded by vmap), T=128 and T=384: device time per launch
-   (CUDA events, median of 20), the plain versions' times,
-   ``scaled_dot_product_attention``'s forward and forward + backward (a
-   yardstick), the bounds (bytes, TF32 products, exps at the SM's maximum
-   clock; the f32 SIMT bound beside them) and the wrappers' host cost;
+   ``cuobjdump``, its tensor-core instructions in SASS: every kernel must
+   have some at every head size); then K4's forward (K4f) and its
+   backward's dK/dV (K4dkv) and dQ (K4dq) kernels against their plain
+   PyTorch versions (TF32 off; o, m, l within 1e-5 x max|ref|, dq, dk, dv
+   within 1e-4 x max|ref|) at [B, T, H, d] = [2, 2048, 8, 32] (bench.py's
+   step), [8, 2048, 8, 32] (4 clients x B=2 folded by vmap), T=128, T=384
+   and at d=16 and d=64 ([2, 256, 4, d]): device time per launch (CUDA
+   events, median of 20), the plain versions' times,
+   ``scaled_dot_product_attention``'s forward, forward + backward and
+   backward alone (a yardstick), the bounds (bytes, TF32 products, exps at
+   the SM's maximum clock; the f32 SIMT bound beside them) and the
+   wrappers' host cost; a NaN in q and one in dO come out as NaN in every
+   row they reach;
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
@@ -686,6 +694,29 @@ def shard_finalize_bounds(d: int, sigma: float):
     return 8 * d, d * (1 + (37 if sigma else 0))
 
 
+def shard_finalize_cases(shard_sizes):
+    """K2's phase: (name, D, offset in floats) for the path's shards, the
+    whole model (S=1), sizes 3, 1 and 0 mod 4, one of 3 elements (no whole
+    float4) and a view one float past a 16-byte boundary (the kernel's
+    unaligned path)."""
+    return ([(name, d, 0) for name, d in shard_sizes.items()]
+            + [("full", sum(shard_sizes.values()), 0),
+               ("odd", 1_000_003, 0), ("one", 1_000_001, 0),
+               ("four", 1_000_004, 0), ("three", 3, 0),
+               ("unaligned", 1_000_003, 1)])
+
+
+def k2_divisions(acc, wsum: float):
+    """K2's yardsticks at sigma = 0: ``torch.div`` by a device scalar, the
+    IEEE quotient (the same function, bit for bit); and ``torch.div`` by a
+    Python float, which PyTorch computes as a multiply by the reciprocal
+    (not the same function: about half the quotients differ in the last
+    bit)."""
+    import torch
+    wsum_t = torch.tensor(wsum, dtype=torch.float32, device=acc.device)
+    return lambda: torch.div(acc, wsum_t), lambda: torch.div(acc, wsum)
+
+
 def check_shard_finalize(shard_sizes):
     """Phase 7: shard_finalize against shard_finalize_plain on the card."""
     import torch
@@ -693,10 +724,14 @@ def check_shard_finalize(shard_sizes):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    sizes = dict(shard_sizes, full=sum(shard_sizes.values()), odd=1_000_003)
     rows, worst = [], 0.0
-    for salt, (name, d) in enumerate(sizes.items(), start=1):
-        acc = torch.randn(d, generator=gen, device=dev) * 40
+    for salt, (name, d, off) in enumerate(shard_finalize_cases(shard_sizes),
+                                          start=1):
+        acc = (torch.randn(d + off, generator=gen, device=dev) * 40)[off:]
+        aligned = acc.data_ptr() % 16 == 0
+        if aligned != (off == 0):
+            fail(f"shard_finalize {name}: the input starts "
+                 f"{acc.data_ptr() % 16} bytes past a 16-byte boundary")
         wsum = 123.0
         seed_word = fa.shard_seed_word(0, salt)
         for sigma in (0.0, SIGMA):
@@ -732,18 +767,30 @@ def check_shard_finalize(shard_sizes):
             call_ms = time_ms(kernel, reps=50)
             ms = device_ms(kernel, 20, "shard_finalize_kernel") or call_ms
             plain_ms = device_ms(plain, 5) or time_ms(plain, 5, trials=3)
-            library_ms = None
+            library_ms = div_by_float_ms = None
+            library_bit_equal = div_by_float_differs = None
             if not sigma:
-                library = lambda: torch.div(acc, wsum)
+                library, by_float = k2_divisions(acc, wsum)
+                library_bit_equal = torch.equal(
+                    library().view(torch.int32), want.view(torch.int32))
+                div_by_float_differs = int(
+                    (by_float().view(torch.int32)
+                     != want.view(torch.int32)).sum())
                 library_ms = device_ms(library, 20) or time_ms(library, 50)
+                div_by_float_ms = (device_ms(by_float, 20)
+                                   or time_ms(by_float, 50))
             nbytes, ops = shard_finalize_bounds(d, sigma)
             bound_ms = max(nbytes / HBM_BYTES_PER_S,
                            ops / FP32_OPS_PER_S) * 1e3
-            row = dict(shard=name, d=d, sigma=sigma, bit_equal=bit_equal,
+            row = dict(shard=name, d=d, aligned=aligned, sigma=sigma,
+                       bit_equal=bit_equal,
                        max_ulps=ulps, max_abs_err=err,
                        uniforms_bit_equal=uniforms_equal, ms=ms,
                        call_ms=call_ms, host_us=host_us(kernel),
                        plain_ms=plain_ms, library_ms=library_ms,
+                       library_bit_equal=library_bit_equal,
+                       div_by_float_ms=div_by_float_ms,
+                       div_by_float_differs=div_by_float_differs,
                        bound_us=bound_ms * 1e3,
                        bytes_us=nbytes / HBM_BYTES_PER_S * 1e6,
                        ops_us=ops / FP32_OPS_PER_S * 1e6,
@@ -753,23 +800,25 @@ def check_shard_finalize(shard_sizes):
             rows.append(row)
             del got, want
         del acc
-    # sigma = 0 once more, the path's shards in reverse order and `div`
-    # timed before the kernel: does a gap seen in the first shard timed
-    # follow the shard or the order?
+    # sigma = 0 once more, the path's shards in reverse order and both
+    # divisions timed before the kernel: does a gap seen in the first shard
+    # timed follow the shard or the order?
     again = {}
     for name, d in reversed(list(shard_sizes.items())):
         acc = torch.randn(d, generator=gen, device=dev) * 40
         args = (acc, 123.0, fa.shard_seed_word(0, 1), K2_STEP, 0.0)
-        library = lambda: torch.div(acc, 123.0)
+        library, by_float = k2_divisions(acc, 123.0)
         kernel = lambda: fa.shard_finalize(*args)
         library_ms = device_ms(library, 20) or time_ms(library, 50)
+        div_by_float_ms = device_ms(by_float, 20) or time_ms(by_float, 50)
         ms = (device_ms(kernel, 20, "shard_finalize_kernel")
               or time_ms(kernel, 50))
-        again[name] = dict(d=d, ms=ms, library_ms=library_ms)
+        again[name] = dict(d=d, ms=ms, library_ms=library_ms,
+                           div_by_float_ms=div_by_float_ms)
         del acc
     phase("kernel shard_finalize retimed", sigma=0.0, order=list(again),
-          shards=again, ms=sum(r["ms"] for r in again.values()),
-          library_ms=sum(r["library_ms"] for r in again.values()))
+          shards=again, **{k: sum(r[k] for r in again.values())
+                           for k in ("ms", "library_ms", "div_by_float_ms")})
     return rows, worst
 
 
@@ -973,6 +1022,8 @@ FLASH_SHAPES = {               # [B, T, H, d], as the model calls the kernels
     "vmap": (8, 2048, 8, 32),      # 4 clients x B=2, the vmap fold
     "t128": (2, 128, 8, 32),       # one 128 block: diagonal tiles only
     "t384": (2, 384, 8, 32),       # three blocks
+    "d16": (2, 256, 4, 16),        # the other head sizes the kernels take
+    "d64": (2, 256, 4, 64),
 }
 FLASH_O_TOL = 1e-5             # x max|ref|: o, m, l against the plain version
 FLASH_GRAD_TOL = 1e-4          # x max|ref|: dq, dk, dv
@@ -1109,13 +1160,13 @@ def tensor_core_counts(sass: str):
 
 def flash_smem_bytes(kernel: str, d: int) -> int:
     """The dynamic shared memory (bytes) a launch of ``kernel`` takes at
-    head size ``d``: ``fwd_smem_bytes`` and ``dkv_smem_bytes`` of
+    head size ``d``: ``kv_smem_bytes`` and ``dkv_smem_bytes`` of
     ``csrc/flash_attention.cu``, two buffers of 64-row tiles padded to
-    d + 4 floats (K4f: K and V; K4dkv: Q and dO, then m, l and di); K4dq
-    takes none."""
+    d + 4 floats (K4f and K4dq: K and V; K4dkv: Q and dO, then m, l and
+    di)."""
     tile = 64 * (d + 4)
     per_buffer = {"flash_fwd": 2 * tile, "flash_bwd_dkv": 2 * tile + 3 * 64,
-                  "flash_bwd_dq": 0}[kernel]
+                  "flash_bwd_dq": 2 * tile}[kernel]
     return 2 * per_buffer * 4
 
 
@@ -1123,7 +1174,7 @@ def check_flash_build(lib_path: Path):
     """What the compiler made of K4: each kernel's registers, spills and
     shared memory (static from ptxas, dynamic from the kernels' formula),
     and its tensor-core instructions in SASS.  Fails if an instantiation of
-    K4f or K4dkv has none."""
+    any of them has none."""
     from fedml_tpu_torch.models import flash_attention as fa
     from fedml_tpu_torch.utils import cuda_build
     ptxas = ptxas_report(cuda_build.build_log("flash_attention"))
@@ -1140,7 +1191,7 @@ def check_flash_build(lib_path: Path):
             if sass is not None:
                 row["tensor_core_sass"] = sum(
                     n for f, n in sass.items() if key in f)
-                if kernel != "flash_bwd_dq" and not row["tensor_core_sass"]:
+                if not row["tensor_core_sass"]:
                     fail(f"{kernel} (d={d}) has no tensor-core instruction "
                          f"in its SASS")
             report[f"{kernel}/d{d}"] = row
@@ -1153,7 +1204,8 @@ def check_flash_kernel():
     """Phase: K4f, K4dkv and K4dq against their plain versions on the card
     (TF32 off), at every shape of FLASH_SHAPES; their times, the plain
     versions', scaled_dot_product_attention's (a yardstick the port never
-    calls), the bounds at the SM's maximum clock and the wrappers' host
+    calls: its forward, and its backward alone as forward + backward less
+    forward), the bounds at the SM's maximum clock and the wrappers' host
     cost."""
     import numpy as np
     import torch
@@ -1222,7 +1274,10 @@ def check_flash_kernel():
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=True), 20)
             row["sdpa_fwd_bwd_ms"] = launch_ms(sdpa_fwd_bwd, 10)
+            row["sdpa_bwd_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
             row["k4_fwd_bwd_ms"] = sum(row[n]["ms"] for n in calls)
+            row["k4_bwd_ms"] = (row["flash_bwd_dkv"]["ms"]
+                                + row["flash_bwd_dq"]["ms"])
             phase("kernel flash_attention", shape=shape_name, **row)
             rows[shape_name] = row
             del q, k, v, do, qg, kg, vg
@@ -1686,6 +1741,7 @@ def main() -> None:
                                     for r in shards) else "operations"),
         "library_ms": sum(r["library_ms"] for r in clean),
         "ms_at_library_config": sum(r["ms"] for r in clean),
+        "div_by_float_ms": sum(r["div_by_float_ms"] for r in clean),
     })
     # one training round of the transformer slice: n_layers x S launches of
     # each K4 kernel at the vmapped shape (4 clients x B=2)
@@ -1707,6 +1763,11 @@ def main() -> None:
             "library_ms": (k4_per_round * vmapped["sdpa_fwd_ms"]
                            if name == "flash_fwd" else None),
         })
+        if name == "flash_bwd_dq":
+            # no single call computes dQ alone: SDPA's backward (dq, dk,
+            # dv) against K4dkv + K4dq, per round
+            kernels[-1]["sdpa_bwd_ms"] = k4_per_round * vmapped["sdpa_bwd_ms"]
+            kernels[-1]["k4_bwd_ms"] = k4_per_round * vmapped["k4_bwd_ms"]
     phase("done", seconds=time.perf_counter() - t_start,
           round_vs_cpu_max_abs_diff=round_diff,
           rounds_per_s=summary["rounds_per_s"],

@@ -298,7 +298,9 @@ def shard_finalize(acc: torch.Tensor, wsum: float, seed_word: int, step: int,
                    sigma: float) -> torch.Tensor:
     """One shard's finalize: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor.  ``wsum``, ``seed_word`` and ``step`` are
-    host scalars."""
+    host scalars.  Any contiguous 1-D view is taken: the kernel runs its
+    float4 body (with a scalar tail) when ``acc`` starts on a 16-byte
+    boundary, and one element a thread when it does not."""
     if acc.device.type == "cpu":
         return shard_finalize_plain(acc, wsum, seed_word, step, sigma)
     if acc.device.type != "cuda":

@@ -33,7 +33,7 @@
 // per SM take about the same time (chip_smoke.py::flash_bounds computes
 // all three terms).
 //
-// K4f and K4dkv run their products on the tensor cores
+// All three run their products on the tensor cores
 // (mma.sync.m16n8k8, TF32 inputs, f32 accumulators) in three passes:
 // each f32 operand a is split into hi = tf32(a) (cvt.rna's rounding) and
 // lo = a - hi (exact) truncated to TF32, and a*b is taken as
@@ -44,13 +44,14 @@
 // times the TF32 term of the bound.  mma.sync rather than wgmma: TF32
 // wgmma reads both operands K-major from shared memory as they are, so
 // every lo part and every transposed operand (V for P V; Q and dO for the
-// dK/dV sums) would be a further shared tile; with mma.sync the split and
-// the transposes are register and index work.
+// dK/dV sums; K for dS K) would be a further shared tile; with mma.sync
+// the split and the transposes are register and index work.
 //
-// The design of K4f and K4dkv:
+// The design of the three:
 //   * 4 warps a block, 16 rows a warp, one 64-row tile a block; the warp's
-//     own operand (the Q rows in K4f; the K and V rows in K4dkv) is split
-//     into hi/lo fragments once and kept in registers for the whole walk.
+//     own operands (the Q rows in K4f; the K and V rows in K4dkv; the Q and
+//     dO rows in K4dq) are split into hi/lo fragments once and kept in
+//     registers for the whole walk, with K4dq's m, 1/l and di of its rows.
 //   * The other operand's 64-row tiles (K, V; or Q, dO, m, l, di) are
 //     double-buffered in shared memory with 16-byte cp.async copies: the
 //     next tile lands while the current one is computed.  In [BH, T, D] a
@@ -62,7 +63,7 @@
 //     (2t, 2t+1) of rows g and g+8 (g = lane/4, t = lane%4), and the A
 //     fragment wants k = t and t+4.  A sum over keys does not care about
 //     their order, so columns (2t, 2t+1) serve as k = (t, t+4), and the B
-//     rows (V; or dO and Q) are read in the same permuted order.
+//     rows (V; dO and Q; or K) are read in the same permuted order.
 //   * K4f walks key tiles 0..diagonal, 32 keys at a time: S = Q K^T *
 //     scale, the online softmax on the accumulator fragments (row max and
 //     sum by quad shuffles, __expf), O = O corr + P V; only the diagonal
@@ -72,25 +73,25 @@
 //     queries at a time: S^T = K Q^T, P^T = exp(S^T * scale - m) * (1/l),
 //     dP^T = V dO^T, dS^T = P^T (dP^T - di) scale, then dV += P^T dO and
 //     dK += dS^T Q.  1/l is taken once per query and tile.
-//   * On the diagonal tile a warp skips the keys (K4f) or queries (K4dkv)
-//     that none of its rows pairs with.
-//   * The running sums (O, dK, dV) are f32 registers outside the tensor
-//     cores: each product over 32 keys or 16 queries starts from zero in
-//     the accumulator and is then added in f32.  The tensor cores'
-//     accumulation is not round-to-nearest: one long sum kept in their
-//     accumulator ended about ten times further from the plain version
-//     (dK, dV at T = 2048) than these partial sums do.
+//   * K4dq walks key tiles 0..diagonal, 16 keys at a time: S = Q K^T,
+//     dP = dO V^T, P = exp(S * scale - m) * (1/l), dS = P (dP - di) scale,
+//     then dQ += dS K; above the diagonal dS is set to 0 by a select, not
+//     a multiply (a masked score's exp may overflow, and inf x 0 is NaN).
+//   * On the diagonal tile a warp skips the keys (K4f, K4dq) or queries
+//     (K4dkv) that none of its rows pairs with.
+//   * The running sums (O, dK, dV, dQ) are f32 registers outside the
+//     tensor cores: each product over 32 keys (K4f), 16 queries (K4dkv) or
+//     16 keys (K4dq) starts from zero in the accumulator and is then added
+//     in f32.  The tensor cores' accumulation is not round-to-nearest:
+//     one long sum kept in their accumulator ended about ten times further
+//     from the plain version (dK, dV at T = 2048) than these partial sums
+//     do.
 //   * Tiles above the diagonal are never visited, and the heaviest tiles
 //     of every (b, h) are dispatched first (the grid's y order).
 //
-// K4dq keeps the first, SIMT design (its redesign is the next step): one
-// block of 64 threads per (bh, 64-row tile), one query row per thread held
-// in registers, the K and V tiles staged in shared memory and read by
-// broadcast, f32 FMAs.
-//
 // Floating point: the shared build flags carry -fmad=false (K1 and K2 need
-// it for their bit-equality); the SIMT kernel writes its FMAs as fmaf,
-// which is fused whatever that flag says.  exp is __expf (ex2.approx): at
+// it for their bit-equality); the products are the tensor cores', the
+// scalar arithmetic rounds step by step.  exp is __expf (ex2.approx): at
 // most a few ulps where the probabilities matter.  The results are held to
 // the plain PyTorch versions (models/flash_attention.py) within a
 // tolerance, not bit for bit.  A NaN in an input comes out as NaN in every
@@ -104,13 +105,13 @@
 
 namespace {
 
-constexpr int kTile = 64;    // rows of every tile; threads of a SIMT block
-constexpr int kWarps = 4;    // tensor-core kernels: 16 rows a warp
+constexpr int kTile = 64;    // rows of every tile
+constexpr int kWarps = 4;    // 16 rows a warp
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // ---------------------------------------------------------------------------
-// tensor-core kernels: K4f and K4dkv
+// helpers
 // ---------------------------------------------------------------------------
 
 // cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, the low 13
@@ -244,9 +245,9 @@ __device__ __forceinline__ void add_chunk(float (&sum)[D / 8][4],
     for (int e = 0; e < 4; ++e) sum[n][e] += part[n][e];
 }
 
-// [2 buffers][K, V] tiles
+// K4f and K4dq: [2 buffers][K, V] tiles
 template <int D>
-__host__ __device__ constexpr int fwd_smem_bytes() {
+__host__ __device__ constexpr int kv_smem_bytes() {
   return 2 * 2 * kTile * kPitch<D> * 4;
 }
 
@@ -514,110 +515,105 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// SIMT kernel: K4dq
-// ---------------------------------------------------------------------------
-
 template <int D>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         float (&dst)[D]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 t = s4[c];
-    dst[4 * c] = t.x; dst[4 * c + 1] = t.y;
-    dst[4 * c + 2] = t.z; dst[4 * c + 3] = t.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* __restrict__ dst,
-                                          const float (&src)[D]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c)
-    d4[c] = make_float4(src[4 * c], src[4 * c + 1], src[4 * c + 2],
-                        src[4 * c + 3]);
-}
-
-// Stage one [kTile, D] tile of rows [row0, row0 + kTile) into shared memory.
-template <int D>
-__device__ __forceinline__ void stage(float4 (*dst)[D / 4],
-                                      const float* __restrict__ src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  for (int i = threadIdx.x; i < kTile * D / 4; i += kTile)
-    dst[i / (D / 4)][i % (D / 4)] = s4[i];
-}
-
-template <int D>
-__device__ __forceinline__ float dot(const float (&a)[D],
-                                     const float4 (&b)[D / 4]) {
-  float s = 0.0f;
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 t = b[c];
-    s = fmaf(a[4 * c], t.x, s);
-    s = fmaf(a[4 * c + 1], t.y, s);
-    s = fmaf(a[4 * c + 2], t.z, s);
-    s = fmaf(a[4 * c + 3], t.w, s);
-  }
-  return s;
-}
-
-template <int D>
-__device__ __forceinline__ void axpy(float a, const float4 (&x)[D / 4],
-                                     float (&y)[D]) {
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 t = x[c];
-    y[4 * c] = fmaf(a, t.x, y[4 * c]);
-    y[4 * c + 1] = fmaf(a, t.y, y[4 * c + 1]);
-    y[4 * c + 2] = fmaf(a, t.z, y[4 * c + 2]);
-    y[4 * c + 3] = fmaf(a, t.w, y[4 * c + 3]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 3 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
                     const float* __restrict__ m, const float* __restrict__ l,
                     const float* __restrict__ di, float* __restrict__ dq,
                     int t, float scale) {
-  __shared__ float4 ks[kTile][D / 4];
-  __shared__ float4 vs[kTile][D / 4];
+  constexpr int P = kPitch<D>, KS = D / 8;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
   const int n_tiles = t / kTile;
   const int qt = n_tiles - 1 - blockIdx.y;   // the longest rows start first
   const int64_t bh = blockIdx.x;
-  const int r = threadIdx.x;
-  const int64_t row = bh * t + static_cast<int64_t>(qt) * kTile + r;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int r0 = 16 * warp + g;              // rows r0 and r0 + 8 of the tile
+  const int64_t row0 = bh * t + static_cast<int64_t>(qt) * kTile + r0;
+  const float* const kbh = k + bh * t * D;
+  const float* const vbh = v + bh * t * D;
 
-  float qr[D], dor[D], dqr[D];
-  load_row<D>(q + row * D, qr);
-  load_row<D>(dout + row * D, dor);
+  stage_tile<D>(smem, kbh);
+  stage_tile<D>(smem + kTile * P, vbh);
+  cp_async_commit();
+
+  uint32_t qhi[KS][4], qlo[KS][4], dohi[KS][4], dolo[KS][4];
+  split_rows<D>(q + row0 * D, tq, qhi, qlo);
+  split_rows<D>(dout + row0 * D, tq, dohi, dolo);
+  float mr[2], inv_l[2], dir[2];             // rows r0, r0 + 8
 #pragma unroll
-  for (int j = 0; j < D; ++j) dqr[j] = 0.0f;
-  const float mr = m[row];
-  const float inv_l = 1.0f / l[row];
-  const float dir = di[row];
+  for (int h = 0; h < 2; ++h) {
+    mr[h] = __ldg(m + row0 + 8 * h);
+    inv_l[h] = 1.0f / __ldg(l + row0 + 8 * h);
+    dir[h] = __ldg(di + row0 + 8 * h);
+  }
+  float dqa[KS][4];                          // dims 8n + 2t, 8n + 2t + 1
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.0f;
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const int64_t key0 = bh * t + static_cast<int64_t>(kt) * kTile;
-    __syncthreads();
-    stage<D>(ks, k + key0 * D);
-    stage<D>(vs, v + key0 * D);
-    __syncthreads();
-    const int n_vis = (kt == qt) ? r + 1 : kTile;
-    for (int c = 0; c < n_vis; ++c) {
-      const float s = dot<D>(qr, ks[c]) * scale;
-      const float p = __expf(s - mr) * inv_l;
-      const float dp = dot<D>(dor, vs[c]);
-      const float ds = p * (dp - dir) * scale;
-      axpy<D>(ds, ks[c], dqr);
+    const float* const ks = smem + (kt & 1) * 2 * kTile * P;
+    const float* const vs = ks + kTile * P;
+    if (kt < qt) {
+      float* const next = smem + ((kt + 1) & 1) * 2 * kTile * P;
+      stage_tile<D>(next, kbh + static_cast<int64_t>(kt + 1) * kTile * D);
+      stage_tile<D>(next + kTile * P,
+                    vbh + static_cast<int64_t>(kt + 1) * kTile * D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+
+    const bool diag = kt == qt;
+    // 16 keys at a time: n-tile j holds keys c0 + 8j + 2t (+1)
+#pragma unroll
+    for (int chunk = 0; chunk < 4; ++chunk) {
+      const int c0 = 16 * chunk;
+      if (diag && c0 > 16 * warp + 15) continue;   // sees none of its rows
+      float sa[2][4], dpa[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { sa[j][e] = 0.0f; dpa[j][e] = 0.0f; }
+#pragma unroll
+        for (int st = 0; st < KS; ++st) {
+          const int off = (c0 + 8 * j + g) * P + 8 * st + tq;
+          mma3(sa[j], qhi[st], qlo[st], ks[off], ks[off + 4]);
+          mma3(dpa[j], dohi[st], dolo[st], vs[off], vs[off + 4]);
+        }
+      }
+      // P = exp(S scale - m) / l and dS = P (dP - di) scale; a pair above
+      // the diagonal is set to 0, not multiplied by 0 (its exp may be inf)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float p = __expf(sa[j][e] * scale - mr[h]) * inv_l[h];
+          float ds = p * (dpa[j][e] - dir[h]) * scale;
+          if (diag && c0 + 8 * j + 2 * tq + (e & 1) > r0 + 8 * h) ds = 0.0f;
+          sa[j][e] = ds;
+        }
+      // dQ += dS K through the key permutation
+      add_chunk<D>(dqa, sa, ks, c0 + 2 * tq, g);
+    }
+    __syncthreads();   // the next iteration's copy reuses this buffer
   }
-  store_row<D>(dq + row * D, dqr);
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+    const int col = 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(dq + row0 * D + col) =
+        make_float2(dqa[n][0], dqa[n][1]);
+    *reinterpret_cast<float2*>(dq + (row0 + 8) * D + col) =
+        make_float2(dqa[n][2], dqa[n][3]);
+  }
 }
 
 // (bh, tile) blocks, bh fastest: every (b, h) of the heaviest tile goes
@@ -654,7 +650,7 @@ template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* m, float* l, int64_t bh, int t, float scale,
                cudaStream_t stream) {
-  constexpr int bytes = fwd_smem_bytes<D>();
+  constexpr int bytes = kv_smem_bytes<D>();
   static std::atomic<uint64_t> allowed{0};
   const cudaError_t err = allow_smem(flash_fwd_kernel<D>, bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -682,7 +678,11 @@ int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* m, const float* l,
               const float* di, float* dq, int64_t bh, int t, float scale,
               cudaStream_t stream) {
-  flash_bwd_dq_kernel<D><<<grid_of(bh, t), kTile, 0, stream>>>(
+  constexpr int bytes = kv_smem_bytes<D>();
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
       q, k, v, dout, m, l, di, dq, t, scale);
   return static_cast<int>(cudaGetLastError());
 }

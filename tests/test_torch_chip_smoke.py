@@ -96,11 +96,39 @@ def test_tensor_core_counts_reads_hmma_and_hgmma():
 @pytest.mark.parametrize("kernel, d, smem", [
     ("flash_fwd", 32, 36864), ("flash_fwd", 64, 69632),
     ("flash_bwd_dkv", 16, 22016), ("flash_bwd_dkv", 32, 38400),
-    ("flash_bwd_dkv", 64, 71168), ("flash_bwd_dq", 32, 0)])
+    ("flash_bwd_dkv", 64, 71168), ("flash_bwd_dq", 16, 20480),
+    ("flash_bwd_dq", 32, 36864), ("flash_bwd_dq", 64, 69632)])
 def test_flash_smem_bytes(kernel, d, smem):
-    """Two buffers of 64-row tiles padded to d + 4 floats (K4dkv's also
-    m, l and di); over 48 KB at d = 64, where the launch must allow it."""
+    """Two buffers of 64-row tiles padded to d + 4 floats (K4f's and
+    K4dq's K and V; K4dkv's Q and dO, and m, l and di); over 48 KB at
+    d = 64, where the launch must allow it."""
     assert cs.flash_smem_bytes(kernel, d) == smem
+
+
+def test_flash_shapes_cover_every_head_size():
+    """The kernel phase holds each kernel to its plain version at every
+    head size the wrapper takes on the card, and the kernels line reads
+    the vmapped d = 32 shape."""
+    assert {d for _, _, _, d in cs.FLASH_SHAPES.values()} \
+        == set(fa.KERNEL_HEAD_DIMS)
+    assert cs.FLASH_SHAPES["vmap"] == (8, 2048, 8, 32)
+    for b, t, h, d in cs.FLASH_SHAPES.values():
+        fa.check_seq_len(t)
+
+
+def test_shard_finalize_cases_cover_every_tail():
+    """K2's phase covers the path's shards, every size mod 4, a size with
+    no whole float4 and a view off a 16-byte boundary (offset 1 float)."""
+    shards = {"s0": 422_238, "s1": 422_944}
+    cases = cs.shard_finalize_cases(shards)
+    names = [n for n, _, _ in cases]
+    assert len(set(names)) == len(names)
+    assert [(n, d) for n, d, off in cases if n in shards] \
+        == list(shards.items())
+    aligned = [d for _, d, off in cases if not off]
+    assert {d % 4 for d in aligned} == {0, 1, 2, 3}
+    assert min(aligned) < 4
+    assert [off for _, _, off in cases if off] == [1]
 
 
 @pytest.fixture(scope="module")
@@ -147,3 +175,12 @@ def test_flash_nan_check_holds_finite_rows_to_the_limits(nan_chain, name,
         problems = cs.flash_nan_problems(dict(nan_chain, **{name: out}),
                                          nan_chain)
         assert bool(problems) == fails, (scale, problems)
+
+
+def test_k2_ab_refuses_without_a_card(monkeypatch):
+    """The K2 A/B timer measures on the card only: without one it exits
+    non-zero before building anything."""
+    from fedml_tpu_torch.utils import k2_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        k2_ab.main(["a.cu", "b.cu"])

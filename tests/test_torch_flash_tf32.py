@@ -1,4 +1,4 @@
-"""The arithmetic of the tensor-core flash kernels (K4f and K4dkv in
+"""The arithmetic of the tensor-core flash kernels (K4f, K4dkv and K4dq in
 ``fedml_tpu_torch/csrc/flash_attention.cu``), emulated on the CPU and held
 to JAX's Pallas library flash attention.
 
@@ -9,18 +9,18 @@ into an f32 accumulator.  Here torch does the same on the CPU:
 0x1000) & ~0x1FFF``, the truncation ``bits & ~0x1FFF``, and a
 product is three f32 matmuls of the pieces (a product of two TF32 values is
 exact in f32).  The forward walks 64-key tiles with the kernel's online
-softmax; dK/dV recompute P from the emulated forward's m and l as the
-kernel does.  The library runs under ``force_tpu_interpret_mode()``, as
+softmax; dK/dV and dQ recompute P from the emulated forward's m and l as
+the kernels do.  The library runs under ``force_tpu_interpret_mode()``, as
 its own tests run it, at B=1, H=2, d=32, T=128 and 256, on unit-normal
 inputs drawn by numpy from a seed.  The limits are ``chip_smoke.py``'s for
-the kernels on the card: o, m and l within 1e-5 x max|ref|; dk and dv
+the kernels on the card: o, m and l within 1e-5 x max|ref|; dk, dv and dq
 within 1e-4 x max|ref|.  One TF32 pass misses the forward's limit by far:
 that is why the kernels split.
 
 This is the ideal 3xTF32 scheme, not the kernels' exact arithmetic: here
 each 64-key tile is one matmul summed round-to-nearest, where the kernels
-sum 32-key (K4f) or 16-query (K4dkv) parts in the tensor cores' own
-accumulation.  Their fragment indices and that accumulation are checked on
+sum 32-key (K4f), 16-query (K4dkv) or 16-key (K4dq) parts in the tensor
+cores' own accumulation.  Their fragment indices and that accumulation are checked on
 the card, where ``chip_smoke.py`` holds the kernels to the plain versions.
 
 ``python tests/test_torch_flash_tf32.py`` prints the emulations' errors
@@ -40,7 +40,7 @@ from jax.experimental.pallas.ops.tpu import flash_attention as lib
 D = 32
 TILE = 64                      # the kernels' tile rows
 O_TOL = 1e-5                   # x max|ref|: o, m, l (chip_smoke.py)
-GRAD_TOL = 1e-4                # x max|ref|: dk, dv
+GRAD_TOL = 1e-4                # x max|ref|: dk, dv, dq
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -111,9 +111,23 @@ def dkv_emulated(q, k, v, do, m, l, di, passes):
     return mm(ds, q, passes), mm(p, do, passes)
 
 
+def dq_emulated(q, k, v, do, m, l, di, passes):
+    """K4dq's sums over [BH, T, d]: S = Q K^T, P = exp(S * scale - m) *
+    (1/l), dP = dO V^T, dS = P (dP - di) scale with the pairs above the
+    diagonal zero; dQ = dS K."""
+    t, d = q.shape[1], q.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    s = mm(q, k.transpose(1, 2), passes)                # [BH, query, key]
+    p = torch.exp(s * scale - m[..., None]) * (1.0 / l)[..., None]
+    dp = mm(do, v.transpose(1, 2), passes)
+    ds = torch.where(torch.ones(t, t, dtype=torch.bool).tril(),
+                     p * (dp - di[..., None]) * scale, 0.0)
+    return mm(ds, k, passes)
+
+
 def _library(q, k, v, do):
     """The interpret-mode library: (o, m, l) from its forward with
-    residuals, and (dk, dv) from jax.vjp of its public entry."""
+    residuals, and (dq, dk, dv) from jax.vjp of its public entry."""
     b, h, t, d = q.shape
     scale = 1.0 / math.sqrt(d)
     blocks = lib.BlockSizes.get_default(b, h, t, t, d)
@@ -124,9 +138,9 @@ def _library(q, k, v, do):
         o, l, m = lib._flash_attention(qj, kj, vj, None, None, True, True,
                                        scale, blocks, False)
         _, vjp = jax.vjp(fn, qj, kj, vj)
-        _, dk, dv = vjp(jnp.asarray(do))
+        dq, dk, dv = vjp(jnp.asarray(do))
     return {n: np.asarray(x).reshape(b * h, *x.shape[2:])
-            for n, x in dict(o=o, m=m, l=l, dk=dk, dv=dv).items()}
+            for n, x in dict(o=o, m=m, l=l, dk=dk, dv=dv, dq=dq).items()}
 
 
 def make_case(t):
@@ -145,12 +159,13 @@ def case(request):
 
 def emulate(case, passes):
     """The kernels' chain as the transformer runs it: K4f, di = sum(o dO)
-    in torch, then K4dkv on the forward's m and l."""
+    in torch, then K4dkv and K4dq on the forward's m and l."""
     q, k, v, do = case["inputs"]
     o, m, l = fwd_emulated(q, k, v, passes)
     di = (o * do).sum(-1)
     dk, dv = dkv_emulated(q, k, v, do, m, l, di, passes)
-    return dict(o=o, m=m, l=l, dk=dk, dv=dv)
+    return dict(o=o, m=m, l=l, dk=dk, dv=dv,
+                dq=dq_emulated(q, k, v, do, m, l, di, passes))
 
 
 def rel_errors(case, passes):
@@ -200,6 +215,10 @@ def test_three_pass_dkv_within_chip_limits(case):
         assert errs[name] <= GRAD_TOL, (name, errs[name])
 
 
+def test_three_pass_dq_within_chip_limits(case):
+    assert rel_errors(case, passes=3)["dq"] <= GRAD_TOL
+
+
 def test_one_pass_forward_misses_the_limit(case):
     """One TF32 pass (10 mantissa bits) puts o far outside 1e-5 x
     max|ref|: the reason for the split."""
@@ -207,11 +226,12 @@ def test_one_pass_forward_misses_the_limit(case):
 
 
 if __name__ == "__main__":
+    OUTPUTS = ("o", "m", "l", "dk", "dv", "dq")
     print(f"{'T':>5} {'passes':>6} " + " ".join(
-        f"{n:>10}" for n in ("o", "m", "l", "dk", "dv")))
+        f"{n:>10}" for n in OUTPUTS))
     for t in (128, 256):
         c = make_case(t)
         for passes in (1, 3):
             e = rel_errors(c, passes)
             print(f"{t:>5} {passes:>6} " + " ".join(
-                f"{e[n]:10.3e}" for n in ("o", "m", "l", "dk", "dv")))
+                f"{e[n]:10.3e}" for n in OUTPUTS))
