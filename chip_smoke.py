@@ -8,24 +8,36 @@ each printed as it ends; any failure exits non-zero:
 
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build — ``nvcc`` builds every kernel under ``fedml_tpu_torch/csrc/``;
-3. kernel robust_agg — the fused clip + noise + mean kernel against its
-   plain PyTorch version at every leaf size of the FEMNIST CNN (and one
-   odd size), sigma 0 and 0.025: max abs error, bit-equal noise uniforms,
-   kernel / plain / ``torch.addmv`` times (CUDA events, median) and the
-   memory bound;
+3. kernel robust_agg — the fused clip + noise + mean kernel (K1) against
+   its plain PyTorch version, leaf by leaf (a one-leaf table) at every
+   leaf size of the FEMNIST CNN and one odd size, sigma 0 and 0.025: max
+   abs error, bit-equal noise uniforms, kernel / plain / ``torch.addmv``
+   times and the bound (bytes; f32, integer and special-function
+   operations at their lanes per SM a clock); then the path's form, one
+   norm launch and one aggregate launch over a table of the CNN's leaves,
+   the odd size and an unaligned leaf, at clip 5.0 and none, sigma 0 and
+   0.025, within 1e-5 of the plain versions, two launches bit-equal, the
+   SFU Gaussians of all 16.9 M (leaf, client, element) samples within
+   K1_GAUSS_TOL of the precise ones; the table launch's and the norm
+   pass's times beside the plain aggregate and the eager clip pass;
 4. slice — defended FedAvg (weak DP, fused CUDA backend) on the FEMNIST
    CNN at full width, 3400 clients, 10 per round, B=20, lr 0.1, E=1, 3
-   rounds, through the CLI's runner; the kernel's launches in that run
-   must cover every leaf of every round.  Then one round from the same
-   init and seed words with TF32 off, held against the port on the CPU;
-5. kernel secagg_mask — the fused quantize + pairwise-mask kernel against
-   its plain PyTorch version at every leaf size of the CNN (and one odd
-   size), groups of 5 and 10: bit-equal ring values, and the masked ring
-   sum equal to the unmasked one (the masks cancel on the card); kernel /
-   plain times, the wrapper's host cost, the bytes and operations bounds;
+   rounds, through the CLI's runner; exactly one norm launch and one
+   aggregate launch a round.  Then one round from the same init and seed
+   words with TF32 off, held against the port on the CPU;
+5. kernel secagg_mask — the fused quantize + pairwise-mask kernel (K3)
+   against its plain PyTorch version leaf by leaf (the pair seeds given)
+   at every leaf size of the CNN and one odd size, groups of 5 and 10:
+   bit-equal ring values, the masks cancelling on the card, times and
+   bounds; then the path's form, one launch over a table of the CNN's
+   leaves, the odd size and an unaligned leaf with the pair keys derived
+   in the launch (each pair once), bit-equal leaf by leaf, its one-buffer
+   ring sum equal to the per-leaf sums, the per-row walk (one row, two
+   rows) equal to the group's rows, the launch's salts bit-equal to
+   ``pair_seeds`` + ``leaf_seeds``; its time at a group of 5;
 6. turboaggregate slice — secure FedAvg (two groups of 5, cuda backend) on
    the same CNN, data and widths, 3 rounds through the CLI's runner: the
-   kernel launches exactly 8 leaves x 2 groups x 3 rounds; a per-part
+   kernel launches exactly once per group and round (2 x 3); a per-part
    split of a round and the device's idle share; one round with TF32 off
    against the CPU (limit clients_per_group / scale + 1e-4); one round
    with group 1 recovered from its LCC shares against the direct round
@@ -75,8 +87,9 @@ each printed as it ends; any failure exits non-zero:
 11. transformer cli — 3 rounds of the dense Shakespeare transformer (the
    JAX CLI's widths, 715 clients, 10 per round, B=4, SGD lr 1) through
    the CLI's runner: rounds/s and a finite loss;
-12. a JSON line with each kernel's numbers (K1 and K2 also at their
-   library call's configuration, sigma 0), and a last line
+12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
+   and K2 also at their library call's configuration, sigma 0), and a
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, when there is
@@ -100,6 +113,14 @@ FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor fp32
 TF32_OPS_PER_S = 495e12        # H100 SXM data sheet, dense TF32 tensor cores
 SFU_EXPS_PER_CLOCK = 16 * 132  # ex2 on the special-function units: 16 a
                                # clock on each of the H100 SXM's 132 SMs
+# lanes a clock on the H100 SXM's 132 SMs, by kind of operation (CUDA
+# programming guide, arithmetic instruction throughput, compute capability
+# 9.0): f32 add and multiply (the kernels are built with -fmad=false, so no
+# fused multiply-add counts twice), 32-bit integer add, multiply, shift and
+# logic, and the special-function units (lg2, rsqrt, cos and the
+# int <-> float conversions); every instruction passes the 4 dispatchers
+OP_LANES_PER_CLOCK = {"fp32": 128 * 132, "int": 64 * 132, "sfu": 16 * 132}
+DISPATCH_LANES_PER_CLOCK = 128 * 132
 N_CLIENTS = 10
 SIGMA = 0.025                  # the weak-DP stddev of the slice
 KERNEL_TOL = 1e-5              # kernel vs plain, same device
@@ -119,6 +140,13 @@ SILO_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
              "--agg_mode", "stream", "--model_shards", "4",
              "--fused_finalize", "on", "--norm_clip", "5.0",
              "--agg_noise_std", str(SIGMA), *COMMON_ARGS]
+K1_GAUSS_TOL = 2e-5            # K1's SFU Gaussian vs the precise one, abs
+# K1's clip scales vs the plain version's, relative: both sum ~3.7 M squares
+# in f32, in different orders (7.2e-8 apart on an H100 at phase 3's tree);
+# a leaf left out of the norm moves a scale by 8e-6 or more
+K1_SCALE_TOL = 4e-7
+K1_UNCLIPPED = 2               # clients of phase 3's tree under the bound
+CLIP_BOUND = 5.0               # the defended slice's norm bound
 K2_STEP = 7                    # shard_finalize check: a non-zero round step
 K2_NOISE_TOL = 1e-6            # K2 vs plain at sigma > 0 if not bit-equal
 
@@ -161,22 +189,48 @@ def time_ms(fn, reps: int, trials: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, name: str = ""):
-    """Mean device time (ms) per call of ``fn``: the kernels it launches
-    (those whose name contains ``name``), summed, from torch.profiler over
-    ``reps`` calls; None if the profiler shows no device time."""
+def device_ms(fn, reps: int, name: str = "", windows: int = 3):
+    """Device time (ms) per call of ``fn``: the kernels it launches (those
+    whose name contains ``name``), summed, from torch.profiler over
+    ``reps`` calls; the median of ``windows`` such windows (one window can
+    lose or garble launches), None if no window shows device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(_self_device_us(e) for e in prof.key_averages()
+                       if name in e.key)
+        if total_us > 0:
+            per_call.append(total_us / reps / 1e3)
+    return statistics.median(per_call) if per_call else None
+
+
+def call_profile(fn, reps: int = 5):
+    """What one call of ``fn`` costs: its host time (µs, the device drained
+    before and after), and from torch.profiler its kernel launches, their
+    device time (µs) and the four largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {"host_us": host_us(fn, reps)}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages()
-                   if name in e.key)
-    return total_us / reps / 1e3 if total_us > 0 else None
+    events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
+    out["launches"] = sum(e.count for e in events) / reps
+    out["device_us"] = sum(_self_device_us(e) for e in events) / reps
+    top = sorted(events, key=_self_device_us, reverse=True)[:4]
+    out["top_device_us"] = {e.key[:50]: _self_device_us(e) / reps
+                            for e in top}
+    return out
 
 
 def _self_device_us(event) -> float:
@@ -189,8 +243,94 @@ def _self_device_us(event) -> float:
                          getattr(event, "self_cuda_time_total", 0.0)))
 
 
-def check_kernel(leaf_sizes, seed_words):
-    """Phase 3: robust_agg against robust_agg_plain on the card."""
+def op_bound(nbytes: float, ops, sm_hz: float):
+    """The least time (ms) the card could take for work that moves
+    ``nbytes`` and does ``ops`` ({"fp32": n, "int": n, "sfu": n}): the
+    largest of the bytes over 3.35 TB/s and each kind of operation over
+    its lanes at the SM clock ``sm_hz``.  ``bound_term`` names the term,
+    ``bound_by`` says "bytes" or "operations"; ``dispatch_ms`` (every
+    operation through the SMs' 128 dispatch lanes a clock) stays beside
+    them, outside the bound."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    for kind, lanes in OP_LANES_PER_CLOCK.items():
+        terms[kind] = ops.get(kind, 0) / (lanes * sm_hz) * 1e3
+    term = max(terms, key=terms.get)
+    dispatch_s = sum(ops.values()) / (DISPATCH_LANES_PER_CLOCK * sm_hz)
+    return dict(bound_ms=terms[term],
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, **{f"{k}_ms": v for k, v in terms.items()},
+                dispatch_ms=dispatch_s * 1e3)
+
+
+def robust_agg_work(n: int, sizes, sigma: float):
+    """Bytes and operations of K1's aggregate over leaves of ``sizes``
+    elements for ``n`` clients: x read once, g read and out written once,
+    the scales and ratios; per (client, element) 5 f32 operations, and at
+    sigma > 0 the noise: two murmur finalisers and two shifts (20 integer
+    operations), 30 f32 operations (the uniforms, the log series and its
+    select, the square root's and the cosine's scaling, sigma), lg2, rsqrt,
+    cos and two int -> float conversions on the special-function units;
+    per element the index hash (10 integer operations)."""
+    d = sum(sizes)
+    pairs = n * d
+    ops = {"fp32": pairs * (30 + 5 if sigma else 5)}
+    if sigma:
+        ops.update(int=pairs * 20 + d * 10, sfu=pairs * 5)
+    return 4 * (pairs + 2 * d + 2 * n), ops
+
+
+def clip_norm_work(n: int, sizes):
+    """The norm pass over weight leaves of ``sizes`` elements: x and g
+    read once, the scales written; a subtract, a square and an add per
+    (client, element)."""
+    d = sum(sizes)
+    return 4 * (n * d + d + n), {"fp32": 3 * n * d}
+
+
+def secagg_mask_work(rows: int, n: int, d: int):
+    """Bytes and operations of K3 for ``rows`` client rows of an
+    ``n``-client group over ``d`` elements: x read and the ring values
+    written once, the weights; per (row, element) the quantize (4 f32
+    operations, one float -> int conversion).  A whole group of up to 16
+    (rows == n) takes the each-pair-once form: per element one index hash
+    (10 integer operations) and 11 per pair (the finaliser, an xor, an add
+    and a subtract); otherwise per (row, element) the index hash and 10 per
+    partner."""
+    if rows == n <= 16:
+        int_ops = d * (10 + 11 * n * (n - 1) // 2)
+    else:
+        int_ops = rows * d * (10 + 10 * (n - 1))
+    return (4 * (2 * rows * d + rows),
+            {"fp32": 4 * rows * d, "int": int_ops, "sfu": rows * d})
+
+
+def k1_inputs(n: int, d: int, gen):
+    """x [n, d], g [d] (unit normal) and the clip scales and ratios of
+    phase 3, on the card."""
+    import torch
+    dev = torch.device("cuda")
+    x = torch.randn(n, d, generator=gen, device=dev)
+    g = torch.randn(d, generator=gen, device=dev)
+    scales = torch.rand(n, generator=gen, device=dev)
+    scales[: n // 2] = 1.0
+    w = torch.rand(n, generator=gen, device=dev) + 0.5
+    w[-1] = 0.0
+    return x, g, scales, (w / w.sum()).contiguous()
+
+
+def offset_copy(t, offset: int):
+    """A contiguous copy of ``t`` that starts ``offset`` floats past the
+    start of its allocation (4 bytes past a 16-byte boundary for 1)."""
+    import torch
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_kernel(leaf_sizes, seed_words, sm_hz):
+    """Phase 3: robust_agg (a one-leaf table) against robust_agg_plain on
+    the card, leaf by leaf."""
     import torch
     from fedml_tpu_torch.core import fused_agg as fa
 
@@ -200,13 +340,7 @@ def check_kernel(leaf_sizes, seed_words):
     sizes = dict(leaf_sizes, odd=1_000_003)
     rows, worst = [], 0.0
     for name, d in sizes.items():
-        x = torch.randn(N_CLIENTS, d, generator=gen, device=dev)
-        g = torch.randn(d, generator=gen, device=dev)
-        scales = torch.rand(N_CLIENTS, generator=gen, device=dev)
-        scales[: N_CLIENTS // 2] = 1.0
-        w = torch.rand(N_CLIENTS, generator=gen, device=dev) + 0.5
-        w[-1] = 0.0
-        ratios = (w / w.sum()).contiguous()
+        x, g, scales, ratios = k1_inputs(N_CLIENTS, d, gen)
         for sigma in (0.0, SIGMA):
             args = (x, g, scales, ratios, s0, s1, sigma)
             got = fa.robust_agg(*args)
@@ -239,20 +373,246 @@ def check_kernel(leaf_sizes, seed_words):
                 coef = ratios * scales
                 library = lambda: torch.addmv(g, x.T, coef, beta=beta)
                 library_ms = device_ms(library, 20) or time_ms(library, 50)
-            nbytes = 4 * (N_CLIENTS * d + 2 * d + 2 * N_CLIENTS)
-            ops = N_CLIENTS * d * (5 + (35 if sigma else 0))
-            bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                           ops / FP32_OPS_PER_S) * 1e3
+            bound = op_bound(*robust_agg_work(N_CLIENTS, [d], sigma), sm_hz)
             row = dict(leaf=name, d=d, sigma=sigma, max_abs_err=err,
                        uniforms_bit_equal=bits_equal, ms=ms, call_ms=call_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
-                       bound_us=bound_ms * 1e3,
-                       bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                                 >= ops / FP32_OPS_PER_S else "operations"))
+                       bound_us=bound["bound_ms"] * 1e3,
+                       bound_by=bound["bound_by"],
+                       bound_term=bound["bound_term"])
             phase("kernel robust_agg", **row)
             rows.append(row)
         del x, g
     return rows, worst
+
+
+def k1_tree(leaf_sizes, gen):
+    """Phase 3's tree: the CNN's leaves, the odd size and an unaligned
+    leaf (x and g 4 bytes past a 16-byte boundary), stacked for
+    N_CLIENTS, with the global and the weights.  The first K1_UNCLIPPED
+    clients' updates have a norm near 1, under CLIP_BOUND (scale 1); the
+    others' near 96 (scale near 0.05)."""
+    import torch
+    stacked, glob = {}, {}
+    sizes = dict(leaf_sizes, odd=1_000_003, unaligned=1_000_002)
+    spread = torch.full((N_CLIENTS, 1), 0.05, device="cuda")
+    spread[:K1_UNCLIPPED] = 0.0005
+    for name, d in sizes.items():
+        x, g, _, _ = k1_inputs(N_CLIENTS, d, gen)
+        off = 1 if name == "unaligned" else 0
+        stacked[name] = offset_copy(x * spread + g, off)
+        glob[name] = offset_copy(g, off)
+    w = k1_inputs(N_CLIENTS, 1, gen)[3] * 300
+    return stacked, glob, w
+
+
+def check_k1_table(leaf_sizes, seed_words, sm_hz):
+    """Phase 3, the path's form: the fused aggregate over the CNN's
+    leaves, the odd size and the unaligned leaf, one norm launch and one
+    aggregate launch, at clip 5.0 and none, sigma 0 and 0.025, within
+    KERNEL_TOL of the plain versions leaf by leaf; two launches bit-equal;
+    the norm pass's scales within K1_SCALE_TOL of the plain ones (exactly
+    1 under the bound), with every leaf's last element read and a NaN
+    kept; CPU weights with the card's leaves refused; the Gaussians of
+    every (leaf, client) of the CNN within K1_GAUSS_TOL of the precise
+    ones; times of the aggregate launch and of the norm pass over the
+    CNN's leaves, beside the eager clip pass and the plain aggregate."""
+    import torch
+    from fedml_tpu_torch.core import fused_agg as fa
+    from fedml_tpu_torch.core.pytree import tree_keys
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    stacked, glob, w = k1_tree(leaf_sizes, gen)
+    keys = tree_keys(stacked)
+    ratios = (w / w.sum()).contiguous()
+    out = {}
+    for bound in (CLIP_BOUND, None):
+        want_scales = (fa.clip_scales_plain(stacked, glob, bound,
+                                            lambda k: True)
+                       if bound is not None else None)
+        for sigma in (0.0, SIGMA):
+            agg = fa.make_fused_robust_aggregate(norm_bound=bound,
+                                                 noise_std=sigma,
+                                                 is_weight=lambda k: True)
+            fa.reset_launch_counts()
+            got = agg(stacked, w, glob, seed_words)
+            again = agg(stacked, w, glob, seed_words)
+            torch.cuda.synchronize()
+            launches = dict(fa.launch_counts)
+            if launches["robust_agg"] != 2 or launches["clip_norm"] != (
+                    2 if bound is not None else 0):
+                fail(f"the fused aggregate launched {launches} in two calls")
+            same = all(torch.equal(got[k].view(torch.int32),
+                                   again[k].view(torch.int32)) for k in keys)
+            if not same:
+                fail(f"two fused aggregates (clip {bound}, sigma {sigma}) "
+                     f"differ")
+            ones = torch.ones(N_CLIENTS, device=dev)
+            err = 0.0
+            for li, k in enumerate(keys):
+                want = fa.robust_agg_plain(
+                    stacked[k], glob[k],
+                    want_scales if bound is not None else ones, ratios,
+                    fa.leaf_seed(seed_words[0], li),
+                    fa.leaf_seed(seed_words[1], li), sigma)
+                err = max(err, float((got[k] - want).abs().max()))
+            if not err <= KERNEL_TOL:
+                fail(f"fused aggregate (clip {bound}, sigma {sigma}): max "
+                     f"abs err {err} > {KERNEL_TOL}")
+            out[(bound, sigma)] = err
+    # no fallback: CPU weights with the card's leaves are refused
+    for bound in (CLIP_BOUND, None):
+        agg = fa.make_fused_robust_aggregate(norm_bound=bound,
+                                             is_weight=lambda k: True)
+        try:
+            agg(stacked, w.cpu(), glob, seed_words)
+        except ValueError:
+            pass
+        else:
+            fail(f"the fused aggregate (clip {bound}) took CPU weights "
+                 f"with the card's leaves")
+
+    layout = fa.LeafLayout(keys, [glob[k].numel() for k in keys],
+                           range(len(keys)), [True] * len(keys))
+    xs = [stacked[k] for k in keys]
+    gs = [glob[k] for k in keys]
+    scale_check = check_clip_norm(layout, stacked, glob, ratios)
+    scales = fa.clip_norm(layout, xs, gs, CLIP_BOUND)
+
+    # the Gaussians of every CNN leaf and client: SFU against precise
+    gauss_err = 0.0
+    samples = 0
+    for li, (name, d) in enumerate(leaf_sizes.items()):
+        s0 = fa.leaf_seed(seed_words[0], li)
+        s1 = fa.leaf_seed(seed_words[1], li)
+        for client in range(N_CLIENTS):
+            u1, u2, gk = fa.noise_probe(d, s0, s1, client, dev)
+            pu1, pu2 = fa.noise_uniforms_plain(d, s0, s1, client, dev)
+            if not (torch.equal(u1.view(torch.int32), pu1.view(torch.int32))
+                    and torch.equal(u2.view(torch.int32),
+                                    pu2.view(torch.int32))):
+                fail(f"noise uniforms of {name}, client {client} differ "
+                     f"from the plain version")
+            gauss_err = max(gauss_err, float(
+                (gk - fa._gaussian(pu1, pu2)).abs().max()))
+            samples += d
+    if not gauss_err <= K1_GAUSS_TOL:
+        fail(f"K1's Gaussians differ from the precise ones by {gauss_err} "
+             f"> {K1_GAUSS_TOL}")
+
+    # times over the CNN's leaves (the path's table)
+    cnn = [k for k in keys if k in leaf_sizes]
+    layout = fa.LeafLayout(cnn, [leaf_sizes[k] for k in cnn],
+                           range(len(cnn)), [True] * len(cnn))
+    xs = [stacked[k] for k in cnn]
+    gs = [glob[k] for k in cnn]
+    sub = {k: stacked[k] for k in cnn}
+    subg = {k: glob[k] for k in cnn}
+    times = {}
+    for sigma in (0.0, SIGMA):
+        call = lambda: fa.robust_agg_table(layout, xs, gs, scales, ratios,
+                                           *seed_words, sigma)
+        plain = lambda: [fa.robust_agg_plain(
+            x, g, scales, ratios, fa.leaf_seed(seed_words[0], li),
+            fa.leaf_seed(seed_words[1], li), sigma)
+            for li, (x, g) in enumerate(zip(xs, gs))]
+        bound = op_bound(*robust_agg_work(N_CLIENTS, layout.sizes, sigma),
+                         sm_hz)
+        times[sigma] = dict(
+            ms=(device_ms(call, 20, "robust_agg_kernel", windows=5)
+                or time_ms(call, 50)),
+            call_ms=time_ms(call, 50), host_us=host_us(call),
+            plain_ms=device_ms(plain, 3) or time_ms(plain, 3, trials=3),
+            **bound)
+    norm = lambda: fa.clip_norm(layout, xs, gs, CLIP_BOUND)
+    eager = lambda: fa.clip_scales_plain(sub, subg, CLIP_BOUND,
+                                         lambda k: True)
+    norm_row = dict(ms=(device_ms(norm, 20, "clip_norm_kernel", windows=5)
+                        or time_ms(norm, 50)),
+                    call_ms=time_ms(norm, 50), host_us=host_us(norm),
+                    plain_ms=device_ms(eager, 20) or time_ms(eager, 20),
+                    plain_host_us=host_us(eager),
+                    **op_bound(*clip_norm_work(N_CLIENTS, layout.sizes),
+                               sm_hz))
+    result = dict(max_abs_err={f"clip={b},sigma={s}": e
+                               for (b, s), e in out.items()},
+                  bit_equal_twice=True, **scale_check,
+                  gauss_max_abs_err=gauss_err, gauss_tol=K1_GAUSS_TOL,
+                  gauss_samples=samples, table=times, clip_norm=norm_row)
+    phase("kernel robust_agg table", **result)
+    return result
+
+
+def check_clip_norm(layout, stacked, glob, ratios):
+    """Phase 3's norm pass: the scales against clip_scales_plain, within
+    K1_SCALE_TOL (relative), the clients under the bound at exactly 1; then
+    with client j % N's update spiked at leaf j's last element (so each
+    client's scale hangs on one leaf's tail being read); then with a NaN in
+    one client's update: its scale NaN, as in the plain version, and the
+    aggregate over it NaN at every element, the others' scales as before."""
+    import torch
+    from fedml_tpu_torch.core import fused_agg as fa
+
+    keys = layout.keys
+    xs = [stacked[k] for k in keys]
+    gs = [glob[k] for k in keys]
+
+    def compare(what):
+        got = fa.clip_norm(layout, xs, gs, CLIP_BOUND)
+        want = fa.clip_scales_plain(stacked, glob, CLIP_BOUND,
+                                    lambda k: True)
+        torch.cuda.synchronize()
+        if not torch.equal(got.isnan(), want.isnan()):
+            fail(f"clip_norm ({what}): NaN scales {got.tolist()} against "
+                 f"the plain version's {want.tolist()}")
+        ok = ~want.isnan()
+        diff = (got[ok] - want[ok]).abs()
+        rel = float((diff / want[ok]).max())
+        if not rel <= K1_SCALE_TOL:
+            fail(f"clip_norm ({what}): scales {got.tolist()} differ from "
+                 f"the plain version's {want.tolist()} by {rel} relative > "
+                 f"{K1_SCALE_TOL}")
+        return got, want, float(diff.max()), rel
+
+    got, want, abs_err, rel_err = compare("as drawn")
+    under = slice(None, K1_UNCLIPPED)
+    if not ((got[under] == 1).all() and (want[under] == 1).all()
+            and (want[K1_UNCLIPPED:] < 1).all()):
+        fail(f"clip_norm: scales {got.tolist()} (plain {want.tolist()}), "
+             f"need exactly 1 for the first {K1_UNCLIPPED} clients only")
+
+    # every leaf's last element (its D % 4 tail, where it has one)
+    saved = []
+    for j, x in enumerate(xs):
+        c = j % N_CLIENTS
+        saved.append((x, c, x[c, -1].clone()))
+        x[c, -1] = gs[j][-1] + 1000.0
+    spiked, _, spike_abs, spike_rel = compare("spiked tails")
+    for x, c, v in saved:
+        x[c, -1] = v
+    if not (spiked < 0.01).all():
+        fail(f"clip_norm: spiked scales {spiked.tolist()}, a leaf's last "
+             f"element was not read")
+
+    # a NaN in client 3's update
+    big = max(range(len(xs)), key=lambda j: xs[j].shape[1])
+    at = xs[big].shape[1] // 2
+    kept = xs[big][3, at].clone()
+    xs[big][3, at] = float("nan")
+    nan_scales, _, _, _ = compare("a NaN in client 3")
+    flat = fa.robust_agg_table(layout, xs, gs, nan_scales, ratios, 1, 2, 0.0)
+    torch.cuda.synchronize()
+    xs[big][3, at] = kept
+    if not (nan_scales[3].isnan() and all(
+            v.isnan().all() for v in layout.views(
+                flat, [(d,) for d in layout.sizes]))):
+        fail("clip_norm / robust_agg: a NaN in client 3's update did not "
+             "reach its scale and every element of the aggregate")
+    return dict(scales_max_abs_diff=abs_err, scales_max_rel_diff=rel_err,
+                scale_tol=K1_SCALE_TOL, unclipped_scales_exactly_1=True,
+                spiked_scales_max_rel_diff=spike_rel,
+                spiked_scales_max_abs_diff=spike_abs, nan_scale_kept=True)
 
 
 def run_slice(data_cfg):
@@ -273,17 +633,21 @@ def run_slice(data_cfg):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = fa.launch_counts["robust_agg"]
-    need = 8 * data_cfg.comm_round
-    if launches < need:
-        fail(f"slice launched robust_agg {launches} times, need >= {need}")
+    norm_launches = fa.launch_counts["clip_norm"]
+    need = data_cfg.comm_round
+    if launches != need or norm_launches != need:
+        fail(f"slice launched robust_agg {launches} and clip_norm "
+             f"{norm_launches} times, need exactly {need} each (one of each "
+             f"a round)")
     if not summary.get("params_finite"):
         fail("slice produced non-finite parameters")
-    phase("slice", launches=launches, data_s=data_s, run_s=run_s,
+    phase("slice", launches=launches, clip_norm_launches=norm_launches,
+          data_s=data_s, run_s=run_s,
           rounds_per_s=summary["rounds_per_s"],
           test_acc=summary["test_acc"], test_loss=summary["test_loss"],
           train_acc=summary["train_acc"], params_finite=True,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return data, launches, summary
+    return data, (launches, norm_launches), summary
 
 
 def profile_rounds(data_cfg, data, rounds: int = 5):
@@ -340,6 +704,11 @@ def profile_rounds(data_cfg, data, rounds: int = 5):
                 parts["aggregate_ms"].append((t3 - t2) * 1e3)
         row = {k: statistics.median(v) for k, v in parts.items()}
         row["round_ms"] = sum(row.values())
+        # the aggregate part alone: its host time, launches and kernels
+        row["aggregate_call"] = call_profile(
+            lambda: aggregate(stacked, cohort["num_samples"], params, words))
+        row["stacked_contiguous"] = all(v.is_contiguous()
+                                        for v in stacked.values())
 
         def run_rounds():
             p = params
@@ -364,6 +733,12 @@ def profile_rounds(data_cfg, data, rounds: int = 5):
         row["device_idle_share"] = (1 - busy_us / wall_us) if busy_us else None
         row["kernel_launches_per_round"] = sum(
             e.count for e in events) / rounds
+        for name in ("robust_agg_kernel", "clip_norm_kernel"):
+            k1 = [e for e in events if name in e.key]
+            row[f"{name}_launches_per_round"] = sum(
+                e.count for e in k1) / rounds
+            row[f"{name}_device_ms_per_round"] = sum(
+                _self_device_us(e) for e in k1) / rounds / 1e3
         top = sorted(events, key=_self_device_us, reverse=True)[:6]
         row["top_device_us_per_round"] = {
             e.key[:60]: _self_device_us(e) / rounds for e in top}
@@ -441,18 +816,9 @@ def host_us(fn, reps: int = 50) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def secagg_mask_bounds(rows: int, n: int, d: int):
-    """Bytes and operations the kernel must move and do for ``rows`` client
-    rows of an ``n``-client group over ``d`` elements: x read and the ring
-    values written once (plus weights and seeds); per (row, element) 15
-    operations for the quantize and the index hash, 10 per partner."""
-    nbytes = 4 * (2 * rows * d + rows + 2 * rows * n)
-    ops = rows * d * (15 + 10 * (n - 1))
-    return nbytes, ops
-
-
-def check_secagg_kernel(leaf_sizes):
-    """Phase 5: secagg_mask against quantize_mask_plain on the card."""
+def check_secagg_kernel(leaf_sizes, sm_hz):
+    """Phase 5: secagg_mask (a one-leaf table, the pair seeds given)
+    against quantize_mask_plain on the card, leaf by leaf."""
     import torch
     from fedml_tpu_torch.core import prng
     from fedml_tpu_torch.secure import fused_mask as fm
@@ -493,25 +859,130 @@ def check_secagg_kernel(leaf_sizes):
             plain = lambda: fm.quantize_mask_plain(*args)
             call_ms = time_ms(kernel, reps=50)
             if n == GROUP_SIZES[0]:           # the main path's group size
-                ms = device_ms(kernel, 20, "secagg_mask_kernel") or call_ms
+                ms = device_ms(kernel, 20, "secagg_") or call_ms
                 plain_ms = device_ms(plain, 3) or time_ms(plain, 3, trials=3)
             else:                             # CUDA events only
                 ms, plain_ms = call_ms, time_ms(plain, 3, trials=3)
-            nbytes, ops = secagg_mask_bounds(n, n, d)
-            bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                           ops / FP32_OPS_PER_S) * 1e3
+            bound = op_bound(*secagg_mask_work(n, n, d), sm_hz)
             row = dict(leaf=name, d=d, n=n, bit_equal=True,
                        masks_cancel=cancel, max_abs_err=err, ms=ms,
                        call_ms=call_ms, host_us=host_us(kernel),
-                       plain_ms=plain_ms, bound_us=bound_ms * 1e3,
-                       bytes_us=nbytes / HBM_BYTES_PER_S * 1e6,
-                       ops_us=ops / FP32_OPS_PER_S * 1e6,
-                       bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                                 >= ops / FP32_OPS_PER_S else "operations"))
+                       plain_ms=plain_ms, bound_us=bound["bound_ms"] * 1e3,
+                       bytes_us=bound["bytes_ms"] * 1e3,
+                       int_us=bound["int_ms"] * 1e3,
+                       bound_by=bound["bound_by"],
+                       bound_term=bound["bound_term"])
             phase("kernel secagg_mask", **row)
             rows_out.append(row)
             del x, got, want, q
     return rows_out, worst
+
+
+def check_k3_table(leaf_sizes, sm_hz):
+    """Phase 5, the path's form: one launch over the CNN's leaves, the odd
+    size and an unaligned leaf for a whole group of 5 and of 10 (each pair
+    once, the pair keys derived in the launch), bit-equal to the plain
+    version leaf by leaf, the masks cancelling in one ring sum over the
+    buffer, bit-equal to the per-leaf ring sums; the per-row walk (one
+    client's row, two rows of a group) bit-equal; the launch's salts
+    bit-equal to pair_seeds + leaf_seeds; CPU weights with the card's
+    leaves refused; the launch's time over the CNN's leaves at the slice's
+    group of 5."""
+    import torch
+    from fedml_tpu_torch.core import prng
+    from fedml_tpu_torch.secure import fused_mask as fm
+    from fedml_tpu_torch.secure.secagg import (quantize, ring_budget_scale,
+                                               ring_sum)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    clip = 2.0**14
+    sizes = dict(leaf_sizes, odd=1_000_003, unaligned=1_000_002)
+    keys = list(sizes)
+    layout = fm.mask_layout(keys, list(sizes.values()))
+    result = {}
+    for n in GROUP_SIZES:
+        scale = ring_budget_scale(n, clip)
+        key = prng.fold_in(prng.key(7), n)
+        xs = [offset_copy(torch.randn(n, d, generator=gen, device=dev) * 3,
+                          1 if k == "unaligned" else 0)
+              for k, d in sizes.items()]
+        w = torch.rand(n, generator=gen, device=dev) + 0.5
+        w[-1] = 0.0
+        w = (w / w.sum()).contiguous()
+        fm.reset_launch_counts()
+        buf = fm.quantize_mask_table(layout, xs, w, key, 0, n, scale, clip)
+        torch.cuda.synchronize()
+        if fm.launch_counts["secagg_mask"] != 1:
+            fail(f"the K3 table launched {fm.launch_counts} for one group")
+        try:        # no fallback: CPU weights with the card's leaves
+            fm.quantize_mask_table(layout, xs, w.cpu(), key, 0, n, scale,
+                                   clip)
+        except ValueError:
+            pass
+        else:
+            fail("the K3 table took CPU weights with the card's leaves")
+        base = fm.pair_seeds(key, 0, n, n)
+        flat_sum = ring_sum({"": buf})[""]
+        for li, (name, d) in enumerate(sizes.items()):
+            seeds = torch.as_tensor(fm.leaf_seeds(base, li)).to(dev)
+            c = layout.offsets[li]
+            got = buf[:, c:c + d]
+            want = fm.quantize_mask_plain(xs[li], w, seeds, 0, scale, clip)
+            if not torch.equal(got, want):
+                fail(f"K3 table {name} (D={d}, N={n}): ring values differ "
+                     f"from the plain version")
+            q = quantize({"x": xs[li] * w[:, None]}, scale, clip)["x"]
+            per_leaf = ring_sum({"x": got})["x"]
+            if not (torch.equal(per_leaf, ring_sum({"x": q})["x"])
+                    and torch.equal(flat_sum[c:c + d], per_leaf)):
+                fail(f"K3 table {name} (N={n}): the masks do not cancel, or "
+                     f"the buffer's ring sum differs from the leaf's")
+            salts = fm.pair_salts(key, n, li, dev)
+            if not torch.equal(salts, fm.pair_salts_plain(key, n, li, dev)):
+                fail(f"K3's in-launch salts (leaf {li}, N={n}) differ from "
+                     f"pair_seeds + leaf_seeds")
+        # the per-row walk: one client's row, and two rows of the group
+        for first, rows in ((2, 1), (1, 2)):
+            sub = [x[first:first + rows].contiguous() for x in xs]
+            part = fm.quantize_mask_table(layout, sub,
+                                          w[first:first + rows].contiguous(),
+                                          key, first, n, scale, clip)
+            if not all(torch.equal(p, b) for p, b in zip(
+                    layout.views(part, [(d,) for d in layout.sizes]),
+                    layout.views(buf[first:first + rows],
+                                 [(d,) for d in layout.sizes]))):
+                fail(f"K3's per-row walk (rows {first}..{first + rows - 1} "
+                     f"of {n}) differs from the group's launch")
+        result[f"n={n}"] = dict(bit_equal=True, masks_cancel=True,
+                                salts_bit_equal=True, rows_walk_equal=True)
+        del xs, buf
+
+    # the path's launch: the CNN's leaves, a group of 5
+    n = GROUP_SIZES[0]
+    scale = ring_budget_scale(n, clip)
+    key = prng.fold_in(prng.key(8), n)
+    cnn = fm.mask_layout(list(leaf_sizes), list(leaf_sizes.values()))
+    xs = [torch.randn(n, d, generator=gen, device=dev) * 3
+          for d in leaf_sizes.values()]
+    w = torch.full((n,), 1.0 / n, device=dev)
+    call = lambda: fm.quantize_mask_table(cnn, xs, w, key, 0, n, scale, clip)
+    base = fm.pair_seeds(key, 0, n, n)
+    seeds = [torch.as_tensor(fm.leaf_seeds(base, li)).to(dev)
+             for li in range(len(leaf_sizes))]
+    plain = lambda: [fm.quantize_mask_plain(x, w, s, 0, scale, clip)
+                     for x, s in zip(xs, seeds)]
+    ring = lambda: ring_sum({"": call()})
+    bound = op_bound(*secagg_mask_work(n, n, sum(leaf_sizes.values())),
+                     sm_hz)
+    result["path"] = dict(
+        n=n, ms=(device_ms(call, 20, "secagg_", windows=5)
+                or time_ms(call, 50)),
+        call_ms=time_ms(call, 50), host_us=host_us(call),
+        plain_ms=device_ms(plain, 3) or time_ms(plain, 3, trials=3),
+        mask_and_ring_sum_ms=time_ms(ring, 20), **bound)
+    phase("kernel secagg_mask table", **result)
+    return result
 
 
 def _turbo(cfg, data, device):
@@ -538,10 +1009,10 @@ def run_turbo_slice(turbo_cfg, data):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = fused_mask.launch_counts["secagg_mask"]
-    need = 8 * turbo_cfg.group_num * turbo_cfg.comm_round
+    need = turbo_cfg.group_num * turbo_cfg.comm_round
     if launches != need:
         fail(f"turboaggregate launched secagg_mask {launches} times, need "
-             f"exactly {need} (8 leaves x {turbo_cfg.group_num} groups x "
+             f"exactly {need} (one launch x {turbo_cfg.group_num} groups x "
              f"{turbo_cfg.comm_round} rounds)")
     if fused_agg.launch_counts["robust_agg"]:
         fail("turboaggregate launched robust_agg")
@@ -556,8 +1027,9 @@ def run_turbo_slice(turbo_cfg, data):
 
 def profile_turbo(turbo_cfg, data, rounds: int = 5):
     """Where a secure round's time goes: host timers (synchronised) around
-    the gather, local SGD, the mask kernel, the ring sum + dequantize and
-    the group combine, summed over the groups of a round; then
+    the gather, local SGD, the mask launch (``aggregate_stacked``'s cuda
+    path: the layout, the launch), the ring sum + dequantize over its
+    buffer and the group combine, summed over the groups of a round; then
     torch.profiler over ``rounds`` whole rounds for the device's idle
     share.  Launches here come after the main path's counts were read."""
     import torch
@@ -597,10 +1069,12 @@ def profile_turbo(turbo_cfg, data, rounds: int = 5):
                 by_group[g].append(dt)
             num = cohort["num_samples"].to(torch.float32)
             w = num / torch.clamp(num.sum(), min=1e-12)
-            masked = agg.mask_rows(trained, w, 0, keys[g])
+            buf, layout = agg.mask_flat(trained, w, 0, keys[g])
             t, dt = tick(t)
             acc["mask_ms"] += dt
-            means.append(agg.unmask_sum(ring_sum(masked), 1.0))
+            flat = agg.unmask_sum(ring_sum({"": buf}), 1.0)[""]
+            means.append(dict(zip(layout.keys, layout.views(
+                flat, [trained[k].shape[1:] for k in layout.keys]))))
             weights.append(float(num.sum()))
             t, dt = tick(t)
             acc["ring_sum_dequant_ms"] += dt
@@ -612,6 +1086,13 @@ def profile_turbo(turbo_cfg, data, rounds: int = 5):
                 parts[k].append(acc[k])
     row = {k: statistics.median(v) for k, v in parts.items()}
     row["round_ms"] = sum(row.values())
+    # one group's mask launch and ring sum alone: host time, launches
+    row["mask_call"] = call_profile(
+        lambda: agg.mask_flat(trained, w, 0, keys[-1]))
+    row["ring_sum_dequant_call"] = call_profile(
+        lambda: agg.unmask_sum(ring_sum({"": buf}), 1.0))
+    row["trained_contiguous"] = all(v.is_contiguous()
+                                    for v in trained.values())
     row["train_ms_by_group"] = [statistics.median(v) for v in by_group]
     alone = []                  # one group's local SGD, back to back
     for _ in range(5):
@@ -640,7 +1121,7 @@ def profile_turbo(turbo_cfg, data, rounds: int = 5):
     row["kernel_launches_per_round"] = sum(e.count for e in events) / rounds
     row["mask_kernel_device_ms_per_round"] = sum(
         _self_device_us(e) for e in events
-        if "secagg_mask_kernel" in e.key) / rounds / 1e3
+        if "secagg_" in e.key) / rounds / 1e3
     top = sorted(events, key=_self_device_us, reverse=True)[:6]
     row["top_device_us_per_round"] = {
         e.key[:60]: _self_device_us(e) / rounds for e in top}
@@ -1646,6 +2127,10 @@ def main() -> None:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
+    ptxas = {name: ptxas_report(cuda_build.build_log(name))
+             for name in ("robust_agg", "secagg_mask")}
+    phase("kernel build K1 K3", ptxas=ptxas)
+    _, sm_hz = sm_clocks_hz()
 
     from fedml_tpu_torch.algorithms.fedavg import round_seed_words
     from fedml_tpu_torch.experiments.config import config_from_argv
@@ -1655,14 +2140,16 @@ def main() -> None:
     cnn = dict(CNNOriginalFedAvg(only_digits=False).named_parameters())
     leaf_sizes = {k.replace(".", "/"): p.numel() for k, p in cnn.items()}
     leaf_sizes = {k: leaf_sizes[k] for k in tree_keys(leaf_sizes)}
-    rows, worst = check_kernel(leaf_sizes, round_seed_words(0, 0))
+    rows, worst = check_kernel(leaf_sizes, round_seed_words(0, 0), sm_hz)
+    k1_table = check_k1_table(leaf_sizes, round_seed_words(0, 1), sm_hz)
 
     cfg = config_from_argv(SLICE_ARGS)
-    data, launches, summary = run_slice(cfg)
+    data, (launches, norm_launches), summary = run_slice(cfg)
     profile_rounds(cfg, data)
     round_diff = round_parity(cfg, data)
 
-    mask_rows, mask_worst = check_secagg_kernel(leaf_sizes)
+    mask_rows, mask_worst = check_secagg_kernel(leaf_sizes, sm_hz)
+    k3_table = check_k3_table(leaf_sizes, sm_hz)
     turbo_cfg = config_from_argv(TURBO_ARGS)
     mask_launches, turbo = run_turbo_slice(turbo_cfg, data)
     profile_turbo(turbo_cfg, data)
@@ -1690,38 +2177,50 @@ def main() -> None:
     lm_bench = lm_bench_step()
     lm_cli = run_lm_cli()
 
-    path = [r for r in rows if r["leaf"] in leaf_sizes]
-    noisy = [r for r in path if r["sigma"]]
-    clean = [r for r in path if not r["sigma"]]
+    # one round of the defended slice: the norm pass and one aggregate
+    # launch over the CNN's leaves
+    clean = [r for r in rows if r["leaf"] in leaf_sizes and not r["sigma"]]
+    noisy, quiet = k1_table["table"][SIGMA], k1_table["table"][0.0]
+    norm = k1_table["clip_norm"]
     kernels = [{
         "name": "robust_agg", "route": "cuda",
         "source": "fedml_tpu_torch/csrc/robust_agg.cu",
         "replaces": "fedml_tpu/core/pallas_agg.py:79",
-        "launches": launches, "max_abs_err": worst,
-        "ms": sum(r["ms"] for r in noisy),
-        "plain_ms": sum(r["plain_ms"] for r in noisy),
-        "bound_ms": sum(r["bound_us"] for r in noisy) / 1e3,
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in noisy)
-                     else "operations"),
+        "launches": launches,
+        "max_abs_err": max(worst, *k1_table["max_abs_err"].values()),
+        "ms": noisy["ms"], "plain_ms": noisy["plain_ms"],
+        "bound_ms": noisy["bound_ms"], "bound_by": noisy["bound_by"],
+        "bound_term": noisy["bound_term"],
         "library_ms": sum(r["library_ms"] for r in clean),
         # the kernel at the library call's configuration (sigma = 0): no
         # single PyTorch call computes the noisy function
-        "ms_at_library_config": sum(r["ms"] for r in clean),
+        "ms_at_library_config": quiet["ms"],
+        "gauss_max_abs_err": k1_table["gauss_max_abs_err"],
+        "gauss_tol": K1_GAUSS_TOL,
+    }, {
+        "name": "clip_norm", "route": "cuda",
+        "source": "fedml_tpu_torch/csrc/robust_agg.cu",
+        "replaces": "fedml_tpu/core/pallas_agg.py:250",
+        "launches": norm_launches,
+        "max_abs_err": k1_table["scales_max_abs_diff"],
+        "ms": norm["ms"], "plain_ms": norm["plain_ms"],
+        "bound_ms": norm["bound_ms"], "bound_by": norm["bound_by"],
+        # no single PyTorch call computes the per-client norm over all the
+        # leaves; plain_ms is the eager clip pass the kernel replaced
+        "library_ms": None,
     }]
-    # one round of the secure slice: 8 leaves x group_num groups of 5
-    group = [r for r in mask_rows if r["leaf"] in leaf_sizes
-             and r["n"] == GROUP_SIZES[0]]
+    # one round of the secure slice: one launch per group of 5
     per_round = turbo_cfg.group_num
+    path = k3_table["path"]
     kernels.append({
         "name": "secagg_mask", "route": "cuda",
         "source": "fedml_tpu_torch/csrc/secagg_mask.cu",
         "replaces": "fedml_tpu/secure/pallas_mask.py:72",
         "launches": mask_launches, "max_abs_err": mask_worst,
-        "ms": per_round * sum(r["ms"] for r in group),
-        "plain_ms": per_round * sum(r["plain_ms"] for r in group),
-        "bound_ms": per_round * sum(r["bound_us"] for r in group) / 1e3,
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in group)
-                     else "operations"),
+        "ms": per_round * path["ms"],
+        "plain_ms": per_round * path["plain_ms"],
+        "bound_ms": per_round * path["bound_ms"],
+        "bound_by": path["bound_by"], "bound_term": path["bound_term"],
         "library_ms": None,
     })
     # one round of the cross-silo slice: one launch per S=4 shard

@@ -12,9 +12,11 @@
 // s0 = fmix(seed0), s1 = fmix(seed1 ^ 0x5BD1E995).
 //
 // Floating point: compile with -fmad=false.  The uniforms use explicit
-// round-to-nearest intrinsics; logf, cosf and sqrtf are the precise CUDA
-// versions (no --use_fast_math), so every step rounds where the plain
-// PyTorch versions round.
+// round-to-nearest intrinsics, bit-equal to the JAX package's.  gaussian
+// uses the precise logf, cosf and sqrtf (no --use_fast_math), so every step
+// rounds where the plain PyTorch versions round (shard_finalize.cu);
+// gaussian_fast (robust_agg.cu) takes the special-function units' lg2,
+// rsqrt and cos instead, within a few 1e-6 of gaussian.
 
 #pragma once
 
@@ -59,6 +61,48 @@ __device__ __forceinline__ float gaussian(uint32_t idx_h, uint32_t salt) {
   float u1, u2;
   uniforms(idx_h, salt, &u1, &u2);
   return sqrtf(-2.0f * logf(u1)) * cosf(6.28318548202514648f * u2);
+}
+
+// The special-function units' approximations, without the denormal
+// handling the library wraps around them (.ftz): gaussian_fast never feeds
+// them a denormal (u1 >= 2^-25, x = 0 or >= 2^-24, a = 0 or |a| >= 2^-23).
+__device__ __forceinline__ float lg2_sfu(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rsqrt_sfu(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float cos_sfu(float x) {
+  float y;
+  asm("cos.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The same Gaussian from the special-function units, about a third of
+// gaussian's instructions.  -ln(u1): lg2 where u1 < 1 - 2^-8; nearer 1,
+// where lg2's absolute error (~2^-22) would swamp the small result, the
+// series t + t^2/2 in t = 1 - u1 (exact there, Sterbenz; the rest is under
+// t^2/3 <= 2^-17.6 relative, 2.3e-7 at most in the Gaussian).  sqrt(x) as
+// x * rsqrt(x), with x = 0 (u1 rounds to 1 once in 2^24 draws) kept at 0.
+// cos(2 pi u2) as -cos(2 pi u2 - pi), whose argument lies in [-pi, pi),
+// where the SFU's absolute error is at most 2^-21.4.
+__device__ __forceinline__ float gaussian_fast(uint32_t idx_h, uint32_t salt) {
+  float u1, u2;
+  uniforms(idx_h, salt, &u1, &u2);
+  const float t = 1.0f - u1;
+  const float series = t * (1.0f + 0.5f * t);
+  const float neg_ln = t < 0.00390625f ? series
+                                      : lg2_sfu(u1) * -0.693147182f;
+  const float x = 2.0f * neg_ln;
+  const float r = x * rsqrt_sfu(fmaxf(x, 1e-30f));
+  const float a = 6.28318548202514648f * u2 - 3.14159274101257324f;
+  return -(r * cos_sfu(a));
 }
 
 }  // namespace murmur

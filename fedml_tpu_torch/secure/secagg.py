@@ -16,7 +16,9 @@ aggregation's:
   pair's mask is ``jax.random.bits`` of the pair key, made by the port's
   threefry (``core/prng.py``) on the tensors' device;
 * ``"cuda"`` (twin of ``"pallas"``): the fused quantize + mask kernel of
-  ``secure/fused_mask.py``, one launch per leaf over all client rows.
+  ``secure/fused_mask.py``, one launch over every leaf and client row of a
+  group, the pair keys derived in the launch; the group's ring sum then
+  runs once over the launch's one buffer.
 
 The two backends draw different mask streams; all clients of a group must
 use the same one.
@@ -28,7 +30,6 @@ import logging
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 
 from fedml_tpu_torch.core import prng
@@ -152,6 +153,30 @@ class SecureCohortAggregator:
         self.scale = scale
         self.clip = clip
         self.backend = backend
+        self._layouts = {}
+
+    def mask_flat(self, rows: Tree, w: torch.Tensor, first_client: int,
+                   round_key: prng.Key):
+        """The cuda backend's masked ring values of clients
+        ``first_client + r`` for the stacked rows r of ``rows``: one
+        ``quantize_mask_table`` call over every leaf.  Returns the [R, C]
+        ring buffer and its layout (``layout.views`` gives the leaves)."""
+        if self.backend != "cuda":
+            raise ValueError(f"mask_flat is the cuda backend's masking, not "
+                             f"the {self.backend!r} backend's")
+        keys = tree_keys(rows)
+        sig = tuple((k, tuple(rows[k].shape[1:])) for k in keys)
+        layout = self._layouts.get(sig)
+        if layout is None:
+            layout = self._layouts[sig] = fused_mask.mask_layout(
+                keys, [rows[k][0].numel() for k in keys])
+        n_rows = int(w.shape[0])
+        xs = [rows[k].reshape(n_rows, -1).to(torch.float32).contiguous()
+              for k in keys]
+        buf = fused_mask.quantize_mask_table(
+            layout, xs, w.contiguous(), round_key, first_client,
+            self.num_clients, self.scale, self.clip)
+        return buf, layout
 
     def mask_rows(self, rows: Tree, weights: torch.Tensor, first_client: int,
                   round_key: prng.Key) -> Tree:
@@ -177,17 +202,9 @@ class SecureCohortAggregator:
                 for k in keys:
                     out[k].append(to_ring(q[k].to(torch.int64) + masks[k]))
             return {k: torch.stack(v) for k, v in out.items()}
-        seeds = fused_mask.pair_seeds(round_key, first_client, n_rows,
-                                      self.num_clients)
-        dev = w.device
-        table = torch.as_tensor(np.stack(
-            [fused_mask.leaf_seeds(seeds, li) for li in range(len(keys))]
-        )).to(dev)
-        w = w.contiguous()
-        return {k: fused_mask.quantize_mask(
-            rows[k].reshape(n_rows, -1).to(torch.float32).contiguous(), w,
-            table[li], first_client, self.scale, self.clip
-        ).reshape(rows[k].shape) for li, k in enumerate(keys)}
+        buf, layout = self.mask_flat(rows, w, first_client, round_key)
+        return dict(zip(keys, layout.views(
+            buf, [rows[k].shape[1:] for k in keys])))
 
     def mask_update(self, update: Tree, weight, client_idx: int,
                     round_key: prng.Key) -> Tree:
@@ -214,5 +231,14 @@ class SecureCohortAggregator:
             raise ValueError(f"aggregate_stacked: {tuple(n.shape)} sample "
                              f"counts for a {self.num_clients}-client group")
         w = n / torch.clamp(n.sum(), min=1e-12)
+        if self.backend == "cuda":
+            # one ring sum and one dequantize over the launch's buffer; each
+            # leaf of the mean is a view of the flat result
+            buf, layout = self.mask_flat(updates, w.to(torch.float32), 0,
+                                          round_key)
+            flat = self.unmask_sum(ring_sum({"": buf}), 1.0)[""]
+            keys = tree_keys(updates)
+            return dict(zip(keys, layout.views(
+                flat, [updates[k].shape[1:] for k in keys])))
         masked = self.mask_rows(updates, w, 0, round_key)
         return self.unmask_sum(ring_sum(masked), 1.0)

@@ -1,21 +1,37 @@
-"""Time builds of K2's source side by side on one card, in one process.
+"""Time builds of a kernel's source side by side on one card, in one
+process: K2 (the shard finalize), K1 (the robust aggregate) or K3 (the
+secagg mask).
 
-    python3 -m fedml_tpu_torch.utils.k2_ab A.cu B.cu [C.cu ...]
+    python3 -m fedml_tpu_torch.utils.k2_ab [k2] A.cu B.cu [C.cu ...]
+    python3 -m fedml_tpu_torch.utils.k2_ab k1 A.cu B.cu [C.cu ...]
+    python3 -m fedml_tpu_torch.utils.k2_ab k3 A.cu B.cu [C.cu ...]
 
 Run from the root of a checkout on a machine with a GPU.  Each source is a
-version of ``csrc/shard_finalize.cu`` (for example the parent commit's,
-from ``git show``, and the working tree's); each is built with the port's
-``nvcc`` flags into its own library under ``build/kernels/ab/`` and loaded
-with ctypes.  At
-every size (the FEMNIST CNN's four shards at S=4, the whole model, and
-sizes 3, 1 and 0 mod 4) and at sigma 0 and 0.025, every version must be
-bit-equal to ``shard_finalize_plain`` at sigma 0 and within 1e-6 of it at
-sigma > 0; then the versions are timed in turns (A B C, C B A, twice), each
-turn the mean device time of 50 launches from ``torch.profiler``, and the
-median of the four turns is kept.  ``torch.div`` by a device scalar (the
-same function, bit for bit) and by a Python float (a multiply by the
-reciprocal) are timed beside them.  Prints one JSON line per size, times
-in microseconds.  Exits non-zero without a GPU.
+version of the kernel's file under ``csrc/`` (for example the parent
+commit's, from ``git show``, and the working tree's); each is built with
+the port's ``nvcc`` flags (``-I csrc``) into its own library under
+``build/kernels/ab/`` and loaded with ctypes.  Every version is checked
+against the plain version first, then the versions are timed in turns (A B
+C, C B A, twice), each turn the mean device time of 50 calls from
+``torch.profiler``, and the median of the four turns is kept.  Prints JSON
+lines, times in microseconds.  Exits non-zero without a GPU.
+
+* k2: ``shard_finalize_f32`` at the FEMNIST CNN's four shards at S=4, the
+  whole model and sizes 3, 1 and 0 mod 4, sigma 0 and 0.025: bit-equal to
+  ``shard_finalize_plain`` at sigma 0, within 1e-6 at sigma > 0;
+  ``torch.div`` by a device scalar (the same function, bit for bit) and by
+  a Python float (a multiply by the reciprocal) timed beside them.
+* k1: a round of the defended slice's aggregate over the CNN's 8 leaves
+  for 10 clients, clip scales given, sigma 0 and 0.025: one table launch
+  for a source that has ``robust_agg_table_f32``, else one launch per leaf;
+  within 1e-5 of ``robust_agg_plain`` leaf by leaf.  The norm pass of a
+  source that has ``clip_norm_f32`` is timed beside the eager clip pass.
+* k3: a round's masking of one group of 5 over the CNN's 8 leaves: one
+  table launch (the pair keys derived in it) for a source that has
+  ``secagg_mask_table_i32``, else one launch per leaf with the pair seeds
+  already on the card; bit-equal to ``quantize_mask_plain`` leaf by leaf.
+  The host derivation of the pair seeds that the per-leaf form needs is
+  timed beside it.
 """
 
 from __future__ import annotations
@@ -25,6 +41,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -36,11 +53,49 @@ SIZES = {"s0": 422_238, "s1": 422_944, "s2": 422_208, "s3": 422_656,
          "full": 1_690_046, "odd": 1_000_003, "one": 1_000_001,
          "four": 1_000_004}
 WSUM, STEP, SEED_WORD = 123.0, 7, fa.shard_seed_word(0, 1)
+N_CLIENTS, GROUP, SIGMA, CLIP_BOUND = 10, 5, 0.025, 5.0
 
 
-def build(sources):
+def bind_k2(handle):
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    handle.shard_finalize_f32.argtypes = [p, p, ctypes.c_longlong, f32,
+                                          i32, i32, f32, p]
+    handle.shard_finalize_f32.restype = i32
+    return handle
+
+
+def bind_k1(handle):
+    """K1's entry points on a source's library: a leaf-table source's
+    through ``fused_agg.bind_k1``; an older per-leaf source has only
+    ``robust_agg_f32``, of the same signature."""
+    if hasattr(handle, "robust_agg_table_f32"):
+        return fa.bind_k1(handle)
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    handle.robust_agg_f32.argtypes = [p, p, p, p, p, i64, i64, i32, i32, f32,
+                                      p]
+    handle.robust_agg_f32.restype = i32
+    return handle
+
+
+def bind_k3(handle):
+    """K3's entry points on a source's library: a leaf-table source's
+    through ``fused_mask.bind_k3``; an older per-leaf source has only
+    ``secagg_mask_i32``, of the same signature."""
+    from fedml_tpu_torch.secure import fused_mask as fm
+    if hasattr(handle, "secagg_mask_table_i32"):
+        return fm.bind_k3(handle)
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    handle.secagg_mask_i32.argtypes = [p, p, p, p, i64, i32, i32, i64, f32,
+                                       f32, p]
+    handle.secagg_mask_i32.restype = i32
+    return handle
+
+
+def build(sources, bind):
     """One library per source, keyed by the source as given, every nvcc
-    started together."""
+    started together; ``bind`` declares the entry points."""
     out_dir = cuda_build.build_dir() / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -55,12 +110,7 @@ def build(sources):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             sys.exit(f"nvcc failed on {src}:\n{log}")
-        handle = ctypes.CDLL(str(lib))
-        p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        handle.shard_finalize_f32.argtypes = [p, p, ctypes.c_longlong, f32,
-                                              i32, i32, f32, p]
-        handle.shard_finalize_f32.restype = i32
-        libs[src] = handle
+        libs[src] = bind(ctypes.CDLL(str(lib)))
     return libs
 
 
@@ -88,12 +138,38 @@ def kernel_us(fn, reps: int = 50, tries: int = 3) -> float:
     sys.exit("torch.profiler recorded no device time")
 
 
-def main(argv) -> None:
-    if not torch.cuda.is_available():
-        sys.exit("torch.cuda.is_available() is false; this needs a GPU")
-    if len(argv) < 2:
-        sys.exit(__doc__)
-    libs = build(argv)
+def in_turns(calls) -> dict:
+    """Median device time (us) of each named call over four turns, the
+    order reversed every other turn."""
+    names = list(calls)
+    turns = {name: [] for name in names}
+    for order in (names, names[::-1]) * 2:
+        for name in order:
+            turns[name].append(kernel_us(calls[name]))
+    return {n: statistics.median(t) for n, t in turns.items()}
+
+
+def host_us(fn, reps: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def cnn_leaf_sizes():
+    """The FEMNIST CNN's leaves in JAX's leaf order, by size."""
+    from fedml_tpu_torch.core.pytree import tree_keys
+    from fedml_tpu_torch.models import CNNOriginalFedAvg
+    cnn = {k.replace(".", "/"): p.numel() for k, p in
+           CNNOriginalFedAvg(only_digits=False).named_parameters()}
+    return {k: cnn[k] for k in tree_keys(cnn)}
+
+
+def run_k2(sources) -> None:
+    libs = build(sources, bind_k2)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     wsum_t = torch.tensor(WSUM, device=dev)
@@ -122,16 +198,131 @@ def main(argv) -> None:
                                  or float((out - want).abs().max()) > 1e-6):
                     sys.exit(f"{name} differs from the plain version at "
                              f"{size}, sigma {sigma}")
-            turns = {name: [] for name in names}
-            for order in (names, names[::-1]) * 2:
-                for name in order:
-                    turns[name].append(kernel_us(lambda: call(name)))
-            row[f"sigma={sigma}"] = {n: statistics.median(t)
-                                     for n, t in turns.items()}
+            row[f"sigma={sigma}"] = in_turns(
+                {name: (lambda name=name: call(name)) for name in names})
         row["div_by_device_scalar"] = kernel_us(
             lambda: torch.div(acc, wsum_t))
         row["div_by_float"] = kernel_us(lambda: torch.div(acc, WSUM))
         print(json.dumps(row), flush=True)
+
+
+def run_k1(sources) -> None:
+    libs = build(sources, bind_k1)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sizes = cnn_leaf_sizes()
+    keys = list(sizes)
+    layout = fa.LeafLayout(keys, list(sizes.values()), range(len(keys)),
+                           [True] * len(keys))
+    xs = [torch.randn(N_CLIENTS, d, generator=gen, device=dev) * 0.05
+          for d in sizes.values()]
+    gs = [torch.randn(d, generator=gen, device=dev) for d in sizes.values()]
+    scales = torch.rand(N_CLIENTS, generator=gen, device=dev)
+    w = torch.rand(N_CLIENTS, generator=gen, device=dev) + 0.5
+    ratios = (w / w.sum()).contiguous()
+    s0, s1 = 123, -456
+
+    def call(name, sigma):
+        fa._lib_handle = libs[name]
+        if hasattr(libs[name], "robust_agg_table_f32"):
+            flat = fa.robust_agg_table(layout, xs, gs, scales, ratios, s0, s1,
+                                       sigma)
+            return layout.views(flat, [(d,) for d in layout.sizes])
+        return [fa.robust_agg(x, g, scales, ratios, fa.leaf_seed(s0, li),
+                              fa.leaf_seed(s1, li), sigma)
+                for li, (x, g) in enumerate(zip(xs, gs))]
+
+    for sigma in (0.0, SIGMA):
+        want = [fa.robust_agg_plain(x, g, scales, ratios,
+                                    fa.leaf_seed(s0, li),
+                                    fa.leaf_seed(s1, li), sigma)
+                for li, (x, g) in enumerate(zip(xs, gs))]
+        for name in libs:
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(call(name, sigma), want))
+            if not err <= 1e-5:
+                sys.exit(f"{name} differs from the plain version by {err} "
+                         f"at sigma {sigma}")
+        row = {"kernel": "k1", "sigma": sigma, "leaves": len(keys),
+               "n": N_CLIENTS}
+        row["round_us"] = in_turns(
+            {name: (lambda name=name: call(name, sigma)) for name in libs})
+        row["host_us"] = {name: host_us(lambda name=name: call(name, sigma))
+                          for name in libs}
+        print(json.dumps(row), flush=True)
+    tree = {k: x for k, x in zip(keys, xs)}
+    glob = {k: g for k, g in zip(keys, gs)}
+    eager = lambda: fa.clip_scales_plain(tree, glob, CLIP_BOUND,
+                                         lambda k: True)
+    row = {"kernel": "k1 clip norm", "eager_us": kernel_us(eager),
+           "eager_host_us": host_us(eager)}
+    for name, lib in libs.items():
+        if hasattr(lib, "clip_norm_f32"):
+            fa._lib_handle = lib
+            norm = lambda: fa.clip_norm(layout, xs, gs, CLIP_BOUND)
+            diff = float((norm() - eager()).abs().max())
+            row[name] = {"us": kernel_us(norm), "host_us": host_us(norm),
+                         "max_abs_diff_from_eager": diff}
+    print(json.dumps(row), flush=True)
+
+
+def run_k3(sources) -> None:
+    from fedml_tpu_torch.core import prng
+    from fedml_tpu_torch.secure import fused_mask as fm
+    from fedml_tpu_torch.secure.secagg import ring_budget_scale
+    libs = build(sources, bind_k3)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    sizes = cnn_leaf_sizes()
+    keys = list(sizes)
+    layout = fm.mask_layout(keys, list(sizes.values()))
+    clip = 2.0**14
+    scale = ring_budget_scale(GROUP, clip)
+    key = prng.fold_in(prng.key(9), 3)
+    xs = [torch.randn(GROUP, d, generator=gen, device=dev) * 3
+          for d in sizes.values()]
+    w = torch.rand(GROUP, generator=gen, device=dev) + 0.5
+    w = (w / w.sum()).contiguous()
+
+    def host_seeds():
+        base = fm.pair_seeds(key, 0, GROUP, GROUP)
+        return [torch.as_tensor(fm.leaf_seeds(base, li)).to(dev)
+                for li in range(len(keys))]
+
+    seeds = host_seeds()
+    want = [fm.quantize_mask_plain(x, w, s, 0, scale, clip)
+            for x, s in zip(xs, seeds)]
+
+    def call(name):
+        fm._lib_handle = libs[name]
+        if hasattr(libs[name], "secagg_mask_table_i32"):
+            buf = fm.quantize_mask_table(layout, xs, w, key, 0, GROUP, scale,
+                                         clip)
+            return layout.views(buf, [(d,) for d in layout.sizes])
+        return [fm.quantize_mask(x, w, s, 0, scale, clip)
+                for x, s in zip(xs, seeds)]
+
+    for name in libs:
+        if not all(torch.equal(a, b) for a, b in zip(call(name), want)):
+            sys.exit(f"{name} differs from the plain version")
+    row = {"kernel": "k3", "n": GROUP, "leaves": len(keys),
+           "group_us": in_turns({name: (lambda name=name: call(name))
+                                 for name in libs}),
+           "host_us": {name: host_us(lambda name=name: call(name))
+                       for name in libs},
+           "host_pair_seeds_us": host_us(host_seeds, 5)}
+    print(json.dumps(row), flush=True)
+
+
+def main(argv) -> None:
+    if not torch.cuda.is_available():
+        sys.exit("torch.cuda.is_available() is false; this needs a GPU")
+    kernel = "k2"
+    if argv and argv[0] in ("k1", "k2", "k3"):
+        kernel, argv = argv[0], argv[1:]
+    if len(argv) < 2:
+        sys.exit(__doc__)
+    {"k1": run_k1, "k2": run_k2, "k3": run_k3}[kernel](argv)
 
 
 if __name__ == "__main__":

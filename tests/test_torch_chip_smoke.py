@@ -184,3 +184,76 @@ def test_k2_ab_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a GPU"):
         k2_ab.main(["a.cu", "b.cu"])
+
+
+CNN_D = 1_690_046              # the FEMNIST CNN's parameters
+
+
+def test_k1_bound_counts_each_kind_of_operation():
+    """K1 at sigma = 0.025 over the CNN, N = 10: bytes 81.1 MB (24.2 us);
+    per (client, element) 20 integer operations (16.7 T/s at 64 lanes per
+    SM a clock, 1.98 GHz: 21.2 us), 35 f32 (at 128 lanes: 17.7 us) and 5
+    special-function (at 16 lanes: 20.2 us); bytes bind.  At a 1.2 GHz SM
+    clock the integer term binds instead.  At sigma = 0 only 5 f32
+    operations a pair remain."""
+    pairs = 10 * CNN_D
+    nbytes, ops = cs.robust_agg_work(10, [CNN_D], 0.025)
+    assert nbytes == 4 * (pairs + 2 * CNN_D + 20)
+    assert ops == {"fp32": 35 * pairs, "int": 20 * pairs + 10 * CNN_D,
+                   "sfu": 5 * pairs}
+    b = cs.op_bound(nbytes, ops, MAX_SM_HZ)
+    assert b["bytes_ms"] == pytest.approx(0.0242, abs=1e-4)
+    assert b["int_ms"] == pytest.approx(0.0212, abs=1e-4)
+    assert b["fp32_ms"] == pytest.approx(0.0177, abs=1e-4)
+    assert b["sfu_ms"] == pytest.approx(0.0202, abs=1e-4)
+    assert (b["bound_term"], b["bound_by"]) == ("bytes", "bytes")
+    assert b["bound_ms"] == b["bytes_ms"]
+    assert b["dispatch_ms"] == pytest.approx(
+        sum(ops.values()) / (128 * 132 * MAX_SM_HZ) * 1e3)
+    slow = cs.op_bound(nbytes, ops, 1.2e9)
+    assert (slow["bound_term"], slow["bound_by"]) == ("int", "operations")
+    assert slow["bound_ms"] == slow["int_ms"]
+    _, quiet = cs.robust_agg_work(10, [CNN_D], 0.0)
+    assert quiet == {"fp32": 5 * pairs}
+
+
+def test_clip_norm_bound_is_its_bytes():
+    """The norm pass reads x and g once: 74.4 MB, 22.2 us; 3 f32
+    operations a pair stay far below."""
+    nbytes, ops = cs.clip_norm_work(10, [CNN_D])
+    assert nbytes == 4 * (11 * CNN_D + 10)
+    b = cs.op_bound(nbytes, ops, MAX_SM_HZ)
+    assert b["bound_ms"] == pytest.approx(0.0222, abs=1e-4)
+    assert b["bound_term"] == "bytes"
+
+
+@pytest.mark.parametrize("n, term", [(5, "bytes"), (10, "int")])
+def test_k3_bound_counts_each_pair_once(n, term):
+    """K3 over a whole group takes each pair once: 10 + 11 n(n-1)/2
+    integer operations an element.  A group of 5 is bound by its bytes
+    (67.6 MB, 20.2 us against 12.1 us of integer work); a group of 10 by
+    its integer work (51 us against 40.4).  A single row walks its n - 1
+    partners."""
+    nbytes, ops = cs.secagg_mask_work(n, n, CNN_D)
+    assert nbytes == 4 * (2 * n * CNN_D + n)
+    assert ops["int"] == CNN_D * (10 + 11 * n * (n - 1) // 2)
+    assert ops["fp32"] == 4 * n * CNN_D and ops["sfu"] == n * CNN_D
+    b = cs.op_bound(nbytes, ops, MAX_SM_HZ)
+    assert b["bound_term"] == term
+    if n == 5:
+        assert b["bytes_ms"] == pytest.approx(0.0202, abs=1e-4)
+        assert b["int_ms"] == pytest.approx(0.0121, abs=1e-4)
+    else:
+        assert b["int_ms"] == pytest.approx(0.0510, abs=1e-4)
+    _, row = cs.secagg_mask_work(1, n, CNN_D)
+    assert row["int"] == CNN_D * (10 + 10 * (n - 1))
+
+
+def test_k_ab_tool_modes_refuse_without_a_card(monkeypatch):
+    """Each of the A/B tool's kernels refuses without a card before it
+    builds anything."""
+    from fedml_tpu_torch.utils import k2_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mode in ("k1", "k3"):
+        with pytest.raises(SystemExit, match="needs a GPU"):
+            k2_ab.main([mode, "a.cu", "b.cu"])

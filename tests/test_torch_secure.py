@@ -305,3 +305,149 @@ def test_aggregator_refuses_jax_backend_names():
     with pytest.raises(ValueError, match="4-client group"):
         agg.aggregate_stacked({"w": torch.zeros(3, 2)}, torch.ones(3),
                               prng.key(0))
+
+
+# ---------------------------------------------------------------------------
+# K3's one launch per group: the pair salts, each pair once, the leaf table
+# ---------------------------------------------------------------------------
+
+def _jax_salts(key, n, leaf_id):
+    """The JAX package's salts of every pair: derive_pair_seeds, the leaf
+    shift, then fmix(s0) ^ fmix(s1 ^ 0x5BD1E995) as _mask_kernel hashes
+    them."""
+    from fedml_tpu.secure.pallas_mask import _murmur_fmix, derive_pair_seeds
+    out = np.zeros((n, n), np.uint32)
+    for i in range(n):
+        seeds = derive_pair_seeds(key, jnp.asarray(i), n) + jnp.int32(
+            leaf_id * 31337)
+        s = seeds.astype(jnp.uint32)
+        salts = np.array(_murmur_fmix(s[:, 0])
+                           ^ _murmur_fmix(s[:, 1] ^ jnp.uint32(0x5BD1E995)))
+        salts[i] = 0
+        out[i] = salts
+    return out
+
+
+@pytest.mark.parametrize("n", [2, 5, 10])
+def test_pair_salts_plain_bit_equal_to_jax(n):
+    """Round key words -> every pair's salt for leaves 0..7, bit-equal to
+    the JAX package's derivation; symmetric, 0 on the diagonal."""
+    for leaf_id in range(8):
+        got = fused_mask.pair_salts_plain(prng.key(13), n, leaf_id)
+        want = _jax_salts(jax.random.key(13), n, leaf_id)
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+        assert torch.equal(got, got.T)
+    assert torch.equal(fused_mask.pair_salts(prng.key(13), n, 3, "cpu"),
+                       fused_mask.pair_salts_plain(prng.key(13), n, 3))
+
+
+@pytest.mark.parametrize("n", [2, 5, 10])
+def test_pairs_once_bit_equal_to_per_row_walk(n):
+    """The kernel's each-pair-once accumulation, rendered in torch, is
+    bit-equal to quantize_mask_plain for every client of the group."""
+    stacked, w = _stacked(n), _weights(n)
+    key = prng.key(17)
+    scale = secagg.ring_budget_scale(n, CLIP)
+    base = fused_mask.pair_seeds(key, 0, n, n)
+    for li, k in enumerate(["b", "d"]):
+        x = torch.tensor(stacked[k].reshape(n, -1))
+        seeds = torch.as_tensor(fused_mask.leaf_seeds(base, li))
+        want = quantize_mask_plain(x, torch.tensor(w), seeds, 0, scale, CLIP)
+        got = fused_mask.quantize_mask_pairs_plain(
+            x, torch.tensor(w), fused_mask.pair_salts_plain(key, n, li),
+            scale, CLIP)
+        assert torch.equal(got, want)
+
+
+def _mask_layout(tree):
+    from fedml_tpu_torch.core.pytree import tree_keys
+    flat = params_from_numpy(tree)
+    keys = tree_keys(flat)
+    return keys, fused_mask.mask_layout(keys,
+                                        [flat[k][0].numel() for k in keys])
+
+
+def test_mask_layout_columns_rows_and_views():
+    """Columns in leaf order at multiples of 4 (62- and 3-element leaves
+    padded), the rows a call passes (x, D, column, leaf id; the kernel
+    lays out its grid), and each leaf a column view of the [R, C] buffer
+    in its shape."""
+    tree = {"a": np.zeros((3, 62), np.float32),
+            "b": np.zeros((3, 3), np.float32),
+            "c": np.zeros((3, 5, 9), np.float32)}
+    keys, lay = _mask_layout(tree)
+    assert keys == ["a", "b", "c"]
+    assert lay.offsets == [0, 64, 68] and lay.out_numel == 116
+    assert lay.rows == [0, 1, 2] and lay.norm_rows == []
+    xs = [torch.zeros(3, d) for d in lay.sizes]
+    t = fused_mask.mask_table(lay, xs)
+    assert t[:, fused_mask.X].tolist() == [x.data_ptr() for x in xs]
+    assert t[:, fused_mask.D].tolist() == [62, 3, 45]
+    assert t[:, fused_mask.COL].tolist() == lay.offsets
+    assert t[:, fused_mask.LEAF_ID].tolist() == [0, 1, 2]
+    assert t.shape == (3, 4)
+    buf = torch.arange(3 * 116, dtype=torch.int32).reshape(3, 116)
+    views = lay.views(buf, [(62,), (3,), (5, 9)])
+    assert views[2].shape == (3, 5, 9)
+    assert torch.equal(views[2].reshape(3, -1), buf[:, 68:113])
+    assert views[1].data_ptr() == buf[:, 64:].data_ptr()
+    assert lay.views(buf[0], [(62,), (3,), (5, 9)])[2].shape == (5, 9)
+
+
+@pytest.mark.parametrize("n", [2, 5, 10])
+def test_table_masking_matches_per_leaf_and_row_subsets(n):
+    """quantize_mask_table (the plain leaf-by-leaf path on the CPU) is
+    per-leaf quantize_mask_plain at each leaf's columns; a subset of rows
+    (mask_update's one row, two rows) gives the group's rows; the one-buffer
+    ring sum is ring_sum leaf by leaf."""
+    stacked, w = _stacked(n), _weights(n)
+    keys, lay = _mask_layout(stacked)
+    flat = params_from_numpy(stacked)
+    xs = [flat[k].reshape(n, -1) for k in keys]
+    scale = secagg.ring_budget_scale(n, CLIP)
+    key = prng.key(19)
+    buf = fused_mask.quantize_mask_table(lay, xs, torch.tensor(w), key, 0,
+                                         n, scale, CLIP)
+    base = fused_mask.pair_seeds(key, 0, n, n)
+    leaves = lay.views(buf, [(d,) for d in lay.sizes])
+    for li, x in enumerate(xs):
+        seeds = torch.as_tensor(fused_mask.leaf_seeds(base, li))
+        assert torch.equal(leaves[li], quantize_mask_plain(
+            x, torch.tensor(w), seeds, 0, scale, CLIP))
+    for first, rows in ((n - 1, 1), (0, 1), (n // 2, min(2, n - n // 2))):
+        part = fused_mask.quantize_mask_table(
+            lay, [x[first:first + rows] for x in xs],
+            torch.tensor(w[first:first + rows]), key, first, n, scale, CLIP)
+        assert torch.equal(part, buf[first:first + rows])
+    one = secagg.ring_sum({"": buf})[""]
+    per_leaf = secagg.ring_sum(dict(zip(keys, leaves)))
+    for k, v in zip(keys, lay.views(one, [(d,) for d in lay.sizes])):
+        assert torch.equal(v, per_leaf[k])
+
+
+def test_table_masking_dispatches_on_the_leaves_device(monkeypatch):
+    """The table wrapper takes the plain version for CPU leaves only: a
+    leaf on another device gets the kernel or an exception, whatever
+    device the weights are on, and never the plain version."""
+    keys, lay = _mask_layout({"a": np.zeros((3, 62), np.float32),
+                              "b": np.zeros((3, 3), np.float32)})
+    xs = [torch.zeros(3, d, device="meta") for d in lay.sizes]
+    monkeypatch.setattr(fused_mask, "quantize_mask_plain", None)
+    for w in (torch.full((3,), 1 / 3), torch.full((3,), 1 / 3,
+                                                  device="meta")):
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            fused_mask.quantize_mask_table(lay, xs, w, prng.key(1), 0, 3,
+                                           SCALE, CLIP)
+
+
+def test_mask_flat_is_the_cuda_backends_only():
+    """mask_flat is the cuda backend's one-buffer masking; the torch
+    backend (threefry masks) refuses it rather than mixing streams."""
+    stacked = params_from_numpy(_stacked(2))
+    w = torch.tensor(_weights(2))
+    with pytest.raises(ValueError, match="cuda backend"):
+        SecureCohortAggregator(2, backend="torch").mask_flat(
+            stacked, w, 0, prng.key(2))
+    buf, lay = SecureCohortAggregator(2, backend="cuda").mask_flat(
+        stacked, w, 0, prng.key(2))
+    assert buf.shape == (2, lay.out_numel) and buf.dtype == torch.int32
