@@ -75,21 +75,48 @@ each printed as it ends; any failure exits non-zero:
    the SM's maximum clock; the f32 SIMT bound beside them) and the
    wrappers' host cost; a NaN in q and one in dO come out as NaN in every
    row they reach;
+8a. device round — plain FedAvg on the same CNN, data and widths: the
+   train split resident on the card, 3 rounds of the graphed device round
+   (one CUDA-graph capture, one replay a round, counted exactly) against 3
+   rounds of the host-gather loop, bit-equal with cuDNN deterministic and
+   TF32 off (the default mode's difference recorded), one round against
+   the port on the CPU (limit 1e-4); the host loop, the K=1 graph and the
+   K=10 scanned graph profiled over 10 rounds each: host µs, wall ms,
+   device kernels and host launch calls a round, busy time, idle share,
+   capture time;
+8b. scanned rounds — 21 rounds, evaluation every 10, through the CLI's
+   runner: the host loop, the K=1 graph and ``--rounds_per_dispatch 10``;
+   evaluation at rounds 0, 10 and 20 on each, the final params bit-equal
+   in deterministic mode, steady rounds/s and capture time in both modes;
+8c. byzantine — ``--algo fedavg_robust --defense <rule>`` for the five
+   rules (Krum with f=2, multi-Krum with f=2, m=3): one round on the card
+   (TF32 off) against the CPU (limit 1e-4), Krum's selections equal;
+8d. cross_silo robust — one round on the hub, card against CPU, of the
+   defended stack (trimmed mean, clip 5) and of a rule over the stream's
+   reservoir (coordinate median, K=8); the defended mean in stack and in
+   stream mode (clip 5, sigma 0.025, 2 rounds) bit-equal on the card;
+8e. checkpoint — a 4-round run against a run stopped after round 2 and
+   resumed from its checkpoint, through the CLI's runner, bit-equal on
+   the card (deterministic mode);
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
-   rounds: each K4 kernel launches exactly n_layers x S x rounds times in
-   training, evaluation launches K4f only; a per-part split of a round,
-   its launches and the device's idle share; one round with TF32 off
-   against the same round with flash off (auto-blockwise, limit 1e-4);
-   bench.py's long-context grad step (B=2, T=2048, 10 steps), flash on
-   and off;
+   rounds, as replays of one captured CUDA graph: the graph holds
+   n_layers x S launches of each K4 kernel (the wrappers' counts during
+   the capture and the graph's own kernel nodes, from its Graphviz dump),
+   it replays once a round, the warm-up round launches n_layers x S of
+   each, and evaluation launches K4f only; a per-part split of a
+   host-loop round, its launches and the device's idle share; one round
+   with TF32 off against the same round with flash off (auto-blockwise,
+   limit 1e-4); bench.py's long-context grad step (B=2, T=2048, 10
+   steps), flash on and off;
 11. transformer cli — 3 rounds of the dense Shakespeare transformer (the
    JAX CLI's widths, 715 clients, 10 per round, B=4, SGD lr 1) through
-   the CLI's runner: rounds/s and a finite loss;
+   the CLI's runner (graphed device rounds): rounds/s and a finite loss;
 12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
-   and K2 also at their library call's configuration, sigma 0), and a
-   last line
+   and K2 also at their library call's configuration, sigma 0; K4's
+   launches are the warm-up's and evaluation's plus the captured ones
+   times the replays), and a last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, when there is
@@ -1495,6 +1522,552 @@ def silo_round_parity(silo_cfg, data):
 
 
 # ---------------------------------------------------------------------------
+# the device-resident round, scanned rounds, the Byzantine rules, the
+# defended cross-silo aggregate and round checkpoints (the CNN's widths)
+# ---------------------------------------------------------------------------
+
+FEDAVG_ARGS = ["--algo", "fedavg", *COMMON_ARGS]
+DEVICE_ROUNDS = 3              # graphed rounds held against the host loop
+PATH_ROUNDS = 10               # rounds a profile of each path covers (= K)
+SCAN_ARGS = [*FEDAVG_ARGS, "--comm_round", "21", "--frequency_of_the_test",
+             "10"]
+SCAN_K = 10
+BYZ_ARGS = {"coordinate_median": [], "trimmed_mean": [],
+            "krum": ["--byz_f", "2"],
+            "multi_krum": ["--byz_f", "2", "--krum_m", "3"],
+            "geometric_median": []}
+SILO_ROBUST_ARGS = {
+    "stack trimmed_mean": ["--agg_mode", "stack", "--robust_agg",
+                           "trimmed_mean", "--norm_clip", "5.0"],
+    "stream coordinate_median": ["--agg_mode", "stream", "--robust_agg",
+                                 "coordinate_median", "--stream_reservoir",
+                                 "8"]}
+SILO_MEAN_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
+                  "--norm_clip", "5.0", "--agg_noise_std", str(SIGMA),
+                  *COMMON_ARGS, "--comm_round", "2"]
+CKPT_ROUNDS, CKPT_STOP = 4, 2
+# host-side CUDA runtime calls that put work on the device
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms (no atomics in the grouped-conv
+    backward) and TF32 off inside the block."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tf32_off():
+            yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def fedavg_algo(cfg, data, device="cuda"):
+    """The CLI runner's FedAvg for ``cfg``."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
+    from fedml_tpu_torch.experiments.main import (_fedavg_cfg_kwargs,
+                                                  _make_workload)
+    return FedAvg(_make_workload(cfg, data), data,
+                  FedAvgConfig(**_fedavg_cfg_kwargs(cfg)), device=device)
+
+
+def round_plan(data, m: int, rounds: int, start: int = 0):
+    """``[rounds, m]`` padded ids and live masks of rounds ``start``.."""
+    import numpy as np
+    from fedml_tpu_torch.algorithms.fedavg import pad_ids
+    from fedml_tpu_torch.core.sampling import sample_clients
+    pairs = [pad_ids(sample_clients(r, data.client_num, m), m)
+             for r in range(start, start + rounds)]
+    return (np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]))
+
+
+def max_diff(a, b) -> float:
+    return max(float((a[k].double().cpu() - b[k].double().cpu()).abs().max())
+               for k in a)
+
+
+def bit_equal(a, b) -> bool:
+    return all(a[k].cpu().numpy().tobytes() == b[k].cpu().numpy().tobytes()
+               for k in a)
+
+
+def host_loop_rounds(algo, data, params, rounds: int, start: int = 0):
+    """``rounds`` rounds of the host-gather loop (the cohort copied to the
+    card each round), the device not drained at the end."""
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.stacking import gather_cohort
+    m = algo.cfg.client_num_per_round
+    for r in range(start, start + rounds):
+        cohort = gather_cohort(data.train,
+                               sample_clients(r, data.client_num, m),
+                               pad_to=m, device="cuda")
+        params, _ = algo.cohort_step(params, cohort)
+    return params
+
+
+def graph_rounds(algo, data, params, rounds: int, start: int = 0):
+    """``rounds`` rounds through the algorithm's device round (one replay
+    of its captured graph each)."""
+    ids, live = round_plan(data, algo.cfg.client_num_per_round, rounds,
+                           start)
+    for r in range(rounds):
+        params, _ = algo._device_round(params, algo._train_dev, ids[r],
+                                       live[r])
+    return params
+
+
+def staged(algo):
+    """Stage the algorithm's train split on the card; fail unless the
+    device path is taken."""
+    import torch
+    if not algo._stage_train_on_device():
+        fail("the FEMNIST train split did not take the device path")
+    if algo._train_dev["x"].device.type != "cuda":
+        fail(f"the train split is on {algo._train_dev['x'].device}")
+    return sum(v.numel() * v.element_size()
+               for v in algo._train_dev.values()) / 1e9
+
+
+def path_profile(run, rounds: int):
+    """One path's cost a round: ``run()`` enqueues ``rounds`` rounds.  Host
+    µs (the enqueue, before the device is drained) and wall ms, each
+    after a warm-up call; then torch.profiler over one more call: the
+    device's kernels and busy time, the host's launch calls (kernel
+    launches, graph launches, copies) and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t3) * 1e6
+    averages = prof.key_averages()
+    events = [e for e in averages if _self_device_us(e) > 0]
+    busy_us = sum(_self_device_us(e) for e in events)
+    apis = {e.key: e.count / rounds for e in averages
+            if e.key in LAUNCH_APIS}
+    return dict(host_us_per_round=(t1 - t0) / rounds * 1e6,
+                round_ms=(t2 - t0) / rounds * 1e3,
+                profiled_round_ms=wall_us / rounds / 1e3,
+                device_kernels_per_round=sum(e.count for e in events)
+                / rounds,
+                host_launch_calls_per_round=sum(apis.values()),
+                host_launch_calls=apis,
+                device_busy_ms_per_round=busy_us / rounds / 1e3,
+                device_idle_share=(1 - busy_us / wall_us) if busy_us
+                else None)
+
+
+def check_device_round(data):
+    """Phase 12: plain FedAvg's device-resident round, captured as a CUDA
+    graph, against the port's host-gather loop on the card (bit-equal in
+    deterministic mode, TF32 off; the difference in the default mode
+    recorded) and against the port on the CPU (one round, ROUND_TOL);
+    captures and replays counted exactly; then the host loop, the K=1
+    graph and the K=10 scanned graph profiled."""
+    import dataclasses
+    import torch
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.parallel.cohort import make_scanned_rounds
+
+    cfg = config_from_argv(FEDAVG_ARGS)
+    m = cfg.client_num_per_round
+    out = {}
+    for mode, ctx in (("deterministic", deterministic),
+                      ("default", contextlib.nullcontext)):
+        with ctx():
+            host = fedavg_algo(cfg, data)
+            init = host.init_params()
+            want = host_loop_rounds(host, data, init, DEVICE_ROUNDS)
+            graphed = fedavg_algo(cfg, data)
+            resident_gb = staged(graphed)
+            got = graph_rounds(graphed, data, init, DEVICE_ROUNDS)
+            torch.cuda.synchronize()
+            graph = graphed._device_round.graph
+            if graph is None or graph.captures != 1 \
+                    or graph.replays != DEVICE_ROUNDS:
+                fail(f"the device round captured "
+                     f"{getattr(graph, 'captures', 0)} graphs and replayed "
+                     f"{getattr(graph, 'replays', 0)} times; need 1 and "
+                     f"{DEVICE_ROUNDS}")
+            out[mode] = dict(bit_equal=bit_equal(got, want),
+                             max_abs_diff=max_diff(got, want),
+                             moved_from_init=max_diff(want, init),
+                             capture_ms=graph.capture_s * 1e3,
+                             captured_launches=graph.captured_launches)
+            del host, graphed, graph
+    if not out["deterministic"]["bit_equal"]:
+        fail(f"the graphed device round differs from the host loop in "
+             f"deterministic mode by {out['deterministic']['max_abs_diff']}")
+    if not out["deterministic"]["moved_from_init"] > 10 * ROUND_TOL:
+        fail("the device rounds left the global where it was")
+    with deterministic():
+        cpu = fedavg_algo(dataclasses.replace(cfg, platform="cpu"), data,
+                          "cpu")
+        cpu._stage_train_on_device()
+        init = cpu.init_params()
+        cpu_round = graph_rounds(cpu, data, init, 1)
+        gpu = fedavg_algo(cfg, data)
+        staged(gpu)
+        gpu_round = graph_rounds(gpu, data,
+                                 {k: v.cuda() for k, v in init.items()}, 1)
+        cpu_diff = max_diff(gpu_round, cpu_round)
+        del cpu, gpu
+    if not cpu_diff <= ROUND_TOL:
+        fail(f"the graphed round differs from the CPU round by {cpu_diff} "
+             f"> {ROUND_TOL}")
+    torch.cuda.empty_cache()
+
+    # the three paths' costs, default mode
+    host = fedavg_algo(cfg, data)
+    graphed = fedavg_algo(cfg, data)
+    staged(graphed)
+    scanned = make_scanned_rounds(graphed._local_train, m,
+                                  client_axis=cfg.client_axis,
+                                  max_rounds=PATH_ROUNDS)
+    ids, live = round_plan(data, m, PATH_ROUNDS)
+    state = {"host": host.init_params(), "k1": None, "k10": None}
+    state["k1"] = state["k10"] = state["host"]
+
+    def run_host():
+        state["host"] = host_loop_rounds(host, data, state["host"],
+                                         PATH_ROUNDS)
+
+    def run_k1():
+        state["k1"] = graph_rounds(graphed, data, state["k1"], PATH_ROUNDS)
+
+    def run_k10():
+        state["k10"], _ = scanned(state["k10"], graphed._train_dev, ids, live)
+
+    paths = {"host_loop": path_profile(run_host, PATH_ROUNDS),
+             "graph_k1": path_profile(run_k1, PATH_ROUNDS),
+             "graph_k10": path_profile(run_k10, PATH_ROUNDS)}
+    paths["graph_k1"]["capture_ms"] = graphed._device_round.graph.capture_s \
+        * 1e3
+    paths["graph_k10"]["capture_ms"] = scanned.graph.capture_s * 1e3
+    paths["graph_k10"]["replays_per_call"] = PATH_ROUNDS
+    # the host loop's parts (synchronised host timers, 5 rounds)
+    parts = {"gather_ms": [], "train_ms": [], "aggregate_ms": []}
+    from fedml_tpu_torch.core.pytree import tree_weighted_mean
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.stacking import gather_cohort
+    from fedml_tpu_torch.parallel.cohort import train_cohort
+    params = host.init_params()
+    for r in range(6):
+        t0 = time.perf_counter()
+        cohort = gather_cohort(data.train,
+                               sample_clients(r, data.client_num, m),
+                               pad_to=m, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stacked, _ = train_cohort(host._local_train, params, cohort)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params = tree_weighted_mean(stacked, cohort["num_samples"])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if r:
+            parts["gather_ms"].append((t1 - t0) * 1e3)
+            parts["train_ms"].append((t2 - t1) * 1e3)
+            parts["aggregate_ms"].append((t3 - t2) * 1e3)
+    paths["host_loop"].update({k: statistics.median(v)
+                               for k, v in parts.items()})
+    phase("device round", resident_train_gb=resident_gb,
+          rounds=DEVICE_ROUNDS, vs_host_loop=out, vs_cpu_max_abs_diff=cpu_diff,
+          tol=ROUND_TOL, paths=paths,
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del host, graphed, scanned, state
+    torch.cuda.empty_cache()
+    return out, cpu_diff, paths
+
+
+@contextlib.contextmanager
+def recording_runs():
+    """Record each ``FedAvg.run``'s algorithm and returned params (the CLI
+    runner keeps neither)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvg
+    real = FedAvg.run
+    runs = []
+
+    def run(self, *a, **kw):
+        params = real(self, *a, **kw)
+        runs.append((self, {k: v.clone() for k, v in params.items()}))
+        return params
+
+    FedAvg.run = run
+    try:
+        yield runs
+    finally:
+        FedAvg.run = real
+
+
+@contextlib.contextmanager
+def env(name: str, value):
+    import os
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def run_scanned(data):
+    """Phase 13: 21 rounds, evaluation every 10, through the CLI's runner:
+    the host loop (device-data budget 0), the K=1 graph and
+    ``--rounds_per_dispatch 10``; eval rounds [0, 10, 20] on each, the
+    final params bit-equal in deterministic mode; steady rounds/s and the
+    capture time in the default mode."""
+    import torch
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config, run_fedavg
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    variants = {"host_loop": ("0", 1), "graph_k1": (None, 1),
+                "graph_k10": (None, SCAN_K)}
+    result = {}
+    for mode, ctx in (("deterministic", deterministic),
+                      ("default", contextlib.nullcontext)):
+        finals, rows = {}, {}
+        for name, (budget, k) in variants.items():
+            cfg = config_from_argv(SCAN_ARGS + ["--rounds_per_dispatch",
+                                                str(k)])
+            check_config(cfg)
+            with ctx(), env("FEDML_TPU_DEVICE_DATA_BYTES", budget), \
+                    recording_runs() as runs, MetricsSink(None) as sink:
+                t0 = time.perf_counter()
+                summary = run_fedavg(cfg, data, sink)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+            algo, finals[name] = runs[-1]
+            graph = (getattr(algo._scanned_rounds, "graph", None)
+                     or getattr(algo._device_round, "graph", None))
+            evals = [h["round"] for h in algo.history]
+            if evals != [0, 10, 20]:
+                fail(f"{name} evaluated at rounds {evals}, need [0, 10, 20]")
+            if (graph is None) != (name == "host_loop"):
+                fail(f"{name} ran {'a' if graph else 'no'} graph")
+            if graph is not None and (graph.captures, graph.replays) \
+                    != (1, cfg.comm_round):
+                fail(f"{name} captured {graph.captures} graphs and replayed "
+                     f"{graph.replays} times; need 1 and {cfg.comm_round}")
+            rows[name] = dict(
+                rounds_per_s=summary["rounds_per_s"], run_s=run_s,
+                capture_ms=graph.capture_s * 1e3 if graph else None,
+                replays=graph.replays if graph else 0,
+                test_acc=summary["test_acc"], eval_rounds=evals)
+            del algo, graph, runs
+            torch.cuda.empty_cache()
+        for name in ("graph_k1", "graph_k10"):
+            rows[name]["bit_equal_to_host_loop"] = bit_equal(
+                finals[name], finals["host_loop"])
+            rows[name]["max_abs_diff_to_host_loop"] = max_diff(
+                finals[name], finals["host_loop"])
+        if mode == "deterministic" and not all(
+                rows[n]["bit_equal_to_host_loop"]
+                for n in ("graph_k1", "graph_k10")):
+            fail(f"scanned rounds differ from the host loop in "
+                 f"deterministic mode: {rows}")
+        result[mode] = rows
+    phase("scanned rounds", rounds=21, k=SCAN_K, **result)
+    return result
+
+
+def check_byzantine(data):
+    """Phase 14: ``--algo fedavg_robust --defense <rule>`` for each of the
+    five rules: one round on the card (TF32 off) against the same round on
+    the CPU (ROUND_TOL); Krum and multi-Krum pick the same clients on
+    both."""
+    import dataclasses
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobust
+    from fedml_tpu_torch.core.byzantine import krum_weights
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.stacking import gather_cohort
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import (_make_workload,
+                                                  fedavg_robust_config)
+    from fedml_tpu_torch.parallel.cohort import train_cohort
+
+    rows = {}
+    with tf32_off():
+        for rule, extra in BYZ_ARGS.items():
+            cfg = config_from_argv(["--algo", "fedavg_robust", "--defense",
+                                    rule, *extra, *COMMON_ARGS])
+            m = cfg.client_num_per_round
+            ids = sample_clients(0, data.client_num, m)
+            out, sel = {}, {}
+            for dev in ("cuda", "cpu"):
+                algo = FedAvgRobust(_make_workload(cfg, data), data,
+                                    fedavg_robust_config(
+                                        dataclasses.replace(cfg,
+                                                            platform=dev)),
+                                    device=dev)
+                init = algo.init_params()
+                cohort = gather_cohort(data.train, ids, pad_to=m, device=dev)
+                t0 = time.perf_counter()
+                params, _ = algo.cohort_step(init, cohort)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    round_ms = (time.perf_counter() - t0) * 1e3
+                out[dev] = {k: v.cpu() for k, v in params.items()}
+                if rule in ("krum", "multi_krum"):
+                    stacked, _ = train_cohort(algo._local_train, init, cohort)
+                    w = krum_weights(stacked, cohort["num_samples"],
+                                     cfg.byz_f,
+                                     cfg.krum_m if rule == "multi_krum"
+                                     else 1)
+                    sel[dev] = [int(i) for i in torch.nonzero(w.cpu())]
+            diff = max_diff(out["cuda"], out["cpu"])
+            rows[rule] = dict(max_abs_diff=diff, round_ms=round_ms)
+            if sel:
+                rows[rule]["selected"] = sel
+                if sel["cuda"] != sel["cpu"]:
+                    fail(f"{rule} selected {sel['cuda']} on the card and "
+                         f"{sel['cpu']} on the CPU")
+            if not diff <= ROUND_TOL:
+                fail(f"the {rule} round differs from the CPU round by "
+                     f"{diff} > {ROUND_TOL}")
+    phase("byzantine", tol=ROUND_TOL, tf32=False, rules=rows)
+    return rows
+
+
+def silo_fed(argv, data, device, init=None):
+    import dataclasses
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import (CrossSiloFederation,
+                                                  check_config)
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    cfg = dataclasses.replace(config_from_argv(argv), platform=device)
+    check_config(cfg)
+    with MetricsSink(None) as sink:
+        fed = CrossSiloFederation(cfg, data, sink, init_params=init)
+    fed.server.on_round_done = None      # no evaluation
+    return fed
+
+
+def check_silo_robust(data):
+    """Phase 15: the live cross-silo server's ``--robust_agg`` on the
+    in-process hub, one round on the card (TF32 off) against the CPU:
+    the defended stack (trimmed mean, clip 5) and the stream's reservoir
+    (coordinate median, K=8); then, on the card, the defended mean in
+    stack mode against stream mode (clip 5, sigma 0.025, 2 rounds), bit
+    for bit."""
+    import torch
+    base = ["--algo", "cross_silo", "--silo_backend", "local", *COMMON_ARGS,
+            "--comm_round", "1"]
+    rows = {}
+    with tf32_off():
+        for name, extra in SILO_ROBUST_ARGS.items():
+            cpu = silo_fed(base + extra, data, "cpu")
+            init = {k: v.clone() for k, v in cpu.server.params.items()}
+            gpu = silo_fed(base + extra, data, "cuda", init)
+            out = {}
+            for dev, fed in (("cuda", gpu), ("cpu", cpu)):
+                t0 = time.perf_counter()
+                fed.run()
+                out[dev] = {k: v.cpu() for k, v in fed.server.params.items()}
+                if dev == "cuda":
+                    round_ms = (time.perf_counter() - t0) * 1e3
+            diff = max_diff(out["cuda"], out["cpu"])
+            moved = max_diff(out["cpu"], init)
+            rows[name] = dict(max_abs_diff=diff, moved_from_init=moved,
+                              round_ms=round_ms,
+                              stack=gpu.server.aggregate_fn is not None)
+            if not moved > 2 * ROUND_TOL or not diff <= ROUND_TOL:
+                fail(f"cross-silo {name}: moved {moved}, differs from the "
+                     f"CPU by {diff} (limit {ROUND_TOL})")
+    means = {}
+    init = None
+    for mode in ("stack", "stream"):
+        fed = silo_fed(SILO_MEAN_ARGS + ["--agg_mode", mode], data, "cuda",
+                       init)
+        if init is None:
+            init = {k: v.clone() for k, v in fed.server.params.items()}
+        fed.run()
+        means[mode] = {k: v.clone() for k, v in fed.server.params.items()}
+    same = bit_equal(means["stack"], means["stream"])
+    phase("cross_silo robust", tol=ROUND_TOL, tf32=False, rules=rows,
+          stack_mean_bit_equal_stream_mean=same,
+          stack_vs_stream_max_abs_diff=max_diff(means["stack"],
+                                                means["stream"]))
+    if not same:
+        fail("the defended stack mean differs from the stream mean on the "
+             "card")
+    return rows, same
+
+
+def check_checkpoint(data, root: Path):
+    """Phase 16: plain FedAvg through the CLI's runner with
+    ``--checkpoint_dir``, stopped after round 2 and resumed, against an
+    uninterrupted 4-round run: bit for bit on the card (deterministic
+    mode; both runs take the graphed device round)."""
+    import torch
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config, run_fedavg
+    from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    ckpt = root / "build" / "checkpoint_phase"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    finals = {}
+    runs_spec = {"straight": [],
+                 "stopped": ["--checkpoint_dir", str(ckpt),
+                             "--checkpoint_every", "1", "--comm_round",
+                             str(CKPT_STOP)],
+                 "resumed": ["--checkpoint_dir", str(ckpt),
+                             "--checkpoint_every", "1"]}
+    with deterministic():
+        for name, extra in runs_spec.items():
+            cfg = config_from_argv([*FEDAVG_ARGS, "--comm_round",
+                                    str(CKPT_ROUNDS), *extra])
+            check_config(cfg)
+            t0 = time.perf_counter()
+            with recording_runs() as runs, MetricsSink(None) as sink:
+                run_fedavg(cfg, data, sink)
+            torch.cuda.synchronize()
+            algo, finals[name] = runs[-1]
+            if name != "straight" and algo._device_round.graph is None:
+                fail(f"the {name} run did not take the graphed device round")
+            finals[name + "_rounds"] = len(algo.round_times)
+            finals[name + "_s"] = time.perf_counter() - t0
+            del algo, runs
+    latest = RoundCheckpointer(str(ckpt)).latest_round()
+    same = bit_equal(finals["resumed"], finals["straight"])
+    phase("checkpoint", rounds=CKPT_ROUNDS, stopped_after=CKPT_STOP,
+          resumed_rounds_run=finals["resumed_rounds"], latest_step=latest,
+          bit_equal=same,
+          max_abs_diff=max_diff(finals["resumed"], finals["straight"]),
+          seconds={k: finals[k + "_s"] for k in runs_spec})
+    if not same or latest != CKPT_ROUNDS - 1 \
+            or finals["resumed_rounds"] != CKPT_ROUNDS - CKPT_STOP:
+        fail("the resumed run does not continue the uninterrupted one")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return same
+
+
+# ---------------------------------------------------------------------------
 # slice 4: FedAvg on the transformer LM, through K4 (flash attention)
 # ---------------------------------------------------------------------------
 
@@ -1876,13 +2449,32 @@ def lm_fedavg(data, use_flash: bool, comm_round: int = LM_ROUNDS):
                                      **LM_FEDAVG), device="cuda")
 
 
-def run_lm_slice(data):
+K4_KERNELS = {"flash_fwd": "flash_fwd_kernel",
+              "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+              "flash_bwd_dq": "flash_bwd_dq_kernel"}
+
+
+def graph_kernel_counts(dot: str, names) -> dict:
+    """Kernel nodes of a CUDA graph's Graphviz dump
+    (``cudaGraphDebugDotPrint``) whose label names each of ``names``: the
+    text split at each node's definition, each node counted once."""
+    nodes = re.split(r'\n\s*"?graph_\d+_node_\d+"?\s*\[', dot)[1:]
+    return {n: sum(1 for node in nodes if n in node) for n in names}
+
+
+def run_lm_slice(data, root: Path):
     """The transformer slice's main path: FedAvg through the API on the
     flash model, LM_ROUNDS rounds with an evaluation at the first and the
-    last.  Every K4 kernel must launch n_layers x S x rounds times in the
-    training window; evaluation launches only K4f (counted apart)."""
+    last.  The rounds run as replays of one captured CUDA graph, so the
+    kernels launched in training are those of the warm-up round (through
+    the wrappers) and the captured ones once per replay: the capture must
+    hold n_layers x S launches of each K4 kernel, by the wrappers' counts
+    during the capture and by the graph's own kernel nodes, and the graph
+    must replay once a round; evaluation launches only K4f (counted
+    apart)."""
     import torch
     from fedml_tpu_torch.models import flash_attention as fa
+    from fedml_tpu_torch.parallel import cohort
 
     algo = lm_fedavg(data, use_flash=True)
     evaluate, eval_counts = algo.evaluate_global, dict.fromkeys(
@@ -1896,21 +2488,46 @@ def run_lm_slice(data):
         return out
 
     algo.evaluate_global = counted_eval
+    dot_dir = root / "build" / "graphs"
+    shutil.rmtree(dot_dir, ignore_errors=True)
+    cohort.GRAPH_DOT_DIR = str(dot_dir)
     fa.reset_launch_counts()
     t0 = time.perf_counter()
-    params = algo.run()
-    torch.cuda.synchronize()
+    try:
+        params = algo.run()
+        torch.cuda.synchronize()
+    finally:
+        cohort.GRAPH_DOT_DIR = None
     run_s = time.perf_counter() - t0
     total = dict(fa.launch_counts)
-    train = {k: total[k] - eval_counts[k] for k in total}
+    graph = getattr(algo._device_round, "graph", None)
+    if graph is None:
+        fail("the transformer slice did not run the graphed device round")
     steps = int(data.train["mask"].shape[1]) * LM_FEDAVG["epochs"]
-    need = LM["n_layers"] * steps * LM_ROUNDS
-    if any(n != need for n in train.values()):
-        fail(f"the transformer slice's training launched {train}; each K4 "
-             f"kernel must launch n_layers x S x rounds = {need} times")
+    per_round = LM["n_layers"] * steps
+    captured = {k: graph.captured_launches.get(k, 0) for k in total}
+    warmup = {k: graph.warmup_launches.get(k, 0) for k in total}
+    wrapper_train = {k: total[k] - eval_counts[k] for k in total}
+    nodes = graph_kernel_counts(Path(graph.dot_path).read_text(),
+                                K4_KERNELS.values())
+    nodes = {k: nodes[v] for k, v in K4_KERNELS.items()}
+    if graph.captures != 1 or graph.replays != LM_ROUNDS:
+        fail(f"the transformer slice captured {graph.captures} graphs and "
+             f"replayed {graph.replays} times; need 1 and {LM_ROUNDS}")
+    if any(captured[k] != per_round or nodes[k] != per_round
+           or warmup[k] != per_round * graph.warmup_rounds
+           or wrapper_train[k] != warmup[k] + captured[k] for k in total):
+        fail(f"the transformer slice's graph holds {nodes} K4 kernel nodes "
+             f"and its capture launched {captured} (warm-up {warmup}, "
+             f"wrapper calls in training {wrapper_train}); each K4 kernel "
+             f"must appear n_layers x S = {per_round} times a round")
     if eval_counts["flash_bwd_dkv"] or eval_counts["flash_bwd_dq"] \
             or not eval_counts["flash_fwd"]:
         fail(f"evaluation launched {eval_counts}; it runs K4f only")
+    # launches on the main path: the eager ones (warm-up, evaluation) and
+    # the captured ones once per replay
+    train = {k: warmup[k] + captured[k] * graph.replays for k in total}
+    launches = {k: train[k] + eval_counts[k] for k in total}
     last = algo.history[-1]
     finite = all(bool(v.isfinite().all()) for v in params.values())
     if not finite or not all(
@@ -1918,14 +2535,17 @@ def run_lm_slice(data):
                                                        "test_loss")):
         fail(f"the transformer slice produced non-finite values: {last}")
     steady = algo.round_times[1:]
-    phase("transformer slice", train_launches=train,
-          eval_launches=eval_counts, launches_per_round=need // LM_ROUNDS,
-          steps_per_round=steps, run_s=run_s,
-          rounds_per_s=len(steady) / sum(steady),
+    phase("transformer slice", graph_kernel_nodes=nodes,
+          captured_launches=captured, warmup_launches=warmup,
+          replays=graph.replays, train_launches=train,
+          eval_launches=eval_counts, launches_per_round=per_round,
+          steps_per_round=steps, capture_ms=graph.capture_s * 1e3,
+          run_s=run_s, rounds_per_s=len(steady) / sum(steady),
+          steady_round_ms=sum(steady) / len(steady) * 1e3,
           train_loss=last["train_loss"], test_loss=last["test_loss"],
           test_acc=last["test_acc"], params_finite=finite,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return total, need // LM_ROUNDS, len(steady) / sum(steady)
+    return launches, per_round, len(steady) / sum(steady)
 
 
 def profile_lm(data, rounds: int = 5):
@@ -2167,11 +2787,17 @@ def main() -> None:
     profile_silo(silo_cfg, data)
     silo_diff = silo_round_parity(silo_cfg, data)
 
+    _, device_round_cpu_diff, paths = check_device_round(data)
+    scanned = run_scanned(data)
+    check_byzantine(data)
+    check_silo_robust(data)
+    check_checkpoint(data, root)
+
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
     check_flash_nan()
     data_lm = lm_data()
-    k4_launches, k4_per_round, lm_rounds_per_s = run_lm_slice(data_lm)
+    k4_launches, k4_per_round, lm_rounds_per_s = run_lm_slice(data_lm, root)
     profile_lm(data_lm)
     lm_diff = lm_round_parity(data_lm)
     lm_bench = lm_bench_step()
@@ -2279,7 +2905,11 @@ def main() -> None:
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]
                                  for k, v in lm_bench.items()},
-          lm_cli_rounds_per_s=lm_cli["rounds_per_s"])
+          lm_cli_rounds_per_s=lm_cli["rounds_per_s"],
+          device_round_vs_cpu_max_abs_diff=device_round_cpu_diff,
+          fedavg_round_ms={k: v["round_ms"] for k, v in paths.items()},
+          fedavg_rounds_per_s={k: v["rounds_per_s"]
+                               for k, v in scanned["default"].items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,11 @@ with
 * the streaming fold (``stream_agg``) and the sharded wire
   (``shard_wire``: per-shard slice frames, per-shard admission, the
   sharded fold and its K2 finalize);
-* undefended stack mode: ``tree_weighted_mean`` over a ``[cohort, ...]``
-  buffer staged on the device at arrival;
+* stack mode: the uploads staged at arrival in a ``[cohort, ...]``
+  device buffer, closed by ``tree_weighted_mean`` or, with
+  ``aggregate_fn``, by the defended aggregate
+  (`robust.defense.make_defended_aggregate`: clip, a Byzantine rule,
+  noise) over the static stack;
 * the straggler policies ``wait``, ``drop`` and ``abort``
   (``round_timeout_s`` / ``min_silo_frac``);
 * the admission pipeline, stale-round and foreign-upload discards, and
@@ -67,8 +70,6 @@ SiloTrainFn = Callable[[object, int, int], tuple]
 
 # JAX actor options this port does not run yet, with where they arrive
 _REFUSED = {
-    "aggregate_fn": "the defended stack aggregate needs robust/defense.py "
-                    "(ROADMAP Queue 1 item 5)",
     "secagg": "live SecAgg over the wire (secure/protocol.py)",
     "journal": "the round journal (utils/journal.py)",
     "checkpointer": "round checkpoints (utils/checkpoint.py)",
@@ -110,8 +111,11 @@ class FedAvgServerActor(ServerManager):
     satisfies the barrier at weight 0 and quarantined silos are excluded
     from the broadcast.  ``stream_agg``: a `StreamingAggregator` (or, with
     ``shard_wire``, the spine's sharded one) folding each admitted upload
-    at arrival; without it the round closes with ``tree_weighted_mean``
-    over the staged buffer.  ``shard_wire``: a `ShardSpine` — S slice
+    at arrival; without it the round closes over the staged buffer with
+    ``aggregate_fn(global, stacked, weights, round)`` when given (the
+    static ``[cohort, ...]`` stack, slots of silos that did not report or
+    were rejected holding the global at weight 0) or else
+    ``tree_weighted_mean`` over the admitted slots.  ``shard_wire``: a `ShardSpine` — S slice
     frames per silo each way, screened per shard by its `ShardAdmission`.
     """
 
@@ -122,13 +126,13 @@ class FedAvgServerActor(ServerManager):
                  straggler_policy: str = "wait",
                  round_timeout_s: Optional[float] = None,
                  min_silo_frac: float = 0.5,
-                 admission=None, stream_agg=None, shard_wire=None, *,
-                 aggregate_fn=None, secagg=None, journal=None, checkpointer=None, extra_state=None,
+                 admission=None, stream_agg=None, shard_wire=None,
+                 aggregate_fn=None, *, secagg=None, journal=None, checkpointer=None, extra_state=None,
                  faultline=None, ingest=None, health=None, perf=None,
                  server_opt=None, controller=None, degrade=None,
                  decode_upload=None, failure_detector=None, publish=None):
         refuse_unported(
-            aggregate_fn=aggregate_fn, secagg=secagg, journal=journal,
+            secagg=secagg, journal=journal,
             checkpointer=checkpointer, extra_state=extra_state,
             faultline=faultline, ingest=ingest, health=health, perf=perf,
             server_opt=server_opt, controller=controller, degrade=degrade,
@@ -137,6 +141,9 @@ class FedAvgServerActor(ServerManager):
         super().__init__(0, transport)
         if straggler_policy not in ("wait", "drop", "abort"):
             raise ValueError(f"unknown straggler_policy {straggler_policy!r}")
+        if aggregate_fn is not None and stream_agg is not None:
+            raise ValueError("aggregate_fn (stack mode) and stream_agg "
+                             "(stream mode) are exclusive")
         if shard_wire is not None:
             if stream_agg is None:
                 raise ValueError(
@@ -161,6 +168,7 @@ class FedAvgServerActor(ServerManager):
         self.aborted = False
         self.admission = admission
         self.stream_agg = stream_agg
+        self.aggregate_fn = aggregate_fn
         self.shard_wire = shard_wire
         self.dropped_silos: Dict[int, list] = {}  # round -> missing silos
         self._received: Dict[int, Optional[tuple]] = {}
@@ -169,6 +177,7 @@ class FedAvgServerActor(ServerManager):
         # belongs to silo i, filled at arrival, released at round close
         self._staging: Optional[Dict[str, torch.Tensor]] = None
         self._staged_seen = 0
+        self._staged_silos: Set[int] = set()
         self._num_silos = 0
         self._expected: Set[int] = set()
         self._timer = SelfMessageTimer()
@@ -418,7 +427,25 @@ class FedAvgServerActor(ServerManager):
                     f"{tuple(leaf.shape)}; the global template is "
                     f"{buf.dtype} {tuple(buf.shape[1:])}")
             buf[silo - 1].copy_(leaf)
+        self._staged_silos.add(silo)
         self._staged_seen += 1
+
+    def _staged_cohort(self) -> Dict[str, torch.Tensor]:
+        """The static ``[cohort, ...]`` stack: slots of silos that did not
+        stage an upload get the current global (weight 0, the zero update
+        every defense masks out)."""
+        staged = self._staged_silos
+        for silo in range(1, self._num_silos + 1):
+            if silo not in staged:
+                for k, buf in self._staging.items():
+                    buf[silo - 1].copy_(self.params[k])
+        return self._staging
+
+    def _cohort_weights(self, admitted) -> np.ndarray:
+        w = np.zeros(self._num_silos, np.float32)
+        for silo, (_, num_samples) in admitted.items():
+            w[silo - 1] = num_samples
+        return w
 
     def _complete_round(self) -> None:
         self._timer.cancel()
@@ -442,6 +469,10 @@ class FedAvgServerActor(ServerManager):
                             "model is unchanged this round", self.round_idx)
             elif self.stream_agg is not None:
                 self.params = self.stream_agg.finalize(self.round_idx)
+            elif self.aggregate_fn is not None:
+                self.params = self.aggregate_fn(
+                    self.params, self._staged_cohort(),
+                    self._cohort_weights(admitted), self.round_idx)
             else:
                 order = sorted(admitted)
                 idx = torch.as_tensor([s - 1 for s in order],
@@ -458,6 +489,7 @@ class FedAvgServerActor(ServerManager):
         # release the stack buffer; drop half-assembled straggler slices
         # so a late slice never splices into the next round
         self._staging = None
+        self._staged_silos.clear()
         if self.shard_wire is not None:
             self.shard_wire.round_end()
         if self.on_round_done is not None:

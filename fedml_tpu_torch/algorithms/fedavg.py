@@ -1,19 +1,34 @@
 """FedAvg — the standalone round loop (port of
-``fedml_tpu/algorithms/fedavg.py``, the host-gather path).
+``fedml_tpu/algorithms/fedavg.py``).
 
-Each round: seeded client sampling, a host gather of the cohort onto the
-device, the cohort step (local SGD per client + aggregate), then an
-evaluation over all clients every ``frequency_of_the_test`` rounds and on
-the last one.  Checkpoint/resume, ``rounds_per_dispatch`` (scanned rounds)
-and meshes are not ported yet; the config refuses them by name."""
+Each round: seeded client sampling, the cohort step (local SGD per client
++ aggregate), then an evaluation over all clients every
+``frequency_of_the_test`` rounds and on the last one.  Three ways to run
+the rounds, chosen as the JAX package chooses them:
+
+* the device-resident round, for the base cohort step whenever the
+  stacked train split fits the device-data budget (4 GiB, or
+  ``FEDML_TPU_DEVICE_DATA_BYTES``): the split is staged on the device once
+  and each round gathers its cohort there by ids (on a CUDA device a
+  captured CUDA graph, `parallel.cohort.GraphedRounds`);
+* scanned rounds, ``rounds_per_dispatch = K > 1`` on that path without a
+  checkpointer: K rounds per call, chunks ending at evaluation rounds;
+* otherwise the host gather, one cohort copied to the device a round.
+
+A `utils.checkpoint.RoundCheckpointer` saves (params, round key, round)
+on its cadence; a run given one resumes from its latest step and
+continues bit for bit as the uninterrupted run would.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.core import prng
@@ -23,6 +38,8 @@ from fedml_tpu_torch.data.stacking import (FederatedData, gather_cohort,
                                            to_device)
 from fedml_tpu_torch.device import resolve_device, synchronize
 from fedml_tpu_torch.parallel.cohort import (cohort_eval, make_cohort_step,
+                                             make_device_round,
+                                             make_scanned_rounds,
                                              pad_clients)
 from fedml_tpu_torch.trainer.local_sgd import make_evaluator, make_local_trainer
 from fedml_tpu_torch.trainer.workload import Workload, make_client_optimizer
@@ -47,10 +64,31 @@ class FedAvgConfig:
     eval_chunk_clients: int = 1024
 
     def __post_init__(self):
-        if self.rounds_per_dispatch != 1:
-            raise NotImplementedError(
-                "rounds_per_dispatch > 1 (scanned rounds) is not ported yet; "
-                "it arrives with the scanned/mesh-path slice (ROADMAP Queue 1)")
+        if self.rounds_per_dispatch < 1:
+            raise ValueError(f"rounds_per_dispatch must be >= 1, got "
+                             f"{self.rounds_per_dispatch}")
+
+
+DEVICE_DATA_BUDGET = 4 << 30     # bytes; FEDML_TPU_DEVICE_DATA_BYTES overrides
+
+
+def device_data_budget() -> int:
+    return int(os.environ.get("FEDML_TPU_DEVICE_DATA_BYTES",
+                              str(DEVICE_DATA_BUDGET)))
+
+
+def split_nbytes(stacked) -> int:
+    return sum(np.asarray(v).nbytes for v in stacked.values())
+
+
+def pad_ids(ids, m: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A round's ids padded to the cohort size ``m`` (padding aliases
+    client 0) and the 1/0 live mask of the real slots."""
+    padded = np.zeros(m, np.int64)
+    live = np.zeros(m, np.float32)
+    padded[:len(ids)] = ids
+    live[:len(ids)] = 1.0
+    return padded, live
 
 
 def sweep_eval_chunks(stacked, chunk: int, run_chunk, device):
@@ -68,9 +106,10 @@ def sweep_eval_chunks(stacked, chunk: int, run_chunk, device):
 
 
 def evaluate_global(eval_cohort, data: FederatedData, params: Tree,
-                    chunk: int, device) -> Dict[str, float]:
+                    chunk: int, device, resident=None) -> Dict[str, float]:
     """Weighted train/test metrics of ``params`` over all clients, swept in
-    chunks of ``chunk`` clients when the corpus is larger."""
+    chunks of ``chunk`` clients when the corpus is larger.  ``resident(split,
+    stacked)`` may return the split already on the device (else None)."""
     out: Dict[str, float] = {}
     for split, stacked in (("train", data.train), ("test", data.test)):
         if stacked is None:
@@ -80,7 +119,9 @@ def evaluate_global(eval_cohort, data: FederatedData, params: Tree,
                 stacked, chunk, lambda part, lo: eval_cohort(params, part),
                 device)
         else:
-            m = eval_cohort(params, to_device(stacked, device))
+            batch = resident(split, stacked) if resident else None
+            m = eval_cohort(params, batch if batch is not None
+                            else to_device(stacked, device))
         out.update(stats_from_metrics(m, prefix=f"{split}_"))
     return out
 
@@ -121,6 +162,13 @@ class FedAvg:
         self._local_train = make_local_trainer(workload, opt, config.epochs)
         self.cohort_step = make_cohort_step(self._local_train,
                                             client_axis=config.client_axis)
+        # the device-resident path serves only this step; subclasses that
+        # replace cohort_step (the defenses, secure rounds) keep the loop
+        self._base_cohort_step = self.cohort_step
+        self._device_round = None
+        self._scanned_rounds = None
+        self._train_dev: Optional[Dict[str, torch.Tensor]] = None
+        self._test_dev: Optional[Dict[str, torch.Tensor]] = None
         self.evaluate = make_evaluator(workload)
         self._eval_cohort = cohort_eval(self.evaluate)
         self.history: List[Dict[str, Any]] = []
@@ -136,36 +184,169 @@ class FedAvg:
         return self.workload.init(torch.Generator().manual_seed(self.cfg.seed),
                                   self.device)
 
-    def run(self, params: Optional[Tree] = None) -> Tree:
+    # -- checkpoint hooks ----------------------------------------------------
+    def _ckpt_state(self, params: Tree, rng: prng.Key, round_idx: int):
+        return {"params": params, "rng": np.asarray(rng, np.uint32),
+                "round": int(round_idx)}
+
+    def _maybe_resume(self, checkpointer, params: Tree, rng: prng.Key):
+        """(params, round key, next round) from the latest round
+        checkpoint, or the inputs and round 0 when there is none."""
+        if checkpointer is None or checkpointer.latest_round() is None:
+            return params, rng, 0
+        state = checkpointer.restore(like=self._ckpt_state(params, rng, 0))
+        logger.info("resumed from round %d (%s)", state["round"],
+                    checkpointer.ckpt_dir)
+        rng = tuple(int(w) for w in state["rng"])
+        return state["params"], rng, int(state["round"]) + 1
+
+    # -- the round loop ------------------------------------------------------
+    def run(self, params: Optional[Tree] = None, checkpointer=None) -> Tree:
         cfg = self.cfg
-        keys = round_keys(cfg.seed, drew_init=params is None)
+        rng = prng.key(cfg.seed)
         if params is None:
+            rng, _ = prng.split(rng)     # the JAX run's init key
             params = self.init_params()
         params = {k: v.to(self.device) for k, v in params.items()}
-        for round_idx in range(cfg.comm_round):
+        params, rng, start_round = self._maybe_resume(checkpointer, params,
+                                                      rng)
+        use_device_data = (self.cohort_step is self._base_cohort_step
+                           and self._stage_train_on_device())
+        if use_device_data and cfg.rounds_per_dispatch > 1 \
+                and checkpointer is None:
+            return self._run_scanned(params, rng, start_round)
+        m = cfg.client_num_per_round
+        for round_idx in range(start_round, cfg.comm_round):
             t0 = time.perf_counter()
             ids = self._sample_round(round_idx)
-            cohort = gather_cohort(self.data.train, ids,
-                                   pad_to=cfg.client_num_per_round,
-                                   device=self.device)
-            params, _ = self.cohort_step(params, cohort,
-                                         prng.key_words_int32(next(keys)))
+            rng, round_key = prng.split(rng)
+            words = prng.key_words_int32(round_key)
+            if use_device_data:
+                padded, live = pad_ids(ids, m)
+                params, _ = self._device_round(params, self._train_dev,
+                                               padded, live, words)
+            else:
+                cohort = gather_cohort(self.data.train, ids, pad_to=m,
+                                       device=self.device)
+                params, _ = self.cohort_step(params, cohort, words)
             synchronize(self.device)
             round_s = time.perf_counter() - t0
             self.round_times.append(round_s)
+            self._maybe_eval(params, round_idx, round_s)
+            if checkpointer is not None:
+                checkpointer.maybe_save(
+                    round_idx,
+                    lambda: self._ckpt_state(params, rng, round_idx),
+                    last_round=round_idx == cfg.comm_round - 1)
+        if checkpointer is not None:
+            # an async save must be on disk (or its error raised) before
+            # the run reports success
+            checkpointer.flush()
+        return self._own(params)
 
-            if (round_idx % cfg.frequency_of_the_test == 0
-                    or round_idx == cfg.comm_round - 1):
-                stats = self.evaluate_global(params)
-                stats.update(round=round_idx, round_s=round_s)
-                logger.info("round %d: %s", round_idx, stats)
-                self.history.append(stats)
-                if self.sink is not None:
-                    self.sink.log(stats, step=round_idx)
+    def _own(self, params: Tree) -> Tree:
+        """``params`` as tensors of the caller's: a copy when they are a
+        graphed round's static buffers, which the next replay
+        overwrites."""
+        graph = getattr(self._device_round, "graph", None) or getattr(
+            self._scanned_rounds, "graph", None)
+        if graph is not None and params is graph.params:
+            return {k: v.clone() for k, v in params.items()}
         return params
+
+    def _maybe_eval(self, params: Tree, round_idx: int,
+                    round_s: float) -> None:
+        cfg = self.cfg
+        if (round_idx % cfg.frequency_of_the_test == 0
+                or round_idx == cfg.comm_round - 1):
+            stats = self.evaluate_global(self._own(params))
+            stats.update(round=round_idx, round_s=round_s)
+            logger.info("round %d: %s", round_idx, stats)
+            self.history.append(stats)
+            if self.sink is not None:
+                self.sink.log(stats, step=round_idx)
+
+    def _run_scanned(self, params: Tree, rng: prng.Key,
+                     start_round: int) -> Tree:
+        """K rounds per call over the resident split, chunk boundaries at
+        evaluation rounds; one key ``split`` per chunk and ``fold_in(chunk
+        key, k)`` for its k-th round (the JAX package's schedule; the base
+        cohort step draws no randomness, so the params equal the loop's)."""
+        cfg = self.cfg
+        m = cfg.client_num_per_round
+        if self._scanned_rounds is None:
+            self._scanned_rounds = make_scanned_rounds(
+                self._local_train, m, client_axis=cfg.client_axis,
+                max_rounds=cfg.rounds_per_dispatch)
+        round_idx = start_round
+        while round_idx < cfg.comm_round:
+            nxt = round_idx
+            while not (nxt % cfg.frequency_of_the_test == 0
+                       or nxt == cfg.comm_round - 1):
+                nxt += 1
+            k_rounds = min(nxt - round_idx + 1, cfg.rounds_per_dispatch)
+            ids = np.zeros((k_rounds, m), np.int64)
+            live = np.zeros((k_rounds, m), np.float32)
+            for k in range(k_rounds):
+                ids[k], live[k] = pad_ids(self._sample_round(round_idx + k),
+                                          m)
+            rng, chunk_key = prng.split(rng)
+            words = [prng.key_words_int32(prng.fold_in(chunk_key, k))
+                     for k in range(k_rounds)]
+            t0 = time.perf_counter()
+            params, _ = self._scanned_rounds(params, self._train_dev, ids,
+                                             live, words)
+            synchronize(self.device)
+            round_s = (time.perf_counter() - t0) / k_rounds
+            self.round_times.extend([round_s] * k_rounds)
+            round_idx += k_rounds
+            self._maybe_eval(params, round_idx - 1, round_s)
+        return self._own(params)
+
+    def _stage_train_on_device(self, budget_bytes: Optional[int] = None
+                               ) -> bool:
+        """Stage the stacked train split on the device once; False (the
+        host gather) when it exceeds the device-data budget."""
+        if self._train_dev is not None:
+            return True
+        budget = (budget_bytes if budget_bytes is not None
+                  else device_data_budget())
+        nbytes = split_nbytes(self.data.train)
+        if nbytes > budget:
+            logger.info("train set %.1f MB > device budget; using host "
+                        "gather", nbytes / 1e6)
+            return False
+        if self._device_round is None:
+            self._device_round = make_device_round(
+                self._local_train, self.cfg.client_num_per_round,
+                client_axis=self.cfg.client_axis)
+        self._train_dev = to_device(self.data.train, self.device)
+        if self._train_dev["x"].device.type != self.device.type:
+            raise RuntimeError(f"the train split was staged on "
+                               f"{self._train_dev['x'].device}, not on "
+                               f"{self.device}")
+        return True
+
+    def _fits_with_train(self, stacked) -> bool:
+        """Whether ``stacked`` fits the device-data budget beside the
+        resident train split."""
+        return (split_nbytes(self.data.train) + split_nbytes(stacked)
+                <= device_data_budget())
 
     def evaluate_global(self, params: Tree) -> Dict[str, float]:
         """Weighted train/test metrics over all clients, swept in chunks of
-        ``eval_chunk_clients`` clients when the corpus is larger."""
+        ``eval_chunk_clients`` clients when the corpus is larger; otherwise
+        on the resident train split (and the test split, kept on the
+        device when it fits beside it)."""
         return evaluate_global(self._eval_cohort, self.data, params,
-                               self.cfg.eval_chunk_clients, self.device)
+                               self.cfg.eval_chunk_clients, self.device,
+                               resident=self._resident_split)
+
+    def _resident_split(self, split: str, stacked):
+        if self._train_dev is None:
+            return None
+        if split == "train":
+            return self._train_dev
+        if self._test_dev is None and self._fits_with_train(stacked):
+            self._test_dev = to_device(stacked, self.device)
+        return self._test_dev

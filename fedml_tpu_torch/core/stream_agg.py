@@ -31,9 +31,16 @@ one ``.item()`` (a device sync) per clipped fold.
 The weak-DP noise of this (unfused) finalize comes from a
 ``torch.Generator`` seeded from the JAX key chain's words
 (``fold_in(key(seed), step)``): the same distribution as JAX's threefry
-normal, not the same bits.  The order-statistic rules (the reservoir
-regime) need ``robust/defense.py``, which is not ported yet; they are
-refused by name.
+normal, not the same bits.
+
+The order-statistic rules (median, trimmed mean, Krum, multi-Krum,
+geometric median) need a population, so they stream into a **reservoir**
+of ``reservoir_k`` slots instead (Vitter's Algorithm R over
+``np.random.RandomState(seed)``, the JAX package's draws, so the same
+uploads land in the same slots); ``finalize`` runs
+`robust.defense.make_defended_aggregate` over the ``[K, ...]`` reservoir,
+unfilled slots at weight 0.  Up to K uploads the rule sees every upload;
+beyond that a uniform K-subsample.
 """
 
 from __future__ import annotations
@@ -149,17 +156,18 @@ class StreamingAggregator:
     def __init__(self, template: Tree, *, method: str = "mean",
                  kind: str = "params", norm_clip: float = 0.0,
                  noise_std: float = 0.0, seed: int = 0,
-                 is_weight=default_is_weight_param, device=None):
+                 reservoir_k: int = 64, trim_frac: float = 0.1,
+                 byz_f: int = 0, krum_m: int = 1, gm_iters: int = 8,
+                 gm_eps: float = 1e-6, is_weight=default_is_weight_param,
+                 device=None):
+        from fedml_tpu_torch.robust.defense import make_defended_aggregate
         if method not in ROBUST_AGG_METHODS:
             raise ValueError(f"unknown streaming aggregation method "
                              f"{method!r}; available: {ROBUST_AGG_METHODS}")
-        if method != "mean":
-            raise NotImplementedError(
-                f"streaming {method!r} needs the order-statistic reservoir "
-                f"over robust/defense.py, which is not ported yet (ROADMAP "
-                f"Queue 1 item 5); the port streams the mean only")
         if kind not in ("params", "delta"):
             raise ValueError(f"kind must be 'params' or 'delta', got {kind!r}")
+        if reservoir_k < 1:
+            raise ValueError(f"reservoir_k must be >= 1, got {reservoir_k}")
         if norm_clip < 0 or noise_std < 0:
             raise ValueError(f"norm_clip/noise_std must be >= 0, got "
                              f"{norm_clip}/{noise_std}")
@@ -168,7 +176,14 @@ class StreamingAggregator:
         self.norm_clip = float(norm_clip)
         self.noise_std = float(noise_std)
         self.seed = int(seed)
-        self.defended = norm_clip > 0 or noise_std > 0
+        self.reservoir_k = int(reservoir_k)
+        self.defended = method != "mean" or norm_clip > 0 or noise_std > 0
+        self._rule = None
+        if method != "mean":
+            self._rule = make_defended_aggregate(
+                method, trim_frac=trim_frac, byz_f=byz_f, krum_m=krum_m,
+                gm_iters=gm_iters, gm_eps=gm_eps, norm_clip=norm_clip,
+                noise_std=noise_std, seed=seed, is_weight=is_weight)
         self._keys = tree_keys(template)
         self._weights = [k for k in self._keys if is_weight(k)]
         self._is_weight = is_weight
@@ -178,12 +193,20 @@ class StreamingAggregator:
         self.device = torch.device(device)
         reg = telemetry.get_registry()
         self._c_folds = reg.counter("fedml_stream_folds_total")
+        self._c_evict = reg.counter("fedml_stream_evictions_total")
+        self._g_reservoir = reg.gauge("fedml_stream_reservoir_fill_total")
         self._h_finalize = reg.histogram("fedml_stream_finalize_seconds")
         self._reference: Optional[Tree] = None
         self._acc: Optional[Tree] = None
         self._wsum = np.float32(0.0)
         self.count = 0
         self.weight_total = 0.0
+        # the reservoir: [K, ...] leaves on the device, weight 0 where no
+        # upload of this round sits
+        self._seen = 0
+        self._res_stack: Optional[Tree] = None
+        self._res_weights: Optional[np.ndarray] = None
+        self._res_rng = np.random.RandomState(seed)
 
     @property
     def reference(self) -> Optional[Tree]:
@@ -204,6 +227,10 @@ class StreamingAggregator:
         self._wsum = np.float32(0.0)
         self.count = 0
         self.weight_total = 0.0
+        self._seen = 0
+        if self._res_weights is not None:
+            self._res_weights[:] = 0.0
+        self._g_reservoir.set(0)
 
     def _ensure_acc(self) -> None:
         if self._acc is None:
@@ -221,17 +248,57 @@ class StreamingAggregator:
                     self._is_weight)
         self._wsum = np.float32(self._wsum + w)
 
+    def _ensure_reservoir(self) -> None:
+        """The ``[K, ...]`` reservoir, every slot first holding the
+        reference (the zero update every rule masks out)."""
+        if self._res_stack is not None:
+            return
+        k = self.reservoir_k
+        self._res_stack = {
+            key: v[None].repeat((k,) + (1,) * v.dim()).contiguous()
+            for key, v in self._reference.items()}
+        self._res_weights = np.zeros(k, np.float32)
+
     def fold(self, upload, weight) -> None:
         """Fold one ADMITTED upload at arrival."""
         if self._reference is None:
             raise RuntimeError("fold() before reset(): the round's clip "
                                "reference is not set")
+        if self.method != "mean":
+            # check before counting or drawing: a malformed upload fails
+            # on every arrival, not only when it wins a slot
+            if sorted(upload) != sorted(self._keys):
+                raise ValueError("upload does not match the aggregation "
+                                 "template (leaf set mismatch)")
+            self._fold_reservoir(upload, weight)
+            return
         upload = self._on_device(upload)
         self._ensure_acc()
         self._fold_one(upload, weight)
         self._c_folds.inc()
         self.count += 1
         self.weight_total += float(weight)
+
+    def _fold_reservoir(self, upload, weight) -> None:
+        """Algorithm R: the first K uploads fill the slots; upload i > K
+        replaces a uniform slot with probability K/i, so at round close
+        every upload sits in the reservoir with probability K/n."""
+        self._ensure_reservoir()
+        self._c_folds.inc()
+        self.count += 1
+        self.weight_total += float(weight)
+        self._seen += 1
+        if self._seen <= self.reservoir_k:
+            slot = self._seen - 1
+        else:
+            slot = int(self._res_rng.randint(self._seen))
+            self._c_evict.inc()
+            if slot >= self.reservoir_k:
+                return   # the arriving upload is the one evicted
+        for k, buf in self._res_stack.items():
+            buf[slot].copy_(as_tensor(upload[k], self.device))
+        self._res_weights[slot] = np.float32(weight)
+        self._g_reservoir.set(int((self._res_weights > 0).sum()))
 
     def fold_wave(self, stacked, weights) -> None:
         """Fold a ``[wave, ...]`` stack slot by slot, in slot order — the
@@ -240,6 +307,11 @@ class StreamingAggregator:
         if self._reference is None:
             raise RuntimeError("fold_wave() before reset(): the round's "
                                "clip reference is not set")
+        if self.method != "mean":
+            raise RuntimeError(
+                f"fold_wave: only the streaming mean folds pre-stacked "
+                f"waves; {self.method!r} needs the per-client population "
+                f"— fold() each upload into the reservoir instead")
         stacked = self._on_device(stacked)
         w_host = np.asarray(weights, np.float32)
         self._ensure_acc()
@@ -259,6 +331,11 @@ class StreamingAggregator:
                                "caller must skip aggregation on an empty "
                                "round")
         t0 = time.perf_counter()
+        if self._rule is not None:
+            out = self._rule(self._reference, self._res_stack,
+                             self._res_weights.copy(), step)
+            self._h_finalize.observe(time.perf_counter() - t0)
+            return out
         out = divide(self._acc, float(self._wsum), self._reference)
         if self.noise_std > 0:
             out = add_gaussian_noise(
@@ -270,7 +347,12 @@ class StreamingAggregator:
 
     def state_dict(self) -> Dict[str, object]:
         """Host snapshot of the fold state: the accumulator leaves in key
-        order (their own dtype), ``wsum`` f32, the counts."""
+        order (their own dtype), ``wsum`` f32, the counts.  A reservoir
+        round has no snapshot (its draws are not part of the state)."""
+        if self.method != "mean":
+            raise RuntimeError(
+                f"state_dict: only the streaming mean fold snapshots; "
+                f"{self.method!r} rounds are abort-only on crash")
         return {
             "acc": (None if self._acc is None else
                     [self._acc[k].cpu().numpy() for k in self._keys]),
@@ -279,6 +361,9 @@ class StreamingAggregator:
             "weight_total": float(self.weight_total)}
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
+        if self.method != "mean":
+            raise RuntimeError("load_state_dict: reservoir rounds are "
+                               "abort-only; nothing to restore")
         if self._reference is None:
             raise RuntimeError("load_state_dict before reset(): the round's "
                                "clip reference is not set")

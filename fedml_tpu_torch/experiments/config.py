@@ -26,14 +26,20 @@ class ExperimentConfig:
     epochs: int = 1
     comm_round: int = 10
     frequency_of_the_test: int = 5
-    rounds_per_dispatch: int = 1         # >1 is not ported (refused)
+    rounds_per_dispatch: int = 1         # >1: K rounds per call (scanned)
     ci: int = 0                          # eval only at round 0 and the end
     seed: int = 0
 
     norm_bound: float = 5.0              # robust: clip threshold
     stddev: float = 0.025                # robust: weak-DP noise
-    defense: str = "weak_dp"             # robust: none|norm_diff_clipping|weak_dp
+    defense: str = "weak_dp"             # robust: none|norm_diff_clipping|
+    #                                      weak_dp|a Byzantine rule
     defense_backend: str = "torch"       # robust: "torch" | "cuda" (fused)
+    trim_frac: float = 0.1               # trimmed_mean: cut per side
+    byz_f: int = 0                       # krum: assumed Byzantine count
+    krum_m: int = 1                      # multi_krum: updates averaged
+    gm_iters: int = 8                    # geometric_median: Weiszfeld steps
+    gm_eps: float = 1e-6                 # geometric_median: smoothing floor
 
     group_num: int = 2                   # turboaggregate: groups per round
     drop_tolerance: int = 1              # turboaggregate
@@ -44,9 +50,10 @@ class ExperimentConfig:
     agg_mode: str = "stack"              # "stack" | "stream"
     model_shards: int = 0                # >0: the sharded spine (stream)
     fused_finalize: str = "auto"         # shard finalize: auto|on|off (K2)
-    robust_agg: str = "mean"             # other rules are refused
+    robust_agg: str = "mean"             # mean or a Byzantine rule (live)
     norm_clip: float = 0.0               # >0: clip each upload's update
     agg_noise_std: float = 0.0           # >0: weak-DP noise at finalize
+    stream_reservoir: int = 64           # stream + a robust rule: slots
     straggler_policy: str = "wait"       # wait | drop | abort
     round_timeout_s: float = 0.0         # 0 = no straggler timer
     min_silo_frac: float = 0.5           # drop-policy quorum
@@ -90,7 +97,10 @@ class ExperimentConfig:
     eval_chunk_clients: int = 1024       # evaluate_global clients per call
     platform: Optional[str] = None       # None/"gpu" -> cuda; "cpu"
     run_dir: Optional[str] = None        # metrics.jsonl + summary.json here
-    checkpoint_dir: Optional[str] = None  # not ported (refused)
+    checkpoint_dir: Optional[str] = None  # round checkpoints + resume
+    checkpoint_every: int = 10           # save every N rounds (and the last)
+    checkpoint_async: bool = False       # write saves on a background thread
+    checkpoint_keep_last_n: int = 0      # >0: keep the newest N steps (0: 3)
     log_stdout: bool = True
 
 

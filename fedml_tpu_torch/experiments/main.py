@@ -25,6 +25,14 @@ transformer LM over the Shakespeare twin:
         --dataset shakespeare --client_num_in_total 715 \\
         --client_num_per_round 10 --batch_size 4 --lr 1.0 --epochs 1 \\
         --comm_round 3
+
+Plain FedAvg keeps the train split on the device when it fits and, with
+``--rounds_per_dispatch K``, runs K rounds a call (on the GPU as replays
+of one captured CUDA graph); ``--checkpoint_dir`` saves round checkpoints
+and resumes from the latest.  ``--defense`` takes the Byzantine rules
+(``krum --byz_f 1``, ...), and the live cross-silo server takes
+``--robust_agg`` in both ``--agg_mode stack`` and ``stream`` (with
+``--stream_reservoir K``).
 """
 
 from __future__ import annotations
@@ -93,24 +101,51 @@ def _summary(algo, params) -> Dict[str, Any]:
     return out
 
 
+def make_checkpointer(cfg: ExperimentConfig):
+    if not cfg.checkpoint_dir:
+        return None
+    from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
+    return RoundCheckpointer(cfg.checkpoint_dir,
+                             save_every=cfg.checkpoint_every,
+                             async_save=cfg.checkpoint_async,
+                             keep_last_n=cfg.checkpoint_keep_last_n)
+
+
+def _run_with_checkpoints(cfg, algo):
+    ckpt = make_checkpointer(cfg)
+    try:
+        params = algo.run(checkpointer=ckpt)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+    return _summary(algo, params)
+
+
 @runner("fedavg")
 def run_fedavg(cfg, data, sink):
     from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
     algo = FedAvg(_make_workload(cfg, data), data,
                   FedAvgConfig(**_fedavg_cfg_kwargs(cfg)), sink=sink,
                   device=cfg.platform)
-    return _summary(algo, algo.run())
+    return _run_with_checkpoints(cfg, algo)
+
+
+def fedavg_robust_config(cfg: ExperimentConfig):
+    from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustConfig
+    return FedAvgRobustConfig(
+        defense=cfg.defense, norm_bound=cfg.norm_bound, stddev=cfg.stddev,
+        defense_backend=cfg.defense_backend, trim_frac=cfg.trim_frac,
+        byz_f=cfg.byz_f, krum_m=cfg.krum_m, gm_iters=cfg.gm_iters,
+        gm_eps=cfg.gm_eps, **_fedavg_cfg_kwargs(cfg))
 
 
 @runner("fedavg_robust")
 def run_fedavg_robust(cfg, data, sink):
-    from fedml_tpu_torch.algorithms.fedavg_robust import (FedAvgRobust,
-                                                          FedAvgRobustConfig)
-    algo = FedAvgRobust(_make_workload(cfg, data), data, FedAvgRobustConfig(
-        defense=cfg.defense, norm_bound=cfg.norm_bound, stddev=cfg.stddev,
-        defense_backend=cfg.defense_backend, **_fedavg_cfg_kwargs(cfg)),
-        sink=sink, device=cfg.platform)
-    return _summary(algo, algo.run())
+    from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobust
+    algo = FedAvgRobust(_make_workload(cfg, data), data,
+                        fedavg_robust_config(cfg), sink=sink,
+                        device=cfg.platform)
+    return _run_with_checkpoints(cfg, algo)
 
 
 def turboaggregate_config(cfg: ExperimentConfig):
@@ -179,13 +214,18 @@ def silo_key(seed: int, round_idx: int, silo_id: int):
 
 def _robust_setup(cfg: ExperimentConfig, template):
     """The replicated path's admission pipeline (``--admission auto`` arms
-    it whenever a defense flag is set) and streaming fold (``--agg_mode
-    stream``; None in stack mode, which runs the plain weighted mean)."""
+    it whenever a defense flag is set) and aggregation: ``(admission,
+    defended, stream)``.  ``--agg_mode stream`` gives a streaming fold
+    (the mean, or a rule over its reservoir); stack mode gives the
+    defended aggregate over the staged cohort when a defense flag is set,
+    else None (the plain weighted mean)."""
     from fedml_tpu_torch.core.pytree import nest, to_host
     from fedml_tpu_torch.core.stream_agg import StreamingAggregator
     from fedml_tpu_torch.robust import AdmissionPipeline
+    from fedml_tpu_torch.robust.defense import make_defended_aggregate
 
-    robust_on = cfg.norm_clip > 0 or cfg.agg_noise_std > 0
+    robust_on = (cfg.robust_agg != "mean" or cfg.norm_clip > 0
+                 or cfg.agg_noise_std > 0)
     admission = None
     if cfg.admission == "on" or (cfg.admission == "auto" and robust_on):
         admission = AdmissionPipeline(
@@ -194,13 +234,17 @@ def _robust_setup(cfg: ExperimentConfig, template):
             norm_window=cfg.norm_screen_window,
             norm_min_history=cfg.norm_screen_min_history,
             trust=_trust_tracker(cfg))
-    stream = None
+    rule = dict(trim_frac=cfg.trim_frac, byz_f=cfg.byz_f, krum_m=cfg.krum_m,
+                gm_iters=cfg.gm_iters, gm_eps=cfg.gm_eps,
+                norm_clip=cfg.norm_clip, noise_std=cfg.agg_noise_std,
+                seed=cfg.seed)
     if cfg.agg_mode == "stream":
-        stream = StreamingAggregator(
+        return admission, None, StreamingAggregator(
             template, method=cfg.robust_agg, kind="params",
-            norm_clip=cfg.norm_clip, noise_std=cfg.agg_noise_std,
-            seed=cfg.seed)
-    return admission, stream
+            reservoir_k=cfg.stream_reservoir, **rule)
+    defended = (make_defended_aggregate(cfg.robust_agg, **rule)
+                if robust_on else None)
+    return admission, defended, None
 
 
 def _trust_tracker(cfg: ExperimentConfig):
@@ -245,9 +289,9 @@ class CrossSiloFederation:
                 norm_k=cfg.norm_screen_k, norm_window=cfg.norm_screen_window,
                 norm_min_history=cfg.norm_screen_min_history,
                 trust=_trust_tracker(cfg))
-            admission, stream = None, spine.agg
+            admission, defended, stream = None, None, spine.agg
         else:
-            admission, stream = _robust_setup(cfg, init)
+            admission, defended, stream = _robust_setup(cfg, init)
         self._eval_cohort = cohort_eval(make_evaluator(wl))
         self._freq = (max(cfg.comm_round, 1) if cfg.ci
                       else cfg.frequency_of_the_test)
@@ -261,7 +305,7 @@ class CrossSiloFederation:
             straggler_policy=cfg.straggler_policy,
             round_timeout_s=cfg.round_timeout_s or None,
             min_silo_frac=cfg.min_silo_frac, admission=admission,
-            stream_agg=stream, shard_wire=spine)
+            stream_agg=stream, shard_wire=spine, aggregate_fn=defended)
         self.silos = [FedAvgClientActor(g, self.hub.transport(g),
                                         make_train_fn(g))
                       for g in range(1, n_silos + 1)]
@@ -347,11 +391,26 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
             f"--silo_backend {cfg.silo_backend} is not ported yet; the "
             f"port runs the in-process hub only (comm/grpc_transport.py and "
             f"comm/mqtt_*: ROADMAP Queue 1 item 3)")
-    if cfg.robust_agg != "mean":
+    if cfg.checkpoint_dir and cfg.algo == "cross_silo":
         raise NotImplementedError(
-            f"--robust_agg {cfg.robust_agg} is not ported yet; the "
-            f"order-statistic rules need robust/defense.py (ROADMAP Queue 1 "
-            f"item 5)")
+            "--checkpoint_dir with --algo cross_silo is not ported yet; the "
+            "server actor's checkpointer and extra_state arrive with ROADMAP "
+            "Queue 1 item 3a")
+    from fedml_tpu_torch.robust.defense import ROBUST_AGG_METHODS
+    if cfg.robust_agg not in ROBUST_AGG_METHODS:
+        raise ValueError(f"--robust_agg must be one of {ROBUST_AGG_METHODS}, "
+                         f"got {cfg.robust_agg!r}")
+    if cfg.algo != "cross_silo" and (
+            cfg.robust_agg != "mean" or cfg.norm_clip or cfg.agg_noise_std
+            or cfg.admission == "on"):
+        raise ValueError(
+            f"--robust_agg/--norm_clip/--agg_noise_std/--admission on are "
+            f"the live distributed defense and apply to --algo cross_silo "
+            f"only; got --algo {cfg.algo}.  For the single-device cohort "
+            f"simulation use --algo fedavg_robust --defense ... instead.")
+    if cfg.stream_reservoir < 1:
+        raise ValueError(f"--stream_reservoir must be >= 1, got "
+                         f"{cfg.stream_reservoir}")
     if cfg.admission not in ("auto", "on", "off"):
         raise ValueError(f"--admission must be auto|on|off, "
                          f"got {cfg.admission!r}")
@@ -359,12 +418,6 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
     if cfg.agg_mode not in STREAM_MODES:
         raise ValueError(f"--agg_mode must be one of {STREAM_MODES}, "
                          f"got {cfg.agg_mode!r}")
-    if cfg.agg_mode == "stack" and (cfg.norm_clip > 0
-                                    or cfg.agg_noise_std > 0):
-        raise NotImplementedError(
-            "defended --agg_mode stack (--norm_clip/--agg_noise_std) is not "
-            "ported yet; it needs robust/defense.py (ROADMAP Queue 1 item "
-            "5) — pass --agg_mode stream")
     if cfg.model_shards < 0:
         raise ValueError(f"--model_shards must be >= 0, got "
                          f"{cfg.model_shards}")
@@ -385,6 +438,13 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
             raise ValueError(
                 "--model_shards shards the STREAMING fold state — pass "
                 "--agg_mode stream")
+        if cfg.robust_agg != "mean":
+            raise ValueError(
+                f"--model_shards with --robust_agg {cfg.robust_agg}: "
+                f"order-statistic rules need the per-upload population, "
+                f"which the sharded fold never materializes; for robust "
+                f"rules use the replicated --agg_mode stream "
+                f"--stream_reservoir K")
         if cfg.admission == "off":
             raise ValueError(
                 "--model_shards requires the admission screens: the "
@@ -408,12 +468,13 @@ def check_config(cfg: ExperimentConfig) -> None:
             "torch.distributed with ROADMAP Queue 1 item 10")
     if cfg.mesh_clients:
         raise NotImplementedError(
-            "--mesh_clients is not ported yet; the mesh paths arrive with "
-            "the scanned/mesh-path slice (ROADMAP Queue 1)")
-    if cfg.checkpoint_dir:
+            "--mesh_clients is not ported yet; the shard_map cohort step "
+            "arrives over torch.distributed with ROADMAP Queue 1 item 10")
+    if cfg.checkpoint_dir and cfg.algo == "turboaggregate":
         raise NotImplementedError(
-            "--checkpoint_dir is not ported yet; checkpoint/resume arrives "
-            "with its own slice (ROADMAP Queue 1)")
+            "--checkpoint_dir with --algo turboaggregate is not ported yet; "
+            "the secure round loop has no checkpoint hooks (ROADMAP Queue 1 "
+            "item 3b)")
 
 
 def main(argv=None) -> Dict[str, Any]:

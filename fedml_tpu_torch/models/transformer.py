@@ -94,10 +94,9 @@ class TransformerLM(nn.Module):
         super().__init__()
         if dropout_rate:
             raise NotImplementedError(
-                "dropout_rate > 0 is not ported yet: threefry and torch "
-                "draw different dropout masks, so the port cannot be held "
-                "to the JAX model in training (the reason CNNDropOut waits, "
-                "ROADMAP Queue 1 item 5)")
+                "dropout_rate > 0 is not ported yet: it needs a dropout-mask "
+                "seam in the local trainer, and arrives with CNNDropOut and "
+                "the server optimizers (ROADMAP Queue 1 item 7)")
         if moe_experts:
             raise NotImplementedError(
                 "moe_experts > 0 (the Switch MoE FFN, models/moe.py) is not "

@@ -1,20 +1,30 @@
 """The cohort engine: one FL round over a stacked cohort.
 
-Port of ``fedml_tpu/parallel/cohort.py`` (single device; the mesh,
-device-resident and scanned-round paths are not ported).  A cohort is a
-dict of tensors ``{x, y, mask: [C, S, B, ...], num_samples: [C]}``; the
-local trainer runs over its client axis in one of two ways, which give
-identical stacked outputs:
+Port of ``fedml_tpu/parallel/cohort.py`` (single device; the mesh path is
+not ported).  A cohort is a dict of tensors ``{x, y, mask: [C, S, B,
+...], num_samples: [C]}``; the local trainer runs over its client axis in
+one of two ways, which give identical stacked outputs:
 
 * ``"vmap"`` — ``torch.func.vmap`` trains all clients together; convs
   with per-client weights become grouped convs;
 * ``"scan"`` — a Python loop trains one client at a time; every conv is a
   dense cuDNN conv.
+
+The device-resident round (`make_device_round`) keeps the whole stacked
+train split on the device and gathers the cohort by ids inside the round,
+so only the ids cross per round; `make_scanned_rounds` runs K such rounds
+per call.  On the CPU both are the eager round body.  On a CUDA device
+the round is captured once as a ``torch.cuda.CUDAGraph`` (`GraphedRounds`)
+and replayed, K times a chunk, with the chunk's ids and live masks copied
+to the device in one transfer and a device-side round counter picking
+each replay's row.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+import gc
+import time
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -114,3 +124,339 @@ def cohort_eval(evaluate):
                                  if k != "num_samples"})
 
     return _eval_cohort
+
+
+# ---------------------------------------------------------------------------
+# the device-resident round
+# ---------------------------------------------------------------------------
+
+def gather_live_cohort(stacked: CohortData, ids: torch.Tensor,
+                       live: torch.Tensor) -> CohortData:
+    """The cohort, gathered on the device from the resident split by
+    ``ids`` ([m] int64), with padded slots (``live`` 0) masked out: the
+    one definition of the live-masking convention, the same arithmetic as
+    the host gather (`data.stacking.gather_cohort`)."""
+    cohort = {k: v.index_select(0, ids) for k, v in stacked.items()}
+    cohort["mask"] = cohort["mask"] * live[:, None, None]
+    cohort["num_samples"] = cohort["num_samples"] * live
+    return cohort
+
+
+def _device_round_body(local_train, aggregate, transform_update,
+                       client_axis: str = "vmap"):
+    """One device-resident round: gather by ids, mask, train the cohort,
+    aggregate.  Shared by `make_device_round` and `make_scanned_rounds`,
+    so the two paths cannot drift apart."""
+
+    def body(params, stacked, ids, live, seed_words=(0, 0)):
+        cohort = gather_live_cohort(stacked, ids, live)
+        stacked_out, metrics = train_cohort(
+            local_train, params, cohort, seed_words,
+            transform_update=transform_update, client_axis=client_axis)
+        return _call_aggregate(aggregate, stacked_out,
+                               cohort["num_samples"], params,
+                               seed_words), metrics
+
+    return body
+
+
+PLAN_BUFFERS = 16    # pinned plan copies a graphed round cycles through
+WARMUP_ROUNDS = 1    # eager rounds on the capture stream before capturing
+
+# when set to a directory, every capture writes its CUDA graph there as a
+# Graphviz file (``cudaGraphDebugDotPrint``), for a caller that counts the
+# kernel nodes the graph holds
+GRAPH_DOT_DIR: Optional[str] = None
+
+
+def _launch_counters() -> Dict[str, Dict[str, int]]:
+    """The kernel wrappers' launch counters, by module."""
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.models import flash_attention
+    from fedml_tpu_torch.secure import fused_mask
+    return {"fused_agg": fused_agg.launch_counts,
+            "flash_attention": flash_attention.launch_counts,
+            "fused_mask": fused_mask.launch_counts}
+
+
+def _launch_snapshot() -> Dict[str, int]:
+    return {name: n for counts in _launch_counters().values()
+            for name, n in counts.items()}
+
+
+class GraphedRounds:
+    """A device-resident round captured once as a CUDA graph and replayed.
+
+    ``body`` is `_device_round_body`'s round (the base cohort step only:
+    nothing on the captured path may synchronise with the host or draw
+    from a CPU generator); ``stacked`` the resident split on the card.
+    The graph reads the static params buffer (`params`) and a plan
+    buffer ``[counter, rows]`` of ``max_rounds`` rows ``[ids (m), live
+    (m)]``; it gathers row ``counter``'s cohort, trains it, aggregates,
+    copies the new global into `params` and advances ``counter``.  So a
+    chunk of K rounds is one host-to-device copy of the plan and K
+    replays.
+
+    The first `run` warms the round up on the capture stream (cuDNN picks
+    its algorithms, kernel modules load) with outputs discarded, then
+    captures.  A failed capture raises; there is no eager fallback.
+
+    Counted for callers: ``captures``, ``replays``, ``capture_s`` (warm-up
+    and capture wall time), ``warmup_launches`` and
+    ``captured_launches`` — the kernel wrappers' launch-counter deltas
+    during the warm-up and during the capture (each replay launches the
+    captured kernels once more, without the wrappers).  With
+    `GRAPH_DOT_DIR` set, ``dot_path`` names the captured graph's file.
+    """
+
+    def __init__(self, body, stacked: CohortData, clients_per_round: int,
+                 max_rounds: int = 1):
+        device = next(iter(stacked.values())).device
+        if device.type != "cuda":
+            raise ValueError(
+                f"GraphedRounds captures a CUDA graph; the resident split is "
+                f"on {device}")
+        for k, v in stacked.items():
+            if v.device != device:
+                raise ValueError(f"resident split leaf {k} is on {v.device}, "
+                                 f"the rest on {device}")
+        if max_rounds < 1 or clients_per_round < 1:
+            raise ValueError(f"max_rounds and clients_per_round must be >= "
+                             f"1, got {max_rounds}, {clients_per_round}")
+        self._body = body
+        self.stacked = stacked
+        self.device = device
+        self.m = int(clients_per_round)
+        self.max_rounds = int(max_rounds)
+        self.warmup_rounds = WARMUP_ROUNDS
+        n = 1 + self.max_rounds * 2 * self.m
+        self._plan = torch.zeros(n, dtype=torch.int64, device=device)
+        # pinned host copies of the plan, used in turn; a slot is rewritten
+        # only once the copy that read it has run (its event), so no round
+        # allocates pinned memory
+        self._plan_host = [torch.zeros(n, dtype=torch.int64, pin_memory=True)
+                           for _ in range(PLAN_BUFFERS)]
+        self._plan_copied = [torch.cuda.Event() for _ in range(PLAN_BUFFERS)]
+        self._plan_next = 0
+        self.params: Optional[Dict[str, torch.Tensor]] = None
+        self.metrics = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
+        self.warmup_launches: Dict[str, int] = {}
+        self.captured_launches: Dict[str, int] = {}
+        self.dot_path: Optional[str] = None
+
+    def _round(self):
+        rows = self._plan[1:].view(self.max_rounds, 2 * self.m)
+        row = rows.index_select(0, self._plan[:1])[0]
+        ids = row[:self.m]
+        live = row[self.m:].to(torch.float32)
+        return self._body(self.params, self.stacked, ids, live)
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        before = _launch_snapshot()
+        with torch.cuda.stream(stream):
+            for _ in range(self.warmup_rounds):
+                self._round()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        mid = _launch_snapshot()
+        dump = GRAPH_DOT_DIR is not None
+        keep = False
+        graph = torch.cuda.CUDAGraph()
+        if dump:
+            try:    # keep the captured graph past instantiation to print it
+                graph, keep = torch.cuda.CUDAGraph(keep_graph=True), True
+            except TypeError:
+                pass
+            graph.enable_debug_mode()
+        # no garbage collection inside the capture: a collected object
+        # that frees pinned memory or an event calls into CUDA off the
+        # capture stream, which invalidates the capture
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                new_params, metrics = self._round()
+                for k, v in self.params.items():
+                    v.copy_(new_params[k])
+                self._plan[:1].add_(1)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing the device round as a CUDA graph failed: "
+                f"{type(e).__name__}: {e}") from e
+        finally:
+            gc.enable()
+        after = _launch_snapshot()
+        self.metrics = metrics
+        self.warmup_launches = {k: mid[k] - before[k] for k in mid
+                                if mid[k] != before[k]}
+        self.captured_launches = {k: after[k] - mid[k] for k in after
+                                  if after[k] != mid[k]}
+        if dump:
+            import os
+            os.makedirs(GRAPH_DOT_DIR, exist_ok=True)
+            self.dot_path = os.path.join(GRAPH_DOT_DIR,
+                                         f"round_graph_{id(self):x}.dot")
+            if keep:
+                graph.instantiate()
+            graph.debug_dump(self.dot_path)
+        self._graph = graph
+        self.captures += 1
+        self.capture_s = time.perf_counter() - t0
+
+    def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
+        if self.params is None:
+            self.params = {k: torch.empty_like(v, device=self.device)
+                           for k, v in params.items()}
+        if params is self.params:
+            return
+        if sorted(params) != sorted(self.params):
+            raise ValueError("params do not match the captured round's "
+                             "leaf set")
+        for k, v in params.items():
+            if v.device != self.device:
+                raise ValueError(f"param {k} is on {v.device}; the graphed "
+                                 f"round runs on {self.device}")
+            self.params[k].copy_(v)
+
+    def run(self, params: Dict[str, torch.Tensor], ids: np.ndarray,
+            live: np.ndarray):
+        """Run ``K = len(ids)`` rounds from ``params``; ``ids`` and
+        ``live`` are ``[K, m]``.  Returns the static params and metrics
+        buffers, which the next call overwrites: clone what must be
+        kept."""
+        ids = np.asarray(ids, np.int64)
+        live = np.asarray(live, np.float32)
+        k_rounds = ids.shape[0]
+        if ids.shape != (k_rounds, self.m) or live.shape != ids.shape \
+                or not 1 <= k_rounds <= self.max_rounds:
+            raise ValueError(f"ids/live must be [K, {self.m}] with 1 <= K <= "
+                             f"{self.max_rounds}, got {ids.shape}, "
+                             f"{live.shape}")
+        self._load_params(params)
+        slot = self._plan_next
+        self._plan_next = (slot + 1) % PLAN_BUFFERS
+        self._plan_copied[slot].synchronize()
+        n = 1 + k_rounds * 2 * self.m
+        host = self._plan_host[slot][:n]
+        plan = host.numpy()
+        plan[0] = 0                                   # the round counter
+        rows = plan[1:].reshape(k_rounds, 2 * self.m)
+        rows[:, :self.m] = ids
+        rows[:, self.m:] = live != 0
+        self._plan[:n].copy_(host, non_blocking=True)
+        self._plan_copied[slot].record()
+        if self._graph is None:
+            self._capture()
+        for _ in range(k_rounds):
+            self._graph.replay()
+            self.replays += 1
+        return self.params, self.metrics
+
+
+def _graph_ready(stacked: CohortData, aggregate, transform_update) -> bool:
+    """Whether the round is captured as a graph: on a CUDA device, for the
+    base cohort step only (a per-client hook or a round-keyed aggregate
+    draws from host generators or host scalars)."""
+    device = next(iter(stacked.values())).device
+    if device.type != "cuda":
+        return False
+    if transform_update is not None \
+            or getattr(aggregate, "needs_global", False):
+        raise ValueError(
+            "the graphed device round serves the base cohort step only; "
+            "a transform_update hook or a round-keyed aggregate runs the "
+            "host loop")
+    return True
+
+
+class _DeviceRounds:
+    """The device-resident round behind `make_device_round` and
+    `make_scanned_rounds`: the eager body on the CPU, a `GraphedRounds`
+    (``.graph``, captured at the first call) on a CUDA device."""
+
+    def __init__(self, body, aggregate, transform_update,
+                 clients_per_round: int, max_rounds: int):
+        self._body = body
+        self._aggregate = aggregate
+        self._transform_update = transform_update
+        self.m = clients_per_round
+        self.max_rounds = max_rounds
+        self.graph: Optional[GraphedRounds] = None
+
+    def graphed(self, stacked) -> bool:
+        return _graph_ready(stacked, self._aggregate, self._transform_update)
+
+    def eager(self, params, stacked, ids, live, seed_words=(0, 0)):
+        return self._body(params, stacked,
+                          torch.as_tensor(np.asarray(ids, np.int64)),
+                          torch.as_tensor(np.asarray(live, np.float32)),
+                          seed_words)
+
+    def replay(self, params, stacked, ids, live):
+        """Rows ``[K, m]`` of ids and live masks through the graph."""
+        if self.graph is None:
+            self.graph = GraphedRounds(self._body, stacked, self.m,
+                                       self.max_rounds)
+        elif self.graph.stacked is not stacked:
+            raise ValueError("the graphed round was captured for another "
+                             "resident split")
+        return self.graph.run(params, np.asarray(ids).reshape(-1, self.m),
+                              np.asarray(live).reshape(-1, self.m))
+
+
+class _DeviceRound(_DeviceRounds):
+    def __call__(self, params, stacked, ids, live, seed_words=(0, 0)):
+        if self.graphed(stacked):
+            return self.replay(params, stacked, ids, live)
+        return self.eager(params, stacked, ids, live, seed_words)
+
+
+class _ScannedRounds(_DeviceRounds):
+    def __call__(self, params, stacked, ids, live, seed_words=None):
+        if self.graphed(stacked):
+            return self.replay(params, stacked, ids, live)
+        metrics = None
+        for k in range(len(ids)):
+            words = (0, 0) if seed_words is None else seed_words[k]
+            params, metrics = self.eager(params, stacked, ids[k], live[k],
+                                         words)
+        return params, metrics
+
+
+def make_device_round(local_train, clients_per_round: int,
+                      aggregate=tree_weighted_mean, transform_update=None,
+                      client_axis: str = "vmap"):
+    """The device-resident round: ``round_fn(params, stacked_dev, ids,
+    live, seed_words=(0, 0)) -> (new_params, metrics)``, where
+    ``stacked_dev`` is the resident ``{x, y, mask, num_samples}`` split,
+    ``ids`` an int [m] cohort padded with any valid id and ``live`` its
+    1/0 mask of real slots.
+
+    On the CPU it is the eager round body.  On a CUDA device it is a
+    `GraphedRounds` captured at the first call (``round_fn.graph`` after
+    that) for that ``stacked_dev``; its outputs are the graph's static
+    buffers, which the next call overwrites."""
+    return _DeviceRound(_device_round_body(local_train, aggregate,
+                                           transform_update, client_axis),
+                        aggregate, transform_update, clients_per_round, 1)
+
+
+def make_scanned_rounds(local_train, clients_per_round: int,
+                        aggregate=tree_weighted_mean, transform_update=None,
+                        client_axis: str = "vmap", max_rounds: int = 1):
+    """K rounds per call over the resident split: ``rounds_fn(params,
+    stacked_dev, ids [K, m], live [K, m], seed_words=None) ->
+    (params, metrics)``, ``seed_words`` one pair per round.  On the CPU a
+    loop of the eager round body; on a CUDA device one `GraphedRounds`
+    with room for ``max_rounds`` rows, replayed K times
+    (``rounds_fn.graph``)."""
+    return _ScannedRounds(_device_round_body(local_train, aggregate,
+                                             transform_update, client_axis),
+                          aggregate, transform_update, clients_per_round,
+                          max_rounds)

@@ -257,3 +257,70 @@ def test_k_ab_tool_modes_refuse_without_a_card(monkeypatch):
     for mode in ("k1", "k3"):
         with pytest.raises(SystemExit, match="needs a GPU"):
             k2_ab.main([mode, "a.cu", "b.cu"])
+
+
+GRAPH_DOT = """\
+digraph dot {
+subgraph cluster_1 {
+label="graph_1" graph[style="dashed"];
+"graph_1_node_0"[
+\tstyle="solid" shape="record" label="{
+KERNEL
+| {<b>ID | node handle | func handle</b> | 0 | 0x5f3c | 0x7a10}
+| {<b>name | mangled name</b> | void flash_fwd_kernel<32>(...) | \
+_ZN12_GLOBAL__N_116flash_fwd_kernelILi32EEEvPKfS2_S2_PfS3_S3_if}
+}"];
+"graph_1_node_1"[
+\tstyle="solid" shape="record" label="{
+KERNEL
+| {<b>name | mangled name</b> | flash_bwd_dq_kernel<32> | \
+_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi32EEEvPKfS2_S2_S2_S2_S2_S2_Pfif}
+}"];
+"graph_1_node_2"[
+\tstyle="solid" shape="record" label="{MEMCPY | {dst | src}}"];
+"graph_1_node_3"[
+\tstyle="solid" shape="record" label="{
+KERNEL
+| {<b>name | mangled name</b> | flash_fwd_kernel<32> | \
+_ZN12_GLOBAL__N_116flash_fwd_kernelILi32EEEvPKfS2_S2_PfS3_S3_if}
+}"];
+"graph_1_node_0" -> "graph_1_node_1";
+"graph_1_node_1" -> "graph_1_node_3";
+}
+}
+"""
+
+
+def test_graph_kernel_counts_counts_each_node_once():
+    """The K4 check reads the captured graph's own kernel nodes: a node
+    that names its kernel twice (name and mangled name) counts once, edges
+    and other nodes not at all."""
+    got = cs.graph_kernel_counts(GRAPH_DOT, cs.K4_KERNELS.values())
+    assert got == {"flash_fwd_kernel": 2, "flash_bwd_dkv_kernel": 0,
+                   "flash_bwd_dq_kernel": 1}
+
+
+def test_new_phase_configs_parse_and_pass_the_gates():
+    """The configurations the chip phases drive are valid CLI configs: the
+    Byzantine rules at the CNN's cohort (multi-Krum's m <= n - f - 2), the
+    robust cross-silo modes, the scanned run's cadence."""
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config
+    for rule, extra in cs.BYZ_ARGS.items():
+        cfg = config_from_argv(["--algo", "fedavg_robust", "--defense",
+                                rule, *extra, *cs.COMMON_ARGS])
+        check_config(cfg)
+        if rule == "multi_krum":
+            assert cfg.krum_m <= cfg.client_num_per_round - cfg.byz_f - 2
+    base = ["--algo", "cross_silo", "--silo_backend", "local",
+            *cs.COMMON_ARGS]
+    for extra in cs.SILO_ROBUST_ARGS.values():
+        check_config(config_from_argv(base + extra))
+    for mode in ("stack", "stream"):
+        check_config(config_from_argv(cs.SILO_MEAN_ARGS
+                                      + ["--agg_mode", mode]))
+    cfg = config_from_argv(cs.SCAN_ARGS + ["--rounds_per_dispatch",
+                                           str(cs.SCAN_K)])
+    check_config(cfg)
+    assert (cfg.comm_round, cfg.frequency_of_the_test,
+            cfg.rounds_per_dispatch) == (21, 10, 10)

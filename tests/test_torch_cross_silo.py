@@ -31,6 +31,7 @@ from fedml_tpu.algorithms import cross_silo as j_cross_silo
 from fedml_tpu.comm.local import LocalHub as JHub
 from fedml_tpu.core.stream_agg import StreamingAggregator as JStream
 from fedml_tpu.experiments.config import ExperimentConfig as JConfig
+from fedml_tpu.robust.defense import make_defended_aggregate as j_defended
 from fedml_tpu.shard_spine import build_shard_spine as j_build_spine
 from fedml_tpu_torch.algorithms.cross_silo import (FedAvgClientActor,
                                                    FedAvgServerActor,
@@ -43,6 +44,7 @@ from fedml_tpu_torch.core.stream_agg import StreamingAggregator
 from fedml_tpu_torch.experiments import main as t_main
 from fedml_tpu_torch.experiments.config import config_from_argv
 from fedml_tpu_torch.robust import AdmissionPipeline
+from fedml_tpu_torch.robust.defense import make_defended_aggregate
 from fedml_tpu_torch.shard_spine import build_shard_spine
 from fedml_tpu_torch.utils.jax_params import params_from_numpy, params_to_numpy
 
@@ -147,8 +149,8 @@ def _t_run(rounds, S=0, n=3, clip=0.0, fused="off", mode="stream",
     elif mode == "stream":
         stream = StreamingAggregator(init, method="mean", norm_clip=clip)
     server = FedAvgServerActor(hub.transport(0), init, n, n, rounds,
-                               stream_agg=stream, shard_wire=spine,
-                               **server_kw)
+                               stream_agg=server_kw.pop("stream_agg", stream),
+                               shard_wire=spine, **server_kw)
     silos = []
     for i in range(1, n + 1):
         cls = FedAvgClientActor
@@ -216,6 +218,55 @@ def test_stack_matches_jax_stack_and_stream():
     assert _bits_equal(stack.params, _j_run(3, mode="stack").params)
     stream, _ = _t_run(3, mode="stream")
     _close(stack.params, params_to_numpy(stream.params), atol=1e-6)
+
+
+_RULE = dict(trim_frac=0.2, byz_f=1, krum_m=2)
+
+
+@pytest.mark.parametrize("mode,method,clip,atol", [
+    ("stack", "mean", 2.0, 1e-5), ("stack", "trimmed_mean", 2.0, 1e-5),
+    ("stack", "krum", 0.0, 1e-6), ("stack", "geometric_median", 0.0, 1e-5),
+    ("stream", "coordinate_median", 0.0, 1e-6),
+    ("stream", "multi_krum", 2.0, 1e-5),
+    ("stream", "trimmed_mean", 0.0, 1e-6)])
+def test_robust_federation_matches_jax(mode, method, clip, atol):
+    """Five silos, 3 rounds, the defended aggregate over the stack (slots
+    of the global at weight 0) or a rule over the stream's reservoir (K =
+    4 < 5 uploads, so Algorithm R draws), against the JAX package."""
+    if mode == "stack":
+        t_kw = dict(aggregate_fn=make_defended_aggregate(
+            method, norm_clip=clip, **_RULE))
+        j_kw = dict(aggregate_fn=j_defended(method, norm_clip=clip,
+                                            **_RULE))
+    else:
+        t_kw = dict(stream_agg=StreamingAggregator(
+            params_from_numpy(_params()), method=method, norm_clip=clip,
+            reservoir_k=4, **_RULE))
+        j_kw = dict(stream_agg=JStream(_params(), method=method,
+                                       norm_clip=clip, reservoir_k=4,
+                                       **_RULE))
+    got, _ = _t_run(3, n=5, mode=None, **t_kw)
+    want = _j_run(3, n=5, mode=None, **j_kw)
+    assert got.round_idx == want.round_idx == 3
+    _close(got.params, want.params, atol)
+    assert not _bits_equal(got.params, _params())
+
+
+def test_stack_mean_equals_stream_mean_bit_for_bit():
+    """The defended mean over the staged stack (clip, noise) equals the
+    streaming fold of the same uploads, bit for bit, round after round —
+    including a round where a silo's slot holds the global at weight 0."""
+    kw = dict(norm_clip=2.0, noise_std=0.01, seed=5)
+    stack, _ = _t_run(3, n=4, mode=None, deaf=(3,), straggler_policy="drop",
+                      round_timeout_s=3600,
+                      aggregate_fn=make_defended_aggregate("mean", **kw))
+    stream, _ = _t_run(3, n=4, mode=None, deaf=(3,),
+                       straggler_policy="drop", round_timeout_s=3600,
+                       stream_agg=StreamingAggregator(
+                           params_from_numpy(_params()), **kw))
+    assert stack.dropped_silos == stream.dropped_silos == {0: [3], 1: [3],
+                                                           2: [3]}
+    assert _bits_equal(stack.params, params_to_numpy(stream.params))
 
 
 def test_broadcast_encodes_once_per_shard():
@@ -355,7 +406,7 @@ def test_admission_rejects_a_poisoned_plain_upload():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option", [
-    "aggregate_fn", "secagg", "journal", "checkpointer", "extra_state",
+    "secagg", "journal", "checkpointer", "extra_state",
     "faultline", "ingest", "health", "perf", "server_opt", "controller",
     "degrade", "decode_upload", "failure_detector", "publish"])
 def test_unported_actor_options_are_refused_by_name(option):
@@ -367,6 +418,10 @@ def test_unported_actor_options_are_refused_by_name(option):
 
 def test_actor_level_gates():
     init = params_from_numpy(_params())
+    with pytest.raises(ValueError, match="exclusive"):
+        FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
+                          stream_agg=StreamingAggregator(init),
+                          aggregate_fn=make_defended_aggregate())
     spine = build_shard_spine(init, num_shards=2, min_split_elems=64)
     with pytest.raises(ValueError, match="sharded stream_agg"):
         FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
@@ -392,11 +447,13 @@ _CS = ["--algo", "cross_silo", "--agg_mode", "stream", "--model_shards",
     (["--agg_mode", "sideways", "--model_shards", "0"], ValueError,
      "agg_mode"),
     (["--admission", "maybe"], ValueError, "auto\\|on\\|off"),
-    (["--robust_agg", "krum"], NotImplementedError, "robust/defense.py"),
+    (["--robust_agg", "krum"], ValueError, "model_shards with --robust_agg"),
     (["--silo_backend", "grpc"], NotImplementedError, "grpc"),
     (["--silo_backend", "mqtt"], NotImplementedError, "mqtt"),
-    (["--agg_mode", "stack", "--model_shards", "0", "--norm_clip", "1"],
-     NotImplementedError, "defended --agg_mode stack"),
+    (["--model_shards", "0", "--robust_agg", "krum", "--stream_reservoir",
+      "0"], ValueError, "stream_reservoir"),
+    (["--model_shards", "0", "--robust_agg", "median"], ValueError,
+     "robust_agg must be one of"),
     (["--secagg", "pairwise"], NotImplementedError, "secure/protocol.py"),
     (["--edge_aggregators", "2"], NotImplementedError, "hierarchical"),
     (["--wire_compression", "topk"], NotImplementedError, "compress"),
@@ -499,6 +556,45 @@ def test_runner_matches_jax_run_cross_silo(monkeypatch):
     _close(server.params, want, atol=1e-4)
     for k in ("test_acc", "train_loss"):
         assert got_stats[k] == pytest.approx(want_stats[k], abs=1e-3)
+
+
+@pytest.mark.parametrize("flags", [
+    dict(agg_mode="stack", robust_agg="trimmed_mean", norm_clip=5.0),
+    dict(agg_mode="stream", robust_agg="coordinate_median",
+         stream_reservoir=2)])
+def test_robust_runner_matches_jax_run_cross_silo(monkeypatch, flags):
+    """The runner's ``--robust_agg`` wiring in both modes: 12 femnist-twin
+    clients, 3 silos, the CNN, 2 rounds, from the JAX runner's init
+    (1e-4, the CNN slice's limit)."""
+    args = dict(algo="cross_silo", model="cnn_fedavg", dataset="femnist",
+                client_num_in_total=12, client_num_per_round=3,
+                batch_size=20, lr=0.1, epochs=1, comm_round=2,
+                frequency_of_the_test=1000, log_stdout=False, **flags)
+    jcfg = JConfig(**args, platform="cpu")
+    jdata = j_main.load_experiment_data(jcfg)
+    jinit, _ = j_main._silo_training_setup(jcfg, jdata,
+                                           j_main._make_workload(jcfg, jdata))
+    servers = []
+
+    class Recording(j_cross_silo.FedAvgServerActor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    monkeypatch.setattr(j_cross_silo, "FedAvgServerActor", Recording)
+    j_main.run_cross_silo(jcfg, jdata, None, _Sink())
+    want = jax.tree.map(np.asarray, servers[0].params)
+    tcfg = t_main.ExperimentConfig(**args, platform="cpu")
+    t_main.check_config(tcfg)
+    fed = t_main.CrossSiloFederation(
+        tcfg, t_main.load_experiment_data(tcfg), _Sink(),
+        init_params=params_from_numpy(jax.tree.map(np.asarray, jinit)))
+    stats = fed.run()
+    assert fed.server.round_idx == 2 and stats["params_finite"]
+    assert (fed.server.aggregate_fn is not None) == (flags["agg_mode"]
+                                                     == "stack")
+    assert fed.server.admission is not None
+    _close(fed.server.params, want, atol=1e-4)
 
 
 def test_cli_runs_on_cpu_and_refuses_without_it(tmp_path):

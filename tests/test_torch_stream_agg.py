@@ -208,8 +208,39 @@ def test_state_dict_roundtrip_is_bit_exact():
                                     "krum", "multi_krum",
                                     "geometric_median"])
 def test_reservoir_rules_are_refused_by_name(method):
-    with pytest.raises(NotImplementedError, match="robust/defense.py"):
-        StreamingAggregator(params_from_numpy(_params()), method=method)
+    """The order-statistic rules stream into a reservoir; what the
+    reservoir cannot do (fold a pre-summed wave, snapshot its draws) is
+    refused naming the rule."""
+    agg = StreamingAggregator(params_from_numpy(_params()), method=method)
+    assert agg.defended and agg.reservoir_k == 64
+    agg.reset(params_from_numpy(_params()))
+    with pytest.raises(RuntimeError, match=method):
+        agg.fold_wave(params_from_numpy(_params()), np.ones(1))
+    with pytest.raises(RuntimeError, match=method):
+        agg.state_dict()
+
+
+@pytest.mark.parametrize("kind", ["params", "delta"])
+def test_reservoir_matches_jax(kind):
+    """Algorithm R over the JAX package's ``RandomState(seed)``: the same
+    slots, bit for bit, over two rounds (with an upload offered past K),
+    and the trimmed mean over them within 1e-6."""
+    tmpl = _params()
+    j = JStream(tmpl, method="trimmed_mean", kind=kind, reservoir_k=3,
+                seed=4, trim_frac=0.2)
+    t = StreamingAggregator(params_from_numpy(tmpl), method="trimmed_mean",
+                            kind=kind, reservoir_k=3, seed=4, trim_frac=0.2)
+    ups, ws = _uploads(7)
+    for round_idx in range(2):
+        j.reset(tmpl)
+        t.reset(params_from_numpy(tmpl))
+        for u, w in zip(ups, ws):
+            j.fold(u, w)
+            t.fold(params_from_numpy(u), w)
+        assert t._res_weights.tobytes() == j._res_weights.tobytes()
+        _assert_equal(t._res_stack, j._res_stack)
+        _assert_equal(t.finalize(round_idx), j.finalize(round_idx),
+                      atol=1e-6)
 
 
 def test_validation_and_lifecycle_errors():
