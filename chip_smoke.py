@@ -98,6 +98,29 @@ each printed as it ends; any failure exits non-zero:
 8e. checkpoint — a 4-round run against a run stopped after round 2 and
    resumed from its checkpoint, through the CLI's runner, bit-equal on
    the card (deterministic mode);
+8f. cross_silo crash resume — the cross-silo slice (S=4, K2 on) with
+   ``--checkpoint_dir`` and ``--journal_dir`` (a snapshot every fold),
+   killed in round 1 by a ``Faultline`` at ``post_admission_pre_fold``
+   (hit 2), ``post_fold_pre_ack`` (hit 2), ``barrier_close`` and
+   ``mid_checkpoint_write``, respawned and resumed in the same process:
+   each resumed global bit-equal on the card to the uncrashed run's
+   (deterministic mode), 4 K2 launches a round closed after the resume,
+   the silos re-tasked; a journal with a tampered opening crc abandoned
+   and the run still equal; each snapshot's device->host, encode, write
+   and fsync times; the journaled round beside the plain one;
+8g. cross_silo chaos threaded — the same federation, each actor on its
+   own thread, 4 rounds under ``--chaos_drop/dup/reorder/delay 0.1
+   --chaos_corrupt 0.05`` (silo 1's links clean) with the drop policy,
+   heartbeats every 0.05 s and the failure detector (T and D from the
+   measured round): every round closes, faults by kind, no upload folded
+   twice, none non-finite, 4 K2 launches a round, each round's global
+   against its replay from the server's record (limit 1e-4); rounds/s and
+   the device's idle share;
+8h. cross_silo mqtt — the same federation over the repo's MQTT broker on
+   the loopback (10 silo threads, ``MiniMqttClient`` in
+   ``ResilientTransport``), 3 rounds: 4 K2 launches a round, the global
+   against the pumped hub run (limit 1e-4), rounds/s, the broker's bytes
+   a round, the MQTT round beside the hub round;
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
@@ -127,6 +150,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import shutil
 import statistics
@@ -2068,6 +2092,491 @@ def check_checkpoint(data, root: Path):
 
 
 # ---------------------------------------------------------------------------
+# live cross-silo fault tolerance and transports: crash -> resume through
+# the round journal, chaos on the threaded drive, MQTT over the repo's own
+# broker (the sharded slice's configuration, K2 in every closed round)
+# ---------------------------------------------------------------------------
+
+FT_ROUNDS = 3                  # rounds of the crash-resume and MQTT runs
+CRASH_AT = (("post_admission_pre_fold", 2), ("post_fold_pre_ack", 2),
+            ("barrier_close", 1), ("mid_checkpoint_write", 1))
+CRASH_ROUND = 1                # the round each kill lands in
+CHAOS_ROUNDS = 4
+CHAOS_RATES = ["--chaos_drop", "0.1", "--chaos_dup", "0.1",
+               "--chaos_reorder", "0.1", "--chaos_delay", "0.1",
+               "--chaos_corrupt", "0.05"]
+# the straggler timeout T and the detector's dead_after_s D are picked from
+# the pumped round the crash-resume phase measures: T = CHAOS_T_ROUNDS x
+# that round (at least CHAOS_T_MIN_S), D = CHAOS_D_OVER_T x T
+CHAOS_T_ROUNDS, CHAOS_T_MIN_S, CHAOS_D_OVER_T = 5, 1.0, 3
+# per round: the server's global against the replay of that round from the
+# server's previous global (the server's fold order, the plain finalize);
+# and each admitted upload the chaos did not touch against its replayed
+# training
+CHAOS_REPLAY_TOL = ROUND_TOL
+MQTT_TOL = ROUND_TOL           # MQTT global vs the pumped hub's: the fold
+#                                adds in arrival order, which threads do
+#                                not fix, and training carries the ulps on
+
+
+def ft_cfg(extra, rounds: int):
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config
+    cfg = config_from_argv([*SILO_ARGS, "--comm_round", str(rounds),
+                            *extra])
+    check_config(cfg)
+    return cfg
+
+
+def ft_fed(cfg, data, init=None, **kw):
+    """The runner's federation for ``cfg`` (no evaluation), recording each
+    closed round's wall time and global."""
+    from fedml_tpu_torch.experiments.main import CrossSiloFederation
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    with MetricsSink(None) as sink:
+        fed = CrossSiloFederation(cfg, data, sink, init_params=init, **kw)
+    fed.closed = []
+    mark = {"t": None}
+
+    def on_round_done(r, params):
+        import torch
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        fed.closed.append((r, now - (mark["t"] or fed.t_start),
+                           {k: v.clone() for k, v in params.items()}))
+        mark["t"] = now
+
+    fed.server.on_round_done = on_round_done
+    fed.t_start = None
+    return fed
+
+
+def ft_run(fed):
+    import torch
+    torch.cuda.synchronize()
+    fed.t_start = time.perf_counter()
+    return fed.run()
+
+
+def rounds_per_s(fed) -> float:
+    """Closed rounds after the first (which carries the warm-up) per
+    second."""
+    times = [dt for _, dt, _ in fed.closed][1:]
+    return len(times) / sum(times) if times else 0.0
+
+
+def steady_round_ms(fed) -> float:
+    times = [dt for _, dt, _ in fed.closed][1:] or \
+        [dt for _, dt, _ in fed.closed]
+    return statistics.median(times) * 1e3
+
+
+def check_silo_crash_resume(data, root: Path):
+    """Phase 17: the sharded cross-silo slice killed in round 1 at four
+    crash points and resumed in the same process from its checkpoint and
+    journal under ``build/``: each resumed global bit-equal on the card to
+    the uncrashed run's (the sharded fold state device -> host -> disk ->
+    device, and the resumed K2 finalize; deterministic mode).  A journal
+    whose opening-global crc was tampered with is abandoned and the run
+    still ends equal.  Snapshot costs and the journaled round beside the
+    plain one."""
+    import torch
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.robust.faultline import (ActorKilled, CrashSpec,
+                                                  Faultline)
+    base = root / "build" / "silo_crash"
+    shutil.rmtree(base, ignore_errors=True)
+
+    def durable(tag):
+        return ["--checkpoint_dir", str(base / tag / "ck"),
+                "--checkpoint_every", "1",
+                "--journal_dir", str(base / tag / "j"),
+                "--journal_snapshot_every", "1"]
+
+    out = {}
+    with deterministic():
+        plain = ft_fed(ft_cfg([], FT_ROUNDS), data)
+        init = {k: v.clone() for k, v in plain.server.params.items()}
+        ft_run(plain)
+        ref = ft_fed(ft_cfg(durable("ref"), FT_ROUNDS), data, init)
+        snaps = []
+        real_snapshot = ref.journal.snapshot
+
+        def snapshot(*a, **kw):
+            ok = real_snapshot(*a, **kw)
+            if ok:
+                snaps.append(dict(ref.journal.last_snapshot_ms))
+            return ok
+
+        ref.journal.snapshot = snapshot
+        ft_run(ref)
+        want = ref.server.params
+        if not bit_equal(plain.server.params, want):
+            fail("the journaled cross-silo run differs from the plain run")
+        points = {}
+        for point, hit in CRASH_AT:
+            cfg = ft_cfg(durable(point), FT_ROUNDS)
+            fl = Faultline(crashes=[CrashSpec(point=point, hit=hit,
+                                              round_idx=CRASH_ROUND)])
+            killed = ft_fed(cfg, data, init, faultline=fl)
+            try:
+                ft_run(killed)
+                fail(f"the {point} kill never fired")
+            except ActorKilled:
+                pass
+            fl.respawn()
+            resumed = ft_fed(cfg, data, init)
+            trained = []
+            for silo in resumed.silos:
+                real_fn = silo.train_fn
+
+                def train_fn(params, client_idx, round_idx, _fn=real_fn,
+                             _silo=silo.node_id):
+                    trained.append((round_idx, _silo))
+                    return _fn(params, client_idx, round_idx)
+                silo.train_fn = train_fn
+            fused_agg.reset_launch_counts()
+            ft_run(resumed)
+            torch.cuda.synchronize()
+            k2 = fused_agg.launch_counts["shard_finalize"]
+            rounds_after = len(resumed.closed)
+            same = bit_equal(resumed.server.params, want)
+            points[point] = dict(
+                hit=hit, retasked=sorted(s for r, s in trained
+                                         if r == CRASH_ROUND),
+                rounds_after_resume=rounds_after, k2_launches=k2,
+                bit_equal=same,
+                max_abs_diff=max_diff(resumed.server.params, want))
+            if not same:
+                fail(f"the run resumed after a kill at {point} differs from "
+                     f"the uncrashed run on the card")
+            need = plain.cfg.model_shards * rounds_after
+            if k2 != need or rounds_after != FT_ROUNDS - CRASH_ROUND:
+                fail(f"after the {point} resume: {rounds_after} rounds "
+                     f"closed, {k2} K2 launches (need "
+                     f"{FT_ROUNDS - CRASH_ROUND} and {need})")
+        # a journal whose opening crc disagrees with the restored global
+        cfg = ft_cfg(durable("tampered"), FT_ROUNDS)
+        fl = Faultline(crashes=[CrashSpec(point="barrier_close",
+                                          round_idx=CRASH_ROUND)])
+        try:
+            ft_run(ft_fed(cfg, data, init, faultline=fl))
+            fail("the tampered-journal kill never fired")
+        except ActorKilled:
+            pass
+        path = base / "tampered" / "j" / "journal.jsonl"
+        lines = path.read_text().splitlines()
+        start = json.loads(lines[0])
+        start["global_crc"] = (start["global_crc"] + 1) % 2 ** 32
+        lines[0] = json.dumps(start, sort_keys=True)
+        path.write_text("\n".join(lines) + "\n")
+        tampered = ft_fed(cfg, data, init)
+        abandoned = []
+        real_abandon = tampered.journal.abandon
+        tampered.journal.abandon = lambda r, why: (abandoned.append(
+            [r, why]), real_abandon(r, why))
+        ft_run(tampered)
+        tampered_same = bit_equal(tampered.server.params, want)
+        if abandoned != [[CRASH_ROUND, "global crc mismatch"]] \
+                or not tampered_same:
+            fail(f"the tampered journal: abandoned {abandoned}, bit-equal "
+                 f"{tampered_same}")
+    snap = {k: statistics.median(s[k] for s in snaps)
+            for k in ("state_ms", "encode_ms", "write_ms", "fsync_ms",
+                      "bytes")}
+    out = dict(
+        rounds=FT_ROUNDS, crash_round=CRASH_ROUND, snapshot_every=1,
+        points=points, tampered_crc=dict(abandoned=abandoned,
+                                         bit_equal=tampered_same),
+        snapshots=len(snaps), snapshot_median=snap,
+        snapshot_ms=[[s["state_ms"], s["encode_ms"], s["write_ms"],
+                      s["fsync_ms"]] for s in snaps],
+        snapshot_max_ms=max(s["state_ms"] + s["encode_ms"] + s["write_ms"]
+                            + s["fsync_ms"] for s in snaps),
+        plain_round_ms=steady_round_ms(plain),
+        journaled_round_ms=steady_round_ms(ref),
+        snapshot_ms_per_round=sum(
+            s["state_ms"] + s["encode_ms"] + s["write_ms"] + s["fsync_ms"]
+            for s in snaps) / FT_ROUNDS,
+        bit_equal=all(p["bit_equal"] for p in points.values()))
+    phase("cross_silo crash resume", **out)
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def _tree_leaves(tree):
+    from fedml_tpu_torch.comm.chaos import _array_leaves
+    return _array_leaves(tree, [])
+
+
+def _copy_tree(tree):
+    import numpy as np
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    return np.array(tree, copy=True)
+
+
+def check_silo_chaos(data, round_ms: float):
+    """Phase 18: the sharded slice on the threaded drive (each actor on
+    its own thread) for 4 rounds under seeded chaos on every link but
+    silo 1's (it stays clean, so a round always has a report to close on):
+    every round closes, faults were injected, no upload is folded twice,
+    every folded upload is finite (a NaN corruption never reaches the
+    fold), K2 launches 4 times a closed round, and each round's global
+    equals its replay from the server's previous global: the admitted
+    silos, in the server's fold order, trained again from that global (an
+    upload the chaos did not touch must match the server's within
+    CHAOS_REPLAY_TOL) and folded and finalized with K2's plain version.
+    An upload of a silo whose frames the chaos corrupted that round is
+    replayed as the server admitted it, and those unlike their clean
+    replay are counted: a flipped low-order byte leaves a valid float near
+    the true one, which no screen can tell from an honest update."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fedml_tpu_torch.comm import chaos as chaos_mod
+    from fedml_tpu_torch.comm.chaos import LinkChaos
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.core.pytree import (flatten_nested, nest, to_host,
+                                             tree_keys)
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.experiments.main import (_make_workload,
+                                                  _silo_training_setup)
+    from fedml_tpu_torch.shard_spine import build_shard_spine
+    from fedml_tpu_torch.shard_spine.plan import SiloShardCodec
+
+    t_s = max(CHAOS_T_MIN_S, math.ceil(CHAOS_T_ROUNDS * round_ms / 500) / 2)
+    d_s = CHAOS_D_OVER_T * t_s
+    cfg = ft_cfg([*CHAOS_RATES, "--straggler_policy", "drop",
+                  "--round_timeout_s", str(t_s), "--heartbeat_s", "0.05",
+                  "--dead_after_s", str(d_s), "--min_silo_frac", "0.1"],
+                 CHAOS_ROUNDS)
+    corrupted = []
+    real_corrupt = chaos_mod._corrupt_payload
+
+    def corrupt(msg, u_leaf, u_mode, u_pos):
+        out = real_corrupt(msg, u_leaf, u_mode, u_pos)
+        if out is not None:
+            corrupted.append(dict(
+                src=msg.sender_id, dst=msg.receiver_id,
+                round=msg.get(Message.ARG_ROUND),
+                shard=msg.get(Message.ARG_SHARD),
+                mode="nan" if u_mode < 0.5 else "flip"))
+        return out
+
+    with deterministic():
+        fed = ft_fed(cfg, data)
+        if fed.drive != "threaded":
+            fail(f"--chaos_* took the {fed.drive} drive")
+        init = {k: v.clone() for k, v in fed.server.params.items()}
+        fed.chaos_plan.links[(0, 1)] = LinkChaos()
+        fed.chaos_plan.links[(1, 0)] = LinkChaos()
+        server = fed.server
+        folds = {}
+        rejected = {}
+        real_note = server._note_upload
+
+        def note_upload(silo, entry):
+            if entry is None:
+                rejected.setdefault(server.round_idx, []).append(silo)
+            else:
+                folds.setdefault(server.round_idx, []).append(
+                    (silo, [_copy_tree(s) for s in entry[0]],
+                     float(entry[1])))
+            return real_note(silo, entry)
+
+        server._note_upload = note_upload
+        chaos_mod._corrupt_payload = corrupt
+        fused_agg.reset_launch_counts()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        try:
+            with prof:
+                summary = ft_run(fed)
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - fed.t_start
+        finally:
+            chaos_mod._corrupt_payload = real_corrupt
+        k2 = fused_agg.launch_counts["shard_finalize"]
+        closed = [r for r, _, _ in fed.closed]
+        faults = {}
+        for t in [server.transport] + [s.transport for s in fed.silos]:
+            for kind, n in t.faults.items():
+                faults[kind] = faults.get(kind, 0) + n
+        if server.aborted or closed != list(range(CHAOS_ROUNDS)):
+            fail(f"chaos: rounds closed {closed}, aborted {server.aborted}")
+        if not sum(faults.values()):
+            fail("chaos: the plan injected no fault")
+        if k2 != cfg.model_shards * len(closed):
+            fail(f"chaos: {k2} K2 launches for {len(closed)} rounds")
+        for r, row in folds.items():
+            silos = [s for s, _, _ in row]
+            if len(set(silos)) != len(silos):
+                fail(f"chaos: round {r} folded a silo twice: {silos}")
+            for _, slices, _ in row:
+                if not all(np.isfinite(a).all() for sl in slices
+                           for a in _tree_leaves(sl)):
+                    fail(f"chaos: round {r} folded a non-finite upload")
+        if not summary.get("params_finite"):
+            fail("chaos: the global is not finite")
+        # the replay, round by round from the server's own record
+        wl = _make_workload(cfg, data)
+        device = server.device
+        globals_ = [init] + [p for _, _, p in fed.closed]
+        _, make_train_fn = _silo_training_setup(cfg, data, wl, device, init)
+        # the slice's spine, its finalize swapped for K2's plain version
+        spine = build_shard_spine(init, num_shards=cfg.model_shards,
+                                  norm_clip=cfg.norm_clip,
+                                  noise_std=cfg.agg_noise_std, seed=cfg.seed,
+                                  fused="on")
+        codec = SiloShardCodec(spine.spec())
+        touched = {(c["round"], c["dst"] if c["src"] == 0 else c["src"])
+                   for c in corrupted}
+        upload_diff, round_diff, replayed = 0.0, 0.0, 0
+        touched_folded, touched_differ = 0, 0
+        for r in range(CHAOS_ROUNDS):
+            g = globals_[r]
+            params = codec.join(spine.broadcast_slices(to_host(nest(g))))
+            ids = sample_clients(r, data.client_num, len(fed.silos))
+            spine.agg.reset(g)
+            for silo, slices, weight in folds.get(r, []):
+                new, _ = make_train_fn(silo)(flatten_nested(params),
+                                             int(ids[silo - 1]), r)
+                mine = codec.split(to_host(nest(
+                    {k: new[k] for k in tree_keys(new)})))
+                diff = max(float(np.abs(np.asarray(a, np.float64) - b).max())
+                           for a_sl, b_sl in zip(mine, slices)
+                           for a, b in zip(_tree_leaves(a_sl),
+                                           _tree_leaves(b_sl)))
+                if (r, silo) in touched:
+                    # a frame of this silo's round was corrupted: the
+                    # replay folds what the server admitted
+                    touched_folded += 1
+                    touched_differ += diff > 0
+                    spine.agg.fold_slices(slices, weight)
+                    continue
+                upload_diff = max(upload_diff, diff)
+                replayed += 1
+                spine.agg.fold_slices(mine, weight)
+            if folds.get(r):
+                real_k2 = fused_agg.shard_finalize
+                fused_agg.shard_finalize = fused_agg.shard_finalize_plain
+                try:
+                    out = spine.agg.finalize(r)
+                finally:
+                    fused_agg.shard_finalize = real_k2
+                round_diff = max(round_diff, max_diff(out, globals_[r + 1]))
+        if upload_diff > CHAOS_REPLAY_TOL or round_diff > CHAOS_REPLAY_TOL:
+            fail(f"chaos: the replay differs (uploads {upload_diff}, rounds "
+                 f"{round_diff}; limit {CHAOS_REPLAY_TOL})")
+    events = [e for e in prof.key_averages() if _self_device_us(e) > 0]
+    busy_s = sum(_self_device_us(e) for e in events) / 1e6
+    up = [c for c in corrupted if c["src"] != 0]
+    row = dict(
+        rounds=CHAOS_ROUNDS, round_timeout_s=t_s, dead_after_s=d_s,
+        measured_pumped_round_ms=round_ms, heartbeat_s=cfg.heartbeat_s,
+        min_silo_frac=cfg.min_silo_frac, faults=faults,
+        corrupted_frames={"down": sum(c["src"] == 0 for c in corrupted),
+                          "up_nan": sum(c["mode"] == "nan" for c in up),
+                          "up_flip": sum(c["mode"] == "flip" for c in up)},
+        rejected_reports={r: sorted(v) for r, v in rejected.items()},
+        rejected_by_reason=dict(server.shard_wire.admission.rejected),
+        folded_per_round=[len(folds.get(r, [])) for r in range(
+            CHAOS_ROUNDS)],
+        dropped_silos={r: v for r, v in server.dropped_silos.items()},
+        k2_launches=k2, replayed_uploads=replayed,
+        touched_uploads_folded=touched_folded,
+        touched_uploads_folded_unlike_replay=touched_differ,
+        upload_max_abs_diff=upload_diff,
+        round_max_abs_diff=round_diff, tol=CHAOS_REPLAY_TOL,
+        rounds_per_s=rounds_per_s(fed), wall_s=wall_s,
+        device_busy_s=busy_s, device_idle_share=1 - busy_s / wall_s)
+    phase("cross_silo chaos threaded", **row)
+    return row
+
+
+def in_silo_order(fed, timeout_s: float = 120.0) -> None:
+    """Hold each silo's upload until every lower-numbered silo has
+    reported this round, so the server folds in the pumped hub's order
+    (silo 1, 2, ...) while the silos still train at once on their own
+    threads."""
+    server = fed.server
+    for silo in fed.silos:
+        real_fn, before = silo.train_fn, set(range(1, silo.node_id))
+
+        def train_fn(params, client_idx, round_idx, _fn=real_fn,
+                     _before=before):
+            out = _fn(params, client_idx, round_idx)
+            deadline = time.monotonic() + timeout_s
+            while server.round_idx == round_idx \
+                    and not _before <= set(server._received):
+                if time.monotonic() > deadline:
+                    fail(f"silo order: round {round_idx} never got silos "
+                         f"{sorted(_before)}")
+                time.sleep(0.001)
+            return out
+        silo.train_fn = train_fn
+
+
+def check_silo_mqtt(data):
+    """Phase 19: the sharded slice over the repo's MQTT broker on the
+    loopback, the server and 10 silo threads each on a `MiniMqttClient`
+    wrapped in `ResilientTransport`, 3 rounds: K2 launches 4 times a
+    round, and the global agrees with the pumped hub run of the same seeds
+    within MQTT_TOL (the uploads are held to the hub's arrival order, so
+    bit for bit is expected and reported); rounds/s, the bytes through
+    the broker and the MQTT round beside the hub round."""
+    import torch
+    from fedml_tpu_torch.comm import mqtt_transport
+    from fedml_tpu_torch.comm.mqtt_broker import MqttBroker
+    from fedml_tpu_torch.comm.resilient import ResilientTransport, RetryPolicy
+    from fedml_tpu_torch.core import fused_agg
+
+    cfg = ft_cfg([], FT_ROUNDS)
+    with deterministic():
+        hub = ft_fed(cfg, data)
+        init = {k: v.clone() for k, v in hub.server.params.items()}
+        ft_run(hub)
+        broker = MqttBroker()
+        try:
+            def transport(node):
+                return ResilientTransport(
+                    mqtt_transport.MqttTransport(node, "127.0.0.1",
+                                                 broker.port),
+                    RetryPolicy(max_attempts=4), seed=cfg.seed)
+
+            fed = ft_fed(cfg, data, init, transport_factory=transport)
+            if fed.drive != "threaded":
+                fail(f"the MQTT federation took the {fed.drive} drive")
+            in_silo_order(fed)
+            fused_agg.reset_launch_counts()
+            summary = ft_run(fed)
+            torch.cuda.synchronize()
+            k2 = fused_agg.launch_counts["shard_finalize"]
+        finally:
+            broker.stop()
+    diff = max_diff(fed.server.params, hub.server.params)
+    row = dict(
+        rounds=FT_ROUNDS, client=type(fed.server.transport.inner._client)
+        .__name__, k2_launches=k2, max_abs_diff_vs_hub=diff, tol=MQTT_TOL,
+        bit_equal_hub=bit_equal(fed.server.params, hub.server.params),
+        rounds_per_s=rounds_per_s(fed), hub_rounds_per_s=rounds_per_s(hub),
+        round_ms=steady_round_ms(fed), hub_round_ms=steady_round_ms(hub),
+        broker_bytes_in_per_round=broker.bytes_in / FT_ROUNDS,
+        broker_bytes_out_per_round=broker.bytes_out / FT_ROUNDS,
+        dead_letters=fed.server.transport.dead_letters + sum(
+            s.transport.dead_letters for s in fed.silos))
+    row["mqtt_over_hub_ms"] = row["round_ms"] - row["hub_round_ms"]
+    phase("cross_silo mqtt", **row)
+    if k2 != cfg.model_shards * FT_ROUNDS or fed.server.round_idx != FT_ROUNDS:
+        fail(f"mqtt: {fed.server.round_idx} rounds, {k2} K2 launches")
+    if not summary.get("params_finite") or not diff <= MQTT_TOL:
+        fail(f"mqtt: the global differs from the hub's by {diff} (limit "
+             f"{MQTT_TOL})")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # slice 4: FedAvg on the transformer LM, through K4 (flash attention)
 # ---------------------------------------------------------------------------
 
@@ -2792,6 +3301,9 @@ def main() -> None:
     check_byzantine(data)
     check_silo_robust(data)
     check_checkpoint(data, root)
+    crash = check_silo_crash_resume(data, root)
+    chaos = check_silo_chaos(data, crash["plain_round_ms"])
+    mqtt = check_silo_mqtt(data)
 
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
@@ -2901,6 +3413,9 @@ def main() -> None:
           turbo_rounds_per_s=turbo["rounds_per_s"],
           silo_round_vs_cpu_max_abs_diff=silo_diff,
           silo_rounds_per_s=silo["rounds_per_s"],
+          silo_resume_bit_equal=crash["bit_equal"],
+          silo_chaos_rounds_per_s=chaos["rounds_per_s"],
+          silo_mqtt_rounds_per_s=mqtt["rounds_per_s"],
           lm_flash_vs_blockwise_max_abs_diff=lm_diff,
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]

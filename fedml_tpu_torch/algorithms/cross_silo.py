@@ -17,9 +17,16 @@ with
 * the straggler policies ``wait``, ``drop`` and ``abort``
   (``round_timeout_s`` / ``min_silo_frac``);
 * the admission pipeline, stale-round and foreign-upload discards, and
-  the encode-once broadcast.
+  the encode-once broadcast;
+* fault tolerance: heartbeats and the `FailureDetector` (dead silos leave
+  the quorum at broadcast, a rejoining silo gets the current global),
+  round checkpoints with ``extra_state`` (``start()`` resumes), the round
+  journal (a server killed mid-round resumes the same round and re-tasks
+  only the silos not durably folded) and the `Faultline` crash points.
 
-Every other option of the JAX actor is refused by name.
+Every other option of the JAX actor is refused by name.  Neither the
+heartbeat thread nor the straggler timer touches the device: both only
+enqueue messages.
 
 The wire carries the JAX package's nested dicts of numpy arrays, so a
 frame is byte-identical to the JAX package's.  The actors convert at their
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import logging
 import math
+import threading
 import time
 from typing import Callable, Dict, Optional, Set
 
@@ -50,6 +58,7 @@ from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.obs import telemetry
 from fedml_tpu_torch.shard_spine.admission import ACCEPT, WAIT
 from fedml_tpu_torch.shard_spine.spine import SiloShardAssembler
+from fedml_tpu_torch.utils.journal import tree_crc
 
 log = logging.getLogger(__name__)
 
@@ -64,6 +73,76 @@ class MsgType:
     C2S_HEARTBEAT = 6
 
 
+class FailureDetector:
+    """Heartbeat-driven silo health: ALIVE → SUSPECT → DEAD (the JAX
+    package's detector).
+
+    Every message from a silo (heartbeat or upload) is a beat; a silo
+    unheard for ``suspect_after_s`` is SUSPECT (still in the barrier,
+    flagged), one unheard for ``dead_after_s`` is DEAD and leaves the
+    next round's expected quorum.  DEAD is sticky until the silo is heard
+    again: that beat reports a *rejoin*, which the server answers with
+    the current global.  ``clock`` is injectable for tests.
+    """
+
+    ALIVE = "alive"
+    SUSPECT = "suspect"
+    DEAD = "dead"
+
+    def __init__(self, suspect_after_s: float = 2.0,
+                 dead_after_s: float = 5.0,
+                 clock: Callable[[], float] = time.monotonic):
+        if dead_after_s < suspect_after_s:
+            raise ValueError(
+                f"dead_after_s ({dead_after_s}) must be >= suspect_after_s "
+                f"({suspect_after_s})")
+        self.suspect_after_s = suspect_after_s
+        self.dead_after_s = dead_after_s
+        self._clock = clock
+        self._last_heard: Dict[int, float] = {}
+        self._declared_dead: Set[int] = set()
+        reg = telemetry.get_registry()
+        self._gauges = {
+            self.ALIVE: reg.gauge("fedml_failure_detector_alive_total"),
+            self.SUSPECT: reg.gauge("fedml_failure_detector_suspect_total"),
+            self.DEAD: reg.gauge("fedml_failure_detector_dead_total")}
+
+    def register(self, silo: int) -> None:
+        """Start a silo's clock without a beat (nobody is born dead)."""
+        self._last_heard.setdefault(silo, self._clock())
+
+    def beat(self, silo: int) -> bool:
+        """Record a beat; True when it rejoins a silo declared dead."""
+        rejoined = silo in self._declared_dead
+        self._declared_dead.discard(silo)
+        self._last_heard[silo] = self._clock()
+        return rejoined
+
+    def state(self, silo: int) -> str:
+        if silo in self._declared_dead:
+            return self.DEAD
+        last = self._last_heard.get(silo)
+        if last is None:
+            return self.ALIVE
+        quiet = self._clock() - last
+        if quiet >= self.dead_after_s:
+            self._declared_dead.add(silo)
+            return self.DEAD
+        if quiet >= self.suspect_after_s:
+            return self.SUSPECT
+        return self.ALIVE
+
+    def states(self) -> Dict[int, str]:
+        out = {silo: self.state(silo) for silo in sorted(self._last_heard)}
+        for health, gauge in self._gauges.items():
+            gauge.set(sum(1 for s in out.values() if s == health))
+        return out
+
+    def dead_silos(self) -> Set[int]:
+        return {silo for silo, health in self.states().items()
+                if health == self.DEAD}
+
+
 # a silo-local trainer: (global_params, client_idx, round_idx) ->
 # (new_params, num_samples), params as the port's flat dicts
 SiloTrainFn = Callable[[object, int, int], tuple]
@@ -71,10 +150,6 @@ SiloTrainFn = Callable[[object, int, int], tuple]
 # JAX actor options this port does not run yet, with where they arrive
 _REFUSED = {
     "secagg": "live SecAgg over the wire (secure/protocol.py)",
-    "journal": "the round journal (utils/journal.py)",
-    "checkpointer": "round checkpoints (utils/checkpoint.py)",
-    "extra_state": "round checkpoints (utils/checkpoint.py)",
-    "faultline": "kill/resume injection (robust/faultline.py)",
     "ingest": "the pipelined receive path (comm/ingest.py)",
     "health": "the health observatory (obs/health.py)",
     "perf": "the perf ledger (obs/perf.py)",
@@ -82,7 +157,6 @@ _REFUSED = {
     "controller": "the adaptive controller (server_opt/)",
     "degrade": "the reliability tracker (robust/degrade.py)",
     "decode_upload": "wire compression (comm/compress.py)",
-    "failure_detector": "heartbeats and the failure detector",
     "publish": "serve-while-train (serve/)",
 }
 
@@ -115,8 +189,27 @@ class FedAvgServerActor(ServerManager):
     ``aggregate_fn(global, stacked, weights, round)`` when given (the
     static ``[cohort, ...]`` stack, slots of silos that did not report or
     were rejected holding the global at weight 0) or else
-    ``tree_weighted_mean`` over the admitted slots.  ``shard_wire``: a `ShardSpine` — S slice
-    frames per silo each way, screened per shard by its `ShardAdmission`.
+    ``tree_weighted_mean`` over the admitted slots.  ``shard_wire``: a
+    `ShardSpine` — S slice frames per silo each way, screened per shard
+    by its `ShardAdmission`.
+
+    ``failure_detector``: a `FailureDetector` fed by every message from a
+    silo; DEAD silos leave the expected quorum at broadcast (logged in
+    ``dropped_silos``), and a dead silo heard again is sent the current
+    global at once.  ``checkpointer``: a `utils.checkpoint.
+    RoundCheckpointer`; every closed round's (params, round, accepted
+    mask, ``extra_state[0]()``) is saved on its cadence, and ``start()``
+    resumes from the latest step (untemplated on schema drift), or just
+    sends FINISH when the federation is complete on disk.
+    ``extra_state``: a ``(get_fn, set_fn)`` pair of fixed-shape host state
+    checkpointed beside the params.  ``journal``: a `utils.journal.
+    RoundJournal` on the streaming-fold receive path — an accept record
+    per report and a fold-state snapshot every ``snapshot_every`` folds;
+    ``start()`` resumes a round left mid-flight (same mode, round and
+    opening global, a durable snapshot) and re-tasks only the silos it
+    does not cover, else abandons it loudly.  ``faultline``: a
+    `robust.faultline.Faultline` whose armed crash points raise
+    `ActorKilled` out of the event loop with no cleanup.
     """
 
     def __init__(self, transport: Transport, init_params,
@@ -127,17 +220,15 @@ class FedAvgServerActor(ServerManager):
                  round_timeout_s: Optional[float] = None,
                  min_silo_frac: float = 0.5,
                  admission=None, stream_agg=None, shard_wire=None,
-                 aggregate_fn=None, *, secagg=None, journal=None, checkpointer=None, extra_state=None,
-                 faultline=None, ingest=None, health=None, perf=None,
-                 server_opt=None, controller=None, degrade=None,
-                 decode_upload=None, failure_detector=None, publish=None):
+                 aggregate_fn=None, failure_detector=None,
+                 checkpointer=None, extra_state=None, journal=None,
+                 faultline=None, *, secagg=None, ingest=None, health=None,
+                 perf=None, server_opt=None, controller=None, degrade=None,
+                 decode_upload=None, publish=None):
         refuse_unported(
-            secagg=secagg, journal=journal,
-            checkpointer=checkpointer, extra_state=extra_state,
-            faultline=faultline, ingest=ingest, health=health, perf=perf,
+            secagg=secagg, ingest=ingest, health=health, perf=perf,
             server_opt=server_opt, controller=controller, degrade=degrade,
-            decode_upload=decode_upload, failure_detector=failure_detector,
-            publish=publish)
+            decode_upload=decode_upload, publish=publish)
         super().__init__(0, transport)
         if straggler_policy not in ("wait", "drop", "abort"):
             raise ValueError(f"unknown straggler_policy {straggler_policy!r}")
@@ -155,6 +246,11 @@ class FedAvgServerActor(ServerManager):
                     "shard_wire without its ShardAdmission: the per-shard "
                     "structural screens ARE the sharded wire protocol — "
                     "build the spine with admission_on=True")
+        if journal is not None and stream_agg is None:
+            raise ValueError(
+                "journal (crash consistency) rides the streaming-fold "
+                "receive path: pass --agg_mode stream (or --secagg); the "
+                "stack path has no incremental fold state to snapshot")
         self.params = init_params
         self.device = next(iter(init_params.values())).device
         self.client_num_in_total = client_num_in_total
@@ -170,6 +266,14 @@ class FedAvgServerActor(ServerManager):
         self.stream_agg = stream_agg
         self.aggregate_fn = aggregate_fn
         self.shard_wire = shard_wire
+        self.failure_detector = failure_detector
+        self.checkpointer = checkpointer
+        self.extra_state = extra_state
+        self.journal = journal
+        self.faultline = faultline
+        # a mid-round recovery found by start(), consumed by the next
+        # broadcast of its round
+        self._pending_resume = None
         self.dropped_silos: Dict[int, list] = {}  # round -> missing silos
         self._received: Dict[int, Optional[tuple]] = {}
         self._host_mirror = HostMirror()
@@ -196,10 +300,130 @@ class FedAvgServerActor(ServerManager):
     def register_handlers(self) -> None:
         self.register_handler(MsgType.C2S_MODEL, self._on_model)
         self.register_handler(MsgType.ROUND_TIMEOUT, self._on_timeout)
+        self.register_handler(MsgType.C2S_HEARTBEAT,
+                              lambda m: self._beat(m.sender_id))
 
     # -- round logic ---------------------------------------------------------
     def start(self) -> None:
+        """Broadcast the initial global — or, with a ``checkpointer``
+        holding a saved round, resume after it (params, round index, the
+        accepted-silo ack and ``extra``), and with a ``journal``, resume
+        a round the crash left mid-flight."""
+        if self.checkpointer is not None:
+            self._restore_checkpoint()
+        if self.journal is not None:
+            self._pending_resume = self._journal_recovery()
+        if self.round_idx >= self.num_rounds:
+            # the federation already completed on disk: dismiss the silos
+            cohort = len(sample_clients(0, self.client_num_in_total,
+                                        self.client_num_per_round))
+            for silo in range(1, cohort + 1):
+                self.send(MsgType.S2C_FINISH, silo)
+            self.finish()
+            return
         self._broadcast(MsgType.S2C_INIT)
+
+    def _restore_checkpoint(self) -> None:
+        step = self.checkpointer.latest_round()
+        if step is None:
+            return
+        try:
+            state = self.checkpointer.restore(
+                step, like=self._checkpoint_state(step))
+        except ValueError:
+            # schema drift (an "extra" entry added or gone since the
+            # save): restore untemplated and take what is there
+            log.warning("checkpoint %d does not match the current state "
+                        "schema; restoring untemplated", step)
+            state = self.checkpointer.restore(step)
+        self.params = {k: as_tensor(v, self.device).to(self.params[k].dtype)
+                       for k, v in state["params"].items()}
+        self.round_idx = int(np.asarray(state["round_idx"])) + 1
+        mask = np.asarray(state["accepted_mask"])
+        # a possibly-empty ARRAY, as _complete_round leaves it
+        self._last_accepted = (np.flatnonzero(mask) + 1).astype(np.int32)
+        if self.extra_state is not None and "extra" in state:
+            self.extra_state[1](state["extra"])
+        log.info("resumed from checkpoint: continuing at round %d of %d",
+                 self.round_idx, self.num_rounds)
+
+    def _checkpoint_state(self, round_idx: int) -> Dict[str, object]:
+        """The round state saved after round ``round_idx``: every leaf has
+        a fixed shape (the accepted silos as a cohort-length mask), so it
+        doubles as the restore template."""
+        cohort = len(sample_clients(0, self.client_num_in_total,
+                                    self.client_num_per_round))
+        mask = np.zeros(cohort, np.int8)
+        if self._last_accepted is not None and len(self._last_accepted):
+            mask[np.asarray(self._last_accepted) - 1] = 1
+        out = {"params": self.params,
+               "round_idx": np.asarray(round_idx, np.int64),
+               "accepted_mask": mask}
+        if self.extra_state is not None:
+            out["extra"] = self.extra_state[0]()
+        return out
+
+    def _journal_mode(self) -> str:
+        """The journal's round-mode tag for this configuration; recovery
+        refuses a journal written under another one."""
+        if self.shard_wire is not None:
+            return self.shard_wire.journal_mode()
+        return f"stream_{self.stream_agg.method}"
+
+    def _journal_recovery(self):
+        """The journal's mid-flight round as a `Recovery`, only when
+        resuming it is safe: it is the round the checkpoint says comes
+        next, its mode is this run's and resumable, its opening global's
+        crc is the restored global's, and a durable snapshot exists.
+        Anything else is abandoned loudly: the round restarts from the
+        boundary with the global unchanged."""
+        rec = self.journal.recover()
+        if rec is None:
+            return None
+        if rec.round_idx != self.round_idx:
+            log.warning(
+                "journal holds mid-flight round %d but the checkpoint "
+                "boundary resumes at round %d (checkpoint cadence gap); "
+                "abandoning the journal round — rounds past the last "
+                "checkpoint re-run from the boundary (set "
+                "--checkpoint_every 1 for mid-round recovery)",
+                rec.round_idx, self.round_idx)
+            self.journal.abandon(rec.round_idx, "round mismatch")
+            return None
+        if rec.mode != self._journal_mode():
+            log.error("round %d journal was written in mode %r but this run "
+                      "aggregates in mode %r; restarting the round from the "
+                      "boundary, global unchanged", rec.round_idx, rec.mode,
+                      self._journal_mode())
+            self.journal.abandon(rec.round_idx, f"mode mismatch {rec.mode}")
+            return None
+        if not rec.resumable:
+            log.error("round %d crashed mid-flight in non-resumable mode %r "
+                      "(reservoir rules have no durable draw stream); "
+                      "restarting the round from the boundary, global "
+                      "unchanged", rec.round_idx, rec.mode)
+            self.journal.abandon(rec.round_idx,
+                                 f"non-resumable mode {rec.mode}")
+            return None
+        if rec.global_crc is not None \
+                and rec.global_crc != tree_crc(self._host_params()):
+            log.error("round %d journal opened against a DIFFERENT global "
+                      "than the restored checkpoint (crc mismatch); "
+                      "refusing to resume the fold — restarting from the "
+                      "boundary", rec.round_idx)
+            self.journal.abandon(rec.round_idx, "global crc mismatch")
+            return None
+        if rec.state is None or not rec.folded:
+            log.warning("round %d crashed before any durable fold snapshot; "
+                        "re-tasking the full cohort from the boundary",
+                        rec.round_idx)
+            self.journal.abandon(rec.round_idx, "no durable snapshot")
+            return None
+        log.warning("round %d: resuming MID-ROUND from the journal — %d "
+                    "upload(s) durably folded (silos %s) will not be "
+                    "re-tasked", rec.round_idx, len(rec.folded),
+                    [s for s, _, _ in rec.folded])
+        return rec
 
     def _sampled(self) -> np.ndarray:
         return sample_clients(self.round_idx, self.client_num_in_total,
@@ -221,29 +445,56 @@ class FedAvgServerActor(ServerManager):
         ids = self._sampled()
         self._num_silos = len(ids)
         cohort = set(range(1, self._num_silos + 1))
+        # a mid-round recovery: the durably folded silos are not re-tasked
+        # and satisfy the barrier at once
+        resume = self._pending_resume
+        if resume is not None and resume.round_idx != self.round_idx:
+            resume = None
+        self._pending_resume = None
+        folded = ({int(s): float(w) for s, w, _ in resume.folded}
+                  if resume is not None else {})
+        dead: Set[int] = set()
+        if self.failure_detector is not None:
+            for silo in cohort:
+                self.failure_detector.register(silo)
+            dead = self.failure_detector.dead_silos() & cohort
         trust = self._trust()
-        dead = (trust.quarantined(self.round_idx, cohort)
-                if trust is not None else set())
+        if trust is not None:
+            dead = dead | trust.quarantined(self.round_idx, cohort)
         if dead == cohort:
-            # every silo quarantined: expect the full cohort, so the
-            # barrier never closes on nothing
+            # every silo dead or quarantined: expect the full cohort, so
+            # the barrier never closes on nothing and a rejoin can revive
+            # the federation
             dead = set()
         self._expected = cohort - dead
         if dead:
-            log.info("round %d: excluding quarantined silos %s from the "
-                     "quorum", self.round_idx, sorted(dead))
+            log.info("round %d: excluding dead/quarantined silos %s from "
+                     "the quorum", self.round_idx, sorted(dead))
             self.dropped_silos.setdefault(self.round_idx, []).extend(
                 sorted(dead))
         self._round_t0 = time.monotonic()
         self._first_upload_t = None
         if self.stream_agg is not None:
             self.stream_agg.reset(self.params)
+            if resume is not None:
+                # continue the crashed round's fold where its last durable
+                # snapshot left it (device <- host), and re-arm the fresh
+                # journal's round state so it keeps snapshotting
+                self.stream_agg.load_state_dict(resume.state)
+                self.journal.note_resume(self.round_idx, resume.folded,
+                                         global_crc=resume.global_crc)
         host_params = self._host_params()
         if self.shard_wire is not None:
             self.shard_wire.round_start(host_params)
+        if self.journal is not None and resume is None:
+            self.journal.round_start(
+                self.round_idx, mode=self._journal_mode(),
+                resumable=self.stream_agg.method == "mean",
+                global_crc=tree_crc(host_params),
+                expected=sorted(self._expected))
         extra = ({} if self._last_accepted is None
                  else {Message.ARG_ACCEPTED: self._last_accepted})
-        receivers = sorted(cohort - dead)
+        receivers = sorted(cohort - dead - set(folded))
         per_silo = {silo: {Message.ARG_CLIENT_INDEX: int(ids[silo - 1])}
                     for silo in receivers}
         with self._span("broadcast", round=self.round_idx):
@@ -271,6 +522,14 @@ class FedAvgServerActor(ServerManager):
                                    Message.ARG_ROUND: self.round_idx,
                                    **extra},
                     per_receiver_params=per_silo)
+        if folded:
+            # the restored uploads satisfy the barrier like live reports;
+            # a fully durable round closes here
+            for silo, weight in folded.items():
+                self._received[silo] = (self._STAGED, weight)
+            if self._barrier_met():
+                self._complete_round()
+                return
         self._arm_timer()
 
     def _barrier_met(self) -> bool:
@@ -296,6 +555,10 @@ class FedAvgServerActor(ServerManager):
         missing = sorted(self._expected - set(self._received))
         if not missing:
             return
+        if self.failure_detector is not None:
+            states = self.failure_detector.states()
+            log.warning("round %d: silo health %s", self.round_idx,
+                        {s: states.get(s, "?") for s in missing})
         log.warning("round %d: silos %s have not reported after %.1fs "
                     "(policy=%s)", self.round_idx, missing,
                     self.round_timeout_s, self.straggler_policy)
@@ -312,8 +575,28 @@ class FedAvgServerActor(ServerManager):
             return
         self._arm_timer()  # wait (or drop below quorum): keep waiting
 
+    # -- health --------------------------------------------------------------
+    def _beat(self, silo: int) -> None:
+        if self.failure_detector is None:
+            return
+        rejoined = self.failure_detector.beat(silo)
+        if rejoined and not self._finished and not self.aborted \
+                and self.round_idx < self.num_rounds:
+            # the returning silo gets the current global and round at once,
+            # so it is warm when the next broadcast re-includes it; its
+            # upload for THIS round is discarded (it is not expected)
+            log.info("silo %d rejoined at round %d; syncing current global",
+                     silo, self.round_idx)
+            ids = self._sampled()
+            client_idx = int(ids[silo - 1]) if silo - 1 < len(ids) else 0
+            self.send(MsgType.S2C_SYNC, silo,
+                      **{Message.ARG_MODEL_PARAMS: self._host_params(),
+                         Message.ARG_CLIENT_INDEX: client_idx,
+                         Message.ARG_ROUND: self.round_idx})
+
     # -- the receive path ----------------------------------------------------
     def _on_model(self, msg: Message) -> None:
+        self._beat(msg.sender_id)
         if not self._upload_guards(msg):
             return
         if self._first_upload_t is None:
@@ -394,7 +677,12 @@ class FedAvgServerActor(ServerManager):
     def _note_upload(self, silo: int, entry: Optional[tuple]) -> None:
         """Record a silo's report (``None``: reported but inadmissible),
         fold or stage an admitted upload at arrival, and close the round
-        when the barrier is met."""
+        when the barrier is met.  With a journal, each report is
+        recorded and the fold state snapshotted on its cadence."""
+        if entry is not None and self.faultline is not None:
+            # admitted, not yet folded
+            self.faultline.maybe_crash("post_admission_pre_fold",
+                                       round_idx=self.round_idx, silo=silo)
         if entry is not None:
             with self._span("ingest:fold"):
                 if self.shard_wire is not None:
@@ -403,7 +691,22 @@ class FedAvgServerActor(ServerManager):
                     self.stream_agg.fold(flatten_nested(entry[0]), entry[1])
                 else:
                     self._stage(silo, flatten_nested(entry[0]))
+            if self.journal is not None:
+                state_fn = (self.stream_agg.state_dict
+                            if self.stream_agg.method == "mean" else None)
+                with self._span("ingest:journal"):
+                    self.journal.note_accept(self.round_idx, silo,
+                                             float(entry[1]),
+                                             state_fn=state_fn)
             entry = (self._STAGED, entry[1])
+        elif self.journal is not None:
+            # reported but inadmissible: recorded, never folded
+            self.journal.note_accept(self.round_idx, silo, 0.0,
+                                     folded=False, reason="rejected")
+        if self.faultline is not None:
+            # folded (or recorded), the report not yet banked
+            self.faultline.maybe_crash("post_fold_pre_ack",
+                                       round_idx=self.round_idx, silo=silo)
         self._received[silo] = entry
         if self._barrier_met():
             self._complete_round()
@@ -448,6 +751,9 @@ class FedAvgServerActor(ServerManager):
         return w
 
     def _complete_round(self) -> None:
+        if self.faultline is not None:
+            self.faultline.maybe_crash("barrier_close",
+                                       round_idx=self.round_idx)
         self._timer.cancel()
         now = time.monotonic()
         self._h_quorum.observe(len(self._received))
@@ -492,6 +798,21 @@ class FedAvgServerActor(ServerManager):
         self._staged_silos.clear()
         if self.shard_wire is not None:
             self.shard_wire.round_end()
+        if self.faultline is not None:
+            # the aggregate is applied in memory, not yet durable
+            self.faultline.maybe_crash("mid_checkpoint_write",
+                                       round_idx=self.round_idx)
+        if self.checkpointer is not None:
+            self.checkpointer.maybe_save(
+                self.round_idx,
+                lambda: self._checkpoint_state(self.round_idx),
+                last_round=self.round_idx + 1 >= self.num_rounds)
+        if self.journal is not None:
+            # after the checkpoint: a crash between the two leaves an open
+            # round whose snapshot re-finalizes to the same global
+            self.journal.round_end(self.round_idx)
+        if self.faultline is not None:
+            self.faultline.maybe_crash("publish", round_idx=self.round_idx)
         if self.on_round_done is not None:
             self.on_round_done(self.round_idx, self.params)
         self.round_idx += 1
@@ -514,20 +835,53 @@ class FedAvgClientActor(ClientManager):
     """Silo-side trainer actor.  ``train_fn(params, client_idx, round_idx)
     -> (new_params, num_samples)`` takes the global as a flat dict of host
     arrays (read-only views into the frame) and returns a flat dict of
-    tensors or arrays; the upload leaves as numpy in the wire layout."""
+    tensors or arrays; the upload leaves as numpy in the wire layout.
+
+    ``heartbeat_interval_s``: when set, ``run()`` starts a daemon thread
+    that sends C2S_HEARTBEAT (tagged with the last synced round) every
+    interval; ``finish()`` stops and joins it.  The thread only sends.
+    """
 
     def __init__(self, node_id: int, transport: Transport,
-                 train_fn: SiloTrainFn, server_id: int = 0):
+                 train_fn: SiloTrainFn, server_id: int = 0,
+                 heartbeat_interval_s: Optional[float] = None):
         super().__init__(node_id, transport)
         self.server_id = server_id
         self.train_fn = train_fn
+        self.heartbeat_interval_s = heartbeat_interval_s
         self._round: Optional[int] = None  # last round synced
         self._shard_rx: Optional[SiloShardAssembler] = None
+        self._hb_stop = threading.Event()
+        self._hb_thread: Optional[threading.Thread] = None
 
     def register_handlers(self) -> None:
         self.register_handler(MsgType.S2C_INIT, self._on_sync)
         self.register_handler(MsgType.S2C_SYNC, self._on_sync)
         self.register_handler(MsgType.S2C_FINISH, lambda m: self.finish())
+
+    def run(self) -> None:
+        if self.heartbeat_interval_s is not None and self._hb_thread is None:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, daemon=True,
+                name=f"heartbeat-silo-{self.node_id}")
+            self._hb_thread.start()
+        super().run()
+
+    def _heartbeat_loop(self) -> None:
+        while not self._hb_stop.wait(self.heartbeat_interval_s):
+            try:
+                self.send(MsgType.C2S_HEARTBEAT, self.server_id,
+                          **({} if self._round is None
+                             else {Message.ARG_ROUND: self._round}))
+            except Exception:  # noqa: BLE001 — transport mid-shutdown
+                return
+
+    def finish(self) -> None:
+        self._hb_stop.set()
+        hb, self._hb_thread = self._hb_thread, None
+        if hb is not None and hb is not threading.current_thread():
+            hb.join(timeout=5)
+        super().finish()
 
     def _train(self, params, client_idx, round_idx):
         """Train on the nested wire tree; the result in the wire layout."""

@@ -45,8 +45,18 @@ class ExperimentConfig:
     drop_tolerance: int = 1              # turboaggregate
     secagg_backend: str = "torch"        # turboaggregate: "torch" | "cuda"
 
-    # cross_silo: the live federation over the in-process hub
-    silo_backend: str = "local"          # "local" (grpc/mqtt refused)
+    # cross_silo: the live federation over the in-process hub, or one node
+    # of it per process over gRPC
+    silo_backend: str = "local"          # "local" (in-process hub) | "grpc"
+    node_id: int = 0                     # grpc: 0=server, 1..N=silos
+    ip_config: str = ""                  # grpc: rank->IP csv (reference fmt)
+    base_port: int = 50000               # grpc: port = base_port + node_id
+    grpc_max_message_mb: int = 1000      # grpc: per-message size cap
+    grpc_workers: int = 4                # grpc: inbound RPC thread pool
+    silo_idle_timeout_s: float = 0.0     # grpc silos: exit after this long
+    #                                      with no traffic (0 = wait forever)
+    silo_retries: int = 0                # grpc: >0 wraps the transport in
+    #                                      ResilientTransport (attempts)
     agg_mode: str = "stack"              # "stack" | "stream"
     model_shards: int = 0                # >0: the sharded spine (stream)
     fused_finalize: str = "auto"         # shard finalize: auto|on|off (K2)
@@ -65,21 +75,32 @@ class ExperimentConfig:
     strikes_to_quarantine: int = 3       # TrustTracker
     quarantine_rounds: int = 4           # TrustTracker
     probation_rounds: int = 2            # TrustTracker
+    # fault tolerance: heartbeats, the failure detector, seeded chaos on
+    # the local hub (any non-zero chaos value switches it to the threaded
+    # drive, one thread per actor), the round journal
+    heartbeat_s: float = 0.0             # >0: silo liveness beats (threaded
+    #                                      and grpc drives)
+    dead_after_s: float = 0.0            # >0: the server's failure detector
+    suspect_after_s: float = 0.0         # SUSPECT threshold (0 = dead / 2)
+    chaos_drop: float = 0.0              # drop prob (needs --straggler_policy
+    #                                      drop + --round_timeout_s)
+    chaos_delay: float = 0.0             # delay prob
+    chaos_max_delay_s: float = 0.05      # delay bound (also reorder flush)
+    chaos_dup: float = 0.0               # duplicate prob
+    chaos_reorder: float = 0.0           # reorder (hold-back) prob
+    chaos_corrupt: float = 0.0           # payload corruption prob
+    chaos_seed: int = 0                  # fault-schedule seed
+    journal: bool = False                # the round journal (stream mode)
+    journal_dir: Optional[str] = None    # journal directory (implies
+    #                                      --journal; default run_dir/journal)
+    journal_snapshot_every: int = 4      # fold-state snapshot cadence
     # cross_silo options of the JAX package that are refused by name
     secagg: str = "off"
     edge_aggregators: int = 0
     wire_compression: str = "none"
     error_feedback: bool = False
-    chaos_drop: float = 0.0
-    chaos_delay: float = 0.0
-    chaos_dup: float = 0.0
-    chaos_reorder: float = 0.0
-    chaos_corrupt: float = 0.0
-    heartbeat_s: float = 0.0
-    dead_after_s: float = 0.0
     serve_port: int = 0
     ingest_pipeline: bool = False
-    journal: bool = False
     health: bool = False
     server_opt: str = "plain"
     adaptive: bool = False

@@ -32,7 +32,15 @@ of one captured CUDA graph); ``--checkpoint_dir`` saves round checkpoints
 and resumes from the latest.  ``--defense`` takes the Byzantine rules
 (``krum --byz_f 1``, ...), and the live cross-silo server takes
 ``--robust_agg`` in both ``--agg_mode stack`` and ``stream`` (with
-``--stream_reservoir K``).
+``--stream_reservoir K``).  The cross-silo server takes ``--checkpoint_dir``
+(resume), ``--journal`` (mid-round resume), ``--dead_after_s`` (the failure
+detector) and ``--chaos_*`` (seeded faults on the hub, threaded drive);
+``--silo_backend grpc`` runs one node per process:
+
+    python -m fedml_tpu_torch --algo cross_silo --silo_backend grpc \\
+        --node_id 0 --client_num_per_round 2 ...   # the server
+    python -m fedml_tpu_torch --algo cross_silo --silo_backend grpc \\
+        --node_id 1 --client_num_per_round 2 ...   # silo 1, and so on
 """
 
 from __future__ import annotations
@@ -175,16 +183,21 @@ def _silo_training_setup(cfg, data, wl, device, init_params=None):
     round_idx)`` factory: each silo trains its sampled client's shard on
     ``device`` with the local trainer.  ``init_params`` (a flat dict)
     replaces the seeded init, as a test does to carry the JAX package's
-    weights across."""
+    weights across.
+
+    Each silo gets a workload of its own: ``functional_call`` swaps the
+    parameters of the module it is given in place, so silos training on
+    their own threads (the threaded drive) must not share one module."""
     from fedml_tpu_torch.core.pytree import as_tensor
     from fedml_tpu_torch.trainer.local_sgd import make_local_trainer
     from fedml_tpu_torch.trainer.workload import make_client_optimizer
 
-    local = make_local_trainer(
-        wl, make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd),
-        cfg.epochs)
-
     def make_train_fn(silo_id):
+        local = make_local_trainer(
+            _make_workload(cfg, data),
+            make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd),
+            cfg.epochs)
+
         # the CNN has no dropout, so the silo's key of the JAX chain
         # (`silo_key`) has nothing to seed
         def train_fn(params, client_idx, round_idx):
@@ -254,21 +267,132 @@ def _trust_tracker(cfg: ExperimentConfig):
                         probation_rounds=cfg.probation_rounds)
 
 
+def _compose_extra_state(named):
+    """Several named ``(get_fn, set_fn)`` pairs as the one ``extra_state``
+    checkpoint hook: the saved tree is a dict keyed by name; a restored
+    tree missing a name warns and restores what is there."""
+    named = [(n, gs) for n, gs in named if gs is not None]
+    if not named:
+        return None
+
+    def get():
+        return {name: g() for name, (g, _) in named}
+
+    def set_(tree):
+        if not hasattr(tree, "get"):
+            logger.warning("checkpoint extra-state is not the named-dict "
+                           "schema (pre-composition checkpoint?); "
+                           "skipping extra-state restore")
+            return
+        for name, (_, set_fn) in named:
+            sub = tree.get(name)
+            if sub is None:
+                logger.warning("checkpoint extra-state has no %r entry; "
+                               "that subsystem starts fresh", name)
+                continue
+            set_fn(sub)
+
+    return (get, set_)
+
+
+def make_journal(cfg: ExperimentConfig):
+    """The round journal under ``--journal_dir`` (or ``run_dir/journal``
+    with ``--journal``); only the server node journals."""
+    if not (cfg.journal or cfg.journal_dir):
+        return None
+    if cfg.silo_backend != "local" and cfg.node_id != 0:
+        return None  # a gRPC silo has no fold state to journal
+    import os
+    from fedml_tpu_torch.utils.journal import RoundJournal
+    path = cfg.journal_dir or os.path.join(cfg.run_dir or ".", "journal")
+    if not cfg.checkpoint_dir:
+        logger.warning("--journal without --checkpoint_dir: mid-round "
+                       "recovery needs the round-boundary checkpoint to "
+                       "resume against; the journal will record but a "
+                       "restarted server starts from round 0")
+    elif cfg.checkpoint_every != 1:
+        logger.warning("--journal with --checkpoint_every %d: mid-round "
+                       "recovery only engages when the crashed round "
+                       "directly follows a checkpointed one; set "
+                       "--checkpoint_every 1 for full coverage",
+                       cfg.checkpoint_every)
+    return RoundJournal(path, snapshot_every=cfg.journal_snapshot_every,
+                        node=f"node{cfg.node_id}")
+
+
+def chaos_on(cfg: ExperimentConfig) -> bool:
+    return any((cfg.chaos_drop, cfg.chaos_delay, cfg.chaos_dup,
+                cfg.chaos_reorder, cfg.chaos_corrupt))
+
+
+def make_chaos_plan(cfg: ExperimentConfig):
+    """The seeded fault plan every hub endpoint's `ChaosTransport` draws
+    from (FINISH and the straggler timer's self-message are immune)."""
+    from fedml_tpu_torch.algorithms.cross_silo import MsgType
+    from fedml_tpu_torch.comm.chaos import ChaosPlan, LinkChaos
+    return ChaosPlan(
+        seed=cfg.chaos_seed,
+        default=LinkChaos(drop_prob=cfg.chaos_drop,
+                          delay_prob=cfg.chaos_delay,
+                          max_delay_s=cfg.chaos_max_delay_s,
+                          dup_prob=cfg.chaos_dup,
+                          reorder_prob=cfg.chaos_reorder,
+                          corrupt_prob=cfg.chaos_corrupt),
+        # ROUND_TIMEOUT rides the server's own chaotic link (0, 0):
+        # dropping it would disarm the only re-arm path
+        immune_types=(MsgType.S2C_FINISH, MsgType.ROUND_TIMEOUT))
+
+
+def grpc_transport(cfg: ExperimentConfig, n_silos: int):
+    """This process's endpoint of the gRPC mesh (``--node_id``), in a
+    `ResilientTransport` with ``--silo_retries``."""
+    from fedml_tpu_torch.comm.grpc_transport import (GrpcTransport,
+                                                     load_ip_table)
+    table = (load_ip_table(cfg.ip_config) if cfg.ip_config
+             else {i: "127.0.0.1" for i in range(n_silos + 1)})
+    transport = GrpcTransport(cfg.node_id, table, base_port=cfg.base_port,
+                              max_message_mb=cfg.grpc_max_message_mb,
+                              idle_timeout_s=cfg.silo_idle_timeout_s,
+                              workers=cfg.grpc_workers)
+    if cfg.silo_retries > 0:
+        from fedml_tpu_torch.comm.resilient import (ResilientTransport,
+                                                    RetryPolicy)
+        transport = ResilientTransport(
+            transport, RetryPolicy(max_attempts=cfg.silo_retries),
+            seed=cfg.seed)
+    return transport
+
+
 class CrossSiloFederation:
-    """Distributed FedAvg over the actor/transport layer: the server and
-    ``client_num_per_round`` silo actors in-process on one `LocalHub`
-    (every frame through the wire codec), driven by the synchronous pump.
+    """Distributed FedAvg over the actor/transport layer.
+
+    ``--silo_backend local``: the server and ``client_num_per_round`` silo
+    actors in-process on one `LocalHub` (every frame through the wire
+    codec), driven by the synchronous pump — or, with ``--chaos_*`` (each
+    endpoint in a `ChaosTransport`), by the threaded drive: every actor
+    on its own thread, silos heartbeating every ``--heartbeat_s``.
+    ``transport_factory(node_id) -> Transport`` replaces the hub (an
+    `MqttTransport` per node over one broker, say) and takes the threaded
+    drive.  ``--silo_backend grpc``: this process is node ``--node_id``
+    of a gRPC mesh (0 the server, 1..N silos).
+
     ``--model_shards S`` runs the sharded spine: per-shard slice frames,
     per-shard admission and fold, and one K2 launch per shard per round
     with ``--fused_finalize on`` (or ``auto`` on the GPU).
+    ``--checkpoint_dir`` checkpoints every closed round (the trust ledger
+    and the shard layout ride ``extra_state``) and resumes from it;
+    ``--journal``/``--journal_dir`` adds the round journal;
+    ``--dead_after_s`` the failure detector.  ``faultline``: the server's
+    `robust.faultline.Faultline`.
 
     Built, then ``run()``; ``server.params`` is the global.
     ``init_params`` (a flat dict) replaces the seeded init."""
 
-    def __init__(self, cfg, data, sink, init_params=None):
-        from fedml_tpu_torch.algorithms.cross_silo import (FedAvgClientActor,
+    def __init__(self, cfg, data, sink, init_params=None,
+                 transport_factory=None, faultline=None):
+        from fedml_tpu_torch.algorithms.cross_silo import (FailureDetector,
+                                                           FedAvgClientActor,
                                                            FedAvgServerActor)
-        from fedml_tpu_torch.comm.local import LocalHub
         from fedml_tpu_torch.parallel.cohort import cohort_eval
         from fedml_tpu_torch.shard_spine import build_shard_spine
         from fedml_tpu_torch.trainer.local_sgd import make_evaluator
@@ -292,25 +416,80 @@ class CrossSiloFederation:
             admission, defended, stream = None, None, spine.agg
         else:
             admission, defended, stream = _robust_setup(cfg, init)
+        # the trust ledger and the shard layout are checkpointed state: a
+        # resumed server keeps strikes and quarantine sentences, and
+        # refuses a checkpoint of another layout
+        trust = (admission.trust if admission is not None
+                 else spine.admission.trust if spine is not None else None)
+        self.checkpointer = make_checkpointer(cfg)
+        self.journal = make_journal(cfg)
+        self.detector = None
+        if cfg.dead_after_s > 0:
+            self.detector = FailureDetector(
+                suspect_after_s=cfg.suspect_after_s or cfg.dead_after_s / 2,
+                dead_after_s=cfg.dead_after_s)
+        extra_state = _compose_extra_state([
+            ("trust", None if trust is None else
+             (lambda: trust.state_dict(n_silos), trust.load_state_dict)),
+            ("shard", None if spine is None else
+             (spine.checkpoint_state, spine.restore_checkpoint_state))])
         self._eval_cohort = cohort_eval(make_evaluator(wl))
         self._freq = (max(cfg.comm_round, 1) if cfg.ci
                       else cfg.frequency_of_the_test)
         self.history: list = []
         self.round_times: list = []
         self._t0 = time.perf_counter()
-        self.hub = LocalHub(codec_roundtrip=True)
-        self.server = FedAvgServerActor(
-            self.hub.transport(0), init, data.client_num, n_silos,
-            cfg.comm_round, on_round_done=self._on_round_done,
-            straggler_policy=cfg.straggler_policy,
-            round_timeout_s=cfg.round_timeout_s or None,
-            min_silo_frac=cfg.min_silo_frac, admission=admission,
-            stream_agg=stream, shard_wire=spine, aggregate_fn=defended)
-        self.silos = [FedAvgClientActor(g, self.hub.transport(g),
-                                        make_train_fn(g))
-                      for g in range(1, n_silos + 1)]
-        for actor in [self.server] + self.silos:
-            actor.register_handlers()
+
+        def make_server(transport):
+            return FedAvgServerActor(
+                transport, init, data.client_num, n_silos, cfg.comm_round,
+                on_round_done=self._on_round_done,
+                straggler_policy=cfg.straggler_policy,
+                round_timeout_s=cfg.round_timeout_s or None,
+                min_silo_frac=cfg.min_silo_frac, admission=admission,
+                stream_agg=stream, shard_wire=spine, aggregate_fn=defended,
+                failure_detector=self.detector,
+                checkpointer=self.checkpointer, extra_state=extra_state,
+                journal=self.journal, faultline=faultline)
+
+        self.hub = None
+        self.chaos_plan = None
+        self.server = None
+        self.silos: list = []
+        if cfg.silo_backend == "grpc":
+            self.drive = "grpc"
+            transport = grpc_transport(cfg, n_silos)
+            if cfg.node_id == 0:
+                self.server = make_server(transport)
+            else:
+                self.silos = [FedAvgClientActor(
+                    cfg.node_id, transport, make_train_fn(cfg.node_id),
+                    heartbeat_interval_s=cfg.heartbeat_s or None)]
+            return
+        if transport_factory is None:
+            from fedml_tpu_torch.comm.local import LocalHub
+            self.hub = LocalHub(codec_roundtrip=True)
+            transport_factory = self.hub.transport
+        wrap = lambda t: t  # noqa: E731
+        if chaos_on(cfg):
+            from fedml_tpu_torch.comm.chaos import ChaosTransport
+            self.chaos_plan = make_chaos_plan(cfg)
+            wrap = lambda t: ChaosTransport(t, self.chaos_plan)  # noqa: E731
+        # chaos delivers delayed and reordered frames on wall-clock
+        # timers, which the pump cannot wait for; a wire transport has
+        # its own receive loop
+        self.drive = ("threaded" if self.chaos_plan is not None
+                      or self.hub is None else "pump")
+        threaded = self.drive == "threaded"
+        self.server = make_server(wrap(transport_factory(0)))
+        self.silos = [FedAvgClientActor(
+            g, wrap(transport_factory(g)), make_train_fn(g),
+            heartbeat_interval_s=(cfg.heartbeat_s or None) if threaded
+            else None)
+            for g in range(1, n_silos + 1)]
+        if not threaded:
+            for actor in [self.server] + self.silos:
+                actor.register_handlers()
 
     def _on_round_done(self, r, params):
         from fedml_tpu_torch.algorithms.fedavg import evaluate_global
@@ -325,17 +504,48 @@ class CrossSiloFederation:
             self.sink.log(stats, step=r)
         self._t0 = time.perf_counter()   # evaluation is not round time
 
+    def _run_threaded(self, join_timeout_s: float = 30.0) -> None:
+        import threading
+        threads = [threading.Thread(target=a.run, daemon=True,
+                                    name=f"node-{a.node_id}")
+                   for a in self.silos]
+        for th in threads:
+            th.start()
+        try:
+            self.server.register_handlers()
+            self.server.start()
+            self.server.transport.run()  # until the last round's FINISH
+        finally:
+            for th in threads:
+                th.join(timeout=join_timeout_s)
+            for silo in self.silos:
+                silo.finish()   # idempotent: stragglers past FINISH
+            for th in threads:
+                th.join(timeout=5)
+
     def run(self) -> Dict[str, Any]:
         """Drive the federation to its end; the last evaluation, the
         steady round rate (rounds after the first) and whether the global
-        is finite."""
+        is finite.  A gRPC silo node runs until FINISH and returns {}."""
         server = self.server
+        if server is None:
+            self.silos[0].run()
+            return {}
         try:
             self._t0 = time.perf_counter()
-            server.start()
-            self.hub.pump()
+            if self.drive == "pump":
+                server.start()
+                self.hub.pump()
+            elif self.drive == "threaded":
+                self._run_threaded()
+            else:
+                server.register_handlers()
+                server.start()
+                server.transport.run()
         finally:
             server.finish()   # idempotent; joins the straggler timer
+            if self.checkpointer is not None:
+                self.checkpointer.close()
         if server.round_idx < self.cfg.comm_round and not server.aborted:
             raise RuntimeError(f"the federation stalled at round "
                                f"{server.round_idx} of {self.cfg.comm_round}")
@@ -361,21 +571,13 @@ REFUSED_FLAGS = {
                             "item 8)"),
     "wire_compression": ("none", "comm/compress.py (ROADMAP Queue 1 item 8)"),
     "error_feedback": (False, "comm/compress.py (ROADMAP Queue 1 item 8)"),
-    "heartbeat_s": (0.0, "heartbeats and the failure detector (ROADMAP "
-                         "Queue 1 item 3)"),
-    "dead_after_s": (0.0, "heartbeats and the failure detector (ROADMAP "
-                          "Queue 1 item 3)"),
     "serve_port": (0, "serve/ (ROADMAP Queue 1 item 11)"),
     "ingest_pipeline": (False, "comm/ingest.py (ROADMAP Queue 1 item 8)"),
-    "journal": (False, "utils/journal.py and robust/faultline.py (ROADMAP "
-                       "Queue 1 item 3)"),
     "health": (False, "obs/health.py (ROADMAP Queue 1 item 9)"),
     "server_opt": ("plain", "server_opt/ (ROADMAP Queue 1 item 7)"),
     "adaptive": (False, "server_opt/controller.py (ROADMAP Queue 1 item 7)"),
     "adversary": ("", "robust/adversary.py (ROADMAP Queue 1 item 8)"),
     "mesh_stages": (0, "parallel/pipeline.py (ROADMAP Queue 1 item 10)"),
-    **{f"chaos_{k}": (0.0, "comm/chaos.py (ROADMAP Queue 1 item 3)")
-       for k in ("drop", "delay", "dup", "reorder", "corrupt")},
 }
 
 
@@ -386,16 +588,43 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
         if getattr(cfg, flag) != default:
             raise NotImplementedError(
                 f"--{flag} is not ported yet; it needs {needs}")
-    if cfg.silo_backend != "local":
-        raise NotImplementedError(
-            f"--silo_backend {cfg.silo_backend} is not ported yet; the "
-            f"port runs the in-process hub only (comm/grpc_transport.py and "
-            f"comm/mqtt_*: ROADMAP Queue 1 item 3)")
-    if cfg.checkpoint_dir and cfg.algo == "cross_silo":
-        raise NotImplementedError(
-            "--checkpoint_dir with --algo cross_silo is not ported yet; the "
-            "server actor's checkpointer and extra_state arrive with ROADMAP "
-            "Queue 1 item 3a")
+    if cfg.silo_backend not in ("local", "grpc"):
+        raise ValueError(f"unknown silo_backend {cfg.silo_backend!r}; "
+                         f"available: ('local', 'grpc')")
+    if chaos_on(cfg):
+        if cfg.algo != "cross_silo":
+            raise ValueError(
+                f"--chaos_* injection is wired into --algo cross_silo only; "
+                f"--algo {cfg.algo} would silently run a CLEAN network and "
+                f"label the results as chaos results")
+        if cfg.silo_backend != "local":
+            raise ValueError("--chaos_* injection wraps the local hub only; "
+                             "for real wires compose ChaosTransport in code")
+        if cfg.chaos_drop > 0 and (cfg.straggler_policy == "wait"
+                                   or not cfg.round_timeout_s):
+            raise ValueError(
+                "--chaos_drop with the strict 'wait' barrier (or no "
+                "--round_timeout_s) would wedge the federation on "
+                "the first lost upload; use --straggler_policy drop "
+                "--round_timeout_s T")
+    if cfg.journal or cfg.journal_dir:
+        # the journal snapshots the STREAMING fold state: on a stack-mode
+        # (or non-live) run the flag would journal nothing
+        if cfg.algo not in ("cross_silo", "async_fl"):
+            raise ValueError(
+                f"--journal is mid-round crash consistency for the live "
+                f"actor modes and applies to --algo cross_silo/async_fl "
+                f"only; --algo {cfg.algo} would silently journal nothing "
+                f"and label the run as crash-consistent.")
+        if cfg.agg_mode != "stream" and cfg.secagg == "off":
+            raise ValueError(
+                "--journal rides the streaming-fold receive path: pass "
+                "--agg_mode stream (the stack path has no incremental "
+                "fold state to snapshot).  Secagg rounds journal "
+                "abort-only.")
+    if cfg.journal_snapshot_every < 1:
+        raise ValueError(f"--journal_snapshot_every must be >= 1, got "
+                         f"{cfg.journal_snapshot_every}")
     from fedml_tpu_torch.robust.defense import ROBUST_AGG_METHODS
     if cfg.robust_agg not in ROBUST_AGG_METHODS:
         raise ValueError(f"--robust_agg must be one of {ROBUST_AGG_METHODS}, "
@@ -449,6 +678,11 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
             raise ValueError(
                 "--model_shards requires the admission screens: the "
                 "per-shard structural fingerprint IS the wire protocol")
+        if cfg.silo_backend != "local":
+            raise ValueError(
+                "--model_shards deploys over the local hub only for "
+                "now (the actors are transport-agnostic; gRPC wiring "
+                "mirrors the flat one)")
 
 
 def check_config(cfg: ExperimentConfig) -> None:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import logging
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.comm.message import _flatten_arrays
@@ -62,6 +63,32 @@ class ShardSpine:
     def spec(self) -> dict:
         """The plan descriptor shard 0's sync frame ships."""
         return self._spec
+
+    def checkpoint_state(self) -> Dict[str, np.ndarray]:
+        """The layout, a fixed-shape record in the round checkpoint: a
+        resume re-derives the plan and checks it against this."""
+        return {"num_shards": np.asarray(self.plan.num_shards, np.int64),
+                "plan_fp": np.asarray(self.plan.fingerprint(), np.int64)}
+
+    def restore_checkpoint_state(self, state) -> None:
+        want_s = int(np.asarray(state["num_shards"]))
+        want_fp = int(np.asarray(state["plan_fp"]))
+        if want_s != self.plan.num_shards:
+            raise ValueError(
+                f"checkpoint was written under --model_shards {want_s} "
+                f"but this run uses {self.plan.num_shards}; resume with "
+                f"the original shard count (the layout is part of the "
+                f"checkpointed state)")
+        if want_fp != self.plan.fingerprint():
+            raise ValueError(
+                "checkpoint records a different shard-plan fingerprint "
+                "than this run re-derived (the model or split threshold "
+                "changed); refusing to resume under a mismatched layout")
+
+    def journal_mode(self) -> str:
+        """The journal's round-mode tag: recovery refuses a journal
+        written under another shard count (or by the replicated fold)."""
+        return f"shard_mean[S={self.plan.num_shards}]"
 
 
 def build_shard_spine(template, *, num_shards: int,

@@ -324,3 +324,56 @@ def test_new_phase_configs_parse_and_pass_the_gates():
     check_config(cfg)
     assert (cfg.comm_round, cfg.frequency_of_the_test,
             cfg.rounds_per_dispatch) == (21, 10, 10)
+
+
+def test_fault_tolerance_phase_configs_parse_and_pass_the_gates(tmp_path):
+    """The crash-resume, chaos and MQTT phases' configurations are valid
+    CLI configs: the checkpoint and journal flags with the sharded stream,
+    chaos with the drop policy, a timeout and heartbeats; the chaos
+    timeout follows the measured round; the K2 count each phase requires
+    is 4 a closed round."""
+    import math
+    durable = ["--checkpoint_dir", str(tmp_path / "ck"),
+               "--checkpoint_every", "1", "--journal_dir",
+               str(tmp_path / "j"), "--journal_snapshot_every", "1"]
+    cfg = cs.ft_cfg(durable, cs.FT_ROUNDS)
+    assert (cfg.model_shards, cfg.agg_mode, cfg.fused_finalize,
+            cfg.comm_round) == (4, "stream", "on", 3)
+    assert [p for p, _ in cs.CRASH_AT] == [
+        "post_admission_pre_fold", "post_fold_pre_ack", "barrier_close",
+        "mid_checkpoint_write"]
+    from fedml_tpu_torch.robust.faultline import CRASH_POINTS
+    assert all(p in CRASH_POINTS for p, _ in cs.CRASH_AT)
+    chaos = cs.ft_cfg([*cs.CHAOS_RATES, "--straggler_policy", "drop",
+                       "--round_timeout_s", "2.0", "--heartbeat_s", "0.05",
+                       "--dead_after_s", "6.0", "--min_silo_frac", "0.1"],
+                      cs.CHAOS_ROUNDS)
+    assert (chaos.chaos_drop, chaos.chaos_dup, chaos.chaos_reorder,
+            chaos.chaos_delay, chaos.chaos_corrupt) == (0.1, 0.1, 0.1, 0.1,
+                                                        0.05)
+    # T = 5 rounds rounded up to 0.5 s (at least 1 s), D = 3 T
+    for round_ms, want in ((400.0, 2.0), (100.0, 1.0), (1010.0, 5.5)):
+        t_s = max(cs.CHAOS_T_MIN_S,
+                  math.ceil(cs.CHAOS_T_ROUNDS * round_ms / 500) / 2)
+        assert t_s == want
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config
+    with pytest.raises(ValueError, match="wedge"):
+        check_config(config_from_argv([*cs.SILO_ARGS, *cs.CHAOS_RATES]))
+
+
+def test_chip_smoke_imports_no_grpc():
+    """The card has no grpcio: importing the script, and the modules of
+    the phases it drives, must not import it."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(cs.__file__).resolve().parent
+    code = ("import sys\nimport chip_smoke\n"
+            "import fedml_tpu_torch.comm.mqtt_transport\n"
+            "import fedml_tpu_torch.experiments.main\n"
+            "assert 'grpc' not in sys.modules\nprint('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -406,9 +406,8 @@ def test_admission_rejects_a_poisoned_plain_upload():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option", [
-    "secagg", "journal", "checkpointer", "extra_state",
-    "faultline", "ingest", "health", "perf", "server_opt", "controller",
-    "degrade", "decode_upload", "failure_detector", "publish"])
+    "secagg", "ingest", "health", "perf", "server_opt", "controller",
+    "degrade", "decode_upload", "publish"])
 def test_unported_actor_options_are_refused_by_name(option):
     init = params_from_numpy(_params())
     with pytest.raises(NotImplementedError, match=option):
@@ -448,8 +447,8 @@ _CS = ["--algo", "cross_silo", "--agg_mode", "stream", "--model_shards",
      "agg_mode"),
     (["--admission", "maybe"], ValueError, "auto\\|on\\|off"),
     (["--robust_agg", "krum"], ValueError, "model_shards with --robust_agg"),
-    (["--silo_backend", "grpc"], NotImplementedError, "grpc"),
-    (["--silo_backend", "mqtt"], NotImplementedError, "mqtt"),
+    (["--silo_backend", "grpc"], ValueError, "local hub only"),
+    (["--silo_backend", "mqtt"], ValueError, "unknown silo_backend"),
     (["--model_shards", "0", "--robust_agg", "krum", "--stream_reservoir",
       "0"], ValueError, "stream_reservoir"),
     (["--model_shards", "0", "--robust_agg", "median"], ValueError,
@@ -458,16 +457,20 @@ _CS = ["--algo", "cross_silo", "--agg_mode", "stream", "--model_shards",
     (["--edge_aggregators", "2"], NotImplementedError, "hierarchical"),
     (["--wire_compression", "topk"], NotImplementedError, "compress"),
     (["--error_feedback", "true"], NotImplementedError, "compress"),
-    (["--chaos_drop", "0.1"], NotImplementedError, "chaos"),
-    (["--dead_after_s", "3"], NotImplementedError, "failure detector"),
-    (["--heartbeat_s", "1"], NotImplementedError, "failure detector"),
+    (["--chaos_drop", "0.1"], ValueError, "wedge"),
+    (["--chaos_dup", "0.1", "--silo_backend", "grpc"], ValueError,
+     "local hub only"),
+    (["--algo", "fedavg", "--chaos_dup", "0.1"], ValueError,
+     "cross_silo only"),
     (["--serve_port", "8080"], NotImplementedError, "serve"),
     (["--ingest_pipeline", "true"], NotImplementedError, "ingest"),
-    (["--journal", "true"], NotImplementedError, "journal"),
+    (["--journal", "true", "--agg_mode", "stack", "--model_shards", "0"],
+     ValueError, "streaming-fold"),
     (["--health", "true"], NotImplementedError, "health"),
     (["--server_opt", "adam"], NotImplementedError, "server_opt"),
     (["--adversary", "2:gauss:0.1"], NotImplementedError, "adversary"),
-    (["--checkpoint_dir", "/x"], NotImplementedError, "checkpoint"),
+    (["--journal_snapshot_every", "0"], ValueError,
+     "journal_snapshot_every"),
 ])
 def test_config_gates_and_named_refusals(flags, exc, match):
     with pytest.raises(exc, match=match):

@@ -134,3 +134,30 @@ def test_cli_refuses_without_gpu_unless_cpu_asked():
     out = _run(["-m", "fedml_tpu_torch", "--comm_round", "1"])
     assert out.returncode != 0
     assert "--platform cpu" in out.stderr
+
+
+FAULT_TOLERANCE_MODULES = (
+    "fedml_tpu_torch.comm", "fedml_tpu_torch.comm.chaos",
+    "fedml_tpu_torch.comm.resilient", "fedml_tpu_torch.comm.mqtt_wire",
+    "fedml_tpu_torch.comm.mqtt_broker", "fedml_tpu_torch.comm.mqtt_client",
+    "fedml_tpu_torch.comm.mqtt_transport",
+    "fedml_tpu_torch.comm.grpc_transport",
+    "fedml_tpu_torch.utils.journal", "fedml_tpu_torch.robust.faultline",
+    "fedml_tpu_torch.utils.checkpoint",
+    "fedml_tpu_torch.algorithms.cross_silo",
+    "fedml_tpu_torch.experiments.main")
+
+
+def test_fault_tolerance_modules_import_without_jax_or_grpc():
+    """The fault-tolerance and transport modules, each named, import with
+    JAX and the JAX package blocked, and none of them — the gRPC
+    transport's module included — imports ``grpc`` (it is imported when a
+    `GrpcTransport` is built)."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {FAULT_TOLERANCE_MODULES!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"assert 'grpc' not in sys.modules\nprint('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
