@@ -121,6 +121,36 @@ each printed as it ends; any failure exits non-zero:
    ``ResilientTransport``), 3 rounds: 4 K2 launches a round, the global
    against the pumped hub run (limit 1e-4), rounds/s, the broker's bytes
    a round, the MQTT round beside the hub round;
+8i. live secagg — ``--secagg pairwise`` over the hub, 10 silos, threshold
+   6 (the majority rule), 3 rounds on the same CNN, data and widths, the
+   drop policy with the straggler timeout delivered by hand: silo 4 dies
+   after its round-2 advert and the round recovers through the
+   pair-secret shares.  Each unmasked ring sum equal, word for word, to
+   the ring sum of the survivors' unmasked quantized uploads; each global
+   within 1e-3 of the plaintext stream run with the same loss; a kill at
+   ``mid_unmask`` in round 2 leaves the boundary checkpoint and the
+   server's global at round 1's, and the re-run equals the clean run bit
+   for bit (deterministic mode); a run losing 5 of 10 uploads fails the
+   unmask loudly with the global kept.  Prints a round's split (advert,
+   agreement, masking on the card, ring fold, unmask with its
+   reconstructions, finalize, training, wire), rounds/s and one silo's
+   masking on the card beside the same code on CPU tensors (frames
+   bit-equal);
+8j. live server_opt — ``--server_opt adam`` on the sharded spine (S=4, K2
+   on; exactly 4 x 3 K2 launches, counted from 0 just before the run),
+   ``momentum`` and ``fedac`` on the replicated stream, 3 rounds each;
+   one round of each with TF32 off against the CPU (limit 1e-4; adam's
+   round at its finalized mean, and its step on the same inputs within
+   1e-6); a kill at ``post_fold_pre_ack`` in round 2 resumed from the
+   journal bit-equal, the optimizer's state too; a resume under
+   ``--server_opt momentum`` refused;
+8k. algorithm zoo — ``--algo fedopt|fedprox|fednova|scaffold|feddyn|
+   ditto|fedac|dp_fedavg``, 3 rounds each through the CLI's runner on the
+   CNN (SCAFFOLD, FedDyn and Ditto keep a host model per client and run
+   at 200 clients; the rest at 3400): the path taken (graphed device
+   round or host loop), host launch calls and device kernels a round,
+   the round's ms and the device's idle share over 3 more rounds; one
+   round with TF32 off against the CPU (limit 1e-4; DP-FedAvg's ε equal);
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
@@ -137,7 +167,8 @@ each printed as it ends; any failure exits non-zero:
    JAX CLI's widths, 715 clients, 10 per round, B=4, SGD lr 1) through
    the CLI's runner (graphed device rounds): rounds/s and a finite loss;
 12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
-   and K2 also at their library call's configuration, sigma 0; K4's
+   and K2 also at their library call's configuration, sigma 0; K2's
+   launches are phase 8j's adam run's, phase 8's beside them; K4's
    launches are the warm-up's and evaluation's plus the captured ones
    times the replays), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -3231,6 +3262,658 @@ def run_lm_cli():
     return summary
 
 
+# ---------------------------------------------------------------------------
+# live SecAgg over the wire, the server-optimizer seam and the stateful
+# cohort algorithms (the CNN's widths)
+# ---------------------------------------------------------------------------
+
+# the device the phases below run on (a rehearsal on the CPU sets "cpu")
+CARD = "cuda"
+PLAIN_STREAM_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
+                     "--agg_mode", "stream", *COMMON_ARGS]
+SECAGG_ARGS = [*PLAIN_STREAM_ARGS, "--secagg", "pairwise",
+               "--secagg_threshold", "0"]
+# the straggler policy that lets a round close over a lost upload; the
+# timeout is sent by hand once the pumped barrier stalls, so its length
+# only has to outlast the run
+SECAGG_DROP = ["--straggler_policy", "drop", "--round_timeout_s", "600"]
+SECAGG_DEAD = 4                # the silo that dies after its advert ...
+SECAGG_DEAD_ROUND = 1          # ... in round 2 of 3, and is back for round 3
+SECAGG_TOL = 1e-3              # a secure global vs the plaintext stream's
+#                                (tests/test_secagg_live.py's limit)
+SECAGG_OVER = (1, 2, 3, 4, 5)  # silos lost in the over-threshold run: 5
+#                                survivors of 10 under t = 6
+SECAGG_MASK_REPS = 5
+SRVOPT_ARGS = {
+    "adam": [*SILO_ARGS, "--server_opt", "adam", "--server_lr", "0.01"],
+    "momentum": [*PLAIN_STREAM_ARGS, "--server_opt", "momentum",
+                 "--server_lr", "1.0", "--server_momentum", "0.9"],
+    "fedac": [*PLAIN_STREAM_ARGS, "--server_opt", "fedac",
+              "--server_lr", "1.0", "--fedac_gamma", "0.5",
+              "--fedac_alpha", "2.0", "--fedac_beta", "3.0"]}
+SRVOPT_ROUNDS = 3
+SRVOPT_STEP_TOL = 1e-6         # adam's step on the same inputs, card vs CPU
+SRVOPT_KILL = ("post_fold_pre_ack", 2)
+# the eight --algo runners, 3 rounds each; SCAFFOLD, FedDyn and Ditto keep
+# a host copy of the model per client (3400 x 6.76 MB = 23 GB each), so
+# they run at ZOO_SMALL_CLIENTS
+ZOO_ARGS = {
+    # sgd with momentum: adam's first step, lr·Δ/(|Δ| + eps), moves an
+    # element whose Δ is within the card's and the CPU's difference of 0
+    # by up to lr, so no round-level limit holds it (phase 8j holds adam's
+    # step on the same inputs instead)
+    "fedopt": ["--server_optimizer", "sgd", "--server_lr", "1.0",
+               "--server_momentum", "0.9"],
+    "fedprox": ["--mu", "0.1"],
+    "fednova": ["--gmf", "0.5"],
+    "scaffold": [],
+    "feddyn": ["--feddyn_alpha", "0.01"],
+    "ditto": ["--ditto_lambda", "0.1"],
+    "fedac": ["--fedac_mu", "0.5"],
+    "dp_fedavg": ["--dp_clip", "1.0", "--dp_noise_multiplier", "1.0"]}
+ZOO_SMALL = ("scaffold", "feddyn", "ditto")
+ZOO_SMALL_CLIENTS = 200
+ZOO_PROFILE_ROUNDS = 3
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def live_cfg(argv, rounds: int, device: str = None):
+    """A valid CLI config of the live federation on ``device`` (the
+    card's by default)."""
+    import dataclasses
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config
+    cfg = config_from_argv([*argv, "--comm_round", str(rounds)])
+    check_config(cfg)
+    return dataclasses.replace(cfg, platform=device or CARD)
+
+
+class LoseUploads:
+    """A silo's sends with its uploads of ``rounds`` lost: the silo dies
+    after its advert (its shares of the round are already with the
+    server) and is back for the next round."""
+
+    def __init__(self, inner, rounds):
+        self._inner = inner
+        self._rounds = set(rounds)
+
+    def send_message(self, msg):
+        from fedml_tpu_torch.algorithms.cross_silo import MsgType
+        from fedml_tpu_torch.comm.message import Message
+        if msg.type == MsgType.C2S_MODEL \
+                and msg.get(Message.ARG_ROUND) in self._rounds:
+            return
+        self._inner.send_message(msg)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def live_fed(cfg, data, init=None, lose=None, **kw):
+    """The runner's pumped federation for ``cfg`` (no evaluation),
+    recording each closed round's wall time and global; ``lose``: {silo:
+    rounds} whose uploads are lost."""
+    from fedml_tpu_torch.experiments.main import CrossSiloFederation
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    with MetricsSink(None) as sink:
+        fed = CrossSiloFederation(cfg, data, sink, init_params=init, **kw)
+    for silo in fed.silos:
+        if lose and silo.node_id in lose:
+            silo.transport = LoseUploads(silo.transport, lose[silo.node_id])
+    fed.closed = []
+    mark = {"t": None}
+
+    def on_round_done(r, params):
+        sync(cfg.platform)
+        now = time.perf_counter()
+        fed.closed.append((r, now - (mark["t"] or fed.t_start),
+                           {k: v.clone() for k, v in params.items()}))
+        mark["t"] = now
+
+    fed.server.on_round_done = on_round_done
+    fed.t_start = None
+    return fed
+
+
+def live_drive(fed, max_timeouts: int = 8) -> None:
+    """Pump the federation to its end; whenever the barrier stalls on a
+    lost upload, deliver the straggler timeout by hand."""
+    from fedml_tpu_torch.algorithms.cross_silo import MsgType
+    from fedml_tpu_torch.comm.message import Message
+    server = fed.server
+    sync(fed.cfg.platform)
+    fed.t_start = time.perf_counter()
+    try:
+        server.start()
+        fed.hub.pump()
+        sent = 0
+        while not server._finished and server.round_idx < fed.cfg.comm_round:
+            if sent == max_timeouts:
+                fail(f"the federation stalled at round {server.round_idx}")
+            server.send(MsgType.ROUND_TIMEOUT, 0,
+                        **{Message.ARG_ROUND: server.round_idx})
+            sent += 1
+            fed.hub.pump()
+    finally:
+        server.finish()
+        if fed.checkpointer is not None:
+            fed.checkpointer.close()
+
+
+def ring_sum_recorder(fed):
+    """Hold every unmask to the ring sum of the survivors' unmasked
+    quantized uploads: each silo's `SecAggClient.quantize` words are kept
+    per round, and the server's unmasked ring sum is compared word for
+    word.  Returns the list of (round, survivors, equal)."""
+    import torch
+    from fedml_tpu_torch.core.murmur import M32
+    words, checks = {}, []
+    for silo in fed.silos:
+        client = silo.secagg
+        real_mask = client.mask
+
+        def mask(round_idx, update, num_samples, _c=client, _m=real_mask):
+            words[(round_idx, _c.node_id)] = _c.quantize(round_idx, update,
+                                                         num_samples)
+            return _m(round_idx, update, num_samples)
+        client.mask = mask
+    secagg = fed.server.secagg
+    real_unmask = secagg.unmasked_ring_sum
+
+    def unmasked_ring_sum():
+        r = secagg._round
+        folded = sorted(r.folded)
+        got = real_unmask()
+        want = sum(words[(r.round_idx, s)] for s in folded) & M32
+        checks.append((r.round_idx, folded,
+                       bool(torch.equal(got, want.to(got.device)))))
+        for s in list(words):
+            if s[0] <= r.round_idx:
+                del words[s]
+        return got
+    secagg.unmasked_ring_sum = unmasked_ring_sum
+    return checks
+
+
+def secagg_split(fed):
+    """Exclusive host time of each part of a secure round (synchronised),
+    by round: the silos' advert and masking, the server's agreement
+    handling, the ring fold, the unmask with its reconstructions, the
+    finalize, the silos' training and the wire."""
+    timer = PartTimer()
+    server = fed.server
+    for silo in fed.silos:
+        timer.wrap(silo, "_train", "silo_train_ms")
+        timer.wrap(silo.secagg, "begin_round", "advert_ms")
+        timer.wrap(silo.secagg, "mask", "masking_ms")
+        timer.wrap(silo.secagg, "reveal", "reveal_ms")
+    timer.wrap(server.secagg, "note_advert", "agreement_ms")
+    timer.wrap(server.secagg, "flush_roster", "agreement_ms")
+    timer.wrap(server.secagg, "fold", "ring_fold_ms")
+    timer.wrap(server.secagg, "unmasked_ring_sum", "unmask_ms")
+    timer.wrap(server.secagg, "finalize", "finalize_ms")
+    timer.wrap(server, "_broadcast", "broadcast_ms")
+    timer.wrap(fed.hub, "route", "wire_ms")
+    return timer
+
+
+def mask_times(fed, update, num_samples: float):
+    """One silo's masking of ``update`` on the card and the same code on
+    CPU tensors (the same round state), bit-equal, each the median of
+    SECAGG_MASK_REPS calls."""
+    from fedml_tpu_torch.secure.protocol import SecAggClient, _canon_leaves
+    card = fed.silos[0].secagg
+    round_idx = card._round.round_idx
+    cpu = SecAggClient(card.node_id, device="cpu")
+    cpu._round = card._round
+    out = {}
+    for name, client, upd in (
+            ("card", card, update),
+            ("cpu", cpu, _cpu_tree(update))):
+        times = []
+        for _ in range(SECAGG_MASK_REPS):
+            frame = client.mask(round_idx, upd, num_samples)
+            times.append(client.mask_s * 1e3)
+        out[name] = (statistics.median(times),
+                     [l.tobytes() for l in _canon_leaves(frame)])
+    if out["card"][1] != out["cpu"][1]:
+        fail("the masked frame made on the card differs from the CPU's")
+    return {"card_ms": out["card"][0], "cpu_ms": out["cpu"][0],
+            "streams": len(card._round.roster),
+            "words": sum(len(b) for b in out["card"][1]) // 4}
+
+
+def _cpu_tree(tree):
+    if hasattr(tree, "items"):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    return tree.cpu() if hasattr(tree, "cpu") else tree
+
+
+def check_live_secagg(data, root: Path):
+    """Phase 12: live SecAgg over the hub, 10 silos, threshold 6, 3 rounds
+    on the CNN; silo 4 dies after its round-2 advert and the round
+    recovers through the pair-secret shares.  Holds each unmasked ring sum
+    to the survivors' quantized uploads (bit for bit), each global to the
+    plaintext stream run's with the same loss (1e-3), a mid_unmask kill to
+    the boundary (global unchanged) with a re-run equal to the clean run,
+    and a run with 5 of 10 uploads lost to a loud failure.  Prints the
+    split of a round, rounds/s and one silo's masking on the card beside
+    the CPU."""
+    import torch
+    from fedml_tpu_torch.experiments.main import check_config
+    from fedml_tpu_torch.robust.faultline import (ActorKilled, CrashSpec,
+                                                  Faultline)
+    from fedml_tpu_torch.secure.protocol import SecAggError
+    from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
+    from fedml_tpu_torch.utils.journal import RoundJournal
+    base = root / "build" / "secagg"
+    shutil.rmtree(base, ignore_errors=True)
+    lose = {SECAGG_DEAD: [SECAGG_DEAD_ROUND]}
+    out = {}
+    with deterministic():
+        cfg = live_cfg(SECAGG_ARGS + SECAGG_DROP, 3)
+        fed = live_fed(cfg, data, lose=lose)
+        init = {k: v.clone() for k, v in fed.server.params.items()}
+        timer = secagg_split(fed)
+        checks = ring_sum_recorder(fed)
+        for silo in fed.silos:    # the check's own quantize pass, apart
+            timer.wrap(silo.secagg, "quantize", "ring_sum_check_ms")
+        last = {}
+        real_mask = fed.silos[0].secagg.mask
+
+        def mask_first(round_idx, update, num_samples):
+            last.update(update=update, n=num_samples)
+            return real_mask(round_idx, update, num_samples)
+        fed.silos[0].secagg.mask = mask_first
+        marks = []
+        real_done = fed.server.on_round_done
+
+        def on_round_done(r, params):
+            real_done(r, params)
+            marks.append(dict(timer.totals))
+        fed.server.on_round_done = on_round_done
+        live_drive(fed)
+        if fed.server.round_idx != 3 or len(fed.closed) != 3:
+            fail(f"the secure federation closed {len(fed.closed)} rounds")
+        if not all(ok for _, _, ok in checks) or len(checks) != 3:
+            fail(f"an unmasked ring sum differs from the ring sum of the "
+                 f"survivors' quantized uploads: {checks}")
+        survivors = {r: s for r, s, _ in checks}
+        if SECAGG_DEAD in survivors[SECAGG_DEAD_ROUND] \
+                or len(survivors[SECAGG_DEAD_ROUND]) != 9:
+            fail(f"round {SECAGG_DEAD_ROUND} folded {survivors}")
+        dropped = fed.server.dropped_silos.get(SECAGG_DEAD_ROUND, [])
+        plain = live_fed(live_cfg(PLAIN_STREAM_ARGS + SECAGG_DROP, 3), data,
+                         init=init, lose=lose)
+        live_drive(plain)
+        diffs = [max_diff(a[2], b[2]) for a, b in zip(fed.closed,
+                                                      plain.closed)]
+        if len(diffs) != 3 or not max(diffs) <= SECAGG_TOL:
+            fail(f"a secure global differs from the plaintext stream's by "
+                 f"{diffs} (limit {SECAGG_TOL})")
+        finite = all(bool(v.isfinite().all())
+                     for v in fed.server.params.values())
+        if not finite:
+            fail("the secure federation's global is not finite")
+        masking = mask_times(fed, last["update"], last["n"])
+
+        # abort-only: a kill mid-unmask in round 2 leaves the boundary
+        # checkpoint holding round 1's global, and the re-run from it
+        # lands on the clean run's global
+        clean = live_fed(live_cfg(SECAGG_ARGS, 3), data, init=init)
+        live_drive(clean)
+        durable = ["--checkpoint_dir", str(base / "ck"),
+                   "--checkpoint_every", "1",
+                   "--journal_dir", str(base / "j")]
+        kcfg = live_cfg(SECAGG_ARGS + durable, 3)
+        fl = Faultline(crashes=[CrashSpec(point="mid_unmask",
+                                          round_idx=SECAGG_DEAD_ROUND)])
+        killed = live_fed(kcfg, data, init=init, faultline=fl)
+        try:
+            live_drive(killed)
+            fail("the mid_unmask kill never fired")
+        except ActorKilled:
+            pass
+        state = RoundCheckpointer(str(base / "ck")).restore()
+        boundary = {k: torch.as_tensor(v) for k, v in state["params"].items()}
+        unchanged = (int(state["round_idx"]) == SECAGG_DEAD_ROUND - 1
+                     and bit_equal(boundary, clean.closed[0][2])
+                     and bit_equal(killed.server.params,
+                                   clean.closed[0][2]))
+        rec = RoundJournal(str(base / "j")).recover()
+        if not unchanged or rec is None or rec.mode != "secagg" \
+                or rec.resumable:
+            fail(f"the mid_unmask kill: boundary unchanged {unchanged}, "
+                 f"journal {rec and (rec.mode, rec.resumable)}")
+        resumed = live_fed(kcfg, data, init=init)
+        live_drive(resumed)
+        rerun_equal = bit_equal(resumed.server.params, clean.server.params)
+        if not rerun_equal:
+            fail("the secure re-run after the mid_unmask kill differs from "
+                 "the clean run")
+
+        # more dropouts than the threshold allows: the unmask fails loudly
+        # and the global stays where it was
+        ocfg = live_cfg(SECAGG_ARGS + SECAGG_DROP, 1)
+        over = live_fed(ocfg, data, init=init,
+                        lose={s: [0] for s in SECAGG_OVER})
+        errors = []
+        real_fin = over.server.secagg.finalize
+
+        def finalize(*a, **kw):
+            try:
+                return real_fin(*a, **kw)
+            except SecAggError as e:
+                errors.append(str(e))
+                raise
+        over.server.secagg.finalize = finalize
+        live_drive(over)
+        kept = bit_equal(over.server.params, init)
+        if not errors or "threshold" not in errors[0] or not kept:
+            fail(f"{len(SECAGG_OVER)} lost uploads of 10 at t = 6: errors "
+                 f"{errors}, global kept {kept}")
+    rows = []
+    prev = {}
+    for m in marks:
+        rows.append({k: (v - prev.get(k, 0.0)) * 1e3 for k, v in m.items()})
+        prev = m
+    steady = rows[1:]
+    split = {k: statistics.median(r.get(k, 0.0) for r in steady)
+             for k in steady[0]}
+    times = [dt for _, dt, _ in fed.closed]
+    split["round_ms"] = statistics.median(times[1:]) * 1e3
+    out = dict(
+        rounds=3, silos=cfg.client_num_per_round,
+        threshold=fed.server.secagg._threshold_for(cfg.client_num_per_round),
+        dead_silo=SECAGG_DEAD, dead_round=SECAGG_DEAD_ROUND,
+        dropped=dropped, ring_sums_bit_equal=[ok for _, _, ok in checks],
+        vs_plaintext_max_abs_diff=diffs, tol=SECAGG_TOL,
+        rounds_per_s=len(times[1:]) / sum(times[1:]),
+        plaintext_rounds_per_s=rounds_per_s(plain),
+        split_ms_per_round=split, per_round_split_ms=rows,
+        masking=masking, mid_unmask_boundary_unchanged=unchanged,
+        mid_unmask_rerun_bit_equal=rerun_equal,
+        over_threshold_error=errors[0], over_threshold_global_kept=kept,
+        params_finite=finite)
+    phase("live secagg", **out)
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def srvopt_fed(name, data, rounds=SRVOPT_ROUNDS, extra=(), init=None,
+               device=None, **kw):
+    return live_fed(live_cfg([*SRVOPT_ARGS[name], *extra], rounds, device),
+                    data, init=init, **kw)
+
+
+def srvopt_round_parity(name, data):
+    """One round of ``name`` with TF32 off on the card against the CPU,
+    from one init.  Adam's first step is ``lr·Δ/(|Δ| + eps)``, so an
+    element whose Δ is within the two devices' difference of 0 moves by up
+    to lr; its round is held at the finalized mean (1e-4) and its step on
+    the same inputs, card against CPU (1e-6)."""
+    from fedml_tpu_torch.server_opt import ServerOptimizer
+    runs = {}
+    for label, device in (("cpu", "cpu"), ("card", CARD)):
+        init = runs.get("cpu", {}).get("init")
+        fed = srvopt_fed(name, data, rounds=1, device=device, init=init)
+        seen = {}
+        real = fed.server.server_opt.apply
+
+        def apply(params, finalized, round_idx=0, _real=real, _seen=seen):
+            _seen.update(before={k: v.clone() for k, v in params.items()},
+                         finalized={k: v.clone()
+                                    for k, v in finalized.items()})
+            return _real(params, finalized, round_idx)
+        fed.server.server_opt.apply = apply
+        runs[label] = dict(init={k: v.cpu().clone() for k, v in
+                                 fed.server.params.items()})
+        with tf32_off():
+            live_drive(fed)
+        runs[label].update(seen, after=fed.server.params)
+    cpu, card = runs["cpu"], runs["card"]
+    out = {"finalize_max_abs_diff": max_diff(card["finalized"],
+                                             cpu["finalized"]),
+           "round_max_abs_diff": max_diff(card["after"], cpu["after"])}
+    if name == "adam":
+        opt = ServerOptimizer("adam", cpu["before"],
+                              **{k: v for k, v in srvopt_kw(name).items()})
+        stepped = opt.apply({k: v.cpu() for k, v in card["before"].items()},
+                            {k: v.cpu() for k, v in
+                             card["finalized"].items()})
+        out["step_max_abs_diff"] = max_diff(card["after"], stepped)
+        ok = (out["finalize_max_abs_diff"] <= ROUND_TOL
+              and out["step_max_abs_diff"] <= SRVOPT_STEP_TOL)
+    else:
+        ok = out["round_max_abs_diff"] <= ROUND_TOL
+    if not ok:
+        fail(f"--server_opt {name}: one round on the card against the CPU "
+             f"{out}")
+    return out
+
+
+def srvopt_kw(name):
+    cfg = live_cfg(SRVOPT_ARGS[name], 1, "cpu")
+    return dict(lr=cfg.server_lr, momentum=cfg.server_momentum,
+                beta1=cfg.server_adam_beta1, beta2=cfg.server_adam_beta2,
+                eps=cfg.server_adam_eps)
+
+
+def check_live_server_opt(data, root: Path):
+    """Phase 13: the live server-optimizer seam on the CNN, 3 rounds each:
+    adam on the sharded spine (S=4, K2 on; exactly 4 x 3 K2 launches,
+    counted from 0 just before), momentum and fedac on the replicated
+    stream; one round of each with TF32 off against the CPU; a journaled
+    kill in round 2 resumed bit-equal with the optimizer's state restored;
+    a resume under another --server_opt refused."""
+    import torch
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.robust.faultline import (ActorKilled, CrashSpec,
+                                                  Faultline)
+    from fedml_tpu_torch.server_opt import ServerOptMismatchError
+    base = root / "build" / "srvopt"
+    shutil.rmtree(base, ignore_errors=True)
+    runs = {}
+    k2 = None
+    for name in SRVOPT_ARGS:
+        fed = srvopt_fed(name, data)
+        if name == "adam":
+            fused_agg.reset_launch_counts()
+        live_drive(fed)
+        if name == "adam":
+            sync(CARD)
+            k2 = fused_agg.launch_counts["shard_finalize"]
+            need = fed.cfg.model_shards * SRVOPT_ROUNDS
+            if k2 != need:
+                fail(f"--server_opt adam on the sharded spine launched K2 "
+                     f"{k2} times, need exactly {need}")
+        finite = all(bool(v.isfinite().all())
+                     for v in fed.server.params.values())
+        if len(fed.closed) != SRVOPT_ROUNDS or not finite \
+                or fed.server.server_opt.step_count != SRVOPT_ROUNDS:
+            fail(f"--server_opt {name}: {len(fed.closed)} rounds, "
+                 f"{fed.server.server_opt.step_count} steps, finite {finite}")
+        runs[name] = dict(rounds_per_s=rounds_per_s(fed),
+                          round_ms=steady_round_ms(fed),
+                          journal_mode=fed.server._journal_mode())
+    for name in SRVOPT_ARGS:
+        runs[name].update(srvopt_round_parity(name, data))
+
+    def durable(tag):
+        return ["--checkpoint_dir", str(base / tag / "ck"),
+                "--checkpoint_every", "1",
+                "--journal_dir", str(base / tag / "j"),
+                "--journal_snapshot_every", "1"]
+    with deterministic():
+        ref = srvopt_fed("adam", data, extra=durable("ref"))
+        init = {k: v.clone() for k, v in ref.server.params.items()}
+        live_drive(ref)
+        point, hit = SRVOPT_KILL
+        fl = Faultline(crashes=[CrashSpec(point=point, hit=hit,
+                                          round_idx=CRASH_ROUND)])
+        killed = srvopt_fed("adam", data, extra=durable("kill"), init=init,
+                            faultline=fl)
+        try:
+            live_drive(killed)
+            fail(f"the {point} kill never fired")
+        except ActorKilled:
+            pass
+        resumed = srvopt_fed("adam", data, extra=durable("kill"), init=init)
+        live_drive(resumed)
+        same = bit_equal(resumed.server.params, ref.server.params)
+        a = resumed.server.server_opt.state_dict()
+        b = ref.server.server_opt.state_dict()
+        state_same = all(
+            bit_equal({"x": torch.as_tensor(x)}, {"x": torch.as_tensor(y)})
+            for x, y in zip(_state_leaves(a), _state_leaves(b)))
+        if not (same and state_same):
+            fail(f"the adam run resumed after a {point} kill: params "
+                 f"bit-equal {same}, optimizer state bit-equal {state_same}")
+        refused = None
+        other = srvopt_fed("momentum", data, extra=durable("kill"),
+                           init=init)
+        try:
+            live_drive(other)
+        except ServerOptMismatchError as e:
+            refused = str(e)
+        if not refused:
+            fail("a resume under another --server_opt was not refused")
+    out = dict(rounds=SRVOPT_ROUNDS, k2_launches=k2, runs=runs,
+               kill=dict(point=point, hit=hit, round=CRASH_ROUND,
+                         params_bit_equal=same, state_bit_equal=state_same),
+               other_optimizer_refused=refused[:120])
+    phase("live server_opt", **out)
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def _state_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _state_leaves(tree[k])]
+    return [tree]
+
+
+def zoo_cfg(name: str, device: str = None, rounds: int = 3):
+    import dataclasses
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config
+    extra = list(ZOO_ARGS[name])
+    if name in ZOO_SMALL:
+        extra += ["--client_num_in_total", str(ZOO_SMALL_CLIENTS)]
+    cfg = config_from_argv(["--algo", name, *COMMON_ARGS, *extra,
+                            "--comm_round", str(rounds)])
+    check_config(cfg)
+    return dataclasses.replace(cfg, platform=device or CARD)
+
+
+def zoo_path(algo) -> str:
+    graph = getattr(algo._device_round, "graph", None)
+    if algo._uses_device_data():
+        return "graphed device round" if graph is not None \
+            else "device round"
+    return "host loop"
+
+
+def zoo_parity(cfg, data):
+    """One round of the algorithm with TF32 off on the card against the
+    CPU from one init, evaluation off; DP-FedAvg's ε on both."""
+    import dataclasses
+    from fedml_tpu_torch.experiments.main import build_algo
+    devices = {"cpu": "cpu", "card": CARD}
+    algos = {label: build_algo(dataclasses.replace(cfg, platform=d,
+                                                   comm_round=1), data)
+             for label, d in devices.items()}
+    init = algos["cpu"].init_params()
+    out = {}
+    with tf32_off():
+        for label, algo in algos.items():
+            algo.evaluate_global = lambda params: {}
+            params = algo.run(params={k: v.to(devices[label])
+                                      for k, v in init.items()})
+            out[label] = {k: v.cpu() for k, v in params.items()}
+    diff = max_diff(out["card"], out["cpu"])
+    moved = max_diff(out["cpu"], init)
+    eps = {d: getattr(a, "accountant", None) and a.accountant.epsilon()
+           for d, a in algos.items()}
+    if not diff <= ROUND_TOL or not moved > 10 * ROUND_TOL \
+            or eps["card"] != eps["cpu"]:
+        fail(f"--algo {cfg.algo}: one round on the card against the CPU "
+             f"differs by {diff} (moved {moved}), eps {eps}")
+    return diff, eps["card"]
+
+
+def check_algorithm_zoo(data):
+    """Phase 14: each of the eight --algo runners for 3 rounds on the CNN
+    (SCAFFOLD, FedDyn and Ditto at 200 clients): the path it took, the
+    host launch calls and device kernels a round, the round and the idle
+    share (torch.profiler over 3 more rounds); one round with TF32 off
+    against the CPU (1e-4; DP-FedAvg's ε equal)."""
+    import dataclasses
+    import gc
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import round_seed_words
+    from fedml_tpu_torch.experiments.main import (build_algo,
+                                                  load_experiment_data)
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    small = None
+    rows = {}
+    for name in ZOO_ARGS:
+        cfg = zoo_cfg(name)
+        if name in ZOO_SMALL:
+            if small is None:
+                small = load_experiment_data(cfg)
+            zdata = small
+        else:
+            zdata = data
+        t0 = time.perf_counter()
+        with MetricsSink(None) as sink:
+            algo = build_algo(cfg, zdata, sink)
+            params = algo.run()
+        sync(CARD)
+        run_s = time.perf_counter() - t0
+        finite = all(bool(v.isfinite().all()) for v in params.values())
+        if not finite or len(algo.round_times) != cfg.comm_round:
+            fail(f"--algo {name}: {len(algo.round_times)} rounds, finite "
+                 f"{finite}")
+        steady = algo.round_times[1:]
+        row = dict(clients=zdata.client_num, path=zoo_path(algo),
+                   run_s=run_s, rounds_per_s=len(steady) / sum(steady),
+                   test_acc=algo.history[-1].get("test_acc"))
+        if name == "dp_fedavg":
+            row["dp_epsilon"] = algo.accountant.epsilon()
+        graph = getattr(algo._device_round, "graph", None)
+        if graph is not None:
+            row.update(captures=graph.captures, replays=graph.replays)
+        use = algo._uses_device_data()
+        state = {"params": params, "r": cfg.comm_round}
+
+        def run(_algo=algo, _state=state, _use=use, _seed=cfg.seed):
+            p = _state["params"]
+            for _ in range(ZOO_PROFILE_ROUNDS):
+                p = _algo.run_round(p, _state["r"],
+                                    round_seed_words(_seed, _state["r"]),
+                                    _use)
+                _state["r"] += 1
+            _state["params"] = p
+        row.update(path_profile(run, ZOO_PROFILE_ROUNDS))
+        row["vs_cpu_max_abs_diff"], eps = zoo_parity(
+            dataclasses.replace(cfg), zdata)
+        if eps is not None:
+            row["dp_epsilon_cpu_equal"] = True
+        rows[name] = row
+        phase(f"algorithm {name}", **row)
+        # the algorithm's resident split, graph and state leave the card
+        del algo, params, state, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -3304,6 +3987,9 @@ def main() -> None:
     crash = check_silo_crash_resume(data, root)
     chaos = check_silo_chaos(data, crash["plain_round_ms"])
     mqtt = check_silo_mqtt(data)
+    secagg = check_live_secagg(data, root)
+    srvopt = check_live_server_opt(data, root)
+    zoo = check_algorithm_zoo(data)
 
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
@@ -3361,7 +4047,8 @@ def main() -> None:
         "bound_by": path["bound_by"], "bound_term": path["bound_term"],
         "library_ms": None,
     })
-    # one round of the cross-silo slice: one launch per S=4 shard
+    # one round of the cross-silo slice: one launch per S=4 shard; the
+    # launches are the live server_opt phase's (adam on the sharded spine)
     shards = [r for r in k2_rows if r["shard"] in shard_sizes
               and r["sigma"]]
     clean = [r for r in k2_rows if r["shard"] in shard_sizes
@@ -3370,7 +4057,9 @@ def main() -> None:
         "name": "shard_finalize", "route": "cuda",
         "source": "fedml_tpu_torch/csrc/shard_finalize.cu",
         "replaces": "fedml_tpu/core/pallas_agg.py:140",
-        "launches": k2_launches, "max_abs_err": k2_worst,
+        "launches": srvopt["k2_launches"],
+        "launches_cross_silo_slice": k2_launches,
+        "max_abs_err": k2_worst,
         "ms": sum(r["ms"] for r in shards),
         "plain_ms": sum(r["plain_ms"] for r in shards),
         "bound_ms": sum(r["bound_us"] for r in shards) / 1e3,
@@ -3416,6 +4105,14 @@ def main() -> None:
           silo_resume_bit_equal=crash["bit_equal"],
           silo_chaos_rounds_per_s=chaos["rounds_per_s"],
           silo_mqtt_rounds_per_s=mqtt["rounds_per_s"],
+          secagg_rounds_per_s=secagg["rounds_per_s"],
+          secagg_vs_plaintext_max_abs_diff=max(
+              secagg["vs_plaintext_max_abs_diff"]),
+          server_opt_rounds_per_s={k: v["rounds_per_s"]
+                                   for k, v in srvopt["runs"].items()},
+          algo_rounds_per_s={k: v["rounds_per_s"] for k, v in zoo.items()},
+          algo_vs_cpu_max_abs_diff={k: v["vs_cpu_max_abs_diff"]
+                                    for k, v in zoo.items()},
           lm_flash_vs_blockwise_max_abs_diff=lm_diff,
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]

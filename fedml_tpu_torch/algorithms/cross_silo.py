@@ -22,7 +22,15 @@ with
   the quorum at broadcast, a rejoining silo gets the current global),
   round checkpoints with ``extra_state`` (``start()`` resumes), the round
   journal (a server killed mid-round resumes the same round and re-tasks
-  only the silos not durably folded) and the `Faultline` crash points.
+  only the silos not durably folded) and the `Faultline` crash points;
+* live secure aggregation (``secagg``, `secure.protocol`): the round's
+  stages agreement → upload → unmask, masked uploads folded in the ring
+  at arrival, dropout recovery through the pair-secret shares, and
+  abort-only journaling (a crashed secure round restarts from the
+  boundary with the global unchanged);
+* the server-optimizer seam (``server_opt``, `server_opt.optimizer`):
+  the finalized mean becomes the pseudo-gradient ``global − finalize``
+  and one optimizer step makes the new global.
 
 Every other option of the JAX actor is refused by name.  Neither the
 heartbeat thread nor the straggler timer touches the device: both only
@@ -56,6 +64,10 @@ from fedml_tpu_torch.core.pytree import (HostMirror, as_tensor,
                                          tree_keys, tree_weighted_mean)
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.obs import telemetry
+from fedml_tpu_torch.secure.protocol import (MSG_SECAGG_ADVERT,
+                                             MSG_SECAGG_ROSTER,
+                                             MSG_SECAGG_SHARES,
+                                             MSG_SECAGG_UNMASK, SecAggError)
 from fedml_tpu_torch.shard_spine.admission import ACCEPT, WAIT
 from fedml_tpu_torch.shard_spine.spine import SiloShardAssembler
 from fedml_tpu_torch.utils.journal import tree_crc
@@ -149,12 +161,11 @@ SiloTrainFn = Callable[[object, int, int], tuple]
 
 # JAX actor options this port does not run yet, with where they arrive
 _REFUSED = {
-    "secagg": "live SecAgg over the wire (secure/protocol.py)",
     "ingest": "the pipelined receive path (comm/ingest.py)",
     "health": "the health observatory (obs/health.py)",
     "perf": "the perf ledger (obs/perf.py)",
-    "server_opt": "server optimizers (server_opt/)",
-    "controller": "the adaptive controller (server_opt/)",
+    "controller": "the adaptive controller (server_opt/controller.py, "
+                  "with the health observatory of item 9)",
     "degrade": "the reliability tracker (robust/degrade.py)",
     "decode_upload": "wire compression (comm/compress.py)",
     "publish": "serve-while-train (serve/)",
@@ -210,6 +221,14 @@ class FedAvgServerActor(ServerManager):
     does not cover, else abandons it loudly.  ``faultline``: a
     `robust.faultline.Faultline` whose armed crash points raise
     `ActorKilled` out of the event loop with no cleanup.
+
+    ``secagg``: a `secure.protocol.SecAggServer`; the round runs the
+    masking choreography (sync carries ``ARG_SECAGG``, adverts, one
+    roster frame per silo, masked uploads folded in the ring, the unmask
+    request and the share reveals), exclusive with ``stream_agg``,
+    ``aggregate_fn`` and ``shard_wire``; with ``admission``, the pipeline
+    is ``kind="masked"``.  ``server_opt``: a `server_opt.ServerOptimizer`
+    applied to each closed round's finalize (exclusive with ``secagg``).
     """
 
     def __init__(self, transport: Transport, init_params,
@@ -226,9 +245,8 @@ class FedAvgServerActor(ServerManager):
                  perf=None, server_opt=None, controller=None, degrade=None,
                  decode_upload=None, publish=None):
         refuse_unported(
-            secagg=secagg, ingest=ingest, health=health, perf=perf,
-            server_opt=server_opt, controller=controller, degrade=degrade,
-            decode_upload=decode_upload, publish=publish)
+            ingest=ingest, health=health, perf=perf, controller=controller,
+            degrade=degrade, decode_upload=decode_upload, publish=publish)
         super().__init__(0, transport)
         if straggler_policy not in ("wait", "drop", "abort"):
             raise ValueError(f"unknown straggler_policy {straggler_policy!r}")
@@ -246,7 +264,24 @@ class FedAvgServerActor(ServerManager):
                     "shard_wire without its ShardAdmission: the per-shard "
                     "structural screens ARE the sharded wire protocol — "
                     "build the spine with admission_on=True")
-        if journal is not None and stream_agg is None:
+        if secagg is not None and (aggregate_fn is not None
+                                   or stream_agg is not None):
+            raise ValueError(
+                "secagg is mutually exclusive with aggregate_fn/"
+                "stream_agg: masked uploads have no plaintext to stack "
+                "or stream")
+        if secagg is not None and shard_wire is not None:
+            raise ValueError(
+                "shard_wire (--model_shards) and secagg are mutually "
+                "exclusive: a pairwise-masked uint32 ring word cannot be "
+                "re-sliced per shard without breaking mask cancellation")
+        if server_opt is not None and secagg is not None:
+            raise ValueError(
+                "server_opt and secagg are mutually exclusive: the "
+                "masked-sum finalize yields a plain mean by protocol "
+                "construction; there is no seam to re-step it through "
+                "a server optimizer without unmasking intermediate state")
+        if journal is not None and stream_agg is None and secagg is None:
             raise ValueError(
                 "journal (crash consistency) rides the streaming-fold "
                 "receive path: pass --agg_mode stream (or --secagg); the "
@@ -271,6 +306,13 @@ class FedAvgServerActor(ServerManager):
         self.extra_state = extra_state
         self.journal = journal
         self.faultline = faultline
+        self.secagg = secagg
+        self.server_opt = server_opt
+        # the secure round's stage: None | "agreement" | "upload" | "unmask"
+        self._secagg_stage: Optional[str] = None
+        self._secagg_quorum = 0
+        self._secagg_unmask_laps = 0
+        self._secagg_agreement_laps = 0
         # a mid-round recovery found by start(), consumed by the next
         # broadcast of its round
         self._pending_resume = None
@@ -302,6 +344,9 @@ class FedAvgServerActor(ServerManager):
         self.register_handler(MsgType.ROUND_TIMEOUT, self._on_timeout)
         self.register_handler(MsgType.C2S_HEARTBEAT,
                               lambda m: self._beat(m.sender_id))
+        if self.secagg is not None:
+            self.register_handler(MSG_SECAGG_ADVERT, self._on_secagg_advert)
+            self.register_handler(MSG_SECAGG_SHARES, self._on_secagg_shares)
 
     # -- round logic ---------------------------------------------------------
     def start(self) -> None:
@@ -365,10 +410,16 @@ class FedAvgServerActor(ServerManager):
 
     def _journal_mode(self) -> str:
         """The journal's round-mode tag for this configuration; recovery
-        refuses a journal written under another one."""
+        refuses a journal written under another one (a non-plain
+        server optimizer is part of the tag)."""
+        if self.secagg is not None:
+            return "secagg"
+        srvopt = ""
+        if self.server_opt is not None and self.server_opt.name != "plain":
+            srvopt = f"+srvopt={self.server_opt.name}"
         if self.shard_wire is not None:
-            return self.shard_wire.journal_mode()
-        return f"stream_{self.stream_agg.method}"
+            return self.shard_wire.journal_mode() + srvopt
+        return f"stream_{self.stream_agg.method}{srvopt}"
 
     def _journal_recovery(self):
         """The journal's mid-flight round as a `Recovery`, only when
@@ -399,7 +450,10 @@ class FedAvgServerActor(ServerManager):
             return None
         if not rec.resumable:
             log.error("round %d crashed mid-flight in non-resumable mode %r "
-                      "(reservoir rules have no durable draw stream); "
+                      "(secure rounds are abort-only: resuming a "
+                      "half-masked fold would need shares nobody agreed "
+                      "to reveal; reservoir rules have no durable draw "
+                      "stream); "
                       "restarting the round from the boundary, global "
                       "unchanged", rec.round_idx, rec.mode)
             self.journal.abandon(rec.round_idx,
@@ -466,6 +520,15 @@ class FedAvgServerActor(ServerManager):
             # the barrier never closes on nothing and a rejoin can revive
             # the federation
             dead = set()
+        if self.secagg is not None and len(cohort - dead) < 2:
+            # fewer than 2 live silos cannot mask: task the full cohort
+            # (the rejoin sync carries no masking parameters); silos that
+            # are truly gone stall the agreement, which abandons the
+            # round after its lap cap
+            log.warning("round %d: fewer than 2 live silos for the "
+                        "masking group; tasking the full cohort and "
+                        "waiting for returns", self.round_idx)
+            dead = set()
         self._expected = cohort - dead
         if dead:
             log.info("round %d: excluding dead/quarantined silos %s from "
@@ -489,11 +552,19 @@ class FedAvgServerActor(ServerManager):
         if self.journal is not None and resume is None:
             self.journal.round_start(
                 self.round_idx, mode=self._journal_mode(),
-                resumable=self.stream_agg.method == "mean",
+                resumable=(self.secagg is None
+                           and self.stream_agg.method == "mean"),
                 global_crc=tree_crc(host_params),
                 expected=sorted(self._expected))
         extra = ({} if self._last_accepted is None
                  else {Message.ARG_ACCEPTED: self._last_accepted})
+        if self.secagg is not None:
+            # the sync frame carries the round's masking parameters, so
+            # silos need no secure-aggregation configuration
+            self.secagg.round_start(self.round_idx, sorted(self._expected))
+            self._secagg_stage = "agreement"
+            self._secagg_agreement_laps = 0
+            extra[Message.ARG_SECAGG] = self.secagg.sync_info()
         receivers = sorted(cohort - dead - set(folded))
         per_silo = {silo: {Message.ARG_CLIENT_INDEX: int(ids[silo - 1])}
                     for silo in receivers}
@@ -552,6 +623,12 @@ class FedAvgServerActor(ServerManager):
     def _on_timeout(self, msg: Message) -> None:
         if msg.get(Message.ARG_ROUND) != self.round_idx or self._finished:
             return  # stale timer from an already-completed round
+        if self._secagg_stage == "agreement":
+            self._secagg_agreement_timeout()
+            return
+        if self._secagg_stage == "unmask":
+            self._secagg_unmask_timeout()
+            return
         missing = sorted(self._expected - set(self._received))
         if not missing:
             return
@@ -613,6 +690,14 @@ class FedAvgServerActor(ServerManager):
             log.warning("discarding round-%s upload from silo %d (current "
                         "round %d)", upload_round, msg.sender_id,
                         self.round_idx)
+            return False
+        if self.secagg is not None and self._secagg_stage != "upload":
+            # a masked upload outside the upload stage (a straggler
+            # landing mid-unmask) must not touch the fold: the unmask
+            # request already fixed survivors and dead
+            log.info("round %d: discarding masked upload from silo %d "
+                     "outside the upload stage (stage=%s)", self.round_idx,
+                     msg.sender_id, self._secagg_stage)
             return False
         if self._expected and msg.sender_id not in self._expected:
             log.info("discarding round-%d upload from unexpected silo %d",
@@ -683,7 +768,24 @@ class FedAvgServerActor(ServerManager):
             # admitted, not yet folded
             self.faultline.maybe_crash("post_admission_pre_fold",
                                        round_idx=self.round_idx, silo=silo)
-        if entry is not None:
+        if entry is not None and self.secagg is not None:
+            # ring addition is the fold
+            try:
+                with self._span("ingest:fold"):
+                    self.secagg.fold(silo, entry[0], entry[1])
+            except SecAggError as e:
+                # an upload from outside the fixed roster: its masks
+                # cannot cancel
+                log.warning("round %d: rejecting masked upload from silo "
+                            "%d (%s)", self.round_idx, silo, e)
+                entry = None
+            else:
+                if self.journal is not None:
+                    # metadata only: a secure round never snapshots
+                    self.journal.note_accept(self.round_idx, silo,
+                                             float(entry[1]))
+                entry = (self._STAGED, entry[1])
+        elif entry is not None:
             with self._span("ingest:fold"):
                 if self.shard_wire is not None:
                     self.stream_agg.fold_slices(entry[0], entry[1])
@@ -699,7 +801,7 @@ class FedAvgServerActor(ServerManager):
                                              float(entry[1]),
                                              state_fn=state_fn)
             entry = (self._STAGED, entry[1])
-        elif self.journal is not None:
+        if entry is None and self.journal is not None:
             # reported but inadmissible: recorded, never folded
             self.journal.note_accept(self.round_idx, silo, 0.0,
                                      folded=False, reason="rejected")
@@ -769,14 +871,27 @@ class FedAvgServerActor(ServerManager):
         # from "nothing was aggregated"
         self._last_accepted = np.asarray(sorted(admitted), np.int32)
         self._received.clear()
+        if self.secagg is not None:
+            if admitted:
+                # the barrier is met but the sum is still masked: the round
+                # closes once the unmask shares arrive
+                self._begin_unmask(len(admitted))
+                return
+            self._secagg_stage = None
+            log.warning("round %d: no admissible masked uploads; the "
+                        "global model is unchanged this round",
+                        self.round_idx)
+            self._finish_round()
+            return
         with self._span("aggregate", round=self.round_idx):
+            finalized = None
             if not admitted:
                 log.warning("round %d: no admissible uploads; the global "
                             "model is unchanged this round", self.round_idx)
             elif self.stream_agg is not None:
-                self.params = self.stream_agg.finalize(self.round_idx)
+                finalized = self.stream_agg.finalize(self.round_idx)
             elif self.aggregate_fn is not None:
-                self.params = self.aggregate_fn(
+                finalized = self.aggregate_fn(
                     self.params, self._staged_cohort(),
                     self._cohort_weights(admitted), self.round_idx)
             else:
@@ -785,10 +900,172 @@ class FedAvgServerActor(ServerManager):
                                       device=self.device)
                 weights = np.array([admitted[s][1] for s in order],
                                    dtype=np.float32)
-                self.params = tree_weighted_mean(
+                finalized = tree_weighted_mean(
                     {k: v.index_select(0, idx)
                      for k, v in self._staging.items()},
                     torch.as_tensor(weights, device=self.device))
+            if finalized is not None:
+                # the server-optimizer seam: without one (or with plain)
+                # the finalized tree is the new global verbatim
+                self.params = (finalized if self.server_opt is None
+                               else self.server_opt.apply(
+                                   self.params, finalized, self.round_idx))
+        self._finish_round()
+
+    # -- secure aggregation (secure/protocol.py) -----------------------------
+    # a lost UNMASK/SHARES frame must not wedge the round: the request is
+    # re-sent on each timer lap, and after this many laps below the share
+    # threshold the round is abandoned loudly with the global unchanged
+    _SECAGG_UNMASK_RETRIES = 3
+
+    def _on_secagg_advert(self, msg: Message) -> None:
+        """Agreement stage: bank a silo's advert; when the whole expected
+        group advertised, relay the rosters."""
+        self._beat(msg.sender_id)
+        if msg.get(Message.ARG_ROUND) != self.round_idx \
+                or self._secagg_stage != "agreement":
+            log.info("discarding stale/late secagg advert from silo %d",
+                     msg.sender_id)
+            return
+        if self.secagg.note_advert(msg.sender_id,
+                                   msg.get(Message.ARG_SECAGG)):
+            self._send_rosters()
+
+    def _send_rosters(self, subset=None) -> None:
+        """Fix the roster and fan the roster frames out; silos that never
+        advertised leave the roster and the barrier."""
+        try:
+            rosters = self.secagg.flush_roster(subset)
+        except SecAggError as e:
+            # below the share threshold: keep waiting for adverts
+            log.warning("round %d: cannot fix secagg roster yet (%s)",
+                        self.round_idx, e)
+            self._arm_timer()
+            return
+        self._secagg_stage = "upload"
+        lost = self._expected - set(rosters)
+        if lost:
+            log.warning("round %d: silos %s never advertised; dropped from "
+                        "the masking roster and the barrier",
+                        self.round_idx, sorted(lost))
+            self.dropped_silos.setdefault(self.round_idx, []).extend(
+                sorted(lost))
+            self._expected = self._expected - lost
+        per = {silo: {Message.ARG_SECAGG: payload}
+               for silo, payload in rosters.items()}
+        self.send_many(MSG_SECAGG_ROSTER, sorted(per),
+                       shared_params={Message.ARG_ROUND: self.round_idx},
+                       per_receiver_params=per)
+        self._arm_timer()
+
+    def _secagg_agreement_timeout(self) -> None:
+        advertised = self.secagg.advertised()
+        missing = sorted(self._expected - advertised)
+        if not missing:
+            return  # the roster flush is already under way
+        log.warning("round %d: silos %s have not advertised after %.1fs "
+                    "(policy=%s)", self.round_idx, missing,
+                    self.round_timeout_s, self.straggler_policy)
+        if self.straggler_policy == "abort":
+            self.aborted = True
+            for silo in range(1, self._num_silos + 1):
+                self.send(MsgType.S2C_FINISH, silo)
+            self.finish()
+            return
+        quorum = max(1, math.ceil(self.min_silo_frac * len(self._expected)))
+        if self.straggler_policy == "drop" and len(advertised) >= quorum:
+            self._send_rosters(subset=sorted(advertised))
+            # a roster refused below the share threshold counts a lap, so
+            # a cohort that can never reach t abandons the round
+            if self._secagg_stage == "agreement":
+                self._secagg_agreement_laps += 1
+                if self._secagg_agreement_laps > self._SECAGG_UNMASK_RETRIES:
+                    log.error("round %d: mask agreement cannot reach the "
+                              "share threshold after %d laps; abandoning "
+                              "the round", self.round_idx,
+                              self._secagg_agreement_laps - 1)
+                    self._secagg_stage = None
+                    self._timer.cancel()
+                    self._finish_round()
+            return
+        self._arm_timer()  # wait policy (or below quorum): keep waiting
+
+    def _begin_unmask(self, admitted_count: int) -> None:
+        """The barrier closed over masked uploads: ask the survivors for
+        the shares that unmask the sum."""
+        self._secagg_stage = "unmask"
+        self._secagg_quorum = admitted_count
+        self._secagg_unmask_laps = 0
+        self._send_unmask_request()
+        self._arm_timer()
+
+    def _send_unmask_request(self) -> None:
+        with self._span("ingest:unmask"):
+            survivors, dead = self.secagg.unmask_request()
+            if dead:
+                log.warning("round %d: reconstructing %d dead silo(s) %s "
+                            "from surviving shares", self.round_idx,
+                            len(dead), dead)
+            self.send_many(
+                MSG_SECAGG_UNMASK, survivors,
+                shared_params={Message.ARG_ROUND: self.round_idx,
+                               Message.ARG_SECAGG: {"survivors": survivors,
+                                                    "dead": dead}})
+
+    def _on_secagg_shares(self, msg: Message) -> None:
+        self._beat(msg.sender_id)
+        if msg.get(Message.ARG_ROUND) != self.round_idx \
+                or self._secagg_stage != "unmask":
+            return
+        if self.secagg.note_reveal(msg.sender_id,
+                                   msg.get(Message.ARG_SECAGG)):
+            self._finalize_secagg()
+
+    def _secagg_unmask_timeout(self) -> None:
+        if self.secagg.can_finalize():
+            log.warning("round %d: unmask quorum reached but not every "
+                        "survivor revealed; finalizing from the available "
+                        "shares", self.round_idx)
+            self._finalize_secagg()
+            return
+        self._secagg_unmask_laps += 1
+        if self._secagg_unmask_laps > self._SECAGG_UNMASK_RETRIES:
+            log.error("round %d: unmask share threshold unreachable after "
+                      "%d request retries; abandoning the round",
+                      self.round_idx, self._SECAGG_UNMASK_RETRIES)
+            self._secagg_stage = None
+            self._finish_round()
+            return
+        log.warning("round %d: below the unmask share threshold; "
+                    "re-requesting reveals (lap %d/%d)", self.round_idx,
+                    self._secagg_unmask_laps, self._SECAGG_UNMASK_RETRIES)
+        self._send_unmask_request()
+        self._arm_timer()
+
+    def _finalize_secagg(self) -> None:
+        """Unmask the ring sum, run the sum-level defenses and publish, or
+        on an unrecoverable round keep the global and say so."""
+        if self.faultline is not None:
+            # shares collected, the sum not yet recovered: recovery
+            # restarts the round from the boundary, global unchanged
+            self.faultline.maybe_crash("mid_unmask",
+                                       round_idx=self.round_idx)
+        self._secagg_stage = None
+        self._timer.cancel()
+        with self._span("aggregate", round=self.round_idx,
+                        quorum=self._secagg_quorum):
+            try:
+                mean, _ = self.secagg.finalize(
+                    reference=self._host_params())
+            except SecAggError:
+                log.exception("round %d: secure unmask FAILED; the global "
+                              "model is unchanged this round",
+                              self.round_idx)
+                mean = None
+            if mean is not None:
+                self.params = {
+                    k: as_tensor(v, self.device).to(self.params[k].dtype)
+                    for k, v in flatten_nested(mean).items()}
         self._finish_round()
 
     def _finish_round(self) -> None:
@@ -840,15 +1117,25 @@ class FedAvgClientActor(ClientManager):
     ``heartbeat_interval_s``: when set, ``run()`` starts a daemon thread
     that sends C2S_HEARTBEAT (tagged with the last synced round) every
     interval; ``finish()`` stops and joins it.  The thread only sends.
+
+    ``secagg``: a `secure.protocol.SecAggClient`; the silo advertises its
+    round keys on sync (then trains while the agreement completes),
+    uploads only once the ROSTER has fixed the masking cohort —
+    quantized and masked on the client's device — and answers the
+    server's UNMASK request with exactly the share kinds asked for.
     """
 
     def __init__(self, node_id: int, transport: Transport,
                  train_fn: SiloTrainFn, server_id: int = 0,
-                 heartbeat_interval_s: Optional[float] = None):
+                 heartbeat_interval_s: Optional[float] = None,
+                 secagg=None):
         super().__init__(node_id, transport)
         self.server_id = server_id
         self.train_fn = train_fn
         self.heartbeat_interval_s = heartbeat_interval_s
+        self.secagg = secagg
+        # (round, trained update, num_samples) waiting for its roster
+        self._pending_upload: Optional[tuple] = None
         self._round: Optional[int] = None  # last round synced
         self._shard_rx: Optional[SiloShardAssembler] = None
         self._hb_stop = threading.Event()
@@ -858,6 +1145,9 @@ class FedAvgClientActor(ClientManager):
         self.register_handler(MsgType.S2C_INIT, self._on_sync)
         self.register_handler(MsgType.S2C_SYNC, self._on_sync)
         self.register_handler(MsgType.S2C_FINISH, lambda m: self.finish())
+        if self.secagg is not None:
+            self.register_handler(MSG_SECAGG_ROSTER, self._on_secagg_roster)
+            self.register_handler(MSG_SECAGG_UNMASK, self._on_secagg_unmask)
 
     def run(self) -> None:
         if self.heartbeat_interval_s is not None and self._hb_thread is None:
@@ -883,13 +1173,14 @@ class FedAvgClientActor(ClientManager):
             hb.join(timeout=5)
         super().finish()
 
-    def _train(self, params, client_idx, round_idx):
-        """Train on the nested wire tree; the result in the wire layout."""
+    def _train(self, params, client_idx, round_idx, host: bool = True):
+        """Train on the nested wire tree; the result in the wire layout
+        (``host=False``: leaves left where the trainer put them)."""
         with self._span("train", round=round_idx, client=client_idx):
             new_params, num_samples = self.train_fn(
                 flatten_nested(params), client_idx, round_idx)
-        flat = {k: new_params[k] for k in tree_keys(new_params)}
-        return to_host(nest(flat)), num_samples
+        tree = nest({k: new_params[k] for k in tree_keys(new_params)})
+        return (to_host(tree) if host else tree), num_samples
 
     def _on_sync(self, msg: Message) -> None:
         if msg.get(Message.ARG_SHARD) is not None:
@@ -897,6 +1188,27 @@ class FedAvgClientActor(ClientManager):
             return
         round_idx = msg.get(Message.ARG_ROUND)
         self._round = round_idx
+        secagg_info = (msg.get(Message.ARG_SECAGG)
+                       if self.secagg is not None else None)
+        if self.secagg is not None and secagg_info is None:
+            # a sync without masking parameters (the rejoin warm-up) must
+            # never fall through to a plaintext upload
+            log.info("silo %d: sync without secagg parameters (rejoin "
+                     "warm-up?); not uploading this round", self.node_id)
+            return
+        if secagg_info is not None:
+            # advertise before training, so the agreement overlaps it
+            advert = self.secagg.begin_round(round_idx, secagg_info)
+            self.send(MSG_SECAGG_ADVERT, self.server_id,
+                      **{Message.ARG_SECAGG: advert,
+                         Message.ARG_ROUND: round_idx})
+            update, num_samples = self._train(
+                msg.get(Message.ARG_MODEL_PARAMS),
+                msg.get(Message.ARG_CLIENT_INDEX), round_idx, host=False)
+            # the masks derive from the fixed roster: wait for it
+            self._pending_upload = (round_idx, update, float(num_samples))
+            self._maybe_masked_upload()
+            return
         upload, num_samples = self._train(
             msg.get(Message.ARG_MODEL_PARAMS),
             msg.get(Message.ARG_CLIENT_INDEX), round_idx)
@@ -910,6 +1222,11 @@ class FedAvgClientActor(ClientManager):
         """Bank one broadcast shard slice; when the round's model is
         complete, train on the joined tree and upload it as S slice
         frames (split by the plan spec shard 0's frame carried)."""
+        if self.secagg is not None:
+            raise ValueError(
+                "sharded sync frames cannot compose with secagg on the "
+                "silo (masked payloads are whole-model by construction); "
+                "this combination should have failed at config time")
         if self._shard_rx is None:
             self._shard_rx = SiloShardAssembler()
         round_idx = msg.get(Message.ARG_ROUND)
@@ -936,3 +1253,41 @@ class FedAvgClientActor(ClientManager):
                              Message.ARG_ROUND: round_idx,
                              Message.ARG_SHARD: s,
                              Message.ARG_SHARD_COUNT: len(slices)})
+
+    # -- secure aggregation --------------------------------------------------
+    def _on_secagg_roster(self, msg: Message) -> None:
+        if self.secagg.on_roster(msg.get(Message.ARG_ROUND),
+                                 msg.get(Message.ARG_SECAGG)):
+            self._maybe_masked_upload()
+
+    def _maybe_masked_upload(self) -> None:
+        """Ship the trained update once both the training and the roster
+        have landed (in either order)."""
+        if self._pending_upload is None:
+            return
+        round_idx, update, num_samples = self._pending_upload
+        if not self.secagg.has_roster(round_idx):
+            return
+        with self._span("mask", round=round_idx):
+            masked = self.secagg.mask(round_idx, update, num_samples)
+        self._pending_upload = None
+        with self._span("upload", round=round_idx):
+            self.send(MsgType.C2S_MODEL, self.server_id,
+                      **{Message.ARG_MODEL_PARAMS: masked,
+                         Message.ARG_NUM_SAMPLES: int(num_samples),
+                         Message.ARG_ROUND: round_idx})
+
+    def _on_secagg_unmask(self, msg: Message) -> None:
+        round_idx = msg.get(Message.ARG_ROUND)
+        info = msg.get(Message.ARG_SECAGG) or {}
+        try:
+            reveal = self.secagg.reveal(round_idx, info.get("survivors", []),
+                                        info.get("dead", []))
+        except SecAggError as e:
+            # a malformed or adversarial request: reveal nothing
+            log.error("silo %d: refusing unmask request for round %s: %s",
+                      self.node_id, round_idx, e)
+            return
+        self.send(MSG_SECAGG_SHARES, self.server_id,
+                  **{Message.ARG_SECAGG: reveal,
+                     Message.ARG_ROUND: round_idx})

@@ -15,9 +15,25 @@ the rounds, chosen as the JAX package chooses them:
   checkpointer: K rounds per call, chunks ending at evaluation rounds;
 * otherwise the host gather, one cohort copied to the device a round.
 
-A `utils.checkpoint.RoundCheckpointer` saves (params, round key, round)
-on its cadence; a run given one resumes from its latest step and
-continues bit for bit as the uninterrupted run would.
+A `utils.checkpoint.RoundCheckpointer` saves (params, round key, round,
+and a stateful algorithm's ``_extra_state``) on its cadence; a run given
+one resumes from its latest step and continues bit for bit as the
+uninterrupted run would.
+
+The seams the stateful algorithms use, as in the JAX package:
+
+* ``local_train`` (constructor): another client trainer, which keeps
+  every fast path (FedProx's proximal term);
+* ``_server_update(prev_params, w_avg) -> params``: a server step after
+  each round's aggregate, outside the round (and outside its CUDA graph);
+  the scanned path is refused when it is set (FedOpt);
+* ``_device_round_override``: a device round of the
+  ``make_device_round`` signature that replaces the base one, so a
+  custom round still rides the resident split (FedNova; on a CUDA device
+  it is one captured graph whose state tensors the graph updates in
+  place);
+* ``_extra_state`` / ``_extra_state_template`` / ``_load_extra_state``:
+  server state that rides the round checkpoint.
 """
 
 from __future__ import annotations
@@ -149,22 +165,82 @@ def round_seed_words(seed: int, round_idx: int,
     return prng.key_words_int32(next(keys))
 
 
+# -- stacked per-client persistent state -----------------------------------
+# Algorithms with per-client state that outlives a round (SCAFFOLD's
+# control variates, Ditto's personal models, FedDyn's corrections) keep it
+# as one stacked tree [client_num_in_total, ...] of host numpy buffers, as
+# the JAX package does: only the sampled cohort's rows go to the device
+# each round.  Padded cohort slots alias client 0; round steps freeze them
+# through the live mask, and the scatter writes live rows only.
+
+def zeros_client_state(template: Tree, client_num: int) -> Dict[str, np.ndarray]:
+    """A zeroed stacked host state, one row per client, shaped like
+    ``template``."""
+    return {k: np.zeros((client_num,) + tuple(v.shape),
+                        str(v.dtype).replace("torch.", ""))
+            for k, v in template.items()}
+
+
+def gather_client_rows(stacked: Dict[str, np.ndarray], ids, pad_to: int,
+                       device) -> Tree:
+    """The cohort's rows of a stacked host state as device tensors, the id
+    vector zero-padded to the cohort's width."""
+    padded = np.zeros(pad_to, np.int64)
+    padded[:len(ids)] = np.asarray(ids, np.int64)
+    return {k: torch.from_numpy(np.ascontiguousarray(v[padded])).to(device)
+            for k, v in stacked.items()}
+
+
+def scatter_client_rows(stacked: Dict[str, np.ndarray], ids,
+                        new_rows: Tree) -> Dict[str, np.ndarray]:
+    """Write the live cohort rows back into the stacked host state in
+    place (padded rows are dropped); returns the same buffers."""
+    idx = np.asarray(ids, np.int64)
+    for k, v in stacked.items():
+        v[idx] = new_rows[k][:len(idx)].detach().cpu().numpy()
+    return stacked
+
+
+def bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-client ``[C]`` vector shaped to broadcast over ``[C, ...]``
+    leaves of ``ndim`` dims."""
+    return v.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def batch_leaves(cohort) -> Dict[str, torch.Tensor]:
+    """A cohort's data leaves, without ``num_samples``."""
+    return {k: v for k, v in cohort.items() if k != "num_samples"}
+
+
+def round_key_of(seed_words) -> prng.Key:
+    """The round key back from its two int32 seed words."""
+    return (int(seed_words[0]) & 0xFFFFFFFF, int(seed_words[1]) & 0xFFFFFFFF)
+
+
 class FedAvg:
     def __init__(self, workload: Workload, data: FederatedData,
-                 config: FedAvgConfig, sink=None, device=None):
+                 config: FedAvgConfig, sink=None, device=None,
+                 local_train=None):
         self.workload = workload
         self.data = data
         self.cfg = config
         self.sink = sink  # optional MetricsSink
         self.device = resolve_device(device)
-        opt = make_client_optimizer(config.client_optimizer, config.lr,
-                                    config.wd)
-        self._local_train = make_local_trainer(workload, opt, config.epochs)
+        if local_train is None:
+            opt = make_client_optimizer(config.client_optimizer, config.lr,
+                                        config.wd)
+            local_train = make_local_trainer(workload, opt, config.epochs)
+        self._local_train = local_train
         self.cohort_step = make_cohort_step(self._local_train,
                                             client_axis=config.client_axis)
-        # the device-resident path serves only this step; subclasses that
-        # replace cohort_step (the defenses, secure rounds) keep the loop
+        # the device-resident path serves only this step (or an override);
+        # subclasses that replace cohort_step (the defenses, secure rounds,
+        # per-client state) keep the loop
         self._base_cohort_step = self.cohort_step
+        # server_update(prev_params, w_avg) -> new_params, after each round
+        self._server_update = None
+        # a custom device round of make_device_round's signature
+        self._device_round_override = None
         self._device_round = None
         self._scanned_rounds = None
         self._train_dev: Optional[Dict[str, torch.Tensor]] = None
@@ -184,17 +260,47 @@ class FedAvg:
         return self.workload.init(torch.Generator().manual_seed(self.cfg.seed),
                                   self.device)
 
-    # -- checkpoint hooks ----------------------------------------------------
+    # -- checkpoint hooks (a stateful server overrides the extra state) -----
+    def _extra_state(self) -> Dict[str, Any]:
+        return {}
+
+    def _extra_state_template(self, params: Tree) -> Dict[str, Any]:
+        return {}
+
+    def _load_extra_state(self, extra) -> None:
+        pass
+
     def _ckpt_state(self, params: Tree, rng: prng.Key, round_idx: int):
-        return {"params": params, "rng": np.asarray(rng, np.uint32),
-                "round": int(round_idx)}
+        state = {"params": params, "rng": np.asarray(rng, np.uint32),
+                 "round": int(round_idx)}
+        extra = self._extra_state()
+        if extra:
+            state["extra"] = extra
+        return state
 
     def _maybe_resume(self, checkpointer, params: Tree, rng: prng.Key):
         """(params, round key, next round) from the latest round
-        checkpoint, or the inputs and round 0 when there is none."""
+        checkpoint (and the extra state loaded), or the inputs and round
+        0 when there is none."""
         if checkpointer is None or checkpointer.latest_round() is None:
             return params, rng, 0
-        state = checkpointer.restore(like=self._ckpt_state(params, rng, 0))
+        template = {"params": params, "rng": np.asarray(rng, np.uint32),
+                    "round": 0}
+        extra_t = self._extra_state_template(params)
+        if extra_t:
+            template["extra"] = extra_t
+        try:
+            state = checkpointer.restore(like=template)
+        except ValueError:
+            # the snapshot's extra state has another layout (an older
+            # snapshot, or another server optimizer): restore untemplated
+            # and let _load_extra_state accept it or refuse it by name
+            state = checkpointer.restore()
+            state["params"] = {k: torch.as_tensor(v).to(
+                device=params[k].device, dtype=params[k].dtype)
+                for k, v in state["params"].items()}
+        if "extra" in state:
+            self._load_extra_state(state["extra"])
         logger.info("resumed from round %d (%s)", state["round"],
                     checkpointer.ckpt_dir)
         rng = tuple(int(w) for w in state["rng"])
@@ -210,25 +316,17 @@ class FedAvg:
         params = {k: v.to(self.device) for k, v in params.items()}
         params, rng, start_round = self._maybe_resume(checkpointer, params,
                                                       rng)
-        use_device_data = (self.cohort_step is self._base_cohort_step
-                           and self._stage_train_on_device())
+        use_device_data = self._uses_device_data()
         if use_device_data and cfg.rounds_per_dispatch > 1 \
-                and checkpointer is None:
+                and checkpointer is None and self._server_update is None \
+                and self.cohort_step is self._base_cohort_step:
             return self._run_scanned(params, rng, start_round)
-        m = cfg.client_num_per_round
         for round_idx in range(start_round, cfg.comm_round):
             t0 = time.perf_counter()
-            ids = self._sample_round(round_idx)
             rng, round_key = prng.split(rng)
-            words = prng.key_words_int32(round_key)
-            if use_device_data:
-                padded, live = pad_ids(ids, m)
-                params, _ = self._device_round(params, self._train_dev,
-                                               padded, live, words)
-            else:
-                cohort = gather_cohort(self.data.train, ids, pad_to=m,
-                                       device=self.device)
-                params, _ = self.cohort_step(params, cohort, words)
+            params = self.run_round(params, round_idx,
+                                    prng.key_words_int32(round_key),
+                                    use_device_data)
             synchronize(self.device)
             round_s = time.perf_counter() - t0
             self.round_times.append(round_s)
@@ -243,6 +341,36 @@ class FedAvg:
             # the run reports success
             checkpointer.flush()
         return self._own(params)
+
+    def _uses_device_data(self) -> bool:
+        """Whether the rounds take the device-resident path: the base
+        cohort step or a device-round override, with the train split
+        staged on the device (it is staged here)."""
+        return ((self.cohort_step is self._base_cohort_step
+                 or self._device_round_override is not None)
+                and self._stage_train_on_device())
+
+    def run_round(self, params: Tree, round_idx: int, words,
+                  use_device_data: bool) -> Tree:
+        """One round of the loop: the round's cohort, the device round or
+        the host gather and cohort step, then the server update."""
+        ids = self._sample_round(round_idx)
+        prev = params
+        if self._server_update is not None:
+            # a graphed round overwrites its static params in place
+            prev = {k: v.clone() for k, v in params.items()}
+        if use_device_data:
+            padded, live = pad_ids(ids, self.cfg.client_num_per_round)
+            params, _ = self._device_round(params, self._train_dev,
+                                           padded, live, words)
+        else:
+            cohort = gather_cohort(self.data.train, ids,
+                                   pad_to=self.cfg.client_num_per_round,
+                                   device=self.device)
+            params, _ = self.cohort_step(params, cohort, words)
+        if self._server_update is not None:
+            params = self._server_update(prev, params)
+        return params
 
     def _own(self, params: Tree) -> Tree:
         """``params`` as tensors of the caller's: a copy when they are a
@@ -317,9 +445,11 @@ class FedAvg:
                         "gather", nbytes / 1e6)
             return False
         if self._device_round is None:
-            self._device_round = make_device_round(
-                self._local_train, self.cfg.client_num_per_round,
-                client_axis=self.cfg.client_axis)
+            self._device_round = (self._device_round_override
+                                  or make_device_round(
+                                      self._local_train,
+                                      self.cfg.client_num_per_round,
+                                      client_axis=self.cfg.client_axis))
         self._train_dev = to_device(self.data.train, self.device)
         if self._train_dev["x"].device.type != self.device.type:
             raise RuntimeError(f"the train split was staged on "

@@ -1,0 +1,147 @@
+"""SCAFFOLD (Karimireddy et al. 2020) — control-variate FL that corrects
+client drift (port of ``fedml_tpu/algorithms/scaffold.py``).  Option II of
+the paper:
+
+    local step:   y ← y − lr·(∇f_i(y) + c − c_i)
+    c_i⁺        = c_i − c + (x − y_i)/(K·lr)
+    x⁺          = x + Σ_i r_i (y_i − x)          (sample-weighted)
+    c⁺          = c + (|S|/N)·mean_{i∈S}(c_i⁺ − c_i)
+
+The control variates ``c_i`` live on the host, stacked ``[client_num_in_
+total, ...]``; each round gathers the cohort's rows to the device and
+scatters the updated rows back, so the round runs through FedAvg's host
+loop (``cohort_step`` is replaced).  The round's client ids are re-derived
+from the seeded sampling chain by an internal round counter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import numpy as np
+import torch
+from torch.func import grad, vmap
+
+from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
+                                               batch_leaves, bcast,
+                                               gather_client_rows,
+                                               scatter_client_rows,
+                                               zeros_client_state)
+from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.trainer.local_sgd import clip_by_global_norm
+from fedml_tpu_torch.trainer.workload import Workload
+
+
+@dataclasses.dataclass
+class ScaffoldConfig(FedAvgConfig):
+    pass
+
+
+def make_scaffold_local(workload: Workload, lr: float, epochs: int):
+    """``train(params, data, c_diff) -> (y_i, steps_taken)``: plain SGD
+    with ``c_diff = c − c_i`` added to every gradient, the workload's clip
+    after the correction; fully padded batches freeze the carry and do not
+    count toward K."""
+    clip = workload.grad_clip_norm
+    grad_fn = grad(lambda p, b: workload.loss_fn(p, b)[0])
+
+    def train(params: Tree, data, c_diff: Tree):
+        num_steps = data["mask"].shape[0]
+        y, k = params, data["mask"].new_zeros(())
+        for step in range(epochs * num_steps):
+            batch = {n: v[step % num_steps] for n, v in data.items()}
+            grads = grad_fn(y, batch)
+            grads = {n: grads[n] + c_diff[n] for n in grads}
+            if clip is not None:
+                grads = clip_by_global_norm(grads, clip)
+            gd = (torch.sum(batch["mask"]) > 0).to(torch.float32)
+            y = {n: y[n] - lr * gd * grads[n] for n in tree_keys(y)}
+            k = k + gd
+        return y, k
+
+    return train
+
+
+class Scaffold(FedAvg):
+    def __init__(self, workload, data, config: ScaffoldConfig, sink=None,
+                 device=None):
+        if config.client_optimizer != "sgd":
+            raise ValueError(
+                "scaffold's local update is plain SGD with control-variate "
+                "correction (Karimireddy'20); --client_optimizer sgd only — "
+                "other optimizers would be silently ignored")
+        super().__init__(workload, data, config, sink=sink, device=device)
+        cfg = config
+        self._round_counter = 0
+        self.c_global = None
+        self.c_locals = None   # stacked [client_num_in_total, ...] host
+        local = make_scaffold_local(workload, cfg.lr, cfg.epochs)
+        n_total = data.client_num
+
+        def core(params, cohort, c_global, c_cohort):
+            c_diffs = {k: c_global[k][None] - c_cohort[k] for k in c_global}
+            ys, ks = vmap(local, in_dims=(None, 0, 0))(
+                params, batch_leaves(cohort), c_diffs)
+            w = cohort["num_samples"].to(torch.float32)
+            live = (w > 0).to(torch.float32)
+            ratio = w / torch.clamp_min(torch.sum(w), 1.0)
+            new_params = {k: x + torch.sum((ys[k] - x[None])
+                                           * bcast(ratio, x.dim() + 1), 0)
+                          for k, x in params.items()}
+            k_safe = torch.clamp_min(ks, 1.0)
+            new_c = {k: torch.where(
+                         bcast(live, x.dim() + 1) > 0,
+                         c_cohort[k] - c_global[k][None]
+                         + (x[None] - ys[k])
+                         / (bcast(k_safe, x.dim() + 1) * cfg.lr),
+                         c_cohort[k])
+                     for k, x in params.items()}
+            m = torch.clamp_min(torch.sum(live), 1.0)
+            frac = m / n_total
+            new_cg = {k: cg + frac * torch.sum(
+                          (new_c[k] - c_cohort[k])
+                          * bcast(live, new_c[k].dim()), 0) / m
+                      for k, cg in c_global.items()}
+            return new_params, new_c, new_cg
+
+        self._round_step = core
+        self.cohort_step = self._stateful_step
+
+    def run(self, params=None, checkpointer=None):
+        # a fresh run restarts the sampling-chain mirror and the variates;
+        # a resume restores both through _load_extra_state
+        self._round_counter = 0
+        self.c_global = None
+        self.c_locals = None
+        return super().run(params=params, checkpointer=checkpointer)
+
+    def _stateful_step(self, params, cohort, seed_words=(0, 0)):
+        if self.c_global is None:
+            self.c_global = {k: torch.zeros_like(v)
+                             for k, v in params.items()}
+            self.c_locals = zeros_client_state(params, self.data.client_num)
+        ids = self._sample_round(self._round_counter)
+        self._round_counter += 1
+        c_cohort = gather_client_rows(self.c_locals, ids,
+                                      cohort["num_samples"].shape[0],
+                                      self.device)
+        params, new_c, self.c_global = self._round_step(
+            params, cohort, self.c_global, c_cohort)
+        self.c_locals = scatter_client_rows(self.c_locals, ids, new_c)
+        return params, {}
+
+    def _extra_state(self):
+        return {"c_global": self.c_global, "c_locals": self.c_locals,
+                "round_counter": self._round_counter}
+
+    def _extra_state_template(self, params):
+        return {"c_global": {k: torch.zeros_like(v)
+                             for k, v in params.items()},
+                "c_locals": zeros_client_state(params,
+                                               self.data.client_num),
+                "round_counter": 0}
+
+    def _load_extra_state(self, extra) -> None:
+        self.c_global = extra["c_global"]
+        self.c_locals = {k: np.asarray(v) for k, v in
+                         extra["c_locals"].items()}
+        self._round_counter = int(extra["round_counter"])

@@ -11,7 +11,14 @@ streams in both packages.  The semantics are those of JAX with
 * ``split(k, n)[i]`` hashes the counter pair ``(0, i)`` (the high and low
   words of ``i``), so ``split(k, n)[i] == fold_in(k, i)``;
 * ``random_bits(k, shape)`` hashes the high and low words of each flat
-  row-major index and XORs the two output words.
+  row-major index and XORs the two output words;
+* ``normal(k, shape)`` maps those bits to f32 uniforms in
+  ``[nextafter(-1, 0), 1)`` as ``jax.random.uniform`` does (the top 23
+  bits as a mantissa) and returns ``sqrt(2) * erfinv(u)``, with erfinv
+  as XLA's f32 polynomial (Giles' single-precision approximation);
+* ``permutation(k, n)`` is ``jax.random.permutation``: rounds of a
+  stable sort of ``arange(n)`` by fresh random bits, one ``split`` per
+  round.
 
 A key is a tuple of two Python ints, the two uint32 words of
 ``jax.random.key_data``.  Arithmetic runs on Python ints (one key at a
@@ -94,3 +101,78 @@ def random_bits(k: Key, shape: Sequence[int]) -> np.ndarray:
     """``jax.random.bits(k, shape, uint32)``."""
     bits = random_bits_tensor(k, math.prod(shape), "cpu")
     return bits.numpy().astype(np.uint32).reshape(tuple(shape))
+
+
+# XLA's f32 ErfInv (Giles, "Approximating the erfinv function"): a degree-8
+# polynomial in w = -log1p(-x^2), shifted, with one coefficient table for
+# w < 5 and one for the tails
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``ErfInv`` as tensor ops (``erfinv(+-1) = +-inf``)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coeff(i):
+        return torch.where(lt, torch.tensor(_ERFINV_W_LT_5[i], dtype=x.dtype,
+                                            device=x.device),
+                           torch.tensor(_ERFINV_W_GE_5[i], dtype=x.dtype,
+                                        device=x.device))
+
+    p = coeff(0)
+    for i in range(1, len(_ERFINV_W_LT_5)):
+        p = coeff(i) + p * w
+    return torch.where(x.abs() == 1, x * torch.finfo(x.dtype).max, p * x)
+
+
+def uniform_f32(k: Key, numel: int, device, minval: float = 0.0,
+                maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, (numel,), float32, minval, maxval)``.  XLA
+    fuses ``floats * span + minval`` into one FMA; the product of two f32
+    is exact in f64, so the f64 evaluation rounded once to f32 gives the
+    same words."""
+    bits = random_bits_tensor(k, numel, device)
+    one = int(np.array(1.0, np.float32).view(np.uint32))
+    floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    out = (floats.to(torch.float64) * float(span) + float(lo)).to(
+        torch.float32)
+    return torch.clamp_min(out, float(lo))
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2_F32 = float(np.float32(np.sqrt(2)))
+
+
+def normal(k: Key, shape: Sequence[int], device="cpu") -> torch.Tensor:
+    """``jax.random.normal(k, shape)`` (f32) on ``device``."""
+    u = uniform_f32(k, math.prod(shape), device, _NORMAL_LO, 1.0)
+    return (erfinv_f32(u) * _SQRT2_F32).reshape(tuple(shape))
+
+
+def permutation(k: Key, n: int) -> np.ndarray:
+    """``jax.random.permutation(k, n)``: ``ceil(3 ln n / ln(2^32 - 1))``
+    rounds, each a stable sort of the running order by the bits of a
+    fresh ``split`` subkey."""
+    x = np.arange(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x
+
+
+def choice_without_replacement(k: Key, n: int, m: int) -> np.ndarray:
+    """``jax.random.choice(k, n, (m,), replace=False)``."""
+    if m > n:
+        raise ValueError(f"cannot take {m} of {n} without replacement")
+    return permutation(k, n)[:m]

@@ -94,18 +94,47 @@ class ExperimentConfig:
     journal_dir: Optional[str] = None    # journal directory (implies
     #                                      --journal; default run_dir/journal)
     journal_snapshot_every: int = 4      # fold-state snapshot cadence
+    # live secure aggregation (cross_silo, stream mode, the local hub)
+    secagg: str = "off"                  # off | pairwise (grouped: item 8)
+    secagg_threshold: int = 0            # t of t-of-N Shamir (0 = majority)
+    secagg_clip: float = 64.0            # per-coordinate clip before the ring
+    # the live server-optimizer seam (cross_silo): plain | momentum | adam
+    # | fedac over the finalize; --server_lr/--server_momentum and the
+    # --server_adam_* and --fedac_* knobs
+    server_opt: str = "plain"
+    server_adam_beta1: float = 0.9
+    server_adam_beta2: float = 0.999
+    server_adam_eps: float = 1e-8
     # cross_silo options of the JAX package that are refused by name
-    secagg: str = "off"
     edge_aggregators: int = 0
     wire_compression: str = "none"
     error_feedback: bool = False
     serve_port: int = 0
     ingest_pipeline: bool = False
     health: bool = False
-    server_opt: str = "plain"
     adaptive: bool = False
     adversary: str = ""
     mesh_stages: int = 0
+
+    # the stateful cohort algorithms
+    server_optimizer: str = "sgd"        # fedopt: sgd|adam|adagrad|adamw|
+    #                                      rmsprop|yogi
+    server_lr: float = 1.0               # fedopt and --server_opt
+    server_momentum: float = 0.9         # fedopt and --server_opt momentum
+    mu: float = 0.1                      # FedProx proximal term (fednova)
+    gmf: float = 0.0                     # FedNova global momentum factor
+    ditto_lambda: float = 0.1            # Ditto: personalization pull
+    personal_lr: float = 0.0             # Ditto: 0 -> inherit --lr
+    personal_epochs: int = 0             # Ditto: 0 -> inherit --epochs
+    feddyn_alpha: float = 0.01           # FedDyn: dynamic-reg strength
+    fedac_mu: float = 0.0                # FedAC: >0 derives (gamma,alpha,beta)
+    fedac_gamma: float = 0.0             # FedAC explicit knobs (0 -> lr)
+    fedac_alpha: float = 1.0
+    fedac_beta: float = 1.0
+    dp_clip: float = 1.0                 # dp_fedavg: per-user L2 bound S
+    dp_noise_multiplier: float = 1.0     # dp_fedavg: z (std = S*z/m)
+    dp_delta: float = 1e-5               # dp_fedavg: delta of the reported eps
+    dp_accounting: str = "fixed_size"    # dp_fedavg: fixed_size | poisson
 
     # transformer attention (NWP datasets)
     attn_block_size: int = 0             # >0: blockwise attention

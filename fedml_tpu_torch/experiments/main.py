@@ -1,7 +1,9 @@
 """``python -m fedml_tpu_torch`` — the port's entry point.
 
-Runs ``fedavg``, ``fedavg_robust``, ``turboaggregate`` and ``cross_silo``
-on the hermetic twins, on the GPU unless ``--platform cpu`` is given,
+Runs ``fedavg``, ``fedavg_robust``, ``turboaggregate``, ``cross_silo`` and
+the stateful cohort algorithms (``fedopt``, ``fedprox``, ``fednova``,
+``scaffold``, ``feddyn``, ``ditto``, ``fedac``, ``dp_fedavg``) on the
+hermetic twins, on the GPU unless ``--platform cpu`` is given,
 writes ``metrics.jsonl`` and ``summary.json`` into ``--run_dir`` and
 prints one final JSON summary line.  Examples, the FEMNIST-CNN
 configurations of the defended FedAvg, of secure FedAvg and of the live
@@ -35,7 +37,10 @@ and resumes from the latest.  ``--defense`` takes the Byzantine rules
 ``--stream_reservoir K``).  The cross-silo server takes ``--checkpoint_dir``
 (resume), ``--journal`` (mid-round resume), ``--dead_after_s`` (the failure
 detector) and ``--chaos_*`` (seeded faults on the hub, threaded drive);
-``--silo_backend grpc`` runs one node per process:
+``--secagg pairwise`` runs the live federation under secure aggregation
+(masked uploads, dropout recovery through the pair-secret shares) and
+``--server_opt momentum|adam|fedac`` steps the finalized mean through a
+server optimizer.  ``--silo_backend grpc`` runs one node per process:
 
     python -m fedml_tpu_torch --algo cross_silo --silo_backend grpc \\
         --node_id 0 --client_num_per_round 2 ...   # the server
@@ -136,6 +141,87 @@ def run_fedavg(cfg, data, sink):
                   FedAvgConfig(**_fedavg_cfg_kwargs(cfg)), sink=sink,
                   device=cfg.platform)
     return _run_with_checkpoints(cfg, algo)
+
+
+# the stateful cohort algorithms: --algo -> builder(cfg) -> (class, config)
+ALGOS: Dict[str, Callable] = {}
+
+
+def algo(name: str):
+    """Register an algorithm builder and the runner that runs it."""
+    def deco(fn):
+        ALGOS[name] = fn
+        RUNNERS[name] = lambda cfg, data, sink: _run_with_checkpoints(
+            cfg, build_algo(cfg, data, sink))
+        return fn
+    return deco
+
+
+def build_algo(cfg: ExperimentConfig, data, sink=None):
+    """The algorithm object ``--algo`` names, as its runner builds it."""
+    cls, config = ALGOS[cfg.algo](cfg)
+    return cls(_make_workload(cfg, data), data, config, sink=sink,
+               device=cfg.platform)
+
+
+@algo("fedprox")
+def fedprox_algo(cfg):
+    from fedml_tpu_torch.algorithms.fedprox import FedProx, FedProxConfig
+    return FedProx, FedProxConfig(mu=cfg.mu, **_fedavg_cfg_kwargs(cfg))
+
+
+@algo("fedopt")
+def fedopt_algo(cfg):
+    from fedml_tpu_torch.algorithms.fedopt import FedOpt, FedOptConfig
+    return FedOpt, FedOptConfig(
+        server_optimizer=cfg.server_optimizer, server_lr=cfg.server_lr,
+        server_momentum=cfg.server_momentum, **_fedavg_cfg_kwargs(cfg))
+
+
+@algo("fednova")
+def fednova_algo(cfg):
+    from fedml_tpu_torch.algorithms.fednova import FedNova, FedNovaConfig
+    return FedNova, FedNovaConfig(mu=cfg.mu if cfg.mu else 0.0, gmf=cfg.gmf,
+                                  **_fedavg_cfg_kwargs(cfg))
+
+
+@algo("scaffold")
+def scaffold_algo(cfg):
+    from fedml_tpu_torch.algorithms.scaffold import Scaffold, ScaffoldConfig
+    return Scaffold, ScaffoldConfig(**_fedavg_cfg_kwargs(cfg))
+
+
+@algo("feddyn")
+def feddyn_algo(cfg):
+    from fedml_tpu_torch.algorithms.feddyn import FedDyn, FedDynConfig
+    return FedDyn, FedDynConfig(feddyn_alpha=cfg.feddyn_alpha,
+                                **_fedavg_cfg_kwargs(cfg))
+
+
+@algo("ditto")
+def ditto_algo(cfg):
+    from fedml_tpu_torch.algorithms.ditto import Ditto, DittoConfig
+    return Ditto, DittoConfig(
+        ditto_lambda=cfg.ditto_lambda, personal_lr=cfg.personal_lr,
+        personal_epochs=cfg.personal_epochs, **_fedavg_cfg_kwargs(cfg))
+
+
+@algo("fedac")
+def fedac_algo(cfg):
+    from fedml_tpu_torch.algorithms.fedac import FedAC, FedACConfig
+    return FedAC, FedACConfig(
+        fedac_mu=cfg.fedac_mu, fedac_gamma=cfg.fedac_gamma,
+        fedac_alpha=cfg.fedac_alpha, fedac_beta=cfg.fedac_beta,
+        **_fedavg_cfg_kwargs(cfg))
+
+
+@algo("dp_fedavg")
+def dp_fedavg_algo(cfg):
+    from fedml_tpu_torch.algorithms.dp_fedavg import DPFedAvg, DPFedAvgConfig
+    return DPFedAvg, DPFedAvgConfig(
+        dp_clip=cfg.dp_clip, dp_noise_multiplier=cfg.dp_noise_multiplier,
+        dp_delta=cfg.dp_delta, dp_accounting=cfg.dp_accounting,
+        **_fedavg_cfg_kwargs(cfg))
 
 
 def fedavg_robust_config(cfg: ExperimentConfig):
@@ -320,6 +406,48 @@ def make_journal(cfg: ExperimentConfig):
                         node=f"node{cfg.node_id}")
 
 
+def make_server_opt(cfg: ExperimentConfig, template, plan=None):
+    """The live server-optimizer seam; ``plain`` gives None (the actor
+    then assigns the finalize verbatim)."""
+    if cfg.server_opt == "plain":
+        return None
+    from fedml_tpu_torch.server_opt import ServerOptimizer
+    return ServerOptimizer(
+        cfg.server_opt, template, lr=cfg.server_lr,
+        momentum=cfg.server_momentum, beta1=cfg.server_adam_beta1,
+        beta2=cfg.server_adam_beta2, eps=cfg.server_adam_eps,
+        fedac_mu=cfg.fedac_mu, fedac_gamma=cfg.fedac_gamma,
+        fedac_alpha=cfg.fedac_alpha, fedac_beta=cfg.fedac_beta,
+        local_steps=cfg.epochs, plan=plan)
+
+
+def secagg_setup(cfg: ExperimentConfig, data, init, device):
+    """``--secagg pairwise``: the server's `SecAggServer`, the masked
+    admission (``kind="masked"``; the norm screen moves to the unmasked
+    sum) and a ``make_silo_secagg(silo_id)`` factory.  Every silo masks
+    ``n_i / weight_cap <= 1``, with the cap the largest client size."""
+    import numpy as np
+    from fedml_tpu_torch.core.pytree import nest, to_host
+    from fedml_tpu_torch.robust import AdmissionPipeline
+    from fedml_tpu_torch.secure.protocol import (SecAggClient, SecAggServer,
+                                                 masked_template)
+    weight_cap = float(np.max(data.train["num_samples"]))
+    server = SecAggServer(
+        threshold=cfg.secagg_threshold, clip=cfg.secagg_clip,
+        weight_cap=weight_cap, norm_clip=cfg.norm_clip,
+        noise_std=cfg.agg_noise_std, seed=cfg.seed,
+        norm_screen_k=cfg.norm_screen_k,
+        norm_screen_window=cfg.norm_screen_window,
+        norm_screen_min_history=cfg.norm_screen_min_history,
+        node="server", device=device)
+    admission = None
+    if cfg.admission != "off":
+        admission = AdmissionPipeline(
+            masked_template(to_host(nest(init))), kind="masked",
+            max_num_samples=cfg.max_num_samples, trust=_trust_tracker(cfg))
+    return server, admission, (lambda g: SecAggClient(g, device=device))
+
+
 def chaos_on(cfg: ExperimentConfig) -> bool:
     return any((cfg.chaos_drop, cfg.chaos_delay, cfg.chaos_dup,
                 cfg.chaos_reorder, cfg.chaos_corrupt))
@@ -382,7 +510,10 @@ class CrossSiloFederation:
     ``--checkpoint_dir`` checkpoints every closed round (the trust ledger
     and the shard layout ride ``extra_state``) and resumes from it;
     ``--journal``/``--journal_dir`` adds the round journal;
-    ``--dead_after_s`` the failure detector.  ``faultline``: the server's
+    ``--dead_after_s`` the failure detector.  ``--secagg pairwise`` the
+    live secure aggregation (`secure.protocol`), and ``--server_opt`` the
+    server-optimizer seam (its state rides the checkpoint, sharded along
+    the spine's plan).  ``faultline``: the server's
     `robust.faultline.Faultline`.
 
     Built, then ``run()``; ``server.params`` is the global.
@@ -416,6 +547,15 @@ class CrossSiloFederation:
             admission, defended, stream = None, None, spine.agg
         else:
             admission, defended, stream = _robust_setup(cfg, init)
+        self.secagg = None
+        make_silo_secagg = lambda g: None  # noqa: E731
+        if cfg.secagg == "pairwise":
+            # the ring fold replaces the stream and the stack
+            self.secagg, admission, make_silo_secagg = secagg_setup(
+                cfg, data, init, self.device)
+            defended = stream = None
+        self.server_opt = make_server_opt(
+            cfg, init, plan=spine.plan if spine is not None else None)
         # the trust ledger and the shard layout are checkpointed state: a
         # resumed server keeps strikes and quarantine sentences, and
         # refuses a checkpoint of another layout
@@ -432,7 +572,10 @@ class CrossSiloFederation:
             ("trust", None if trust is None else
              (lambda: trust.state_dict(n_silos), trust.load_state_dict)),
             ("shard", None if spine is None else
-             (spine.checkpoint_state, spine.restore_checkpoint_state))])
+             (spine.checkpoint_state, spine.restore_checkpoint_state)),
+            ("server_opt", None if self.server_opt is None else
+             (self.server_opt.state_dict,
+              self.server_opt.load_state_dict))])
         self._eval_cohort = cohort_eval(make_evaluator(wl))
         self._freq = (max(cfg.comm_round, 1) if cfg.ci
                       else cfg.frequency_of_the_test)
@@ -450,7 +593,8 @@ class CrossSiloFederation:
                 stream_agg=stream, shard_wire=spine, aggregate_fn=defended,
                 failure_detector=self.detector,
                 checkpointer=self.checkpointer, extra_state=extra_state,
-                journal=self.journal, faultline=faultline)
+                journal=self.journal, faultline=faultline,
+                secagg=self.secagg, server_opt=self.server_opt)
 
         self.hub = None
         self.chaos_plan = None
@@ -464,7 +608,8 @@ class CrossSiloFederation:
             else:
                 self.silos = [FedAvgClientActor(
                     cfg.node_id, transport, make_train_fn(cfg.node_id),
-                    heartbeat_interval_s=cfg.heartbeat_s or None)]
+                    heartbeat_interval_s=cfg.heartbeat_s or None,
+                    secagg=make_silo_secagg(cfg.node_id))]
             return
         if transport_factory is None:
             from fedml_tpu_torch.comm.local import LocalHub
@@ -485,7 +630,7 @@ class CrossSiloFederation:
         self.silos = [FedAvgClientActor(
             g, wrap(transport_factory(g)), make_train_fn(g),
             heartbeat_interval_s=(cfg.heartbeat_s or None) if threaded
-            else None)
+            else None, secagg=make_silo_secagg(g))
             for g in range(1, n_silos + 1)]
         if not threaded:
             for actor in [self.server] + self.silos:
@@ -565,8 +710,6 @@ def run_cross_silo(cfg, data, sink):
 # cross-silo flags of the JAX package the port refuses, with what they
 # need: (default, the ROADMAP item that brings it)
 REFUSED_FLAGS = {
-    "secagg": ("off", "live SecAgg over the wire, secure/protocol.py "
-                      "(ROADMAP Queue 1 item 3)"),
     "edge_aggregators": (0, "algorithms/hierarchical.py (ROADMAP Queue 1 "
                             "item 8)"),
     "wire_compression": ("none", "comm/compress.py (ROADMAP Queue 1 item 8)"),
@@ -574,8 +717,8 @@ REFUSED_FLAGS = {
     "serve_port": (0, "serve/ (ROADMAP Queue 1 item 11)"),
     "ingest_pipeline": (False, "comm/ingest.py (ROADMAP Queue 1 item 8)"),
     "health": (False, "obs/health.py (ROADMAP Queue 1 item 9)"),
-    "server_opt": ("plain", "server_opt/ (ROADMAP Queue 1 item 7)"),
-    "adaptive": (False, "server_opt/controller.py (ROADMAP Queue 1 item 7)"),
+    "adaptive": (False, "server_opt/controller.py, which needs the health "
+                        "observatory (ROADMAP Queue 1 item 9)"),
     "adversary": ("", "robust/adversary.py (ROADMAP Queue 1 item 8)"),
     "mesh_stages": (0, "parallel/pipeline.py (ROADMAP Queue 1 item 10)"),
 }
@@ -591,6 +734,8 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
     if cfg.silo_backend not in ("local", "grpc"):
         raise ValueError(f"unknown silo_backend {cfg.silo_backend!r}; "
                          f"available: ('local', 'grpc')")
+    check_secagg(cfg)
+    check_server_opt(cfg)
     if chaos_on(cfg):
         if cfg.algo != "cross_silo":
             raise ValueError(
@@ -685,6 +830,91 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
                 "mirrors the flat one)")
 
 
+def check_secagg(cfg: ExperimentConfig) -> None:
+    """The JAX package's gates on ``--secagg``: a privacy flag that would
+    be silently ignored fails here."""
+    from fedml_tpu_torch.secure.protocol import SECAGG_MODES
+    if cfg.secagg not in SECAGG_MODES:
+        raise ValueError(f"--secagg must be off|pairwise|grouped, "
+                         f"got {cfg.secagg!r}")
+    if cfg.secagg == "off":
+        return
+    if cfg.secagg == "grouped":
+        raise NotImplementedError(
+            "--secagg grouped is not ported yet; it scopes masking per "
+            "edge block and needs --edge_aggregators, "
+            "algorithms/hierarchical.py (ROADMAP Queue 1 item 8)")
+    if cfg.algo != "cross_silo":
+        raise ValueError(
+            f"--secagg is the sync-barrier secure-aggregation protocol "
+            f"and applies to --algo cross_silo only; --algo {cfg.algo} "
+            f"would silently train unmasked and label the run as private")
+    if cfg.robust_agg != "mean":
+        raise ValueError(
+            f"--secagg hides individual uploads by construction, so "
+            f"order-statistic rules (--robust_agg {cfg.robust_agg}) have no "
+            f"population to rank; the defenses that compose are the "
+            f"pre-mask structure/num_samples screens and the post-unmask "
+            f"sum screen + --norm_clip/--agg_noise_std on the sum")
+    if cfg.agg_mode != "stream":
+        raise ValueError(
+            "--secagg folds masked uploads in the uint32 ring at arrival — "
+            "there is no stack path; pass --agg_mode stream")
+    if cfg.model_shards > 0:
+        raise ValueError(
+            "--model_shards and --secagg are mutually exclusive: a "
+            "pairwise-masked uint32 ring word cannot be re-sliced per "
+            "shard without breaking mask cancellation")
+    if cfg.silo_backend != "local":
+        raise ValueError("--secagg deploys over the local hub only for now "
+                         "(the actors are transport-agnostic; gRPC wiring "
+                         "mirrors the flat one)")
+    if cfg.client_num_per_round < 2:
+        raise ValueError("--secagg pairwise needs >= 2 silos per round")
+    if cfg.secagg_threshold == 1:
+        raise ValueError(
+            "--secagg_threshold 1 voids the privacy guarantee: one share "
+            "reconstructs every seed; the minimum is 2 (0 = majority "
+            "default)")
+    if cfg.secagg_threshold > cfg.client_num_per_round:
+        raise ValueError(
+            f"--secagg_threshold {cfg.secagg_threshold} exceeds the "
+            f"smallest masking group ({cfg.client_num_per_round} silos): "
+            f"reconstruction could never gather that many shares")
+
+
+def check_server_opt(cfg: ExperimentConfig) -> None:
+    """The JAX package's gates on ``--server_opt``."""
+    from fedml_tpu_torch.server_opt import (SERVER_OPT_NAMES,
+                                            ServerOptConfigError)
+    if cfg.server_opt not in SERVER_OPT_NAMES:
+        raise ServerOptConfigError(
+            f"unknown --server_opt {cfg.server_opt!r}; available: "
+            f"{list(SERVER_OPT_NAMES)}")
+    if cfg.server_opt == "plain":
+        return
+    if cfg.algo != "cross_silo":
+        raise ServerOptConfigError(
+            f"--server_opt {cfg.server_opt} rides the live finalize seam "
+            f"and applies to --algo cross_silo only in the port; --algo "
+            f"{cfg.algo} would silently run its own server step and label "
+            f"the run {cfg.server_opt}.  The standalone forks stay at "
+            f"--algo fedopt/fedac.")
+    if cfg.robust_agg != "mean":
+        raise ServerOptConfigError(
+            f"--server_opt {cfg.server_opt} with --robust_agg "
+            f"{cfg.robust_agg}: an order-statistic finalize is a "
+            f"selection, not a cohort mean — there is no pseudo-gradient "
+            f"Δ = global − finalize whose expectation the server "
+            f"optimizer's moments assume; use --robust_agg mean")
+    if cfg.secagg != "off":
+        raise ServerOptConfigError(
+            f"--server_opt {cfg.server_opt} and --secagg are mutually "
+            f"exclusive: the masked-sum protocol yields the plain mean by "
+            f"construction; there is no seam to re-step it without "
+            f"unmasking intermediate state")
+
+
 def check_config(cfg: ExperimentConfig) -> None:
     """Refuse, by name, what the port does not run yet."""
     if cfg.algo not in RUNNERS:
@@ -707,8 +937,8 @@ def check_config(cfg: ExperimentConfig) -> None:
     if cfg.checkpoint_dir and cfg.algo == "turboaggregate":
         raise NotImplementedError(
             "--checkpoint_dir with --algo turboaggregate is not ported yet; "
-            "the secure round loop has no checkpoint hooks (ROADMAP Queue 1 "
-            "item 3b)")
+            "the secure cohort loop has no checkpoint hooks (ROADMAP Queue 1 "
+            "item 12, with the rest of the standalone secure loops)")
 
 
 def main(argv=None) -> Dict[str, Any]:

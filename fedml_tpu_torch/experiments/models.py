@@ -48,9 +48,12 @@ def create_workload(model_name: str, dataset: str, class_num: int,
         "cnn_fedavg": lambda: CNNOriginalFedAvg(only_digits=small),
     }
     if model_name not in factories:
+        where = (" (CNNDropOut needs a dropout-mask seam in the local "
+                 "trainer: ROADMAP Queue 1 item 6)"
+                 if model_name == "cnn" else "")
         raise KeyError(f"model {model_name!r} is not ported yet; the port "
                        f"has {sorted(factories)} on image datasets and "
-                       f"'transformer' on {sorted(_NWP_DATASETS)}")
+                       f"'transformer' on {sorted(_NWP_DATASETS)}{where}")
     # grad-clip 1.0, as the reference's classification trainer
     return ClassificationWorkload(factories[model_name](),
                                   num_classes=class_num, grad_clip_norm=1.0)

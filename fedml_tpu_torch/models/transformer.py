@@ -95,8 +95,8 @@ class TransformerLM(nn.Module):
         if dropout_rate:
             raise NotImplementedError(
                 "dropout_rate > 0 is not ported yet: it needs a dropout-mask "
-                "seam in the local trainer, and arrives with CNNDropOut and "
-                "the server optimizers (ROADMAP Queue 1 item 7)")
+                "seam in the local trainer, and arrives with CNNDropOut "
+                "(ROADMAP Queue 1 item 6)")
         if moe_experts:
             raise NotImplementedError(
                 "moe_experts > 0 (the Switch MoE FFN, models/moe.py) is not "

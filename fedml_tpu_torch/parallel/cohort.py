@@ -201,6 +201,12 @@ class GraphedRounds:
     its algorithms, kernel modules load) with outputs discarded, then
     captures.  A failed capture raises; there is no eager fallback.
 
+    ``state``: persistent tensors a custom round body updates in place
+    (FedNova's server momentum).  The graph reads and writes them on each
+    replay; the warm-up's writes are undone before the capture, so the
+    first replay is the first round.  Read or write them only between
+    replays.
+
     Counted for callers: ``captures``, ``replays``, ``capture_s`` (warm-up
     and capture wall time), ``warmup_launches`` and
     ``captured_launches`` — the kernel wrappers' launch-counter deltas
@@ -210,7 +216,8 @@ class GraphedRounds:
     """
 
     def __init__(self, body, stacked: CohortData, clients_per_round: int,
-                 max_rounds: int = 1):
+                 max_rounds: int = 1,
+                 state: Optional[Dict[str, torch.Tensor]] = None):
         device = next(iter(stacked.values())).device
         if device.type != "cuda":
             raise ValueError(
@@ -224,6 +231,7 @@ class GraphedRounds:
             raise ValueError(f"max_rounds and clients_per_round must be >= "
                              f"1, got {max_rounds}, {clients_per_round}")
         self._body = body
+        self._state = state
         self.stacked = stacked
         self.device = device
         self.m = int(clients_per_round)
@@ -260,10 +268,14 @@ class GraphedRounds:
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         before = _launch_snapshot()
+        saved = ({k: v.clone() for k, v in self._state.items()}
+                 if self._state else {})
         with torch.cuda.stream(stream):
             for _ in range(self.warmup_rounds):
                 self._round()
         torch.cuda.current_stream(self.device).wait_stream(stream)
+        for k, v in saved.items():     # the warm-up was not a round
+            self._state[k].copy_(v)
         mid = _launch_snapshot()
         dump = GRAPH_DOT_DIR is not None
         keep = False
@@ -381,12 +393,13 @@ class _DeviceRounds:
     (``.graph``, captured at the first call) on a CUDA device."""
 
     def __init__(self, body, aggregate, transform_update,
-                 clients_per_round: int, max_rounds: int):
+                 clients_per_round: int, max_rounds: int, state=None):
         self._body = body
         self._aggregate = aggregate
         self._transform_update = transform_update
         self.m = clients_per_round
         self.max_rounds = max_rounds
+        self.state = state
         self.graph: Optional[GraphedRounds] = None
 
     def graphed(self, stacked) -> bool:
@@ -402,7 +415,7 @@ class _DeviceRounds:
         """Rows ``[K, m]`` of ids and live masks through the graph."""
         if self.graph is None:
             self.graph = GraphedRounds(self._body, stacked, self.m,
-                                       self.max_rounds)
+                                       self.max_rounds, state=self.state)
         elif self.graph.stacked is not stacked:
             raise ValueError("the graphed round was captured for another "
                              "resident split")
@@ -431,7 +444,7 @@ class _ScannedRounds(_DeviceRounds):
 
 def make_device_round(local_train, clients_per_round: int,
                       aggregate=tree_weighted_mean, transform_update=None,
-                      client_axis: str = "vmap"):
+                      client_axis: str = "vmap", body=None, state=None):
     """The device-resident round: ``round_fn(params, stacked_dev, ids,
     live, seed_words=(0, 0)) -> (new_params, metrics)``, where
     ``stacked_dev`` is the resident ``{x, y, mask, num_samples}`` split,
@@ -441,10 +454,17 @@ def make_device_round(local_train, clients_per_round: int,
     On the CPU it is the eager round body.  On a CUDA device it is a
     `GraphedRounds` captured at the first call (``round_fn.graph`` after
     that) for that ``stacked_dev``; its outputs are the graph's static
-    buffers, which the next call overwrites."""
-    return _DeviceRound(_device_round_body(local_train, aggregate,
-                                           transform_update, client_axis),
-                        aggregate, transform_update, clients_per_round, 1)
+    buffers, which the next call overwrites.
+
+    ``body``: a custom round of the same signature in place of the base
+    one (it gathers with `gather_live_cohort` itself), with ``state`` the
+    dict of persistent tensors it updates in place (see `GraphedRounds`);
+    the dict's tensors must exist before the first call."""
+    if body is None:
+        body = _device_round_body(local_train, aggregate, transform_update,
+                                  client_axis)
+    return _DeviceRound(body, aggregate, transform_update,
+                        clients_per_round, 1, state=state)
 
 
 def make_scanned_rounds(local_train, clients_per_round: int,

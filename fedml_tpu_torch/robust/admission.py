@@ -401,8 +401,13 @@ class AdmissionPipeline:
     ``template``: the global params at federation start — its structural
     fingerprint is the contract every upload must match.  ``kind``:
     ``"params"`` (cross-silo uploads are full parameter trees; the norm
-    screened is ``||upload - global||``) or ``"delta"`` (async uploads
-    are updates already; the norm is ``||delta||``).
+    screened is ``||upload - global||``), ``"delta"`` (async uploads
+    are updates already; the norm is ``||delta||``) or ``"masked"``
+    (secure aggregation: the template is `secure.protocol.
+    masked_template`, and only the screens that mean something on
+    ciphertext run — the structural fingerprint and ``num_samples``;
+    the norm of ring words is PRG noise, so the server's post-unmask sum
+    screen stands in for it).
 
     The norm screen keeps the last ``norm_window`` ACCEPTED norms and
     rejects ``norm > median + norm_k * max(MAD, 5% of median)`` once
@@ -418,9 +423,9 @@ class AdmissionPipeline:
                  norm_k: float = 6.0, norm_window: int = 64,
                  norm_min_history: int = 8,
                  trust: Optional[TrustTracker] = None):
-        if kind not in ("params", "delta"):
-            raise ValueError(f"kind must be 'params' or 'delta', got "
-                             f"{kind!r}")
+        if kind not in ("params", "delta", "masked"):
+            raise ValueError(f"kind must be 'params', 'delta', or "
+                             f"'masked', got {kind!r}")
         if max_num_samples < 0:
             raise ValueError(f"max_num_samples must be >= 0 (0 disables the "
                              f"cap), got {max_num_samples}")
@@ -502,6 +507,13 @@ class AdmissionPipeline:
         if not math.isfinite(n) or n <= 0 \
                 or (self.max_num_samples > 0 and n > self.max_num_samples):
             return self._reject(silo, round_idx, "bad_num_samples")
+        if self.kind == "masked":
+            # ring words: the finite guard is vacuous and a norm measures
+            # PRG noise; the sum-level screens run after the unmask
+            self.admitted += 1
+            self._c_admitted.inc()
+            self.trust.record_clean(silo, round_idx)
+            return AdmissionVerdict(True, num_samples=n, norm=None)
         if not _all_finite(upload):
             return self._reject(silo, round_idx, "nonfinite")
         norm = (_update_norm(upload, self._reference_leaves(global_params))

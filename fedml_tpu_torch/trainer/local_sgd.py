@@ -38,20 +38,27 @@ def _select(cond: torch.Tensor, new, old):
     return torch.where(cond, new, old)
 
 
-def make_local_trainer(workload: Workload, optimizer, epochs: int):
+def make_local_trainer(workload: Workload, optimizer, epochs: int,
+                       prox_mu: float = 0.0):
     """Returns ``train(params, data) -> (new_params, metrics)`` over data
-    leaves ``[S, B, ...]`` with ``mask`` ``[S, B]``."""
+    leaves ``[S, B, ...]`` with ``mask`` ``[S, B]``.  ``prox_mu`` adds
+    FedProx's proximal gradient ``mu * (w - w_global)`` each step (the
+    global is the params the call started from), before the clip."""
 
     grad_fn = grad(workload.loss_fn, has_aux=True)
 
     def train(params: Tree, data: Dict[str, torch.Tensor]
               ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
         opt_state = optimizer.init(params)
+        init_params = params
         num_steps = data["mask"].shape[0]
         losses = []
         for step in range(epochs * num_steps):
             batch = {k: v[step % num_steps] for k, v in data.items()}
             grads, aux = grad_fn(params, batch)
+            if prox_mu:
+                grads = {k: g + prox_mu * (params[k] - init_params[k])
+                         for k, g in grads.items()}
             if workload.grad_clip_norm is not None:
                 grads = clip_by_global_norm(grads, workload.grad_clip_norm)
             updates, new_state = optimizer.update(grads, opt_state, params)

@@ -377,3 +377,104 @@ def test_chip_smoke_imports_no_grpc():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# the live SecAgg, server_opt and algorithm-zoo phases, rehearsed on the
+# CPU at a tiny size (LR on MNIST, 40 clients, 10 a round)
+# ---------------------------------------------------------------------------
+
+def test_pr10_phase_configs_parse_and_pass_the_gates():
+    """The configurations of the three phases are valid CLI configs at
+    the CNN's widths: 10 silos at the majority threshold (6), the drop
+    policy for the lost upload, adam on the sharded spine with K2 on,
+    the eight algorithms (three at 200 clients)."""
+    cfg = cs.live_cfg(cs.SECAGG_ARGS + cs.SECAGG_DROP, 3, "cpu")
+    assert (cfg.secagg, cfg.client_num_per_round, cfg.model,
+            cfg.straggler_policy) == ("pairwise", 10, "cnn_fedavg", "drop")
+    from fedml_tpu_torch.secure.protocol import SecAggServer
+    assert SecAggServer()._threshold_for(cfg.client_num_per_round) == 6
+    assert len(cs.SECAGG_OVER) > cfg.client_num_per_round - 6
+    adam = cs.live_cfg(cs.SRVOPT_ARGS["adam"], 3, "cpu")
+    assert (adam.model_shards, adam.fused_finalize, adam.server_opt) == \
+        (4, "on", "adam")
+    for name in ("momentum", "fedac"):
+        assert cs.live_cfg(cs.SRVOPT_ARGS[name], 3, "cpu").model_shards == 0
+    for name in cs.ZOO_ARGS:
+        cfg = cs.zoo_cfg(name, "cpu")
+        assert cfg.client_num_in_total == (
+            cs.ZOO_SMALL_CLIENTS if name in cs.ZOO_SMALL else 3400)
+
+
+@pytest.fixture
+def tiny_phases(monkeypatch, tmp_path):
+    """The phases' module constants at a tiny size on the CPU; K2's plain
+    version counted as its launches."""
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import load_experiment_data
+    common = ["--model", "lr", "--dataset", "mnist",
+              "--client_num_in_total", "40", "--client_num_per_round", "10",
+              "--batch_size", "20", "--lr", "0.1", "--epochs", "1",
+              "--comm_round", "3", "--frequency_of_the_test", "1000",
+              "--log_stdout", "false"]
+
+    def tiny(args):
+        i, j = args.index("--model"), args.index("--log_stdout") + 2
+        return args[:i] + common + args[j:]
+    monkeypatch.setattr(cs, "CARD", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "COMMON_ARGS", common)
+    for name in ("SILO_ARGS", "PLAIN_STREAM_ARGS", "SECAGG_ARGS"):
+        monkeypatch.setattr(cs, name, tiny(getattr(cs, name)))
+    monkeypatch.setattr(cs, "SRVOPT_ARGS", {
+        k: tiny(v) for k, v in cs.SRVOPT_ARGS.items()})
+    monkeypatch.setattr(cs, "ZOO_SMALL_CLIENTS", 20)
+    real = fused_agg.shard_finalize_plain
+
+    def counted(*a, **k):
+        fused_agg.launch_counts["shard_finalize"] += 1
+        return real(*a, **k)
+    monkeypatch.setattr(fused_agg, "shard_finalize_plain", counted)
+    data = load_experiment_data(config_from_argv(cs.SECAGG_ARGS))
+    return data, tmp_path
+
+
+def test_live_secagg_phase_on_the_cpu(tiny_phases):
+    data, root = tiny_phases
+    out = cs.check_live_secagg(data, root)
+    assert out["ring_sums_bit_equal"] == [True] * 3
+    assert out["dropped"] == [cs.SECAGG_DEAD]
+    assert max(out["vs_plaintext_max_abs_diff"]) <= cs.SECAGG_TOL
+    assert out["mid_unmask_boundary_unchanged"]
+    assert out["mid_unmask_rerun_bit_equal"]
+    assert "threshold" in out["over_threshold_error"]
+    assert out["masking"]["streams"] == 10
+    assert out["split_ms_per_round"]["masking_ms"] > 0
+
+
+def test_live_server_opt_phase_on_the_cpu(tiny_phases):
+    data, root = tiny_phases
+    out = cs.check_live_server_opt(data, root)
+    assert out["k2_launches"] == 4 * cs.SRVOPT_ROUNDS
+    assert out["kill"]["params_bit_equal"] and out["kill"]["state_bit_equal"]
+    assert "adam" in out["other_optimizer_refused"]
+    assert out["runs"]["adam"]["journal_mode"] == \
+        "shard_mean[S=4]+srvopt=adam"
+
+
+def test_algorithm_zoo_phase_on_the_cpu(tiny_phases, monkeypatch):
+    """Three of the eight, one of each kind: a device round with a server
+    step, a host loop with per-client state, and DP's accountant."""
+    data, _ = tiny_phases
+    monkeypatch.setattr(cs, "ZOO_ARGS", {
+        k: cs.ZOO_ARGS[k] for k in ("fedopt", "scaffold", "dp_fedavg")})
+    monkeypatch.setattr(cs, "ZOO_PROFILE_ROUNDS", 1)
+    rows = cs.check_algorithm_zoo(data)
+    assert set(rows) == set(cs.ZOO_ARGS)
+    assert rows["fedopt"]["path"] == "device round"   # graphed on the card
+    for name in ("scaffold", "dp_fedavg"):
+        assert rows[name]["path"] == "host loop"
+    assert all(r["vs_cpu_max_abs_diff"] <= cs.ROUND_TOL
+               for r in rows.values())
+    assert rows["dp_fedavg"]["dp_epsilon_cpu_equal"]

@@ -33,6 +33,7 @@ from fedml_tpu.core.stream_agg import StreamingAggregator as JStream
 from fedml_tpu.experiments.config import ExperimentConfig as JConfig
 from fedml_tpu.robust.defense import make_defended_aggregate as j_defended
 from fedml_tpu.shard_spine import build_shard_spine as j_build_spine
+from fedml_tpu_torch.algorithms import cross_silo as t_cross_silo
 from fedml_tpu_torch.algorithms.cross_silo import (FedAvgClientActor,
                                                    FedAvgServerActor,
                                                    MsgType)
@@ -410,6 +411,13 @@ def test_admission_rejects_a_poisoned_plain_upload():
     "degrade", "decode_upload", "publish"])
 def test_unported_actor_options_are_refused_by_name(option):
     init = params_from_numpy(_params())
+    if option in ("secagg", "server_opt"):
+        # ported (live SecAgg, the server-optimizer seam): taken, not
+        # refused
+        assert option not in t_cross_silo._REFUSED
+        FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
+                          **{option: object()})
+        return
     with pytest.raises(NotImplementedError, match=option):
         FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
                           **{option: object()})
@@ -453,7 +461,7 @@ _CS = ["--algo", "cross_silo", "--agg_mode", "stream", "--model_shards",
       "0"], ValueError, "stream_reservoir"),
     (["--model_shards", "0", "--robust_agg", "median"], ValueError,
      "robust_agg must be one of"),
-    (["--secagg", "pairwise"], NotImplementedError, "secure/protocol.py"),
+    (["--secagg", "grouped"], NotImplementedError, "item 8"),
     (["--edge_aggregators", "2"], NotImplementedError, "hierarchical"),
     (["--wire_compression", "topk"], NotImplementedError, "compress"),
     (["--error_feedback", "true"], NotImplementedError, "compress"),
@@ -467,7 +475,7 @@ _CS = ["--algo", "cross_silo", "--agg_mode", "stream", "--model_shards",
     (["--journal", "true", "--agg_mode", "stack", "--model_shards", "0"],
      ValueError, "streaming-fold"),
     (["--health", "true"], NotImplementedError, "health"),
-    (["--server_opt", "adam"], NotImplementedError, "server_opt"),
+    (["--adaptive", "true"], NotImplementedError, "item 9"),
     (["--adversary", "2:gauss:0.1"], NotImplementedError, "adversary"),
     (["--journal_snapshot_every", "0"], ValueError,
      "journal_snapshot_every"),

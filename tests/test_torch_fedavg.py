@@ -288,7 +288,7 @@ def test_refusals_are_named():
     with pytest.raises(NotImplementedError, match="item 10"):
         main(["--mesh_clients", "2", "--platform", "cpu"])
     with pytest.raises(KeyError):
-        main(["--algo", "scaffold", "--platform", "cpu"])
+        main(["--algo", "decentralized", "--platform", "cpu"])
 
 
 def test_gpu_is_the_default_device():

@@ -161,3 +161,31 @@ def test_fault_tolerance_modules_import_without_jax_or_grpc():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+SECAGG_ALGORITHM_MODULES = (
+    "fedml_tpu_torch.secure.protocol", "fedml_tpu_torch.server_opt",
+    "fedml_tpu_torch.server_opt.optimizer", "fedml_tpu_torch.core.privacy",
+    "fedml_tpu_torch.algorithms.fedopt", "fedml_tpu_torch.algorithms.fedprox",
+    "fedml_tpu_torch.algorithms.fednova",
+    "fedml_tpu_torch.algorithms.scaffold",
+    "fedml_tpu_torch.algorithms.feddyn", "fedml_tpu_torch.algorithms.ditto",
+    "fedml_tpu_torch.algorithms.fedac",
+    "fedml_tpu_torch.algorithms.dp_fedavg",
+    "fedml_tpu_torch.robust.admission",
+    "fedml_tpu_torch.algorithms.cross_silo",
+    "fedml_tpu_torch.experiments.main")
+
+
+def test_secagg_and_algorithm_modules_import_without_jax():
+    """Live SecAgg, the server-optimizer seam, the RDP accountant and the
+    stateful algorithms, each named, import with JAX, optax and the JAX
+    package blocked (optax's update rules and the numpy accountant are the
+    port's own copies)."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {SECAGG_ALGORITHM_MODULES!r}:\n"
+            f"    importlib.import_module(m)\nprint('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

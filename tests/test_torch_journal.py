@@ -609,3 +609,123 @@ class TestConfigGates:
             main(["--algo", "cross_silo", "--journal", "true",
                   "--agg_mode", "stream", "--journal_snapshot_every", "0",
                   "--platform", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# secure rounds journal abort-only (tests/test_crash_recovery.py::
+# TestSecaggAbortOnly)
+# ---------------------------------------------------------------------------
+
+def _run_secagg(init, rounds, ck=None, jr=None, fl=None, n=4):
+    from fedml_tpu_torch.robust import AdmissionPipeline
+    from fedml_tpu_torch.secure.protocol import (SecAggClient, SecAggServer,
+                                                 masked_template)
+    hub = LocalHub(codec_roundtrip=True)
+    server = FedAvgServerActor(
+        hub.transport(0), params_from_numpy(init), n, n, rounds,
+        admission=AdmissionPipeline(masked_template(init), kind="masked"),
+        secagg=SecAggServer(threshold=0, clip=64.0, weight_cap=10.0),
+        checkpointer=ck, journal=jr, faultline=fl)
+    server.register_handlers()
+    for i in range(1, n + 1):
+        def tf(i=i):
+            def fn(params, client_idx, round_idx):
+                return {k: np.asarray(v) + 0.1 * i
+                        for k, v in params.items()}, 4.0 + i
+            return fn
+        c = FedAvgClientActor(i, hub.transport(i), tf(),
+                              secagg=SecAggClient(i))
+        c.register_handlers()
+    server.start()
+    hub.pump()
+    return server
+
+
+def _j_run_secagg(init, rounds, n=4):
+    from fedml_tpu.robust import AdmissionPipeline
+    from fedml_tpu.secure.protocol import (SecAggClient, SecAggServer,
+                                           masked_template)
+    hub = JHub(codec_roundtrip=True)
+    server = jcs.FedAvgServerActor(
+        hub.transport(0), init, n, n, rounds,
+        admission=AdmissionPipeline(masked_template(init), kind="masked"),
+        secagg=SecAggServer(threshold=0, clip=64.0, weight_cap=10.0))
+    server.register_handlers()
+    for i in range(1, n + 1):
+        def tf(i=i):
+            def fn(params, client_idx, round_idx):
+                return jax.tree.map(lambda v: np.asarray(v) + 0.1 * i,
+                                    params), 4.0 + i
+            return fn
+        c = jcs.FedAvgClientActor(i, hub.transport(i), tf(),
+                                  secagg=SecAggClient(i))
+        c.register_handlers()
+    server.start()
+    hub.pump()
+    return server
+
+
+def _same_global(port_server, jax_params):
+    return all(np.array_equal(port_server.params[k].numpy(),
+                              np.asarray(jax_params[k]))
+               for k in jax_params)
+
+
+class TestSecaggAbortOnly:
+    def test_mid_unmask_kill_aborts_to_boundary(self, tmp_path):
+        """Kill mid-unmask: the journal refuses to resume (mode secagg,
+        resumable False), the round restarts from the boundary with the
+        global unchanged, and the re-run lands on the clean run's global
+        — which is bit-equal to the JAX package's clean run (the ring sum
+        is exact and the division the same)."""
+        init = {"w": np.zeros(6, np.float32)}
+        ref = _run_secagg(init, 2)
+        assert ref.round_idx == 2
+        assert _same_global(ref, _j_run_secagg(init, 2).params)
+        ck = RoundCheckpointer(str(tmp_path / "ck"), save_every=1)
+        jr = RoundJournal(str(tmp_path / "j"))
+        fl = Faultline(crashes=[CrashSpec(point="mid_unmask",
+                                          round_idx=1)])
+        with pytest.raises(ActorKilled):
+            _run_secagg(init, 2, ck=ck, jr=jr, fl=fl)
+        assert fl.kills == 1
+        # the boundary checkpoint holds round 0's global: the global the
+        # crashed round opened against, unchanged by it
+        round0 = _run_secagg(init, 1)
+        state = RoundCheckpointer(str(tmp_path / "ck")).restore()
+        assert int(state["round_idx"]) == 0
+        for k, v in round0.params.items():
+            assert np.array_equal(np.asarray(state["params"][k]), v.numpy())
+        rec = RoundJournal(str(tmp_path / "j")).recover()
+        assert rec is not None and rec.mode == "secagg" \
+            and not rec.resumable
+        resumed = _run_secagg(
+            init, 2,
+            ck=RoundCheckpointer(str(tmp_path / "ck"), save_every=1),
+            jr=RoundJournal(str(tmp_path / "j")))
+        assert resumed.round_idx == 2
+        for k in ref.params:
+            assert torch_equal(resumed.params[k], ref.params[k])
+
+    @pytest.mark.parametrize("point", ["post_admission_pre_fold",
+                                       "post_fold_pre_ack",
+                                       "barrier_close", "mid_unmask"])
+    def test_secagg_kill_matrix_never_misaggregates(self, tmp_path, point):
+        init = {"w": np.zeros(6, np.float32)}
+        ref = _run_secagg(init, 2)
+        ck = RoundCheckpointer(str(tmp_path / "ck"), save_every=1)
+        jr = RoundJournal(str(tmp_path / "j"))
+        fl = Faultline(crashes=[CrashSpec(point=point, round_idx=1)])
+        with pytest.raises(ActorKilled):
+            _run_secagg(init, 2, ck=ck, jr=jr, fl=fl)
+        resumed = _run_secagg(
+            init, 2,
+            ck=RoundCheckpointer(str(tmp_path / "ck"), save_every=1),
+            jr=RoundJournal(str(tmp_path / "j")))
+        assert resumed.round_idx == 2
+        for k in ref.params:
+            assert torch_equal(resumed.params[k], ref.params[k])
+
+
+def torch_equal(a, b):
+    return np.array_equal(a.numpy(), b.numpy())

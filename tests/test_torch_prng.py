@@ -88,3 +88,47 @@ def test_random_bits(shape, seed):
     assert tensor.dtype == torch.int64
     np.testing.assert_array_equal(tensor.numpy().astype(np.uint32),
                                   want.reshape(-1))
+
+
+@pytest.mark.parametrize("seed", [7, 2**40 + 5, 123456789])
+def test_normal_within_one_ulp_of_jax(seed):
+    """``prng.normal`` over 10^5 draws against ``jax.random.normal``: the
+    uniforms are bit-equal, erfinv is XLA's f32 polynomial; XLA's log1p
+    and fused multiply-adds leave at most an ulp (1e-6 absolute)."""
+    want = np.asarray(jax.random.normal(jax.random.key(seed), (100_000,)))
+    got = prng.normal(prng.key(seed), (100_000,)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.max(np.abs(got - want)) <= 1e-6
+    assert np.mean(got == want) > 0.9
+
+
+@SETTINGS
+@given(seed=seeds, lo=st.floats(-4, 0), span=st.floats(0.5, 8))
+def test_uniform_bit_equal(seed, lo, span):
+    lo, hi = np.float32(lo), np.float32(lo + span)
+    want = np.asarray(jax.random.uniform(jax.random.key(seed), (257,),
+                                         minval=lo, maxval=hi))
+    got = prng.uniform_f32(prng.key(seed), 257, "cpu", float(lo),
+                           float(hi)).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_erfinv_edges():
+    x = torch.tensor([-1.0, 1.0, 0.0, 0.5, -0.999999], dtype=torch.float32)
+    y = prng.erfinv_f32(x)
+    assert y[0] == -torch.finfo(torch.float32).max and \
+        y[1] == torch.finfo(torch.float32).max and y[2] == 0
+    np.testing.assert_allclose(y[3:].numpy(), np.asarray(
+        jax.scipy.special.erfinv(x[3:].numpy())), atol=1e-6)
+
+
+@SETTINGS
+@given(seed=seeds, n=st.integers(min_value=1, max_value=5000))
+def test_permutation_and_choice_bit_equal(seed, n):
+    k = jax.random.key(seed)
+    assert np.array_equal(prng.permutation(prng.key(seed), n),
+                          np.asarray(jax.random.permutation(k, n)))
+    m = max(1, n // 3)
+    assert np.array_equal(
+        prng.choice_without_replacement(prng.key(seed), n, m),
+        np.asarray(jax.random.choice(k, n, (m,), replace=False)))
