@@ -151,6 +151,25 @@ each printed as it ends; any failure exits non-zero:
    round or host loop), host launch calls and device kernels a round,
    the round's ms and the device's idle share over 3 more rounds; one
    round with TF32 off against the CPU (limit 1e-4; DP-FedAvg's ε equal);
+8l. cross-device — ``--algo cross_device`` on the CNN at 3400 clients,
+   1000 a round in waves of 256 (the last 232 live), 3 rounds each of
+   ``--local_alg sgd``, ``fedprox`` (mu 0.1), ``fednova``, ``sgd
+   --server_opt adam`` and ``scaffold`` (200 clients, 100 a round, waves
+   of 32): rounds/s, peak memory, one round's split a wave (gather,
+   training, admission, fold; SCAFFOLD's state gather and scatter) and one
+   profiled round (host launch calls, device kernels, idle share); one
+   round of each local algorithm with TF32 off against the CPU at 40 a
+   round in waves of 16 (limit 1e-4; FedNova at its finalized mean, its
+   tau_eff step scaling that difference and nothing more); one round in
+   waves of 256 against one wave of 1000 (deterministic mode, limit
+   ``WAVE_CHUNK_TOL``; bit-equality reported); ``--sampler jax``'s waves
+   equal to ``prng.permutation``'s first 1000; ``--model cnn`` (dropout
+   on) in waves of 32 against one wave of 100, and against another seed's
+   masks; a resume from round 1's checkpoint bit-equal to the straight
+   run; BASELINE config 4 (``resnet18_gn`` on ``fed_cifar100``, 500
+   clients, 10 a round) with fedprox and fednova, profiled the same way,
+   fedprox's round against the CPU; one round of ``resnet56`` on the
+   ``cifar10`` twin; the phase's seconds;
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
@@ -3914,6 +3933,421 @@ def check_algorithm_zoo(data):
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# the cross-device wave engine: the sampled cohort trained in waves on the
+# card and folded into the streaming mean, its four local algorithms, both
+# samplers, CNNDropOut, and the GroupNorm ResNets of BASELINE config 4
+# ---------------------------------------------------------------------------
+
+CD_ARGS = ["--algo", "cross_device", "--model", "cnn_fedavg", "--dataset",
+           "femnist", "--client_num_in_total", "3400",
+           "--client_num_per_round", "1000", "--wave_size", "256",
+           "--batch_size", "20", "--lr", "0.1", "--epochs", "1",
+           "--comm_round", "3", "--frequency_of_the_test", "1000",
+           "--log_stdout", "false"]
+# 4 waves a round, the last 232 live and 24 pads; SCAFFOLD keeps a host
+# model per client (3400 x 6.76 MB = 23 GB), so it runs at 200 clients
+CD_RUNS = {
+    "sgd": [],
+    "fedprox": ["--local_alg", "fedprox", "--mu", "0.1"],
+    "fednova": ["--local_alg", "fednova"],
+    "sgd_adam": ["--server_opt", "adam", "--server_lr", "0.01"],
+    "scaffold": ["--local_alg", "scaffold", "--client_num_in_total", "200",
+                 "--client_num_per_round", "100", "--wave_size", "32"]}
+CD_PARITY = ["--client_num_per_round", "40", "--wave_size", "16"]
+CD_SMALL = ["--client_num_per_round", "100", "--wave_size", "32"]
+CD_SMALL_SINGLE = 100          # CD_SMALL's cohort as one wave
+CD_SINGLE_WAVE = 1000          # the chunking check's one wave
+# one round of W=256 waves against one W=1000 wave, deterministic cuDNN and
+# TF32 off: the grouped convs' algorithms differ with the group count, so
+# the card's bits may differ; within this limit (the CPU round limit)
+WAVE_CHUNK_TOL = ROUND_TOL
+CONFIG4_ARGS = ["--algo", "cross_device", "--model", "resnet18_gn",
+                "--dataset", "fed_cifar100", "--client_num_in_total", "500",
+                "--client_num_per_round", "10", "--batch_size", "20",
+                "--lr", "0.1", "--epochs", "1", "--comm_round", "3",
+                "--frequency_of_the_test", "1000", "--log_stdout", "false"]
+CONFIG4_RUNS = {"fedprox": ["--local_alg", "fedprox", "--mu", "0.1"],
+                "fednova": ["--local_alg", "fednova"]}
+CONFIG4_PARITY = "fedprox"     # the config-4 run held against the CPU
+GN_ROUND_TOL = ROUND_TOL       # ResNet-18-GN round, card (TF32 off) vs CPU
+RESNET56_ARGS = ["--algo", "cross_device", "--model", "resnet56",
+                 "--dataset", "cifar10", "--client_num_in_total", "10",
+                 "--client_num_per_round", "10", "--batch_size", "20",
+                 "--lr", "0.1", "--epochs", "1", "--comm_round", "1",
+                 "--frequency_of_the_test", "1000", "--log_stdout", "false"]
+
+
+def cd_cfg(argv, device: str = None, **replace):
+    """A valid CLI config of the wave engine on ``device`` (the card's by
+    default)."""
+    import dataclasses
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import (check_config,
+                                                  resolve_cross_device)
+    cfg = resolve_cross_device(config_from_argv(list(argv)))
+    check_config(cfg)
+    return dataclasses.replace(cfg, platform=device or CARD, **replace)
+
+
+def cd_data(cfg, cache: dict):
+    """The twin ``cfg`` names, loaded once per (dataset, clients)."""
+    from fedml_tpu_torch.experiments.main import load_experiment_data
+    key = (cfg.dataset, cfg.client_num_in_total, cfg.batch_size, cfg.seed)
+    if key not in cache:
+        cache[key] = load_experiment_data(cfg)
+    return cache[key]
+
+
+def cd_algo(cfg, data):
+    from fedml_tpu_torch.experiments.main import cross_device_algo
+    return cross_device_algo(cfg, data)
+
+
+def peak_gb():
+    import torch
+    if CARD != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def reset_peak() -> None:
+    import torch
+    if CARD == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def cd_round(algo, params, round_idx: int):
+    """One round of the engine outside its run loop (the run's key
+    chain)."""
+    from fedml_tpu_torch.algorithms.fedavg import round_seed_words
+    ids = algo._sample_round(round_idx)
+    return algo._run_round(params, ids,
+                           round_seed_words(algo.cfg.seed, round_idx),
+                           round_idx)[0]
+
+
+def wave_split(algo, params, round_idx: int):
+    """Where one round's waves spend their time: exclusive synchronised
+    host time of the gather, the wave's training (with its summary), the
+    admission screen and the fold (and SCAFFOLD's state gather and
+    scatter), per wave in ms, and the finalize."""
+    from fedml_tpu_torch.algorithms import cross_device
+    timer = PartTimer()
+    timer.wrap(algo, "_gather_wave", "gather")
+    timer.wrap(algo, "_wave_fn", "training")
+    timer.wrap(algo.admission, "screen", "admission")
+    timer.wrap(algo.stream, "fold_wave", "fold")
+    timer.wrap(algo.stream, "finalize", "finalize")
+    # SCAFFOLD's host-stacked variates, gathered and scattered per wave
+    saved = {name: getattr(cross_device, name)
+             for name in ("gather_client_rows", "scatter_client_rows")}
+    timer.wrap(cross_device, "gather_client_rows", "state_gather")
+    timer.wrap(cross_device, "scatter_client_rows", "state_scatter")
+    t0 = time.perf_counter()
+    try:
+        params = cd_round(algo, params, round_idx)
+        sync(CARD)
+    finally:
+        for name, fn in saved.items():
+            setattr(cross_device, name, fn)
+    round_ms = (time.perf_counter() - t0) * 1e3
+    waves = -(-algo.cfg.client_num_per_round // algo.cfg.wave_size)
+    out = {f"{k}_ms_per_wave": v * 1e3 / waves
+           for k, v in timer.totals.items() if k != "finalize"}
+    out.update(finalize_ms=timer.totals.get("finalize", 0.0) * 1e3,
+               split_round_ms=round_ms, waves=waves)
+    return params, out
+
+
+def cd_run(name: str, cfg, data):
+    """``cfg`` through the runner's engine: 3 rounds, rounds/s after the
+    first, peak memory; then one round's split by part and one profiled
+    round (host launch calls, device kernels, idle share)."""
+    import gc
+    import torch
+    reset_peak()
+    t0 = time.perf_counter()
+    algo = cd_algo(cfg, data)
+    params = algo.run()
+    sync(CARD)
+    run_s = time.perf_counter() - t0
+    finite = all(bool(v.isfinite().all()) for v in params.values())
+    last = algo.history[-1] if algo.history else {}
+    width = algo.cfg.wave_size            # 0 resolves to min(cohort, 256)
+    waves = -(-cfg.client_num_per_round // width)
+    if not finite or len(algo.round_times) != cfg.comm_round \
+            or last.get("waves") != waves \
+            or last.get("folded_waves") != waves:
+        fail(f"cross_device {name}: {len(algo.round_times)} rounds, finite "
+             f"{finite}, last row {last}")
+    steady = algo.round_times[1:]
+    row = dict(clients=data.client_num, cohort=cfg.client_num_per_round,
+               wave_size=width, waves=waves, run_s=run_s,
+               rounds_per_s=len(steady) / sum(steady),
+               round_ms=1e3 * sum(steady) / len(steady),
+               test_acc=last.get("test_acc"), peak_gb=peak_gb())
+    state = {"params": params, "r": cfg.comm_round}
+    state["params"], split = wave_split(algo, state["params"], state["r"])
+    state["r"] += 1
+    row.update(split)
+
+    def run(_algo=algo, _state=state):
+        _state["params"] = cd_round(_algo, _state["params"], _state["r"])
+        _state["r"] += 1
+    row.update(path_profile(run, 1))
+    del algo, params, state, run
+    gc.collect()
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def cd_parity(name: str, argv, data, tol: float = ROUND_TOL):
+    """One round of the engine with TF32 off on the card against the
+    same round on CPU tensors, from one init, evaluation off: the global,
+    and the stream's finalized mean before the local algorithm's server
+    step (FedNova's tau_eff step, SCAFFOLD's variates, the optimizer)."""
+    from fedml_tpu_torch.core.stream_agg import StreamingAggregator
+    devices = {"cpu": "cpu", "card": CARD}
+    algos = {label: cd_algo(cd_cfg(argv, d, comm_round=1), data)
+             for label, d in devices.items()}
+    init = algos["cpu"].init_params()
+    out, means = {}, {}
+    real = StreamingAggregator.finalize
+    try:
+        with tf32_off():
+            for label, algo in algos.items():
+                def spy(agg, step, _label=label):
+                    mean = real(agg, step)
+                    means[_label] = {k: v.cpu() for k, v in mean.items()}
+                    return mean
+                StreamingAggregator.finalize = spy
+                algo.evaluate_global = lambda params: {}
+                params = algo.run(params={k: v.to(devices[label])
+                                          for k, v in init.items()})
+                out[label] = {k: v.cpu() for k, v in params.items()}
+    finally:
+        StreamingAggregator.finalize = real
+    row = dict(max_abs_diff=max_diff(out["card"], out["cpu"]),
+               finalize_max_abs_diff=max_diff(means["card"], means["cpu"]),
+               moved=max_diff(out["cpu"], init),
+               max_abs_param=max(float(v.abs().max())
+                                 for v in out["cpu"].values()))
+    row["ok"] = row["max_abs_diff"] <= tol and row["moved"] > 10 * tol
+    if algos["cpu"].cfg.local_alg == "fednova":
+        # x+ = x − tau_eff·(x − mean) scales the devices' difference in the
+        # mean by tau_eff (the clients' average local steps): FedNova is
+        # held at its finalized mean, and its step may add nothing beyond
+        # that scaling
+        row["tau_eff"] = fednova_tau(init, means["cpu"], out["cpu"])
+        row["ok"] = (row["finalize_max_abs_diff"] <= tol
+                     and row["max_abs_diff"] <= row["tau_eff"]
+                     * row["finalize_max_abs_diff"] * (1 + 1e-3) + 1e-7
+                     and row["moved"] > 10 * tol)
+    return row
+
+
+def fednova_tau(init, mean, new) -> float:
+    """FedNova's tau_eff, read back from one round: ``(x − x+) / (x −
+    mean)`` at the element where ``x − mean`` is largest."""
+    k = max(mean, key=lambda n: float((init[n] - mean[n]).abs().max()))
+    d = (init[k].double() - mean[k].double()).flatten()
+    j = int(d.abs().argmax())
+    return float((init[k].double().flatten()[j]
+                  - new[k].double().flatten()[j]) / d[j])
+
+
+def cd_one_round(argv, data, init, **replace):
+    """One round of the engine from ``init``, evaluation off; the algo
+    and its global."""
+    algo = cd_algo(cd_cfg(argv, comm_round=1, **replace), data)
+    algo.evaluate_global = lambda params: {}
+    params = algo.run(params={k: v.clone() for k, v in init.items()})
+    sync(CARD)
+    return algo, params
+
+
+def check_wave_chunking(data):
+    """One round of ``--wave_size 256`` against one ``--wave_size 1000``
+    wave from one init: deterministic mode (TF32 off) within
+    WAVE_CHUNK_TOL, bit-equal if it is; the default mode's difference
+    recorded."""
+    init = cd_algo(cd_cfg(CD_ARGS), data).init_params()
+    out = {}
+    for mode, ctx in (("deterministic", deterministic),
+                      ("default", contextlib.nullcontext)):
+        with ctx():
+            _, chunked = cd_one_round(CD_ARGS, data, init)
+            _, single = cd_one_round(CD_ARGS, data, init,
+                                     wave_size=CD_SINGLE_WAVE)
+        out[mode] = dict(bit_equal=bit_equal(chunked, single),
+                         max_abs_diff=max_diff(chunked, single))
+    if not out["deterministic"]["max_abs_diff"] <= WAVE_CHUNK_TOL:
+        fail(f"cross_device: wave-chunked against single-wave "
+             f"{out['deterministic']} (limit {WAVE_CHUNK_TOL})")
+    return out
+
+
+def check_jax_sampler(data):
+    """``--sampler jax``: the waves of round 0 train exactly the first
+    1000 of ``prng.permutation(fold_in(fold_in(key(seed), 0x5A4D50), 0),
+    3400)``, in order."""
+    import numpy as np
+    from fedml_tpu_torch.core import prng
+    from fedml_tpu_torch.core.sampling import sample_clients
+    cfg = cd_cfg([*CD_ARGS, "--sampler", "jax"], comm_round=1)
+    algo = cd_algo(cfg, data)
+    algo.evaluate_global = lambda params: {}
+    seen = []
+    inner = algo._gather_wave
+
+    def record(wave, width):
+        seen.append(np.asarray(wave.ids))
+        return inner(wave, width)
+    algo._gather_wave = record
+    params = algo.run()
+    sync(CARD)
+    key = prng.fold_in(prng.fold_in(prng.key(cfg.seed), 0x5A4D50), 0)
+    want = prng.permutation(key, data.client_num)[:cfg.client_num_per_round]
+    got = np.concatenate(seen)
+    equal = bool(np.array_equal(got, want))
+    numpy_ids = sample_clients(0, data.client_num, cfg.client_num_per_round)
+    if not equal or len(seen) != -(-cfg.client_num_per_round
+                                   // cfg.wave_size) \
+            or not all(bool(v.isfinite().all()) for v in params.values()):
+        fail(f"--sampler jax: the waves trained {got[:8]}..., the "
+             f"permutation gives {want[:8]}...")
+    return dict(ids_equal_permutation=equal, waves=len(seen),
+                differs_from_numpy=not np.array_equal(np.sort(got),
+                                                      np.sort(numpy_ids)))
+
+
+def check_dropout_chunking(data):
+    """``--model cnn`` (CNNDropOut) in train mode: one round of W=32
+    waves against one W=100 wave (deterministic mode), and against the
+    same round under another seed (other masks, same cohort and init)."""
+    argv = [*CD_ARGS, *CD_SMALL, "--model", "cnn"]
+    algo = cd_algo(cd_cfg(argv), data)
+    if not algo.workload.stochastic:
+        fail("--model cnn is not stochastic")
+    init = algo.init_params()
+    with deterministic():
+        _, chunked = cd_one_round(argv, data, init)
+        _, single = cd_one_round(argv, data, init,
+                                 wave_size=CD_SMALL_SINGLE)
+        _, reseeded = cd_one_round(argv, data, init, seed=1)
+    out = dict(bit_equal=bit_equal(chunked, single),
+               max_abs_diff=max_diff(chunked, single),
+               other_seed_max_abs_diff=max_diff(chunked, reseeded))
+    # other masks move the global far more than the chunking does
+    if not out["max_abs_diff"] <= WAVE_CHUNK_TOL \
+            or not out["other_seed_max_abs_diff"] > max(
+                10 * out["max_abs_diff"], 1e-5):
+        fail(f"--model cnn: chunked against single-wave {out}")
+    return out
+
+
+def check_cd_resume(data, root: Path):
+    """A 2-round run against a run stopped after round 1 with its
+    checkpoint and resumed: the round-2 global bit-equal (deterministic
+    mode)."""
+    from fedml_tpu_torch.experiments.main import make_checkpointer
+    ckpt = root / "build" / "cross_device_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = [*CD_ARGS, *CD_SMALL]
+    finals = {}
+    with deterministic():
+        for name, rounds, ck in (("straight", 2, None), ("stopped", 1, ckpt),
+                                 ("resumed", 2, ckpt)):
+            cfg = cd_cfg(argv, comm_round=rounds,
+                         checkpoint_dir=None if ck is None else str(ck),
+                         checkpoint_every=1)
+            algo = cd_algo(cfg, data)
+            checkpointer = make_checkpointer(cfg)
+            try:
+                finals[name] = algo.run(checkpointer=checkpointer)
+            finally:
+                if checkpointer is not None:
+                    checkpointer.close()
+            sync(CARD)
+            finals[name + "_rounds"] = len(algo.round_times)
+    same = bit_equal(finals["resumed"], finals["straight"])
+    if not same or finals["resumed_rounds"] != 1:
+        fail(f"cross_device resume: bit-equal {same}, "
+             f"{finals['resumed_rounds']} rounds run after the resume")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(bit_equal=same,
+                max_abs_diff=max_diff(finals["resumed"], finals["straight"]))
+
+
+def check_cross_device(data, root: Path):
+    """Phase 8l: the wave engine at BASELINE config 2's widths and config
+    4's model.  Every run, every check and the phase's seconds."""
+    t_phase = time.perf_counter()
+    main_cfg = cd_cfg(CD_ARGS)
+    cache = {(main_cfg.dataset, main_cfg.client_num_in_total,
+              main_cfg.batch_size, main_cfg.seed): data}
+    runs = {}
+    for name, extra in CD_RUNS.items():
+        cfg = cd_cfg([*CD_ARGS, *extra])
+        runs[name] = cd_run(name, cfg, cd_data(cfg, cache))
+        phase(f"cross_device {name}", **runs[name])
+    parity = {}
+    for name in ("sgd", "fedprox", "fednova", "scaffold"):
+        # CD_PARITY's cohort and wave size override the run's
+        argv = [*CD_ARGS, *CD_RUNS[name], *CD_PARITY]
+        parity[name] = cd_parity(name, argv, cd_data(cd_cfg(argv), cache))
+    phase("cross_device vs cpu", limit=ROUND_TOL, cohort=CD_PARITY,
+          **parity)
+    bad = {k: v for k, v in parity.items() if not v["ok"]}
+    if bad:
+        fail(f"cross_device: one round on the card against the CPU: {bad} "
+             f"(limit {ROUND_TOL})")
+    chunking = check_wave_chunking(data)
+    phase("cross_device wave chunking", limit=WAVE_CHUNK_TOL, **chunking)
+    sampler = check_jax_sampler(data)
+    phase("cross_device sampler jax", **sampler)
+    drop = check_dropout_chunking(data)
+    phase("cross_device cnn dropout", limit=WAVE_CHUNK_TOL, **drop)
+    resume = check_cd_resume(data, root)
+    phase("cross_device resume", **resume)
+    config4 = {}
+    for name, extra in CONFIG4_RUNS.items():
+        cfg = cd_cfg([*CONFIG4_ARGS, *extra])
+        config4[name] = cd_run(name, cfg, cd_data(cfg, cache))
+        phase(f"cross_device config4 {name}", **config4[name])
+    argv = [*CONFIG4_ARGS, *CONFIG4_RUNS[CONFIG4_PARITY]]
+    gn = cd_parity(f"config4 {CONFIG4_PARITY}", argv,
+                   cd_data(cd_cfg(argv), cache), GN_ROUND_TOL)
+    phase("cross_device config4 vs cpu", local_alg=CONFIG4_PARITY,
+          limit=GN_ROUND_TOL, **gn)
+    if not gn["ok"]:
+        fail(f"cross_device config4: one round on the card against the "
+             f"CPU: {gn} (limit {GN_ROUND_TOL})")
+    gn_diff = gn["max_abs_diff"]
+    r56_cfg = cd_cfg(RESNET56_ARGS)
+    r56 = cd_algo(r56_cfg, cd_data(r56_cfg, cache))
+    t0 = time.perf_counter()
+    r56_params = r56.run()
+    sync(CARD)
+    r56_row = dict(round_s=time.perf_counter() - t0,
+                   params=sum(v.numel() for v in r56_params.values()),
+                   finite=all(bool(v.isfinite().all())
+                              for v in r56_params.values()),
+                   test_acc=r56.history[-1].get("test_acc"))
+    if not r56_row["finite"]:
+        fail(f"resnet56 on the cifar10 twin: {r56_row}")
+    phase("cross_device resnet56", **r56_row)
+    seconds = time.perf_counter() - t_phase
+    phase("cross_device done", seconds=seconds)
+    return dict(runs=runs, parity=parity, chunking=chunking,
+                sampler=sampler, dropout=drop, resume=resume,
+                config4=config4, config4_vs_cpu=gn_diff, resnet56=r56_row,
+                seconds=seconds)
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -3990,6 +4424,7 @@ def main() -> None:
     secagg = check_live_secagg(data, root)
     srvopt = check_live_server_opt(data, root)
     zoo = check_algorithm_zoo(data)
+    cross_device = check_cross_device(data, root)
 
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
@@ -4113,6 +4548,15 @@ def main() -> None:
           algo_rounds_per_s={k: v["rounds_per_s"] for k, v in zoo.items()},
           algo_vs_cpu_max_abs_diff={k: v["vs_cpu_max_abs_diff"]
                                     for k, v in zoo.items()},
+          cross_device_rounds_per_s={
+              k: v["rounds_per_s"] for k, v in cross_device["runs"].items()},
+          cross_device_vs_cpu_max_abs_diff={
+              k: v["max_abs_diff"] for k, v in cross_device["parity"].items()},
+          cross_device_chunking=cross_device["chunking"],
+          config4_rounds_per_s={k: v["rounds_per_s"] for k, v in
+                                cross_device["config4"].items()},
+          config4_vs_cpu_max_abs_diff=cross_device["config4_vs_cpu"],
+          cross_device_seconds=cross_device["seconds"],
           lm_flash_vs_blockwise_max_abs_diff=lm_diff,
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]

@@ -29,6 +29,7 @@ from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig, bcast
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
 from fedml_tpu_torch.parallel.cohort import (gather_live_cohort,
                                              make_device_round, train_cohort)
+from fedml_tpu_torch.trainer.local_sgd import step_grad, with_rng_inputs
 
 
 @dataclasses.dataclass
@@ -40,14 +41,15 @@ class FedNovaConfig(FedAvgConfig):
 
 
 def make_fednova_local_trainer(workload, cfg: FedNovaConfig):
-    """``train(params, data) -> (new_params, aux)``, aux holding
+    """``train(params, data, rng=None) -> (new_params, aux)``, aux holding
     ``cum_grad``, ``a_i`` and ``local_steps``.  Fully padded batches
-    freeze every carry."""
+    freeze every carry.  ``rng``: the step keys of a keyed trainer
+    (`with_rng_inputs`)."""
     lr, m, mu = cfg.lr, cfg.momentum, cfg.mu
     nesterov, wd = cfg.nesterov, cfg.wd
-    grad_fn = grad(lambda p, b: workload.loss_fn(p, b)[0])
+    grad_fn = grad(lambda p, b, *r: workload.loss_fn(p, b, *r)[0])
 
-    def train(params: Tree, data: Dict[str, torch.Tensor]):
+    def train(params: Tree, data: Dict[str, torch.Tensor], rng=None):
         init_params = params
         keys = tree_keys(params)
         zero = data["mask"].new_zeros(())
@@ -57,7 +59,7 @@ def make_fednova_local_trainer(workload, cfg: FedNovaConfig):
         num_steps = data["mask"].shape[0]
         for step in range(cfg.epochs * num_steps):
             batch = {k: v[step % num_steps] for k, v in data.items()}
-            grads = grad_fn(params, batch)
+            grads = step_grad(grad_fn, params, batch, rng, step)
             got_data = torch.sum(batch["mask"]) > 0
             if wd:
                 grads = {k: grads[k] + wd * params[k] for k in keys}
@@ -89,7 +91,7 @@ def make_fednova_local_trainer(workload, cfg: FedNovaConfig):
         return params, {"cum_grad": cum_grad, "a_i": a_i,
                         "local_steps": steps_taken}
 
-    return train
+    return with_rng_inputs(train, workload, cfg.epochs)
 
 
 class FedNova(FedAvg):
@@ -103,9 +105,11 @@ class FedNova(FedAvg):
         local_train = make_fednova_local_trainer(workload, cfg)
         self._gmf_buf = None
 
-        def nova_core(global_params: Tree, cohort, gmf_buf):
+        def nova_core(global_params: Tree, cohort, gmf_buf,
+                      seed_words=(0, 0)):
             n = cohort["num_samples"].to(torch.float32)
-            _, aux = train_cohort(local_train, global_params, cohort)
+            _, aux = train_cohort(local_train, global_params, cohort,
+                                  seed_words)
             ratio = n / torch.clamp_min(torch.sum(n), 1.0)
             a = torch.clamp_min(aux["a_i"], 1e-12)
             tau_src = aux["local_steps"] if cfg.mu != 0 else aux["a_i"]
@@ -127,7 +131,7 @@ class FedNova(FedAvg):
 
         def device_body(params, stacked, ids, live, seed_words=(0, 0)):
             cohort = gather_live_cohort(stacked, ids, live)
-            new, buf = nova_core(params, cohort, self._gmf_buf)
+            new, buf = nova_core(params, cohort, self._gmf_buf, seed_words)
             for k, v in buf.items():
                 self._gmf_buf[k].copy_(v)
             return new, {}
@@ -135,7 +139,8 @@ class FedNova(FedAvg):
         self._device_state: Dict[str, torch.Tensor] = {}
         self._device_round_override = make_device_round(
             None, cfg.client_num_per_round, body=device_body,
-            state=self._device_state)
+            state=self._device_state,
+            keyed=local_train.rng_inputs is not None)
 
     def run_round(self, params: Tree, round_idx: int, words,
                   use_device_data: bool) -> Tree:
@@ -153,7 +158,8 @@ class FedNova(FedAvg):
 
     def _stateful_step(self, params: Tree, cohort, seed_words=(0, 0)):
         self._ensure_buf(params)
-        params, buf = self._nova_core(params, cohort, self._gmf_buf)
+        params, buf = self._nova_core(params, cohort, self._gmf_buf,
+                                      seed_words)
         for k, v in buf.items():
             self._gmf_buf[k].copy_(v)
         return params, {}

@@ -27,7 +27,9 @@ from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                scatter_client_rows,
                                                zeros_client_state)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
-from fedml_tpu_torch.trainer.local_sgd import clip_by_global_norm
+from fedml_tpu_torch.parallel.cohort import cohort_rngs
+from fedml_tpu_torch.trainer.local_sgd import (clip_by_global_norm,
+                                               step_grad, with_rng_inputs)
 from fedml_tpu_torch.trainer.workload import Workload
 
 
@@ -37,19 +39,20 @@ class ScaffoldConfig(FedAvgConfig):
 
 
 def make_scaffold_local(workload: Workload, lr: float, epochs: int):
-    """``train(params, data, c_diff) -> (y_i, steps_taken)``: plain SGD
-    with ``c_diff = c − c_i`` added to every gradient, the workload's clip
-    after the correction; fully padded batches freeze the carry and do not
-    count toward K."""
+    """``train(params, data, c_diff, rng=None) -> (y_i, steps_taken)``:
+    plain SGD with ``c_diff = c − c_i`` added to every gradient, the
+    workload's clip after the correction; fully padded batches freeze the
+    carry and do not count toward K.  ``rng``: the step keys of a keyed
+    trainer (`with_rng_inputs`)."""
     clip = workload.grad_clip_norm
-    grad_fn = grad(lambda p, b: workload.loss_fn(p, b)[0])
+    grad_fn = grad(lambda p, b, *r: workload.loss_fn(p, b, *r)[0])
 
-    def train(params: Tree, data, c_diff: Tree):
+    def train(params: Tree, data, c_diff: Tree, rng=None):
         num_steps = data["mask"].shape[0]
         y, k = params, data["mask"].new_zeros(())
         for step in range(epochs * num_steps):
             batch = {n: v[step % num_steps] for n, v in data.items()}
-            grads = grad_fn(y, batch)
+            grads = step_grad(grad_fn, y, batch, rng, step)
             grads = {n: grads[n] + c_diff[n] for n in grads}
             if clip is not None:
                 grads = clip_by_global_norm(grads, clip)
@@ -58,7 +61,7 @@ def make_scaffold_local(workload: Workload, lr: float, epochs: int):
             k = k + gd
         return y, k
 
-    return train
+    return with_rng_inputs(train, workload, epochs)
 
 
 class Scaffold(FedAvg):
@@ -77,10 +80,12 @@ class Scaffold(FedAvg):
         local = make_scaffold_local(workload, cfg.lr, cfg.epochs)
         n_total = data.client_num
 
-        def core(params, cohort, c_global, c_cohort):
+        def core(params, cohort, c_global, c_cohort, seed_words=(0, 0)):
             c_diffs = {k: c_global[k][None] - c_cohort[k] for k in c_global}
-            ys, ks = vmap(local, in_dims=(None, 0, 0))(
-                params, batch_leaves(cohort), c_diffs)
+            rngs = cohort_rngs(local, cohort, seed_words)
+            extra = () if rngs is None else (rngs,)
+            ys, ks = vmap(local, in_dims=(None, 0, 0) + (0,) * len(extra))(
+                params, batch_leaves(cohort), c_diffs, *extra)
             w = cohort["num_samples"].to(torch.float32)
             live = (w > 0).to(torch.float32)
             ratio = w / torch.clamp_min(torch.sum(w), 1.0)
@@ -125,7 +130,7 @@ class Scaffold(FedAvg):
                                       cohort["num_samples"].shape[0],
                                       self.device)
         params, new_c, self.c_global = self._round_step(
-            params, cohort, self.c_global, c_cohort)
+            params, cohort, self.c_global, c_cohort, seed_words)
         self.c_locals = scatter_client_rows(self.c_locals, ids, new_c)
         return params, {}
 

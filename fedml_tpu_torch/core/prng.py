@@ -176,3 +176,36 @@ def choice_without_replacement(k: Key, n: int, m: int) -> np.ndarray:
     if m > n:
         raise ValueError(f"cannot take {m} of {n} without replacement")
     return permutation(k, n)[:m]
+
+
+# -- keys as tensors: many keys at once, on any device ----------------------
+# A batch of keys is an int64 tensor ``[..., 2]`` holding the two uint32
+# words of each key, so a cohort's keys can be derived in one pass and
+# handed to ``torch.func.vmap`` as a batched input.
+
+def fold_in_many(k: Key, data: torch.Tensor) -> torch.Tensor:
+    """``[fold_in(k, d) for d in data]`` as a ``[len(data), 2]`` int64
+    tensor on ``data``'s device; ``data`` holds uint32 values."""
+    y0, y1 = threefry2x32(k, torch.zeros_like(data), data & M32)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def split_tensor(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``split(k)`` of every key of a ``[..., 2]`` tensor: the two halves,
+    each ``[..., 2]``."""
+    k = (keys[..., 0], keys[..., 1])
+    zero = torch.zeros_like(keys[..., 0])
+    a = threefry2x32(k, zero, zero)
+    b = threefry2x32(k, zero, zero + 1)
+    return torch.stack(a, dim=-1), torch.stack(b, dim=-1)
+
+
+def step_keys(keys: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """The per-step dropout keys of the JAX local trainer's chain (``rng,
+    dropout_rng = split(rng)`` at every step) for a ``[C, 2]`` batch of
+    client keys: ``[C, num_steps, 2]``."""
+    out = []
+    for _ in range(num_steps):
+        keys, drop = split_tensor(keys)
+        out.append(drop)
+    return torch.stack(out, dim=-2)

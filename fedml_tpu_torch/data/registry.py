@@ -1,10 +1,14 @@
 """Dataset registry for the port: the hermetic twins of this slice.
 
 Port of ``fedml_tpu/data/registry.py`` restricted to ``mnist``,
-``mnist_learnable_twin``, ``femnist`` (28x28x1, 62 classes) and the
-next-word twins ``shakespeare`` and ``fed_shakespeare`` (80 tokens, vocab
-90) and ``stackoverflow_nwp`` (20 tokens, vocab 10004).  The real
-on-disk loaders (LEAF, TFF h5) arrive with a later slice of the port."""
+``mnist_learnable_twin``, ``femnist`` (28x28x1, 62 classes), the 32x32x3
+twins ``fed_cifar100`` (100 classes), ``cifar10``, ``cifar100`` and
+``cinic10``, and the next-word twins ``shakespeare`` and
+``fed_shakespeare`` (80 tokens, vocab 90) and ``stackoverflow_nwp`` (20
+tokens, vocab 10004).  As in the JAX package a twin takes its client
+count from the caller (``num_clients``); the CIFAR loaders' own default
+of 10 clients belongs to the real on-disk loaders (LEAF, TFF h5, the
+CIFAR partitions), which arrive with a later slice of the port."""
 
 from __future__ import annotations
 
@@ -30,6 +34,11 @@ _REGISTRY: Dict[str, Callable[..., FederatedData]] = {
     "stackoverflow_nwp": partial(synthetic_federated_dataset,
                                  sample_shape=(20,), sequence_vocab=10004,
                                  class_num=10004),
+    "fed_cifar100": partial(synthetic_federated_dataset,
+                            sample_shape=(32, 32, 3), class_num=100),
+    **{name: partial(synthetic_federated_dataset, sample_shape=(32, 32, 3),
+                     class_num=100 if name == "cifar100" else 10)
+       for name in ("cifar10", "cifar100", "cinic10")},
 }
 
 

@@ -136,6 +136,14 @@ class ExperimentConfig:
     dp_delta: float = 1e-5               # dp_fedavg: delta of the reported eps
     dp_accounting: str = "fixed_size"    # dp_fedavg: fixed_size | poisson
 
+    # the cross-device wave engine (--algo cross_device)
+    cross_device: bool = False           # shorthand for --algo cross_device
+    wave_size: int = 0                   # clients per wave (0: min(cohort,
+    #                                      256))
+    local_alg: str = "sgd"               # sgd | fedprox | scaffold | fednova
+    sampler: str = "numpy"               # numpy (reference chain) | jax
+    wave_adversary: str = ""             # refused (robust/adversary.py)
+
     # transformer attention (NWP datasets)
     attn_block_size: int = 0             # >0: blockwise attention
     attn_flash: bool = False             # the flash kernel (K4)

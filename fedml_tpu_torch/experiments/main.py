@@ -1,14 +1,15 @@
 """``python -m fedml_tpu_torch`` — the port's entry point.
 
-Runs ``fedavg``, ``fedavg_robust``, ``turboaggregate``, ``cross_silo`` and
-the stateful cohort algorithms (``fedopt``, ``fedprox``, ``fednova``,
-``scaffold``, ``feddyn``, ``ditto``, ``fedac``, ``dp_fedavg``) on the
-hermetic twins, on the GPU unless ``--platform cpu`` is given,
-writes ``metrics.jsonl`` and ``summary.json`` into ``--run_dir`` and
-prints one final JSON summary line.  Examples, the FEMNIST-CNN
-configurations of the defended FedAvg, of secure FedAvg and of the live
-cross-silo federation with the sharded spine, and FedAvg on the
-transformer LM over the Shakespeare twin:
+Runs ``fedavg``, ``fedavg_robust``, ``turboaggregate``, ``cross_silo``,
+``cross_device`` and the stateful cohort algorithms (``fedopt``,
+``fedprox``, ``fednova``, ``scaffold``, ``feddyn``, ``ditto``, ``fedac``,
+``dp_fedavg``) on the hermetic twins, on the GPU unless ``--platform
+cpu`` is given, writes ``metrics.jsonl`` and ``summary.json`` into
+``--run_dir`` and prints one final JSON summary line.  Examples, the
+FEMNIST-CNN configurations of the defended FedAvg, of secure FedAvg and of
+the live cross-silo federation with the sharded spine, FedAvg on the
+transformer LM over the Shakespeare twin, and the cross-device engine on
+the CNN and on BASELINE config 4:
 
     python -m fedml_tpu_torch --algo fedavg_robust --model cnn_fedavg \\
         --dataset femnist --defense weak_dp --defense_backend cuda \\
@@ -27,6 +28,14 @@ transformer LM over the Shakespeare twin:
         --dataset shakespeare --client_num_in_total 715 \\
         --client_num_per_round 10 --batch_size 4 --lr 1.0 --epochs 1 \\
         --comm_round 3
+    python -m fedml_tpu_torch --algo cross_device --model cnn_fedavg \\
+        --dataset femnist --client_num_in_total 3400 \\
+        --client_num_per_round 1000 --wave_size 256 --local_alg fedprox \\
+        --batch_size 20 --lr 0.1 --epochs 1 --comm_round 3
+    python -m fedml_tpu_torch --algo cross_device --model resnet18_gn \\
+        --dataset fed_cifar100 --client_num_in_total 500 \\
+        --client_num_per_round 10 --local_alg fednova --batch_size 20 \\
+        --lr 0.1 --epochs 1 --comm_round 3
 
 Plain FedAvg keeps the train split on the device when it fits and, with
 ``--rounds_per_dispatch K``, runs K rounds a call (on the GPU as replays
@@ -40,7 +49,11 @@ detector) and ``--chaos_*`` (seeded faults on the hub, threaded drive);
 ``--secagg pairwise`` runs the live federation under secure aggregation
 (masked uploads, dropout recovery through the pair-secret shares) and
 ``--server_opt momentum|adam|fedac`` steps the finalized mean through a
-server optimizer.  ``--silo_backend grpc`` runs one node per process:
+server optimizer.  ``--algo cross_device`` (or ``--cross_device``) trains
+each round's sampled cohort in waves of ``--wave_size`` clients folded
+into the streaming mean, with ``--local_alg
+sgd|fedprox|scaffold|fednova`` and ``--sampler numpy|jax``.
+``--silo_backend grpc`` runs one node per process:
 
     python -m fedml_tpu_torch --algo cross_silo --silo_backend grpc \\
         --node_id 0 --client_num_per_round 2 ...   # the server
@@ -222,6 +235,38 @@ def dp_fedavg_algo(cfg):
         dp_clip=cfg.dp_clip, dp_noise_multiplier=cfg.dp_noise_multiplier,
         dp_delta=cfg.dp_delta, dp_accounting=cfg.dp_accounting,
         **_fedavg_cfg_kwargs(cfg))
+
+
+@runner("cross_device")
+def run_cross_device(cfg, data, sink):
+    """The cross-device wave engine (`algorithms.cross_device`): the
+    seeded sampler picks the round's clients, static waves train on the
+    card and fold into the streaming mean at wave completion."""
+    algo = cross_device_algo(cfg, data, sink)
+    return _run_with_checkpoints(cfg, algo)
+
+
+def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
+    """The runner's `CrossDevice` for ``cfg``; with ``--server_opt``, the
+    optimizer's template is the run's initial global."""
+    from fedml_tpu_torch.algorithms.cross_device import (CrossDevice,
+                                                         CrossDeviceConfig)
+    wl = _make_workload(cfg, data)
+    server_opt = None
+    if cfg.server_opt != "plain":
+        server_opt = make_server_opt(cfg, wl.init(
+            torch.Generator().manual_seed(cfg.seed),
+            resolve_device(cfg.platform)))
+    return CrossDevice(
+        wl, data, CrossDeviceConfig(
+            wave_size=cfg.wave_size, local_alg=cfg.local_alg,
+            sampler=cfg.sampler, mu=cfg.mu, norm_clip=cfg.norm_clip,
+            agg_noise_std=cfg.agg_noise_std, admission=cfg.admission,
+            norm_screen_k=cfg.norm_screen_k,
+            norm_screen_window=cfg.norm_screen_window,
+            norm_screen_min_history=cfg.norm_screen_min_history,
+            **_fedavg_cfg_kwargs(cfg)),
+        sink=sink, device=cfg.platform, server_opt=server_opt)
 
 
 def fedavg_robust_config(cfg: ExperimentConfig):
@@ -721,6 +766,8 @@ REFUSED_FLAGS = {
                         "observatory (ROADMAP Queue 1 item 9)"),
     "adversary": ("", "robust/adversary.py (ROADMAP Queue 1 item 8)"),
     "mesh_stages": (0, "parallel/pipeline.py (ROADMAP Queue 1 item 10)"),
+    "wave_adversary": ("", "robust/adversary.py's wave-summary poisoning "
+                           "(ROADMAP Queue 1 item 8)"),
 }
 
 
@@ -774,14 +821,15 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
     if cfg.robust_agg not in ROBUST_AGG_METHODS:
         raise ValueError(f"--robust_agg must be one of {ROBUST_AGG_METHODS}, "
                          f"got {cfg.robust_agg!r}")
-    if cfg.algo != "cross_silo" and (
+    if cfg.algo not in ("cross_silo", "cross_device") and (
             cfg.robust_agg != "mean" or cfg.norm_clip or cfg.agg_noise_std
             or cfg.admission == "on"):
         raise ValueError(
             f"--robust_agg/--norm_clip/--agg_noise_std/--admission on are "
-            f"the live distributed defense and apply to --algo cross_silo "
-            f"only; got --algo {cfg.algo}.  For the single-device cohort "
-            f"simulation use --algo fedavg_robust --defense ... instead.")
+            f"the live distributed defense and apply to --algo "
+            f"cross_device or cross_silo only; got --algo {cfg.algo}.  For "
+            f"the single-device cohort simulation use --algo fedavg_robust "
+            f"--defense ... instead.")
     if cfg.stream_reservoir < 1:
         raise ValueError(f"--stream_reservoir must be >= 1, got "
                          f"{cfg.stream_reservoir}")
@@ -893,13 +941,13 @@ def check_server_opt(cfg: ExperimentConfig) -> None:
             f"{list(SERVER_OPT_NAMES)}")
     if cfg.server_opt == "plain":
         return
-    if cfg.algo != "cross_silo":
+    if cfg.algo not in ("cross_silo", "cross_device"):
         raise ServerOptConfigError(
             f"--server_opt {cfg.server_opt} rides the live finalize seam "
-            f"and applies to --algo cross_silo only in the port; --algo "
-            f"{cfg.algo} would silently run its own server step and label "
-            f"the run {cfg.server_opt}.  The standalone forks stay at "
-            f"--algo fedopt/fedac.")
+            f"and applies to --algo cross_device or cross_silo only in the "
+            f"port; --algo {cfg.algo} would silently run its own server "
+            f"step and label the run {cfg.server_opt}.  The standalone "
+            f"forks stay at --algo fedopt/fedac.")
     if cfg.robust_agg != "mean":
         raise ServerOptConfigError(
             f"--server_opt {cfg.server_opt} with --robust_agg "
@@ -913,6 +961,69 @@ def check_server_opt(cfg: ExperimentConfig) -> None:
             f"exclusive: the masked-sum protocol yields the plain mean by "
             f"construction; there is no seam to re-step it without "
             f"unmasking intermediate state")
+    if cfg.local_alg == "fednova" and cfg.algo == "cross_device":
+        raise ServerOptConfigError(
+            "--server_opt with --local_alg fednova: fednova's tau_eff step "
+            "IS a server update; stacking a second optimizer on top would "
+            "silently change its normalized averaging semantics")
+
+
+def check_cross_device(cfg: ExperimentConfig) -> None:
+    """The JAX package's gates on ``--algo cross_device``: every flag the
+    wave engine would silently ignore fails here, with its reason."""
+    if cfg.algo != "cross_device":
+        return
+    if cfg.secagg != "off":
+        raise ValueError(
+            "--cross_device trains sampled clients inside wave programs: "
+            "there are no per-client uploads on a wire to mask, so "
+            "--secagg would label an unmasked simulation as private; "
+            "secure aggregation lives on the actor path (--algo cross_silo "
+            "--secagg ...)")
+    if cfg.silo_backend != "local":
+        raise ValueError(
+            f"--cross_device is the single-process engine; --silo_backend "
+            f"{cfg.silo_backend!r} (transport actors) would be silently "
+            f"ignored")
+    if cfg.robust_agg != "mean":
+        raise ValueError(
+            f"--robust_agg {cfg.robust_agg}: order-statistic rules need the "
+            f"per-client population, but cross-device waves pre-reduce to a "
+            f"weighted partial mean on the device.  The defenses that "
+            f"compose are the per-wave structure/finite/norm screens and "
+            f"--norm_clip/--agg_noise_std on the streamed mean; for "
+            f"per-upload robust rules use --algo cross_silo --agg_mode "
+            f"stream --stream_reservoir K")
+    if cfg.rounds_per_dispatch > 1:
+        raise ValueError(
+            "--rounds_per_dispatch is fedavg's device-resident multi-round "
+            "scan; the cross-device wave loop folds per wave on the host "
+            "each round and would silently ignore it")
+    if cfg.wave_size < 0:
+        raise ValueError(f"--wave_size must be >= 0 (0 = auto), got "
+                         f"{cfg.wave_size}")
+
+
+# models that draw dropout masks, and the algorithms whose local trainers
+# take the dropout keys (`parallel.cohort.train_cohort`'s keyed trainers)
+STOCHASTIC_MODELS = ("cnn",)
+KEYED_ALGOS = ("fedavg", "fedavg_robust", "fedopt", "fedprox", "fednova",
+               "scaffold", "cross_device")
+
+
+def resolve_cross_device(cfg: ExperimentConfig) -> ExperimentConfig:
+    """``--cross_device`` is shorthand for ``--algo cross_device``;
+    paired with another algorithm it would silently pick one of the
+    two, so that fails."""
+    if cfg.cross_device and cfg.algo not in ("fedavg", "cross_device"):
+        raise ValueError(
+            f"--cross_device IS an algorithm selection (the wave engine, "
+            f"--algo cross_device); it cannot combine with --algo "
+            f"{cfg.algo}")
+    if cfg.cross_device or cfg.algo == "cross_device":
+        cfg = dataclasses.replace(cfg, algo="cross_device",
+                                  cross_device=True)
+    return cfg
 
 
 def check_config(cfg: ExperimentConfig) -> None:
@@ -920,7 +1031,14 @@ def check_config(cfg: ExperimentConfig) -> None:
     if cfg.algo not in RUNNERS:
         raise KeyError(f"--algo {cfg.algo!r} is not ported yet; the port "
                        f"has {sorted(RUNNERS)}")
+    check_cross_device(cfg)
     check_cross_silo(cfg)
+    if cfg.model in STOCHASTIC_MODELS and cfg.algo not in KEYED_ALGOS:
+        raise NotImplementedError(
+            f"--model {cfg.model} draws dropout masks, which the port keys "
+            f"through the local trainers of {list(KEYED_ALGOS)}; --algo "
+            f"{cfg.algo} trains without a key and would silently run it "
+            f"without dropout")
     if cfg.moe_experts:
         raise NotImplementedError(
             "--moe_experts is not ported yet; the Switch MoE FFN "
@@ -944,6 +1062,7 @@ def check_config(cfg: ExperimentConfig) -> None:
 def main(argv=None) -> Dict[str, Any]:
     cfg = argv if isinstance(argv, ExperimentConfig) \
         else config_from_argv(argv)
+    cfg = resolve_cross_device(cfg)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
     check_config(cfg)

@@ -1,6 +1,8 @@
 """Model x dataset factory (port of ``fedml_tpu/experiments/models.py``)
-for the models of the ported slices: ``lr`` and ``cnn_fedavg`` on the
-image twins, ``transformer`` on the next-word twins."""
+for the models of the ported slices: ``lr``, ``cnn`` (CNNDropOut),
+``cnn_fedavg`` and the GroupNorm ResNets (``resnet56``, ``resnet110``,
+``resnet18_gn``) on the image twins, ``transformer`` on the next-word
+twins."""
 
 from __future__ import annotations
 
@@ -9,13 +11,17 @@ from typing import Sequence
 import numpy as np
 
 from fedml_tpu_torch.data.stacking import FederatedData
-from fedml_tpu_torch.models import (CNNOriginalFedAvg, LogisticRegression,
-                                    TransformerLM)
+from fedml_tpu_torch.models import (CNNDropOut, CNNOriginalFedAvg,
+                                    LogisticRegression, TransformerLM,
+                                    resnet18_gn, resnet56, resnet110)
 from fedml_tpu_torch.trainer.workload import (ClassificationWorkload,
                                               NWPWorkload, Workload)
 
 # next-word/char-prediction datasets -> NWP workload
 _NWP_DATASETS = {"shakespeare", "fed_shakespeare", "stackoverflow_nwp"}
+# the JAX factory's image models the port does not have yet
+_QUEUED_IMAGE_MODELS = ("mobilenet", "mobilenet_v3", "efficientnet",
+                        "vgg11", "vgg13", "vgg16")
 
 
 def create_workload(model_name: str, dataset: str, class_num: int,
@@ -45,12 +51,16 @@ def create_workload(model_name: str, dataset: str, class_num: int,
     small = class_num <= 10
     factories = {
         "lr": lambda: LogisticRegression(input_dim, class_num),
+        "cnn": lambda: CNNDropOut(only_digits=small),          # Reddi'20
         "cnn_fedavg": lambda: CNNOriginalFedAvg(only_digits=small),
+        "resnet56": lambda: resnet56(class_num),
+        "resnet110": lambda: resnet110(class_num),
+        "resnet18_gn": lambda: resnet18_gn(class_num),
     }
     if model_name not in factories:
-        where = (" (CNNDropOut needs a dropout-mask seam in the local "
-                 "trainer: ROADMAP Queue 1 item 6)"
-                 if model_name == "cnn" else "")
+        where = (" (MobileNet, EfficientNet and VGG arrive with ROADMAP "
+                 "Queue 1 item 10)"
+                 if model_name in _QUEUED_IMAGE_MODELS else "")
         raise KeyError(f"model {model_name!r} is not ported yet; the port "
                        f"has {sorted(factories)} on image datasets and "
                        f"'transformer' on {sorted(_NWP_DATASETS)}{where}")

@@ -1,12 +1,22 @@
 """Dense, conv, attention-projection, norm and embedding layers that keep
-flax's parameter layout.
+flax's parameter layout, flax's ``SAME`` padding, and the dropout masks
+of the port's dropout seam.
 
 A conv kernel is stored HWIO and a dense kernel ``[in, out]``, as flax
 stores them, and permuted at use.  Keeping the layout makes weights carry
 across the two packages by renaming alone, and keeps each element's index
 within a leaf equal on both sides, which the fused aggregate's noise
 stream is keyed by.  Initialisation follows flax's defaults: LeCun-normal
-kernels (truncated normal, variance 1 / fan_in) and zero biases."""
+kernels (truncated normal, variance 1 / fan_in) and zero biases; the
+ResNets' convs take ``init="fan_out"`` (truncated normal, variance 2 /
+fan_out, flax's ``variance_scaling(2.0, "fan_out", "truncated_normal")``).
+
+flax's ``padding="SAME"`` gives ``ceil(n / stride)`` outputs and pads
+``total = (out - 1) * stride + k - n``, the smaller half before and the
+larger after: asymmetric at stride 2 (a 7x7 stride-2 conv on 32 pads (2,
+3), a 3x3 one on 16 pads (0, 1)), where torch's ``padding=k // 2`` is
+symmetric.  `same_pads` computes flax's pads and the layers apply them
+with ``F.pad`` when they are not symmetric."""
 
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fedml_tpu_torch.core.murmur import M32, fmix, index_hash, mul32
 
 # std of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -42,26 +54,89 @@ class Dense(nn.Module):
         return x @ self.kernel + self.bias
 
 
-class Conv2d(nn.Module):
-    """NCHW activations, HWIO kernel, stride 1, ``SAME`` padding for odd
-    kernel sizes."""
+def same_pads(n: int, k: int, stride: int):
+    """flax's ``SAME`` pads (before, after) of one spatial axis of size
+    ``n`` for a window ``k`` at ``stride``."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
+
+def pad_same(x: torch.Tensor, k: int, stride: int, value: float = 0.0):
+    """``x`` (NCHW) and the symmetric padding left for the op: flax's
+    ``SAME`` pads, applied with ``F.pad`` when they are asymmetric."""
+    (ht, hb), (wl, wr) = (same_pads(x.shape[-2], k, stride),
+                          same_pads(x.shape[-1], k, stride))
+    if ht == hb and wl == wr:
+        return x, (ht, wl)
+    return F.pad(x, (wl, wr, ht, hb), value=value), (0, 0)
+
+
+def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """flax ``max_pool(x, (k, k), (stride, stride), padding="SAME")`` on
+    NCHW: pads hold -inf."""
+    x, pad = pad_same(x, k, stride, value=float("-inf"))
+    return F.max_pool2d(x, k, stride, padding=pad)
+
+
+class Conv2d(nn.Module):
+    """NCHW activations, HWIO kernel; flax's ``SAME`` (the default) or
+    ``VALID`` padding at any stride; ``use_bias`` and the init as flax's
+    ``nn.Conv`` arguments."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: str = "SAME",
+                 use_bias: bool = True, init: str = "lecun"):
         super().__init__()
+        if padding not in ("SAME", "VALID") or init not in ("lecun",
+                                                             "fan_out"):
+            raise ValueError(f"padding SAME|VALID and init lecun|fan_out, "
+                             f"got {padding!r}, {init!r}")
         k = kernel_size
-        self.padding = k // 2
+        self.k, self.stride, self.init = k, stride, init
+        self.same = padding == "SAME"
         self.kernel = nn.Parameter(torch.empty(k, k, in_channels,
                                                out_channels))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
 
     def reset_parameters(self, generator=None) -> None:
-        h, w, cin, _ = self.kernel.shape
-        lecun_normal_(self.kernel.data, h * w * cin, generator)
-        self.bias.data.zero_()
+        h, w, cin, cout = self.kernel.shape
+        if self.init == "lecun":
+            lecun_normal_(self.kernel.data, h * w * cin, generator)
+        else:
+            std = math.sqrt(2.0 / (h * w * cout)) / _TRUNC_STD
+            nn.init.trunc_normal_(self.kernel.data, 0.0, std, -2.0 * std,
+                                  2.0 * std, generator=generator)
+        if self.bias is not None:
+            self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pad = (0, 0)
+        if self.same:
+            x, pad = pad_same(x, self.k, self.stride)
         return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias,
-                        padding=self.padding)
+                        stride=self.stride, padding=pad)
+
+
+def dropout(x: torch.Tensor, rate: float, key: Optional[torch.Tensor],
+            layer: int) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)``: ``x / keep`` where the mask keeps an
+    element, else 0; the identity without a ``key`` (eval mode).
+
+    The mask is a counter hash, so that it is a function of tensors
+    alone and ``vmap`` maps it over a cohort's keys: a salt hashed from
+    the key's two words and the ``layer`` index, and per element
+    ``fmix(index_hash(i) ^ salt) < keep * 2^32``.  The masks are not
+    flax's (flax keys each ``Dropout`` through ``make_rng`` with the
+    module path folded in), only their law is."""
+    if key is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    salt = fmix(fmix(key[0] ^ mul32(layer + 1, 0x9E3779B9)) ^ key[1]) & M32
+    bits = fmix(index_hash(x.numel(), x.device) ^ salt)
+    mask = (bits < int(keep * 2.0 ** 32)).reshape(x.shape)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class DenseGeneral(nn.Module):

@@ -14,8 +14,10 @@ renaming: ``tok_embed/embedding``, ``pos_embed/embedding``,
 Attention takes the JAX module's branches in its order: the flash kernel
 (``use_flash``, K4 in ``models/flash_attention.py``), then ``block_size``,
 then blockwise above ``auto_block_len`` (``_auto_block``), then dense.
-Incremental decode (``cache=``), sequence parallelism (``ring_axis``),
-the Switch MoE FFN and dropout are refused by name until their slices."""
+Incremental decode (``cache=``), sequence parallelism (``ring_axis``)
+and the Switch MoE FFN are refused by name until their slices.
+``dropout_rate`` drops after each attention and MLP in train mode (a
+``dropout_key``, the workload's dropout seam; not flax's masks)."""
 
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.models.flash_attention import flash_attention
-from fedml_tpu_torch.models.layers import Dense, DenseGeneral, Embed, LayerNorm
+from fedml_tpu_torch.models.layers import (Dense, DenseGeneral, Embed,
+                                            LayerNorm, dropout)
 from fedml_tpu_torch.parallel.ring_attention import (blockwise_attention,
                                                      full_attention)
 
@@ -92,17 +95,16 @@ class TransformerLM(nn.Module):
                  use_flash: bool = False, auto_block_len: int = 1024,
                  moe_experts: int = 0):
         super().__init__()
-        if dropout_rate:
-            raise NotImplementedError(
-                "dropout_rate > 0 is not ported yet: it needs a dropout-mask "
-                "seam in the local trainer, and arrives with CNNDropOut "
-                "(ROADMAP Queue 1 item 6)")
         if moe_experts:
             raise NotImplementedError(
                 "moe_experts > 0 (the Switch MoE FFN, models/moe.py) is not "
                 "ported yet; it is what remains of ROADMAP Queue 1 item 4")
         self.n_layers = n_layers
         self.max_len = max_len
+        self.dropout_rate = float(dropout_rate)
+        # dropout after the attention and the MLP of every layer, in train
+        # mode (a ``dropout_key``), through the dropout seam
+        self.stochastic = self.dropout_rate > 0
         self.tok_embed = Embed(vocab_size, d_model)
         self.pos_embed = Embed(max_len, d_model)
         for i in range(n_layers):
@@ -118,7 +120,8 @@ class TransformerLM(nn.Module):
 
     def forward(self, input_seq: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                ring_axis: Optional[str] = None, cache=None) -> torch.Tensor:
+                ring_axis: Optional[str] = None, cache=None,
+                dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
         if cache is not None:
             raise NotImplementedError(_DECODE_TODO)
         if ring_axis is not None:
@@ -132,9 +135,11 @@ class TransformerLM(nn.Module):
         x = self.tok_embed(input_seq) + self.pos_embed(positions)[None]
         for i in range(self.n_layers):
             h = getattr(self, f"LayerNorm_{2 * i}")(x)
-            x = x + getattr(self, f"attn_{i}")(h, positions)
+            h = getattr(self, f"attn_{i}")(h, positions)
+            x = x + dropout(h, self.dropout_rate, dropout_key, 2 * i)
             h = getattr(self, f"LayerNorm_{2 * i + 1}")(x)
             h = F.gelu(getattr(self, f"Dense_{2 * i}")(h), approximate="tanh")
-            x = x + getattr(self, f"Dense_{2 * i + 1}")(h)
+            h = getattr(self, f"Dense_{2 * i + 1}")(h)
+            x = x + dropout(h, self.dropout_rate, dropout_key, 2 * i + 1)
         x = getattr(self, f"LayerNorm_{2 * self.n_layers}")(x)
         return self.lm_head(x)

@@ -10,6 +10,12 @@ one of two ways, which give identical stacked outputs:
 * ``"scan"`` — a Python loop trains one client at a time; every conv is a
   dense cuDNN conv.
 
+A client's keys are those of its *global* cohort slot, ``index_offset +
+i`` (the JAX package's ``fold_in(round_key, slot)``), so a cohort trained
+in chunks (the cross-device engine's waves) draws what one whole cohort
+would: a keyed trainer's dropout keys (`client_keys`) and a per-client
+hook's noise generator (`client_generator`).
+
 The device-resident round (`make_device_round`) keeps the whole stacked
 train split on the device and gathers the cohort by ids inside the round,
 so only the ids cross per round; `make_scanned_rounds` runs K such rounds
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from fedml_tpu_torch.core import prng
 from fedml_tpu_torch.core.pytree import Tree, tree_stack, tree_weighted_mean
 
 CohortData = Dict[str, torch.Tensor]
@@ -46,31 +53,60 @@ def client_generator(seed_words: Sequence[int], slot: int,
     return gen
 
 
+def client_keys(seed_words: Sequence[int], n: int, index_offset: int,
+                device) -> torch.Tensor:
+    """``fold_in(round_key, index_offset + i)`` for the ``n`` slots, as a
+    ``[n, 2]`` int64 tensor on ``device``; the round key is the one whose
+    words are ``seed_words``."""
+    key = (int(seed_words[0]) & prng.M32, int(seed_words[1]) & prng.M32)
+    slots = torch.arange(n, dtype=torch.int64, device=device) \
+        + int(index_offset)
+    return prng.fold_in_many(key, slots)
+
+
+def cohort_rngs(local_train, data: CohortData, seed_words: Sequence[int],
+                index_offset: int = 0) -> Optional[torch.Tensor]:
+    """A keyed trainer's per-client step keys ``[C, steps, 2]`` for the
+    cohort ``data``, or None for a trainer that takes no key."""
+    rng_inputs = getattr(local_train, "rng_inputs", None)
+    if rng_inputs is None:
+        return None
+    n = data["num_samples"].shape[0]
+    keys = client_keys(seed_words, n, index_offset,
+                       data["num_samples"].device)
+    return rng_inputs(keys, data["mask"].shape[1])
+
+
 def train_cohort(local_train, params: Tree, data: CohortData,
                  seed_words: Sequence[int] = (0, 0), transform_update=None,
-                 client_axis: str = "vmap"):
+                 client_axis: str = "vmap", index_offset: int = 0):
     """Run ``local_train`` over the stacked client axis; returns the
     stacked client params and metrics.  ``transform_update(client_params,
     global_params, generator) -> client_params`` runs per client after
-    training (the defense hook)."""
+    training (the defense hook).  ``index_offset``: the global cohort
+    slot of ``data``'s first client, which keys its dropout and noise."""
     if client_axis not in ("vmap", "scan"):
         raise ValueError(f"client_axis must be 'vmap' or 'scan', "
                          f"got {client_axis!r}")
     n_clients = data["num_samples"].shape[0]
     batches = {k: v for k, v in data.items() if k != "num_samples"}
+    rngs = cohort_rngs(local_train, data, seed_words, index_offset)
+    extra = () if rngs is None else (rngs,)
     if client_axis == "scan":
-        outs = [local_train(params, {k: v[i] for k, v in batches.items()})
+        outs = [local_train(params, {k: v[i] for k, v in batches.items()},
+                            *(r[i] for r in extra))
                 for i in range(n_clients)]
         new_params = tree_stack([o[0] for o in outs])
         metrics = tree_stack([o[1] for o in outs])
     else:
-        new_params, metrics = vmap(local_train, in_dims=(None, 0))(
-            params, batches)
+        new_params, metrics = vmap(
+            local_train, in_dims=(None, 0) + (0,) * len(extra))(
+            params, batches, *extra)
     if transform_update is not None:
         device = data["num_samples"].device
         rows = [transform_update({k: v[i] for k, v in new_params.items()},
-                                 params, client_generator(seed_words, i,
-                                                          device))
+                                 params, client_generator(
+                                     seed_words, index_offset + i, device))
                 for i in range(n_clients)]
         new_params = tree_stack(rows)
     return new_params, metrics
@@ -371,12 +407,15 @@ class GraphedRounds:
         return self.params, self.metrics
 
 
-def _graph_ready(stacked: CohortData, aggregate, transform_update) -> bool:
+def _graph_ready(stacked: CohortData, aggregate, transform_update,
+                 keyed: bool = False) -> bool:
     """Whether the round is captured as a graph: on a CUDA device, for the
     base cohort step only (a per-client hook or a round-keyed aggregate
-    draws from host generators or host scalars)."""
+    draws from host generators or host scalars), and not for a keyed
+    trainer (its dropout keys change every round; the graph replays one
+    round's): that round runs eager on the card."""
     device = next(iter(stacked.values())).device
-    if device.type != "cuda":
+    if device.type != "cuda" or keyed:
         return False
     if transform_update is not None \
             or getattr(aggregate, "needs_global", False):
@@ -393,8 +432,10 @@ class _DeviceRounds:
     (``.graph``, captured at the first call) on a CUDA device."""
 
     def __init__(self, body, aggregate, transform_update,
-                 clients_per_round: int, max_rounds: int, state=None):
+                 clients_per_round: int, max_rounds: int, state=None,
+                 keyed: bool = False):
         self._body = body
+        self.keyed = keyed
         self._aggregate = aggregate
         self._transform_update = transform_update
         self.m = clients_per_round
@@ -403,7 +444,8 @@ class _DeviceRounds:
         self.graph: Optional[GraphedRounds] = None
 
     def graphed(self, stacked) -> bool:
-        return _graph_ready(stacked, self._aggregate, self._transform_update)
+        return _graph_ready(stacked, self._aggregate, self._transform_update,
+                            self.keyed)
 
     def eager(self, params, stacked, ids, live, seed_words=(0, 0)):
         return self._body(params, stacked,
@@ -444,7 +486,8 @@ class _ScannedRounds(_DeviceRounds):
 
 def make_device_round(local_train, clients_per_round: int,
                       aggregate=tree_weighted_mean, transform_update=None,
-                      client_axis: str = "vmap", body=None, state=None):
+                      client_axis: str = "vmap", body=None, state=None,
+                      keyed: Optional[bool] = None):
     """The device-resident round: ``round_fn(params, stacked_dev, ids,
     live, seed_words=(0, 0)) -> (new_params, metrics)``, where
     ``stacked_dev`` is the resident ``{x, y, mask, num_samples}`` split,
@@ -459,12 +502,16 @@ def make_device_round(local_train, clients_per_round: int,
     ``body``: a custom round of the same signature in place of the base
     one (it gathers with `gather_live_cohort` itself), with ``state`` the
     dict of persistent tensors it updates in place (see `GraphedRounds`);
-    the dict's tensors must exist before the first call."""
+    the dict's tensors must exist before the first call.  ``keyed``: the
+    round draws dropout keys (default: whether ``local_train`` is keyed),
+    so it runs eager, never captured."""
+    if keyed is None:
+        keyed = getattr(local_train, "rng_inputs", None) is not None
     if body is None:
         body = _device_round_body(local_train, aggregate, transform_update,
                                   client_axis)
     return _DeviceRound(body, aggregate, transform_update,
-                        clients_per_round, 1, state=state)
+                        clients_per_round, 1, state=state, keyed=keyed)
 
 
 def make_scanned_rounds(local_train, clients_per_round: int,
@@ -479,4 +526,5 @@ def make_scanned_rounds(local_train, clients_per_round: int,
     return _ScannedRounds(_device_round_body(local_train, aggregate,
                                              transform_update, client_axis),
                           aggregate, transform_update, clients_per_round,
-                          max_rounds)
+                          max_rounds, keyed=getattr(
+                              local_train, "rng_inputs", None) is not None)

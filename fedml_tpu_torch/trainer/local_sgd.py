@@ -6,7 +6,14 @@ client's S batches, in order, with a fresh optimizer state on every call
 is written so that ``torch.func.vmap`` can map it over a stacked client
 axis: gradients come from ``torch.func.grad``, and the data-dependent
 choices (clipping, skipping a fully padded batch) are ``torch.where``, not
-Python branches."""
+Python branches.
+
+A stochastic workload (dropout) trains with one key a step: ``train(params,
+data, rng)`` takes ``rng`` ``[epochs * S, 2]``, the JAX trainer's chain
+``rng, dropout_rng = split(rng)`` from the client's key, derived outside
+the vmap by ``train.rng_inputs(client_keys [C, 2], S)`` (`with_rng_inputs`).
+A deterministic workload's trainers have ``rng_inputs = None`` and take no
+key."""
 
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Dict, Tuple
 import torch
 from torch.func import grad
 
+from fedml_tpu_torch.core import prng
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
 from fedml_tpu_torch.trainer.workload import Workload
 
@@ -38,6 +46,22 @@ def _select(cond: torch.Tensor, new, old):
     return torch.where(cond, new, old)
 
 
+def with_rng_inputs(train, workload: Workload, epochs: int):
+    """Mark ``train`` as keyed when ``workload`` draws dropout masks:
+    ``train.rng_inputs(client_keys, S)`` gives each client its ``[epochs *
+    S, 2]`` step keys; None otherwise."""
+    train.rng_inputs = ((lambda keys, num_steps: prng.step_keys(
+        keys, epochs * num_steps)) if workload.stochastic else None)
+    return train
+
+
+def step_grad(grad_fn, params, batch, rng, step: int):
+    """``grad_fn`` at one step, with that step's dropout key when the
+    trainer is keyed."""
+    return (grad_fn(params, batch) if rng is None
+            else grad_fn(params, batch, rng[step]))
+
+
 def make_local_trainer(workload: Workload, optimizer, epochs: int,
                        prox_mu: float = 0.0):
     """Returns ``train(params, data) -> (new_params, metrics)`` over data
@@ -47,7 +71,7 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
 
     grad_fn = grad(workload.loss_fn, has_aux=True)
 
-    def train(params: Tree, data: Dict[str, torch.Tensor]
+    def train(params: Tree, data: Dict[str, torch.Tensor], rng=None
               ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
         opt_state = optimizer.init(params)
         init_params = params
@@ -55,7 +79,7 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
         losses = []
         for step in range(epochs * num_steps):
             batch = {k: v[step % num_steps] for k, v in data.items()}
-            grads, aux = grad_fn(params, batch)
+            grads, aux = step_grad(grad_fn, params, batch, rng, step)
             if prox_mu:
                 grads = {k: g + prox_mu * (params[k] - init_params[k])
                          for k, g in grads.items()}
@@ -73,7 +97,7 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
             losses.append(aux["loss"])
         return params, {"train_loss_per_step": torch.stack(losses)}
 
-    return train
+    return with_rng_inputs(train, workload, epochs)
 
 
 def make_evaluator(workload: Workload):

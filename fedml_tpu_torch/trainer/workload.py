@@ -4,7 +4,15 @@ A ``Workload`` bundles an ``nn.Module`` with pure functions over a flat
 parameter dict (``loss_fn``, ``metric_fn``), so local training can take
 gradients with ``torch.func`` and map over a stacked client axis.  Batches
 are dicts ``{"x": [B, ...], "y": [B], "mask": [B]}``; the mask keeps padded
-rows out of loss, gradient and metrics."""
+rows out of loss, gradient and metrics.
+
+The dropout seam: ``loss_fn(params, batch, rng)`` with ``rng`` an int64
+``[2]`` tensor (one threefry key's words, `core.prng`) runs the model in
+train mode with dropout masks hashed from that key; without ``rng`` the
+model runs deterministic, as in eval.  The key is an input like any
+other, so ``torch.func.vmap`` maps it over a cohort without touching
+torch's global generator.  A workload whose model draws masks is
+``stochastic``; the local trainers give it one key a step."""
 
 from __future__ import annotations
 
@@ -86,13 +94,15 @@ def make_client_optimizer(name: str, lr: float, wd: float = 0.0):
 
 @dataclasses.dataclass(frozen=True)
 class Workload:
-    """``loss_fn(params, batch) -> (loss, aux)``;
+    """``loss_fn(params, batch, rng=None) -> (loss, aux)``;
     ``metric_fn(params, batch) -> dict of summable metrics`` (including
-    ``correct``, ``loss_sum`` and ``total``)."""
+    ``correct``, ``loss_sum`` and ``total``).  ``stochastic``: the model
+    draws dropout masks in train mode (``loss_fn`` given an ``rng``)."""
     model: nn.Module
-    loss_fn: Callable[[Tree, Batch], tuple]
+    loss_fn: Callable[..., tuple]
     metric_fn: Callable[[Tree, Batch], Dict[str, torch.Tensor]]
     grad_clip_norm: Optional[float] = None
+    stochastic: bool = False
 
     def init(self, generator: Optional[torch.Generator] = None,
              device="cpu") -> Tree:
@@ -106,10 +116,18 @@ class Workload:
         return {k: params[k].to(device) for k in tree_keys(params)}
 
 
-def apply_model(model: nn.Module, params: Tree, x: torch.Tensor
-                ) -> torch.Tensor:
+def apply_model(model: nn.Module, params: Tree, x: torch.Tensor,
+                rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The model's forward over ``params``; with ``rng`` (a key's words)
+    in train mode, its dropout masks keyed by it."""
+    kwargs = {} if rng is None else {"dropout_key": rng}
     return functional_call(model, {k.replace("/", "."): v
-                                   for k, v in params.items()}, (x,))
+                                   for k, v in params.items()}, (x,), kwargs)
+
+
+def is_stochastic(model: nn.Module) -> bool:
+    """Whether the model draws dropout masks in train mode."""
+    return bool(getattr(model, "stochastic", False))
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -122,13 +140,14 @@ def ClassificationWorkload(model: nn.Module, num_classes: int,
     """Softmax cross-entropy on logits, mean over valid rows; metrics sum
     top-1 (and top-5 above 5 classes) hits, loss and row count."""
 
-    def _ce(params, batch):
-        logits = apply_model(model, params, batch["x"]).to(torch.float32)
+    def _ce(params, batch, rng=None):
+        logits = apply_model(model, params, batch["x"], rng).to(
+            torch.float32)
         ce = F.cross_entropy(logits, batch["y"].long(), reduction="none")
         return logits, ce
 
-    def loss_fn(params, batch):
-        _, ce = _ce(params, batch)
+    def loss_fn(params, batch, rng=None):
+        _, ce = _ce(params, batch, rng)
         loss = _masked_mean(ce, batch["mask"])
         return loss, {"loss": loss}
 
@@ -146,29 +165,32 @@ def ClassificationWorkload(model: nn.Module, num_classes: int,
         return out
 
     return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
-                    grad_clip_norm=grad_clip_norm)
+                    grad_clip_norm=grad_clip_norm,
+                    stochastic=is_stochastic(model))
 
 
 def make_nwp_loss_metrics(forward, pad_id: int = 0):
     """The NWP loss and metric semantics (``make_nwp_loss_metrics`` of the
     JAX package): per-position cross-entropy averaged over the non-pad
     positions of valid rows, and summable ``correct`` / ``loss_sum`` /
-    ``total`` metrics.  ``forward(params, x) -> logits [B, T, V]``."""
+    ``total`` metrics.  ``forward(params, x, rng=None) -> logits [B, T,
+    V]``, in train mode when given ``rng``."""
 
     def _position_mask(batch):
         return (batch["y"] != pad_id).to(torch.float32) \
             * batch["mask"][:, None]
 
-    def _ce(params, batch):
-        logits = forward(params, batch["x"]).to(torch.float32)
+    def _ce(params, batch, rng=None):
+        logits = (forward(params, batch["x"]) if rng is None
+                  else forward(params, batch["x"], rng)).to(torch.float32)
         b, t, v = logits.shape
         ce = F.cross_entropy(logits.reshape(b * t, v),
                              batch["y"].reshape(b * t).long(),
                              reduction="none").reshape(b, t)
         return logits, ce
 
-    def loss_fn(params, batch):
-        _, ce = _ce(params, batch)
+    def loss_fn(params, batch, rng=None):
+        _, ce = _ce(params, batch, rng)
         m = _position_mask(batch)
         loss = torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
         return loss, {"loss": loss}
@@ -195,6 +217,8 @@ def NWPWorkload(model: nn.Module, pad_id: int = 0,
             "compute_dtype (mixed precision) is not ported yet; the port's "
             "workloads and kernels run f32")
     loss_fn, metric_fn = make_nwp_loss_metrics(
-        lambda params, x: apply_model(model, params, x), pad_id)
+        lambda params, x, rng=None: apply_model(model, params, x, rng),
+        pad_id)
     return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
-                    grad_clip_norm=grad_clip_norm)
+                    grad_clip_norm=grad_clip_norm,
+                    stochastic=is_stochastic(model))

@@ -478,3 +478,102 @@ def test_algorithm_zoo_phase_on_the_cpu(tiny_phases, monkeypatch):
     assert all(r["vs_cpu_max_abs_diff"] <= cs.ROUND_TOL
                for r in rows.values())
     assert rows["dp_fedavg"]["dp_epsilon_cpu_equal"]
+
+
+# ---------------------------------------------------------------------------
+# the cross-device phase (8l), rehearsed on the CPU at a tiny size
+# ---------------------------------------------------------------------------
+
+def test_cross_device_phase_configs_parse_and_pass_the_gates():
+    """At the card's sizes: 4 waves of 256 a round at 3400 clients (the
+    last 232 live), SCAFFOLD at 200 clients, the CPU rounds at 3 waves of
+    16 (the last padded), config 4's ResNet-18-GN at 500 clients, 10 a
+    round, and resnet56 on the cifar10 twin."""
+    for name, extra in cs.CD_RUNS.items():
+        cfg = cs.cd_cfg([*cs.CD_ARGS, *extra], "cpu")
+        assert cfg.algo == "cross_device" and cfg.model == "cnn_fedavg"
+        if name == "scaffold":
+            assert (cfg.client_num_in_total, cfg.client_num_per_round,
+                    cfg.wave_size) == (200, 100, 32)
+        else:
+            assert (cfg.client_num_in_total, cfg.client_num_per_round,
+                    cfg.wave_size) == (3400, 1000, 256)
+            assert 1000 - 3 * 256 == 232
+    par = cs.cd_cfg([*cs.CD_ARGS, *cs.CD_RUNS["scaffold"], *cs.CD_PARITY],
+                    "cpu")
+    assert (par.client_num_in_total, par.client_num_per_round,
+            par.wave_size) == (200, 40, 16)
+    c4 = cs.cd_cfg([*cs.CONFIG4_ARGS, *cs.CONFIG4_RUNS["fednova"]], "cpu")
+    assert (c4.model, c4.dataset, c4.client_num_in_total,
+            c4.client_num_per_round, c4.local_alg) == (
+        "resnet18_gn", "fed_cifar100", 500, 10, "fednova")
+    assert cs.cd_cfg(cs.RESNET56_ARGS, "cpu").model == "resnet56"
+    assert cs.cd_cfg([*cs.CD_ARGS, *cs.CD_RUNS["sgd_adam"]],
+                     "cpu").server_opt == "adam"
+
+
+def test_cross_device_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 8l end to end on CPU tensors, one intra-op thread: LR on a
+    30-client FEMNIST twin (10 a round, waves of 4, 2 rounds a run),
+    CNNDropOut at 3 clients for the dropout check, LR on the cifar twins
+    in place of config 4's ResNet-18-GN and of resnet56."""
+    from fedml_tpu_torch.experiments.main import load_experiment_data
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setattr(cs, "CARD", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "CD_ARGS", [
+        *cs.CD_ARGS, "--model", "lr", "--client_num_in_total", "30",
+        "--client_num_per_round", "10", "--wave_size", "4",
+        "--comm_round", "2"])
+    monkeypatch.setattr(cs, "CD_RUNS", {
+        "sgd": [], "fedprox": ["--local_alg", "fedprox"],
+        "fednova": ["--local_alg", "fednova"],
+        "scaffold": ["--local_alg", "scaffold", "--client_num_in_total",
+                     "20", "--client_num_per_round", "6", "--wave_size",
+                     "4"]})
+    monkeypatch.setattr(cs, "CD_PARITY", ["--client_num_per_round", "6",
+                                          "--wave_size", "4"])
+    monkeypatch.setattr(cs, "CD_SMALL", ["--client_num_per_round", "3",
+                                         "--wave_size", "2"])
+    monkeypatch.setattr(cs, "CD_SMALL_SINGLE", 3)
+    monkeypatch.setattr(cs, "CD_SINGLE_WAVE", 10)
+    monkeypatch.setattr(cs, "CONFIG4_ARGS", [
+        *cs.CONFIG4_ARGS, "--model", "lr", "--client_num_in_total", "12",
+        "--client_num_per_round", "4", "--comm_round", "2"])
+    monkeypatch.setattr(cs, "RESNET56_ARGS", [
+        *cs.RESNET56_ARGS, "--model", "lr", "--client_num_in_total", "2",
+        "--client_num_per_round", "2", "--batch_size", "4"])
+    try:
+        data = load_experiment_data(cs.cd_cfg(cs.CD_ARGS, "cpu"))
+        out = cs.check_cross_device(data, tmp_path)
+    finally:
+        torch.set_num_threads(n_threads)
+    assert set(out["runs"]) == set(cs.CD_RUNS)
+    for row in out["runs"].values():
+        assert row["rounds_per_s"] > 0 and row["training_ms_per_wave"] > 0
+        assert row["fold_ms_per_wave"] > 0
+        assert row["admission_ms_per_wave"] > 0
+    assert out["runs"]["sgd"]["waves"] == 3
+    assert all(r["ok"] and r["max_abs_diff"] <= cs.ROUND_TOL
+               and r["finalize_max_abs_diff"] <= cs.ROUND_TOL
+               for r in out["parity"].values())
+    assert out["parity"]["fednova"]["tau_eff"] >= 1.0
+    assert out["runs"]["scaffold"]["state_gather_ms_per_wave"] > 0
+    assert out["chunking"]["deterministic"]["max_abs_diff"] \
+        <= cs.WAVE_CHUNK_TOL
+    assert out["sampler"]["ids_equal_permutation"]
+    assert out["sampler"]["differs_from_numpy"]
+    assert out["dropout"]["other_seed_max_abs_diff"] > 0
+    assert out["resume"]["bit_equal"]
+    assert set(out["config4"]) == {"fedprox", "fednova"}
+    assert out["resnet56"]["finite"]
+
+
+def test_phase_ab_refuses_without_a_card_or_a_known_phase(monkeypatch):
+    from fedml_tpu_torch.utils import phase_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="usage"):
+        phase_ab.main(["secagg", "a", "b"])
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        phase_ab.main(["mqtt", "a", "b"])

@@ -32,6 +32,10 @@ def test_sampler_bit_exact(total, per_round):
     ("mnist", dict(num_clients=6, batch_size=4)),
     ("mnist_learnable_twin", dict(num_clients=5, batch_size=10)),
     ("femnist", dict(num_clients=4, batch_size=20)),
+    ("fed_cifar100", dict(num_clients=3, batch_size=20)),
+    ("cifar10", dict(num_clients=3, batch_size=8)),
+    ("cifar100", dict(num_clients=2, batch_size=8)),
+    ("cinic10", dict(num_clients=2, batch_size=8)),
 ])
 def test_twins_byte_equal(name, kw):
     """Same seed, same arrays, byte for byte, in every split."""
@@ -50,7 +54,7 @@ def test_data_dir_names_the_later_slice(tmp_path):
     with pytest.raises(NotImplementedError, match="slice"):
         load_data("femnist", data_dir=str(tmp_path))
     with pytest.raises(KeyError):
-        load_data("cifar10")
+        load_data("ilsvrc2012")
 
 
 def test_gather_cohort_matches_and_zeroes_pad_slots():

@@ -189,3 +189,27 @@ def test_secagg_and_algorithm_modules_import_without_jax():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+CROSS_DEVICE_MODULES = (
+    "fedml_tpu_torch.device_cohort", "fedml_tpu_torch.device_cohort.waves",
+    "fedml_tpu_torch.algorithms.cross_device",
+    "fedml_tpu_torch.core.sampling", "fedml_tpu_torch.core.prng",
+    "fedml_tpu_torch.models.norms", "fedml_tpu_torch.models.resnet",
+    "fedml_tpu_torch.models.cnn", "fedml_tpu_torch.models.layers",
+    "fedml_tpu_torch.parallel.cohort", "fedml_tpu_torch.trainer.local_sgd",
+    "fedml_tpu_torch.data.registry", "fedml_tpu_torch.experiments.models",
+    "fedml_tpu_torch.experiments.main")
+
+
+def test_cross_device_slice_modules_import_without_jax():
+    """The cross-device slice's modules (the waves, the engine, the
+    samplers, the GroupNorm ResNets and CNNDropOut), each named, import
+    with JAX and the JAX package blocked."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {CROSS_DEVICE_MODULES!r}:\n"
+            f"    importlib.import_module(m)\nprint('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -78,5 +78,60 @@ def test_port_init_matches_flax_layout():
 
 
 def test_unported_model_named():
-    with pytest.raises(KeyError, match="not ported"):
-        create_workload("cnn", "femnist", 62, (28, 28, 1))
+    with pytest.raises(KeyError, match="item 10"):
+        create_workload("mobilenet", "femnist", 62, (28, 28, 1))
+
+
+# CNNDropOut's eval-mode logits: f32 sums in another order, as the CNN's
+DROPOUT_CNN_TOL = 1e-5
+
+
+@pytest.mark.parametrize("shape", [(4, 28, 28, 1), (3, 28, 28)])
+@pytest.mark.parametrize("only_digits", [False, True])
+def test_cnn_dropout_eval_logits_with_carried_weights(rng, shape,
+                                                      only_digits):
+    """Eval mode (no key): the port's CNNDropOut gives flax's logits with
+    carried weights; the parameter tree and count are flax's."""
+    from fedml_tpu.models import CNNDropOut as JDrop
+    from fedml_tpu_torch.models import CNNDropOut
+    x = rng.randn(*shape).astype(np.float32)
+    params, want = _carry(JDrop(only_digits=only_digits), x)
+    model = CNNDropOut(only_digits=only_digits)
+    assert sorted(k.replace(".", "/") for k, _ in model.named_parameters()) \
+        == sorted(params)
+    assert sum(v.numel() for v in params.values()) == (
+        1_199_882 if only_digits else 1_206_590)
+    got = apply_model(model, params, torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=DROPOUT_CNN_TOL,
+                               rtol=0)
+
+
+def test_cnn_dropout_masks_keep_their_rates_and_follow_the_key():
+    """Train mode (a key): each dropout layer keeps 1 - rate of its
+    elements (0.75 and 0.5, within 1% over ~10^5 draws) and scales the
+    kept ones by 1 / keep; the same key gives the same masks, another key
+    other masks, and no key none (eval equals the deterministic
+    forward)."""
+    from fedml_tpu_torch.models.layers import dropout
+    x = torch.ones(8, 12, 12, 64)
+    k = torch.tensor([123, 456], dtype=torch.int64)
+    for layer, rate in ((0, 0.25), (1, 0.5)):
+        out = dropout(x, rate, k, layer)
+        kept = out != 0
+        assert abs(float(kept.float().mean()) - (1 - rate)) < 0.01
+        torch.testing.assert_close(out[kept], torch.full_like(
+            out[kept], 1 / (1 - rate)), rtol=0, atol=0)
+        assert torch.equal(out, dropout(x, rate, k.clone(), layer))
+        other = dropout(x, rate, torch.tensor([123, 457]), layer)
+        assert not torch.equal(out, other)
+    assert not torch.equal(dropout(x, 0.5, k, 0), dropout(x, 0.5, k, 1))
+    assert dropout(x, 0.5, None, 0) is x
+    wl = create_workload("cnn", "femnist", 62, (28, 28, 1))
+    assert wl.stochastic
+    p = wl.init(torch.Generator().manual_seed(0))
+    batch = {"x": torch.randn(4, 28, 28, 1), "y": torch.zeros(4).long(),
+             "mask": torch.ones(4)}
+    eval_loss, _ = wl.loss_fn(p, batch)
+    a, _ = wl.loss_fn(p, batch, k)
+    b, _ = wl.loss_fn(p, batch, k)
+    assert float(a) == float(b) and float(a) != float(eval_loss)

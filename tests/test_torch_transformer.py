@@ -112,8 +112,7 @@ def test_causal(tkw):
 def test_refusals_are_named():
     with pytest.raises(NotImplementedError, match="moe.py"):
         TransformerLM(**SMALL, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TransformerLM(**SMALL, dropout_rate=0.1)
+    assert TransformerLM(**SMALL, dropout_rate=0.1).stochastic
     model = TransformerLM(**SMALL)
     x = torch.tensor(_tokens(1, 8))
     with pytest.raises(NotImplementedError, match="item 11"):
