@@ -170,6 +170,26 @@ each printed as it ends; any failure exits non-zero:
    clients, 10 a round) with fedprox and fednova, profiled the same way,
    fedprox's round against the CPU; one round of ``resnet56`` on the
    ``cifar10`` twin; the phase's seconds;
+8m. zoo_models — BASELINE config 5's LSTMs through FedAvg (``--model
+   rnn``: Shakespeare, 715 clients, 10 a round, B=4, lr 1; StackOverflow,
+   342,477 clients, 50 a round, B=16, lr 10^-0.5), and the BatchNorm
+   ResNet-56 and MobileNet (``stateful=True``, the cifar10 twin, 10
+   clients, B=64, lr 0.1), each in deterministic mode: 3 host-loop rounds
+   and 3 graphed rounds from one init, bit-equal; the first round against
+   the CPU (limit 1e-4); rounds/s and round ms of each path, one profiled
+   graphed round (host launch calls, device kernels, idle share), peak
+   memory, the running statistics moved; config 3's live cross-silo federation (S=4,
+   K2 on; E=2, cut from 20) on ``resnet56`` and ``mobilenet``, 3 rounds
+   each through the runner: exactly 4 K2 launches a round, one profiled
+   round, one round against the CPU at ``CONFIG3_PARITY_EPOCHS`` (1); the
+   BatchNorm ResNet-56 through the defended mean (weak DP, fused
+   backend): K1n's and K1's launches a round counted on the main path,
+   both held against their plain versions over its 292-leaf table at
+   clip 5 and at a bound under every update norm (every statistics leaf
+   the unclipped weighted mean), timed beside their bounds; ``--algo
+   centralized`` through the runner, and the full-batch oracle on LR
+   over the mnist twin (full-participation FedAvg against centralized
+   training, rtol 2e-4, atol 2e-5, accuracy 1e-3);
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
@@ -1560,9 +1580,10 @@ def profile_silo(silo_cfg, data, rounds: int = 5):
     return row
 
 
-def silo_round_parity(silo_cfg, data):
+def silo_round_parity(silo_cfg, data, min_move: float = 10 * ROUND_TOL):
     """One cross-silo round with TF32 off on the GPU against the same
-    round on the CPU, from one init (no evaluation)."""
+    round on the CPU, from one init (no evaluation); the round must move
+    the global by more than ``min_move``."""
     import dataclasses
     import torch
     from fedml_tpu_torch.experiments.main import CrossSiloFederation
@@ -1574,7 +1595,7 @@ def silo_round_parity(silo_cfg, data):
             silo_cfg, comm_round=1, platform="cpu"), data, sink)
         init = {k: v.clone() for k, v in cpu.server.params.items()}
         gpu = CrossSiloFederation(dataclasses.replace(
-            silo_cfg, comm_round=1, platform="cuda"), data, sink,
+            silo_cfg, comm_round=1, platform=CARD), data, sink,
             init_params=init)
         with tf32_off():
             for name, fed in (("cuda", gpu), ("cpu", cpu)):
@@ -1586,7 +1607,7 @@ def silo_round_parity(silo_cfg, data):
     moved = max(float((out["cpu"][k] - init[k]).abs().max()) for k in init)
     phase("cross_silo round vs cpu", max_abs_diff=diff, tol=ROUND_TOL,
           tf32=False, moved_from_init=moved)
-    if not moved > 10 * ROUND_TOL:
+    if not moved > min_move:
         fail(f"the cross-silo round left the global where it was "
              f"(moved {moved})")
     if not diff <= ROUND_TOL:
@@ -1643,13 +1664,15 @@ def deterministic():
          torch.backends.cudnn.benchmark) = saved
 
 
-def fedavg_algo(cfg, data, device="cuda"):
-    """The CLI runner's FedAvg for ``cfg``."""
+def fedavg_algo(cfg, data, device="cuda", workload=None):
+    """The CLI runner's FedAvg for ``cfg``, with ``workload`` in place of
+    the CLI factory's when given."""
     from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
     from fedml_tpu_torch.experiments.main import (_fedavg_cfg_kwargs,
                                                   _make_workload)
-    return FedAvg(_make_workload(cfg, data), data,
-                  FedAvgConfig(**_fedavg_cfg_kwargs(cfg)), device=device)
+    wl = workload if workload is not None else _make_workload(cfg, data)
+    return FedAvg(wl, data, FedAvgConfig(**_fedavg_cfg_kwargs(cfg)),
+                  device=device)
 
 
 def round_plan(data, m: int, rounds: int, start: int = 0):
@@ -1716,7 +1739,6 @@ def path_profile(run, rounds: int):
     device's kernels and busy time, the host's launch calls (kernel
     launches, graph launches, copies) and the idle share."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1724,20 +1746,31 @@ def path_profile(run, rounds: int):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t3 = time.perf_counter()
+    return dict(host_us_per_round=(t1 - t0) / rounds * 1e6,
+                round_ms=(t2 - t0) / rounds * 1e3,
+                **profile_once(run, rounds))
+
+
+def profile_once(run, rounds: int):
+    """torch.profiler over one call of ``run()`` (``rounds`` rounds), the
+    device drained before and after: the device's kernels and busy time,
+    the host's launch calls (kernel launches, graph launches, copies) and
+    the idle share, per round."""
+    from torch.profiler import ProfilerActivity, profile
+    sync(CARD)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if CARD == "cuda" else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
         run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t3) * 1e6
+        sync(CARD)
+        wall_us = (time.perf_counter() - t0) * 1e6
     averages = prof.key_averages()
     events = [e for e in averages if _self_device_us(e) > 0]
     busy_us = sum(_self_device_us(e) for e in events)
     apis = {e.key: e.count / rounds for e in averages
             if e.key in LAUNCH_APIS}
-    return dict(host_us_per_round=(t1 - t0) / rounds * 1e6,
-                round_ms=(t2 - t0) / rounds * 1e3,
-                profiled_round_ms=wall_us / rounds / 1e3,
+    return dict(profiled_round_ms=wall_us / rounds / 1e3,
                 device_kernels_per_round=sum(e.count for e in events)
                 / rounds,
                 host_launch_calls_per_round=sum(apis.values()),
@@ -4348,6 +4381,523 @@ def check_cross_device(data, root: Path):
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# the model zoo of BASELINE configs 3 and 5 (phase 8m): the LSTMs through
+# FedAvg, config 3's live cross-silo runs on ResNet-56 and MobileNet, the
+# BatchNorm (stateful) workloads through FedAvg and the defended mean, the
+# centralized runner and the full-batch oracle
+# ---------------------------------------------------------------------------
+
+_NWP_COMMON = ["--algo", "fedavg", "--model", "rnn", "--epochs", "1",
+               "--comm_round", "3", "--frequency_of_the_test", "1000",
+               "--log_stdout", "false"]
+ZOO_NWP_ARGS = {
+    # BASELINE.md config 5: Shakespeare next-char, RNNOriginalFedAvg
+    "config5a": [*_NWP_COMMON, "--dataset", "shakespeare",
+                 "--client_num_in_total", "715", "--client_num_per_round",
+                 "10", "--batch_size", "4", "--lr", "1"],
+    # ... and StackOverflow next-word, RNNStackOverflow, lr 10^-0.5
+    "config5b": [*_NWP_COMMON, "--dataset", "stackoverflow_nwp",
+                 "--client_num_in_total", "342477",
+                 "--client_num_per_round", "50", "--batch_size", "16",
+                 "--lr", "0.31623"]}
+ZOO_ROUNDS = 3                 # rounds of each FedAvg path
+CONFIG3_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
+                "--agg_mode", "stream", "--model_shards", "4",
+                "--fused_finalize", "on", "--dataset", "cifar10",
+                "--client_num_in_total", "10", "--client_num_per_round",
+                "10", "--batch_size", "64", "--lr", "0.001", "--wd", "0.001",
+                "--epochs", "2", "--comm_round", "3",
+                "--frequency_of_the_test", "1000", "--log_stdout", "false"]
+# cut: E=2 of the published E=20.  Each silo trains eagerly, one step an
+# epoch on the twin; at E=20 a ResNet-56 round took 25.1 s on an H100
+# (877,248 launches), which the phase's time cannot hold
+CONFIG3_MODELS = ("resnet56", "mobilenet")
+# the CPU reference round runs 1 epoch: at E=2 a ResNet-56 round took
+# ~75 s on the host cores of an H100 machine
+CONFIG3_PARITY_EPOCHS = 1
+BN_ARGS = ["--algo", "fedavg", "--model", "resnet56", "--dataset",
+           "cifar10", "--client_num_in_total", "10",
+           "--client_num_per_round", "10", "--batch_size", "64", "--lr",
+           "0.1", "--epochs", "1", "--comm_round", "3",
+           "--frequency_of_the_test", "1000", "--log_stdout", "false"]
+BN_ROBUST_MODEL = "resnet56_bn"    # the model of the defended run
+BN_ROBUST_ARGS = [*BN_ARGS, "--algo", "fedavg_robust", "--defense",
+                  "weak_dp", "--defense_backend", "cuda", "--norm_bound",
+                  str(CLIP_BOUND), "--stddev", str(SIGMA)]
+CENTRAL_ARGS = ["--algo", "centralized", "--model", "cnn_fedavg",
+                "--dataset", "femnist", "--client_num_in_total", "100",
+                "--batch_size", "20", "--lr", "0.1", "--epochs", "1",
+                "--comm_round", "3", "--frequency_of_the_test", "1",
+                "--log_stdout", "false"]
+# the oracle on LR over the mnist twin, as tests/test_fedavg_oracle.py
+# holds it: the FEMNIST CNN without grad clipping is chaotic at lr 0.1 (a
+# 1e-6 change of its init moved its 3-step trajectory by 3.7e-4 on the
+# CPU), so f32 summation order alone took it past these limits (6.6e-5
+# on an H100)
+ORACLE_CLIENTS, ORACLE_ROUNDS, ORACLE_LR = 10, 3, 0.5
+# tests/test_fedavg_oracle.py's limits: params, and train accuracy
+ORACLE_RTOL, ORACLE_ATOL, ORACLE_ACC_TOL = 2e-4, 2e-5, 1e-3
+
+
+def bn_models():
+    """The BatchNorm models run through the API (no CLI flag builds
+    one)."""
+    from fedml_tpu_torch.models import mobilenet, resnet56
+    return {"resnet56_bn": lambda: resnet56(10, norm="batch"),
+            "mobilenet_bn": lambda: mobilenet(10, norm="batch")}
+
+
+def _clone(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+def timed_host_rounds(algo, data, params, rounds: int):
+    """``rounds`` host-gather rounds on the algorithm's device, each
+    timed (device drained); the params after the first and the last."""
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.stacking import gather_cohort
+    m = algo.cfg.client_num_per_round
+    times, first = [], None
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        cohort = gather_cohort(data.train,
+                               sample_clients(r, data.client_num, m),
+                               pad_to=m, device=algo.device)
+        params, _ = algo.cohort_step(params, cohort)
+        sync(algo.device)
+        times.append(time.perf_counter() - t0)
+        if first is None:
+            first = _clone(params)
+    return first, params, times
+
+
+def timed_graph_rounds(algo, data, params, rounds: int):
+    """``rounds`` rounds of the device round (on the card one capture,
+    then one replay a round), each timed (device drained)."""
+    ids, live = round_plan(data, algo.cfg.client_num_per_round, rounds)
+    times = []
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        params, _ = algo._device_round(params, algo._train_dev, ids[r],
+                                       live[r])
+        sync(algo.device)
+        times.append(time.perf_counter() - t0)
+    return _clone(params), times
+
+
+def steady(times):
+    """Rounds/s and ms a round over the rounds after the first."""
+    rest = times[1:] or times
+    return dict(rounds_per_s=len(rest) / sum(rest),
+                round_ms=1e3 * sum(rest) / len(rest))
+
+
+def zoo_fedavg(name: str, cfg, data, workload_fn=None):
+    """One FedAvg configuration on the card in deterministic mode (cuDNN
+    deterministic, TF32 off): ZOO_ROUNDS rounds of the host-gather loop
+    and of the graphed device round from one init, bit-equal; the first
+    round held against the port on the CPU (ROUND_TOL); rounds/s and
+    round ms of each path, one profiled round of the graph (the main
+    path; a host-loop round of the LSTM, ~94,000 launches, costs the
+    profiler tens of seconds); the peak memory; a stateful workload's
+    running statistics moved."""
+    import dataclasses
+    import gc
+    import torch
+    t_run = time.perf_counter()
+    wl_fn = workload_fn or (lambda: None)
+    row = dict(clients=data.client_num, cohort=cfg.client_num_per_round,
+               batch_size=cfg.batch_size, lr=cfg.lr, mode="deterministic")
+    with deterministic():
+        reset_peak()
+        host = fedavg_algo(cfg, data, cfg.platform, wl_fn())
+        init = host.init_params()
+        row["params"] = sum(v.numel() for v in init.values())
+        first, want, host_times = timed_host_rounds(host, data, init,
+                                                    ZOO_ROUNDS)
+        graphed = fedavg_algo(cfg, data, cfg.platform, wl_fn())
+        if not graphed._stage_train_on_device():
+            fail(f"zoo {name}: the train split did not take the device path")
+        row["resident_train_gb"] = sum(
+            v.numel() * v.element_size()
+            for v in graphed._train_dev.values()) / 1e9
+        got, graph_times = timed_graph_rounds(graphed, data, init,
+                                              ZOO_ROUNDS)
+        graph = graphed._device_round.graph
+        if CARD == "cuda" and (graph is None or graph.captures != 1
+                               or graph.replays != ZOO_ROUNDS):
+            fail(f"zoo {name}: the device round captured "
+                 f"{getattr(graph, 'captures', 0)} graphs and replayed "
+                 f"{getattr(graph, 'replays', 0)} times; need 1 and "
+                 f"{ZOO_ROUNDS}")
+        row.update(graph_vs_host_bit_equal=bit_equal(got, want),
+                   graph_vs_host_max_abs_diff=max_diff(got, want),
+                   moved_from_init=max_diff(want, init),
+                   capture_ms=graph.capture_s * 1e3 if graph else None,
+                   peak_gb=peak_gb())
+        if not row["graph_vs_host_bit_equal"]:
+            fail(f"zoo {name}: the graphed rounds differ from the host loop "
+                 f"by {row['graph_vs_host_max_abs_diff']} in deterministic "
+                 f"mode")
+        if not row["moved_from_init"] > 10 * ROUND_TOL:
+            fail(f"zoo {name}: the rounds left the global where it was")
+        stats = [k for k in init if k.startswith("batch_stats/")]
+        if stats:
+            row["stats_moved"] = max(float((want[k] - init[k]).abs().max())
+                                     for k in stats)
+            if not row["stats_moved"] > 1e-3:
+                fail(f"zoo {name}: the running statistics did not move "
+                     f"({row['stats_moved']})")
+        row["host_loop"] = steady(host_times)
+        row["graph"] = steady(graph_times)
+        state = {"graph": got}
+
+        def run_graph():
+            state["graph"], _ = timed_graph_rounds(graphed, data,
+                                                   state["graph"], 1)
+
+        row["graph"].update(profile_once(run_graph, 1))
+        cpu = fedavg_algo(dataclasses.replace(cfg, platform="cpu"), data,
+                          "cpu", wl_fn())
+        cpu_first, _, cpu_times = timed_host_rounds(
+            cpu, data, {k: v.cpu() for k, v in init.items()}, 1)
+        row.update(vs_cpu_max_abs_diff=max_diff(first, cpu_first),
+                   vs_cpu_tol=ROUND_TOL, cpu_round_s=cpu_times[0])
+    del host, graphed, graph, cpu, state, got, want, first, cpu_first
+    gc.collect()
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_run
+    phase(f"zoo {name}", **row)
+    if not row["vs_cpu_max_abs_diff"] <= ROUND_TOL:
+        fail(f"zoo {name}: the card's round differs from the CPU's by "
+             f"{row['vs_cpu_max_abs_diff']} > {ROUND_TOL}")
+    return row
+
+
+def zoo_silo(model: str, cache: dict):
+    """Config 3's live cross-silo federation (stream fold, S=4 shards, K2
+    on) on ``model`` through the CLI's runner: exactly one K2 launch per
+    shard a round and no K1 or K3; rounds/s, one profiled round; one
+    round against the CPU at CONFIG3_PARITY_EPOCHS epochs."""
+    import dataclasses
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.experiments.main import (CrossSiloFederation,
+                                                  run_cross_silo)
+    from fedml_tpu_torch.secure import fused_mask
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    t_run = time.perf_counter()
+    cfg = cd_cfg([*CONFIG3_ARGS, "--model", model])
+    data = cd_data(cfg, cache)
+    reset_peak()
+    fused_agg.reset_launch_counts()
+    fused_mask.reset_launch_counts()
+    t0 = time.perf_counter()
+    with MetricsSink(None) as sink:
+        summary = run_cross_silo(cfg, data, sink)
+    sync(CARD)
+    run_s = time.perf_counter() - t0
+    k2 = fused_agg.launch_counts["shard_finalize"]
+    need = cfg.model_shards * cfg.comm_round
+    if k2 != need or fused_agg.launch_counts["robust_agg"] \
+            or fused_mask.launch_counts["secagg_mask"]:
+        fail(f"config3 {model}: shard_finalize launched {k2} times (need "
+             f"{need}), robust_agg "
+             f"{fused_agg.launch_counts['robust_agg']}, secagg_mask "
+             f"{fused_mask.launch_counts['secagg_mask']} (need 0)")
+    if not summary.get("params_finite"):
+        fail(f"config3 {model}: non-finite parameters")
+    row = dict(model=model, k2_launches=k2, run_s=run_s,
+               rounds_per_s=summary["rounds_per_s"],
+               round_ms=1e3 / summary["rounds_per_s"],
+               test_acc=summary.get("test_acc"), peak_gb=peak_gb())
+    with MetricsSink(None) as sink:
+        fed = CrossSiloFederation(dataclasses.replace(cfg, comm_round=1),
+                                  data, sink)
+        row.update(profile_once(fed.run, 1))
+    # lr 0.001 moves the global by little in a round: the round must move
+    # it, by any amount
+    row["vs_cpu_max_abs_diff"] = silo_round_parity(dataclasses.replace(
+        cfg, epochs=CONFIG3_PARITY_EPOCHS), data, min_move=0.0)
+    row.update(vs_cpu_tol=ROUND_TOL, vs_cpu_epochs=CONFIG3_PARITY_EPOCHS,
+               seconds=time.perf_counter() - t_run)
+    phase(f"zoo config3 {model}", **row)
+    return row
+
+
+def check_k1_bn_table(stacked, weights, glob, seed_words, sm_hz):
+    """K1n and K1 over the BatchNorm ResNet-56's 292-leaf table, on the
+    inputs the defended round gave its aggregate: the kernels' scales
+    within K1_SCALE_TOL (relative) of the plain version's and their
+    aggregate within KERNEL_TOL of the plain version leaf by leaf, at
+    clip 5 with sigma 0 and SIGMA; at a bound under every client's update
+    norm (sigma 0) every weight leaf is clipped and every statistics leaf
+    comes out as the unclipped weighted mean; times and bounds of the
+    table's launches."""
+    import torch
+    from fedml_tpu_torch.core import fused_agg as fa
+    from fedml_tpu_torch.core.pytree import tree_keys
+    from fedml_tpu_torch.core.robust import (_masked_global_norm,
+                                             default_is_weight_param)
+
+    keys = tree_keys(stacked)
+    n = int(weights.shape[0])
+    ratios = (weights / weights.sum()).contiguous()
+    layout = fa.LeafLayout(keys, [glob[k].numel() for k in keys],
+                           range(len(keys)),
+                           [default_is_weight_param(k) for k in keys])
+    xs = [stacked[k].reshape(n, -1).contiguous() for k in keys]
+    gs = [glob[k].reshape(-1).contiguous() for k in keys]
+    ones = torch.ones(n, device=weights.device)
+    norms = _masked_global_norm({k: stacked[k] - glob[k] for k in keys},
+                                default_is_weight_param, batch_dims=1)
+    tight = float(norms.min()) / 2        # every client clipped
+    out = dict(leaves=len(keys), weight_leaves=len(layout.norm_rows),
+               elements=sum(layout.sizes), update_norms=norms.tolist())
+    err, rel = 0.0, 0.0
+    for bound, sigmas in ((CLIP_BOUND, (0.0, SIGMA)), (tight, (0.0,))):
+        want_scales = fa.clip_scales_plain(stacked, glob, bound,
+                                           default_is_weight_param)
+        got_scales = fa.clip_norm(layout, xs, gs, bound)
+        sync(CARD)
+        rel = max(rel, float(((got_scales - want_scales).abs()
+                              / want_scales).max()))
+        for sigma in sigmas:
+            agg = fa.make_fused_robust_aggregate(norm_bound=bound,
+                                                 noise_std=sigma)
+            got = agg(stacked, weights, glob, seed_words)
+            for li, k in enumerate(keys):
+                s = want_scales if layout.weight[li] else ones
+                want = fa.robust_agg_plain(
+                    xs[li], gs[li], s, ratios,
+                    fa.leaf_seed(seed_words[0], li),
+                    fa.leaf_seed(seed_words[1], li), sigma)
+                err = max(err, float((got[k].reshape(-1) - want)
+                                     .abs().max()))
+                if bound == tight and not sigma:
+                    mean = fa.robust_agg_plain(xs[li], gs[li], ones, ratios,
+                                               0, 0, 0.0)
+                    moved = float((got[k].reshape(-1) - mean).abs().max())
+                    if layout.weight[li]:
+                        out["clipped_weight_max_move"] = max(
+                            out.get("clipped_weight_max_move", 0.0), moved)
+                    elif not moved <= KERNEL_TOL:
+                        fail(f"K1 clipped the statistics leaf {k} (moved "
+                             f"{moved} from the weighted mean)")
+    if not err <= KERNEL_TOL or not rel <= K1_SCALE_TOL:
+        fail(f"K1 over the BatchNorm table: aggregate max abs err {err} "
+             f"(limit {KERNEL_TOL}), scales max rel err {rel} (limit "
+             f"{K1_SCALE_TOL})")
+    if not out.get("clipped_weight_max_move", 0.0) > KERNEL_TOL:
+        fail("K1 over the BatchNorm table: a bound under every update norm "
+             "left the weight leaves unclipped")
+    out.update(max_abs_err=err, scales_max_rel_err=rel,
+               tight_bound=tight, stats_unclipped=True)
+    scales = fa.clip_norm(layout, xs, gs, CLIP_BOUND)
+    call = lambda: fa.robust_agg_table(layout, xs, gs, scales, ratios,
+                                       *seed_words, SIGMA)
+    plain = lambda: [fa.robust_agg_plain(
+        x, g, scales, ratios, fa.leaf_seed(seed_words[0], li),
+        fa.leaf_seed(seed_words[1], li), SIGMA)
+        for li, (x, g) in enumerate(zip(xs, gs))]
+    library = lambda: [torch.mv(x.T, ratios) for x in xs]
+    norm = lambda: fa.clip_norm(layout, xs, gs, CLIP_BOUND)
+    eager = lambda: fa.clip_scales_plain(
+        stacked, glob, CLIP_BOUND, default_is_weight_param)
+    weight_sizes = [layout.sizes[j] for j in layout.norm_rows]
+    if CARD == "cuda":
+        out["table"] = dict(
+            ms=device_ms(call, 20, "robust_agg_kernel", windows=5)
+            or time_ms(call, 50),
+            # CUDA events: ~117k small ops a call would swamp the profiler
+            plain_ms=time_ms(plain, 1, trials=3),
+            library_ms=device_ms(library, 20) or time_ms(library, 50),
+            **op_bound(*robust_agg_work(n, layout.sizes, SIGMA), sm_hz))
+        out["clip_norm"] = dict(
+            ms=device_ms(norm, 20, "clip_norm_kernel", windows=5)
+            or time_ms(norm, 50),
+            plain_ms=device_ms(eager, 20) or time_ms(eager, 20),
+            **op_bound(*clip_norm_work(n, weight_sizes), sm_hz))
+    return out
+
+
+def zoo_bn_robust(cfg, data, sm_hz):
+    """The BatchNorm ResNet-56 through FedAvgRobust (weak DP, the fused
+    CUDA backend, clip 5, sigma 0.025), 3 rounds: K1n and K1 launched by
+    the main path each round (their counts from zero); then both held
+    against their plain versions over the round's 292-leaf table."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_robust as fr
+    from fedml_tpu_torch.core import fused_agg as fa
+    from fedml_tpu_torch.experiments.main import fedavg_robust_config
+    from fedml_tpu_torch.trainer.workload import ClassificationWorkload
+
+    seen = []
+    real = fr.make_fused_robust_aggregate
+
+    def recording(**kw):
+        agg = real(**kw)
+
+        def aggregate(stacked, weights, global_params, seed_words):
+            if not seen:
+                seen.append((_clone(stacked), weights.clone(),
+                             _clone(global_params), tuple(seed_words)))
+            return agg(stacked, weights, global_params, seed_words)
+        aggregate.needs_global = True
+        return aggregate
+
+    fr.make_fused_robust_aggregate = recording
+    try:
+        algo = fr.FedAvgRobust(
+            ClassificationWorkload(bn_models()[BN_ROBUST_MODEL](), 10,
+                                   stateful=True),
+            data, fedavg_robust_config(cfg), device=cfg.platform)
+    finally:
+        fr.make_fused_robust_aggregate = real
+    reset_peak()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = algo.run()
+    sync(CARD)
+    run_s = time.perf_counter() - t0
+    launches = dict(fa.launch_counts)
+    stacked, weights, glob, words = seen[0]
+    fa.reset_launch_counts()
+    real(norm_bound=cfg.norm_bound, noise_std=cfg.stddev)(
+        stacked, weights, glob, words)
+    per_call = dict(fa.launch_counts)
+    need = {k: per_call[k] * cfg.comm_round
+            for k in ("robust_agg", "clip_norm")}
+    if CARD == "cuda" and any(launches[k] != need[k] for k in need):
+        fail(f"zoo bn defended: the main path launched {launches}, need "
+             f"{need} ({per_call} a round)")
+    if not all(bool(v.isfinite().all()) for v in params.values()):
+        fail("zoo bn defended: non-finite parameters")
+    row = dict(launches={k: launches[k] for k in need},
+               launches_per_round=per_call, run_s=run_s,
+               rounds_per_s=steady(algo.round_times)["rounds_per_s"],
+               peak_gb=peak_gb())
+    row["k1"] = check_k1_bn_table(stacked, weights, glob, words, sm_hz)
+    phase("zoo bn defended", **row)
+    del algo, params, seen
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def zoo_centralized(cache: dict):
+    """``--algo centralized`` through the CLI's runner on the card:
+    rounds/s, one profiled round, the logged rows."""
+    import dataclasses
+    from fedml_tpu_torch.experiments.main import run_centralized
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+
+    cfg = cd_cfg(CENTRAL_ARGS)
+    data = cd_data(cfg, cache)
+    reset_peak()
+    with MetricsSink(None) as sink:
+        summary = run_centralized(cfg, data, sink)
+    if not summary["params_finite"] or summary["round"] != cfg.comm_round - 1:
+        fail(f"zoo centralized: {summary}")
+    row = dict(rounds_per_s=summary["rounds_per_s"],
+               round_ms=1e3 / summary["rounds_per_s"],
+               train_acc=summary["train_acc"], test_acc=summary["test_acc"],
+               peak_gb=peak_gb())
+    with MetricsSink(None) as sink:
+        row.update(profile_once(lambda: run_centralized(
+            dataclasses.replace(cfg, comm_round=1), data, sink), 1))
+    phase("zoo centralized", **row)
+    return row
+
+
+def zoo_oracle():
+    """BASELINE.md's oracle on the card, TF32 off: full-batch (one batch a
+    client), E=1, full-participation FedAvg (the graphed device round) of
+    logistic regression on the mnist twin, without grad clipping, against
+    the centralized trainer on the pooled data in one batch,
+    ORACLE_ROUNDS rounds from one init; parameters within
+    ORACLE_RTOL/ORACLE_ATOL, train accuracy within ORACLE_ACC_TOL."""
+    import torch
+    from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
+    from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
+    from fedml_tpu_torch.data import load_data
+    from fedml_tpu_torch.data.stacking import batch_global
+    from fedml_tpu_torch.models import LogisticRegression
+    from fedml_tpu_torch.trainer.workload import ClassificationWorkload
+
+    data = load_data("mnist", num_clients=ORACLE_CLIENTS, batch_size=64,
+                     seed=0)
+    if data.train["mask"].shape[1] != 1:
+        fail("zoo oracle: a client has more than one batch")
+    wl = ClassificationWorkload(LogisticRegression(784, 10), 10,
+                                grad_clip_norm=None)
+    keep = data.train["mask"] > 0
+    pooled = batch_global(data.train["x"][keep], data.train["y"][keep],
+                          batch_size=int(keep.sum()))
+    with tf32_off():
+        fed = FedAvg(wl, data, FedAvgConfig(
+            comm_round=ORACLE_ROUNDS, client_num_per_round=ORACLE_CLIENTS,
+            batch_size=64, lr=ORACLE_LR, frequency_of_the_test=1000),
+            device=CARD)
+        init = wl.init(torch.Generator().manual_seed(0), CARD)
+        got = fed.run(params=_clone(init))
+        central = CentralizedTrainer(wl, lr=ORACLE_LR)
+        want = central.train_rounds(_clone(init), pooled, ORACLE_ROUNDS)
+        fed_acc = fed.evaluate_global(got)["train_acc"]
+        cen_acc = central.metrics(want, pooled)["acc"]
+    excess = max(float(((got[k] - want[k]).abs()
+                        - (ORACLE_ATOL + ORACLE_RTOL * want[k].abs()))
+                       .max()) for k in want)
+    row = dict(clients=ORACLE_CLIENTS, samples=int(keep.sum()),
+               rounds=ORACLE_ROUNDS, max_abs_diff=max_diff(got, want),
+               allclose_excess=excess, rtol=ORACLE_RTOL, atol=ORACLE_ATOL,
+               fedavg_train_acc=fed_acc, centralized_train_acc=cen_acc,
+               acc_tol=ORACLE_ACC_TOL,
+               moved_from_init=max_diff(want, init),
+               graphed=getattr(fed._device_round, "graph", None) is not None)
+    phase("zoo oracle", **row)
+    if not (excess <= 0 and abs(fed_acc - cen_acc) <= ORACLE_ACC_TOL
+            and row["moved_from_init"] > 10 * ORACLE_ATOL):
+        fail(f"zoo oracle: FedAvg against centralized training: {row}")
+    return row
+
+
+def check_zoo_models(sm_hz):
+    """Phase 8m: BASELINE configs 5 (the LSTMs) and 3 (ResNet-56 and
+    MobileNet over the live cross-silo spine), the BatchNorm workloads
+    through FedAvg and the defended mean (K1n and K1 over the 292-leaf
+    table), the centralized runner and the full-batch oracle.  Every
+    run's row and the phase's seconds."""
+    t_phase = time.perf_counter()
+    cache = {}
+    nwp = {}
+    for name, argv in ZOO_NWP_ARGS.items():
+        cfg = cd_cfg(argv)
+        t0 = time.perf_counter()
+        data = cd_data(cfg, cache)
+        phase(f"zoo {name} twin", clients=data.client_num,
+              seconds=time.perf_counter() - t0)
+        nwp[name] = zoo_fedavg(name, cfg, data)
+        cache.clear()
+    silo = {m: zoo_silo(m, cache) for m in CONFIG3_MODELS}
+    from fedml_tpu_torch.trainer.workload import ClassificationWorkload
+    bn_cfg = cd_cfg(BN_ARGS)
+    bn_data = cd_data(bn_cfg, cache)
+    bn = {name: zoo_fedavg(name, bn_cfg, bn_data,
+                           lambda fn=fn: ClassificationWorkload(
+                               fn(), 10, stateful=True))
+          for name, fn in bn_models().items()}
+    robust = zoo_bn_robust(cd_cfg(BN_ROBUST_ARGS), bn_data, sm_hz)
+    central = zoo_centralized(cache)
+    oracle = zoo_oracle()
+    seconds = time.perf_counter() - t_phase
+    phase("zoo_models done", seconds=seconds)
+    return dict(nwp=nwp, silo=silo, bn=bn, robust=robust, central=central,
+                oracle=oracle, seconds=seconds)
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -4425,6 +4975,7 @@ def main() -> None:
     srvopt = check_live_server_opt(data, root)
     zoo = check_algorithm_zoo(data)
     cross_device = check_cross_device(data, root)
+    models = check_zoo_models(sm_hz)
 
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
@@ -4456,6 +5007,13 @@ def main() -> None:
         "ms_at_library_config": quiet["ms"],
         "gauss_max_abs_err": k1_table["gauss_max_abs_err"],
         "gauss_tol": K1_GAUSS_TOL,
+        # phase 8m: the defended round of the BatchNorm ResNet-56, its
+        # 292-leaf table (statistics unclipped)
+        "launches_bn_defended": models["robust"]["launches"]["robust_agg"],
+        "max_abs_err_bn_table": models["robust"]["k1"]["max_abs_err"],
+        **{f"{k}_bn_table": models["robust"]["k1"]["table"][k]
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by")},
     }, {
         "name": "clip_norm", "route": "cuda",
         "source": "fedml_tpu_torch/csrc/robust_agg.cu",
@@ -4467,6 +5025,10 @@ def main() -> None:
         # no single PyTorch call computes the per-client norm over all the
         # leaves; plain_ms is the eager clip pass the kernel replaced
         "library_ms": None,
+        "launches_bn_defended": models["robust"]["launches"]["clip_norm"],
+        "max_rel_err_bn_table": models["robust"]["k1"]["scales_max_rel_err"],
+        **{f"{k}_bn_table": models["robust"]["k1"]["clip_norm"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }]
     # one round of the secure slice: one launch per group of 5
     per_round = turbo_cfg.group_num
@@ -4494,6 +5056,8 @@ def main() -> None:
         "replaces": "fedml_tpu/core/pallas_agg.py:140",
         "launches": srvopt["k2_launches"],
         "launches_cross_silo_slice": k2_launches,
+        "launches_config3": {m: r["k2_launches"]
+                             for m, r in models["silo"].items()},
         "max_abs_err": k2_worst,
         "ms": sum(r["ms"] for r in shards),
         "plain_ms": sum(r["plain_ms"] for r in shards),
@@ -4557,6 +5121,24 @@ def main() -> None:
                                 cross_device["config4"].items()},
           config4_vs_cpu_max_abs_diff=cross_device["config4_vs_cpu"],
           cross_device_seconds=cross_device["seconds"],
+          zoo_rounds_per_s={
+              **{f"{k} {p}": v[p]["rounds_per_s"]
+                 for k, v in {**models["nwp"], **models["bn"]}.items()
+                 for p in ("host_loop", "graph")},
+              **{f"config3 {k}": v["rounds_per_s"]
+                 for k, v in models["silo"].items()},
+              "bn defended": models["robust"]["rounds_per_s"],
+              "centralized": models["central"]["rounds_per_s"]},
+          zoo_vs_cpu_max_abs_diff={
+              k: v["vs_cpu_max_abs_diff"] for k, v in
+              {**models["nwp"], **models["bn"],
+               **{f"config3 {m}": r for m, r in models["silo"].items()}
+               }.items()},
+          zoo_graph_bit_equal=all(
+              v["graph_vs_host_bit_equal"]
+              for v in {**models["nwp"], **models["bn"]}.values()),
+          zoo_oracle_max_abs_diff=models["oracle"]["max_abs_diff"],
+          zoo_seconds=models["seconds"],
           lm_flash_vs_blockwise_max_abs_diff=lm_diff,
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]

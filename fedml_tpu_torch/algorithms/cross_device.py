@@ -139,6 +139,11 @@ class CrossDevice(FedAvg):
             raise ValueError(
                 "scaffold's local update is plain SGD with control-variate "
                 "correction; --client_optimizer sgd only (Karimireddy'20)")
+        if cfg.local_alg == "scaffold" and workload.stateful:
+            raise ValueError(
+                "scaffold does not support stateful (BatchNorm) "
+                "workloads: control variates over running statistics "
+                "are undefined — use a GroupNorm model")
         if server_opt is not None and cfg.local_alg == "fednova":
             raise ValueError(
                 "--server_opt with --local_alg fednova is refused: "

@@ -66,6 +66,11 @@ def make_ditto_local(workload: Workload, lr: float, epochs: int,
 class Ditto(FedAvg):
     def __init__(self, workload, data, config: DittoConfig, sink=None,
                  device=None):
+        if workload.stateful:
+            raise ValueError(
+                "ditto does not support stateful (BatchNorm) workloads: "
+                "the proximal pull over running statistics is undefined — "
+                "use a GroupNorm model (e.g. resnet18_gn)")
         super().__init__(workload, data, config, sink=sink, device=device)
         cfg = config
         self._round_counter = 0

@@ -83,6 +83,11 @@ class FedAC(FedAvg):
             raise ValueError(
                 "fedac's local update IS the accelerated rule (Yuan&Ma'20 "
                 "Alg. 1); --client_optimizer sgd only")
+        if workload.stateful:
+            raise ValueError(
+                "fedac does not support stateful (BatchNorm) workloads: "
+                "the coupled sequences over running statistics are "
+                "undefined — use a GroupNorm model (e.g. resnet18_gn)")
         super().__init__(workload, data, config, sink=sink, device=device)
         cfg = config
         steps = int(self.data.train["x"].shape[1])  # batches per epoch

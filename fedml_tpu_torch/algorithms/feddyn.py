@@ -71,6 +71,11 @@ class FedDyn(FedAvg):
         if config.feddyn_alpha <= 0.0:
             raise ValueError("feddyn_alpha must be > 0 (the server step "
                              "divides by it)")
+        if workload.stateful:
+            raise ValueError(
+                "feddyn does not support stateful (BatchNorm) workloads: "
+                "the λ correction over running statistics is undefined — "
+                "use a GroupNorm model (e.g. resnet18_gn)")
         super().__init__(workload, data, config, sink=sink, device=device)
         cfg = config
         alpha = cfg.feddyn_alpha

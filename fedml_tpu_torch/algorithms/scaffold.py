@@ -72,6 +72,11 @@ class Scaffold(FedAvg):
                 "scaffold's local update is plain SGD with control-variate "
                 "correction (Karimireddy'20); --client_optimizer sgd only — "
                 "other optimizers would be silently ignored")
+        if workload.stateful:
+            raise ValueError(
+                "scaffold does not support stateful (BatchNorm) workloads: "
+                "control variates over running statistics are undefined — "
+                "use a GroupNorm model (e.g. resnet18_gn)")
         super().__init__(workload, data, config, sink=sink, device=device)
         cfg = config
         self._round_counter = 0

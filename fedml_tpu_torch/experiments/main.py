@@ -1,11 +1,12 @@
 """``python -m fedml_tpu_torch`` — the port's entry point.
 
 Runs ``fedavg``, ``fedavg_robust``, ``turboaggregate``, ``cross_silo``,
-``cross_device`` and the stateful cohort algorithms (``fedopt``,
-``fedprox``, ``fednova``, ``scaffold``, ``feddyn``, ``ditto``, ``fedac``,
-``dp_fedavg``) on the hermetic twins, on the GPU unless ``--platform
-cpu`` is given, writes ``metrics.jsonl`` and ``summary.json`` into
-``--run_dir`` and prints one final JSON summary line.  Examples, the
+``cross_device``, ``centralized`` and the stateful cohort algorithms
+(``fedopt``, ``fedprox``, ``fednova``, ``scaffold``, ``feddyn``,
+``ditto``, ``fedac``, ``dp_fedavg``) on the hermetic twins, on the GPU
+unless ``--platform cpu`` is given, writes ``metrics.jsonl`` and
+``summary.json`` into ``--run_dir`` and prints one final JSON summary
+line.  Examples, the
 FEMNIST-CNN configurations of the defended FedAvg, of secure FedAvg and of
 the live cross-silo federation with the sharded spine, FedAvg on the
 transformer LM over the Shakespeare twin, and the cross-device engine on
@@ -267,6 +268,44 @@ def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
             norm_screen_min_history=cfg.norm_screen_min_history,
             **_fedavg_cfg_kwargs(cfg)),
         sink=sink, device=cfg.platform, server_opt=server_opt)
+
+
+@runner("centralized")
+def run_centralized(cfg, data, sink):
+    """Centralized training on the pooled train split (BASELINE.md's
+    correctness oracle): one `CentralizedTrainer` call a round, keyed by
+    ``split`` from ``key(seed)`` per round; train (and test) metrics
+    every ``frequency_of_the_test`` rounds and on the last, logged as the
+    JAX runner logs them."""
+    from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
+    from fedml_tpu_torch.core import prng
+    wl = _make_workload(cfg, data)
+    trainer = CentralizedTrainer(wl, lr=cfg.lr,
+                                 client_optimizer=cfg.client_optimizer,
+                                 wd=cfg.wd, epochs_per_call=cfg.epochs)
+    device = resolve_device(cfg.platform)
+    params = wl.init(torch.Generator().manual_seed(cfg.seed), device)
+    rng = prng.key(cfg.seed)
+    round_times, stats = [], {}
+    for r in range(cfg.comm_round):
+        t0 = time.perf_counter()
+        rng, rr = prng.split(rng)
+        params = trainer.train_rounds(params, data.train_global, 1, rr)
+        synchronize(device)
+        round_times.append(time.perf_counter() - t0)
+        if r % cfg.frequency_of_the_test == 0 or r == cfg.comm_round - 1:
+            stats = {"train_" + k: v for k, v in trainer.metrics(
+                params, data.train_global).items()}
+            if data.test_global is not None:
+                stats.update({"test_" + k: v for k, v in trainer.metrics(
+                    params, data.test_global).items()})
+            stats["round"] = r
+            sink.log(stats, step=r)
+    steady = round_times[1:] or round_times
+    return {**stats,
+            "rounds_per_s": len(steady) / sum(steady) if steady else 0.0,
+            "params_finite": all(bool(v.isfinite().all())
+                                 for v in params.values())}
 
 
 def fedavg_robust_config(cfg: ExperimentConfig):
@@ -1006,9 +1045,9 @@ def check_cross_device(cfg: ExperimentConfig) -> None:
 
 # models that draw dropout masks, and the algorithms whose local trainers
 # take the dropout keys (`parallel.cohort.train_cohort`'s keyed trainers)
-STOCHASTIC_MODELS = ("cnn",)
+STOCHASTIC_MODELS = ("cnn", "mobilenet_v3")
 KEYED_ALGOS = ("fedavg", "fedavg_robust", "fedopt", "fedprox", "fednova",
-               "scaffold", "cross_device")
+               "scaffold", "cross_device", "centralized")
 
 
 def resolve_cross_device(cfg: ExperimentConfig) -> ExperimentConfig:

@@ -81,12 +81,14 @@ def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
 
 class Conv2d(nn.Module):
     """NCHW activations, HWIO kernel; flax's ``SAME`` (the default) or
-    ``VALID`` padding at any stride; ``use_bias`` and the init as flax's
-    ``nn.Conv`` arguments."""
+    ``VALID`` padding at any stride; ``use_bias``, ``groups`` (flax's
+    ``feature_group_count``: the kernel is ``[k, k, in / groups, out]``)
+    and the init as flax's ``nn.Conv`` arguments."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: str = "SAME",
-                 use_bias: bool = True, init: str = "lecun"):
+                 use_bias: bool = True, init: str = "lecun",
+                 groups: int = 1):
         super().__init__()
         if padding not in ("SAME", "VALID") or init not in ("lecun",
                                                              "fan_out"):
@@ -94,8 +96,9 @@ class Conv2d(nn.Module):
                              f"got {padding!r}, {init!r}")
         k = kernel_size
         self.k, self.stride, self.init = k, stride, init
+        self.groups = groups
         self.same = padding == "SAME"
-        self.kernel = nn.Parameter(torch.empty(k, k, in_channels,
+        self.kernel = nn.Parameter(torch.empty(k, k, in_channels // groups,
                                                out_channels))
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
                      else None)
@@ -116,7 +119,7 @@ class Conv2d(nn.Module):
         if self.same:
             x, pad = pad_same(x, self.k, self.stride)
         return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias,
-                        stride=self.stride, padding=pad)
+                        stride=self.stride, padding=pad, groups=self.groups)
 
 
 def dropout(x: torch.Tensor, rate: float, key: Optional[torch.Tensor],

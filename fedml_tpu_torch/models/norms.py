@@ -11,16 +11,48 @@ block, so a block starts as the identity).
 flax computes a group's variance as ``E[x^2] - E[x]^2``; this module
 uses ``F.group_norm``, which subtracts the mean first.  The two differ by
 the cancellation in flax's form (tests/test_torch_resnet.py states the
-tolerance that costs).  ``kind="batch"`` (BatchNorm's running statistics,
-``Workload.stateful``) is not ported: it is refused by name."""
+tolerance that costs).
+
+``kind="batch"`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
+under ``Norm_k/BatchNorm_0``: ``scale`` and ``bias`` are parameters,
+the running ``mean`` and ``var`` buffers (the ``batch_stats`` collection
+of a stateful workload, `trainer.workload`).  It normalises with the
+running statistics unless a `batch_stats_collector` is open; inside one
+(a stateful workload's ``loss_fn``, train mode) it normalises with the
+batch's statistics over every row, H and W (padded rows included, as in
+flax) and records the new running statistics in the collector instead
+of writing its buffers, so that ``torch.func.vmap`` and ``grad`` over
+clients see a pure function.  flax's conventions, not
+``F.batch_norm``'s: the variance is the biased ``E[x^2] - E[x]^2``
+clipped at 0, in the normalisation and in the running ``var`` alike, and
+``new = 0.9 * running + 0.1 * batch``."""
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-NORM_KINDS = ("group", "none")
+NORM_KINDS = ("group", "batch", "none")
+
+# the open collector of the current thread (each thread has its own)
+_COLLECTOR: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_stats_collector", default=None)
+
+
+@contextlib.contextmanager
+def batch_stats_collector():
+    """Train mode for the `BatchNorm` layers run inside the block: yields
+    a dict that maps each layer run to its new ``(mean, var)``."""
+    out = {}
+    token = _COLLECTOR.set(out)
+    try:
+        yield out
+    finally:
+        _COLLECTOR.reset(token)
 
 
 def group_count(channels: int, channels_per_group: int) -> int:
@@ -47,24 +79,65 @@ class GroupNorm(nn.Module):
         return F.group_norm(x, self.groups, self.scale, self.bias, self.eps)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the channel axis (1) of NCHW (or
+    ``[B, C]``) activations; see the module docstring."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9, zero_init: bool = False,
+                 affine: bool = True):
+        super().__init__()
+        self.eps, self.momentum, self.zero_init = eps, momentum, zero_init
+        self.scale = nn.Parameter(torch.ones(channels)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if affine else None
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def reset_parameters(self, generator=None) -> None:
+        if self.scale is not None:
+            self.scale.data.fill_(0.0 if self.zero_init else 1.0)
+            self.bias.data.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        collector = _COLLECTOR.get()
+        if collector is None:
+            mean, var = self.mean, self.var
+        else:
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = torch.mean(x, dim=dims)
+            var = torch.clamp(torch.mean(x * x, dim=dims) - mean * mean,
+                              min=0.0)
+            m = self.momentum
+            collector[self] = (m * self.mean + (1.0 - m) * mean,
+                               m * self.var + (1.0 - m) * var)
+        # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
+        mul = torch.rsqrt(var + self.eps)
+        if self.scale is not None:
+            mul = mul * self.scale
+        y = (x - mean.reshape(shape)) * mul.reshape(shape)
+        return y if self.bias is None else y + self.bias.reshape(shape)
+
+
 class Norm(nn.Module):
     def __init__(self, channels: int, kind: str = "group",
                  channels_per_group: int = 32, zero_init: bool = False,
                  affine: bool = True):
         super().__init__()
-        if kind == "batch":
-            raise NotImplementedError(
-                "norm='batch' is not ported: BatchNorm's running statistics "
-                "need the stateful workload (Workload.stateful, ROADMAP "
-                "Queue 1 item 10); the ResNets default to GroupNorm")
         if kind not in NORM_KINDS:
-            raise ValueError(f"unknown norm {kind!r}; have {NORM_KINDS} "
-                             f"(and 'batch', not ported)")
+            raise ValueError(f"unknown norm {kind!r}; have {NORM_KINDS}")
         self.kind = kind
         if kind == "group":
             self.GroupNorm_0 = GroupNorm(
                 channels, group_count(channels, channels_per_group),
                 zero_init=zero_init, affine=affine)
+        elif kind == "batch":
+            self.BatchNorm_0 = BatchNorm(channels, zero_init=zero_init,
+                                         affine=affine)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.kind == "none" else self.GroupNorm_0(x)
+        if self.kind == "group":
+            return self.GroupNorm_0(x)
+        return x if self.kind == "none" else self.BatchNorm_0(x)

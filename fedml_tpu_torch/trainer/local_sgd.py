@@ -13,7 +13,13 @@ data, rng)`` takes ``rng`` ``[epochs * S, 2]``, the JAX trainer's chain
 ``rng, dropout_rng = split(rng)`` from the client's key, derived outside
 the vmap by ``train.rng_inputs(client_keys [C, 2], S)`` (`with_rng_inputs`).
 A deterministic workload's trainers have ``rng_inputs = None`` and take no
-key."""
+key.
+
+A stateful workload (BatchNorm) trains its ``params/...`` leaves only:
+gradients, the FedProx term, the clip and the optimizer (its weight
+decay included) see those.  The running statistics ride beside them,
+taking each step's ``aux["state"]`` (kept as they were on a fully padded
+batch, like the weights), and the output is the whole tree again."""
 
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from torch.func import grad
 
 from fedml_tpu_torch.core import prng
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
-from fedml_tpu_torch.trainer.workload import Workload
+from fedml_tpu_torch.trainer.workload import Workload, is_trained
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
@@ -55,11 +61,28 @@ def with_rng_inputs(train, workload: Workload, epochs: int):
     return train
 
 
-def step_grad(grad_fn, params, batch, rng, step: int):
-    """``grad_fn`` at one step, with that step's dropout key when the
-    trainer is keyed."""
-    return (grad_fn(params, batch) if rng is None
-            else grad_fn(params, batch, rng[step]))
+def step_grad(grad_fn, params, batch, rng, step: int, *extra):
+    """``grad_fn(params, batch, *extra)`` at one step, with that step's
+    dropout key last when the trainer is keyed."""
+    return (grad_fn(params, batch, *extra) if rng is None
+            else grad_fn(params, batch, *extra, rng[step]))
+
+
+def split_state(params: Tree, stateful: bool) -> Tuple[Tree, Tree]:
+    """(trained leaves, running statistics) of a tree; a stateless
+    workload's tree is all trained."""
+    if not stateful:
+        return params, {}
+    return ({k: v for k, v in params.items() if is_trained(k)},
+            {k: v for k, v in params.items() if not is_trained(k)})
+
+
+def join_state(trained: Tree, state: Tree) -> Tree:
+    """The inverse of `split_state`, in JAX's leaf order."""
+    if not state:
+        return trained
+    tree = {**trained, **state}
+    return {k: tree[k] for k in tree_keys(tree)}
 
 
 def make_local_trainer(workload: Workload, optimizer, epochs: int,
@@ -69,17 +92,23 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
     FedProx's proximal gradient ``mu * (w - w_global)`` each step (the
     global is the params the call started from), before the clip."""
 
-    grad_fn = grad(workload.loss_fn, has_aux=True)
+    stateful = workload.stateful
+
+    def _loss(trained, batch, state, *rng):
+        return workload.loss_fn({**trained, **state}, batch, *rng)
+
+    grad_fn = grad(_loss, has_aux=True)
 
     def train(params: Tree, data: Dict[str, torch.Tensor], rng=None
               ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+        params, state = split_state(params, stateful)
         opt_state = optimizer.init(params)
         init_params = params
         num_steps = data["mask"].shape[0]
         losses = []
         for step in range(epochs * num_steps):
             batch = {k: v[step % num_steps] for k, v in data.items()}
-            grads, aux = step_grad(grad_fn, params, batch, rng, step)
+            grads, aux = step_grad(grad_fn, params, batch, rng, step, state)
             if prox_mu:
                 grads = {k: g + prox_mu * (params[k] - init_params[k])
                          for k, g in grads.items()}
@@ -88,14 +117,17 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
             updates, new_state = optimizer.update(grads, opt_state, params)
             new_params = {k: (params[k] + updates[k]).to(params[k].dtype)
                           for k in params}
-            # a fully padded batch leaves params and optimizer state as
-            # they were (SGD's gradient is 0 there anyway; Adam's eps would
-            # still move them)
+            # a fully padded batch leaves params, running statistics and
+            # optimizer state as they were (SGD's gradient is 0 there
+            # anyway; Adam's eps would still move them)
             got_data = torch.sum(batch["mask"]) > 0
             params = _select(got_data, new_params, params)
+            if stateful:
+                state = _select(got_data, aux["state"], state)
             opt_state = _select(got_data, new_state, opt_state)
             losses.append(aux["loss"])
-        return params, {"train_loss_per_step": torch.stack(losses)}
+        return (join_state(params, state),
+                {"train_loss_per_step": torch.stack(losses)})
 
     return with_rng_inputs(train, workload, epochs)
 

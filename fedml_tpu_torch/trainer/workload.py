@@ -25,6 +25,7 @@ from torch import nn
 from torch.func import functional_call
 
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.models.norms import BatchNorm, batch_stats_collector
 
 Batch = Dict[str, torch.Tensor]
 
@@ -97,23 +98,45 @@ class Workload:
     """``loss_fn(params, batch, rng=None) -> (loss, aux)``;
     ``metric_fn(params, batch) -> dict of summable metrics`` (including
     ``correct``, ``loss_sum`` and ``total``).  ``stochastic``: the model
-    draws dropout masks in train mode (``loss_fn`` given an ``rng``)."""
+    draws dropout masks in train mode (``loss_fn`` given an ``rng``).
+    ``stateful``: params are ``params/...`` and ``batch_stats/...`` and
+    ``loss_fn``'s aux carries the new statistics as ``"state"``."""
     model: nn.Module
     loss_fn: Callable[..., tuple]
     metric_fn: Callable[[Tree, Batch], Dict[str, torch.Tensor]]
     grad_clip_norm: Optional[float] = None
     stochastic: bool = False
+    stateful: bool = False
 
     def init(self, generator: Optional[torch.Generator] = None,
              device="cpu") -> Tree:
         """Fresh parameters in JAX's leaf order, drawn on the CPU from
-        ``generator`` (so one seed gives the same weights on any device)."""
+        ``generator`` (so one seed gives the same weights on any device);
+        a stateful workload's running means 0 and variances 1."""
         for m in self.model.modules():
             if m is not self.model and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
         params = {k.replace(".", "/"): p.detach().clone()
                   for k, p in self.model.named_parameters()}
+        if self.stateful:
+            params = {**{f"params/{k}": v for k, v in params.items()},
+                      **{"batch_stats/" + k.replace(".", "/"):
+                         b.detach().clone()
+                         for k, b in self.model.named_buffers()}}
         return {k: params[k].to(device) for k in tree_keys(params)}
+
+
+def is_trained(path: str) -> bool:
+    """Whether a leaf of a stateful tree is trained (``params/...``), not
+    a running statistic."""
+    return path.startswith("params/")
+
+
+def _module_names(params: Tree) -> Dict[str, torch.Tensor]:
+    """Flat params -> ``functional_call``'s names: a stateful tree's
+    collection prefix dropped, ``/`` -> ``.``."""
+    return {(k.split("/", 1)[1] if k.startswith(("params/", "batch_stats/"))
+             else k).replace("/", "."): v for k, v in params.items()}
 
 
 def apply_model(model: nn.Module, params: Tree, x: torch.Tensor,
@@ -121,8 +144,37 @@ def apply_model(model: nn.Module, params: Tree, x: torch.Tensor,
     """The model's forward over ``params``; with ``rng`` (a key's words)
     in train mode, its dropout masks keyed by it."""
     kwargs = {} if rng is None else {"dropout_key": rng}
-    return functional_call(model, {k.replace("/", "."): v
-                                   for k, v in params.items()}, (x,), kwargs)
+    return functional_call(model, _module_names(params), (x,), kwargs)
+
+
+def batch_norm_paths(model: nn.Module) -> Dict[nn.Module, str]:
+    """Each BatchNorm layer of ``model`` and its path (``Norm_0/
+    BatchNorm_0``)."""
+    return {m: name.replace(".", "/") for name, m in model.named_modules()
+            if isinstance(m, BatchNorm)}
+
+
+def check_stateful(model: nn.Module, stateful: bool) -> Dict[nn.Module, str]:
+    """A model with BatchNorm layers trains only as a stateful workload
+    (its running statistics are params), and only such a model makes
+    one; returns the layers' paths."""
+    paths = batch_norm_paths(model)
+    if bool(paths) != stateful:
+        raise ValueError(
+            f"stateful={stateful} with a model that has "
+            f"{len(paths)} BatchNorm layers: BatchNorm's running statistics "
+            f"ride a stateful workload (stateful=True), and only they do")
+    return paths
+
+
+def train_state(paths: Dict[nn.Module, str], stats: Dict) -> Tree:
+    """A train-mode forward's new running statistics (the collector's
+    ``{layer: (mean, var)}``) as ``batch_stats/...`` leaves."""
+    out = {}
+    for layer, (mean, var) in stats.items():
+        out[f"batch_stats/{paths[layer]}/mean"] = mean
+        out[f"batch_stats/{paths[layer]}/var"] = var
+    return out
 
 
 def is_stochastic(model: nn.Module) -> bool:
@@ -135,10 +187,12 @@ def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def ClassificationWorkload(model: nn.Module, num_classes: int,
-                           grad_clip_norm: Optional[float] = 1.0
-                           ) -> Workload:
+                           grad_clip_norm: Optional[float] = 1.0,
+                           stateful: bool = False) -> Workload:
     """Softmax cross-entropy on logits, mean over valid rows; metrics sum
-    top-1 (and top-5 above 5 classes) hits, loss and row count."""
+    top-1 (and top-5 above 5 classes) hits, loss and row count.
+    ``stateful=True`` for BatchNorm models (see the module docstring)."""
+    paths = check_stateful(model, stateful)
 
     def _ce(params, batch, rng=None):
         logits = apply_model(model, params, batch["x"], rng).to(
@@ -147,9 +201,16 @@ def ClassificationWorkload(model: nn.Module, num_classes: int,
         return logits, ce
 
     def loss_fn(params, batch, rng=None):
-        _, ce = _ce(params, batch, rng)
+        if stateful:
+            with batch_stats_collector() as stats:
+                _, ce = _ce(params, batch, rng)
+        else:
+            _, ce = _ce(params, batch, rng)
         loss = _masked_mean(ce, batch["mask"])
-        return loss, {"loss": loss}
+        aux = {"loss": loss}
+        if stateful:
+            aux["state"] = train_state(paths, stats)
+        return loss, aux
 
     def metric_fn(params, batch):
         logits, ce = _ce(params, batch)
@@ -166,7 +227,7 @@ def ClassificationWorkload(model: nn.Module, num_classes: int,
 
     return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
                     grad_clip_norm=grad_clip_norm,
-                    stochastic=is_stochastic(model))
+                    stochastic=is_stochastic(model), stateful=stateful)
 
 
 def make_nwp_loss_metrics(forward, pad_id: int = 0):

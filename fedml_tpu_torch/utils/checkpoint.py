@@ -14,7 +14,10 @@ It is written under a temporary name and renamed, so a step directory is
 either complete or absent.  A round key is saved as its two uint32 words
 (a numpy array).  Beside the steps, ``manifests/<step>.json`` holds a
 crc32 per top-level key of the state (`utils.journal.tree_crc`, JAX's
-leaf order) for a reader that wants to check what it loads.
+leaf order) for a reader that wants to check what it loads.  A stateful
+(BatchNorm) workload's params hold both collections (``params/...`` and
+``batch_stats/...``), so its running statistics are saved and resumed
+with the weights, and its crc is JAX's over the variables tree.
 
 ``async_save`` copies the state to the host on the caller's thread (so a
 buffer the next round overwrites is read now) and writes it on one

@@ -3,7 +3,10 @@
 The port stores parameters in flax's layout (conv kernels HWIO, dense
 kernels ``[in, out]``, attention kernels ``[d_model, H, d_head]`` and
 ``[H, d_head, d_model]``) under flax's paths, so the carry is a renaming:
-``{"Dense_0": {"kernel": a}}`` <-> ``{"Dense_0/kernel": tensor(a)}``.
+``{"Dense_0": {"kernel": a}}`` <-> ``{"Dense_0/kernel": tensor(a)}``.  A
+stateful (BatchNorm) workload's variables carry both collections the
+same way: ``{"params": ..., "batch_stats": ...}`` <-> ``params/...`` and
+``batch_stats/...``.
 Inputs and outputs on the JAX side are nested dicts of numpy arrays (pass
 ``jax.tree.map(np.asarray, params)``); this module imports no JAX."""
 

@@ -250,12 +250,12 @@ def test_cli_runner_runs_on_cpu(algo, tmp_path):
 
 
 def test_unported_models_name_their_roadmap_item():
-    """The image models still to come (MobileNet, EfficientNet, VGG) are
-    refused naming ROADMAP Queue 1 item 10; CNNDropOut (``--model cnn``)
-    and the transformer's dropout ride the dropout seam now."""
+    """The image models still to come (EfficientNet, VGG) are refused
+    naming ROADMAP Queue 1 item 10; CNNDropOut (``--model cnn``) and the
+    transformer's dropout ride the dropout seam now."""
     from fedml_tpu_torch.models.transformer import TransformerLM
     with pytest.raises(KeyError, match="item 10"):
-        main(["--model", "mobilenet", "--dataset", "femnist", "--platform",
+        main(["--model", "efficientnet", "--dataset", "femnist", "--platform",
               "cpu", "--client_num_in_total", "4", "--comm_round", "1"])
     assert TransformerLM(vocab_size=8, dropout_rate=0.1).stochastic
 

@@ -577,3 +577,125 @@ def test_phase_ab_refuses_without_a_card_or_a_known_phase(monkeypatch):
         phase_ab.main(["secagg", "a", "b"])
     with pytest.raises(SystemExit, match="needs a GPU"):
         phase_ab.main(["mqtt", "a", "b"])
+
+
+# ---------------------------------------------------------------------------
+# the model-zoo phase (8m), rehearsed on the CPU at a tiny size
+# ---------------------------------------------------------------------------
+
+def test_zoo_phase_configs_parse_and_pass_the_gates():
+    """At the card's sizes: BASELINE config 5's two LSTM runs (715
+    clients, 10 a round, B=4, lr 1; 342,477 clients, 50 a round, B=16,
+    lr 10^-0.5), config 3's live cross-silo runs (10 silos, B=64, lr
+    0.001, wd 0.001, E=2 (cut from 20), S=4, K2 on) on both models, the
+    BatchNorm FedAvg and defended runs, the centralized runner."""
+    got = {k: cs.cd_cfg(v, "cpu") for k, v in cs.ZOO_NWP_ARGS.items()}
+    assert {k: (c.model, c.dataset, c.client_num_in_total,
+                c.client_num_per_round, c.batch_size, c.lr, c.epochs)
+            for k, c in got.items()} == {
+        "config5a": ("rnn", "shakespeare", 715, 10, 4, 1.0, 1),
+        "config5b": ("rnn", "stackoverflow_nwp", 342_477, 50, 16, 0.31623,
+                     1)}
+    for model in cs.CONFIG3_MODELS:
+        c = cs.cd_cfg([*cs.CONFIG3_ARGS, "--model", model], "cpu")
+        assert (c.algo, c.agg_mode, c.model_shards, c.fused_finalize,
+                c.client_num_per_round, c.batch_size, c.lr, c.wd,
+                c.epochs) == ("cross_silo", "stream", 4, "on", 10, 64,
+                              0.001, 0.001, 2)
+    assert cs.CONFIG3_MODELS == ("resnet56", "mobilenet")
+    bn = cs.cd_cfg(cs.BN_ROBUST_ARGS, "cpu")
+    assert (bn.algo, bn.defense, bn.defense_backend, bn.norm_bound,
+            bn.stddev, bn.client_num_per_round, bn.batch_size, bn.lr) == (
+        "fedavg_robust", "weak_dp", "cuda", 5.0, 0.025, 10, 64, 0.1)
+    assert cs.cd_cfg(cs.CENTRAL_ARGS, "cpu").algo == "centralized"
+    assert set(cs.bn_models()) == {"resnet56_bn", "mobilenet_bn"}
+    assert cs.BN_ROBUST_MODEL in cs.bn_models()
+
+
+def test_profile_once_counts_a_round_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(cs, "CARD", "cpu")
+    x = torch.ones(64)
+    row = cs.profile_once(lambda: [x.add_(1) for _ in range(4)], 2)
+    assert row["profiled_round_ms"] > 0
+    assert row["device_kernels_per_round"] == 0
+    assert row["device_idle_share"] is None
+    assert cs.steady([5.0, 1.0, 3.0]) == {"rounds_per_s": 0.5,
+                                          "round_ms": 2000.0}
+
+
+def test_zoo_phase_on_the_cpu(monkeypatch):
+    """Phase 8m end to end on CPU tensors, one intra-op thread, 2 rounds a
+    path: the LSTMs narrowed (hidden 16) on 6-client twins, 3 a round,
+    the twins' sequences cut to 8 and 4 tokens;
+    config 3 on LR (3 silos, E=1); the BatchNorm ResNet's stem alone
+    (conv, BatchNorm, dense) for the FedAvg and defended runs (K1's plain
+    version); centralized on 5 clients; the oracle at 4.  Plain calls of
+    K2 count as its launches."""
+    from functools import partial
+
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.data import registry
+    from fedml_tpu_torch.data.synthetic import synthetic_federated_dataset
+    from fedml_tpu_torch.experiments import models as exp_models
+    from fedml_tpu_torch.models.resnet import CifarResNet
+    from fedml_tpu_torch.models.rnn import (RNNOriginalFedAvg,
+                                            RNNStackOverflow)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setattr(cs, "CARD", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(exp_models, "RNNOriginalFedAvg",
+                        lambda vocab_size: RNNOriginalFedAvg(vocab_size, 8,
+                                                             16))
+    monkeypatch.setattr(exp_models, "RNNStackOverflow",
+                        lambda: RNNStackOverflow(embedding_size=8,
+                                                 latent_size=16))
+    monkeypatch.setitem(registry._REGISTRY, "shakespeare", partial(
+        synthetic_federated_dataset, sample_shape=(8,), sequence_vocab=90,
+        class_num=90))
+    monkeypatch.setitem(registry._REGISTRY, "stackoverflow_nwp", partial(
+        synthetic_federated_dataset, sample_shape=(4,),
+        sequence_vocab=10004, class_num=10004))
+    small = ["--client_num_in_total", "6", "--client_num_per_round", "3"]
+    monkeypatch.setattr(cs, "ZOO_NWP_ARGS", {
+        "config5a": [*cs.ZOO_NWP_ARGS["config5a"], *small, "--batch_size",
+                     "32"],
+        "config5b": [*cs.ZOO_NWP_ARGS["config5b"], *small]})
+    monkeypatch.setattr(cs, "CONFIG3_ARGS", [
+        *cs.CONFIG3_ARGS, "--client_num_in_total", "3",
+        "--client_num_per_round", "3", "--epochs", "1"])
+    monkeypatch.setattr(cs, "CONFIG3_MODELS", ("lr",))
+    monkeypatch.setattr(cs, "ZOO_ROUNDS", 2)
+    monkeypatch.setattr(cs, "bn_models", lambda: {"tiny_bn": lambda: (
+        CifarResNet(layers=(0, 0, 0), num_classes=10, norm="batch"))})
+    monkeypatch.setattr(cs, "BN_ROBUST_MODEL", "tiny_bn")
+    bn_args = [*cs.BN_ARGS, "--client_num_in_total", "3",
+               "--client_num_per_round", "3"]
+    monkeypatch.setattr(cs, "BN_ROBUST_ARGS", [
+        *bn_args, *cs.BN_ROBUST_ARGS[len(cs.BN_ARGS):]])
+    monkeypatch.setattr(cs, "BN_ARGS", bn_args)
+    monkeypatch.setattr(cs, "CENTRAL_ARGS", [
+        *cs.CENTRAL_ARGS, "--client_num_in_total", "5"])
+    monkeypatch.setattr(cs, "ORACLE_CLIENTS", 4)
+    real = fused_agg.shard_finalize_plain
+
+    def counted(*a, **k):
+        fused_agg.launch_counts["shard_finalize"] += 1
+        return real(*a, **k)
+    monkeypatch.setattr(fused_agg, "shard_finalize_plain", counted)
+    try:
+        out = cs.check_zoo_models(MAX_SM_HZ)
+    finally:
+        torch.set_num_threads(n_threads)
+    for row in [*out["nwp"].values(), *out["bn"].values()]:
+        assert row["graph_vs_host_bit_equal"]
+        assert row["vs_cpu_max_abs_diff"] <= cs.ROUND_TOL
+        assert row["host_loop"]["rounds_per_s"] > 0
+        assert "device_kernels_per_round" in row["graph"]
+    assert out["bn"]["tiny_bn"]["stats_moved"] > 1e-3
+    assert out["silo"]["lr"]["k2_launches"] == 12    # 4 shards x 3 rounds
+    k1 = out["robust"]["k1"]
+    assert k1["stats_unclipped"] and k1["max_abs_err"] <= cs.KERNEL_TOL
+    assert k1["weight_leaves"] < k1["leaves"]
+    assert out["central"]["rounds_per_s"] > 0
+    assert out["oracle"]["allclose_excess"] <= 0

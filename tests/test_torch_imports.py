@@ -213,3 +213,27 @@ def test_cross_device_slice_modules_import_without_jax():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+ZOO_MODULES = (
+    "fedml_tpu_torch.models.rnn", "fedml_tpu_torch.models.mobilenet",
+    "fedml_tpu_torch.models.norms", "fedml_tpu_torch.trainer.workload",
+    "fedml_tpu_torch.trainer.local_sgd",
+    "fedml_tpu_torch.algorithms.centralized",
+    "fedml_tpu_torch.algorithms.fedavg_robust",
+    "fedml_tpu_torch.utils.checkpoint", "fedml_tpu_torch.utils.jax_params",
+    "fedml_tpu_torch.experiments.models",
+    "fedml_tpu_torch.experiments.main")
+
+
+def test_zoo_slice_modules_import_without_jax():
+    """The model-zoo slice's modules (the LSTMs, the MobileNets,
+    BatchNorm and the stateful workload, the centralized runner), each
+    named, import with JAX and the JAX package blocked."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {ZOO_MODULES!r}:\n"
+            f"    importlib.import_module(m)\nprint('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -79,7 +79,7 @@ def test_port_init_matches_flax_layout():
 
 def test_unported_model_named():
     with pytest.raises(KeyError, match="item 10"):
-        create_workload("mobilenet", "femnist", 62, (28, 28, 1))
+        create_workload("vgg11", "femnist", 62, (28, 28, 1))
 
 
 # CNNDropOut's eval-mode logits: f32 sums in another order, as the CNN's

@@ -138,8 +138,10 @@ def test_gates_and_refusals_are_named():
     with pytest.raises(ValueError, match="only apply to --model transformer"):
         create_workload("cnn_fedavg", "femnist", 62, (28, 28, 1),
                         attn_flash=True)
-    with pytest.raises(KeyError, match="rnn.py"):
-        create_workload("rnn", "shakespeare", 90, (80,))
+    # every other model name trains the LSTM there, as in the JAX package
+    from fedml_tpu_torch.models import RNNOriginalFedAvg
+    assert isinstance(create_workload("rnn", "shakespeare", 90,
+                                      (80,)).model, RNNOriginalFedAvg)
     wl = create_workload("transformer", "stackoverflow_nwp", 10004, (20,),
                          attn_block_size=10)
     assert wl.model.attn_0.block_size == 10

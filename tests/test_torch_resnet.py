@@ -122,8 +122,13 @@ def test_norm_group_counts_match_flax(channels, per_group):
                                              jnp.asarray(x))
     assert float(np.abs(zj["params"]["GroupNorm_0"]["scale"]).sum()) == 0.0
     assert list(Norm(channels, "none").parameters()) == []
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Norm(channels, "batch")
+    # BatchNorm builds under flax's path (tests/test_torch_batchnorm.py
+    # holds it to flax)
+    bn = Norm(channels, "batch")
+    assert [k for k, _ in bn.named_parameters()] == ["BatchNorm_0.scale",
+                                                     "BatchNorm_0.bias"]
+    assert [k for k, _ in bn.named_buffers()] == ["BatchNorm_0.mean",
+                                                  "BatchNorm_0.var"]
 
 
 @pytest.mark.parametrize("size", [15, 16, 32, 7])
