@@ -179,7 +179,7 @@ each printed as it ends; any failure exits non-zero:
    the CPU (limit 1e-4); rounds/s and round ms of each path, one profiled
    graphed round (host launch calls, device kernels, idle share), peak
    memory, the running statistics moved; config 3's live cross-silo federation (S=4,
-   K2 on; E=2, cut from 20) on ``resnet56`` and ``mobilenet``, 3 rounds
+   K2 on; E=1, cut from 20) on ``resnet56`` and ``mobilenet``, 3 rounds
    each through the runner: exactly 4 K2 launches a round, one profiled
    round, one round against the CPU at ``CONFIG3_PARITY_EPOCHS`` (1); the
    BatchNorm ResNet-56 through the defended mean (weak DP, fused
@@ -190,6 +190,36 @@ each printed as it ends; any failure exits non-zero:
    centralized`` through the runner, and the full-batch oracle on LR
    over the mnist twin (full-participation FedAvg against centralized
    training, rtol 2e-4, atol 2e-5, accuracy 1e-3);
+8n. live machinery — on the CNN at config 2's widths (3400 clients, 10
+   silos or 10 a round, B=20, lr 0.1, E=1), each run through the CLI's
+   runners on the card, one ``live <run>`` line each: (1) the sharded
+   spine (S=4, K2 on, clip 5, sigma 0.025), 3 rounds inline and with
+   ``--ingest_pipeline``: the globals bit-equal, K2 exactly 4 x 3 in each
+   and K1 and K3 never, one pinned-arena copy per upload and shard
+   (and, where the profiler names its memcpys, that many pinned H2D
+   copies in a profiled pipelined round), the admission ms a round on
+   each path; (2) the same spine with ``--straggler_policy drop
+   --round_timeout_s 30 --adaptive_deadline --min_quorum 0.6
+   --adversary 2:scale:20,3:nan_bomb`` for 4 rounds: silo 3's NaN never
+   reaches the global, silo 2 struck and quarantined, the tracker's
+   deadlines and verdicts; its first round against the CPU (TF32 off,
+   1e-4); (3) flat ``--wire_compression topk --error_feedback`` and
+   ``int8``, 3 rounds each: wire bytes against the uncompressed bytes,
+   one round of each against the CPU (1e-4); (4) ``--algo async_fl``, 10
+   silos, goal 5, stream, clip 5, adam (lr 0.01), journaled, 6 versions:
+   versions/s, the mean staleness, a kill at the last version's barrier
+   close resumed bit-equal to the straight run, the first version's
+   finalize (1e-4) and Adam step (1e-6) against the CPU; (5)
+   ``--edge_aggregators 2`` plaintext and ``--secagg grouped``, 3 rounds:
+   grouped against plaintext within ``SECAGG_TOL``, an edge killed after
+   a fold in round 1 resumed from its journal bit-equal; (6) ``--algo
+   hierarchical --group_num 2 --group_comm_round 2``, 3 rounds: round ms,
+   ``group_num 1 / group_comm_round 1`` against ``--algo fedavg`` (1e-5),
+   one round against the CPU (1e-4); (7) phase 8l's wave engine (1000 a
+   round in waves of 256), 2 rounds inline and with ``--ingest_pipeline``,
+   both with ``--wave_adversary 1:0:nan_bomb``: bit-equal, the poisoned
+   wave rejected; one API round with a `ReliabilityTracker` merging the
+   indebted clients into the next round's cohort; the phase's seconds;
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
@@ -4407,11 +4437,12 @@ CONFIG3_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
                 "--fused_finalize", "on", "--dataset", "cifar10",
                 "--client_num_in_total", "10", "--client_num_per_round",
                 "10", "--batch_size", "64", "--lr", "0.001", "--wd", "0.001",
-                "--epochs", "2", "--comm_round", "3",
+                "--epochs", "1", "--comm_round", "3",
                 "--frequency_of_the_test", "1000", "--log_stdout", "false"]
-# cut: E=2 of the published E=20.  Each silo trains eagerly, one step an
+# cut: E=1 of the published E=20.  Each silo trains eagerly, one step an
 # epoch on the twin; at E=20 a ResNet-56 round took 25.1 s on an H100
-# (877,248 launches), which the phase's time cannot hold
+# (877,248 launches), and the whole script took 1076 s of its 1200 s
+# limit with these runs and their profiled round at E=2
 CONFIG3_MODELS = ("resnet56", "mobilenet")
 # the CPU reference round runs 1 epoch: at E=2 a ResNet-56 round took
 # ~75 s on the host cores of an H100 machine
@@ -4898,6 +4929,535 @@ def check_zoo_models(sm_hz):
                 oracle=oracle, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# the live machinery (phase 8n): the pipelined ingest on the sharded spine,
+# the reliability tracker and the adversary harness, wire compression,
+# async_fl, the edge tier with grouped SecAgg, hierarchical FL and the
+# wave engine's seams
+# ---------------------------------------------------------------------------
+
+MACH_ROUNDS = 3                  # rounds of the ingest, compression, edges
+MACH_DEGRADE = ["--straggler_policy", "drop", "--round_timeout_s", "30",
+              "--adaptive_deadline", "true", "--min_quorum", "0.6",
+              "--adversary", "2:scale:20,3:nan_bomb",
+              "--strikes_to_quarantine", "2", "--norm_screen_min_history",
+              "3"]
+MACH_DEGRADE_ROUNDS = 4
+MACH_COMPRESS = {"topk": ["--wire_compression", "topk", "--error_feedback",
+                        "true"],
+               "int8": ["--wire_compression", "int8"]}
+MACH_ASYNC = ["--algo", "async_fl", "--silo_backend", "local",
+              "--async_goal", "5", "--agg_mode", "stream", "--norm_clip",
+              "5.0", "--server_opt", "adam", "--server_lr", "0.01",
+              *COMMON_ARGS]
+MACH_ASYNC_DURABLE = ["--journal", "true", "--checkpoint_every", "1",
+                      "--journal_snapshot_every", "1"]
+MACH_ASYNC_VERSIONS = 6
+MACH_EDGES = ["--edge_aggregators", "2"]
+MACH_EDGE_KILL = ("post_fold_pre_ack", 2)   # edge 1's second fold, round 1
+MACH_HIER = ["--algo", "hierarchical", "--group_num", "2",
+           "--group_comm_round", "2", *COMMON_ARGS]
+MACH_ORACLE_TOL = 1e-5           # group_num 1 / group_comm_round 1 vs fedavg
+MACH_WAVES = ["--wave_adversary", "1:0:nan_bomb", "--comm_round", "2"]
+
+
+def mach_drive(fed, max_timeouts: int = 8) -> None:
+    """`live_drive` with the ingest pipeline's drain as the pump's idle
+    hook."""
+    from fedml_tpu_torch.algorithms.cross_silo import MsgType
+    from fedml_tpu_torch.comm.message import Message
+    server = fed.server
+    hook = fed.ingest.drain if fed.ingest is not None else None
+    sync(fed.cfg.platform)
+    fed.t_start = time.perf_counter()
+    try:
+        for edge in fed.edges:
+            edge.resume()
+        server.start()
+        fed.hub.pump(idle_hook=hook)
+        sent = 0
+        while not server._finished and server.round_idx < fed.cfg.comm_round:
+            if sent == max_timeouts:
+                fail(f"the federation stalled at round {server.round_idx}")
+            server.send(MsgType.ROUND_TIMEOUT, 0,
+                        **{Message.ARG_ROUND: server.round_idx})
+            sent += 1
+            fed.hub.pump(idle_hook=hook)
+    finally:
+        server.finish()
+        if fed.checkpointer is not None:
+            fed.checkpointer.close()
+
+
+def mach_counts():
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.secure import fused_mask
+    return {**fused_agg.launch_counts, **fused_mask.launch_counts}
+
+
+def mach_reset_counts() -> None:
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.secure import fused_mask
+    fused_agg.reset_launch_counts()
+    fused_mask.reset_launch_counts()
+
+
+def mach_timed(obj, name: str, acc: list) -> None:
+    """Add each call's host seconds of ``obj.name`` to ``acc``."""
+    real = getattr(obj, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            acc.append(time.perf_counter() - t0)
+    setattr(obj, name, timed)
+
+
+def mach_pinned_copies(fed) -> dict:
+    """One more pipelined round, profiled: the memcpy kinds the profiler
+    names (pinned host-to-device copies are the arenas')."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import dataclasses
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if CARD == "cuda" else [])
+    with profile(activities=acts) as prof:
+        mach_drive(fed)
+        sync(CARD)
+    names = {}
+    for ev in prof.key_averages():
+        if "Memcpy" in ev.key or "memcpy" in ev.key:
+            names[ev.key] = int(ev.count)
+    pinned = sum(n for k, n in names.items()
+                 if "HtoD" in k and "Pinned" in k)
+    return dict(memcpy_events=names, pinned_htod=pinned if names else None)
+
+
+def check_mach_ingest(data):
+    """Run 1: the sharded spine inline and pipelined, in turns (inline,
+    pipelined, pipelined, inline); each turn's round ms is kept."""
+    runs, init, turns = {}, None, {"inline": [], "ingest": []}
+    for label in ("inline", "ingest", "ingest", "inline"):
+        extra = ["--ingest_pipeline", "true"] if label == "ingest" else []
+        c = live_cfg([*SILO_ARGS, *extra], MACH_ROUNDS)
+        fed = live_fed(c, data, init=init)
+        init = init or {k: v.clone() for k, v in fed.server.params.items()}
+        adm_s = []
+        mach_timed(fed.server.shard_wire.admission, "offer", adm_s)
+        stage_s = []
+        if fed.ingest is not None:
+            for s in range(fed.ingest.num_shards):
+                mach_timed(fed.ingest.arena_for(s), "stage_message", stage_s)
+        mach_reset_counts()
+        with deterministic():
+            mach_drive(fed)
+        sync(CARD)
+        counts = mach_counts()
+        need = c.model_shards * MACH_ROUNDS
+        if counts["shard_finalize"] != need or counts["robust_agg"] \
+                or counts["clip_norm"] or counts["secagg_mask"]:
+            fail(f"live ingest {label}: launches {counts}, need exactly "
+                 f"{need} K2 and no K1/K3")
+        row = dict(rounds_per_s=rounds_per_s(fed),
+                   round_ms=steady_round_ms(fed), k2_launches=need,
+                   admission_ms_per_round=sum(adm_s) * 1e3 / MACH_ROUNDS)
+        row["admission_share"] = row["admission_ms_per_round"] / \
+            row["round_ms"]
+        if fed.ingest is not None:
+            uploads = MACH_ROUNDS * c.client_num_per_round
+            copies = [fed.ingest.arena_for(s).copies
+                      for s in range(fed.ingest.num_shards)]
+            if copies != [uploads] * c.model_shards:
+                fail(f"live ingest: arena copies {copies}, need one per "
+                     f"upload per shard ({uploads})")
+            row.update(arena_copies=copies,
+                       stage_ms_per_round=sum(stage_s) * 1e3 / MACH_ROUNDS)
+        turns[label].append(row["round_ms"])
+        if label in runs and not bit_equal(fed.server.params,
+                                           runs[label][1].server.params):
+            fail(f"live ingest {label}: two turns' globals differ")
+        runs[label] = (row, fed)
+    same = bit_equal(runs["ingest"][1].server.params,
+                     runs["inline"][1].server.params)
+    if not same:
+        fail(f"live ingest: the pipelined global differs from the inline "
+             f"one by {max_diff(runs['ingest'][1].server.params, runs['inline'][1].server.params)}")
+    prof_cfg = live_cfg([*SILO_ARGS, "--ingest_pipeline", "true"], 1)
+    prof = mach_pinned_copies(live_fed(prof_cfg, data, init=init))
+    need = prof_cfg.client_num_per_round * prof_cfg.model_shards
+    if prof["pinned_htod"] is not None and prof["pinned_htod"] != need:
+        fail(f"live ingest: {prof['pinned_htod']} pinned H2D copies in a "
+             f"pipelined round, need one per upload per shard ({need})")
+    out = {label: row for label, (row, _) in runs.items()}
+    out.update(bit_equal=same, profiled_round=prof, turns_round_ms=turns,
+               copies_per_round_need=need)
+    phase("live ingest", **out)
+    return out, init
+
+
+def mach_cpu_round(argv, data, init, wrap=None, runner="silo"):
+    """One round (version) of ``argv`` on the card with TF32 off and on
+    the CPU from ``init``; ``wrap(fed, label)`` installs recorders before
+    the drive.  Returns the two federations."""
+    from fedml_tpu_torch.experiments.main import AsyncFederation
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    feds = {}
+    for label, device in (("card", CARD), ("cpu", "cpu")):
+        cfg = live_cfg(argv, 1, device)
+        if runner == "async":
+            with MetricsSink(None) as sink:
+                fed = AsyncFederation(cfg, data, sink, init_params=init)
+            fed.server.on_version = None
+        else:
+            fed = live_fed(cfg, data, init=init)
+        if wrap is not None:
+            wrap(fed, label)
+        with tf32_off():
+            if runner == "async":
+                fed.run()
+            else:
+                mach_drive(fed)
+        feds[label] = fed
+    return feds["card"], feds["cpu"]
+
+
+def check_mach_degrade(data, init):
+    """Run 2: the tracker and the adversary harness on the spine."""
+    from fedml_tpu_torch.robust import TrustTracker
+    argv = [*SILO_ARGS, *MACH_DEGRADE]
+    fed = live_fed(live_cfg(argv, MACH_DEGRADE_ROUNDS), data, init=init)
+    ledgers = []
+    real = fed.server.on_round_done
+
+    def on_round_done(r, params):
+        real(r, params)
+        ledgers.append(fed.degrade.as_ledger())
+    fed.server.on_round_done = on_round_done
+    mach_drive(fed)
+    adm = fed.server.shard_wire.admission
+    finite = all(bool(v.isfinite().all()) for v in fed.server.params.values())
+    quarantined = adm.trust.state(2, MACH_DEGRADE_ROUNDS) == \
+        TrustTracker.QUARANTINED
+    excluded = sorted(s for s, v in fed.server.dropped_silos.items()
+                      if 2 in v)
+    row = dict(rounds=MACH_DEGRADE_ROUNDS, rounds_per_s=rounds_per_s(fed),
+               round_ms=steady_round_ms(fed), params_finite=finite,
+               rejected={k: v for k, v in adm.rejected.items() if v},
+               silo2_quarantined=quarantined, silo2_excluded_rounds=excluded,
+               silo3_state=adm.trust.state(3, MACH_DEGRADE_ROUNDS),
+               deadlines_s=[led["deadline_s"] for led in ledgers],
+               verdicts=[led.get("verdict") for led in ledgers],
+               faults=ledgers[-1]["faults"] if ledgers else None,
+               strike_faults=adm.trust.strike_fault_totals())
+    if not finite or adm.rejected["nonfinite"] < 1 or not quarantined \
+            or row["strike_faults"]["network"]:
+        fail(f"live degrade: {row}")
+    card, cpu = mach_cpu_round(argv, data, init)
+    row["vs_cpu_max_abs_diff"] = max_diff(card.server.params,
+                                          cpu.server.params)
+    if not row["vs_cpu_max_abs_diff"] <= ROUND_TOL:
+        fail(f"live degrade: one round on the card against the CPU "
+             f"{row['vs_cpu_max_abs_diff']} > {ROUND_TOL}")
+    phase("live degrade", limit=ROUND_TOL, **row)
+    return row
+
+
+def check_mach_compression(data, init):
+    """Run 3: flat cross-silo with topk + EF and with int8."""
+    out = {}
+    raw_params = sum(v.numel() * v.element_size() for v in init.values())
+    for name, extra in MACH_COMPRESS.items():
+        argv = [*PLAIN_STREAM_ARGS, *extra]
+        fed = live_fed(live_cfg(argv, MACH_ROUNDS), data, init=init)
+        mach_drive(fed)
+        wire = fed.wire_stats
+        uploads = MACH_ROUNDS * fed.cfg.client_num_per_round
+        row = dict(rounds_per_s=rounds_per_s(fed),
+                   round_ms=steady_round_ms(fed),
+                   wire_bytes=wire["bytes"], decoded_bytes=wire["raw_bytes"],
+                   uncompressed_bytes=uploads * raw_params,
+                   ratio=wire["bytes"] / (uploads * raw_params),
+                   params_finite=all(bool(v.isfinite().all())
+                                     for v in fed.server.params.values()))
+        if wire["raw_bytes"] != uploads * raw_params or not \
+                row["params_finite"]:
+            fail(f"live compression {name}: {row}")
+        card, cpu = mach_cpu_round(argv, data, init)
+        row["vs_cpu_max_abs_diff"] = max_diff(card.server.params,
+                                              cpu.server.params)
+        if not row["vs_cpu_max_abs_diff"] <= ROUND_TOL:
+            fail(f"live compression {name}: one round against the CPU "
+                 f"{row['vs_cpu_max_abs_diff']} > {ROUND_TOL}")
+        out[name] = row
+        phase(f"live compression {name}", limit=ROUND_TOL, **row)
+    return out
+
+
+def mach_async(data, base: Path, tag: str, init=None, faultline=None,
+             versions: int = MACH_ASYNC_VERSIONS):
+    import dataclasses
+    from fedml_tpu_torch.experiments.main import AsyncFederation
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    cfg = dataclasses.replace(
+        live_cfg([*MACH_ASYNC, *MACH_ASYNC_DURABLE], versions),
+        checkpoint_dir=str(base / tag / "ck"),
+        journal_dir=str(base / tag / "j"))
+    with MetricsSink(None) as sink:
+        fed = AsyncFederation(cfg, data, sink, init_params=init,
+                              faultline=faultline)
+    fed.server.on_version = None           # no evaluation
+    return fed
+
+
+def check_mach_async(data, root: Path):
+    """Run 4: async_fl, its kill at the last barrier close, and its first
+    version against the CPU."""
+    from fedml_tpu_torch.robust.faultline import (ActorKilled, CrashSpec,
+                                                  Faultline)
+    from fedml_tpu_torch.server_opt import ServerOptimizer
+    base = root / "build" / "machinery_async"
+    shutil.rmtree(base, ignore_errors=True)
+    with deterministic():
+        straight = mach_async(data, base, "straight")
+        init = {k: v.clone() for k, v in straight.server.params.items()}
+        sync(CARD)
+        t0 = time.perf_counter()
+        out = straight.run()
+        sync(CARD)
+        seconds = time.perf_counter() - t0
+        fl = Faultline(crashes=[CrashSpec(point="barrier_close", hit=1,
+                                          round_idx=MACH_ASYNC_VERSIONS - 1)])
+        killed = mach_async(data, base, "kill", init=init, faultline=fl)
+        try:
+            killed.run()
+            fail("the async barrier_close kill never fired")
+        except ActorKilled:
+            pass
+        resumed = mach_async(data, base, "kill", init=init)
+        resumed.run()
+        same = bit_equal(resumed.server.params, straight.server.params)
+    row = dict(versions=straight.server.version,
+               versions_per_s=straight.server.version / seconds,
+               version_ms=seconds * 1e3 / straight.server.version,
+               mean_staleness=out.get("mean_staleness"),
+               params_finite=out["params_finite"],
+               kill=dict(point="barrier_close",
+                         version=MACH_ASYNC_VERSIONS - 1,
+                         killed_at=killed.server.version,
+                         resumed_to=resumed.server.version,
+                         bit_equal=same))
+    if straight.server.version != MACH_ASYNC_VERSIONS or not same \
+            or not out["params_finite"]:
+        fail(f"live async: {row}")
+
+    seen = {}
+
+    def wrap(fed, label):
+        real_fin = fed.server.stream_agg.finalize
+        real_step = fed.server.server_opt.apply_delta
+
+        def finalize(step):
+            out = real_fin(step)
+            seen[label, "finalized"] = {k: v.clone() for k, v in out.items()}
+            return out
+
+        def apply_delta(params, delta, version=0):
+            seen[label, "before"] = {k: v.clone() for k, v in params.items()}
+            seen[label, "delta"] = {k: v.clone() for k, v in delta.items()}
+            return real_step(params, delta, version)
+        fed.server.stream_agg.finalize = finalize
+        fed.server.server_opt.apply_delta = apply_delta
+    card_fed, _ = mach_cpu_round(MACH_ASYNC, data, init, wrap=wrap,
+                                 runner="async")
+    fin = max_diff(seen["card", "finalized"], seen["cpu", "finalized"])
+    cfg = live_cfg(MACH_ASYNC, 1, "cpu")
+    opt = ServerOptimizer("adam", {k: v.cpu() for k, v in init.items()},
+                          lr=cfg.server_lr, beta1=cfg.server_adam_beta1,
+                          beta2=cfg.server_adam_beta2,
+                          eps=cfg.server_adam_eps)
+    stepped = opt.apply_delta(
+        {k: v.cpu() for k, v in seen["card", "before"].items()},
+        {k: v.cpu() for k, v in seen["card", "delta"].items()})
+    step = max_diff(card_fed.server.params, stepped)
+    row.update(finalize_vs_cpu_max_abs_diff=fin,
+               step_vs_cpu_max_abs_diff=step)
+    if not (fin <= ROUND_TOL and step <= SRVOPT_STEP_TOL):
+        fail(f"live async: the first version against the CPU: finalize "
+             f"{fin} (limit {ROUND_TOL}), step {step} (limit "
+             f"{SRVOPT_STEP_TOL})")
+    phase("live async", limit=ROUND_TOL, step_limit=SRVOPT_STEP_TOL, **row)
+    shutil.rmtree(base, ignore_errors=True)
+    return row
+
+
+def check_mach_edges(data, init, root: Path):
+    """Run 5: the edge tier, plaintext and grouped SecAgg, and an edge
+    killed after a fold."""
+    from fedml_tpu_torch.algorithms.hierarchical import EdgeAggregatorActor
+    from fedml_tpu_torch.core.stream_agg import StreamingAggregator
+    from fedml_tpu_torch.robust.faultline import (ActorKilled, CrashSpec,
+                                                  Faultline, kill_actor)
+    from fedml_tpu_torch.utils.journal import RoundJournal
+    out = {}
+    globals_ = {}
+    with deterministic():
+        for name, extra in (("plaintext", []),
+                            ("grouped", ["--secagg", "grouped"])):
+            fed = live_fed(live_cfg([*PLAIN_STREAM_ARGS, *MACH_EDGES, *extra],
+                                    MACH_ROUNDS), data, init=init)
+            mach_drive(fed)
+            out[name] = dict(rounds_per_s=rounds_per_s(fed),
+                             round_ms=steady_round_ms(fed),
+                             edges=len(fed.edges))
+            globals_[name] = fed.closed
+        diffs = [max_diff(a[2], b[2]) for a, b in
+                 zip(globals_["grouped"], globals_["plaintext"])]
+        out["grouped_vs_plaintext_max_abs_diff"] = diffs
+        if len(diffs) != MACH_ROUNDS or not max(diffs) <= SECAGG_TOL:
+            fail(f"live edges: grouped against plaintext {diffs} (limit "
+                 f"{SECAGG_TOL})")
+        base = root / "build" / "machinery_edges"
+        shutil.rmtree(base, ignore_errors=True)
+        argv = [*PLAIN_STREAM_ARGS, *MACH_EDGES, "--journal", "true",
+                "--journal_dir", str(base / "j"),
+                "--journal_snapshot_every", "1"]
+        fed = live_fed(live_cfg(argv, MACH_ROUNDS), data, init=init)
+        point, hit = MACH_EDGE_KILL
+        edge = fed.edges[0]
+        edge.faultline = Faultline(crashes=[CrashSpec(
+            point=point, hit=hit, round_idx=CRASH_ROUND)])
+        fed.t_start = time.perf_counter()
+        fed.server.start()
+        try:
+            fed.hub.pump()
+            fail(f"the edge {point} kill never fired")
+        except ActorKilled:
+            pass
+        kill_actor(edge)
+        respawned = EdgeAggregatorActor(
+            edge.node_id, fed.hub.transport(edge.node_id), edge.silos,
+            cohort_total=edge.cohort_total,
+            client_num_in_total=edge.client_num_in_total,
+            stream_agg=StreamingAggregator(
+                init, method="mean", kind="params",
+                norm_clip=fed.cfg.norm_clip, seed=fed.cfg.seed),
+            admission=edge.admission,
+            journal=RoundJournal(str(base / "j" / "edge1"),
+                                 snapshot_every=1),
+            timeout_s=edge.timeout_s)
+        respawned.register_handlers()
+        resumed = respawned.resume()
+        fed.hub.pump()
+        fed.server.finish()
+        same = bit_equal(fed.server.params, globals_["plaintext"][-1][2])
+        out["edge_kill"] = dict(point=point, hit=hit, round=CRASH_ROUND,
+                                resumed=resumed,
+                                rounds=fed.server.round_idx, bit_equal=same)
+        if not (resumed and same and fed.server.round_idx == MACH_ROUNDS):
+            fail(f"live edges: the killed edge's resume {out['edge_kill']}")
+        shutil.rmtree(base, ignore_errors=True)
+    phase("live edges", limit=SECAGG_TOL, **out)
+    return out
+
+
+def check_mach_hierarchical(data):
+    """Run 6: hierarchical FL, its oracle and a round against the CPU."""
+    import dataclasses
+    from fedml_tpu_torch.experiments.main import hierarchical_algo
+    cfg = cd_cfg(MACH_HIER)
+    algo = hierarchical_algo(cfg, data)
+    init = algo.init_params()
+    sync(CARD)
+    algo.run(params={k: v.clone() for k, v in init.items()})
+    row = dict(rounds=len(algo.round_times), **steady(algo.round_times))
+    with deterministic():
+        one = dataclasses.replace(cfg, comm_round=1, group_num=1,
+                                  group_comm_round=1)
+        hier = hierarchical_algo(one, data).run(
+            params={k: v.clone() for k, v in init.items()})
+        fa = fedavg_algo(cd_cfg(["--algo", "fedavg", *COMMON_ARGS,
+                                 "--comm_round", "1"]), data, CARD)
+        fedavg = fa.run(params={k: v.clone() for k, v in init.items()})
+        row["oracle_vs_fedavg_max_abs_diff"] = max_diff(hier, fedavg)
+        one_round = dataclasses.replace(cfg, comm_round=1)
+        card = hierarchical_algo(one_round, data).run(
+            params={k: v.clone() for k, v in init.items()})
+        cpu = hierarchical_algo(dataclasses.replace(one_round,
+                                                    platform="cpu"),
+                                data).run(params={k: v.cpu().clone()
+                                                  for k, v in init.items()})
+        row["vs_cpu_max_abs_diff"] = max_diff(card, cpu)
+    if not (row["oracle_vs_fedavg_max_abs_diff"] <= MACH_ORACLE_TOL
+            and row["vs_cpu_max_abs_diff"] <= ROUND_TOL):
+        fail(f"live hierarchical: {row} (limits {MACH_ORACLE_TOL}, "
+             f"{ROUND_TOL})")
+    phase("live hierarchical", oracle_limit=MACH_ORACLE_TOL,
+          limit=ROUND_TOL, **row)
+    return row
+
+
+def check_mach_waves(data):
+    """Run 7: the wave engine inline and pipelined with a poisoned wave,
+    and the degrade seam's priority merge."""
+    from fedml_tpu_torch.robust.degrade import ReliabilityTracker
+    out, params = {}, {}
+    with deterministic():
+        for label, extra in (("inline", []),
+                             ("ingest", ["--ingest_pipeline", "true"])):
+            cfg = cd_cfg([*CD_ARGS, *MACH_WAVES, *extra])
+            algo = cd_algo(cfg, data)
+            params[label] = algo.run()
+            out[label] = dict(**steady(algo.round_times),
+                              rejected={k: v for k, v in
+                                        algo.admission.rejected.items()
+                                        if v},
+                              folded_waves=algo.history[-1]["folded_waves"]
+                              if algo.history else None)
+            if algo.admission.rejected.get("nonfinite") != 1:
+                fail(f"live waves {label}: the poisoned wave was not "
+                     f"rejected exactly once: {algo.admission.rejected}")
+    same = bit_equal(params["ingest"], params["inline"])
+    if not same:
+        fail(f"live waves: pipelined against inline "
+             f"{max_diff(params['ingest'], params['inline'])}")
+    cfg = cd_cfg([*CD_ARGS, "--comm_round", "1"])
+    tracker = ReliabilityTracker(data.client_num)
+    indebted = [int(c) for c in cd_algo(cfg, data)._sample_round(1)[-3:]]
+    for cid in indebted:
+        tracker.note_drop(cid + 1)
+    algo = cd_algo(cfg, data)
+    algo.degrade = tracker
+    merged = [int(c) for c in algo._sample_round(1)[:3]]
+    algo.run()
+    out.update(bit_equal=same, indebted=indebted, merged_head=merged,
+               debt_after_round=tracker.max_debt())
+    if sorted(merged) != sorted(indebted):
+        fail(f"live waves: the indebted clients {indebted} do not head the "
+             f"next cohort {merged}")
+    phase("live waves", **out)
+    return out
+
+
+def check_live_machinery(data, root: Path):
+    """Phase 8n: every run of the slice, its checks and the phase's
+    seconds."""
+    t_phase = time.perf_counter()
+    ingest, init = check_mach_ingest(data)
+    degrade = check_mach_degrade(data, init)
+    compression = check_mach_compression(data, init)
+    async_ = check_mach_async(data, root)
+    edges = check_mach_edges(data, init, root)
+    hier = check_mach_hierarchical(data)
+    waves = check_mach_waves(data)
+    seconds = time.perf_counter() - t_phase
+    phase("live machinery done", seconds=seconds)
+    return dict(ingest=ingest, degrade=degrade, compression=compression,
+                async_fl=async_, edges=edges, hierarchical=hier,
+                waves=waves, seconds=seconds)
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -4976,6 +5536,7 @@ def main() -> None:
     zoo = check_algorithm_zoo(data)
     cross_device = check_cross_device(data, root)
     models = check_zoo_models(sm_hz)
+    machinery = check_live_machinery(data, root)
 
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
@@ -5058,6 +5619,10 @@ def main() -> None:
         "launches_cross_silo_slice": k2_launches,
         "launches_config3": {m: r["k2_launches"]
                              for m, r in models["silo"].items()},
+        # phase 8n: the sharded spine inline and with --ingest_pipeline
+        "launches_live_machinery": {
+            k: machinery["ingest"][k]["k2_launches"]
+            for k in ("inline", "ingest")},
         "max_abs_err": k2_worst,
         "ms": sum(r["ms"] for r in shards),
         "plain_ms": sum(r["plain_ms"] for r in shards),
@@ -5139,6 +5704,18 @@ def main() -> None:
               for v in {**models["nwp"], **models["bn"]}.values()),
           zoo_oracle_max_abs_diff=models["oracle"]["max_abs_diff"],
           zoo_seconds=models["seconds"],
+          machinery_rounds_per_s={
+              "ingest inline": machinery["ingest"]["inline"]["rounds_per_s"],
+              "ingest pipelined":
+                  machinery["ingest"]["ingest"]["rounds_per_s"],
+              "degrade": machinery["degrade"]["rounds_per_s"],
+              **{f"compression {k}": v["rounds_per_s"]
+                 for k, v in machinery["compression"].items()},
+              "async versions": machinery["async_fl"]["versions_per_s"],
+              **{f"edges {k}": machinery["edges"][k]["rounds_per_s"]
+                 for k in ("plaintext", "grouped")},
+              "hierarchical": machinery["hierarchical"]["rounds_per_s"]},
+          machinery_seconds=machinery["seconds"],
           lm_flash_vs_blockwise_max_abs_diff=lm_diff,
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]

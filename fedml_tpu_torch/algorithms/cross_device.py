@@ -26,15 +26,31 @@ cohort:
   a_i`` and closes the round with the tau_eff step accumulated across
   waves.
 
+* ``wave_adversary`` (JAX :90, :204-207, :376-411): seeded poisoned
+  wave summaries, `robust.adversary.poison_wave_summary` on the wave's
+  mean before admission; an admitted poisoned mean folds through the same
+  stacked fold, broadcast to every slot;
+* ``degrade`` (a `robust.degrade.ReliabilityTracker`, JAX :180-186,
+  :308-316, :477-482, :582-583, :643-673): clients carrying
+  participation debt (keyed ``client id + 1``) claim the head of the next
+  round's sample (`merge_priority`), each wave's completion time feeds
+  the latency history, and the tracker's state rides the checkpoint;
+* ``ingest`` (a `comm.ingest.IngestPipeline`, JAX :187-200, :487-507,
+  :627-629): the main thread keeps launching waves while the single fold
+  worker runs admission → fold for the completed ones
+  (``submit_wait``), drained before the finalize, so the round is
+  bit-identical to the inline one.
+
 Aggregation is stream-only by construction.  The JAX engine's other
 seams are refused by name: the mesh (ROADMAP Queue 1 item 10, second
-part), ``wave_adversary``, ``degrade`` and ``ingest`` (item 8), ``perf``,
-``health``, ``slo`` and ``controller`` (item 9), ``publish`` (item 11).
+part), ``perf``, ``health``, ``slo`` and ``controller`` (item 9),
+``publish`` (item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import Any, Dict, Optional
@@ -47,7 +63,7 @@ from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                scatter_client_rows,
                                                zeros_client_state)
 from fedml_tpu_torch.core import prng
-from fedml_tpu_torch.core.pytree import Tree
+from fedml_tpu_torch.core.pytree import Tree, tree_keys
 from fedml_tpu_torch.core.sampling import sample_clients, sample_clients_jax
 from fedml_tpu_torch.core.stream_agg import StreamingAggregator
 from fedml_tpu_torch.data.stacking import gather_cohort
@@ -58,6 +74,9 @@ from fedml_tpu_torch.device_cohort import (WaveAdmission,
 from fedml_tpu_torch.device_cohort.waves import MESH_REFUSAL
 from fedml_tpu_torch.obs import telemetry
 from fedml_tpu_torch.parallel.cohort import gather_live_cohort, train_cohort
+from fedml_tpu_torch.robust.adversary import (parse_wave_adversary_spec,
+                                              poison_wave_summary)
+from fedml_tpu_torch.robust.degrade import merge_priority
 from fedml_tpu_torch.trainer.local_sgd import make_local_trainer
 from fedml_tpu_torch.trainer.workload import make_client_optimizer
 
@@ -71,10 +90,6 @@ AUTO_WAVE_MAX = 256            # wave_size 0: min(cohort, this)
 # the JAX engine's seams the port does not have yet: constructor argument
 # -> what brings it
 REFUSED_SEAMS = {
-    "wave_adversary": "robust/adversary.py (ROADMAP Queue 1 item 8)",
-    "degrade": "robust/degrade.py's ReliabilityTracker (ROADMAP Queue 1 "
-               "item 8)",
-    "ingest": "comm/ingest.py (ROADMAP Queue 1 item 8)",
     "perf": "obs/perf.py (ROADMAP Queue 1 item 9)",
     "health": "obs/health.py (ROADMAP Queue 1 item 9)",
     "slo": "obs/slo.py (ROADMAP Queue 1 item 9)",
@@ -96,7 +111,8 @@ class CrossDeviceConfig(FedAvgConfig):
     norm_screen_k: float = 6.0
     norm_screen_window: int = 64
     norm_screen_min_history: int = 8
-    wave_adversary: str = ""      # refused (REFUSED_SEAMS)
+    wave_adversary: str = ""      # "round:wave:kind[:param],...": seeded
+    #                               poisoned wave summaries, pre-admission
 
 
 class CrossDevice(FedAvg):
@@ -109,8 +125,7 @@ class CrossDevice(FedAvg):
                  controller=None, degrade=None, ingest=None):
         cfg = config
         seams = dict(perf=perf, health=health, slo=slo, publish=publish,
-                     controller=controller, degrade=degrade, ingest=ingest,
-                     wave_adversary=cfg.wave_adversary)
+                     controller=controller)
         for name, value in seams.items():
             if value:
                 raise NotImplementedError(
@@ -152,6 +167,13 @@ class CrossDevice(FedAvg):
                 "averaging semantics")
         super().__init__(workload, data, config, sink=sink, device=device)
         self.server_opt = server_opt
+        self.degrade = degrade
+        # the fold-side state (stream, admission, the local algorithm's
+        # accumulators) belongs to the worker between the round's start
+        # and its pre-finalize drain
+        self.ingest = ingest
+        self._wave_attacks = (parse_wave_adversary_spec(cfg.wave_adversary)
+                              if cfg.wave_adversary else {})
         # bound at the first round (they need the params template)
         self.stream: Optional[StreamingAggregator] = None
         self.admission: Optional[WaveAdmission] = None
@@ -216,13 +238,22 @@ class CrossDevice(FedAvg):
         alone (``--seed`` varies the init, never the schedule), ``jax`` from
         (seed, round); both re-derive the same cohorts on a resume."""
         cfg = self.cfg
+        per = cfg.client_num_per_round
         if cfg.sampler == "jax":
             key = prng.fold_in(prng.fold_in(prng.key(cfg.seed),
                                             SAMPLER_SALT), round_idx)
-            return sample_clients_jax(key, self.data.client_num,
-                                      cfg.client_num_per_round)
-        return sample_clients(round_idx, self.data.client_num,
-                              cfg.client_num_per_round)
+            ids = sample_clients_jax(key, self.data.client_num, per)
+        else:
+            ids = sample_clients(round_idx, self.data.client_num, per)
+        if self.degrade is not None:
+            # indebted clients claim the cohort head; zero debt leaves
+            # the draw untouched
+            pri = [c - 1 for c in self.degrade.priority_clients(per)]
+            if pri:
+                ids = np.asarray(
+                    merge_priority([int(c) for c in ids], pri, per),
+                    dtype=np.int64)
+        return ids
 
     # -- the round ------------------------------------------------------------
     def _ensure_bound(self, params: Tree) -> None:
@@ -261,13 +292,28 @@ class CrossDevice(FedAvg):
             # only weightless clients (all-pad, all-empty shards): folds as
             # weight 0, never a 0/0 in the normalizer
             return
-        verdict = self.admission.screen(_host(mean), host_params)
+        mean_host = _host(mean)
+        attack = self._wave_attacks.get((round_idx, wi))
+        if attack is not None:
+            # poison the wave summary before admission: the screen and
+            # the fold see the attacked mean
+            mean_host = poison_wave_summary(attack, mean_host, host_params,
+                                            seed=self.cfg.seed)
+            logger.warning("round %d wave %d POISONED (%s:%g)", round_idx,
+                           wi, attack.kind, attack.param)
+        verdict = self.admission.screen(mean_host, host_params)
         if not verdict.ok:
             logger.warning("round %d wave %d REJECTED (%s): %d clients' "
                            "work discarded", round_idx, wi, verdict.reason,
                            wave.n_live)
             return
         t0 = time.perf_counter()
+        if attack is not None:
+            # every member ships the attacked mean (the weighted mean of
+            # identical rows is the row), through the same stacked fold
+            stacked = {k: torch.as_tensor(mean_host[k]).to(
+                device=s.device, dtype=s.dtype).expand(s.shape)
+                for k, s in stacked.items()}
         self.stream.fold_wave(stacked, w.cpu())
         self._h_fold.observe(time.perf_counter() - t0)
         acc["folded"] += 1
@@ -309,11 +355,26 @@ class CrossDevice(FedAvg):
                     params, wave_data, words, wave.offset)
                 new_c = c_delta = None
             wave_weight = float(total)   # blocks: the wave ran to the end
+            dt = time.perf_counter() - t0
             self._c_waves.inc()
-            self._h_wave.observe(time.perf_counter() - t0)
-            self._fold_one(round_idx, wi, wave, stacked, w, mean,
-                           wave_weight, aux_sums, new_c, c_delta,
-                           host_params, acc)
+            self._h_wave.observe(dt)
+            if self.degrade is not None:
+                # every live client completed with the wave
+                for cid in wave.ids:
+                    self.degrade.observe_completion(int(cid) + 1, dt)
+                    self.degrade.note_accept(int(cid) + 1)
+            fold = functools.partial(
+                self._fold_one, round_idx, wi, wave, stacked, w, mean,
+                wave_weight, aux_sums, new_c, c_delta, host_params, acc)
+            if self.ingest is not None:
+                # a wave the server produced is never load-shed: the
+                # bounded queue paces the launches instead
+                self.ingest.submit_wait(0, fold)
+            else:
+                fold()
+        if self.ingest is not None:
+            # every queued fold lands before the finalize reads the stream
+            self.ingest.drain()
 
         if self.stream.count == 0:
             logger.warning("round %d: every wave empty or rejected; the "
@@ -382,9 +443,12 @@ class CrossDevice(FedAvg):
                     last_round=round_idx == cfg.comm_round - 1)
         if checkpointer is not None:
             checkpointer.flush()
+        if self.ingest is not None:
+            self.ingest.stop()
         return params
 
-    # -- checkpoint extra state (scaffold's variates, the server optimizer) --
+    # -- checkpoint extra state (scaffold's variates, the server optimizer,
+    # the reliability tracker) ----------------------------------------------
     def _extra_state(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         if self.cfg.local_alg == "scaffold" and self.c_global is not None:
@@ -392,6 +456,8 @@ class CrossDevice(FedAvg):
                                "c_locals": self.c_locals}
         if self.server_opt is not None:
             out["srv_opt"] = self.server_opt.state_dict()
+        if self.degrade is not None:
+            out["degrade"] = self.degrade.state_dict()
         return out
 
     def _extra_state_template(self, params: Tree) -> Dict[str, Any]:
@@ -402,7 +468,9 @@ class CrossDevice(FedAvg):
                              for k, v in params.items()},
                 "c_locals": zeros_client_state(params, self.data.client_num)}
         if self.server_opt is not None:
-            out["srv_opt"] = self.server_opt.state_dict()
+            out["srv_opt"] = self.server_opt.state_template()
+        if self.degrade is not None:
+            out["degrade"] = self.degrade.state_dict()
         return out
 
     def _load_extra_state(self, extra) -> None:
@@ -413,7 +481,10 @@ class CrossDevice(FedAvg):
                              extra["scaffold"]["c_locals"].items()}
         if self.server_opt is not None and "srv_opt" in extra:
             self.server_opt.load_state_dict(extra["srv_opt"])
+        if self.degrade is not None and "degrade" in extra:
+            self.degrade.load_state_dict(extra["degrade"])
 
 
 def _host(tree: Tree) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+    """Host copies in JAX's leaf order (the wave attacks draw in it)."""
+    return {k: tree[k].detach().cpu().numpy() for k in tree_keys(tree)}

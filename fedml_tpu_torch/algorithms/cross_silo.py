@@ -30,7 +30,19 @@ with
   boundary with the global unchanged);
 * the server-optimizer seam (``server_opt``, `server_opt.optimizer`):
   the finalized mean becomes the pseudo-gradient ``global − finalize``
-  and one optimizer step makes the new global.
+  and one optimizer step makes the new global;
+* the reliability tracker (``degrade``, `robust.degrade`, JAX
+  :432-444, :792-809, :963, :1023-1085): the adaptive straggler
+  deadline, quorum-aware close with partition holds, and network-vs-
+  payload fault attribution; its completion latencies ride the journal's
+  accept records (``lat_s``) so a resumed round re-derives the deadline;
+* wire compression (``decode_upload``, `comm.compress`, JAX
+  :1415-1490): the scheme handshake, the decode before admission, and
+  the silo's ``encode_upload``/``on_accepted`` hooks for error feedback;
+* the pipelined receive path (``ingest``, `comm.ingest`, JAX :846-856,
+  :986-992, :1291-1420): the transport thread checks the envelope and
+  enqueues, one fold worker a shard stages the upload through its arena
+  and runs the screen and fold in arrival order.
 
 Every other option of the JAX actor is refused by name.  Neither the
 heartbeat thread nor the straggler timer touches the device: both only
@@ -64,6 +76,7 @@ from fedml_tpu_torch.core.pytree import (HostMirror, as_tensor,
                                          tree_keys, tree_weighted_mean)
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.obs import telemetry
+from fedml_tpu_torch.robust.degrade import FaultClass
 from fedml_tpu_torch.secure.protocol import (MSG_SECAGG_ADVERT,
                                              MSG_SECAGG_ROSTER,
                                              MSG_SECAGG_SHARES,
@@ -161,14 +174,12 @@ SiloTrainFn = Callable[[object, int, int], tuple]
 
 # JAX actor options this port does not run yet, with where they arrive
 _REFUSED = {
-    "ingest": "the pipelined receive path (comm/ingest.py)",
-    "health": "the health observatory (obs/health.py)",
-    "perf": "the perf ledger (obs/perf.py)",
+    "health": "the health observatory (obs/health.py, ROADMAP Queue 1 "
+              "item 9)",
+    "perf": "the perf ledger (obs/perf.py, ROADMAP Queue 1 item 9)",
     "controller": "the adaptive controller (server_opt/controller.py, "
-                  "with the health observatory of item 9)",
-    "degrade": "the reliability tracker (robust/degrade.py)",
-    "decode_upload": "wire compression (comm/compress.py)",
-    "publish": "serve-while-train (serve/)",
+                  "with the health observatory of ROADMAP Queue 1 item 9)",
+    "publish": "serve-while-train (serve/, ROADMAP Queue 1 item 11)",
 }
 
 
@@ -179,7 +190,7 @@ def refuse_unported(**options) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"FedAvgServerActor({name}=...) is not ported yet: it needs "
-                f"{_REFUSED[name]} (ROADMAP Queue 1)")
+                f"{_REFUSED[name]}")
 
 
 class FedAvgServerActor(ServerManager):
@@ -226,9 +237,27 @@ class FedAvgServerActor(ServerManager):
     masking choreography (sync carries ``ARG_SECAGG``, adverts, one
     roster frame per silo, masked uploads folded in the ring, the unmask
     request and the share reveals), exclusive with ``stream_agg``,
-    ``aggregate_fn`` and ``shard_wire``; with ``admission``, the pipeline
-    is ``kind="masked"``.  ``server_opt``: a `server_opt.ServerOptimizer`
-    applied to each closed round's finalize (exclusive with ``secagg``).
+    ``aggregate_fn``, ``decode_upload`` and ``shard_wire``; with
+    ``admission``, the pipeline is ``kind="masked"``.  ``server_opt``: a
+    `server_opt.ServerOptimizer` applied to each closed round's finalize
+    (exclusive with ``secagg``).
+
+    ``degrade``: a `robust.degrade.ReliabilityTracker`.  The round's
+    deadline derives once at broadcast from the tracker's history
+    (``adaptive_deadline`` needs ``round_timeout_s``, its ceiling); under
+    the ``drop`` policy a timeout asks the tracker to close, hold (a
+    suspected partition: global unchanged, at most
+    ``partition_max_holds`` times) or abandon the round.  Deadline drops
+    and dead letters are network faults and never strike trust.
+    ``decode_upload(payload, host_global) -> nested host params``: the
+    wire-compression decoder (`comm.compress`); a plain upload to a
+    decoding server, or a compressed one to a plain server, is a
+    handshake mismatch (raised, or with ``admission`` rejected as
+    ``fingerprint`` damage).  ``ingest``: a `comm.ingest.IngestPipeline`;
+    the transport thread only checks the envelope and enqueues, and the
+    shard's fold worker runs decode → screen → fold under the actor's
+    ingest lock (exclusive with ``faultline``: `ActorKilled` cannot
+    escape a worker thread).
     """
 
     def __init__(self, transport: Transport, init_params,
@@ -244,9 +273,8 @@ class FedAvgServerActor(ServerManager):
                  faultline=None, *, secagg=None, ingest=None, health=None,
                  perf=None, server_opt=None, controller=None, degrade=None,
                  decode_upload=None, publish=None):
-        refuse_unported(
-            ingest=ingest, health=health, perf=perf, controller=controller,
-            degrade=degrade, decode_upload=decode_upload, publish=publish)
+        refuse_unported(health=health, perf=perf, controller=controller,
+                        publish=publish)
         super().__init__(0, transport)
         if straggler_policy not in ("wait", "drop", "abort"):
             raise ValueError(f"unknown straggler_policy {straggler_policy!r}")
@@ -264,12 +292,18 @@ class FedAvgServerActor(ServerManager):
                     "shard_wire without its ShardAdmission: the per-shard "
                     "structural screens ARE the sharded wire protocol — "
                     "build the spine with admission_on=True")
+            if decode_upload is not None:
+                raise ValueError(
+                    "shard_wire (--model_shards) requires the streaming "
+                    "fold: the stack path and the wire-compression "
+                    "decoder are whole-model by construction")
         if secagg is not None and (aggregate_fn is not None
-                                   or stream_agg is not None):
+                                   or stream_agg is not None
+                                   or decode_upload is not None):
             raise ValueError(
                 "secagg is mutually exclusive with aggregate_fn/"
-                "stream_agg: masked uploads have no plaintext to stack "
-                "or stream")
+                "stream_agg/decode_upload: masked uploads have no "
+                "plaintext to stack, stream, or decompress")
         if secagg is not None and shard_wire is not None:
             raise ValueError(
                 "shard_wire (--model_shards) and secagg are mutually "
@@ -286,6 +320,18 @@ class FedAvgServerActor(ServerManager):
                 "journal (crash consistency) rides the streaming-fold "
                 "receive path: pass --agg_mode stream (or --secagg); the "
                 "stack path has no incremental fold state to snapshot")
+        if degrade is not None and degrade.adaptive_deadline \
+                and round_timeout_s is None:
+            raise ValueError(
+                "adaptive_deadline requires round_timeout_s: the static "
+                "timeout is the deadline's ceiling (and the cold-start "
+                "fallback before the tracker warms)")
+        if ingest is not None and faultline is not None:
+            raise ValueError(
+                "--ingest_pipeline and --faultline are mutually "
+                "exclusive: ActorKilled must escape the transport event "
+                "loop to reach the harness, and an ingest fold worker "
+                "thread has no path there")
         self.params = init_params
         self.device = next(iter(init_params.values())).device
         self.client_num_in_total = client_num_in_total
@@ -308,6 +354,17 @@ class FedAvgServerActor(ServerManager):
         self.faultline = faultline
         self.secagg = secagg
         self.server_opt = server_opt
+        self.degrade = degrade
+        self.decode_upload = decode_upload
+        self.ingest = ingest
+        # the round's armed deadline, derived once a round at broadcast
+        # from the tracker's history (never recomputed on re-arms)
+        self._round_deadline_s: Optional[float] = None
+        # silos whose frames sit in the ingest queue, not yet folded (the
+        # transport-side duplicate guard), and the lock that serializes
+        # the worker's upload body against the timeout and round close
+        self._ingest_inflight: Set[int] = set()
+        self._ingest_lock = threading.RLock()
         # the secure round's stage: None | "agreement" | "upload" | "unmask"
         self._secagg_stage: Optional[str] = None
         self._secagg_quorum = 0
@@ -537,6 +594,23 @@ class FedAvgServerActor(ServerManager):
                 sorted(dead))
         self._round_t0 = time.monotonic()
         self._first_upload_t = None
+        self._round_deadline_s = None
+        if self.degrade is not None:
+            self.degrade.round_start(self.round_idx, self._expected)
+            # derived from the history BEFORE any of this round's arrivals
+            # (the restored folds included): the crashed process armed
+            # from this state, so a resumed round re-derives the same value
+            self._round_deadline_s = self.degrade.deadline_s(
+                self._expected, self.round_timeout_s)
+            if resume is not None:
+                # replay the restored folds' completion latencies, so the
+                # next round's deadline sees the crashed process's history
+                for silo, _w, extra in resume.folded:
+                    lat = (extra or {}).get("lat_s")
+                    if lat is not None:
+                        self.degrade.observe_completion(int(silo),
+                                                        float(lat))
+                    self.degrade.note_accept(int(silo))
         if self.stream_agg is not None:
             self.stream_agg.reset(self.params)
             if resume is not None:
@@ -549,6 +623,12 @@ class FedAvgServerActor(ServerManager):
         host_params = self._host_params()
         if self.shard_wire is not None:
             self.shard_wire.round_start(host_params)
+        if self.ingest is not None and self.ingest.has_arenas:
+            # the round's screen reference into each shard arena: one
+            # copy an arena a round
+            self.ingest.round_start(
+                list(self.shard_wire.broadcast_slices(host_params))
+                if self.shard_wire is not None else [host_params])
         if self.journal is not None and resume is None:
             self.journal.round_start(
                 self.round_idx, mode=self._journal_mode(),
@@ -609,18 +689,36 @@ class FedAvgServerActor(ServerManager):
         return len(self._received) >= self._num_silos
 
     # -- straggler timer -----------------------------------------------------
+    def _effective_timeout_s(self) -> Optional[float]:
+        """The round's armed deadline: the tracker's adaptive value
+        (derived once at broadcast) with ``degrade``, else the static
+        ``round_timeout_s``."""
+        if self._round_deadline_s is not None:
+            return self._round_deadline_s
+        return self.round_timeout_s
+
     def _arm_timer(self) -> None:
-        if self.round_timeout_s is None:
+        timeout = self._effective_timeout_s()
+        if timeout is None:
             return
         round_at_arm = self.round_idx
         # the fire only ENQUEUES a self-message: all policy logic runs on
         # the transport's event loop
         self._timer.arm(
-            self.round_timeout_s,
+            timeout,
             lambda: self.send(MsgType.ROUND_TIMEOUT, 0,
                               **{Message.ARG_ROUND: round_at_arm}))
 
     def _on_timeout(self, msg: Message) -> None:
+        if self.ingest is not None:
+            # frames off the wire but still queued are not stragglers:
+            # drain before judging the barrier (a queued fold may close
+            # the round, and the stale-round guard below then bails)
+            self.ingest.drain()
+        with self._ingest_lock:
+            self._on_timeout_locked(msg)
+
+    def _on_timeout_locked(self, msg: Message) -> None:
         if msg.get(Message.ARG_ROUND) != self.round_idx or self._finished:
             return  # stale timer from an already-completed round
         if self._secagg_stage == "agreement":
@@ -646,11 +744,64 @@ class FedAvgServerActor(ServerManager):
             self.finish()
             return
         quorum = max(1, math.ceil(self.min_silo_frac * len(self._expected)))
+        if self.degrade is not None and self.straggler_policy == "drop":
+            self._degrade_timeout(missing, quorum)
+            return
         if self.straggler_policy == "drop" and len(self._received) >= quorum:
             self.dropped_silos.setdefault(self.round_idx, []).extend(missing)
             self._complete_round()
             return
         self._arm_timer()  # wait (or drop below quorum): keep waiting
+
+    def _degrade_timeout(self, missing, quorum: int) -> None:
+        """The tracker adjudicates the timed-out round: ``min_quorum``
+        may raise the close threshold (never below ``min_silo_frac``'s),
+        and a correlated miss with network evidence holds the round."""
+        floor = self.degrade.quorum_for(len(self._expected))
+        if floor is not None:
+            quorum = max(quorum, floor)
+        verdict = self.degrade.assess_timeout(
+            self.round_idx, self._expected, set(self._received), quorum,
+            detector_states=(self.failure_detector.states()
+                             if self.failure_detector is not None
+                             else None))
+        log.warning("round %d: degrade verdict %s", self.round_idx,
+                    verdict.as_dict())
+        if verdict.action == "hold":
+            # a partition, not a mass failure: keep the global and give
+            # it a chance to heal before folding a minority view
+            self._arm_timer()
+            return
+        if verdict.action == "abandon":
+            self._abandon_partitioned_round(missing, verdict)
+            return
+        if verdict.action == "close":
+            # the dropped silos are honest until payload evidence says
+            # otherwise: debt accrues, the fault ledger books a network
+            # entry, and trust is never touched from here
+            for silo in missing:
+                self.degrade.note_drop(silo)
+            self.dropped_silos.setdefault(self.round_idx, []).extend(
+                missing)
+            self._complete_round()
+            return
+        self._arm_timer()  # below quorum: keep waiting
+
+    def _abandon_partitioned_round(self, missing, verdict) -> None:
+        """The suspected partition outlived its hold budget: abandon the
+        round loudly with the global unchanged, and journal the abandon,
+        so a resume never re-folds the minority view."""
+        log.error("round %d: abandoning after %d partition holds "
+                  "(missing=%s; %s); the global model is unchanged",
+                  self.round_idx, verdict.holds, missing, verdict.reason)
+        self._timer.cancel()
+        self.dropped_silos.setdefault(self.round_idx, []).extend(missing)
+        self._received.clear()
+        self._last_accepted = np.asarray([], np.int32)
+        if self.journal is not None:
+            self.journal.abandon(self.round_idx,
+                                 "partition: " + verdict.reason)
+        self._finish_round()
 
     # -- health --------------------------------------------------------------
     def _beat(self, silo: int) -> None:
@@ -674,17 +825,77 @@ class FedAvgServerActor(ServerManager):
     # -- the receive path ----------------------------------------------------
     def _on_model(self, msg: Message) -> None:
         self._beat(msg.sender_id)
-        if not self._upload_guards(msg):
+        if not self._upload_guards(msg, check_inflight=True):
             return
+        if self.ingest is not None:
+            # pipelined: this thread only enqueues to the shard's fold
+            # worker, which re-runs the guards under the ingest lock
+            shard = 0
+            if self.shard_wire is not None:
+                s = msg.get(Message.ARG_SHARD)
+                if isinstance(s, int) and 0 <= s < self.ingest.num_shards:
+                    shard = s
+                # a missing or malformed shard tag rides queue 0, where
+                # the screen rejects it as structural damage
+            else:
+                self._ingest_inflight.add(msg.sender_id)
+            ok = self.ingest.submit(
+                shard, lambda: self._ingest_task(msg),
+                detail=f"silo {msg.sender_id} round {self.round_idx}")
+            if not ok and self.shard_wire is None:
+                # overflow: dead-lettered as a network fault; the silo is
+                # simply not heard from this round
+                self._ingest_inflight.discard(msg.sender_id)
+            return
+        self._upload_body(msg)
+
+    def _ingest_task(self, msg: Message) -> None:
+        """One queued upload on its shard's fold worker: the arena stage
+        (gather, one copy, the device screen) outside the ingest lock,
+        where the per-shard parallelism lives, then the guards and the
+        upload body under it."""
+        silo = msg.sender_id
+        try:
+            pre = None
+            if self.shard_wire is not None:
+                s = msg.get(Message.ARG_SHARD)
+                arena = (self.ingest.arena_for(s)
+                         if isinstance(s, int)
+                         and 0 <= s < self.ingest.num_shards else None)
+            else:
+                arena = self.ingest.arena_for(0)
+            if arena is not None:
+                with self._span("ingest:decode"):
+                    pre = arena.stage_message(msg, Message.ARG_MODEL_PARAMS)
+                    if pre is None:
+                        # an in-process object message: stage the tree
+                        pre = arena.stage_tree(
+                            msg.get(Message.ARG_MODEL_PARAMS))
+            with self._ingest_lock:
+                if not self._upload_guards(msg, check_inflight=False):
+                    return
+                self._upload_body(msg, pre=pre)
+        finally:
+            if self.shard_wire is None:
+                with self._ingest_lock:
+                    self._ingest_inflight.discard(silo)
+
+    def _upload_body(self, msg: Message, pre=None) -> None:
+        """Everything past the envelope guards: decode, admission (``pre``
+        carries the arena's screen), and the fold or stage."""
         if self._first_upload_t is None:
             self._first_upload_t = time.monotonic()
         if self.shard_wire is not None:
-            self._on_shard_upload(msg)
+            self._on_shard_upload(msg, pre=pre)
         else:
-            self._on_plain_upload(msg)
+            self._on_plain_upload(msg, pre=pre)
 
-    def _upload_guards(self, msg: Message) -> bool:
-        """The envelope guards: round tag, quorum membership, duplicates."""
+    def _upload_guards(self, msg: Message,
+                       check_inflight: bool = True) -> bool:
+        """The envelope guards: round tag, secagg stage, quorum
+        membership, duplicates.  The pipelined path runs them twice: on
+        the transport thread (with ``check_inflight``, the queued-but-
+        unfolded duplicate guard) and again on the fold worker."""
         upload_round = msg.get(Message.ARG_ROUND)
         if upload_round is not None and upload_round != self.round_idx:
             log.warning("discarding round-%s upload from silo %d (current "
@@ -707,16 +918,65 @@ class FedAvgServerActor(ServerManager):
             log.info("ignoring duplicate round-%d upload from silo %d",
                      self.round_idx, msg.sender_id)
             return False
+        if check_inflight and self.ingest is not None \
+                and self.shard_wire is None \
+                and msg.sender_id in self._ingest_inflight:
+            log.info("ignoring duplicate round-%d upload from silo %d "
+                     "(first copy still queued)", self.round_idx,
+                     msg.sender_id)
+            return False
         return True
 
-    def _on_plain_upload(self, msg: Message) -> None:
+    def _handshake_error(self, msg: Message, upload) -> Optional[str]:
+        """The compression-scheme handshake: a payload with a ``scheme``
+        tag is a compressed frame, and it must meet a decoding server."""
+        is_compressed = isinstance(upload, dict) and "scheme" in upload
+        if self.decode_upload is None and is_compressed:
+            return (f"silo {msg.sender_id} sent a compressed upload "
+                    f"(scheme={upload['scheme']!r}) but the server has no "
+                    f"--wire_compression configured")
+        if self.decode_upload is not None and not is_compressed:
+            return (f"server expects compressed uploads but silo "
+                    f"{msg.sender_id} sent plain parameters; launch silos "
+                    f"with the same --wire_compression")
+        return None
+
+    def _on_plain_upload(self, msg: Message, pre=None) -> None:
         upload = msg.get(Message.ARG_MODEL_PARAMS)
+        handshake_err = self._handshake_error(msg, upload)
+        if handshake_err is not None:
+            # without admission a misconfigured fleet fails loudly; with
+            # it, the mismatch is attacker-reachable structural damage
+            if self.admission is None:
+                raise ValueError(handshake_err)
+            log.warning("round %d: rejecting upload from silo %d "
+                        "(handshake mismatch: %s)", self.round_idx,
+                        msg.sender_id, handshake_err)
+            self.admission.reject(msg.sender_id, self.round_idx,
+                                  "fingerprint")
+            self._note_upload(msg.sender_id, None)
+            return
+        if self.decode_upload is not None:
+            try:
+                with self._span("ingest:decode"):
+                    upload = self.decode_upload(upload, self._host_params())
+            except Exception:  # noqa: BLE001 — damaged compressed frame
+                if self.admission is None:
+                    raise
+                # leave the raw payload: the fingerprint screen rejects it
+                log.warning("round %d: undecodable upload from silo %d; "
+                            "routing to admission as structural damage",
+                            self.round_idx, msg.sender_id)
+        if pre is not None and pre.structural_ok and pre.tree is not None:
+            # the arena staged the payload on the device: the fold reads
+            # the staged tree, so its copy is the arena's one copy
+            upload = pre.tree
         entry = (upload, msg.get(Message.ARG_NUM_SAMPLES))
         if self.admission is not None:
             with self._span("ingest:admission"):
                 verdict = self.admission.admit(
                     msg.sender_id, upload, msg.get(Message.ARG_NUM_SAMPLES),
-                    self._host_params(), self.round_idx)
+                    self._host_params(), self.round_idx, pre=pre)
             if verdict.ok:
                 entry = (upload, verdict.num_samples)
             else:
@@ -726,14 +986,19 @@ class FedAvgServerActor(ServerManager):
                 entry = None
         self._note_upload(msg.sender_id, entry)
 
-    def _on_shard_upload(self, msg: Message) -> None:
+    def _on_shard_upload(self, msg: Message, pre=None) -> None:
         """One shard slice of a silo's upload: screened per shard at
         arrival; the silo reaches the barrier when its LAST slice completes
         admission (or its first slice fails it).  A whole-model upload on
-        the sharded wire is structural damage, rejected at weight 0."""
+        the sharded wire is structural damage, rejected at weight 0.
+        ``pre``: the shard arena's screen; the staged device slice is
+        banked in place of the host one."""
         silo = msg.sender_id
         shard = msg.get(Message.ARG_SHARD)
         adm = self.shard_wire.admission
+        payload = msg.get(Message.ARG_MODEL_PARAMS)
+        if pre is not None and pre.structural_ok and pre.tree is not None:
+            payload = pre.tree
         with self._span("ingest:admission"):
             if shard is None:
                 log.warning("round %d: silo %d sent a whole-model upload on "
@@ -743,9 +1008,9 @@ class FedAvgServerActor(ServerManager):
                                           "fingerprint")
             else:
                 status, info = adm.offer(
-                    silo, shard, msg.get(Message.ARG_SHARD_COUNT),
-                    msg.get(Message.ARG_MODEL_PARAMS),
-                    msg.get(Message.ARG_NUM_SAMPLES), self.round_idx)
+                    silo, shard, msg.get(Message.ARG_SHARD_COUNT), payload,
+                    msg.get(Message.ARG_NUM_SAMPLES), self.round_idx,
+                    pre=pre)
         if status == WAIT:
             return
         if status != ACCEPT:
@@ -763,7 +1028,13 @@ class FedAvgServerActor(ServerManager):
         """Record a silo's report (``None``: reported but inadmissible),
         fold or stage an admitted upload at arrival, and close the round
         when the barrier is met.  With a journal, each report is
-        recorded and the fold state snapshotted on its cadence."""
+        recorded (with its round-relative latency, ``lat_s``) and the
+        fold state snapshotted on its cadence; with ``degrade`` the
+        latency feeds the tracker."""
+        payload_rejected = entry is None
+        lat_s = (None if self._round_t0 is None
+                 else round(time.monotonic() - self._round_t0, 6))
+        lat_extra = {"lat_s": lat_s} if lat_s is not None else None
         if entry is not None and self.faultline is not None:
             # admitted, not yet folded
             self.faultline.maybe_crash("post_admission_pre_fold",
@@ -783,7 +1054,8 @@ class FedAvgServerActor(ServerManager):
                 if self.journal is not None:
                     # metadata only: a secure round never snapshots
                     self.journal.note_accept(self.round_idx, silo,
-                                             float(entry[1]))
+                                             float(entry[1]),
+                                             extra=lat_extra)
                 entry = (self._STAGED, entry[1])
         elif entry is not None:
             with self._span("ingest:fold"):
@@ -799,6 +1071,7 @@ class FedAvgServerActor(ServerManager):
                 with self._span("ingest:journal"):
                     self.journal.note_accept(self.round_idx, silo,
                                              float(entry[1]),
+                                             extra=lat_extra,
                                              state_fn=state_fn)
             entry = (self._STAGED, entry[1])
         if entry is None and self.journal is not None:
@@ -809,6 +1082,16 @@ class FedAvgServerActor(ServerManager):
             # folded (or recorded), the report not yet banked
             self.faultline.maybe_crash("post_fold_pre_ack",
                                        round_idx=self.round_idx, silo=silo)
+        if self.degrade is not None:
+            # admitted or rejected, the silo completed the round trip: its
+            # latency is evidence either way
+            if lat_s is not None:
+                self.degrade.observe_completion(silo, lat_s)
+            if entry is not None:
+                self.degrade.note_accept(silo)
+            elif payload_rejected:
+                # the strike itself already landed at the admission site
+                self.degrade.note_fault(FaultClass.PAYLOAD, silo=silo)
         self._received[silo] = entry
         if self._barrier_met():
             self._complete_round()
@@ -1101,10 +1384,13 @@ class FedAvgServerActor(ServerManager):
             self._broadcast(MsgType.S2C_SYNC)
 
     def finish(self) -> None:
-        """Stop the federation: cancel and join the straggler timer, then
-        stop the transport."""
+        """Stop the federation: cancel and join the straggler timer, stop
+        the ingest workers (no drain: finish may run on a fold worker),
+        then stop the transport."""
         self._finished = True
         self._timer.cancel(join=True)
+        if self.ingest is not None:
+            self.ingest.stop()
         super().finish()
 
 
@@ -1123,17 +1409,31 @@ class FedAvgClientActor(ClientManager):
     uploads only once the ROSTER has fixed the masking cohort —
     quantized and masked on the client's device — and answers the
     server's UNMASK request with exactly the share kinds asked for.
+
+    ``encode_upload(upload, global) -> payload``: the wire-compression
+    (or async delta) transform of the host upload against the synced
+    global, both in the wire layout.  ``on_accepted(accepted_ids)`` fires
+    on every sync before training, so deferred error-feedback residuals
+    settle before the next encode reads them.  ``server_id``: the root,
+    or the silo's edge aggregator.
     """
 
     def __init__(self, node_id: int, transport: Transport,
                  train_fn: SiloTrainFn, server_id: int = 0,
                  heartbeat_interval_s: Optional[float] = None,
-                 secagg=None):
+                 secagg=None, encode_upload: Optional[Callable] = None,
+                 on_accepted: Optional[Callable] = None):
         super().__init__(node_id, transport)
+        if secagg is not None and encode_upload is not None:
+            raise ValueError("secagg and encode_upload (wire compression) "
+                             "are mutually exclusive: a compressed payload "
+                             "cannot ride the masking ring")
         self.server_id = server_id
         self.train_fn = train_fn
         self.heartbeat_interval_s = heartbeat_interval_s
         self.secagg = secagg
+        self.encode_upload = encode_upload
+        self.on_accepted = on_accepted
         # (round, trained update, num_samples) waiting for its roster
         self._pending_upload: Optional[tuple] = None
         self._round: Optional[int] = None  # last round synced
@@ -1188,6 +1488,8 @@ class FedAvgClientActor(ClientManager):
             return
         round_idx = msg.get(Message.ARG_ROUND)
         self._round = round_idx
+        if self.on_accepted is not None:
+            self.on_accepted(msg.get(Message.ARG_ACCEPTED))
         secagg_info = (msg.get(Message.ARG_SECAGG)
                        if self.secagg is not None else None)
         if self.secagg is not None and secagg_info is None:
@@ -1209,9 +1511,11 @@ class FedAvgClientActor(ClientManager):
             self._pending_upload = (round_idx, update, float(num_samples))
             self._maybe_masked_upload()
             return
+        params = msg.get(Message.ARG_MODEL_PARAMS)
         upload, num_samples = self._train(
-            msg.get(Message.ARG_MODEL_PARAMS),
-            msg.get(Message.ARG_CLIENT_INDEX), round_idx)
+            params, msg.get(Message.ARG_CLIENT_INDEX), round_idx)
+        if self.encode_upload is not None:
+            upload = self.encode_upload(upload, params)
         with self._span("upload", round=round_idx):
             self.send(MsgType.C2S_MODEL, self.server_id,
                       **{Message.ARG_MODEL_PARAMS: upload,

@@ -66,12 +66,18 @@ class LocalHub:
         target._inbox.put(msg)
 
     # -- synchronous drive mode ---------------------------------------------
-    def pump(self, max_messages: int = 100_000) -> int:
+    def pump(self, max_messages: int = 100_000, idle_hook=None) -> int:
         """Deliver queued messages on this thread until quiescent.
 
         Round-robins over endpoints in node-id order; each delivery may
         enqueue more messages (a handler that replies), so pumping repeats
         until every inbox is empty.  Returns the number delivered.
+
+        ``idle_hook``: called when a pass over every inbox made no
+        progress; a truthy return means it produced work (the ingest
+        pipeline drained queued folds whose round close enqueued
+        broadcasts) and the pump keeps going.  Delivery order stays the
+        round robin, and the drain is the only cross-thread rendezvous.
         """
         delivered = 0
         progress = True
@@ -89,6 +95,8 @@ class LocalHub:
                 endpoint._notify(msg)
                 delivered += 1
                 progress = True
+            if not progress and idle_hook is not None:
+                progress = bool(idle_hook())
         return delivered
 
 

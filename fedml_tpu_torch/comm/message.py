@@ -196,6 +196,11 @@ class Message:
         # broadcast at ONE SharedPayload, and to_bytes() reuses its
         # already-serialized block instead of re-encoding the model bytes
         self._shared: Optional["SharedPayload"] = None
+        # a decoded frame keeps its header's array descriptors and buffer
+        # views, so the ingest arena can stage a payload without a tree
+        # walk (`raw_payload`)
+        self._arrays: Optional[dict] = None
+        self._buffers: Optional[List[memoryview]] = None
 
     # -- accessors (reference message.py:26-60) ------------------------------
     @property
@@ -302,10 +307,27 @@ class Message:
                              "{'plain': {...}, 'arrays': {...}}")
         return header
 
+    def raw_payload(self, key: str):
+        """The raw-frame view of one array param, for the ingest arena:
+        ``(leaf_descriptors, spec, buffers)``, header facts plus the
+        frame's zero-copy buffer views.  None when the message never
+        crossed the wire or carries no such array param."""
+        if self._arrays is None or self._buffers is None:
+            return None
+        info = self._arrays.get(key)
+        if not isinstance(info, dict):
+            return None
+        try:
+            return info["leaves"], info["spec"], self._buffers
+        except (TypeError, KeyError):
+            return None
+
     @classmethod
     def _from_header(cls, header: dict, buffers: List[memoryview]):
         msg = cls.__new__(cls)
         msg._shared = None
+        msg._arrays = header["arrays"]
+        msg._buffers = buffers
         msg.params = dict(header["plain"])
         decoded_payload = False
         for key, info in header["arrays"].items():

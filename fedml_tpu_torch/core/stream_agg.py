@@ -345,10 +345,14 @@ class StreamingAggregator:
         self._h_finalize.observe(time.perf_counter() - t0)
         return out
 
-    def state_dict(self) -> Dict[str, object]:
+    def state_dict(self, include_reference: bool = False
+                   ) -> Dict[str, object]:
         """Host snapshot of the fold state: the accumulator leaves in key
         order (their own dtype), ``wsum`` f32, the counts.  A reservoir
-        round has no snapshot (its draws are not part of the state)."""
+        round has no snapshot (its draws are not part of the state).
+        ``include_reference`` adds the round's reference leaves: an edge
+        aggregator snapshots it, since a respawned edge has no live root
+        sync to re-learn the round global from."""
         if self.method != "mean":
             raise RuntimeError(
                 f"state_dict: only the streaming mean fold snapshots; "
@@ -358,15 +362,25 @@ class StreamingAggregator:
                     [self._acc[k].cpu().numpy() for k in self._keys]),
             "wsum": np.float32(self._wsum),
             "count": int(self.count),
-            "weight_total": float(self.weight_total)}
+            "weight_total": float(self.weight_total),
+            **({"reference": [self._reference[k].cpu().numpy()
+                              for k in self._keys]}
+               if include_reference else {})}
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Restore a snapshot mid-round; one that carries a ``reference``
+        re-opens the round from it, else the caller has ``reset()`` the
+        round first."""
         if self.method != "mean":
             raise RuntimeError("load_state_dict: reservoir rounds are "
                                "abort-only; nothing to restore")
+        if state.get("reference") is not None:
+            self.reset({k: np.asarray(a)
+                        for k, a in zip(self._keys, state["reference"])})
         if self._reference is None:
             raise RuntimeError("load_state_dict before reset(): the round's "
-                               "clip reference is not set")
+                               "clip reference is not set and the snapshot "
+                               "carries none")
         if state.get("acc") is not None:
             self._acc = {k: torch.as_tensor(np.array(a)).to(self.device)
                          for k, a in zip(self._keys, state["acc"])}

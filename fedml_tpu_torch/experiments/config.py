@@ -41,7 +41,11 @@ class ExperimentConfig:
     gm_iters: int = 8                    # geometric_median: Weiszfeld steps
     gm_eps: float = 1e-6                 # geometric_median: smoothing floor
 
-    group_num: int = 2                   # turboaggregate: groups per round
+    target_label: int = 9                # --adversary backdoor: target
+    poison_frac: float = 1.0             # backdoor: fraction stamped
+    trigger_size: int = 3                # backdoor: pixel-trigger side
+    group_num: int = 2                   # hierarchical / turboaggregate
+    group_comm_round: int = 2            # hierarchical: group rounds
     drop_tolerance: int = 1              # turboaggregate
     secagg_backend: str = "torch"        # turboaggregate: "torch" | "cuda"
 
@@ -82,6 +86,18 @@ class ExperimentConfig:
     #                                      and grpc drives)
     dead_after_s: float = 0.0            # >0: the server's failure detector
     suspect_after_s: float = 0.0         # SUSPECT threshold (0 = dead / 2)
+    retask_timeout_s: float = 0.0        # async_fl: re-task silos quiet
+    #                                      this long
+    # sustained degradation (robust/degrade.py)
+    min_quorum: float = 0.0              # >0: quorum-aware close (drop)
+    adaptive_deadline: bool = False      # deadline from the completion
+    #                                      quantile (round_timeout_s caps)
+    deadline_floor_s: float = 0.5        # adaptive deadline lower clamp
+    deadline_quantile: float = 0.9       # completion quantile
+    deadline_slack: float = 1.5          # deadline = quantile * slack
+    partition_frac: float = 0.0          # >0: a correlated miss with
+    #                                      network evidence holds the round
+    partition_max_holds: int = 3         # holds before the round abandons
     chaos_drop: float = 0.0              # drop prob (needs --straggler_policy
     #                                      drop + --round_timeout_s)
     chaos_delay: float = 0.0             # delay prob
@@ -95,7 +111,7 @@ class ExperimentConfig:
     #                                      --journal; default run_dir/journal)
     journal_snapshot_every: int = 4      # fold-state snapshot cadence
     # live secure aggregation (cross_silo, stream mode, the local hub)
-    secagg: str = "off"                  # off | pairwise (grouped: item 8)
+    secagg: str = "off"                  # off | pairwise | grouped (edges)
     secagg_threshold: int = 0            # t of t-of-N Shamir (0 = majority)
     secagg_clip: float = 64.0            # per-coordinate clip before the ring
     # the live server-optimizer seam (cross_silo): plain | momentum | adam
@@ -105,15 +121,23 @@ class ExperimentConfig:
     server_adam_beta1: float = 0.9
     server_adam_beta2: float = 0.999
     server_adam_eps: float = 1e-8
-    # cross_silo options of the JAX package that are refused by name
-    edge_aggregators: int = 0
-    wire_compression: str = "none"
-    error_feedback: bool = False
+    edge_aggregators: int = 0            # >0: edge tier between silos
+    #                                      and the root (local hub)
+    wire_compression: str = "none"       # cross_silo uploads: none|topk|int8
+    topk_frac: float = 0.1               # topk: fraction of entries kept
+    error_feedback: bool = False         # carry the compression residual
+    ingest_pipeline: bool = False        # pipelined receive path
+    ingest_queue_depth: int = 64         # bounded per-shard ingest queue
+    adversary: str = ""                  # "silo:kind[:param],..." attacks
+    # async_fl (FedBuff-style buffered aggregation)
+    async_goal: int = 0                  # aggregate every K uploads
+    #                                      (0 = n_silos // 2)
+    staleness_exponent: float = 0.5      # (1+s)^-alpha discount
+    async_server_lr: float = 1.0         # server step on the mean
+    # options of the JAX package that are refused by name
     serve_port: int = 0
-    ingest_pipeline: bool = False
     health: bool = False
     adaptive: bool = False
-    adversary: str = ""
     mesh_stages: int = 0
 
     # the stateful cohort algorithms
@@ -142,7 +166,7 @@ class ExperimentConfig:
     #                                      256))
     local_alg: str = "sgd"               # sgd | fedprox | scaffold | fednova
     sampler: str = "numpy"               # numpy (reference chain) | jax
-    wave_adversary: str = ""             # refused (robust/adversary.py)
+    wave_adversary: str = ""             # "round:wave:kind[:param],..."
 
     # transformer attention (NWP datasets)
     attn_block_size: int = 0             # >0: blockwise attention

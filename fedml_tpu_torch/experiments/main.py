@@ -1,7 +1,8 @@
 """``python -m fedml_tpu_torch`` — the port's entry point.
 
 Runs ``fedavg``, ``fedavg_robust``, ``turboaggregate``, ``cross_silo``,
-``cross_device``, ``centralized`` and the stateful cohort algorithms
+``async_fl``, ``hierarchical``, ``cross_device``, ``centralized`` and the
+stateful cohort algorithms
 (``fedopt``, ``fedprox``, ``fednova``, ``scaffold``, ``feddyn``,
 ``ditto``, ``fedac``, ``dp_fedavg``) on the hermetic twins, on the GPU
 unless ``--platform cpu`` is given, writes ``metrics.jsonl`` and
@@ -54,6 +55,20 @@ server optimizer.  ``--algo cross_device`` (or ``--cross_device``) trains
 each round's sampled cohort in waves of ``--wave_size`` clients folded
 into the streaming mean, with ``--local_alg
 sgd|fedprox|scaffold|fednova`` and ``--sampler numpy|jax``.
+The live path also takes ``--edge_aggregators E`` (an edge tier, with
+``--secagg grouped`` masking per edge block), ``--wire_compression
+topk|int8`` (``--error_feedback true``), ``--adversary "2:scale:20"``,
+``--min_quorum``/``--adaptive_deadline``/``--partition_frac`` (the
+reliability tracker) and ``--ingest_pipeline true``; ``--algo async_fl``
+runs FedBuff-style versions of ``--async_goal`` uploads, and ``--algo
+hierarchical`` the two-tier simulation (``--group_num``,
+``--group_comm_round``):
+
+    python -m fedml_tpu_torch --algo async_fl --model cnn_fedavg \\
+        --dataset femnist --client_num_in_total 3400 \\
+        --client_num_per_round 10 --async_goal 5 --agg_mode stream \\
+        --norm_clip 5.0 --batch_size 20 --lr 0.1 --comm_round 6
+
 ``--silo_backend grpc`` runs one node per process:
 
     python -m fedml_tpu_torch --algo cross_silo --silo_backend grpc \\
@@ -68,8 +83,9 @@ import dataclasses
 import json
 import logging
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.device import resolve_device, synchronize
@@ -249,7 +265,10 @@ def run_cross_device(cfg, data, sink):
 
 def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
     """The runner's `CrossDevice` for ``cfg``; with ``--server_opt``, the
-    optimizer's template is the run's initial global."""
+    optimizer's template is the run's initial global.  ``--ingest_pipeline``
+    folds the waves on one worker, ``--wave_adversary`` poisons wave
+    summaries; the engine's ``degrade`` seam is an API seam, as in the
+    JAX runner."""
     from fedml_tpu_torch.algorithms.cross_device import (CrossDevice,
                                                          CrossDeviceConfig)
     wl = _make_workload(cfg, data)
@@ -266,8 +285,12 @@ def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
             norm_screen_k=cfg.norm_screen_k,
             norm_screen_window=cfg.norm_screen_window,
             norm_screen_min_history=cfg.norm_screen_min_history,
+            wave_adversary=cfg.wave_adversary,
             **_fedavg_cfg_kwargs(cfg)),
-        sink=sink, device=cfg.platform, server_opt=server_opt)
+        sink=sink, device=cfg.platform, server_opt=server_opt,
+        # submit_wait cannot overflow (backpressure paces the waves), so
+        # no fault feed is wired
+        ingest=make_ingest(cfg, None))
 
 
 @runner("centralized")
@@ -350,8 +373,9 @@ def run_turboaggregate(cfg, data, sink):
 
 def _silo_training_setup(cfg, data, wl, device, init_params=None):
     """The initial global and the per-silo ``train_fn(params, client_idx,
-    round_idx)`` factory: each silo trains its sampled client's shard on
-    ``device`` with the local trainer.  ``init_params`` (a flat dict)
+    round_idx)`` factory ``make_train_fn(silo_id, shard_transform=None)``:
+    each silo trains its sampled client's shard on ``device`` with the
+    local trainer.  ``init_params`` (a flat dict)
     replaces the seeded init, as a test does to carry the JAX package's
     weights across.
 
@@ -362,17 +386,21 @@ def _silo_training_setup(cfg, data, wl, device, init_params=None):
     from fedml_tpu_torch.trainer.local_sgd import make_local_trainer
     from fedml_tpu_torch.trainer.workload import make_client_optimizer
 
-    def make_train_fn(silo_id):
+    def make_train_fn(silo_id, shard_transform=None):
         local = make_local_trainer(
             _make_workload(cfg, data),
             make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd),
             cfg.epochs)
 
         # the CNN has no dropout, so the silo's key of the JAX chain
-        # (`silo_key`) has nothing to seed
+        # (`silo_key`) has nothing to seed.  shard_transform(shard,
+        # client_idx, round_idx): the adversary's data-poisoning seam
         def train_fn(params, client_idx, round_idx):
-            shard = {k: torch.as_tensor(data.train[k][client_idx]).to(device)
-                     for k in ("x", "y", "mask")}
+            shard = {k: data.train[k][client_idx] for k in ("x", "y", "mask")}
+            if shard_transform is not None:
+                shard = shard_transform(shard, client_idx, round_idx)
+            shard = {k: torch.as_tensor(v).to(device)
+                     for k, v in shard.items()}
             new, _ = local({k: as_tensor(v, device)
                             for k, v in params.items()}, shard)
             return new, float(data.train["num_samples"][client_idx])
@@ -395,13 +423,14 @@ def silo_key(seed: int, round_idx: int, silo_id: int):
     return prng.fold_in(next(keys), silo_id - 1)
 
 
-def _robust_setup(cfg: ExperimentConfig, template):
+def _robust_setup(cfg: ExperimentConfig, template, kind: str = "params"):
     """The replicated path's admission pipeline (``--admission auto`` arms
     it whenever a defense flag is set) and aggregation: ``(admission,
     defended, stream)``.  ``--agg_mode stream`` gives a streaming fold
     (the mean, or a rule over its reservoir); stack mode gives the
     defended aggregate over the staged cohort when a defense flag is set,
-    else None (the plain weighted mean)."""
+    else None (the plain weighted mean).  ``kind="delta"``: async uploads
+    are deltas, screened by their own norm and clipped against zero."""
     from fedml_tpu_torch.core.pytree import nest, to_host
     from fedml_tpu_torch.core.stream_agg import StreamingAggregator
     from fedml_tpu_torch.robust import AdmissionPipeline
@@ -412,7 +441,7 @@ def _robust_setup(cfg: ExperimentConfig, template):
     admission = None
     if cfg.admission == "on" or (cfg.admission == "auto" and robust_on):
         admission = AdmissionPipeline(
-            to_host(nest(template)), kind="params",
+            to_host(nest(template)), kind=kind,
             max_num_samples=cfg.max_num_samples, norm_k=cfg.norm_screen_k,
             norm_window=cfg.norm_screen_window,
             norm_min_history=cfg.norm_screen_min_history,
@@ -423,7 +452,7 @@ def _robust_setup(cfg: ExperimentConfig, template):
                 seed=cfg.seed)
     if cfg.agg_mode == "stream":
         return admission, None, StreamingAggregator(
-            template, method=cfg.robust_agg, kind="params",
+            template, method=cfg.robust_agg, kind=kind,
             reservoir_k=cfg.stream_reservoir, **rule)
     defended = (make_defended_aggregate(cfg.robust_agg, **rule)
                 if robust_on else None)
@@ -465,9 +494,10 @@ def _compose_extra_state(named):
     return (get, set_)
 
 
-def make_journal(cfg: ExperimentConfig):
+def make_journal(cfg: ExperimentConfig, subdir: Optional[str] = None):
     """The round journal under ``--journal_dir`` (or ``run_dir/journal``
-    with ``--journal``); only the server node journals."""
+    with ``--journal``); only the server node journals.  Under the edge
+    topology each edge gets its own ``edge{e}`` subdirectory."""
     if not (cfg.journal or cfg.journal_dir):
         return None
     if cfg.silo_backend != "local" and cfg.node_id != 0:
@@ -475,6 +505,8 @@ def make_journal(cfg: ExperimentConfig):
     import os
     from fedml_tpu_torch.utils.journal import RoundJournal
     path = cfg.journal_dir or os.path.join(cfg.run_dir or ".", "journal")
+    if subdir:
+        path = os.path.join(path, subdir)
     if not cfg.checkpoint_dir:
         logger.warning("--journal without --checkpoint_dir: mid-round "
                        "recovery needs the round-boundary checkpoint to "
@@ -487,7 +519,7 @@ def make_journal(cfg: ExperimentConfig):
                        "--checkpoint_every 1 for full coverage",
                        cfg.checkpoint_every)
     return RoundJournal(path, snapshot_every=cfg.journal_snapshot_every,
-                        node=f"node{cfg.node_id}")
+                        node=subdir or f"node{cfg.node_id}")
 
 
 def make_server_opt(cfg: ExperimentConfig, template, plan=None):
@@ -506,30 +538,248 @@ def make_server_opt(cfg: ExperimentConfig, template, plan=None):
 
 
 def secagg_setup(cfg: ExperimentConfig, data, init, device):
-    """``--secagg pairwise``: the server's `SecAggServer`, the masked
-    admission (``kind="masked"``; the norm screen moves to the unmasked
-    sum) and a ``make_silo_secagg(silo_id)`` factory.  Every silo masks
-    ``n_i / weight_cap <= 1``, with the cap the largest client size."""
+    """``--secagg pairwise|grouped``: ``(root server, masked admission
+    factory, make_silo_secagg(masking id), make_edge_secagg(node))``.
+
+    Pairwise: the whole cohort is one masking group served by the root's
+    `SecAggServer` (the edge factory is None).  Grouped: each edge runs
+    the protocol for its block with ``noise_std=0`` and the root stays
+    plaintext (its root server is None), so the DP noise is added once,
+    by the root's finalize over the edge means.  The admission is
+    ``kind="masked"`` (the norm screen moves to the unmasked sum).  Every
+    silo masks ``n_i / weight_cap <= 1``, with the cap the largest client
+    size."""
     import numpy as np
     from fedml_tpu_torch.core.pytree import nest, to_host
     from fedml_tpu_torch.robust import AdmissionPipeline
     from fedml_tpu_torch.secure.protocol import (SecAggClient, SecAggServer,
                                                  masked_template)
     weight_cap = float(np.max(data.train["num_samples"]))
-    server = SecAggServer(
-        threshold=cfg.secagg_threshold, clip=cfg.secagg_clip,
-        weight_cap=weight_cap, norm_clip=cfg.norm_clip,
-        noise_std=cfg.agg_noise_std, seed=cfg.seed,
-        norm_screen_k=cfg.norm_screen_k,
-        norm_screen_window=cfg.norm_screen_window,
-        norm_screen_min_history=cfg.norm_screen_min_history,
-        node="server", device=device)
-    admission = None
-    if cfg.admission != "off":
-        admission = AdmissionPipeline(
+
+    def server(node, noise_std):
+        return SecAggServer(
+            threshold=cfg.secagg_threshold, clip=cfg.secagg_clip,
+            weight_cap=weight_cap, norm_clip=cfg.norm_clip,
+            noise_std=noise_std, seed=cfg.seed,
+            norm_screen_k=cfg.norm_screen_k,
+            norm_screen_window=cfg.norm_screen_window,
+            norm_screen_min_history=cfg.norm_screen_min_history,
+            node=node, device=device)
+
+    def masked_admission():
+        if cfg.admission == "off":
+            return None
+        return AdmissionPipeline(
             masked_template(to_host(nest(init))), kind="masked",
             max_num_samples=cfg.max_num_samples, trust=_trust_tracker(cfg))
-    return server, admission, (lambda g: SecAggClient(g, device=device))
+
+    make_silo = lambda g: SecAggClient(g, device=device)  # noqa: E731
+    if cfg.secagg == "pairwise":
+        return server("server", cfg.agg_noise_std), masked_admission, \
+            make_silo, None
+    return None, masked_admission, make_silo, \
+        (lambda node: server(node, 0.0))
+
+
+def degrade_setup(cfg: ExperimentConfig, n_silos: int, mode: str = "sync"):
+    """The reliability tracker (``--min_quorum`` / ``--adaptive_deadline``
+    / ``--partition_frac``, `robust.degrade`), with the JAX package's
+    gates (JAX ``main.py:256-321``).  ``mode``: ``"sync"`` (the round
+    barrier) or ``"async"`` (the re-task watchdog; the barrier flags are
+    refused)."""
+    wanted = (cfg.min_quorum > 0 or cfg.adaptive_deadline
+              or cfg.partition_frac > 0)
+    if not wanted:
+        return None
+    if not 0.0 < cfg.min_quorum <= 1.0 and cfg.min_quorum != 0.0:
+        raise ValueError(
+            f"--min_quorum must be in (0, 1] (a cohort fraction), got "
+            f"{cfg.min_quorum}")
+    if mode == "async":
+        if cfg.min_quorum > 0 or cfg.partition_frac > 0:
+            raise ValueError(
+                "--min_quorum/--partition_frac adjudicate the sync round "
+                "barrier; the async server has no barrier to close — "
+                "only --adaptive_deadline (the watchdog analog) applies")
+        if not cfg.retask_timeout_s:
+            raise ValueError(
+                "--adaptive_deadline under --algo async_fl adapts the "
+                "re-task watchdog and needs --retask_timeout_s > 0 (the "
+                "ceiling and cold-start fallback)")
+    elif mode == "sync":
+        if cfg.straggler_policy != "drop":
+            raise ValueError(
+                "--min_quorum/--adaptive_deadline/--partition_frac "
+                "adjudicate the close-early deadline, which only the "
+                "'drop' straggler policy has; use --straggler_policy "
+                "drop (wait never closes early, abort never degrades "
+                "gracefully)")
+        if (cfg.adaptive_deadline or cfg.partition_frac > 0) \
+                and not cfg.round_timeout_s:
+            raise ValueError(
+                "--adaptive_deadline/--partition_frac need "
+                "--round_timeout_s > 0: the static timeout is the "
+                "deadline's ceiling and the cold-start fallback, and "
+                "without a timer the deadline can never fire")
+    if cfg.partition_frac > 0 and not 0.0 < cfg.partition_frac <= 1.0:
+        raise ValueError(
+            f"--partition_frac must be in (0, 1] (a cohort fraction), "
+            f"got {cfg.partition_frac}")
+    if cfg.partition_frac > 0 and cfg.min_quorum > 0 \
+            and cfg.partition_frac > 1.0 - cfg.min_quorum + 1e-9:
+        raise ValueError(
+            f"--partition_frac {cfg.partition_frac} exceeds the quorum "
+            f"gap 1 - min_quorum = {1.0 - cfg.min_quorum:.3f}: a miss "
+            f"that large already blocks the quorum, so the partition "
+            f"hold would be unreachable dead code — lower "
+            f"--partition_frac or --min_quorum")
+    from fedml_tpu_torch.robust.degrade import ReliabilityTracker
+    return ReliabilityTracker(
+        n_silos, min_quorum=cfg.min_quorum,
+        adaptive_deadline=cfg.adaptive_deadline,
+        deadline_floor_s=cfg.deadline_floor_s,
+        deadline_quantile=cfg.deadline_quantile,
+        deadline_slack=cfg.deadline_slack,
+        partition_frac=cfg.partition_frac,
+        partition_max_holds=cfg.partition_max_holds)
+
+
+def adversary_train_fns(cfg: ExperimentConfig, data, make_train_fn,
+                        n_silos: int):
+    """Wrap the silo train-fn factory with ``--adversary``
+    (`robust.adversary`): listed silos run their seeded attack over the
+    real message path; every other silo is untouched."""
+    if not cfg.adversary:
+        return make_train_fn
+    from fedml_tpu_torch.robust.adversary import (
+        make_backdoor_shard_transform, make_malicious_train_fn,
+        parse_adversary_spec)
+    adversaries = parse_adversary_spec(cfg.adversary)
+    bad = sorted(s for s in adversaries if s > n_silos)
+    if bad:
+        raise ValueError(f"--adversary names silos {bad} but the "
+                         f"deployment has only {n_silos} silos (ids 1.."
+                         f"{n_silos})")
+
+    def wrapped(silo_id):
+        atk = adversaries.get(silo_id)
+        if atk is None:
+            return make_train_fn(silo_id)
+        transform = None
+        if atk.kind == "backdoor":
+            shape = sample_shape_of(data)
+            if len(shape) != 3:
+                raise ValueError(
+                    f"--algo --adversary backdoor (silo {silo_id}) needs "
+                    f"image-shaped data [H, W, C]; dataset {cfg.dataset!r} "
+                    f"yields {shape}. Try --dataset femnist or cifar10.")
+            target = int(atk.param) if atk.param >= 0 else cfg.target_label
+            transform = make_backdoor_shard_transform(
+                target, trigger_size=cfg.trigger_size,
+                poison_frac=cfg.poison_frac, seed=cfg.seed)
+        return make_malicious_train_fn(
+            atk, make_train_fn(silo_id, transform), silo_id, seed=cfg.seed)
+
+    return wrapped
+
+
+class WireCodec:
+    """``--wire_compression topk|int8`` (`comm.compress`, numpy on the
+    host: a wire-boundary op never bounces the model through the card):
+    silos send the compressed DELTA to the synced global, the server
+    decodes it against its host global.  With ``--error_feedback`` each
+    silo's residual is carried into its next delta and settled by the
+    server's accepted-silo ack; on the local hub the residuals ride the
+    server's round checkpoint (``extra_state``)."""
+
+    def __init__(self, cfg: ExperimentConfig, init, n_silos: int):
+        from fedml_tpu_torch.comm.compress import ErrorFeedback, tree_map
+        from fedml_tpu_torch.core.pytree import nest, to_host
+        self.cfg = cfg
+        self.ef = ErrorFeedback()
+        self.wire_bytes = 0       # compressed bytes received
+        self.raw_bytes = 0        # their decoded size
+        self.ef_extra = None
+        if cfg.error_feedback and cfg.silo_backend == "local":
+            template = tree_map(lambda v: np.zeros_like(np.asarray(v)),
+                                to_host(nest(init)))
+            silos = tuple(range(1, n_silos + 1))
+            self.ef_extra = (lambda: self.ef.state_dict(silos, template),
+                             self.ef.load_state_dict)
+        from fedml_tpu_torch.obs import telemetry
+        reg = telemetry.get_registry()
+        self._c_comp = reg.counter("fedml_comm_compressed_bytes_total")
+        self._c_raw = reg.counter("fedml_comm_raw_bytes_total")
+        self._h_ratio = reg.histogram(
+            "fedml_comm_compression_ratio_total",
+            buckets=(0.01, 0.025, 0.05, 0.1, 0.2, 0.35, 0.5, 0.75, 1.0))
+
+    def encode(self, silo: int):
+        """Silo ``silo``'s ``encode_upload(upload, global)``."""
+        from fedml_tpu_torch.algorithms.async_fl import delta_encoder
+        from fedml_tpu_torch.comm.compress import (compress_update,
+                                                   decompress_update)
+        cfg = self.cfg
+
+        def encode(new_params, global_params):
+            delta = delta_encoder(new_params, global_params)
+            if cfg.error_feedback:
+                delta = self.ef.apply(silo, delta)
+            payload = compress_update(delta, cfg.wire_compression,
+                                      cfg.topk_frac)
+            if cfg.error_feedback:
+                self.ef.record(silo, delta, decompress_update(payload, delta))
+            return payload
+        return encode
+
+    def on_accepted(self, silo: int):
+        if not self.cfg.error_feedback:
+            return None
+        return lambda accepted: self.ef.resolve(silo, accepted)
+
+    def decode(self, payload, host_global):
+        """The server's ``decode_upload``: the global plus the decoded
+        delta, as a nested host tree."""
+        from fedml_tpu_torch.comm.compress import (decompress_update,
+                                                   tree_map, wire_bytes)
+        compressed = wire_bytes(payload)
+        self.wire_bytes += compressed
+        delta = decompress_update(payload, host_global)
+        raw = wire_bytes(delta)
+        self.raw_bytes += raw
+        self._c_comp.inc(compressed)
+        self._c_raw.inc(raw)
+        if raw:
+            self._h_ratio.observe(compressed / raw)
+        return tree_map(np.add, host_global, delta)
+
+
+def make_ingest(cfg: ExperimentConfig, degrade, spine=None, init=None,
+                device=None):
+    """``--ingest_pipeline``: one fold worker a shard; overflow feeds the
+    tracker's dead letters (a network fault).  With ``init`` the workers
+    get pinned arenas templated on the exact slice layout the wire ships
+    (masked uploads keep the host decode: a ciphertext norm is noise)."""
+    if not cfg.ingest_pipeline:
+        return None
+    from fedml_tpu_torch.comm.ingest import IngestArena, IngestPipeline
+    ingest = IngestPipeline(
+        num_shards=spine.num_shards if spine is not None else 1,
+        depth=cfg.ingest_queue_depth,
+        fault_feed=((lambda reason, detail:
+                     degrade.note_dead_letter(reason))
+                    if degrade is not None else None))
+    if init is not None and cfg.secagg == "off":
+        from fedml_tpu_torch.core.pytree import nest, to_host
+        host = to_host(nest(init))
+        if spine is not None:
+            arenas = [IngestArena(sl, device=spine.agg.devices[s],
+                                  name=f"ingest_s{s}")
+                      for s, sl in enumerate(spine.broadcast_slices(host))]
+        else:
+            arenas = [IngestArena(host, device=device)]
+        ingest.attach_arenas(arenas)
+    return ingest
 
 
 def chaos_on(cfg: ExperimentConfig) -> bool:
@@ -555,9 +805,10 @@ def make_chaos_plan(cfg: ExperimentConfig):
         immune_types=(MsgType.S2C_FINISH, MsgType.ROUND_TIMEOUT))
 
 
-def grpc_transport(cfg: ExperimentConfig, n_silos: int):
+def grpc_transport(cfg: ExperimentConfig, n_silos: int, degrade=None):
     """This process's endpoint of the gRPC mesh (``--node_id``), in a
-    `ResilientTransport` with ``--silo_retries``."""
+    `ResilientTransport` with ``--silo_retries``; the server's dead
+    letters feed ``degrade`` as network evidence."""
     from fedml_tpu_torch.comm.grpc_transport import (GrpcTransport,
                                                      load_ip_table)
     table = (load_ip_table(cfg.ip_config) if cfg.ip_config
@@ -571,7 +822,11 @@ def grpc_transport(cfg: ExperimentConfig, n_silos: int):
                                                     RetryPolicy)
         transport = ResilientTransport(
             transport, RetryPolicy(max_attempts=cfg.silo_retries),
-            seed=cfg.seed)
+            seed=cfg.seed,
+            fault_feed=((lambda reason, msg:
+                         degrade.note_dead_letter(reason))
+                        if degrade is not None and cfg.node_id == 0
+                        else None))
     return transport
 
 
@@ -591,14 +846,20 @@ class CrossSiloFederation:
     ``--model_shards S`` runs the sharded spine: per-shard slice frames,
     per-shard admission and fold, and one K2 launch per shard per round
     with ``--fused_finalize on`` (or ``auto`` on the GPU).
-    ``--checkpoint_dir`` checkpoints every closed round (the trust ledger
-    and the shard layout ride ``extra_state``) and resumes from it;
-    ``--journal``/``--journal_dir`` adds the round journal;
-    ``--dead_after_s`` the failure detector.  ``--secagg pairwise`` the
-    live secure aggregation (`secure.protocol`), and ``--server_opt`` the
-    server-optimizer seam (its state rides the checkpoint, sharded along
-    the spine's plan).  ``faultline``: the server's
-    `robust.faultline.Faultline`.
+    ``--checkpoint_dir`` checkpoints every closed round (the trust ledger,
+    the shard layout, the optimizer, the EF residuals and the tracker ride
+    ``extra_state``) and resumes from it; ``--journal``/``--journal_dir``
+    adds the round journal; ``--dead_after_s`` the failure detector.
+    ``--secagg pairwise`` the live secure aggregation (`secure.protocol`),
+    and ``--server_opt`` the server-optimizer seam (its state sharded
+    along the spine's plan).  ``--edge_aggregators E`` puts E
+    `EdgeAggregatorActor`s between the silos and the root (hub address
+    plan: root 0, edges 1..E, silo g at E+g), with ``--secagg grouped``
+    masking per edge block.  ``--wire_compression`` compresses the
+    uploads (`WireCodec`), ``--adversary`` attacks listed silos,
+    ``--min_quorum``/``--adaptive_deadline``/``--partition_frac`` the
+    reliability tracker, ``--ingest_pipeline`` the pipelined receive
+    path.  ``faultline``: the server's `robust.faultline.Faultline`.
 
     Built, then ``run()``; ``server.params`` is the global.
     ``init_params`` (a flat dict) replaces the seeded init."""
@@ -618,6 +879,8 @@ class CrossSiloFederation:
         init, make_train_fn = _silo_training_setup(cfg, data, wl,
                                                    self.device, init_params)
         n_silos = min(cfg.client_num_per_round, data.client_num)
+        make_train_fn = adversary_train_fns(cfg, data, make_train_fn,
+                                            n_silos)
         spine = None
         if cfg.model_shards > 0:
             spine = build_shard_spine(
@@ -633,18 +896,48 @@ class CrossSiloFederation:
             admission, defended, stream = _robust_setup(cfg, init)
         self.secagg = None
         make_silo_secagg = lambda g: None  # noqa: E731
-        if cfg.secagg == "pairwise":
-            # the ring fold replaces the stream and the stack
-            self.secagg, admission, make_silo_secagg = secagg_setup(
-                cfg, data, init, self.device)
-            defended = stream = None
+        make_edge_secagg = masked_admission = None
+        if cfg.secagg != "off":
+            (self.secagg, masked_admission, make_silo_secagg,
+             make_edge_secagg) = secagg_setup(cfg, data, init, self.device)
+            if cfg.secagg == "pairwise":
+                # the ring fold replaces the stream and the stack
+                admission = masked_admission()
+                defended = stream = None
+        n_edges = cfg.edge_aggregators
+        if n_edges > 0:
+            if not 1 <= n_edges <= n_silos:
+                raise ValueError(f"--edge_aggregators {n_edges} must be in "
+                                 f"1..{n_silos} (every edge needs a silo)")
+            if cfg.wire_compression != "none" or cfg.error_feedback:
+                raise ValueError(
+                    "--wire_compression/--error_feedback are not wired "
+                    "through the edge tier (the root would try to "
+                    "decompress an edge's raw mean)")
+            if cfg.dead_after_s > 0:
+                raise ValueError(
+                    "--dead_after_s: silo heartbeats terminate at their "
+                    "edge; the root failure detector would declare every "
+                    "edge dead")
+            if admission is not None and admission.max_num_samples > 0:
+                # the root sees each edge's block SUM as its num_samples:
+                # scale the root's cap by the largest block (the edges'
+                # own pipelines keep the per-silo cap)
+                admission.max_num_samples *= -(-n_silos // n_edges)
+        self.codec = (WireCodec(cfg, init, n_silos)
+                      if cfg.wire_compression != "none" else None)
         self.server_opt = make_server_opt(
             cfg, init, plan=spine.plan if spine is not None else None)
+        # under the edge topology the root's cohort is the edge tier
+        self.degrade = degrade_setup(cfg, n_edges if n_edges > 0
+                                     else n_silos)
         # the trust ledger and the shard layout are checkpointed state: a
         # resumed server keeps strikes and quarantine sentences, and
         # refuses a checkpoint of another layout
         trust = (admission.trust if admission is not None
                  else spine.admission.trust if spine is not None else None)
+        n_trust = n_edges if n_edges > 0 and admission is not None \
+            else n_silos
         self.checkpointer = make_checkpointer(cfg)
         self.journal = make_journal(cfg)
         self.detector = None
@@ -653,47 +946,66 @@ class CrossSiloFederation:
                 suspect_after_s=cfg.suspect_after_s or cfg.dead_after_s / 2,
                 dead_after_s=cfg.dead_after_s)
         extra_state = _compose_extra_state([
+            ("ef", self.codec.ef_extra if self.codec is not None else None),
             ("trust", None if trust is None else
-             (lambda: trust.state_dict(n_silos), trust.load_state_dict)),
+             (lambda: trust.state_dict(n_trust), trust.load_state_dict)),
             ("shard", None if spine is None else
              (spine.checkpoint_state, spine.restore_checkpoint_state)),
             ("server_opt", None if self.server_opt is None else
              (self.server_opt.state_dict,
-              self.server_opt.load_state_dict))])
+              self.server_opt.load_state_dict)),
+            ("degrade", None if self.degrade is None else
+             (self.degrade.state_dict, self.degrade.load_state_dict))])
+        self.ingest = make_ingest(cfg, self.degrade, spine=spine, init=init,
+                                  device=self.device)
         self._eval_cohort = cohort_eval(make_evaluator(wl))
         self._freq = (max(cfg.comm_round, 1) if cfg.ci
                       else cfg.frequency_of_the_test)
         self.history: list = []
         self.round_times: list = []
         self._t0 = time.perf_counter()
+        timeout = cfg.round_timeout_s or None
 
         def make_server(transport):
             return FedAvgServerActor(
-                transport, init, data.client_num, n_silos, cfg.comm_round,
+                transport, init, data.client_num,
+                n_edges if n_edges > 0 else n_silos, cfg.comm_round,
                 on_round_done=self._on_round_done,
                 straggler_policy=cfg.straggler_policy,
-                round_timeout_s=cfg.round_timeout_s or None,
+                round_timeout_s=timeout,
                 min_silo_frac=cfg.min_silo_frac, admission=admission,
                 stream_agg=stream, shard_wire=spine, aggregate_fn=defended,
                 failure_detector=self.detector,
                 checkpointer=self.checkpointer, extra_state=extra_state,
                 journal=self.journal, faultline=faultline,
-                secagg=self.secagg, server_opt=self.server_opt)
+                secagg=self.secagg, server_opt=self.server_opt,
+                degrade=self.degrade, ingest=self.ingest,
+                decode_upload=(self.codec.decode if self.codec is not None
+                               else None))
+
+        def make_silo(node_id, transport, g, server_id=0, heartbeat=None):
+            codec = self.codec
+            return FedAvgClientActor(
+                node_id, transport, make_train_fn(g), server_id=server_id,
+                heartbeat_interval_s=heartbeat,
+                secagg=make_silo_secagg(node_id),
+                encode_upload=codec.encode(g) if codec is not None else None,
+                on_accepted=codec.on_accepted(g) if codec is not None
+                else None)
 
         self.hub = None
         self.chaos_plan = None
         self.server = None
         self.silos: list = []
+        self.edges: list = []
         if cfg.silo_backend == "grpc":
             self.drive = "grpc"
-            transport = grpc_transport(cfg, n_silos)
+            transport = grpc_transport(cfg, n_silos, self.degrade)
             if cfg.node_id == 0:
                 self.server = make_server(transport)
             else:
-                self.silos = [FedAvgClientActor(
-                    cfg.node_id, transport, make_train_fn(cfg.node_id),
-                    heartbeat_interval_s=cfg.heartbeat_s or None,
-                    secagg=make_silo_secagg(cfg.node_id))]
+                self.silos = [make_silo(cfg.node_id, transport, cfg.node_id,
+                                        heartbeat=cfg.heartbeat_s or None)]
             return
         if transport_factory is None:
             from fedml_tpu_torch.comm.local import LocalHub
@@ -711,14 +1023,79 @@ class CrossSiloFederation:
                       or self.hub is None else "pump")
         threaded = self.drive == "threaded"
         self.server = make_server(wrap(transport_factory(0)))
-        self.silos = [FedAvgClientActor(
-            g, wrap(transport_factory(g)), make_train_fn(g),
-            heartbeat_interval_s=(cfg.heartbeat_s or None) if threaded
-            else None, secagg=make_silo_secagg(g))
+        edge_of: Dict[int, int] = {}
+        if n_edges > 0:
+            self.edges = self._build_edges(
+                cfg, data, init, n_silos, n_edges, admission,
+                masked_admission, make_edge_secagg, timeout,
+                lambda e: wrap(transport_factory(e)), edge_of)
+        self.silos = [make_silo(
+            n_edges + g, wrap(transport_factory(n_edges + g)), g,
+            server_id=edge_of.get(g, 0),
+            heartbeat=(cfg.heartbeat_s or None) if threaded else None)
             for g in range(1, n_silos + 1)]
         if not threaded:
-            for actor in [self.server] + self.silos:
+            for actor in [self.server] + self.edges + self.silos:
                 actor.register_handlers()
+
+    @staticmethod
+    def _build_edges(cfg, data, init, n_silos, n_edges, admission,
+                     masked_admission, make_edge_secagg, timeout,
+                     transport_of, edge_of):
+        """The edge tier: E edges over ``array_split`` blocks of the
+        cohort; each screens its silos with its own pipeline (masked
+        under grouped SecAgg) and folds a plain clipped mean (the robust
+        rule and the noise run once, at the root)."""
+        from fedml_tpu_torch.algorithms.hierarchical import (
+            EdgeAggregatorActor)
+        from fedml_tpu_torch.core.pytree import nest, to_host
+        from fedml_tpu_torch.core.stream_agg import StreamingAggregator
+        from fedml_tpu_torch.robust import AdmissionPipeline
+        edges = []
+        blocks = np.array_split(np.arange(1, n_silos + 1), n_edges)
+        for e, block in enumerate(blocks, start=1):
+            edge_admission = None
+            if make_edge_secagg is not None:
+                edge_admission = masked_admission()
+            elif admission is not None:
+                edge_admission = AdmissionPipeline(
+                    to_host(nest(init)), kind="params",
+                    max_num_samples=cfg.max_num_samples,
+                    norm_k=cfg.norm_screen_k,
+                    norm_window=cfg.norm_screen_window,
+                    norm_min_history=cfg.norm_screen_min_history,
+                    trust=_trust_tracker(cfg))
+            # the edge flushes its partial fold before the root's timer
+            # fires: half the root timeout, a quarter for a masked edge
+            # (up to three timed stages)
+            edge_timeout = None
+            if timeout:
+                edge_timeout = (timeout / 4 if make_edge_secagg is not None
+                                else timeout / 2)
+            edges.append(EdgeAggregatorActor(
+                e, transport_of(e),
+                {n_edges + int(g): int(g) for g in block},
+                cohort_total=n_silos, client_num_in_total=data.client_num,
+                stream_agg=(None if make_edge_secagg is not None
+                            else StreamingAggregator(
+                                init, method="mean", kind="params",
+                                norm_clip=cfg.norm_clip, seed=cfg.seed)),
+                admission=edge_admission,
+                secagg=(make_edge_secagg(f"edge{e}")
+                        if make_edge_secagg is not None else None),
+                journal=make_journal(cfg, subdir=f"edge{e}"),
+                timeout_s=edge_timeout))
+            for g in block:
+                edge_of[int(g)] = e
+        return edges
+
+    @property
+    def wire_stats(self) -> Dict[str, int]:
+        """Compressed and decoded bytes the server received."""
+        if self.codec is None:
+            return {"bytes": 0, "raw_bytes": 0}
+        return {"bytes": self.codec.wire_bytes,
+                "raw_bytes": self.codec.raw_bytes}
 
     def _on_round_done(self, r, params):
         from fedml_tpu_torch.algorithms.fedavg import evaluate_global
@@ -728,6 +1105,9 @@ class CrossSiloFederation:
             stats = evaluate_global(self._eval_cohort, self.data, params,
                                     self.cfg.eval_chunk_clients, self.device)
             stats.update(round=r, round_s=self.round_times[-1])
+            if self.codec is not None:
+                # compressed bytes received since the last eval round
+                stats["upload_bytes"] = self.codec.wire_bytes
             logger.info("round %d: %s", r, stats)
             self.history.append(stats)
             self.sink.log(stats, step=r)
@@ -735,20 +1115,23 @@ class CrossSiloFederation:
 
     def _run_threaded(self, join_timeout_s: float = 30.0) -> None:
         import threading
+        actors = self.edges + self.silos
         threads = [threading.Thread(target=a.run, daemon=True,
                                     name=f"node-{a.node_id}")
-                   for a in self.silos]
+                   for a in actors]
         for th in threads:
             th.start()
         try:
+            for edge in self.edges:
+                edge.resume()
             self.server.register_handlers()
             self.server.start()
             self.server.transport.run()  # until the last round's FINISH
         finally:
             for th in threads:
                 th.join(timeout=join_timeout_s)
-            for silo in self.silos:
-                silo.finish()   # idempotent: stragglers past FINISH
+            for actor in actors:
+                actor.finish()   # idempotent: stragglers past FINISH
             for th in threads:
                 th.join(timeout=5)
 
@@ -763,8 +1146,13 @@ class CrossSiloFederation:
         try:
             self._t0 = time.perf_counter()
             if self.drive == "pump":
+                for edge in self.edges:
+                    # a journaled edge left mid-round resumes its block
+                    edge.resume()
                 server.start()
-                self.hub.pump()
+                self.hub.pump(idle_hook=(self.ingest.drain
+                                         if self.ingest is not None
+                                         else None))
             elif self.drive == "threaded":
                 self._run_threaded()
             else:
@@ -791,28 +1179,173 @@ def run_cross_silo(cfg, data, sink):
     return CrossSiloFederation(cfg, data, sink).run()
 
 
-# cross-silo flags of the JAX package the port refuses, with what they
-# need: (default, the ROADMAP item that brings it)
+class AsyncFederation:
+    """FedBuff-style asynchronous federation (`algorithms.async_fl`) on
+    the local hub, pump-driven: no barrier, the server applies every
+    ``--async_goal`` uploads (default ``n_silos // 2``) as one version
+    with ``(1+staleness)^-alpha`` discounts and re-tasks the consumed
+    silos; ``--comm_round`` counts versions.  The silos upload deltas
+    (`async_fl.delta_encoder`); admission screens them as
+    ``kind="delta"``.  The trust ledger, the server optimizer and the
+    reliability tracker ride the version checkpoint; ``--journal``
+    resumes a version left mid-flight.  ``init_params`` replaces the
+    seeded init; ``faultline`` arms the server's crash points.
+
+    Built, then ``run()``; ``server.params`` is the global."""
+
+    def __init__(self, cfg, data, sink, init_params=None, faultline=None):
+        from fedml_tpu_torch.algorithms.async_fl import (AsyncFedServerActor,
+                                                         delta_encoder)
+        from fedml_tpu_torch.algorithms.cross_silo import FedAvgClientActor
+        from fedml_tpu_torch.comm.local import LocalHub
+        from fedml_tpu_torch.parallel.cohort import cohort_eval
+        from fedml_tpu_torch.trainer.local_sgd import make_evaluator
+
+        if cfg.wire_compression != "none" or cfg.error_feedback:
+            raise ValueError(
+                "--wire_compression/--error_feedback are not wired into "
+                "--algo async_fl yet (the async server consumes raw "
+                "deltas); running on would silently send uncompressed "
+                "uploads")
+        if cfg.silo_backend != "local":
+            raise ValueError(
+                "--algo async_fl currently deploys over the local hub only; "
+                f"--silo_backend {cfg.silo_backend!r} would silently be "
+                "ignored (the actors are transport-agnostic — the gRPC "
+                "wiring mirrors cross_silo's when needed)")
+        self.cfg, self.data, self.sink = cfg, data, sink
+        self.device = resolve_device(cfg.platform)
+        wl = _make_workload(cfg, data)
+        init, make_train_fn = _silo_training_setup(cfg, data, wl,
+                                                   self.device, init_params)
+        n_silos = min(cfg.client_num_per_round, data.client_num)
+        goal = cfg.async_goal or max(1, n_silos // 2)
+        make_train_fn = adversary_train_fns(cfg, data, make_train_fn,
+                                            n_silos)
+        if cfg.edge_aggregators > 0:
+            raise ValueError("--edge_aggregators is a cross_silo (sync "
+                             "barrier) topology; the async server consumes "
+                             "per-silo deltas directly")
+        admission, defended, stream = _robust_setup(cfg, init, kind="delta")
+        self.server_opt = make_server_opt(cfg, init)
+        self.degrade = degrade_setup(cfg, n_silos, mode="async")
+        extra_state = _compose_extra_state([
+            ("trust", None if admission is None else
+             (lambda: admission.trust.state_dict(n_silos),
+              admission.trust.load_state_dict)),
+            ("srv_opt", None if self.server_opt is None else
+             (self.server_opt.state_dict, self.server_opt.load_state_dict)),
+            ("degrade", None if self.degrade is None else
+             (self.degrade.state_dict, self.degrade.load_state_dict))])
+        # one fold worker, no arena: async uploads are deltas screened on
+        # the host
+        self.ingest = make_ingest(cfg, self.degrade)
+        self.checkpointer = make_checkpointer(cfg)
+        self.journal = make_journal(cfg)
+        self._eval_cohort = cohort_eval(make_evaluator(wl))
+        self.history: list = []
+        self.version_times: list = []
+        self.hub = LocalHub(codec_roundtrip=True)
+        self.server = AsyncFedServerActor(
+            self.hub.transport(0), init, data.client_num, n_silos,
+            num_versions=cfg.comm_round, aggregation_goal=goal,
+            staleness_exponent=cfg.staleness_exponent,
+            server_lr=cfg.async_server_lr, on_version=self._on_version,
+            seed=cfg.seed, checkpointer=self.checkpointer,
+            retask_timeout_s=cfg.retask_timeout_s or None,
+            admission=admission, defended_aggregate=defended,
+            stream_agg=stream, extra_state=extra_state,
+            journal=self.journal, faultline=faultline,
+            server_opt=self.server_opt, degrade=self.degrade,
+            ingest=self.ingest)
+        self.silos = [FedAvgClientActor(i, self.hub.transport(i),
+                                        make_train_fn(i),
+                                        encode_upload=delta_encoder)
+                      for i in range(1, n_silos + 1)]
+        for actor in [self.server] + self.silos:
+            actor.register_handlers()
+
+    def _on_version(self, version, params):
+        from fedml_tpu_torch.algorithms.fedavg import evaluate_global
+        synchronize(self.device)
+        self.version_times.append(time.perf_counter() - self._t0)
+        cfg = self.cfg
+        if version % cfg.frequency_of_the_test == 0 \
+                or version == cfg.comm_round:
+            stats = evaluate_global(self._eval_cohort, self.data, params,
+                                    cfg.eval_chunk_clients, self.device)
+            stats["version"] = version
+            logger.info("version %d: %s", version, stats)
+            self.history.append(stats)
+            self.sink.log(stats, step=version)
+        self._t0 = time.perf_counter()   # evaluation is not version time
+
+    def run(self) -> Dict[str, Any]:
+        """Pump the federation to its last version; the last evaluation,
+        the mean staleness, the steady version rate and whether the
+        global is finite."""
+        server = self.server
+        try:
+            self._t0 = time.perf_counter()
+            server.start()
+            self.hub.pump(idle_hook=(self.ingest.drain
+                                     if self.ingest is not None else None))
+            # every silo quarantined finishes the federation early
+            stalled = not server._finished
+        finally:
+            server.finish()
+            if self.checkpointer is not None:
+                self.checkpointer.close()
+        if stalled and server.version < self.cfg.comm_round:
+            raise RuntimeError(f"the federation stalled at version "
+                               f"{server.version} of {self.cfg.comm_round}")
+        out = dict(self.history[-1]) if self.history else {}
+        if server.staleness_seen:
+            out["mean_staleness"] = float(np.mean(server.staleness_seen))
+        steady = self.version_times[1:] or self.version_times
+        out["versions_per_s"] = len(steady) / sum(steady) if steady else 0.0
+        out["params_finite"] = all(bool(v.isfinite().all())
+                                   for v in server.params.values())
+        return out
+
+
+@runner("async_fl")
+def run_async_fl(cfg, data, sink):
+    return AsyncFederation(cfg, data, sink).run()
+
+
+def hierarchical_algo(cfg: ExperimentConfig, data, sink=None):
+    """The runner's `HierarchicalFedAvg`: ``--group_num`` groups of
+    ``--group_comm_round`` rounds a global round."""
+    from fedml_tpu_torch.algorithms.hierarchical import (HierarchicalConfig,
+                                                         HierarchicalFedAvg)
+    return HierarchicalFedAvg(
+        _make_workload(cfg, data), data, HierarchicalConfig(
+            group_num=cfg.group_num, group_comm_round=cfg.group_comm_round,
+            **_fedavg_cfg_kwargs(cfg)),
+        sink=sink, device=cfg.platform)
+
+
+@runner("hierarchical")
+def run_hierarchical(cfg, data, sink):
+    return _run_with_checkpoints(cfg, hierarchical_algo(cfg, data, sink))
+
+
+# flags of the JAX package the port refuses, with what they need:
+# (default, the ROADMAP item that brings it)
 REFUSED_FLAGS = {
-    "edge_aggregators": (0, "algorithms/hierarchical.py (ROADMAP Queue 1 "
-                            "item 8)"),
-    "wire_compression": ("none", "comm/compress.py (ROADMAP Queue 1 item 8)"),
-    "error_feedback": (False, "comm/compress.py (ROADMAP Queue 1 item 8)"),
     "serve_port": (0, "serve/ (ROADMAP Queue 1 item 11)"),
-    "ingest_pipeline": (False, "comm/ingest.py (ROADMAP Queue 1 item 8)"),
     "health": (False, "obs/health.py (ROADMAP Queue 1 item 9)"),
     "adaptive": (False, "server_opt/controller.py, which needs the health "
                         "observatory (ROADMAP Queue 1 item 9)"),
-    "adversary": ("", "robust/adversary.py (ROADMAP Queue 1 item 8)"),
     "mesh_stages": (0, "parallel/pipeline.py (ROADMAP Queue 1 item 10)"),
-    "wave_adversary": ("", "robust/adversary.py's wave-summary poisoning "
-                           "(ROADMAP Queue 1 item 8)"),
 }
 
 
 def check_cross_silo(cfg: ExperimentConfig) -> None:
-    """The JAX package's gates on the cross-silo flags, and the port's
-    refusals of what it does not run yet."""
+    """The JAX package's gates on the live-path flags (JAX
+    ``main.py:2100-2420``), and the port's refusals of what it does not
+    run yet."""
     for flag, (default, needs) in REFUSED_FLAGS.items():
         if getattr(cfg, flag) != default:
             raise NotImplementedError(
@@ -820,8 +1353,22 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
     if cfg.silo_backend not in ("local", "grpc"):
         raise ValueError(f"unknown silo_backend {cfg.silo_backend!r}; "
                          f"available: ('local', 'grpc')")
+    if cfg.wire_compression != "none" and cfg.algo != "cross_silo":
+        raise ValueError("--wire_compression only applies to "
+                         "--algo cross_silo (the host-edge wire)")
+    if cfg.error_feedback and cfg.wire_compression == "none":
+        raise ValueError("--error_feedback requires --wire_compression "
+                         "topk or int8")
+    check_ingest(cfg)
     check_secagg(cfg)
     check_server_opt(cfg)
+    if cfg.wave_adversary and cfg.algo != "cross_device":
+        raise ValueError(
+            f"--wave_adversary poisons compiled wave SUMMARIES and "
+            f"applies to --algo cross_device only; --algo {cfg.algo} "
+            f"would silently train clean while the run is labeled "
+            f"poisoned.  Per-silo attacks on the actor path use "
+            f"--adversary.")
     if chaos_on(cfg):
         if cfg.algo != "cross_silo":
             raise ValueError(
@@ -860,15 +1407,15 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
     if cfg.robust_agg not in ROBUST_AGG_METHODS:
         raise ValueError(f"--robust_agg must be one of {ROBUST_AGG_METHODS}, "
                          f"got {cfg.robust_agg!r}")
-    if cfg.algo not in ("cross_silo", "cross_device") and (
+    if cfg.algo not in ("cross_silo", "async_fl", "cross_device") and (
             cfg.robust_agg != "mean" or cfg.norm_clip or cfg.agg_noise_std
-            or cfg.admission == "on"):
+            or cfg.adversary or cfg.admission == "on"):
         raise ValueError(
-            f"--robust_agg/--norm_clip/--agg_noise_std/--admission on are "
-            f"the live distributed defense and apply to --algo "
-            f"cross_device or cross_silo only; got --algo {cfg.algo}.  For "
-            f"the single-device cohort simulation use --algo fedavg_robust "
-            f"--defense ... instead.")
+            f"--robust_agg/--norm_clip/--agg_noise_std/--adversary/"
+            f"--admission on are the live distributed defense (robust/) "
+            f"and apply to --algo cross_silo/async_fl only; got --algo "
+            f"{cfg.algo}.  For the single-device cohort simulation use "
+            f"--algo fedavg_robust --defense ... instead.")
     if cfg.stream_reservoir < 1:
         raise ValueError(f"--stream_reservoir must be >= 1, got "
                          f"{cfg.stream_reservoir}")
@@ -906,6 +1453,22 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
                 f"which the sharded fold never materializes; for robust "
                 f"rules use the replicated --agg_mode stream "
                 f"--stream_reservoir K")
+        if cfg.secagg != "off":
+            raise ValueError(
+                "--model_shards and --secagg are mutually exclusive: a "
+                "pairwise-masked uint32 ring word cannot be re-sliced per "
+                "shard without breaking mask cancellation")
+        if cfg.edge_aggregators > 0:
+            raise ValueError(
+                "--model_shards and --edge_aggregators are mutually "
+                "exclusive for now: an edge folds and ships whole-model "
+                "means, which would defeat the per-shard wire (shard "
+                "the flat topology, or keep edges replicated)")
+        if cfg.wire_compression != "none" or cfg.error_feedback:
+            raise ValueError(
+                "--model_shards and --wire_compression/--error_feedback "
+                "are mutually exclusive: the delta codec reconstructs "
+                "against the whole global, not a shard slice")
         if cfg.admission == "off":
             raise ValueError(
                 "--model_shards requires the admission screens: the "
@@ -917,6 +1480,54 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
                 "mirrors the flat one)")
 
 
+def check_ingest(cfg: ExperimentConfig) -> None:
+    """The JAX package's gates on ``--ingest_pipeline``: every
+    combination without a bit-parity pin is refused with its reason."""
+    if cfg.ingest_queue_depth < 1:
+        raise ValueError(f"--ingest_queue_depth must be >= 1, got "
+                         f"{cfg.ingest_queue_depth}")
+    if not cfg.ingest_pipeline:
+        return
+    if cfg.algo not in ("cross_silo", "async_fl", "cross_device"):
+        raise ValueError(
+            f"--ingest_pipeline pipelines the SERVER receive path "
+            f"(cross_silo / async_fl) and the cross_device wave "
+            f"loop; --algo {cfg.algo} has no ingest hot path and "
+            f"would silently run inline")
+    if cfg.wire_compression != "none":
+        raise ValueError(
+            "--ingest_pipeline x --wire_compression is unproven: "
+            "the decompress + error-feedback settlement runs on the "
+            "transport thread today, and no bit-parity pin covers "
+            "decode-on-worker — drop one flag")
+    if cfg.silo_backend != "local" and cfg.algo != "cross_device":
+        raise ValueError(
+            f"--ingest_pipeline x --silo_backend "
+            f"{cfg.silo_backend!r} is unproven: the parity and "
+            f"journal-recovery pins drive the local hub; the grpc "
+            f"receive path needs its own soak before the pipeline "
+            f"rides it")
+    if cfg.edge_aggregators > 0:
+        raise ValueError(
+            "--ingest_pipeline x --edge_aggregators is unproven: "
+            "edges fold on their own actors and no pin covers a "
+            "pipelined edge tier — drop one flag")
+    if chaos_on(cfg):
+        raise ValueError(
+            "--ingest_pipeline x --chaos_* is unproven: chaos "
+            "switches the hub to the threaded drive and no parity "
+            "pin covers wall-clock chaos timers racing the fold "
+            "workers — drop one flag")
+    if cfg.algo == "cross_silo" and cfg.agg_mode != "stream" \
+            and cfg.secagg == "off":
+        raise ValueError(
+            "--ingest_pipeline pipelines the STREAMING fold "
+            "(decode -> screen -> fold at arrival); --agg_mode "
+            "stack banks uploads instead of folding them, so "
+            "there is nothing to hide behind the network — use "
+            "--agg_mode stream")
+
+
 def check_secagg(cfg: ExperimentConfig) -> None:
     """The JAX package's gates on ``--secagg``: a privacy flag that would
     be silently ignored fails here."""
@@ -926,16 +1537,18 @@ def check_secagg(cfg: ExperimentConfig) -> None:
                          f"got {cfg.secagg!r}")
     if cfg.secagg == "off":
         return
-    if cfg.secagg == "grouped":
-        raise NotImplementedError(
-            "--secagg grouped is not ported yet; it scopes masking per "
-            "edge block and needs --edge_aggregators, "
-            "algorithms/hierarchical.py (ROADMAP Queue 1 item 8)")
     if cfg.algo != "cross_silo":
         raise ValueError(
             f"--secagg is the sync-barrier secure-aggregation protocol "
             f"and applies to --algo cross_silo only; --algo {cfg.algo} "
-            f"would silently train unmasked and label the run as private")
+            f"(including async_fl, whose per-upload staleness discounts "
+            f"need plaintext individual deltas) would silently train "
+            f"unmasked and label the run as private")
+    if cfg.wire_compression != "none" or cfg.error_feedback:
+        raise ValueError(
+            "--secagg and --wire_compression/--error_feedback are "
+            "mutually exclusive: a compressed/EF payload cannot ride "
+            "the uint32 masking ring (masks must cancel word-for-word)")
     if cfg.robust_agg != "mean":
         raise ValueError(
             f"--secagg hides individual uploads by construction, so "
@@ -947,26 +1560,43 @@ def check_secagg(cfg: ExperimentConfig) -> None:
         raise ValueError(
             "--secagg folds masked uploads in the uint32 ring at arrival — "
             "there is no stack path; pass --agg_mode stream")
-    if cfg.model_shards > 0:
-        raise ValueError(
-            "--model_shards and --secagg are mutually exclusive: a "
-            "pairwise-masked uint32 ring word cannot be re-sliced per "
-            "shard without breaking mask cancellation")
     if cfg.silo_backend != "local":
         raise ValueError("--secagg deploys over the local hub only for now "
                          "(the actors are transport-agnostic; gRPC wiring "
                          "mirrors the flat one)")
-    if cfg.client_num_per_round < 2:
+    if cfg.secagg == "grouped" and cfg.edge_aggregators < 1:
+        raise ValueError(
+            "--secagg grouped scopes masking per edge block and needs "
+            "--edge_aggregators E >= 1; for a single cohort-wide "
+            "masking group use --secagg pairwise")
+    if cfg.secagg == "pairwise" and cfg.edge_aggregators > 0:
+        raise ValueError(
+            "--secagg pairwise masks across the WHOLE cohort, which an "
+            "edge cannot partially unmask (cross-block pair masks only "
+            "cancel in the root's full sum); use --secagg grouped with "
+            "--edge_aggregators")
+    if cfg.secagg == "grouped" \
+            and cfg.client_num_per_round < 2 * cfg.edge_aggregators:
+        raise ValueError(
+            f"--secagg grouped needs every edge block to hold >= 2 "
+            f"silos (a 1-silo 'masked sum' IS that silo's update): "
+            f"{cfg.client_num_per_round} silos over "
+            f"{cfg.edge_aggregators} edges leaves a short block")
+    if cfg.secagg == "pairwise" and cfg.client_num_per_round < 2:
         raise ValueError("--secagg pairwise needs >= 2 silos per round")
     if cfg.secagg_threshold == 1:
         raise ValueError(
             "--secagg_threshold 1 voids the privacy guarantee: one share "
             "reconstructs every seed; the minimum is 2 (0 = majority "
             "default)")
-    if cfg.secagg_threshold > cfg.client_num_per_round:
+    # the threshold is a per-group share count
+    group_min = (cfg.client_num_per_round if cfg.secagg == "pairwise"
+                 else cfg.client_num_per_round // cfg.edge_aggregators)
+    if cfg.secagg_threshold > group_min:
         raise ValueError(
             f"--secagg_threshold {cfg.secagg_threshold} exceeds the "
-            f"smallest masking group ({cfg.client_num_per_round} silos): "
+            f"smallest masking group ({group_min} silos"
+            f"{' per edge block' if cfg.secagg == 'grouped' else ''}): "
             f"reconstruction could never gather that many shares")
 
 
@@ -980,11 +1610,11 @@ def check_server_opt(cfg: ExperimentConfig) -> None:
             f"{list(SERVER_OPT_NAMES)}")
     if cfg.server_opt == "plain":
         return
-    if cfg.algo not in ("cross_silo", "cross_device"):
+    if cfg.algo not in ("cross_silo", "async_fl", "cross_device"):
         raise ServerOptConfigError(
             f"--server_opt {cfg.server_opt} rides the live finalize seam "
-            f"and applies to --algo cross_device or cross_silo only in the "
-            f"port; --algo {cfg.algo} would silently run its own server "
+            f"and applies to --algo async_fl, cross_device or cross_silo "
+            f"only; --algo {cfg.algo} would silently run its own server "
             f"step and label the run {cfg.server_opt}.  The standalone "
             f"forks stay at --algo fedopt/fedac.")
     if cfg.robust_agg != "mean":
@@ -1024,6 +1654,12 @@ def check_cross_device(cfg: ExperimentConfig) -> None:
             f"--cross_device is the single-process engine; --silo_backend "
             f"{cfg.silo_backend!r} (transport actors) would be silently "
             f"ignored")
+    if cfg.edge_aggregators > 0:
+        raise ValueError(
+            "--edge_aggregators is a transport-actor topology; the "
+            "cross-device engine's hierarchy is the wave tree itself "
+            "(waves pre-reduce on device), so the flag would "
+            "silently run a flat engine labeled as an edge tree")
     if cfg.robust_agg != "mean":
         raise ValueError(
             f"--robust_agg {cfg.robust_agg}: order-statistic rules need the "
@@ -1033,6 +1669,13 @@ def check_cross_device(cfg: ExperimentConfig) -> None:
             f"--norm_clip/--agg_noise_std on the streamed mean; for "
             f"per-upload robust rules use --algo cross_silo --agg_mode "
             f"stream --stream_reservoir K")
+    if cfg.adversary:
+        raise ValueError(
+            "--adversary wraps per-silo train fns over the real "
+            "message path (robust/adversary.py); the compiled wave "
+            "has no per-silo message seam — run attack scenarios on "
+            "--algo cross_silo, or poison wave SUMMARIES here with "
+            "--wave_adversary round:wave:kind[:param]")
     if cfg.rounds_per_dispatch > 1:
         raise ValueError(
             "--rounds_per_dispatch is fedavg's device-resident multi-round "

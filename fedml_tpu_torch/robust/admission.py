@@ -375,6 +375,12 @@ class TrustTracker:
         self._g_quarantined.set(len(out))
         return out
 
+    def strike_fault_totals(self) -> Dict[str, int]:
+        """Lifetime strike count per attribution class (only ``payload``
+        is ever non-zero: the attribution invariant)."""
+        return {c: sum(self._strike_faults[c].values())
+                for c in FaultClass.ALL}
+
 
 @dataclasses.dataclass
 class AdmissionVerdict:
@@ -487,17 +493,27 @@ class AdmissionPipeline:
                                       self.norm_min_history)
 
     def admit(self, silo: int, upload, num_samples, global_params,
-              round_idx: int) -> AdmissionVerdict:
+              round_idx: int, pre=None) -> AdmissionVerdict:
         """Screen one upload.  ``global_params`` is the CURRENT global
         (the reference point for ``kind="params"`` norms; ignored for
         deltas).  Order matters: structural checks run before any tree
-        math touches the payload."""
+        math touches the payload.
+
+        ``pre`` (a `comm.ingest.ArenaScreen`, the JAX seam of
+        ``robust/admission.py:513-514``) carries the ingest arena's
+        screen: its header check stands in for the fingerprint and its
+        device reduction for the host finite and norm passes.  The
+        verdict order is the same; only who computed each fact
+        changes."""
         if self.trust.state(silo, round_idx) == TrustTracker.QUARANTINED:
             return self._reject(silo, round_idx, "quarantined")
-        try:
-            fp_ok = params_fingerprint(upload) == self.fingerprint
-        except Exception:  # noqa: BLE001 — unhashable garbage payload
-            fp_ok = False
+        if pre is not None:
+            fp_ok = pre.structural_ok
+        else:
+            try:
+                fp_ok = params_fingerprint(upload) == self.fingerprint
+            except Exception:  # noqa: BLE001 — unhashable garbage payload
+                fp_ok = False
         if not fp_ok:
             return self._reject(silo, round_idx, "fingerprint")
         try:
@@ -514,9 +530,10 @@ class AdmissionPipeline:
             self._c_admitted.inc()
             self.trust.record_clean(silo, round_idx)
             return AdmissionVerdict(True, num_samples=n, norm=None)
-        if not _all_finite(upload):
+        if not (pre.finite if pre is not None else _all_finite(upload)):
             return self._reject(silo, round_idx, "nonfinite")
-        norm = (_update_norm(upload, self._reference_leaves(global_params))
+        norm = (pre.norm if pre is not None else
+                _update_norm(upload, self._reference_leaves(global_params))
                 if self.kind == "params" else _norm(upload))
         self._h_norm.observe(norm)
         thresh = self.norm_threshold()

@@ -568,6 +568,24 @@ class SecAggServer:
         with self._lock:
             return sorted(r.folded)
 
+    def roster_members(self) -> List[int]:
+        r = self._require_round()
+        with self._lock:
+            return list(r.roster or [])
+
+    @property
+    def count(self) -> int:
+        r = self._round
+        return len(r.folded) if r is not None else 0
+
+    @property
+    def weight_total(self) -> float:
+        """Plaintext sum of the admitted sample counts (the edge frame's
+        bookkeeping; the aggregation divisor is the masked weight sum
+        recovered at finalize)."""
+        r = self._round
+        return float(sum(r.folded.values())) if r is not None else 0.0
+
     def flush_roster(self, subset=None) -> Dict[int, Dict]:
         """Fix the roster (everyone who advertised, or a subset) and build
         each member's ROSTER frame.  Needs >= threshold members."""

@@ -72,8 +72,11 @@ class ServerOptimizer:
 
     ``apply(params, finalized, round_idx)`` forms Δ from the finalized
     tree, updates ``self.state`` and returns the new global; ``plain``
-    returns the finalized tree itself.  (The JAX package's async seam,
-    ``apply_delta``, arrives with ``async_fl``, ROADMAP Queue 1 item 8.)
+    returns the finalized tree itself.  ``apply_delta(params, delta,
+    round_idx)`` is the async seam (JAX :297-313): Δ comes from the caller
+    already staleness-discounted, and ``plain`` is the SGD step
+    ``w − lr·Δ``.  ``state_template()`` (JAX :412-426) is the zero-filled
+    restore template of ``state_dict``.
     """
 
     def __init__(self, name: str, template: Tree, *,
@@ -197,6 +200,23 @@ class ServerOptimizer:
         self._m_secs.observe(time.perf_counter() - t0)
         return new
 
+    def apply_delta(self, params: Tree, delta: Tree,
+                    round_idx: int = 0) -> Tree:
+        """The async seam: Δ supplied by the caller (already
+        staleness-discounted).  ``plain`` is the exact SGD step
+        ``w − lr·Δ``."""
+        self.step_count += 1
+        self._m_steps.inc()
+        t0 = time.perf_counter()
+        delta = {k: delta[k] for k in self._keys}
+        if self.name == "plain":
+            new = {k: params[k] - self.lr * delta[k].to(params[k].dtype)
+                   for k in self._keys}
+        else:
+            new, self.state = self._step(params, delta, self.state)
+        self._m_secs.observe(time.perf_counter() - t0)
+        return new
+
     # -- checkpoint / journal -------------------------------------------------
     def _tree_slots(self) -> List[str]:
         return [k for k in ("trace", "mu", "nu", "x") if k in self.state]
@@ -303,3 +323,17 @@ class ServerOptimizer:
                 int(np.asarray(state["count"])), dtype=torch.int32,
                 device=self.state["count"].device)
         self.step_count = int(np.asarray(state.get("step", 0)))
+
+    def state_template(self) -> dict:
+        """The restore template of ``state_dict``: fixed shapes,
+        zero-filled, the same layout."""
+        out = self._header(0)
+        zeros = [np.zeros(leaf.shape, leaf.dtype)
+                 for leaf in self._template_leaves]
+        for slot in self._tree_slots():
+            out[slot] = self._as_slot(self._split_flat(zeros)
+                                      if self.plan is not None
+                                      else list(zeros))
+        if "count" in self.state:
+            out["count"] = np.asarray(0, np.int32)
+        return out

@@ -139,12 +139,19 @@ class ShardAdmission:
         self._num_samples.pop(silo, None)
 
     def offer(self, silo: int, shard, num_shards, slice_payload,
-              num_samples, round_idx: int) -> Tuple[str, dict]:
+              num_samples, round_idx: int, pre=None) -> Tuple[str, dict]:
         """Screen + bank one shard slice.  Returns ``(WAIT, {})``,
         ``(REJECT, {reason, norm})``, or ``(ACCEPT, {slices,
         num_samples, norm})`` with the silo's S slices in shard order —
         the exact payload `ShardedStreamingAggregator.fold_slices`
-        consumes."""
+        consumes.
+
+        ``pre`` (a `comm.ingest.ArenaScreen` from the shard's ingest
+        arena, the JAX seam of ``shard_spine/admission.py:150-151``)
+        stands in for the host screens: its header check for the
+        fingerprint, its device reduction for finite and sumsq.  The
+        caller passes ``pre.tree`` (the staged device slice) as
+        ``slice_payload``, so the banked slices live on the device."""
         if self._ref_slices is None:
             raise RuntimeError("offer() before round_start(): the "
                                "round's reference slices are not cached")
@@ -161,17 +168,21 @@ class ShardAdmission:
         if num_shards != self.plan.num_shards \
                 or not 0 <= shard < self.plan.num_shards:
             return self._reject(silo, round_idx, "fingerprint")
-        try:
-            fp_ok = (params_fingerprint(slice_payload)
-                     == self.fingerprints[shard])
-        except Exception:  # noqa: BLE001 — unhashable garbage payload
-            fp_ok = False
+        if pre is not None:
+            fp_ok = pre.structural_ok
+        else:
+            try:
+                fp_ok = (params_fingerprint(slice_payload)
+                         == self.fingerprints[shard])
+            except Exception:  # noqa: BLE001 — unhashable garbage payload
+                fp_ok = False
         if not fp_ok:
             return self._reject(silo, round_idx, "fingerprint")
         n = self._validate_num_samples(silo, num_samples)
         if n is None:
             return self._reject(silo, round_idx, "bad_num_samples")
-        if not all_finite(slice_payload):
+        if not (pre.finite if pre is not None else
+                all_finite(slice_payload)):
             return self._reject(silo, round_idx, "nonfinite")
         held = self._pending.setdefault(silo, {})
         if shard in held:
@@ -181,8 +192,9 @@ class ShardAdmission:
                      shard, silo)
             return WAIT, {}
         held[shard] = slice_payload
-        self._sumsq.setdefault(silo, {})[shard] = update_sumsq(
-            slice_payload, self._ref_slices[shard])
+        self._sumsq.setdefault(silo, {})[shard] = (
+            pre.sumsq if pre is not None else update_sumsq(
+                slice_payload, self._ref_slices[shard]))
         if len(held) < self.plan.num_shards:
             return WAIT, {}
         # completion: the combined norm screen over the whole update

@@ -587,7 +587,7 @@ def test_zoo_phase_configs_parse_and_pass_the_gates():
     """At the card's sizes: BASELINE config 5's two LSTM runs (715
     clients, 10 a round, B=4, lr 1; 342,477 clients, 50 a round, B=16,
     lr 10^-0.5), config 3's live cross-silo runs (10 silos, B=64, lr
-    0.001, wd 0.001, E=2 (cut from 20), S=4, K2 on) on both models, the
+    0.001, wd 0.001, E=1 (cut from 20), S=4, K2 on) on both models, the
     BatchNorm FedAvg and defended runs, the centralized runner."""
     got = {k: cs.cd_cfg(v, "cpu") for k, v in cs.ZOO_NWP_ARGS.items()}
     assert {k: (c.model, c.dataset, c.client_num_in_total,
@@ -601,7 +601,7 @@ def test_zoo_phase_configs_parse_and_pass_the_gates():
         assert (c.algo, c.agg_mode, c.model_shards, c.fused_finalize,
                 c.client_num_per_round, c.batch_size, c.lr, c.wd,
                 c.epochs) == ("cross_silo", "stream", 4, "on", 10, 64,
-                              0.001, 0.001, 2)
+                              0.001, 0.001, 1)
     assert cs.CONFIG3_MODELS == ("resnet56", "mobilenet")
     bn = cs.cd_cfg(cs.BN_ROBUST_ARGS, "cpu")
     assert (bn.algo, bn.defense, bn.defense_backend, bn.norm_bound,
@@ -699,3 +699,82 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
     assert k1["weight_leaves"] < k1["leaves"]
     assert out["central"]["rounds_per_s"] > 0
     assert out["oracle"]["allclose_excess"] <= 0
+
+
+def test_live_machinery_phase_configs_parse_and_pass_the_gates():
+    """Phase 8n's configurations are valid CLI configs at the CNN's
+    widths: the sharded spine with and without the pipeline, the tracker
+    and the adversary on it, both compression schemes, async_fl with
+    adam, the edge tier (5 silos an edge) plaintext and grouped,
+    hierarchical, and the poisoned waves."""
+    spine = cs.live_cfg([*cs.SILO_ARGS, "--ingest_pipeline", "true"], 3,
+                        "cpu")
+    assert (spine.model_shards, spine.fused_finalize, spine.ingest_pipeline,
+            spine.model) == (4, "on", True, "cnn_fedavg")
+    deg = cs.live_cfg([*cs.SILO_ARGS, *cs.MACH_DEGRADE], 4, "cpu")
+    assert (deg.min_quorum, deg.adaptive_deadline, deg.straggler_policy,
+            deg.adversary) == (0.6, True, "drop", "2:scale:20,3:nan_bomb")
+    for extra in cs.MACH_COMPRESS.values():
+        assert cs.live_cfg([*cs.PLAIN_STREAM_ARGS, *extra], 3,
+                           "cpu").wire_compression in ("topk", "int8")
+    asy = cs.live_cfg([*cs.MACH_ASYNC, *cs.MACH_ASYNC_DURABLE], 6, "cpu")
+    assert (asy.async_goal, asy.server_opt, asy.journal) == (5, "adam", True)
+    for extra in ([], ["--secagg", "grouped"]):
+        e = cs.live_cfg([*cs.PLAIN_STREAM_ARGS, *cs.MACH_EDGES, *extra], 3,
+                        "cpu")
+        assert e.client_num_per_round // e.edge_aggregators == 5
+    h = cs.cd_cfg(cs.MACH_HIER, "cpu")
+    assert (h.algo, h.group_num, h.group_comm_round) == ("hierarchical", 2,
+                                                         2)
+    w = cs.cd_cfg([*cs.CD_ARGS, *cs.MACH_WAVES, "--ingest_pipeline",
+                   "true"], "cpu")
+    assert (w.client_num_per_round, w.wave_size, w.wave_adversary) == \
+        (1000, 256, "1:0:nan_bomb")
+
+
+def test_live_machinery_phase_on_the_cpu(tiny_phases, monkeypatch):
+    """Phase 8n end to end on CPU tensors at the tiny LR size (40 mnist
+    clients, 10 a round; waves of 4): every run and every check."""
+    data, root = tiny_phases
+    common = list(cs.COMMON_ARGS)
+
+    def tiny(args):
+        i, j = args.index("--model"), args.index("--log_stdout") + 2
+        return args[:i] + common + args[j:]
+    monkeypatch.setattr(cs, "MACH_ASYNC", tiny(cs.MACH_ASYNC))
+    monkeypatch.setattr(cs, "MACH_HIER", tiny(cs.MACH_HIER))
+    monkeypatch.setattr(cs, "CD_ARGS", [
+        *cs.CD_ARGS, *common, "--client_num_per_round", "10",
+        "--wave_size", "4"])
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = cs.check_live_machinery(data, root)
+    finally:
+        torch.set_num_threads(n_threads)
+    ing = out["ingest"]
+    assert ing["bit_equal"]
+    assert ing["inline"]["k2_launches"] == ing["ingest"]["k2_launches"] \
+        == 4 * cs.MACH_ROUNDS
+    assert ing["ingest"]["arena_copies"] == [3 * 10] * 4
+    assert ing["inline"]["admission_ms_per_round"] > 0
+    deg = out["degrade"]
+    assert deg["silo2_quarantined"] and deg["params_finite"]
+    assert deg["rejected"]["nonfinite"] >= 1
+    assert deg["strike_faults"]["network"] == 0
+    assert deg["vs_cpu_max_abs_diff"] <= cs.ROUND_TOL
+    for row in out["compression"].values():
+        assert row["wire_bytes"] < row["uncompressed_bytes"]
+    assert out["compression"]["topk"]["ratio"] < 0.3
+    asy = out["async_fl"]
+    assert asy["versions"] == cs.MACH_ASYNC_VERSIONS
+    assert asy["kill"]["bit_equal"] and asy["kill"]["killed_at"] == 5
+    assert asy["mean_staleness"] > 0
+    edges = out["edges"]
+    assert max(edges["grouped_vs_plaintext_max_abs_diff"]) <= cs.SECAGG_TOL
+    assert edges["edge_kill"]["bit_equal"] and edges["edge_kill"]["resumed"]
+    hier = out["hierarchical"]
+    assert hier["oracle_vs_fedavg_max_abs_diff"] <= cs.MACH_ORACLE_TOL
+    waves = out["waves"]
+    assert waves["bit_equal"] and waves["debt_after_round"] == 0
+    assert waves["inline"]["rejected"] == {"nonfinite": 1}

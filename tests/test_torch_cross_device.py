@@ -465,17 +465,17 @@ _GATE_BASE = ["--model", "lr", "--dataset", "mnist", "--platform", "cpu",
     (["--algo", "cross_device", "--secagg", "pairwise", "--agg_mode",
       "stream"], ValueError, "secagg"),
     (["--algo", "cross_device", "--edge_aggregators", "2"],
-     NotImplementedError, "hierarchical"),
+     ValueError, "transport-actor topology"),
     (["--algo", "cross_device", "--silo_backend", "grpc"], ValueError,
      "silo_backend"),
     (["--algo", "cross_device", "--robust_agg", "krum"], ValueError,
      "order-statistic"),
     (["--algo", "cross_device", "--adversary", "2:scale:20"],
-     NotImplementedError, "adversary"),
+     ValueError, "adversary"),
     (["--algo", "cross_device", "--rounds_per_dispatch", "4"], ValueError,
      "rounds_per_dispatch"),
     (["--algo", "cross_device", "--wave_adversary", "0:0:nan"],
-     NotImplementedError, "item 8"),
+     ValueError, "unknown wave attack kind"),
     (["--algo", "cross_device", "--health", "true"], NotImplementedError,
      "item 9"),
     (["--algo", "cross_device", "--mesh_clients", "4"],
@@ -520,8 +520,7 @@ def test_engine_constructor_gates(workload, data):
         CrossDevice(workload, data, _cfg(), device="cpu", mesh=object())
     for seam, item in (("perf", "item 9"), ("health", "item 9"),
                        ("slo", "item 9"), ("controller", "item 9"),
-                       ("publish", "item 11"), ("degrade", "item 8"),
-                       ("ingest", "item 8")):
+                       ("publish", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             CrossDevice(workload, data, _cfg(), device="cpu",
                         **{seam: object()})

@@ -411,12 +411,16 @@ def test_admission_rejects_a_poisoned_plain_upload():
     "degrade", "decode_upload", "publish"])
 def test_unported_actor_options_are_refused_by_name(option):
     init = params_from_numpy(_params())
-    if option in ("secagg", "server_opt"):
-        # ported (live SecAgg, the server-optimizer seam): taken, not
-        # refused
+    if option in ("secagg", "server_opt", "ingest", "degrade",
+                  "decode_upload"):
+        # ported (live SecAgg, the server-optimizer seam, the pipelined
+        # receive path, the reliability tracker, wire compression):
+        # taken, not refused
+        from fedml_tpu_torch.robust.degrade import ReliabilityTracker
         assert option not in t_cross_silo._REFUSED
+        value = ReliabilityTracker(2) if option == "degrade" else object()
         FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
-                          **{option: object()})
+                          **{option: value})
         return
     with pytest.raises(NotImplementedError, match=option):
         FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
@@ -461,22 +465,25 @@ _CS = ["--algo", "cross_silo", "--agg_mode", "stream", "--model_shards",
       "0"], ValueError, "stream_reservoir"),
     (["--model_shards", "0", "--robust_agg", "median"], ValueError,
      "robust_agg must be one of"),
-    (["--secagg", "grouped"], NotImplementedError, "item 8"),
-    (["--edge_aggregators", "2"], NotImplementedError, "hierarchical"),
-    (["--wire_compression", "topk"], NotImplementedError, "compress"),
-    (["--error_feedback", "true"], NotImplementedError, "compress"),
+    (["--secagg", "grouped"], ValueError, "needs --edge_aggregators"),
+    (["--edge_aggregators", "2"], ValueError,
+     "model_shards and --edge_aggregators"),
+    (["--wire_compression", "topk"], ValueError,
+     "model_shards and --wire_compression"),
+    (["--error_feedback", "true"], ValueError, "requires --wire_compression"),
     (["--chaos_drop", "0.1"], ValueError, "wedge"),
     (["--chaos_dup", "0.1", "--silo_backend", "grpc"], ValueError,
      "local hub only"),
     (["--algo", "fedavg", "--chaos_dup", "0.1"], ValueError,
      "cross_silo only"),
     (["--serve_port", "8080"], NotImplementedError, "serve"),
-    (["--ingest_pipeline", "true"], NotImplementedError, "ingest"),
+    (["--ingest_pipeline", "true", "--ingest_queue_depth", "0"],
+     ValueError, "ingest_queue_depth"),
     (["--journal", "true", "--agg_mode", "stack", "--model_shards", "0"],
      ValueError, "streaming-fold"),
     (["--health", "true"], NotImplementedError, "health"),
     (["--adaptive", "true"], NotImplementedError, "item 9"),
-    (["--adversary", "2:gauss:0.1"], NotImplementedError, "adversary"),
+    (["--adversary", "3:gauss:0.1"], ValueError, "only 2 silos"),
     (["--journal_snapshot_every", "0"], ValueError,
      "journal_snapshot_every"),
 ])

@@ -237,3 +237,31 @@ def test_zoo_slice_modules_import_without_jax():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+LIVE_MACHINERY_MODULES = (
+    "fedml_tpu_torch.robust.degrade", "fedml_tpu_torch.robust.adversary",
+    "fedml_tpu_torch.data.edge_case", "fedml_tpu_torch.comm.compress",
+    "fedml_tpu_torch.comm.ingest", "fedml_tpu_torch.algorithms.async_fl",
+    "fedml_tpu_torch.algorithms.hierarchical",
+    "fedml_tpu_torch.server_opt.optimizer",
+    "fedml_tpu_torch.algorithms.cross_device",
+    "fedml_tpu_torch.experiments.main")
+
+
+def test_live_machinery_modules_import_without_jax():
+    """The live machinery (the reliability tracker, the adversary and its
+    pixel trigger, wire compression, the ingest pipeline, async_fl and the
+    hierarchical engine and edge tier), each named, import with JAX and
+    the JAX package blocked, and importing them starts no ingest worker
+    and touches no CUDA stream."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib, threading\n"
+            f"for m in {LIVE_MACHINERY_MODULES!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"assert not [t for t in threading.enumerate()\n"
+            f"            if t.name.startswith('ingest-fold')]\n"
+            f"print('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -636,6 +636,8 @@ class TestCli:
             check_config(cfg)
 
     def test_grouped_is_refused_naming_its_item(self):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        # grouped masking is ported: without the edge tier it names the
+        # flag it needs, as the JAX package's gate does
+        with pytest.raises(ValueError, match="needs --edge_aggregators"):
             check_config(config_from_argv(
                 _BASE + ["--secagg", "grouped", "--agg_mode", "stream"]))
