@@ -220,6 +220,25 @@ each printed as it ends; any failure exits non-zero:
    both with ``--wave_adversary 1:0:nan_bomb``: bit-equal, the poisoned
    wave rejected; one API round with a `ReliabilityTracker` merging the
    indebted clients into the next round's cohort; the phase's seconds;
+8o. observability — the spine of 8n (S=4, K2 on, clip 5, sigma 0.025), 3
+   rounds with ``--perf --perf_strict --device_obs --health --telemetry``
+   and the span tracer, in ABBA turns with every instrument off (globals
+   bit-equal, K2 exactly 4 x 3 in each, the round ms on and off: the
+   instruments' overhead), then ``--ingest_pipeline`` and ``--adaptive``
+   with ``--slo`` thresholds; the stacked defended cross-silo round
+   (``--agg_mode stack``, clip 5, sigma 0.025; 2 rounds on and off,
+   globals bit-equal; no hand-written kernel runs in it, and K1 and K1n
+   have no instrumented path in either package); the wave engine (1000
+   a round, waves of 256, 2 rounds) with perf, health, the SLOs and the
+   controller;
+   ``--algo async_fl`` (goal 5, 3 versions) and the edge tier (2 x 5
+   silos, 2 rounds) with perf and health.  Every ledger line passes the
+   port's ``trend.validate_ledger``, ``critical_path.validate_record``
+   and ``validate_health_ledger``; each device section has backend cuda,
+   memory in use, a peak under the limit, 0 < mfu <= 1 (flops complete
+   on the spine) and compile entries in its first round only; the trace
+   has one root span a round with ``recv:`` children on every silo's
+   track; ``obs.report`` renders the run dir;
 10. transformer slice — FedAvg through the API on bench.py's long-context
    TransformerLM (vocab 256, d_model 256, 8 heads, 2 layers, d_ff 1024,
    T=2048, flash on), 16 clients, 4 per round, B=2, lr 0.1, E=1, 3
@@ -258,6 +277,16 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+try:
+    # the kernels' work (bytes and operations): one table, which the
+    # device observatory's FLOP count reads too
+    from fedml_tpu_torch.obs.device import (clip_norm_work, flash_work,
+                                            robust_agg_work,
+                                            secagg_mask_work,
+                                            shard_finalize_bounds)
+except ImportError:   # outside a checkout: main() says so and fails
+    pass
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor fp32
@@ -411,48 +440,6 @@ def op_bound(nbytes: float, ops, sm_hz: float):
                 bound_by="bytes" if term == "bytes" else "operations",
                 bound_term=term, **{f"{k}_ms": v for k, v in terms.items()},
                 dispatch_ms=dispatch_s * 1e3)
-
-
-def robust_agg_work(n: int, sizes, sigma: float):
-    """Bytes and operations of K1's aggregate over leaves of ``sizes``
-    elements for ``n`` clients: x read once, g read and out written once,
-    the scales and ratios; per (client, element) 5 f32 operations, and at
-    sigma > 0 the noise: two murmur finalisers and two shifts (20 integer
-    operations), 30 f32 operations (the uniforms, the log series and its
-    select, the square root's and the cosine's scaling, sigma), lg2, rsqrt,
-    cos and two int -> float conversions on the special-function units;
-    per element the index hash (10 integer operations)."""
-    d = sum(sizes)
-    pairs = n * d
-    ops = {"fp32": pairs * (30 + 5 if sigma else 5)}
-    if sigma:
-        ops.update(int=pairs * 20 + d * 10, sfu=pairs * 5)
-    return 4 * (pairs + 2 * d + 2 * n), ops
-
-
-def clip_norm_work(n: int, sizes):
-    """The norm pass over weight leaves of ``sizes`` elements: x and g
-    read once, the scales written; a subtract, a square and an add per
-    (client, element)."""
-    d = sum(sizes)
-    return 4 * (n * d + d + n), {"fp32": 3 * n * d}
-
-
-def secagg_mask_work(rows: int, n: int, d: int):
-    """Bytes and operations of K3 for ``rows`` client rows of an
-    ``n``-client group over ``d`` elements: x read and the ring values
-    written once, the weights; per (row, element) the quantize (4 f32
-    operations, one float -> int conversion).  A whole group of up to 16
-    (rows == n) takes the each-pair-once form: per element one index hash
-    (10 integer operations) and 11 per pair (the finaliser, an xor, an add
-    and a subtract); otherwise per (row, element) the index hash and 10 per
-    partner."""
-    if rows == n <= 16:
-        int_ops = d * (10 + 11 * n * (n - 1) // 2)
-    else:
-        int_ops = rows * d * (10 + 10 * (n - 1))
-    return (4 * (2 * rows * d + rows),
-            {"fp32": 4 * rows * d, "int": int_ops, "sfu": rows * d})
 
 
 def k1_inputs(n: int, d: int, gen):
@@ -1317,15 +1304,6 @@ def turbo_dropout(turbo_cfg, data):
     return diff
 
 
-def shard_finalize_bounds(d: int, sigma: float):
-    """Bytes and operations K2 must move and do over a ``d``-element
-    shard: the accumulator read once and the output written once; per
-    element one division and, at sigma > 0, the noise (index hash, two
-    murmur finalisers, two uniforms, log, sqrt and cos: ~35 operations, as
-    PERF.md reckons K1's noise) plus its multiply and add."""
-    return 8 * d, d * (1 + (37 if sigma else 0))
-
-
 def shard_finalize_cases(shard_sizes):
     """K2's phase: (name, D, offset in floats) for the path's shards, the
     whole model (S=1), sizes 3, 1 and 0 mod 4, one of 3 elements (no whole
@@ -1411,7 +1389,10 @@ def check_shard_finalize(shard_sizes):
                 library_ms = device_ms(library, 20) or time_ms(library, 50)
                 div_by_float_ms = (device_ms(by_float, 20)
                                    or time_ms(by_float, 50))
-            nbytes, ops = shard_finalize_bounds(d, sigma)
+            nbytes, work = shard_finalize_bounds(d, sigma)
+            # every operation at the f32 rate: integer and special-function
+            # lanes are fewer, so this stays a lower bound
+            ops = sum(work.values())
             bound_ms = max(nbytes / HBM_BYTES_PER_S,
                            ops / FP32_OPS_PER_S) * 1e3
             row = dict(shard=name, d=d, aligned=aligned, sigma=sigma,
@@ -2766,13 +2747,8 @@ def flash_bounds(b: int, h: int, t: int, d: int, sm_hz: float):
     "operations" (products or exps; ``bound_term`` says which).  The same
     operations over the 67 TFLOP/s f32 rate outside the tensor cores stay
     beside them as ``f32_simt_bound_ms``."""
-    rows, vecs = 4 * b * h * t * d, 4 * b * h * t
-    pairs = b * h * t * (t + 1) / 2
-    work = {"flash_fwd": (4 * rows + 2 * vecs, 4 * d * pairs),
-            "flash_bwd_dkv": (6 * rows + 3 * vecs, 8 * d * pairs),
-            "flash_bwd_dq": (5 * rows + 3 * vecs, 6 * d * pairs)}
     out = {}
-    for name, (nbytes, ops) in work.items():
+    for name, (nbytes, ops, pairs) in flash_work(b, h, t, d).items():
         terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                  "tf32": ops / TF32_OPS_PER_S * 1e3,
                  "exp": pairs / (SFU_EXPS_PER_CLOCK * sm_hz) * 1e3}
@@ -5458,6 +5434,307 @@ def check_live_machinery(data, root: Path):
                 waves=waves, seconds=seconds)
 
 
+OBS_ROUNDS = 3                   # rounds of each spine run of phase 8o
+OBS_FLAGS = ["--perf", "true", "--perf_strict", "true", "--device_obs",
+             "true", "--health", "true", "--telemetry", "true"]
+OBS_ADAPTIVE = ["--adaptive", "true", "--slo",
+                "health_misalignment_ratio=0.5,"
+                "round_duration_p95_seconds=30"]
+OBS_STACK = ["--agg_mode", "stack", "--norm_clip", "5.0", "--agg_noise_std",
+             str(SIGMA)]
+OBS_DEFENDED_ROUNDS = 2
+OBS_CD_ROUNDS = 2
+OBS_ASYNC_VERSIONS = 3
+OBS_EDGE_ROUNDS = 2
+
+
+def obs_dirs(base: Path, tag: str):
+    run = base / tag
+    shutil.rmtree(run, ignore_errors=True)
+    return run, ["--run_dir", str(run), "--trace_dir", str(run / "trace")]
+
+
+@contextlib.contextmanager
+def obs_enabled(run: Path, trace_node="node0"):
+    """The process telemetry registry and span tracer of one instrumented
+    run (enabled before its actors are built, as the CLI does), exported
+    into ``run`` and disabled at the end."""
+    from fedml_tpu_torch.obs import telemetry, trace
+    reg = telemetry.enable()
+    tracer = trace.enable(node=trace_node)
+    try:
+        yield tracer
+    finally:
+        run.mkdir(parents=True, exist_ok=True)
+        tracer.export(str(run / "trace" / "trace-node0.json"))
+        reg.save(str(run / "telemetry.json"))
+        (run / "telemetry.prom").write_text(reg.render_prometheus())
+        trace.disable()
+        telemetry.disable()
+
+
+def obs_check_ledgers(run: Path, label: str, spine: bool = False) -> dict:
+    """Every line of ``run``'s perf and health ledgers through the port's
+    validators; the device section on the card: backend cuda, memory in
+    use, a peak under the limit, 0 < mfu <= 1 (flops complete on the
+    spine), compile entries in round 0 only."""
+    from fedml_tpu_torch.obs import critical_path, trend
+    rows = trend.load_ledger(str(run / "perf.jsonl"))
+    health = trend.load_ledger(str(run / "health.jsonl"))
+    problems = trend.validate_ledger(rows) + [
+        f"health: {p}" for p in trend.validate_health_ledger(health)]
+    for r in rows:
+        problems += critical_path.validate_record(r.get("critical_path"))
+    mfus, compiles = [], []
+    for r in rows:
+        dev = r.get("device") or {}
+        mem = dev.get("memory") or []
+        if dev.get("backend") != CARD or (CARD == "cuda" and not mem):
+            problems.append(f"round {r['round']}: device section {dev}")
+        for e in mem:
+            if not e.get("bytes_in_use") or e.get("peak_bytes") is None \
+                    or e["peak_bytes"] > e["bytes_limit"]:
+                problems.append(f"round {r['round']}: memory entry {e}")
+        mfu = dev.get("mfu")
+        if mfu is None or not 0 < mfu <= 1:
+            problems.append(f"round {r['round']}: mfu {mfu}")
+        if spine and dev.get("flops_complete") is not True:
+            problems.append(f"round {r['round']}: flops incomplete")
+        if r["round"] != rows[0]["round"] and dev.get("compiles"):
+            problems.append(f"round {r['round']}: compiles after the "
+                            f"first round {dev['compiles']}")
+        if r.get("recompiles"):
+            problems.append(f"round {r['round']}: {r['recompiles']} "
+                            f"recompiles")
+        mfus.append(mfu)
+        compiles.append([(c["fn"], c["wall_s"]) for c in
+                         dev.get("compiles") or []])
+    if not rows or not health:
+        problems.append("empty ledger")
+    if problems:
+        fail(f"observability {label}: {problems}")
+    dev0 = rows[0].get("device") or {}
+    return dict(rounds=len(rows), mfu=mfus, compiles=compiles,
+                flops=[(r.get("device") or {}).get("flops") for r in rows],
+                peak_tflops=dev0.get("peak_tflops"),
+                peak_source=dev0.get("peak_source"),
+                mem_in_use_mb=[e["bytes_in_use"] / 2 ** 20
+                               for e in dev0.get("memory") or []],
+                phases_ms={k: v * 1e3 for k, v in rows[-1]["phases"].items()},
+                binding=[r["critical_path"]["binding"] for r in rows],
+                alarms=[{k: v["ok"] for k, v in h["alarms"].items()}
+                        for h in health])
+
+
+def obs_spine(data, base: Path, tag: str, extra, init, instruments: bool):
+    """One spine run (S = 4, K2 on, clip and noise) of ``OBS_ROUNDS``
+    rounds, instrumented or with every instrument off; its K2 launches,
+    round ms, spans, run dir and initial global."""
+    from fedml_tpu_torch.core import fused_agg
+    run, dirs = obs_dirs(base, tag)
+    argv = [*SILO_ARGS, *extra] + ([*OBS_FLAGS, *dirs] if instruments
+                                   else [])
+    ctx = obs_enabled(run) if instruments else contextlib.nullcontext()
+    with ctx as tracer:
+        fed = live_fed(live_cfg(argv, OBS_ROUNDS), data, init=init)
+        start = {k: v.clone() for k, v in fed.server.params.items()}
+        mach_reset_counts()
+        try:
+            mach_drive(fed)
+        finally:
+            if fed.perf is not None:
+                fed.perf.close()
+        sync(CARD)
+        spans = tracer.spans if tracer is not None else []
+    k2 = fused_agg.launch_counts["shard_finalize"]
+    need = 4 * OBS_ROUNDS
+    if k2 != need or len(fed.closed) != OBS_ROUNDS:
+        fail(f"observability {tag}: {k2} K2 launches in {len(fed.closed)} "
+             f"rounds, need {need} in {OBS_ROUNDS}")
+    row = dict(k2_launches=k2, round_ms=steady_round_ms(fed))
+    if instruments:
+        row.update(obs_check_ledgers(run, tag, spine=True))
+    return fed, row, spans, run, start
+
+
+def obs_trace_check(spans, n_silos: int) -> dict:
+    """One root span a round, each with ``recv:`` children on every
+    silo's track."""
+    roots = [s for s in spans if s["parent_id"] is None]
+    per_round = []
+    for root in roots:
+        members = [s for s in spans if s["trace_id"] == root["trace_id"]]
+        per_round.append(sorted({s["node"] for s in members
+                                 if s["name"].startswith("recv:")
+                                 and s["node"] != 0}))
+    want = list(range(1, n_silos + 1))
+    if [r["name"] for r in roots] != ["round"] * OBS_ROUNDS \
+            or any(nodes != want for nodes in per_round):
+        fail(f"observability trace: roots {[r['name'] for r in roots]}, "
+             f"recv tracks {per_round}")
+    return dict(spans=len(spans), roots=len(roots),
+                recv_tracks_per_round=[len(n) for n in per_round])
+
+
+def obs_defended(data, base: Path, init) -> dict:
+    """The stacked defended cross-silo round (``--agg_mode stack``, clip 5
+    and sigma 0.025: ``defended_aggregate[mean]``, the eager fold of
+    ``robust/defense.py``), ``OBS_DEFENDED_ROUNDS`` rounds with the
+    instruments on, then off: the same globals, every ledger line valid,
+    the aggregate ledgered once a round with its FLOPs from the work
+    table and its compile in round 0.  No hand-written kernel runs here;
+    K1 and K1n have no instrumented path in either package (the
+    fedavg_robust runner takes no recorder), so phase 1 holds them."""
+    params = {}
+    with deterministic():
+        for on in (True, False):
+            run, dirs = obs_dirs(base, "defended" if on else "defended_off")
+            argv = [*PLAIN_STREAM_ARGS, *OBS_STACK] + (
+                [*OBS_FLAGS, *dirs] if on else [])
+            ctx = obs_enabled(run) if on else contextlib.nullcontext()
+            with ctx:
+                fed = live_fed(live_cfg(argv, OBS_DEFENDED_ROUNDS), data,
+                               init=init)
+                try:
+                    mach_drive(fed)
+                finally:
+                    if fed.perf is not None:
+                        fed.perf.close()
+                sync(CARD)
+            if fed.server.aggregate_fn is None \
+                    or len(fed.closed) != OBS_DEFENDED_ROUNDS:
+                fail(f"observability defended: {len(fed.closed)} rounds, "
+                     f"stacked aggregate {fed.server.aggregate_fn}")
+            params[on] = fed.server.params
+            if on:
+                row = obs_check_ledgers(run, "defended", spine=True)
+                rows = [json.loads(x) for x in
+                        (run / "perf.jsonl").read_text().splitlines()]
+    name = "defended_aggregate[mean]"
+    calls = [r["device"]["jit_calls"].get(name) for r in rows]
+    first = [c["fn"] for c in rows[0]["device"]["compiles"]]
+    same = bit_equal(params[True], params[False])
+    if calls != [1] * OBS_DEFENDED_ROUNDS or name not in first or not same:
+        fail(f"observability defended: {name} calls {calls}, round-0 "
+             f"compiles {first}, globals equal on/off: {same}")
+    row.update(aggregate_calls=calls, bit_equal=same)
+    return row
+
+
+def obs_waves(data, base: Path) -> dict:
+    """The wave engine (1000 a round, waves of 256) with perf, health,
+    the SLO evaluator and the controller."""
+    run, dirs = obs_dirs(base, "waves")
+    cfg = cd_cfg([*CD_ARGS, "--comm_round", str(OBS_CD_ROUNDS), *OBS_FLAGS,
+                  *OBS_ADAPTIVE, *dirs])
+    with obs_enabled(run):
+        algo = cd_algo(cfg, data)
+        try:
+            algo.run()
+        finally:
+            algo.perf.close()
+    row = obs_check_ledgers(run, "waves")
+    rows = [json.loads(x) for x in
+            (run / "perf.jsonl").read_text().splitlines()]
+    if any("adapt" not in r or "wave" not in r["phases"] for r in rows):
+        fail(f"observability waves: lines without the controller's "
+             f"decision or the wave phase: {rows}")
+    row.update(adapt=[r["adapt"] for r in rows],
+               round_s=[r["round_s"] for r in rows])
+    return row
+
+
+def obs_async_edges(data, base: Path, init) -> dict:
+    """async_fl (goal 5, 3 versions) and the edge tier (2 edges of 5
+    silos), each with perf and health."""
+    from fedml_tpu_torch.experiments.main import AsyncFederation
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    out = {}
+    run, dirs = obs_dirs(base, "async")
+    with obs_enabled(run):
+        with MetricsSink(None) as sink:
+            fed = AsyncFederation(live_cfg([*MACH_ASYNC, *OBS_FLAGS, *dirs],
+                                           OBS_ASYNC_VERSIONS),
+                                  data, sink, init_params=init)
+        fed.server.on_version = None
+        fed.run()
+    out["async_fl"] = obs_check_ledgers(run, "async_fl")
+    run, dirs = obs_dirs(base, "edges")
+    with obs_enabled(run):
+        fed = live_fed(live_cfg([*PLAIN_STREAM_ARGS, *MACH_EDGES,
+                                 *OBS_FLAGS, *dirs], OBS_EDGE_ROUNDS),
+                       data, init=init)
+        try:
+            mach_drive(fed)
+        finally:
+            fed.perf.close()
+    row = obs_check_ledgers(run, "edges")
+    health = [json.loads(x) for x in
+              (run / "health.jsonl").read_text().splitlines()]
+    if any(len(h.get("edges") or {}) != len(fed.edges) for h in health):
+        fail(f"observability edges: rollups {[h.get('edges') for h in health]}")
+    row["edge_rollup"] = [h["edge_rollup"] for h in health]
+    out["edges"] = row
+    return out
+
+
+def check_observability(data, root: Path):
+    """Phase 8o: the observatories on the card (spans, perf.jsonl with the
+    critical path and the device section, health.jsonl, SLOs, the
+    controller) over the spine inline, pipelined and adaptive, the
+    stacked defended round, the wave engine, async_fl and the edge tier;
+    the spine's globals with every instrument off bit-equal to them on,
+    and the round ms on and off in ABBA turns (the instruments'
+    overhead)."""
+    from fedml_tpu_torch.obs import report
+    t_phase = time.perf_counter()
+    base = root / "build" / "observability"
+    shutil.rmtree(base, ignore_errors=True)
+    out, turns, globals_ = {}, {"on": [], "off": []}, {}
+    init = None
+    with deterministic():
+        for i, on in enumerate((True, False, False, True)):
+            fed, row, spans, run, start = obs_spine(
+                data, base, f"inline_{i}", [], init, instruments=on)
+            init = init or start
+            label = "on" if on else "off"
+            turns[label].append(row["round_ms"])
+            globals_.setdefault(label, fed.server.params)
+            if i == 0:
+                out["inline"] = row
+                out["trace"] = obs_trace_check(spans, len(fed.silos))
+                text = report.render_report(str(run), str(run / "trace"))
+                for section in ("perf ledger", "device observatory",
+                                "learning health", "round timelines"):
+                    if section not in text:
+                        fail(f"observability report: no {section!r}")
+                out["report_lines"] = len(text.splitlines())
+        same = bit_equal(globals_["on"], globals_["off"])
+        if not same:
+            fail(f"observability: globals with the instruments on differ "
+                 f"from off by {max_diff(globals_['on'], globals_['off'])}")
+        out["ingest"] = obs_spine(
+            data, base, "ingest", ["--ingest_pipeline", "true"], init,
+            True)[1]
+        _, out["adaptive"], _, run, _ = obs_spine(
+            data, base, "adaptive", OBS_ADAPTIVE, init, True)
+        rows = [json.loads(x) for x in
+                (run / "perf.jsonl").read_text().splitlines()]
+        if any("adapt" not in r for r in rows):
+            fail("observability adaptive: a line without its decision")
+        out["adaptive"]["adapt"] = [r["adapt"] for r in rows]
+    out["defended"] = obs_defended(data, base, init)
+    out["waves"] = obs_waves(data, base)
+    out.update(obs_async_edges(data, base, init))
+    on, off = statistics.median(turns["on"]), statistics.median(turns["off"])
+    out.update(bit_equal_on_off=same, turns_round_ms=turns,
+               overhead_ms=on - off, overhead_ratio=on / off - 1.0,
+               seconds=time.perf_counter() - t_phase)
+    phase("observability", **out)
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -5537,6 +5814,7 @@ def main() -> None:
     cross_device = check_cross_device(data, root)
     models = check_zoo_models(sm_hz)
     machinery = check_live_machinery(data, root)
+    observability = check_observability(data, root)
 
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
@@ -5623,6 +5901,10 @@ def main() -> None:
         "launches_live_machinery": {
             k: machinery["ingest"][k]["k2_launches"]
             for k in ("inline", "ingest")},
+        # phase 8o: the spine under the instruments
+        "launches_observability": {
+            k: observability[k]["k2_launches"]
+            for k in ("inline", "ingest", "adaptive")},
         "max_abs_err": k2_worst,
         "ms": sum(r["ms"] for r in shards),
         "plain_ms": sum(r["plain_ms"] for r in shards),
@@ -5716,6 +5998,12 @@ def main() -> None:
                  for k in ("plaintext", "grouped")},
               "hierarchical": machinery["hierarchical"]["rounds_per_s"]},
           machinery_seconds=machinery["seconds"],
+          observability_mfu={
+              k: observability[k]["mfu"]
+              for k in ("inline", "ingest", "adaptive", "defended",
+                        "waves", "async_fl", "edges")},
+          observability_overhead_ms=observability["overhead_ms"],
+          observability_seconds=observability["seconds"],
           lm_flash_vs_blockwise_max_abs_diff=lm_diff,
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]

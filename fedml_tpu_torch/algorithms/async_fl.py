@@ -29,8 +29,9 @@ buffer is damped absolutely.  With ``aggregation_goal = n_silos`` and
 The version step runs in host f64 numpy and casts back, as the JAX
 package's does (:838-925), so the versions match the JAX package's
 instead of drifting with the card's arithmetic; the global is then the
-port's flat dict of tensors on the actor's device.  ``perf`` and
-``health`` are refused by name (ROADMAP Queue 1 item 9).
+port's flat dict of tensors on the actor's device.  ``perf`` ledgers one
+``perf.jsonl`` line a version and ``health`` one ``health.jsonl`` line
+(``kind="delta"``: the uploads are the updates), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -128,11 +129,6 @@ class AsyncFedServerActor(ServerManager):
                  server_opt=None,
                  degrade=None,
                  ingest=None):
-        for name, value in (("perf", perf), ("health", health)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"AsyncFedServerActor({name}=...) is not ported yet: it "
-                    f"needs obs/{name}.py (ROADMAP Queue 1 item 9)")
         super().__init__(0, transport)
         if not 1 <= aggregation_goal <= n_silos:
             raise ValueError(
@@ -189,7 +185,18 @@ class AsyncFedServerActor(ServerManager):
         self._ingest_lock = threading.RLock()
         self.server_opt = server_opt
         self.degrade = degrade
+        self.perf = perf
+        self.health = health
         self._tasked_at: Dict[int, float] = {}
+        if health is not None:
+            # no per-version barrier set exists: the silo universe is the
+            # fairness denominator from version 0.  The starvation clock
+            # ticks per VERSION, and a healthy rotation accepts ~goal of
+            # n_silos silos a version, so "N missed turns" means N
+            # rotation periods: starve_after scales by ceil(n / goal)
+            period = -(-n_silos // aggregation_goal)
+            health.starve_after = health.starve_after * period
+            health.register(range(1, n_silos + 1))
         self._host_mirror = HostMirror()
         # quarantined silos declined a re-task; released on probation
         self._benched: Set[int] = set()
@@ -231,26 +238,39 @@ class AsyncFedServerActor(ServerManager):
         self._version_t0 = now
         if self.stream_agg is not None:
             self.stream_agg.reset(self.params)
+        if self.perf is not None:
+            self.perf.round_start(self.version)
         buffered: Set[int] = set()
         if resume is not None:
             # the durable fold prefix and the buffer's metadata restore;
             # those silos are not re-tasked (their deltas are folded)
-            self.stream_agg.load_state_dict(resume.state)
-            for silo, weight, extra in resume.folded:
-                base = int((extra or {}).get("base", self.version))
-                discount = float(1.0 + self.version - base) ** (-self.alpha)
-                self._buffer.append((None, float(weight), discount,
-                                     int(silo), base))
-                buffered.add(int(silo))
-            self.journal.note_resume(self.version, resume.folded,
-                                     global_crc=resume.global_crc)
+            with self._perf_phase("journal"):
+                self.stream_agg.load_state_dict(resume.state)
+                for silo, weight, extra in resume.folded:
+                    base = int((extra or {}).get("base", self.version))
+                    discount = float(1.0 + self.version - base) \
+                        ** (-self.alpha)
+                    self._buffer.append((None, float(weight), discount,
+                                         int(silo), base))
+                    buffered.add(int(silo))
+                self.journal.note_resume(self.version, resume.folded,
+                                         global_crc=resume.global_crc)
         else:
             self._journal_round_start()
-        assignments = {silo: int(client_idx) for silo, client_idx
-                       in enumerate(ids, start=1) if silo not in buffered}
-        for silo in assignments:
-            self._last_heard[silo] = now
-        self._task_wave(assignments, MsgType.S2C_INIT)
+        if self.health is not None:
+            with self._perf_phase("health"):
+                self.health.round_start(self.version, self._host_params())
+        # one root span for the initial tasking wave, so the version-0
+        # silo train/upload spans stitch into a single trace
+        with self._root_span("tasking", f"version{self.version}",
+                             version=self.version):
+            assignments = {silo: int(client_idx) for silo, client_idx
+                           in enumerate(ids, start=1)
+                           if silo not in buffered}
+            for silo in assignments:
+                self._last_heard[silo] = now
+            with self._perf_phase("broadcast_serialize"):
+                self._task_wave(assignments, MsgType.S2C_INIT)
         self._arm_retask_timer()
         if self._buffer and len(self._buffer) >= self._effective_goal():
             # the restored buffer already meets the goal (the crash hit
@@ -312,7 +332,12 @@ class AsyncFedServerActor(ServerManager):
                 if self.degrade is not None:
                     # a quiet silo is a NETWORK verdict, never a strike
                     self.degrade.note_drop(silo)
-                self._task(silo, self._next_client())
+                # watchdog ticks carry no inbound trace context: root each
+                # nudge so its train/upload stitch
+                with self._root_span("retask",
+                                     f"retask-v{self.version}-s{silo}",
+                                     silo=silo, version=self.version):
+                    self._task(silo, self._next_client())
         self._arm_retask_timer()
 
     def _host_params(self):
@@ -365,10 +390,11 @@ class AsyncFedServerActor(ServerManager):
     def _journal_round_start(self) -> None:
         if self.journal is None:
             return
-        self.journal.round_start(
-            self.version, mode=self._journal_mode(),
-            resumable=self.stream_agg.method == "mean",
-            global_crc=tree_crc(self._host_params()))
+        with self._perf_phase("journal"):
+            self.journal.round_start(
+                self.version, mode=self._journal_mode(),
+                resumable=self.stream_agg.method == "mean",
+                global_crc=tree_crc(self._host_params()))
 
     def _journal_recovery(self):
         """Resume the open version only when it is the checkpoint's next
@@ -425,6 +451,7 @@ class AsyncFedServerActor(ServerManager):
                          "%d (first copy still queued)", key[1],
                          msg.sender_id)
                 return
+            self._note_arrival()
             self._ingest_inflight.add(key)
             ok = self.ingest.submit(
                 0, lambda: self._ingest_task(msg),
@@ -432,7 +459,7 @@ class AsyncFedServerActor(ServerManager):
             if not ok:
                 self._ingest_inflight.discard(key)
             return
-        self._upload_body(msg)
+        self._upload_body(msg, note_arrival=True)
 
     def _ingest_task(self, msg: Message) -> None:
         key = (msg.sender_id, msg.get(Message.ARG_ROUND))
@@ -445,7 +472,7 @@ class AsyncFedServerActor(ServerManager):
             with self._ingest_lock:
                 self._ingest_inflight.discard(key)
 
-    def _upload_body(self, msg: Message) -> None:
+    def _upload_body(self, msg: Message, note_arrival: bool = False) -> None:
         try:
             base_version = int(msg.get(Message.ARG_ROUND))
         except (TypeError, ValueError):
@@ -465,8 +492,11 @@ class AsyncFedServerActor(ServerManager):
             log.warning("ignoring duplicate version-%d upload from silo %d",
                         base_version, msg.sender_id)
             return
+        if note_arrival:
+            self._note_arrival()  # one wire arrival per (deduped) upload
         delta = msg.get(Message.ARG_MODEL_PARAMS)
         raw_samples = msg.get(Message.ARG_NUM_SAMPLES)
+        delta_norm = None
         if self.admission is not None:
             pair = (msg.sender_id, base_version)
             seen = self._rejected_crcs.get(pair)
@@ -475,7 +505,8 @@ class AsyncFedServerActor(ServerManager):
                 log.info("ignoring duplicate rejected version-%d upload "
                          "from silo %d", base_version, msg.sender_id)
                 return
-            with self._span("ingest:admission"):
+            with self._span("ingest:admission", deterministic=True), \
+                    self._perf_phase("admission"):
                 verdict = self.admission.admit(msg.sender_id, delta,
                                                raw_samples, None,
                                                self.version)
@@ -483,10 +514,15 @@ class AsyncFedServerActor(ServerManager):
                 log.warning("rejecting version-%d upload from silo %d "
                             "(reason=%s)", base_version, msg.sender_id,
                             verdict.reason)
+                if self.health is not None:
+                    with self._perf_phase("health"):
+                        self.health.observe_rejected(msg.sender_id,
+                                                     verdict.reason)
                 if self.journal is not None:
-                    self.journal.note_accept(
-                        self.version, msg.sender_id, 0.0,
-                        folded=False, reason=verdict.reason)
+                    with self._perf_phase("journal"):
+                        self.journal.note_accept(
+                            self.version, msg.sender_id, 0.0,
+                            folded=False, reason=verdict.reason)
                 if crc is None:
                     crc = _payload_crc(delta)
                 self._rejected_crcs.setdefault(pair, set()).add(crc)
@@ -503,6 +539,8 @@ class AsyncFedServerActor(ServerManager):
                     self._task(msg.sender_id, self._next_client())
                 return
             num_samples = verdict.num_samples
+            # the screen's one norm pass is shared with health
+            delta_norm = verdict.norm
         else:
             try:
                 num_samples = float(raw_samples)
@@ -524,13 +562,20 @@ class AsyncFedServerActor(ServerManager):
         discount = float(1.0 + staleness) ** (-self.alpha)
         self.staleness_seen.append(staleness)
         self._h_staleness.observe(staleness)
+        if self.health is not None:
+            # health folds BEFORE the aggregation fold consumes the delta
+            with self._perf_phase("health"):
+                self.health.observe_admitted(msg.sender_id, delta,
+                                             num_samples, norm=delta_norm,
+                                             staleness=staleness)
         if self.faultline is not None:
             self.faultline.maybe_crash("post_admission_pre_fold",
                                        round_idx=self.version,
                                        silo=msg.sender_id)
         if self.stream_agg is not None:
             # fold at arrival: the buffer keeps only the metadata tuple
-            with self._span("ingest:fold"):
+            with self._span("ingest:fold", deterministic=True), \
+                    self._perf_phase("fold"):
                 self.stream_agg.fold(flatten_nested(delta), num_samples)
             delta = None
             if self.journal is not None:
@@ -538,9 +583,12 @@ class AsyncFedServerActor(ServerManager):
                 # the buffer tuple and its discount
                 state_fn = (self.stream_agg.state_dict
                             if self.stream_agg.method == "mean" else None)
-                self.journal.note_accept(
-                    self.version, msg.sender_id, float(num_samples),
-                    extra={"base": int(base_version)}, state_fn=state_fn)
+                with self._span("ingest:journal", deterministic=True), \
+                        self._perf_phase("journal"):
+                    self.journal.note_accept(
+                        self.version, msg.sender_id, float(num_samples),
+                        extra={"base": int(base_version)},
+                        state_fn=state_fn)
         if self.faultline is not None:
             self.faultline.maybe_crash("post_fold_pre_ack",
                                        round_idx=self.version,
@@ -581,6 +629,9 @@ class AsyncFedServerActor(ServerManager):
         if self.degrade is not None:
             self.degrade.note_fault(FaultClass.PAYLOAD,
                                     silo=msg.sender_id, detail=detail)
+        if self.health is not None:
+            with self._perf_phase("health"):
+                self.health.observe_rejected(msg.sender_id, "malformed")
         if self.admission is not None:
             self.admission.reject(msg.sender_id, self.version,
                                   "fingerprint")
@@ -643,8 +694,14 @@ class AsyncFedServerActor(ServerManager):
                              np.float64)
         discounts = np.asarray([c for _, _, c, _, _ in self._buffer],
                                np.float64)
+        defended = (self.defended_aggregate is not None
+                    or (self.stream_agg is not None
+                        and self.stream_agg.defended))
+        # traced as a child of the upload handling that tripped the goal
         with self._span("aggregate", version=self.version,
-                        buffered=len(deltas)):
+                        buffered=len(deltas)), \
+                self._perf_phase("defended_aggregate" if defended
+                                 else "aggregate"):
             if self.stream_agg is not None:
                 self._apply_discounted(self.stream_agg.finalize(self.version),
                                        discounts, samples)
@@ -683,6 +740,13 @@ class AsyncFedServerActor(ServerManager):
                         + self.server_lr * m).astype(p_host[k].dtype)
                     for k, m in zip(self._keys, mean)})
         silos = [s for _, _, _, s, _ in self._buffer]
+        if self.health is not None:
+            # the version's health line closes on the post-apply global
+            # BEFORE perf.round_end, so its phase lands in the same line
+            with self._perf_phase("health"):
+                self.health.round_end(self.version,
+                                      new_global=self._host_params(),
+                                      buffered=len(silos))
         self._consumed.update((s, b) for _, _, _, s, b in self._buffer)
         self._buffer.clear()
         if self.stream_agg is not None:
@@ -698,15 +762,26 @@ class AsyncFedServerActor(ServerManager):
             self.faultline.maybe_crash("mid_checkpoint_write",
                                        round_idx=self.version - 1)
         if self.checkpointer is not None:
-            self.checkpointer.maybe_save(
-                self.version - 1, self._checkpoint_state,
-                last_round=self.version >= self.num_versions)
+            with self._perf_phase("checkpoint"):
+                self.checkpointer.maybe_save(
+                    self.version - 1, self._checkpoint_state,
+                    last_round=self.version >= self.num_versions)
         if self.journal is not None:
             # after the checkpoint is durable
-            self.journal.round_end(self.version - 1)
+            with self._perf_phase("journal"):
+                self.journal.round_end(self.version - 1)
         if self.faultline is not None:
             self.faultline.maybe_crash("publish",
                                        round_idx=self.version - 1)
+        if self.perf is not None:
+            # the applied version's line closes (a strict-mode
+            # RecompileError raises here) BEFORE the eval hook, whose
+            # cadence is its own
+            vextra = ({"server_opt": self.server_opt.name}
+                      if self.server_opt is not None else {})
+            vextra["global_crc"] = tree_crc(self._host_params())
+            self.perf.round_end(self.version - 1, buffered=len(silos),
+                                **vextra)
         if self.on_version is not None:
             self.on_version(self.version, self.params)
         if self.version >= self.num_versions:
@@ -714,11 +789,19 @@ class AsyncFedServerActor(ServerManager):
                 self.send(MsgType.S2C_FINISH, silo)
             self.finish()
             return
+        if self.perf is not None:
+            # the next version's line opens AFTER the eval hook and before
+            # the tasking wave, whose serialize is its first phase
+            self.perf.round_start(self.version)
         # the journal opens the next version before the tasking wave: a
         # delta can arrive the moment the wave lands
         self._journal_round_start()
+        if self.health is not None:
+            with self._perf_phase("health"):
+                self.health.round_start(self.version, self._host_params())
         # only the consumed silos get new work, drawn in buffer order
-        self._task_wave({silo: self._next_client() for silo in silos})
+        with self._perf_phase("broadcast_serialize"):
+            self._task_wave({silo: self._next_client() for silo in silos})
         if self.admission is not None:
             # the per-version trust sweep, then the probation release
             self.admission.trust.quarantined(

@@ -41,10 +41,14 @@ cohort:
   (``submit_wait``), drained before the finalize, so the round is
   bit-identical to the inline one.
 
-Aggregation is stream-only by construction.  The JAX engine's other
-seams are refused by name: the mesh (ROADMAP Queue 1 item 10, second
-part), ``perf``, ``health``, ``slo`` and ``controller`` (item 9),
-``publish`` (item 11).
+Aggregation is stream-only by construction.  ``perf`` ledgers a line a
+round (the ``wave`` phase, each completed wave an arrival on the critical
+path, the wave program registered as ``wave_train``), ``health`` sketches
+each admitted wave summary, ``slo`` evaluates once a round and
+``controller`` paces the next round's cohort from the health line (the
+sampler draws from the whole population; waves stay static-width).  The
+JAX engine's other seams are refused by name: the mesh (ROADMAP Queue 1
+item 10, second part) and ``publish`` (item 11).
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ from fedml_tpu_torch.robust.adversary import (parse_wave_adversary_spec,
 from fedml_tpu_torch.robust.degrade import merge_priority
 from fedml_tpu_torch.trainer.local_sgd import make_local_trainer
 from fedml_tpu_torch.trainer.workload import make_client_optimizer
+from fedml_tpu_torch.utils.journal import tree_crc
 
 logger = logging.getLogger(__name__)
 
@@ -90,10 +95,6 @@ AUTO_WAVE_MAX = 256            # wave_size 0: min(cohort, this)
 # the JAX engine's seams the port does not have yet: constructor argument
 # -> what brings it
 REFUSED_SEAMS = {
-    "perf": "obs/perf.py (ROADMAP Queue 1 item 9)",
-    "health": "obs/health.py (ROADMAP Queue 1 item 9)",
-    "slo": "obs/slo.py (ROADMAP Queue 1 item 9)",
-    "controller": "server_opt/controller.py (ROADMAP Queue 1 item 9)",
     "publish": "serve/ (ROADMAP Queue 1 item 11)",
 }
 
@@ -124,9 +125,7 @@ class CrossDevice(FedAvg):
                  perf=None, health=None, slo=None, publish=None,
                  controller=None, degrade=None, ingest=None):
         cfg = config
-        seams = dict(perf=perf, health=health, slo=slo, publish=publish,
-                     controller=controller)
-        for name, value in seams.items():
+        for name, value in dict(publish=publish).items():
             if value:
                 raise NotImplementedError(
                     f"cross_device's {name} seam is not ported yet; it "
@@ -159,6 +158,11 @@ class CrossDevice(FedAvg):
                 "scaffold does not support stateful (BatchNorm) "
                 "workloads: control variates over running statistics "
                 "are undefined — use a GroupNorm model")
+        if controller is not None and health is None:
+            raise ValueError(
+                "controller (--adaptive) requires the health observatory "
+                "(--health): its decisions are a pure function of the "
+                "per-round drift-alarm line")
         if server_opt is not None and cfg.local_alg == "fednova":
             raise ValueError(
                 "--server_opt with --local_alg fednova is refused: "
@@ -168,6 +172,10 @@ class CrossDevice(FedAvg):
         super().__init__(workload, data, config, sink=sink, device=device)
         self.server_opt = server_opt
         self.degrade = degrade
+        self.perf = perf
+        self.health = health
+        self.slo = slo
+        self.controller = controller
         # the fold-side state (stream, admission, the local algorithm's
         # accumulators) belongs to the worker between the round's start
         # and its pre-finalize drain
@@ -187,6 +195,11 @@ class CrossDevice(FedAvg):
         self._h_wave = reg.histogram("fedml_cohort_wave_seconds")
         self._h_fold = reg.histogram("fedml_cohort_fold_seconds")
         self._wave_fn = self._build_wave_fn(workload, cfg)
+        if perf is not None:
+            # the wave program is this engine's hot callable: the sentry
+            # notes its signatures and (--device_obs) the compile ledger
+            # and the FLOP count read it
+            self._wave_fn = perf.instrument_jit("wave_train", self._wave_fn)
 
     # -- the wave program ----------------------------------------------------
     def _build_wave_fn(self, workload, cfg):
@@ -239,6 +252,11 @@ class CrossDevice(FedAvg):
         (seed, round); both re-derive the same cohorts on a resume."""
         cfg = self.cfg
         per = cfg.client_num_per_round
+        if self.controller is not None:
+            # the adaptive cohort lever is live here: the sampler draws
+            # from the whole population and the waves pad to a static
+            # width, so widening builds nothing new
+            per = max(1, min(self.controller.cohort, self.data.client_num))
         if cfg.sampler == "jax":
             key = prng.fold_in(prng.fold_in(prng.key(cfg.seed),
                                             SAMPLER_SALT), round_idx)
@@ -259,10 +277,13 @@ class CrossDevice(FedAvg):
     def _ensure_bound(self, params: Tree) -> None:
         cfg = self.cfg
         if self.stream is None:
+            perf = self.perf
             self.stream = StreamingAggregator(
                 params, method="mean", kind="params",
                 norm_clip=cfg.norm_clip, noise_std=cfg.agg_noise_std,
-                seed=cfg.seed, device=self.device)
+                seed=cfg.seed, device=self.device,
+                sentry=perf.sentry if perf is not None else None,
+                device_obs=perf.device if perf is not None else None)
             self.admission = WaveAdmission(
                 _host(params), norm_k=cfg.norm_screen_k,
                 norm_window=cfg.norm_screen_window,
@@ -272,6 +293,10 @@ class CrossDevice(FedAvg):
             self.c_global = {k: torch.zeros_like(v)
                              for k, v in params.items()}
             self.c_locals = zeros_client_state(params, self.data.client_num)
+
+    def _perf_phase(self, name: str, seconds: float) -> None:
+        if self.perf is not None:
+            self.perf.add_phase(name, seconds)
 
     def _gather_wave(self, wave, width: int):
         """The wave's cohort on the card: gathered from the resident train
@@ -292,6 +317,7 @@ class CrossDevice(FedAvg):
             # only weightless clients (all-pad, all-empty shards): folds as
             # weight 0, never a 0/0 in the normalizer
             return
+        t0 = time.perf_counter()
         mean_host = _host(mean)
         attack = self._wave_attacks.get((round_idx, wi))
         if attack is not None:
@@ -302,10 +328,13 @@ class CrossDevice(FedAvg):
             logger.warning("round %d wave %d POISONED (%s:%g)", round_idx,
                            wi, attack.kind, attack.param)
         verdict = self.admission.screen(mean_host, host_params)
+        self._perf_phase("admission", time.perf_counter() - t0)
         if not verdict.ok:
             logger.warning("round %d wave %d REJECTED (%s): %d clients' "
                            "work discarded", round_idx, wi, verdict.reason,
                            wave.n_live)
+            if self.health is not None:
+                self.health.observe_rejected(wi + 1, verdict.reason)
             return
         t0 = time.perf_counter()
         if attack is not None:
@@ -315,10 +344,17 @@ class CrossDevice(FedAvg):
                 device=s.device, dtype=s.dtype).expand(s.shape)
                 for k, s in stacked.items()}
         self.stream.fold_wave(stacked, w.cpu())
-        self._h_fold.observe(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._h_fold.observe(dt)
+        self._perf_phase("fold", dt)
         acc["folded"] += 1
         acc["live"] += wave.n_live
         self._c_clients.inc(wave.n_live)
+        if self.health is not None:
+            t0 = time.perf_counter()
+            self.health.observe_admitted(wi + 1, mean_host, wave_weight,
+                                         norm=verdict.norm)
+            self._perf_phase("health", time.perf_counter() - t0)
         if self.cfg.local_alg == "fednova":
             acc["tau"] += float(aux_sums["tau"])
         elif self.cfg.local_alg == "scaffold":
@@ -336,6 +372,9 @@ class CrossDevice(FedAvg):
         self._ensure_bound(params)
         self.admission.round_start()
         host_params = _host(params)
+        if self.health is not None:
+            self.health.round_start(round_idx, host_params,
+                                    expected=range(1, len(waves) + 1))
         self.stream.reset(params)
         acc = {"tau": 0.0, "c_delta": None, "folded": 0, "live": 0}
         for wi, wave in enumerate(waves):
@@ -358,11 +397,16 @@ class CrossDevice(FedAvg):
             dt = time.perf_counter() - t0
             self._c_waves.inc()
             self._h_wave.observe(dt)
+            self._perf_phase("wave", dt)
             if self.degrade is not None:
                 # every live client completed with the wave
                 for cid in wave.ids:
                     self.degrade.observe_completion(int(cid) + 1, dt)
                     self.degrade.note_accept(int(cid) + 1)
+            if self.perf is not None:
+                # a completed wave is this regime's upload arrival on the
+                # round's critical-path timeline
+                self.perf.note_arrival()
             fold = functools.partial(
                 self._fold_one, round_idx, wi, wave, stacked, w, mean,
                 wave_weight, aux_sums, new_c, c_delta, host_params, acc)
@@ -374,14 +418,18 @@ class CrossDevice(FedAvg):
                 fold()
         if self.ingest is not None:
             # every queued fold lands before the finalize reads the stream
+            t0 = time.perf_counter()
             self.ingest.drain()
+            self._perf_phase("barrier_wait", time.perf_counter() - t0)
 
         if self.stream.count == 0:
             logger.warning("round %d: every wave empty or rejected; the "
                            "global is unchanged", round_idx)
             new_params = params
         else:
+            t0 = time.perf_counter()
             new_params = self.stream.finalize(round_idx)
+            self._perf_phase("fold", time.perf_counter() - t0)
             if cfg.local_alg == "fednova":
                 # x+ = x − tau_eff·Σ p_i d_i, with the mean x − Σ p_i d_i
                 tau_eff = acc["tau"] / self.stream.weight_total
@@ -399,6 +447,10 @@ class CrossDevice(FedAvg):
                 new_params = self.server_opt.apply(params, new_params,
                                                    round_idx)
         self._c_rounds.inc()
+        if self.health is not None:
+            self.health.round_end(round_idx, new_global=_host(new_params),
+                                  cohort=len(ids), waves=len(waves),
+                                  folded_waves=acc["folded"])
         return new_params, {"waves": len(waves),
                             "folded_waves": acc["folded"],
                             "clients": acc["live"]}
@@ -416,13 +468,38 @@ class CrossDevice(FedAvg):
         self._stage_train_on_device()
         for round_idx in range(start_round, cfg.comm_round):
             t0 = time.perf_counter()
+            if self.perf is not None:
+                self.perf.round_start(round_idx)
             ids = self._sample_round(round_idx)
             rng, round_key = prng.split(rng)
             params, info = self._run_round(
                 params, ids, prng.key_words_int32(round_key), round_idx)
             synchronize(self.device)
+            decision = None
+            if self.controller is not None:
+                # the pacing verdict for the NEXT round, from this round's
+                # health line, decided before the checkpoint so a resume
+                # continues the same trajectory
+                kw = ({"debt": self.degrade.max_debt()}
+                      if self.degrade is not None else {})
+                decision = self.controller.decide(
+                    round_idx, self.health.last_line
+                    if self.health is not None else None, **kw)
             round_s = time.perf_counter() - t0
             self.round_times.append(round_s)
+            if self.perf is not None:
+                extra = dict(info)
+                # the round's post-finalize global CRC (the checksum the
+                # journal trusts): pipelined and inline twins compare it
+                extra["global_crc"] = tree_crc(_host(params))
+                if self.server_opt is not None:
+                    extra["server_opt"] = self.server_opt.name
+                if decision is not None:
+                    extra["adapt"] = decision.as_ledger()
+                self.perf.round_end(round_idx, cohort=len(ids),
+                                    wave_size=cfg.wave_size, **extra)
+            if self.slo is not None:
+                self.slo.evaluate()
             if (round_idx % cfg.frequency_of_the_test == 0
                     or round_idx == cfg.comm_round - 1):
                 stats = self.evaluate_global(params)
@@ -456,6 +533,8 @@ class CrossDevice(FedAvg):
                                "c_locals": self.c_locals}
         if self.server_opt is not None:
             out["srv_opt"] = self.server_opt.state_dict()
+        if self.controller is not None:
+            out["adapt"] = self.controller.state_dict()
         if self.degrade is not None:
             out["degrade"] = self.degrade.state_dict()
         return out
@@ -469,6 +548,8 @@ class CrossDevice(FedAvg):
                 "c_locals": zeros_client_state(params, self.data.client_num)}
         if self.server_opt is not None:
             out["srv_opt"] = self.server_opt.state_template()
+        if self.controller is not None:
+            out["adapt"] = self.controller.state_dict()
         if self.degrade is not None:
             out["degrade"] = self.degrade.state_dict()
         return out
@@ -481,6 +562,8 @@ class CrossDevice(FedAvg):
                              extra["scaffold"]["c_locals"].items()}
         if self.server_opt is not None and "srv_opt" in extra:
             self.server_opt.load_state_dict(extra["srv_opt"])
+        if self.controller is not None and "adapt" in extra:
+            self.controller.load_state_dict(extra["adapt"])
         if self.degrade is not None and "degrade" in extra:
             self.degrade.load_state_dict(extra["degrade"])
 

@@ -75,7 +75,7 @@ from fedml_tpu_torch.core.pytree import (HostMirror, as_tensor,
                                          flatten_nested, nest, to_host,
                                          tree_keys, tree_weighted_mean)
 from fedml_tpu_torch.core.sampling import sample_clients
-from fedml_tpu_torch.obs import telemetry
+from fedml_tpu_torch.obs import telemetry, trace
 from fedml_tpu_torch.robust.degrade import FaultClass
 from fedml_tpu_torch.secure.protocol import (MSG_SECAGG_ADVERT,
                                              MSG_SECAGG_ROSTER,
@@ -174,11 +174,6 @@ SiloTrainFn = Callable[[object, int, int], tuple]
 
 # JAX actor options this port does not run yet, with where they arrive
 _REFUSED = {
-    "health": "the health observatory (obs/health.py, ROADMAP Queue 1 "
-              "item 9)",
-    "perf": "the perf ledger (obs/perf.py, ROADMAP Queue 1 item 9)",
-    "controller": "the adaptive controller (server_opt/controller.py, "
-                  "with the health observatory of ROADMAP Queue 1 item 9)",
     "publish": "serve-while-train (serve/, ROADMAP Queue 1 item 11)",
 }
 
@@ -273,8 +268,7 @@ class FedAvgServerActor(ServerManager):
                  faultline=None, *, secagg=None, ingest=None, health=None,
                  perf=None, server_opt=None, controller=None, degrade=None,
                  decode_upload=None, publish=None):
-        refuse_unported(health=health, perf=perf, controller=controller,
-                        publish=publish)
+        refuse_unported(publish=publish)
         super().__init__(0, transport)
         if straggler_policy not in ("wait", "drop", "abort"):
             raise ValueError(f"unknown straggler_policy {straggler_policy!r}")
@@ -332,6 +326,17 @@ class FedAvgServerActor(ServerManager):
                 "exclusive: ActorKilled must escape the transport event "
                 "loop to reach the harness, and an ingest fold worker "
                 "thread has no path there")
+        if controller is not None and health is None:
+            raise ValueError(
+                "controller (--adaptive) requires the health observatory "
+                "(--health): its decisions are a pure function of the "
+                "per-round drift-alarm line")
+        self.perf = perf
+        self.health = health
+        self.controller = controller
+        # the round's root span (tracing on): broadcast and aggregate hang
+        # under it, the silos' recv/train/upload spans stitch in by header
+        self._round_span = None
         self.params = init_params
         self.device = next(iter(init_params.values())).device
         self.client_num_in_total = client_num_in_total
@@ -393,6 +398,7 @@ class FedAvgServerActor(ServerManager):
         self._h_quorum = reg.histogram(
             "fedml_round_quorum_size_total",
             buckets=(1, 2, 4, 8, 16, 32, 64, 128))
+        self._g_staged = reg.gauge("fedml_wire_staged_uploads_total")
         self._round_t0: Optional[float] = None
         self._first_upload_t: Optional[float] = None
 
@@ -537,8 +543,15 @@ class FedAvgServerActor(ServerManager):
         return rec
 
     def _sampled(self) -> np.ndarray:
+        per = self.client_num_per_round
+        if self.controller is not None:
+            # the adaptive cohort lever, capped at the configured cohort:
+            # the local backend builds exactly client_num_per_round silo
+            # actors, so cross_silo can never task a wider cohort
+            per = min(max(1, self.controller.cohort),
+                      self.client_num_per_round)
         return sample_clients(self.round_idx, self.client_num_in_total,
-                              self.client_num_per_round)
+                              per)
 
     def _host_params(self):
         """The global in the wire layout (nested numpy), one device-to-host
@@ -611,44 +624,72 @@ class FedAvgServerActor(ServerManager):
                         self.degrade.observe_completion(int(silo),
                                                         float(lat))
                     self.degrade.note_accept(int(silo))
+        if self.perf is not None:
+            # the ledger round opens HERE: broadcast serialize is its
+            # first phase, round_end closes it at the round's end
+            self.perf.round_start(self.round_idx)
+        if self._tracer is not None:
+            # one trace per round, rooted here: broadcast/recv/train/
+            # upload/aggregate all stitch under this trace id
+            self._round_span = self._tracer.start_span(
+                "round", parent=None, node=self.node_id,
+                trace_id=self._tracer.new_trace_id(
+                    f"round{self.round_idx}"),
+                round=self.round_idx)
         if self.stream_agg is not None:
             self.stream_agg.reset(self.params)
             if resume is not None:
                 # continue the crashed round's fold where its last durable
                 # snapshot left it (device <- host), and re-arm the fresh
                 # journal's round state so it keeps snapshotting
-                self.stream_agg.load_state_dict(resume.state)
-                self.journal.note_resume(self.round_idx, resume.folded,
-                                         global_crc=resume.global_crc)
+                with self._perf_phase("journal"):
+                    self.stream_agg.load_state_dict(resume.state)
+                    self.journal.note_resume(self.round_idx, resume.folded,
+                                             global_crc=resume.global_crc)
         host_params = self._host_params()
         if self.shard_wire is not None:
-            self.shard_wire.round_start(host_params)
+            with self._perf_phase("admission"):
+                self.shard_wire.round_start(host_params)
         if self.ingest is not None and self.ingest.has_arenas:
             # the round's screen reference into each shard arena: one
             # copy an arena a round
-            self.ingest.round_start(
-                list(self.shard_wire.broadcast_slices(host_params))
-                if self.shard_wire is not None else [host_params])
+            with self._perf_phase("admission"):
+                self.ingest.round_start(
+                    list(self.shard_wire.broadcast_slices(host_params))
+                    if self.shard_wire is not None else [host_params])
         if self.journal is not None and resume is None:
-            self.journal.round_start(
-                self.round_idx, mode=self._journal_mode(),
-                resumable=(self.secagg is None
-                           and self.stream_agg.method == "mean"),
-                global_crc=tree_crc(host_params),
-                expected=sorted(self._expected))
+            with self._perf_phase("journal"):
+                self.journal.round_start(
+                    self.round_idx, mode=self._journal_mode(),
+                    resumable=(self.secagg is None
+                               and self.stream_agg.method == "mean"),
+                    global_crc=tree_crc(host_params),
+                    expected=sorted(self._expected))
+        if self.health is not None:
+            # the health round opens against the host mirror the broadcast
+            # ships; silos excluded at broadcast tick their fairness
+            # counters without an upload
+            with self._perf_phase("health"):
+                self.health.round_start(self.round_idx, host_params,
+                                        expected=sorted(self._expected),
+                                        excluded=sorted(dead))
         extra = ({} if self._last_accepted is None
                  else {Message.ARG_ACCEPTED: self._last_accepted})
         if self.secagg is not None:
             # the sync frame carries the round's masking parameters, so
             # silos need no secure-aggregation configuration
-            self.secagg.round_start(self.round_idx, sorted(self._expected))
-            self._secagg_stage = "agreement"
-            self._secagg_agreement_laps = 0
-            extra[Message.ARG_SECAGG] = self.secagg.sync_info()
+            with self._perf_phase("mask_agreement"):
+                self.secagg.round_start(self.round_idx,
+                                        sorted(self._expected))
+                self._secagg_stage = "agreement"
+                self._secagg_agreement_laps = 0
+                extra[Message.ARG_SECAGG] = self.secagg.sync_info()
         receivers = sorted(cohort - dead - set(folded))
         per_silo = {silo: {Message.ARG_CLIENT_INDEX: int(ids[silo - 1])}
                     for silo in receivers}
-        with self._span("broadcast", round=self.round_idx):
+        with self._span("broadcast", parent=self._round_span,
+                        round=self.round_idx), \
+                self._perf_phase("broadcast_serialize"):
             if self.shard_wire is not None:
                 # one encode-once fan-out per shard; shard 0's frames carry
                 # the round metadata, the plan spec and each silo's client
@@ -799,9 +840,10 @@ class FedAvgServerActor(ServerManager):
         self._received.clear()
         self._last_accepted = np.asarray([], np.int32)
         if self.journal is not None:
-            self.journal.abandon(self.round_idx,
-                                 "partition: " + verdict.reason)
-        self._finish_round()
+            with self._perf_phase("journal"):
+                self.journal.abandon(self.round_idx,
+                                     "partition: " + verdict.reason)
+        self._finish_round(0)
 
     # -- health --------------------------------------------------------------
     def _beat(self, silo: int) -> None:
@@ -827,6 +869,9 @@ class FedAvgServerActor(ServerManager):
         self._beat(msg.sender_id)
         if not self._upload_guards(msg, check_inflight=True):
             return
+        # one wire arrival per upload frame (shard slices each count):
+        # the critical-path observatory's idle classifier keys on this
+        self._note_arrival()
         if self.ingest is not None:
             # pipelined: this thread only enqueues to the shard's fold
             # worker, which re-runs the guards under the ingest lock
@@ -865,7 +910,7 @@ class FedAvgServerActor(ServerManager):
             else:
                 arena = self.ingest.arena_for(0)
             if arena is not None:
-                with self._span("ingest:decode"):
+                with self._span("ingest:decode", deterministic=True):
                     pre = arena.stage_message(msg, Message.ARG_MODEL_PARAMS)
                     if pre is None:
                         # an in-process object message: stage the tree
@@ -954,11 +999,17 @@ class FedAvgServerActor(ServerManager):
                         msg.sender_id, handshake_err)
             self.admission.reject(msg.sender_id, self.round_idx,
                                   "fingerprint")
+            if self.health is not None:
+                with self._perf_phase("health"):
+                    self.health.observe_rejected(msg.sender_id,
+                                                 "fingerprint")
             self._note_upload(msg.sender_id, None)
             return
         if self.decode_upload is not None:
             try:
-                with self._span("ingest:decode"):
+                # the codec decode is its own micro-span and perf phase
+                with self._span("ingest:decode", deterministic=True), \
+                        self._perf_phase("decode"):
                     upload = self.decode_upload(upload, self._host_params())
             except Exception:  # noqa: BLE001 — damaged compressed frame
                 if self.admission is None:
@@ -972,18 +1023,37 @@ class FedAvgServerActor(ServerManager):
             # the staged tree, so its copy is the arena's one copy
             upload = pre.tree
         entry = (upload, msg.get(Message.ARG_NUM_SAMPLES))
+        upload_norm = None
         if self.admission is not None:
-            with self._span("ingest:admission"):
+            with self._span("ingest:admission", deterministic=True), \
+                    self._perf_phase("admission"):
                 verdict = self.admission.admit(
                     msg.sender_id, upload, msg.get(Message.ARG_NUM_SAMPLES),
                     self._host_params(), self.round_idx, pre=pre)
             if verdict.ok:
                 entry = (upload, verdict.num_samples)
+                # the screen's one norm pass is shared with health
+                upload_norm = verdict.norm
             else:
                 log.warning("round %d: rejecting upload from silo %d "
                             "(reason=%s)", self.round_idx, msg.sender_id,
                             verdict.reason)
                 entry = None
+                if self.health is not None:
+                    with self._perf_phase("health"):
+                        self.health.observe_rejected(msg.sender_id,
+                                                     verdict.reason)
+        if entry is not None and self.health is not None:
+            # the health stats fold at arrival, BEFORE the aggregation
+            # fold consumes or stages the upload
+            with self._perf_phase("health"):
+                # an edge frame carries its block's rollup beside the
+                # pre-reduced mean; the flat topology never sets it
+                edge_summary = msg.get(Message.ARG_HEALTH)
+                if edge_summary is not None:
+                    self.health.note_edge(msg.sender_id, edge_summary)
+                self.health.observe_admitted(msg.sender_id, entry[0],
+                                             entry[1], norm=upload_norm)
         self._note_upload(msg.sender_id, entry)
 
     def _on_shard_upload(self, msg: Message, pre=None) -> None:
@@ -999,7 +1069,8 @@ class FedAvgServerActor(ServerManager):
         payload = msg.get(Message.ARG_MODEL_PARAMS)
         if pre is not None and pre.structural_ok and pre.tree is not None:
             payload = pre.tree
-        with self._span("ingest:admission"):
+        with self._span("ingest:admission", deterministic=True), \
+                self._perf_phase("admission"):
             if shard is None:
                 log.warning("round %d: silo %d sent a whole-model upload on "
                             "the sharded wire; rejecting as structural "
@@ -1017,8 +1088,18 @@ class FedAvgServerActor(ServerManager):
             log.warning("round %d: rejecting sharded upload from silo %d "
                         "(reason=%s)", self.round_idx, silo,
                         info.get("reason"))
+            if self.health is not None:
+                with self._perf_phase("health"):
+                    self.health.observe_rejected(silo, info.get("reason"))
             self._note_upload(silo, None)
             return
+        if self.health is not None:
+            # the observatory reads the ASSEMBLED update (cosine and norm
+            # are whole-model quantities); the fold stays per shard
+            with self._perf_phase("health"):
+                self.health.observe_admitted(
+                    silo, self.shard_wire.join(info["slices"]),
+                    info["num_samples"], norm=info["norm"])
         self._note_upload(silo, (info["slices"], info["num_samples"]))
 
     # marker: the upload's bytes already live in the fold or the buffer
@@ -1042,7 +1123,8 @@ class FedAvgServerActor(ServerManager):
         if entry is not None and self.secagg is not None:
             # ring addition is the fold
             try:
-                with self._span("ingest:fold"):
+                with self._span("ingest:fold", deterministic=True), \
+                        self._perf_phase("fold"):
                     self.secagg.fold(silo, entry[0], entry[1])
             except SecAggError as e:
                 # an upload from outside the fixed roster: its masks
@@ -1053,12 +1135,21 @@ class FedAvgServerActor(ServerManager):
             else:
                 if self.journal is not None:
                     # metadata only: a secure round never snapshots
-                    self.journal.note_accept(self.round_idx, silo,
-                                             float(entry[1]),
-                                             extra=lat_extra)
+                    with self._span("ingest:journal", deterministic=True), \
+                            self._perf_phase("journal"):
+                        self.journal.note_accept(self.round_idx, silo,
+                                                 float(entry[1]),
+                                                 extra=lat_extra)
                 entry = (self._STAGED, entry[1])
         elif entry is not None:
-            with self._span("ingest:fold"):
+            span = phase = trace.NULL_CONTEXT
+            if self.stream_agg is not None or self.aggregate_fn is not None:
+                # the plain mean stages its slot untraced: the JAX
+                # package's plain mean keeps the upload to the close
+                span = self._span("ingest:fold", deterministic=True)
+                phase = self._perf_phase("fold" if self.stream_agg
+                                         is not None else "staging")
+            with span, phase:
                 if self.shard_wire is not None:
                     self.stream_agg.fold_slices(entry[0], entry[1])
                 elif self.stream_agg is not None:
@@ -1068,7 +1159,8 @@ class FedAvgServerActor(ServerManager):
             if self.journal is not None:
                 state_fn = (self.stream_agg.state_dict
                             if self.stream_agg.method == "mean" else None)
-                with self._span("ingest:journal"):
+                with self._span("ingest:journal", deterministic=True), \
+                        self._perf_phase("journal"):
                     self.journal.note_accept(self.round_idx, silo,
                                              float(entry[1]),
                                              extra=lat_extra,
@@ -1076,8 +1168,9 @@ class FedAvgServerActor(ServerManager):
             entry = (self._STAGED, entry[1])
         if entry is None and self.journal is not None:
             # reported but inadmissible: recorded, never folded
-            self.journal.note_accept(self.round_idx, silo, 0.0,
-                                     folded=False, reason="rejected")
+            with self._perf_phase("journal"):
+                self.journal.note_accept(self.round_idx, silo, 0.0,
+                                         folded=False, reason="rejected")
         if self.faultline is not None:
             # folded (or recorded), the report not yet banked
             self.faultline.maybe_crash("post_fold_pre_ack",
@@ -1117,6 +1210,7 @@ class FedAvgServerActor(ServerManager):
             buf[silo - 1].copy_(leaf)
         self._staged_silos.add(silo)
         self._staged_seen += 1
+        self._g_staged.set(len(self._staged_silos))
 
     def _staged_cohort(self) -> Dict[str, torch.Tensor]:
         """The static ``[cohort, ...]`` stack: slots of silos that did not
@@ -1146,6 +1240,9 @@ class FedAvgServerActor(ServerManager):
             self._h_round.observe(now - self._round_t0)
         if self._first_upload_t is not None:
             self._h_straggler.observe(now - self._first_upload_t)
+            if self.perf is not None:
+                self.perf.add_phase("straggler_wait",
+                                    now - self._first_upload_t)
         if self.round_idx in self.dropped_silos:
             self.dropped_silos[self.round_idx] = sorted(
                 set(self.dropped_silos[self.round_idx]))
@@ -1164,9 +1261,19 @@ class FedAvgServerActor(ServerManager):
             log.warning("round %d: no admissible masked uploads; the "
                         "global model is unchanged this round",
                         self.round_idx)
-            self._finish_round()
+            self._finish_round(0)
             return
-        with self._span("aggregate", round=self.round_idx):
+        defended = (self.aggregate_fn is not None
+                    or (self.stream_agg is not None
+                        and self.stream_agg.defended))
+        # the sharded spine's finalize has its own phase label, so a
+        # sharded round never compares against a replicated one
+        agg_phase = ("shard_finalize" if self.shard_wire is not None
+                     else "defended_aggregate" if defended
+                     else "aggregate")
+        with self._span("aggregate", parent=self._round_span,
+                        round=self.round_idx, quorum=len(admitted)), \
+                self._perf_phase(agg_phase):
             finalized = None
             if not admitted:
                 log.warning("round %d: no admissible uploads; the global "
@@ -1193,7 +1300,7 @@ class FedAvgServerActor(ServerManager):
                 self.params = (finalized if self.server_opt is None
                                else self.server_opt.apply(
                                    self.params, finalized, self.round_idx))
-        self._finish_round()
+        self._finish_round(len(admitted))
 
     # -- secure aggregation (secure/protocol.py) -----------------------------
     # a lost UNMASK/SHARES frame must not wedge the round: the request is
@@ -1210,15 +1317,18 @@ class FedAvgServerActor(ServerManager):
             log.info("discarding stale/late secagg advert from silo %d",
                      msg.sender_id)
             return
-        if self.secagg.note_advert(msg.sender_id,
-                                   msg.get(Message.ARG_SECAGG)):
+        with self._perf_phase("mask_agreement"):
+            complete = self.secagg.note_advert(msg.sender_id,
+                                               msg.get(Message.ARG_SECAGG))
+        if complete:
             self._send_rosters()
 
     def _send_rosters(self, subset=None) -> None:
         """Fix the roster and fan the roster frames out; silos that never
         advertised leave the roster and the barrier."""
         try:
-            rosters = self.secagg.flush_roster(subset)
+            with self._perf_phase("mask_agreement"):
+                rosters = self.secagg.flush_roster(subset)
         except SecAggError as e:
             # below the share threshold: keep waiting for adverts
             log.warning("round %d: cannot fix secagg roster yet (%s)",
@@ -1269,7 +1379,7 @@ class FedAvgServerActor(ServerManager):
                               self._secagg_agreement_laps - 1)
                     self._secagg_stage = None
                     self._timer.cancel()
-                    self._finish_round()
+                    self._finish_round(0)
             return
         self._arm_timer()  # wait policy (or below quorum): keep waiting
 
@@ -1283,7 +1393,8 @@ class FedAvgServerActor(ServerManager):
         self._arm_timer()
 
     def _send_unmask_request(self) -> None:
-        with self._span("ingest:unmask"):
+        with self._span("ingest:unmask", deterministic=True), \
+                self._perf_phase("unmask"):
             survivors, dead = self.secagg.unmask_request()
             if dead:
                 log.warning("round %d: reconstructing %d dead silo(s) %s "
@@ -1300,8 +1411,11 @@ class FedAvgServerActor(ServerManager):
         if msg.get(Message.ARG_ROUND) != self.round_idx \
                 or self._secagg_stage != "unmask":
             return
-        if self.secagg.note_reveal(msg.sender_id,
-                                   msg.get(Message.ARG_SECAGG)):
+        with self._span("ingest:unmask", deterministic=True), \
+                self._perf_phase("unmask"):
+            complete = self.secagg.note_reveal(msg.sender_id,
+                                               msg.get(Message.ARG_SECAGG))
+        if complete:
             self._finalize_secagg()
 
     def _secagg_unmask_timeout(self) -> None:
@@ -1317,7 +1431,7 @@ class FedAvgServerActor(ServerManager):
                       "%d request retries; abandoning the round",
                       self.round_idx, self._SECAGG_UNMASK_RETRIES)
             self._secagg_stage = None
-            self._finish_round()
+            self._finish_round(0)
             return
         log.warning("round %d: below the unmask share threshold; "
                     "re-requesting reveals (lap %d/%d)", self.round_idx,
@@ -1335,8 +1449,9 @@ class FedAvgServerActor(ServerManager):
                                        round_idx=self.round_idx)
         self._secagg_stage = None
         self._timer.cancel()
-        with self._span("aggregate", round=self.round_idx,
-                        quorum=self._secagg_quorum):
+        with self._span("aggregate", parent=self._round_span,
+                        round=self.round_idx, quorum=self._secagg_quorum), \
+                self._perf_phase("unmask"):
             try:
                 mean, _ = self.secagg.finalize(
                     reference=self._host_params())
@@ -1349,30 +1464,82 @@ class FedAvgServerActor(ServerManager):
                 self.params = {
                     k: as_tensor(v, self.device).to(self.params[k].dtype)
                     for k, v in flatten_nested(mean).items()}
-        self._finish_round()
+        self._finish_round(self._secagg_quorum if mean is not None else 0)
 
-    def _finish_round(self) -> None:
+    def _finish_round(self, quorum: int) -> None:
+        """The round-close tail shared by the plaintext barrier close and
+        the secure unmask completion: staging release, the health,
+        controller, checkpoint, journal and perf hooks, then the next
+        broadcast (or FINISH)."""
         # release the stack buffer; drop half-assembled straggler slices
         # so a late slice never splices into the next round
         self._staging = None
         self._staged_silos.clear()
+        self._g_staged.set(0)
         if self.shard_wire is not None:
             self.shard_wire.round_end()
+        if self._round_span is not None:
+            self._round_span.end()
+            self._round_span = None
+        if self.health is not None:
+            # the health round closes on the post-aggregate host mirror
+            # (shared with the checkpoint), BEFORE perf.round_end so the
+            # health phase lands in this round's ledger line
+            with self._perf_phase("health"):
+                self.health.round_end(self.round_idx,
+                                      new_global=self._host_params(),
+                                      quorum=quorum)
+        decision = None
+        if self.controller is not None:
+            # the verdict for the NEXT round, decided before the checkpoint
+            # so the controller's levers land in this round's boundary
+            kw = {}
+            if self.degrade is not None:
+                # the controller may widen on participation debt, but a
+                # shrink never fights the quorum floor
+                kw["debt"] = self.degrade.max_debt()
+                qf = self.degrade.quorum_for(self._num_silos)
+                if qf is not None:
+                    kw["quorum_floor"] = qf
+            decision = self.controller.decide(
+                self.round_idx,
+                self.health.last_line if self.health is not None else None,
+                **kw)
         if self.faultline is not None:
             # the aggregate is applied in memory, not yet durable
             self.faultline.maybe_crash("mid_checkpoint_write",
                                        round_idx=self.round_idx)
         if self.checkpointer is not None:
-            self.checkpointer.maybe_save(
-                self.round_idx,
-                lambda: self._checkpoint_state(self.round_idx),
-                last_round=self.round_idx + 1 >= self.num_rounds)
+            with self._perf_phase("checkpoint"):
+                self.checkpointer.maybe_save(
+                    self.round_idx,
+                    lambda: self._checkpoint_state(self.round_idx),
+                    last_round=self.round_idx + 1 >= self.num_rounds)
         if self.journal is not None:
             # after the checkpoint: a crash between the two leaves an open
             # round whose snapshot re-finalizes to the same global
-            self.journal.round_end(self.round_idx)
+            with self._perf_phase("journal"):
+                self.journal.round_end(self.round_idx)
         if self.faultline is not None:
             self.faultline.maybe_crash("publish", round_idx=self.round_idx)
+        if self.perf is not None:
+            # the ledger line closes BEFORE the eval hook: round_s is the
+            # server's own round cost.  A strict-mode RecompileError
+            # raises here, on the event loop, and fails the run loudly
+            extra = ({"shards": self.shard_wire.num_shards}
+                     if self.shard_wire is not None else {})
+            # the round's post-aggregate global CRC (the checksum the
+            # journal trusts): pipelined and inline twins compare it
+            extra["global_crc"] = tree_crc(self._host_params())
+            if self.server_opt is not None:
+                extra["server_opt"] = self.server_opt.name
+            if decision is not None:
+                extra["adapt"] = decision.as_ledger()
+            if self.degrade is not None:
+                extra["degrade"] = self.degrade.as_ledger()
+            self.perf.round_end(self.round_idx, quorum=quorum,
+                                dropped=len(self.dropped_silos.get(
+                                    self.round_idx, [])), **extra)
         if self.on_round_done is not None:
             self.on_round_done(self.round_idx, self.params)
         self.round_idx += 1
@@ -1476,7 +1643,10 @@ class FedAvgClientActor(ClientManager):
     def _train(self, params, client_idx, round_idx, host: bool = True):
         """Train on the nested wire tree; the result in the wire layout
         (``host=False``: leaves left where the trainer put them)."""
-        with self._span("train", round=round_idx, client=client_idx):
+        # deterministic span ids: a chaos-duplicated sync re-trains, but
+        # its train/upload spans collapse onto the first delivery's
+        with self._span("train", deterministic=True, round=round_idx,
+                        client=client_idx):
             new_params, num_samples = self.train_fn(
                 flatten_nested(params), client_idx, round_idx)
         tree = nest({k: new_params[k] for k in tree_keys(new_params)})
@@ -1516,7 +1686,7 @@ class FedAvgClientActor(ClientManager):
             params, msg.get(Message.ARG_CLIENT_INDEX), round_idx)
         if self.encode_upload is not None:
             upload = self.encode_upload(upload, params)
-        with self._span("upload", round=round_idx):
+        with self._span("upload", deterministic=True, round=round_idx):
             self.send(MsgType.C2S_MODEL, self.server_id,
                       **{Message.ARG_MODEL_PARAMS: upload,
                          Message.ARG_NUM_SAMPLES: int(num_samples),
@@ -1549,7 +1719,7 @@ class FedAvgClientActor(ClientManager):
         upload, num_samples = self._train(params, meta.get("client_idx"),
                                           round_idx)
         slices = self._shard_rx.split_upload(upload)
-        with self._span("upload", round=round_idx):
+        with self._span("upload", deterministic=True, round=round_idx):
             for s, sl in enumerate(slices):
                 self.send(MsgType.C2S_MODEL, self.server_id,
                           **{Message.ARG_MODEL_PARAMS: sl,
@@ -1572,10 +1742,9 @@ class FedAvgClientActor(ClientManager):
         round_idx, update, num_samples = self._pending_upload
         if not self.secagg.has_roster(round_idx):
             return
-        with self._span("mask", round=round_idx):
-            masked = self.secagg.mask(round_idx, update, num_samples)
+        masked = self.secagg.mask(round_idx, update, num_samples)
         self._pending_upload = None
-        with self._span("upload", round=round_idx):
+        with self._span("upload", deterministic=True, round=round_idx):
             self.send(MsgType.C2S_MODEL, self.server_id,
                       **{Message.ARG_MODEL_PARAMS: masked,
                          Message.ARG_NUM_SAMPLES: int(num_samples),

@@ -202,18 +202,17 @@ class EdgeAggregatorActor:
     ``timeout_s``: the edge's straggler bound, after which it flushes
     what folded.  ``secagg``: the block's `SecAggServer` (exclusive with
     ``stream_agg``).  ``journal``/``faultline``: the edge's round journal
-    and crash points.  ``health`` is refused by name (ROADMAP Queue 1
-    item 9)."""
+    and crash points.  ``health``: a statistics-only
+    `obs.health.HealthAccumulator` (``alarms=False``: the root owns the
+    verdicts); the edge folds its silos' learning-health statistics and
+    ships the block's compact rollup inside its round frame
+    (``Message.ARG_HEALTH``)."""
 
     def __init__(self, node_id: int, transport, silos: Dict[int, int],
                  cohort_total: int, client_num_in_total: int,
                  stream_agg, admission=None, root_id: int = 0,
                  timeout_s: Optional[float] = None, health=None,
                  secagg=None, journal=None, faultline=None):
-        if health is not None:
-            raise NotImplementedError(
-                "EdgeAggregatorActor(health=...) is not ported yet: it "
-                "needs obs/health.py (ROADMAP Queue 1 item 9)")
         if (secagg is None) == (stream_agg is None):
             raise ValueError("EdgeAggregatorActor needs exactly one of "
                              "stream_agg (plaintext fold) or secagg "
@@ -221,6 +220,7 @@ class EdgeAggregatorActor:
         self.secagg = secagg
         self.journal = journal
         self.faultline = faultline
+        self.health = health
         self._mgr = _EdgeManager(self, node_id, transport)
         self.node_id = node_id
         self.silos = dict(silos)
@@ -289,6 +289,12 @@ class EdgeAggregatorActor:
         self._received = {int(s) for s, _, _ in rec.folded}
         self.journal.note_resume(rec.round_idx, rec.folded,
                                  global_crc=rec.global_crc)
+        if self.health is not None:
+            # health is soft state: the recovery round reopens with the
+            # fairness denominator intact; the folded silos' payload
+            # statistics are gone with the process
+            self.health.round_start(rec.round_idx, self._round_params,
+                                    expected=sorted(self.silos))
         per_silo = self._per_silo(rec.round_idx, skip=self._received)
         logger.warning("edge %d: resuming round %d mid-round — %d fold(s) "
                        "restored, re-syncing silos %s", self.node_id,
@@ -336,6 +342,9 @@ class EdgeAggregatorActor:
             shared_extra[Message.ARG_SECAGG] = self.secagg.sync_info()
         else:
             self.stream_agg.reset(flatten_nested(params))
+        if self.health is not None:
+            self.health.round_start(round_idx, params,
+                                    expected=sorted(self.silos))
         per_silo = self._per_silo(round_idx)
         self._mgr.send_many(
             msg.type, sorted(per_silo),
@@ -453,6 +462,8 @@ class EdgeAggregatorActor:
         if self.journal is not None:
             self.journal.abandon(self.round_idx, why)
             self.journal.round_end(self.round_idx)
+        if self.health is not None:
+            self.health.round_end(self.round_idx)
 
     def _on_upload(self, msg) -> None:
         if msg.sender_id not in self.silos:
@@ -474,6 +485,7 @@ class EdgeAggregatorActor:
         self._received.add(msg.sender_id)
         upload = msg.get(Message.ARG_MODEL_PARAMS)
         num_samples = msg.get(Message.ARG_NUM_SAMPLES)
+        upload_norm = None
         if self.admission is not None:
             verdict = self.admission.admit(
                 msg.sender_id, upload, num_samples,
@@ -483,10 +495,20 @@ class EdgeAggregatorActor:
                                "silo %d (reason=%s)", self.node_id,
                                self.round_idx, msg.sender_id,
                                verdict.reason)
+                if self.health is not None:
+                    self.health.observe_rejected(msg.sender_id,
+                                                 verdict.reason)
                 num_samples = None
             else:
                 num_samples = verdict.num_samples
+                upload_norm = verdict.norm
         if num_samples is not None:
+            if self.health is not None:
+                # health folds before the aggregation fold consumes the
+                # upload (payload statistics suppressed under masking)
+                self.health.observe_admitted(msg.sender_id, upload,
+                                             float(num_samples),
+                                             norm=upload_norm)
             if self.faultline is not None:
                 self.faultline.maybe_crash("post_admission_pre_fold",
                                            round_idx=self.round_idx,
@@ -556,6 +578,9 @@ class EdgeAggregatorActor:
                            "reporting", self.node_id, self.round_idx)
             if self.journal is not None:
                 self.journal.round_end(self.round_idx)
+            if self.health is not None:
+                # the fairness ledger still records who never showed
+                self.health.round_end(self.round_idx)
             return
         mean = to_host(nest(self.stream_agg.finalize(self.round_idx)))
         self._ship(mean, self.stream_agg.weight_total, self.stream_agg.count)
@@ -565,12 +590,20 @@ class EdgeAggregatorActor:
         total and the fold count."""
         self._flushed = True
         self._c_flush.inc()
+        extra = {}
+        if self.health is not None:
+            # closed on the edge's own mean: its global_delta_norm says
+            # how far this block moved off the broadcast global
+            self.health.round_end(self.round_idx, new_global=mean)
+            summary = self.health.round_summary()
+            if summary is not None:
+                extra[Message.ARG_HEALTH] = summary
         self._mgr.send(
             MsgType.C2S_MODEL, self.root_id,
             **{Message.ARG_MODEL_PARAMS: mean,
                Message.ARG_NUM_SAMPLES: float(weight_total),
                Message.ARG_ROUND: self.round_idx,
-               Message.ARG_EDGE_COUNT: int(count)})
+               Message.ARG_EDGE_COUNT: int(count), **extra})
         if self.journal is not None:
             # after the send: a crash between the two re-ships, and the
             # root's duplicate guard discards the second frame

@@ -4,26 +4,26 @@ The port's copy of ``fedml_tpu/comm/actors.py`` (the reference's
 ``ClientManager`` and ``ServerManager``: an event loop plus a
 message-type → handler registry, over an injected transport).
 
-Span tracing (``obs/trace.py`` in the JAX package) is not ported yet:
-``_span`` and ``_root_span`` are null contexts, and no trace fields go on
-the wire — what the JAX package sends with tracing disabled.
+Tracing (``obs/trace.py``): with the process tracer enabled, a send
+inside an active span stamps its context under the ``_trace`` header
+param (JAX's ``{"t", "s", "m"}``), and an inbound message carrying one is
+handled under a ``recv:<type>`` child span with a deterministic id, so a
+federation of JAX and port nodes stitches one trace.  Disabled, every
+path is one branch and the frames are byte-equal to JAX's.
 """
 
 from __future__ import annotations
 
 import abc
-import contextlib
 import logging
 import threading
 from typing import Callable, Dict
 
 from fedml_tpu_torch.comm.message import Message, build_fanout
 from fedml_tpu_torch.comm.transport import Transport
-from fedml_tpu_torch.obs import telemetry
+from fedml_tpu_torch.obs import telemetry, trace
 
 log = logging.getLogger(__name__)
-
-NULL_CONTEXT = contextlib.nullcontext()
 
 
 class SelfMessageTimer:
@@ -85,21 +85,42 @@ class SelfMessageTimer:
 
 
 class NodeManager(abc.ABC):
-    """Event-loop node with a message-type → handler registry."""
+    """Event-loop node with a message-type → handler registry.
+
+    Tracing: when the process tracer is enabled, every ``send()`` inside
+    an active span stamps the span's context onto the message, and every
+    inbound message CARRYING a context is handled under a
+    ``recv:<type>`` child span — one federated round stitches into a
+    single cross-node trace with no per-algorithm code.  Handler spans
+    use deterministic ids, so a chaotic wire delivering a frame twice
+    collapses to one span.  Disabled (``_tracer is None``) both paths are
+    a single branch."""
 
     def __init__(self, node_id: int, transport: Transport):
         self.node_id = node_id
         self.transport = transport
         self.transport.add_observer(self)
         self._handlers: Dict[object, Callable[[Message], None]] = {}
+        self._tracer = trace.get_tracer()
         self._m_fanout = telemetry.get_registry().counter(
             "fedml_wire_fanout_total")
 
     def _span(self, name: str, **kw):
-        """A tracing span; the null context until tracing is ported."""
-        return NULL_CONTEXT
+        """A span context-manager on this node's track, or the SHARED
+        null context when tracing is disabled (the disabled branch
+        allocates nothing)."""
+        if self._tracer is None:
+            return trace.NULL_CONTEXT
+        return self._tracer.span(name, node=self.node_id, **kw)
 
-    _root_span = _span
+    def _root_span(self, name: str, hint: str = "", **kw):
+        """Like `_span` but starts a NEW trace (ignores any active span)
+        — for the spans that root a round/version/re-task tree."""
+        if self._tracer is None:
+            return trace.NULL_CONTEXT
+        return self._tracer.span(
+            name, parent=None, node=self.node_id,
+            trace_id=self._tracer.new_trace_id(hint or name), **kw)
 
     def register_handler(self, msg_type, fn: Callable[[Message], None]) -> None:
         self._handlers[msg_type] = fn
@@ -114,6 +135,16 @@ class NodeManager(abc.ABC):
             log.warning("node %d: no handler for message type %r",
                         self.node_id, msg_type)
             return
+        if self._tracer is not None:
+            ctx = trace.extract(msg)
+            if ctx is not None:
+                # deterministic id: a duplicated delivery of the same frame
+                # re-runs the handler but records only one span
+                with self._tracer.span(f"recv:{msg_type}", parent=ctx,
+                                       node=self.node_id,
+                                       deterministic=True):
+                    handler(msg)
+                return
         handler(msg)
 
     def run(self) -> None:
@@ -124,15 +155,25 @@ class NodeManager(abc.ABC):
         msg = Message(msg_type, self.node_id, receiver_id)
         for k, v in params.items():
             msg.add(k, v)
+        if self._tracer is not None:
+            ctx = self._tracer.current_context()
+            if ctx is not None:
+                trace.inject(msg, ctx)
         self.transport.send_message(msg)
 
     def send_many(self, msg_type, receivers, shared_params=None,
                   per_receiver_params=None) -> None:
         """Encode-once fan-out: serialize ``shared_params`` a single time
         and deliver one message per receiver, varying only the small
-        per-receiver header (``per_receiver_params[r]``)."""
+        per-receiver header (``per_receiver_params[r]``).  The trace
+        context rides each receiver's own header."""
         messages = build_fanout(msg_type, self.node_id, receivers,
                                 shared_params, per_receiver_params)
+        if self._tracer is not None:
+            ctx = self._tracer.current_context()
+            if ctx is not None:
+                for msg in messages:
+                    trace.inject(msg, ctx)
         self._m_fanout.inc(len(messages))
         self.transport.send_many(messages)
 
@@ -146,3 +187,20 @@ class ClientManager(NodeManager):
 
 class ServerManager(NodeManager):
     """Cross-silo server actor (reference ServerManager)."""
+
+    #: optional `obs.perf.PerfRecorder` — subclasses accepting a ``perf=``
+    #: parameter assign it; `_perf_phase` is the shared span helper
+    perf = None
+
+    def _perf_phase(self, name: str):
+        """Flight-recorder phase span (the shared null context when no
+        recorder — one branch, zero allocations)."""
+        if self.perf is not None:
+            return self.perf.phase(name)
+        return trace.NULL_CONTEXT
+
+    def _note_arrival(self) -> None:
+        """Stamp one upload arrival on the round's critical-path
+        timeline (one branch when the recorder is off)."""
+        if self.perf is not None:
+            self.perf.note_arrival()

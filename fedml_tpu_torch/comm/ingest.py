@@ -36,10 +36,11 @@ module moves everything heavier than header validation off it.
 
 The arena's f32 device norm can give a different norm-outlier verdict
 than the inline host f64 screen for an upload at the exact threshold;
-the JAX package's arena has the same property.  The queue gauges of the
-JAX package (`obs/critical_path.IngestGauges`) and the arena's compile
-ledger (``perf=``) belong to the observability item (ROADMAP Queue 1
-item 9); ``perf`` is refused by name.
+the JAX package's arena has the same property.  The queues feed the
+``fedml_ingest_*`` gauges (`obs.critical_path.IngestGauges`), and
+``IngestArena(perf=)`` puts the arena's screen in the perf recorder's
+compile ledger as ``<name>_screen`` (the JAX package's split jit has no
+twin here: the staged leaves are views).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import torch
 
 from fedml_tpu_torch.comm.message import _flatten_arrays, _unflatten_arrays
 from fedml_tpu_torch.obs import telemetry
+from fedml_tpu_torch.obs.critical_path import IngestGauges
 
 log = logging.getLogger(__name__)
 
@@ -96,14 +98,12 @@ class IngestArena:
     (the current global for ``kind="params"`` norms; None keeps zeros,
     the ``kind="delta"`` norm).  ``stage_message(msg, key)`` /
     ``stage_tree(tree)`` gather, ship and screen one upload.  ``copies``
-    counts the host-to-device copies of staged uploads."""
+    counts the host-to-device copies of staged uploads.  ``perf``: an
+    `obs.perf.PerfRecorder`; the screen lands in its compile ledger as
+    ``<name>_screen`` (one entry, in the first round)."""
 
     def __init__(self, template, *, device="cpu", name: str = "ingest",
                  perf=None):
-        if perf is not None:
-            raise NotImplementedError(
-                "IngestArena(perf=...) is not ported yet: the compile "
-                "ledger is obs/perf.py (ROADMAP Queue 1 item 9)")
         self.name = name
         self.device = torch.device(device)
         leaves, spec = _flatten_arrays(template)
@@ -136,6 +136,12 @@ class IngestArena:
         self._stream = torch.cuda.Stream(self.device) if cuda else None
         self._copied = None   # event recorded after the last upload copy
         self._ref_ready = None  # event recorded after the reference copy
+        if perf is not None:
+            from fedml_tpu_torch.obs.device import kernel_flops
+            n = self.n_padded
+            self._stage_views = perf.instrument_jit(
+                f"{name}_screen", self._stage_views,
+                flops=lambda views: kernel_flops("arena_screen", d=n))
 
     # -- round lifecycle -----------------------------------------------------
     def round_start(self, reference=None) -> None:
@@ -281,6 +287,7 @@ class IngestPipeline:
         self.num_shards = num_shards
         self.depth = depth
         reg = registry if registry is not None else telemetry.get_registry()
+        self._gauges = IngestGauges(reg)
         self._c_dead = reg.counter("fedml_comm_dead_letter_total",
                                    reason=OVERFLOW_REASON)
         self.overflows = 0
@@ -340,6 +347,7 @@ class IngestPipeline:
             self._queues[shard].put_nowait(task)
         except queue.Full:
             self.overflows += 1
+            self._gauges.note_overflow(shard)
             self._c_dead.inc()
             log.warning("ingest queue %d full (depth %d): dead-lettering "
                         "%s as a network fault", shard, self.depth,
@@ -347,6 +355,7 @@ class IngestPipeline:
             if self._fault_feed is not None:
                 self._fault_feed(OVERFLOW_REASON, detail)
             return False
+        self._gauges.note_enqueued(self._queues[shard].qsize())
         return True
 
     def submit_wait(self, shard: int, task: Callable[[], None]) -> None:
@@ -355,6 +364,7 @@ class IngestPipeline:
         self._check_shard(shard)
         self._raise_unhandled()
         self._queues[shard].put(task)
+        self._gauges.note_enqueued(self._queues[shard].qsize())
 
     def _check_shard(self, shard: int) -> None:
         if not 0 <= shard < self.num_shards:
@@ -378,6 +388,7 @@ class IngestPipeline:
             finally:
                 with self._lock:
                     self._processed += 1
+                self._gauges.note_depth(q.qsize())
                 q.task_done()
 
     # -- barrier / lifecycle -------------------------------------------------

@@ -151,6 +151,12 @@ class StreamingAggregator:
     ``template`` fixes the leaf set and the device (``device`` overrides
     it); ``norm_clip > 0`` clips each upload against the round's
     reference, ``noise_std > 0`` noises the finalize.
+
+    ``sentry``/``device_obs``: the perf recorder's `RecompileSentry` and
+    `obs.device.DeviceRecorder`; with the recorder the per-upload fold
+    and the finalize are instrumented as ``stream_fold[method]`` and
+    ``stream_finalize[method]`` (compile ledger, FLOPs from the work
+    table), their signatures noted under ``stream_agg[method]``.
     """
 
     def __init__(self, template: Tree, *, method: str = "mean",
@@ -159,7 +165,7 @@ class StreamingAggregator:
                  reservoir_k: int = 64, trim_frac: float = 0.1,
                  byz_f: int = 0, krum_m: int = 1, gm_iters: int = 8,
                  gm_eps: float = 1e-6, is_weight=default_is_weight_param,
-                 device=None):
+                 device=None, sentry=None, device_obs=None):
         from fedml_tpu_torch.robust.defense import make_defended_aggregate
         if method not in ROBUST_AGG_METHODS:
             raise ValueError(f"unknown streaming aggregation method "
@@ -207,6 +213,25 @@ class StreamingAggregator:
         self._res_stack: Optional[Tree] = None
         self._res_weights: Optional[np.ndarray] = None
         self._res_rng = np.random.RandomState(seed)
+        self._fold_fn = self._fold_one
+        self._finalize_fn = (self._finalize_mean if self._rule is None
+                             else self._rule)
+        if device_obs is not None:
+            from fedml_tpu_torch.obs.device import kernel_flops
+            d = sum(int(v.numel()) if isinstance(v, torch.Tensor)
+                    else int(np.size(v)) for v in template.values())
+            family = f"stream_agg[{method}]"
+            clip = norm_clip > 0
+            self._fold_fn = device_obs.instrument(
+                f"stream_fold[{method}]", self._fold_one, sentry=sentry,
+                sentry_name=family,
+                flops=lambda *a: kernel_flops("stream_fold", d=d, clip=clip))
+            self._finalize_fn = device_obs.instrument(
+                f"stream_finalize[{method}]", self._finalize_fn,
+                sentry=sentry, sentry_name=family,
+                flops=(None if self._rule is not None else
+                       lambda *a: kernel_flops("stream_finalize", d=d,
+                                               sigma=noise_std)))
 
     @property
     def reference(self) -> Optional[Tree]:
@@ -274,7 +299,7 @@ class StreamingAggregator:
             return
         upload = self._on_device(upload)
         self._ensure_acc()
-        self._fold_one(upload, weight)
+        self._fold_fn(upload, weight)
         self._c_folds.inc()
         self.count += 1
         self.weight_total += float(weight)
@@ -316,7 +341,7 @@ class StreamingAggregator:
         w_host = np.asarray(weights, np.float32)
         self._ensure_acc()
         for i, w in enumerate(w_host):
-            self._fold_one({k: v[i] for k, v in stacked.items()}, w)
+            self._fold_fn({k: v[i] for k, v in stacked.items()}, w)
         live = int((w_host > 0).sum())
         self._c_folds.inc(live)
         self.count += live
@@ -332,17 +357,23 @@ class StreamingAggregator:
                                "round")
         t0 = time.perf_counter()
         if self._rule is not None:
-            out = self._rule(self._reference, self._res_stack,
-                             self._res_weights.copy(), step)
+            out = self._finalize_fn(self._reference, self._res_stack,
+                                    self._res_weights.copy(), step)
             self._h_finalize.observe(time.perf_counter() - t0)
             return out
-        out = divide(self._acc, float(self._wsum), self._reference)
+        out = self._finalize_fn(self._acc, float(self._wsum),
+                                self._reference, step)
+        self._acc = None
+        self._h_finalize.observe(time.perf_counter() - t0)
+        return out
+
+    def _finalize_mean(self, acc: Tree, wsum: float, reference: Tree,
+                       step: int) -> Tree:
+        out = divide(acc, wsum, reference)
         if self.noise_std > 0:
             out = add_gaussian_noise(
                 out, noise_generator(self.seed, step, self.device),
                 self.noise_std)
-        self._acc = None
-        self._h_finalize.observe(time.perf_counter() - t0)
         return out
 
     def state_dict(self, include_reference: bool = False

@@ -136,9 +136,15 @@ class ExperimentConfig:
     async_server_lr: float = 1.0         # server step on the mean
     # options of the JAX package that are refused by name
     serve_port: int = 0
-    health: bool = False
-    adaptive: bool = False
     mesh_stages: int = 0
+    # the health-driven adaptive round controller (server_opt/
+    # controller.py): steers the cohort from the health observatory's
+    # drift alarms, every decision named on the perf-ledger line.
+    # Requires --health
+    adaptive: bool = False
+    adapt_min_cohort: int = 2            # adaptive: cohort backoff floor
+    adapt_patience: int = 2              # adaptive: calm rounds before
+    #                                      levers decay back to baseline
 
     # the stateful cohort algorithms
     server_optimizer: str = "sgd"        # fedopt: sgd|adam|adagrad|adamw|
@@ -178,7 +184,37 @@ class ExperimentConfig:
     client_axis: str = "vmap"            # "vmap" | "scan"
     eval_chunk_clients: int = 1024       # evaluate_global clients per call
     platform: Optional[str] = None       # None/"gpu" -> cuda; "cpu"
+    # observability (obs/): the live paths (cross_silo, async_fl,
+    # cross_device) record; ledgers land in run_dir unless given
     run_dir: Optional[str] = None        # metrics.jsonl + summary.json here
+    metrics_dir: Optional[str] = None    # alias for --run_dir (wins when
+    #                                      both are given)
+    profile_dir: Optional[str] = None    # torch.profiler Chrome trace dir
+    trace_dir: Optional[str] = None      # round spans (Perfetto
+    #                                      trace_event JSON, one file per
+    #                                      process)
+    telemetry: bool = False              # the metric registry; snapshot at
+    #                                      run_dir/telemetry.{json,prom}
+    prom_port: int = 0                   # >0: live Prometheus text at
+    #                                      :port/metrics (implies telemetry)
+    metrics_port: int = 0                # alias for --prom_port
+    perf: bool = False                   # the perf.jsonl flight recorder
+    perf_ledger: Optional[str] = None    # explicit ledger path (implies
+    #                                      --perf; default run_dir/perf.jsonl)
+    perf_strict: bool = False            # the recompile sentry raises
+    #                                      RecompileError (implies --perf)
+    device_obs: bool = False             # each perf line gains a device
+    #                                      section: memory watermarks, the
+    #                                      compile ledger, FLOPs and MFU
+    #                                      (implies --perf)
+    slo: str = ""                        # SLO threshold overrides,
+    #                                      "name=value,..." (obs/perf.
+    #                                      DEFAULT_SLOS, incl. the health_*
+    #                                      alarm thresholds)
+    health: bool = False                 # the learning-health observatory:
+    #                                      one health.jsonl line per round
+    health_ledger: Optional[str] = None  # explicit health ledger path
+    #                                      (implies --health)
     checkpoint_dir: Optional[str] = None  # round checkpoints + resume
     checkpoint_every: int = 10           # save every N rounds (and the last)
     checkpoint_async: bool = False       # write saves on a background thread

@@ -69,6 +69,19 @@ hierarchical`` the two-tier simulation (``--group_num``,
         --client_num_per_round 10 --async_goal 5 --agg_mode stream \\
         --norm_clip 5.0 --batch_size 20 --lr 0.1 --comm_round 6
 
+The live paths (``cross_silo``, ``async_fl``, ``cross_device``) take the
+observability flags: ``--perf`` (one ``perf.jsonl`` line a round in
+``--run_dir``, or at ``--perf_ledger``), ``--perf_strict`` (a re-capture
+or rebuild after round 0 raises), ``--device_obs`` (each line's device
+section: memory, the compile ledger, FLOPs and MFU against the card's
+peak), ``--health`` (``health.jsonl``), ``--slo "name=value,..."``,
+``--adaptive true`` (needs ``--health``), ``--telemetry true``
+(``telemetry.{json,prom}``; ``--prom_port`` serves ``/metrics``),
+``--trace_dir`` (the round spans as Perfetto JSON) and, on every
+algorithm, ``--profile_dir`` (a ``torch.profiler`` Chrome trace);
+``python -m fedml_tpu_torch.obs.report --run_dir DIR --trace_dir DIR``
+renders them.
+
 ``--silo_backend grpc`` runs one node per process:
 
     python -m fedml_tpu_torch --algo cross_silo --silo_backend grpc \\
@@ -260,7 +273,11 @@ def run_cross_device(cfg, data, sink):
     seeded sampler picks the round's clients, static waves train on the
     card and fold into the streaming mean at wave completion."""
     algo = cross_device_algo(cfg, data, sink)
-    return _run_with_checkpoints(cfg, algo)
+    try:
+        return _run_with_checkpoints(cfg, algo)
+    finally:
+        if algo.perf is not None:
+            algo.perf.close()   # join the RSS sampler thread
 
 
 def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
@@ -272,11 +289,20 @@ def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
     from fedml_tpu_torch.algorithms.cross_device import (CrossDevice,
                                                          CrossDeviceConfig)
     wl = _make_workload(cfg, data)
+    perf = make_perf(cfg, resolve_device(cfg.platform))
     server_opt = None
     if cfg.server_opt != "plain":
         server_opt = make_server_opt(cfg, wl.init(
             torch.Generator().manual_seed(cfg.seed),
-            resolve_device(cfg.platform)))
+            resolve_device(cfg.platform)), perf=perf)
+    # wave summaries are params-like trees: norms and alignment read
+    # them against the round's global
+    health = make_health(cfg, "params")
+    # the cohort lever widens up to the population; epochs and the wave
+    # width stay pinned (static shapes of the wave program)
+    controller = make_controller(
+        cfg, cohort=cfg.client_num_per_round, epochs=cfg.epochs,
+        wave_size=cfg.wave_size, max_cohort=data.client_num)
     return CrossDevice(
         wl, data, CrossDeviceConfig(
             wave_size=cfg.wave_size, local_alg=cfg.local_alg,
@@ -290,7 +316,8 @@ def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
         sink=sink, device=cfg.platform, server_opt=server_opt,
         # submit_wait cannot overflow (backpressure paces the waves), so
         # no fault feed is wired
-        ingest=make_ingest(cfg, None))
+        ingest=make_ingest(cfg, None), perf=perf, health=health,
+        slo=make_slo(cfg), controller=controller)
 
 
 @runner("centralized")
@@ -371,7 +398,8 @@ def run_turboaggregate(cfg, data, sink):
     return _summary(algo, algo.run())
 
 
-def _silo_training_setup(cfg, data, wl, device, init_params=None):
+def _silo_training_setup(cfg, data, wl, device, init_params=None,
+                         perf=None):
     """The initial global and the per-silo ``train_fn(params, client_idx,
     round_idx)`` factory ``make_train_fn(silo_id, shard_transform=None)``:
     each silo trains its sampled client's shard on ``device`` with the
@@ -381,9 +409,14 @@ def _silo_training_setup(cfg, data, wl, device, init_params=None):
 
     Each silo gets a workload of its own: ``functional_call`` swaps the
     parameters of the module it is given in place, so silos training on
-    their own threads (the threaded drive) must not share one module."""
+    their own threads (the threaded drive) must not share one module.
+
+    ``perf``: the perf recorder; each silo's trainer registers as
+    ``train_fn`` (the device observatory counts its FLOPs on the first
+    call), inside the trainer telemetry of ``--telemetry``."""
     from fedml_tpu_torch.core.pytree import as_tensor
-    from fedml_tpu_torch.trainer.local_sgd import make_local_trainer
+    from fedml_tpu_torch.trainer.local_sgd import (instrument_train_fn,
+                                                   make_local_trainer)
     from fedml_tpu_torch.trainer.workload import make_client_optimizer
 
     def make_train_fn(silo_id, shard_transform=None):
@@ -391,6 +424,9 @@ def _silo_training_setup(cfg, data, wl, device, init_params=None):
             _make_workload(cfg, data),
             make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd),
             cfg.epochs)
+        if perf is not None:
+            local = perf.instrument_jit("train_fn", local)
+        local = instrument_train_fn(local, epochs=cfg.epochs)
 
         # the CNN has no dropout, so the silo's key of the JAX chain
         # (`silo_key`) has nothing to seed.  shard_transform(shard,
@@ -423,14 +459,17 @@ def silo_key(seed: int, round_idx: int, silo_id: int):
     return prng.fold_in(next(keys), silo_id - 1)
 
 
-def _robust_setup(cfg: ExperimentConfig, template, kind: str = "params"):
+def _robust_setup(cfg: ExperimentConfig, template, kind: str = "params",
+                  perf=None):
     """The replicated path's admission pipeline (``--admission auto`` arms
     it whenever a defense flag is set) and aggregation: ``(admission,
     defended, stream)``.  ``--agg_mode stream`` gives a streaming fold
     (the mean, or a rule over its reservoir); stack mode gives the
     defended aggregate over the staged cohort when a defense flag is set,
     else None (the plain weighted mean).  ``kind="delta"``: async uploads
-    are deltas, screened by their own norm and clipped against zero."""
+    are deltas, screened by their own norm and clipped against zero.
+    ``perf``: the perf recorder, whose sentry and device observatory the
+    fold or the defended aggregate report to."""
     from fedml_tpu_torch.core.pytree import nest, to_host
     from fedml_tpu_torch.core.stream_agg import StreamingAggregator
     from fedml_tpu_torch.robust import AdmissionPipeline
@@ -450,11 +489,15 @@ def _robust_setup(cfg: ExperimentConfig, template, kind: str = "params"):
                 gm_iters=cfg.gm_iters, gm_eps=cfg.gm_eps,
                 norm_clip=cfg.norm_clip, noise_std=cfg.agg_noise_std,
                 seed=cfg.seed)
+    sentry = perf.sentry if perf is not None else None
+    device = perf.device if perf is not None else None
     if cfg.agg_mode == "stream":
         return admission, None, StreamingAggregator(
             template, method=cfg.robust_agg, kind=kind,
-            reservoir_k=cfg.stream_reservoir, **rule)
-    defended = (make_defended_aggregate(cfg.robust_agg, **rule)
+            reservoir_k=cfg.stream_reservoir, sentry=sentry,
+            device_obs=device, **rule)
+    defended = (make_defended_aggregate(cfg.robust_agg, sentry=sentry,
+                                        device=device, **rule)
                 if robust_on else None)
     return admission, defended, None
 
@@ -522,9 +565,10 @@ def make_journal(cfg: ExperimentConfig, subdir: Optional[str] = None):
                         node=subdir or f"node{cfg.node_id}")
 
 
-def make_server_opt(cfg: ExperimentConfig, template, plan=None):
+def make_server_opt(cfg: ExperimentConfig, template, plan=None, perf=None):
     """The live server-optimizer seam; ``plain`` gives None (the actor
-    then assigns the finalize verbatim)."""
+    then assigns the finalize verbatim).  ``perf``: the perf recorder,
+    which ledgers the step."""
     if cfg.server_opt == "plain":
         return None
     from fedml_tpu_torch.server_opt import ServerOptimizer
@@ -534,7 +578,79 @@ def make_server_opt(cfg: ExperimentConfig, template, plan=None):
         beta2=cfg.server_adam_beta2, eps=cfg.server_adam_eps,
         fedac_mu=cfg.fedac_mu, fedac_gamma=cfg.fedac_gamma,
         fedac_alpha=cfg.fedac_alpha, fedac_beta=cfg.fedac_beta,
-        local_steps=cfg.epochs, plan=plan)
+        local_steps=cfg.epochs, plan=plan,
+        sentry=perf.sentry if perf is not None else None,
+        device=perf.device if perf is not None else None)
+
+
+def make_perf(cfg: ExperimentConfig, device):
+    """The perf flight recorder (`obs.perf`) of a live run: one
+    ``perf.jsonl`` line a round at ``--perf_ledger`` (or
+    ``run_dir/perf.jsonl``).  ``--perf_strict`` and ``--device_obs``
+    imply it.  Only the server node records (a gRPC silo returns None);
+    the runner owns ``close()``."""
+    if not (cfg.perf or cfg.perf_ledger or cfg.perf_strict
+            or cfg.device_obs):
+        return None
+    if cfg.silo_backend != "local" and cfg.node_id != 0:
+        return None
+    import os
+    from fedml_tpu_torch.obs import DeviceRecorder, PerfRecorder
+    path = cfg.perf_ledger or os.path.join(
+        cfg.metrics_dir or cfg.run_dir or ".", "perf.jsonl")
+    return PerfRecorder(
+        path, node=f"node{cfg.node_id}", strict_recompiles=cfg.perf_strict,
+        device=DeviceRecorder(device=device) if cfg.device_obs else None)
+
+
+def make_health(cfg: ExperimentConfig, kind: str, suppress_payload=None):
+    """The learning-health observatory (`obs.health`) of a live run: a
+    ``health.jsonl`` line a round at ``--health_ledger`` (or
+    ``run_dir/health.jsonl``); the drift-alarm thresholds ride the
+    ``--slo`` spec (its ``health_*`` names).  Only the server node
+    accumulates."""
+    if not (cfg.health or cfg.health_ledger):
+        return None
+    if cfg.silo_backend != "local" and cfg.node_id != 0:
+        return None
+    import os
+    from fedml_tpu_torch.obs import HealthAccumulator
+    from fedml_tpu_torch.obs.health import HEALTH_SLOS
+    from fedml_tpu_torch.obs.perf import parse_slo_spec
+    path = cfg.health_ledger or os.path.join(
+        cfg.metrics_dir or cfg.run_dir or ".", "health.jsonl")
+    spec = parse_slo_spec(cfg.slo) if cfg.slo else {}
+    return HealthAccumulator(
+        kind=kind, node=f"node{cfg.node_id}", ledger_path=path,
+        thresholds={k: v for k, v in spec.items() if k in HEALTH_SLOS},
+        suppress_payload=suppress_payload)
+
+
+def make_slo(cfg: ExperimentConfig):
+    """The SLO evaluator over the telemetry registry (`obs.perf`),
+    evaluated once a round; None when telemetry is off (every objective
+    would read vacuously healthy)."""
+    from fedml_tpu_torch.obs import telemetry
+    if not telemetry.get_registry().enabled:
+        if cfg.slo:
+            logger.warning("--slo given but telemetry is disabled; the "
+                           "objectives need --telemetry true")
+        return None
+    from fedml_tpu_torch.obs.perf import SloEvaluator, parse_slo_spec
+    return SloEvaluator(
+        thresholds=parse_slo_spec(cfg.slo) if cfg.slo else None)
+
+
+def make_controller(cfg: ExperimentConfig, *, cohort, epochs, wave_size=0,
+                    max_cohort=None, epochs_live=False):
+    """The health-driven adaptive round controller (``--adaptive``)."""
+    if not cfg.adaptive:
+        return None
+    from fedml_tpu_torch.server_opt import AdaptiveController
+    return AdaptiveController(
+        cohort=cohort, epochs=epochs, wave_size=wave_size,
+        min_cohort=cfg.adapt_min_cohort, max_cohort=max_cohort,
+        patience=cfg.adapt_patience, epochs_live=epochs_live)
 
 
 def secagg_setup(cfg: ExperimentConfig, data, init, device):
@@ -755,7 +871,7 @@ class WireCodec:
 
 
 def make_ingest(cfg: ExperimentConfig, degrade, spine=None, init=None,
-                device=None):
+                device=None, perf=None):
     """``--ingest_pipeline``: one fold worker a shard; overflow feeds the
     tracker's dead letters (a network fault).  With ``init`` the workers
     get pinned arenas templated on the exact slice layout the wire ships
@@ -774,10 +890,10 @@ def make_ingest(cfg: ExperimentConfig, degrade, spine=None, init=None,
         host = to_host(nest(init))
         if spine is not None:
             arenas = [IngestArena(sl, device=spine.agg.devices[s],
-                                  name=f"ingest_s{s}")
+                                  name=f"ingest_s{s}", perf=perf)
                       for s, sl in enumerate(spine.broadcast_slices(host))]
         else:
-            arenas = [IngestArena(host, device=device)]
+            arenas = [IngestArena(host, device=device, perf=perf)]
         ingest.attach_arenas(arenas)
     return ingest
 
@@ -859,7 +975,9 @@ class CrossSiloFederation:
     uploads (`WireCodec`), ``--adversary`` attacks listed silos,
     ``--min_quorum``/``--adaptive_deadline``/``--partition_frac`` the
     reliability tracker, ``--ingest_pipeline`` the pipelined receive
-    path.  ``faultline``: the server's `robust.faultline.Faultline`.
+    path.  ``--perf``/``--device_obs``/``--health``/``--slo``/
+    ``--adaptive`` the observatories and the controller (server node
+    only).  ``faultline``: the server's `robust.faultline.Faultline`.
 
     Built, then ``run()``; ``server.params`` is the global.
     ``init_params`` (a flat dict) replaces the seeded init."""
@@ -875,9 +993,17 @@ class CrossSiloFederation:
 
         self.cfg, self.data, self.sink = cfg, data, sink
         self.device = resolve_device(cfg.platform)
+        self.perf = perf = make_perf(cfg, self.device)
+        self.slo = make_slo(cfg)
+        # under pairwise masking the root sees only ciphertext: the
+        # payload-derived health statistics are suppressed by name
+        health = make_health(
+            cfg, "params",
+            suppress_payload=("secagg_pairwise_masking"
+                              if cfg.secagg == "pairwise" else None))
         wl = _make_workload(cfg, data)
-        init, make_train_fn = _silo_training_setup(cfg, data, wl,
-                                                   self.device, init_params)
+        init, make_train_fn = _silo_training_setup(
+            cfg, data, wl, self.device, init_params, perf=perf)
         n_silos = min(cfg.client_num_per_round, data.client_num)
         make_train_fn = adversary_train_fns(cfg, data, make_train_fn,
                                             n_silos)
@@ -890,10 +1016,13 @@ class CrossSiloFederation:
                 max_num_samples=cfg.max_num_samples,
                 norm_k=cfg.norm_screen_k, norm_window=cfg.norm_screen_window,
                 norm_min_history=cfg.norm_screen_min_history,
-                trust=_trust_tracker(cfg))
+                trust=_trust_tracker(cfg),
+                sentry=perf.sentry if perf is not None else None,
+                device_obs=perf.device if perf is not None else None)
             admission, defended, stream = None, None, spine.agg
         else:
-            admission, defended, stream = _robust_setup(cfg, init)
+            admission, defended, stream = _robust_setup(cfg, init,
+                                                        perf=perf)
         self.secagg = None
         make_silo_secagg = lambda g: None  # noqa: E731
         make_edge_secagg = masked_admission = None
@@ -927,7 +1056,11 @@ class CrossSiloFederation:
         self.codec = (WireCodec(cfg, init, n_silos)
                       if cfg.wire_compression != "none" else None)
         self.server_opt = make_server_opt(
-            cfg, init, plan=spine.plan if spine is not None else None)
+            cfg, init, plan=spine.plan if spine is not None else None,
+            perf=perf)
+        controller = make_controller(
+            cfg, cohort=n_edges if n_edges > 0 else n_silos,
+            epochs=cfg.epochs)
         # under the edge topology the root's cohort is the edge tier
         self.degrade = degrade_setup(cfg, n_edges if n_edges > 0
                                      else n_silos)
@@ -954,10 +1087,12 @@ class CrossSiloFederation:
             ("server_opt", None if self.server_opt is None else
              (self.server_opt.state_dict,
               self.server_opt.load_state_dict)),
+            ("adapt", None if controller is None else
+             (controller.state_dict, controller.load_state_dict)),
             ("degrade", None if self.degrade is None else
              (self.degrade.state_dict, self.degrade.load_state_dict))])
         self.ingest = make_ingest(cfg, self.degrade, spine=spine, init=init,
-                                  device=self.device)
+                                  device=self.device, perf=perf)
         self._eval_cohort = cohort_eval(make_evaluator(wl))
         self._freq = (max(cfg.comm_round, 1) if cfg.ci
                       else cfg.frequency_of_the_test)
@@ -981,7 +1116,8 @@ class CrossSiloFederation:
                 secagg=self.secagg, server_opt=self.server_opt,
                 degrade=self.degrade, ingest=self.ingest,
                 decode_upload=(self.codec.decode if self.codec is not None
-                               else None))
+                               else None),
+                perf=perf, health=health, controller=controller)
 
         def make_silo(node_id, transport, g, server_id=0, heartbeat=None):
             codec = self.codec
@@ -1028,7 +1164,8 @@ class CrossSiloFederation:
             self.edges = self._build_edges(
                 cfg, data, init, n_silos, n_edges, admission,
                 masked_admission, make_edge_secagg, timeout,
-                lambda e: wrap(transport_factory(e)), edge_of)
+                lambda e: wrap(transport_factory(e)), edge_of,
+                health is not None)
         self.silos = [make_silo(
             n_edges + g, wrap(transport_factory(n_edges + g)), g,
             server_id=edge_of.get(g, 0),
@@ -1041,11 +1178,14 @@ class CrossSiloFederation:
     @staticmethod
     def _build_edges(cfg, data, init, n_silos, n_edges, admission,
                      masked_admission, make_edge_secagg, timeout,
-                     transport_of, edge_of):
+                     transport_of, edge_of, health: bool = False):
         """The edge tier: E edges over ``array_split`` blocks of the
         cohort; each screens its silos with its own pipeline (masked
         under grouped SecAgg) and folds a plain clipped mean (the robust
-        rule and the noise run once, at the root)."""
+        rule and the noise run once, at the root).  ``health``: each edge
+        gets a statistics-only accumulator whose rollup rides its frame
+        to the root's observatory."""
+        from fedml_tpu_torch.obs import HealthAccumulator
         from fedml_tpu_torch.algorithms.hierarchical import (
             EdgeAggregatorActor)
         from fedml_tpu_torch.core.pytree import nest, to_host
@@ -1072,6 +1212,15 @@ class CrossSiloFederation:
             if timeout:
                 edge_timeout = (timeout / 4 if make_edge_secagg is not None
                                 else timeout / 2)
+            edge_health = None
+            if health:
+                # under grouped masking the edge sees only ciphertext:
+                # its payload statistics are suppressed by name
+                edge_health = HealthAccumulator(
+                    kind="params", node=f"edge{e}", alarms=False,
+                    suppress_payload=("secagg_grouped_masking"
+                                      if make_edge_secagg is not None
+                                      else None))
             edges.append(EdgeAggregatorActor(
                 e, transport_of(e),
                 {n_edges + int(g): int(g) for g in block},
@@ -1084,7 +1233,7 @@ class CrossSiloFederation:
                 secagg=(make_edge_secagg(f"edge{e}")
                         if make_edge_secagg is not None else None),
                 journal=make_journal(cfg, subdir=f"edge{e}"),
-                timeout_s=edge_timeout))
+                timeout_s=edge_timeout, health=edge_health))
             for g in block:
                 edge_of[int(g)] = e
         return edges
@@ -1101,6 +1250,8 @@ class CrossSiloFederation:
         from fedml_tpu_torch.algorithms.fedavg import evaluate_global
         synchronize(self.device)
         self.round_times.append(time.perf_counter() - self._t0)
+        if self.slo is not None:
+            self.slo.evaluate()   # rolling: gauges update, breaches count
         if r % self._freq == 0 or r == self.cfg.comm_round - 1:
             stats = evaluate_global(self._eval_cohort, self.data, params,
                                     self.cfg.eval_chunk_clients, self.device)
@@ -1163,6 +1314,8 @@ class CrossSiloFederation:
             server.finish()   # idempotent; joins the straggler timer
             if self.checkpointer is not None:
                 self.checkpointer.close()
+            if self.perf is not None:
+                self.perf.close()   # join the RSS sampler thread
         if server.round_idx < self.cfg.comm_round and not server.aborted:
             raise RuntimeError(f"the federation stalled at round "
                                f"{server.round_idx} of {self.cfg.comm_round}")
@@ -1188,8 +1341,9 @@ class AsyncFederation:
     (`async_fl.delta_encoder`); admission screens them as
     ``kind="delta"``.  The trust ledger, the server optimizer and the
     reliability tracker ride the version checkpoint; ``--journal``
-    resumes a version left mid-flight.  ``init_params`` replaces the
-    seeded init; ``faultline`` arms the server's crash points.
+    resumes a version left mid-flight; ``--perf``/``--health``/``--slo``
+    instrument the versions.  ``init_params`` replaces the seeded init;
+    ``faultline`` arms the server's crash points.
 
     Built, then ``run()``; ``server.params`` is the global."""
 
@@ -1215,9 +1369,13 @@ class AsyncFederation:
                 "wiring mirrors cross_silo's when needed)")
         self.cfg, self.data, self.sink = cfg, data, sink
         self.device = resolve_device(cfg.platform)
+        self.perf = perf = make_perf(cfg, self.device)
+        self.slo = make_slo(cfg)
+        # async deltas ARE the updates: health reads them raw
+        health = make_health(cfg, "delta")
         wl = _make_workload(cfg, data)
-        init, make_train_fn = _silo_training_setup(cfg, data, wl,
-                                                   self.device, init_params)
+        init, make_train_fn = _silo_training_setup(
+            cfg, data, wl, self.device, init_params, perf=perf)
         n_silos = min(cfg.client_num_per_round, data.client_num)
         goal = cfg.async_goal or max(1, n_silos // 2)
         make_train_fn = adversary_train_fns(cfg, data, make_train_fn,
@@ -1226,8 +1384,9 @@ class AsyncFederation:
             raise ValueError("--edge_aggregators is a cross_silo (sync "
                              "barrier) topology; the async server consumes "
                              "per-silo deltas directly")
-        admission, defended, stream = _robust_setup(cfg, init, kind="delta")
-        self.server_opt = make_server_opt(cfg, init)
+        admission, defended, stream = _robust_setup(cfg, init, kind="delta",
+                                                    perf=perf)
+        self.server_opt = make_server_opt(cfg, init, perf=perf)
         self.degrade = degrade_setup(cfg, n_silos, mode="async")
         extra_state = _compose_extra_state([
             ("trust", None if admission is None else
@@ -1257,7 +1416,7 @@ class AsyncFederation:
             stream_agg=stream, extra_state=extra_state,
             journal=self.journal, faultline=faultline,
             server_opt=self.server_opt, degrade=self.degrade,
-            ingest=self.ingest)
+            ingest=self.ingest, perf=perf, health=health)
         self.silos = [FedAvgClientActor(i, self.hub.transport(i),
                                         make_train_fn(i),
                                         encode_upload=delta_encoder)
@@ -1269,6 +1428,8 @@ class AsyncFederation:
         from fedml_tpu_torch.algorithms.fedavg import evaluate_global
         synchronize(self.device)
         self.version_times.append(time.perf_counter() - self._t0)
+        if self.slo is not None:
+            self.slo.evaluate()   # rolling: gauges update, breaches count
         cfg = self.cfg
         if version % cfg.frequency_of_the_test == 0 \
                 or version == cfg.comm_round:
@@ -1296,6 +1457,8 @@ class AsyncFederation:
             server.finish()
             if self.checkpointer is not None:
                 self.checkpointer.close()
+            if self.perf is not None:
+                self.perf.close()   # join the RSS sampler thread
         if stalled and server.version < self.cfg.comm_round:
             raise RuntimeError(f"the federation stalled at version "
                                f"{server.version} of {self.cfg.comm_round}")
@@ -1335,11 +1498,53 @@ def run_hierarchical(cfg, data, sink):
 # (default, the ROADMAP item that brings it)
 REFUSED_FLAGS = {
     "serve_port": (0, "serve/ (ROADMAP Queue 1 item 11)"),
-    "health": (False, "obs/health.py (ROADMAP Queue 1 item 9)"),
-    "adaptive": (False, "server_opt/controller.py, which needs the health "
-                        "observatory (ROADMAP Queue 1 item 9)"),
     "mesh_stages": (0, "parallel/pipeline.py (ROADMAP Queue 1 item 10)"),
 }
+
+
+def check_obs(cfg: ExperimentConfig) -> None:
+    """The JAX package's gates on the observability flags (JAX
+    ``main.py:2398-2493``): every flag that would parse and then record
+    or steer nothing fails with its reason."""
+    from fedml_tpu_torch.server_opt import ServerOptConfigError
+    if cfg.metrics_port > 0 and cfg.prom_port > 0 \
+            and cfg.metrics_port != cfg.prom_port:
+        raise ValueError(
+            f"--metrics_port is an alias for --prom_port; got both, "
+            f"disagreeing ({cfg.metrics_port} vs {cfg.prom_port}) — "
+            f"pass one, or the same port for both.")
+    # the flight recorder and the SLO evaluator hook the live round
+    # lifecycle; on the cohort simulations they would record nothing
+    if cfg.algo not in ("cross_silo", "async_fl", "cross_device") and (
+            cfg.perf or cfg.perf_ledger or cfg.perf_strict or cfg.slo
+            or cfg.device_obs or cfg.health or cfg.health_ledger):
+        raise ValueError(
+            f"--perf/--perf_ledger/--perf_strict/--device_obs/--slo/"
+            f"--health/--health_ledger instrument the live round "
+            f"lifecycle and apply to --algo cross_silo/async_fl/"
+            f"cross_device only; --algo {cfg.algo} would silently write "
+            f"no ledger and never evaluate the objectives.")
+    if cfg.slo:
+        from fedml_tpu_torch.obs.perf import parse_slo_spec
+        parse_slo_spec(cfg.slo)   # a typo'd objective fails here
+    if cfg.adaptive:
+        if not (cfg.health or cfg.health_ledger):
+            raise ServerOptConfigError(
+                "--adaptive steers pacing from the health observatory's "
+                "drift alarms and requires --health (or "
+                "--health_ledger); without it every decision would be "
+                "a vacuous hold and the run would be labeled adaptive")
+        if cfg.algo not in ("cross_silo", "cross_device"):
+            raise ServerOptConfigError(
+                f"--adaptive steers the per-round cohort sampler and "
+                f"applies to --algo cross_silo/cross_device only; "
+                f"--algo {cfg.algo} has no round cohort to pace")
+    if cfg.adapt_min_cohort < 1:
+        raise ServerOptConfigError(
+            f"--adapt_min_cohort must be >= 1, got {cfg.adapt_min_cohort}")
+    if cfg.adapt_patience < 1:
+        raise ServerOptConfigError(
+            f"--adapt_patience must be >= 1, got {cfg.adapt_patience}")
 
 
 def check_cross_silo(cfg: ExperimentConfig) -> None:
@@ -1715,6 +1920,7 @@ def check_config(cfg: ExperimentConfig) -> None:
                        f"has {sorted(RUNNERS)}")
     check_cross_device(cfg)
     check_cross_silo(cfg)
+    check_obs(cfg)
     if cfg.model in STOCHASTIC_MODELS and cfg.algo not in KEYED_ALGOS:
         raise NotImplementedError(
             f"--model {cfg.model} draws dropout masks, which the port keys "
@@ -1753,11 +1959,59 @@ def main(argv=None) -> Dict[str, Any]:
     data = load_experiment_data(cfg)
     logger.info("algo=%s model=%s dataset=%s clients=%d device=%s",
                 cfg.algo, cfg.model, cfg.dataset, data.client_num, device)
-    with MetricsSink(cfg.run_dir, stdout=cfg.log_stdout,
-                     name=cfg.algo) as sink:
-        sink.log({"config": dataclasses.asdict(cfg)})
-        summary = RUNNERS[cfg.algo](cfg, data, sink)
-        sink.log({"final": summary})
+    run_dir = cfg.metrics_dir or cfg.run_dir
+    # the observability opt-ins, enabled BEFORE the runner builds any
+    # transport or actor (instrumented constructors cache their handles);
+    # the exports run in the finally, so a crashed run still leaves its
+    # telemetry snapshot and the spans recorded so far
+    import os
+    from fedml_tpu_torch.obs import telemetry as _telemetry
+    from fedml_tpu_torch.obs import trace as _trace
+    from fedml_tpu_torch.utils.metrics import profiler_trace
+    registry = prom_server = tracer = None
+    scrape_port = cfg.metrics_port or cfg.prom_port
+    if cfg.telemetry or scrape_port > 0:
+        registry = _telemetry.enable()
+        if scrape_port > 0:
+            prom_server = _telemetry.start_http_server(scrape_port,
+                                                       registry)
+            if prom_server is not None:
+                logger.info("telemetry: serving /metrics on :%d",
+                            scrape_port)
+    if cfg.trace_dir:
+        tracer = _trace.enable(node=f"node{cfg.node_id}")
+    try:
+        with MetricsSink(run_dir, stdout=cfg.log_stdout,
+                         name=cfg.algo) as sink:
+            sink.log({"config": dataclasses.asdict(cfg)})
+            with profiler_trace(cfg.profile_dir, device):
+                summary = RUNNERS[cfg.algo](cfg, data, sink)
+            sink.log({"final": summary})
+    finally:
+        # each teardown step on its own: a failing export must not skip
+        # the others, leak the /metrics port, or leave the process-global
+        # tracer or registry enabled for the next main() call
+        if tracer is not None:
+            try:
+                tracer.export(os.path.join(
+                    cfg.trace_dir,
+                    f"trace-node{cfg.node_id}-{os.getpid()}.json"))
+            except OSError:
+                logger.exception("trace export failed")
+            _trace.disable()
+        if registry is not None:
+            if run_dir is not None:
+                try:
+                    registry.save(os.path.join(run_dir, "telemetry.json"))
+                    with open(os.path.join(run_dir, "telemetry.prom"),
+                              "w") as f:
+                        f.write(registry.render_prometheus())
+                except OSError:
+                    logger.exception("telemetry export failed")
+            if prom_server is not None:
+                prom_server.shutdown()
+                prom_server.server_close()
+            _telemetry.disable()
     print(json.dumps({"algo": cfg.algo, "dataset": cfg.dataset,
                       "model": cfg.model,
                       **{k: v for k, v in summary.items()

@@ -357,6 +357,12 @@ class GraphedRounds:
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
 
+    def _cache_size(self) -> int:
+        """The recompile sentry's probe (`obs.perf.RecompileSentry`): the
+        graphs captured — a capture after the first round is the port's
+        recompile."""
+        return self.captures
+
     def _load_params(self, params: Dict[str, torch.Tensor]) -> None:
         if self.params is None:
             self.params = {k: torch.empty_like(v, device=self.device)

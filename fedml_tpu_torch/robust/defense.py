@@ -39,13 +39,20 @@ def make_defended_aggregate(method: str = "mean", *, trim_frac: float = 0.1,
                             gm_iters: int = 8, gm_eps: float = 1e-6,
                             norm_clip: float = 0.0, noise_std: float = 0.0,
                             seed: int = 0,
-                            is_weight=default_is_weight_param) -> Callable:
+                            is_weight=default_is_weight_param,
+                            sentry=None, device=None) -> Callable:
     """Build ``fn(global_params, stacked, weights, step) -> new_params``.
 
     ``stacked``: the ``[N, ...]`` cohort tree on the global's device;
     ``weights``: ``[N]`` raw sample counts, 0 for masked slots (callers
     skip aggregation when every weight is 0); ``step`` keys the round's
-    noise."""
+    noise.
+
+    ``sentry``/``device``: the perf recorder's `RecompileSentry` and
+    `obs.device.DeviceRecorder`; with the recorder the returned callable
+    is its wrapper, ``defended_aggregate[method]`` in the compile ledger
+    (the mean's FLOPs from the work table: a clipped fold a slot and the
+    finalize), its signatures noted in the sentry."""
     from fedml_tpu_torch.core import stream_agg as sa
 
     if method not in ROBUST_AGG_METHODS:
@@ -95,4 +102,18 @@ def make_defended_aggregate(method: str = "mean", *, trim_frac: float = 0.1,
                                      noise_std)
         return out
 
+    if device is not None:
+        from fedml_tpu_torch.obs.device import kernel_flops
+
+        def flops(global_params, stacked, weights, step):
+            d = sum(int(v.numel()) for v in global_params.values())
+            n = next(iter(stacked.values())).shape[0]
+            return (n * kernel_flops("stream_fold", d=d,
+                                     clip=norm_clip > 0)
+                    + kernel_flops("stream_finalize", d=d,
+                                   sigma=noise_std))
+
+        aggregate = device.instrument(
+            f"defended_aggregate[{method}]", aggregate, sentry=sentry,
+            flops=flops if base is None else None)
     return aggregate

@@ -67,6 +67,11 @@ class ServerOptMismatchError(ValueError):
     trajectory, so it is refused."""
 
 
+def _global_norm(leaves) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
+                          for l in leaves))
+
+
 class ServerOptimizer:
     """One pseudo-gradient step per round over the finalize seam.
 
@@ -76,7 +81,8 @@ class ServerOptimizer:
     round_idx)`` is the async seam (JAX :297-313): Δ comes from the caller
     already staleness-discounted, and ``plain`` is the SGD step
     ``w − lr·Δ``.  ``state_template()`` (JAX :412-426) is the zero-filled
-    restore template of ``state_dict``.
+    restore template of ``state_dict``.  ``sentry``/``device``: the perf
+    recorder's sentry and device observatory, which ledger the step.
     """
 
     def __init__(self, name: str, template: Tree, *,
@@ -85,7 +91,8 @@ class ServerOptimizer:
                  eps: float = 1e-8,
                  fedac_mu: float = 0.0, fedac_gamma: float = 0.0,
                  fedac_alpha: float = 1.0, fedac_beta: float = 1.0,
-                 local_steps: int = 1, plan=None):
+                 local_steps: int = 1, plan=None, sentry=None,
+                 device=None):
         if name not in SERVER_OPT_NAMES:
             raise ServerOptConfigError(
                 f"unknown --server_opt {name!r}; "
@@ -125,10 +132,23 @@ class ServerOptimizer:
         self.step_count = 0
         self.state = self._init_state(template)
         reg = telemetry.get_registry()
+        self._norms_on = reg.enabled
         self._m_steps = reg.counter("fedml_srvopt_steps_total")
+        self._m_delta = reg.gauge("fedml_srvopt_delta_norm_value")
+        self._m_update = reg.gauge("fedml_srvopt_update_norm_value")
         self._m_secs = reg.histogram(
             "fedml_srvopt_step_seconds",
             buckets=(.0005, .002, .01, .05, .2, 1., 5.))
+        self._step_fn = self._delta_step_fn = self._step
+        if device is not None and name != "plain":
+            # the recorder's ledger sees the step as ``srvopt_step[name]``
+            # (the sync finalize seam) and ``srvopt_delta_step[name]``
+            # (the async seam); nothing is built, so there is no probe
+            self._step_fn = device.instrument(
+                f"srvopt_step[{name}]", self._step, sentry=sentry,
+                sentry_name=f"server_opt[{name}]")
+            self._delta_step_fn = device.instrument(
+                f"srvopt_delta_step[{name}]", self._step)
 
     # -- state ----------------------------------------------------------------
     def _init_state(self, template: Tree) -> dict:
@@ -196,7 +216,8 @@ class ServerOptimizer:
         t0 = time.perf_counter()
         delta = {k: params[k] - finalized[k].to(params[k].dtype)
                  for k in self._keys}
-        new, self.state = self._step(params, delta, self.state)
+        new, self.state = self._step_fn(params, delta, self.state)
+        self._note_norms(params, delta, new)
         self._m_secs.observe(time.perf_counter() - t0)
         return new
 
@@ -213,9 +234,21 @@ class ServerOptimizer:
             new = {k: params[k] - self.lr * delta[k].to(params[k].dtype)
                    for k in self._keys}
         else:
-            new, self.state = self._step(params, delta, self.state)
+            new, self.state = self._delta_step_fn(params, delta,
+                                                  self.state)
+        self._note_norms(params, delta, new)
         self._m_secs.observe(time.perf_counter() - t0)
         return new
+
+    def _note_norms(self, params: Tree, delta: Tree, new: Tree) -> None:
+        """The pseudo-gradient's and the step's global f32 norms, as the
+        JAX package's gauges; read from the device only with telemetry
+        on (each is a device sync)."""
+        if not self._norms_on:
+            return
+        self._m_delta.set(float(_global_norm(delta.values())))
+        self._m_update.set(float(_global_norm(
+            new[k] - params[k] for k in self._keys)))
 
     # -- checkpoint / journal -------------------------------------------------
     def _tree_slots(self) -> List[str]:

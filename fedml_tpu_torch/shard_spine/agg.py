@@ -64,7 +64,8 @@ class ShardedStreamingAggregator:
     def __init__(self, plan: ShardPlan, template: Tree, *,
                  kind: str = "params", norm_clip: float = 0.0,
                  noise_std: float = 0.0, seed: int = 0, fused: bool = False,
-                 devices: Optional[Sequence] = None, device=None):
+                 devices: Optional[Sequence] = None, device=None,
+                 sentry=None, device_obs=None):
         if kind != "params":
             raise ValueError(
                 f"the sharded spine folds cross-silo params uploads only "
@@ -99,6 +100,11 @@ class ShardedStreamingAggregator:
             [make_fused_shard_finalize(noise_std=noise_std, seed=seed,
                                        shard_salt=s) for s in range(S)]
             if fused else [self._compose_finalize(s) for s in range(S)])
+        self._fold_fns = [fold_pieces] * S
+        if device_obs is not None:
+            self._instrument(device_obs, sentry)
+        if sentry is not None and fused:
+            sentry.register("shard_spine[mean]", self)
         reg = telemetry.get_registry()
         self._c_folds = reg.counter("fedml_stream_folds_total")
         self._c_slices = reg.counter("fedml_shard_slices_total")
@@ -110,6 +116,35 @@ class ShardedStreamingAggregator:
         self._wsum = np.float32(0.0)
         self.count = 0
         self.weight_total = 0.0
+
+    def _instrument(self, device_obs, sentry) -> None:
+        """Per-shard ``shard_fold[s]`` and ``fused_finalize[s]`` (or
+        ``shard_finalize[s]``) in the device observatory, their FLOPs
+        from the work table (K2's for the fused finalize)."""
+        from fedml_tpu_torch.obs.device import kernel_flops
+        family = "shard_spine[mean]"
+        label = "fused_finalize" if self.fused else "shard_finalize"
+        kernel = "shard_finalize" if self.fused else "stream_finalize"
+        clip, sigma = self.norm_clip > 0, self.noise_std
+        for s in range(self.plan.num_shards):
+            d_all = self.plan.slice_numel(s, floats_only=False)
+            d_float = self.plan.slice_numel(s)
+            self._fold_fns[s] = device_obs.instrument(
+                f"shard_fold[s{s}]", fold_pieces, sentry=sentry,
+                sentry_name=family,
+                flops=lambda *a, d=d_all: kernel_flops(
+                    "stream_fold", d=d, clip=clip))
+            self._finalize_fns[s] = device_obs.instrument(
+                f"{label}[s{s}]", self._finalize_fns[s], sentry=sentry,
+                sentry_name=family,
+                flops=lambda *a, d=d_float: kernel_flops(
+                    kernel, d=d, sigma=sigma))
+
+    def _cache_size(self) -> int:
+        """What the fused finalize built: K2's library, once loaded (the
+        recompile sentry's probe)."""
+        from fedml_tpu_torch.utils import cuda_build
+        return int("shard_finalize" in cuda_build._loaded)
 
     def _leaf_keys(self, shard: int) -> List[str]:
         return [_leaf_key(i) for i in self.plan.members[shard]]
@@ -185,8 +220,8 @@ class ShardedStreamingAggregator:
         scale = self._scale(bodies)
         w = np.float32(weight)
         for s in range(self.plan.num_shards):
-            fold_pieces(self._acc[s], bodies[s], self._reference[s],
-                        float(w), scale, self._flags[s].__getitem__)
+            self._fold_fns[s](self._acc[s], bodies[s], self._reference[s],
+                              float(w), scale, self._flags[s].__getitem__)
         self._wsum = np.float32(self._wsum + w)
 
     def fold_slices(self, slices: Sequence[dict], weight) -> None:

@@ -64,6 +64,11 @@ class ShardSpine:
         """The plan descriptor shard 0's sync frame ships."""
         return self._spec
 
+    def join(self, slices: List[dict]):
+        """Slices -> the full flat tree (the health observatory's view of
+        an admitted upload; leaves stay on their device)."""
+        return dict(zip(self.agg._keys, self.plan.join_slices(slices)))
+
     def checkpoint_state(self) -> Dict[str, np.ndarray]:
         """The layout, a fixed-shape record in the round checkpoint: a
         resume re-derives the plan and checks it against this."""
@@ -97,8 +102,8 @@ def build_shard_spine(template, *, num_shards: int,
                       admission_on: bool = True,
                       max_num_samples: float = 1e6, norm_k: float = 6.0,
                       norm_window: int = 64, norm_min_history: int = 8,
-                      trust=None, min_split_elems: int = 1024
-                      ) -> ShardSpine:
+                      trust=None, min_split_elems: int = 1024,
+                      sentry=None, device_obs=None) -> ShardSpine:
     """Build the spine from the live template (the port's flat params
     dict; its device is where the fold state lives).
 
@@ -109,7 +114,9 @@ def build_shard_spine(template, *, num_shards: int,
 
     On the GPU each shard gets its own device when the host has at least
     S of them (`parallel.mesh.make_model_mesh`); otherwise, and on the
-    CPU, every shard lives on the template's device.
+    CPU, every shard lives on the template's device.  ``sentry``/
+    ``device_obs``: the perf recorder's sentry and device observatory,
+    handed to the sharded fold.
     """
     if fused not in ("auto", "on", "off"):
         raise ValueError(f"fused must be auto|on|off, got {fused!r}")
@@ -126,7 +133,8 @@ def build_shard_spine(template, *, num_shards: int,
                             min_split_elems=min_split_elems)
     agg = ShardedStreamingAggregator(
         plan, template, norm_clip=norm_clip, noise_std=noise_std,
-        seed=seed, fused=use_fused, devices=mesh, device=device)
+        seed=seed, fused=use_fused, devices=mesh, device=device,
+        sentry=sentry, device_obs=device_obs)
     admission = None
     if admission_on:
         admission = ShardAdmission(

@@ -23,13 +23,17 @@ batch, like the weights), and the output is the whole tree again."""
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch.func import grad
 
 from fedml_tpu_torch.core import prng
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.obs import telemetry
 from fedml_tpu_torch.trainer.workload import Workload, is_trained
 
 
@@ -83,6 +87,60 @@ def join_state(trained: Tree, state: Tree) -> Tree:
         return trained
     tree = {**trained, **state}
     return {k: tree[k] for k in tree_keys(tree)}
+
+
+def instrument_train_fn(train_fn, epochs: int = 1, registry=None):
+    """Wrap a ``train(params, data, ...)`` callable with the trainer
+    telemetry of the JAX package (``trainer/local_sgd.py:33-90``):
+
+    * ``fedml_trainer_compile_seconds`` — the FIRST call's wall time (the
+      kernel builds and cuDNN's algorithm picks of the first round);
+    * ``fedml_trainer_train_seconds`` — every later call's wall time,
+      the device synchronised before the clock stops (asynchronous
+      launches must not hide the work);
+    * ``fedml_trainer_examples_total`` — valid (mask=1) examples consumed,
+      ``epochs * mask.sum()`` a call.
+
+    The wrapper forwards a ``_cache_size`` probe, so the recompile
+    sentry can register the instrumented function directly; the device
+    observatory's wrapper (``PerfRecorder.instrument_jit``) composes
+    INSIDE this one.  With telemetry disabled this returns ``train_fn``
+    unchanged — zero wrapper, zero cost."""
+    reg = registry if registry is not None else telemetry.get_registry()
+    if not reg.enabled:
+        return train_fn
+    h_compile = reg.histogram("fedml_trainer_compile_seconds")
+    h_train = reg.histogram("fedml_trainer_train_seconds")
+    c_examples = reg.counter("fedml_trainer_examples_total")
+    # claimed under a lock: silos on their own threads may make their
+    # first calls together, and one sample belongs in the compile family
+    state = {"first": True}
+    state_lock = threading.Lock()
+    epochs = max(int(epochs), 1)
+
+    def instrumented(params, data, *rest):
+        t0 = time.perf_counter()
+        out = train_fn(params, data, *rest)
+        devices = {v.device for v in (out[0] if isinstance(out, tuple)
+                                      else out).values()
+                   if isinstance(v, torch.Tensor) and v.is_cuda}
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        with state_lock:
+            first, state["first"] = state["first"], False
+        (h_compile if first else h_train).observe(dt)
+        mask = data.get("mask") if isinstance(data, dict) else None
+        if mask is not None:
+            m = mask.sum().item() if torch.is_tensor(mask) \
+                else float(np.asarray(mask).sum())
+            c_examples.inc(epochs * float(m))
+        return out
+
+    cache_size = getattr(train_fn, "_cache_size", None)
+    if cache_size is not None:
+        instrumented._cache_size = cache_size
+    return instrumented
 
 
 def make_local_trainer(workload: Workload, optimizer, epochs: int,

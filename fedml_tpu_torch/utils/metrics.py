@@ -4,10 +4,13 @@
 * ``summary.json`` — last value per key, written atomically every
   ``flush_summary_every`` events and on ``close()``.
 
-``run_dir=None`` keeps everything in memory (``sink.events``)."""
+``run_dir=None`` keeps everything in memory (``sink.events``).
+``profiler_trace(dir)`` wraps a run in ``torch.profiler`` (the JAX
+package's ``--profile_dir``)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -99,3 +102,24 @@ def stats_from_metrics(m, prefix: str = "") -> Dict[str, float]:
     if "correct_top5" in m:
         out[f"{prefix}acc_top5"] = float(m["correct_top5"]) / total
     return out
+
+
+@contextlib.contextmanager
+def profiler_trace(trace_dir: Optional[str], device=None):
+    """Capture a ``torch.profiler`` trace into ``trace_dir`` as a Chrome
+    trace (``trace-<pid>.json``, viewable in ui.perfetto.dev), with the
+    CUDA activities on a CUDA ``device``.  ``None`` disables tracing with
+    zero overhead."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(trace_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(trace_dir, f"trace-{os.getpid()}.json"))

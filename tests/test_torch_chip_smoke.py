@@ -778,3 +778,74 @@ def test_live_machinery_phase_on_the_cpu(tiny_phases, monkeypatch):
     waves = out["waves"]
     assert waves["bit_equal"] and waves["debt_after_round"] == 0
     assert waves["inline"]["rejected"] == {"nonfinite": 1}
+
+
+def test_observability_phase_configs_parse_and_pass_the_gates():
+    """Phase 8o's configurations are valid CLI configs at the CNN's
+    widths: the instrumented spine inline, pipelined and adaptive, the
+    stacked defended round, the instrumented wave engine with the
+    controller, async_fl and the edge tier with the observatories."""
+    on = cs.live_cfg([*cs.SILO_ARGS, *cs.OBS_FLAGS], cs.OBS_ROUNDS, "cpu")
+    assert (on.model_shards, on.fused_finalize, on.perf, on.perf_strict,
+            on.device_obs, on.health, on.telemetry, on.model) == \
+        (4, "on", True, True, True, True, True, "cnn_fedavg")
+    ad = cs.live_cfg([*cs.SILO_ARGS, *cs.OBS_FLAGS, *cs.OBS_ADAPTIVE],
+                     cs.OBS_ROUNDS, "cpu")
+    assert ad.adaptive and "health_misalignment_ratio" in ad.slo
+    pipe = cs.live_cfg([*cs.SILO_ARGS, *cs.OBS_FLAGS, "--ingest_pipeline",
+                        "true"], cs.OBS_ROUNDS, "cpu")
+    assert pipe.ingest_pipeline
+    w = cs.cd_cfg([*cs.CD_ARGS, *cs.OBS_FLAGS, *cs.OBS_ADAPTIVE], "cpu")
+    assert (w.client_num_per_round, w.wave_size, w.adaptive) == \
+        (1000, 256, True)
+    asy = cs.live_cfg([*cs.MACH_ASYNC, *cs.OBS_FLAGS],
+                      cs.OBS_ASYNC_VERSIONS, "cpu")
+    assert (asy.async_goal, asy.health, asy.device_obs) == (5, True, True)
+    e = cs.live_cfg([*cs.PLAIN_STREAM_ARGS, *cs.MACH_EDGES, *cs.OBS_FLAGS],
+                    cs.OBS_EDGE_ROUNDS, "cpu")
+    assert e.client_num_per_round // e.edge_aggregators == 5
+    st = cs.live_cfg([*cs.PLAIN_STREAM_ARGS, *cs.OBS_STACK, *cs.OBS_FLAGS],
+                     cs.OBS_DEFENDED_ROUNDS, "cpu")
+    assert (st.agg_mode, st.norm_clip, st.agg_noise_std, st.device_obs) == \
+        ("stack", 5.0, cs.SIGMA, True)
+    # the CLI's gates hold for the phase's flags off the live paths
+    with pytest.raises(ValueError, match="live round"):
+        cs.live_cfg([*cs.SLICE_ARGS, *cs.OBS_FLAGS], 2, "cpu")
+
+
+def test_observability_phase_on_the_cpu(tiny_phases, monkeypatch):
+    """Phase 8o end to end on CPU tensors at the tiny LR size (40 mnist
+    clients, 10 a round; waves of 4): every run and every check but the
+    card's memory section."""
+    data, root = tiny_phases
+    common = list(cs.COMMON_ARGS)
+
+    def tiny(args):
+        i, j = args.index("--model"), args.index("--log_stdout") + 2
+        return args[:i] + common + args[j:]
+    monkeypatch.setattr(cs, "MACH_ASYNC", tiny(cs.MACH_ASYNC))
+    monkeypatch.setattr(cs, "CD_ARGS", [
+        *cs.CD_ARGS, *common, "--client_num_per_round", "10",
+        "--wave_size", "4"])
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = cs.check_observability(data, root)
+    finally:
+        torch.set_num_threads(n_threads)
+    assert out["bit_equal_on_off"]
+    for k in ("inline", "ingest", "adaptive"):
+        assert out[k]["k2_launches"] == 4 * cs.OBS_ROUNDS
+        assert all(0 < m <= 1 for m in out[k]["mfu"])
+        assert out[k]["compiles"][0] and not any(out[k]["compiles"][1:])
+    assert out["trace"]["roots"] == cs.OBS_ROUNDS
+    assert out["trace"]["recv_tracks_per_round"] == [10] * cs.OBS_ROUNDS
+    assert len(out["adaptive"]["adapt"]) == cs.OBS_ROUNDS
+    assert out["defended"]["bit_equal"]
+    assert out["defended"]["aggregate_calls"] == [1] * cs.OBS_DEFENDED_ROUNDS
+    assert all(0 < m <= 1 for m in out["defended"]["mfu"])
+    assert len(out["waves"]["adapt"]) == cs.OBS_CD_ROUNDS
+    assert out["async_fl"]["rounds"] == cs.OBS_ASYNC_VERSIONS
+    assert len(out["edges"]["edge_rollup"]) == cs.OBS_EDGE_ROUNDS
+    assert len(out["turns_round_ms"]["on"]) == 2
+    assert not (root / "build" / "observability").exists()

@@ -476,8 +476,9 @@ _GATE_BASE = ["--model", "lr", "--dataset", "mnist", "--platform", "cpu",
      "rounds_per_dispatch"),
     (["--algo", "cross_device", "--wave_adversary", "0:0:nan"],
      ValueError, "unknown wave attack kind"),
-    (["--algo", "cross_device", "--health", "true"], NotImplementedError,
-     "item 9"),
+    # the health observatory is ported; JAX's --adaptive gate instead
+    (["--algo", "cross_device", "--adaptive", "true"], ValueError,
+     "requires --health"),
     (["--algo", "cross_device", "--mesh_clients", "4"],
      NotImplementedError, "item 10"),
     (["--algo", "cross_device", "--serve_port", "8080"],
@@ -501,7 +502,7 @@ def test_cross_device_shorthand_selects_the_engine(tmp_path):
     assert out["local_alg"] == "sgd" and out["waves"] == 1
 
 
-def test_engine_constructor_gates(workload, data):
+def test_engine_constructor_gates(workload, data, tmp_path):
     with pytest.raises(ValueError, match="local_alg"):
         CrossDevice(workload, data, _cfg(local_alg="ditto"), device="cpu")
     with pytest.raises(ValueError, match="sampler"):
@@ -518,12 +519,21 @@ def test_engine_constructor_gates(workload, data):
                     device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         CrossDevice(workload, data, _cfg(), device="cpu", mesh=object())
-    for seam, item in (("perf", "item 9"), ("health", "item 9"),
-                       ("slo", "item 9"), ("controller", "item 9"),
-                       ("publish", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            CrossDevice(workload, data, _cfg(), device="cpu",
-                        **{seam: object()})
+    # the observability seams are ported: taken, with JAX's gate on a
+    # controller without the health observatory; publish stays refused
+    from fedml_tpu_torch.obs import PerfRecorder
+    perf = PerfRecorder(str(tmp_path / "perf.jsonl"))
+    try:
+        CrossDevice(workload, data, _cfg(), device="cpu", perf=perf,
+                    health=object(), slo=object(), controller=object())
+    finally:
+        perf.close()
+    with pytest.raises(ValueError, match="requires the health"):
+        CrossDevice(workload, data, _cfg(), device="cpu",
+                    controller=object())
+    with pytest.raises(NotImplementedError, match="item 11"):
+        CrossDevice(workload, data, _cfg(), device="cpu",
+                    publish=object())
     with pytest.raises(ValueError, match="fednova"):
         CrossDevice(workload, data, _cfg(local_alg="fednova"),
                     device="cpu", server_opt=object())

@@ -412,15 +412,24 @@ def test_admission_rejects_a_poisoned_plain_upload():
 def test_unported_actor_options_are_refused_by_name(option):
     init = params_from_numpy(_params())
     if option in ("secagg", "server_opt", "ingest", "degrade",
-                  "decode_upload"):
+                  "decode_upload", "health", "perf"):
         # ported (live SecAgg, the server-optimizer seam, the pipelined
-        # receive path, the reliability tracker, wire compression):
-        # taken, not refused
+        # receive path, the reliability tracker, wire compression, the
+        # health observatory and the perf recorder): taken, not refused
         from fedml_tpu_torch.robust.degrade import ReliabilityTracker
         assert option not in t_cross_silo._REFUSED
         value = ReliabilityTracker(2) if option == "degrade" else object()
         FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
                           **{option: value})
+        return
+    if option == "controller":
+        # ported: JAX's gate (a controller needs the health observatory)
+        assert option not in t_cross_silo._REFUSED
+        with pytest.raises(ValueError, match="requires the health"):
+            FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
+                              controller=object())
+        FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
+                          controller=object(), health=object())
         return
     with pytest.raises(NotImplementedError, match=option):
         FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
@@ -481,8 +490,11 @@ _CS = ["--algo", "cross_silo", "--agg_mode", "stream", "--model_shards",
      ValueError, "ingest_queue_depth"),
     (["--journal", "true", "--agg_mode", "stack", "--model_shards", "0"],
      ValueError, "streaming-fold"),
-    (["--health", "true"], NotImplementedError, "health"),
-    (["--adaptive", "true"], NotImplementedError, "item 9"),
+    # the observability flags are ported: JAX's gates (the recorders
+    # hook the live round lifecycle; --adaptive needs --health)
+    (["--health", "true", "--algo", "fedavg", "--model_shards", "0"],
+     ValueError, "instrument the live round"),
+    (["--adaptive", "true"], ValueError, "requires --health"),
     (["--adversary", "3:gauss:0.1"], ValueError, "only 2 silos"),
     (["--journal_snapshot_every", "0"], ValueError,
      "journal_snapshot_every"),

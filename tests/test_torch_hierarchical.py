@@ -284,9 +284,10 @@ def test_edge_without_a_snapshot_gives_the_round_up(tmp_path):
     assert edge.resume() is False
     with pytest.raises(ValueError, match="exactly one"):
         EdgeAggregatorActor(1, LocalHub().transport(1), {3: 1}, 4, 4, None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        EdgeAggregatorActor(1, LocalHub().transport(1), {3: 1}, 4, 4,
-                            StreamingAggregator(init), health=object())
+    # the edge's health seam is ported: taken, not refused
+    edge = EdgeAggregatorActor(1, LocalHub().transport(1), {3: 1}, 4, 4,
+                               StreamingAggregator(init), health=object())
+    assert edge.health is not None
 
 
 def _exact_init():

@@ -265,3 +265,31 @@ def test_live_machinery_modules_import_without_jax():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+OBSERVABILITY_MODULES = (
+    "fedml_tpu_torch.obs", "fedml_tpu_torch.obs.trace",
+    "fedml_tpu_torch.obs.critical_path", "fedml_tpu_torch.obs.perf",
+    "fedml_tpu_torch.obs.device", "fedml_tpu_torch.obs.health",
+    "fedml_tpu_torch.obs.report", "fedml_tpu_torch.obs.trend",
+    "fedml_tpu_torch.server_opt.controller")
+
+
+def test_observability_modules_import_without_jax():
+    """The observability slice (spans, the perf and health ledgers, the
+    device observatory, the report, the trend gate, the controller),
+    each named, imports with JAX and the JAX package blocked; importing
+    it starts no sampler thread and enables no tracer or registry."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib, threading\n"
+            f"for m in {OBSERVABILITY_MODULES!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"from fedml_tpu_torch.obs import telemetry, trace\n"
+            f"assert trace.get_tracer() is None\n"
+            f"assert not telemetry.get_registry().enabled\n"
+            f"assert not [t for t in threading.enumerate()\n"
+            f"            if t.name.startswith('perf-rss')]\n"
+            f"print('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

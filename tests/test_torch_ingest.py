@@ -144,15 +144,28 @@ def test_structural_damage_is_caught_without_a_tree_walk(damage):
     assert arena.copies == 0
 
 
-def test_unsupported_templates_and_object_messages_fall_back():
+def test_unsupported_templates_and_object_messages_fall_back(tmp_path):
     ints = {"step": np.int32(3), "w": np.zeros(3, np.float32)}
     arena = IngestArena(ints)
     assert not arena.supported and arena.stage_tree(ints) is None
     fp = IngestArena(_tree(0))
     obj = Message(3, 1, 0).add("model_params", _tree(1))   # never encoded
     assert fp.stage_message(obj, "model_params") is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        IngestArena(_tree(0), perf=object())
+    # the arena's perf seam is ported: its screen joins the recorder's
+    # compile ledger as <name>_screen, its staging unchanged
+    from fedml_tpu_torch.obs import DeviceRecorder, PerfRecorder
+    perf = PerfRecorder(str(tmp_path / "perf.jsonl"),
+                        device=DeviceRecorder())
+    try:
+        timed = IngestArena(_tree(0), perf=perf, name="ingest")
+        perf.round_start(0)
+        screen = timed.stage_tree(_tree(1))
+        line = perf.round_end(0)
+    finally:
+        perf.close()
+    assert screen.structural_ok and timed.copies == 1
+    assert [c["fn"] for c in line["device"]["compiles"]] == \
+        ["ingest_screen"]
 
 
 @pytest.mark.parametrize("case", ["clean", "nonfinite", "fingerprint"])

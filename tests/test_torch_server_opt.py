@@ -322,6 +322,9 @@ class TestConfigGates:
             check_config(config_from_argv(self._BASE + flags))
 
     def test_adaptive_still_refused_naming_item_9(self):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        # the controller is ported: JAX's gate (--adaptive needs --health)
+        with pytest.raises(ServerOptConfigError, match="requires --health"):
             check_config(config_from_argv(self._BASE + ["--adaptive",
                                                         "true"]))
+        check_config(config_from_argv(self._BASE + ["--adaptive", "true",
+                                                    "--health", "true"]))
