@@ -152,14 +152,15 @@ each printed as it ends; any failure exits non-zero:
    the round's ms and the device's idle share over 3 more rounds; one
    round with TF32 off against the CPU (limit 1e-4; DP-FedAvg's ε equal);
 8l. cross-device — ``--algo cross_device`` on the CNN at 3400 clients,
-   1000 a round in waves of 256 (the last 232 live), 3 rounds each of
+   1000 a round in waves of 256 (the last 232 live), 2 rounds each of
    ``--local_alg sgd``, ``fedprox`` (mu 0.1), ``fednova``, ``sgd
    --server_opt adam`` and ``scaffold`` (200 clients, 100 a round, waves
    of 32): rounds/s, peak memory, one round's split a wave (gather,
-   training, admission, fold; SCAFFOLD's state gather and scatter) and one
-   profiled round (host launch calls, device kernels, idle share); one
-   round of each local algorithm with TF32 off against the CPU at 40 a
-   round in waves of 16 (limit 1e-4; FedNova at its finalized mean, its
+   training, admission, fold; SCAFFOLD's state gather and scatter) and,
+   for sgd and scaffold, one profiled round (host launch calls, device
+   kernels, idle share); one
+   round of each local algorithm with TF32 off against the CPU at 16 a
+   round in waves of 8 (limit 1e-4; FedNova at its finalized mean, its
    tau_eff step scaling that difference and nothing more); one round in
    waves of 256 against one wave of 1000 (deterministic mode, limit
    ``WAVE_CHUNK_TOL``; bit-equality reported); ``--sampler jax``'s waves
@@ -167,21 +168,25 @@ each printed as it ends; any failure exits non-zero:
    on) in waves of 32 against one wave of 100, and against another seed's
    masks; a resume from round 1's checkpoint bit-equal to the straight
    run; BASELINE config 4 (``resnet18_gn`` on ``fed_cifar100``, 500
-   clients, 10 a round) with fedprox and fednova, profiled the same way,
-   fedprox's round against the CPU; one round of ``resnet56`` on the
+   clients, 10 a round) with fedprox and fednova, 2 rounds, fedprox
+   profiled the same way and its round against the CPU on 4 clients; one
+   round of
+   ``resnet56`` on the
    ``cifar10`` twin; the phase's seconds;
 8m. zoo_models — BASELINE config 5's LSTMs through FedAvg (``--model
    rnn``: Shakespeare, 715 clients, 10 a round, B=4, lr 1; StackOverflow,
    342,477 clients, 50 a round, B=16, lr 10^-0.5), and the BatchNorm
    ResNet-56 and MobileNet (``stateful=True``, the cifar10 twin, 10
-   clients, B=64, lr 0.1), each in deterministic mode: 3 host-loop rounds
-   and 3 graphed rounds from one init, bit-equal; the first round against
-   the CPU (limit 1e-4); rounds/s and round ms of each path, one profiled
+   clients, B=64, lr 0.1), each in deterministic mode: 2 host-loop rounds
+   and 2 graphed rounds from one init, bit-equal; a cohort step of round
+   0's first 2 clients against the CPU (limit 1e-4); rounds/s and round
+   ms of each path, one profiled
    graphed round (host launch calls, device kernels, idle share), peak
    memory, the running statistics moved; config 3's live cross-silo federation (S=4,
-   K2 on; E=1, cut from 20) on ``resnet56`` and ``mobilenet``, 3 rounds
-   each through the runner: exactly 4 K2 launches a round, one profiled
-   round, one round against the CPU at ``CONFIG3_PARITY_EPOCHS`` (1); the
+   K2 on; E=1, cut from 20) on ``resnet56`` and ``mobilenet``, 2 rounds
+   each through the runner: exactly 4 K2 launches a round, one round of 2
+   silos against the CPU at
+   ``CONFIG3_PARITY_EPOCHS`` (1); the
    BatchNorm ResNet-56 through the defended mean (weak DP, fused
    backend): K1n's and K1's launches a round counted on the main path,
    both held against their plain versions over its 292-leaf table at
@@ -254,11 +259,31 @@ each printed as it ends; any failure exits non-zero:
 11. transformer cli — 3 rounds of the dense Shakespeare transformer (the
    JAX CLI's widths, 715 clients, 10 per round, B=4, SGD lr 1) through
    the CLI's runner (graphed device rounds): rounds/s and a finite loss;
+8p. mixed precision — the bf16 K4f, K4dkv and K4dq (their registers,
+   spills and tensor-core instructions in phase 9's build report) against
+   their plain versions (cuBLAS without bf16 reductions, TF32 off) at
+   [8, 2048, 8, 32] and at d = 16 and 64 (T=256): o, dq, dk, dv within
+   2^-7 x max|ref|, m and l within 1e-5 x max|ref|; their times, the
+   plain versions', the bounds (bf16 products at 989.4 TF/s, bytes, exps)
+   and SDPA's bf16 forward and backward; phase 10's transformer under
+   ``--compute_dtype bfloat16`` through the API, graphed, its bf16 K4
+   launches counted as phase 10 counts the f32 ones, its round ms and
+   peak memory beside the f32 slice's, one step of 1 client against the
+   CPU (limit ``BF16_ROUND_TOL`` x the step's move); bench.py's
+   transformer_T2048_moe8 (8 Switch experts, blockwise attention) in bf16
+   and f32 the same way, the tokens its routing drops over capacity, the
+   f32 step against the CPU (1e-4); one bf16 run of 2 rounds each of the
+   FEMNIST CNN (graphed), the BatchNorm ResNet-56 (running statistics
+   f32) and the defended FedAvg (K1n and K1 once a round, on f32 leaves),
+   and EfficientNet-B0 and VGG-11 on the cifar10 twin in f32, each
+   leaf f32 and a cohort step of 2 clients against the CPU; the phase's
+   seconds;
 12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
    and K2 also at their library call's configuration, sigma 0; K2's
    launches are phase 8j's adam run's, phase 8's beside them; K4's
    launches are the warm-up's and evaluation's plus the captured ones
-   times the replays), and a last line
+   times the replays; the bf16 K4's those of phase 8p's bf16
+   transformer), and a last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, printing no result, when there is
@@ -336,8 +361,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# the script's clock: each phase line carries its seconds since the start
+_T0 = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    print(json.dumps({"phase": name, **fields,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -2815,11 +2845,14 @@ def flash_smem_bytes(kernel: str, d: int) -> int:
     head size ``d``: ``kv_smem_bytes`` and ``dkv_smem_bytes`` of
     ``csrc/flash_attention.cu``, two buffers of 64-row tiles padded to
     d + 4 floats (K4f and K4dq: K and V; K4dkv: Q and dO, then m, l and
-    di)."""
-    tile = 64 * (d + 4)
-    per_buffer = {"flash_fwd": 2 * tile, "flash_bwd_dkv": 2 * tile + 3 * 64,
-                  "flash_bwd_dq": 2 * tile}[kernel]
-    return 2 * per_buffer * 4
+    di); the ``_bf16`` kernels' tiles are bf16 rows padded to d + 8
+    (``kv_smem_bytes_bf16``, ``dkv_smem_bytes_bf16``), m, l, di f32."""
+    bf16 = kernel.endswith("_bf16")
+    tile = 64 * (d + 8) * 2 if bf16 else 64 * (d + 4) * 4
+    per_buffer = {"flash_fwd": 2 * tile,
+                  "flash_bwd_dkv": 2 * tile + 3 * 64 * 4,
+                  "flash_bwd_dq": 2 * tile}[kernel.replace("_bf16", "")]
+    return 2 * per_buffer
 
 
 def check_flash_build(lib_path: Path):
@@ -2835,7 +2868,7 @@ def check_flash_build(lib_path: Path):
         print("cuobjdump not found: tensor-core instructions not counted",
               flush=True)
     report = {}
-    for kernel in fa.launch_counts:
+    for kernel in fa.launch_counts:      # the f32 and the bf16 kernels
         for d in fa.KERNEL_HEAD_DIMS:
             key = f"{kernel}_kernelILi{d}E"
             [fn] = [f for f in ptxas if key in f]
@@ -3047,9 +3080,10 @@ def lm_fedavg(data, use_flash: bool, comm_round: int = LM_ROUNDS):
                                      **LM_FEDAVG), device="cuda")
 
 
-K4_KERNELS = {"flash_fwd": "flash_fwd_kernel",
-              "flash_bwd_dkv": "flash_bwd_dkv_kernel",
-              "flash_bwd_dq": "flash_bwd_dq_kernel"}
+K4_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+K4_BF16_NAMES = tuple(f"{n}_bf16" for n in K4_NAMES)
+# each wrapper's CUDA kernel, as a captured graph's nodes name it
+K4_KERNELS = {n: f"{n}_kernel" for n in K4_NAMES}
 
 
 def graph_kernel_counts(dot: str, names) -> dict:
@@ -3060,28 +3094,33 @@ def graph_kernel_counts(dot: str, names) -> dict:
     return {n: sum(1 for node in nodes if n in node) for n in names}
 
 
-def run_lm_slice(data, root: Path):
+def run_lm_slice(data, root: Path, algo=None, names=K4_NAMES,
+                 label: str = "transformer slice"):
     """The transformer slice's main path: FedAvg through the API on the
     flash model, LM_ROUNDS rounds with an evaluation at the first and the
     last.  The rounds run as replays of one captured CUDA graph, so the
     kernels launched in training are those of the warm-up round (through
     the wrappers) and the captured ones once per replay: the capture must
-    hold n_layers x S launches of each K4 kernel, by the wrappers' counts
-    during the capture and by the graph's own kernel nodes, and the graph
-    must replay once a round; evaluation launches only K4f (counted
-    apart)."""
+    hold n_layers x S launches of each K4 kernel of ``names`` (the f32
+    kernels, or the bf16 ones under bf16), by the wrappers' counts during
+    the capture and by the graph's own kernel nodes, and the graph must
+    replay once a round; evaluation launches only K4f (counted apart).
+    ``algo`` (default the f32 flash model's) may be a model without K4
+    (``names=()``: the MoE runs); then only the graph is checked.
+    Returns (launches, launches a round, a row: rounds/s, steady ms a
+    round, peak GB; the final global)."""
     import torch
     from fedml_tpu_torch.models import flash_attention as fa
     from fedml_tpu_torch.parallel import cohort
 
-    algo = lm_fedavg(data, use_flash=True)
-    evaluate, eval_counts = algo.evaluate_global, dict.fromkeys(
-        fa.launch_counts, 0)
+    algo = algo or lm_fedavg(data, use_flash=True)
+    reset_peak()
+    evaluate, eval_counts = algo.evaluate_global, dict.fromkeys(names, 0)
 
     def counted_eval(params):
         before = dict(fa.launch_counts)
         out = evaluate(params)
-        for k in before:
+        for k in names:
             eval_counts[k] += fa.launch_counts[k] - before[k]
         return out
 
@@ -3097,30 +3136,30 @@ def run_lm_slice(data, root: Path):
     finally:
         cohort.GRAPH_DOT_DIR = None
     run_s = time.perf_counter() - t0
-    total = dict(fa.launch_counts)
+    total = {k: fa.launch_counts[k] for k in names}
     graph = getattr(algo._device_round, "graph", None)
     if graph is None:
-        fail("the transformer slice did not run the graphed device round")
+        fail(f"the {label} did not run the graphed device round")
     steps = int(data.train["mask"].shape[1]) * LM_FEDAVG["epochs"]
     per_round = LM["n_layers"] * steps
     captured = {k: graph.captured_launches.get(k, 0) for k in total}
     warmup = {k: graph.warmup_launches.get(k, 0) for k in total}
     wrapper_train = {k: total[k] - eval_counts[k] for k in total}
     nodes = graph_kernel_counts(Path(graph.dot_path).read_text(),
-                                K4_KERNELS.values())
-    nodes = {k: nodes[v] for k, v in K4_KERNELS.items()}
+                                [f"{k}_kernel" for k in names])
+    nodes = {k: nodes[f"{k}_kernel"] for k in names}
     if graph.captures != 1 or graph.replays != LM_ROUNDS:
-        fail(f"the transformer slice captured {graph.captures} graphs and "
+        fail(f"the {label} captured {graph.captures} graphs and "
              f"replayed {graph.replays} times; need 1 and {LM_ROUNDS}")
     if any(captured[k] != per_round or nodes[k] != per_round
            or warmup[k] != per_round * graph.warmup_rounds
            or wrapper_train[k] != warmup[k] + captured[k] for k in total):
-        fail(f"the transformer slice's graph holds {nodes} K4 kernel nodes "
+        fail(f"the {label}'s graph holds {nodes} K4 kernel nodes "
              f"and its capture launched {captured} (warm-up {warmup}, "
              f"wrapper calls in training {wrapper_train}); each K4 kernel "
              f"must appear n_layers x S = {per_round} times a round")
-    if eval_counts["flash_bwd_dkv"] or eval_counts["flash_bwd_dq"] \
-            or not eval_counts["flash_fwd"]:
+    if names and (eval_counts[names[1]] or eval_counts[names[2]]
+                  or not eval_counts[names[0]]):
         fail(f"evaluation launched {eval_counts}; it runs K4f only")
     # launches on the main path: the eager ones (warm-up, evaluation) and
     # the captured ones once per replay
@@ -3131,19 +3170,22 @@ def run_lm_slice(data, root: Path):
     if not finite or not all(
             float(last[k]) == float(last[k]) for k in ("train_loss",
                                                        "test_loss")):
-        fail(f"the transformer slice produced non-finite values: {last}")
+        fail(f"the {label} produced non-finite values: {last}")
+    if not all(v.dtype == torch.float32 for v in params.values()):
+        fail(f"the {label}'s global is not f32 (master parameters)")
     steady = algo.round_times[1:]
-    phase("transformer slice", graph_kernel_nodes=nodes,
+    row = dict(rounds_per_s=len(steady) / sum(steady),
+               steady_round_ms=sum(steady) / len(steady) * 1e3,
+               peak_mem_gb=peak_gb())
+    phase(label, graph_kernel_nodes=nodes,
           captured_launches=captured, warmup_launches=warmup,
           replays=graph.replays, train_launches=train,
           eval_launches=eval_counts, launches_per_round=per_round,
           steps_per_round=steps, capture_ms=graph.capture_s * 1e3,
-          run_s=run_s, rounds_per_s=len(steady) / sum(steady),
-          steady_round_ms=sum(steady) / len(steady) * 1e3,
-          train_loss=last["train_loss"], test_loss=last["test_loss"],
-          test_acc=last["test_acc"], params_finite=finite,
-          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches, per_round, len(steady) / sum(steady)
+          run_s=run_s, train_loss=last["train_loss"],
+          test_loss=last["test_loss"], test_acc=last["test_acc"],
+          params_finite=finite, **row)
+    return launches, per_round, row, params
 
 
 def profile_lm(data, rounds: int = 5):
@@ -3983,8 +4025,9 @@ CD_ARGS = ["--algo", "cross_device", "--model", "cnn_fedavg", "--dataset",
            "femnist", "--client_num_in_total", "3400",
            "--client_num_per_round", "1000", "--wave_size", "256",
            "--batch_size", "20", "--lr", "0.1", "--epochs", "1",
-           "--comm_round", "3", "--frequency_of_the_test", "1000",
+           "--comm_round", "2", "--frequency_of_the_test", "1000",
            "--log_stdout", "false"]
+# (cut to 2 rounds from 3 to fit phase 8p: the steady round is round 2)
 # 4 waves a round, the last 232 live and 24 pads; SCAFFOLD keeps a host
 # model per client (3400 x 6.76 MB = 23 GB), so it runs at 200 clients
 CD_RUNS = {
@@ -3994,7 +4037,14 @@ CD_RUNS = {
     "sgd_adam": ["--server_opt", "adam", "--server_lr", "0.01"],
     "scaffold": ["--local_alg", "scaffold", "--client_num_in_total", "200",
                  "--client_num_per_round", "100", "--wave_size", "32"]}
-CD_PARITY = ["--client_num_per_round", "40", "--wave_size", "16"]
+# the CPU reference rounds' cohort: 16 clients in 2 waves (cut from 40 in
+# waves of 16 to fit phase 8p; the CPU rounds were most of the phase)
+CD_PARITY = ["--client_num_per_round", "16", "--wave_size", "8"]
+# the runs profiled (a profiled round costs ~7 s of host time): plain SGD,
+# SCAFFOLD (its host state) and config 4's fedprox; fedprox, fednova and
+# adam run sgd's path with another local step or server step (cut to fit
+# phase 8p)
+CD_PROFILED = ("sgd", "scaffold", "config4 fedprox")
 CD_SMALL = ["--client_num_per_round", "100", "--wave_size", "32"]
 CD_SMALL_SINGLE = 100          # CD_SMALL's cohort as one wave
 CD_SINGLE_WAVE = 1000          # the chunking check's one wave
@@ -4005,11 +4055,12 @@ WAVE_CHUNK_TOL = ROUND_TOL
 CONFIG4_ARGS = ["--algo", "cross_device", "--model", "resnet18_gn",
                 "--dataset", "fed_cifar100", "--client_num_in_total", "500",
                 "--client_num_per_round", "10", "--batch_size", "20",
-                "--lr", "0.1", "--epochs", "1", "--comm_round", "3",
+                "--lr", "0.1", "--epochs", "1", "--comm_round", "2",
                 "--frequency_of_the_test", "1000", "--log_stdout", "false"]
 CONFIG4_RUNS = {"fedprox": ["--local_alg", "fedprox", "--mu", "0.1"],
                 "fednova": ["--local_alg", "fednova"]}
-CONFIG4_PARITY = "fedprox"     # the config-4 run held against the CPU
+CONFIG4_PARITY = "fedprox"     # the config-4 run held against the CPU ...
+CONFIG4_PARITY_COHORT = ["--client_num_per_round", "4"]   # ... on 4 clients
 GN_ROUND_TOL = ROUND_TOL       # ResNet-18-GN round, card (TF32 off) vs CPU
 RESNET56_ARGS = ["--algo", "cross_device", "--model", "resnet56",
                  "--dataset", "cifar10", "--client_num_in_total", "10",
@@ -4100,10 +4151,11 @@ def wave_split(algo, params, round_idx: int):
     return params, out
 
 
-def cd_run(name: str, cfg, data):
-    """``cfg`` through the runner's engine: 3 rounds, rounds/s after the
-    first, peak memory; then one round's split by part and one profiled
-    round (host launch calls, device kernels, idle share)."""
+def cd_run(name: str, cfg, data, profiled: bool = True):
+    """``cfg`` through the runner's engine: its rounds, rounds/s after the
+    first, peak memory; then one round's split by part and, when
+    ``profiled``, one profiled round (host launch calls, device kernels,
+    idle share)."""
     import gc
     import torch
     reset_peak()
@@ -4135,7 +4187,8 @@ def cd_run(name: str, cfg, data):
     def run(_algo=algo, _state=state):
         _state["params"] = cd_round(_algo, _state["params"], _state["r"])
         _state["r"] += 1
-    row.update(path_profile(run, 1))
+    if profiled:
+        row.update(path_profile(run, 1))
     del algo, params, state, run
     gc.collect()
     if CARD == "cuda":
@@ -4331,7 +4384,8 @@ def check_cross_device(data, root: Path):
     runs = {}
     for name, extra in CD_RUNS.items():
         cfg = cd_cfg([*CD_ARGS, *extra])
-        runs[name] = cd_run(name, cfg, cd_data(cfg, cache))
+        runs[name] = cd_run(name, cfg, cd_data(cfg, cache),
+                            profiled=name in CD_PROFILED)
         phase(f"cross_device {name}", **runs[name])
     parity = {}
     for name in ("sgd", "fedprox", "fednova", "scaffold"):
@@ -4355,9 +4409,11 @@ def check_cross_device(data, root: Path):
     config4 = {}
     for name, extra in CONFIG4_RUNS.items():
         cfg = cd_cfg([*CONFIG4_ARGS, *extra])
-        config4[name] = cd_run(name, cfg, cd_data(cfg, cache))
+        config4[name] = cd_run(name, cfg, cd_data(cfg, cache),
+                               profiled=f"config4 {name}" in CD_PROFILED)
         phase(f"cross_device config4 {name}", **config4[name])
-    argv = [*CONFIG4_ARGS, *CONFIG4_RUNS[CONFIG4_PARITY]]
+    argv = [*CONFIG4_ARGS, *CONFIG4_RUNS[CONFIG4_PARITY],
+            *CONFIG4_PARITY_COHORT]
     gn = cd_parity(f"config4 {CONFIG4_PARITY}", argv,
                    cd_data(cd_cfg(argv), cache), GN_ROUND_TOL)
     phase("cross_device config4 vs cpu", local_alg=CONFIG4_PARITY,
@@ -4407,13 +4463,18 @@ ZOO_NWP_ARGS = {
                  "--client_num_in_total", "342477",
                  "--client_num_per_round", "50", "--batch_size", "16",
                  "--lr", "0.31623"]}
-ZOO_ROUNDS = 3                 # rounds of each FedAvg path
+ZOO_ROUNDS = 2                 # rounds of each FedAvg path (cut from 3 to
+#                                fit phase 8p: the steady round is round 2)
+# the CPU reference round of each FedAvg configuration: round 0's first
+# ZOO_PARITY_CLIENTS clients as one cohort step on the card and on the CPU
+# (cut from the whole cohort: the CPU rounds took 10-32 s each)
+ZOO_PARITY_CLIENTS = 2
 CONFIG3_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
                 "--agg_mode", "stream", "--model_shards", "4",
                 "--fused_finalize", "on", "--dataset", "cifar10",
                 "--client_num_in_total", "10", "--client_num_per_round",
                 "10", "--batch_size", "64", "--lr", "0.001", "--wd", "0.001",
-                "--epochs", "1", "--comm_round", "3",
+                "--epochs", "1", "--comm_round", "2",
                 "--frequency_of_the_test", "1000", "--log_stdout", "false"]
 # cut: E=1 of the published E=20.  Each silo trains eagerly, one step an
 # epoch on the twin; at E=20 a ResNet-56 round took 25.1 s on an H100
@@ -4423,6 +4484,8 @@ CONFIG3_MODELS = ("resnet56", "mobilenet")
 # the CPU reference round runs 1 epoch: at E=2 a ResNet-56 round took
 # ~75 s on the host cores of an H100 machine
 CONFIG3_PARITY_EPOCHS = 1
+# ... and 2 of the 10 silos (cut from 10 to fit phase 8p)
+CONFIG3_PARITY_SILOS = 2
 BN_ARGS = ["--algo", "fedavg", "--model", "resnet56", "--dataset",
            "cifar10", "--client_num_in_total", "10",
            "--client_num_per_round", "10", "--batch_size", "64", "--lr",
@@ -4435,7 +4498,7 @@ BN_ROBUST_ARGS = [*BN_ARGS, "--algo", "fedavg_robust", "--defense",
 CENTRAL_ARGS = ["--algo", "centralized", "--model", "cnn_fedavg",
                 "--dataset", "femnist", "--client_num_in_total", "100",
                 "--batch_size", "20", "--lr", "0.1", "--epochs", "1",
-                "--comm_round", "3", "--frequency_of_the_test", "1",
+                "--comm_round", "2", "--frequency_of_the_test", "1",
                 "--log_stdout", "false"]
 # the oracle on LR over the mnist twin, as tests/test_fedavg_oracle.py
 # holds it: the FEMNIST CNN without grad clipping is chaotic at lr 0.1 (a
@@ -4500,11 +4563,33 @@ def steady(times):
                 round_ms=1e3 * sum(rest) / len(rest))
 
 
+def cohort_parity(card_algo, cpu_algo, data, init, clients: int):
+    """Round 0's first ``clients`` sampled clients as one cohort step
+    from ``init`` on the card's algorithm and on the CPU's: (the card's
+    new global on the host, the CPU's, the CPU step's seconds)."""
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.stacking import gather_cohort
+    ids = sample_clients(0, data.client_num,
+                         card_algo.cfg.client_num_per_round)[:clients]
+    out, cpu_s = [], 0.0
+    for algo in (card_algo, cpu_algo):
+        cohort = gather_cohort(data.train, ids, pad_to=clients,
+                               device=algo.device)
+        t0 = time.perf_counter()
+        params, _ = algo.cohort_step(
+            {k: v.to(algo.device) for k, v in init.items()}, cohort)
+        sync(algo.device)
+        cpu_s = time.perf_counter() - t0
+        out.append({k: v.cpu() for k, v in params.items()})
+    return out[0], out[1], cpu_s
+
+
 def zoo_fedavg(name: str, cfg, data, workload_fn=None):
     """One FedAvg configuration on the card in deterministic mode (cuDNN
     deterministic, TF32 off): ZOO_ROUNDS rounds of the host-gather loop
-    and of the graphed device round from one init, bit-equal; the first
-    round held against the port on the CPU (ROUND_TOL); rounds/s and
+    and of the graphed device round from one init, bit-equal; a cohort
+    step of round 0's first ZOO_PARITY_CLIENTS clients held against the
+    port on the CPU (ROUND_TOL); rounds/s and
     round ms of each path, one profiled round of the graph (the main
     path; a host-loop round of the LSTM, ~94,000 launches, costs the
     profiler tens of seconds); the peak memory; a stateful workload's
@@ -4567,11 +4652,13 @@ def zoo_fedavg(name: str, cfg, data, workload_fn=None):
         row["graph"].update(profile_once(run_graph, 1))
         cpu = fedavg_algo(dataclasses.replace(cfg, platform="cpu"), data,
                           "cpu", wl_fn())
-        cpu_first, _, cpu_times = timed_host_rounds(
-            cpu, data, {k: v.cpu() for k, v in init.items()}, 1)
-        row.update(vs_cpu_max_abs_diff=max_diff(first, cpu_first),
-                   vs_cpu_tol=ROUND_TOL, cpu_round_s=cpu_times[0])
-    del host, graphed, graph, cpu, state, got, want, first, cpu_first
+        card_part, cpu_part, cpu_s = cohort_parity(host, cpu, data, init,
+                                                   ZOO_PARITY_CLIENTS)
+        row.update(vs_cpu_max_abs_diff=max_diff(card_part, cpu_part),
+                   vs_cpu_tol=ROUND_TOL, vs_cpu_clients=ZOO_PARITY_CLIENTS,
+                   cpu_round_s=cpu_s)
+    del host, graphed, graph, cpu, state, got, want, first, card_part, \
+        cpu_part
     gc.collect()
     if CARD == "cuda":
         torch.cuda.empty_cache()
@@ -4586,12 +4673,13 @@ def zoo_fedavg(name: str, cfg, data, workload_fn=None):
 def zoo_silo(model: str, cache: dict):
     """Config 3's live cross-silo federation (stream fold, S=4 shards, K2
     on) on ``model`` through the CLI's runner: exactly one K2 launch per
-    shard a round and no K1 or K3; rounds/s, one profiled round; one
-    round against the CPU at CONFIG3_PARITY_EPOCHS epochs."""
+    shard a round and no K1 or K3; rounds/s; one round of
+    CONFIG3_PARITY_SILOS silos against the CPU at CONFIG3_PARITY_EPOCHS
+    epochs.  (Its profiled round went to fit phase 8p: profiling the
+    ~44,000 eager launches of a round cost ~20 s of host time.)"""
     import dataclasses
     from fedml_tpu_torch.core import fused_agg
-    from fedml_tpu_torch.experiments.main import (CrossSiloFederation,
-                                                  run_cross_silo)
+    from fedml_tpu_torch.experiments.main import run_cross_silo
     from fedml_tpu_torch.secure import fused_mask
     from fedml_tpu_torch.utils.metrics import MetricsSink
 
@@ -4620,15 +4708,13 @@ def zoo_silo(model: str, cache: dict):
                rounds_per_s=summary["rounds_per_s"],
                round_ms=1e3 / summary["rounds_per_s"],
                test_acc=summary.get("test_acc"), peak_gb=peak_gb())
-    with MetricsSink(None) as sink:
-        fed = CrossSiloFederation(dataclasses.replace(cfg, comm_round=1),
-                                  data, sink)
-        row.update(profile_once(fed.run, 1))
     # lr 0.001 moves the global by little in a round: the round must move
     # it, by any amount
     row["vs_cpu_max_abs_diff"] = silo_round_parity(dataclasses.replace(
-        cfg, epochs=CONFIG3_PARITY_EPOCHS), data, min_move=0.0)
+        cfg, epochs=CONFIG3_PARITY_EPOCHS,
+        client_num_per_round=CONFIG3_PARITY_SILOS), data, min_move=0.0)
     row.update(vs_cpu_tol=ROUND_TOL, vs_cpu_epochs=CONFIG3_PARITY_EPOCHS,
+               vs_cpu_silos=CONFIG3_PARITY_SILOS,
                seconds=time.perf_counter() - t_run)
     phase(f"zoo config3 {model}", **row)
     return row
@@ -4716,14 +4802,14 @@ def check_k1_bn_table(stacked, weights, glob, seed_words, sm_hz):
     weight_sizes = [layout.sizes[j] for j in layout.norm_rows]
     if CARD == "cuda":
         out["table"] = dict(
-            ms=device_ms(call, 20, "robust_agg_kernel", windows=5)
+            ms=device_ms(call, 20, "robust_agg_kernel")
             or time_ms(call, 50),
             # CUDA events: ~117k small ops a call would swamp the profiler
             plain_ms=time_ms(plain, 1, trials=3),
             library_ms=device_ms(library, 20) or time_ms(library, 50),
             **op_bound(*robust_agg_work(n, layout.sizes, SIGMA), sm_hz))
         out["clip_norm"] = dict(
-            ms=device_ms(norm, 20, "clip_norm_kernel", windows=5)
+            ms=device_ms(norm, 20, "clip_norm_kernel")
             or time_ms(norm, 50),
             plain_ms=device_ms(eager, 20) or time_ms(eager, 20),
             **op_bound(*clip_norm_work(n, weight_sizes), sm_hz))
@@ -5735,6 +5821,382 @@ def check_observability(data, root: Path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8p: mixed precision (--compute_dtype bfloat16) with K4 in bf16, the
+# Switch MoE transformer (--moe_experts), EfficientNet and VGG
+# ---------------------------------------------------------------------------
+
+BF16_SHAPES = {                # [B, T, H, d], as the bf16 model calls K4
+    "vmap": (8, 2048, 8, 32),      # 4 clients x B=2, the vmap fold
+    "d16": (2, 256, 4, 16),        # the other head sizes the kernels take
+    "d64": (2, 256, 4, 64),
+}
+BF16_KERNEL_TOL = 2.0 ** -7    # x max|ref|: o, dq, dk, dv (two bf16 ulps at
+#                                the top of the range)
+BF16_ML_TOL = 1e-5             # x max|ref|: m and l (f32), as the f32
+#                                kernels' (a row max near 0 has no useful
+#                                relative error: its scores are f32 sums)
+BF16_OPS_PER_S = 989.4e12      # H100 SXM data sheet, dense bf16 tensor cores
+# a bf16 step on the card against the same step on CPU tensors, relative
+# to the step's largest move: max|card - cpu| <= BF16_ROUND_TOL x
+# max|cpu - init|, the step moving some weight by more than 10 x ROUND_TOL.
+# cuBLAS and the CPU round bf16 products at other places (a bias added
+# before or after the output's rounding), and the forward kernel rounds P
+# against the running max of its 32-key half where the plain version uses
+# the row's final max; each such difference is one bf16 ulp (2^-8) of an
+# activation or gradient.  Relative, because the slices move their
+# weights by 0.01 (the LM) to 2.6 (the BatchNorm ResNet) in a step; the
+# CPU tests saw the port's bf16 rounds within 1.5% of the JAX package's
+BF16_ROUND_TOL = 5e-2
+K4_BF16_REPLACES = {f"{k}_bf16": v for k, v in K4_REPLACES.items()}
+MOE_EXPERTS = 8                # bench.py's transformer_T2048_moe8 ...
+MOE_BLOCK = LM_BENCH_BLOCK     # ... with its blockwise attention (block 256)
+LM_PARITY_CLIENTS = 1          # the LM rounds' CPU reference cohort (a
+#                                bf16 step of 2 clients took 36 s there)
+BF16_PARITY_CLIENTS = 2        # the image rounds' CPU reference cohort
+BF16_ROUNDS = 2                # rounds of each image run (steady: round 2)
+_BF16 = ["--compute_dtype", "bfloat16"]
+_CIFAR = ["--algo", "fedavg", "--dataset", "cifar10",
+          "--client_num_in_total", "10", "--client_num_per_round", "10",
+          "--batch_size", "64", "--lr", "0.1", "--epochs", "1",
+          "--comm_round", str(BF16_ROUNDS), "--frequency_of_the_test",
+          "1000", "--log_stdout", "false"]
+# (name, CLI args, the BatchNorm model's `bn_models` key or None); a bf16
+# run is held at BF16_ROUND_TOL x its move, an f32 one at ROUND_TOL
+BF16_IMAGE_RUNS = (
+    ("cnn bf16", [*FEDAVG_ARGS, *_BF16, "--comm_round", str(BF16_ROUNDS)],
+     None),
+    ("resnet56_bn bf16", [*_CIFAR, "--model", "resnet56", *_BF16],
+     "resnet56_bn"),
+    ("fedavg_robust bf16", [*SLICE_ARGS, *_BF16, "--comm_round",
+                            str(BF16_ROUNDS)], None),
+    ("efficientnet", [*_CIFAR, "--model", "efficientnet"], None),
+    ("vgg11", [*_CIFAR, "--model", "vgg11"], None))
+
+
+def flash_bf16_bounds(b: int, h: int, t: int, d: int, sm_hz: float):
+    """Per bf16 K4 kernel, the least time the card could take (ms): the
+    largest of its bytes over 3.35 TB/s (bf16 rows, f32 m, l, di), its
+    products over the 989.4 TF/s bf16 tensor-core rate and its exps at
+    the SFU's 16 per clock per SM (``obs.device.flash_bf16_work``)."""
+    from fedml_tpu_torch.obs.device import flash_bf16_work
+    out = {}
+    for name, (nbytes, ops, pairs) in flash_bf16_work(b, h, t, d).items():
+        terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bf16": ops / BF16_OPS_PER_S * 1e3,
+                 "exp": pairs / (SFU_EXPS_PER_CLOCK * sm_hz) * 1e3}
+        term = max(terms, key=terms.get)
+        out[name] = dict(bound_ms=terms[term],
+                         bound_by="bytes" if term == "bytes"
+                         else "operations", bound_term=term,
+                         **{f"{k}_ms": v for k, v in terms.items()})
+    return out
+
+
+@contextlib.contextmanager
+def bf16_exact_reductions():
+    """cuBLAS may not reduce bf16 products in bf16 inside the block (the
+    plain versions' products then accumulate in f32, as the kernels'),
+    and TF32 is off."""
+    import torch
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        with tf32_off():
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = saved
+
+
+def check_flash_bf16_kernel(sm_hz: float):
+    """Phase 8p, step 1: the bf16 K4f, K4dkv and K4dq against their plain
+    versions on the card at BF16_SHAPES (o, dq, dk, dv within
+    BF16_KERNEL_TOL x max|ref|; m and l within BF16_ML_TOL x max|ref|), their
+    times, the plain versions', the bounds (at the SM's maximum clock) and
+    scaled_dot_product_attention's bf16 forward and backward at the same
+    shape (a yardstick the port never calls)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from fedml_tpu_torch.models import flash_attention as fa
+
+    rows, worst = {}, dict.fromkeys(K4_BF16_NAMES, 0.0)
+    bf = torch.bfloat16
+    with bf16_exact_reductions():
+        for shape_name, (b, t, h, d) in BF16_SHAPES.items():
+            rng = np.random.RandomState(b * 10000 + t + d)
+            q, k, v, do = (torch.tensor(rng.randn(b, h, t, d).astype(
+                np.float32)).to(CARD).to(bf) for _ in range(4))
+            o, m, l = fa.flash_fwd(q, k, v)
+            po, pm, pl = fa.flash_fwd_bf16_plain(q, k, v)
+            di = (po.float() * do.float()).sum(-1)
+            bwd = (q, k, v, do, pm, pl, di)
+            dk, dv = fa.flash_bwd_dkv(*bwd)
+            pdk, pdv = fa.flash_bwd_dkv_bf16_plain(*bwd)
+            dq = fa.flash_bwd_dq(*bwd)
+            pdq = fa.flash_bwd_dq_bf16_plain(*bwd)
+            sync(CARD)
+            errs = {}
+            for key, kernel, got, want in (
+                    ("o", "flash_fwd_bf16", o, po),
+                    ("dk", "flash_bwd_dkv_bf16", dk, pdk),
+                    ("dv", "flash_bwd_dkv_bf16", dv, pdv),
+                    ("dq", "flash_bwd_dq_bf16", dq, pdq)):
+                if got.dtype != bf:
+                    fail(f"{kernel}: {key} is {got.dtype}, not bf16")
+                err = float((got.float() - want.float()).abs().max())
+                limit = BF16_KERNEL_TOL * float(want.float().abs().max())
+                errs[key] = err
+                worst[kernel] = max(worst[kernel], err)
+                if not err <= limit:
+                    fail(f"{kernel} {shape_name} {(b, t, h, d)}: {key} max "
+                         f"abs err {err} > {limit} ({BF16_KERNEL_TOL} x "
+                         f"max|ref|)")
+            for key, got, want in (("m", m, pm), ("l", l, pl)):
+                err = float((got - want).abs().max())
+                errs[key] = err
+                limit = BF16_ML_TOL * float(want.abs().max())
+                if got.dtype != torch.float32 or not err <= limit:
+                    fail(f"flash_fwd_bf16 {shape_name}: {key} ({got.dtype}) "
+                         f"max abs err {err} > {limit} ({BF16_ML_TOL} x "
+                         f"max|ref|)")
+            calls = {
+                "flash_fwd_bf16": (lambda: fa.flash_fwd(q, k, v),
+                                   lambda: fa.flash_fwd_bf16_plain(q, k, v)),
+                "flash_bwd_dkv_bf16": (
+                    lambda: fa.flash_bwd_dkv(*bwd),
+                    lambda: fa.flash_bwd_dkv_bf16_plain(*bwd)),
+                "flash_bwd_dq_bf16": (
+                    lambda: fa.flash_bwd_dq(*bwd),
+                    lambda: fa.flash_bwd_dq_bf16_plain(*bwd)),
+            }
+            bounds = flash_bf16_bounds(b, h, t, d, sm_hz)
+            row = {"shape_BTHd": [b, t, h, d], "max_abs_err": errs}
+            for name, (kernel, plain) in calls.items():
+                row[name] = dict(ms=launch_ms(kernel, 20),
+                                 plain_ms=launch_ms(plain, 5),
+                                 **bounds[name])
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                     is_causal=True)
+                torch.autograd.grad(out, (qg, kg, vg), do)
+
+            row["sdpa_fwd_ms"] = launch_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True), 20)
+            row["sdpa_fwd_bwd_ms"] = launch_ms(sdpa_fwd_bwd, 10)
+            row["sdpa_bwd_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
+            row["k4_bwd_ms"] = (row["flash_bwd_dkv_bf16"]["ms"]
+                                + row["flash_bwd_dq_bf16"]["ms"])
+            phase("kernel flash_attention bf16", shape=shape_name, **row)
+            rows[shape_name] = row
+            del q, k, v, do, qg, kg, vg
+    return rows, worst
+
+
+def lm_bf16_fedavg(data, device: str = None, dtype=None,
+                   moe: bool = False, comm_round: int = LM_ROUNDS):
+    """FedAvg on bench.py's T=2048 model: the flash model, or with
+    ``moe`` the transformer_T2048_moe8 variant (8 Switch experts,
+    blockwise attention at block 256), under ``dtype`` (bf16 mixed
+    precision, or f32 for None)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
+    from fedml_tpu_torch.models import TransformerLM
+    from fedml_tpu_torch.trainer.workload import NWPWorkload
+    kw = (dict(moe_experts=MOE_EXPERTS, block_size=MOE_BLOCK) if moe
+          else dict(use_flash=True))
+    return FedAvg(NWPWorkload(TransformerLM(**LM, dtype=dtype, **kw),
+                              compute_dtype=dtype),
+                  data, FedAvgConfig(comm_round=comm_round,
+                                     frequency_of_the_test=comm_round,
+                                     **LM_FEDAVG), device=device or CARD)
+
+
+def moe_dropped(algo, params, data) -> dict:
+    """Tokens the MoE layers drop over capacity on the first client's
+    first batch under ``params``: counted inside each layer's forward,
+    where its router holds these weights (a forward hook)."""
+    import torch
+    from fedml_tpu_torch.models.moe import SwitchFFN
+    from fedml_tpu_torch.trainer.workload import apply_model
+    counts, real = [], []
+
+    def hook(mod, args, kwargs, out):
+        mask = kwargs.get("mask")
+        counts.append(float(mod.dropped(args[0], mask)))
+        real.append(float(mask.sum()))
+
+    model = algo.workload.model
+    hooks = [m.register_forward_hook(hook, with_kwargs=True)
+             for m in model.modules() if isinstance(m, SwitchFFN)]
+    try:
+        x = torch.as_tensor(data.train["x"][0, 0]).to(algo.device)
+        with torch.no_grad():
+            apply_model(model, params, x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return dict(dropped_by_layer=counts, real_tokens_by_layer=real,
+                dropped_share=sum(counts) / max(sum(real), 1.0))
+
+
+def parity_row(got, want, init, dtype) -> dict:
+    """A card step against the CPU's from ``init``: its difference, its
+    largest move, and the limit (BF16_ROUND_TOL x the move under bf16,
+    ROUND_TOL in f32); ``ok`` when within it and the step moved."""
+    row = dict(max_abs_diff=max_diff(got, want), moved=max_diff(want, init))
+    row["tol"] = (BF16_ROUND_TOL * row["moved"] if dtype is not None
+                  else ROUND_TOL)
+    row["ok"] = (row["max_abs_diff"] <= row["tol"]
+                 and row["moved"] > 10 * ROUND_TOL)
+    return row
+
+
+def lm_parity(data, dtype, moe: bool) -> dict:
+    """One cohort step of round 0's first LM_PARITY_CLIENTS clients from
+    one init on the card and on CPU tensors (cuBLAS without bf16
+    reductions, TF32 off), held by `parity_row`."""
+    card = lm_bf16_fedavg(data, CARD, dtype, moe, comm_round=1)
+    cpu = lm_bf16_fedavg(data, "cpu", dtype, moe, comm_round=1)
+    init = cpu.init_params()
+    with bf16_exact_reductions():
+        got, want, cpu_s = cohort_parity(card, cpu, data, init,
+                                         LM_PARITY_CLIENTS)
+    row = dict(parity_row(got, want, init, dtype),
+               clients=LM_PARITY_CLIENTS, cpu_step_s=cpu_s)
+    if not row["ok"]:
+        fail(f"the LM step on the card against the CPU's: {row}")
+    return row
+
+
+def image_run(name: str, argv, bn_model, cache: dict) -> dict:
+    """One image configuration of phase 8p through the FedAvg API (or the
+    defended runner for ``fedavg_robust``): BF16_ROUNDS rounds on the
+    card (graphed when the path graphs), every global leaf f32 (a
+    stateful model's running statistics too), K1n and K1 once a round on
+    the defended path; then round 0's first BF16_PARITY_CLIENTS clients
+    as one cohort step on the card and on the CPU from one init,
+    deterministic mode, held by `parity_row`."""
+    import dataclasses
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg_robust import (FedAvgRobust,
+                                                          FedAvgRobustConfig)
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import (_fedavg_cfg_kwargs,
+                                                  check_config)
+    from fedml_tpu_torch.trainer.workload import ClassificationWorkload
+
+    t_run = time.perf_counter()
+    cfg = config_from_argv(list(argv))
+    check_config(cfg)
+    cfg = dataclasses.replace(cfg, platform=CARD)
+    data = cd_data(cfg, cache)
+
+    def build(device):
+        wl = None
+        if bn_model is not None:
+            wl = ClassificationWorkload(bn_models()[bn_model](), 10,
+                                        stateful=True,
+                                        compute_dtype=cfg.compute_dtype)
+        if cfg.algo != "fedavg_robust":
+            return fedavg_algo(cfg, data, device, wl)
+        from fedml_tpu_torch.experiments.main import _make_workload
+        return FedAvgRobust(
+            _make_workload(cfg, data), data, FedAvgRobustConfig(
+                defense=cfg.defense, norm_bound=cfg.norm_bound,
+                stddev=cfg.stddev, defense_backend=cfg.defense_backend,
+                **_fedavg_cfg_kwargs(cfg)), device=device)
+
+    reset_peak()
+    fused_agg.reset_launch_counts()
+    algo = build(CARD)
+    algo.evaluate_global = lambda params: {}
+    params = algo.run()
+    sync(CARD)
+    steady_ms = 1e3 * sum(algo.round_times[1:]) / max(
+        len(algo.round_times) - 1, 1)
+    graph = getattr(algo._device_round, "graph", None)
+    row = dict(compute_dtype=cfg.compute_dtype or "float32",
+               params=sum(v.numel() for v in params.values()),
+               steady_round_ms=steady_ms, graphed=graph is not None,
+               peak_gb=peak_gb(),
+               all_leaves_f32=all(v.dtype == torch.float32
+                                  for v in params.values()),
+               finite=all(bool(v.isfinite().all())
+                          for v in params.values()))
+    if cfg.algo == "fedavg_robust":
+        row["k1_launches"] = fused_agg.launch_counts["robust_agg"]
+        row["k1n_launches"] = fused_agg.launch_counts["clip_norm"]
+        if row["k1_launches"] != BF16_ROUNDS \
+                or row["k1n_launches"] != BF16_ROUNDS:
+            fail(f"{name}: K1 launched {row['k1_launches']} and K1n "
+                 f"{row['k1n_launches']} times; need {BF16_ROUNDS} each")
+    if not row["all_leaves_f32"] or not row["finite"]:
+        fail(f"{name}: the global is not f32 and finite: {row}")
+    cpu = build("cpu")
+    init = cpu.init_params()
+    with deterministic():
+        got, want, cpu_s = cohort_parity(algo, cpu, data, init,
+                                         BF16_PARITY_CLIENTS)
+    held = parity_row(got, want, init, cfg.compute_dtype or None)
+    row.update(vs_cpu_max_abs_diff=held["max_abs_diff"],
+               vs_cpu_tol=held["tol"], moved=held["moved"],
+               vs_cpu_clients=BF16_PARITY_CLIENTS, cpu_step_s=cpu_s,
+               seconds=time.perf_counter() - t_run)
+    phase(f"mixed precision {name}", **row)
+    if not held["ok"]:
+        fail(f"{name}: the card's step against the CPU's: {held}")
+    return row
+
+
+def check_mixed_precision(data, data_lm, root: Path, sm_hz: float,
+                          f32_round_ms: float) -> dict:
+    """Phase 8p: the bf16 K4 kernels against their plain versions; bench's
+    T=2048 flash transformer under bf16 through the FedAvg API, graphed,
+    its K4 bf16 launches counted and one step held against the CPU; the
+    transformer_T2048_moe8 variant in bf16 and in f32 (the f32 step held
+    against the CPU), its dropped tokens; one bf16 round each of the
+    FEMNIST CNN, the BatchNorm ResNet-56 and the defended FedAvg (K1n and
+    K1 on f32 leaves), and EfficientNet-B0 and VGG-11 in f32, each held
+    against the CPU."""
+    import torch
+    t_phase = time.perf_counter()
+    kernels, worst = check_flash_bf16_kernel(sm_hz)
+    bf = torch.bfloat16
+    launches, per_round, lm, _ = run_lm_slice(
+        data_lm, root, algo=lm_bf16_fedavg(data_lm, dtype=bf),
+        names=K4_BF16_NAMES, label="transformer bf16")
+    lm["vs_f32_slice_round_ms"] = f32_round_ms
+    lm["vs_cpu"] = lm_parity(data_lm, bf, False)
+    phase("transformer bf16 vs cpu", **lm["vs_cpu"])
+    moe = {}
+    for label, dtype in (("bf16", bf), ("f32", None)):
+        algo = lm_bf16_fedavg(data_lm, dtype=dtype, moe=True)
+        _, _, row, params = run_lm_slice(data_lm, root, algo=algo, names=(),
+                                         label=f"transformer moe8 {label}")
+        row.update(moe_dropped(algo, params, data_lm))
+        phase(f"transformer moe8 {label} dropped", **row)
+        moe[label] = row
+    moe["f32"]["vs_cpu"] = lm_parity(data_lm, None, True)
+    phase("transformer moe8 f32 vs cpu", **moe["f32"]["vs_cpu"])
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    femnist = config_from_argv(SLICE_ARGS)      # the twin main() loaded
+    cache = {(femnist.dataset, femnist.client_num_in_total,
+              femnist.batch_size, femnist.seed): data}
+    images = {}
+    for name, argv, bn_model in BF16_IMAGE_RUNS:
+        images[name] = image_run(name, argv, bn_model, cache)
+    seconds = time.perf_counter() - t_phase
+    phase("mixed precision done", seconds=seconds)
+    return dict(kernels=kernels, worst=worst, launches=launches,
+                per_round=per_round, lm=lm, moe=moe, images=images,
+                seconds=seconds)
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -5820,11 +6282,14 @@ def main() -> None:
     flash_rows, flash_worst = check_flash_kernel()
     check_flash_nan()
     data_lm = lm_data()
-    k4_launches, k4_per_round, lm_rounds_per_s = run_lm_slice(data_lm, root)
+    k4_launches, k4_per_round, lm_row, _ = run_lm_slice(data_lm, root)
+    lm_rounds_per_s = lm_row["rounds_per_s"]
     profile_lm(data_lm)
     lm_diff = lm_round_parity(data_lm)
     lm_bench = lm_bench_step()
     lm_cli = run_lm_cli()
+    mixed = check_mixed_precision(data, data_lm, root, sm_hz,
+                                  lm_row["steady_round_ms"])
 
     # one round of the defended slice: the norm pass and one aggregate
     # launch over the CNN's leaves
@@ -5940,6 +6405,33 @@ def main() -> None:
             # dv) against K4dkv + K4dq, per round
             kernels[-1]["sdpa_bwd_ms"] = k4_per_round * vmapped["sdpa_bwd_ms"]
             kernels[-1]["k4_bwd_ms"] = k4_per_round * vmapped["k4_bwd_ms"]
+    # one training round of the bf16 transformer (phase 8p): n_layers x S
+    # launches of each bf16 K4 kernel at the vmapped shape
+    bf_rows = mixed["kernels"]["vmap"]
+    for name, line in K4_BF16_REPLACES.items():
+        row = bf_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": ("jax/experimental/pallas/ops/tpu/flash_attention.py"
+                         f":{line} (via fedml_tpu/models/transformer.py:55, "
+                         f"bf16 under --compute_dtype bfloat16)"),
+            "launches": mixed["launches"][name],
+            "max_abs_err": mixed["worst"][name],
+            "ms": mixed["per_round"] * row["ms"],
+            "plain_ms": mixed["per_round"] * row["plain_ms"],
+            "bound_ms": mixed["per_round"] * row["bound_ms"],
+            "bound_by": row["bound_by"], "bound_term": row["bound_term"],
+            "tensor_core_sass": flash_build[f"{name}/d32"].get(
+                "tensor_core_sass"),
+            "library_ms": (mixed["per_round"] * bf_rows["sdpa_fwd_ms"]
+                           if name == "flash_fwd_bf16" else None),
+        })
+        if name == "flash_bwd_dq_bf16":
+            kernels[-1]["sdpa_bwd_ms"] = (mixed["per_round"]
+                                          * bf_rows["sdpa_bwd_ms"])
+            kernels[-1]["k4_bwd_ms"] = (mixed["per_round"]
+                                        * bf_rows["k4_bwd_ms"])
     phase("done", seconds=time.perf_counter() - t_start,
           round_vs_cpu_max_abs_diff=round_diff,
           rounds_per_s=summary["rounds_per_s"],
@@ -6009,6 +6501,17 @@ def main() -> None:
           lm_bench_tokens_per_s={k: v["tokens_per_s"]
                                  for k, v in lm_bench.items()},
           lm_cli_rounds_per_s=lm_cli["rounds_per_s"],
+          bf16_lm_round_ms=mixed["lm"]["steady_round_ms"],
+          f32_lm_round_ms=lm_row["steady_round_ms"],
+          bf16_lm_vs_cpu_max_abs_diff=mixed["lm"]["vs_cpu"]["max_abs_diff"],
+          moe8_round_ms={k: v["steady_round_ms"]
+                         for k, v in mixed["moe"].items()},
+          moe8_dropped_share={k: v["dropped_share"]
+                              for k, v in mixed["moe"].items()},
+          mixed_precision_vs_cpu_max_abs_diff={
+              k: v["vs_cpu_max_abs_diff"]
+              for k, v in mixed["images"].items()},
+          mixed_precision_seconds=mixed["seconds"],
           device_round_vs_cpu_max_abs_diff=device_round_cpu_diff,
           fedavg_round_ms={k: v["round_ms"] for k, v in paths.items()},
           fedavg_rounds_per_s={k: v["rounds_per_s"]

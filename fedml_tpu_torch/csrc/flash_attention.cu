@@ -1,4 +1,5 @@
-// Causal flash attention, forward and backward, on f32 data (K4).
+// Causal flash attention, forward and backward, on f32 and on bf16 data
+// (K4).
 //
 // Replaces the three TPU kernels of JAX's Pallas library flash attention
 // (jax/experimental/pallas/ops/tpu/flash_attention.py), which
@@ -12,11 +13,14 @@
 //   flash_bwd_dkv_f32 <- _flash_attention_dkv_kernel (_flash_attention_bwd_dkv):
 //                        dK and dV from Q, K, V, dO, m, l and di = sum(O*dO);
 //   flash_bwd_dq_f32  <- _flash_attention_dq_kernel (_flash_attention_bwd_dq):
-//                        dQ from the same inputs.
+//                        dQ from the same inputs;
+//   flash_fwd_bf16, flash_bwd_dkv_bf16, flash_bwd_dq_bf16 <- the same three
+//                        on bf16 q, k, v and dO (the library's path under
+//                        --compute_dtype bfloat16; the bf16 section below).
 //
-// Layout: q, k, v, o, dO, dq, dk, dv are [BH, T, D] contiguous f32 (B and H
-// folded; the wrapper transposes the model's [B, T, H, D]); m, l, di are
-// [BH, T].  Every pointer is 16-byte aligned (checked by the wrapper).  T
+// Layout: q, k, v, o, dO, dq, dk, dv are [BH, T, D] contiguous f32 (bf16 in
+// the _bf16 entries; B and H folded; the wrapper transposes the model's [B,
+// T, H, D]); m, l, di are [BH, T] f32.  Every pointer is 16-byte aligned (checked by the wrapper).  T
 // is a multiple of 128 (the library's block, checked by the wrapper) and D
 // is 16, 32 or 64 (the wrapper refuses other head sizes on the card).  Key
 // c is visible to query r when c <= r.  The split of the backward into a
@@ -183,7 +187,7 @@ __device__ __forceinline__ void split_rows(const float* __restrict__ row,
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src)
@@ -616,6 +620,521 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the same three kernels for bf16 q, k, v, dO (the library's path
+// under --compute_dtype bfloat16)
+// ---------------------------------------------------------------------------
+//
+// The library multiplies bf16 x bf16 with f32 accumulation
+// (preferred_element_type=f32) and rounds to bf16 at four points: P before
+// P V (forward), P^T before P^T dO, dS before dS^T Q (dK/dV) and dS before
+// dS K (dQ); m, l, di and every running sum stay f32, and o, dq, dk, dv
+// are rounded once when written.  These kernels do the same with
+// mma.sync.m16n8k16 (bf16 in, f32 accumulators), one pass: a bf16 product
+// is exact in f32, so no hi/lo split.  The structure, grid and walks are
+// the f32 kernels'; what differs:
+//   * an m16n8k16 A fragment holds (row g | g + 8, k = 2t, 2t + 1 | 2t + 8,
+//     2t + 9) as bf16 pairs, which is exactly what two adjacent 16 x 8
+//     accumulator tiles hold (columns 2t, 2t + 1 of each): P (or dS) goes
+//     to the next product through cvt.rn.bf16x2.f32 with no permutation;
+//   * the score products (Q K^T; K Q^T and V dO^T; Q K^T and dO V^T) read
+//     B as 32-bit pairs along d from row-major tiles; the second products
+//     (P V; P^T dO and dS^T Q; dS K) read B down a column, two 16-bit
+//     loads a register;
+//   * shared rows are padded to D + 8 bf16 (16 bytes): rows stay 16-byte
+//     aligned for cp.async, and both kinds of fragment load hit 32
+//     different banks (the pitch in words is 4 mod 8 words per row pair);
+//   * P (or dS) is rounded once per 16-key (or 16-query) step, from the f32
+//     value the f32 kernels would use; the forward's P is exp(s - m) against
+//     the running max of the 32-key half, as in the f32 kernel (the
+//     library's against the running max of its 128-key block).
+// They are bound by the exps more than by the products (bf16 runs at twice
+// the TF32 rate and needs one pass, not three), and their bytes are half
+// the f32 kernels'.
+
+// shared bf16 rows are padded to D + 8 values
+template <int D>
+constexpr int kPitchH = D + 8;
+
+// (lo, hi) rounded to bf16 (to nearest even) in one register, lo in the
+// low half: the element with the lower column or k index
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a b for one m16n8k16 tile: bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of a 16 x 16 tile from two accumulator tiles (columns
+// 0-7 and 8-15), rounded to bf16
+__device__ __forceinline__ void acc_to_a(const float (&c0)[4],
+                                         const float (&c1)[4],
+                                         uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);   // (g, 2t)         (g, 2t + 1)
+  a[1] = pack_bf16(c0[2], c0[3]);   // (g + 8, 2t)     (g + 8, 2t + 1)
+  a[2] = pack_bf16(c1[0], c1[1]);   // (g, 2t + 8)     (g, 2t + 9)
+  a[3] = pack_bf16(c1[2], c1[3]);   // (g + 8, 2t + 8) (g + 8, 2t + 9)
+}
+
+// The A fragments of rows (row, row + 8) of a [., D] bf16 array in device
+// memory, k-step s covering columns 16s..16s+15
+template <int D>
+__device__ __forceinline__ void load_rows_bf16(const uint16_t* __restrict__ row,
+                                               int t,
+                                               uint32_t (&a)[D / 16][4]) {
+  const uint32_t* const r = reinterpret_cast<const uint32_t*>(row);
+#pragma unroll
+  for (int s = 0; s < D / 16; ++s) {
+    a[s][0] = __ldg(r + 8 * s + t);
+    a[s][1] = __ldg(r + 4 * D + 8 * s + t);
+    a[s][2] = __ldg(r + 8 * s + t + 4);
+    a[s][3] = __ldg(r + 4 * D + 8 * s + t + 4);
+  }
+}
+
+// B of an m16n8k16 product from a row-major [n][k] shared tile: rows n0 + g,
+// k-step s (two 32-bit pairs along the row)
+template <int D>
+__device__ __forceinline__ void row_pairs(const uint16_t* tile, int n, int s,
+                                          int t, uint32_t& b0, uint32_t& b1) {
+  const uint32_t* const p = reinterpret_cast<const uint32_t*>(
+      tile + n * kPitchH<D> + 16 * s + 2 * t);
+  b0 = p[0];
+  b1 = p[4];
+}
+
+// two bf16 of one column, rows r and r + 1 of a padded shared tile, as
+// one B register (row r in the low half)
+template <int D>
+__device__ __forceinline__ uint32_t col_pair(const uint16_t* p) {
+  return static_cast<uint32_t>(p[0]) |
+         (static_cast<uint32_t>(p[kPitchH<D>]) << 16);
+}
+
+// Start copying one [kTile, D] bf16 tile into a padded shared tile.
+template <int D>
+__device__ __forceinline__ void stage_tile_bf16(
+    uint16_t* dst, const uint16_t* __restrict__ src) {
+  for (int i = threadIdx.x; i < kTile * D / 8; i += kThreads)
+    cp_async16(dst + (i / (D / 8)) * kPitchH<D> + 8 * (i % (D / 8)),
+               src + 8 * i);
+}
+
+// sum += A B over one 16-row chunk, A the accumulator tiles a[0], a[1]
+// rounded to bf16, B's rows row0, row0 + 1 (row0 = the chunk's first row
+// + 2t) and row0 + 8, row0 + 9 read down column 8n + g of a padded shared
+// tile; the chunk's product starts from zero and is added in f32, as in
+// add_chunk
+template <int D>
+__device__ __forceinline__ void add_chunk_bf16(float (&sum)[D / 8][4],
+                                               const float (&a)[2][4],
+                                               const uint16_t* b, int row0,
+                                               int g) {
+  uint32_t af[4];
+  acc_to_a(a[0], a[1], af);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const uint16_t* const bp = b + row0 * kPitchH<D> + 8 * n + g;
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_bf16(part, af, col_pair<D>(bp), col_pair<D>(bp + 8 * kPitchH<D>));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[n][e] += part[e];
+  }
+}
+
+// two f32 values rounded to bf16 and written as one 32-bit store
+__device__ __forceinline__ void store_bf16x2(uint16_t* p, float lo,
+                                             float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+
+// K4f and K4dq: [2 buffers][K, V] bf16 tiles
+template <int D>
+__host__ __device__ constexpr int kv_smem_bytes_bf16() {
+  return 2 * 2 * kTile * kPitchH<D> * 2;
+}
+
+// one buffer: the Q and dO bf16 tiles, then the m, l and di f32 rows
+template <int D>
+__host__ __device__ constexpr int dkv_buffer_bytes_bf16() {
+  return 2 * kTile * kPitchH<D> * 2 + 3 * kTile * 4;
+}
+
+template <int D>
+__host__ __device__ constexpr int dkv_smem_bytes_bf16() {
+  return 2 * dkv_buffer_bytes_bf16<D>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
+flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
+                      const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v,
+                      uint16_t* __restrict__ o, float* __restrict__ m_out,
+                      float* __restrict__ l_out, int t, float scale) {
+  constexpr int P = kPitchH<D>, KS = D / 16, NT = D / 8;
+  extern __shared__ float4 smem4[];
+  uint16_t* const smem = reinterpret_cast<uint16_t*>(smem4);
+  const int n_tiles = t / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;   // the longest rows start first
+  const int64_t bh = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int r0 = 16 * warp + g;              // rows r0 and r0 + 8 of the tile
+  const int64_t row0 = bh * t + static_cast<int64_t>(qt) * kTile + r0;
+  const uint16_t* const kbh = k + bh * t * D;
+  const uint16_t* const vbh = v + bh * t * D;
+
+  stage_tile_bf16<D>(smem, kbh);
+  stage_tile_bf16<D>(smem + kTile * P, vbh);
+  cp_async_commit();
+
+  uint32_t qa[KS][4];
+  load_rows_bf16<D>(q + row0 * D, tq, qa);
+  float acc[NT][4];                          // O: dims 8n + 2t, 8n + 2t + 1
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};       // rows r0, r0 + 8
+  float l[2] = {0.0f, 0.0f};                 // this thread's columns only
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const uint16_t* const ks = smem + (kt & 1) * 2 * kTile * P;
+    const uint16_t* const vs = ks + kTile * P;
+    if (kt < qt) {
+      uint16_t* const next = smem + ((kt + 1) & 1) * 2 * kTile * P;
+      stage_tile_bf16<D>(next, kbh + static_cast<int64_t>(kt + 1) * kTile * D);
+      stage_tile_bf16<D>(next + kTile * P,
+                         vbh + static_cast<int64_t>(kt + 1) * kTile * D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bool diag = kt == qt;
+    // 32 keys at a time: n-tile j holds keys c0 + 8j + 2t (+1)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;
+      if (diag && c0 > 16 * warp + 15) continue;
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+        for (int st = 0; st < KS; ++st) {
+          uint32_t b0, b1;
+          row_pairs<D>(ks, c0 + 8 * j + g, st, tq, b0, b1);
+          mma_bf16(s[j], qa[st], b0, b1);
+        }
+      }
+      // scale, mask the diagonal, and the online softmax's rescale (f32)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale;
+          if (diag && c0 + 8 * j + 2 * tq + (e & 1) > r0 + 8 * (e >> 1))
+            x = -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+        corr[h] = __expf(m[h] - mx[h]);
+        m[h] = mx[h];
+        l[h] *= corr[h];
+      }
+      // P = exp(s - m) in f32 (l sums it unrounded, as the library's l),
+      // then this half's P V from zero with P rounded to bf16, 16 keys a
+      // k-step; O = O corr + P V in f32
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = __expf(s[j][e] - m[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+      float pv[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t pa[4];
+        acc_to_a(s[2 * kk], s[2 * kk + 1], pa);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint16_t* const vp = vs + (c0 + 16 * kk + 2 * tq) * P + 8 * n + g;
+          mma_bf16(pv[n], pa, col_pair<D>(vp), col_pair<D>(vp + 8 * P));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = acc[n][e] * corr[e >> 1] + pv[n][e];
+    }
+    __syncthreads();   // the next iteration's copy reuses this buffer
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * tq;
+    store_bf16x2(o + row0 * D + col, acc[n][0] / l[0], acc[n][1] / l[0]);
+    store_bf16x2(o + (row0 + 8) * D + col, acc[n][2] / l[1],
+                 acc[n][3] / l[1]);
+  }
+  if (tq == 0) {
+    m_out[row0] = m[0]; m_out[row0 + 8] = m[1];
+    l_out[row0] = l[0]; l_out[row0 + 8] = l[1];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
+flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
+                          const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v,
+                          const uint16_t* __restrict__ dout,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const float* __restrict__ di,
+                          uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                          int t, float scale) {
+  constexpr int P = kPitchH<D>, KS = D / 16, NT = D / 8;
+  extern __shared__ float4 smem4[];
+  char* const smem = reinterpret_cast<char*>(smem4);
+  const int n_tiles = t / kTile;
+  const int kt = blockIdx.y;                 // the longest walks start first
+  const int64_t bh = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int c0 = 16 * warp + g;              // keys c0 and c0 + 8 of the tile
+  const int64_t key0 = bh * t + static_cast<int64_t>(kt) * kTile + c0;
+
+  // one buffer: Q [kTile][P], dO [kTile][P] (bf16), then m, l, di [kTile]
+  // (f32) each
+  auto stage_queries = [&](int qt) {
+    char* const buf = smem + ((qt - kt) & 1) * dkv_buffer_bytes_bf16<D>();
+    uint16_t* const tiles = reinterpret_cast<uint16_t*>(buf);
+    const int64_t r = bh * t + static_cast<int64_t>(qt) * kTile;
+    stage_tile_bf16<D>(tiles, q + r * D);
+    stage_tile_bf16<D>(tiles + kTile * P, dout + r * D);
+    float* const vecs = reinterpret_cast<float*>(buf + 2 * kTile * P * 2);
+    const int i = threadIdx.x;
+    if (i < 3 * kTile / 4) {
+      const float* src = (i < kTile / 4) ? m : (i < kTile / 2) ? l : di;
+      cp_async16(vecs + 4 * i, src + r + 4 * (i % (kTile / 4)));
+    }
+    cp_async_commit();
+  };
+  stage_queries(kt);
+
+  uint32_t ka[KS][4], va[KS][4];
+  load_rows_bf16<D>(k + key0 * D, tq, ka);
+  load_rows_bf16<D>(v + key0 * D, tq, va);
+  float dka[NT][4], dva[NT][4];              // dims 8n + 2t, 8n + 2t + 1
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) { dka[n][e] = 0.0f; dva[n][e] = 0.0f; }
+
+  for (int qt = kt; qt < n_tiles; ++qt) {
+    char* const buf = smem + ((qt - kt) & 1) * dkv_buffer_bytes_bf16<D>();
+    const uint16_t* const qs = reinterpret_cast<const uint16_t*>(buf);
+    const uint16_t* const dos = qs + kTile * P;
+    float* const ms = reinterpret_cast<float*>(buf + 2 * kTile * P * 2);
+    float* const inv_ls = ms + kTile;
+    const float* const dis = inv_ls + kTile;
+    if (qt + 1 < n_tiles) {
+      stage_queries(qt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // l -> 1/l in place, once per query instead of once per use
+    if (threadIdx.x < kTile)
+      inv_ls[threadIdx.x] = 1.0f / inv_ls[threadIdx.x];
+    __syncthreads();
+    const bool diag = qt == kt;
+    // 16 queries at a time: n-tile j holds queries q0 + 8j + 2t (+1)
+#pragma unroll
+    for (int chunk = 0; chunk < 4; ++chunk) {
+      const int q0 = 16 * chunk;
+      if (diag && q0 + 15 < 16 * warp) continue;   // sees none of its keys
+      float sa[2][4], dpa[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { sa[j][e] = 0.0f; dpa[j][e] = 0.0f; }
+#pragma unroll
+        for (int st = 0; st < KS; ++st) {
+          uint32_t b0, b1;
+          row_pairs<D>(qs, q0 + 8 * j + g, st, tq, b0, b1);
+          mma_bf16(sa[j], ka[st], b0, b1);
+          row_pairs<D>(dos, q0 + 8 * j + g, st, tq, b0, b1);
+          mma_bf16(dpa[j], va[st], b0, b1);
+        }
+      }
+      // P^T = exp(S^T scale - m) / l and dS^T = P^T (dP^T - di) scale, f32
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qc = q0 + 8 * j + 2 * tq;
+        const float2 mq = *reinterpret_cast<const float2*>(ms + qc);
+        const float2 il = *reinterpret_cast<const float2*>(inv_ls + qc);
+        const float2 dq = *reinterpret_cast<const float2*>(dis + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          float p = __expf(sa[j][e] * scale - (odd ? mq.y : mq.x)) *
+                    (odd ? il.y : il.x);
+          if (diag && c0 + 8 * (e >> 1) > qc + odd) p = 0.0f;
+          dpa[j][e] = p * (dpa[j][e] - (odd ? dq.y : dq.x)) * scale;
+          sa[j][e] = p;
+        }
+      }
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q
+      add_chunk_bf16<D>(dva, sa, dos, q0 + 2 * tq, g);
+      add_chunk_bf16<D>(dka, dpa, qs, q0 + 2 * tq, g);
+    }
+    __syncthreads();   // the next iteration's copy reuses this buffer
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * tq;
+    store_bf16x2(dk + key0 * D + col, dka[n][0], dka[n][1]);
+    store_bf16x2(dk + (key0 + 8) * D + col, dka[n][2], dka[n][3]);
+    store_bf16x2(dv + key0 * D + col, dva[n][0], dva[n][1]);
+    store_bf16x2(dv + (key0 + 8) * D + col, dva[n][2], dva[n][3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
+flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
+                         const uint16_t* __restrict__ k,
+                         const uint16_t* __restrict__ v,
+                         const uint16_t* __restrict__ dout,
+                         const float* __restrict__ m,
+                         const float* __restrict__ l,
+                         const float* __restrict__ di,
+                         uint16_t* __restrict__ dq, int t, float scale) {
+  constexpr int P = kPitchH<D>, KS = D / 16, NT = D / 8;
+  extern __shared__ float4 smem4[];
+  uint16_t* const smem = reinterpret_cast<uint16_t*>(smem4);
+  const int n_tiles = t / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;   // the longest rows start first
+  const int64_t bh = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int r0 = 16 * warp + g;              // rows r0 and r0 + 8 of the tile
+  const int64_t row0 = bh * t + static_cast<int64_t>(qt) * kTile + r0;
+  const uint16_t* const kbh = k + bh * t * D;
+  const uint16_t* const vbh = v + bh * t * D;
+
+  stage_tile_bf16<D>(smem, kbh);
+  stage_tile_bf16<D>(smem + kTile * P, vbh);
+  cp_async_commit();
+
+  uint32_t qa[KS][4], doa[KS][4];
+  load_rows_bf16<D>(q + row0 * D, tq, qa);
+  load_rows_bf16<D>(dout + row0 * D, tq, doa);
+  float mr[2], inv_l[2], dir[2];             // rows r0, r0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mr[h] = __ldg(m + row0 + 8 * h);
+    inv_l[h] = 1.0f / __ldg(l + row0 + 8 * h);
+    dir[h] = __ldg(di + row0 + 8 * h);
+  }
+  float dqa[NT][4];                          // dims 8n + 2t, 8n + 2t + 1
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.0f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const uint16_t* const ks = smem + (kt & 1) * 2 * kTile * P;
+    const uint16_t* const vs = ks + kTile * P;
+    if (kt < qt) {
+      uint16_t* const next = smem + ((kt + 1) & 1) * 2 * kTile * P;
+      stage_tile_bf16<D>(next, kbh + static_cast<int64_t>(kt + 1) * kTile * D);
+      stage_tile_bf16<D>(next + kTile * P,
+                         vbh + static_cast<int64_t>(kt + 1) * kTile * D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bool diag = kt == qt;
+    // 16 keys at a time: n-tile j holds keys c0 + 8j + 2t (+1)
+#pragma unroll
+    for (int chunk = 0; chunk < 4; ++chunk) {
+      const int c0 = 16 * chunk;
+      if (diag && c0 > 16 * warp + 15) continue;   // sees none of its rows
+      float sa[2][4], dpa[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { sa[j][e] = 0.0f; dpa[j][e] = 0.0f; }
+#pragma unroll
+        for (int st = 0; st < KS; ++st) {
+          uint32_t b0, b1;
+          row_pairs<D>(ks, c0 + 8 * j + g, st, tq, b0, b1);
+          mma_bf16(sa[j], qa[st], b0, b1);
+          row_pairs<D>(vs, c0 + 8 * j + g, st, tq, b0, b1);
+          mma_bf16(dpa[j], doa[st], b0, b1);
+        }
+      }
+      // P = exp(S scale - m) / l and dS = P (dP - di) scale in f32; a pair
+      // above the diagonal is set to 0, not multiplied by 0
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float p = __expf(sa[j][e] * scale - mr[h]) * inv_l[h];
+          float ds = p * (dpa[j][e] - dir[h]) * scale;
+          if (diag && c0 + 8 * j + 2 * tq + (e & 1) > r0 + 8 * h) ds = 0.0f;
+          sa[j][e] = ds;
+        }
+      // dQ += bf16(dS) K
+      add_chunk_bf16<D>(dqa, sa, ks, c0 + 2 * tq, g);
+    }
+    __syncthreads();   // the next iteration's copy reuses this buffer
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * tq;
+    store_bf16x2(dq + row0 * D + col, dqa[n][0], dqa[n][1]);
+    store_bf16x2(dq + (row0 + 8) * D + col, dqa[n][2], dqa[n][3]);
+  }
+}
+
 // (bh, tile) blocks, bh fastest: every (b, h) of the heaviest tile goes
 // out first.  A grid's y dimension holds at most 65535 tiles.
 bool bad_shape(int64_t bh, int t) {
@@ -687,6 +1206,50 @@ int launch_dq(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_fwd_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                    uint16_t* o, float* m, float* l, int64_t bh, int t,
+                    float scale, cudaStream_t stream) {
+  constexpr int bytes = kv_smem_bytes_bf16<D>();
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, bytes,
+                                     allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_bf16_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
+      q, k, v, o, m, l, t, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                    const uint16_t* dout, const float* m, const float* l,
+                    const float* di, uint16_t* dk, uint16_t* dv, int64_t bh,
+                    int t, float scale, cudaStream_t stream) {
+  constexpr int bytes = dkv_smem_bytes_bf16<D>();
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, bytes,
+                                     allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkv_bf16_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
+      q, k, v, dout, m, l, di, dk, dv, t, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                   const uint16_t* dout, const float* m, const float* l,
+                   const float* di, uint16_t* dq, int64_t bh, int t,
+                   float scale, cudaStream_t stream) {
+  constexpr int bytes = kv_smem_bytes_bf16<D>();
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, bytes,
+                                     allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_bf16_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
+      q, k, v, dout, m, l, di, dq, t, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 constexpr int kBadArgument = static_cast<int>(cudaErrorInvalidValue);
 
 }  // namespace
@@ -738,6 +1301,61 @@ extern "C" int flash_bwd_dq_f32(const float* q, const float* k,
                                   stream);
     case 64: return launch_dq<64>(q, k, v, dout, m, l, di, dq, bh, t, scale,
                                   stream);
+    default: return kBadArgument;
+  }
+}
+
+// The bf16 entry points: q, k, v, dO, o, dq, dk, dv are bf16 (as uint16_t
+// bit patterns), m, l, di f32.
+
+extern "C" int flash_fwd_bf16(const uint16_t* q, const uint16_t* k,
+                              const uint16_t* v, uint16_t* o, float* m,
+                              float* l, int64_t bh, int t, int d, float scale,
+                              cudaStream_t stream) {
+  if (bad_shape(bh, t)) return kBadArgument;
+  switch (d) {
+    case 16: return launch_fwd_bf16<16>(q, k, v, o, m, l, bh, t, scale,
+                                        stream);
+    case 32: return launch_fwd_bf16<32>(q, k, v, o, m, l, bh, t, scale,
+                                        stream);
+    case 64: return launch_fwd_bf16<64>(q, k, v, o, m, l, bh, t, scale,
+                                        stream);
+    default: return kBadArgument;
+  }
+}
+
+extern "C" int flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
+                                  const uint16_t* v, const uint16_t* dout,
+                                  const float* m, const float* l,
+                                  const float* di, uint16_t* dk, uint16_t* dv,
+                                  int64_t bh, int t, int d, float scale,
+                                  cudaStream_t stream) {
+  if (bad_shape(bh, t)) return kBadArgument;
+  switch (d) {
+    case 16: return launch_dkv_bf16<16>(q, k, v, dout, m, l, di, dk, dv, bh,
+                                        t, scale, stream);
+    case 32: return launch_dkv_bf16<32>(q, k, v, dout, m, l, di, dk, dv, bh,
+                                        t, scale, stream);
+    case 64: return launch_dkv_bf16<64>(q, k, v, dout, m, l, di, dk, dv, bh,
+                                        t, scale, stream);
+    default: return kBadArgument;
+  }
+}
+
+extern "C" int flash_bwd_dq_bf16(const uint16_t* q, const uint16_t* k,
+                                 const uint16_t* v, const uint16_t* dout,
+                                 const float* m, const float* l,
+                                 const float* di, uint16_t* dq, int64_t bh,
+                                 int t, int d, float scale,
+                                 cudaStream_t stream) {
+  if (bad_shape(bh, t)) return kBadArgument;
+  switch (d) {
+    case 16: return launch_dq_bf16<16>(q, k, v, dout, m, l, di, dq, bh, t,
+                                       scale, stream);
+    case 32: return launch_dq_bf16<32>(q, k, v, dout, m, l, di, dq, bh, t,
+                                       scale, stream);
+    case 64: return launch_dq_bf16<64>(q, k, v, dout, m, l, di, dq, bh, t,
+                                       scale, stream);
     default: return kBadArgument;
   }
 }

@@ -29,6 +29,8 @@ class ExperimentConfig:
     rounds_per_dispatch: int = 1         # >1: K rounds per call (scanned)
     ci: int = 0                          # eval only at round 0 and the end
     seed: int = 0
+    compute_dtype: str = ""              # "bfloat16": mixed precision (f32
+    #                                      masters, bf16 model compute)
 
     norm_bound: float = 5.0              # robust: clip threshold
     stddev: float = 0.025                # robust: weak-DP noise
@@ -177,7 +179,7 @@ class ExperimentConfig:
     # transformer attention (NWP datasets)
     attn_block_size: int = 0             # >0: blockwise attention
     attn_flash: bool = False             # the flash kernel (K4)
-    moe_experts: int = 0                 # >0 is not ported (refused)
+    moe_experts: int = 0                 # >0: the Switch MoE FFN
     mesh_sequence: int = 0               # >0 is not ported (refused)
 
     mesh_clients: int = 0                # >0 is not ported (refused)

@@ -141,6 +141,7 @@ def _fedavg_cfg_kwargs(cfg: ExperimentConfig) -> Dict[str, Any]:
 def _make_workload(cfg: ExperimentConfig, data):
     return create_workload(cfg.model, cfg.dataset, data.class_num,
                            sample_shape_of(data),
+                           compute_dtype=cfg.compute_dtype,
                            attn_block_size=cfg.attn_block_size,
                            attn_flash=cfg.attn_flash,
                            moe_experts=cfg.moe_experts)
@@ -1498,7 +1499,8 @@ def run_hierarchical(cfg, data, sink):
 # (default, the ROADMAP item that brings it)
 REFUSED_FLAGS = {
     "serve_port": (0, "serve/ (ROADMAP Queue 1 item 11)"),
-    "mesh_stages": (0, "parallel/pipeline.py (ROADMAP Queue 1 item 10)"),
+    "mesh_stages": (0, "parallel/pipeline.py, with the parallelism slice "
+                       "(ROADMAP Queue 1, item 10's second part)"),
 }
 
 
@@ -1893,7 +1895,8 @@ def check_cross_device(cfg: ExperimentConfig) -> None:
 
 # models that draw dropout masks, and the algorithms whose local trainers
 # take the dropout keys (`parallel.cohort.train_cohort`'s keyed trainers)
-STOCHASTIC_MODELS = ("cnn", "mobilenet_v3")
+STOCHASTIC_MODELS = ("cnn", "mobilenet_v3", "efficientnet", "vgg11",
+                     "vgg13", "vgg16")
 KEYED_ALGOS = ("fedavg", "fedavg_robust", "fedopt", "fedprox", "fednova",
                "scaffold", "cross_device", "centralized")
 
@@ -1913,6 +1916,14 @@ def resolve_cross_device(cfg: ExperimentConfig) -> ExperimentConfig:
     return cfg
 
 
+# the JAX package's runners that take --compute_dtype (JAX main.py's
+# _DTYPE_RUNNERS); check_config keeps those the port has
+DTYPE_RUNNERS = {"fedavg", "fedprox", "fedopt", "fednova", "fedavg_robust",
+                 "hierarchical", "centralized", "decentralized",
+                 "turboaggregate", "ditto", "feddyn", "dp_fedavg", "fedac",
+                 "cross_device"}
+
+
 def check_config(cfg: ExperimentConfig) -> None:
     """Refuse, by name, what the port does not run yet."""
     if cfg.algo not in RUNNERS:
@@ -1927,19 +1938,22 @@ def check_config(cfg: ExperimentConfig) -> None:
             f"through the local trainers of {list(KEYED_ALGOS)}; --algo "
             f"{cfg.algo} trains without a key and would silently run it "
             f"without dropout")
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "--moe_experts is not ported yet; the Switch MoE FFN "
-            "(models/moe.py) is what remains of ROADMAP Queue 1 item 4")
+    supported = sorted(DTYPE_RUNNERS & set(RUNNERS))
+    if cfg.compute_dtype and cfg.algo not in supported:
+        raise ValueError(
+            f"--compute_dtype is not wired into --algo {cfg.algo}; "
+            f"supported: {supported}")
     if cfg.mesh_sequence:
         raise NotImplementedError(
             "--mesh_sequence is not ported yet; sequence parallelism "
             "(parallel/ring_attention.py, sequence.py) arrives over "
-            "torch.distributed with ROADMAP Queue 1 item 10")
+            "torch.distributed with the parallelism slice (ROADMAP Queue 1, "
+            "item 10's second part)")
     if cfg.mesh_clients:
         raise NotImplementedError(
             "--mesh_clients is not ported yet; the shard_map cohort step "
-            "arrives over torch.distributed with ROADMAP Queue 1 item 10")
+            "arrives over torch.distributed with the parallelism slice "
+            "(ROADMAP Queue 1, item 10's second part)")
     if cfg.checkpoint_dir and cfg.algo == "turboaggregate":
         raise NotImplementedError(
             "--checkpoint_dir with --algo turboaggregate is not ported yet; "

@@ -12,10 +12,19 @@ the hand-written CUDA kernels of ``csrc/flash_attention.cu``:
 * ``flash_bwd_dkv(q, k, v, do, m, l, di) -> (dk, dv)``;
 * ``flash_bwd_dq(q, k, v, do, m, l, di) -> dq``,
 
-over ``[B, H, T, d]`` f32 tensors, m, l and di ``[B, H, T]``.  Each wrapper
-launches its kernel for CUDA tensors and runs its plain PyTorch version
-(``flash_fwd_plain``, ``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``,
-beside it) for CPU tensors; it never falls back from one to the other.
+over ``[B, H, T, d]`` f32 or bf16 tensors, m, l and di ``[B, H, T]`` f32.
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (``flash_fwd_plain``, ``flash_bwd_dkv_plain``,
+``flash_bwd_dq_plain``, beside it) for CPU tensors; it never falls back
+from one to the other.
+
+bf16 (``--compute_dtype bfloat16``): the library multiplies bf16 x bf16
+into f32 and rounds to bf16 at four points (P before P V; P^T before
+P^T dO; dS before dS^T Q and before dS K), keeping m, l, di and every sum
+f32 and writing o, dq, dk, dv in bf16.  bf16 inputs dispatch to the
+``_bf16`` kernels, whose plain versions (``flash_fwd_bf16_plain`` ...)
+upcast (exactly), compute in f32 and round at the same four points and
+on output.  Their launches count apart (``flash_fwd_bf16`` ...).
 The plain backward halves take m, l and di as the kernels do, so each
 kernel can be held against its own plain version.
 
@@ -29,7 +38,8 @@ plain tensors and launches once for the whole cohort.
 
 The library's shape contract is kept with its own words: its default
 128-wide blocks refuse a sequence shorter than 128 or not divisible by
-128, on any device.  The kernels take f32 and head sizes 16, 32 and 64.
+128, on any device.  The kernels take f32 or bf16 and head sizes 16, 32
+and 64.
 """
 
 from __future__ import annotations
@@ -47,9 +57,13 @@ KERNEL_HEAD_DIMS = (16, 32, 64)
 # the library's mask value, DEFAULT_MASK_VALUE
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
+# the kernels by input dtype
+KERNELS = {torch.float32: ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+           torch.bfloat16: ("flash_fwd_bf16", "flash_bwd_dkv_bf16",
+                            "flash_bwd_dq_bf16")}
 # launches of each kernel since the last reset (the wrapper adds one per
 # launch and nowhere else)
-launch_counts = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+launch_counts = {name: 0 for names in KERNELS.values() for name in names}
 
 
 def reset_launch_counts() -> None:
@@ -115,6 +129,47 @@ def flash_bwd_dq_plain(q, k, v, do, m, l, di) -> torch.Tensor:
     return torch.matmul(ds, k)
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _f32(*xs):
+    return tuple(x.to(torch.float32) for x in xs)
+
+
+def flash_fwd_bf16_plain(q, k, v) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """What the bf16 K4f computes: the f32 forward on the upcast inputs
+    with P rounded to bf16 before P V; o in bf16, m and l f32."""
+    q, k, v = _f32(q, k, v)
+    s = _masked_scores(q, k)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.matmul(_round_bf16(p), v) / l[..., None]
+    return o.to(torch.bfloat16), m, l
+
+
+def flash_bwd_dkv_bf16_plain(q, k, v, do, m, l, di
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the bf16 K4dkv computes: dk = bf16(ds)^T q and dv = bf16(p)^T
+    dO in f32, written in bf16."""
+    q, k, v, do = _f32(q, k, v, do)
+    p, ds = _probs_and_ds(q, k, v, do, m, l, di)
+    dk = torch.matmul(_round_bf16(ds).transpose(-1, -2), q)
+    dv = torch.matmul(_round_bf16(p).transpose(-1, -2), do)
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def flash_bwd_dq_bf16_plain(q, k, v, do, m, l, di) -> torch.Tensor:
+    """What the bf16 K4dq computes: dq = bf16(ds) k in f32, written in
+    bf16."""
+    q, k, v, do = _f32(q, k, v, do)
+    _, ds = _probs_and_ds(q, k, v, do, m, l, di)
+    return torch.matmul(_round_bf16(ds), k).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 # ---------------------------------------------------------------------------
@@ -135,17 +190,34 @@ def _lib():
                                           i32, f32, p]
         lib.flash_bwd_dq_f32.argtypes = [p, p, p, p, p, p, p, p, i64, i32,
                                          i32, f32, p]
+        lib.flash_fwd_bf16.argtypes = lib.flash_fwd_f32.argtypes
+        lib.flash_bwd_dkv_bf16.argtypes = lib.flash_bwd_dkv_f32.argtypes
+        lib.flash_bwd_dq_bf16.argtypes = lib.flash_bwd_dq_f32.argtypes
         for fn in (lib.flash_fwd_f32, lib.flash_bwd_dkv_f32,
-                   lib.flash_bwd_dq_f32):
+                   lib.flash_bwd_dq_f32, lib.flash_fwd_bf16,
+                   lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16):
             fn.restype = i32
         _lib_handle = lib
     return _lib_handle
 
 
+def check_dtypes(name: str, q: torch.Tensor, rows, vecs) -> None:
+    """Raise unless q and ``rows`` are all f32 or all bf16 and ``vecs``
+    (m, l, di) f32: the kernels take no mixed set."""
+    if q.dtype not in KERNELS:
+        raise ValueError(f"{name}: the kernels take float32 or bfloat16 q, "
+                         f"got {q.dtype}")
+    got = [x.dtype for x in (q, *rows)] + [x.dtype for x in vecs]
+    want = [q.dtype] * (1 + len(rows)) + [torch.float32] * len(vecs)
+    if got != want:
+        raise ValueError(f"{name}: mixed dtypes {got}; the kernel takes "
+                         f"{want}")
+
+
 def _check_cuda(name: str, q: torch.Tensor, rows, vecs) -> None:
-    """Raise unless the kernel takes these tensors: contiguous f32 on one
-    CUDA device, ``rows`` shaped like q ([B, H, T, d]) and ``vecs`` like
-    q without d."""
+    """Raise unless the kernel takes these tensors: contiguous on one CUDA
+    device, q and ``rows`` (shaped like q, [B, H, T, d]) all f32 or all
+    bf16, ``vecs`` (shaped like q without d) f32."""
     def bad(msg):
         raise ValueError(f"{name}: {msg}")
 
@@ -154,11 +226,11 @@ def _check_cuda(name: str, q: torch.Tensor, rows, vecs) -> None:
     if q.dim() != 4:
         bad(f"expected [B, H, T, d] tensors, got {tuple(q.shape)}")
     b, h, t, d = q.shape
+    check_dtypes(name, q, rows, vecs)
     for x in (q, *rows, *vecs):
-        if x.device != q.device or x.dtype != torch.float32 \
-                or not x.is_contiguous():
-            bad(f"the kernel takes contiguous float32 tensors on one device, "
-                f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if x.device != q.device or not x.is_contiguous():
+            bad(f"the kernel takes contiguous tensors on one device, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
     if any(x.shape != q.shape for x in rows) \
             or any(x.shape != q.shape[:3] for x in vecs):
         bad(f"shapes {[tuple(x.shape) for x in (q, *rows, *vecs)]}")
@@ -184,57 +256,69 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _is_bf16(q: torch.Tensor) -> bool:
+    return q.dtype == torch.bfloat16
+
+
 def flash_fwd(q, k, v):
-    """K4f: (o, m, l) for [B, H, T, d] q, k, v; the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """K4f: (o, m, l) for [B, H, T, d] q, k, v; the CUDA kernel of q's
+    dtype for CUDA tensors, its plain version for CPU tensors."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v)
-    _check_cuda("flash_fwd", q, (k, v), ())
+        return (flash_fwd_bf16_plain if _is_bf16(q)
+                else flash_fwd_plain)(q, k, v)
+    name = "flash_fwd_bf16" if _is_bf16(q) else "flash_fwd"
+    _check_cuda(name, q, (k, v), ())
     b, h, t, d = q.shape
     o = torch.empty_like(q)
     m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    fn = _lib().flash_fwd_bf16 if _is_bf16(q) else _lib().flash_fwd_f32
     with torch.cuda.device(q.device):
-        rc = _lib().flash_fwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b * h, t, d, 1.0 / math.sqrt(d),
-            _stream(q))
-    _launched("flash_fwd", rc)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                m.data_ptr(), l.data_ptr(), b * h, t, d, 1.0 / math.sqrt(d),
+                _stream(q))
+    _launched(name, rc)
     return o, m, l
 
 
 def flash_bwd_dkv(q, k, v, do, m, l, di):
-    """K4dkv: (dk, dv); the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """K4dkv: (dk, dv); the CUDA kernel of q's dtype for CUDA tensors, its
+    plain version for CPU tensors."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, m, l, di)
-    _check_cuda("flash_bwd_dkv", q, (k, v, do), (m, l, di))
+        return (flash_bwd_dkv_bf16_plain if _is_bf16(q)
+                else flash_bwd_dkv_plain)(q, k, v, do, m, l, di)
+    name = "flash_bwd_dkv_bf16" if _is_bf16(q) else "flash_bwd_dkv"
+    _check_cuda(name, q, (k, v, do), (m, l, di))
     b, h, t, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    fn = _lib().flash_bwd_dkv_bf16 if _is_bf16(q) \
+        else _lib().flash_bwd_dkv_f32
     with torch.cuda.device(q.device):
-        rc = _lib().flash_bwd_dkv_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            m.data_ptr(), l.data_ptr(), di.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b * h, t, d, 1.0 / math.sqrt(d), _stream(q))
-    _launched("flash_bwd_dkv", rc)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                m.data_ptr(), l.data_ptr(), di.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b * h, t, d, 1.0 / math.sqrt(d), _stream(q))
+    _launched(name, rc)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, m, l, di):
-    """K4dq: dq; the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    """K4dq: dq; the CUDA kernel of q's dtype for CUDA tensors, its plain
+    version for CPU tensors."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, m, l, di)
-    _check_cuda("flash_bwd_dq", q, (k, v, do), (m, l, di))
+        return (flash_bwd_dq_bf16_plain if _is_bf16(q)
+                else flash_bwd_dq_plain)(q, k, v, do, m, l, di)
+    name = "flash_bwd_dq_bf16" if _is_bf16(q) else "flash_bwd_dq"
+    _check_cuda(name, q, (k, v, do), (m, l, di))
     b, h, t, d = q.shape
     dq = torch.empty_like(q)
+    fn = _lib().flash_bwd_dq_bf16 if _is_bf16(q) \
+        else _lib().flash_bwd_dq_f32
     with torch.cuda.device(q.device):
-        rc = _lib().flash_bwd_dq_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            m.data_ptr(), l.data_ptr(), di.data_ptr(), dq.data_ptr(), b * h,
-            t, d, 1.0 / math.sqrt(d), _stream(q))
-    _launched("flash_bwd_dq", rc)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                m.data_ptr(), l.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                b * h, t, d, 1.0 / math.sqrt(d), _stream(q))
+    _launched(name, rc)
     return dq
 
 
@@ -295,7 +379,8 @@ class _BwdDq(_NoDoubleBackward, torch.autograd.Function):
 
 class _FlashAttention(torch.autograd.Function):
     """(o, m, l) = K4f(q, k, v) over contiguous [B, H, T, d]; the backward
-    is di = sum(o * dO) in torch, then K4dkv and K4dq."""
+    is di = sum(o * dO) in torch (in f32, as the library takes it from
+    bf16 o and dO), then K4dkv and K4dq."""
 
     @staticmethod
     def forward(q, k, v):
@@ -311,7 +396,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _dm, _dl):
         q, k, v, o, m, l = ctx.saved_tensors
         do = do.contiguous()
-        di = (o * do).sum(dim=-1)
+        di = (o.to(torch.float32) * do.to(torch.float32)).sum(dim=-1)
         dk, dv = _BwdDkv.apply(q, k, v, do, m, l, di)
         dq = _BwdDq.apply(q, k, v, do, m, l, di)
         return dq, dk, dv

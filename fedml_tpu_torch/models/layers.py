@@ -16,7 +16,13 @@ flax's ``padding="SAME"`` gives ``ceil(n / stride)`` outputs and pads
 larger after: asymmetric at stride 2 (a 7x7 stride-2 conv on 32 pads (2,
 3), a 3x3 one on 16 pads (0, 1)), where torch's ``padding=k // 2`` is
 symmetric.  `same_pads` computes flax's pads and the layers apply them
-with ``F.pad`` when they are not symmetric."""
+with ``F.pad`` when they are not symmetric.
+
+Mixed precision follows flax's ``promote_dtype``: a layer with a
+``dtype`` casts its input and parameters to it; without one, tensors of
+mixed float types meet in their promoted type (an all-f32 call casts
+nothing).  LayerNorm follows flax's normalisation order under bf16 (see
+`norms.normalize`)."""
 
 from __future__ import annotations
 
@@ -28,9 +34,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.core.murmur import M32, fmix, index_hash, mul32
+from fedml_tpu_torch.models.norms import normalize, stats
 
 # std of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+
+
+def promote(dtype, *xs):
+    """flax's ``promote_dtype(*xs, dtype=dtype)``: every tensor (None kept)
+    cast to ``dtype``, or without one to the promoted type of them all; a
+    tensor already of that type is returned as it is."""
+    present = [x for x in xs if x is not None]
+    if dtype is None:
+        dtype = present[0].dtype
+        for x in present[1:]:
+            dtype = torch.promote_types(dtype, x.dtype)
+    return tuple(x if x is None or x.dtype == dtype else x.to(dtype)
+                 for x in xs)
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,
@@ -41,8 +61,9 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 
 
 class Dense(nn.Module):
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
 
@@ -51,7 +72,8 @@ class Dense(nn.Module):
         self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        x, kernel, bias = promote(self.dtype, x, self.kernel, self.bias)
+        return x @ kernel + bias
 
 
 def same_pads(n: int, k: int, stride: int):
@@ -118,7 +140,8 @@ class Conv2d(nn.Module):
         pad = (0, 0)
         if self.same:
             x, pad = pad_same(x, self.k, self.stride)
-        return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias,
+        x, kernel, bias = promote(None, x, self.kernel, self.bias)
+        return F.conv2d(x, kernel.permute(3, 2, 0, 1), bias,
                         stride=self.stride, padding=pad, groups=self.groups)
 
 
@@ -152,8 +175,9 @@ class DenseGeneral(nn.Module):
     attention's ``out``, ``[H, d_head, d_model]``).  flax initialises the
     kernel LeCun-normal over the flattened contracted axes."""
 
-    def __init__(self, in_shape, out_shape):
+    def __init__(self, in_shape, out_shape, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.in_shape = tuple(in_shape)
         self.out_shape = tuple(out_shape)
         self.kernel = nn.Parameter(torch.empty(self.in_shape + self.out_shape))
@@ -166,19 +190,23 @@ class DenseGeneral(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_in = len(self.in_shape)
         lead = x.shape[:x.dim() - n_in]
-        w = self.kernel.reshape(math.prod(self.in_shape),
-                                math.prod(self.out_shape))
+        x, kernel, bias = promote(self.dtype, x, self.kernel, self.bias)
+        w = kernel.reshape(math.prod(self.in_shape),
+                           math.prod(self.out_shape))
         y = x.reshape(lead + (-1,)) @ w
-        return y.reshape(lead + self.out_shape) + self.bias
+        return y.reshape(lead + self.out_shape) + bias
 
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: ``scale`` and ``bias`` over the last axis,
-    epsilon 1e-6 (flax's default, not torch's 1e-5)."""
+    epsilon 1e-6 (flax's default, not torch's 1e-5).  All-f32 calls run
+    ``F.layer_norm``; a bf16 input, parameters or ``dtype`` take flax's
+    order (`norms.normalize`)."""
 
-    def __init__(self, features: int, eps: float = 1e-6):
+    def __init__(self, features: int, eps: float = 1e-6, dtype=None):
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -187,8 +215,13 @@ class LayerNorm(nn.Module):
         self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.scale, self.bias,
-                            self.eps)
+        if self.dtype is None and x.dtype == self.scale.dtype \
+                == self.bias.dtype == torch.float32:
+            return F.layer_norm(x, (x.shape[-1],), self.scale, self.bias,
+                                self.eps)
+        mean, var = stats(x, (-1,))
+        return normalize(x, mean, var, self.eps, self.scale, self.bias,
+                         self.dtype)
 
 
 class Embed(nn.Module):
@@ -196,8 +229,9 @@ class Embed(nn.Module):
     features]``, drawn N(0, 1 / features) (flax's variance scaling with
     an untruncated normal)."""
 
-    def __init__(self, num_embeddings: int, features: int):
+    def __init__(self, num_embeddings: int, features: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
 
     def reset_parameters(self, generator=None) -> None:
@@ -206,4 +240,6 @@ class Embed(nn.Module):
                         generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.embedding)
+        table = self.embedding if self.dtype is None \
+            else self.embedding.to(self.dtype)
+        return F.embedding(ids.long(), table)

@@ -116,14 +116,15 @@ class InvertedResidual(_Stack):
     """MBConv: 1x1 expand -> k x k depthwise (+ squeeze-excite) -> 1x1
     project, residual at stride 1 with matching channels.  ``drop_rate``:
     stochastic depth on the residual branch, one keep/drop per sample,
-    keyed through the dropout seam as dropout ``layer``."""
+    keyed through the dropout seam as dropout ``layer``.  ``activation``
+    overrides the ``use_hs`` switch (EfficientNet's swish)."""
 
     def __init__(self, cin: int, exp_ch: int, out_ch: int, kernel: int,
                  stride: int, use_se: bool, use_hs: bool, norm: str = "group",
                  se_reduce_ch: Optional[int] = None, drop_rate: float = 0.0,
-                 layer: int = 0):
+                 layer: int = 0, activation: Optional[Callable] = None):
         super().__init__()
-        act = hard_swish if use_hs else F.relu
+        act = activation or (hard_swish if use_hs else F.relu)
         c = cin
         if exp_ch != cin:
             c = self.conv_norm(c, exp_ch, 1, 1, norm, act)

@@ -25,7 +25,13 @@ of writing its buffers, so that ``torch.func.vmap`` and ``grad`` over
 clients see a pure function.  flax's conventions, not
 ``F.batch_norm``'s: the variance is the biased ``E[x^2] - E[x]^2``
 clipped at 0, in the normalisation and in the running ``var`` alike, and
-``new = 0.9 * running + 0.1 * batch``."""
+``new = 0.9 * running + 0.1 * batch``.
+
+Mixed precision follows flax 0.12's normalisation layers: statistics are
+reduced in f32 (`stats`, the input promoted), the normalisation runs in
+f32 (``x - mean`` promotes) and the result is cast once to the promoted
+type of (x, scale, bias) (`normalize`); running statistics stay f32.
+All-f32 calls of GroupNorm keep ``F.group_norm``."""
 
 from __future__ import annotations
 
@@ -55,6 +61,35 @@ def batch_stats_collector():
         _COLLECTOR.reset(token)
 
 
+def stats(x: torch.Tensor, dims):
+    """flax's ``_compute_stats`` (fast variance): the mean and ``E[x^2] -
+    E[x]^2`` clipped at 0 over ``dims`` (kept), with ``x`` promoted to at
+    least f32."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=dims, keepdim=True) - mean * mean,
+                      min=0.0)
+    return mean, var
+
+
+def normalize(x: torch.Tensor, mean, var, eps: float, scale=None,
+              bias=None, dtype=None, shape=None) -> torch.Tensor:
+    """flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` in the statistics' f32 (``scale`` and ``bias`` reshaped to
+    ``shape`` when given), cast to ``dtype`` or else to the promoted type
+    of (x, scale, bias)."""
+    mul = torch.rsqrt(var + eps)
+    out = x.dtype
+    if scale is not None:
+        mul = mul * (scale if shape is None else scale.reshape(shape))
+        out = torch.promote_types(out, scale.dtype)
+    y = (x - mean) * mul
+    if bias is not None:
+        y = y + (bias if shape is None else bias.reshape(shape))
+        out = torch.promote_types(out, bias.dtype)
+    return y.to(dtype or out)
+
+
 def group_count(channels: int, channels_per_group: int) -> int:
     groups = max(1, channels // channels_per_group)
     while channels % groups:
@@ -76,7 +111,17 @@ class GroupNorm(nn.Module):
             self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x, self.groups, self.scale, self.bias, self.eps)
+        if x.dtype == torch.float32 and (
+                self.scale is None or self.scale.dtype == self.bias.dtype
+                == torch.float32):
+            return F.group_norm(x, self.groups, self.scale, self.bias,
+                                self.eps)
+        n, c = x.shape[:2]
+        xg = x.reshape((n, self.groups, c // self.groups) + x.shape[2:])
+        mean, var = stats(xg, tuple(range(2, xg.dim())))
+        shape = (1, self.groups, c // self.groups) + (1,) * (x.dim() - 2)
+        return normalize(xg, mean, var, self.eps, self.scale, self.bias,
+                         shape=shape).reshape(x.shape)
 
 
 class BatchNorm(nn.Module):
@@ -107,18 +152,18 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         else:
             dims = (0,) + tuple(range(2, x.dim()))
-            mean = torch.mean(x, dim=dims)
-            var = torch.clamp(torch.mean(x * x, dim=dims) - mean * mean,
+            # reduced in f32 (a bf16 input promoted; an f32 one as it is)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = torch.mean(xf, dim=dims)
+            var = torch.clamp(torch.mean(xf * xf, dim=dims) - mean * mean,
                               min=0.0)
             m = self.momentum
             collector[self] = (m * self.mean + (1.0 - m) * mean,
                                m * self.var + (1.0 - m) * var)
-        # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(var + self.eps)
-        if self.scale is not None:
-            mul = mul * self.scale
-        y = (x - mean.reshape(shape)) * mul.reshape(shape)
-        return y if self.bias is None else y + self.bias.reshape(shape)
+        # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias, in
+        # f32, cast to the promoted type of (x, scale, bias)
+        return normalize(x, mean.reshape(shape), var.reshape(shape),
+                         self.eps, self.scale, self.bias, shape=shape)
 
 
 class Norm(nn.Module):

@@ -9,13 +9,25 @@ renaming: ``tok_embed/embedding``, ``pos_embed/embedding``,
 ``attn_{i}/{query,key,value,out}/{kernel,bias}``, ``LayerNorm_{0..2L}``
 (block i owns ``2i`` and ``2i+1``, the final norm is ``2L``),
 ``Dense_{0..2L-1}`` (block i owns ``2i`` and ``2i+1``) and
-``lm_head/{kernel,bias}``.
+``lm_head/{kernel,bias}``.  With ``moe_experts`` > 0 block i's MLP is the
+Switch MoE FFN ``moe_{i}`` (`models.moe`: ``router/{kernel,bias}``,
+``w1``, ``b1``, ``w2``, ``b2``) and there are no ``Dense_*``; it routes
+the positions whose token is not ``pad_id``, and its load-balance terms
+come back from ``forward(..., moe_aux=True)`` as ``(logits, sum over
+layers)``, which the NWP workload adds to its training loss at
+``moe_aux_weight``.
+
+``dtype`` (bf16 mixed precision, as the JAX module's): the embeddings,
+every Dense, the LayerNorms' outputs and the attention's output
+(``out.astype(x.dtype)``) compute in it; the attention runs on its
+q, k, v (the flash kernel's bf16 path under bf16) and the MoE router in
+f32.
 
 Attention takes the JAX module's branches in its order: the flash kernel
 (``use_flash``, K4 in ``models/flash_attention.py``), then ``block_size``,
 then blockwise above ``auto_block_len`` (``_auto_block``), then dense.
-Incremental decode (``cache=``), sequence parallelism (``ring_axis``)
-and the Switch MoE FFN are refused by name until their slices.
+Incremental decode (``cache=``) and sequence parallelism (``ring_axis``)
+are refused by name until their slices.
 ``dropout_rate`` drops after each attention and MLP in train mode (a
 ``dropout_key``, the workload's dropout seam; not flax's masks)."""
 
@@ -30,6 +42,7 @@ from torch import nn
 from fedml_tpu_torch.models.flash_attention import flash_attention
 from fedml_tpu_torch.models.layers import (Dense, DenseGeneral, Embed,
                                             LayerNorm, dropout)
+from fedml_tpu_torch.models.moe import SwitchFFN
 from fedml_tpu_torch.parallel.ring_attention import (blockwise_attention,
                                                      full_attention)
 
@@ -53,16 +66,16 @@ def _auto_block(t: int, threshold: int, max_block: int = 512,
 class CausalSelfAttention(nn.Module):
     def __init__(self, n_heads: int, d_model: int,
                  block_size: Optional[int] = None, use_flash: bool = False,
-                 auto_block_len: int = 1024):
+                 auto_block_len: int = 1024, dtype=None):
         super().__init__()
         d_head = d_model // n_heads
         self.block_size = block_size
         self.use_flash = use_flash
         self.auto_block_len = auto_block_len
-        self.query = DenseGeneral((d_model,), (n_heads, d_head))
-        self.key = DenseGeneral((d_model,), (n_heads, d_head))
-        self.value = DenseGeneral((d_model,), (n_heads, d_head))
-        self.out = DenseGeneral((n_heads, d_head), (d_model,))
+        self.query = DenseGeneral((d_model,), (n_heads, d_head), dtype)
+        self.key = DenseGeneral((d_model,), (n_heads, d_head), dtype)
+        self.value = DenseGeneral((d_model,), (n_heads, d_head), dtype)
+        self.out = DenseGeneral((n_heads, d_head), (d_model,), dtype)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
@@ -87,41 +100,53 @@ def init_decode_cache(*args, **kwargs):
 
 class TransformerLM(nn.Module):
     """Per-position next-token logits, causal; flax's defaults (d_model
-    128, 4 heads, 2 layers, d_ff 512, max_len 2048)."""
+    128, 4 heads, 2 layers, d_ff 512, max_len 2048, the Switch paper's
+    capacity factor 1.25 and alpha 0.01)."""
 
     def __init__(self, vocab_size: int, d_model: int = 128, n_heads: int = 4,
                  n_layers: int = 2, d_ff: int = 512, max_len: int = 2048,
-                 dropout_rate: float = 0.0, block_size: Optional[int] = None,
+                 dropout_rate: float = 0.0, dtype=None,
+                 block_size: Optional[int] = None,
                  use_flash: bool = False, auto_block_len: int = 1024,
-                 moe_experts: int = 0):
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25,
+                 moe_aux_weight: float = 0.01, pad_id: int = 0):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0 (the Switch MoE FFN, models/moe.py) is not "
-                "ported yet; it is what remains of ROADMAP Queue 1 item 4")
+        self.moe_experts = moe_experts
+        self.moe_aux_weight = moe_aux_weight
+        self.pad_id = pad_id
         self.n_layers = n_layers
         self.max_len = max_len
         self.dropout_rate = float(dropout_rate)
         # dropout after the attention and the MLP of every layer, in train
         # mode (a ``dropout_key``), through the dropout seam
         self.stochastic = self.dropout_rate > 0
-        self.tok_embed = Embed(vocab_size, d_model)
-        self.pos_embed = Embed(max_len, d_model)
+        self.tok_embed = Embed(vocab_size, d_model, dtype)
+        self.pos_embed = Embed(max_len, d_model, dtype)
         for i in range(n_layers):
             setattr(self, f"attn_{i}", CausalSelfAttention(
                 n_heads, d_model, block_size=block_size, use_flash=use_flash,
-                auto_block_len=auto_block_len))
-            setattr(self, f"LayerNorm_{2 * i}", LayerNorm(d_model))
-            setattr(self, f"LayerNorm_{2 * i + 1}", LayerNorm(d_model))
-            setattr(self, f"Dense_{2 * i}", Dense(d_model, d_ff))
-            setattr(self, f"Dense_{2 * i + 1}", Dense(d_ff, d_model))
-        setattr(self, f"LayerNorm_{2 * n_layers}", LayerNorm(d_model))
-        self.lm_head = Dense(d_model, vocab_size)
+                auto_block_len=auto_block_len, dtype=dtype))
+            setattr(self, f"LayerNorm_{2 * i}", LayerNorm(d_model,
+                                                           dtype=dtype))
+            setattr(self, f"LayerNorm_{2 * i + 1}", LayerNorm(d_model,
+                                                               dtype=dtype))
+            if moe_experts:
+                setattr(self, f"moe_{i}", SwitchFFN(
+                    moe_experts, d_model, d_ff,
+                    capacity_factor=moe_capacity_factor, dtype=dtype))
+            else:
+                setattr(self, f"Dense_{2 * i}", Dense(d_model, d_ff, dtype))
+                setattr(self, f"Dense_{2 * i + 1}", Dense(d_ff, d_model,
+                                                          dtype))
+        setattr(self, f"LayerNorm_{2 * n_layers}", LayerNorm(d_model,
+                                                             dtype=dtype))
+        self.lm_head = Dense(d_model, vocab_size, dtype)
 
     def forward(self, input_seq: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 ring_axis: Optional[str] = None, cache=None,
-                dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+                dropout_key: Optional[torch.Tensor] = None,
+                moe_aux: bool = False):
         if cache is not None:
             raise NotImplementedError(_DECODE_TODO)
         if ring_axis is not None:
@@ -133,13 +158,24 @@ class TransformerLM(nn.Module):
         if positions is None:
             positions = torch.arange(t, device=input_seq.device)
         x = self.tok_embed(input_seq) + self.pos_embed(positions)[None]
+        load_balance = []
         for i in range(self.n_layers):
             h = getattr(self, f"LayerNorm_{2 * i}")(x)
             h = getattr(self, f"attn_{i}")(h, positions)
             x = x + dropout(h, self.dropout_rate, dropout_key, 2 * i)
             h = getattr(self, f"LayerNorm_{2 * i + 1}")(x)
-            h = F.gelu(getattr(self, f"Dense_{2 * i}")(h), approximate="tanh")
-            h = getattr(self, f"Dense_{2 * i + 1}")(h)
+            if self.moe_experts:
+                h, lb = getattr(self, f"moe_{i}")(
+                    h, mask=input_seq != self.pad_id)
+                load_balance.append(lb)
+            else:
+                h = F.gelu(getattr(self, f"Dense_{2 * i}")(h),
+                           approximate="tanh")
+                h = getattr(self, f"Dense_{2 * i + 1}")(h)
             x = x + dropout(h, self.dropout_rate, dropout_key, 2 * i + 1)
         x = getattr(self, f"LayerNorm_{2 * self.n_layers}")(x)
-        return self.lm_head(x)
+        logits = self.lm_head(x)
+        if moe_aux:
+            # Switch eq. 4: each layer's term sums into the loss
+            return logits, sum(load_balance, 0.0)
+        return logits

@@ -184,6 +184,20 @@ def flash_work(b: int, h: int, t: int, d: int):
             "flash_bwd_dq": (5 * rows + 3 * vecs, 6 * d * pairs, pairs)}
 
 
+def flash_bf16_work(b: int, h: int, t: int, d: int):
+    """Per bf16 K4 kernel (``flash_fwd_bf16`` ...) at ``[B, H, T, d]``:
+    ``(bytes, bf16 tensor-core operations, exps)`` as `flash_work` counts
+    them, with the [B, H, T, d] rows at 2 bytes an element (m, l and di
+    stay f32).  Their bound is the larger of the bytes over 3.35 TB/s,
+    the products over the 989.4 TF/s bf16 rate and the exps over the
+    SFU."""
+    rows, vecs = 2 * b * h * t * d, 4 * b * h * t
+    f32 = flash_work(b, h, t, d)
+    return {f"{name}_bf16": (n_rows * rows + n_vecs * vecs, ops, pairs)
+            for (name, (_, ops, pairs)), (n_rows, n_vecs) in zip(
+                f32.items(), ((4, 2), (6, 3), (5, 3)))}
+
+
 def kernel_flops(name: str, **shape) -> float:
     """Floating-point operations of one call of a hand-written kernel
     (or of the eager elementwise passes around them), from the work table
@@ -197,8 +211,8 @@ def kernel_flops(name: str, **shape) -> float:
       ``shard_finalize_bounds``: the division, and at sigma > 0 the
       Gaussian's 30 f32 operations (as K1 counts them) plus its multiply
       and add;
-    * ``flash_fwd``/``flash_bwd_dkv``/``flash_bwd_dq`` (K4): ``b``,
-      ``h``, ``t``, ``d``;
+    * ``flash_fwd``/``flash_bwd_dkv``/``flash_bwd_dq`` (K4) and their
+      ``_bf16`` kernels: ``b``, ``h``, ``t``, ``d``;
     * ``stream_fold``: ``d``, ``clip`` — one multiply-add per element,
       and under a clip the norm pass (subtract, square, add) and the clip
       (subtract, multiply-add);
@@ -221,6 +235,9 @@ def kernel_flops(name: str, **shape) -> float:
     if name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         return float(flash_work(shape["b"], shape["h"], shape["t"],
                                 shape["d"])[name][1])
+    if name in ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"):
+        return float(flash_bf16_work(shape["b"], shape["h"], shape["t"],
+                                     shape["d"])[name][1])
     if name == "stream_fold":
         return float(shape["d"] * (2 + (6 if shape["clip"] else 0)))
     if name == "arena_screen":

@@ -454,9 +454,13 @@ class _DeviceRounds:
                             self.keyed)
 
     def eager(self, params, stacked, ids, live, seed_words=(0, 0)):
+        # the cohort's ids and live mask on the resident split's device
+        device = next(iter(stacked.values())).device
         return self._body(params, stacked,
-                          torch.as_tensor(np.asarray(ids, np.int64)),
-                          torch.as_tensor(np.asarray(live, np.float32)),
+                          torch.as_tensor(np.asarray(ids, np.int64),
+                                          device=device),
+                          torch.as_tensor(np.asarray(live, np.float32),
+                                          device=device),
                           seed_words)
 
     def replay(self, params, stacked, ids, live):

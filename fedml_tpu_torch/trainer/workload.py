@@ -12,7 +12,16 @@ train mode with dropout masks hashed from that key; without ``rng`` the
 model runs deterministic, as in eval.  The key is an input like any
 other, so ``torch.func.vmap`` maps it over a cohort without touching
 torch's global generator.  A workload whose model draws masks is
-``stochastic``; the local trainers give it one key a step."""
+``stochastic``; the local trainers give it one key a step.
+
+Mixed precision (``compute_dtype=torch.bfloat16``), as the JAX package's:
+the master parameters, their gradients and the client optimizer stay
+f32; ``loss_fn`` casts the float parameters (a stateful workload's
+``batch_stats`` excepted) and a float ``x`` to the compute dtype, the
+casts are differentiable (gradients come back f32), and the cross-entropy
+is taken on f32 logits.  cuBLAS's bf16 GEMMs reduce in f32 on this path
+(``allow_bf16_reduced_precision_reduction`` off), as XLA's bf16 dots
+accumulate in f32."""
 
 from __future__ import annotations
 
@@ -186,30 +195,74 @@ def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
+def cast_floats(tree: Tree, dtype) -> Tree:
+    """Float leaves cast to ``dtype`` (integer leaves untouched)."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
+def compute_dtype_of(name) -> Optional[torch.dtype]:
+    """``--compute_dtype``'s value ("" or None: f32) as a torch dtype."""
+    if not name:
+        return None
+    if isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"--compute_dtype {name!r} is not a float dtype")
+    return dtype
+
+
+def _mixed_precision(compute_dtype) -> Optional[torch.dtype]:
+    """The workload's compute dtype; under one, cuBLAS's bf16 GEMMs
+    reduce in f32 (the choice is the port's, once, for its bf16 path)."""
+    dtype = compute_dtype_of(compute_dtype)
+    if dtype is not None:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    return dtype
+
+
 def ClassificationWorkload(model: nn.Module, num_classes: int,
                            grad_clip_norm: Optional[float] = 1.0,
-                           stateful: bool = False) -> Workload:
+                           stateful: bool = False,
+                           compute_dtype=None) -> Workload:
     """Softmax cross-entropy on logits, mean over valid rows; metrics sum
     top-1 (and top-5 above 5 classes) hits, loss and row count.
-    ``stateful=True`` for BatchNorm models (see the module docstring)."""
+    ``stateful=True`` for BatchNorm models (see the module docstring).
+    ``compute_dtype``: ``loss_fn`` runs the model in it (see the module
+    docstring); ``metric_fn`` evaluates in f32, as the JAX package's."""
     paths = check_stateful(model, stateful)
+    dtype = _mixed_precision(compute_dtype)
 
-    def _ce(params, batch, rng=None):
-        logits = apply_model(model, params, batch["x"], rng).to(
-            torch.float32)
+    def _cast(params, x):
+        if dtype is None:
+            return params, x
+        params = {k: v if k.startswith("batch_stats/") else
+                  (v.to(dtype) if v.is_floating_point() else v)
+                  for k, v in params.items()}
+        return params, (x.to(dtype) if x.is_floating_point() else x)
+
+    def _ce(params, batch, rng=None, train=False):
+        x = batch["x"]
+        if train:
+            params, x = _cast(params, x)
+        logits = apply_model(model, params, x, rng).to(torch.float32)
         ce = F.cross_entropy(logits, batch["y"].long(), reduction="none")
         return logits, ce
 
     def loss_fn(params, batch, rng=None):
         if stateful:
             with batch_stats_collector() as stats:
-                _, ce = _ce(params, batch, rng)
+                _, ce = _ce(params, batch, rng, train=True)
         else:
-            _, ce = _ce(params, batch, rng)
+            _, ce = _ce(params, batch, rng, train=True)
         loss = _masked_mean(ce, batch["mask"])
         aux = {"loss": loss}
         if stateful:
-            aux["state"] = train_state(paths, stats)
+            # the running statistics rejoin the f32 master tree
+            aux["state"] = cast_floats(train_state(paths, stats),
+                                       torch.float32)
         return loss, aux
 
     def metric_fn(params, batch):
@@ -233,31 +286,34 @@ def ClassificationWorkload(model: nn.Module, num_classes: int,
 def make_nwp_loss_metrics(forward, pad_id: int = 0):
     """The NWP loss and metric semantics (``make_nwp_loss_metrics`` of the
     JAX package): per-position cross-entropy averaged over the non-pad
-    positions of valid rows, and summable ``correct`` / ``loss_sum`` /
-    ``total`` metrics.  ``forward(params, x, rng=None) -> logits [B, T,
-    V]``, in train mode when given ``rng``."""
+    positions of valid rows, plus the forward's extra loss in training,
+    and summable ``correct`` / ``loss_sum`` / ``total`` metrics.
+    ``forward(params, x, rng=None, train=False) -> (logits [B, T, V],
+    extra loss or None)``; ``rng`` keys dropout."""
 
     def _position_mask(batch):
         return (batch["y"] != pad_id).to(torch.float32) \
             * batch["mask"][:, None]
 
-    def _ce(params, batch, rng=None):
-        logits = (forward(params, batch["x"]) if rng is None
-                  else forward(params, batch["x"], rng)).to(torch.float32)
+    def _ce(params, batch, rng=None, train=False):
+        logits, extra = forward(params, batch["x"], rng, train)
+        logits = logits.to(torch.float32)
         b, t, v = logits.shape
         ce = F.cross_entropy(logits.reshape(b * t, v),
                              batch["y"].reshape(b * t).long(),
                              reduction="none").reshape(b, t)
-        return logits, ce
+        return logits, ce, extra
 
     def loss_fn(params, batch, rng=None):
-        _, ce = _ce(params, batch, rng)
+        _, ce, extra = _ce(params, batch, rng, train=True)
         m = _position_mask(batch)
         loss = torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+        if extra is not None:
+            loss = loss + extra
         return loss, {"loss": loss}
 
     def metric_fn(params, batch):
-        logits, ce = _ce(params, batch)
+        logits, ce, _ = _ce(params, batch)
         m = _position_mask(batch)
         pred = torch.argmax(logits, dim=-1)
         return {"correct": torch.sum((pred == batch["y"].long()) * m),
@@ -270,16 +326,28 @@ def make_nwp_loss_metrics(forward, pad_id: int = 0):
 def NWPWorkload(model: nn.Module, pad_id: int = 0,
                 grad_clip_norm: Optional[float] = None,
                 compute_dtype=None) -> Workload:
-    """Next-word/char prediction over ``[B, T, V]`` logits.  The JAX
-    package's MoE balance term has no counterpart: the port's transformer
-    refuses ``moe_experts``."""
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype (mixed precision) is not ported yet; the port's "
-            "workloads and kernels run f32")
-    loss_fn, metric_fn = make_nwp_loss_metrics(
-        lambda params, x, rng=None: apply_model(model, params, x, rng),
-        pad_id)
+    """Next-word/char prediction over ``[B, T, V]`` logits.
+    ``compute_dtype``: the parameters are cast to it in training and in
+    evaluation alike (the JAX package's forward), and the model must be
+    built with the same ``dtype`` for its layers to compute in it.  A
+    model with MoE layers adds ``moe_aux_weight x`` the sum of their
+    load-balance terms to the training loss (evaluation ignores it)."""
+    dtype = _mixed_precision(compute_dtype)
+    moe = bool(getattr(model, "moe_experts", 0))
+
+    def forward(params, x, rng=None, train=False):
+        if dtype is not None:
+            params = cast_floats(params, dtype)
+        if moe and train:
+            kwargs = {"moe_aux": True}
+            if rng is not None:
+                kwargs["dropout_key"] = rng
+            logits, load_balance = functional_call(
+                model, _module_names(params), (x,), kwargs)
+            return logits, model.moe_aux_weight * load_balance
+        return apply_model(model, params, x, rng), None
+
+    loss_fn, metric_fn = make_nwp_loss_metrics(forward, pad_id)
     return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
                     grad_clip_norm=grad_clip_norm,
                     stochastic=is_stochastic(model))

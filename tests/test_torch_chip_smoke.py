@@ -486,9 +486,9 @@ def test_algorithm_zoo_phase_on_the_cpu(tiny_phases, monkeypatch):
 
 def test_cross_device_phase_configs_parse_and_pass_the_gates():
     """At the card's sizes: 4 waves of 256 a round at 3400 clients (the
-    last 232 live), SCAFFOLD at 200 clients, the CPU rounds at 3 waves of
-    16 (the last padded), config 4's ResNet-18-GN at 500 clients, 10 a
-    round, and resnet56 on the cifar10 twin."""
+    last 232 live), SCAFFOLD at 200 clients, the CPU rounds at 2 waves of
+    8 (cut from 3 of 16), config 4's ResNet-18-GN at 500 clients, 10 a
+    round (its CPU round on 4), and resnet56 on the cifar10 twin."""
     for name, extra in cs.CD_RUNS.items():
         cfg = cs.cd_cfg([*cs.CD_ARGS, *extra], "cpu")
         assert cfg.algo == "cross_device" and cfg.model == "cnn_fedavg"
@@ -502,7 +502,10 @@ def test_cross_device_phase_configs_parse_and_pass_the_gates():
     par = cs.cd_cfg([*cs.CD_ARGS, *cs.CD_RUNS["scaffold"], *cs.CD_PARITY],
                     "cpu")
     assert (par.client_num_in_total, par.client_num_per_round,
-            par.wave_size) == (200, 40, 16)
+            par.wave_size) == (200, 16, 8)
+    c4par = cs.cd_cfg([*cs.CONFIG4_ARGS, *cs.CONFIG4_RUNS["fedprox"],
+                       *cs.CONFIG4_PARITY_COHORT], "cpu")
+    assert c4par.client_num_per_round == 4
     c4 = cs.cd_cfg([*cs.CONFIG4_ARGS, *cs.CONFIG4_RUNS["fednova"]], "cpu")
     assert (c4.model, c4.dataset, c4.client_num_in_total,
             c4.client_num_per_round, c4.local_alg) == (
@@ -645,11 +648,11 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "CARD", "cpu")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(exp_models, "RNNOriginalFedAvg",
-                        lambda vocab_size: RNNOriginalFedAvg(vocab_size, 8,
-                                                             16))
+                        lambda vocab_size, dtype=None: RNNOriginalFedAvg(
+                            vocab_size, 8, 16, dtype=dtype))
     monkeypatch.setattr(exp_models, "RNNStackOverflow",
-                        lambda: RNNStackOverflow(embedding_size=8,
-                                                 latent_size=16))
+                        lambda dtype=None: RNNStackOverflow(
+                            embedding_size=8, latent_size=16, dtype=dtype))
     monkeypatch.setitem(registry._REGISTRY, "shakespeare", partial(
         synthetic_federated_dataset, sample_shape=(8,), sequence_vocab=90,
         class_num=90))
@@ -693,7 +696,7 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
         assert row["host_loop"]["rounds_per_s"] > 0
         assert "device_kernels_per_round" in row["graph"]
     assert out["bn"]["tiny_bn"]["stats_moved"] > 1e-3
-    assert out["silo"]["lr"]["k2_launches"] == 12    # 4 shards x 3 rounds
+    assert out["silo"]["lr"]["k2_launches"] == 8     # 4 shards x 2 rounds
     k1 = out["robust"]["k1"]
     assert k1["stats_unclipped"] and k1["max_abs_err"] <= cs.KERNEL_TOL
     assert k1["weight_leaves"] < k1["leaves"]
@@ -849,3 +852,173 @@ def test_observability_phase_on_the_cpu(tiny_phases, monkeypatch):
     assert len(out["edges"]["edge_rollup"]) == cs.OBS_EDGE_ROUNDS
     assert len(out["turns_round_ms"]["on"]) == 2
     assert not (root / "build" / "observability").exists()
+
+
+# ---------------------------------------------------------------------------
+# phase 8p: mixed precision, the bf16 K4 kernels, the MoE transformer,
+# EfficientNet and VGG
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel, d, smem", [
+    ("flash_fwd_bf16", 16, 12288), ("flash_fwd_bf16", 32, 20480),
+    ("flash_fwd_bf16", 64, 36864), ("flash_bwd_dkv_bf16", 16, 13824),
+    ("flash_bwd_dkv_bf16", 32, 22016), ("flash_bwd_dkv_bf16", 64, 38400),
+    ("flash_bwd_dq_bf16", 32, 20480), ("flash_bwd_dq_bf16", 64, 36864)])
+def test_flash_bf16_smem_bytes(kernel, d, smem):
+    """The bf16 kernels' two buffers: 64-row bf16 tiles padded to d + 8
+    values (16 bytes, so rows stay 16-byte aligned), and K4dkv's f32 m,
+    l and di; under 48 KB at every head size."""
+    assert cs.flash_smem_bytes(kernel, d) == smem < 48 * 1024
+
+
+def test_flash_bf16_bounds_at_the_vmapped_shape():
+    """At [8, 2048, 8, 32]: the bytes halve against the f32 kernels' (bf16
+    rows, f32 m, l, di), the products run at the 989.4 TF/s bf16 rate, and
+    the exps bound K4f and K4dq, the products K4dkv."""
+    b, t, h, d = cs.BF16_SHAPES["vmap"]
+    got = cs.flash_bf16_bounds(b, h, t, d, MAX_SM_HZ)
+    pairs = b * h * t * (t + 1) / 2
+    rows, vecs = 2 * b * h * t * d, 4 * b * h * t
+    assert got["flash_fwd_bf16"]["bytes_ms"] == pytest.approx(
+        (4 * rows + 2 * vecs) / 3.35e12 * 1e3)
+    assert got["flash_bwd_dkv_bf16"]["bf16_ms"] == pytest.approx(
+        8 * d * pairs / 989.4e12 * 1e3)
+    assert got["flash_fwd_bf16"]["exp_ms"] == pytest.approx(
+        pairs / (16 * 132 * MAX_SM_HZ) * 1e3)
+    assert [got[k]["bound_term"] for k in cs.K4_BF16_NAMES] == [
+        "exp", "bf16", "exp"]
+    f32 = cs.flash_bounds(b, h, t, d, MAX_SM_HZ)
+    for name in cs.K4_NAMES:
+        assert got[f"{name}_bf16"]["bytes_ms"] < f32[name]["bytes_ms"]
+    from fedml_tpu_torch.obs.device import kernel_flops
+    assert kernel_flops("flash_bwd_dq_bf16", b=b, h=h, t=t, d=d) == \
+        kernel_flops("flash_bwd_dq", b=b, h=h, t=t, d=d)
+
+
+def test_mixed_precision_phase_configs_parse_and_pass_the_gates():
+    """The runs of phase 8p are valid CLI configs: the FEMNIST CNN, the
+    BatchNorm ResNet-56 and the defended FedAvg under bf16 (the defended
+    slice's K1 settings), EfficientNet-B0 and VGG-11 on the cifar10 twin
+    in f32; bf16 is refused on the live paths as in JAX; the bf16 shapes
+    cover every head size and the kernels line reads the vmapped one."""
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config
+    got = {}
+    for name, argv, bn_model in cs.BF16_IMAGE_RUNS:
+        cfg = config_from_argv(argv)
+        check_config(cfg)
+        got[name] = (cfg.algo, cfg.model, cfg.dataset, cfg.compute_dtype,
+                     cfg.comm_round)
+        assert bn_model is None or bn_model in cs.bn_models()
+    assert got == {
+        "cnn bf16": ("fedavg", "cnn_fedavg", "femnist", "bfloat16", 2),
+        "resnet56_bn bf16": ("fedavg", "resnet56", "cifar10", "bfloat16",
+                             2),
+        "fedavg_robust bf16": ("fedavg_robust", "cnn_fedavg", "femnist",
+                               "bfloat16", 2),
+        "efficientnet": ("fedavg", "efficientnet", "cifar10", "", 2),
+        "vgg11": ("fedavg", "vgg11", "cifar10", "", 2)}
+    robust = config_from_argv(cs.BF16_IMAGE_RUNS[2][1])
+    assert (robust.defense, robust.defense_backend) == ("weak_dp", "cuda")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        check_config(config_from_argv([*cs.SILO_ARGS, "--compute_dtype",
+                                       "bfloat16"]))
+    assert {d for _, _, _, d in cs.BF16_SHAPES.values()} == set(
+        fa.KERNEL_HEAD_DIMS)
+    assert cs.BF16_SHAPES["vmap"] == cs.FLASH_SHAPES["vmap"]
+
+
+def test_parity_row_limits():
+    """bf16 steps are held relative to their move, f32 ones at ROUND_TOL;
+    a step that does not move fails."""
+    init = {"w": torch.zeros(3)}
+    want = {"w": torch.tensor([0.1, 0.0, 0.0])}
+    near = {"w": torch.tensor([0.1 + 4e-3, 0.0, 0.0])}
+    far = {"w": torch.tensor([0.1 + 6e-3, 0.0, 0.0])}
+    assert cs.parity_row(near, want, init, torch.bfloat16)["ok"]
+    assert not cs.parity_row(far, want, init, torch.bfloat16)["ok"]
+    assert not cs.parity_row(near, want, init, None)["ok"]
+    assert not cs.parity_row(want, want, want, torch.bfloat16)["ok"]
+
+
+def test_mixed_precision_phase_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 8p on CPU tensors at a tiny size: the bf16 kernel check (the
+    plain versions against themselves), the LM runs (eager stand-ins for
+    the graphed slice) and their steps against the CPU, the MoE's dropped
+    tokens, and the image runs on LR over the mnist twin (K1's plain
+    calls counted as one launch), the BatchNorm stem, and CNNDropOut (a
+    keyed, eager device round)."""
+    import time as _time
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import load_experiment_data
+    from fedml_tpu_torch.models.resnet import CifarResNet
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    monkeypatch.setattr(cs, "CARD", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+    def host_ms(fn, n=20):
+        t0 = _time.perf_counter()
+        fn()
+        return (_time.perf_counter() - t0) * 1e3
+    monkeypatch.setattr(cs, "launch_ms", host_ms)
+    monkeypatch.setattr(cs, "BF16_SHAPES", {"vmap": (2, 128, 2, 32),
+                                            "d16": (1, 128, 2, 16)})
+    monkeypatch.setattr(cs, "LM", dict(vocab_size=64, d_model=32, n_heads=2,
+                                       n_layers=1, d_ff=64, max_len=128))
+    monkeypatch.setattr(cs, "LM_DATA", dict(
+        sample_shape=(128,), sequence_vocab=64, class_num=64,
+        num_clients=6, samples_per_client=4, batch_size=2))
+    monkeypatch.setattr(cs, "LM_FEDAVG", dict(
+        client_num_per_round=3, batch_size=2, lr=0.5, epochs=1,
+        client_axis="vmap"))
+    monkeypatch.setattr(cs, "MOE_BLOCK", 64)
+
+    def eager_slice(data, root, algo=None, names=cs.K4_NAMES, label=""):
+        algo.evaluate_global = lambda p: {}
+        params = algo.run()
+        steady = algo.round_times[1:]
+        return ({}, 2, dict(rounds_per_s=1.0, peak_mem_gb=None,
+                            steady_round_ms=1e3 * sum(steady)
+                            / len(steady)), params)
+    monkeypatch.setattr(cs, "run_lm_slice", eager_slice)
+    small = ["--model", "lr", "--dataset", "mnist", "--client_num_in_total",
+             "6", "--client_num_per_round", "3", "--batch_size", "4"]
+    runs = {name: (argv, bn) for name, argv, bn in cs.BF16_IMAGE_RUNS}
+    monkeypatch.setattr(cs, "BF16_IMAGE_RUNS", (
+        ("cnn bf16", [*runs["cnn bf16"][0], *small], None),
+        ("resnet56_bn bf16", [*runs["resnet56_bn bf16"][0], *small[4:]],
+         "resnet56_bn"),
+        ("fedavg_robust bf16", [*runs["fedavg_robust bf16"][0], *small],
+         None),
+        ("cnn dropout", [*runs["cnn bf16"][0], *small, "--model", "cnn",
+                         "--dataset", "femnist", "--compute_dtype", ""],
+         None)))
+    monkeypatch.setattr(cs, "bn_models", lambda: {"resnet56_bn": lambda: (
+        CifarResNet(layers=(0, 0, 0), num_classes=10, norm="batch"))})
+    monkeypatch.setattr(cs, "SLICE_ARGS", [*cs.SLICE_ARGS, *small])
+    for fn, key, step in (("robust_agg_plain", "robust_agg", 0.5),
+                          ("clip_scales_plain", "clip_norm", 1)):
+        real = getattr(fused_agg, fn)
+
+        def counted(*a, _real=real, _key=key, _step=step, **k):
+            fused_agg.launch_counts[_key] += _step     # LR: 2 leaves
+            return _real(*a, **k)
+        monkeypatch.setattr(fused_agg, fn, counted)
+    data = load_experiment_data(config_from_argv(cs.SLICE_ARGS))
+    try:
+        out = cs.check_mixed_precision(data, cs.lm_data(), tmp_path,
+                                       MAX_SM_HZ, 30.0)
+    finally:
+        torch.set_num_threads(n_threads)
+    assert set(out["worst"]) == set(cs.K4_BF16_NAMES)
+    assert all(v == 0.0 for v in out["worst"].values())  # plain vs plain
+    assert out["lm"]["vs_cpu"]["ok"] and out["moe"]["f32"]["vs_cpu"]["ok"]
+    for label in ("bf16", "f32"):
+        assert 0 <= out["moe"][label]["dropped_share"] < 1
+    imgs = out["images"]
+    assert imgs["fedavg_robust bf16"]["k1_launches"] == cs.BF16_ROUNDS
+    assert imgs["cnn bf16"]["compute_dtype"] == "bfloat16"
+    assert imgs["cnn dropout"]["compute_dtype"] == "float32"
+    assert all(r["all_leaves_f32"] for r in imgs.values())

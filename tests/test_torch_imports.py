@@ -293,3 +293,32 @@ def test_observability_modules_import_without_jax():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+MIXED_PRECISION_MODULES = (
+    "fedml_tpu_torch.models.moe", "fedml_tpu_torch.models.efficientnet",
+    "fedml_tpu_torch.models.vgg", "fedml_tpu_torch.utils.torch_import",
+    "fedml_tpu_torch.models.flash_attention",
+    "fedml_tpu_torch.models.transformer", "fedml_tpu_torch.models.norms",
+    "fedml_tpu_torch.models.rnn", "fedml_tpu_torch.trainer.workload",
+    "fedml_tpu_torch.experiments.models")
+
+
+def test_mixed_precision_slice_modules_import_without_jax():
+    """The mixed-precision slice (the MoE FFN, EfficientNet, VGG, the
+    checkpoint importer, the bf16 flash kernels' wrappers), each named,
+    imports with JAX and the JAX package blocked, builds no kernel, and
+    counts the bf16 kernels' launches apart from the f32 ones."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {MIXED_PRECISION_MODULES!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"fa = sys.modules['fedml_tpu_torch.models.flash_attention']\n"
+            f"assert fa._lib_handle is None\n"
+            f"assert sorted(fa.launch_counts) == sorted(\n"
+            f"    n for names in fa.KERNELS.values() for n in names)\n"
+            f"assert 'flash_fwd_bf16' in fa.launch_counts\n"
+            f"print('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

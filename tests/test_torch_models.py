@@ -78,8 +78,13 @@ def test_port_init_matches_flax_layout():
 
 
 def test_unported_model_named():
-    with pytest.raises(KeyError, match="item 10"):
-        create_workload("vgg11", "femnist", 62, (28, 28, 1))
+    # VGG is ported (its head sized from the 28 x 28 input); an unknown
+    # name is refused with the port's list
+    from fedml_tpu_torch.models import VGG
+    assert isinstance(create_workload("vgg11", "femnist", 62,
+                                      (28, 28, 1)).model, VGG)
+    with pytest.raises(KeyError, match="unknown model.*vgg16"):
+        create_workload("vgg19", "femnist", 62, (28, 28, 1))
 
 
 # CNNDropOut's eval-mode logits: f32 sums in another order, as the CNN's

@@ -145,8 +145,9 @@ def test_gates_and_refusals_are_named():
     wl = create_workload("transformer", "stackoverflow_nwp", 10004, (20,),
                          attn_block_size=10)
     assert wl.model.attn_0.block_size == 10
-    for flag, match in ((["--moe_experts", "4"], "moe.py"),
-                        (["--mesh_sequence", "2"], "item 10"),
+    assert create_workload("transformer", "shakespeare", 90, (80,),
+                           moe_experts=4).model.moe_experts == 4
+    for flag, match in ((["--mesh_sequence", "2"], "item 10"),
                         (["--mesh_stages", "2"], "pipeline.py")):
         with pytest.raises(NotImplementedError, match=match):
             _cli(*flag)
