@@ -422,6 +422,38 @@ def device_ms(fn, reps: int, name: str = "", windows: int = 3):
     return statistics.median(per_call) if per_call else None
 
 
+def launch_device_ms(fn, reps: int = 20, name: str = "",
+                     windows: int = 3):
+    """Device time (ms) of one call of ``fn`` from torch.profiler: for each
+    kernel (a row of ``key_averages()`` whose name contains ``name``) its
+    mean over the launches the window recorded, times its launches a
+    call; the median of ``windows`` windows that recorded one (at most
+    twice as many tried), None if none did.  The profiler drops launches
+    now and then, late in a long process (all of them in some windows):
+    a partial window leaves the means right, where its sum over ``reps``
+    calls would read low."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(2 * windows):
+        if len(per_call) == windows:
+            break
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if name in e.key and _self_device_us(e) > 0]
+        if rows:
+            per_call.append(sum(_self_device_us(e) / e.count
+                                * math.ceil(e.count / reps)
+                                for e in rows) / 1e3)
+    return statistics.median(per_call) if per_call else None
+
+
 def call_profile(fn, reps: int = 5):
     """What one call of ``fn`` costs: its host time (µs, the device drained
     before and after), and from torch.profiler its kernel launches, their
@@ -2824,19 +2856,28 @@ def sass_tensor_core_counts(lib_path: Path):
                          text=True, timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass failed: {out.stderr.strip()[:500]}")
-    return tensor_core_counts(out.stdout)
+    return tensor_core_kinds(out.stdout)
 
 
 def tensor_core_counts(sass: str):
     """HMMA and HGMMA instructions in each function of ``cuobjdump -sass``
     output, by function name."""
+    return {fn: sum(kinds.values())
+            for fn, kinds in tensor_core_kinds(sass).items()}
+
+
+def tensor_core_kinds(sass: str):
+    """HMMA (``mma.sync``) and HGMMA (``wgmma``) instructions apart, in
+    each function of ``cuobjdump -sass`` output, by function name."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            hit = re.search(r"\b(HG?MMA)\b", line)
+            if hit:
+                counts[fn][hit.group(1)] += 1
     return counts
 
 
@@ -2845,8 +2886,19 @@ def flash_smem_bytes(kernel: str, d: int) -> int:
     head size ``d``: ``kv_smem_bytes`` and ``dkv_smem_bytes`` of
     ``csrc/flash_attention.cu``, two buffers of 64-row tiles padded to
     d + 4 floats (K4f and K4dq: K and V; K4dkv: Q and dO, then m, l and
-    di); the ``_bf16`` kernels' tiles are bf16 rows padded to d + 8
-    (``kv_smem_bytes_bf16``, ``dkv_smem_bytes_bf16``), m, l, di f32."""
+    di); K4dq bf16's tiles are bf16 rows padded to d + 8
+    (``kv_smem_bytes_bf16``).  The wgmma kernels (``FwdSmem``,
+    ``DkvSmem``) keep unpadded, swizzled 64-row bf16 tiles: K4f bf16 its
+    128 Q rows and a ring of K4_STAGES K and V tiles, K4dkv bf16 its K and
+    V tiles and a ring of Q and dO tiles with -m log2 e, 1 / l and di
+    (f32), each with K4_STAGES pairs of 8-byte mbarriers and 1024 bytes to
+    align the base."""
+    if kernel in ("flash_fwd_bf16", "flash_bwd_dkv_bf16"):
+        tile = 64 * 2 * d
+        ring = 2 * K4_STAGES * tile
+        if kernel == "flash_bwd_dkv_bf16":
+            ring += K4_STAGES * 3 * 64 * 4
+        return 2 * tile + ring + 2 * K4_STAGES * 8 + 1024
     bf16 = kernel.endswith("_bf16")
     tile = 64 * (d + 8) * 2 if bf16 else 64 * (d + 4) * 4
     per_buffer = {"flash_fwd": 2 * tile,
@@ -2874,12 +2926,26 @@ def check_flash_build(lib_path: Path):
             [fn] = [f for f in ptxas if key in f]
             row = dict(ptxas[fn], smem_dynamic=flash_smem_bytes(kernel, d))
             if sass is not None:
-                row["tensor_core_sass"] = sum(
-                    n for f, n in sass.items() if key in f)
+                for kind in ("HMMA", "HGMMA"):
+                    row[f"{kind.lower()}_sass"] = sum(
+                        n[kind] for f, n in sass.items() if key in f)
+                row["tensor_core_sass"] = row["hmma_sass"] + row["hgmma_sass"]
                 if not row["tensor_core_sass"]:
                     fail(f"{kernel} (d={d}) has no tensor-core instruction "
                          f"in its SASS")
+                if kernel in K4_WGMMA and (row["hmma_sass"]
+                                           or not row["hgmma_sass"]):
+                    fail(f"{kernel} (d={d}): {row['hgmma_sass']} HGMMA and "
+                         f"{row['hmma_sass']} HMMA in its SASS; its products "
+                         f"are wgmma's")
+            if kernel in K4_WGMMA and d == 32 and (row.get("spill_stores")
+                                                   or row.get("spill_loads")):
+                fail(f"{kernel} (d=32) spills: {row}")
             report[f"{kernel}/d{d}"] = row
+    for name in K4_WGMMA:
+        print(f"ptxas/sass {name}: " + json.dumps(
+            {d: report[f"{name}/d{d}"] for d in fa.KERNEL_HEAD_DIMS}),
+            flush=True)
     phase("kernel flash_attention build", kernels=report,
           sass_checked=sass is not None)
     return report
@@ -5830,7 +5896,12 @@ BF16_SHAPES = {                # [B, T, H, d], as the bf16 model calls K4
     "vmap": (8, 2048, 8, 32),      # 4 clients x B=2, the vmap fold
     "d16": (2, 256, 4, 16),        # the other head sizes the kernels take
     "d64": (2, 256, 4, 64),
+    "t128": (2, 128, 4, 32),       # one 128 block: the library's one-step form
 }
+# the bf16 kernels whose products are wgmma's (K4f and K4dkv), and the
+# depth of their rings of tiles (kStages in csrc/flash_attention.cu)
+K4_WGMMA = ("flash_fwd_bf16", "flash_bwd_dkv_bf16")
+K4_STAGES = 3
 BF16_KERNEL_TOL = 2.0 ** -7    # x max|ref|: o, dq, dk, dv (two bf16 ulps at
 #                                the top of the range)
 BF16_ML_TOL = 1e-5             # x max|ref|: m and l (f32), as the f32
@@ -5842,7 +5913,7 @@ BF16_OPS_PER_S = 989.4e12      # H100 SXM data sheet, dense bf16 tensor cores
 # max|cpu - init|, the step moving some weight by more than 10 x ROUND_TOL.
 # cuBLAS and the CPU round bf16 products at other places (a bias added
 # before or after the output's rounding), and the forward kernel rounds P
-# against the running max of its 32-key half where the plain version uses
+# against the running max of its 64-key tile where the plain version uses
 # the row's final max; each such difference is one bf16 ulp (2^-8) of an
 # activation or gradient.  Relative, because the slices move their
 # weights by 0.01 (the LM) to 2.6 (the BatchNorm ResNet) in a step; the
@@ -5913,9 +5984,12 @@ def check_flash_bf16_kernel(sm_hz: float):
     """Phase 8p, step 1: the bf16 K4f, K4dkv and K4dq against their plain
     versions on the card at BF16_SHAPES (o, dq, dk, dv within
     BF16_KERNEL_TOL x max|ref|; m and l within BF16_ML_TOL x max|ref|), their
-    times, the plain versions', the bounds (at the SM's maximum clock) and
-    scaled_dot_product_attention's bf16 forward and backward at the same
-    shape (a yardstick the port never calls)."""
+    times (CUDA events around a call, which count the wrapper's host work
+    too), the wrappers' host µs, the plain versions', the bounds (at the
+    SM's maximum clock) and scaled_dot_product_attention's bf16 forward and
+    backward at the same shape (a yardstick the port never calls); at the
+    vmapped shape also each kernel's and SDPA's forward's device-only time
+    from torch.profiler."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -5976,7 +6050,15 @@ def check_flash_bf16_kernel(sm_hz: float):
             for name, (kernel, plain) in calls.items():
                 row[name] = dict(ms=launch_ms(kernel, 20),
                                  plain_ms=launch_ms(plain, 5),
+                                 host_us=host_us(kernel, 20),
                                  **bounds[name])
+                if shape_name == "vmap":
+                    row[name]["device_ms"] = launch_device_ms(
+                        kernel, 20, name=f"{name}_kernel")
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True)
+            if shape_name == "vmap":
+                row["sdpa_fwd_device_ms"] = launch_device_ms(sdpa, 20)
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
             def sdpa_fwd_bwd():
@@ -5984,9 +6066,7 @@ def check_flash_bf16_kernel(sm_hz: float):
                                                      is_causal=True)
                 torch.autograd.grad(out, (qg, kg, vg), do)
 
-            row["sdpa_fwd_ms"] = launch_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True), 20)
+            row["sdpa_fwd_ms"] = launch_ms(sdpa, 20)
             row["sdpa_fwd_bwd_ms"] = launch_ms(sdpa_fwd_bwd, 10)
             row["sdpa_bwd_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
             row["k4_bwd_ms"] = (row["flash_bwd_dkv_bf16"]["ms"]
@@ -6424,9 +6504,21 @@ def main() -> None:
             "bound_by": row["bound_by"], "bound_term": row["bound_term"],
             "tensor_core_sass": flash_build[f"{name}/d32"].get(
                 "tensor_core_sass"),
+            "hgmma_sass": flash_build[f"{name}/d32"].get("hgmma_sass"),
+            "hmma_sass": flash_build[f"{name}/d32"].get("hmma_sass"),
             "library_ms": (mixed["per_round"] * bf_rows["sdpa_fwd_ms"]
                            if name == "flash_fwd_bf16" else None),
+            # torch.profiler's kernel time (the event ms above also count
+            # the wrapper's host work) and the wrapper's host µs a call
+            "device_ms": (None if row["device_ms"] is None
+                          else mixed["per_round"] * row["device_ms"]),
+            "host_us": row["host_us"],
         })
+        if name == "flash_fwd_bf16":
+            sdpa_device = bf_rows["sdpa_fwd_device_ms"]
+            kernels[-1]["library_device_ms"] = (
+                None if sdpa_device is None
+                else mixed["per_round"] * sdpa_device)
         if name == "flash_bwd_dq_bf16":
             kernels[-1]["sdpa_bwd_ms"] = (mixed["per_round"]
                                           * bf_rows["sdpa_bwd_ms"])

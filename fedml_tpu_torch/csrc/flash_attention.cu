@@ -37,7 +37,7 @@
 // per SM take about the same time (chip_smoke.py::flash_bounds computes
 // all three terms).
 //
-// All three run their products on the tensor cores
+// The f32 kernels run their products on the tensor cores
 // (mma.sync.m16n8k8, TF32 inputs, f32 accumulators) in three passes:
 // each f32 operand a is split into hi = tf32(a) (cvt.rna's rounding) and
 // lo = a - hi (exact) truncated to TF32, and a*b is taken as
@@ -51,7 +51,9 @@
 // dK/dV sums; K for dS K) would be a further shared tile; with mma.sync
 // the split and the transposes are register and index work.
 //
-// The design of the three:
+// The bf16 kernels are described in their own section below (K4f and
+// K4dkv: wgmma, a producer warp and a ring of swizzled tiles).  The design
+// of the three f32 kernels:
 //   * 4 warps a block, 16 rows a warp, one 64-row tile a block; the warp's
 //     own operands (the Q rows in K4f; the K and V rows in K4dkv; the Q and
 //     dO rows in K4dq) are split into hi/lo fragments once and kept in
@@ -629,25 +631,28 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // (preferred_element_type=f32) and rounds to bf16 at four points: P before
 // P V (forward), P^T before P^T dO, dS before dS^T Q (dK/dV) and dS before
 // dS K (dQ); m, l, di and every running sum stay f32, and o, dq, dk, dv
-// are rounded once when written.  These kernels do the same with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulators), one pass: a bf16 product
-// is exact in f32, so no hi/lo split.  The structure, grid and walks are
-// the f32 kernels'; what differs:
+// are rounded once when written.  The bf16 kernels do the same, one pass:
+// a bf16 product is exact in f32, so no hi/lo split.  K4f and K4dkv issue
+// their products with wgmma (the Hopper section below); K4dq with
+// mma.sync.m16n8k16 (bf16 in, f32 accumulators) in the f32 kernels'
+// structure, grid and walk.  What K4dq's form changes against the f32
+// kernels':
 //   * an m16n8k16 A fragment holds (row g | g + 8, k = 2t, 2t + 1 | 2t + 8,
 //     2t + 9) as bf16 pairs, which is exactly what two adjacent 16 x 8
-//     accumulator tiles hold (columns 2t, 2t + 1 of each): P (or dS) goes
-//     to the next product through cvt.rn.bf16x2.f32 with no permutation;
-//   * the score products (Q K^T; K Q^T and V dO^T; Q K^T and dO V^T) read
-//     B as 32-bit pairs along d from row-major tiles; the second products
-//     (P V; P^T dO and dS^T Q; dS K) read B down a column, two 16-bit
-//     loads a register;
+//     accumulator tiles hold (columns 2t, 2t + 1 of each): dS goes to the
+//     next product through cvt.rn.bf16x2.f32 with no permutation;
+//   * the score products (Q K^T and dO V^T) read B as 32-bit pairs along d
+//     from row-major tiles; dS K reads B down a column, two 16-bit loads a
+//     register;
 //   * shared rows are padded to D + 8 bf16 (16 bytes): rows stay 16-byte
 //     aligned for cp.async, and both kinds of fragment load hit 32
 //     different banks (the pitch in words is 4 mod 8 words per row pair);
-//   * P (or dS) is rounded once per 16-key (or 16-query) step, from the f32
-//     value the f32 kernels would use; the forward's P is exp(s - m) against
-//     the running max of the 32-key half, as in the f32 kernel (the
-//     library's against the running max of its 128-key block).
+//   * dS is rounded once per 16-key step, from the f32 value the f32
+//     kernel would use.
+// Where P is rounded: the library's forward rounds exp(s - m) against the
+// running max of its 128-key block, K4f against the running max of its
+// 64-key tile, the plain version against the row's final max; the
+// backward's P^T is exp(s - m) / l with the final m and l everywhere.
 // They are bound by the exps more than by the products (bf16 runs at twice
 // the TF32 rate and needs one pass, not three), and their bytes are half
 // the f32 kernels'.
@@ -762,158 +767,483 @@ __host__ __device__ constexpr int kv_smem_bytes_bf16() {
   return 2 * 2 * kTile * kPitchH<D> * 2;
 }
 
-// one buffer: the Q and dO bf16 tiles, then the m, l and di f32 rows
-template <int D>
-__host__ __device__ constexpr int dkv_buffer_bytes_bf16() {
-  return 2 * kTile * kPitchH<D> * 2 + 3 * kTile * 4;
+// ---------------------------------------------------------------------------
+// bf16 K4f and K4dkv on Hopper: wgmma, a producer warp, a ring of tiles
+// ---------------------------------------------------------------------------
+//
+// The bf16 forward and dK/dV kernels issue every product with
+// wgmma.mma_async (bf16 in, f32 accumulators in registers):
+//   * Tiles live in shared memory in the swizzled layout wgmma reads: a
+//     row of D bf16 is R = 2D bytes (32, 64, 128), stored with the
+//     R-byte swizzle (16-byte chunk c of row r at chunk c ^ ((r R / 128) &
+//     (R / 16 - 1))), every tile on a 1024-byte boundary.  One tile serves
+//     a product that reads it K-major (K for Q K^T, Q for K Q^T) and one
+//     that reads it transposed (V for P V, dO for P^T dO, Q for dS^T Q):
+//     an [rows][D] tile is the N-major atom of the same swizzle.
+//   * Loading: a producer warp copies each tile with 16-byte cp.async to
+//     swizzled addresses it computes, waits for its copies, fences them to
+//     the async proxy (fence.proxy.async, which wgmma's reads need) and
+//     arrives on the stage's "full" mbarrier; the consumers arrive on its
+//     "empty" mbarrier once their products have read it.  cp.async rather
+//     than TMA: a tensor map is built on the host per tensor and launch,
+//     which costs host time on every eager call and would have to stay
+//     valid inside a captured CUDA graph (cohort.py's GraphedRounds
+//     replays the folded calls with their own pointers); a warp of
+//     cp.async needs neither, and the tiles are 2-8 KB.
+//   * P (or P^T, dS^T) goes from the f32 accumulator to the next product's
+//     A operand in registers: an m64nNk16 accumulator gives each warp rows
+//     (g, g + 8) and columns (8j + 2t, 8j + 2t + 1), which for columns 16s
+//     .. 16s + 15 is exactly the A fragment of k-step s (acc_to_a).
+//   * Exps are ex2.approx of one explicit fmaf(s, scale log2 e, -m log2 e)
+//     (the build's -fmad=false fuses nothing by itself); running sums (O,
+//     dK, dV) stay in the wgmma accumulators for the whole walk.
+
+constexpr int kStages = 3;          // the ring's depth
+constexpr int kKeyTile = 64;        // keys (K4f) or queries (K4dkv) a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
-__host__ __device__ constexpr int dkv_smem_bytes_bf16() {
-  return 2 * dkv_buffer_bytes_bf16<D>();
+__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
 }
 
+// byte offset of 16-byte chunk `ch` of row `row` in a swizzled tile of
+// D-wide bf16 rows (CUTLASS's Swizzle<log2(R / 16), 4, 3> on the offset)
 template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
+__device__ __forceinline__ uint32_t swz(int row, int ch) {
+  constexpr uint32_t R = 2 * D;
+  const uint32_t off = row * R + ch * 16;
+  return off ^ (((off >> 7) & (R / 16 - 1)) << 4);
+}
+
+// Start copying ROWS contiguous rows of D bf16 into a swizzled tile at
+// shared address dst: one warp, 16 bytes a lane and step.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_tile(uint32_t dst,
+                                          const uint16_t* __restrict__ src,
+                                          int lane) {
+  constexpr int CR = 2 * D / 16;    // chunks a row
+#pragma unroll
+  for (int i = 0; i < ROWS * CR / 32; ++i) {
+    const int c = lane + 32 * i;
+    cp_async16_s(dst + swz<D>(c / CR, c % CR), src + 8 * c);
+  }
+}
+
+// A wgmma shared-memory descriptor of a swizzled tile at address addr:
+// both byte offsets are the stride between 8-row groups (8 R; SBO for a
+// K-major read, the k-group stride of an N-major one, whose N = D is a
+// single swizzle atom, so its LBO is never used), layout 1/2/3 = the
+// 128/64/32-byte swizzle.  A k-step adds its byte offset >> 4.
+template <int D>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  constexpr uint64_t stride = (8 * 2 * D) >> 4;
+  constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (stride << 16) |
+         (stride << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of the given parity has completed.  A wait that
+// never ends (an arrival lost to a fault) traps after about 2^26 polls,
+// so that it fails the launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the writing thread's shared stores made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an in-flight wgmma writes (or reads) are redefined here,
+// after a wait: the compiler may not read or reuse them earlier.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (+)= A B for one m64n64k16 step, A and B from shared memory
+// (descriptors), both K-major; d zeroed first when scale_d is 0
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A B for one m64n16k16 step: A (bf16 pairs) from registers, B from
+// shared memory N-major (transposed: imm-trans-b)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B for one m64n32k16 step: A (bf16 pairs) from registers, B from
+// shared memory N-major (transposed: imm-trans-b)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B for one m64n64k16 step: A (bf16 pairs) from registers, B from
+// shared memory N-major (transposed: imm-trans-b)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O += A B over 64 keys (or queries): four k-steps of m64n{D}k16, A the
+// bf16 fragments a[kk], B a [64][D] tile read transposed
+template <int D>
+__device__ __forceinline__ void wgmma_rows(float (&acc)[D / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bk = b + ((kk * 16 * 2 * D) >> 4);
+    if constexpr (D == 16) wgmma_rs_n16(acc, a[kk], bk);
+    else if constexpr (D == 32) wgmma_rs_n32(acc, a[kk], bk);
+    else wgmma_rs_n64(acc, a[kk], bk);
+  }
+}
+
+// acc (bf16-rounded) as the A fragments of four k-steps
+__device__ __forceinline__ void acc_frags(const float (&acc)[32],
+                                          uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(acc[8 * kk], acc[8 * kk + 1]);
+    a[kk][1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+    a[kk][2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+    a[kk][3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
+}
+
+// K4f's shared memory, byte offsets from a 1024-byte aligned base: the
+// block's 128 Q rows, kStages K and kStages V tiles of 64 keys, then the
+// full and empty barriers
+template <int D>
+struct FwdSmem {
+  static constexpr int tile = kKeyTile * 2 * D;
+  static constexpr int q = 0;
+  static constexpr int k = 2 * tile;
+  static constexpr int v = k + kStages * tile;
+  static constexpr int bars = v + kStages * tile;
+  static constexpr int bytes = bars + 2 * kStages * 8 + 1024;
+};
+
+constexpr int kFwdThreads = 2 * 128 + 32;   // two warpgroups + a producer
+
+// K4f bf16.  A block owns 128 query rows of one (b, h): two consumer
+// warpgroups of 64 rows and a producer warp that streams the 64-key K and
+// V tiles 0 .. the diagonal through a ring of kStages.  Warpgroup wg
+// visits key tiles 0 .. 2 qt + wg (its last is its diagonal, the only one
+// masked).  Per tile: S = Q K^T (m64n64k16, A = Q and B = K from shared
+// memory), the online softmax on the accumulator (row max by quad
+// shuffles, one fmaf and one ex2 a score), O = O corr + bf16(P) V
+// (m64n{D}k16, A = P from registers, B = V transposed).  The exps overlap
+// the products inside each warpgroup (FA3's intra-warpgroup pipelining):
+// tile j's S product and tile j - 1's P V product are issued together,
+// and tile j's softmax runs while P V is still on the tensor cores.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, D <= 32 ? 2 : 1)
 flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
                       const uint16_t* __restrict__ k,
                       const uint16_t* __restrict__ v,
                       uint16_t* __restrict__ o, float* __restrict__ m_out,
                       float* __restrict__ l_out, int t, float scale) {
-  constexpr int P = kPitchH<D>, KS = D / 16, NT = D / 8;
+  using L = FwdSmem<D>;
   extern __shared__ float4 smem4[];
-  uint16_t* const smem = reinterpret_cast<uint16_t*>(smem4);
-  const int n_tiles = t / kTile;
-  const int qt = n_tiles - 1 - blockIdx.y;   // the longest rows start first
+  const uint32_t base = (smem_u32(smem4) + 1023) & ~1023u;
+  const uint32_t full = base + L::bars, empty = full + 8 * kStages;
+  const int qt = t / 128 - 1 - blockIdx.y;   // the longest rows start first
   const int64_t bh = blockIdx.x;
+  const int n_kv = 2 * qt + 2;               // 64-key tiles the block loads
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int r0 = 16 * warp + g;              // rows r0 and r0 + 8 of the tile
-  const int64_t row0 = bh * t + static_cast<int64_t>(qt) * kTile + r0;
-  const uint16_t* const kbh = k + bh * t * D;
-  const uint16_t* const vbh = v + bh * t * D;
-
-  stage_tile_bf16<D>(smem, kbh);
-  stage_tile_bf16<D>(smem + kTile * P, vbh);
-  cp_async_commit();
-
-  uint32_t qa[KS][4];
-  load_rows_bf16<D>(q + row0 * D, tq, qa);
-  float acc[NT][4];                          // O: dims 8n + 2t, 8n + 2t + 1
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY};       // rows r0, r0 + 8
-  float l[2] = {0.0f, 0.0f};                 // this thread's columns only
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const uint16_t* const ks = smem + (kt & 1) * 2 * kTile * P;
-    const uint16_t* const vs = ks + kTile * P;
-    if (kt < qt) {
-      uint16_t* const next = smem + ((kt + 1) & 1) * 2 * kTile * P;
-      stage_tile_bf16<D>(next, kbh + static_cast<int64_t>(kt + 1) * kTile * D);
-      stage_tile_bf16<D>(next + kTile * P,
-                         vbh + static_cast<int64_t>(kt + 1) * kTile * D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, 8);
     }
-    __syncthreads();
-
-    const bool diag = kt == qt;
-    // 32 keys at a time: n-tile j holds keys c0 + 8j + 2t (+1)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;
-      if (diag && c0 > 16 * warp + 15) continue;
-      float s[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-        for (int st = 0; st < KS; ++st) {
-          uint32_t b0, b1;
-          row_pairs<D>(ks, c0 + 8 * j + g, st, tq, b0, b1);
-          mma_bf16(s[j], qa[st], b0, b1);
-        }
-      }
-      // scale, mask the diagonal, and the online softmax's rescale (f32)
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * scale;
-          if (diag && c0 + 8 * j + 2 * tq + (e & 1) > r0 + 8 * (e >> 1))
-            x = -INFINITY;
-          s[j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      float corr[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
-        corr[h] = __expf(m[h] - mx[h]);
-        m[h] = mx[h];
-        l[h] *= corr[h];
-      }
-      // P = exp(s - m) in f32 (l sums it unrounded, as the library's l),
-      // then this half's P V from zero with P rounded to bf16, 16 keys a
-      // k-step; O = O corr + P V in f32
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = __expf(s[j][e] - m[e >> 1]);
-          l[e >> 1] += s[j][e];
-        }
-      float pv[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t pa[4];
-        acc_to_a(s[2 * kk], s[2 * kk + 1], pa);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const uint16_t* const vp = vs + (c0 + 16 * kk + 2 * tq) * P + 8 * n + g;
-          mma_bf16(pv[n], pa, col_pair<D>(vp), col_pair<D>(vp + 8 * P));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[n][e] = acc[n][e] * corr[e >> 1] + pv[n][e];
-    }
-    __syncthreads();   // the next iteration's copy reuses this buffer
+    fence_barrier_init();
   }
+  __syncthreads();
+
+  if (warp == 8) {   // the producer
+    const uint16_t* const kbh = k + bh * t * D;
+    const uint16_t* const vbh = v + bh * t * D;
+    for (int i = 0; i < n_kv; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(empty + 8 * s, (i / kStages - 1) & 1);
+      if (i == 0)
+        copy_tile<D, 128>(base + L::q, q + (bh * t + 128 * qt) * D, lane);
+      const int64_t off = static_cast<int64_t>(i) * kKeyTile * D;
+      copy_tile<D, kKeyTile>(base + L::k + s * L::tile, kbh + off, lane);
+      copy_tile<D, kKeyTile>(base + L::v + s * L::tile, vbh + off, lane);
+      cp_async_commit();
+      if (i > 0) {
+        cp_async_wait<1>();
+        fence_async_shared();
+        mbar_arrive(full + 8 * ((i - 1) % kStages));
+      }
+    }
+    cp_async_wait<0>();
+    fence_async_shared();
+    mbar_arrive(full + 8 * ((n_kv - 1) % kStages));
+    return;
+  }
+
+  const int wg = warp / 4, w = warp % 4, g = lane / 4, tq = lane % 4;
+  const int n = 2 * qt + 1 + wg;             // key tiles this warpgroup sees
+  const float sl2 = scale * kLog2e;
+  const uint64_t qdesc = make_desc<D>(base + L::q + wg * L::tile);
+  float sacc[32];                            // S: keys 8j + 2t (+1), rows
+  float oacc[D / 2];                         // g, g + 8 of the warp's 16
+  uint32_t pa[4][4];
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+
+  // issue S = Q K_j^T
+  auto scores = [&](int j) {
+    const int s = j % kStages;
+    mbar_wait(full + 8 * s, (j / kStages) & 1);
+    const uint64_t kdesc = make_desc<D>(base + L::k + s * L::tile);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(sacc, qdesc + 2 * ks, kdesc + 2 * ks, ks);
+    wgmma_commit();
+  };
+  // issue O += bf16(P) V_j
+  auto pv = [&](int j) {
+    wgmma_rows<D>(oacc, pa,
+                  make_desc<D>(base + L::v + (j % kStages) * L::tile));
+    wgmma_commit();
+  };
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (j % kStages));
+  };
+  // the online softmax of the scores in sacc (masked on the diagonal):
+  // P = exp(s scale - m) in place (l sums it unrounded, as the library's
+  // l), corr = exp(m_old - m) for O
+  auto softmax = [&](bool diag, float (&corr)[2]) {
+    float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (diag && 8 * (i >> 2) + 2 * tq + (i & 1) > 16 * w + g + 4 * (i & 2))
+        sacc[i] = -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+    }
+    float neg[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      corr[h] = ex2((mrow[h] - mx[h]) * sl2);
+      mrow[h] = mx[h];
+      neg[h] = -mx[h] * sl2;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sacc[i] = ex2(__fmaf_rn(sacc[i], sl2, neg[(i >> 1) & 1]));
+      sum[(i >> 1) & 1] += sacc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lrow[h] = __fmaf_rn(lrow[h], corr[h], sum[h]);
+  };
+
+  float corr[2];
+  wgmma_fence();
+  scores(0);
+  wgmma_wait<0>();
+  keep(sacc);
+  softmax(n == 1, corr);
+  acc_frags(sacc, pa);
+  for (int j = 1; j < n; ++j) {
+    wgmma_fence();
+    scores(j);
+    pv(j - 1);
+    wgmma_wait<1>();
+    keep(sacc);
+    softmax(j == n - 1, corr);
+    wgmma_wait<0>();
+    keep(oacc);
+    keep(pa);
+    release(j - 1);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+    acc_frags(sacc, pa);
+  }
+  wgmma_fence();
+  pv(n - 1);
+  wgmma_wait<0>();
+  keep(oacc);
+  keep(pa);
+  release(n - 1);
+
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(kFull, l[h], 1);
-    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    lrow[h] += __shfl_xor_sync(kFull, lrow[h], 1);
+    lrow[h] += __shfl_xor_sync(kFull, lrow[h], 2);
   }
+  const int64_t row0 = bh * t + 128 * qt + 64 * wg + 16 * w + g;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = 8 * n + 2 * tq;
-    store_bf16x2(o + row0 * D + col, acc[n][0] / l[0], acc[n][1] / l[0]);
-    store_bf16x2(o + (row0 + 8) * D + col, acc[n][2] / l[1],
-                 acc[n][3] / l[1]);
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int col = 8 * nb + 2 * tq;
+    store_bf16x2(o + row0 * D + col, oacc[4 * nb] / lrow[0],
+                 oacc[4 * nb + 1] / lrow[0]);
+    store_bf16x2(o + (row0 + 8) * D + col, oacc[4 * nb + 2] / lrow[1],
+                 oacc[4 * nb + 3] / lrow[1]);
   }
   if (tq == 0) {
-    m_out[row0] = m[0]; m_out[row0 + 8] = m[1];
-    l_out[row0] = l[0]; l_out[row0 + 8] = l[1];
+    m_out[row0] = mrow[0] * scale; m_out[row0 + 8] = mrow[1] * scale;
+    l_out[row0] = lrow[0]; l_out[row0 + 8] = lrow[1];
   }
 }
 
+// K4dkv's shared memory, byte offsets from a 1024-byte aligned base: the
+// block's K and V tiles, kStages Q and kStages dO tiles of 64 queries,
+// kStages x [3][64] f32 (-m log2 e, 1 / l and di of the tile's queries),
+// then the full and empty barriers
 template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
+struct DkvSmem {
+  static constexpr int tile = kKeyTile * 2 * D;
+  static constexpr int k = 0;
+  static constexpr int v = tile;
+  static constexpr int q = 2 * tile;
+  static constexpr int dout = q + kStages * tile;
+  static constexpr int vecs = dout + kStages * tile;
+  static constexpr int vec_bytes = 3 * kKeyTile * 4;
+  static constexpr int bars = vecs + kStages * vec_bytes;
+  static constexpr int bytes = bars + 2 * kStages * 8 + 1024;
+};
+
+constexpr int kDkvThreads = 128 + 32;       // one warpgroup + a producer
+
+// K4dkv bf16.  A block owns 64 key rows of one (b, h) as one consumer
+// warpgroup; a producer warp loads its K and V tiles once, then streams
+// the 64-query tiles of Q and dO from the diagonal on through the ring,
+// with -m log2 e, 1 / l (taken once per query, by the producer) and di of
+// their queries.  Per tile: S^T = K Q^T and dP^T = V dO^T (m64n64k16, A =
+// K or V and B = Q or dO from shared memory, K-major), P^T = ex2(fmaf(s,
+// scale log2 e, -m log2 e)) / l, dS^T = P^T (dP^T - di) scale (the pairs
+// above the diagonal set to 0 by a select before either), then dV +=
+// bf16(P^T) dO and dK += bf16(dS^T) Q (m64n{D}k16, A from registers, B =
+// dO or Q read transposed from the same tiles).  Each output element has
+// one owner: no atomics.  Three blocks share an SM (d <= 32), whose
+// warpgroups overlap one another's products and exps.  K4f's
+// intra-warpgroup pipeline would keep the next tile's S^T and dP^T
+// accumulators in flight beside dV, dK and their A fragments (128
+// registers at d = 32): at three blocks an SM ptxas serialises the wgmmas
+// for want of registers, and at two the kernel ran slower than this form.
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, D <= 32 ? 3 : 2)
 flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
                           const uint16_t* __restrict__ k,
                           const uint16_t* __restrict__ v,
@@ -923,112 +1253,140 @@ flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
                           const float* __restrict__ di,
                           uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
                           int t, float scale) {
-  constexpr int P = kPitchH<D>, KS = D / 16, NT = D / 8;
+  using L = DkvSmem<D>;
   extern __shared__ float4 smem4[];
-  char* const smem = reinterpret_cast<char*>(smem4);
-  const int n_tiles = t / kTile;
+  const uint32_t base = (smem_u32(smem4) + 1023) & ~1023u;
+  char* const gbase = reinterpret_cast<char*>(smem4) + (base - smem_u32(smem4));
+  const uint32_t full = base + L::bars, empty = full + 8 * kStages;
   const int kt = blockIdx.y;                 // the longest walks start first
   const int64_t bh = blockIdx.x;
+  const int n = t / kKeyTile - kt;           // query tiles kt .. end
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int c0 = 16 * warp + g;              // keys c0 and c0 + 8 of the tile
-  const int64_t key0 = bh * t + static_cast<int64_t>(kt) * kTile + c0;
-
-  // one buffer: Q [kTile][P], dO [kTile][P] (bf16), then m, l, di [kTile]
-  // (f32) each
-  auto stage_queries = [&](int qt) {
-    char* const buf = smem + ((qt - kt) & 1) * dkv_buffer_bytes_bf16<D>();
-    uint16_t* const tiles = reinterpret_cast<uint16_t*>(buf);
-    const int64_t r = bh * t + static_cast<int64_t>(qt) * kTile;
-    stage_tile_bf16<D>(tiles, q + r * D);
-    stage_tile_bf16<D>(tiles + kTile * P, dout + r * D);
-    float* const vecs = reinterpret_cast<float*>(buf + 2 * kTile * P * 2);
-    const int i = threadIdx.x;
-    if (i < 3 * kTile / 4) {
-      const float* src = (i < kTile / 4) ? m : (i < kTile / 2) ? l : di;
-      cp_async16(vecs + 4 * i, src + r + 4 * (i % (kTile / 4)));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, 4);
     }
-    cp_async_commit();
-  };
-  stage_queries(kt);
-
-  uint32_t ka[KS][4], va[KS][4];
-  load_rows_bf16<D>(k + key0 * D, tq, ka);
-  load_rows_bf16<D>(v + key0 * D, tq, va);
-  float dka[NT][4], dva[NT][4];              // dims 8n + 2t, 8n + 2t + 1
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) { dka[n][e] = 0.0f; dva[n][e] = 0.0f; }
-
-  for (int qt = kt; qt < n_tiles; ++qt) {
-    char* const buf = smem + ((qt - kt) & 1) * dkv_buffer_bytes_bf16<D>();
-    const uint16_t* const qs = reinterpret_cast<const uint16_t*>(buf);
-    const uint16_t* const dos = qs + kTile * P;
-    float* const ms = reinterpret_cast<float*>(buf + 2 * kTile * P * 2);
-    float* const inv_ls = ms + kTile;
-    const float* const dis = inv_ls + kTile;
-    if (qt + 1 < n_tiles) {
-      stage_queries(qt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // l -> 1/l in place, once per query instead of once per use
-    if (threadIdx.x < kTile)
-      inv_ls[threadIdx.x] = 1.0f / inv_ls[threadIdx.x];
-    __syncthreads();
-    const bool diag = qt == kt;
-    // 16 queries at a time: n-tile j holds queries q0 + 8j + 2t (+1)
-#pragma unroll
-    for (int chunk = 0; chunk < 4; ++chunk) {
-      const int q0 = 16 * chunk;
-      if (diag && q0 + 15 < 16 * warp) continue;   // sees none of its keys
-      float sa[2][4], dpa[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) { sa[j][e] = 0.0f; dpa[j][e] = 0.0f; }
-#pragma unroll
-        for (int st = 0; st < KS; ++st) {
-          uint32_t b0, b1;
-          row_pairs<D>(qs, q0 + 8 * j + g, st, tq, b0, b1);
-          mma_bf16(sa[j], ka[st], b0, b1);
-          row_pairs<D>(dos, q0 + 8 * j + g, st, tq, b0, b1);
-          mma_bf16(dpa[j], va[st], b0, b1);
-        }
-      }
-      // P^T = exp(S^T scale - m) / l and dS^T = P^T (dP^T - di) scale, f32
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qc = q0 + 8 * j + 2 * tq;
-        const float2 mq = *reinterpret_cast<const float2*>(ms + qc);
-        const float2 il = *reinterpret_cast<const float2*>(inv_ls + qc);
-        const float2 dq = *reinterpret_cast<const float2*>(dis + qc);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool odd = e & 1;
-          float p = __expf(sa[j][e] * scale - (odd ? mq.y : mq.x)) *
-                    (odd ? il.y : il.x);
-          if (diag && c0 + 8 * (e >> 1) > qc + odd) p = 0.0f;
-          dpa[j][e] = p * (dpa[j][e] - (odd ? dq.y : dq.x)) * scale;
-          sa[j][e] = p;
-        }
-      }
-      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q
-      add_chunk_bf16<D>(dva, sa, dos, q0 + 2 * tq, g);
-      add_chunk_bf16<D>(dka, dpa, qs, q0 + 2 * tq, g);
-    }
-    __syncthreads();   // the next iteration's copy reuses this buffer
+    fence_barrier_init();
   }
+  __syncthreads();
+
+  if (warp == 4) {   // the producer
+    const int64_t key0 = bh * t + static_cast<int64_t>(kt) * kKeyTile;
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const int64_t r = key0 + static_cast<int64_t>(i) * kKeyTile;
+      float mv[2], lv[2], dv2[2];   // loaded before the wait, stored after
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = 8 * n + 2 * tq;
-    store_bf16x2(dk + key0 * D + col, dka[n][0], dka[n][1]);
-    store_bf16x2(dk + (key0 + 8) * D + col, dka[n][2], dka[n][3]);
-    store_bf16x2(dv + key0 * D + col, dva[n][0], dva[n][1]);
-    store_bf16x2(dv + (key0 + 8) * D + col, dva[n][2], dva[n][3]);
+      for (int h = 0; h < 2; ++h) {
+        mv[h] = __ldg(m + r + lane + 32 * h);
+        lv[h] = __ldg(l + r + lane + 32 * h);
+        dv2[h] = __ldg(di + r + lane + 32 * h);
+      }
+      if (i >= kStages) mbar_wait(empty + 8 * s, (i / kStages - 1) & 1);
+      if (i == 0) {
+        copy_tile<D, kKeyTile>(base + L::k, k + key0 * D, lane);
+        copy_tile<D, kKeyTile>(base + L::v, v + key0 * D, lane);
+      }
+      copy_tile<D, kKeyTile>(base + L::q + s * L::tile, q + r * D, lane);
+      copy_tile<D, kKeyTile>(base + L::dout + s * L::tile, dout + r * D,
+                             lane);
+      cp_async_commit();
+      float* const vec = reinterpret_cast<float*>(gbase + L::vecs +
+                                                  s * L::vec_bytes);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        vec[lane + 32 * h] = -mv[h] * kLog2e;
+        vec[kKeyTile + lane + 32 * h] = 1.0f / lv[h];
+        vec[2 * kKeyTile + lane + 32 * h] = dv2[h];
+      }
+      if (i > 0) {
+        cp_async_wait<1>();
+        fence_async_shared();
+        mbar_arrive(full + 8 * ((i - 1) % kStages));
+      }
+    }
+    cp_async_wait<0>();
+    fence_async_shared();
+    mbar_arrive(full + 8 * ((n - 1) % kStages));
+    return;
+  }
+
+  const int w = warp, g = lane / 4, tq = lane % 4;
+  const float sl2 = scale * kLog2e;
+  const uint64_t kdesc = make_desc<D>(base + L::k);
+  const uint64_t vdesc = make_desc<D>(base + L::v);
+  float sacc[32], dpacc[32];                 // keys 16w + g (+8), queries
+  float dka[D / 2], dva[D / 2];              // 8j + 2t (+1); dims likewise
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) { dka[i] = 0.0f; dva[i] = 0.0f; }
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    const uint64_t qdesc = make_desc<D>(base + L::q + s * L::tile);
+    const uint64_t ddesc = make_desc<D>(base + L::dout + s * L::tile);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(sacc, kdesc + 2 * ks, qdesc + 2 * ks, ks);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(dpacc, vdesc + 2 * ks, ddesc + 2 * ks, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(sacc);
+    keep(dpacc);
+
+    const float* const vec = reinterpret_cast<const float*>(
+        gbase + L::vecs + s * L::vec_bytes);
+    const bool diag = i == 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;          // queries c, c + 1
+      const float2 mn = *reinterpret_cast<const float2*>(vec + c);
+      const float2 il = *reinterpret_cast<const float2*>(vec + kKeyTile + c);
+      const float2 dd =
+          *reinterpret_cast<const float2*>(vec + 2 * kKeyTile + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e;
+        const bool odd = e & 1;
+        float ex = ex2(__fmaf_rn(sacc[x], sl2, odd ? mn.y : mn.x));
+        if (diag && 16 * w + g + 4 * (e & 2) > c + odd) ex = 0.0f;
+        const float p = ex * (odd ? il.y : il.x);
+        const float ps = p * scale;
+        dpacc[x] = __fmaf_rn(ps, dpacc[x], -(ps * (odd ? dd.y : dd.x)));
+        sacc[x] = p;
+      }
+    }
+    acc_frags(sacc, pa);
+    acc_frags(dpacc, da);
+    wgmma_fence();
+    wgmma_rows<D>(dva, pa, ddesc);
+    wgmma_rows<D>(dka, da, qdesc);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(dva);
+    keep(dka);
+    keep(pa);
+    keep(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  const int64_t key0 = bh * t + static_cast<int64_t>(kt) * kKeyTile +
+                       16 * w + g;
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int col = 8 * nb + 2 * tq;
+    store_bf16x2(dk + key0 * D + col, dka[4 * nb], dka[4 * nb + 1]);
+    store_bf16x2(dk + (key0 + 8) * D + col, dka[4 * nb + 2],
+                 dka[4 * nb + 3]);
+    store_bf16x2(dv + key0 * D + col, dva[4 * nb], dva[4 * nb + 1]);
+    store_bf16x2(dv + (key0 + 8) * D + col, dva[4 * nb + 2],
+                 dva[4 * nb + 3]);
   }
 }
 
@@ -1210,13 +1568,14 @@ template <int D>
 int launch_fwd_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
                     uint16_t* o, float* m, float* l, int64_t bh, int t,
                     float scale, cudaStream_t stream) {
-  constexpr int bytes = kv_smem_bytes_bf16<D>();
+  constexpr int bytes = FwdSmem<D>::bytes;
   static std::atomic<uint64_t> allowed{0};
   const cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, bytes,
                                      allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_bf16_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
-      q, k, v, o, m, l, t, scale);
+  flash_fwd_bf16_kernel<D><<<dim3(static_cast<unsigned>(bh), t / 128),
+                             kFwdThreads, bytes, stream>>>(q, k, v, o, m, l,
+                                                           t, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1225,13 +1584,14 @@ int launch_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
                     const uint16_t* dout, const float* m, const float* l,
                     const float* di, uint16_t* dk, uint16_t* dv, int64_t bh,
                     int t, float scale, cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes_bf16<D>();
+  constexpr int bytes = DkvSmem<D>::bytes;
   static std::atomic<uint64_t> allowed{0};
   const cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, bytes,
                                      allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_bf16_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
-      q, k, v, dout, m, l, di, dk, dv, t, scale);
+  flash_bwd_dkv_bf16_kernel<D><<<grid_of(bh, t), kDkvThreads, bytes,
+                                 stream>>>(q, k, v, dout, m, l, di, dk, dv, t,
+                                           scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1312,7 +1672,7 @@ extern "C" int flash_fwd_bf16(const uint16_t* q, const uint16_t* k,
                               const uint16_t* v, uint16_t* o, float* m,
                               float* l, int64_t bh, int t, int d, float scale,
                               cudaStream_t stream) {
-  if (bad_shape(bh, t)) return kBadArgument;
+  if (bad_shape(bh, t) || t % 128 != 0) return kBadArgument;
   switch (d) {
     case 16: return launch_fwd_bf16<16>(q, k, v, o, m, l, bh, t, scale,
                                         stream);

@@ -62,21 +62,25 @@ def create_workload(model_name: str, dataset: str, class_num: int,
         return NWPWorkload(model, compute_dtype=dtype)
     input_dim = int(np.prod(sample_shape))
     small = class_num <= 10
-    # VGG's dense head takes the pooled map of an HWC image (flax infers it)
+    # an HWC image's channels, and VGG's dense head its pooled map (flax
+    # infers both from the first batch)
     hw = int(sample_shape[0]) if len(sample_shape) == 3 else 32
+    ch = dict(in_channels=int(sample_shape[-1])) \
+        if len(sample_shape) == 3 else {}
     factories = {
         "lr": lambda: LogisticRegression(input_dim, class_num),
         "cnn": lambda: CNNDropOut(only_digits=small),          # Reddi'20
         "cnn_fedavg": lambda: CNNOriginalFedAvg(only_digits=small),
-        "resnet56": lambda: resnet56(class_num),
-        "resnet110": lambda: resnet110(class_num),
-        "resnet18_gn": lambda: resnet18_gn(class_num),
-        "mobilenet": lambda: mobilenet(num_classes=class_num),
-        "mobilenet_v3": lambda: mobilenet_v3(num_classes=class_num),
-        "efficientnet": lambda: efficientnet("b0", num_classes=class_num),
-        "vgg11": lambda: vgg11(num_classes=class_num, input_hw=hw),
-        "vgg13": lambda: vgg13(num_classes=class_num, input_hw=hw),
-        "vgg16": lambda: vgg16(num_classes=class_num, input_hw=hw),
+        "resnet56": lambda: resnet56(class_num, **ch),
+        "resnet110": lambda: resnet110(class_num, **ch),
+        "resnet18_gn": lambda: resnet18_gn(class_num, **ch),
+        "mobilenet": lambda: mobilenet(num_classes=class_num, **ch),
+        "mobilenet_v3": lambda: mobilenet_v3(num_classes=class_num, **ch),
+        "efficientnet": lambda: efficientnet("b0", num_classes=class_num,
+                                             **ch),
+        "vgg11": lambda: vgg11(num_classes=class_num, input_hw=hw, **ch),
+        "vgg13": lambda: vgg13(num_classes=class_num, input_hw=hw, **ch),
+        "vgg16": lambda: vgg16(num_classes=class_num, input_hw=hw, **ch),
     }
     if model_name not in factories:
         raise KeyError(f"unknown model {model_name!r}; the port has "

@@ -93,8 +93,9 @@ class EfficientNet(nn.Module):
 
 
 def efficientnet(name: str = "b0", num_classes: int = 1000,
-                 norm: str = "group") -> EfficientNet:
+                 norm: str = "group", in_channels: int = 3) -> EfficientNet:
     """``EfficientNet.from_name('efficientnet-b0')``'s scaling."""
     w, d, drop = SCALINGS[name]
     return EfficientNet(num_classes=num_classes, width_mult=w, depth_mult=d,
-                        dropout_rate=drop, norm=norm)
+                        dropout_rate=drop, norm=norm,
+                        in_channels=in_channels)

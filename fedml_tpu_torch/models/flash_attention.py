@@ -177,27 +177,32 @@ def flash_bwd_dq_bf16_plain(q, k, v, do, m, l, di) -> torch.Tensor:
 _lib_handle = None
 
 
+def bind_k4(lib):
+    """Declare the six entry points of a ``flash_attention`` library
+    (loaded with ctypes); returns the handle."""
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    lib.flash_fwd_f32.argtypes = [p, p, p, p, p, p, i64, i32, i32, f32, p]
+    lib.flash_bwd_dkv_f32.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32,
+                                      i32, f32, p]
+    lib.flash_bwd_dq_f32.argtypes = [p, p, p, p, p, p, p, p, i64, i32, i32,
+                                     f32, p]
+    lib.flash_fwd_bf16.argtypes = lib.flash_fwd_f32.argtypes
+    lib.flash_bwd_dkv_bf16.argtypes = lib.flash_bwd_dkv_f32.argtypes
+    lib.flash_bwd_dq_bf16.argtypes = lib.flash_bwd_dq_f32.argtypes
+    for fn in (lib.flash_fwd_f32, lib.flash_bwd_dkv_f32, lib.flash_bwd_dq_f32,
+               lib.flash_fwd_bf16, lib.flash_bwd_dkv_bf16,
+               lib.flash_bwd_dq_bf16):
+        fn.restype = i32
+    return lib
+
+
 def _lib():
     """The kernel library, built from source at first use."""
     global _lib_handle
     if _lib_handle is None:
         from fedml_tpu_torch.utils import cuda_build
-        lib = cuda_build.load("flash_attention")
-        p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_float)
-        lib.flash_fwd_f32.argtypes = [p, p, p, p, p, p, i64, i32, i32, f32, p]
-        lib.flash_bwd_dkv_f32.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32,
-                                          i32, f32, p]
-        lib.flash_bwd_dq_f32.argtypes = [p, p, p, p, p, p, p, p, i64, i32,
-                                         i32, f32, p]
-        lib.flash_fwd_bf16.argtypes = lib.flash_fwd_f32.argtypes
-        lib.flash_bwd_dkv_bf16.argtypes = lib.flash_bwd_dkv_f32.argtypes
-        lib.flash_bwd_dq_bf16.argtypes = lib.flash_bwd_dq_f32.argtypes
-        for fn in (lib.flash_fwd_f32, lib.flash_bwd_dkv_f32,
-                   lib.flash_bwd_dq_f32, lib.flash_fwd_bf16,
-                   lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16):
-            fn.restype = i32
-        _lib_handle = lib
+        _lib_handle = bind_k4(cuda_build.load("flash_attention"))
     return _lib_handle
 
 

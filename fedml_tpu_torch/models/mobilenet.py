@@ -210,13 +210,16 @@ class MobileNetV3(_Stack):
 
 
 def mobilenet(num_classes: int = 100, norm: str = "group",
-              width_mult: float = 1.0, stem_stride: int = 1) -> MobileNetV1:
+              width_mult: float = 1.0, stem_stride: int = 1,
+              in_channels: int = 3) -> MobileNetV1:
     """The CIFAR MobileNet (the reference's class_num default 100,
     stride-1 stem); ``stem_stride=2`` for the ImageNet stem."""
     return MobileNetV1(num_classes=num_classes, norm=norm,
-                       width_mult=width_mult, stem_stride=stem_stride)
+                       width_mult=width_mult, stem_stride=stem_stride,
+                       in_channels=in_channels)
 
 
 def mobilenet_v3(num_classes: int = 1000, mode: str = "large",
-                 norm: str = "group") -> MobileNetV3:
-    return MobileNetV3(num_classes=num_classes, mode=mode, norm=norm)
+                 norm: str = "group", in_channels: int = 3) -> MobileNetV3:
+    return MobileNetV3(num_classes=num_classes, mode=mode, norm=norm,
+                       in_channels=in_channels)

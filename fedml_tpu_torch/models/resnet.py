@@ -144,19 +144,23 @@ class ImageNetResNet(nn.Module):
         return self.fc(torch.mean(_run_blocks(self, x), dim=(2, 3)))
 
 
-def resnet56(num_classes: int, norm: str = "group") -> CifarResNet:
+def resnet56(num_classes: int, norm: str = "group",
+             in_channels: int = 3) -> CifarResNet:
     """Bottleneck [6, 6, 6]."""
-    return CifarResNet(layers=(6, 6, 6), num_classes=num_classes, norm=norm)
+    return CifarResNet(layers=(6, 6, 6), num_classes=num_classes, norm=norm,
+                       in_channels=in_channels)
 
 
-def resnet110(num_classes: int, norm: str = "group") -> CifarResNet:
+def resnet110(num_classes: int, norm: str = "group",
+              in_channels: int = 3) -> CifarResNet:
     """Bottleneck [12, 12, 12]."""
     return CifarResNet(layers=(12, 12, 12), num_classes=num_classes,
-                       norm=norm)
+                       norm=norm, in_channels=in_channels)
 
 
-def resnet18_gn(num_classes: int, norm: str = "group") -> ImageNetResNet:
+def resnet18_gn(num_classes: int, norm: str = "group",
+                in_channels: int = 3) -> ImageNetResNet:
     """BasicBlock [2, 2, 2, 2], GroupNorm: the fed_cifar100 benchmark
     model (BASELINE.md config 4)."""
     return ImageNetResNet(layers=(2, 2, 2, 2), num_classes=num_classes,
-                          norm=norm)
+                          norm=norm, in_channels=in_channels)

@@ -47,6 +47,13 @@ class VGG(nn.Module):
             if norm != "none":
                 setattr(self, f"Norm_{k}", Norm(v, norm))
             c, k = v, k + 1
+        if hw < 1:
+            # vgg11/13/16: k convs and the three dense layers
+            raise ValueError(
+                f"vgg{k + 3} on a {input_hw}x{input_hw} input: its "
+                f"{self.cfg.count('M')} pools leave a {hw}x{hw} map for the "
+                f"dense head (it takes {2 ** self.cfg.count('M')}x"
+                f"{2 ** self.cfg.count('M')} or larger)")
         self.Dense_0 = Dense(c * hw * hw, 4096)
         self.Dense_1 = Dense(4096, 4096)
         self.Dense_2 = Dense(4096, num_classes)
@@ -76,18 +83,21 @@ class VGG(nn.Module):
 
 
 def vgg11(num_classes: int = 1000, norm: str = "none",
-          input_hw: int = 32) -> VGG:
-    return VGG(CFGS["A"], num_classes, norm, input_hw=input_hw)
+          input_hw: int = 32, in_channels: int = 3) -> VGG:
+    return VGG(CFGS["A"], num_classes, norm, input_hw=input_hw,
+               in_channels=in_channels)
 
 
 def vgg13(num_classes: int = 1000, norm: str = "none",
-          input_hw: int = 32) -> VGG:
-    return VGG(CFGS["B"], num_classes, norm, input_hw=input_hw)
+          input_hw: int = 32, in_channels: int = 3) -> VGG:
+    return VGG(CFGS["B"], num_classes, norm, input_hw=input_hw,
+               in_channels=in_channels)
 
 
 def vgg16(num_classes: int = 1000, norm: str = "none",
-          input_hw: int = 32) -> VGG:
-    return VGG(CFGS["D"], num_classes, norm, input_hw=input_hw)
+          input_hw: int = 32, in_channels: int = 3) -> VGG:
+    return VGG(CFGS["D"], num_classes, norm, input_hw=input_hw,
+               in_channels=in_channels)
 
 
 # torchvision's feature indices 3/8/15/22 fall after these conv counts

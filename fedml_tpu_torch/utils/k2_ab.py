@@ -1,18 +1,21 @@
 """Time builds of a kernel's source side by side on one card, in one
-process: K2 (the shard finalize), K1 (the robust aggregate) or K3 (the
-secagg mask).
+process: K2 (the shard finalize), K1 (the robust aggregate), K3 (the
+secagg mask), or the bf16 K4f and K4dkv (flash attention).
 
     python3 -m fedml_tpu_torch.utils.k2_ab [k2] A.cu B.cu [C.cu ...]
     python3 -m fedml_tpu_torch.utils.k2_ab k1 A.cu B.cu [C.cu ...]
     python3 -m fedml_tpu_torch.utils.k2_ab k3 A.cu B.cu [C.cu ...]
+    python3 -m fedml_tpu_torch.utils.k2_ab k4f A.cu B.cu [C.cu ...]
+    python3 -m fedml_tpu_torch.utils.k2_ab k4dkv A.cu B.cu [C.cu ...]
 
 Run from the root of a checkout on a machine with a GPU.  Each source is a
 version of the kernel's file under ``csrc/`` (for example the parent
 commit's, from ``git show``, and the working tree's); each is built with
 the port's ``nvcc`` flags (``-I csrc``) into its own library under
-``build/kernels/ab/`` and loaded with ctypes.  Every version is checked
-against the plain version first, then the versions are timed in turns (A B
-C, C B A, twice), each turn the mean device time of 50 calls from
+``build/kernels/ab/`` (its ``nvcc`` log, ptxas's lines included, beside
+it) and loaded with ctypes.  Every version is checked against the plain
+version first, then the versions are timed in turns (A B C, C B A,
+twice), each turn the mean device time of 50 calls from
 ``torch.profiler``, and the median of the four turns is kept.  Prints JSON
 lines, times in microseconds.  Exits non-zero without a GPU.
 
@@ -32,6 +35,14 @@ lines, times in microseconds.  Exits non-zero without a GPU.
   already on the card; bit-equal to ``quantize_mask_plain`` leaf by leaf.
   The host derivation of the pair seeds that the per-leaf form needs is
   timed beside it.
+* k4f, k4dkv: ``flash_fwd_bf16`` or ``flash_bwd_dkv_bf16`` of a
+  ``flash_attention.cu`` at the bf16 LM's vmapped call, [B, T, H, d] =
+  [8, 2048, 8, 32] (bf16 q, k, v, dO from a seed; m, l and di from the
+  plain forward): o, dk, dv within 2^-7 x max|ref| of the plain versions,
+  m and l within 1e-5 x max|ref|; beside each, the wrapper's host time
+  (its enqueue), and for k4f scaled_dot_product_attention's bf16 forward
+  (a yardstick the port never calls).  Each row names the card and its
+  power limit.
 """
 
 from __future__ import annotations
@@ -110,6 +121,7 @@ def build(sources, bind):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             sys.exit(f"nvcc failed on {src}:\n{log}")
+        lib.with_suffix(".log").write_text(log)      # ptxas -v, per kernel
         libs[src] = bind(ctypes.CDLL(str(lib)))
     return libs
 
@@ -157,6 +169,20 @@ def host_us(fn, reps: int = 20) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+def enqueue_us(fn, reps: int = 20) -> float:
+    """Host time (us) of one call of ``fn`` that only enqueues work: the
+    clock stops before the closing synchronize (the calls queue behind
+    the device's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def cnn_leaf_sizes():
@@ -314,14 +340,78 @@ def run_k3(sources) -> None:
     print(json.dumps(row), flush=True)
 
 
+K4_SHAPE = (8, 2048, 8, 32)      # [B, T, H, d]: the bf16 LM's vmapped call
+K4_BF16_TOL, K4_ML_TOL = 2.0 ** -7, 1e-5     # x max|ref|
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(0)
+
+
+def run_k4(sources, mode: str) -> None:
+    import torch.nn.functional as F
+    from fedml_tpu_torch.models import flash_attention as fa
+    libs = build(sources, fa.bind_k4)
+    b, t, h, d = K4_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    po, pm, pl = fa.flash_fwd_bf16_plain(q, k, v)
+    bwd = (q, k, v, do, pm, pl, (po.float() * do.float()).sum(-1))
+    if mode == "k4f":
+        kernel = lambda: fa.flash_fwd(q, k, v)
+        want = {"o": (po, K4_BF16_TOL), "m": (pm, K4_ML_TOL),
+                "l": (pl, K4_ML_TOL)}
+    else:
+        kernel = lambda: fa.flash_bwd_dkv(*bwd)
+        want = dict(zip(("dk", "dv"), ((x, K4_BF16_TOL) for x in
+                                       fa.flash_bwd_dkv_bf16_plain(*bwd))))
+
+    def call(name):
+        fa._lib_handle = libs[name]
+        return kernel()
+
+    errs = {}
+    for name in libs:
+        got = call(name)
+        torch.cuda.synchronize()
+        errs[name] = {}
+        for (key, (ref, tol)), x in zip(want.items(), got):
+            err = float((x.float() - ref.float()).abs().max())
+            errs[name][key] = err
+            if not err <= tol * float(ref.float().abs().max()):
+                sys.exit(f"{name}: {key} differs from the plain version by "
+                         f"{err} (limit {tol} x max|ref|)")
+    row = {"kernel": mode, "card": card(), "shape_BTHd": list(K4_SHAPE),
+           "max_abs_err": errs,
+           "device_us": in_turns({name: (lambda name=name: call(name))
+                                  for name in libs}),
+           "wrapper_host_us": {name: enqueue_us(lambda name=name: call(name))
+                               for name in libs}}
+    if mode == "k4f":
+        row["sdpa_forward_device_us"] = kernel_us(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    print(json.dumps(row), flush=True)
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is false; this needs a GPU")
     kernel = "k2"
-    if argv and argv[0] in ("k1", "k2", "k3"):
+    if argv and argv[0] in ("k1", "k2", "k3", "k4f", "k4dkv"):
         kernel, argv = argv[0], argv[1:]
     if len(argv) < 2:
         sys.exit(__doc__)
+    if kernel in ("k4f", "k4dkv"):
+        run_k4(argv, kernel)
+        return
     {"k1": run_k1, "k2": run_k2, "k3": run_k3}[kernel](argv)
 
 

@@ -259,6 +259,37 @@ def test_k_ab_tool_modes_refuse_without_a_card(monkeypatch):
             k2_ab.main([mode, "a.cu", "b.cu"])
 
 
+def test_k4_ab_modes_refuse_without_a_card(monkeypatch):
+    """The A/B tool's bf16 K4f and K4dkv modes refuse without a card
+    before they build anything; without a mode's sources it prints its
+    usage."""
+    from fedml_tpu_torch.utils import k2_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mode in ("k4f", "k4dkv"):
+        with pytest.raises(SystemExit, match="needs a GPU"):
+            k2_ab.main([mode, "a.cu", "b.cu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit, match="k4dkv A.cu B.cu"):
+        k2_ab.main(["k4f", "a.cu"])
+
+
+def test_tensor_core_kinds_split_hmma_from_hgmma():
+    """Phase 8p's build check reads mma.sync (HMMA) and wgmma (HGMMA)
+    apart, per function; their sum is tensor_core_counts'."""
+    sass = """\
+        Function : _Z16flash_fwd_bf16_kernelILi32EEvv
+        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;
+        /*0110*/                   HGMMA.64x32x16.F32.BF16 R88, R56, gdesc[UR8] ;
+        Function : _Z17flash_bwd_dq_bf16_kernelILi32EEvv
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+    kinds = cs.tensor_core_kinds(sass)
+    [fwd] = [v for k, v in kinds.items() if "fwd_bf16" in k]
+    [dq] = [v for k, v in kinds.items() if "dq_bf16" in k]
+    assert fwd == {"HMMA": 0, "HGMMA": 2} and dq == {"HMMA": 1, "HGMMA": 0}
+    assert sorted(cs.tensor_core_counts(sass).values()) == [1, 2]
+
+
 GRAPH_DOT = """\
 digraph dot {
 subgraph cluster_1 {
@@ -860,15 +891,19 @@ def test_observability_phase_on_the_cpu(tiny_phases, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kernel, d, smem", [
-    ("flash_fwd_bf16", 16, 12288), ("flash_fwd_bf16", 32, 20480),
-    ("flash_fwd_bf16", 64, 36864), ("flash_bwd_dkv_bf16", 16, 13824),
-    ("flash_bwd_dkv_bf16", 32, 22016), ("flash_bwd_dkv_bf16", 64, 38400),
+    ("flash_fwd_bf16", 16, 17456), ("flash_fwd_bf16", 32, 33840),
+    ("flash_fwd_bf16", 64, 66608), ("flash_bwd_dkv_bf16", 16, 19760),
+    ("flash_bwd_dkv_bf16", 32, 36144), ("flash_bwd_dkv_bf16", 64, 68912),
     ("flash_bwd_dq_bf16", 32, 20480), ("flash_bwd_dq_bf16", 64, 36864)])
 def test_flash_bf16_smem_bytes(kernel, d, smem):
-    """The bf16 kernels' two buffers: 64-row bf16 tiles padded to d + 8
-    values (16 bytes, so rows stay 16-byte aligned), and K4dkv's f32 m,
-    l and di; under 48 KB at every head size."""
-    assert cs.flash_smem_bytes(kernel, d) == smem < 48 * 1024
+    """K4dq bf16's two buffers: 64-row bf16 tiles padded to d + 8 values
+    (16 bytes, so rows stay 16-byte aligned), under 48 KB.  The wgmma
+    kernels' swizzled, unpadded tiles: K4f's 128 Q rows and three stages
+    of K and V, K4dkv's K and V and three stages of Q, dO and their f32
+    -m log2 e, 1 / l and di; with the ring's mbarriers and 1024 bytes to
+    align the base, over 48 KB at d = 64 (the launch allows it)."""
+    assert cs.flash_smem_bytes(kernel, d) == smem
+    assert (smem < 48 * 1024) == (kernel == "flash_bwd_dq_bf16" or d < 64)
 
 
 def test_flash_bf16_bounds_at_the_vmapped_shape():

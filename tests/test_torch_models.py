@@ -78,11 +78,14 @@ def test_port_init_matches_flax_layout():
 
 
 def test_unported_model_named():
-    # VGG is ported (its head sized from the 28 x 28 input); an unknown
+    # VGG is ported (its head sized from the 32 x 32 input; a 28 x 28 one,
+    # which its five pools leave 0 x 0, is refused by name); an unknown
     # name is refused with the port's list
     from fedml_tpu_torch.models import VGG
-    assert isinstance(create_workload("vgg11", "femnist", 62,
-                                      (28, 28, 1)).model, VGG)
+    assert isinstance(create_workload("vgg11", "cifar10", 10,
+                                      (32, 32, 3)).model, VGG)
+    with pytest.raises(ValueError, match="vgg11 on a 28x28 input"):
+        create_workload("vgg11", "femnist", 62, (28, 28, 1))
     with pytest.raises(KeyError, match="unknown model.*vgg16"):
         create_workload("vgg19", "femnist", 62, (28, 28, 1))
 
