@@ -2884,26 +2884,24 @@ def tensor_core_kinds(sass: str):
 def flash_smem_bytes(kernel: str, d: int) -> int:
     """The dynamic shared memory (bytes) a launch of ``kernel`` takes at
     head size ``d``: ``kv_smem_bytes`` and ``dkv_smem_bytes`` of
-    ``csrc/flash_attention.cu``, two buffers of 64-row tiles padded to
+    ``csrc/flash_attention.cu``, two buffers of 64-row f32 tiles padded to
     d + 4 floats (K4f and K4dq: K and V; K4dkv: Q and dO, then m, l and
-    di); K4dq bf16's tiles are bf16 rows padded to d + 8
-    (``kv_smem_bytes_bf16``).  The wgmma kernels (``FwdSmem``,
-    ``DkvSmem``) keep unpadded, swizzled 64-row bf16 tiles: K4f bf16 its
-    128 Q rows and a ring of K4_STAGES K and V tiles, K4dkv bf16 its K and
-    V tiles and a ring of Q and dO tiles with -m log2 e, 1 / l and di
-    (f32), each with K4_STAGES pairs of 8-byte mbarriers and 1024 bytes to
-    align the base."""
-    if kernel in ("flash_fwd_bf16", "flash_bwd_dkv_bf16"):
+    di).  The bf16 kernels (``FwdSmem``, ``DkvSmem``, ``DqSmem``) keep
+    unpadded, swizzled 64-row bf16 tiles: K4f its 128 Q rows and a ring of
+    K4_STAGES K and V tiles, K4dkv its K and V tiles and a ring of Q and
+    dO tiles with -m log2 e, 1 / l and di (f32), K4dq its Q and dO tiles
+    and a ring of K and V tiles, each with K4_STAGES pairs of 8-byte
+    mbarriers and 1024 bytes to align the base."""
+    if kernel.endswith("_bf16"):
         tile = 64 * 2 * d
         ring = 2 * K4_STAGES * tile
         if kernel == "flash_bwd_dkv_bf16":
             ring += K4_STAGES * 3 * 64 * 4
         return 2 * tile + ring + 2 * K4_STAGES * 8 + 1024
-    bf16 = kernel.endswith("_bf16")
-    tile = 64 * (d + 8) * 2 if bf16 else 64 * (d + 4) * 4
+    tile = 64 * (d + 4) * 4
     per_buffer = {"flash_fwd": 2 * tile,
                   "flash_bwd_dkv": 2 * tile + 3 * 64 * 4,
-                  "flash_bwd_dq": 2 * tile}[kernel.replace("_bf16", "")]
+                  "flash_bwd_dq": 2 * tile}[kernel]
     return 2 * per_buffer
 
 
@@ -3039,10 +3037,11 @@ def check_flash_kernel():
 FLASH_NAN_AT = {"q": (0, 1, 200), "do": (1, 5, 70)}
 
 
-def flash_nan_inputs(device):
+def flash_nan_inputs(device, dtype=None):
     """q, k, v, dO [B, H, T, d] of the t384 shape, unit normal from a
     seed, with one NaN in the q row and one in the dO row of
-    FLASH_NAN_AT."""
+    FLASH_NAN_AT; rounded to ``dtype`` when one is given (bf16 keeps the
+    NaNs)."""
     import numpy as np
     import torch
     b, t, h, d = FLASH_SHAPES["t384"]
@@ -3051,14 +3050,17 @@ def flash_nan_inputs(device):
                                 device=device) for _ in range(4))
     q[(*FLASH_NAN_AT["q"], 3)] = float("nan")
     do[(*FLASH_NAN_AT["do"], 5)] = float("nan")
+    if dtype is not None:
+        q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
     return q, k, v, do
 
 
 def flash_chain(q, k, v, do, fwd, dkv, dq):
     """The model's chain through three attention functions: the forward,
-    di = sum(o dO), then both backward halves on the forward's m and l."""
+    di = sum(o dO) in f32, then both backward halves on the forward's m
+    and l."""
     o, m, l = fwd(q, k, v)
-    di = (o * do).sum(-1)
+    di = (o.float() * do.float()).sum(-1)
     dk, dv = dkv(q, k, v, do, m, l, di)
     return {"o": o, "dk": dk, "dv": dv, "dq": dq(q, k, v, do, m, l, di)}
 
@@ -3081,14 +3083,23 @@ def flash_nan_rows(shape):
     return must
 
 
-def flash_nan_problems(got, want):
+def flash_nan_tols(dtype=None):
+    """The chip limits (x max|ref|) on o and on the gradients of the
+    kernels of ``dtype``: 1e-5 and 1e-4 in f32, BF16_KERNEL_TOL on every
+    bf16 output."""
+    if dtype is None:
+        return FLASH_O_TOL, FLASH_GRAD_TOL
+    return BF16_KERNEL_TOL, BF16_KERNEL_TOL
+
+
+def flash_nan_problems(got, want, tols=(FLASH_O_TOL, FLASH_GRAD_TOL)):
     """What is wrong with the outputs ``got`` of a chain through
     FLASH_NAN_AT's inputs against the plain chain's ``want``: a row that
     must be NaN and is not, or, on the rows where ``want`` is finite, an
-    error over the chip limits (1e-5 x max|ref| for o, 1e-4 for the
-    gradients).  The plain versions' dense products spread a NaN further
-    (0 x NaN past the diagonal), so rows outside the dependent ones may be
-    NaN on either side only where ``want`` has them."""
+    error over the chip limits ``tols`` (on o and on the gradients; the
+    f32 kernels' by default).  The plain versions' dense products spread a
+    NaN further (0 x NaN past the diagonal), so rows outside the dependent
+    ones may be NaN on either side only where ``want`` has them."""
     problems = []
     must = flash_nan_rows(want["o"].shape[:3])
     for name, ref in want.items():
@@ -3099,36 +3110,52 @@ def flash_nan_problems(got, want):
             problems.append(f"{name}: {missing} rows that depend on a NaN "
                             f"input are not NaN")
         finite = ~ref.isnan().any(-1)
-        tol = FLASH_O_TOL if name == "o" else FLASH_GRAD_TOL
-        err = float((out[finite] - ref[finite]).abs().max())
-        limit = tol * float(ref[finite].abs().max())
+        tol = tols[0] if name == "o" else tols[1]
+        err = float((out[finite].float() - ref[finite].float()).abs().max())
+        limit = tol * float(ref[finite].float().abs().max())
         if not err <= limit:
             problems.append(f"{name}: max abs err {err} > {limit} on the "
                             f"rows the plain version keeps finite")
     return problems
 
 
+def flash_nan_plains(dtype=None):
+    """The plain versions of the kernels of ``dtype`` (None: f32), in
+    flash_chain's order."""
+    from fedml_tpu_torch.models import flash_attention as fa
+    if dtype is None:
+        return fa.flash_fwd_plain, fa.flash_bwd_dkv_plain, \
+            fa.flash_bwd_dq_plain
+    return fa.flash_fwd_bf16_plain, fa.flash_bwd_dkv_bf16_plain, \
+        fa.flash_bwd_dq_bf16_plain
+
+
 def check_flash_nan():
-    """Phase: a NaN in q and in dO comes out of K4f, K4dkv and K4dq as
-    NaN wherever it reaches through a visible pair (the plain versions'
-    behaviour), and the other rows keep to the chip limits."""
+    """Phase: a NaN in q and in dO comes out of K4f, K4dkv and K4dq, f32
+    and bf16, as NaN wherever it reaches through a visible pair (the plain
+    versions' behaviour), and the other rows keep to the chip limits."""
     import torch
     from fedml_tpu_torch.models import flash_attention as fa
-    with tf32_off():
-        inputs = flash_nan_inputs("cuda")
-        got = flash_chain(*inputs, fa.flash_fwd, fa.flash_bwd_dkv,
-                          fa.flash_bwd_dq)
-        want = flash_chain(*inputs, fa.flash_fwd_plain,
-                           fa.flash_bwd_dkv_plain, fa.flash_bwd_dq_plain)
-        torch.cuda.synchronize()
-    problems = flash_nan_problems(got, want)
-    phase("kernel flash_attention nan", nan_at=FLASH_NAN_AT,
-          nan_rows={n: int(x.isnan().any(-1).sum()) for n, x in got.items()},
-          plain_nan_rows={n: int(x.isnan().any(-1).sum())
-                          for n, x in want.items()},
-          problems=problems)
-    if problems:
-        fail(f"flash attention with NaN inputs: {problems}")
+    failed = {}
+    for dtype in (None, torch.bfloat16):
+        with bf16_exact_reductions():
+            inputs = flash_nan_inputs("cuda", dtype)
+            got = flash_chain(*inputs, fa.flash_fwd, fa.flash_bwd_dkv,
+                              fa.flash_bwd_dq)
+            want = flash_chain(*inputs, *flash_nan_plains(dtype))
+            torch.cuda.synchronize()
+        problems = flash_nan_problems(got, want, flash_nan_tols(dtype))
+        label = "" if dtype is None else " bf16"
+        phase(f"kernel flash_attention nan{label}", nan_at=FLASH_NAN_AT,
+              nan_rows={n: int(x.isnan().any(-1).sum())
+                        for n, x in got.items()},
+              plain_nan_rows={n: int(x.isnan().any(-1).sum())
+                              for n, x in want.items()},
+              problems=problems)
+        if problems:
+            failed[label.strip() or "f32"] = problems
+    if failed:
+        fail(f"flash attention with NaN inputs: {failed}")
 
 
 def lm_data():
@@ -5898,9 +5925,9 @@ BF16_SHAPES = {                # [B, T, H, d], as the bf16 model calls K4
     "d64": (2, 256, 4, 64),
     "t128": (2, 128, 4, 32),       # one 128 block: the library's one-step form
 }
-# the bf16 kernels whose products are wgmma's (K4f and K4dkv), and the
-# depth of their rings of tiles (kStages in csrc/flash_attention.cu)
-K4_WGMMA = ("flash_fwd_bf16", "flash_bwd_dkv_bf16")
+# the bf16 kernels, whose products are wgmma's, and the depth of their
+# rings of tiles (kStages in csrc/flash_attention.cu)
+K4_WGMMA = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
 K4_STAGES = 3
 BF16_KERNEL_TOL = 2.0 ** -7    # x max|ref|: o, dq, dk, dv (two bf16 ulps at
 #                                the top of the range)

@@ -51,9 +51,9 @@
 // dK/dV sums; K for dS K) would be a further shared tile; with mma.sync
 // the split and the transposes are register and index work.
 //
-// The bf16 kernels are described in their own section below (K4f and
-// K4dkv: wgmma, a producer warp and a ring of swizzled tiles).  The design
-// of the three f32 kernels:
+// The three bf16 kernels are described in their own section below
+// (wgmma, a producer warp and a ring of swizzled tiles).  The design of
+// the three f32 kernels:
 //   * 4 warps a block, 16 rows a warp, one 64-row tile a block; the warp's
 //     own operands (the Q rows in K4f; the K and V rows in K4dkv; the Q and
 //     dO rows in K4dq) are split into hi/lo fragments once and kept in
@@ -632,23 +632,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // P V (forward), P^T before P^T dO, dS before dS^T Q (dK/dV) and dS before
 // dS K (dQ); m, l, di and every running sum stay f32, and o, dq, dk, dv
 // are rounded once when written.  The bf16 kernels do the same, one pass:
-// a bf16 product is exact in f32, so no hi/lo split.  K4f and K4dkv issue
-// their products with wgmma (the Hopper section below); K4dq with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulators) in the f32 kernels'
-// structure, grid and walk.  What K4dq's form changes against the f32
-// kernels':
-//   * an m16n8k16 A fragment holds (row g | g + 8, k = 2t, 2t + 1 | 2t + 8,
-//     2t + 9) as bf16 pairs, which is exactly what two adjacent 16 x 8
-//     accumulator tiles hold (columns 2t, 2t + 1 of each): dS goes to the
-//     next product through cvt.rn.bf16x2.f32 with no permutation;
-//   * the score products (Q K^T and dO V^T) read B as 32-bit pairs along d
-//     from row-major tiles; dS K reads B down a column, two 16-bit loads a
-//     register;
-//   * shared rows are padded to D + 8 bf16 (16 bytes): rows stay 16-byte
-//     aligned for cp.async, and both kinds of fragment load hit 32
-//     different banks (the pitch in words is 4 mod 8 words per row pair);
-//   * dS is rounded once per 16-key step, from the f32 value the f32
-//     kernel would use.
+// a bf16 product is exact in f32, so no hi/lo split.  All three issue
+// their products with wgmma (the Hopper section below).
 // Where P is rounded: the library's forward rounds exp(s - m) against the
 // running max of its 128-key block, K4f against the running max of its
 // 64-key tile, the plain version against the row's final max; the
@@ -656,10 +641,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // They are bound by the exps more than by the products (bf16 runs at twice
 // the TF32 rate and needs one pass, not three), and their bytes are half
 // the f32 kernels'.
-
-// shared bf16 rows are padded to D + 8 values
-template <int D>
-constexpr int kPitchH = D + 8;
 
 // (lo, hi) rounded to bf16 (to nearest even) in one register, lo in the
 // low half: the element with the lower column or k index
@@ -669,117 +650,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
-// d += a b for one m16n8k16 tile: bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of a 16 x 16 tile from two accumulator tiles (columns
-// 0-7 and 8-15), rounded to bf16
-__device__ __forceinline__ void acc_to_a(const float (&c0)[4],
-                                         const float (&c1)[4],
-                                         uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);   // (g, 2t)         (g, 2t + 1)
-  a[1] = pack_bf16(c0[2], c0[3]);   // (g + 8, 2t)     (g + 8, 2t + 1)
-  a[2] = pack_bf16(c1[0], c1[1]);   // (g, 2t + 8)     (g, 2t + 9)
-  a[3] = pack_bf16(c1[2], c1[3]);   // (g + 8, 2t + 8) (g + 8, 2t + 9)
-}
-
-// The A fragments of rows (row, row + 8) of a [., D] bf16 array in device
-// memory, k-step s covering columns 16s..16s+15
-template <int D>
-__device__ __forceinline__ void load_rows_bf16(const uint16_t* __restrict__ row,
-                                               int t,
-                                               uint32_t (&a)[D / 16][4]) {
-  const uint32_t* const r = reinterpret_cast<const uint32_t*>(row);
-#pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-    a[s][0] = __ldg(r + 8 * s + t);
-    a[s][1] = __ldg(r + 4 * D + 8 * s + t);
-    a[s][2] = __ldg(r + 8 * s + t + 4);
-    a[s][3] = __ldg(r + 4 * D + 8 * s + t + 4);
-  }
-}
-
-// B of an m16n8k16 product from a row-major [n][k] shared tile: rows n0 + g,
-// k-step s (two 32-bit pairs along the row)
-template <int D>
-__device__ __forceinline__ void row_pairs(const uint16_t* tile, int n, int s,
-                                          int t, uint32_t& b0, uint32_t& b1) {
-  const uint32_t* const p = reinterpret_cast<const uint32_t*>(
-      tile + n * kPitchH<D> + 16 * s + 2 * t);
-  b0 = p[0];
-  b1 = p[4];
-}
-
-// two bf16 of one column, rows r and r + 1 of a padded shared tile, as
-// one B register (row r in the low half)
-template <int D>
-__device__ __forceinline__ uint32_t col_pair(const uint16_t* p) {
-  return static_cast<uint32_t>(p[0]) |
-         (static_cast<uint32_t>(p[kPitchH<D>]) << 16);
-}
-
-// Start copying one [kTile, D] bf16 tile into a padded shared tile.
-template <int D>
-__device__ __forceinline__ void stage_tile_bf16(
-    uint16_t* dst, const uint16_t* __restrict__ src) {
-  for (int i = threadIdx.x; i < kTile * D / 8; i += kThreads)
-    cp_async16(dst + (i / (D / 8)) * kPitchH<D> + 8 * (i % (D / 8)),
-               src + 8 * i);
-}
-
-// sum += A B over one 16-row chunk, A the accumulator tiles a[0], a[1]
-// rounded to bf16, B's rows row0, row0 + 1 (row0 = the chunk's first row
-// + 2t) and row0 + 8, row0 + 9 read down column 8n + g of a padded shared
-// tile; the chunk's product starts from zero and is added in f32, as in
-// add_chunk
-template <int D>
-__device__ __forceinline__ void add_chunk_bf16(float (&sum)[D / 8][4],
-                                               const float (&a)[2][4],
-                                               const uint16_t* b, int row0,
-                                               int g) {
-  uint32_t af[4];
-  acc_to_a(a[0], a[1], af);
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const uint16_t* const bp = b + row0 * kPitchH<D> + 8 * n + g;
-    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_bf16(part, af, col_pair<D>(bp), col_pair<D>(bp + 8 * kPitchH<D>));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sum[n][e] += part[e];
-  }
-}
-
 // two f32 values rounded to bf16 and written as one 32-bit store
 __device__ __forceinline__ void store_bf16x2(uint16_t* p, float lo,
                                              float hi) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
 }
 
-// K4f and K4dq: [2 buffers][K, V] bf16 tiles
-template <int D>
-__host__ __device__ constexpr int kv_smem_bytes_bf16() {
-  return 2 * 2 * kTile * kPitchH<D> * 2;
-}
-
 // ---------------------------------------------------------------------------
-// bf16 K4f and K4dkv on Hopper: wgmma, a producer warp, a ring of tiles
+// bf16 K4f, K4dkv and K4dq on Hopper: wgmma, a producer warp, a ring of
+// tiles
 // ---------------------------------------------------------------------------
 //
-// The bf16 forward and dK/dV kernels issue every product with
-// wgmma.mma_async (bf16 in, f32 accumulators in registers):
+// The three bf16 kernels issue every product with wgmma.mma_async (bf16
+// in, f32 accumulators in registers):
 //   * Tiles live in shared memory in the swizzled layout wgmma reads: a
 //     row of D bf16 is R = 2D bytes (32, 64, 128), stored with the
 //     R-byte swizzle (16-byte chunk c of row r at chunk c ^ ((r R / 128) &
 //     (R / 16 - 1))), every tile on a 1024-byte boundary.  One tile serves
 //     a product that reads it K-major (K for Q K^T, Q for K Q^T) and one
-//     that reads it transposed (V for P V, dO for P^T dO, Q for dS^T Q):
-//     an [rows][D] tile is the N-major atom of the same swizzle.
+//     that reads it transposed (V for P V, dO for P^T dO, Q for dS^T Q, K
+//     for dS K): an [rows][D] tile is the N-major atom of the same
+//     swizzle.
 //   * Loading: a producer warp copies each tile with 16-byte cp.async to
 //     swizzled addresses it computes, waits for its copies, fences them to
 //     the async proxy (fence.proxy.async, which wgmma's reads need) and
@@ -790,16 +681,17 @@ __host__ __device__ constexpr int kv_smem_bytes_bf16() {
 //     valid inside a captured CUDA graph (cohort.py's GraphedRounds
 //     replays the folded calls with their own pointers); a warp of
 //     cp.async needs neither, and the tiles are 2-8 KB.
-//   * P (or P^T, dS^T) goes from the f32 accumulator to the next product's
-//     A operand in registers: an m64nNk16 accumulator gives each warp rows
-//     (g, g + 8) and columns (8j + 2t, 8j + 2t + 1), which for columns 16s
-//     .. 16s + 15 is exactly the A fragment of k-step s (acc_to_a).
+//   * P (or P^T, dS^T, dS) goes from the f32 accumulator to the next
+//     product's A operand in registers: an m64nNk16 accumulator gives each
+//     warp rows (g, g + 8) and columns (8j + 2t, 8j + 2t + 1), which for
+//     columns 16s .. 16s + 15 is exactly the A fragment of k-step s
+//     (acc_frags).
 //   * Exps are ex2.approx of one explicit fmaf(s, scale log2 e, -m log2 e)
 //     (the build's -fmad=false fuses nothing by itself); running sums (O,
-//     dK, dV) stay in the wgmma accumulators for the whole walk.
+//     dK, dV, dQ) stay in the wgmma accumulators for the whole walk.
 
 constexpr int kStages = 3;          // the ring's depth
-constexpr int kKeyTile = 64;        // keys (K4f) or queries (K4dkv) a tile
+constexpr int kKeyTile = 64;        // keys (K4f, K4dq) or queries (K4dkv)
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1390,8 +1282,46 @@ flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
   }
 }
 
+// K4dq's shared memory, byte offsets from a 1024-byte aligned base: the
+// block's Q and dO tiles, kStages K and kStages V tiles of 64 keys, then
+// the full and empty barriers
 template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 32 ? 4 : 2)
+struct DqSmem {
+  static constexpr int tile = kKeyTile * 2 * D;
+  static constexpr int q = 0;
+  static constexpr int dout = tile;
+  static constexpr int k = 2 * tile;
+  static constexpr int v = k + kStages * tile;
+  static constexpr int bars = v + kStages * tile;
+  static constexpr int bytes = bars + 2 * kStages * 8 + 1024;
+};
+
+constexpr int kDqThreads = 128 + 32;        // one warpgroup + a producer
+
+// K4dq bf16, K4dkv turned around.  A block owns 64 query rows of one (b, h)
+// as one consumer warpgroup; a producer warp loads its Q and dO tiles once,
+// with the first stage, then streams the 64-key K and V tiles 0 .. the
+// diagonal through the ring.  Each thread computes -m log2 e + log2(scale
+// / l) and loads di for its two rows (16w + g, 16w + g + 8) before the
+// walk.  Per tile: S = Q K^T and dP = dO V^T (m64n64k16, A = Q or dO and
+// B = K or V from shared memory, K-major), P scale = ex2(fmaf(s, scale
+// log2 e, -m log2 e + log2(scale / l))) (1 / l and scale folded into the
+// exponent: one multiply a pair fewer), dS = fmaf(P scale, dP, -(P scale)
+// di), on the diagonal tile the pairs above it set to 0 by a select in a
+// pass of its own (a masked score's exp may be inf, and inf x 0 is NaN),
+// then dQ += bf16(dS) K (m64n{D}k16, A from registers, B = the same K tile
+// read transposed).  dQ stays in the wgmma accumulator for the whole walk
+// and is written once.  Inside the warpgroup tile j's S, its dP and tile
+// j - 1's dS K are three groups issued together: the exps start once S is
+// in, while dP and dS K are still on the tensor cores.  Three blocks share
+// an SM (d <= 32), whose warpgroups overlap one another's products and
+// exps.  The producer signals each tile as soon as its own copies land
+// (K4f and K4dkv signal a tile once the next one's copies are issued).  A
+// second S and dP pair in flight (tile j + 1's during tile j's exps)
+// needs 64 registers more and two blocks an SM, where ptxas serialised
+// its wgmmas and spilled: it ran 2.6x slower.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, D <= 32 ? 3 : 2)
 flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
                          const uint16_t* __restrict__ k,
                          const uint16_t* __restrict__ v,
@@ -1400,96 +1330,146 @@ flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
                          const float* __restrict__ l,
                          const float* __restrict__ di,
                          uint16_t* __restrict__ dq, int t, float scale) {
-  constexpr int P = kPitchH<D>, KS = D / 16, NT = D / 8;
+  using L = DqSmem<D>;
   extern __shared__ float4 smem4[];
-  uint16_t* const smem = reinterpret_cast<uint16_t*>(smem4);
-  const int n_tiles = t / kTile;
-  const int qt = n_tiles - 1 - blockIdx.y;   // the longest rows start first
+  const uint32_t base = (smem_u32(smem4) + 1023) & ~1023u;
+  const uint32_t full = base + L::bars, empty = full + 8 * kStages;
+  const int qt = t / kKeyTile - 1 - blockIdx.y;   // the longest rows first
   const int64_t bh = blockIdx.x;
+  const int n = qt + 1;                      // key tiles 0 .. the diagonal
+  const int64_t row0 = bh * t + static_cast<int64_t>(qt) * kKeyTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int r0 = 16 * warp + g;              // rows r0 and r0 + 8 of the tile
-  const int64_t row0 = bh * t + static_cast<int64_t>(qt) * kTile + r0;
-  const uint16_t* const kbh = k + bh * t * D;
-  const uint16_t* const vbh = v + bh * t * D;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  stage_tile_bf16<D>(smem, kbh);
-  stage_tile_bf16<D>(smem + kTile * P, vbh);
-  cp_async_commit();
+  if (warp == 4) {   // the producer
+    const uint16_t* const kbh = k + bh * t * D;
+    const uint16_t* const vbh = v + bh * t * D;
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(empty + 8 * s, (i / kStages - 1) & 1);
+      if (i == 0) {
+        copy_tile<D, kKeyTile>(base + L::q, q + row0 * D, lane);
+        copy_tile<D, kKeyTile>(base + L::dout, dout + row0 * D, lane);
+      }
+      const int64_t off = static_cast<int64_t>(i) * kKeyTile * D;
+      copy_tile<D, kKeyTile>(base + L::k + s * L::tile, kbh + off, lane);
+      copy_tile<D, kKeyTile>(base + L::v + s * L::tile, vbh + off, lane);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_shared();
+      mbar_arrive(full + 8 * s);
+    }
+    return;
+  }
 
-  uint32_t qa[KS][4], doa[KS][4];
-  load_rows_bf16<D>(q + row0 * D, tq, qa);
-  load_rows_bf16<D>(dout + row0 * D, tq, doa);
-  float mr[2], inv_l[2], dir[2];             // rows r0, r0 + 8
+  const int w = warp, g = lane / 4, tq = lane % 4;
+  const int r = 16 * w + g;                  // rows r and r + 8 of the tile
+  const float sl2 = scale * kLog2e;
+  const uint64_t qdesc = make_desc<D>(base + L::q);
+  const uint64_t ddesc = make_desc<D>(base + L::dout);
+  float nl[2], dd[2];              // -m log2 e + log2(scale / l), and di
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mr[h] = __ldg(m + row0 + 8 * h);
-    inv_l[h] = 1.0f / __ldg(l + row0 + 8 * h);
-    dir[h] = __ldg(di + row0 + 8 * h);
+    nl[h] = -__ldg(m + row0 + r + 8 * h) * kLog2e +
+            __log2f(scale / __ldg(l + row0 + r + 8 * h));
+    dd[h] = __ldg(di + row0 + r + 8 * h);
   }
-  float dqa[NT][4];                          // dims 8n + 2t, 8n + 2t + 1
+  float sacc[32], dpacc[32];                 // keys 8j + 2t (+1), rows r
+  float dqa[D / 2];                          // (+8); dims likewise
+  uint32_t da[4][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.0f;
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const uint16_t* const ks = smem + (kt & 1) * 2 * kTile * P;
-    const uint16_t* const vs = ks + kTile * P;
-    if (kt < qt) {
-      uint16_t* const next = smem + ((kt + 1) & 1) * 2 * kTile * P;
-      stage_tile_bf16<D>(next, kbh + static_cast<int64_t>(kt + 1) * kTile * D);
-      stage_tile_bf16<D>(next + kTile * P,
-                         vbh + static_cast<int64_t>(kt + 1) * kTile * D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // issue S = Q K_j^T and dP = dO V_j^T, a group each
+  auto products = [&](int j) {
+    const int s = j % kStages;
+    mbar_wait(full + 8 * s, (j / kStages) & 1);
+    const uint64_t kdesc = make_desc<D>(base + L::k + s * L::tile);
+    const uint64_t vdesc = make_desc<D>(base + L::v + s * L::tile);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(sacc, qdesc + 2 * ks, kdesc + 2 * ks, ks);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64(dpacc, ddesc + 2 * ks, vdesc + 2 * ks, ks);
+    wgmma_commit();
+  };
+  // issue dQ += bf16(dS) K_j
+  auto dsk = [&](int j) {
+    wgmma_rows<D>(dqa, da,
+                  make_desc<D>(base + L::k + (j % kStages) * L::tile));
+    wgmma_commit();
+  };
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (j % kStages));
+  };
+  // P scale in place
+  auto probs = [&]() {
+#pragma unroll
+    for (int x = 0; x < 32; ++x)
+      sacc[x] = ex2(__fmaf_rn(sacc[x], sl2, nl[(x >> 1) & 1]));
+  };
+  // dS in place; on the diagonal tile the pairs above it are set to 0
+  auto grads = [&](bool diag) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const float ps = sacc[x];
+      sacc[x] = __fmaf_rn(ps, dpacc[x], -(ps * dd[(x >> 1) & 1]));
     }
-    __syncthreads();
+    if (diag) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x)
+        if (8 * (x >> 2) + 2 * tq + (x & 1) > r + 8 * ((x >> 1) & 1))
+          sacc[x] = 0.0f;
+    }
+  };
 
-    const bool diag = kt == qt;
-    // 16 keys at a time: n-tile j holds keys c0 + 8j + 2t (+1)
-#pragma unroll
-    for (int chunk = 0; chunk < 4; ++chunk) {
-      const int c0 = 16 * chunk;
-      if (diag && c0 > 16 * warp + 15) continue;   // sees none of its rows
-      float sa[2][4], dpa[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) { sa[j][e] = 0.0f; dpa[j][e] = 0.0f; }
-#pragma unroll
-        for (int st = 0; st < KS; ++st) {
-          uint32_t b0, b1;
-          row_pairs<D>(ks, c0 + 8 * j + g, st, tq, b0, b1);
-          mma_bf16(sa[j], qa[st], b0, b1);
-          row_pairs<D>(vs, c0 + 8 * j + g, st, tq, b0, b1);
-          mma_bf16(dpa[j], doa[st], b0, b1);
-        }
-      }
-      // P = exp(S scale - m) / l and dS = P (dP - di) scale in f32; a pair
-      // above the diagonal is set to 0, not multiplied by 0
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const float p = __expf(sa[j][e] * scale - mr[h]) * inv_l[h];
-          float ds = p * (dpa[j][e] - dir[h]) * scale;
-          if (diag && c0 + 8 * j + 2 * tq + (e & 1) > r0 + 8 * h) ds = 0.0f;
-          sa[j][e] = ds;
-        }
-      // dQ += bf16(dS) K
-      add_chunk_bf16<D>(dqa, sa, ks, c0 + 2 * tq, g);
-    }
-    __syncthreads();   // the next iteration's copy reuses this buffer
+  wgmma_fence();
+  products(0);
+  wgmma_wait<0>();
+  keep(sacc);
+  keep(dpacc);
+  probs();
+  grads(n == 1);
+  acc_frags(sacc, da);
+  for (int j = 1; j < n; ++j) {
+    wgmma_fence();
+    products(j);
+    dsk(j - 1);
+    wgmma_wait<2>();                         // S of tile j
+    keep(sacc);
+    probs();
+    wgmma_wait<1>();                         // dP of tile j
+    keep(dpacc);
+    grads(j == n - 1);
+    wgmma_wait<0>();                         // dS K of tile j - 1
+    keep(dqa);
+    keep(da);
+    release(j - 1);
+    acc_frags(sacc, da);
   }
+  wgmma_fence();
+  dsk(n - 1);
+  wgmma_wait<0>();
+  keep(dqa);
+  keep(da);
+  release(n - 1);
+
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = 8 * n + 2 * tq;
-    store_bf16x2(dq + row0 * D + col, dqa[n][0], dqa[n][1]);
-    store_bf16x2(dq + (row0 + 8) * D + col, dqa[n][2], dqa[n][3]);
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int col = 8 * nb + 2 * tq;
+    store_bf16x2(dq + (row0 + r) * D + col, dqa[4 * nb], dqa[4 * nb + 1]);
+    store_bf16x2(dq + (row0 + r + 8) * D + col, dqa[4 * nb + 2],
+                 dqa[4 * nb + 3]);
   }
 }
 
@@ -1600,13 +1580,14 @@ int launch_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
                    const uint16_t* dout, const float* m, const float* l,
                    const float* di, uint16_t* dq, int64_t bh, int t,
                    float scale, cudaStream_t stream) {
-  constexpr int bytes = kv_smem_bytes_bf16<D>();
+  constexpr int bytes = DqSmem<D>::bytes;
   static std::atomic<uint64_t> allowed{0};
   const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, bytes,
                                      allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_bf16_kernel<D><<<grid_of(bh, t), kThreads, bytes, stream>>>(
-      q, k, v, dout, m, l, di, dq, t, scale);
+  flash_bwd_dq_bf16_kernel<D><<<grid_of(bh, t), kDqThreads, bytes,
+                                stream>>>(q, k, v, dout, m, l, di, dq, t,
+                                          scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,13 @@
 """Time builds of a kernel's source side by side on one card, in one
 process: K2 (the shard finalize), K1 (the robust aggregate), K3 (the
-secagg mask), or the bf16 K4f and K4dkv (flash attention).
+secagg mask), or the bf16 K4f, K4dkv and K4dq (flash attention).
 
     python3 -m fedml_tpu_torch.utils.k2_ab [k2] A.cu B.cu [C.cu ...]
     python3 -m fedml_tpu_torch.utils.k2_ab k1 A.cu B.cu [C.cu ...]
     python3 -m fedml_tpu_torch.utils.k2_ab k3 A.cu B.cu [C.cu ...]
     python3 -m fedml_tpu_torch.utils.k2_ab k4f A.cu B.cu [C.cu ...]
     python3 -m fedml_tpu_torch.utils.k2_ab k4dkv A.cu B.cu [C.cu ...]
+    python3 -m fedml_tpu_torch.utils.k2_ab k4dq A.cu B.cu [C.cu ...]
 
 Run from the root of a checkout on a machine with a GPU.  Each source is a
 version of the kernel's file under ``csrc/`` (for example the parent
@@ -35,10 +36,11 @@ lines, times in microseconds.  Exits non-zero without a GPU.
   already on the card; bit-equal to ``quantize_mask_plain`` leaf by leaf.
   The host derivation of the pair seeds that the per-leaf form needs is
   timed beside it.
-* k4f, k4dkv: ``flash_fwd_bf16`` or ``flash_bwd_dkv_bf16`` of a
-  ``flash_attention.cu`` at the bf16 LM's vmapped call, [B, T, H, d] =
-  [8, 2048, 8, 32] (bf16 q, k, v, dO from a seed; m, l and di from the
-  plain forward): o, dk, dv within 2^-7 x max|ref| of the plain versions,
+* k4f, k4dkv, k4dq: ``flash_fwd_bf16``, ``flash_bwd_dkv_bf16`` or
+  ``flash_bwd_dq_bf16`` of a ``flash_attention.cu`` at the bf16 LM's
+  vmapped call, [B, T, H, d] = [8, 2048, 8, 32] (bf16 q, k, v, dO from a
+  seed; m, l and di from the plain forward): o, dk, dv, dq within 2^-7 x
+  max|ref| of the plain versions,
   m and l within 1e-5 x max|ref|; beside each, the wrapper's host time
   (its enqueue), and for k4f scaled_dot_product_attention's bf16 forward
   (a yardstick the port never calls).  Each row names the card and its
@@ -369,10 +371,13 @@ def run_k4(sources, mode: str) -> None:
         kernel = lambda: fa.flash_fwd(q, k, v)
         want = {"o": (po, K4_BF16_TOL), "m": (pm, K4_ML_TOL),
                 "l": (pl, K4_ML_TOL)}
-    else:
+    elif mode == "k4dkv":
         kernel = lambda: fa.flash_bwd_dkv(*bwd)
         want = dict(zip(("dk", "dv"), ((x, K4_BF16_TOL) for x in
                                        fa.flash_bwd_dkv_bf16_plain(*bwd))))
+    else:
+        kernel = lambda: (fa.flash_bwd_dq(*bwd),)
+        want = {"dq": (fa.flash_bwd_dq_bf16_plain(*bwd), K4_BF16_TOL)}
 
     def call(name):
         fa._lib_handle = libs[name]
@@ -380,6 +385,7 @@ def run_k4(sources, mode: str) -> None:
 
     errs = {}
     for name in libs:
+        print(f"checking {name}", file=sys.stderr, flush=True)
         got = call(name)
         torch.cuda.synchronize()
         errs[name] = {}
@@ -405,11 +411,11 @@ def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is false; this needs a GPU")
     kernel = "k2"
-    if argv and argv[0] in ("k1", "k2", "k3", "k4f", "k4dkv"):
+    if argv and argv[0] in ("k1", "k2", "k3", "k4f", "k4dkv", "k4dq"):
         kernel, argv = argv[0], argv[1:]
     if len(argv) < 2:
         sys.exit(__doc__)
-    if kernel in ("k4f", "k4dkv"):
+    if kernel in ("k4f", "k4dkv", "k4dq"):
         run_k4(argv, kernel)
         return
     {"k1": run_k1, "k2": run_k2, "k3": run_k3}[kernel](argv)

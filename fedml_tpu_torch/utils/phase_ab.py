@@ -5,11 +5,14 @@ in turns: A B B A A B, each turn a fresh process in that checkout.
 
 Each directory is the root of a checkout (for example the parent commit
 unpacked with ``git archive`` beside the change's).  A turn loads the
-FEMNIST twin of the defended slice (``chip_smoke.SLICE_ARGS``), runs the
-phase and prints one JSON line ``{"tree": ..., "rounds_per_s": ...}``;
-the last line holds the median of each tree.  Phases: ``mqtt``
-(``check_silo_mqtt``: 3 rounds of the sharded cross-silo slice over the
-repo's MQTT broker).  Exits non-zero without a GPU or when a turn fails.
+phase's data, runs the phase and prints one JSON line ``{"tree": ...,
+"rounds_per_s": ...}``; the last line holds the median of each tree.
+Phases: ``mqtt`` (``check_silo_mqtt`` on the FEMNIST twin of the
+defended slice, ``chip_smoke.SLICE_ARGS``: 3 rounds of the sharded
+cross-silo slice over the repo's MQTT broker); ``bf16_lm`` (``run_lm_slice``
+on bench.py's T=2048 flash LM under bf16: 3 graphed FedAvg rounds
+through the bf16 K4 kernels, rounds/s of rounds 2-3).  Exits non-zero
+without a GPU or when a turn fails.
 """
 
 from __future__ import annotations
@@ -20,17 +23,28 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = {"mqtt": "check_silo_mqtt(data)"}
+# each phase's turn: it leaves a dict with "rounds_per_s" in ``out``
+PHASES = {
+    "mqtt": """
+from fedml_tpu_torch.experiments.config import config_from_argv
+from fedml_tpu_torch.experiments.main import load_experiment_data
+data = load_experiment_data(config_from_argv(cs.SLICE_ARGS))
+out = cs.check_silo_mqtt(data)""",
+    "bf16_lm": """
+import torch
+from pathlib import Path
+data = cs.lm_data()
+out = cs.run_lm_slice(data, Path("."), names=cs.K4_BF16_NAMES,
+                      algo=cs.lm_bf16_fedavg(data, dtype=torch.bfloat16),
+                      label="transformer bf16")[2]""",
+}
 ORDER = (0, 1, 1, 0, 0, 1)
 
 _TURN = '''
 import json, sys
 sys.path.insert(0, ".")
 import chip_smoke as cs
-from fedml_tpu_torch.experiments.config import config_from_argv
-from fedml_tpu_torch.experiments.main import load_experiment_data
-data = load_experiment_data(config_from_argv(cs.SLICE_ARGS))
-out = cs.{call}
+{body}
 print("RESULT " + json.dumps({{"rounds_per_s": out["rounds_per_s"]}}))
 '''
 
@@ -43,7 +57,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("phase_ab needs a GPU")
     trees = [Path(a).resolve() for a in args[1:]]
-    code = _TURN.format(call=PHASES[args[0]])
+    code = _TURN.format(body=PHASES[args[0]])
     rates = {str(t): [] for t in trees}
     for i in ORDER:
         run = subprocess.run([sys.executable, "-c", code], cwd=trees[i],

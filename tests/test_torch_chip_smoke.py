@@ -159,6 +159,37 @@ def test_flash_nan_check_catches_a_dropped_nan(nan_chain, name):
     assert problem.startswith(f"{name}: ") and "not NaN" in problem
 
 
+@pytest.fixture(scope="module")
+def nan_chain_bf16():
+    """The NaN check's inputs in bf16 through the plain bf16 versions on
+    the CPU."""
+    return cs.flash_chain(*cs.flash_nan_inputs("cpu", torch.bfloat16),
+                          *cs.flash_nan_plains(torch.bfloat16))
+
+
+def test_flash_nan_check_passes_the_plain_bf16_versions(nan_chain_bf16):
+    """Rounded to bf16 the NaNs stay, and the plain bf16 versions put NaN
+    in every row they reach through a visible pair; bf16 outputs, held at
+    BF16_KERNEL_TOL on every output."""
+    must = cs.flash_nan_rows(nan_chain_bf16["o"].shape[:3])
+    for name, out in nan_chain_bf16.items():
+        assert out.dtype == torch.bfloat16, name
+        assert not (must[name] & ~out.isnan().any(-1)).any(), name
+    tols = cs.flash_nan_tols(torch.bfloat16)
+    assert tols == (cs.BF16_KERNEL_TOL, cs.BF16_KERNEL_TOL)
+    assert cs.flash_nan_problems(nan_chain_bf16, nan_chain_bf16, tols) == []
+
+
+@pytest.mark.parametrize("name", ["o", "dk", "dv", "dq"])
+def test_flash_nan_check_catches_a_dropped_bf16_nan(nan_chain_bf16, name):
+    """A bf16 output that turns a NaN into a finite number fails."""
+    got = dict(nan_chain_bf16,
+               **{name: torch.nan_to_num(nan_chain_bf16[name])})
+    [problem] = cs.flash_nan_problems(got, nan_chain_bf16,
+                                      cs.flash_nan_tols(torch.bfloat16))
+    assert problem.startswith(f"{name}: ") and "not NaN" in problem
+
+
 @pytest.mark.parametrize("name, tol", [("o", cs.FLASH_O_TOL),
                                        ("dk", cs.FLASH_GRAD_TOL)])
 def test_flash_nan_check_holds_finite_rows_to_the_limits(nan_chain, name,
@@ -260,17 +291,18 @@ def test_k_ab_tool_modes_refuse_without_a_card(monkeypatch):
 
 
 def test_k4_ab_modes_refuse_without_a_card(monkeypatch):
-    """The A/B tool's bf16 K4f and K4dkv modes refuse without a card
-    before they build anything; without a mode's sources it prints its
-    usage."""
+    """The A/B tool's bf16 K4f, K4dkv and K4dq modes refuse without a
+    card before they build anything; without a mode's sources it prints
+    its usage."""
     from fedml_tpu_torch.utils import k2_ab
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mode in ("k4f", "k4dkv"):
+    for mode in ("k4f", "k4dkv", "k4dq"):
         with pytest.raises(SystemExit, match="needs a GPU"):
             k2_ab.main([mode, "a.cu", "b.cu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit, match="k4dkv A.cu B.cu"):
-        k2_ab.main(["k4f", "a.cu"])
+    for mode in ("k4f", "k4dq"):
+        with pytest.raises(SystemExit, match="k4dq A.cu B.cu"):
+            k2_ab.main([mode, "a.cu"])
 
 
 def test_tensor_core_kinds_split_hmma_from_hgmma():
@@ -609,8 +641,9 @@ def test_phase_ab_refuses_without_a_card_or_a_known_phase(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="usage"):
         phase_ab.main(["secagg", "a", "b"])
-    with pytest.raises(SystemExit, match="needs a GPU"):
-        phase_ab.main(["mqtt", "a", "b"])
+    for phase in ("mqtt", "bf16_lm"):
+        with pytest.raises(SystemExit, match="needs a GPU"):
+            phase_ab.main([phase, "a", "b"])
 
 
 # ---------------------------------------------------------------------------
@@ -894,16 +927,16 @@ def test_observability_phase_on_the_cpu(tiny_phases, monkeypatch):
     ("flash_fwd_bf16", 16, 17456), ("flash_fwd_bf16", 32, 33840),
     ("flash_fwd_bf16", 64, 66608), ("flash_bwd_dkv_bf16", 16, 19760),
     ("flash_bwd_dkv_bf16", 32, 36144), ("flash_bwd_dkv_bf16", 64, 68912),
-    ("flash_bwd_dq_bf16", 32, 20480), ("flash_bwd_dq_bf16", 64, 36864)])
+    ("flash_bwd_dq_bf16", 32, 33840), ("flash_bwd_dq_bf16", 64, 66608)])
 def test_flash_bf16_smem_bytes(kernel, d, smem):
-    """K4dq bf16's two buffers: 64-row bf16 tiles padded to d + 8 values
-    (16 bytes, so rows stay 16-byte aligned), under 48 KB.  The wgmma
-    kernels' swizzled, unpadded tiles: K4f's 128 Q rows and three stages
-    of K and V, K4dkv's K and V and three stages of Q, dO and their f32
-    -m log2 e, 1 / l and di; with the ring's mbarriers and 1024 bytes to
-    align the base, over 48 KB at d = 64 (the launch allows it)."""
+    """The wgmma kernels' swizzled, unpadded 64-row bf16 tiles: K4f's 128
+    Q rows and three stages of K and V, K4dkv's K and V and three stages
+    of Q, dO and their f32 -m log2 e, 1 / l and di, K4dq's Q and dO and
+    three stages of K and V (K4f's bytes); with the ring's mbarriers and
+    1024 bytes to align the base, under 48 KB at d <= 32 and over it at
+    d = 64 (the launch allows it)."""
     assert cs.flash_smem_bytes(kernel, d) == smem
-    assert (smem < 48 * 1024) == (kernel == "flash_bwd_dq_bf16" or d < 64)
+    assert (smem < 48 * 1024) == (d < 64)
 
 
 def test_flash_bf16_bounds_at_the_vmapped_shape():

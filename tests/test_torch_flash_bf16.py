@@ -121,6 +121,69 @@ def test_bf16_rounding_points_matter():
         assert rms(got[n], n) < 0.5 * rms(once[n], n), n
 
 
+LOG2E = np.float32(1.4426950408889634)      # kLog2e, an f32
+KEY_TILE = 64                               # keys a tile of the bf16 K4dq
+
+
+def _f32(x):
+    """f64 values rounded to f32 (to nearest even), kept as f64."""
+    return x.astype(np.float32).astype(np.float64)
+
+
+def _dq_in_kernel_order(q, k, v, do, m, l, di):
+    """dq of one [T, d] head as the bf16 K4dq orders its arithmetic: per
+    64-key tile, S = Q K^T and dP = dO V^T in f32 (exact bf16 products,
+    summed in f64 and rounded once); P scale = 2^fmaf(s, scale log2 e,
+    -m log2 e + log2(scale / l)), the row's term taken once a row in f32,
+    the fmaf in f64 rounded to f32, ex2 exact and then rounded; dS =
+    fmaf(P scale, dP, -(P scale) di) likewise, set to 0 above the diagonal
+    and rounded to bf16 pair by pair; the tile's dS K rounded to f32 and
+    added to dQ in f32; dQ rounded to bf16 once."""
+    t, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    sl2 = _f32(np.float64(scale) * np.float64(LOG2E))
+    row = _f32(_f32(-m.astype(np.float64) * np.float64(LOG2E))
+               + _f32(np.log2(_f32(np.float64(scale) / l.astype(np.float64)))))
+    nl, dd = row[:, None], di.astype(np.float64)[:, None]
+    q, k, v, do = (x.astype(np.float64) for x in (q, k, v, do))
+    dq = np.zeros((t, d), np.float64)
+    rows = np.arange(t)[:, None]
+    for c0 in range(0, t, KEY_TILE):
+        keys = slice(c0, c0 + KEY_TILE)
+        s = _f32(q @ k[keys].T)
+        dp = _f32(do @ v[keys].T)
+        ps = _f32(np.exp2(_f32(s * sl2 + nl)))
+        ds = _f32(ps * dp - _f32(ps * dd))
+        ds = np.where(c0 + np.arange(KEY_TILE)[None, :] > rows, 0.0, ds)
+        ds = torch.tensor(ds).to(torch.bfloat16).double().numpy()
+        dq = _f32(dq + _f32(ds @ k[keys]))
+    return torch.tensor(dq).to(torch.bfloat16).float().numpy()
+
+
+def test_dq_in_kernel_order_matches_pallas(case):
+    """The bf16 K4dq's rounding points, emulated on the CPU (the kernel
+    runs only on the card): dq in its order, on the plain forward's m and
+    l and di = sum(o dO), is held to the interpret-mode library within
+    2^-7 x max|ref|, as the plain version is, and to the plain version
+    within the same limit."""
+    got = _plain(case)
+    m, l = got["m"].numpy(), got["l"].numpy()
+    di = (got["o"].float() * _bf16(case["do"]).float()).sum(-1).numpy()
+    emulated = np.stack([np.stack([
+        _dq_in_kernel_order(case["q"][b, h], case["k"][b, h],
+                            case["v"][b, h], case["do"][b, h], m[b, h],
+                            l[b, h], di[b, h])
+        for h in range(case["q"].shape[1])])
+        for b in range(case["q"].shape[0])])
+    ref = case["dq"]
+    limit = TOL * np.abs(ref).max()
+    plain = got["dq"].float().numpy()
+    err = {"emulated": np.abs(emulated - ref).max(),
+           "plain": np.abs(plain - ref).max()}
+    assert err["emulated"] <= limit and err["plain"] <= limit, (err, limit)
+    assert np.abs(emulated - plain).max() <= limit, (err, limit)
+
+
 def test_autograd_bf16_grads_are_bf16_and_match_halves(case):
     """flash_attention on bf16 [B, T, H, d] CPU tensors: bf16 output and
     gradients equal to the plain halves fed di = sum(o * dO) in f32, under
