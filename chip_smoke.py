@@ -2,6 +2,7 @@
 """Smoke check of the PyTorch/CUDA port (``fedml_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve-split   # only: serving's round split
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  Phases,
 each printed as it ends; any failure exits non-zero:
@@ -220,7 +221,7 @@ each printed as it ends; any failure exits non-zero:
    a fold in round 1 resumed from its journal bit-equal; (6) ``--algo
    hierarchical --group_num 2 --group_comm_round 2``, 3 rounds: round ms,
    ``group_num 1 / group_comm_round 1`` against ``--algo fedavg`` (1e-5),
-   one round against the CPU (1e-4); (7) phase 8l's wave engine (1000 a
+   one round of 4 clients against the CPU (1e-4); (7) phase 8l's wave engine (1000 a
    round in waves of 256), 2 rounds inline and with ``--ingest_pipeline``,
    both with ``--wave_adversary 1:0:nan_bomb``: bit-equal, the poisoned
    wave rejected; one API round with a `ReliabilityTracker` merging the
@@ -278,9 +279,34 @@ each printed as it ends; any failure exits non-zero:
    and EfficientNet-B0 and VGG-11 on the cifar10 twin in f32, each
    leaf f32 and a cohort step of 2 clients against the CPU; the phase's
    seconds;
+8q. serving — (a) the live cross-silo slice (S=4, K2 on, clip 5, sigma
+   0.025, TF32 off) with ``--release_gate true`` and an ephemeral
+   ``--serve_port``, 3 rounds, while 4 client threads POST test rows to
+   ``/predict`` and one polls ``/version``: each answer within 1e-4 x
+   max|y| of the CPU forward under the version it names, per client
+   versions never going down and only promoted ones answering,
+   ``/version`` advancing to the last promoted version, every other
+   answer a 429 with a named shed reason or a 503 ``no_model`` (anything
+   else fails), K2 exactly 4 a round, the verdicts equal to the same
+   run's on the CPU (its gate fed the shadow snapshots the card's took),
+   sheds by reason, ``/predict`` p50
+   and p99, round ms against the same run with serving off; then 2
+   rounds with ``--serve_workers 2`` (the pool), the same checks; (b) the
+   cross-device engine on the JAX package's poisoned fixture
+   (``--wave_adversary 3:0:scale:1000000``, 4 rounds) from JAX's init
+   (``tests/data/release_fixture_init.npz``) through
+   ``ReleaseController``: verdicts and divergences equal to the CPU's
+   and to JAX's (0.46875, 0.46875, 0.484375), version 4 never live; (c) continuous-batching decode at phase 10's
+   width (8 slots, cache 2048, 96 requests of 4 prompt tokens and 44 new
+   tokens for every 4th, 4 for the rest), a hot swap after step 60: one
+   CUDA-graph capture in all, every step's logits within 1e-4 x
+   max|logit| of the dense full forward under the version its request
+   names, the tokens greedy by it (near-ties listed), the graphed step
+   bit-equal to the eager one; step ms graphed and eager, tokens/s and
+   occupancy continuous and drain, peak GB;
 12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
    and K2 also at their library call's configuration, sigma 0; K2's
-   launches are phase 8j's adam run's, phase 8's beside them; K4's
+   launches are phase 8j's adam run's, phase 8's and 8q's beside them; K4's
    launches are the warm-up's and evaluation's plus the captured ones
    times the replays; the bf16 K4's those of phase 8p's bf16
    transformer), and a last line
@@ -354,6 +380,10 @@ K1_UNCLIPPED = 2               # clients of phase 3's tree under the bound
 CLIP_BOUND = 5.0               # the defended slice's norm bound
 K2_STEP = 7                    # shard_finalize check: a non-zero round step
 K2_NOISE_TOL = 1e-6            # K2 vs plain at sigma > 0 if not bit-equal
+# profiler windows per time in phases 3 and 5's leaf-by-leaf rows: one
+# (each window is a torch.profiler session of host time, and the script's
+# time limit must hold every phase); the path's table rows keep 5
+LEAF_WINDOWS = 1
 
 
 def fail(msg: str) -> None:
@@ -565,14 +595,17 @@ def check_kernel(leaf_sizes, seed_words, sm_hz):
             kernel = lambda: fa.robust_agg(*args)
             plain = lambda: fa.robust_agg_plain(*args)
             call_ms = time_ms(kernel, reps=50)
-            ms = device_ms(kernel, 20, "robust_agg_kernel") or call_ms
-            plain_ms = device_ms(plain, 3) or time_ms(plain, 3, trials=3)
+            ms = device_ms(kernel, 20, "robust_agg_kernel",
+                           LEAF_WINDOWS) or call_ms
+            plain_ms = (device_ms(plain, 3, windows=LEAF_WINDOWS)
+                        or time_ms(plain, 3, trials=3))
             library_ms = None
             if not sigma:
                 beta = float((ratios * (1 - scales)).sum())
                 coef = ratios * scales
                 library = lambda: torch.addmv(g, x.T, coef, beta=beta)
-                library_ms = device_ms(library, 20) or time_ms(library, 50)
+                library_ms = (device_ms(library, 20, windows=LEAF_WINDOWS)
+                              or time_ms(library, 50))
             bound = op_bound(*robust_agg_work(N_CLIENTS, [d], sigma), sm_hz)
             row = dict(leaf=name, d=d, sigma=sigma, max_abs_err=err,
                        uniforms_bit_equal=bits_equal, ms=ms, call_ms=call_ms,
@@ -1059,8 +1092,9 @@ def check_secagg_kernel(leaf_sizes, sm_hz):
             plain = lambda: fm.quantize_mask_plain(*args)
             call_ms = time_ms(kernel, reps=50)
             if n == GROUP_SIZES[0]:           # the main path's group size
-                ms = device_ms(kernel, 20, "secagg_") or call_ms
-                plain_ms = device_ms(plain, 3) or time_ms(plain, 3, trials=3)
+                ms = device_ms(kernel, 20, "secagg_", LEAF_WINDOWS) or call_ms
+                plain_ms = (device_ms(plain, 3, windows=LEAF_WINDOWS)
+                            or time_ms(plain, 3, trials=3))
             else:                             # CUDA events only
                 ms, plain_ms = call_ms, time_ms(plain, 3, trials=3)
             bound = op_bound(*secagg_mask_work(n, n, d), sm_hz)
@@ -5113,6 +5147,7 @@ MACH_EDGE_KILL = ("post_fold_pre_ack", 2)   # edge 1's second fold, round 1
 MACH_HIER = ["--algo", "hierarchical", "--group_num", "2",
            "--group_comm_round", "2", *COMMON_ARGS]
 MACH_ORACLE_TOL = 1e-5           # group_num 1 / group_comm_round 1 vs fedavg
+MACH_HIER_CPU_CLIENTS = 4        # the round held against the CPU (time)
 MACH_WAVES = ["--wave_adversary", "1:0:nan_bomb", "--comm_round", "2"]
 
 
@@ -5536,7 +5571,8 @@ def check_mach_hierarchical(data):
                                  "--comm_round", "1"]), data, CARD)
         fedavg = fa.run(params={k: v.clone() for k, v in init.items()})
         row["oracle_vs_fedavg_max_abs_diff"] = max_diff(hier, fedavg)
-        one_round = dataclasses.replace(cfg, comm_round=1)
+        one_round = dataclasses.replace(
+            cfg, comm_round=1, client_num_per_round=MACH_HIER_CPU_CLIENTS)
         card = hierarchical_algo(one_round, data).run(
             params={k: v.clone() for k, v in init.items()})
         cpu = hierarchical_algo(dataclasses.replace(one_round,
@@ -6304,6 +6340,764 @@ def check_mixed_precision(data, data_lm, root: Path, sm_hz: float,
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 8q: serving — the live cross-silo slice published through the
+# release gate into a hot-swap registry behind the HTTP frontend (K2 on the
+# path), the poisoned cross-device round contained, continuous-batching
+# decode of the long-context LM as one CUDA-graph step
+# ---------------------------------------------------------------------------
+
+SERVE_ROUNDS = 3
+SERVE_POOL_ROUNDS = 2
+SERVE_POOL_WORKERS = 2
+SERVE_CLIENTS = 4              # threads POSTing test rows through the run
+SERVE_TOL = 1e-4               # x max|y|: an answer vs the CPU forward
+SERVE_EVAL_TOL = 1e-3          # card vs CPU held-out accuracy of a version
+SERVE_ARGS = [*SILO_ARGS, "--release_gate", "true"]
+# the CNN's first globals move most shadow argmaxes from one round to the
+# next (the gate rolls them back at the default budget of 0.1, as run
+# (a)'s frontend shows), so the pool's run opens the shadow budget: its
+# versions then swap live under the workers' load, still gated on eval
+SERVE_POOL_ARGS = ["--release_divergence_budget", "1.0"]
+# the JAX package's poisoned fixture (tests/test_release.py), from the
+# JAX engine's own init carried in a file (tests/test_torch_release.py
+# writes it and holds it to JAX's), so the verdicts are JAX's on any host:
+# the shadow divergences of versions 2-4 from version 1 that the JAX
+# package reads on that fixture (budget 0.1)
+CONTAIN_INIT = Path(__file__).resolve().parent / "tests" / "data" / \
+    "release_fixture_init.npz"
+CONTAIN_JAX_DIVERGENCE = {2: 0.46875, 3: 0.46875, 4: 0.484375}
+CONTAIN = dict(comm_round=4, client_num_per_round=12, epochs=1,
+               batch_size=4, wave_size=6, seed=0, frequency_of_the_test=10,
+               wave_adversary="3:0:scale:1000000", admission="off")
+CONTAIN_SHADOW = 64
+CONTAIN_BUDGET = 0.1
+DECODE_LM = dict(LM)           # bench.py's long-context width
+DECODE_SLOTS, DECODE_CACHE = 8, 2048
+DECODE_REQUESTS, DECODE_PROMPT = 96, 4
+DECODE_LONG, DECODE_SHORT = 44, 4   # max_new of every 4th request / rest
+DECODE_SWAP_AT = 60            # the step after which version 1 publishes
+DECODE_TOL = 1e-4              # x max|logit|: a step vs the full forward
+SERVE_DIR = Path(__file__).resolve().parent / "build" / "serving"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_post(conn, x):
+    conn.request("POST", "/predict", json.dumps({"x": x.tolist()}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read())
+
+
+class TrafficThreads:
+    """``SERVE_CLIENTS`` keep-alive client threads POSTing ``rows`` to
+    ``/predict`` until stopped (each answer kept as (row, status,
+    version, y, shed reason or error, seconds); a connection error as
+    status ``"error"`` with its text), and one thread polling
+    ``/version``."""
+
+    def __init__(self, port: int, rows):
+        import threading
+        self.port, self.rows = port, rows
+        self.stop_event = threading.Event()
+        self.answers = [[] for _ in range(SERVE_CLIENTS)]
+        self.versions = []
+        self.threads = [threading.Thread(target=self._client, args=(t,),
+                                         daemon=True)
+                        for t in range(SERVE_CLIENTS)]
+        self.threads.append(threading.Thread(target=self._poll, daemon=True))
+
+    def _conn(self):
+        import http.client
+        return http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=30)
+
+    def _client(self, t: int) -> None:
+        conn, k = self._conn(), t
+        while not self.stop_event.is_set():
+            i = k % len(self.rows)
+            k += SERVE_CLIENTS
+            t0 = time.perf_counter()
+            try:
+                status, body = serve_post(conn, self.rows[i])
+            except (OSError, ValueError) as e:
+                conn.close()
+                conn = self._conn()
+                self.answers[t].append((i, "error", None, None, repr(e),
+                                        None))
+                continue
+            self.answers[t].append((i, status, body.get("version"),
+                                    body.get("y"),
+                                    body.get("reason", body.get("error")),
+                                    time.perf_counter() - t0))
+            if status != 200:
+                time.sleep(0.005)    # no model yet, or shed: back off
+        conn.close()
+
+    def _poll(self) -> None:
+        conn = self._conn()
+        while not self.stop_event.wait(0.05):
+            try:
+                conn.request("GET", "/version")
+                body = json.loads(conn.getresponse().read())
+            except (OSError, ValueError):
+                conn.close()
+                conn = self._conn()
+                continue
+            self.versions.append(body["version"])
+        conn.close()
+
+    def start(self) -> None:
+        for th in self.threads:
+            th.start()
+
+    def stop(self) -> bool:
+        """Stop and join the threads; whether one is stuck."""
+        self.stop_event.set()
+        for th in self.threads:
+            th.join(timeout=60)
+        return any(th.is_alive() for th in self.threads)
+
+
+def traffic_main() -> None:
+    """The client side in a process of its own (its threads' JSON and
+    HTTP work must not share the served process's interpreter lock):
+    ``(port, rows)`` pickled on stdin, then any byte to stop; the
+    answers, the ``/version`` readings and whether a thread stuck
+    pickled on stdout."""
+    import pickle
+    port, rows = pickle.load(sys.stdin.buffer)
+    traffic = TrafficThreads(port, rows)
+    traffic.start()
+    sys.stdin.buffer.read(1)
+    stuck = traffic.stop()
+    pickle.dump((traffic.answers, traffic.versions, stuck),
+                sys.stdout.buffer)
+    sys.stdout.buffer.flush()
+
+
+class ServeTraffic:
+    """`traffic_main` in a child process for the block's duration;
+    ``answers`` and ``versions`` after it."""
+
+    def __init__(self, port: int, rows):
+        self._args = (port, rows)
+
+    def __enter__(self):
+        import pickle
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.traffic_main()"],
+            cwd=str(Path(__file__).resolve().parent),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+        self._proc.stdin.write(pickle.dumps(self._args))
+        self._proc.stdin.flush()
+        return self
+
+    def __exit__(self, *exc):
+        import pickle
+        try:
+            self._proc.stdin.write(b"s")
+            self._proc.stdin.close()
+            out = self._proc.stdout.read()
+            self._proc.wait(timeout=120)
+        finally:
+            if self._proc.poll() is None:
+                self._proc.kill()
+                self._proc.wait()
+        if self._proc.returncode != 0:
+            fail(f"serve: the client process exited "
+                 f"{self._proc.returncode}")
+        self.answers, self.versions, stuck = pickle.loads(out)
+        if stuck:
+            fail("serve: a client thread did not stop")
+
+
+def serve_fed(data, rounds: int, workers: int, device: str,
+              extra=()):
+    """The live cross-silo slice (S=4, K2 on, clip 5, sigma 0.025) on
+    ``device`` behind the release-gated frontend on a free port with
+    ``workers`` accept loops.  Every version the registry takes is kept
+    on the host (``fed.published``), every shadow snapshot the gate takes
+    is recorded as it read it (``fed.shadow_seen``; the request threads
+    keep adding rows meanwhile), and every reading of the gate's clock is
+    logged (``fed.clock_reads``)."""
+    argv = [*SERVE_ARGS, *extra, "--serve_port", str(free_port()),
+            "--serve_workers", str(workers),
+            "--run_dir", str(SERVE_DIR)]      # the release journal
+    fed = live_fed(live_cfg(argv, rounds, device), data)
+    serving = fed.serving
+    fed.published, fed.shadow_seen, fed.clock_reads = {}, [], []
+    fed.offer_ms = []
+    real_publish, real_offer = serving.registry.publish, serving.release.offer
+    real_snapshot = serving.shadow.snapshot
+
+    def clock():
+        fed.clock_reads.append(time.monotonic())
+        return fed.clock_reads[-1]
+
+    serving.release.clock = clock
+
+    def publish(params, version, canary=False):
+        fed.published[int(version)] = _flat_host(params)
+        return real_publish(params, version, canary=canary)
+
+    def snapshot():
+        rows = real_snapshot()
+        fed.shadow_seen.append([r.copy() for r in rows])
+        return rows
+
+    def offer(params, version, round_idx=None):
+        t0 = time.perf_counter()
+        try:
+            return real_offer(params, version, round_idx=round_idx)
+        finally:
+            fed.offer_ms.append(1e3 * (time.perf_counter() - t0))
+
+    serving.registry.publish = publish
+    serving.release.offer = offer
+    serving.shadow.snapshot = snapshot
+    return fed
+
+
+def serve_replay_cpu(data, rounds: int, workers: int, card, extra=()):
+    """The same run on the CPU, from the same init: its gate read the
+    shadow rows the card's read, snapshot by snapshot, and the card's
+    clock (a cooldown refuses the same offers).  Returns its verdicts."""
+    fed = serve_fed(data, rounds, workers, "cpu", extra)
+    release = fed.serving.release
+    snapshots = iter(card.shadow_seen)
+    reads = iter(card.clock_reads)
+    release.clock = lambda: next(reads)
+    fed.serving.shadow.snapshot = lambda: next(snapshots)
+    try:
+        live_drive(fed)
+    finally:
+        fed.serving.stop()
+    return release.verdicts
+
+
+def verdict_rows(verdicts):
+    """(version, decision, failed signals, shadow divergence) a verdict;
+    a cooldown refusal has no signals."""
+    return [(v["version"], v["decision"], v.get("failed_signals"),
+             v.get("signals", {}).get("shadow", {}).get("divergence"))
+            for v in verdicts]
+
+
+def serve_answers_check(traffic, fed, rows, label: str) -> dict:
+    """Every answer a 200, a 429 with a named shed reason or a 503 shed
+    for want of a model (counted by status and reason; a connection
+    error, a 500, a 400, a 503 timeout or any other answer fails); each
+    200 within SERVE_TOL x max|y| of the CPU forward under the version
+    it names; per client, versions never going down; the versions named
+    all promoted."""
+    import numpy as np
+    import torch
+    from fedml_tpu_torch.experiments.models import (create_workload,
+                                                    sample_shape_of)
+    from fedml_tpu_torch.serve.batcher import SHED_REASONS
+    from fedml_tpu_torch.serve.registry import module_apply
+    data, cfg = fed.data, fed.cfg
+    apply_fn = module_apply(create_workload(
+        cfg.model, cfg.dataset, data.class_num,
+        sample_shape_of(data)).model)
+    promoted = {v["version"] for v in fed.serving.release.verdicts
+                if v.get("decision") == "promote"}
+    by_version, statuses, lat = {}, {}, []
+    for t, answers in enumerate(traffic.answers):
+        last = -1
+        for i, status, version, y, reason, dt in answers:
+            key = "200" if status == 200 else f"{status} {reason}"
+            statuses[key] = statuses.get(key, 0) + 1
+            if status != 200:
+                if not ((status == 429 and reason in SHED_REASONS
+                         and reason != "no_model")
+                        or (status == 503 and reason == "no_model")):
+                    fail(f"{label}: client {t} got {key} for row {i}")
+                continue
+            lat.append(dt)
+            if version < last:
+                fail(f"{label}: client {t} saw version {version} after "
+                     f"{last}")
+            if version not in promoted:
+                fail(f"{label}: an answer from version {version}, never "
+                     f"promoted ({sorted(promoted)})")
+            last = version
+            by_version.setdefault(version, []).append((i, y))
+    if not lat:
+        fail(f"{label}: no request was answered ({statuses})")
+    worst = 0.0
+    for version, got in by_version.items():
+        params = {k: torch.as_tensor(v)
+                  for k, v in fed.published[version].items()}
+        with torch.no_grad():
+            ref = apply_fn(params, torch.as_tensor(
+                rows[[i for i, _ in got]])).numpy()
+        y = np.asarray([g for _, g in got], np.float32)
+        err = np.abs(y - ref).max(axis=1) / np.abs(ref).max(axis=1)
+        worst = max(worst, float(err.max()))
+        if err.max() > SERVE_TOL:
+            fail(f"{label}: an answer of version {version} is "
+                 f"{err.max():.3g} x max|y| from the CPU forward")
+    lat_ms = sorted(1e3 * d for d in lat)
+    return {"answers": len(lat_ms), "statuses": statuses,
+            "versions_answered": sorted(by_version),
+            "max_rel_err_vs_cpu": worst,
+            "p50_ms": lat_ms[len(lat_ms) // 2],
+            "p99_ms": lat_ms[min(len(lat_ms) - 1,
+                                 int(0.99 * len(lat_ms)))]}
+
+
+def _flat_host(tree):
+    """A params tree (nested or flat, numpy or tensors) as a flat dict of
+    host copies."""
+    import numpy as np
+    from fedml_tpu_torch.core.pytree import flatten_nested
+    return {k: v.detach().cpu().numpy().copy() if hasattr(v, "detach")
+            else np.array(v) for k, v in flatten_nested(tree).items()}
+
+
+def serve_run(data, rounds: int, workers: int, label: str,
+              extra=()) -> dict:
+    """Phase 8q (a): one serve-while-train run on the card under client
+    traffic, its checks, and the same run on the CPU for the verdicts."""
+    import numpy as np
+    from fedml_tpu_torch.core import fused_agg
+    from fedml_tpu_torch.obs import telemetry
+    telemetry.enable()
+    try:
+        fed = serve_fed(data, rounds, workers, CARD, extra)
+        # 512 test rows: the first 8 of each of 64 clients
+        rows = np.asarray(data.test["x"])[:64, 0, :8].reshape(
+            -1, *data.test["x"].shape[3:])
+        fused_agg.reset_launch_counts()
+        try:
+            with ServeTraffic(fed.serving.port, rows) as traffic:
+                t0 = time.perf_counter()
+                live_drive(fed)
+                drive_s = time.perf_counter() - t0
+                time.sleep(0.2)      # a last poll of the final version
+        finally:
+            fed.serving.stop()
+        launches = fused_agg.launch_counts["shard_finalize"]
+        counters = telemetry.get_registry().snapshot()["counters"]
+    finally:
+        telemetry.disable()
+    if launches != 4 * rounds:
+        fail(f"{label}: shard_finalize launched {launches} times, need "
+             f"exactly {4 * rounds} (4 shards x {rounds} rounds)")
+    verdicts = fed.serving.release.verdicts
+    promoted = [v["version"] for v in verdicts
+                if v.get("decision") == "promote"]
+    if not promoted:
+        fail(f"{label}: no version was promoted")
+    out = serve_answers_check(traffic, fed, rows, label)
+    seen = [v for v in traffic.versions if v is not None]
+    if not seen or seen[-1] != promoted[-1] or seen != sorted(seen):
+        fail(f"{label}: /version read {seen[-5:]}, need it advancing to "
+             f"the last promoted version {promoted[-1]}")
+    cpu = serve_replay_cpu(data, rounds, workers, fed, extra)
+    if verdict_rows(verdicts) != verdict_rows(cpu):
+        fail(f"{label}: the card's verdicts {verdict_rows(verdicts)} "
+             f"differ from the CPU's {verdict_rows(cpu)}")
+    scores = [(v["signals"]["eval"]["score"], c["signals"]["eval"]["score"])
+              for v, c in zip(verdicts, cpu) if "signals" in v]
+    eval_diff = max(abs(a - b) for a, b in scores)
+    if eval_diff > SERVE_EVAL_TOL:
+        fail(f"{label}: held-out accuracy card vs CPU {scores}")
+    sheds = {k.split("{", 1)[1].rstrip("}"): v for k, v in counters.items()
+             if k.startswith("fedml_serve_shed_total") and v}
+    round_ms = [1e3 * dt for _, dt, _ in fed.closed]
+    out["answers_per_s"] = out["answers"] / drive_s
+    return {**out, "k2_launches": launches, "rounds": rounds,
+            "gate_offer_ms": fed.offer_ms,
+            "workers": workers, "extra_flags": list(extra),
+            "verdicts": verdict_rows(verdicts),
+            "decisions": [v["decision"] for v in verdicts],
+            "eval_card_vs_cpu": scores, "promoted": promoted,
+            "version_polls": len(seen), "sheds": sheds,
+            "round_ms": round_ms,
+            "steady_round_ms": statistics.median(round_ms[1:] or round_ms)}
+
+
+def serve_containment(device: str):
+    """Phase 8q (b): the cross-device engine on the JAX package's poisoned
+    fixture from JAX's init, every round offered to the gate with 64 test
+    rows as shadow traffic; the verdicts and the registry after the
+    run."""
+    import numpy as np
+    import torch
+    from fedml_tpu_torch.algorithms.cross_device import (CrossDevice,
+                                                         CrossDeviceConfig)
+    from fedml_tpu_torch.data import load_data
+    from fedml_tpu_torch.experiments.models import (create_workload,
+                                                    sample_shape_of)
+    from fedml_tpu_torch.serve import (ModelRegistry, ReleaseController,
+                                       ShadowSampler)
+    from fedml_tpu_torch.serve.registry import module_apply
+    data = load_data("mnist", batch_size=4, num_clients=24, seed=0)
+    wl = create_workload("lr", "mnist", data.class_num,
+                         sample_shape_of(data))
+    reg = ModelRegistry(module_apply(wl.model), history=8, device=device)
+    shadow = ShadowSampler(every=1, slots=CONTAIN_SHADOW)
+    xt = np.asarray(data.test["x"])
+    for row in xt.reshape(-1, xt.shape[-1])[:CONTAIN_SHADOW]:
+        shadow.offer(row)
+    rc = ReleaseController(reg, shadow=shadow,
+                           divergence_budget=CONTAIN_BUDGET,
+                           cooldown_s=0.0, max_cooldown_s=0.0)
+    live = []
+
+    def publish(params, version):
+        rc.offer(params, version, round_idx=version - 1)
+        live.append(reg.version)
+
+    with np.load(CONTAIN_INIT) as f:
+        init = {k: torch.as_tensor(f[k]).to(device) for k in f.files}
+    CrossDevice(wl, data, CrossDeviceConfig(**CONTAIN), device=device,
+                publish=publish).run(params=init)
+    return rc.verdicts, reg, live
+
+
+def check_containment() -> dict:
+    card, reg, live = serve_containment(CARD)
+    cpu, _, _ = serve_containment("cpu")
+    if verdict_rows(card) != verdict_rows(cpu):
+        fail(f"containment: the card's verdicts {verdict_rows(card)} "
+             f"differ from the CPU's {verdict_rows(cpu)}")
+    got = {v: d for v, _, _, d in verdict_rows(card) if d is not None}
+    if got != CONTAIN_JAX_DIVERGENCE:
+        fail(f"containment: shadow divergences {got}, the JAX package's "
+             f"on the fixture are {CONTAIN_JAX_DIVERGENCE}")
+    poisoned = card[-1]
+    if poisoned["version"] != 4 or poisoned["decision"] != "rollback" \
+            or poisoned.get("failed_signals") != ["shadow"]:
+        fail(f"containment: version 4's verdict {verdict_rows(card)[-1]}")
+    if 4 in reg.versions() or 4 in live \
+            or any(v.get("live_version") == 4 for v in card):
+        fail("containment: the poisoned version 4 went live")
+    return {"verdicts": verdict_rows(card), "live_after_each": live,
+            "live": reg.version}
+
+
+def decode_requests():
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [([int(t) for t in rng.randint(1, DECODE_LM["vocab_size"],
+                                          DECODE_PROMPT)],
+             DECODE_LONG if i % 4 == 0 else DECODE_SHORT)
+            for i in range(DECODE_REQUESTS)]
+
+
+def decode_run(model, params, continuous: bool, graph: bool,
+               record: bool, swap=None) -> dict:
+    """One scheduler over all ``decode_requests()`` (queued before the
+    worker starts, so the admission order is fixed): results, the step
+    times, and with ``record`` each live slot's logits a step; ``swap``
+    publishes version 1 right after step ``DECODE_SWAP_AT``."""
+    import torch
+    from fedml_tpu_torch.serve import DecodeScheduler, ModelRegistry
+    reg = ModelRegistry(lambda p, x: x, history=4, device=CARD)
+    reg.publish(params, 0)
+    sched = DecodeScheduler(reg, model, slots=DECODE_SLOTS,
+                            cache_len=DECODE_CACHE, max_new=DECODE_LONG,
+                            continuous=continuous, graph=graph)
+    if not sched.warmup():
+        fail("decode: warmup found no model")
+    reqs = decode_requests()
+    futs = [sched.submit(p, max_new=m) for p, m in reqs]
+    index = {id(f): k for k, f in enumerate(futs)}
+    real, times, rec = sched._step_fn, [], []
+
+    def step(tokens, positions):
+        t0 = time.perf_counter()
+        out = real(tokens, positions)
+        times.append(time.perf_counter() - t0)
+        if record:
+            live = [i for i, s in enumerate(sched._slots) if s is not None]
+            logits = sched._step.logits[live].cpu()
+            for j, i in enumerate(live):
+                rec.append((index[id(sched._slots[i].req.future)],
+                            int(positions[i]), logits[j]))
+        if swap is not None and len(times) == DECODE_SWAP_AT:
+            reg.publish(swap, 1)
+        return out
+
+    sched._step_fn = step
+    t0 = time.perf_counter()
+    sched.start()
+    results = [f.result(600) for f in futs]
+    wall = time.perf_counter() - t0
+    sched.stop()
+    torch.cuda.synchronize()
+    tokens = sum(len(r.tokens) for r in results)
+    return {"results": results, "rec": rec, "captures": sched._cache_size(),
+            "steps": sched.steps, "occupancy": sched.occupancy(),
+            "step_ms": 1e3 * statistics.median(times),
+            "tokens_per_s": tokens / wall, "wall_s": wall,
+            "tokens": tokens}
+
+
+def decode_reference(model, versions, run) -> dict:
+    """Every recorded step's logits against the dense full forward on the
+    card under the version its request names, for the same prefix; the
+    tokens against greedy decoding by that forward (a mismatch allowed,
+    and listed, only where its top-2 gap is under the limit)."""
+    import torch
+    from fedml_tpu_torch.trainer.workload import apply_model
+    reqs = decode_requests()
+    by_req = {}
+    for k, pos, logits in run["rec"]:
+        by_req.setdefault(k, {})[pos] = logits
+    worst, near_ties = 0.0, []
+    for k, (prompt, _) in enumerate(reqs):
+        r = run["results"][k]
+        seq = prompt + r.tokens[:-1]
+        with torch.no_grad():
+            full = apply_model(model, versions[r.version], torch.tensor(
+                [seq], device=CARD))[0].cpu()
+        rows = by_req.get(k, {})
+        if sorted(rows) != list(range(len(seq))):
+            fail(f"decode: request {k} stepped positions {sorted(rows)}")
+        for pos, logits in rows.items():
+            ref = full[pos]
+            scale = float(ref.abs().max())
+            err = float((logits - ref).abs().max()) / scale
+            worst = max(worst, err)
+            if err > DECODE_TOL:
+                fail(f"decode: request {k} position {pos} is {err:.3g} x "
+                     f"max|logit| from the full forward")
+        for j, tok in enumerate(r.tokens):
+            ref = full[len(prompt) - 1 + j]
+            want = int(torch.argmax(ref))
+            if tok != want:
+                top2 = torch.topk(ref, 2).values
+                gap = float(top2[0] - top2[1])
+                if gap >= DECODE_TOL * float(ref.abs().max()):
+                    fail(f"decode: request {k} token {j} is {tok}, the "
+                         f"full forward's greedy {want} (gap {gap:.3g})")
+                near_ties.append((k, j, tok, want, gap))
+    return {"max_rel_err_vs_full": worst, "near_ties": near_ties}
+
+
+def check_decode() -> dict:
+    """Phase 8q (c): continuous-batching decode at the long-context
+    width, graphed, against the full forward, the eager step and the
+    drain baseline."""
+    import torch
+    from fedml_tpu_torch.models import TransformerLM
+    from fedml_tpu_torch.trainer.workload import NWPWorkload
+    model = TransformerLM(**DECODE_LM)
+    wl = NWPWorkload(model)
+    versions = {v: wl.init(torch.Generator().manual_seed(v), CARD)
+                for v in (0, 1)}
+    torch.cuda.reset_peak_memory_stats()
+    with tf32_off():
+        graphed = decode_run(model, versions[0], True, True, True,
+                             swap=versions[1])
+        if graphed["captures"] != 1:
+            fail(f"decode: {graphed['captures']} captures, need exactly 1 "
+                 f"across the hot swap")
+        got = sorted({r.version for r in graphed["results"]})
+        if got != [0, 1]:
+            fail(f"decode: the hot swap left results of versions {got}")
+        ref = decode_reference(model, versions, graphed)
+        eager = decode_run(model, versions[0], True, False, True,
+                           swap=versions[1])
+        same = (len(eager["rec"]) == len(graphed["rec"]) and all(
+            a[:2] == b[:2] and torch.equal(a[2], b[2])
+            for a, b in zip(graphed["rec"], eager["rec"])))
+        if not same:
+            fail("decode: the graphed step's logits are not bit-equal to "
+                 "the eager step's")
+        cont = decode_run(model, versions[0], True, True, False)
+        drain = decode_run(model, versions[0], False, True, False)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if [r.tokens for r in cont["results"]] \
+            != [r.tokens for r in drain["results"]]:
+        fail("decode: drain mode decoded other tokens than continuous")
+    for label, r in (("continuous", cont), ("drain", drain)):
+        print(f"decode {label}: {r['steps']} steps, occupancy "
+              f"{r['occupancy']:.3f}, {r['tokens_per_s']:.1f} tokens/s",
+              flush=True)
+    return {**ref, "captures": graphed["captures"],
+            "swap_versions": [0, 1], "graph_bit_equal_eager": same,
+            "step_ms": {"graph": cont["step_ms"],
+                        "eager": eager["step_ms"]},
+            "tokens_per_s": {"continuous": cont["tokens_per_s"],
+                             "drain": drain["tokens_per_s"]},
+            "occupancy": {"continuous": cont["occupancy"],
+                          "drain": drain["occupancy"]},
+            "steps": {"continuous": cont["steps"], "drain": drain["steps"]},
+            "tokens": cont["tokens"], "peak_gb": peak_gb}
+
+
+def check_serving(data) -> dict:
+    """Phase 8q: serve-while-train (the frontend, then the pool) behind
+    the release gate with K2 on the path, the poisoned round contained,
+    continuous-batching decode."""
+    t_phase = time.perf_counter()
+    out = {}
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    with tf32_off():
+        off = live_fed(live_cfg(SILO_ARGS, SERVE_ROUNDS), data)
+        live_drive(off)
+        off_ms = [1e3 * dt for _, dt, _ in off.closed]
+        out["frontend"] = serve_run(data, SERVE_ROUNDS, 1, "serve")
+        out["pool"] = serve_run(data, SERVE_POOL_ROUNDS, SERVE_POOL_WORKERS,
+                                "serve pool", SERVE_POOL_ARGS)
+        out["serving_off_round_ms"] = off_ms
+        out["serving_off_steady_round_ms"] = statistics.median(
+            off_ms[1:] or off_ms)
+        out["containment"] = check_containment()
+    out["decode"] = check_decode()
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("serving", **out)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return out
+
+
+# serving's extra round time, split (``--serve-split``): rounds an arm,
+# the first a warm-up
+SPLIT_ROUNDS = 4
+
+
+class HostForward:
+    """A registry as a batcher sees it, each snapshot's forward a host
+    stub of zeros: the requests' whole path (HTTP, JSON, the queue, the
+    batcher) without their device work."""
+
+    def __init__(self, registry, classes: int):
+        self._registry, self._classes = registry, classes
+
+    def current(self):
+        import types
+        import numpy as np
+        m = self._registry.current()
+        if m is None:
+            return None
+        return types.SimpleNamespace(
+            version=m.version, predict=lambda rows: np.zeros(
+                (len(rows), self._classes), np.float32))
+
+    def __getattr__(self, name):
+        return getattr(self._registry, name)
+
+
+def split_arm(data, arm: str, profiled: bool) -> dict:
+    """One arm of the spine's ``SPLIT_ROUNDS`` rounds with the perf
+    ledger on: ``off`` (no serving), ``idle`` (the gated frontend, no
+    traffic), ``host`` (client traffic, the forward a host stub),
+    ``full`` (client traffic, the real forward).  Unprofiled: the rounds'
+    ms, the gate's offers, the ledger's phases and critical path, the
+    answers; profiled (torch.profiler): the device's busy ms a round."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ledger = SERVE_DIR / f"split_{arm}_{int(profiled)}.jsonl"
+    perf = ["--perf", "true", "--perf_ledger", str(ledger)]
+    if arm == "off":
+        fed = live_fed(live_cfg([*SILO_ARGS, *perf], SPLIT_ROUNDS), data)
+    else:
+        fed = serve_fed(data, SPLIT_ROUNDS, 1, CARD, perf)
+        if arm == "host":
+            batcher = fed.serving._warm.__self__
+            batcher.registry = HostForward(batcher.registry, data.class_num)
+    rows = np.asarray(data.test["x"])[:64, 0, :8].reshape(
+        -1, *data.test["x"].shape[3:])
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                   ) if profiled else contextlib.nullcontext()
+    traffic = (ServeTraffic(fed.serving.port, rows) if arm in ("host", "full")
+               else contextlib.nullcontext())
+    try:
+        with traffic, prof:
+            t0 = time.perf_counter()
+            live_drive(fed)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        if fed.serving is not None:
+            fed.serving.stop()
+        fed.perf.close()
+    round_ms = [1e3 * dt for _, dt, _ in fed.closed]
+    out = {"round_ms": round_ms,
+           "steady_round_ms": statistics.median(round_ms[1:])}
+    if profiled:
+        busy_us = sum(_self_device_us(e) for e in prof.key_averages())
+        out["device_busy_ms_per_round"] = busy_us / 1e3 / SPLIT_ROUNDS
+        out["device_idle_share"] = 1 - busy_us / (wall_s * 1e6)
+        return out
+    lines = [json.loads(line) for line in ledger.read_text().splitlines()]
+    steady = [x for x in lines if x.get("round", 0) >= 1]
+    phases = {}
+    for x in steady:
+        for k, v in x["phases"].items():
+            phases.setdefault(k, []).append(1e3 * v)
+    out["phase_ms"] = {k: statistics.median(v) for k, v in phases.items()}
+    cpath = {}
+    for x in steady:
+        for k, v in x["critical_path"]["attribution"].items():
+            cpath.setdefault(k, []).append(1e3 * v)
+    out["critical_path_ms"] = {k: statistics.median(v)
+                               for k, v in cpath.items()}
+    if arm != "off":
+        out["gate_offer_ms"] = fed.offer_ms
+    if arm in ("host", "full"):
+        statuses = {}
+        for answers in traffic.answers:
+            for _, status, _, _, reason, _ in answers:
+                key = "200" if status == 200 else f"{status} {reason}"
+                statuses[key] = statuses.get(key, 0) + 1
+        out["statuses"] = statuses
+        out["answers_per_round"] = statuses.get("200", 0) / SPLIT_ROUNDS
+    return out
+
+
+def serve_split(data) -> dict:
+    """Where serving's extra round time goes: the four arms of
+    `split_arm`, each unprofiled then profiled, TF32 off.  ``idle`` -
+    ``off`` is the gate and the serving machinery, ``host`` - ``idle``
+    the requests' host path, ``full`` - ``host`` their device work (the
+    predicts on the training's stream and their synchronisations)."""
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    arms = ("off", "idle", "host", "full")
+    out = {}
+    with tf32_off():
+        for arm in arms:
+            out[arm] = split_arm(data, arm, False)
+        for arm in arms:
+            out[arm]["profiled"] = split_arm(data, arm, True)
+    ms = {arm: out[arm]["steady_round_ms"] for arm in arms}
+    out["split_ms"] = {"gate_and_machinery": ms["idle"] - ms["off"],
+                       "requests_host": ms["host"] - ms["idle"],
+                       "requests_device": ms["full"] - ms["host"]}
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return out
+
+
+def serve_split_main() -> None:
+    """``python3 chip_smoke.py --serve-split``: the K2 library built, the
+    live slice's data, `serve_split`, one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this check needs a GPU")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import load_experiment_data
+    from fedml_tpu_torch.utils import cuda_build
+    print(nvidia_smi(), flush=True)
+    cuda_build.build(["shard_finalize"])
+    data = load_experiment_data(config_from_argv(SILO_ARGS))
+    phase("serve split", **serve_split(data))
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "fedml_tpu_torch" / "csrc").is_dir():
@@ -6397,6 +7191,7 @@ def main() -> None:
     lm_cli = run_lm_cli()
     mixed = check_mixed_precision(data, data_lm, root, sm_hz,
                                   lm_row["steady_round_ms"])
+    serving = check_serving(data)
 
     # one round of the defended slice: the norm pass and one aggregate
     # launch over the CNN's leaves
@@ -6477,6 +7272,9 @@ def main() -> None:
         "launches_observability": {
             k: observability[k]["k2_launches"]
             for k in ("inline", "ingest", "adaptive")},
+        # phase 8q: serve-while-train behind the release gate
+        "launches_serve_while_train": {
+            k: serving[k]["k2_launches"] for k in ("frontend", "pool")},
         "max_abs_err": k2_worst,
         "ms": sum(r["ms"] for r in shards),
         "plain_ms": sum(r["plain_ms"] for r in shards),
@@ -6631,6 +7429,18 @@ def main() -> None:
               k: v["vs_cpu_max_abs_diff"]
               for k, v in mixed["images"].items()},
           mixed_precision_seconds=mixed["seconds"],
+          serve_p50_ms={k: serving[k]["p50_ms"]
+                        for k in ("frontend", "pool")},
+          serve_p99_ms={k: serving[k]["p99_ms"]
+                        for k in ("frontend", "pool")},
+          serve_steady_round_ms={
+              "on": serving["frontend"]["steady_round_ms"],
+              "off": serving["serving_off_steady_round_ms"]},
+          containment_verdicts=serving["containment"]["verdicts"],
+          decode_step_ms=serving["decode"]["step_ms"],
+          decode_tokens_per_s=serving["decode"]["tokens_per_s"],
+          decode_occupancy=serving["decode"]["occupancy"],
+          serving_seconds=serving["seconds"],
           device_round_vs_cpu_max_abs_diff=device_round_cpu_diff,
           fedavg_round_ms={k: v["round_ms"] for k, v in paths.items()},
           fedavg_rounds_per_s={k: v["rounds_per_s"]
@@ -6643,4 +7453,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--serve-split"]:
+        serve_split_main()
+    else:
+        main()

@@ -46,9 +46,10 @@ round (the ``wave`` phase, each completed wave an arrival on the critical
 path, the wave program registered as ``wave_train``), ``health`` sketches
 each admitted wave summary, ``slo`` evaluates once a round and
 ``controller`` paces the next round's cohort from the health line (the
-sampler draws from the whole population; waves stay static-width).  The
-JAX engine's other seams are refused by name: the mesh (ROADMAP Queue 1
-item 10, second part) and ``publish`` (item 11).
+sampler draws from the whole population; waves stay static-width);
+``publish(params, version)`` hands each round's finalized global (the
+engine's flat device dict) to serving, version ``round_idx + 1``.  The
+mesh is refused by name (ROADMAP Queue 1 item 10, second part).
 """
 
 from __future__ import annotations
@@ -92,13 +93,6 @@ SAMPLERS = ("numpy", "jax")
 SAMPLER_SALT = 0x5A4D50        # the jax sampler's key: fold_in(key(seed), .)
 AUTO_WAVE_MAX = 256            # wave_size 0: min(cohort, this)
 
-# the JAX engine's seams the port does not have yet: constructor argument
-# -> what brings it
-REFUSED_SEAMS = {
-    "publish": "serve/ (ROADMAP Queue 1 item 11)",
-}
-
-
 @dataclasses.dataclass
 class CrossDeviceConfig(FedAvgConfig):
     wave_size: int = 0            # 0 = auto: min(cohort, 256)
@@ -125,11 +119,6 @@ class CrossDevice(FedAvg):
                  perf=None, health=None, slo=None, publish=None,
                  controller=None, degrade=None, ingest=None):
         cfg = config
-        for name, value in dict(publish=publish).items():
-            if value:
-                raise NotImplementedError(
-                    f"cross_device's {name} seam is not ported yet; it "
-                    f"needs {REFUSED_SEAMS[name]}")
         if mesh is not None:
             raise NotImplementedError(MESH_REFUSAL)
         if cfg.local_alg not in LOCAL_ALGS:
@@ -172,6 +161,10 @@ class CrossDevice(FedAvg):
         super().__init__(workload, data, config, sink=sink, device=device)
         self.server_opt = server_opt
         self.degrade = degrade
+        # the train-to-serve seam: each round's finalized global as
+        # ``publish(params, version)``, version = round_idx + 1 so a
+        # pre-published baseline can hold version 0
+        self.publish = publish
         self.perf = perf
         self.health = health
         self.slo = slo
@@ -475,6 +468,8 @@ class CrossDevice(FedAvg):
             params, info = self._run_round(
                 params, ids, prng.key_words_int32(round_key), round_idx)
             synchronize(self.device)
+            if self.publish is not None:
+                self.publish(params, round_idx + 1)
             decision = None
             if self.controller is not None:
                 # the pacing verdict for the NEXT round, from this round's

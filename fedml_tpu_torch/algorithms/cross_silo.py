@@ -172,22 +172,6 @@ class FailureDetector:
 # (new_params, num_samples), params as the port's flat dicts
 SiloTrainFn = Callable[[object, int, int], tuple]
 
-# JAX actor options this port does not run yet, with where they arrive
-_REFUSED = {
-    "publish": "serve-while-train (serve/, ROADMAP Queue 1 item 11)",
-}
-
-
-def refuse_unported(**options) -> None:
-    """Raise, naming the option and its ROADMAP item, for any JAX actor
-    option that is set."""
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"FedAvgServerActor({name}=...) is not ported yet: it needs "
-                f"{_REFUSED[name]}")
-
-
 class FedAvgServerActor(ServerManager):
     """Rank-0 aggregator actor.
 
@@ -253,6 +237,13 @@ class FedAvgServerActor(ServerManager):
     shard's fold worker runs decode → screen → fold under the actor's
     ingest lock (exclusive with ``faultline``: `ActorKilled` cannot
     escape a worker thread).
+
+    ``publish``: the serve-while-train hook, ``publish(host_params,
+    round_idx)`` with the global in the wire layout (nested numpy) after
+    every closed round (after its checkpoint and journal end) and once
+    on a resume, so a `serve.registry.ModelRegistry` (or the release
+    gate's ``offer``) serves the federation's own global while rounds
+    keep running.
     """
 
     def __init__(self, transport: Transport, init_params,
@@ -268,7 +259,6 @@ class FedAvgServerActor(ServerManager):
                  faultline=None, *, secagg=None, ingest=None, health=None,
                  perf=None, server_opt=None, controller=None, degrade=None,
                  decode_upload=None, publish=None):
-        refuse_unported(publish=publish)
         super().__init__(0, transport)
         if straggler_policy not in ("wait", "drop", "abort"):
             raise ValueError(f"unknown straggler_policy {straggler_policy!r}")
@@ -344,6 +334,7 @@ class FedAvgServerActor(ServerManager):
         self.num_rounds = num_rounds
         self.round_idx = 0
         self.on_round_done = on_round_done
+        self.publish = publish
         self.straggler_policy = straggler_policy
         self.round_timeout_s = round_timeout_s
         self.min_silo_frac = min_silo_frac
@@ -452,6 +443,8 @@ class FedAvgServerActor(ServerManager):
         self._last_accepted = (np.flatnonzero(mask) + 1).astype(np.int32)
         if self.extra_state is not None and "extra" in state:
             self.extra_state[1](state["extra"])
+        if self.publish is not None:
+            self.publish(self._host_params(), self.round_idx - 1)
         log.info("resumed from checkpoint: continuing at round %d of %d",
                  self.round_idx, self.num_rounds)
 
@@ -1522,6 +1515,11 @@ class FedAvgServerActor(ServerManager):
                 self.journal.round_end(self.round_idx)
         if self.faultline is not None:
             self.faultline.maybe_crash("publish", round_idx=self.round_idx)
+        if self.publish is not None:
+            # serve-while-train: a HOST copy, so serving never holds a
+            # buffer the next round's aggregation overwrites
+            with self._perf_phase("publish"):
+                self.publish(self._host_params(), self.round_idx)
         if self.perf is not None:
             # the ledger line closes BEFORE the eval hook: round_s is the
             # server's own round cost.  A strict-mode RecompileError

@@ -137,8 +137,37 @@ class ExperimentConfig:
     staleness_exponent: float = 0.5      # (1+s)^-alpha discount
     async_server_lr: float = 1.0         # server step on the mean
     # options of the JAX package that are refused by name
-    serve_port: int = 0
     mesh_stages: int = 0
+    # serving (serve/: registry + batcher + HTTP frontend), cross_silo
+    serve_port: int = 0                  # >0: serve the global over HTTP
+    #                                      while training (/predict,
+    #                                      /healthz, /version, /metrics)
+    serve_buckets: str = "1,2,4,8,16,32"  # micro-batch shape buckets
+    serve_deadline_ms: float = 50.0      # default per-request deadline:
+    #                                      a request that waits it out in
+    #                                      the queue is shed (429)
+    serve_queue_depth: int = 256         # submits past this many queued
+    #                                      requests get 429
+    serve_batch_delay_ms: float = 2.0    # how long the oldest queued
+    #                                      request waits for batchmates
+    serve_workers: int = 1               # >1: the SO_REUSEPORT pool
+    serve_best_effort_headroom: float = 0.5  # queue fraction best_effort
+    #                                      may fill (interactive keeps the
+    #                                      rest)
+    # the release gate (serve/release.py): canary -> promote or roll back
+    release_gate: bool = False           # gate every published global on
+    #                                      shadow divergence, health alarms
+    #                                      and held-out eval (needs
+    #                                      --serve_port)
+    release_shadow_every: int = 16       # capture every Nth admitted
+    #                                      /predict instance
+    release_shadow_slots: int = 64       # shadow ring size (newest N)
+    release_divergence_budget: float = 0.1  # max shadow disagreement
+    release_eval_tolerance: float = 0.02  # eval regression allowed
+    release_cooldown_s: float = 5.0      # refuse canaries this long after
+    #                                      a rollback...
+    release_backoff: float = 2.0         # ...growing per failure...
+    release_max_cooldown_s: float = 60.0  # ...capped here
     # the health-driven adaptive round controller (server_opt/
     # controller.py): steers the cohort from the health observatory's
     # drift alarms, every decision named on the perf-ledger line.

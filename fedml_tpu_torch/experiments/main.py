@@ -947,6 +947,118 @@ def grpc_transport(cfg: ExperimentConfig, n_silos: int, degrade=None):
     return transport
 
 
+class ServeWhileTrain:
+    """The serve-while-train block of a live run's server node (JAX
+    ``main.py``'s ``--serve_port`` block): a `ModelRegistry` on the run's
+    device behind a `ServeFrontend` (or, with ``--serve_workers`` > 1, a
+    `ServeWorkerPool`), and ``publish(params, version)`` for the actor's
+    hook — through the `ReleaseController` with ``--release_gate`` (a
+    `ShadowSampler` tapping every worker's admitted traffic, the health
+    observatory, the held-out eval), straight into the registry without.
+    The first live model warms every bucket on a thread off the round
+    path.  ``stop()`` drains the frontend.  The forward runs on a model
+    module of its own (`serve.registry.module_apply`): the request
+    threads must not swap parameters into the training workload's.  The
+    gate scores a candidate's test accuracy with the federation's
+    ``eval_cohort`` on the round path, as the JAX package's
+    ``_release_eval_fn`` does."""
+
+    def __init__(self, cfg, data, device, eval_cohort, slo=None,
+                 health=None):
+        import os
+        from fedml_tpu_torch.serve import (MicroBatcher, ModelRegistry,
+                                           ReleaseController, ServeFrontend,
+                                           ServeWorkerPool, ShadowSampler)
+        from fedml_tpu_torch.serve.registry import module_apply
+        self.cfg = cfg
+        self.registry = ModelRegistry(
+            module_apply(_make_workload(cfg, data).model), device=device)
+        batcher_kw = dict(
+            buckets=tuple(int(b) for b in cfg.serve_buckets.split(",")),
+            max_delay_s=cfg.serve_batch_delay_ms / 1e3,
+            queue_depth=cfg.serve_queue_depth,
+            default_deadline_s=cfg.serve_deadline_ms / 1e3,
+            best_effort_headroom=cfg.serve_best_effort_headroom)
+        self.shadow = None
+        if cfg.release_gate:
+            # one sampler on every worker's batcher: the gate replays
+            # real admitted traffic
+            self.shadow = ShadowSampler(every=cfg.release_shadow_every,
+                                        slots=cfg.release_shadow_slots)
+            batcher_kw["shadow"] = self.shadow
+        if cfg.serve_workers > 1:
+            self.frontend = ServeWorkerPool(
+                self.registry, port=cfg.serve_port,
+                workers=cfg.serve_workers, slo=slo, health=health,
+                **batcher_kw).start()
+            self._warm = self.frontend.warmup
+        else:
+            batcher = MicroBatcher(self.registry, slo=slo, **batcher_kw)
+            self.frontend = ServeFrontend(
+                self.registry, batcher, port=cfg.serve_port, slo=slo,
+                health=health).start()
+            self._warm = batcher.warmup
+        self.release = None
+        if cfg.release_gate:
+            self.release = ReleaseController(
+                self.registry, shadow=self.shadow, health=health,
+                eval_fn=self._scorer(eval_cohort, data, device),
+                divergence_budget=cfg.release_divergence_budget,
+                eval_tolerance=cfg.release_eval_tolerance,
+                cooldown_s=cfg.release_cooldown_s,
+                backoff=cfg.release_backoff,
+                max_cooldown_s=cfg.release_max_cooldown_s,
+                journal_path=os.path.join(
+                    cfg.metrics_dir or cfg.run_dir or ".", "release.jsonl"))
+        self._sample_x = np.asarray(data.train["x"][0, 0, 0])
+        self.warmer = None
+
+    @staticmethod
+    def _scorer(eval_cohort, data, device):
+        """Test accuracy of a candidate (higher is better), the test
+        split put on ``device`` once; None without a test split (the eval
+        signal then passes vacuously and says so)."""
+        if data.test is None:
+            return None
+        from fedml_tpu_torch.core.pytree import flatten_nested
+        from fedml_tpu_torch.data.stacking import to_device
+        from fedml_tpu_torch.utils.metrics import stats_from_metrics
+        test = to_device(data.test, device)
+
+        def score(params):
+            flat = {k: torch.as_tensor(v).to(device)
+                    for k, v in flatten_nested(params).items()}
+            return stats_from_metrics(eval_cohort(flat, test))["acc"]
+
+        return score
+
+    @property
+    def port(self) -> int:
+        return self.frontend.port
+
+    def publish(self, params, version: int) -> None:
+        if self.release is not None:
+            # canary -> shadow/health/eval verdict -> promote or roll
+            # back; the cross-silo hook's version IS the producing round
+            self.release.offer(params, version, round_idx=version)
+        else:
+            self.registry.publish(params, version)
+        if self.registry.current() is None or self.warmer is not None:
+            return   # nothing live yet, or already warming
+        import threading
+        self.warmer = threading.Thread(
+            target=self._warm, args=(self._sample_x,), daemon=True,
+            name="serve-warmup")
+        self.warmer.start()
+
+    def stop(self) -> None:
+        """Drain: queued requests still answer, then the listener
+        closes."""
+        if self.warmer is not None:
+            self.warmer.join(timeout=60)
+        self.frontend.stop(drain=True)
+
+
 class CrossSiloFederation:
     """Distributed FedAvg over the actor/transport layer.
 
@@ -1101,6 +1213,13 @@ class CrossSiloFederation:
         self.round_times: list = []
         self._t0 = time.perf_counter()
         timeout = cfg.round_timeout_s or None
+        # serve-while-train: only the server node holds the global
+        self.serving = None
+        if cfg.serve_port > 0 and (cfg.silo_backend == "local"
+                                   or cfg.node_id == 0):
+            self.serving = ServeWhileTrain(cfg, data, self.device,
+                                           self._eval_cohort, slo=self.slo,
+                                           health=health)
 
         def make_server(transport):
             return FedAvgServerActor(
@@ -1118,7 +1237,9 @@ class CrossSiloFederation:
                 degrade=self.degrade, ingest=self.ingest,
                 decode_upload=(self.codec.decode if self.codec is not None
                                else None),
-                perf=perf, health=health, controller=controller)
+                perf=perf, health=health, controller=controller,
+                publish=(self.serving.publish if self.serving is not None
+                         else None))
 
         def make_silo(node_id, transport, g, server_id=0, heartbeat=None):
             codec = self.codec
@@ -1317,6 +1438,9 @@ class CrossSiloFederation:
                 self.checkpointer.close()
             if self.perf is not None:
                 self.perf.close()   # join the RSS sampler thread
+            if self.serving is not None:
+                # drain on shutdown: training's end never drops traffic
+                self.serving.stop()
         if server.round_idx < self.cfg.comm_round and not server.aborted:
             raise RuntimeError(f"the federation stalled at round "
                                f"{server.round_idx} of {self.cfg.comm_round}")
@@ -1498,7 +1622,6 @@ def run_hierarchical(cfg, data, sink):
 # flags of the JAX package the port refuses, with what they need:
 # (default, the ROADMAP item that brings it)
 REFUSED_FLAGS = {
-    "serve_port": (0, "serve/ (ROADMAP Queue 1 item 11)"),
     "mesh_stages": (0, "parallel/pipeline.py, with the parallelism slice "
                        "(ROADMAP Queue 1, item 10's second part)"),
 }
@@ -1610,6 +1733,7 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
     if cfg.journal_snapshot_every < 1:
         raise ValueError(f"--journal_snapshot_every must be >= 1, got "
                          f"{cfg.journal_snapshot_every}")
+    check_serve(cfg)
     from fedml_tpu_torch.robust.defense import ROBUST_AGG_METHODS
     if cfg.robust_agg not in ROBUST_AGG_METHODS:
         raise ValueError(f"--robust_agg must be one of {ROBUST_AGG_METHODS}, "
@@ -1685,6 +1809,44 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
                 "--model_shards deploys over the local hub only for "
                 "now (the actors are transport-agnostic; gRPC wiring "
                 "mirrors the flat one)")
+
+
+def check_serve(cfg: ExperimentConfig) -> None:
+    """The JAX package's gates on the serve and release flags: a flag
+    that would parse and then serve or gate nothing fails."""
+    if cfg.serve_port > 0 and cfg.algo != "cross_silo":
+        raise ValueError(
+            "--serve_port starts the serve-while-train frontend, which is "
+            f"wired into --algo cross_silo only; --algo {cfg.algo} would "
+            "silently train without serving.  To serve a finished "
+            "checkpoint directory, use serve.registry.CheckpointWatcher "
+            "instead.")
+    if cfg.serve_workers < 1:
+        raise ValueError(f"--serve_workers must be >= 1, got "
+                         f"{cfg.serve_workers}")
+    if cfg.serve_workers > 1 and cfg.serve_port <= 0:
+        raise ValueError(
+            "--serve_workers scales the HTTP frontend and needs "
+            "--serve_port; without one there is no frontend to scale "
+            "and the flag would silently do nothing.")
+    if not 0.0 < cfg.serve_best_effort_headroom <= 1.0:
+        raise ValueError(
+            f"--serve_best_effort_headroom must be in (0, 1], got "
+            f"{cfg.serve_best_effort_headroom}")
+    # the release gate gates the serve-while-train publish hook: without
+    # a frontend the flag would train ungated under a canary label
+    if cfg.release_gate and cfg.serve_port <= 0:
+        raise ValueError(
+            "--release_gate gates the serve-while-train publish hook "
+            "(canary → shadow/health/eval verdict) and needs "
+            "--serve_port; without a frontend there is no serving swap "
+            "to gate and the flag would silently do nothing.")
+    if cfg.release_gate and (cfg.release_shadow_every < 1
+                             or cfg.release_shadow_slots < 1):
+        raise ValueError(
+            f"--release_shadow_every and --release_shadow_slots must be "
+            f">= 1, got {cfg.release_shadow_every} and "
+            f"{cfg.release_shadow_slots}")
 
 
 def check_ingest(cfg: ExperimentConfig) -> None:

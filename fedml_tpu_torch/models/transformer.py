@@ -26,13 +26,26 @@ f32.
 Attention takes the JAX module's branches in its order: the flash kernel
 (``use_flash``, K4 in ``models/flash_attention.py``), then ``block_size``,
 then blockwise above ``auto_block_len`` (``_auto_block``), then dense.
-Incremental decode (``cache=``) and sequence parallelism (``ring_axis``)
-are refused by name until their slices.
+Sequence parallelism (``ring_axis``) is refused by name until its slice.
+
+Incremental decode (the serving step, `serve/decode.py`): with ``cache``
+(from `init_decode_cache`, JAX's layout ``{"attn_i": {"k", "v"}}``, each
+``[slots, cache_len, H, d]``) and per-slot ``positions``, the input is
+one token per slot and the call returns ``(logits [B, V], cache)``.  Each
+layer writes its k and v at the slot's position and attends the single
+query against the whole cache with the JAX module's math: f32 scores,
+the ``kv_idx <= position`` mask at -1e30 (a reused slot never reads its
+previous occupant's rows), an f32 softmax, einsums rather than SDPA
+(XLA's einsums in the JAX package, no Pallas).  The write lands IN PLACE
+in the given cache tensors, which come back as the same dict: a
+CUDA-graph capture of the step replays over static buffers.  ``positions``
+must lie in ``[0, cache_len)``.
 ``dropout_rate`` drops after each attention and MLP in train mode (a
 ``dropout_key``, the workload's dropout seam; not flax's masks)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -45,11 +58,6 @@ from fedml_tpu_torch.models.layers import (Dense, DenseGeneral, Embed,
 from fedml_tpu_torch.models.moe import SwitchFFN
 from fedml_tpu_torch.parallel.ring_attention import (blockwise_attention,
                                                      full_attention)
-
-_DECODE_TODO = ("incremental decode (cache=, init_decode_cache) is not "
-                "ported yet; it arrives with serving, serve/decode.py "
-                "(ROADMAP Queue 1 item 11)")
-
 
 def _auto_block(t: int, threshold: int, max_block: int = 512,
                 min_block: int = 64) -> Optional[int]:
@@ -77,11 +85,13 @@ class CausalSelfAttention(nn.Module):
         self.value = DenseGeneral((d_model,), (n_heads, d_head), dtype)
         self.out = DenseGeneral((n_heads, d_head), (d_model,), dtype)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Optional[dict] = None) -> torch.Tensor:
         q, k, v = self.query(x), self.key(x), self.value(x)
         t = x.shape[1]
-        if self.use_flash:
+        if cache is not None:
+            out = _decode_attention(q, k, v, positions, cache)
+        elif self.use_flash:
             out = flash_attention(q, k, v)
         elif self.block_size is not None:
             out = blockwise_attention(q, k, v, positions, positions,
@@ -93,9 +103,40 @@ class CausalSelfAttention(nn.Module):
         return self.out(out.to(x.dtype))
 
 
-def init_decode_cache(*args, **kwargs):
-    """Refused: see ``_DECODE_TODO``."""
-    raise NotImplementedError(_DECODE_TODO)
+def _decode_attention(q, k, v, positions, cache):
+    """One query a slot (``q, k, v`` [B, 1, H, d]) against the slot's
+    cache rows up to its position, after writing this token's k and v at
+    that position (in place)."""
+    k_cache, v_cache = cache["k"], cache["v"]          # [B, Tc, H, d]
+    slots = torch.arange(k_cache.shape[0], device=k_cache.device)
+    k_cache[slots, positions] = k[:, 0].to(k_cache.dtype)
+    v_cache[slots, positions] = v[:, 0].to(v_cache.dtype)
+    tc = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k_cache.float()) * scale
+    mask = (torch.arange(tc, device=q.device)[None, None, None, :]
+            <= positions[:, None, None, None])
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v_cache.float())
+
+
+def init_decode_cache(model: "TransformerLM", slots: int, cache_len: int,
+                      dtype=torch.float32, device="cpu") -> dict:
+    """A fresh per-layer KV cache for incremental decode: one
+    ``{"attn_i": {"k", "v"}}`` entry per layer, each ``[slots, cache_len,
+    n_heads, d_head]`` of zeros (the ``kv_idx <= position`` mask never
+    reads a row the slot's own steps have not written)."""
+    if cache_len > model.max_len:
+        raise ValueError(
+            f"cache_len {cache_len} exceeds the model's max_len "
+            f"{model.max_len}: the positional embedding table has no row "
+            f"for those positions; shrink the cache or grow max_len")
+    shape = (slots, cache_len, model.n_heads, model.d_model // model.n_heads)
+    return {f"attn_{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for i in range(model.n_layers)}
 
 
 class TransformerLM(nn.Module):
@@ -115,6 +156,8 @@ class TransformerLM(nn.Module):
         self.moe_aux_weight = moe_aux_weight
         self.pad_id = pad_id
         self.n_layers = n_layers
+        self.n_heads = n_heads
+        self.d_model = d_model
         self.max_len = max_len
         self.dropout_rate = float(dropout_rate)
         # dropout after the attention and the MLP of every layer, in train
@@ -148,7 +191,7 @@ class TransformerLM(nn.Module):
                 dropout_key: Optional[torch.Tensor] = None,
                 moe_aux: bool = False):
         if cache is not None:
-            raise NotImplementedError(_DECODE_TODO)
+            return self._decode(input_seq, positions, ring_axis, cache)
         if ring_axis is not None:
             raise NotImplementedError(
                 "ring_axis (sequence-parallel ring attention) is not ported "
@@ -179,3 +222,33 @@ class TransformerLM(nn.Module):
             # Switch eq. 4: each layer's term sums into the loss
             return logits, sum(load_balance, 0.0)
         return logits
+
+    def _decode(self, input_seq, positions, ring_axis, cache):
+        """One token a slot (``input_seq`` [B], ``positions`` [B]) through
+        the per-layer caches; ``(logits [B, V], cache)``, the cache written
+        in place.  Dropout is off, as in the JAX module's decode."""
+        if positions is None:
+            raise ValueError(
+                "decode (cache=) needs per-slot positions: each slot sits "
+                "at its own sequence index")
+        if ring_axis is not None:
+            raise ValueError(
+                "decode (cache=) is single-chip attention over the kv "
+                "cache; ring_axis does not compose with it")
+        tokens = input_seq.reshape(-1)
+        x = (self.tok_embed(tokens) + self.pos_embed(positions))[:, None, :]
+        for i in range(self.n_layers):
+            h = getattr(self, f"LayerNorm_{2 * i}")(x)
+            x = x + getattr(self, f"attn_{i}")(h, positions,
+                                               cache=cache[f"attn_{i}"])
+            h = getattr(self, f"LayerNorm_{2 * i + 1}")(x)
+            if self.moe_experts:
+                h, _ = getattr(self, f"moe_{i}")(
+                    h, mask=tokens[:, None] != self.pad_id)
+            else:
+                h = F.gelu(getattr(self, f"Dense_{2 * i}")(h),
+                           approximate="tanh")
+                h = getattr(self, f"Dense_{2 * i + 1}")(h)
+            x = x + h
+        x = getattr(self, f"LayerNorm_{2 * self.n_layers}")(x)
+        return self.lm_head(x)[:, 0, :], cache

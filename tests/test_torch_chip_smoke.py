@@ -1090,3 +1090,147 @@ def test_mixed_precision_phase_on_the_cpu(monkeypatch, tmp_path):
     assert imgs["cnn bf16"]["compute_dtype"] == "bfloat16"
     assert imgs["cnn dropout"]["compute_dtype"] == "float32"
     assert all(r["all_leaves_f32"] for r in imgs.values())
+
+
+# ---------------------------------------------------------------------------
+# phase 8q: serving
+# ---------------------------------------------------------------------------
+
+def test_serving_phase_configs_parse_and_pass_the_gates():
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config
+    for extra in ((), cs.SERVE_POOL_ARGS):
+        cfg = config_from_argv([*cs.SERVE_ARGS, *extra, "--serve_port",
+                                "18000", "--serve_workers", "2"])
+        check_config(cfg)
+        assert cfg.release_gate and cfg.model_shards == 4
+        assert cfg.fused_finalize == "on" and cfg.comm_round == 3
+    assert [m for _, m in cs.decode_requests()].count(cs.DECODE_LONG) \
+        == cs.DECODE_REQUESTS // 4
+
+
+def test_serving_phase_on_the_cpu(tiny_phases, monkeypatch):
+    """Phase 8q end to end on CPU tensors at the tiny LR size (40 mnist
+    clients, 10 a round) with a narrow decode LM: the client process,
+    every check of (a) against the CPU replay, (b) and (c) (the eager
+    step stands in for the capture)."""
+    data, _ = tiny_phases
+    for name in ("reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(cs, "SERVE_ARGS", [*cs.SILO_ARGS, "--release_gate",
+                                           "true"])
+    monkeypatch.setattr(cs, "SERVE_ROUNDS", 2)
+    monkeypatch.setattr(cs, "DECODE_LM", dict(
+        vocab_size=32, d_model=32, n_heads=2, n_layers=2, d_ff=64,
+        max_len=64))
+    monkeypatch.setattr(cs, "DECODE_CACHE", 64)
+    monkeypatch.setattr(cs, "DECODE_REQUESTS", 16)
+    monkeypatch.setattr(cs, "DECODE_SWAP_AT", 10)
+    out = cs.check_serving(data)
+    for run, rounds in (("frontend", 2), ("pool", cs.SERVE_POOL_ROUNDS)):
+        assert out[run]["k2_launches"] == 4 * rounds
+        assert out[run]["answers"] > 0
+        assert out[run]["max_rel_err_vs_cpu"] <= cs.SERVE_TOL
+        assert out[run]["decisions"][0] == "promote"
+    assert out["pool"]["decisions"] == ["promote"] * cs.SERVE_POOL_ROUNDS
+    assert out["containment"]["verdicts"][-1][:3] == (4, "rollback",
+                                                      ["shadow"])
+    assert out["decode"]["captures"] == 1
+    assert out["decode"]["graph_bit_equal_eager"]
+    assert out["decode"]["occupancy"]["continuous"] \
+        > out["decode"]["occupancy"]["drain"]
+    assert not cs.SERVE_DIR.exists()   # the release journals went with it
+
+
+@pytest.mark.parametrize("status, reason, ok", [
+    (429, "deadline", True),
+    (429, "queue_full", True),
+    (503, "no_model", True),
+    ("error", "ConnectionResetError(104)", False),
+    (500, "predict_failed", False),
+    (503, "timeout", False),
+    (400, "bad_instance", False),
+    (429, "no_model", False),
+])
+def test_serve_answers_check_fails_on_unexpected_answers(status, reason, ok):
+    """Phase 8q's answer check passes a named shed (429) and a 503 for
+    want of a model beside the 200s, counted by status and reason, and
+    fails on any other answer: a connection error, a 500, a 400 or a 503
+    timeout among the 200s cannot pass."""
+    import types
+    import numpy as np
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import load_experiment_data
+    from fedml_tpu_torch.experiments.models import (create_workload,
+                                                    sample_shape_of)
+    from fedml_tpu_torch.serve.registry import module_apply
+    cfg = config_from_argv(["--model", "lr", "--dataset", "mnist",
+                            "--client_num_in_total", "4", "--batch_size",
+                            "4"])
+    data = load_experiment_data(cfg)
+    wl = create_workload("lr", "mnist", data.class_num,
+                         sample_shape_of(data))
+    params = wl.init(torch.Generator().manual_seed(0), "cpu")
+    rows = np.asarray(data.test["x"])[0, 0]
+    with torch.no_grad():
+        y = module_apply(wl.model)(params, torch.as_tensor(rows[:1]))
+    fed = types.SimpleNamespace(
+        data=data, cfg=cfg, published={0: cs._flat_host(params)},
+        serving=types.SimpleNamespace(release=types.SimpleNamespace(
+            verdicts=[{"version": 0, "decision": "promote"}])))
+    traffic = types.SimpleNamespace(answers=[[
+        (0, 200, 0, y[0].tolist(), None, 0.01),
+        (1, status, None, None, reason, 0.01)]])
+    if ok:
+        out = cs.serve_answers_check(traffic, fed, rows, "serve")
+        assert out["statuses"] == {"200": 1, f"{status} {reason}": 1}
+    else:
+        with pytest.raises(SystemExit):
+            cs.serve_answers_check(traffic, fed, rows, "serve")
+
+
+@pytest.mark.parametrize("arm, profiled", [("host", False), ("off", True)])
+def test_serve_split_arm_on_the_cpu(tiny_phases, monkeypatch, arm, profiled):
+    """An arm of ``--serve-split`` on CPU tensors at the tiny LR size, two
+    rounds: the rounds close and the perf ledger is read back, the host
+    stub answers the client traffic without the model, and the profiled
+    pass reads the device's busy time."""
+    data, _ = tiny_phases
+    monkeypatch.setattr(cs, "SERVE_ARGS", [*cs.SILO_ARGS, "--release_gate",
+                                           "true"])
+    monkeypatch.setattr(cs, "SPLIT_ROUNDS", 2)
+    cs.SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        out = cs.split_arm(data, arm, profiled)
+    finally:
+        import shutil
+        shutil.rmtree(cs.SERVE_DIR, ignore_errors=True)
+    assert len(out["round_ms"]) == 2
+    if profiled:
+        assert out["device_busy_ms_per_round"] >= 0.0
+        return
+    assert out["critical_path_ms"] and "publish" in out["phase_ms"]
+    assert len(out["gate_offer_ms"]) == 2
+    assert out["answers_per_round"] > 0
+    assert set(out["statuses"]) <= {"200", "503 no_model", "429 deadline"}
+
+
+def test_serve_split_is_the_arms_differences(monkeypatch):
+    """The split is ``idle`` - ``off``, ``host`` - ``idle`` and ``full`` -
+    ``host`` of the arms' steady rounds, each arm run unprofiled then
+    profiled."""
+    calls = []
+    steady = {"off": 300.0, "idle": 450.0, "host": 900.0, "full": 1400.0}
+
+    def arm(data, name, profiled):
+        calls.append((name, profiled))
+        return {"steady_round_ms": steady[name]}
+
+    monkeypatch.setattr(cs, "split_arm", arm)
+    out = cs.serve_split(None)
+    assert calls == [(a, p) for p in (False, True)
+                     for a in ("off", "idle", "host", "full")]
+    assert out["split_ms"] == {"gate_and_machinery": 150.0,
+                               "requests_host": 450.0,
+                               "requests_device": 500.0}
+    assert out["full"]["profiled"] == {"steady_round_ms": 1400.0}

@@ -481,8 +481,9 @@ _GATE_BASE = ["--model", "lr", "--dataset", "mnist", "--platform", "cpu",
      "requires --health"),
     (["--algo", "cross_device", "--mesh_clients", "4"],
      NotImplementedError, "item 10"),
+    # serving is ported: JAX's gate (cross_silo only)
     (["--algo", "cross_device", "--serve_port", "8080"],
-     NotImplementedError, "item 11"),
+     ValueError, "cross_silo only"),
     (["--algo", "cross_device", "--wave_size", "-2"], ValueError,
      "wave_size"),
     (["--algo", "async_fl", "--cross_device", "true"], ValueError,
@@ -519,8 +520,8 @@ def test_engine_constructor_gates(workload, data, tmp_path):
                     device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         CrossDevice(workload, data, _cfg(), device="cpu", mesh=object())
-    # the observability seams are ported: taken, with JAX's gate on a
-    # controller without the health observatory; publish stays refused
+    # the observability and publish seams are ported: taken, with JAX's
+    # gate on a controller without the health observatory
     from fedml_tpu_torch.obs import PerfRecorder
     perf = PerfRecorder(str(tmp_path / "perf.jsonl"))
     try:
@@ -531,9 +532,7 @@ def test_engine_constructor_gates(workload, data, tmp_path):
     with pytest.raises(ValueError, match="requires the health"):
         CrossDevice(workload, data, _cfg(), device="cpu",
                     controller=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CrossDevice(workload, data, _cfg(), device="cpu",
-                    publish=object())
+    CrossDevice(workload, data, _cfg(), device="cpu", publish=object())
     with pytest.raises(ValueError, match="fednova"):
         CrossDevice(workload, data, _cfg(local_alg="fednova"),
                     device="cpu", server_opt=object())

@@ -410,30 +410,23 @@ def test_admission_rejects_a_poisoned_plain_upload():
     "secagg", "ingest", "health", "perf", "server_opt", "controller",
     "degrade", "decode_upload", "publish"])
 def test_unported_actor_options_are_refused_by_name(option):
+    """Every JAX actor option is ported now (the serve-while-train
+    ``publish`` hook last): each is taken, none refused; the controller
+    keeps JAX's gate (it needs the health observatory)."""
     init = params_from_numpy(_params())
-    if option in ("secagg", "server_opt", "ingest", "degrade",
-                  "decode_upload", "health", "perf"):
-        # ported (live SecAgg, the server-optimizer seam, the pipelined
-        # receive path, the reliability tracker, wire compression, the
-        # health observatory and the perf recorder): taken, not refused
-        from fedml_tpu_torch.robust.degrade import ReliabilityTracker
-        assert option not in t_cross_silo._REFUSED
-        value = ReliabilityTracker(2) if option == "degrade" else object()
-        FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
-                          **{option: value})
-        return
+    assert not hasattr(t_cross_silo, "_REFUSED")
     if option == "controller":
-        # ported: JAX's gate (a controller needs the health observatory)
-        assert option not in t_cross_silo._REFUSED
         with pytest.raises(ValueError, match="requires the health"):
             FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
                               controller=object())
         FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
                           controller=object(), health=object())
         return
-    with pytest.raises(NotImplementedError, match=option):
-        FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
-                          **{option: object()})
+    from fedml_tpu_torch.robust.degrade import ReliabilityTracker
+    value = {"degrade": ReliabilityTracker(2),
+             "publish": lambda params, round_idx: None}.get(option, object())
+    FedAvgServerActor(LocalHub().transport(0), init, 2, 2, 1,
+                      **{option: value})
 
 
 def test_actor_level_gates():
@@ -485,7 +478,8 @@ _CS = ["--algo", "cross_silo", "--agg_mode", "stream", "--model_shards",
      "local hub only"),
     (["--algo", "fedavg", "--chaos_dup", "0.1"], ValueError,
      "cross_silo only"),
-    (["--serve_port", "8080"], NotImplementedError, "serve"),
+    # serving is ported: JAX's gates on its flags
+    (["--serve_workers", "2"], ValueError, "serve_port"),
     (["--ingest_pipeline", "true", "--ingest_queue_depth", "0"],
      ValueError, "ingest_queue_depth"),
     (["--journal", "true", "--agg_mode", "stack", "--model_shards", "0"],

@@ -322,3 +322,30 @@ def test_mixed_precision_slice_modules_import_without_jax():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+SERVING_MODULES = (
+    "fedml_tpu_torch.serve", "fedml_tpu_torch.serve.registry",
+    "fedml_tpu_torch.serve.batcher", "fedml_tpu_torch.serve.server",
+    "fedml_tpu_torch.serve.pool", "fedml_tpu_torch.serve.release",
+    "fedml_tpu_torch.serve.decode", "fedml_tpu_torch.models.transformer",
+    "fedml_tpu_torch.algorithms.cross_silo",
+    "fedml_tpu_torch.algorithms.cross_device",
+    "fedml_tpu_torch.experiments.main")
+
+
+def test_serving_modules_import_without_jax():
+    """The serving slice (registry, micro-batcher, HTTP frontend and
+    pool, the release gate, continuous-batching decode), each named,
+    imports with JAX, flax, optax and the JAX package blocked; importing
+    it starts no server, batcher or watcher thread."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib, threading\n"
+            f"for m in {SERVING_MODULES!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"assert not [t for t in threading.enumerate()\n"
+            f"            if t.name.startswith('serve')]\n"
+            f"print('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -118,10 +118,12 @@ def test_refusals_are_named():
     assert TransformerLM(**SMALL, dropout_rate=0.1).stochastic
     model = TransformerLM(**SMALL)
     x = torch.tensor(_tokens(1, 8))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model(x, cache={})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        init_decode_cache(model, 2, 16)
+    # incremental decode is ported (tests/test_torch_decode.py): a cache
+    # without positions is refused in JAX's words
+    cache = init_decode_cache(model, 2, 16)
+    assert cache["attn_0"]["k"].shape == (2, 16, 2, 16)
+    with pytest.raises(ValueError, match="positions"):
+        model(x[:, :2].reshape(-1), cache=cache)
     with pytest.raises(NotImplementedError, match="item 10"):
         model(x, ring_axis="sequence")
     with pytest.raises(ValueError, match="compute_dtype"):
