@@ -57,7 +57,7 @@ each printed as it ends; any failure exits non-zero:
 8. cross-silo slice — live cross-silo FedAvg over the in-process hub with
    the sharded spine (S=4, K2 on, clip 5.0, sigma 0.025) on the same CNN,
    data and widths, 3 rounds through the CLI's runner: K2 launches exactly
-   4 x 3 times and K1 and K3 never; a per-part split of 5 rounds
+   4 x 3 times and K1 and K3 never; a per-part split of 3 rounds
    (broadcast, wire, silo training, admission, fold, finalize, eval), the
    kernel launches per round and the device's idle share; one round with
    TF32 off against the CPU (limit 1e-4);
@@ -221,7 +221,8 @@ each printed as it ends; any failure exits non-zero:
    a fold in round 1 resumed from its journal bit-equal; (6) ``--algo
    hierarchical --group_num 2 --group_comm_round 2``, 3 rounds: round ms,
    ``group_num 1 / group_comm_round 1`` against ``--algo fedavg`` (1e-5),
-   one round of 4 clients against the CPU (1e-4); (7) phase 8l's wave engine (1000 a
+   one round of 4 clients against the CPU (1e-4), these without their
+   evaluation; (7) phase 8l's wave engine (1000 a
    round in waves of 256), 2 rounds inline and with ``--ingest_pipeline``,
    both with ``--wave_adversary 1:0:nan_bomb``: bit-equal, the poisoned
    wave rejected; one API round with a `ReliabilityTracker` merging the
@@ -304,6 +305,26 @@ each printed as it ends; any failure exits non-zero:
    names, the tokens greedy by it (near-ties listed), the graphed step
    bit-equal to the eager one; step ms graphed and eager, tokens/s and
    occupancy continuous and drain, peak GB;
+8r. mesh — data parallelism over ``torch.distributed`` (run after 8o):
+   the FEMNIST CNN at config 2's widths (10 a round, B=20, lr 0.1, E=1;
+   340 of its 3400 clients), ``--deterministic true`` (cuDNN's
+   deterministic algorithms, TF32 off), each run's globals checkpointed
+   by rank 0 every round; the runs on 2 ranks are ``python -m
+   fedml_tpu_torch`` subprocesses, the others ``main(argv)`` in this
+   process.  FedAvg over 6 rounds, each run alone: in one process, in one
+   process training its cohort as the 2-rank mesh's two blocks of 5, with
+   ``--mesh_clients 1`` (one rank, NCCL) and ``--mesh_clients 2`` (two
+   ranks sharing the card, gloo); then together, over 2 rounds,
+   ``--algo scaffold`` (200 clients) in one process and on 2 ranks,
+   ``--algo hierarchical --group_num 2`` in one process and on the
+   ``--mesh_groups 2 --mesh_clients 1`` two-level mesh.  Every rank's
+   params byte-equal (their sha256), the written globals rank 0's, each
+   mesh run within ``MESH_TOL`` x max|w| of its references after every
+   round (``MESH_HELD``: the 2-rank FedAvg run of its blocked run, and of
+   the plain run after round 1), every run on the card with the
+   backend its layout picks; the round ms and the ms a round spent in
+   collectives of each run (mean, median, least, largest of the steady
+   rounds); no hand-written kernel runs on this path;
 12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
    and K2 also at their library call's configuration, sigma 0; K2's
    launches are phase 8j's adam run's, phase 8's and 8q's beside them; K4's
@@ -320,6 +341,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import re
 import shutil
@@ -883,7 +905,7 @@ def run_slice(data_cfg):
     return data, (launches, norm_launches), summary
 
 
-def profile_rounds(data_cfg, data, rounds: int = 5):
+def profile_rounds(data_cfg, data, rounds: int = 3):
     """Where a round's time goes, on the slice's configuration: host
     timers (synchronised) around the cohort gather, the local training and
     the fused aggregate, for each client axis; then torch.profiler over
@@ -1210,7 +1232,8 @@ def check_k3_table(leaf_sizes, sm_hz):
     bound = op_bound(*secagg_mask_work(n, n, sum(leaf_sizes.values())),
                      sm_hz)
     result["path"] = dict(
-        n=n, ms=(device_ms(call, 20, "secagg_", windows=5)
+        # 3 profiler windows (cut from 5 for the time limit)
+        n=n, ms=(device_ms(call, 20, "secagg_", windows=3)
                 or time_ms(call, 50)),
         call_ms=time_ms(call, 50), host_us=host_us(call),
         plain_ms=device_ms(plain, 3) or time_ms(plain, 3, trials=3),
@@ -1259,7 +1282,7 @@ def run_turbo_slice(turbo_cfg, data):
     return launches, summary
 
 
-def profile_turbo(turbo_cfg, data, rounds: int = 5):
+def profile_turbo(turbo_cfg, data, rounds: int = 3):
     """Where a secure round's time goes: host timers (synchronised) around
     the gather, local SGD, the mask launch (``aggregate_stacked``'s cuda
     path: the layout, the launch), the ring sum + dequantize over its
@@ -1595,7 +1618,7 @@ class PartTimer:
         setattr(owner, attr, timed)
 
 
-def profile_silo(silo_cfg, data, rounds: int = 5):
+def profile_silo(silo_cfg, data, rounds: int = 3):
     """Where a cross-silo round's time goes: exclusive host time
     (synchronised) of each part over ``rounds`` rounds after a warm-up
     round, evaluating every round; then torch.profiler over ``rounds``
@@ -1757,18 +1780,11 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 @contextlib.contextmanager
 def deterministic():
     """cuDNN's deterministic algorithms (no atomics in the grouped-conv
-    backward) and TF32 off inside the block."""
-    import torch
-    saved = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    try:
-        with tf32_off():
-            yield
-    finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = saved
+    backward) and TF32 off inside the block: the CLI's
+    ``--deterministic``."""
+    from fedml_tpu_torch.experiments.main import deterministic_flags
+    with deterministic_flags(True):
+        yield
 
 
 def fedavg_algo(cfg, data, device="cuda", workload=None):
@@ -4619,9 +4635,11 @@ BN_ARGS = ["--algo", "fedavg", "--model", "resnet56", "--dataset",
            "0.1", "--epochs", "1", "--comm_round", "3",
            "--frequency_of_the_test", "1000", "--log_stdout", "false"]
 BN_ROBUST_MODEL = "resnet56_bn"    # the model of the defended run
+# the defended run: 2 rounds (cut from 3 for the time limit)
 BN_ROBUST_ARGS = [*BN_ARGS, "--algo", "fedavg_robust", "--defense",
                   "weak_dp", "--defense_backend", "cuda", "--norm_bound",
-                  str(CLIP_BOUND), "--stddev", str(SIGMA)]
+                  str(CLIP_BOUND), "--stddev", str(SIGMA), "--comm_round",
+                  "2"]
 CENTRAL_ARGS = ["--algo", "centralized", "--model", "cnn_fedavg",
                 "--dataset", "femnist", "--client_num_in_total", "100",
                 "--batch_size", "20", "--lr", "0.1", "--epochs", "1",
@@ -4931,8 +4949,9 @@ def check_k1_bn_table(stacked, weights, glob, seed_words, sm_hz):
         out["table"] = dict(
             ms=device_ms(call, 20, "robust_agg_kernel")
             or time_ms(call, 50),
-            # CUDA events: ~117k small ops a call would swamp the profiler
-            plain_ms=time_ms(plain, 1, trials=3),
+            # CUDA events: ~117k small ops a call would swamp the profiler;
+            # one timed call after the warm-up (each takes ~2.5 s)
+            plain_ms=time_ms(plain, 1, trials=1),
             library_ms=device_ms(library, 20) or time_ms(library, 50),
             **op_bound(*robust_agg_work(n, layout.sizes, SIGMA), sm_hz))
         out["clip_norm"] = dict(
@@ -4945,7 +4964,7 @@ def check_k1_bn_table(stacked, weights, glob, seed_words, sm_hz):
 
 def zoo_bn_robust(cfg, data, sm_hz):
     """The BatchNorm ResNet-56 through FedAvgRobust (weak DP, the fused
-    CUDA backend, clip 5, sigma 0.025), 3 rounds: K1n and K1 launched by
+    CUDA backend, clip 5, sigma 0.025), 2 rounds: K1n and K1 launched by
     the main path each round (their counts from zero); then both held
     against their plain versions over the round's 292-leaf table."""
     import torch
@@ -5552,8 +5571,16 @@ def check_mach_edges(data, init, root: Path):
     return out
 
 
+def _no_eval(algo):
+    """``algo`` with its evaluation a no-op: a parity run compares the
+    params, and a CPU evaluation of the 3400-client split takes ~40 s."""
+    algo.evaluate_global = lambda params: {}
+    return algo
+
+
 def check_mach_hierarchical(data):
-    """Run 6: hierarchical FL, its oracle and a round against the CPU."""
+    """Run 6: hierarchical FL, its oracle and a round against the CPU (the
+    oracle and parity runs without their evaluation)."""
     import dataclasses
     from fedml_tpu_torch.experiments.main import hierarchical_algo
     cfg = cd_cfg(MACH_HIER)
@@ -5565,20 +5592,19 @@ def check_mach_hierarchical(data):
     with deterministic():
         one = dataclasses.replace(cfg, comm_round=1, group_num=1,
                                   group_comm_round=1)
-        hier = hierarchical_algo(one, data).run(
+        hier = _no_eval(hierarchical_algo(one, data)).run(
             params={k: v.clone() for k, v in init.items()})
-        fa = fedavg_algo(cd_cfg(["--algo", "fedavg", *COMMON_ARGS,
-                                 "--comm_round", "1"]), data, CARD)
+        fa = _no_eval(fedavg_algo(cd_cfg(["--algo", "fedavg", *COMMON_ARGS,
+                                          "--comm_round", "1"]), data, CARD))
         fedavg = fa.run(params={k: v.clone() for k, v in init.items()})
         row["oracle_vs_fedavg_max_abs_diff"] = max_diff(hier, fedavg)
         one_round = dataclasses.replace(
             cfg, comm_round=1, client_num_per_round=MACH_HIER_CPU_CLIENTS)
-        card = hierarchical_algo(one_round, data).run(
+        card = _no_eval(hierarchical_algo(one_round, data)).run(
             params={k: v.clone() for k, v in init.items()})
-        cpu = hierarchical_algo(dataclasses.replace(one_round,
-                                                    platform="cpu"),
-                                data).run(params={k: v.cpu().clone()
-                                                  for k, v in init.items()})
+        cpu = _no_eval(hierarchical_algo(
+            dataclasses.replace(one_round, platform="cpu"), data)).run(
+            params={k: v.cpu().clone() for k, v in init.items()})
         row["vs_cpu_max_abs_diff"] = max_diff(card, cpu)
     if not (row["oracle_vs_fedavg_max_abs_diff"] <= MACH_ORACLE_TOL
             and row["vs_cpu_max_abs_diff"] <= ROUND_TOL):
@@ -5947,6 +5973,317 @@ def check_observability(data, root: Path):
                seconds=time.perf_counter() - t_phase)
     phase("observability", **out)
     shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# data parallelism over torch.distributed (phase 8r)
+# ---------------------------------------------------------------------------
+
+# config 2's model, cohort and widths, evaluation at round 0 and the
+# last, over 340 of its 3400 clients (each run is a new process: loading
+# and evaluating all 3400 took ~5 s a run); every round's globals kept
+MESH_ARGS = [*COMMON_ARGS, "--client_num_in_total", "340",
+             "--deterministic", "true", "--checkpoint_every", "1",
+             "--checkpoint_keep_last_n", "8"]
+# the FedAvg runs take 6 rounds, so 5 steady rounds give each round-ms and
+# collective-ms figure its median and spread; the others 2
+MESH_FEDAVG_ROUNDS = ["--comm_round", "6"]
+MESH_ROUNDS = ["--comm_round", "2"]
+# x max|w|: a mesh run's globals after each round vs its reference's
+MESH_TOL = 1e-5
+# the JAX package's FedAvg oracle tolerance (tests/test_fedavg_oracle.py),
+# element by element: each comparison reports its largest ratio to it
+MESH_ORACLE_RTOL, MESH_ORACLE_ATOL = 1e-4, 1e-5
+# SCAFFOLD keeps a host model per client: phase 8k's 200 clients
+MESH_SCAFFOLD = ["--algo", "scaffold", "--client_num_in_total", "200",
+                 *MESH_ROUNDS]
+MESH_HIER = ["--algo", "hierarchical", "--group_num", "2", *MESH_ROUNDS]
+MESH_FEDAVG = ["--algo", "fedavg", *MESH_FEDAVG_ROUNDS]
+# name -> (argv, its backend, ranks); "fedavg blocks 2" is the reference
+# the 2-rank FedAvg run is held to: one process whose cohort step trains
+# the cohort as the two ranks do (two vmaps of 5, each its partial sum,
+# the two added)
+MESH_RUNS = {
+    "fedavg": (MESH_FEDAVG, None, 1),
+    "fedavg blocks 2": (MESH_FEDAVG, None, 1),
+    "fedavg nccl 1": ([*MESH_FEDAVG, "--mesh_clients", "1"], "nccl", 1),
+    "fedavg gloo 2": ([*MESH_FEDAVG, "--mesh_clients", "2"], "gloo", 2),
+    "scaffold": (MESH_SCAFFOLD, None, 1),
+    "scaffold gloo 2": ([*MESH_SCAFFOLD, "--mesh_clients", "2"], "gloo", 2),
+    "hierarchical": (MESH_HIER, None, 1),
+    "hierarchical gloo 2x1": ([*MESH_HIER, "--mesh_groups", "2",
+                               "--mesh_clients", "1"], "gloo", 2),
+}
+MESH_BLOCKED = {"fedavg blocks 2": 2}
+# run -> its references: (reference, how many first rounds are held to
+# MESH_TOL x max|w|; None: every round).  The 2-rank FedAvg run is held
+# on every round to its own arithmetic in one process ("fedavg blocks
+# 2"), and after round 1 to the plain single-process run.  Its 5-client
+# vmaps run other cuDNN algorithms than the 10-client one, and the CNN's
+# training at lr 0.1 grows that difference over the rounds (on an H100,
+# 1.5e-6 after round 1 to 9.2e-5 after round 6; the blocked run in one
+# process shows the same differences, bit for bit: PERF.md §6), so a
+# later round against the plain run measures that growth, not the mesh
+MESH_HELD = {
+    "fedavg nccl 1": (("fedavg", None),),
+    "fedavg gloo 2": (("fedavg blocks 2", None), ("fedavg", 1)),
+    "scaffold gloo 2": (("scaffold", None),),
+    "hierarchical gloo 2x1": (("hierarchical", None),),
+}
+# the runs in turns: the three FedAvg runs each alone (their round ms are
+# the phase's numbers), then the other four together.  The one-process
+# runs and the one-rank run are ``main(argv)`` in this process (a new
+# process takes ~20 s on the card's host to import torch and reach its
+# first gradient); the two-rank runs are ``python -m fedml_tpu_torch``.
+MESH_TURNS = (("fedavg",), ("fedavg blocks 2",), ("fedavg nccl 1",),
+              ("fedavg gloo 2",),
+              ("scaffold gloo 2", "hierarchical gloo 2x1", "scaffold",
+               "hierarchical"))
+MESH_IN_PROCESS = ("fedavg", "fedavg blocks 2", "fedavg nccl 1", "scaffold",
+                   "hierarchical")
+MESH_RUN_TIMEOUT_S = 300
+
+
+def oracle_ratio(a, b) -> float:
+    """The largest |a - b| / (ATOL + RTOL |b|) over every element: <= 1
+    is inside the JAX package's FedAvg oracle tolerance."""
+    return max(float(((a[k].double().cpu() - b[k].double().cpu()).abs()
+                      / (MESH_ORACLE_ATOL + MESH_ORACLE_RTOL
+                         * b[k].double().cpu().abs())).max())
+               for k in a)
+
+
+def mesh_held(rounds, ref_rounds, tol_rounds) -> dict:
+    """One run's globals after each round against its reference's: the
+    max |diff| and the MESH_TOL x max|w| limit a round, the oracle ratio
+    a round (reported), and the rounds that fail (the first
+    ``tol_rounds`` held to the limit; None: all of them)."""
+    out = dict(max_abs_diff=[], limit=[], oracle_ratio=[], failed=[])
+    if rounds is None or ref_rounds is None \
+            or len(rounds) != len(ref_rounds):
+        out["failed"].append("globals missing or a round short")
+        return out
+    for r, (got, want) in enumerate(zip(rounds, ref_rounds)):
+        diff = max_diff(got, want)
+        limit = MESH_TOL * max(float(v.abs().max()) for v in want.values())
+        out["max_abs_diff"].append(diff)
+        out["limit"].append(limit)
+        out["oracle_ratio"].append(oracle_ratio(got, want))
+        if (tol_rounds is None or r < tol_rounds) and not diff <= limit:
+            out["failed"].append(f"round {r}: {diff} > {limit}")
+    return out
+
+
+def mesh_problems(name: str, rc, summary, expect, last=None,
+                  held=None) -> list:
+    """What is wrong with one run of phase 8r: a non-zero exit (a rank
+    that died fails its launch), a missing summary, another backend or
+    world than ``expect`` (backend, ranks), a run off the card, ranks
+    whose params are not byte-equal, the written globals (``last``) not
+    rank 0's, or a round that misses its reference (``held``: reference
+    name -> `mesh_held`'s result)."""
+    if rc != 0:
+        return [f"{name}: exited {rc}"]
+    if summary is None:
+        return [f"{name}: printed no summary"]
+    out = []
+    backend, world = expect
+    if CARD != "cuda" and backend is not None:    # a rehearsal on the CPU
+        backend = "gloo"
+    if not str(summary.get("device", "")).startswith(CARD):
+        out.append(f"{name}: ran on {summary.get('device')}, not the card")
+    if backend is not None:
+        if summary.get("dist_backend") != backend \
+                or summary.get("world_size") != world:
+            out.append(f"{name}: backend {summary.get('dist_backend')} on "
+                       f"{summary.get('world_size')} ranks, not {backend} "
+                       f"on {world}")
+        hashes = str(summary.get("rank_params_sha256", "")).split(",")
+        if len(hashes) != world or len(set(hashes)) != 1:
+            out.append(f"{name}: the ranks' params differ ({hashes})")
+    if last is not None:
+        from fedml_tpu_torch.parallel.mesh import params_sha256
+        if params_sha256(last) != summary.get("params_sha256"):
+            out.append(f"{name}: the written globals are not rank 0's")
+    for ref, res in (held or {}).items():
+        out += [f"{name} vs {ref}: {f}" for f in res["failed"]]
+    return out
+
+
+def mesh_dir(base: Path, name: str) -> Path:
+    return base / name.replace(" ", "_")
+
+
+def mesh_argv(name: str, base: Path) -> list:
+    on_cpu = ([] if CARD == "cuda"      # a rehearsal on the CPU
+              else ["--platform", "cpu", "--host_device_count", "2"])
+    return [*MESH_ARGS, *MESH_RUNS[name][0], *on_cpu, "--checkpoint_dir",
+            str(mesh_dir(base, name))]
+
+
+def mesh_start(name: str, root: Path, base: Path):
+    """One run of phase 8r as its own ``python -m fedml_tpu_torch``, its
+    globals checkpointed by rank 0 every round; returns the process and
+    its log."""
+    log = open(f"{mesh_dir(base, name)}.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fedml_tpu_torch", *mesh_argv(name, base)],
+        cwd=root, stdout=log, stderr=subprocess.STDOUT, text=True)
+    return proc, log
+
+
+def blocked_cohort_step(local_train, blocks: int):
+    """The cohort step of a ``blocks``-rank clients mesh in one process:
+    each block of rows trained as its own vmap (its clients keyed by
+    their cohort slots), its weighted partial sum taken, the partial sums
+    added in block order."""
+    import torch
+    from fedml_tpu_torch.parallel.cohort import bcast, train_cohort
+
+    def step(params, cohort, words):
+        n = cohort["num_samples"].shape[0] // blocks
+        w = cohort["num_samples"].to(torch.float32)
+        total = sum(torch.sum(w[b * n:(b + 1) * n]) for b in range(blocks))
+        out = None
+        for b in range(blocks):
+            rows = {k: v[b * n:(b + 1) * n] for k, v in cohort.items()}
+            stacked, _ = train_cohort(local_train, params, rows, words,
+                                      index_offset=b * n)
+            ratio = w[b * n:(b + 1) * n] / total
+            part = {k: torch.sum(x * bcast(ratio, x.dim()).to(x.dtype), 0)
+                    for k, x in stacked.items()}
+            out = part if out is None else {k: out[k] + part[k]
+                                            for k in out}
+        return out, None
+
+    return step
+
+
+def mesh_in_process(name: str, base: Path):
+    """A run of phase 8r in this process: ``main(argv)`` (``--mesh_clients
+    1`` joins and leaves a one-rank group there), its summary line in its
+    log; or, for a MESH_BLOCKED reference, the CLI's FedAvg with its
+    cohort step trained in blocks.  Its exit code and summary."""
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import (load_experiment_data,
+                                                  main, make_checkpointer)
+    argv = mesh_argv(name, base)
+    if name not in MESH_BLOCKED:
+        # the run's summary line and its warnings go to its log
+        with open(f"{mesh_dir(base, name)}.log", "w") as log, \
+                contextlib.redirect_stdout(log):
+            handler = logging.StreamHandler(log)
+            logging.getLogger().addHandler(handler)
+            try:
+                return 0, main(argv)
+            finally:
+                logging.getLogger().removeHandler(handler)
+    cfg = config_from_argv(argv)
+    algo = fedavg_algo(cfg, load_experiment_data(cfg), device=CARD)
+    algo.cohort_step = blocked_cohort_step(algo._local_train,
+                                           MESH_BLOCKED[name])
+    ckpt = make_checkpointer(cfg)
+    try:
+        with deterministic():
+            algo.run(checkpointer=ckpt)
+    finally:
+        ckpt.close()
+    return 0, {"device": str(algo.device)}
+
+
+def mesh_finish(name: str, proc, log):
+    """Wait for a run of phase 8r: its exit code and summary line."""
+    try:
+        rc = proc.wait(timeout=MESH_RUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    log.close()
+    text = Path(log.name).read_text()
+    lines = [line for line in text.splitlines() if line.startswith("{")]
+    if rc != 0:
+        print(f"--- {name} (exit {rc}), the end of its log:\n"
+              f"{text[-3000:]}", flush=True)
+    return rc, json.loads(lines[-1]) if lines else None
+
+
+def mesh_globals(ckpt: Path):
+    """A run's checkpointed globals after each round, or None."""
+    from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
+    if not ckpt.is_dir():
+        return None
+    ck = RoundCheckpointer(str(ckpt), keep_last_n=8)
+    last = ck.latest_round()
+    if last is None:
+        return None
+    try:
+        return [ck.restore(r)["params"] for r in range(last + 1)]
+    except FileNotFoundError:
+        return None
+
+
+def check_mesh(root: Path):
+    """Phase 8r: data parallelism over torch.distributed on the FEMNIST CNN
+    at config 2's widths (340 of its 3400 clients), deterministic (TF32
+    off).  FedAvg over 6 rounds: in one process, in one process with the
+    2-rank mesh's blocks, on 1 rank over NCCL (both ``main(argv)`` in this
+    process), on 2 ranks sharing the card over gloo (``python -m
+    fedml_tpu_torch``); then over 2 rounds SCAFFOLD (200 clients) on 2
+    ranks and hierarchical FL on the [2, 1] two-level mesh as ``python -m
+    fedml_tpu_torch``, each beside its single-process run.  Every rank's
+    globals byte-equal; each mesh run held to its references after every
+    round (MESH_HELD); the backend, and the round ms and the ms a round
+    spent in collectives (mean, median, least, largest) of each run.  No
+    hand-written kernel runs on this path (the JAX package refuses its
+    kernels on a mesh)."""
+    t_phase = time.perf_counter()
+    base = root / "build" / "mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    runs = {}
+    for turn in MESH_TURNS:
+        t0 = time.perf_counter()
+        started = {name: mesh_start(name, root, base) for name in turn
+                   if name not in MESH_IN_PROCESS}
+        for name in turn:
+            if name in MESH_IN_PROCESS:
+                runs[name] = (*mesh_in_process(name, base),
+                              time.perf_counter() - t0)
+        for name, (proc, log) in started.items():
+            runs[name] = (*mesh_finish(name, proc, log),
+                          time.perf_counter() - t0)
+    rounds = {name: mesh_globals(mesh_dir(base, name)) for name in MESH_RUNS}
+    out, problems = {}, []
+    for name, (argv, backend, world) in MESH_RUNS.items():
+        rc, summary, run_s = runs[name]
+        held = {ref: mesh_held(rounds[name], rounds[ref], tol)
+                for ref, tol in MESH_HELD.get(name, ())}
+        if name in MESH_BLOCKED:    # how far the blocks alone move it
+            held["fedavg"] = mesh_held(rounds[name], rounds["fedavg"], 0)
+        last = rounds[name][-1] if rounds[name] else None
+        problems += mesh_problems(name, rc, summary, (backend, world),
+                                  None if name in MESH_BLOCKED else last,
+                                  held)
+        s = summary or {}
+        row = dict(
+            backend=s.get("dist_backend", "none"), ranks=world,
+            device=s.get("device"), rounds=len(rounds[name] or ()),
+            run_s=run_s, subprocess=name not in MESH_IN_PROCESS,
+            alone=any(t == (name,) for t in MESH_TURNS),
+            rank_hashes_equal=len(set(str(s.get(
+                "rank_params_sha256", s.get("params_sha256"))).split(",")))
+            == 1,
+            **{k: v for k, v in s.items() if k.startswith(
+                ("round_ms", "collective_ms", "rounds_per_s"))},
+            **{f"vs {ref}": res for ref, res in held.items()})
+        phase(f"mesh {name}", **row)
+        out[name] = row
+    if problems:
+        fail("phase 8r: " + "; ".join(problems))
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("mesh", seconds=out["seconds"], hand_written_kernels=0)
     return out
 
 
@@ -7178,6 +7515,7 @@ def main() -> None:
     models = check_zoo_models(sm_hz)
     machinery = check_live_machinery(data, root)
     observability = check_observability(data, root)
+    mesh = check_mesh(root)
 
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
@@ -7413,6 +7751,13 @@ def main() -> None:
                         "waves", "async_fl", "edges")},
           observability_overhead_ms=observability["overhead_ms"],
           observability_seconds=observability["seconds"],
+          mesh_round_ms_median={k: v.get("round_ms_median")
+                                for k, v in mesh.items()
+                                if k != "seconds"},
+          mesh_collective_ms_median={
+              k: v.get("collective_ms_median", 0.0)
+              for k, v in mesh.items() if k != "seconds"},
+          mesh_seconds=mesh["seconds"],
           lm_flash_vs_blockwise_max_abs_diff=lm_diff,
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]

@@ -49,7 +49,7 @@ each admitted wave summary, ``slo`` evaluates once a round and
 sampler draws from the whole population; waves stay static-width);
 ``publish(params, version)`` hands each round's finalized global (the
 engine's flat device dict) to serving, version ``round_idx + 1``.  The
-mesh is refused by name (ROADMAP Queue 1 item 10, second part).
+mesh is refused by name (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations

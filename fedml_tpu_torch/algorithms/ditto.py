@@ -9,7 +9,12 @@ round's global:
 Every ``v_i`` starts at ``w^0``.  The personal models live on the host,
 stacked ``[client_num_in_total, ...]``, so the round runs through FedAvg's
 host loop.  ``evaluate_global`` adds each client's own model on its own
-shard (``personal_*`` columns) to the global metrics.
+shard (``personal_*`` columns) to the global metrics.  ``mesh=``: the
+global stream is FedAvg's sharded cohort step and the personal pass a
+per-rank pass over the rank's rows (`parallel.cohort.
+make_sharded_stateful_round`; no sums across clients), its rows gathered
+back so every rank mirrors every ``v_i``; the personal evaluation runs on
+each rank over all clients.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                sweep_eval_chunks,
                                                zeros_client_state)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
-from fedml_tpu_torch.parallel.cohort import pad_clients
+from fedml_tpu_torch.parallel.cohort import (cohort_rows,
+                                             make_sharded_stateful_round,
+                                             pad_clients)
 from fedml_tpu_torch.trainer.local_sgd import clip_by_global_norm
 from fedml_tpu_torch.trainer.workload import Workload
 from fedml_tpu_torch.utils.metrics import stats_from_metrics
@@ -65,13 +72,14 @@ def make_ditto_local(workload: Workload, lr: float, epochs: int,
 
 class Ditto(FedAvg):
     def __init__(self, workload, data, config: DittoConfig, sink=None,
-                 device=None):
+                 device=None, mesh=None):
         if workload.stateful:
             raise ValueError(
                 "ditto does not support stateful (BatchNorm) workloads: "
                 "the proximal pull over running statistics is undefined — "
                 "use a GroupNorm model (e.g. resnet18_gn)")
-        super().__init__(workload, data, config, sink=sink, device=device)
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
         cfg = config
         self._round_counter = 0
         self.v_locals = None
@@ -79,14 +87,19 @@ class Ditto(FedAvg):
                                     cfg.personal_epochs or cfg.epochs,
                                     cfg.ditto_lambda)
 
-        def personal_core(w_ref, cohort, v_cohort):
+        def personal_core(w_ref, cohort, v_cohort, psum_axis=None,
+                          index_offset=0):
+            del psum_axis, index_offset     # per client: no sums, no keys
             new_v = vmap(personal, in_dims=(0, None, 0))(
                 v_cohort, w_ref, batch_leaves(cohort))
             live = (cohort["num_samples"] > 0).to(torch.float32)
             return {k: torch.where(bcast(live, v.dim()) > 0, new_v[k], v)
                     for k, v in v_cohort.items()}
 
-        self._personal_round = personal_core
+        self._personal_round = personal_core if mesh is None else \
+            make_sharded_stateful_round(
+                personal_core, mesh, in_specs=(None, "clients", "clients"),
+                out_specs="clients")
         evaluate = self.evaluate
         self._personal_eval = lambda vs, part: {
             k: torch.sum(m, 0) for k, m in vmap(evaluate, in_dims=(0, 0))(
@@ -111,8 +124,8 @@ class Ditto(FedAvg):
         ids = self._sample_round(self._round_counter)
         self._round_counter += 1
         v_cohort = gather_client_rows(self.v_locals, ids,
-                                      cohort["num_samples"].shape[0],
-                                      self.device)
+                                      cohort_rows(cohort),
+                                      self._state_device())
         new_v = self._personal_round(params, cohort, v_cohort)
         self.v_locals = scatter_client_rows(self.v_locals, ids, new_v)
         return new_params, aux

@@ -18,7 +18,10 @@ an RDP accountant (port of ``fedml_tpu/algorithms/dp_fedavg.py``).
 
 The clip, the mean and the noise are plain tensor ops (K1's noise is
 another function: murmur and Box–Muller), run in the round's aggregate;
-the round goes through FedAvg's host loop, as in the JAX package.
+the round goes through FedAvg's host loop, as in the JAX package.  On a
+mesh (``mesh=``) each rank clips its own rows, the live count and the
+clipped sums are summed over the ranks, and the one central draw comes
+from the replicated round key, so every rank adds the same noise.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig, bcast,
 from fedml_tpu_torch.core import prng
 from fedml_tpu_torch.core.privacy import RdpAccountant
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
-from fedml_tpu_torch.parallel.cohort import make_cohort_step
+from fedml_tpu_torch.parallel.cohort import (make_cohort_step,
+                                             make_sharded_stateful_round,
+                                             psum_fn, train_cohort)
 
 # the fold_in streams of the noise draw ("DPNZ") and the secret sampling
 # chain ("DPSG")
@@ -50,25 +55,29 @@ class DPFedAvgConfig(FedAvgConfig):
     dp_accounting: str = "fixed_size"   # fixed_size | poisson
 
 
-def make_dp_aggregate(clip: float, noise_multiplier: float):
+def make_dp_aggregate(clip: float, noise_multiplier: float,
+                      psum_axis=None):
     """``aggregate(stacked, weights, global_params, seed_words)``: clip
     each client's update, average the live slots uniformly, add one
-    Gaussian draw per leaf calibrated to the sensitivity S/m."""
+    Gaussian draw per leaf calibrated to the sensitivity S/m.
+    ``psum_axis``: the sum over a mesh axis's ranks for the live count and
+    the clipped sums, when the cohort is sharded."""
+    allsum = psum_fn(psum_axis)
 
     def aggregate(stacked: Tree, weights: torch.Tensor, global_params: Tree,
                   seed_words):
         keys = tree_keys(global_params)
         live = (weights > 0).to(torch.float32)
-        m = torch.clamp_min(torch.sum(live), 1.0)
+        m = torch.clamp_min(allsum(torch.sum(live)), 1.0)
         deltas = {k: stacked[k] - global_params[k][None] for k in keys}
         sq = sum(torch.sum(torch.square(deltas[k].to(torch.float32)),
                            dim=tuple(range(1, deltas[k].dim())))
                  for k in keys)
         scale = torch.clamp_max(
             clip / torch.clamp_min(torch.sqrt(sq), 1e-12), 1.0) * live
-        mean = {k: torch.sum(deltas[k] * bcast(scale, deltas[k].dim())
-                             .to(deltas[k].dtype), 0) / m.to(deltas[k].dtype)
-                for k in keys}
+        sums = allsum({k: torch.sum(deltas[k] * bcast(scale, deltas[k].dim())
+                                    .to(deltas[k].dtype), 0) for k in keys})
+        mean = {k: sums[k] / m.to(deltas[k].dtype) for k in keys}
         nkey = prng.fold_in(round_key_of(seed_words), _NOISE_STREAM)
         leaf_keys = prng.split(nkey, len(keys))
         std = clip * noise_multiplier / m
@@ -83,7 +92,7 @@ def make_dp_aggregate(clip: float, noise_multiplier: float):
 
 class DPFedAvg(FedAvg):
     def __init__(self, workload, data, config: DPFedAvgConfig, sink=None,
-                 device=None):
+                 device=None, mesh=None):
         if config.dp_clip <= 0.0:
             raise ValueError("dp_clip must be > 0")
         if config.dp_noise_multiplier < 0.0:
@@ -94,13 +103,32 @@ class DPFedAvg(FedAvg):
                 f"unknown dp_accounting {config.dp_accounting!r}; use "
                 "'fixed_size' (valid for the sampler used) or 'poisson' "
                 "(literature approximation)")
-        super().__init__(workload, data, config, sink=sink, device=device)
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
         cfg = config
-        base_step = make_cohort_step(
-            self._local_train,
-            aggregate=make_dp_aggregate(cfg.dp_clip,
-                                        cfg.dp_noise_multiplier),
-            client_axis=cfg.client_axis)
+        if mesh is None:
+            base_step = make_cohort_step(
+                self._local_train,
+                aggregate=make_dp_aggregate(cfg.dp_clip,
+                                            cfg.dp_noise_multiplier),
+                client_axis=cfg.client_axis)
+        else:
+            local_train = self._local_train
+
+            def core(params, cohort, seed_words=(0, 0), psum_axis=None,
+                     index_offset=0):
+                stacked, metrics = train_cohort(
+                    local_train, params, cohort, seed_words,
+                    client_axis=cfg.client_axis, index_offset=index_offset)
+                dp_agg = make_dp_aggregate(cfg.dp_clip,
+                                           cfg.dp_noise_multiplier,
+                                           psum_axis=psum_axis)
+                return dp_agg(stacked, cohort["num_samples"], params,
+                              seed_words), metrics
+
+            base_step = make_sharded_stateful_round(
+                core, mesh, in_specs=(None, "clients", None),
+                out_specs=(None, "clients"))
         q = min(cfg.client_num_per_round, data.client_num) / data.client_num
         self.accountant = RdpAccountant(
             q, cfg.dp_noise_multiplier, cfg.dp_delta,

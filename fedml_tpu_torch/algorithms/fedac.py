@@ -11,7 +11,10 @@ and the server sample-weight-averages both sequences.  ``(α=1, β=1, γ=η)``
 collapses both onto plain local SGD (FedAvg).  FedAC-I's coupling, for
 ``fedac_mu > 0``: ``γ = max(sqrt(η/(μK)), η), α = 1/(γμ), β = α + 1``.
 The reported model is x^ag (the params); x rides the checkpoint.  The
-round runs through FedAvg's host loop.
+round runs through FedAvg's host loop; ``mesh=`` shards it over the
+``clients`` axis (`parallel.cohort.make_sharded_stateful_round`: the
+sample total and both weighted sums are summed over the ranks; x is
+replicated server state).
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from torch.func import grad, vmap
 from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                batch_leaves, bcast)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.parallel.cohort import (make_sharded_stateful_round,
+                                             psum_fn)
 from fedml_tpu_torch.server_opt import ServerOptMismatchError
 from fedml_tpu_torch.trainer.local_sgd import clip_by_global_norm
 from fedml_tpu_torch.trainer.workload import Workload
@@ -78,7 +83,7 @@ def make_fedac_local(workload: Workload, lr: float, epochs: int,
 
 class FedAC(FedAvg):
     def __init__(self, workload, data, config: FedACConfig, sink=None,
-                 device=None):
+                 device=None, mesh=None):
         if config.client_optimizer != "sgd":
             raise ValueError(
                 "fedac's local update IS the accelerated rule (Yuan&Ma'20 "
@@ -88,7 +93,8 @@ class FedAC(FedAvg):
                 "fedac does not support stateful (BatchNorm) workloads: "
                 "the coupled sequences over running statistics are "
                 "undefined — use a GroupNorm model (e.g. resnet18_gn)")
-        super().__init__(workload, data, config, sink=sink, device=device)
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
         cfg = config
         steps = int(self.data.train["x"].shape[1])  # batches per epoch
         if cfg.fedac_mu > 0.0:
@@ -113,19 +119,24 @@ class FedAC(FedAvg):
         local = make_fedac_local(workload, cfg.lr, cfg.epochs, gamma,
                                  alpha, beta)
 
-        def core(x_ag, cohort, x):
+        def core(x_ag, cohort, x, psum_axis=None, index_offset=0):
+            allsum = psum_fn(psum_axis)
             xs, ags = vmap(local, in_dims=(None, None, 0))(
                 x, x_ag, batch_leaves(cohort))
             w = cohort["num_samples"].to(torch.float32)
-            ratio = w / torch.clamp_min(torch.sum(w), 1.0)
+            ratio = w / torch.clamp_min(allsum(torch.sum(w)), 1.0)
+            sums = allsum({
+                **{"ag/" + k: torch.sum(s * bcast(ratio, s.dim()), 0)
+                   for k, s in ags.items()},
+                **{"x/" + k: torch.sum(s * bcast(ratio, s.dim()), 0)
+                   for k, s in xs.items()}})
+            return ({k: sums["ag/" + k] for k in ags},
+                    {k: sums["x/" + k] for k in xs})
 
-            def mean(stacked):
-                return {k: torch.sum(s * bcast(ratio, s.dim()), 0)
-                        for k, s in stacked.items()}
-
-            return mean(ags), mean(xs)
-
-        self._round_step = core
+        self._round_step = core if mesh is None else \
+            make_sharded_stateful_round(
+                core, mesh, in_specs=(None, "clients", None),
+                out_specs=(None, None))
         self.cohort_step = self._coupled_step
 
     def run(self, params=None, checkpointer=None):

@@ -15,6 +15,13 @@ the rounds, chosen as the JAX package chooses them:
   checkpointer: K rounds per call, chunks ending at evaluation rounds;
 * otherwise the host gather, one cohort copied to the device a round.
 
+``mesh=`` (`parallel.mesh.Mesh`) shards each round's cohort over the
+mesh's ``clients`` axis, one rank a position: the host loop always (no
+resident split, no CUDA graph), the cohort gathered on the host and each
+rank's block of rows staged to its device, the aggregate and the
+evaluation's sums reduced over the ranks.  Rank 0's params are broadcast
+once at the start, so the ranks cannot start apart.
+
 A `utils.checkpoint.RoundCheckpointer` saves (params, round key, round,
 and a stateful algorithm's ``_extra_state``) on its cadence; a run given
 one resumes from its latest step and continues bit for bit as the
@@ -53,10 +60,12 @@ from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.data.stacking import (FederatedData, gather_cohort,
                                            to_device)
 from fedml_tpu_torch.device import resolve_device, synchronize
-from fedml_tpu_torch.parallel.cohort import (cohort_eval, make_cohort_step,
+from fedml_tpu_torch.parallel.cohort import (bcast, cohort_eval,
+                                             make_cohort_step,
                                              make_device_round,
                                              make_scanned_rounds,
                                              pad_clients)
+from fedml_tpu_torch.parallel.mesh import broadcast_params, stage_global
 from fedml_tpu_torch.trainer.local_sgd import make_evaluator, make_local_trainer
 from fedml_tpu_torch.trainer.workload import Workload, make_client_optimizer
 from fedml_tpu_torch.utils.metrics import stats_from_metrics
@@ -201,12 +210,6 @@ def scatter_client_rows(stacked: Dict[str, np.ndarray], ids,
     return stacked
 
 
-def bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
-    """A per-client ``[C]`` vector shaped to broadcast over ``[C, ...]``
-    leaves of ``ndim`` dims."""
-    return v.reshape((-1,) + (1,) * (ndim - 1))
-
-
 def batch_leaves(cohort) -> Dict[str, torch.Tensor]:
     """A cohort's data leaves, without ``num_samples``."""
     return {k: v for k, v in cohort.items() if k != "num_samples"}
@@ -217,22 +220,42 @@ def round_key_of(seed_words) -> prng.Key:
     return (int(seed_words[0]) & 0xFFFFFFFF, int(seed_words[1]) & 0xFFFFFFFF)
 
 
+def mesh_device(mesh, device):
+    """The device of a run: the mesh rank's, which ``device`` may name the
+    kind of, or ``device`` off a mesh."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and \
+            torch.device(str(device)).type != mesh.device.type:
+        raise ValueError(f"device={device} differs from the mesh rank's "
+                         f"{mesh.device}")
+    return mesh.device
+
+
 class FedAvg:
     def __init__(self, workload: Workload, data: FederatedData,
                  config: FedAvgConfig, sink=None, device=None,
-                 local_train=None):
+                 local_train=None, mesh=None):
         self.workload = workload
         self.data = data
         self.cfg = config
         self.sink = sink  # optional MetricsSink
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            n_dev = mesh.shape["clients"]
+            if config.client_num_per_round % n_dev:
+                raise ValueError(
+                    f"client_num_per_round={config.client_num_per_round} "
+                    f"must be a multiple of the mesh clients axis ({n_dev})")
+        self.device = mesh_device(mesh, device)
         if local_train is None:
             opt = make_client_optimizer(config.client_optimizer, config.lr,
                                         config.wd)
             local_train = make_local_trainer(workload, opt, config.epochs)
         self._local_train = local_train
         self.cohort_step = make_cohort_step(self._local_train,
-                                            client_axis=config.client_axis)
+                                            client_axis=config.client_axis,
+                                            mesh=mesh)
         # the device-resident path serves only this step (or an override);
         # subclasses that replace cohort_step (the defenses, secure rounds,
         # per-client state) keep the loop
@@ -246,9 +269,11 @@ class FedAvg:
         self._train_dev: Optional[Dict[str, torch.Tensor]] = None
         self._test_dev: Optional[Dict[str, torch.Tensor]] = None
         self.evaluate = make_evaluator(workload)
-        self._eval_cohort = cohort_eval(self.evaluate)
+        self._eval_cohort = cohort_eval(self.evaluate, mesh=mesh)
         self.history: List[Dict[str, Any]] = []
         self.round_times: List[float] = []
+        # on a mesh: the ms each round spent in collectives
+        self.collective_times: List[float] = []
 
     def _sample_round(self, round_idx: int):
         return sample_clients(round_idx, self.data.client_num,
@@ -316,6 +341,7 @@ class FedAvg:
         params = {k: v.to(self.device) for k, v in params.items()}
         params, rng, start_round = self._maybe_resume(checkpointer, params,
                                                       rng)
+        params = broadcast_params(params, self.mesh)
         use_device_data = self._uses_device_data()
         if use_device_data and cfg.rounds_per_dispatch > 1 \
                 and checkpointer is None and self._server_update is None \
@@ -323,6 +349,7 @@ class FedAvg:
             return self._run_scanned(params, rng, start_round)
         for round_idx in range(start_round, cfg.comm_round):
             t0 = time.perf_counter()
+            c0 = self._collective_ms()
             rng, round_key = prng.split(rng)
             params = self.run_round(params, round_idx,
                                     prng.key_words_int32(round_key),
@@ -330,6 +357,7 @@ class FedAvg:
             synchronize(self.device)
             round_s = time.perf_counter() - t0
             self.round_times.append(round_s)
+            self._count_collectives(c0)
             self._maybe_eval(params, round_idx, round_s)
             if checkpointer is not None:
                 checkpointer.maybe_save(
@@ -342,12 +370,21 @@ class FedAvg:
             checkpointer.flush()
         return self._own(params)
 
+    def _collective_ms(self) -> float:
+        return 0.0 if self.mesh is None else self.mesh.collective_ms()
+
+    def _count_collectives(self, before_ms: float) -> None:
+        if self.mesh is not None:
+            self.collective_times.append(self.mesh.collective_ms()
+                                         - before_ms)
+
     def _uses_device_data(self) -> bool:
-        """Whether the rounds take the device-resident path: the base
-        cohort step or a device-round override, with the train split
-        staged on the device (it is staged here)."""
-        return ((self.cohort_step is self._base_cohort_step
-                 or self._device_round_override is not None)
+        """Whether the rounds take the device-resident path: off a mesh,
+        the base cohort step or a device-round override, with the train
+        split staged on the device (it is staged here)."""
+        return (self.mesh is None
+                and (self.cohort_step is self._base_cohort_step
+                     or self._device_round_override is not None)
                 and self._stage_train_on_device())
 
     def run_round(self, params: Tree, round_idx: int, words,
@@ -364,13 +401,24 @@ class FedAvg:
             params, _ = self._device_round(params, self._train_dev,
                                            padded, live, words)
         else:
-            cohort = gather_cohort(self.data.train, ids,
-                                   pad_to=self.cfg.client_num_per_round,
-                                   device=self.device)
-            params, _ = self.cohort_step(params, cohort, words)
+            params, _ = self.cohort_step(params, self._gather(ids), words)
         if self._server_update is not None:
             params = self._server_update(prev, params)
         return params
+
+    def _state_device(self):
+        """Where a stateful round's gathered rows go: the host for a mesh
+        step, which stages each rank's block, else the run's device."""
+        return "cpu" if self.mesh is not None else self.device
+
+    def _gather(self, ids):
+        """The round's cohort, padded to the cohort size, on the device; on
+        a mesh gathered on the host and staged as this rank's rows."""
+        return stage_global(
+            gather_cohort(self.data.train, ids,
+                          pad_to=self.cfg.client_num_per_round,
+                          device=self._state_device()),
+            self.mesh, "clients")
 
     def _own(self, params: Tree) -> Tree:
         """``params`` as tensors of the caller's: a copy when they are a
@@ -468,6 +516,9 @@ class FedAvg:
         ``eval_chunk_clients`` clients when the corpus is larger; otherwise
         on the resident train split (and the test split, kept on the
         device when it fits beside it)."""
+        if self.mesh is not None:     # the mesh eval stages each block
+            return evaluate_global(self._eval_cohort, self.data, params,
+                                   self.cfg.eval_chunk_clients, "cpu")
         return evaluate_global(self._eval_cohort, self.data, params,
                                self.cfg.eval_chunk_clients, self.device,
                                resident=self._resident_split)

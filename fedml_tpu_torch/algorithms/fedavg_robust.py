@@ -14,7 +14,12 @@ noise run:
   refuses it.
 
 Every defense keeps the per-round host loop: the device-resident round
-serves the base cohort step only, as in the JAX package."""
+serves the base cohort step only, as in the JAX package.  On a mesh
+(``mesh=``) clip and noise run as the per-client hook of the sharded
+cohort step (each client's noise keyed by its global slot); the Byzantine
+rules, which need the whole cohort on one rank, and the fused ``cuda``
+backend, whose clip norm spans the cohort, are refused there as the JAX
+package refuses them."""
 
 from __future__ import annotations
 
@@ -66,8 +71,9 @@ class FedAvgRobust(FedAvg):
     DEFENSES = ("norm_diff_clipping", "weak_dp", "none") + BYZANTINE_RULES
 
     def __init__(self, workload, data, config: FedAvgRobustConfig, sink=None,
-                 device=None):
-        super().__init__(workload, data, config, sink=sink, device=device)
+                 device=None, mesh=None):
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
         cfg = config
         if cfg.defense not in self.DEFENSES:
             raise ValueError(f"unknown defense {cfg.defense!r}; "
@@ -77,6 +83,10 @@ class FedAvgRobust(FedAvg):
                 f"unknown defense_backend {cfg.defense_backend!r}; "
                 f"available: ('torch', 'cuda')")
         if cfg.defense in BYZANTINE_RULES:
+            if mesh is not None:
+                raise ValueError(
+                    f"defense {cfg.defense!r} needs the full cohort on one "
+                    "chip (sorts / pairwise distances); drop --mesh_clients")
             if cfg.defense_backend == "cuda":
                 raise ValueError(
                     "defense_backend='cuda' fuses clip+noise+mean; "
@@ -95,6 +105,10 @@ class FedAvgRobust(FedAvg):
         noise = cfg.stddev if cfg.defense == "weak_dp" else 0.0
 
         if cfg.defense_backend == "cuda" and cfg.defense != "none":
+            if mesh is not None:
+                raise ValueError("defense_backend='cuda' does not shard "
+                                 "over a mesh; drop --mesh_clients or use "
+                                 "the torch backend")
             fused = make_fused_robust_aggregate(
                 norm_bound=cfg.norm_bound if clip else None, noise_std=noise)
             self.cohort_step = make_cohort_step(
@@ -113,4 +127,4 @@ class FedAvgRobust(FedAvg):
         self.cohort_step = make_cohort_step(
             self._local_train,
             transform_update=None if cfg.defense == "none" else transform,
-            client_axis=cfg.client_axis)
+            client_axis=cfg.client_axis, mesh=mesh)

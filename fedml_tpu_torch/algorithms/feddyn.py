@@ -9,6 +9,9 @@ fixed point is the centralized optimum under client drift (port of
 
 The λ_k live on the host, stacked ``[client_num_in_total, ...]`` (the
 SCAFFOLD pattern), so the round runs through FedAvg's host loop.
+``mesh=`` shards it over the ``clients`` axis (`parallel.cohort.
+make_sharded_stateful_round`): the live count and the live sums are
+summed over the ranks and the updated λ rows come back gathered.
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                scatter_client_rows,
                                                zeros_client_state)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.parallel.cohort import (cohort_rows,
+                                             make_sharded_stateful_round,
+                                             psum_fn)
 from fedml_tpu_torch.trainer.local_sgd import clip_by_global_norm
 from fedml_tpu_torch.trainer.workload import Workload
 
@@ -62,7 +68,7 @@ def make_feddyn_local(workload: Workload, lr: float, epochs: int,
 
 class FedDyn(FedAvg):
     def __init__(self, workload, data, config: FedDynConfig, sink=None,
-                 device=None):
+                 device=None, mesh=None):
         if config.client_optimizer != "sgd":
             raise ValueError(
                 "feddyn's local solver is SGD on the dynamically "
@@ -76,7 +82,8 @@ class FedDyn(FedAvg):
                 "feddyn does not support stateful (BatchNorm) workloads: "
                 "the λ correction over running statistics is undefined — "
                 "use a GroupNorm model (e.g. resnet18_gn)")
-        super().__init__(workload, data, config, sink=sink, device=device)
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
         cfg = config
         alpha = cfg.feddyn_alpha
         n_total = data.client_num
@@ -85,28 +92,35 @@ class FedDyn(FedAvg):
         self.lam_locals = None
         local = make_feddyn_local(workload, cfg.lr, cfg.epochs, alpha)
 
-        def core(params, cohort, h, lam_cohort):
+        def core(params, cohort, h, lam_cohort, psum_axis=None,
+                 index_offset=0):
+            allsum = psum_fn(psum_axis)
             thetas = vmap(local, in_dims=(None, 0, 0))(
                 params, lam_cohort, batch_leaves(cohort))
             live = (cohort["num_samples"] > 0).to(torch.float32)
-            m_live = torch.clamp_min(torch.sum(live), 1.0)
-
-            def live_mean(y):
-                return torch.sum(y * bcast(live, y.dim()), 0) / m_live
-
+            m_live = torch.clamp_min(allsum(torch.sum(live)), 1.0)
+            sums = allsum({
+                **{"d/" + k: torch.sum((thetas[k] - x[None])
+                                       * bcast(live, thetas[k].dim()), 0)
+                   for k, x in params.items()},
+                **{"t/" + k: torch.sum(thetas[k]
+                                       * bcast(live, thetas[k].dim()), 0)
+                   for k in params}})
             new_lam = {k: torch.where(
                            bcast(live, thetas[k].dim()) > 0,
                            lam_cohort[k] - alpha * (thetas[k] - x[None]),
                            lam_cohort[k])
                        for k, x in params.items()}
             new_h = {k: h[k] - alpha * (m_live / n_total)
-                     * live_mean(thetas[k] - x[None])
-                     for k, x in params.items()}
-            new_params = {k: live_mean(thetas[k]) - new_h[k] / alpha
+                     * (sums["d/" + k] / m_live) for k in params}
+            new_params = {k: sums["t/" + k] / m_live - new_h[k] / alpha
                           for k in params}
             return new_params, new_lam, new_h
 
-        self._round_step = core
+        self._round_step = core if mesh is None else \
+            make_sharded_stateful_round(
+                core, mesh, in_specs=(None, "clients", None, "clients"),
+                out_specs=(None, "clients", None))
         self.cohort_step = self._stateful_step
 
     def run(self, params=None, checkpointer=None):
@@ -124,8 +138,8 @@ class FedDyn(FedAvg):
         ids = self._sample_round(self._round_counter)
         self._round_counter += 1
         lam_cohort = gather_client_rows(self.lam_locals, ids,
-                                        cohort["num_samples"].shape[0],
-                                        self.device)
+                                        cohort_rows(cohort),
+                                        self._state_device())
         params, new_lam, self.h_state = self._round_step(
             params, cohort, self.h_state, lam_cohort)
         self.lam_locals = scatter_client_rows(self.lam_locals, ids, new_lam)

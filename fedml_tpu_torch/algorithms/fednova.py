@@ -14,7 +14,10 @@ Two paths, as in the JAX package: the host loop (``_stateful_step``
 replaces the cohort step) and a device-round override over the resident
 split.  On a CUDA device the override is one captured CUDA graph; the
 momentum buffer ``gmf_buf`` lives in persistent tensors the graph updates
-in place, read and written only between replays.
+in place, read and written only between replays.  ``mesh=`` shards the
+host loop's cohort over the ``clients`` axis (`parallel.cohort.
+make_sharded_stateful_round`): the sample total, ``tau_eff`` and the
+normalised parts are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from torch.func import grad
 from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig, bcast
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
 from fedml_tpu_torch.parallel.cohort import (gather_live_cohort,
-                                             make_device_round, train_cohort)
+                                             make_device_round,
+                                             make_sharded_stateful_round,
+                                             psum_fn, train_cohort)
 from fedml_tpu_torch.trainer.local_sgd import step_grad, with_rng_inputs
 
 
@@ -96,8 +101,9 @@ def make_fednova_local_trainer(workload, cfg: FedNovaConfig):
 
 class FedNova(FedAvg):
     def __init__(self, workload, data, config: FedNovaConfig, sink=None,
-                 device=None):
-        super().__init__(workload, data, config, sink=sink, device=device)
+                 device=None, mesh=None):
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
         cfg = config
         if cfg.client_axis != "vmap":
             raise ValueError("client_axis is not wired into FedNova's "
@@ -106,17 +112,19 @@ class FedNova(FedAvg):
         self._gmf_buf = None
 
         def nova_core(global_params: Tree, cohort, gmf_buf,
-                      seed_words=(0, 0)):
+                      seed_words=(0, 0), psum_axis=None, index_offset=0):
+            allsum = psum_fn(psum_axis)
             n = cohort["num_samples"].to(torch.float32)
             _, aux = train_cohort(local_train, global_params, cohort,
-                                  seed_words)
-            ratio = n / torch.clamp_min(torch.sum(n), 1.0)
+                                  seed_words, index_offset=index_offset)
+            ratio = n / torch.clamp_min(allsum(torch.sum(n)), 1.0)
             a = torch.clamp_min(aux["a_i"], 1e-12)
             tau_src = aux["local_steps"] if cfg.mu != 0 else aux["a_i"]
-            tau_eff = torch.sum(ratio * tau_src)
-            cum = {k: tau_eff * torch.sum(
-                       cg * bcast(ratio / a, cg.dim()), dim=0)
-                   for k, cg in aux["cum_grad"].items()}
+            sums = allsum({"tau_eff": torch.sum(ratio * tau_src), **{
+                "part/" + k: torch.sum(cg * bcast(ratio / a, cg.dim()), dim=0)
+                for k, cg in aux["cum_grad"].items()}})
+            cum = {k: sums["tau_eff"] * sums["part/" + k]
+                   for k in aux["cum_grad"]}
             if cfg.gmf:
                 gmf_buf = {k: cfg.gmf * gmf_buf[k] + cum[k] / cfg.lr
                            for k in cum}
@@ -126,7 +134,10 @@ class FedNova(FedAvg):
                 new = {k: global_params[k] - cum[k] for k in cum}
             return new, gmf_buf
 
-        self._nova_core = nova_core
+        self._nova_core = nova_core if mesh is None else \
+            make_sharded_stateful_round(
+                nova_core, mesh, in_specs=(None, "clients", None, None),
+                out_specs=(None, None))
         self.cohort_step = self._stateful_step
 
         def device_body(params, stacked, ids, live, seed_words=(0, 0)):

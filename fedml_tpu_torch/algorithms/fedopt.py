@@ -188,8 +188,9 @@ class FedOpt(FedAvg):
     """FedAvg plus a server optimizer on the pseudo-gradient."""
 
     def __init__(self, workload, data, config: FedOptConfig, sink=None,
-                 device=None):
-        super().__init__(workload, data, config, sink=sink, device=device)
+                 device=None, mesh=None):
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
         try:
             factory = SERVER_OPTIMIZERS[config.server_optimizer]
         except KeyError:

@@ -24,10 +24,10 @@ class FedProxConfig(FedAvgConfig):
 
 class FedProx(FedAvg):
     def __init__(self, workload, data, config: FedProxConfig, sink=None,
-                 device=None):
+                 device=None, mesh=None):
         opt = make_client_optimizer(config.client_optimizer, config.lr,
                                     config.wd)
         local_train = make_local_trainer(workload, opt, config.epochs,
                                          prox_mu=config.mu)
         super().__init__(workload, data, config, sink=sink, device=device,
-                         local_train=local_train)
+                         local_train=local_train, mesh=mesh)

@@ -17,9 +17,13 @@ round.  A group with no sampled client keeps the params and weighs 0 in
 the global mean, as JAX's ``total > 0`` select and its uniform
 ``safe_w`` make it.  The loop costs G sequential cohort steps where JAX
 pays one vmapped program; the clients of a group still train in
-parallel.  The two-level ``[groups, clients]`` mesh
-(``make_two_level_round``) is refused by name: it needs
-``torch.distributed`` (ROADMAP Queue 1 item 10).
+parallel.  On a 1-D ``clients`` mesh the same group loop runs over the
+sharded cohort step.  On the two-level ``[groups, clients]`` mesh
+(``make_two_level_round``, JAX :97-160) rank ``(g, c)`` trains block
+``c`` of group ``g``'s cohort: each group round sums over the group's
+``clients`` subgroup, and the global tier is the sample-weighted sum of
+the group models over each ``groups`` subgroup; every group takes part,
+an empty one with weight 0 and its params unchanged.
 
 The live edge tier (`EdgeAggregatorActor`, JAX :283-839): an edge folds
 its block of silos' uploads at arrival — with its own admission screen
@@ -53,6 +57,8 @@ from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.data.stacking import gather_cohort
 from fedml_tpu_torch.device import synchronize
 from fedml_tpu_torch.obs import telemetry
+from fedml_tpu_torch.parallel.cohort import bcast, train_cohort
+from fedml_tpu_torch.parallel.mesh import broadcast_params, stage_global
 from fedml_tpu_torch.secure.protocol import (MSG_SECAGG_ADVERT,
                                              MSG_SECAGG_ROSTER,
                                              MSG_SECAGG_SHARES,
@@ -65,12 +71,6 @@ logger = logging.getLogger(__name__)
 # algorithms/cross_silo.py (1-6) and async_fl's MSG_RETASK_TICK (7))
 MSG_EDGE_TIMEOUT = 8
 
-TWO_LEVEL_REFUSAL = (
-    "the two-level [groups, clients] mesh (make_two_level_round, "
-    "--mesh_groups) is not ported yet: it needs torch.distributed "
-    "(ROADMAP Queue 1 item 10, second part)")
-
-
 @dataclasses.dataclass
 class HierarchicalConfig(FedAvgConfig):
     group_num: int = 2
@@ -79,16 +79,53 @@ class HierarchicalConfig(FedAvgConfig):
 
 
 def make_two_level_round(local_train, group_comm_round: int, mesh):
-    """JAX :97-158's ``[groups, clients]`` mesh round: refused."""
-    raise NotImplementedError(TWO_LEVEL_REFUSAL)
+    """The ``[groups, clients]`` mesh round (JAX :97-160):
+    ``two_level(params, cohorts, round_key) -> new_params`` with cohort
+    leaves ``[G, M, S, B, ...]`` (host or staged), G the mesh's groups
+    axis and M divisible by its clients axis.  The keys are the grouped
+    round's: ``fold_in(round_key, g)``, one ``split`` per group round, and
+    a client's its slot in its group's cohort."""
+    g = mesh.axis_index("groups")
+
+    def two_level(params, cohorts, round_key):
+        local = dict(stage_global(cohorts, mesh, ("groups", "clients")))
+        offset = mesh.axis_index("clients") * local["num_samples"].shape[0]
+        w = local["num_samples"].to(torch.float32)
+        total_g = mesh.allsum(torch.sum(w), "clients")
+        ratio = w / torch.clamp_min(total_g, 1.0)
+        p = {k: v.to(mesh.device) for k, v in params.items()}
+        r_g = prng.fold_in(round_key, g)
+        for _ in range(group_comm_round):
+            r_g, rloc = prng.split(r_g)
+            stacked, _ = train_cohort(local_train, p, local,
+                                      prng.key_words_int32(rloc),
+                                      index_offset=offset)
+            # accumulate in f32 and cast back, as tree_weighted_mean does
+            p_new = mesh.allsum({k: torch.sum(
+                x.to(torch.float32) * bcast(ratio, x.dim()), 0)
+                for k, x in stacked.items()}, "clients")
+            p = {k: torch.where(total_g > 0, p_new[k].to(v.dtype), v)
+                 for k, v in p.items()}
+        # the global tier: each group's model weighted by its share of
+        # the round's samples, summed over the groups
+        share = total_g / torch.clamp_min(
+            mesh.allsum(total_g, "groups"), 1.0)
+        out = mesh.allsum({k: v.to(torch.float32) * share
+                           for k, v in p.items()}, "groups")
+        return {k: out[k].to(v.dtype) for k, v in p.items()}
+
+    return two_level
 
 
 class HierarchicalFedAvg(FedAvg):
     def __init__(self, workload, data, config: HierarchicalConfig,
                  mesh=None, sink=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(TWO_LEVEL_REFUSAL)
-        super().__init__(workload, data, config, sink=sink, device=device)
+        # on the two-level mesh the inherited cohort step and evaluation
+        # shard over each group's ``clients`` subgroup; the rounds go
+        # through make_two_level_round
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
+        two_level = mesh is not None and "groups" in mesh.axis_names
         cfg = config
         if cfg.group_method != "random":
             raise ValueError(f"unknown group_method {cfg.group_method!r}")
@@ -98,6 +135,14 @@ class HierarchicalFedAvg(FedAvg):
                              "FL's grouped rounds; drop --client_axis")
         rng = np.random.RandomState(cfg.seed)
         self.group_indexes = rng.randint(0, cfg.group_num, data.client_num)
+        self._two_level = None
+        if two_level:
+            if cfg.group_num != mesh.shape["groups"]:
+                raise ValueError(
+                    f"group_num={cfg.group_num} must equal the mesh groups "
+                    f"axis ({mesh.shape['groups']})")
+            self._two_level = make_two_level_round(
+                self._local_train, cfg.group_comm_round, mesh)
 
     def _group_clients(self, ids: np.ndarray) -> Dict[int, List[int]]:
         groups: Dict[int, List[int]] = {}
@@ -110,12 +155,16 @@ class HierarchicalFedAvg(FedAvg):
         """One two-tier round: ``group_comm_round`` cohort steps a group,
         then the weighted mean of the group models."""
         cfg = self.cfg
+        if self._two_level is not None:
+            cohorts = [gather_cohort(self.data.train, groups.get(g, []),
+                                     pad_to=cfg.client_num_per_round)
+                       for g in range(cfg.group_num)]
+            return self._two_level(params, {k: torch.stack(
+                [c[k] for c in cohorts]) for k in cohorts[0]}, round_key)
         group_params, group_weights = [], []
         for gidx in sorted(groups):
             gids = groups[gidx]
-            cohort = gather_cohort(self.data.train, gids,
-                                   pad_to=cfg.client_num_per_round,
-                                   device=self.device)
+            cohort = self._gather(gids)
             w_group = params
             r_g = prng.fold_in(round_key, gidx)
             for _ in range(cfg.group_comm_round):
@@ -137,8 +186,10 @@ class HierarchicalFedAvg(FedAvg):
         params = {k: v.to(self.device) for k, v in params.items()}
         params, rng, start_round = self._maybe_resume(checkpointer, params,
                                                       rng)
+        params = broadcast_params(params, self.mesh)
         for global_round in range(start_round, cfg.comm_round):
             t0 = time.perf_counter()
+            c0 = self._collective_ms()
             ids = sample_clients(global_round, self.data.client_num,
                                  cfg.client_num_per_round)
             groups = self._group_clients(np.asarray(ids))
@@ -147,6 +198,7 @@ class HierarchicalFedAvg(FedAvg):
             synchronize(self.device)
             round_s = time.perf_counter() - t0
             self.round_times.append(round_s)
+            self._count_collectives(c0)
             self._maybe_eval(params, global_round, round_s)
             if checkpointer is not None:
                 checkpointer.maybe_save(

@@ -12,6 +12,12 @@ total, ...]``; each round gathers the cohort's rows to the device and
 scatters the updated rows back, so the round runs through FedAvg's host
 loop (``cohort_step`` is replaced).  The round's client ids are re-derived
 from the seeded sampling chain by an internal round counter.
+
+``mesh=`` shards the cohort's rows over the mesh's ``clients`` axis
+through `parallel.cohort.make_sharded_stateful_round`: each rank trains its
+block (keys of the global slots), the weighted sums and counts are summed
+over the ranks, and the updated variates come back gathered, so every rank
+scatters the same rows into its own host mirror.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                scatter_client_rows,
                                                zeros_client_state)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
-from fedml_tpu_torch.parallel.cohort import cohort_rngs
+from fedml_tpu_torch.parallel.cohort import (cohort_rngs, cohort_rows,
+                                             make_sharded_stateful_round,
+                                             psum_fn)
 from fedml_tpu_torch.trainer.local_sgd import (clip_by_global_norm,
                                                step_grad, with_rng_inputs)
 from fedml_tpu_torch.trainer.workload import Workload
@@ -66,7 +74,7 @@ def make_scaffold_local(workload: Workload, lr: float, epochs: int):
 
 class Scaffold(FedAvg):
     def __init__(self, workload, data, config: ScaffoldConfig, sink=None,
-                 device=None):
+                 device=None, mesh=None):
         if config.client_optimizer != "sgd":
             raise ValueError(
                 "scaffold's local update is plain SGD with control-variate "
@@ -77,7 +85,8 @@ class Scaffold(FedAvg):
                 "scaffold does not support stateful (BatchNorm) workloads: "
                 "control variates over running statistics are undefined — "
                 "use a GroupNorm model (e.g. resnet18_gn)")
-        super().__init__(workload, data, config, sink=sink, device=device)
+        super().__init__(workload, data, config, sink=sink, device=device,
+                         mesh=mesh)
         cfg = config
         self._round_counter = 0
         self.c_global = None
@@ -85,18 +94,20 @@ class Scaffold(FedAvg):
         local = make_scaffold_local(workload, cfg.lr, cfg.epochs)
         n_total = data.client_num
 
-        def core(params, cohort, c_global, c_cohort, seed_words=(0, 0)):
+        def core(params, cohort, c_global, c_cohort, seed_words=(0, 0),
+                 psum_axis=None, index_offset=0):
+            """One SCAFFOLD round over the cohort, or over a rank's block
+            of it with ``psum_axis`` the sum over the ranks."""
+            allsum = psum_fn(psum_axis)
             c_diffs = {k: c_global[k][None] - c_cohort[k] for k in c_global}
-            rngs = cohort_rngs(local, cohort, seed_words)
+            rngs = cohort_rngs(local, cohort, seed_words, index_offset)
             extra = () if rngs is None else (rngs,)
             ys, ks = vmap(local, in_dims=(None, 0, 0) + (0,) * len(extra))(
                 params, batch_leaves(cohort), c_diffs, *extra)
             w = cohort["num_samples"].to(torch.float32)
             live = (w > 0).to(torch.float32)
-            ratio = w / torch.clamp_min(torch.sum(w), 1.0)
-            new_params = {k: x + torch.sum((ys[k] - x[None])
-                                           * bcast(ratio, x.dim() + 1), 0)
-                          for k, x in params.items()}
+            tot = allsum({"w": torch.sum(w), "live": torch.sum(live)})
+            ratio = w / torch.clamp_min(tot["w"], 1.0)
             k_safe = torch.clamp_min(ks, 1.0)
             new_c = {k: torch.where(
                          bcast(live, x.dim() + 1) > 0,
@@ -105,15 +116,24 @@ class Scaffold(FedAvg):
                          / (bcast(k_safe, x.dim() + 1) * cfg.lr),
                          c_cohort[k])
                      for k, x in params.items()}
-            m = torch.clamp_min(torch.sum(live), 1.0)
+            sums = allsum({
+                **{"x/" + k: torch.sum((ys[k] - x[None])
+                                       * bcast(ratio, x.dim() + 1), 0)
+                   for k, x in params.items()},
+                **{"c/" + k: torch.sum((new_c[k] - c_cohort[k])
+                                       * bcast(live, new_c[k].dim()), 0)
+                   for k in c_global}})
+            new_params = {k: x + sums["x/" + k] for k, x in params.items()}
+            m = torch.clamp_min(tot["live"], 1.0)
             frac = m / n_total
-            new_cg = {k: cg + frac * torch.sum(
-                          (new_c[k] - c_cohort[k])
-                          * bcast(live, new_c[k].dim()), 0) / m
+            new_cg = {k: cg + frac * sums["c/" + k] / m
                       for k, cg in c_global.items()}
             return new_params, new_c, new_cg
 
-        self._round_step = core
+        self._round_step = core if mesh is None else \
+            make_sharded_stateful_round(
+                core, mesh, in_specs=(None, "clients", None, "clients", None),
+                out_specs=(None, "clients", None))
         self.cohort_step = self._stateful_step
 
     def run(self, params=None, checkpointer=None):
@@ -132,8 +152,8 @@ class Scaffold(FedAvg):
         ids = self._sample_round(self._round_counter)
         self._round_counter += 1
         c_cohort = gather_client_rows(self.c_locals, ids,
-                                      cohort["num_samples"].shape[0],
-                                      self.device)
+                                      cohort_rows(cohort),
+                                      self._state_device())
         params, new_c, self.c_global = self._round_step(
             params, cohort, self.c_global, c_cohort, seed_words)
         self.c_locals = scatter_client_rows(self.c_locals, ids, new_c)

@@ -21,8 +21,8 @@ contributes weight 0: inside a wave there is no per-client payload to
 screen.
 
 The JAX package also shards a wave over a mesh's ``clients`` axis; the
-port's waves run on one card, and a mesh is refused (ROADMAP Queue 1
-item 10, second part: ``--mesh_clients``)."""
+port's waves run on one rank, and a wave mesh is refused (ROADMAP Queue 1
+item 14)."""
 
 from __future__ import annotations
 
@@ -44,9 +44,9 @@ from fedml_tpu_torch.robust.admission import (AdmissionVerdict, _all_finite,
 
 MESH_REFUSAL = (
     "a wave mesh (the JAX package's shard_map over the 'clients' axis) is "
-    "not ported: the port's waves train on one card; sharding them over "
-    "cards arrives with --mesh_clients over torch.distributed (ROADMAP "
-    "Queue 1 item 10, second part)")
+    "not ported: the port's waves train on one rank, and their stacked "
+    "uploads feed a host-ordered fold whose place across ranks needs a "
+    "design of its own (ROADMAP Queue 1 item 14)")
 
 
 @dataclasses.dataclass(frozen=True)

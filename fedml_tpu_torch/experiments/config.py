@@ -2,7 +2,12 @@
 ``fedml_tpu/experiments/config.py`` the ported slices run, same flag names
 and defaults, plus the cross-silo flags that are refused by name).
 ``defense_backend`` and ``secagg_backend`` take the port's names:
-``torch`` (twin of ``xla``) and ``cuda`` (twin of ``pallas``)."""
+``torch`` (twin of ``xla``) and ``cuda`` (twin of ``pallas``).
+``deterministic`` is the port's own: cuDNN's deterministic algorithms
+and no TF32 on the card, for this run only, so a rerun is bit-equal and
+a mesh run differs from one process only where its sums are taken in
+another order or its clients train in vmaps of another width (cuDNN
+picks other algorithms for them)."""
 
 from __future__ import annotations
 
@@ -211,10 +216,20 @@ class ExperimentConfig:
     moe_experts: int = 0                 # >0: the Switch MoE FFN
     mesh_sequence: int = 0               # >0 is not ported (refused)
 
-    mesh_clients: int = 0                # >0 is not ported (refused)
+    mesh_clients: int = 0                # >0: shard the cohort over this
+    #                                      many ranks (one a mesh position)
+    mesh_groups: int = 0                 # >0 (hierarchical): [groups,
+    #                                      clients] mesh
+    host_device_count: int = 0           # CPU ranks one invocation may start
+    #                                      (0: one)
+    coordinator_address: Optional[str] = None  # host:port of rank 0's
+    #                                      rendezvous (a process a rank)
+    num_processes: int = 1
+    process_id: int = 0
     client_axis: str = "vmap"            # "vmap" | "scan"
     eval_chunk_clients: int = 1024       # evaluate_global clients per call
     platform: Optional[str] = None       # None/"gpu" -> cuda; "cpu"
+    deterministic: bool = False          # cuDNN deterministic, TF32 off
     # observability (obs/): the live paths (cross_silo, async_fl,
     # cross_device) record; ledgers land in run_dir unless given
     run_dir: Optional[str] = None        # metrics.jsonl + summary.json here

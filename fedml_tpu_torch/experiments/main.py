@@ -92,6 +92,7 @@ renders them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -148,28 +149,63 @@ def _make_workload(cfg: ExperimentConfig, data):
 
 
 def _summary(algo, params) -> Dict[str, Any]:
-    """The last eval row, the steady round rate (rounds after the first,
-    which carries the warm-up) and whether every parameter is finite."""
+    """The last eval row, the steady round rate and ms (rounds after the
+    first, which carries the warm-up: their mean, median, least and
+    largest), whether every parameter is finite, the params' sha256 and
+    the device.  On a mesh also the world, its backend, every rank's
+    params sha256 (comma-separated, rank order) and the steady ms a round
+    spent in collectives (mean, median, least, largest)."""
+    from fedml_tpu_torch.parallel.mesh import params_sha256
     out = dict(algo.history[-1]) if algo.history else {}
     steady = algo.round_times[1:] or algo.round_times
     out["rounds_per_s"] = len(steady) / sum(steady) if steady else 0.0
+    out["round_ms"] = 1e3 * sum(steady) / len(steady) if steady else 0.0
+    out.update(_spread("round_ms", [1e3 * t for t in steady]))
     out["params_finite"] = all(
         bool(v.isfinite().all()) for v in params.values())
+    out["params_sha256"] = params_sha256(params)
+    out["device"] = str(algo.device)
+    mesh = getattr(algo, "mesh", None)
+    if mesh is not None:
+        coll = algo.collective_times[1:] or algo.collective_times
+        out.update(
+            world_size=mesh.world_size, dist_backend=str(mesh.backend),
+            mesh_shape="x".join(f"{a}={n}" for a, n in mesh.shape.items()),
+            rank_params_sha256=",".join(mesh.gather_hashes(params)),
+            collective_ms_per_round=sum(coll) / len(coll) if coll else 0.0)
+        out.update(_spread("collective_ms", coll))
     return out
 
 
-def make_checkpointer(cfg: ExperimentConfig):
+def _spread(name: str, xs) -> Dict[str, float]:
+    """The median, least and largest of ``xs`` as ``<name>_median`` /
+    ``_min`` / ``_max`` (nothing for no value)."""
+    if not len(xs):
+        return {}
+    return {f"{name}_median": float(np.median(xs)),
+            f"{name}_min": float(min(xs)), f"{name}_max": float(max(xs))}
+
+
+def make_checkpointer(cfg: ExperimentConfig, writer: bool = True):
+    """The run's `RoundCheckpointer`; ``writer`` False (a mesh rank other
+    than 0) resumes from the run's checkpoints and writes none."""
     if not cfg.checkpoint_dir:
         return None
     from fedml_tpu_torch.utils.checkpoint import RoundCheckpointer
-    return RoundCheckpointer(cfg.checkpoint_dir,
-                             save_every=cfg.checkpoint_every,
-                             async_save=cfg.checkpoint_async,
-                             keep_last_n=cfg.checkpoint_keep_last_n)
+
+    class Reader(RoundCheckpointer):
+        def save(self, round_idx, state) -> None:
+            pass
+
+    return (RoundCheckpointer if writer else Reader)(
+        cfg.checkpoint_dir, save_every=cfg.checkpoint_every,
+        async_save=cfg.checkpoint_async,
+        keep_last_n=cfg.checkpoint_keep_last_n)
 
 
 def _run_with_checkpoints(cfg, algo):
-    ckpt = make_checkpointer(cfg)
+    mesh = getattr(algo, "mesh", None)
+    ckpt = make_checkpointer(cfg, writer=mesh is None or mesh.rank == 0)
     try:
         params = algo.run(checkpointer=ckpt)
     finally:
@@ -179,11 +215,11 @@ def _run_with_checkpoints(cfg, algo):
 
 
 @runner("fedavg")
-def run_fedavg(cfg, data, sink):
+def run_fedavg(cfg, data, sink, mesh=None):
     from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
     algo = FedAvg(_make_workload(cfg, data), data,
                   FedAvgConfig(**_fedavg_cfg_kwargs(cfg)), sink=sink,
-                  device=cfg.platform)
+                  device=cfg.platform, mesh=mesh)
     return _run_with_checkpoints(cfg, algo)
 
 
@@ -195,17 +231,17 @@ def algo(name: str):
     """Register an algorithm builder and the runner that runs it."""
     def deco(fn):
         ALGOS[name] = fn
-        RUNNERS[name] = lambda cfg, data, sink: _run_with_checkpoints(
-            cfg, build_algo(cfg, data, sink))
+        RUNNERS[name] = lambda cfg, data, sink, mesh=None: \
+            _run_with_checkpoints(cfg, build_algo(cfg, data, sink, mesh))
         return fn
     return deco
 
 
-def build_algo(cfg: ExperimentConfig, data, sink=None):
+def build_algo(cfg: ExperimentConfig, data, sink=None, mesh=None):
     """The algorithm object ``--algo`` names, as its runner builds it."""
     cls, config = ALGOS[cfg.algo](cfg)
     return cls(_make_workload(cfg, data), data, config, sink=sink,
-               device=cfg.platform)
+               device=cfg.platform, mesh=mesh)
 
 
 @algo("fedprox")
@@ -369,11 +405,11 @@ def fedavg_robust_config(cfg: ExperimentConfig):
 
 
 @runner("fedavg_robust")
-def run_fedavg_robust(cfg, data, sink):
+def run_fedavg_robust(cfg, data, sink, mesh=None):
     from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobust
     algo = FedAvgRobust(_make_workload(cfg, data), data,
                         fedavg_robust_config(cfg), sink=sink,
-                        device=cfg.platform)
+                        device=cfg.platform, mesh=mesh)
     return _run_with_checkpoints(cfg, algo)
 
 
@@ -1602,7 +1638,7 @@ def run_async_fl(cfg, data, sink):
     return AsyncFederation(cfg, data, sink).run()
 
 
-def hierarchical_algo(cfg: ExperimentConfig, data, sink=None):
+def hierarchical_algo(cfg: ExperimentConfig, data, sink=None, mesh=None):
     """The runner's `HierarchicalFedAvg`: ``--group_num`` groups of
     ``--group_comm_round`` rounds a global round."""
     from fedml_tpu_torch.algorithms.hierarchical import (HierarchicalConfig,
@@ -1611,19 +1647,20 @@ def hierarchical_algo(cfg: ExperimentConfig, data, sink=None):
         _make_workload(cfg, data), data, HierarchicalConfig(
             group_num=cfg.group_num, group_comm_round=cfg.group_comm_round,
             **_fedavg_cfg_kwargs(cfg)),
-        sink=sink, device=cfg.platform)
+        mesh=mesh, sink=sink, device=cfg.platform)
 
 
 @runner("hierarchical")
-def run_hierarchical(cfg, data, sink):
-    return _run_with_checkpoints(cfg, hierarchical_algo(cfg, data, sink))
+def run_hierarchical(cfg, data, sink, mesh=None):
+    return _run_with_checkpoints(cfg, hierarchical_algo(cfg, data, sink,
+                                                        mesh))
 
 
 # flags of the JAX package the port refuses, with what they need:
 # (default, the ROADMAP item that brings it)
 REFUSED_FLAGS = {
-    "mesh_stages": (0, "parallel/pipeline.py, with the parallelism slice "
-                       "(ROADMAP Queue 1, item 10's second part)"),
+    "mesh_stages": (0, "parallel/pipeline.py, with the model and sequence "
+                       "parallelism slice (ROADMAP Queue 1, item 14)"),
 }
 
 
@@ -2109,18 +2146,160 @@ def check_config(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             "--mesh_sequence is not ported yet; sequence parallelism "
             "(parallel/ring_attention.py, sequence.py) arrives over "
-            "torch.distributed with the parallelism slice (ROADMAP Queue 1, "
-            "item 10's second part)")
-    if cfg.mesh_clients:
-        raise NotImplementedError(
-            "--mesh_clients is not ported yet; the shard_map cohort step "
-            "arrives over torch.distributed with the parallelism slice "
-            "(ROADMAP Queue 1, item 10's second part)")
+            "torch.distributed with the model and sequence parallelism "
+            "slice (ROADMAP Queue 1, item 14)")
+    check_mesh(cfg)
     if cfg.checkpoint_dir and cfg.algo == "turboaggregate":
         raise NotImplementedError(
             "--checkpoint_dir with --algo turboaggregate is not ported yet; "
             "the secure cohort loop has no checkpoint hooks (ROADMAP Queue 1 "
             "item 12, with the rest of the standalone secure loops)")
+
+
+# the runners that take a mesh (--mesh_clients, --mesh_groups)
+MESH_RUNNERS = {"fedavg", "fedprox", "fedopt", "fednova", "scaffold",
+                "feddyn", "ditto", "fedac", "dp_fedavg", "fedavg_robust",
+                "hierarchical"}
+
+
+def check_mesh(cfg: ExperimentConfig) -> None:
+    """The JAX package's gates on the mesh flags, and the port's refusal
+    of the wave mesh."""
+    if cfg.mesh_clients < 0 or cfg.mesh_groups < 0:
+        raise ValueError(f"--mesh_clients and --mesh_groups must be >= 0, "
+                         f"got {cfg.mesh_clients}, {cfg.mesh_groups}")
+    if cfg.mesh_groups > 0 and cfg.algo != "hierarchical":
+        raise ValueError(
+            "--mesh_groups builds the two-level [groups, clients] mesh, "
+            "which only the hierarchical algorithm consumes; other "
+            f"algorithms (got --algo {cfg.algo}) would silently "
+            "duplicate work across the groups axis. Use --mesh_clients.")
+    if cfg.num_processes > 1 and not (cfg.mesh_clients or cfg.mesh_groups):
+        raise ValueError(
+            f"--num_processes {cfg.num_processes} starts one rank a mesh "
+            f"position; pass --mesh_clients (or --mesh_groups) to say the "
+            f"mesh")
+    if not (cfg.mesh_clients or cfg.mesh_groups):
+        return
+    if cfg.algo == "async_fl":
+        raise ValueError("--mesh_clients does not apply to the async "
+                         "actor mode (each silo trains single-chip)")
+    if cfg.algo == "cross_silo":
+        raise ValueError("--mesh_clients does not apply to the cross-silo "
+                         "actor mode (each silo trains single-chip); drop "
+                         "the flag or use --algo fedavg for on-pod sharding")
+    if cfg.algo == "cross_device":
+        from fedml_tpu_torch.device_cohort.waves import MESH_REFUSAL
+        raise NotImplementedError(MESH_REFUSAL)
+    if cfg.algo not in MESH_RUNNERS:
+        raise ValueError(
+            f"--mesh_clients does not shard --algo {cfg.algo}: its runner "
+            f"takes no mesh (the mesh runners: {sorted(MESH_RUNNERS)})")
+    if cfg.algo == "fedavg_robust":
+        # FedAvgRobust's own gates, here before any rank starts
+        from fedml_tpu_torch.core.byzantine import METHODS
+        if cfg.defense in METHODS:
+            raise ValueError(
+                f"defense {cfg.defense!r} needs the full cohort on one "
+                "chip (sorts / pairwise distances); drop --mesh_clients")
+        if cfg.defense_backend == "cuda" and cfg.defense != "none":
+            raise ValueError("defense_backend='cuda' does not shard over a "
+                             "mesh; drop --mesh_clients or use the torch "
+                             "backend")
+
+
+def _on_cpu(cfg: ExperimentConfig) -> bool:
+    return cfg.platform is not None and \
+        torch.device(str(cfg.platform)).type == "cpu"
+
+
+def mesh_shape(cfg: ExperimentConfig, n_dev: Optional[int]):
+    """The mesh's axis sizes over ``n_dev`` devices (ranks), with the JAX
+    package's errors, or None without mesh flags.  ``n_dev`` None: no cap
+    (CUDA ranks may share a card); the sizes the flags leave out default
+    to the visible cards."""
+    from fedml_tpu_torch.parallel.mesh import (check_mesh_factors,
+                                               check_two_level_factors)
+    if cfg.mesh_groups > 0:
+        avail = n_dev if n_dev is not None else torch.cuda.device_count()
+        n_cli = cfg.mesh_clients or avail // cfg.mesh_groups
+        if n_cli < 1:
+            raise ValueError(
+                f"--mesh_groups {cfg.mesh_groups} exceeds the {avail} "
+                f"available devices")
+        want = cfg.mesh_groups * n_cli
+        check_two_level_factors(cfg.mesh_groups, n_cli,
+                                want if n_dev is None else min(want, n_dev))
+        return {"groups": cfg.mesh_groups, "clients": n_cli}
+    if cfg.mesh_clients > 0:
+        want = cfg.mesh_clients
+        check_mesh_factors(want, 1, want if n_dev is None
+                           else min(want, n_dev))
+        return {"clients": want, "model": 1}
+    return None
+
+
+def build_mesh(cfg: ExperimentConfig):
+    """This rank's mesh of the run's process group, or None."""
+    from fedml_tpu_torch.parallel import mesh as mesh_lib
+    shape = mesh_shape(cfg, mesh_lib.rank_and_world()[1])
+    if shape is None:
+        if mesh_lib.rank_and_world()[1] > 1:
+            raise ValueError("a run of several ranks needs --mesh_clients "
+                             "(or --mesh_groups) to say its mesh")
+        return None
+    if "groups" in shape:
+        return mesh_lib.make_two_level_mesh(shape["groups"],
+                                            shape["clients"],
+                                            device=cfg.platform)
+    return mesh_lib.make_mesh(shape["clients"], device=cfg.platform)
+
+
+def _joined(cfg: ExperimentConfig) -> bool:
+    """Whether this process is (or becomes) a rank of a group started
+    elsewhere: one is up, or the coordinator flags or torchrun's
+    environment name one."""
+    import os
+    import torch.distributed as dist
+    return (dist.is_initialized() or cfg.coordinator_address is not None
+            or ("RANK" in os.environ and "WORLD_SIZE" in os.environ))
+
+
+def launch_mesh(cfg: ExperimentConfig, world: int) -> Dict[str, Any]:
+    """Start the mesh's ``world`` ranks from this invocation (one rank: in
+    this process) and return rank 0's summary."""
+    import os
+    import tempfile
+    from fedml_tpu_torch.parallel import mesh as mesh_lib
+    from fedml_tpu_torch.parallel.launch import spawn_ranks
+    platform = "cpu" if _on_cpu(cfg) else None
+    if world == 1:
+        with tempfile.TemporaryDirectory(prefix="fedml_ranks_") as tmp:
+            mesh_lib.init_from_file(os.path.join(tmp, "store"), 0, 1,
+                                    platform=platform)
+            try:
+                return run(cfg)
+            finally:
+                mesh_lib.shutdown_distributed()
+    device = torch.device("cpu" if platform else "cuda")
+    logger.info("mesh: starting %d ranks on %s (backend %s)", world,
+                "the CPU" if platform else "the cards",
+                mesh_lib.choose_backend(device, world))
+    summary = spawn_ranks(_mesh_rank, world, args=(cfg,),
+                          platform=platform)[0]
+    _print_summary(cfg, summary)
+    return summary
+
+
+def _mesh_rank(cfg: ExperimentConfig) -> Dict[str, Any]:
+    return run(cfg, print_summary=False)
+
+
+def _print_summary(cfg: ExperimentConfig, summary: Dict[str, Any]) -> None:
+    print(json.dumps({"algo": cfg.algo, "dataset": cfg.dataset,
+                      "model": cfg.model,
+                      **{k: v for k, v in summary.items()
+                         if isinstance(v, (int, float, str))}}), flush=True)
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -2130,8 +2309,58 @@ def main(argv=None) -> Dict[str, Any]:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
     check_config(cfg)
-    device = resolve_device(cfg.platform)
+    if not _joined(cfg):
+        shape = mesh_shape(cfg, (cfg.host_device_count or 1)
+                           if _on_cpu(cfg) else None)
+        if shape is not None:
+            return launch_mesh(cfg, int(np.prod(list(shape.values()))))
+    return run(cfg)
+
+
+@contextlib.contextmanager
+def deterministic_flags(on: bool):
+    """Inside the block, when ``on``: cuDNN's deterministic algorithms,
+    no autotuning and TF32 off.  The process-wide flags are restored after
+    it, so a caller in the same process does not inherit them."""
+    b = torch.backends
+    saved = (b.cudnn.deterministic, b.cudnn.benchmark,
+             b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+    if on:
+        b.cudnn.deterministic, b.cudnn.benchmark = True, False
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (b.cudnn.deterministic, b.cudnn.benchmark,
+         b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32) = saved
+
+
+def run(cfg: ExperimentConfig, print_summary: bool = True
+        ) -> Dict[str, Any]:
+    """One process's run: join the process group the flags name, build
+    its mesh, run ``--algo``; rank 0 writes the artifacts and prints the
+    summary line.  ``--deterministic`` holds for this call only."""
+    with deterministic_flags(cfg.deterministic):    # each rank runs this
+        return _run(cfg, print_summary)
+
+
+def _run(cfg: ExperimentConfig, print_summary: bool) -> Dict[str, Any]:
+    import os
+    from fedml_tpu_torch.parallel.mesh import init_distributed
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s: %(message)s")
+    init_distributed(cfg.coordinator_address, cfg.num_processes,
+                     cfg.process_id, platform=cfg.platform)
+    mesh = build_mesh(cfg)
+    if mesh is not None:
+        logger.info("mesh %s: rank %d of %d, backend %s, device %s",
+                    mesh.shape, mesh.rank, mesh.world_size, mesh.backend,
+                    mesh.device)
+        if mesh.rank != 0:      # rank 0 reports the run
+            logger.setLevel(logging.WARNING)
+    device = mesh.device if mesh is not None else resolve_device(cfg.platform)
     cfg = dataclasses.replace(cfg, platform=str(device))
+    is_main = mesh is None or mesh.rank == 0
     data = load_experiment_data(cfg)
     logger.info("algo=%s model=%s dataset=%s clients=%d device=%s",
                 cfg.algo, cfg.model, cfg.dataset, data.client_num, device)
@@ -2140,7 +2369,6 @@ def main(argv=None) -> Dict[str, Any]:
     # transport or actor (instrumented constructors cache their handles);
     # the exports run in the finally, so a crashed run still leaves its
     # telemetry snapshot and the spans recorded so far
-    import os
     from fedml_tpu_torch.obs import telemetry as _telemetry
     from fedml_tpu_torch.obs import trace as _trace
     from fedml_tpu_torch.utils.metrics import profiler_trace
@@ -2157,11 +2385,17 @@ def main(argv=None) -> Dict[str, Any]:
     if cfg.trace_dir:
         tracer = _trace.enable(node=f"node{cfg.node_id}")
     try:
-        with MetricsSink(run_dir, stdout=cfg.log_stdout,
+        # only rank 0 writes run artifacts; the other ranks keep an
+        # in-memory sink, so the runners are rank-agnostic
+        with MetricsSink(run_dir if is_main else None,
+                         stdout=cfg.log_stdout and is_main,
                          name=cfg.algo) as sink:
             sink.log({"config": dataclasses.asdict(cfg)})
-            with profiler_trace(cfg.profile_dir, device):
-                summary = RUNNERS[cfg.algo](cfg, data, sink)
+            with profiler_trace(cfg.profile_dir if is_main else None,
+                                device):
+                summary = (RUNNERS[cfg.algo](cfg, data, sink, mesh=mesh)
+                           if mesh is not None
+                           else RUNNERS[cfg.algo](cfg, data, sink))
             sink.log({"final": summary})
     finally:
         # each teardown step on its own: a failing export must not skip
@@ -2176,7 +2410,7 @@ def main(argv=None) -> Dict[str, Any]:
                 logger.exception("trace export failed")
             _trace.disable()
         if registry is not None:
-            if run_dir is not None:
+            if run_dir is not None and is_main:
                 try:
                     registry.save(os.path.join(run_dir, "telemetry.json"))
                     with open(os.path.join(run_dir, "telemetry.prom"),
@@ -2188,10 +2422,8 @@ def main(argv=None) -> Dict[str, Any]:
                 prom_server.shutdown()
                 prom_server.server_close()
             _telemetry.disable()
-    print(json.dumps({"algo": cfg.algo, "dataset": cfg.dataset,
-                      "model": cfg.model,
-                      **{k: v for k, v in summary.items()
-                         if isinstance(v, (int, float, str))}}))
+    if is_main and print_summary:
+        _print_summary(cfg, summary)
     return summary
 
 

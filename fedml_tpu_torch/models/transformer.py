@@ -196,7 +196,7 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "ring_axis (sequence-parallel ring attention) is not ported "
                 "yet; it arrives with parallel/ring_attention.py over "
-                "torch.distributed (ROADMAP Queue 1 item 10)")
+                "torch.distributed (ROADMAP Queue 1 item 14)")
         t = input_seq.shape[1]
         if positions is None:
             positions = torch.arange(t, device=input_seq.device)

@@ -1,9 +1,9 @@
 """The cohort engine: one FL round over a stacked cohort.
 
-Port of ``fedml_tpu/parallel/cohort.py`` (single device; the mesh path is
-not ported).  A cohort is a dict of tensors ``{x, y, mask: [C, S, B,
-...], num_samples: [C]}``; the local trainer runs over its client axis in
-one of two ways, which give identical stacked outputs:
+Port of ``fedml_tpu/parallel/cohort.py``.  A cohort is a dict of tensors
+``{x, y, mask: [C, S, B, ...], num_samples: [C]}``; the local trainer runs
+over its client axis in one of two ways, which give identical stacked
+outputs:
 
 * ``"vmap"`` — ``torch.func.vmap`` trains all clients together; convs
   with per-client weights become grouped convs;
@@ -24,6 +24,14 @@ the round is captured once as a ``torch.cuda.CUDAGraph`` (`GraphedRounds`)
 and replayed, K times a chunk, with the chunk's ids and live masks copied
 to the device in one transfer and a device-side round counter picking
 each replay's row.
+
+On a mesh (`parallel.mesh.Mesh`, one rank a position of its ``clients``
+axis) each rank trains its block of the cohort's rows with the keys of
+their global slots and the round's reductions become sums over the ranks
+(`Mesh.allsum`): `make_cohort_step` and `cohort_eval` take ``mesh=``, and
+`make_sharded_stateful_round` is the one wrap the stateful algorithms
+share.  A mesh always takes the host loop: no resident split and no CUDA
+graph (gloo's collectives cannot be captured).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from torch.func import vmap
 
 from fedml_tpu_torch.core import prng
 from fedml_tpu_torch.core.pytree import Tree, tree_stack, tree_weighted_mean
+from fedml_tpu_torch.parallel.mesh import Shard, stage_global
 
 CohortData = Dict[str, torch.Tensor]
 
@@ -121,23 +130,113 @@ def _call_aggregate(aggregate, stacked, weights, global_params, seed_words):
     return aggregate(stacked, weights)
 
 
+def bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-client ``[C]`` vector shaped to broadcast over ``[C, ...]``
+    leaves of ``ndim`` dims."""
+    return v.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def psum_fn(psum_axis) -> Callable:
+    """The sum over the ranks of a mesh axis that a shared round body
+    applies to its partial sums (a tensor or a dict of tensors): the
+    identity off a mesh."""
+    return (lambda x: x) if psum_axis is None else psum_axis
+
+
+def cohort_rows(cohort) -> int:
+    """The whole cohort's client count, of a cohort or of a rank's staged
+    block of it."""
+    return getattr(cohort, "global_rows", None) \
+        or cohort["num_samples"].shape[0]
+
+
+def _local(tree):
+    """A staged tree as the plain dict the trainers take."""
+    return dict(tree) if isinstance(tree, Shard) else tree
+
+
 def make_cohort_step(local_train, aggregate=tree_weighted_mean,
-                     transform_update=None, client_axis: str = "vmap"
-                     ) -> Callable:
+                     transform_update=None, client_axis: str = "vmap",
+                     mesh=None) -> Callable:
     """Build ``step(global_params, cohort_data, seed_words) -> (new_global,
-    metrics)``: train the cohort, apply the per-client hook, aggregate."""
+    metrics)``: train the cohort, apply the per-client hook, aggregate.
 
-    def step(global_params: Tree, cohort_data: CohortData,
-             seed_words: Sequence[int] = (0, 0)):
+    ``mesh``: shard the cohort's rows over the mesh's ``clients`` axis.
+    Each rank trains its block (its clients keyed by their global slots),
+    takes the weighted partial sums of its rows and one sum over the ranks
+    gives every rank the new global; the per-client metrics come back
+    gathered.  The cohort (all of it, or a `stage_global` shard) must
+    divide over the axis; the aggregate is the weighted mean."""
+
+    if mesh is None:
+        def step(global_params: Tree, cohort_data: CohortData,
+                 seed_words: Sequence[int] = (0, 0)):
+            stacked, metrics = train_cohort(
+                local_train, global_params, cohort_data, seed_words,
+                transform_update=transform_update, client_axis=client_axis)
+            new_global = _call_aggregate(aggregate, stacked,
+                                         cohort_data["num_samples"],
+                                         global_params, seed_words)
+            return new_global, metrics
+        return step
+
+    if aggregate is not tree_weighted_mean:
+        raise ValueError(
+            "the mesh cohort step aggregates with the weighted mean, a sum "
+            "over the ranks; another aggregate needs the whole cohort on "
+            "one rank")
+
+    def sharded(global_params: Tree, cohort_data: CohortData,
+                seed_words: Sequence[int] = (0, 0)):
+        local = stage_global(cohort_data, mesh, "clients")
+        params = stage_global(global_params, mesh)
+        offset = mesh.axis_index("clients") * local["num_samples"].shape[0]
         stacked, metrics = train_cohort(
-            local_train, global_params, cohort_data, seed_words,
-            transform_update=transform_update, client_axis=client_axis)
-        new_global = _call_aggregate(aggregate, stacked,
-                                     cohort_data["num_samples"],
-                                     global_params, seed_words)
-        return new_global, metrics
+            local_train, params, _local(local), seed_words,
+            transform_update=transform_update, client_axis=client_axis,
+            index_offset=offset)
+        w = local["num_samples"].to(torch.float32)
+        ratio = w / mesh.allsum(torch.sum(w))
+        new_global = mesh.allsum({
+            k: torch.sum(x * bcast(ratio, x.dim()).to(x.dtype), 0)
+            for k, x in stacked.items()})
+        return new_global, mesh.all_gather_rows(metrics)
 
-    return step
+    return sharded
+
+
+def make_sharded_stateful_round(core, mesh, in_specs, out_specs):
+    """Wrap a shared round body ``core(*args, psum_axis=, index_offset=)``
+    for the mesh: the one home of the stateful algorithms' mesh convention
+    (FedNova, SCAFFOLD, FedDyn, Ditto, FedAC, DP-FedAvg share it).
+
+    ``in_specs``: per positional argument, None (replicated: moved to the
+    rank's device) or ``"clients"`` (the rank's block of rows); the second
+    argument is the cohort, whose block gives the rank's global slot
+    offset.  ``core`` reduces with ``psum_axis`` (a sum over the ranks of
+    the ``clients`` axis).  ``out_specs``: per output, None or
+    ``"clients"``; a ``"clients"`` output is gathered over the axis, so
+    every rank holds the whole cohort's rows and mirrors the host state
+    as every other rank does (the JAX package's multi-process branch)."""
+    in_specs = in_specs if isinstance(in_specs, tuple) else (in_specs,)
+    single = not isinstance(out_specs, tuple)
+    out_specs = (out_specs,) if single else out_specs
+
+    def psum(tree):
+        return mesh.allsum(tree, "clients")
+
+    def staged(*args):
+        args = [_local(stage_global(a, mesh, s))
+                for a, s in zip(args, in_specs)] + list(args[len(in_specs):])
+        offset = (mesh.axis_index("clients")
+                  * args[1]["num_samples"].shape[0])
+        out = core(*args, psum_axis=psum, index_offset=offset)
+        outs = tuple(mesh.all_gather_rows(o, "clients") if s == "clients"
+                     else o
+                     for o, s in zip((out,) if single else out, out_specs))
+        return outs[0] if single else outs
+
+    return staged
 
 
 def pad_clients(data: CohortData, n: int) -> CohortData:
@@ -151,15 +250,26 @@ def pad_clients(data: CohortData, n: int) -> CohortData:
             for k, v in data.items()}
 
 
-def cohort_eval(evaluate):
+def cohort_eval(evaluate, mesh=None):
     """Evaluate one (global) model over a stacked cohort of datasets;
-    returns the summed metric dict."""
+    returns the summed metric dict.  ``mesh``: the cohort (host or device
+    tensors, any client count) is padded to the ``clients`` axis, each
+    rank evaluates its block and the sums are summed over the ranks."""
 
     def _eval_cohort(params: Tree, data: CohortData) -> Dict[str, torch.Tensor]:
         return evaluate(params, {k: v for k, v in data.items()
                                  if k != "num_samples"})
 
-    return _eval_cohort
+    if mesh is None:
+        return _eval_cohort
+
+    def sharded(params: Tree, data: CohortData) -> Dict[str, torch.Tensor]:
+        data = pad_clients({k: torch.as_tensor(v) for k, v in data.items()},
+                           mesh.shape["clients"])
+        local = _local(stage_global(data, mesh, "clients"))
+        return mesh.allsum(_eval_cohort(stage_global(params, mesh), local))
+
+    return sharded
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,519 @@
-"""Device layout of the sharded spine (port of
-``fedml_tpu/parallel/mesh.py::make_model_mesh``).
+"""Meshes over ``torch.distributed`` (port of ``fedml_tpu/parallel/mesh.py``,
+all of it but ``tp_shard_params``).
 
-JAX lays the spine's shards on a ``[1, S]`` mesh; here the "mesh" is the
-list of devices the shards live on, one per shard."""
+JAX places one controller over many devices; the port runs one process
+(rank) per mesh position, as PyTorch does, and a `Mesh` is the rank's view
+of the grid: its axis sizes (``mesh.shape["clients"]``, ``axis_names``),
+its coordinates on each axis, its device and one process group per axis
+(the ``clients`` subgroup it shares with the ranks of its row, and on the
+two-level mesh the ``groups`` subgroup of its column).
+
+* Each rank owns one device: ``cuda:(local_rank % device_count)``, or the
+  CPU when the run asks for it.
+* The backend follows from that layout and never changes on a failure:
+  NCCL when every rank of a host has a card of its own, gloo on the CPU or
+  when ranks share a card (NCCL refuses two ranks on one device).
+* Every collective goes through the mesh (`Mesh.allsum`,
+  `Mesh.all_gather_rows`, `Mesh.broadcast`).  On gloo a CUDA tensor is
+  staged through a pinned host buffer explicitly: the collective runs on
+  the host copy and the result is copied back.  A sum over ranks is one
+  ``all_reduce`` per dtype: NCCL's and gloo's reductions hand every rank
+  the same reduced bits, which the runs' per-rank sha256 of the globals
+  (`Mesh.gather_hashes`) checks.
+* A collective that fails raises; nothing is retried on another backend.
+
+`init_distributed` is the ``mpirun -np N`` replacement: the coordinator
+flags (``tcp://`` rendezvous), torchrun's environment, or a file store
+(`init_from_file`, which `parallel.launch` uses for the ranks one
+invocation starts).  Without any of them a run is one process and a mesh
+of one position needs no process group.
+
+`stage_global` moves host data to the rank: replicated trees to its
+device, a ``"clients"``-sharded tree as the rank's block of rows
+``[r·C/D, (r+1)·C/D)``.  Every rank holds the same host dataset, as in
+the JAX package."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+import datetime
+import hashlib
+import os
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
+
+# seconds a rendezvous or a collective waits for the other ranks before
+# it raises
+DIST_TIMEOUT_S = 300.0
+
+
+class _Runtime:
+    """What `init_distributed` chose for this process."""
+
+    def __init__(self, device: torch.device, backend: str):
+        self.device = device
+        self.backend = backend
+
+
+_RUNTIME: Optional[_Runtime] = None
+
+
+def rank_device(local_rank: int, platform=None) -> torch.device:
+    """The device of the rank with ``local_rank`` on its host: the CPU when
+    ``platform`` asks for it, else ``cuda:(local_rank % device_count)``."""
+    if platform is not None and torch.device(str(platform)).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass --platform cpu (or "
+            "device='cpu') to run the ranks on the CPU")
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def choose_backend(device: torch.device, local_world_size: int) -> str:
+    """NCCL when every rank of the host has a card of its own; gloo on the
+    CPU or when ranks share a card."""
+    if device.type == "cuda" \
+            and local_world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def _init(init_method: str, rank: int, world: int, local_rank: int,
+          local_world: int, platform, timeout_s: float) -> bool:
+    global _RUNTIME
+    device = rank_device(local_rank, platform)
+    backend = choose_backend(device, local_world)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    _RUNTIME = _Runtime(device, backend)
+    return True
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: int = 1, process_id: int = 0,
+                     platform=None, timeout_s: float = DIST_TIMEOUT_S
+                     ) -> bool:
+    """Join the run's process group: ``tcp://coordinator_address`` with
+    ``num_processes`` ranks, this one ``process_id``; or, without a
+    coordinator, torchrun's ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``
+    environment.  Returns whether a group is up (a no-op, False, for one
+    process with neither, as the JAX package's bootstrap is)."""
+    if dist.is_available() and dist.is_initialized():
+        return True
+    env = os.environ
+    if coordinator_address is None and "RANK" in env and "WORLD_SIZE" in env:
+        rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+        local_rank = int(env.get("LOCAL_RANK", rank))
+        local_world = int(env.get("LOCAL_WORLD_SIZE", world))
+        return _init("env://", rank, world, local_rank, local_world,
+                     platform, timeout_s)
+    if coordinator_address is None or num_processes <= 1:
+        return False
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id={process_id} must lie in [0, "
+                         f"{num_processes})")
+    # every rank named by the coordinator flags is taken to be on this
+    # host: their count decides whether each has a card of its own
+    return _init(f"tcp://{coordinator_address}", process_id, num_processes,
+                 process_id, num_processes, platform, timeout_s)
+
+
+def init_from_file(store_path: str, rank: int, world: int, platform=None,
+                   timeout_s: float = DIST_TIMEOUT_S) -> bool:
+    """Join a group of ``world`` ranks on this host through a file store
+    (no port to race for): the ranks one invocation starts."""
+    return _init(f"file://{store_path}", rank, world, rank, world, platform,
+                 timeout_s)
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group, if one is up."""
+    global _RUNTIME
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _RUNTIME = None
+
+
+def rank_and_world() -> Tuple[int, int]:
+    """This process's rank and the number of ranks (0 and 1 without a
+    process group)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _mesh_device(device) -> torch.device:
+    if _RUNTIME is not None:
+        if device is not None \
+                and torch.device(str(device)).type != _RUNTIME.device.type:
+            raise ValueError(f"the mesh's ranks run on "
+                             f"{_RUNTIME.device}; device={device} asks for "
+                             f"another kind")
+        return _RUNTIME.device
+    from fedml_tpu_torch.device import resolve_device
+    return resolve_device(device)
+
+
+class Mesh:
+    """One rank's view of an ``[a0, a1]`` grid of ranks (row-major: rank
+    ``r`` sits at ``(r // a1, r % a1)``).
+
+    ``shape`` maps axis names to sizes; ``coords`` this rank's index on
+    each; ``device`` and ``backend`` what `init_distributed` chose.  Once
+    a process group is up, each axis has a group of the ranks that differ
+    only in its coordinate; without one (a mesh of one position) the
+    collectives return their input.
+
+    ``collective_ms()`` is the time spent in collectives so far: CUDA
+    events around each one on a card (the host staging of gloo included),
+    the host clock on the CPU."""
+
+    def __init__(self, shape: Dict[str, int], device=None):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.rank, self.world_size = rank_and_world()
+        self.device = _mesh_device(device)
+        self.backend = _RUNTIME.backend if _RUNTIME is not None else None
+        sizes = [self.shape[a] for a in self.axis_names]
+        strides = [int(np.prod(sizes[i + 1:])) for i in range(len(sizes))]
+        self.coords = {a: (self.rank // s) % n for a, s, n in
+                       zip(self.axis_names, strides, sizes)}
+        self._groups: Dict[str, Any] = {}
+        if self.world_size > 1 or self.backend is not None:
+            for i, axis in enumerate(self.axis_names):
+                self._groups[axis] = self._axis_group(i, sizes, strides)
+        self._events: List[Tuple[Any, Any]] = []
+        self._host_ms = 0.0
+
+    def _axis_group(self, i: int, sizes, strides):
+        if sizes[i] == self.world_size:
+            return dist.group.WORLD
+        mine = None
+        # every rank creates every subgroup, in the same order
+        others = [a for a in range(len(sizes)) if a != i]
+        for fixed in np.ndindex(*[sizes[a] for a in others]):
+            base = sum(c * strides[a] for c, a in zip(fixed, others))
+            ranks = [base + k * strides[i] for k in range(sizes[i])]
+            group = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = group
+        return mine
+
+    # -- the grid ------------------------------------------------------------
+    def axis_index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank={self.rank}, device={self.device}, "
+                f"backend={self.backend})")
+
+    # -- collectives ---------------------------------------------------------
+    def _timed_start(self):
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def _timed_end(self, start) -> None:
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._events.append((start, ev))
+        else:
+            self._host_ms += (time.perf_counter() - start) * 1e3
+
+    def collective_ms(self) -> float:
+        """Milliseconds spent in collectives so far (synchronises with the
+        device on a card)."""
+        if self._events:
+            self._events[-1][1].synchronize()
+            self._host_ms += sum(a.elapsed_time(b) for a, b in self._events)
+            self._events = []
+        return self._host_ms
+
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the backend takes it: a pinned host copy for gloo."""
+        if self.backend == "gloo" and t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t)
+            return host
+        return t
+
+    def _gather_flat(self, flat: torch.Tensor, axis: str
+                     ) -> List[torch.Tensor]:
+        """Every rank's ``flat`` along ``axis``, in rank order, on this
+        rank's device."""
+        group = self._groups.get(axis)
+        if group is None:
+            return [flat]
+        start = self._timed_start()
+        src = self._staged(flat)
+        parts = [torch.empty_like(src) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, src, group=group)
+        if src is not flat:
+            parts = [p.to(flat.device, non_blocking=True) for p in parts]
+        self._timed_end(start)
+        return parts
+
+    def allsum(self, tree, axis: str = "clients"):
+        """The sum over ``axis`` of a tensor or a dict of tensors; one
+        ``all_reduce`` per dtype."""
+        if isinstance(tree, torch.Tensor):
+            return self.allsum({"_": tree}, axis)["_"]
+        group = self._groups.get(axis)
+        if group is None:
+            return tree
+        out = {}
+        for keys, flat in _by_dtype(tree):
+            start = self._timed_start()
+            # `_by_dtype`'s vector is a fresh copy: reduce it in place
+            buf = self._staged(flat)
+            dist.all_reduce(buf, group=group)
+            if buf is not flat:
+                flat.copy_(buf, non_blocking=True)
+            self._timed_end(start)
+            out.update(_split(keys, flat, tree))
+        return {k: out[k] for k in tree}
+
+    def all_gather_rows(self, tree, axis: str = "clients"):
+        """Each leaf's rows ``[c, ...]`` from every rank of ``axis``,
+        concatenated in rank order (``[c·D, ...]``)."""
+        if isinstance(tree, torch.Tensor):
+            return self.all_gather_rows({"_": tree}, axis)["_"]
+        out = {}
+        for keys, flat in _by_dtype(tree):
+            parts = self._gather_flat(flat, axis)
+            pieces = [_split(keys, p, tree) for p in parts]
+            out.update({k: torch.cat([pc[k] for pc in pieces])
+                        for k in keys})
+        return {k: out[k] for k in tree}
+
+    def broadcast(self, tree, src: int = 0):
+        """A dict of tensors (or one tensor) as rank ``src`` holds it, on
+        every rank of the world."""
+        if isinstance(tree, torch.Tensor):
+            return self.broadcast({"_": tree}, src)["_"]
+        if self.world_size == 1 and self.backend is None:
+            return tree
+        out = {}
+        for keys, flat in _by_dtype(tree):
+            start = self._timed_start()
+            buf = self._staged(flat.contiguous())
+            dist.broadcast(buf, src=src)
+            out.update(_split(keys, buf.to(flat.device), tree))
+            self._timed_end(start)
+        return {k: out[k] for k in tree}
+
+    def gather_hashes(self, params) -> List[str]:
+        """Every rank's `params_sha256` of ``params``, in rank order."""
+        digest = params_sha256(params)
+        if self.world_size == 1 and self.backend is None:
+            return [digest]
+        t = torch.tensor(list(bytes.fromhex(digest)), dtype=torch.uint8,
+                         device=self.device)
+        src = self._staged(t)
+        parts = [torch.empty_like(src) for _ in range(self.world_size)]
+        dist.all_gather(parts, src)
+        return [bytes(p.cpu().tolist()).hex() for p in parts]
+
+
+def _by_dtype(tree: Dict[str, torch.Tensor]):
+    """(keys, one flat contiguous vector of their leaves) per dtype."""
+    groups: Dict[torch.dtype, List[str]] = {}
+    for k, v in tree.items():
+        groups.setdefault(v.dtype, []).append(k)
+    for keys in groups.values():
+        yield keys, torch.cat([tree[k].reshape(-1) for k in keys])
+
+
+def _split(keys, flat: torch.Tensor, like) -> Dict[str, torch.Tensor]:
+    """``flat`` cut back into ``keys``' leaves, shaped as ``like``'s."""
+    out, off = {}, 0
+    for k in keys:
+        n = like[k].numel()
+        out[k] = flat[off:off + n].reshape(like[k].shape)
+        off += n
+    return out
+
+
+def params_sha256(params) -> str:
+    """sha256 of every leaf's bytes, in key order: equal hashes mean
+    byte-equal globals."""
+    h = hashlib.sha256()
+    for k in sorted(params):
+        v = params[k]
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v.detach().cpu().numpy()).tobytes()
+                 if isinstance(v, torch.Tensor) else np.asarray(v).tobytes())
+    return h.hexdigest()
+
+
+def _n_devices(devices) -> int:
+    if devices is None:
+        return rank_and_world()[1]
+    return devices if isinstance(devices, int) else len(list(devices))
+
+
+def check_mesh_factors(client_axis: Optional[int], model_axis: int,
+                       n: int, axis_names=("clients", "model")
+                       ) -> Tuple[int, int]:
+    """The ``[clients, model]`` axis sizes over ``n`` devices (ranks), or
+    the JAX package's factorization errors."""
+    if model_axis < 1:
+        raise ValueError(
+            f"cannot build a mesh with model_axis={model_axis}: every mesh "
+            f"axis must be >= 1 (got {n} devices)")
+    if client_axis is None:
+        client_axis = n // model_axis
+    if client_axis < 1 or client_axis * model_axis != n:
+        raise ValueError(
+            f"cannot build a [{client_axis}, {model_axis}] "
+            f"({axis_names[0]} x {axis_names[1]}) mesh from {n} devices: "
+            f"the axes must be >= 1 and their product must equal the "
+            f"device count — pass axis sizes that factor {n}, or a "
+            f"matching devices= subset")
+    return client_axis, model_axis
+
+
+def check_two_level_factors(group_axis: int, client_axis: Optional[int],
+                            n: int) -> Tuple[int, int]:
+    """The ``[groups, clients]`` axis sizes over ``n`` devices (ranks), or
+    the JAX package's factorization errors."""
+    if group_axis < 1:
+        raise ValueError(
+            f"cannot build a two-level mesh with group_axis={group_axis}: "
+            f"the groups axis must be >= 1 (got {n} devices)")
+    if client_axis is None:
+        client_axis = n // group_axis
+    if client_axis < 1 or group_axis * client_axis != n:
+        raise ValueError(
+            f"cannot build a [{group_axis}, {client_axis}] two-level mesh "
+            f"from {n} devices: the axes must be >= 1 and their product "
+            f"must equal the device count — the groups axis must divide "
+            f"{n} (pass a client_axis that factors it, or a matching "
+            f"devices= subset)")
+    return group_axis, client_axis
+
+
+def _check_world(sizes, n: int) -> None:
+    world = rank_and_world()[1]
+    if n != world:
+        raise ValueError(
+            f"a [{', '.join(map(str, sizes))}] mesh needs {n} ranks, one a "
+            f"position; this run has {world}")
+
+
+def make_mesh(client_axis: Optional[int] = None, model_axis: int = 1,
+              devices=None, axis_names=("clients", "model"),
+              device=None) -> Mesh:
+    """The ``[clients, model]`` mesh over the world's ranks (``devices``:
+    their count or a sequence of them, for the factorization check).
+
+    Defaults: every rank on the clients axis.  A ``model`` axis over more
+    than one rank (tensor parallelism, ``tp_shard_params``) is not ported
+    yet."""
+    n = _n_devices(devices)
+    client_axis, model_axis = check_mesh_factors(client_axis, model_axis, n,
+                                                 axis_names)
+    if model_axis > 1:
+        raise NotImplementedError(
+            "a model axis over more than one rank (tensor parallelism, "
+            "tp_shard_params) is not ported yet (ROADMAP Queue 1 item 14)")
+    _check_world((client_axis, model_axis), n)
+    return Mesh({axis_names[0]: client_axis, axis_names[1]: model_axis},
+                device=device)
+
+
+def make_two_level_mesh(group_axis: int, client_axis: Optional[int] = None,
+                        devices=None, device=None) -> Mesh:
+    """The ``[groups, clients]`` mesh of hierarchical FL: group ``g`` is the
+    ranks ``g·C .. g·C + C - 1``; the group tier reduces over each row's
+    ``clients`` subgroup, the global tier over each column's ``groups``
+    subgroup."""
+    n = _n_devices(devices)
+    group_axis, client_axis = check_two_level_factors(group_axis,
+                                                      client_axis, n)
+    _check_world((group_axis, client_axis), n)
+    return Mesh({"groups": group_axis, "clients": client_axis},
+                device=device)
 
 
 def make_model_mesh(num_shards: int) -> Optional[List[torch.device]]:
-    """One visible CUDA device per shard, or None when fewer than
-    ``num_shards`` exist — the spine then keeps every shard on its default
-    device (same math, no per-device memory split), as the JAX package
-    does on a one-device host."""
+    """One visible CUDA device per shard of the sharded spine, or None when
+    fewer than ``num_shards`` exist — the spine then keeps every shard on
+    its default device (same math, no per-device memory split), as the
+    JAX package does on a one-device host."""
     if num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     if torch.cuda.device_count() < num_shards:
         return None
     return [torch.device("cuda", i) for i in range(num_shards)]
+
+
+def client_axis_size(mesh: Optional[Mesh]) -> int:
+    if mesh is None:
+        return 1
+    return mesh.shape["clients"]
+
+
+class Shard(dict):
+    """A rank's rows of a sharded tree (``global_rows`` the whole
+    cohort's; ``spec`` its axes).  Staging it again passes it through."""
+
+    def __init__(self, items, spec, global_rows: Optional[int] = None):
+        super().__init__(items)
+        self.spec = spec
+        self.global_rows = global_rows
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v))
+
+
+def stage_global(tree, mesh: Optional[Mesh], spec=None):
+    """Host data as the rank feeds it to a mesh step.
+
+    ``spec=None`` replicates: the tree (a plain dict) on the rank's
+    device.  ``"clients"``
+    (or ``("clients",)``) takes the rank's block of rows of every leaf's
+    leading axis; ``("groups", "clients")`` takes its group's row of the
+    leading axis and its block of the second.  Trees that are not dicts
+    (seed words, keys) pass through, and so does a tree staged already."""
+    if mesh is None or not isinstance(tree, dict) or isinstance(tree, Shard):
+        return tree
+    axes = (spec,) if isinstance(spec, str) else tuple(spec or ())
+    if not axes:
+        return {k: _as_tensor(v).to(mesh.device) for k, v in tree.items()}
+    if axes == ("groups", "clients"):
+        g = mesh.axis_index("groups")
+        tree = {k: _as_tensor(v)[g] for k, v in tree.items()}
+    elif axes != ("clients",):
+        raise ValueError(f"unknown staging spec {spec!r}")
+    d, c = mesh.shape["clients"], mesh.axis_index("clients")
+    rows = next(iter(tree.values())).shape[0]
+    if rows % d:
+        raise ValueError(
+            f"cohort size {rows} not divisible by the mesh clients axis "
+            f"({d}); pad the cohort (gather_cohort pad_to=) to a multiple "
+            f"of the device count")
+    lo, hi = c * rows // d, (c + 1) * rows // d
+    return Shard({k: _as_tensor(v)[lo:hi].to(mesh.device)
+                  for k, v in tree.items()}, axes, global_rows=rows)
+
+
+def broadcast_params(params, mesh: Optional[Mesh]):
+    """Rank 0's params on every rank (once, at the start of a run, so the
+    ranks cannot start apart)."""
+    if mesh is None:
+        return params
+    return mesh.broadcast({k: v.to(mesh.device).contiguous()
+                           for k, v in params.items()})

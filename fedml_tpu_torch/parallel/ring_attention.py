@@ -9,8 +9,9 @@ block's probabilities are zeroed by ``p * mask``, and the normaliser is
 guarded by ``max(l, 1e-30)``.  Layout is ``[B, T, H, d]`` in and out.
 
 ``ring_attention`` and the sequence-mesh helpers shard the sequence over
-devices; they are refused by name until the parallelism slice (ROADMAP
-Queue 1 item 10) brings them over ``torch.distributed``."""
+devices; they are refused by name until the model and sequence
+parallelism slice (ROADMAP Queue 1 item 14) brings them over
+``torch.distributed``."""
 
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, block_size: int,
 
 _RING_TODO = ("sequence parallelism over a device mesh is not ported yet; "
               "it arrives with parallel/ring_attention.py, sequence.py and "
-              "pipeline.py over torch.distributed (ROADMAP Queue 1 item 10)")
+              "pipeline.py over torch.distributed (ROADMAP Queue 1 item 14)")
 
 
 def ring_attention(*args, **kwargs):

@@ -20,8 +20,11 @@ flip, and the same run in f32 within 1e-4.
 
 The runs skip their held-out evaluation (`_no_eval`): it reads the
 global and never changes it, and compiling it would double JAX's share of
-the file's time."""
+the file's time.  A module-scoped fixture builds each model's JAX init
+once and runs JAX's bf16 and f32 rounds of every case in worker threads
+(its compiles release the interpreter) while the cases run the port."""
 
+import concurrent.futures
 import functools
 import importlib
 
@@ -171,19 +174,43 @@ CASES = ([("lr", r) for r in sorted(set(CLASSES) | {"centralized",
          + [("cnn_fedavg", "fedavg"), ("cnn_fedavg", "fednova")])
 
 
-@pytest.mark.parametrize("model, runner", CASES,
-                         ids=[f"{m}-{r}" for m, r in CASES])
-def test_bf16_round_within_jax_own_bf16_gap(model, runner):
-    jdata, data = _data(model)
+@functools.lru_cache(maxsize=None)
+def _init(model):
+    """JAX's init of ``model`` (key 1), once per model."""
+    jdata, _ = _data(model)
     jwl = j_workload(model, _dataset(model), jdata.class_num,
                      sample_shape_of(jdata))
     sample = jax.tree.map(lambda v: jnp.asarray(v[0, 0]),
                           {k: jdata.train[k] for k in ("x", "y", "mask")})
-    p0 = jwl.init(jax.random.key(1), sample)
+    return jwl.init(jax.random.key(1), sample)
+
+
+@pytest.fixture(scope="module")
+def jax_rounds():
+    """Every case's JAX bf16 and f32 globals, as futures, computed in
+    worker threads from the start of the module."""
+    for model in {m for m, _ in CASES}:
+        _init(model)
+
+    def rounds(model, runner, dtype):
+        return _flat(_run_jax(runner, model, _data(model)[0], _init(model),
+                              dtype))
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        yield {(model, runner, dtype): pool.submit(rounds, model, runner,
+                                                   dtype)
+               for model, runner in CASES for dtype in ("bfloat16", "")}
+
+
+@pytest.mark.parametrize("model, runner", CASES,
+                         ids=[f"{m}-{r}" for m, r in CASES])
+def test_bf16_round_within_jax_own_bf16_gap(jax_rounds, model, runner):
+    _, data = _data(model)
+    p0 = _init(model)
     init = _flat(p0)
-    j16 = _flat(_run_jax(runner, model, jdata, p0, "bfloat16"))
-    j32 = _flat(_run_jax(runner, model, jdata, p0, ""))
     t16 = _flat(_run_port(runner, model, data, p0, "bfloat16"))
+    j16 = jax_rounds[model, runner, "bfloat16"].result()
+    j32 = jax_rounds[model, runner, ""].result()
     assert list(t16) == list(j16)
     move = _max_abs(j32, init)
     gap = _max_abs(j16, j32)

@@ -1234,3 +1234,59 @@ def test_serve_split_is_the_arms_differences(monkeypatch):
                                "requests_host": 450.0,
                                "requests_device": 500.0}
     assert out["full"]["profiled"] == {"steady_round_ms": 1400.0}
+
+
+def _mesh_summary(hashes, backend="gloo", device="cuda:0"):
+    return {"device": device, "dist_backend": backend,
+            "world_size": len(hashes), "params_sha256": hashes[0],
+            "rank_params_sha256": ",".join(hashes)}
+
+
+@pytest.mark.parametrize("case", [
+    "ok", "unequal_hashes", "tolerance_miss", "dead_rank", "no_summary",
+    "other_backend", "off_the_card", "not_rank0s_globals",
+    "last_round_miss", "first_rounds_only", "round_short"])
+def test_mesh_phase_checks(monkeypatch, case):
+    """Phase 8r's checks of one run: byte-equal ranks, the written globals
+    rank 0's, within MESH_TOL x max|w| of its reference after every round
+    (or its first rounds, where so held), the backend and device the
+    layout picks; a rank that died (its launch exits non-zero) or a
+    missing summary fails."""
+    from fedml_tpu_torch.parallel.mesh import params_sha256
+    monkeypatch.setattr(cs, "CARD", "cuda")
+    ref = [{"w": torch.tensor([1.0, -2.0, 0.5])},
+           {"w": torch.tensor([1.5, -2.0, 0.25])}]
+    rounds = [{"w": r["w"] + 1e-6} for r in ref]
+    tol = None
+    if case == "tolerance_miss":
+        rounds[0] = {"w": ref[0]["w"] + 3 * cs.MESH_TOL * 2.0}
+    elif case == "last_round_miss":
+        rounds[1] = {"w": ref[1]["w"] + 3 * cs.MESH_TOL * 2.0}
+    elif case == "first_rounds_only":
+        # held on its first round only, a miss after it fails nothing
+        tol = 1
+        rounds[1] = {"w": ref[1]["w"] + 3 * cs.MESH_TOL * 2.0}
+    elif case == "round_short":
+        rounds = rounds[:1]
+    params = rounds[-1]
+    h = params_sha256(params)
+    rc, summary = 0, _mesh_summary([h, h])
+    if case == "unequal_hashes":
+        summary = _mesh_summary([h, "0" * 64])
+    elif case == "dead_rank":
+        rc, summary = 1, None
+    elif case == "no_summary":
+        summary = None
+    elif case == "other_backend":
+        summary = _mesh_summary([h, h], backend="nccl")
+    elif case == "off_the_card":
+        summary = _mesh_summary([h, h], device="cpu")
+    elif case == "not_rank0s_globals":
+        summary = _mesh_summary(["1" * 64] * 2)
+    held = {"single": cs.mesh_held(rounds, ref, tol)}
+    problems = cs.mesh_problems("run", rc, summary, ("gloo", 2),
+                                last=params, held=held)
+    assert (problems == []) == (case in ("ok", "first_rounds_only")), \
+        problems
+    if case == "dead_rank":
+        assert problems == ["run: exited 1"]

@@ -480,7 +480,7 @@ _GATE_BASE = ["--model", "lr", "--dataset", "mnist", "--platform", "cpu",
     (["--algo", "cross_device", "--adaptive", "true"], ValueError,
      "requires --health"),
     (["--algo", "cross_device", "--mesh_clients", "4"],
-     NotImplementedError, "item 10"),
+     NotImplementedError, "item 14"),
     # serving is ported: JAX's gate (cross_silo only)
     (["--algo", "cross_device", "--serve_port", "8080"],
      ValueError, "cross_silo only"),
@@ -518,7 +518,7 @@ def test_engine_constructor_gates(workload, data, tmp_path):
         CrossDevice(workload, data,
                     _cfg(local_alg="fednova", client_axis="scan"),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         CrossDevice(workload, data, _cfg(), device="cpu", mesh=object())
     # the observability and publish seams are ported: taken, with JAX's
     # gate on a controller without the health observatory

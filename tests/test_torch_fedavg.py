@@ -285,7 +285,9 @@ def test_refusals_are_named():
     with pytest.raises(ValueError, match="own aggregate"):
         FedAvgRobust(twl, data, FedAvgRobustConfig(
             defense="krum", defense_backend="cuda"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a mesh of 2 CPU ranks needs --host_device_count 2, as JAX's mesh
+    # needs 2 devices
+    with pytest.raises(ValueError, match="from 1 devices"):
         main(["--mesh_clients", "2", "--platform", "cpu"])
     with pytest.raises(KeyError):
         main(["--algo", "decentralized", "--platform", "cpu"])

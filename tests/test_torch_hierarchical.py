@@ -146,8 +146,11 @@ def test_hierarchical_runner_checkpoints_and_refusals(tmp_path):
     assert out["params_finite"] and out["round"] == 1
     resumed = t_main.main(base + ["--comm_round", "3"])
     assert resumed["round"] == 2
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_two_level_round(None, 2, object())
+    # the two-level mesh is ported: its group axis must equal group_num
+    from fedml_tpu_torch.parallel.mesh import make_two_level_mesh
+    with pytest.raises(ValueError, match="group_num"):
+        HierarchicalFedAvg(_workloads()[1], _data()[0], HierarchicalConfig(
+            **COMMON), mesh=make_two_level_mesh(1, 1, device="cpu"))
     with pytest.raises(ValueError, match="client_axis"):
         HierarchicalFedAvg(_workloads()[1], _data()[0], HierarchicalConfig(
             **COMMON, client_axis="scan"), device="cpu")

@@ -147,7 +147,7 @@ def test_gates_and_refusals_are_named():
     assert wl.model.attn_0.block_size == 10
     assert create_workload("transformer", "shakespeare", 90, (80,),
                            moe_experts=4).model.moe_experts == 4
-    for flag, match in ((["--mesh_sequence", "2"], "item 10"),
+    for flag, match in ((["--mesh_sequence", "2"], "item 14"),
                         (["--mesh_stages", "2"], "pipeline.py")):
         with pytest.raises(NotImplementedError, match=match):
             _cli(*flag)

@@ -124,7 +124,7 @@ def test_refusals_are_named():
     assert cache["attn_0"]["k"].shape == (2, 16, 2, 16)
     with pytest.raises(ValueError, match="positions"):
         model(x[:, :2].reshape(-1), cache=cache)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         model(x, ring_axis="sequence")
     with pytest.raises(ValueError, match="compute_dtype"):
         NWPWorkload(model, compute_dtype="int32")
