@@ -325,6 +325,24 @@ each printed as it ends; any failure exits non-zero:
    backend its layout picks; the round ms and the ms a round spent in
    collectives of each run (mean, median, least, largest of the steady
    rounds); no hand-written kernel runs on this path;
+8s. parallel — sequence and pipeline parallelism and the wave mesh (run
+   after 8r), deterministic (TF32 off): (a) dp x sp FedAvg on phase 10's
+   T=2048 LM (4 clients a round, B=2, f32) on the ``[1, 2]`` mesh, two
+   gloo ranks sharing the card (``spawn_ranks``), over 3 rounds, each
+   round's globals within ``PAR_SP_TOL`` x max|w| of one process running
+   the same rounds with blockwise attention (block 256), the ranks
+   byte-equal; the round ms, the ring's ms (its shifts' CUDA events) and
+   each rank's peak GB beside the reference's; (b) on the same ranks the
+   CLI's ``--mesh_sequence 2 --num_processes 2 --attn_flash`` runner on
+   the LM twin at the CLI's widths (the Shakespeare twin's 80 tokens are
+   below K4's 128), 2 rounds, K4f counted in its evaluation and no K4
+   backward; (c) ``--algo cross_silo --mesh_stages 2`` on the Shakespeare
+   twin, dense and ``--moe_experts 4``, both stages on the card, against
+   ``--mesh_stages 1`` at the same 2 microbatches every round
+   (``PAR_PP_TOL`` x max|w|); (d) ``--algo cross_device --mesh_clients
+   2`` on the FEMNIST CNN (340 clients, 100 a round in waves of 32), 2
+   rounds, the ranks byte-equal and within ``PAR_WAVE_TOL`` x max|w| of
+   the one-rank engine every round, the gather's ms a round;
 12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
    and K2 also at their library call's configuration, sigma 0; K2's
    launches are phase 8j's adam run's, phase 8's and 8q's beside them; K4's
@@ -6288,6 +6306,376 @@ def check_mesh(root: Path):
 
 
 # ---------------------------------------------------------------------------
+# phase 8s: sequence and pipeline parallelism, the wave mesh
+# ---------------------------------------------------------------------------
+
+# (a) dp x sp FedAvg on the T=2048 LM (LM, LM_DATA, LM_FEDAVG's 4 clients
+# a round, B=2, f32) on the [1, 2] mesh: two gloo ranks sharing the card,
+# each holding half the sequence, its clients trained one after another
+PAR_SP_ROUNDS = 3
+PAR_SP_SEED = 0
+# its reference: one process, the same rounds with blockwise attention
+# (bench.py's block 256), its clients one after another too (the ranks'
+# order), so the peak memory compares T against T/2 of the activations
+PAR_SP_BLOCK = LM_BENCH_BLOCK
+# x max|w|: the sp globals after each round against the reference's.  On
+# the CPU the same three rounds at T=256 (the rehearsal: d_model 64, 2
+# heads, vocab 64) differ by PAR_SP_CPU_DIFF x max|w| after each round
+# (the ring's two blocks against the blockwise scan's keys, the loss's
+# sum split at the ranks); T=2048 sums rows 8x as long, and the limit is
+# the mesh phase's, about 80 times the CPU's distance
+PAR_SP_CPU_DIFF = 1.2e-7
+PAR_SP_TOL = MESH_TOL
+# (b) the CLI's --mesh_sequence runner with --attn_flash at the CLI's
+# widths (d_model 128, 4 heads, d=32), over 2 rounds.  The Shakespeare
+# twin's 80 tokens are below K4's 128-token block (both packages refuse
+# flash there), so the runner takes the T=2048 LM twin; evaluation runs
+# the dense workload, whose attention is K4f
+PAR_CLI_ARGS = ["--algo", "fedavg", "--model", "transformer", "--dataset",
+                "shakespeare", "--client_num_in_total", "16",
+                "--client_num_per_round", "4", "--batch_size", "2",
+                "--lr", "0.1", "--comm_round", "2",
+                "--frequency_of_the_test", "1", "--mesh_sequence", "2",
+                "--num_processes", "2", "--attn_flash", "true",
+                "--deterministic", "true", "--log_stdout", "false"]
+# (c) silo-local GPipe on the Shakespeare twin, dense and --moe_experts 4,
+# every stage on the one card; S=2 against S=1 at the same 2 microbatches
+# (MoE routing is per microbatch), from the same init, every round's
+# global checkpointed
+PAR_PP_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
+               "--model", "transformer", "--dataset", "shakespeare",
+               "--client_num_in_total", "40", "--client_num_per_round", "4",
+               "--batch_size", "8", "--lr", "1.0", "--comm_round", "3",
+               "--pp_microbatches", "2", "--frequency_of_the_test", "3",
+               "--deterministic", "true", "--checkpoint_every", "1",
+               "--checkpoint_keep_last_n", "8", "--log_stdout", "false"]
+PAR_PP_RUNS = {"dense": [], "moe4": ["--moe_experts", "4"]}
+PAR_PP_TOL = MESH_TOL          # x max|w|, S=2 against S=1 every round
+# (d) the wave mesh: the FEMNIST CNN at 8l's cut (340 clients, 100 a
+# round in waves of 32), 2 rounds, 2 ranks against the one-rank engine
+PAR_WAVE_ARGS = [*CD_ARGS, "--client_num_in_total", "340", *CD_SMALL,
+                 "--deterministic", "true", "--checkpoint_every", "1",
+                 "--checkpoint_keep_last_n", "8"]
+PAR_WAVE_TOL = WAVE_CHUNK_TOL  # x max|w|: 16-client vmaps against 32
+PAR_JOIN_S = 600
+
+
+def sp_lm_reference(data, init, rounds: int):
+    """The one-process reference of 8s (a): FedAvg on the LM with
+    blockwise attention, its clients one after another; each round's
+    globals, its round ms and its peak GB."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
+                                                   round_seed_words)
+    from fedml_tpu_torch.models import TransformerLM
+    from fedml_tpu_torch.trainer.workload import NWPWorkload
+    algo = FedAvg(NWPWorkload(TransformerLM(**LM, block_size=PAR_SP_BLOCK)),
+                  data, FedAvgConfig(comm_round=rounds, seed=PAR_SP_SEED,
+                                     **{**LM_FEDAVG, "client_axis": "scan"}),
+                  device=CARD)
+    reset_peak()
+    params = {k: v.to(CARD) for k, v in init.items()}
+    out = {"rounds": [], "round_ms": []}
+    with deterministic():
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            params = algo.run_round(params, r,
+                                    round_seed_words(PAR_SP_SEED, r), False)
+            sync(CARD)
+            out["round_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["rounds"].append({k: v.detach().cpu().clone()
+                                  for k, v in params.items()})
+    out["peak_gb"] = peak_gb()
+    return out
+
+
+def rank_settings() -> dict:
+    """The settings a spawned rank takes from this process (a rehearsal
+    on the CPU changes them here)."""
+    return {"CARD": CARD, "LM": LM, "LM_DATA": LM_DATA,
+            "LM_FEDAVG": LM_FEDAVG}
+
+
+def sp_rank_job(settings, init, rounds: int, cli_argv):
+    """8s (a) and (b) on one rank of the two, under the parent's
+    ``settings`` (`rank_settings`): (a) the LM's dp x sp rounds on the
+    [1, 2] mesh (each round's globals on rank 0, the round, ring and
+    collective ms, the rank's peak GB, every rank's params sha256); (b)
+    the CLI's --mesh_sequence runner (``cli_argv``) on the LM twin on the
+    same group, K4's launches counted over it."""
+    import dataclasses
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
+                                                   round_seed_words)
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import (build_mesh, check_config,
+                                                  deterministic_flags,
+                                                  run_fedavg)
+    from fedml_tpu_torch.models import TransformerLM
+    from fedml_tpu_torch.models import flash_attention as fa
+    from fedml_tpu_torch.parallel.mesh import make_sp_mesh
+    from fedml_tpu_torch.parallel.sequence import (make_sp_cohort_step,
+                                                   make_sp_nwp_workload)
+    from fedml_tpu_torch.trainer.workload import (NWPWorkload,
+                                                  make_client_optimizer)
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    globals().update(settings)
+    mesh = make_sp_mesh(1, 2, device=CARD)
+    data = lm_data()
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "backend": mesh.backend, "rounds": [], "round_ms": [],
+           "collective_ms": [], "ring_ms": []}
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    wl = NWPWorkload(TransformerLM(**LM))
+    algo = FedAvg(wl, data, FedAvgConfig(comm_round=rounds, seed=PAR_SP_SEED,
+                                         **LM_FEDAVG), device=mesh.device)
+    algo.cohort_step = make_sp_cohort_step(
+        make_sp_nwp_workload(wl.model, mesh),
+        make_client_optimizer("sgd", LM_FEDAVG["lr"]), 1, mesh)
+    params = {k: v.to(mesh.device) for k, v in init.items()}
+    with deterministic_flags(True):
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            c0, p0 = mesh.collective_ms(), mesh.collective_ms("p2p")
+            params = algo.run_round(params, r,
+                                    round_seed_words(PAR_SP_SEED, r), False)
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+            out["round_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["collective_ms"].append(mesh.collective_ms() - c0)
+            out["ring_ms"].append(mesh.collective_ms("p2p") - p0)
+            if mesh.rank == 0:
+                out["rounds"].append({k: v.detach().cpu().clone()
+                                      for k, v in params.items()})
+    out["hashes"] = mesh.gather_hashes(params)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(mesh.device) / 1e9
+                      if mesh.device.type == "cuda" else None)
+
+    # (b): the CLI's runner on this group, on the LM twin
+    cfg = config_from_argv(list(cli_argv) + (
+        [] if CARD == "cuda" else ["--platform", "cpu"]))
+    check_config(cfg)
+    cfg = dataclasses.replace(cfg, platform=str(mesh.device))
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with deterministic_flags(True), MetricsSink(None) as sink:
+        out["cli"] = run_fedavg(cfg, data, sink, mesh=build_mesh(cfg))
+    out["cli_s"] = time.perf_counter() - t0
+    out["cli_launches"] = dict(fa.launch_counts)
+    return out
+
+
+def par_sp(root: Path) -> dict:
+    """8s (a) and (b): the two ranks' job against the one-process
+    reference."""
+    import torch
+    from fedml_tpu_torch.models import TransformerLM
+    from fedml_tpu_torch.parallel.launch import spawn_ranks
+    from fedml_tpu_torch.trainer.workload import NWPWorkload
+    data = lm_data()
+    init = NWPWorkload(TransformerLM(**LM)).init(
+        torch.Generator().manual_seed(PAR_SP_SEED))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sp_rank_job, 2,
+                        (rank_settings(), init, PAR_SP_ROUNDS, PAR_CLI_ARGS),
+                        platform=None if CARD == "cuda" else "cpu",
+                        join_timeout_s=PAR_JOIN_S)
+    ranks_s = time.perf_counter() - t0
+    ref = sp_lm_reference(data, init, PAR_SP_ROUNDS)
+    problems = []
+    held = dict(max_abs_diff=[], limit=[])
+    for r, (got, want) in enumerate(zip(ranks[0]["rounds"], ref["rounds"])):
+        diff = max_diff(got, want)
+        limit = PAR_SP_TOL * max(float(v.abs().max()) for v in want.values())
+        held["max_abs_diff"].append(diff)
+        held["limit"].append(limit)
+        if not diff <= limit:
+            problems.append(f"sp round {r}: {diff} > {limit}")
+    if len(ranks[0]["rounds"]) != PAR_SP_ROUNDS:
+        problems.append("sp: a round short")
+    for rk in ranks:
+        if len(set(rk["hashes"])) != 1:
+            problems.append(f"sp: the ranks' params differ {rk['hashes']}")
+        if not rk["device"].startswith(CARD):
+            problems.append(f"sp: rank {rk['rank']} ran on {rk['device']}")
+        if CARD == "cuda" and rk["backend"] != "gloo":
+            problems.append(f"sp: backend {rk['backend']}, not gloo")
+        if not all(ms > 0 for ms in rk["ring_ms"]):
+            problems.append(f"sp: rank {rk['rank']} timed no ring shift")
+    cli = ranks[0]["cli"]
+    hashes = str(cli.get("rank_params_sha256", "")).split(",")
+    if len(hashes) != 2 or len(set(hashes)) != 1 \
+            or not cli.get("params_finite"):
+        problems.append(f"sp cli: ranks {hashes}, finite "
+                        f"{cli.get('params_finite')}")
+    launches = [rk["cli_launches"] for rk in ranks]
+    if CARD == "cuda" and not all(c["flash_fwd"] > 0 and c["flash_bwd_dkv"]
+                                  == 0 and c["flash_bwd_dq"] == 0
+                                  for c in launches):
+        problems.append(f"sp cli: K4 launches {launches} (K4f in eval "
+                        f"only)")
+    steady = lambda xs: statistics.median(xs[1:] or xs)  # noqa: E731
+    row = dict(
+        ranks_s=ranks_s, vs_reference=held,
+        round_ms=[rk["round_ms"] for rk in ranks],
+        round_ms_median=steady(ranks[0]["round_ms"]),
+        ring_ms=[rk["ring_ms"] for rk in ranks],
+        ring_ms_median=steady(ranks[0]["ring_ms"]),
+        collective_ms_median=steady(ranks[0]["collective_ms"]),
+        rank_peak_gb=[rk["peak_gb"] for rk in ranks],
+        reference_round_ms=ref["round_ms"],
+        reference_round_ms_median=steady(ref["round_ms"]),
+        reference_peak_gb=ref["peak_gb"],
+        rank_hashes_equal=len(set(ranks[0]["hashes"])) == 1)
+    phase("parallel sp", **row)
+    cli_row = dict(
+        run_s=ranks[0]["cli_s"], train_loss=cli.get("train_loss"),
+        round_ms_median=cli.get("round_ms_median"),
+        collective_ms_median=cli.get("collective_ms_median"),
+        ring_ms_median=cli.get("collective_ms_p2p_median"),
+        k4_launches=launches, rank_hashes_equal=len(set(hashes)) == 1)
+    phase("parallel sp cli", **cli_row)
+    return {"sp": row, "cli": cli_row, "problems": problems}
+
+
+def par_main(argv, log: Path):
+    """``main(argv)`` in this process, its summary line and warnings in
+    ``log``."""
+    from fedml_tpu_torch.experiments.main import main
+    on_cpu = [] if CARD == "cuda" else ["--platform", "cpu"]
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        handler = logging.StreamHandler(f)
+        logging.getLogger().addHandler(handler)
+        try:
+            return main(list(argv) + on_cpu)
+        finally:
+            logging.getLogger().removeHandler(handler)
+
+
+def par_held(name: str, rounds, ref_rounds, tol: float) -> dict:
+    """Each round's globals against the reference's: max |diff| and the
+    ``tol`` x max|w| limit a round, and the rounds that miss it."""
+    out = dict(max_abs_diff=[], limit=[], failed=[])
+    if rounds is None or ref_rounds is None \
+            or len(rounds) != len(ref_rounds):
+        out["failed"].append(f"{name}: globals missing or a round short")
+        return out
+    for r, (got, want) in enumerate(zip(rounds, ref_rounds)):
+        diff = max_diff(got, want)
+        limit = tol * max(float(v.abs().max()) for v in want.values())
+        out["max_abs_diff"].append(diff)
+        out["limit"].append(limit)
+        if not diff <= limit:
+            out["failed"].append(f"{name} round {r}: {diff} > {limit}")
+    return out
+
+
+def par_pp(base: Path) -> dict:
+    """8s (c): --mesh_stages 2 against --mesh_stages 1, dense and MoE."""
+    out, problems = {}, []
+    for name, extra in PAR_PP_RUNS.items():
+        runs = {}
+        for stages in (1, 2):
+            tag = f"pp_{name}_{stages}"
+            shutil.rmtree(base / tag, ignore_errors=True)
+            reset_peak()
+            t0 = time.perf_counter()
+            summary = par_main([*PAR_PP_ARGS, *extra, "--mesh_stages",
+                                str(stages), "--checkpoint_dir",
+                                str(base / tag)], base / f"{tag}.log")
+            runs[stages] = dict(summary=summary,
+                                run_s=time.perf_counter() - t0,
+                                peak_gb=peak_gb(),
+                                rounds=mesh_globals(base / tag))
+        held = par_held(f"pp {name}", runs[2]["rounds"], runs[1]["rounds"],
+                        PAR_PP_TOL)
+        problems += held["failed"]
+        s1, s2 = runs[1]["summary"], runs[2]["summary"]
+        want = ",".join([CARD if CARD == "cpu" else "cuda:0"] * 2)
+        if s2.get("stage_devices") != want:
+            problems.append(f"pp {name}: stages on {s2.get('stage_devices')}")
+        if not (s1.get("params_finite") and s2.get("params_finite")):
+            problems.append(f"pp {name}: a global is not finite")
+        n_micro = 2
+        row = dict(
+            round_ms_median=s2.get("round_ms_median"),
+            stages1_round_ms_median=s1.get("round_ms_median"),
+            round_ms=[s2.get("round_ms_min"), s2.get("round_ms_max")],
+            bubble_share=(2 - 1) / (n_micro + 2 - 1),
+            stage_devices=s2.get("stage_devices"),
+            train_loss=s2.get("train_loss"), peak_gb=runs[2]["peak_gb"],
+            stages1_peak_gb=runs[1]["peak_gb"],
+            run_s=[runs[1]["run_s"], runs[2]["run_s"]],
+            vs_stages1=held)
+        phase(f"parallel pp {name}", **row)
+        out[name] = row
+    return {"runs": out, "problems": problems}
+
+
+def par_waves(base: Path) -> dict:
+    """8s (d): the wave mesh on 2 ranks against the one-rank engine."""
+    runs, problems = {}, []
+    mesh_args = ["--mesh_clients", "2"] + (
+        [] if CARD == "cuda" else ["--host_device_count", "2"])
+    for tag, extra in (("waves_1", []), ("waves_2", mesh_args)):
+        shutil.rmtree(base / tag, ignore_errors=True)
+        t0 = time.perf_counter()
+        summary = par_main([*PAR_WAVE_ARGS, *extra, "--checkpoint_dir",
+                            str(base / tag)], base / f"{tag}.log")
+        runs[tag] = dict(summary=summary, run_s=time.perf_counter() - t0,
+                         rounds=mesh_globals(base / tag))
+    held = par_held("waves", runs["waves_2"]["rounds"],
+                    runs["waves_1"]["rounds"], PAR_WAVE_TOL)
+    problems += held["failed"]
+    s = runs["waves_2"]["summary"]
+    hashes = str(s.get("rank_params_sha256", "")).split(",")
+    if len(hashes) != 2 or len(set(hashes)) != 1:
+        problems.append(f"waves: the ranks' params differ ({hashes})")
+    if not str(s.get("device", "")).startswith(CARD):
+        problems.append(f"waves: ran on {s.get('device')}")
+    one = runs["waves_1"]["summary"]
+    row = dict(
+        backend=s.get("dist_backend"), world=s.get("world_size"),
+        round_ms_median=s.get("round_ms_median"),
+        one_rank_round_ms_median=one.get("round_ms_median"),
+        gather_ms_median=s.get("collective_ms_median"),
+        gather_ms=[s.get("collective_ms_min"), s.get("collective_ms_max")],
+        run_s=[runs["waves_1"]["run_s"], runs["waves_2"]["run_s"]],
+        rank_hashes_equal=len(set(hashes)) == 1, vs_one_rank=held)
+    phase("parallel waves", **row)
+    return {"row": row, "problems": problems}
+
+
+def check_parallel(root: Path) -> dict:
+    """Phase 8s: sequence and pipeline parallelism and the wave mesh, each
+    deterministic (TF32 off).  (a) dp x sp FedAvg on the T=2048 LM on the
+    [1, 2] mesh (two gloo ranks on the card) over 3 rounds, against one
+    process with blockwise attention after every round; (b) the CLI's
+    --mesh_sequence runner with --attn_flash on the same ranks (K4f in
+    its evaluation); (c) --mesh_stages 2 cross-silo on the Shakespeare
+    twin, dense and --moe_experts 4, against --mesh_stages 1 every round;
+    (d) --algo cross_device --mesh_clients 2 on the FEMNIST CNN against
+    the one-rank engine every round.  Ranks byte-equal; a failed p2p op
+    or a rank that dies fails the launch and the phase."""
+    t_phase = time.perf_counter()
+    base = root / "build" / "parallel"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    sp = par_sp(root)
+    pp = par_pp(base)
+    waves = par_waves(base)
+    problems = sp["problems"] + pp["problems"] + waves["problems"]
+    if problems:
+        fail("phase 8s: " + "; ".join(problems))
+    out = {"sp": sp["sp"], "cli": sp["cli"], "pp": pp["runs"],
+           "waves": waves["row"], "seconds": time.perf_counter() - t_phase}
+    phase("parallel", seconds=out["seconds"], hand_written_kernels=[
+        "flash_fwd (the sp CLI run's evaluation)"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8p: mixed precision (--compute_dtype bfloat16) with K4 in bf16, the
 # Switch MoE transformer (--moe_experts), EfficientNet and VGG
 # ---------------------------------------------------------------------------
@@ -7516,6 +7904,7 @@ def main() -> None:
     machinery = check_live_machinery(data, root)
     observability = check_observability(data, root)
     mesh = check_mesh(root)
+    parallel = check_parallel(root)
 
     flash_build = check_flash_build(libs["flash_attention"])
     flash_rows, flash_worst = check_flash_kernel()
@@ -7758,6 +8147,15 @@ def main() -> None:
               k: v.get("collective_ms_median", 0.0)
               for k, v in mesh.items() if k != "seconds"},
           mesh_seconds=mesh["seconds"],
+          sp_round_ms_median=parallel["sp"]["round_ms_median"],
+          sp_ring_ms_median=parallel["sp"]["ring_ms_median"],
+          sp_rank_peak_gb=parallel["sp"]["rank_peak_gb"],
+          sp_reference_peak_gb=parallel["sp"]["reference_peak_gb"],
+          pp_round_ms_median={k: v["round_ms_median"]
+                              for k, v in parallel["pp"].items()},
+          wave_mesh_round_ms_median=parallel["waves"]["round_ms_median"],
+          wave_mesh_gather_ms_median=parallel["waves"]["gather_ms_median"],
+          parallel_seconds=parallel["seconds"],
           lm_flash_vs_blockwise_max_abs_diff=lm_diff,
           lm_rounds_per_s=lm_rounds_per_s,
           lm_bench_tokens_per_s={k: v["tokens_per_s"]

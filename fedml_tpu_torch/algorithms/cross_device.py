@@ -48,8 +48,15 @@ each admitted wave summary, ``slo`` evaluates once a round and
 ``controller`` paces the next round's cohort from the health line (the
 sampler draws from the whole population; waves stay static-width);
 ``publish(params, version)`` hands each round's finalized global (the
-engine's flat device dict) to serving, version ``round_idx + 1``.  The
-mesh is refused by name (ROADMAP Queue 1 item 14).
+engine's flat device dict) to serving, version ``round_idx + 1``.
+
+``mesh`` (`parallel.mesh.Mesh`, one rank a position of its ``clients``
+axis; JAX :99-155) shards each wave's training over the ranks
+(`device_cohort.make_wave_fn`): the wave size must divide over the axis,
+and SCAFFOLD and FedNova stay on one rank.  Sampling, the fold, the
+finalize, evaluation and checkpoints run on every rank as on one (rank 0
+writes), over the same gathered uploads, so the ranks' globals stay
+byte-equal.
 """
 
 from __future__ import annotations
@@ -64,7 +71,8 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
-                                               gather_client_rows, pad_ids,
+                                               gather_client_rows,
+                                               mesh_device, pad_ids,
                                                scatter_client_rows,
                                                zeros_client_state)
 from fedml_tpu_torch.core import prng
@@ -76,9 +84,9 @@ from fedml_tpu_torch.device import synchronize
 from fedml_tpu_torch.device_cohort import (WaveAdmission,
                                            make_scaffold_wave_fn,
                                            make_wave_fn, plan_waves)
-from fedml_tpu_torch.device_cohort.waves import MESH_REFUSAL
 from fedml_tpu_torch.obs import telemetry
 from fedml_tpu_torch.parallel.cohort import gather_live_cohort, train_cohort
+from fedml_tpu_torch.parallel.mesh import broadcast_params
 from fedml_tpu_torch.robust.adversary import (parse_wave_adversary_spec,
                                               poison_wave_summary)
 from fedml_tpu_torch.robust.degrade import merge_priority
@@ -92,6 +100,22 @@ LOCAL_ALGS = ("sgd", "fedprox", "scaffold", "fednova")
 SAMPLERS = ("numpy", "jax")
 SAMPLER_SALT = 0x5A4D50        # the jax sampler's key: fold_in(key(seed), .)
 AUTO_WAVE_MAX = 256            # wave_size 0: min(cohort, this)
+
+def check_wave_mesh(local_alg: str, wave_size: int, n_dev: int) -> None:
+    """JAX's gates on a wave mesh of ``n_dev`` ranks (JAX :116-137)."""
+    if wave_size % n_dev:
+        raise ValueError(
+            f"--wave_size {wave_size} must be a multiple of the mesh "
+            f"clients axis ({n_dev}): each rank trains an equal block of a "
+            f"wave's slots")
+    if local_alg in ("scaffold", "fednova"):
+        raise ValueError(
+            f"--local_alg {local_alg} rides the single-chip vmap wave "
+            f"engine for now (its per-client state / normalized server "
+            f"step need the stateful mesh wrap of "
+            f"parallel/cohort.make_sharded_stateful_round); drop "
+            f"--mesh_clients")
+
 
 @dataclasses.dataclass
 class CrossDeviceConfig(FedAvgConfig):
@@ -119,21 +143,22 @@ class CrossDevice(FedAvg):
                  perf=None, health=None, slo=None, publish=None,
                  controller=None, degrade=None, ingest=None):
         cfg = config
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
         if cfg.local_alg not in LOCAL_ALGS:
             raise ValueError(f"--local_alg must be one of {LOCAL_ALGS}, "
                              f"got {cfg.local_alg!r}")
         if cfg.sampler not in SAMPLERS:
             raise ValueError(f"--sampler must be one of {SAMPLERS}, "
                              f"got {cfg.sampler!r}")
+        n_dev = mesh.shape["clients"] if mesh is not None else 1
         if cfg.wave_size == 0:
             # a copy: a caller reusing one config keeps its own value
+            auto = min(max(cfg.client_num_per_round, 1), AUTO_WAVE_MAX)
             cfg = config = dataclasses.replace(
-                cfg, wave_size=min(max(cfg.client_num_per_round, 1),
-                                   AUTO_WAVE_MAX))
+                cfg, wave_size=-(-auto // n_dev) * n_dev)
         if cfg.wave_size < 1:
             raise ValueError(f"--wave_size must be >= 1, got {cfg.wave_size}")
+        if mesh is not None:
+            check_wave_mesh(cfg.local_alg, cfg.wave_size, n_dev)
         if cfg.local_alg in ("scaffold", "fednova") \
                 and cfg.client_axis != "vmap":
             raise ValueError(f"--client_axis is not wired into the "
@@ -158,7 +183,11 @@ class CrossDevice(FedAvg):
                 "fednova's tau_eff step IS a server update; stacking a "
                 "second optimizer on top silently changes its normalized "
                 "averaging semantics")
-        super().__init__(workload, data, config, sink=sink, device=device)
+        # init, eval and checkpoints run as on one rank (mesh=None); the
+        # mesh is the waves'
+        super().__init__(workload, data, config, sink=sink,
+                         device=mesh_device(mesh, device))
+        self.wave_mesh = self.rank_mesh = mesh
         self.server_opt = server_opt
         self.degrade = degrade
         # the train-to-serve seam: each round's finalized global as
@@ -187,7 +216,7 @@ class CrossDevice(FedAvg):
         self._c_clients = reg.counter("fedml_cohort_clients_total")
         self._h_wave = reg.histogram("fedml_cohort_wave_seconds")
         self._h_fold = reg.histogram("fedml_cohort_fold_seconds")
-        self._wave_fn = self._build_wave_fn(workload, cfg)
+        self._wave_fn = self._build_wave_fn(workload, cfg, mesh)
         if perf is not None:
             # the wave program is this engine's hot callable: the sentry
             # notes its signatures and (--device_obs) the compile ledger
@@ -195,7 +224,7 @@ class CrossDevice(FedAvg):
             self._wave_fn = perf.instrument_jit("wave_train", self._wave_fn)
 
     # -- the wave program ----------------------------------------------------
-    def _build_wave_fn(self, workload, cfg):
+    def _build_wave_fn(self, workload, cfg, mesh):
         if cfg.local_alg in ("sgd", "fedprox"):
             opt = make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd)
             local = make_local_trainer(
@@ -208,7 +237,7 @@ class CrossDevice(FedAvg):
                                           client_axis=cfg.client_axis)
                 return stacked, {}
 
-            return make_wave_fn(make_stacked)
+            return make_wave_fn(make_stacked, mesh=mesh)
 
         if cfg.local_alg == "fednova":
             # plain normalized averaging (momentum, prox and the gmf server
@@ -458,9 +487,11 @@ class CrossDevice(FedAvg):
         params = {k: v.to(self.device) for k, v in params.items()}
         params, rng, start_round = self._maybe_resume(checkpointer, params,
                                                       rng)
+        params = broadcast_params(params, self.wave_mesh)
         self._stage_train_on_device()
         for round_idx in range(start_round, cfg.comm_round):
             t0 = time.perf_counter()
+            c0 = self._collective_ms()
             if self.perf is not None:
                 self.perf.round_start(round_idx)
             ids = self._sample_round(round_idx)
@@ -482,6 +513,7 @@ class CrossDevice(FedAvg):
                     if self.health is not None else None, **kw)
             round_s = time.perf_counter() - t0
             self.round_times.append(round_s)
+            self._count_collectives(c0)
             if self.perf is not None:
                 extra = dict(info)
                 # the round's post-finalize global CRC (the checksum the

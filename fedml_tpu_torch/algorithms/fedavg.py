@@ -272,8 +272,13 @@ class FedAvg:
         self._eval_cohort = cohort_eval(self.evaluate, mesh=mesh)
         self.history: List[Dict[str, Any]] = []
         self.round_times: List[float] = []
-        # on a mesh: the ms each round spent in collectives
+        # the mesh whose ranks all run this loop (``mesh``, or a round
+        # that brings its own: the sequence mesh, the wave mesh), and the
+        # ms each round spent in its collectives
+        self.rank_mesh = mesh
         self.collective_times: List[float] = []
+        # ... and of those the ring shifts' (the sequence mesh)
+        self.p2p_times: List[float] = []
 
     def _sample_round(self, round_idx: int):
         return sample_clients(round_idx, self.data.client_num,
@@ -370,13 +375,17 @@ class FedAvg:
             checkpointer.flush()
         return self._own(params)
 
-    def _collective_ms(self) -> float:
-        return 0.0 if self.mesh is None else self.mesh.collective_ms()
+    def _collective_ms(self):
+        """(all collectives', ring shifts') ms so far on the rank mesh."""
+        m = self.rank_mesh
+        return (0.0, 0.0) if m is None else (m.collective_ms(),
+                                             m.collective_ms("p2p"))
 
-    def _count_collectives(self, before_ms: float) -> None:
-        if self.mesh is not None:
-            self.collective_times.append(self.mesh.collective_ms()
-                                         - before_ms)
+    def _count_collectives(self, before) -> None:
+        if self.rank_mesh is not None:
+            now = self._collective_ms()
+            self.collective_times.append(now[0] - before[0])
+            self.p2p_times.append(now[1] - before[1])
 
     def _uses_device_data(self) -> bool:
         """Whether the rounds take the device-resident path: off a mesh,

@@ -20,9 +20,13 @@ finite guard, and a rolling median + MAD norm screen.  A rejected wave
 contributes weight 0: inside a wave there is no per-client payload to
 screen.
 
-The JAX package also shards a wave over a mesh's ``clients`` axis; the
-port's waves run on one rank, and a wave mesh is refused (ROADMAP Queue 1
-item 14)."""
+On a mesh (`parallel.mesh.Mesh`, one rank a position of its
+``clients`` axis) each rank trains its contiguous ``W / D`` slots of the
+wave, keyed by their global slots (``offset + rank·W/D + i``); the
+summary's sums go over the ranks (`Mesh.allsum`) and the stacked uploads
+and weights are gathered in rank order, which is slot order.  So every
+rank folds the same uploads in the same order as one rank would, and
+the ranks' globals stay byte-equal."""
 
 from __future__ import annotations
 
@@ -41,13 +45,6 @@ from fedml_tpu_torch.robust.admission import (AdmissionVerdict, _all_finite,
                                               _leaves, _update_norm,
                                               norm_outlier_threshold,
                                               params_fingerprint)
-
-MESH_REFUSAL = (
-    "a wave mesh (the JAX package's shard_map over the 'clients' axis) is "
-    "not ported: the port's waves train on one rank, and their stacked "
-    "uploads feed a host-ordered fold whose place across ranks needs a "
-    "design of its own (ROADMAP Queue 1 item 14)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Wave:
@@ -77,22 +74,30 @@ def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def _wave_summary(stacked: Tree, w: torch.Tensor,
-                  aux: Dict[str, torch.Tensor]):
+                  aux: Dict[str, torch.Tensor], mesh=None):
     """The wave's weighted partial mean (each leaf accumulated in its acc
-    dtype), weight total and weighted aux sums, on the device."""
-    total = torch.sum(w)
+    dtype), weight total and weighted aux sums, on the device; on a
+    ``mesh`` each a sum over the ranks' rows."""
+    def allsum(tree):
+        return tree if mesh is None else mesh.allsum(tree, "clients")
+
+    total = allsum(torch.sum(w))
     # an all-pad wave (total 0) divides by the guard, not 0; the engine
     # skips it by weight before the mean is read
     ratio = w / torch.clamp_min(total, 1e-6)
 
-    def _mean(x):
+    def _part(x):
         acc = acc_dtype(x.dtype)
-        return torch.sum(x.to(acc) * _bcast(ratio, x.dim()).to(acc),
-                         dim=0).to(x.dtype)
+        return torch.sum(x.to(acc) * _bcast(ratio, x.dim()).to(acc), dim=0)
 
-    mean = {k: _mean(stacked[k]) for k in tree_keys(stacked)}
-    aux_sums = {k: torch.sum(v.to(torch.float32) * _bcast(w, v.dim()), dim=0)
-                for k, v in aux.items()}
+    sums = allsum({**{f"mean/{k}": _part(stacked[k])
+                      for k in tree_keys(stacked)},
+                   **{f"aux/{k}": torch.sum(v.to(torch.float32)
+                                            * _bcast(w, v.dim()), dim=0)
+                      for k, v in aux.items()}})
+    mean = {k: sums[f"mean/{k}"].to(stacked[k].dtype)
+            for k in tree_keys(stacked)}
+    aux_sums = {k: sums[f"aux/{k}"] for k in aux}
     return mean, total, aux_sums
 
 
@@ -103,17 +108,44 @@ def make_wave_fn(make_stacked: Callable, mesh=None):
     ``make_stacked(params, wave_data, seed_words, offset) -> (stacked,
     aux)`` trains the wave (typically `train_cohort` over a local
     trainer); ``aux`` maps names to per-client ``[wave, ...]`` tensors
-    that reduce to weighted sums (FedNova's tau)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSAL)
+    that reduce to weighted sums (FedNova's tau).
 
-    def wave_fn(params, wave_data, seed_words, offset: int):
-        stacked, aux = make_stacked(params, wave_data, seed_words, offset)
-        w = wave_data["num_samples"].to(torch.float32)
-        mean, total, aux_sums = _wave_summary(stacked, w, aux)
-        return stacked, w, mean, total, aux_sums
+    ``mesh``: each rank trains its block of the wave's slots (the wave
+    size must divide over the ``clients`` axis), the summary is summed
+    over the ranks and the stacked uploads and weights come back whole,
+    gathered in slot order."""
+    if mesh is None:
+        def wave_fn(params, wave_data, seed_words, offset: int):
+            stacked, aux = make_stacked(params, wave_data, seed_words,
+                                        offset)
+            w = wave_data["num_samples"].to(torch.float32)
+            mean, total, aux_sums = _wave_summary(stacked, w, aux)
+            return stacked, w, mean, total, aux_sums
 
-    return wave_fn
+        return wave_fn
+
+    from fedml_tpu_torch.parallel.mesh import stage_global
+    n_dev = mesh.shape["clients"]
+
+    def sharded_wave_fn(params, wave_data, seed_words, offset: int):
+        width = wave_data["num_samples"].shape[0]
+        if width % n_dev:
+            raise ValueError(
+                f"wave size {width} not divisible by the mesh clients axis "
+                f"({n_dev}); pick --wave_size as a multiple of the device "
+                f"count")
+        local = dict(stage_global(wave_data, mesh, "clients"))
+        lo = mesh.axis_index("clients") * (width // n_dev)
+        stacked, aux = make_stacked(
+            {k: v.to(mesh.device) for k, v in params.items()}, local,
+            seed_words, offset + lo)
+        w = local["num_samples"].to(torch.float32)
+        mean, total, aux_sums = _wave_summary(stacked, w, aux, mesh)
+        gathered = mesh.all_gather_rows({**stacked, "_weights_": w})
+        w_all = gathered.pop("_weights_")
+        return gathered, w_all, mean, total, aux_sums
+
+    return sharded_wave_fn
 
 
 def make_scaffold_wave_fn(scaffold_local, lr: float):

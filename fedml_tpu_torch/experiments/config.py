@@ -1,6 +1,6 @@
 """The experiment config of the port (the subset of
 ``fedml_tpu/experiments/config.py`` the ported slices run, same flag names
-and defaults, plus the cross-silo flags that are refused by name).
+and defaults).
 ``defense_backend`` and ``secagg_backend`` take the port's names:
 ``torch`` (twin of ``xla``) and ``cuda`` (twin of ``pallas``).
 ``deterministic`` is the port's own: cuDNN's deterministic algorithms
@@ -141,8 +141,10 @@ class ExperimentConfig:
     #                                      (0 = n_silos // 2)
     staleness_exponent: float = 0.5      # (1+s)^-alpha discount
     async_server_lr: float = 1.0         # server step on the mean
-    # options of the JAX package that are refused by name
-    mesh_stages: int = 0
+    # silo-local pipeline parallelism (cross_silo + transformer)
+    mesh_stages: int = 0                 # >0: the blocks over this many
+    #                                      stages (GPipe, PipelineLM)
+    pp_microbatches: int = 0             # GPipe microbatches (0 = stages)
     # serving (serve/: registry + batcher + HTTP frontend), cross_silo
     serve_port: int = 0                  # >0: serve the global over HTTP
     #                                      while training (/predict,
@@ -214,7 +216,9 @@ class ExperimentConfig:
     attn_block_size: int = 0             # >0: blockwise attention
     attn_flash: bool = False             # the flash kernel (K4)
     moe_experts: int = 0                 # >0: the Switch MoE FFN
-    mesh_sequence: int = 0               # >0 is not ported (refused)
+    mesh_sequence: int = 0               # >0 (fedavg + transformer): dp x
+    #                                      sp [clients, sequence] mesh
+    #                                      with ring attention
 
     mesh_clients: int = 0                # >0: shard the cohort over this
     #                                      many ranks (one a mesh position)

@@ -165,7 +165,7 @@ def _summary(algo, params) -> Dict[str, Any]:
         bool(v.isfinite().all()) for v in params.values())
     out["params_sha256"] = params_sha256(params)
     out["device"] = str(algo.device)
-    mesh = getattr(algo, "mesh", None)
+    mesh = getattr(algo, "rank_mesh", None)
     if mesh is not None:
         coll = algo.collective_times[1:] or algo.collective_times
         out.update(
@@ -174,6 +174,10 @@ def _summary(algo, params) -> Dict[str, Any]:
             rank_params_sha256=",".join(mesh.gather_hashes(params)),
             collective_ms_per_round=sum(coll) / len(coll) if coll else 0.0)
         out.update(_spread("collective_ms", coll))
+        p2p = algo.p2p_times[1:] or algo.p2p_times
+        if any(p2p):
+            out["collective_ms_p2p_per_round"] = sum(p2p) / len(p2p)
+            out.update(_spread("collective_ms_p2p", p2p))
     return out
 
 
@@ -204,7 +208,7 @@ def make_checkpointer(cfg: ExperimentConfig, writer: bool = True):
 
 
 def _run_with_checkpoints(cfg, algo):
-    mesh = getattr(algo, "mesh", None)
+    mesh = getattr(algo, "rank_mesh", None)
     ckpt = make_checkpointer(cfg, writer=mesh is None or mesh.rank == 0)
     try:
         params = algo.run(checkpointer=ckpt)
@@ -217,10 +221,43 @@ def _run_with_checkpoints(cfg, algo):
 @runner("fedavg")
 def run_fedavg(cfg, data, sink, mesh=None):
     from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
+    if cfg.mesh_sequence > 0:
+        return _run_with_checkpoints(cfg, sp_fedavg_algo(cfg, data, sink,
+                                                         mesh))
     algo = FedAvg(_make_workload(cfg, data), data,
                   FedAvgConfig(**_fedavg_cfg_kwargs(cfg)), sink=sink,
                   device=cfg.platform, mesh=mesh)
     return _run_with_checkpoints(cfg, algo)
+
+
+def sp_fedavg_algo(cfg, data, sink, mesh):
+    """``--mesh_sequence``: FedAvg whose rounds train over the ``[clients,
+    sequence]`` mesh of the run's ranks (`parallel.sequence`: ring
+    attention, the loss's counts and the gradients summed over the
+    sequence axis inside each client, the weighted mean over both axes).
+    Init and evaluation run the dense workload on each rank, as in the
+    JAX runner (``main.py:436-443``); the summary's collective figures are
+    the sequence mesh's (``collective_ms_p2p*``: the ring's shifts)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
+    from fedml_tpu_torch.parallel.sequence import (make_sp_cohort_step,
+                                                   make_sp_nwp_workload)
+    from fedml_tpu_torch.trainer.workload import make_client_optimizer
+    if not cfg.attn_block_size:
+        logger.warning(
+            "--mesh_sequence without --attn_block_size: init/eval run "
+            "single-chip attention (auto-blockwise past 1024 tokens "
+            "when a block of 64-512 divides T, DENSE O(T^2) scores "
+            "otherwise); set --attn_block_size to pin the "
+            "memory-efficient path")
+    wl = _make_workload(cfg, data)
+    algo = FedAvg(wl, data, FedAvgConfig(**_fedavg_cfg_kwargs(cfg)),
+                  sink=sink, device=mesh.device)
+    algo.cohort_step = make_sp_cohort_step(
+        make_sp_nwp_workload(wl.model, mesh),
+        make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd),
+        cfg.epochs, mesh)
+    algo.rank_mesh = mesh
+    return algo
 
 
 # the stateful cohort algorithms: --algo -> builder(cfg) -> (class, config)
@@ -305,11 +342,12 @@ def dp_fedavg_algo(cfg):
 
 
 @runner("cross_device")
-def run_cross_device(cfg, data, sink):
+def run_cross_device(cfg, data, sink, mesh=None):
     """The cross-device wave engine (`algorithms.cross_device`): the
     seeded sampler picks the round's clients, static waves train on the
-    card and fold into the streaming mean at wave completion."""
-    algo = cross_device_algo(cfg, data, sink)
+    card (on a mesh, each wave's slots over its ranks) and fold into the
+    streaming mean at wave completion."""
+    algo = cross_device_algo(cfg, data, sink, mesh)
     try:
         return _run_with_checkpoints(cfg, algo)
     finally:
@@ -317,16 +355,18 @@ def run_cross_device(cfg, data, sink):
             algo.perf.close()   # join the RSS sampler thread
 
 
-def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
+def cross_device_algo(cfg: ExperimentConfig, data, sink=None, mesh=None):
     """The runner's `CrossDevice` for ``cfg``; with ``--server_opt``, the
     optimizer's template is the run's initial global.  ``--ingest_pipeline``
     folds the waves on one worker, ``--wave_adversary`` poisons wave
     summaries; the engine's ``degrade`` seam is an API seam, as in the
-    JAX runner."""
+    JAX runner.  ``mesh``: the wave mesh (``--mesh_clients``); every rank
+    keeps the recorders, rank 0 alone writes their ledgers."""
     from fedml_tpu_torch.algorithms.cross_device import (CrossDevice,
                                                          CrossDeviceConfig)
     wl = _make_workload(cfg, data)
-    perf = make_perf(cfg, resolve_device(cfg.platform))
+    writer = mesh is None or mesh.rank == 0
+    perf = make_perf(cfg, resolve_device(cfg.platform), mesh=mesh)
     server_opt = None
     if cfg.server_opt != "plain":
         server_opt = make_server_opt(cfg, wl.init(
@@ -334,7 +374,7 @@ def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
             resolve_device(cfg.platform)), perf=perf)
     # wave summaries are params-like trees: norms and alignment read
     # them against the round's global
-    health = make_health(cfg, "params")
+    health = make_health(cfg, "params", write=writer)
     # the cohort lever widens up to the population; epochs and the wave
     # width stay pinned (static shapes of the wave program)
     controller = make_controller(
@@ -354,7 +394,7 @@ def cross_device_algo(cfg: ExperimentConfig, data, sink=None):
         # submit_wait cannot overflow (backpressure paces the waves), so
         # no fault feed is wired
         ingest=make_ingest(cfg, None), perf=perf, health=health,
-        slo=make_slo(cfg), controller=controller)
+        slo=make_slo(cfg), controller=controller, mesh=mesh)
 
 
 @runner("centralized")
@@ -458,7 +498,7 @@ def _silo_training_setup(cfg, data, wl, device, init_params=None,
 
     def make_train_fn(silo_id, shard_transform=None):
         local = make_local_trainer(
-            _make_workload(cfg, data),
+            silo_workload(cfg, data, device),
             make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd),
             cfg.epochs)
         if perf is not None:
@@ -482,6 +522,45 @@ def _silo_training_setup(cfg, data, wl, device, init_params=None,
     if init_params is None:
         init_params = wl.init(torch.Generator().manual_seed(cfg.seed), device)
     return {k: v.to(device) for k, v in init_params.items()}, make_train_fn
+
+
+def pp_stages(cfg: ExperimentConfig, device):
+    """``--mesh_stages``' stage devices for a silo training on ``device``:
+    the CPU for every stage, or the visible cards round robin (on one
+    card every stage shares it, where the JAX package refuses)."""
+    from fedml_tpu_torch.parallel.pipeline import make_stage_mesh
+    return make_stage_mesh(cfg.mesh_stages, device=device)
+
+
+def pp_workload(cfg: ExperimentConfig, data, device):
+    """``--mesh_stages``: silo-local GPipe over the transformer's block
+    stack (`parallel.pipeline`), at the dense `TransformerLM`'s widths in
+    stacked form (the block count grows to one a stage past the default
+    2), ``--moe_experts`` composing; JAX ``main.py:696-726``."""
+    from fedml_tpu_torch.parallel.pipeline import (PipelineLM,
+                                                   make_pp_nwp_workload)
+    if cfg.model != "transformer":
+        raise ValueError("--mesh_stages requires --model transformer "
+                         "(the stacked-block PipelineLM)")
+    shape = sample_shape_of(data)
+    if len(shape) != 1:
+        raise ValueError(f"--mesh_stages needs a sequence dataset "
+                         f"(next-word prediction); got sample shape {shape}")
+    plm = PipelineLM(vocab_size=data.class_num, d_model=128, n_heads=4,
+                     n_layers=max(2, cfg.mesh_stages), d_ff=512,
+                     max_len=2048, moe_experts=cfg.moe_experts)
+    n_micro = cfg.pp_microbatches or cfg.mesh_stages
+    if cfg.batch_size % n_micro:
+        raise ValueError(f"--batch_size {cfg.batch_size} must divide into "
+                         f"{n_micro} GPipe microbatches (--pp_microbatches)")
+    return make_pp_nwp_workload(plm, pp_stages(cfg, device), n_micro=n_micro)
+
+
+def silo_workload(cfg: ExperimentConfig, data, device):
+    """A silo's workload: the pipelined one under ``--mesh_stages``."""
+    if cfg.mesh_stages > 0:
+        return pp_workload(cfg, data, device)
+    return _make_workload(cfg, data)
 
 
 def silo_key(seed: int, round_idx: int, silo_id: int):
@@ -620,12 +699,14 @@ def make_server_opt(cfg: ExperimentConfig, template, plan=None, perf=None):
         device=perf.device if perf is not None else None)
 
 
-def make_perf(cfg: ExperimentConfig, device):
+def make_perf(cfg: ExperimentConfig, device, mesh=None):
     """The perf flight recorder (`obs.perf`) of a live run: one
     ``perf.jsonl`` line a round at ``--perf_ledger`` (or
     ``run_dir/perf.jsonl``).  ``--perf_strict`` and ``--device_obs``
     imply it.  Only the server node records (a gRPC silo returns None);
-    the runner owns ``close()``."""
+    the runner owns ``close()``.  On a ``mesh`` every rank records (the
+    device section's memory is a sum over the ranks' cards, one
+    ``all_reduce`` at each read) and rank 0 alone writes the ledger."""
     if not (cfg.perf or cfg.perf_ledger or cfg.perf_strict
             or cfg.device_obs):
         return None
@@ -636,16 +717,20 @@ def make_perf(cfg: ExperimentConfig, device):
     path = cfg.perf_ledger or os.path.join(
         cfg.metrics_dir or cfg.run_dir or ".", "perf.jsonl")
     return PerfRecorder(
-        path, node=f"node{cfg.node_id}", strict_recompiles=cfg.perf_strict,
-        device=DeviceRecorder(device=device) if cfg.device_obs else None)
+        path if mesh is None or mesh.rank == 0 else None,
+        node=f"node{cfg.node_id}", strict_recompiles=cfg.perf_strict,
+        device=(DeviceRecorder(device=device, mesh=mesh)
+                if cfg.device_obs else None))
 
 
-def make_health(cfg: ExperimentConfig, kind: str, suppress_payload=None):
+def make_health(cfg: ExperimentConfig, kind: str, suppress_payload=None,
+                write: bool = True):
     """The learning-health observatory (`obs.health`) of a live run: a
     ``health.jsonl`` line a round at ``--health_ledger`` (or
     ``run_dir/health.jsonl``); the drift-alarm thresholds ride the
     ``--slo`` spec (its ``health_*`` names).  Only the server node
-    accumulates."""
+    accumulates; ``write`` False (a mesh rank other than 0) keeps no
+    ledger file."""
     if not (cfg.health or cfg.health_ledger):
         return None
     if cfg.silo_backend != "local" and cfg.node_id != 0:
@@ -658,7 +743,8 @@ def make_health(cfg: ExperimentConfig, kind: str, suppress_payload=None):
         cfg.metrics_dir or cfg.run_dir or ".", "health.jsonl")
     spec = parse_slo_spec(cfg.slo) if cfg.slo else {}
     return HealthAccumulator(
-        kind=kind, node=f"node{cfg.node_id}", ledger_path=path,
+        kind=kind, node=f"node{cfg.node_id}",
+        ledger_path=path if write else None,
         thresholds={k: v for k, v in spec.items() if k in HEALTH_SLOS},
         suppress_payload=suppress_payload)
 
@@ -1150,7 +1236,7 @@ class CrossSiloFederation:
             cfg, "params",
             suppress_payload=("secagg_pairwise_masking"
                               if cfg.secagg == "pairwise" else None))
-        wl = _make_workload(cfg, data)
+        wl = silo_workload(cfg, data, self.device)
         init, make_train_fn = _silo_training_setup(
             cfg, data, wl, self.device, init_params, perf=perf)
         n_silos = min(cfg.client_num_per_round, data.client_num)
@@ -1483,8 +1569,13 @@ class CrossSiloFederation:
         steady = self.round_times[1:] or self.round_times
         out = dict(self.history[-1]) if self.history else {}
         out["rounds_per_s"] = len(steady) / sum(steady) if steady else 0.0
+        out["round_ms"] = 1e3 * sum(steady) / len(steady) if steady else 0.0
+        out.update(_spread("round_ms", [1e3 * t for t in steady]))
         out["params_finite"] = all(bool(v.isfinite().all())
                                    for v in server.params.values())
+        if self.cfg.mesh_stages > 0:
+            out["stage_devices"] = ",".join(
+                str(d) for d in pp_stages(self.cfg, self.device))
         return out
 
 
@@ -1656,14 +1747,6 @@ def run_hierarchical(cfg, data, sink, mesh=None):
                                                         mesh))
 
 
-# flags of the JAX package the port refuses, with what they need:
-# (default, the ROADMAP item that brings it)
-REFUSED_FLAGS = {
-    "mesh_stages": (0, "parallel/pipeline.py, with the model and sequence "
-                       "parallelism slice (ROADMAP Queue 1, item 14)"),
-}
-
-
 def check_obs(cfg: ExperimentConfig) -> None:
     """The JAX package's gates on the observability flags (JAX
     ``main.py:2398-2493``): every flag that would parse and then record
@@ -1711,12 +1794,27 @@ def check_obs(cfg: ExperimentConfig) -> None:
 
 def check_cross_silo(cfg: ExperimentConfig) -> None:
     """The JAX package's gates on the live-path flags (JAX
-    ``main.py:2100-2420``), and the port's refusals of what it does not
-    run yet."""
-    for flag, (default, needs) in REFUSED_FLAGS.items():
-        if getattr(cfg, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet; it needs {needs}")
+    ``main.py:2083-2420``)."""
+    if cfg.mesh_stages > 0 and cfg.algo != "cross_silo":
+        raise ValueError(
+            "--mesh_stages is silo-local pipeline parallelism: each silo "
+            "runs its own [stages] mesh, so it only applies to --algo "
+            "cross_silo (the vmapped cohort engine cannot nest a shard_map "
+            f"pipeline per client); got --algo {cfg.algo}")
+    if cfg.pp_microbatches and not cfg.mesh_stages:
+        raise ValueError("--pp_microbatches tunes the GPipe schedule and "
+                         "needs --mesh_stages; alone it would be silently "
+                         "ignored")
+    if cfg.mesh_stages > 0 and (cfg.attn_block_size or cfg.attn_flash):
+        raise ValueError(
+            "--attn_block_size/--attn_flash are TransformerLM attention "
+            "backends; the pipelined PipelineLM (--mesh_stages) runs dense "
+            "block attention and would silently drop them")
+    if cfg.mesh_stages > 0 and cfg.serve_port > 0:
+        raise NotImplementedError(
+            "--serve_port with --mesh_stages is not ported: the serving "
+            "registry applies a TransformerLM module, and PipelineLM's "
+            "stacked tree needs a predict path of its own")
     if cfg.silo_backend not in ("local", "grpc"):
         raise ValueError(f"unknown silo_backend {cfg.silo_backend!r}; "
                          f"available: ('local', 'grpc')")
@@ -2142,12 +2240,7 @@ def check_config(cfg: ExperimentConfig) -> None:
         raise ValueError(
             f"--compute_dtype is not wired into --algo {cfg.algo}; "
             f"supported: {supported}")
-    if cfg.mesh_sequence:
-        raise NotImplementedError(
-            "--mesh_sequence is not ported yet; sequence parallelism "
-            "(parallel/ring_attention.py, sequence.py) arrives over "
-            "torch.distributed with the model and sequence parallelism "
-            "slice (ROADMAP Queue 1, item 14)")
+    check_sequence(cfg)
     check_mesh(cfg)
     if cfg.checkpoint_dir and cfg.algo == "turboaggregate":
         raise NotImplementedError(
@@ -2156,15 +2249,42 @@ def check_config(cfg: ExperimentConfig) -> None:
             "item 12, with the rest of the standalone secure loops)")
 
 
+def check_sequence(cfg: ExperimentConfig) -> None:
+    """The JAX runner's gates on ``--mesh_sequence`` (JAX
+    ``main.py:402-433``), before any rank starts."""
+    if cfg.mesh_sequence < 0:
+        raise ValueError(f"--mesh_sequence must be >= 0, got "
+                         f"{cfg.mesh_sequence}")
+    if not cfg.mesh_sequence:
+        return
+    if cfg.algo != "fedavg":
+        raise ValueError(f"--mesh_sequence is dp x sp FedAvg over a "
+                         f"[clients, sequence] mesh; --algo {cfg.algo} "
+                         f"would silently train without it")
+    if cfg.model != "transformer":
+        raise ValueError("--mesh_sequence requires --model transformer "
+                         "(the ring-attention-capable model)")
+    if cfg.moe_experts:
+        raise ValueError(
+            "--moe_experts with --mesh_sequence is not supported: the "
+            "sequence-parallel loss path does not capture the Switch "
+            "load-balance loss (it would silently train with zero "
+            "balancing pressure); drop one of the flags")
+    if cfg.mesh_clients or cfg.mesh_groups:
+        raise ValueError("--mesh_sequence and --mesh_clients build one "
+                         "combined [clients, sequence] mesh; pass "
+                         "--mesh_sequence S with client sharding "
+                         "implied by the remaining devices")
+
+
 # the runners that take a mesh (--mesh_clients, --mesh_groups)
 MESH_RUNNERS = {"fedavg", "fedprox", "fedopt", "fednova", "scaffold",
                 "feddyn", "ditto", "fedac", "dp_fedavg", "fedavg_robust",
-                "hierarchical"}
+                "hierarchical", "cross_device"}
 
 
 def check_mesh(cfg: ExperimentConfig) -> None:
-    """The JAX package's gates on the mesh flags, and the port's refusal
-    of the wave mesh."""
+    """The JAX package's gates on the mesh flags."""
     if cfg.mesh_clients < 0 or cfg.mesh_groups < 0:
         raise ValueError(f"--mesh_clients and --mesh_groups must be >= 0, "
                          f"got {cfg.mesh_clients}, {cfg.mesh_groups}")
@@ -2174,11 +2294,12 @@ def check_mesh(cfg: ExperimentConfig) -> None:
             "which only the hierarchical algorithm consumes; other "
             f"algorithms (got --algo {cfg.algo}) would silently "
             "duplicate work across the groups axis. Use --mesh_clients.")
-    if cfg.num_processes > 1 and not (cfg.mesh_clients or cfg.mesh_groups):
+    if cfg.num_processes > 1 and not (cfg.mesh_clients or cfg.mesh_groups
+                                      or cfg.mesh_sequence):
         raise ValueError(
             f"--num_processes {cfg.num_processes} starts one rank a mesh "
-            f"position; pass --mesh_clients (or --mesh_groups) to say the "
-            f"mesh")
+            f"position; pass --mesh_clients (or --mesh_groups, or "
+            f"--mesh_sequence) to say the mesh")
     if not (cfg.mesh_clients or cfg.mesh_groups):
         return
     if cfg.algo == "async_fl":
@@ -2189,8 +2310,9 @@ def check_mesh(cfg: ExperimentConfig) -> None:
                          "actor mode (each silo trains single-chip); drop "
                          "the flag or use --algo fedavg for on-pod sharding")
     if cfg.algo == "cross_device":
-        from fedml_tpu_torch.device_cohort.waves import MESH_REFUSAL
-        raise NotImplementedError(MESH_REFUSAL)
+        # the engine's own gates, here before any rank starts
+        from fedml_tpu_torch.algorithms.cross_device import check_wave_mesh
+        check_wave_mesh(cfg.local_alg, cfg.wave_size, cfg.mesh_clients)
     if cfg.algo not in MESH_RUNNERS:
         raise ValueError(
             f"--mesh_clients does not shard --algo {cfg.algo}: its runner "
@@ -2220,6 +2342,17 @@ def mesh_shape(cfg: ExperimentConfig, n_dev: Optional[int]):
     to the visible cards."""
     from fedml_tpu_torch.parallel.mesh import (check_mesh_factors,
                                                check_two_level_factors)
+    if cfg.mesh_sequence > 0:
+        # the world is --num_processes (else the devices), n_cli = world
+        # // S of it, as the JAX runner takes jax.devices()
+        avail = (cfg.num_processes if cfg.num_processes > 1
+                 else n_dev if n_dev is not None
+                 else torch.cuda.device_count())
+        n_cli = max(1, avail // cfg.mesh_sequence)
+        if n_cli * cfg.mesh_sequence > avail:
+            raise ValueError(f"mesh {n_cli}x{cfg.mesh_sequence} != "
+                             f"{avail} devices")
+        return {"clients": n_cli, "sequence": cfg.mesh_sequence}
     if cfg.mesh_groups > 0:
         avail = n_dev if n_dev is not None else torch.cuda.device_count()
         n_cli = cfg.mesh_clients or avail // cfg.mesh_groups
@@ -2246,12 +2379,16 @@ def build_mesh(cfg: ExperimentConfig):
     if shape is None:
         if mesh_lib.rank_and_world()[1] > 1:
             raise ValueError("a run of several ranks needs --mesh_clients "
-                             "(or --mesh_groups) to say its mesh")
+                             "(or --mesh_groups, or --mesh_sequence) to "
+                             "say its mesh")
         return None
     if "groups" in shape:
         return mesh_lib.make_two_level_mesh(shape["groups"],
                                             shape["clients"],
                                             device=cfg.platform)
+    if "sequence" in shape:
+        return mesh_lib.make_sp_mesh(shape["clients"], shape["sequence"],
+                                     device=cfg.platform)
     return mesh_lib.make_mesh(shape["clients"], device=cfg.platform)
 
 

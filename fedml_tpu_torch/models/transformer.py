@@ -26,7 +26,10 @@ f32.
 Attention takes the JAX module's branches in its order: the flash kernel
 (``use_flash``, K4 in ``models/flash_attention.py``), then ``block_size``,
 then blockwise above ``auto_block_len`` (``_auto_block``), then dense.
-Sequence parallelism (``ring_axis``) is refused by name until its slice.
+``ring_axis`` (a `parallel.mesh.MeshAxis`) comes before all of them:
+the sequence is sharded over that axis's ranks, ``positions`` are the
+rank's global ones, and attention runs as the exact ring
+(`parallel.ring_attention.ring_attention`).
 
 Incremental decode (the serving step, `serve/decode.py`): with ``cache``
 (from `init_decode_cache`, JAX's layout ``{"attn_i": {"k", "v"}}``, each
@@ -57,7 +60,8 @@ from fedml_tpu_torch.models.layers import (Dense, DenseGeneral, Embed,
                                             LayerNorm, dropout)
 from fedml_tpu_torch.models.moe import SwitchFFN
 from fedml_tpu_torch.parallel.ring_attention import (blockwise_attention,
-                                                     full_attention)
+                                                     full_attention,
+                                                     ring_attention)
 
 def _auto_block(t: int, threshold: int, max_block: int = 512,
                 min_block: int = 64) -> Optional[int]:
@@ -86,11 +90,14 @@ class CausalSelfAttention(nn.Module):
         self.out = DenseGeneral((n_heads, d_head), (d_model,), dtype)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[dict] = None) -> torch.Tensor:
+                cache: Optional[dict] = None,
+                ring_axis=None) -> torch.Tensor:
         q, k, v = self.query(x), self.key(x), self.value(x)
         t = x.shape[1]
         if cache is not None:
             out = _decode_attention(q, k, v, positions, cache)
+        elif ring_axis is not None:
+            out = ring_attention(q, k, v, positions, positions, ring_axis)
         elif self.use_flash:
             out = flash_attention(q, k, v)
         elif self.block_size is not None:
@@ -187,16 +194,11 @@ class TransformerLM(nn.Module):
 
     def forward(self, input_seq: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                ring_axis: Optional[str] = None, cache=None,
+                ring_axis=None, cache=None,
                 dropout_key: Optional[torch.Tensor] = None,
                 moe_aux: bool = False):
         if cache is not None:
             return self._decode(input_seq, positions, ring_axis, cache)
-        if ring_axis is not None:
-            raise NotImplementedError(
-                "ring_axis (sequence-parallel ring attention) is not ported "
-                "yet; it arrives with parallel/ring_attention.py over "
-                "torch.distributed (ROADMAP Queue 1 item 14)")
         t = input_seq.shape[1]
         if positions is None:
             positions = torch.arange(t, device=input_seq.device)
@@ -204,7 +206,7 @@ class TransformerLM(nn.Module):
         load_balance = []
         for i in range(self.n_layers):
             h = getattr(self, f"LayerNorm_{2 * i}")(x)
-            h = getattr(self, f"attn_{i}")(h, positions)
+            h = getattr(self, f"attn_{i}")(h, positions, ring_axis=ring_axis)
             x = x + dropout(h, self.dropout_rate, dropout_key, 2 * i)
             h = getattr(self, f"LayerNorm_{2 * i + 1}")(x)
             if self.moe_experts:

@@ -10,7 +10,12 @@ Three instruments, riding the `PerfRecorder` round cadence (one
   allocator's allocated bytes now and at their peak, ``bytes_limit`` the
   card's memory from ``torch.cuda.mem_get_info``), and ``null`` on the
   CPU: the JAX package sums ``jax.live_arrays()`` there, and PyTorch has
-  no honest twin of that sum, so the port never fabricates one.
+  no honest twin of that sum, so the port never fabricates one.  On a
+  mesh (``mesh=``: the wave mesh's ranks, a card each) the section reads
+  every rank's card, as the JAX package reads every local device: one
+  ``all_reduce`` at the round's read gathers each rank's watermarks, the
+  section lists one entry a rank and their sums (``memory_total``), and
+  the MFU's peak is the per-card peak times the distinct cards.
 * **a named compile ledger** — every instrumented hot callable records
   the wall time of each call that BUILT something for a new signature:
   a call that grew the callable's ``_cache_size`` probe (CUDA-graph
@@ -387,11 +392,15 @@ class DeviceRecorder:
     """
 
     def __init__(self, registry=None, cost_analysis: bool = True,
-                 peak_tflops: Optional[float] = None, device=None):
+                 peak_tflops: Optional[float] = None, device=None,
+                 mesh=None):
         reg = registry if registry is not None else telemetry.get_registry()
         self._registry = reg
         self.cost_analysis = cost_analysis
         self.device = device
+        # every rank of the mesh reads the section together (a collective)
+        self.mesh = mesh
+        self._mesh_cards: Optional[int] = None
         self._lock = threading.Lock()
         self._peak_tflops = peak_tflops
         self._peak_source = ("explicit peak_tflops argument"
@@ -593,6 +602,44 @@ class DeviceRecorder:
             self._compile_sizes = {}
         self.sample_memory()
 
+    _MESH_FIELDS = ("id", "bytes_in_use", "peak_bytes", "bytes_limit",
+                    "round_peak_bytes")
+
+    def _mesh_memory(self, mem: Optional[List[dict]]):
+        """Every rank's memory entry (``id`` the rank, ``card`` its CUDA
+        index) from one ``all_reduce`` over the mesh's world, and the
+        number of distinct cards; ``(None, 1)`` when no rank measured."""
+        import torch
+        mesh = self.mesh
+        n = len(self._MESH_FIELDS) + 1
+        # row r: rank r's fields + 1, 0 where unmeasured; the last column
+        # marks a rank that measured
+        vec = torch.zeros((mesh.world_size, n), dtype=torch.int64)
+        e = mem[0] if mem else None
+        if e is not None:
+            vec[mesh.rank, :-1] = torch.tensor(
+                [-1 if e.get(f) is None else int(e[f]) for f in
+                 self._MESH_FIELDS], dtype=torch.int64) + 1
+            vec[mesh.rank, -1] = 1
+        rows = mesh.allsum(vec.to(mesh.device), mesh.axis_names).cpu()
+        out = []
+        for r, row in enumerate(rows.tolist()):
+            if not row[-1]:
+                continue
+            f = {k: (None if v == 0 else v - 1)
+                 for k, v in zip(self._MESH_FIELDS, row)}
+            entry = {"id": r, "card": f["id"], "platform": "cuda",
+                     "kind": torch.cuda.get_device_name(f["id"]),
+                     "source": "memory_stats",
+                     **{k: f[k] for k in self._MESH_FIELDS[1:]
+                        if f[k] is not None or k != "round_peak_bytes"}}
+            if f["bytes_in_use"] is not None and f["bytes_limit"]:
+                entry["utilization"] = (float(f["bytes_in_use"])
+                                        / float(f["bytes_limit"]))
+            out.append(entry)
+        cards = len({e["card"] for e in out}) or 1
+        return out or None, cards
+
     def round_snapshot(self, round_s: Optional[float]) -> dict:
         """Close the round: one ledger-ready ``device`` section.  Every
         unmeasurable quantity is ``null`` — never 0."""
@@ -608,6 +655,17 @@ class DeviceRecorder:
             for e in mem:
                 if e["id"] in peaks:
                     e["round_peak_bytes"] = peaks[e["id"]]
+        total = None
+        if self.mesh is not None:
+            mem, cards = self._mesh_memory(mem)
+            if self._mesh_cards is None:
+                self._mesh_cards = cards
+                self._peak_tflops *= cards
+                self._peak_source += f" x {cards} cards of the mesh"
+            if mem:
+                total = {k: sum(e[k] for e in mem if e.get(k) is not None)
+                         for k in ("bytes_in_use", "peak_bytes",
+                                   "round_peak_bytes")}
         achieved = mfu = None
         if flops > 0 and round_s:
             achieved = flops / float(round_s)
@@ -615,6 +673,7 @@ class DeviceRecorder:
         section = {
             "backend": self.backend(),
             "memory": mem,
+            **({} if self.mesh is None else {"memory_total": total}),
             "compiles": compiles,
             "jit_calls": calls,
             "flops": flops if flops > 0 else None,

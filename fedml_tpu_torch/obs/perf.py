@@ -329,7 +329,7 @@ class PerfRecorder:
     sharing a run dir would be a misconfiguration anyway) can interleave
     lines but never interleave bytes of a line on POSIX O_APPEND."""
 
-    def __init__(self, path: str, node: str = "server",
+    def __init__(self, path: Optional[str], node: str = "server",
                  rss_interval_s: float = 0.05, strict_recompiles: bool = False,
                  registry=None, node_index: int = 0, device=None):
         self.path = path
@@ -340,7 +340,9 @@ class PerfRecorder:
         self.device = device
         self.node = node
         self.node_index = node_index  # wire-byte direction split anchor
-        d = os.path.dirname(path)
+        # path None: record without a ledger file (a mesh rank other than
+        # the one that writes)
+        d = os.path.dirname(path) if path else ""
         if d:
             os.makedirs(d, exist_ok=True)
         # one ledger == one run: a leftover file from a previous run at
@@ -349,7 +351,7 @@ class PerfRecorder:
         # trend gate's skip-first-round medians and the recompile gate's
         # baseline-row forgiveness.  Rotate it aside instead of
         # appending (or silently destroying a crashed run's evidence).
-        if os.path.exists(path):
+        if path and os.path.exists(path):
             os.replace(path, path + ".prev")
         reg = registry if registry is not None else telemetry.get_registry()
         self._registry = reg
@@ -364,7 +366,7 @@ class PerfRecorder:
         self._c_rounds = reg.counter("fedml_perf_rounds_total")
         self._h_phase: Dict[str, object] = {}
         self._closed = False
-        self._ledger_disabled = False
+        self._ledger_disabled = path is None
         # round critical-path observatory (obs/critical_path.py): armed
         # per round in round_start, reduced into the line's
         # ``critical_path`` record at round_end — every ledger line

@@ -1,5 +1,6 @@
 """Meshes over ``torch.distributed`` (port of ``fedml_tpu/parallel/mesh.py``,
-all of it but ``tp_shard_params``).
+all of it but ``tp_shard_params``, and of ``make_sp_mesh`` from
+``fedml_tpu/parallel/sequence.py``).
 
 JAX places one controller over many devices; the port runs one process
 (rank) per mesh position, as PyTorch does, and a `Mesh` is the rank's view
@@ -14,7 +15,9 @@ two-level mesh the ``groups`` subgroup of its column).
   NCCL when every rank of a host has a card of its own, gloo on the CPU or
   when ranks share a card (NCCL refuses two ranks on one device).
 * Every collective goes through the mesh (`Mesh.allsum`,
-  `Mesh.all_gather_rows`, `Mesh.broadcast`).  On gloo a CUDA tensor is
+  `Mesh.all_gather_rows`, `Mesh.broadcast`, and on one axis
+  `Mesh.axis(name)`'s ring shift and gradient-free sum).  ``allsum``
+  over every axis at once (``mesh.axis_names``) reduces over the world.  On gloo a CUDA tensor is
   staged through a pinned host buffer explicitly: the collective runs on
   the host copy and the result is copied back.  A sum over ranks is one
   ``all_reduce`` per dtype: NCCL's and gloo's reductions hand every rank
@@ -173,7 +176,8 @@ class Mesh:
 
     ``collective_ms()`` is the time spent in collectives so far: CUDA
     events around each one on a card (the host staging of gloo included),
-    the host clock on the CPU."""
+    the host clock on the CPU; ``collective_ms("p2p")`` the ring shifts'
+    share."""
 
     def __init__(self, shape: Dict[str, int], device=None):
         self.shape = dict(shape)
@@ -185,12 +189,17 @@ class Mesh:
         strides = [int(np.prod(sizes[i + 1:])) for i in range(len(sizes))]
         self.coords = {a: (self.rank // s) % n for a, s, n in
                        zip(self.axis_names, strides, sizes)}
-        self._groups: Dict[str, Any] = {}
+        self._groups: Dict[Any, Any] = {}
+        # each axis's ranks (global), in the order of their coordinate
+        self._axis_ranks = {
+            a: [self.rank + (k - self.coords[a]) * s for k in range(n)]
+            for a, s, n in zip(self.axis_names, strides, sizes)}
         if self.world_size > 1 or self.backend is not None:
             for i, axis in enumerate(self.axis_names):
                 self._groups[axis] = self._axis_group(i, sizes, strides)
-        self._events: List[Tuple[Any, Any]] = []
-        self._host_ms = 0.0
+            self._groups[self.axis_names] = dist.group.WORLD
+        self._events: List[Tuple[Any, Any, str]] = []
+        self._host_ms: Dict[str, float] = {}
 
     def _axis_group(self, i: int, sizes, strides):
         if sizes[i] == self.world_size:
@@ -210,6 +219,11 @@ class Mesh:
     def axis_index(self, axis: str) -> int:
         return self.coords[axis]
 
+    def axis(self, name: str) -> "MeshAxis":
+        """This rank's view of the axis ``name``: its size and index, and
+        the collectives along it that autograd sees."""
+        return MeshAxis(self, name)
+
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, device={self.device}, "
                 f"backend={self.backend})")
@@ -222,22 +236,28 @@ class Mesh:
             return ev
         return time.perf_counter()
 
-    def _timed_end(self, start) -> None:
+    def _timed_end(self, start, kind: str = "reduce") -> None:
         if self.device.type == "cuda":
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            self._events.append((start, ev))
+            self._events.append((start, ev, kind))
         else:
-            self._host_ms += (time.perf_counter() - start) * 1e3
+            self._host_ms[kind] = self._host_ms.get(kind, 0.0) \
+                + (time.perf_counter() - start) * 1e3
 
-    def collective_ms(self) -> float:
+    def collective_ms(self, kind: Optional[str] = None) -> float:
         """Milliseconds spent in collectives so far (synchronises with the
-        device on a card)."""
+        device on a card); ``kind`` "p2p" counts the ring shifts alone,
+        "reduce" every other collective."""
         if self._events:
             self._events[-1][1].synchronize()
-            self._host_ms += sum(a.elapsed_time(b) for a, b in self._events)
+            for a, b, k in self._events:
+                self._host_ms[k] = self._host_ms.get(k, 0.0) \
+                    + a.elapsed_time(b)
             self._events = []
-        return self._host_ms
+        if kind is not None:
+            return self._host_ms.get(kind, 0.0)
+        return sum(self._host_ms.values())
 
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as the backend takes it: a pinned host copy for gloo."""
@@ -283,6 +303,34 @@ class Mesh:
             out.update(_split(keys, flat, tree))
         return {k: out[k] for k in tree}
 
+    def ring_shift(self, tensors, axis: str, reverse: bool = False):
+        """Each of ``tensors`` as the previous rank of ``axis`` holds it
+        (coordinate ``i - 1`` mod n; ``reverse``: the next, ``i + 1``).
+        The sends and the receives go out together as one
+        ``batch_isend_irecv`` on the axis's group: a rank that sent before
+        it received would deadlock a blocking backend."""
+        group = self._groups.get(axis)
+        if group is None or self.shape[axis] == 1:
+            return list(tensors)
+        ranks, n = self._axis_ranks[axis], self.shape[axis]
+        i = self.coords[axis]
+        step = -1 if reverse else 1
+        dst, src = ranks[(i + step) % n], ranks[(i - step) % n]
+        start = self._timed_start()
+        sends = [self._staged(t.contiguous()) for t in tensors]
+        recvs = [torch.empty(t.shape, dtype=t.dtype, device=t.device,
+                             pin_memory=t.is_pinned()) for t in sends]
+        ops = []
+        for tag, (out, back) in enumerate(zip(sends, recvs)):
+            ops.append(dist.P2POp(dist.isend, out, dst, group, tag))
+            ops.append(dist.P2POp(dist.irecv, back, src, group, tag))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = [r.to(t.device, non_blocking=True) if r.device != t.device
+               else r for r, t in zip(recvs, tensors)]
+        self._timed_end(start, "p2p")
+        return out
+
     def all_gather_rows(self, tree, axis: str = "clients"):
         """Each leaf's rows ``[c, ...]`` from every rank of ``axis``,
         concatenated in rank order (``[c·D, ...]``)."""
@@ -323,6 +371,71 @@ class Mesh:
         parts = [torch.empty_like(src) for _ in range(self.world_size)]
         dist.all_gather(parts, src)
         return [bytes(p.cpu().tolist()).hex() for p in parts]
+
+
+def _fresh(out: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
+    """A custom function's output, never its input itself (an axis of
+    one rank moves nothing)."""
+    return out.clone() if out is inp else out
+
+
+class _RingShift(torch.autograd.Function):
+    """``(x, pos)`` from the previous rank of an axis; the gradient of
+    ``x`` goes back to it (the transpose of JAX's ``ppermute``: the
+    reverse shift).  ``pos`` (integer positions) carries none."""
+
+    @staticmethod
+    def forward(axis, x, pos):
+        return tuple(_fresh(o, i) for o, i in zip(
+            axis.mesh.ring_shift([x, pos], axis.name), (x, pos)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[0]
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _gpos):
+        axis = ctx.axis
+        return None, axis.mesh.ring_shift([g], axis.name, reverse=True)[0], \
+            None
+
+
+class _AllSumNoGrad(torch.autograd.Function):
+    """The sum over an axis of a value that carries no gradient (a
+    normaliser, a reported loss)."""
+
+    @staticmethod
+    def forward(axis, x):
+        return _fresh(axis.mesh.allsum(x.contiguous(), axis.name), x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, _g):
+        return None, None
+
+
+class MeshAxis:
+    """One axis of a `Mesh` as a model running along it sees it (the JAX
+    package's ``axis_name`` inside ``shard_map``): ``size``, this rank's
+    ``index``, the ring shift autograd carries and a gradient-free sum.
+    Both run as custom autograd functions, so ``torch.func.grad`` takes
+    them."""
+
+    def __init__(self, mesh: "Mesh", name: str):
+        self.mesh, self.name = mesh, name
+        self.size = mesh.shape[name]
+        self.index = mesh.coords[name]
+
+    def shift(self, x: torch.Tensor, pos: torch.Tensor):
+        """``(x, pos)`` as the previous rank on the axis holds them."""
+        return _RingShift.apply(self, x, pos)
+
+    def sum_no_grad(self, x: torch.Tensor) -> torch.Tensor:
+        return _AllSumNoGrad.apply(self, x.detach())
 
 
 def _by_dtype(tree: Dict[str, torch.Tensor]):
@@ -419,14 +532,15 @@ def make_mesh(client_axis: Optional[int] = None, model_axis: int = 1,
 
     Defaults: every rank on the clients axis.  A ``model`` axis over more
     than one rank (tensor parallelism, ``tp_shard_params``) is not ported
-    yet."""
+    yet (ROADMAP Queue 1 item 14b)."""
     n = _n_devices(devices)
     client_axis, model_axis = check_mesh_factors(client_axis, model_axis, n,
                                                  axis_names)
     if model_axis > 1:
         raise NotImplementedError(
             "a model axis over more than one rank (tensor parallelism, "
-            "tp_shard_params) is not ported yet (ROADMAP Queue 1 item 14)")
+            "tp_shard_params) is not ported yet; it needs column- and "
+            "row-parallel layers (ROADMAP Queue 1 item 14b)")
     _check_world((client_axis, model_axis), n)
     return Mesh({axis_names[0]: client_axis, axis_names[1]: model_axis},
                 device=device)
@@ -443,6 +557,21 @@ def make_two_level_mesh(group_axis: int, client_axis: Optional[int] = None,
                                                       client_axis, n)
     _check_world((group_axis, client_axis), n)
     return Mesh({"groups": group_axis, "clients": client_axis},
+                device=device)
+
+
+def make_sp_mesh(n_clients: int, n_sequence: int, devices=None,
+                 device=None) -> Mesh:
+    """The ``[clients, sequence]`` mesh of sequence-parallel FedAvg over
+    the world's ranks: the sequence axis takes contiguous ranks (rank
+    ``r`` is client block ``r // n_sequence``, sequence block ``r %
+    n_sequence``), the latency-critical ring on neighbours, as the JAX
+    package lays its devices."""
+    n = _n_devices(devices)
+    if n_clients * n_sequence != n:
+        raise ValueError(f"mesh {n_clients}x{n_sequence} != {n} devices")
+    _check_world((n_clients, n_sequence), n)
+    return Mesh({"clients": n_clients, "sequence": n_sequence},
                 device=device)
 
 

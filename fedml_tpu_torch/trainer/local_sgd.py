@@ -144,11 +144,16 @@ def instrument_train_fn(train_fn, epochs: int = 1, registry=None):
 
 
 def make_local_trainer(workload: Workload, optimizer, epochs: int,
-                       prox_mu: float = 0.0):
+                       prox_mu: float = 0.0, grad_reduce=None):
     """Returns ``train(params, data) -> (new_params, metrics)`` over data
     leaves ``[S, B, ...]`` with ``mask`` ``[S, B]``.  ``prox_mu`` adds
     FedProx's proximal gradient ``mu * (w - w_global)`` each step (the
-    global is the params the call started from), before the clip."""
+    global is the params the call started from), before the clip.
+
+    ``grad_reduce(grads) -> grads`` runs right after the backward pass,
+    before the proximal term, the clip and the step: sequence-parallel
+    training sums each rank's partial gradient over the ``sequence`` axis
+    there (`parallel.sequence`), so every rank takes the same step."""
 
     stateful = workload.stateful
 
@@ -167,6 +172,8 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
         for step in range(epochs * num_steps):
             batch = {k: v[step % num_steps] for k, v in data.items()}
             grads, aux = step_grad(grad_fn, params, batch, rng, step, state)
+            if grad_reduce is not None:
+                grads = grad_reduce(grads)
             if prox_mu:
                 grads = {k: g + prox_mu * (params[k] - init_params[k])
                          for k, g in grads.items()}

@@ -6,7 +6,10 @@ kernels ``[in, out]``, attention kernels ``[d_model, H, d_head]`` and
 ``{"Dense_0": {"kernel": a}}`` <-> ``{"Dense_0/kernel": tensor(a)}``.  A
 stateful (BatchNorm) workload's variables carry both collections the
 same way: ``{"params": ..., "batch_stats": ...}`` <-> ``params/...`` and
-``batch_stats/...``.
+``batch_stats/...``.  `parallel.pipeline.PipelineLM`'s tree carries the
+same way: ``{"embed", "blocks", "final"}`` <-> ``embed/...``,
+``blocks/...`` (each leaf with its stacked ``[L, ...]`` layer axis) and
+``final/...``.
 Inputs and outputs on the JAX side are nested dicts of numpy arrays (pass
 ``jax.tree.map(np.asarray, params)``); this module imports no JAX."""
 

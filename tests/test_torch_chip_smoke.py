@@ -1290,3 +1290,47 @@ def test_mesh_phase_checks(monkeypatch, case):
         problems
     if case == "dead_rank":
         assert problems == ["run: exited 1"]
+
+
+def test_parallel_phase_configs_parse_and_pass_the_gates():
+    """Phase 8s's argv: the sp CLI runner's, each pipeline run's at 1 and
+    2 stages and the wave mesh's pass the CLI's gates (every check the
+    runs make before a rank starts)."""
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import (check_config, mesh_shape,
+                                                  resolve_cross_device)
+    cfg = config_from_argv(cs.PAR_CLI_ARGS)
+    check_config(cfg)
+    assert cfg.attn_flash and mesh_shape(cfg, None) == {"clients": 1,
+                                                        "sequence": 2}
+    for extra in cs.PAR_PP_RUNS.values():
+        for stages in ("1", "2"):
+            cfg = config_from_argv([*cs.PAR_PP_ARGS, *extra,
+                                    "--mesh_stages", stages])
+            check_config(cfg)
+            assert cfg.pp_microbatches == 2 and cfg.deterministic
+    for extra in ([], ["--mesh_clients", "2"]):
+        cfg = resolve_cross_device(config_from_argv([*cs.PAR_WAVE_ARGS,
+                                                     *extra]))
+        check_config(cfg)
+        assert cfg.client_num_in_total == 340 and cfg.wave_size == 32
+
+
+@pytest.mark.parametrize("case", ["ok", "miss", "round_short", "missing"])
+def test_parallel_phase_holds_every_round(case):
+    """8s's hold of a run's globals against its reference after every
+    round: a round past ``tol`` x max|w|, a round short or no globals
+    fail."""
+    ref = [{"w": torch.tensor([1.0, -2.0])}, {"w": torch.tensor([1.5, -2.0])}]
+    rounds = [{"w": r["w"] + 1e-7} for r in ref]
+    if case == "miss":
+        rounds[1] = {"w": ref[1]["w"] + 1e-3}
+    elif case == "round_short":
+        rounds = rounds[:1]
+    elif case == "missing":
+        rounds = None
+    held = cs.par_held("run", rounds, ref, 1e-5)
+    assert (held["failed"] == []) == (case == "ok"), held
+    if case == "ok":
+        assert len(held["max_abs_diff"]) == 2
+        assert held["limit"] == [2e-5, 2e-5]

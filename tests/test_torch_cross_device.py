@@ -479,8 +479,9 @@ _GATE_BASE = ["--model", "lr", "--dataset", "mnist", "--platform", "cpu",
     # the health observatory is ported; JAX's --adaptive gate instead
     (["--algo", "cross_device", "--adaptive", "true"], ValueError,
      "requires --health"),
-    (["--algo", "cross_device", "--mesh_clients", "4"],
-     NotImplementedError, "item 14"),
+    # the wave mesh is ported: JAX's gate on the wave size
+    (["--algo", "cross_device", "--mesh_clients", "4", "--wave_size", "6"],
+     ValueError, "multiple of the mesh clients axis"),
     # serving is ported: JAX's gate (cross_silo only)
     (["--algo", "cross_device", "--serve_port", "8080"],
      ValueError, "cross_silo only"),
@@ -518,8 +519,10 @@ def test_engine_constructor_gates(workload, data, tmp_path):
         CrossDevice(workload, data,
                     _cfg(local_alg="fednova", client_axis="scan"),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        CrossDevice(workload, data, _cfg(), device="cpu", mesh=object())
+    from fedml_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="multiple of the mesh"):
+        CrossDevice(workload, data, _cfg(), device="cpu",
+                    mesh=Mesh({"clients": 2}, device="cpu"))
     # the observability and publish seams are ported: taken, with JAX's
     # gate on a controller without the health observatory
     from fedml_tpu_torch.obs import PerfRecorder

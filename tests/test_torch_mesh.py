@@ -367,7 +367,7 @@ def test_mesh_factorization_errors():
         mesh_lib.check_two_level_factors(3, None, 8)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         mesh_lib.make_mesh(client_axis=2, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         mesh_lib.make_mesh(client_axis=1, model_axis=2, devices=2,
                            device="cpu")
     one = mesh_lib.make_mesh(device="cpu")    # one position, no group
@@ -399,8 +399,9 @@ def test_mesh_factorization_errors():
       "2"], ValueError, "full cohort on one"),
     (["--algo", "fedavg_robust", "--defense_backend", "cuda",
       "--mesh_clients", "2"], ValueError, "does not shard"),
-    (["--mesh_sequence", "2"], NotImplementedError, "item 14"),
-    (["--mesh_stages", "2"], NotImplementedError, "item 14"),
+    # sequence and pipeline parallelism are ported: JAX's gates
+    (["--mesh_sequence", "2"], ValueError, "requires --model transformer"),
+    (["--mesh_stages", "2"], ValueError, "only applies to --algo cross_silo"),
 ])
 def test_cli_mesh_gates(flags, exc, match):
     with pytest.raises(exc, match=match):

@@ -147,7 +147,11 @@ def test_gates_and_refusals_are_named():
     assert wl.model.attn_0.block_size == 10
     assert create_workload("transformer", "shakespeare", 90, (80,),
                            moe_experts=4).model.moe_experts == 4
-    for flag, match in ((["--mesh_sequence", "2"], "item 14"),
-                        (["--mesh_stages", "2"], "pipeline.py")):
-        with pytest.raises(NotImplementedError, match=match):
+    # sequence and pipeline parallelism are ported: on one CPU rank the
+    # [clients, sequence] mesh cannot be built, and the pipeline is the
+    # cross-silo silos' (JAX's gates)
+    for flag, match in ((["--mesh_sequence", "2"], r"mesh 1x2 != 1 dev"),
+                        (["--mesh_stages", "2"], "only applies to --algo "
+                                                 "cross_silo")):
+        with pytest.raises(ValueError, match=match):
             _cli(*flag)

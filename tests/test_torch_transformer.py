@@ -124,7 +124,10 @@ def test_refusals_are_named():
     assert cache["attn_0"]["k"].shape == (2, 16, 2, 16)
     with pytest.raises(ValueError, match="positions"):
         model(x[:, :2].reshape(-1), cache=cache)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model(x, ring_axis="sequence")
+    # a ring of one rank is the dense forward, bit for bit
+    from fedml_tpu_torch.parallel.ring_attention import make_sequence_mesh
+    NWPWorkload(model).init(torch.Generator().manual_seed(0))
+    ring = make_sequence_mesh(1, device="cpu").axis("sequence")
+    assert torch.equal(model(x, ring_axis=ring), model(x))
     with pytest.raises(ValueError, match="compute_dtype"):
         NWPWorkload(model, compute_dtype="int32")
