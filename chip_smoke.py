@@ -7689,6 +7689,372 @@ def check_serving(data) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8t: dropout keys through the stateful and live runners, serving a
+# PipelineLM, tensor and expert parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+# (a) the keyed runners on the FEMNIST dropout CNN (CNNDropOut), card
+# against CPU after every round (their masks are hashed from the keys, so
+# the same on both)
+KEYED_COMMON = ["--model", "cnn", "--dataset", "femnist",
+                "--client_num_in_total", "40", "--client_num_per_round", "4",
+                "--batch_size", "20", "--lr", "0.1", "--epochs", "1",
+                "--comm_round", "2", "--frequency_of_the_test", "1000",
+                "--deterministic", "true", "--checkpoint_every", "1",
+                "--checkpoint_keep_last_n", "8", "--log_stdout", "false"]
+KEYED_RUNS = {"ditto": ["--algo", "ditto", "--ditto_lambda", "0.1"],
+              "cross_silo": ["--algo", "cross_silo", "--silo_backend",
+                             "local"]}
+KEYED_TOL = ROUND_TOL          # every round, card vs CPU (f32, TF32 off)
+# (b) --serve_port with --mesh_stages 2 on the Shakespeare twin: each
+# closed round's /predict answer against the CPU forward of that round's
+# published tree
+PP_SERVE_ARGS = ["--algo", "cross_silo", "--silo_backend", "local",
+                 "--model", "transformer", "--dataset", "shakespeare",
+                 "--client_num_in_total", "8", "--client_num_per_round", "2",
+                 "--batch_size", "4", "--lr", "1.0", "--comm_round", "2",
+                 "--mesh_stages", "2", "--frequency_of_the_test", "1000",
+                 "--deterministic", "true", "--log_stdout", "false"]
+PP_SERVE_TOL = 1e-5            # x max|logit|: an answer vs the CPU forward
+# (c), (d): the T=2048 LM with K4, dp x tp on [1, 2] (the model axis: 4 of
+# the 8 heads a rank) and dp x ep moe8 on [1, 2] (4 of the 8 experts a
+# rank), two gloo ranks sharing the card; one process as reference, its
+# clients one after another as on the ranks
+TP_ROUNDS = 3
+EP_ROUNDS = 2
+TP_SEED = 0
+TP_TOL = MESH_TOL              # x max|w|, every round against one process
+TP_RUNS = {"tp": {}, "ep": {"moe_experts": MOE_EXPERTS}}
+
+
+def keyed_run(name: str, argv, base: Path, platform) -> dict:
+    """One keyed run's summary, checkpointed globals, the keyed trainer
+    calls it made (`core.prng.step_keys`, where every keyed trainer's
+    chain starts) and its seconds."""
+    from fedml_tpu_torch.core import prng
+    tag = f"{name}_{platform}"
+    shutil.rmtree(base / tag, ignore_errors=True)
+    real, calls = prng.step_keys, []
+
+    def counted(keys, n):
+        calls.append(int(keys.shape[0]))
+        return real(keys, n)
+
+    prng.step_keys = counted
+    t0 = time.perf_counter()
+    try:
+        summary = par_main([*argv, *KEYED_COMMON, "--checkpoint_dir",
+                            str(base / tag), "--platform", platform],
+                           base / f"{tag}.log")
+    finally:
+        prng.step_keys = real
+    return dict(summary=summary, rounds=mesh_globals(base / tag),
+                keyed_calls=len(calls), run_s=time.perf_counter() - t0)
+
+
+def tp_keyed(base: Path) -> dict:
+    """8t (a): ditto and cross_silo on the dropout CNN, card and CPU."""
+    out, problems = {}, []
+    for name, argv in KEYED_RUNS.items():
+        card = keyed_run(name, argv, base, CARD)
+        cpu = keyed_run(name, argv, base, "cpu")
+        # an absolute limit every round, as every f32 round against the CPU
+        held = dict(max_abs_diff=[], limit=KEYED_TOL)
+        if card["rounds"] is None or cpu["rounds"] is None \
+                or len(card["rounds"]) != len(cpu["rounds"]):
+            problems.append(f"keyed {name}: globals missing or a round "
+                            f"short")
+        else:
+            held["max_abs_diff"] = [max_diff(a, b) for a, b in
+                                    zip(card["rounds"], cpu["rounds"])]
+            problems += [f"keyed {name} round {r}: {d} > {KEYED_TOL}"
+                         for r, d in enumerate(held["max_abs_diff"])
+                         if not d <= KEYED_TOL]
+        if not card["keyed_calls"]:
+            problems.append(f"keyed {name}: the trainers took no key")
+        if not card["summary"].get("params_finite"):
+            problems.append(f"keyed {name}: a global is not finite")
+        row = dict(keyed_calls=card["keyed_calls"],
+                   round_ms_median=card["summary"].get("round_ms_median"),
+                   train_loss=card["summary"].get("train_loss"),
+                   run_s=[card["run_s"], cpu["run_s"]], vs_cpu=held)
+        phase(f"tp_ep keyed {name}", **row)
+        out[name] = row
+    return {"runs": out, "problems": problems}
+
+
+def pp_serve_check(answers, refs, tol: float) -> list:
+    """The problems of the pipeline's /predict answers: each must be a 200
+    with its round's version and logits within ``tol`` x max|logit| of the
+    CPU forward of that version's tree."""
+    import numpy as np
+    problems = []
+    if len(answers) != len(refs) or not answers:
+        return [f"pp serve: {len(answers)} answers for {len(refs)} "
+                f"published rounds"]
+    for v, ((status, body), ref) in enumerate(zip(answers, refs)):
+        if status != 200 or body.get("version") != v:
+            problems.append(f"pp serve round {v}: {status} "
+                            f"{str(body)[:120]}")
+            continue
+        got = np.asarray(body["y"], np.float64)
+        limit = tol * float(np.abs(ref).max())
+        diff = float(np.abs(got - ref).max()) if got.shape == ref.shape \
+            else float("inf")
+        if not diff <= limit:
+            problems.append(f"pp serve round {v}: {diff} > {limit}")
+    return problems
+
+
+def tp_pp_serve(base: Path) -> dict:
+    """8t (b): the 2-stage PipelineLM served while it trains; each closed
+    round's /predict over HTTP against the CPU forward of its tree."""
+    import http.client
+    import numpy as np
+    import torch
+    from fedml_tpu_torch.core.pytree import flatten_nested
+    from fedml_tpu_torch.experiments import main as t_main
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    answers, published = [], []
+    real = t_main.ServeWhileTrain.publish
+
+    def publish(self, params, version):
+        real(self, params, version)
+        published.append(({k: torch.as_tensor(np.asarray(
+            v.detach().cpu() if torch.is_tensor(v) else v)).clone()
+            for k, v in flatten_nested(params).items()},
+            np.asarray(self._sample_x)))
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=60)
+        t0 = time.perf_counter()
+        conn.request("POST", "/predict", json.dumps(
+            {"x": np.asarray(self._sample_x).tolist(),
+             "deadline_ms": 60000}), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        answers.append((resp.status, json.loads(resp.read())))
+        answer_ms.append(1e3 * (time.perf_counter() - t0))
+        conn.close()
+
+    answer_ms = []
+    t_main.ServeWhileTrain.publish = publish
+    t0 = time.perf_counter()
+    try:
+        summary = par_main([*PP_SERVE_ARGS, "--serve_port",
+                            str(free_port())], base / "pp_serve.log")
+    finally:
+        t_main.ServeWhileTrain.publish = real
+    run_s = time.perf_counter() - t0
+    cfg = config_from_argv(PP_SERVE_ARGS + ["--platform", "cpu"])
+    data = t_main.load_experiment_data(cfg)
+    plm = t_main.silo_workload(cfg, data, "cpu").model
+    refs = []
+    with torch.no_grad():
+        for params, x in published:
+            refs.append(plm.apply_seq(params, torch.as_tensor(x)[None])
+                        [0].double().numpy())
+    problems = pp_serve_check(answers, refs, PP_SERVE_TOL)
+    if summary.get("stage_devices") != ",".join(
+            [CARD if CARD == "cpu" else "cuda:0"] * 2):
+        problems.append(f"pp serve: stages {summary.get('stage_devices')}")
+    row = dict(statuses=[s for s, _ in answers],
+               versions=[b.get("version") for _, b in answers],
+               answer_ms=answer_ms, stage_devices=summary.get("stage_devices"),
+               round_ms_median=summary.get("round_ms_median"), run_s=run_s,
+               max_abs_diff=[float(np.abs(np.asarray(b["y"]) - r).max())
+                             for (s, b), r in zip(answers, refs)
+                             if s == 200],
+               limit=[PP_SERVE_TOL * float(np.abs(r).max()) for r in refs])
+    phase("tp_ep pp serve", **row)
+    return {"row": row, "problems": problems}
+
+
+def tp_model(kind: str):
+    from fedml_tpu_torch.models import TransformerLM
+    return TransformerLM(**LM, use_flash=True, **TP_RUNS[kind])
+
+
+def tp_rounds(algo, params, rounds: int, mesh=None) -> dict:
+    """``rounds`` host-loop rounds of ``algo`` from ``params``: each
+    round's globals, its ms, its collective ms (all, and the tp layers'),
+    its K4 launches (the wrappers' counts, reset before each round) and
+    the peak GB."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import round_seed_words
+    from fedml_tpu_torch.models import flash_attention as fa
+    out = {"rounds": [], "round_ms": [], "collective_ms": [], "tp_ms": [],
+           "k4_launches": []}
+    device = mesh.device if mesh is not None else torch.device(CARD)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with deterministic():
+        for r in range(rounds):
+            c0 = mesh.collective_ms() if mesh is not None else 0.0
+            t0 = mesh.collective_ms("tp") if mesh is not None else 0.0
+            fa.reset_launch_counts()
+            start = time.perf_counter()
+            params = algo.run_round(params, r, round_seed_words(TP_SEED, r),
+                                    False)
+            sync(device)
+            out["round_ms"].append(1e3 * (time.perf_counter() - start))
+            out["k4_launches"].append({n: fa.launch_counts[n]
+                                       for n in K4_NAMES})
+            if mesh is not None:
+                out["collective_ms"].append(mesh.collective_ms() - c0)
+                out["tp_ms"].append(mesh.collective_ms("tp") - t0)
+            out["rounds"].append({k: v.detach().cpu().clone()
+                                  for k, v in params.items()})
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(device) / 1e9
+                      if device.type == "cuda" else None)
+    out["params"] = params
+    return out
+
+
+def tp_fedavg(wl, data, rounds: int, device):
+    from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
+    return FedAvg(wl, data, FedAvgConfig(
+        comm_round=rounds, seed=TP_SEED,
+        **{**LM_FEDAVG, "client_axis": "scan"}), device=device)
+
+
+def tp_rank_job(settings, inits):
+    """8t (c) and (d) on one rank of the two, under the parent's
+    ``settings``: the LM's dp x tp rounds on [clients 1, model 2], then
+    the moe8 LM's dp x ep rounds on [clients 1, experts 2]; each run's
+    rounds (globals on rank 0), ms, collective ms, K4 launches, peak GB
+    and every rank's params sha256."""
+    from fedml_tpu_torch.parallel.cohort import make_cohort_step
+    from fedml_tpu_torch.parallel.expert import (ep_shard_params,
+                                                 make_dp_ep_mesh)
+    from fedml_tpu_torch.parallel.mesh import make_mesh, tp_shard_params
+    from fedml_tpu_torch.trainer.local_sgd import make_local_trainer
+    from fedml_tpu_torch.trainer.workload import (NWPWorkload,
+                                                  make_client_optimizer)
+    globals().update(settings)
+    meshes = {"tp": (make_mesh(client_axis=1, model_axis=2, device=CARD),
+                     "model"),
+              "ep": (make_dp_ep_mesh(1, 2, device=CARD), "experts")}
+    data = lm_data()
+    out = {}
+    for kind, rounds in (("tp", TP_ROUNDS), ("ep", EP_ROUNDS)):
+        mesh, axis = meshes[kind]
+        init = {k: v.to(mesh.device) for k, v in inits[kind].items()}
+        _, placement = (tp_shard_params(init, mesh) if kind == "tp" else
+                        ep_shard_params(init, mesh, MOE_EXPERTS))
+        wl = NWPWorkload(tp_model(kind),
+                         forward_kwargs={"tp_axis": mesh.axis(axis)})
+        algo = tp_fedavg(wl, data, rounds, mesh.device)
+        algo.cohort_step = make_cohort_step(
+            make_local_trainer(wl, make_client_optimizer(
+                "sgd", LM_FEDAVG["lr"]), 1, placement=placement),
+            mesh=mesh, placement=placement)
+        run = tp_rounds(algo, init, rounds, mesh)
+        run["hashes"] = mesh.gather_hashes(run.pop("params"))
+        run["sharded"] = placement.sharded
+        run["rank"], run["device"] = mesh.rank, str(mesh.device)
+        run["backend"] = mesh.backend
+        if mesh.rank != 0:
+            run["rounds"] = None
+        out[kind] = run
+    return out
+
+
+def tp_ep_problems(kind: str, ranks, ref, tol: float) -> dict:
+    """8t (c)/(d)'s verdict: rank 0's globals after every round within
+    ``tol`` x max|w| of the one-process reference, every rank's sha256
+    equal, the layers' collectives timed, K4 launched a rank a round as
+    in the reference (the tp run) and some leaf sharded."""
+    held = par_held(kind, ranks[0][kind]["rounds"], ref["rounds"], tol)
+    problems = list(held["failed"])
+    for rk in ranks:
+        run = rk[kind]
+        if len(set(run["hashes"])) != 1:
+            problems.append(f"{kind}: the ranks' params differ "
+                            f"{run['hashes']}")
+        if not run["sharded"]:
+            problems.append(f"{kind}: the placement sharded no leaf")
+        if not all(ms > 0 for ms in run["tp_ms"]):
+            problems.append(f"{kind}: rank {run['rank']} timed no tp "
+                            f"collective")
+        if kind == "tp" and not all(
+                (CARD != "cuda" or all(c[n] > 0 for n in K4_NAMES))
+                and c == want for c, want in zip(run["k4_launches"],
+                                                 ref["k4_launches"])):
+            problems.append(f"{kind}: K4 launches {run['k4_launches']} "
+                            f"against one process's "
+                            f"{ref['k4_launches']}")
+    return {"held": held, "problems": problems}
+
+
+def tp_parallel() -> dict:
+    """8t (c) and (d): the two ranks' job against one process."""
+    import torch
+    from fedml_tpu_torch.parallel.launch import spawn_ranks
+    from fedml_tpu_torch.trainer.workload import NWPWorkload
+    inits = {kind: NWPWorkload(tp_model(kind)).init(
+        torch.Generator().manual_seed(TP_SEED)) for kind in TP_RUNS}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank_job, 2, (rank_settings(), inits),
+                        platform=None if CARD == "cuda" else "cpu",
+                        join_timeout_s=PAR_JOIN_S)
+    ranks_s = time.perf_counter() - t0
+    data = lm_data()
+    out, problems = {"ranks_s": ranks_s}, []
+    steady = lambda xs: statistics.median(xs[1:] or xs)  # noqa: E731
+    for kind, rounds in (("tp", TP_ROUNDS), ("ep", EP_ROUNDS)):
+        from fedml_tpu_torch.trainer.workload import NWPWorkload as W
+        ref = tp_rounds(tp_fedavg(W(tp_model(kind)), data, rounds, CARD),
+                        {k: v.to(CARD) for k, v in inits[kind].items()},
+                        rounds)
+        verdict = tp_ep_problems(kind, ranks, ref, TP_TOL)
+        problems += verdict["problems"]
+        runs = [rk[kind] for rk in ranks]
+        row = dict(
+            backend=runs[0]["backend"], devices=[r["device"] for r in runs],
+            sharded_leaves=len(runs[0]["sharded"]),
+            round_ms=[r["round_ms"] for r in runs],
+            round_ms_median=steady(runs[0]["round_ms"]),
+            tp_ms_median=steady(runs[0]["tp_ms"]),
+            collective_ms_median=steady(runs[0]["collective_ms"]),
+            rank_peak_gb=[r["peak_gb"] for r in runs],
+            reference_round_ms=ref["round_ms"],
+            reference_round_ms_median=steady(ref["round_ms"]),
+            reference_peak_gb=ref["peak_gb"],
+            k4_launches_per_rank_round=runs[0]["k4_launches"][-1],
+            reference_k4_launches_per_round=ref["k4_launches"][-1],
+            rank_hashes_equal=len(set(runs[0]["hashes"])) == 1,
+            vs_one_process=verdict["held"])
+        phase(f"tp_ep {kind}", **row)
+        out[kind] = row
+    return {"rows": out, "problems": problems}
+
+
+def check_tp_ep(root: Path) -> dict:
+    """Phase 8t, deterministic (TF32 off): (a) ditto and cross_silo train
+    the dropout CNN with their keys, every round against the CPU; (b) a
+    2-stage PipelineLM serves /predict while it trains, each answer
+    against the CPU forward of its round's tree; (c) dp x tp on the T=2048
+    LM with K4 on [1, 2] (two gloo ranks on the card) and (d) dp x ep on
+    its moe8 twin on [1, 2], each against one process after every round,
+    ranks byte-equal, K4's launches counted a rank a round."""
+    t_phase = time.perf_counter()
+    base = root / "build" / "tp_ep"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    keyed = tp_keyed(base)
+    pp = tp_pp_serve(base)
+    par = tp_parallel()
+    problems = keyed["problems"] + pp["problems"] + par["problems"]
+    if problems:
+        fail("phase 8t: " + "; ".join(problems))
+    out = {"keyed": keyed["runs"], "pp_serve": pp["row"], **par["rows"],
+           "seconds": time.perf_counter() - t_phase}
+    phase("tp_ep", seconds=out["seconds"], hand_written_kernels=[
+        "flash_fwd, flash_bwd_dkv, flash_bwd_dq (the tp and ep ranks' "
+        "training, H/n heads a rank on tp)"])
+    return out
+
+
 # serving's extra round time, split (``--serve-split``): rounds an arm,
 # the first a warm-up
 SPLIT_ROUNDS = 4
@@ -7919,6 +8285,7 @@ def main() -> None:
     mixed = check_mixed_precision(data, data_lm, root, sm_hz,
                                   lm_row["steady_round_ms"])
     serving = check_serving(data)
+    tp_ep = check_tp_ep(root)
 
     # one round of the defended slice: the norm pass and one aggregate
     # launch over the CNN's leaves
@@ -8031,6 +8398,12 @@ def main() -> None:
                 "tensor_core_sass"),
             "library_ms": (k4_per_round * vmapped["sdpa_fwd_ms"]
                            if name == "flash_fwd" else None),
+            # phase 8t: a rank's launches a round on the dp x tp path (its
+            # H/n heads) and on the dp x ep moe8 path
+            "launches_tp_per_rank_round":
+                tp_ep["tp"]["k4_launches_per_rank_round"][name],
+            "launches_ep_per_rank_round":
+                tp_ep["ep"]["k4_launches_per_rank_round"][name],
         })
         if name == "flash_bwd_dq":
             # no single call computes dQ alone: SDPA's backward (dq, dk,
@@ -8184,6 +8557,17 @@ def main() -> None:
           decode_tokens_per_s=serving["decode"]["tokens_per_s"],
           decode_occupancy=serving["decode"]["occupancy"],
           serving_seconds=serving["seconds"],
+          keyed_vs_cpu_max_abs_diff={
+              k: v["vs_cpu"]["max_abs_diff"]
+              for k, v in tp_ep["keyed"].items()},
+          pp_serve_statuses=tp_ep["pp_serve"]["statuses"],
+          tp_ep_round_ms_median={k: tp_ep[k]["round_ms_median"]
+                                 for k in ("tp", "ep")},
+          tp_ep_collective_ms_median={k: tp_ep[k]["tp_ms_median"]
+                                      for k in ("tp", "ep")},
+          tp_ep_rank_peak_gb={k: tp_ep[k]["rank_peak_gb"]
+                              for k in ("tp", "ep")},
+          tp_ep_seconds=tp_ep["seconds"],
           device_round_vs_cpu_max_abs_diff=device_round_cpu_diff,
           fedavg_round_ms={k: v["round_ms"] for k, v in paths.items()},
           fedavg_rounds_per_s={k: v["rounds_per_s"]

@@ -9,7 +9,11 @@ round's global:
 Every ``v_i`` starts at ``w^0``.  The personal models live on the host,
 stacked ``[client_num_in_total, ...]``, so the round runs through FedAvg's
 host loop.  ``evaluate_global`` adds each client's own model on its own
-shard (``personal_*`` columns) to the global metrics.  ``mesh=``: the
+shard (``personal_*`` columns) to the global metrics.  A dropout
+model's personal pass draws its step keys as the JAX package's does:
+client ``i`` of the round takes ``fold_in(fold_in(round_key, "DITT"),
+slot)`` and the trainer's chain splits it once a step (the global
+stream keeps FedAvg's keys).  ``mesh=``: the
 global stream is FedAvg's sharded cohort step and the personal pass a
 per-rank pass over the rank's rows (`parallel.cohort.
 make_sharded_stateful_round`; no sums across clients), its rows gathered
@@ -29,16 +33,23 @@ from torch.func import grad, vmap
 from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                batch_leaves, bcast,
                                                gather_client_rows,
+                                               round_key_of,
                                                scatter_client_rows,
                                                sweep_eval_chunks,
                                                zeros_client_state)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
-from fedml_tpu_torch.parallel.cohort import (cohort_rows,
+from fedml_tpu_torch.core import prng
+from fedml_tpu_torch.parallel.cohort import (cohort_rngs, cohort_rows,
                                              make_sharded_stateful_round,
                                              pad_clients)
-from fedml_tpu_torch.trainer.local_sgd import clip_by_global_norm
+from fedml_tpu_torch.trainer.local_sgd import (clip_by_global_norm,
+                                               step_grad, with_rng_inputs)
 from fedml_tpu_torch.trainer.workload import Workload
 from fedml_tpu_torch.utils.metrics import stats_from_metrics
+
+
+# the personal pass's fold_in stream (ASCII "DITT"), the JAX package's
+_PERSONAL_STREAM = 0x44495454
 
 
 @dataclasses.dataclass
@@ -50,16 +61,18 @@ class DittoConfig(FedAvgConfig):
 
 def make_ditto_local(workload: Workload, lr: float, epochs: int,
                      lam: float):
-    """``train(v, w_ref, data) -> v'``: SGD on ``∇F_i(v) + λ(v − w_ref)``,
-    the clip after the coupling; fully padded batches freeze the carry."""
+    """``train(v, w_ref, data, rng=None) -> v'``: SGD on ``∇F_i(v) +
+    λ(v − w_ref)``, the clip after the coupling; fully padded batches
+    freeze the carry.  A dropout workload's trainer is keyed (``rng``
+    ``[epochs * S, 2]``, `trainer.local_sgd.with_rng_inputs`)."""
     clip = workload.grad_clip_norm
-    grad_fn = grad(lambda p, b: workload.loss_fn(p, b)[0])
+    grad_fn = grad(lambda p, b, *rng: workload.loss_fn(p, b, *rng)[0])
 
-    def train(v: Tree, w_ref: Tree, data):
+    def train(v: Tree, w_ref: Tree, data, rng=None):
         num_steps = data["mask"].shape[0]
         for step in range(epochs * num_steps):
             batch = {n: x[step % num_steps] for n, x in data.items()}
-            grads = grad_fn(v, batch)
+            grads = step_grad(grad_fn, v, batch, rng, step)
             grads = {n: grads[n] + lam * (v[n] - w_ref[n]) for n in grads}
             if clip is not None:
                 grads = clip_by_global_norm(grads, clip)
@@ -67,7 +80,7 @@ def make_ditto_local(workload: Workload, lr: float, epochs: int,
             v = {n: v[n] - lr * gd * grads[n] for n in tree_keys(v)}
         return v
 
-    return train
+    return with_rng_inputs(train, workload, epochs)
 
 
 class Ditto(FedAvg):
@@ -87,11 +100,13 @@ class Ditto(FedAvg):
                                     cfg.personal_epochs or cfg.epochs,
                                     cfg.ditto_lambda)
 
-        def personal_core(w_ref, cohort, v_cohort, psum_axis=None,
-                          index_offset=0):
-            del psum_axis, index_offset     # per client: no sums, no keys
-            new_v = vmap(personal, in_dims=(0, None, 0))(
-                v_cohort, w_ref, batch_leaves(cohort))
+        def personal_core(w_ref, cohort, v_cohort, p_words=(0, 0),
+                          psum_axis=None, index_offset=0):
+            del psum_axis                   # per client: no sums
+            rngs = cohort_rngs(personal, cohort, p_words, index_offset)
+            extra = () if rngs is None else (rngs,)
+            new_v = vmap(personal, in_dims=(0, None, 0) + (0,) * len(extra))(
+                v_cohort, w_ref, batch_leaves(cohort), *extra)
             live = (cohort["num_samples"] > 0).to(torch.float32)
             return {k: torch.where(bcast(live, v.dim()) > 0, new_v[k], v)
                     for k, v in v_cohort.items()}
@@ -126,7 +141,8 @@ class Ditto(FedAvg):
         v_cohort = gather_client_rows(self.v_locals, ids,
                                       cohort_rows(cohort),
                                       self._state_device())
-        new_v = self._personal_round(params, cohort, v_cohort)
+        p_key = prng.fold_in(round_key_of(seed_words), _PERSONAL_STREAM)
+        new_v = self._personal_round(params, cohort, v_cohort, p_key)
         self.v_locals = scatter_client_rows(self.v_locals, ids, new_v)
         return new_params, aux
 

@@ -31,10 +31,12 @@ from torch.func import grad, vmap
 from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                batch_leaves, bcast)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
-from fedml_tpu_torch.parallel.cohort import (make_sharded_stateful_round,
+from fedml_tpu_torch.parallel.cohort import (cohort_rngs,
+                                             make_sharded_stateful_round,
                                              psum_fn)
 from fedml_tpu_torch.server_opt import ServerOptMismatchError
-from fedml_tpu_torch.trainer.local_sgd import clip_by_global_norm
+from fedml_tpu_torch.trainer.local_sgd import (clip_by_global_norm,
+                                               step_grad, with_rng_inputs)
 from fedml_tpu_torch.trainer.workload import Workload
 
 
@@ -56,18 +58,20 @@ def fedac_coupling(lr: float, mu: float, k_steps: int):
 
 def make_fedac_local(workload: Workload, lr: float, epochs: int,
                      gamma: float, alpha: float, beta: float):
-    """``train(x, x_ag, data) -> (x', x_ag')``: K coupled local steps;
-    fully padded batches freeze both sequences."""
+    """``train(x, x_ag, data, rng=None) -> (x', x_ag')``: K coupled local
+    steps; fully padded batches freeze both sequences.  A dropout
+    workload's trainer is keyed from the client's slot key, as the JAX
+    package's chain."""
     clip = workload.grad_clip_norm
-    grad_fn = grad(lambda p, b: workload.loss_fn(p, b)[0])
+    grad_fn = grad(lambda p, b, *rng: workload.loss_fn(p, b, *rng)[0])
 
-    def train(x: Tree, x_ag: Tree, data):
+    def train(x: Tree, x_ag: Tree, data, rng=None):
         num_steps = data["mask"].shape[0]
         for step in range(epochs * num_steps):
             batch = {n: v[step % num_steps] for n, v in data.items()}
             x_md = {n: x[n] / beta + (1.0 - 1.0 / beta) * x_ag[n]
                     for n in tree_keys(x)}
-            grads = grad_fn(x_md, batch)
+            grads = step_grad(grad_fn, x_md, batch, rng, step)
             if clip is not None:
                 grads = clip_by_global_norm(grads, clip)
             live = torch.sum(batch["mask"]) > 0
@@ -78,7 +82,7 @@ def make_fedac_local(workload: Workload, lr: float, epochs: int,
             x = {n: torch.where(live, new_x[n], x[n]) for n in x_md}
         return x, x_ag
 
-    return train
+    return with_rng_inputs(train, workload, epochs)
 
 
 class FedAC(FedAvg):
@@ -119,10 +123,13 @@ class FedAC(FedAvg):
         local = make_fedac_local(workload, cfg.lr, cfg.epochs, gamma,
                                  alpha, beta)
 
-        def core(x_ag, cohort, x, psum_axis=None, index_offset=0):
+        def core(x_ag, cohort, x, seed_words=(0, 0), psum_axis=None,
+                 index_offset=0):
             allsum = psum_fn(psum_axis)
-            xs, ags = vmap(local, in_dims=(None, None, 0))(
-                x, x_ag, batch_leaves(cohort))
+            rngs = cohort_rngs(local, cohort, seed_words, index_offset)
+            extra = () if rngs is None else (rngs,)
+            xs, ags = vmap(local, in_dims=(None, None, 0) + (0,) * len(extra))(
+                x, x_ag, batch_leaves(cohort), *extra)
             w = cohort["num_samples"].to(torch.float32)
             ratio = w / torch.clamp_min(allsum(torch.sum(w)), 1.0)
             sums = allsum({
@@ -147,7 +154,7 @@ class FedAC(FedAvg):
         if self._x_state is None:
             self._x_state = {k: v.clone() for k, v in params.items()}
         new_ag, self._x_state = self._round_step(params, cohort,
-                                                 self._x_state)
+                                                 self._x_state, seed_words)
         return new_ag, {}
 
     def _extra_state(self):

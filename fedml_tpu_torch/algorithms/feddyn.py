@@ -28,10 +28,11 @@ from fedml_tpu_torch.algorithms.fedavg import (FedAvg, FedAvgConfig,
                                                scatter_client_rows,
                                                zeros_client_state)
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
-from fedml_tpu_torch.parallel.cohort import (cohort_rows,
+from fedml_tpu_torch.parallel.cohort import (cohort_rngs, cohort_rows,
                                              make_sharded_stateful_round,
                                              psum_fn)
-from fedml_tpu_torch.trainer.local_sgd import clip_by_global_norm
+from fedml_tpu_torch.trainer.local_sgd import (clip_by_global_norm,
+                                               step_grad, with_rng_inputs)
 from fedml_tpu_torch.trainer.workload import Workload
 
 
@@ -42,18 +43,19 @@ class FedDynConfig(FedAvgConfig):
 
 def make_feddyn_local(workload: Workload, lr: float, epochs: int,
                       alpha: float):
-    """``train(theta_ref, lam, data) -> theta``: SGD on the dynamically
-    regularized objective from the round's global; fully padded batches
-    freeze the carry."""
+    """``train(theta_ref, lam, data, rng=None) -> theta``: SGD on the
+    dynamically regularized objective from the round's global; fully
+    padded batches freeze the carry.  A dropout workload's trainer is
+    keyed from the client's slot key, as the JAX package's chain."""
     clip = workload.grad_clip_norm
-    grad_fn = grad(lambda p, b: workload.loss_fn(p, b)[0])
+    grad_fn = grad(lambda p, b, *rng: workload.loss_fn(p, b, *rng)[0])
 
-    def train(theta_ref: Tree, lam: Tree, data):
+    def train(theta_ref: Tree, lam: Tree, data, rng=None):
         num_steps = data["mask"].shape[0]
         theta = theta_ref
         for step in range(epochs * num_steps):
             batch = {n: v[step % num_steps] for n, v in data.items()}
-            grads = grad_fn(theta, batch)
+            grads = step_grad(grad_fn, theta, batch, rng, step)
             grads = {n: grads[n] - lam[n] + alpha * (theta[n] - theta_ref[n])
                      for n in grads}
             if clip is not None:
@@ -63,7 +65,7 @@ def make_feddyn_local(workload: Workload, lr: float, epochs: int,
                      for n in tree_keys(theta)}
         return theta
 
-    return train
+    return with_rng_inputs(train, workload, epochs)
 
 
 class FedDyn(FedAvg):
@@ -92,11 +94,13 @@ class FedDyn(FedAvg):
         self.lam_locals = None
         local = make_feddyn_local(workload, cfg.lr, cfg.epochs, alpha)
 
-        def core(params, cohort, h, lam_cohort, psum_axis=None,
-                 index_offset=0):
+        def core(params, cohort, h, lam_cohort, seed_words=(0, 0),
+                 psum_axis=None, index_offset=0):
             allsum = psum_fn(psum_axis)
-            thetas = vmap(local, in_dims=(None, 0, 0))(
-                params, lam_cohort, batch_leaves(cohort))
+            rngs = cohort_rngs(local, cohort, seed_words, index_offset)
+            extra = () if rngs is None else (rngs,)
+            thetas = vmap(local, in_dims=(None, 0, 0) + (0,) * len(extra))(
+                params, lam_cohort, batch_leaves(cohort), *extra)
             live = (cohort["num_samples"] > 0).to(torch.float32)
             m_live = torch.clamp_min(allsum(torch.sum(live)), 1.0)
             sums = allsum({
@@ -141,7 +145,7 @@ class FedDyn(FedAvg):
                                         cohort_rows(cohort),
                                         self._state_device())
         params, new_lam, self.h_state = self._round_step(
-            params, cohort, self.h_state, lam_cohort)
+            params, cohort, self.h_state, lam_cohort, seed_words)
         self.lam_locals = scatter_client_rows(self.lam_locals, ids, new_lam)
         return params, {}
 

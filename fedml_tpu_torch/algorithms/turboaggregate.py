@@ -132,7 +132,9 @@ class TurboAggregate:
     def masked_group_sum(self, params: Tree, cohort, round_key: prng.Key):
         """Local SGD over the group, then its weighted mean through the
         masks; returns the mean and the group's sample count."""
-        trained, _ = train_cohort(self._local_train, params, cohort)
+        # a dropout model's clients are keyed fold_in(round_key, i)
+        trained, _ = train_cohort(self._local_train, params, cohort,
+                                  round_key)
         num = cohort["num_samples"].to(torch.float32)
         mean = self.secagg.aggregate_stacked(trained, num, round_key)
         return mean, float(num.sum())

@@ -96,6 +96,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -475,12 +476,49 @@ def run_turboaggregate(cfg, data, sink):
     return _summary(algo, algo.run())
 
 
+class RoundKeyChain:
+    """The live servers' round keys (JAX ``main.py``'s ``_round_rng``):
+    the chain starts at ``split(key(seed))[0]`` and advances one ``split``
+    a round, the round's key the second half; asking again for the last
+    round returns its key, and a round before it (a resume) restarts the
+    chain from the seed.  A lock guards the chain: chaos mode trains its
+    silos on threads that share it.  ``silo_key(r, silo_id)`` is silo
+    ``silo_id``'s key of round ``r``, ``fold_in(key_r, silo_id - 1)``."""
+
+    def __init__(self, seed: int):
+        from fedml_tpu_torch.core import prng
+        self._prng = prng
+        self._seed = int(seed)
+        self._lock = threading.Lock()
+        self._reset()
+
+    def _reset(self) -> None:
+        self._next = 0
+        self._rng = self._prng.split(self._prng.key(self._seed))[0]
+        self._last = None
+
+    def __call__(self, round_idx: int):
+        with self._lock:
+            if round_idx < self._next - 1:
+                self._reset()
+            if round_idx == self._next - 1:
+                return self._last
+            while self._next <= round_idx:
+                self._rng, self._last = self._prng.split(self._rng)
+                self._next += 1
+            return self._last
+
+    def silo_key(self, round_idx: int, silo_id: int):
+        return self._prng.fold_in(self(round_idx), silo_id - 1)
+
+
 def _silo_training_setup(cfg, data, wl, device, init_params=None,
                          perf=None):
     """The initial global and the per-silo ``train_fn(params, client_idx,
     round_idx)`` factory ``make_train_fn(silo_id, shard_transform=None)``:
     each silo trains its sampled client's shard on ``device`` with the
-    local trainer.  ``init_params`` (a flat dict)
+    local trainer, keyed for a dropout model by `RoundKeyChain`'s
+    ``silo_key(round_idx, silo_id)``.  ``init_params`` (a flat dict)
     replaces the seeded init, as a test does to carry the JAX package's
     weights across.
 
@@ -495,27 +533,34 @@ def _silo_training_setup(cfg, data, wl, device, init_params=None,
     from fedml_tpu_torch.trainer.local_sgd import (instrument_train_fn,
                                                    make_local_trainer)
     from fedml_tpu_torch.trainer.workload import make_client_optimizer
+    round_keys = RoundKeyChain(cfg.seed)
 
     def make_train_fn(silo_id, shard_transform=None):
         local = make_local_trainer(
             silo_workload(cfg, data, device),
             make_client_optimizer(cfg.client_optimizer, cfg.lr, cfg.wd),
             cfg.epochs)
+        rng_inputs = local.rng_inputs
         if perf is not None:
             local = perf.instrument_jit("train_fn", local)
         local = instrument_train_fn(local, epochs=cfg.epochs)
 
-        # the CNN has no dropout, so the silo's key of the JAX chain
-        # (`silo_key`) has nothing to seed.  shard_transform(shard,
-        # client_idx, round_idx): the adversary's data-poisoning seam
+        # shard_transform(shard, client_idx, round_idx): the adversary's
+        # data-poisoning seam, before training
         def train_fn(params, client_idx, round_idx):
             shard = {k: data.train[k][client_idx] for k in ("x", "y", "mask")}
             if shard_transform is not None:
                 shard = shard_transform(shard, client_idx, round_idx)
             shard = {k: torch.as_tensor(v).to(device)
                      for k, v in shard.items()}
+            rng = ()
+            if rng_inputs is not None:
+                key = round_keys.silo_key(round_idx, silo_id)
+                rng = (rng_inputs(torch.tensor([key], dtype=torch.int64,
+                                                device=device),
+                                  shard["mask"].shape[0])[0],)
             new, _ = local({k: as_tensor(v, device)
-                            for k, v in params.items()}, shard)
+                            for k, v in params.items()}, shard, *rng)
             return new, float(data.train["num_samples"][client_idx])
         return train_fn
 
@@ -1091,10 +1136,14 @@ class ServeWhileTrain:
         from fedml_tpu_torch.serve import (MicroBatcher, ModelRegistry,
                                            ReleaseController, ServeFrontend,
                                            ServeWorkerPool, ShadowSampler)
-        from fedml_tpu_torch.serve.registry import module_apply
+        from fedml_tpu_torch.serve.registry import (module_apply,
+                                                    pipeline_apply)
         self.cfg = cfg
-        self.registry = ModelRegistry(
-            module_apply(_make_workload(cfg, data).model), device=device)
+        # under --mesh_stages the global is PipelineLM's stacked tree
+        apply_fn = (pipeline_apply(silo_workload(cfg, data, device).model)
+                    if cfg.mesh_stages > 0
+                    else module_apply(_make_workload(cfg, data).model))
+        self.registry = ModelRegistry(apply_fn, device=device)
         batcher_kw = dict(
             buckets=tuple(int(b) for b in cfg.serve_buckets.split(",")),
             max_delay_s=cfg.serve_batch_delay_ms / 1e3,
@@ -1573,6 +1622,8 @@ class CrossSiloFederation:
         out.update(_spread("round_ms", [1e3 * t for t in steady]))
         out["params_finite"] = all(bool(v.isfinite().all())
                                    for v in server.params.values())
+        from fedml_tpu_torch.parallel.mesh import params_sha256
+        out["params_sha256"] = params_sha256(server.params)
         if self.cfg.mesh_stages > 0:
             out["stage_devices"] = ",".join(
                 str(d) for d in pp_stages(self.cfg, self.device))
@@ -1721,6 +1772,8 @@ class AsyncFederation:
         out["versions_per_s"] = len(steady) / sum(steady) if steady else 0.0
         out["params_finite"] = all(bool(v.isfinite().all())
                                    for v in server.params.values())
+        from fedml_tpu_torch.parallel.mesh import params_sha256
+        out["params_sha256"] = params_sha256(server.params)
         return out
 
 
@@ -1810,11 +1863,6 @@ def check_cross_silo(cfg: ExperimentConfig) -> None:
             "--attn_block_size/--attn_flash are TransformerLM attention "
             "backends; the pipelined PipelineLM (--mesh_stages) runs dense "
             "block attention and would silently drop them")
-    if cfg.mesh_stages > 0 and cfg.serve_port > 0:
-        raise NotImplementedError(
-            "--serve_port with --mesh_stages is not ported: the serving "
-            "registry applies a TransformerLM module, and PipelineLM's "
-            "stacked tree needs a predict path of its own")
     if cfg.silo_backend not in ("local", "grpc"):
         raise ValueError(f"unknown silo_backend {cfg.silo_backend!r}; "
                          f"available: ('local', 'grpc')")
@@ -2190,14 +2238,6 @@ def check_cross_device(cfg: ExperimentConfig) -> None:
                          f"{cfg.wave_size}")
 
 
-# models that draw dropout masks, and the algorithms whose local trainers
-# take the dropout keys (`parallel.cohort.train_cohort`'s keyed trainers)
-STOCHASTIC_MODELS = ("cnn", "mobilenet_v3", "efficientnet", "vgg11",
-                     "vgg13", "vgg16")
-KEYED_ALGOS = ("fedavg", "fedavg_robust", "fedopt", "fedprox", "fednova",
-               "scaffold", "cross_device", "centralized")
-
-
 def resolve_cross_device(cfg: ExperimentConfig) -> ExperimentConfig:
     """``--cross_device`` is shorthand for ``--algo cross_device``;
     paired with another algorithm it would silently pick one of the
@@ -2229,12 +2269,6 @@ def check_config(cfg: ExperimentConfig) -> None:
     check_cross_device(cfg)
     check_cross_silo(cfg)
     check_obs(cfg)
-    if cfg.model in STOCHASTIC_MODELS and cfg.algo not in KEYED_ALGOS:
-        raise NotImplementedError(
-            f"--model {cfg.model} draws dropout masks, which the port keys "
-            f"through the local trainers of {list(KEYED_ALGOS)}; --algo "
-            f"{cfg.algo} trains without a key and would silently run it "
-            f"without dropout")
     supported = sorted(DTYPE_RUNNERS & set(RUNNERS))
     if cfg.compute_dtype and cfg.algo not in supported:
         raise ValueError(

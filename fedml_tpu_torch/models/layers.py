@@ -18,6 +18,18 @@ larger after: asymmetric at stride 2 (a 7x7 stride-2 conv on 32 pads (2,
 symmetric.  `same_pads` computes flax's pads and the layers apply them
 with ``F.pad`` when they are not symmetric.
 
+Tensor parallelism: given a ``tp_axis`` (`parallel.mesh.MeshAxis`), a
+layer whose leaves are this rank's blocks (`parallel.mesh.Placement`, the
+JAX package's ``tp_shard_params`` rule) computes on them.  The layer reads
+the placement from its leaves' shapes against its whole ones; a layout it
+does not compute on raises ``NotImplementedError``, never runs
+replicated in silence.  ``Dense`` sharded on its output dim is
+column-parallel (input copied to the axis, the rank's columns, gathered,
+the replicated bias added after the gather, where its gradient is whole);
+``Embed`` sharded on its features looks up its columns and gathers;
+``DenseGeneral`` is the attention's head-parallel pair (see its
+docstring).
+
 Mixed precision follows flax's ``promote_dtype``: a layer with a
 ``dtype`` casts its input and parameters to it; without one, tensors of
 mixed float types meet in their promoted type (an all-f32 call casts
@@ -60,10 +72,18 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
                                  generator=generator)
 
 
+def _unported(layer: str, leaf: str, shape, whole) -> NotImplementedError:
+    from fedml_tpu_torch.parallel.mesh import TP_UNPORTED
+    return NotImplementedError(
+        f"{layer}: {leaf} is a block {tuple(shape)} of {tuple(whole)} in a "
+        f"layout this layer does not compute on ({TP_UNPORTED})")
+
+
 class Dense(nn.Module):
     def __init__(self, in_features: int, out_features: int, dtype=None):
         super().__init__()
         self.dtype = dtype
+        self.in_features, self.out_features = in_features, out_features
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
 
@@ -71,9 +91,16 @@ class Dense(nn.Module):
         lecun_normal_(self.kernel.data, self.kernel.shape[0], generator)
         self.bias.data.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
         x, kernel, bias = promote(self.dtype, x, self.kernel, self.bias)
-        return x @ kernel + bias
+        whole = (self.in_features, self.out_features)
+        if tp_axis is None or tuple(kernel.shape) == whole:
+            return x @ kernel + bias
+        if (kernel.shape[0] != whole[0]
+                or kernel.shape[1] * tp_axis.size != whole[1]
+                or bias.shape[0] != whole[1]):
+            raise _unported("Dense", "kernel/bias", kernel.shape, whole)
+        return tp_axis.gather(tp_axis.copy(x) @ kernel) + bias
 
 
 def same_pads(n: int, k: int, stride: int):
@@ -187,14 +214,47 @@ class DenseGeneral(nn.Module):
         lecun_normal_(self.kernel.data, math.prod(self.in_shape), generator)
         self.bias.data.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
+        """``tp_axis`` with the heads sharded (the attention's pair under
+        the JAX rule): an in-projection ``[d, H/n, dh]`` gives the rank's
+        heads (the caller copies ``x`` to the axis once for q, k and v;
+        the bias ``[H, dh]`` stays replicated and the rank adds its heads'
+        rows); the out-projection ``[H/n, dh, d]`` is row-parallel, its
+        partial products summed over the axis, the bias added once
+        after."""
         n_in = len(self.in_shape)
         lead = x.shape[:x.dim() - n_in]
         x, kernel, bias = promote(self.dtype, x, self.kernel, self.bias)
+        whole = self.in_shape + self.out_shape
+        if tp_axis is not None and tuple(kernel.shape) != whole:
+            return self._on_heads(x, kernel, bias, lead, tp_axis)
         w = kernel.reshape(math.prod(self.in_shape),
                            math.prod(self.out_shape))
         y = x.reshape(lead + (-1,)) @ w
         return y.reshape(lead + self.out_shape) + bias
+
+    def _on_heads(self, x, kernel, bias, lead, tp_axis):
+        whole = self.in_shape + self.out_shape
+        in_proj = len(self.in_shape) == 1 and len(self.out_shape) == 2
+        out_proj = len(self.in_shape) == 2 and len(self.out_shape) == 1
+        dim = 1 if in_proj else 0
+        ok = ((in_proj or out_proj)
+              and kernel.dim() == 3
+              and kernel.shape[dim] * tp_axis.size == whole[dim]
+              and all(kernel.shape[i] == whole[i]
+                      for i in range(3) if i != dim)
+              and tuple(bias.shape) == tuple(self.out_shape))
+        if not ok:
+            raise _unported("DenseGeneral", "kernel", kernel.shape, whole)
+        heads = kernel.shape[dim]
+        if in_proj:
+            w = kernel.reshape(whole[0], heads * whole[2])
+            y = (x.reshape(lead + (-1,)) @ w).reshape(
+                lead + (heads, whole[2]))
+            return y + tp_axis.slice(bias, 0, heads)
+        w = kernel.reshape(heads * whole[1], whole[2])
+        y = x.reshape(lead + (-1,)) @ w
+        return tp_axis.reduce(y) + bias
 
 
 class LayerNorm(nn.Module):
@@ -232,6 +292,7 @@ class Embed(nn.Module):
     def __init__(self, num_embeddings: int, features: int, dtype=None):
         super().__init__()
         self.dtype = dtype
+        self.num_embeddings, self.features = num_embeddings, features
         self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
 
     def reset_parameters(self, generator=None) -> None:
@@ -239,7 +300,13 @@ class Embed(nn.Module):
                         math.sqrt(1.0 / self.embedding.shape[1]),
                         generator=generator)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, tp_axis=None) -> torch.Tensor:
         table = self.embedding if self.dtype is None \
             else self.embedding.to(self.dtype)
-        return F.embedding(ids.long(), table)
+        if tp_axis is None or table.shape[1] == self.features:
+            return F.embedding(ids.long(), table)
+        if (table.shape[0] != self.num_embeddings
+                or table.shape[1] * tp_axis.size != self.features):
+            raise _unported("Embed", "embedding", table.shape,
+                            (self.num_embeddings, self.features))
+        return tp_axis.gather(F.embedding(ids.long(), table))

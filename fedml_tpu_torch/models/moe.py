@@ -17,7 +17,17 @@ an index out of range and has no batching rule; a position past the
 capacity must give an all-zero row, which is the drop).  The balance loss
 is returned, not stored: ``forward`` gives ``(y, load_balance)``.  The
 JAX package uses no Pallas kernel here (XLA's einsums), so neither does
-the port."""
+the port.
+
+Expert parallelism (``ep_axis``, `parallel.expert.ep_shard_params`): the
+rank holds ``E/n`` experts' tables, the router whole.  Routing, dispatch,
+capacity, drops and the balance loss come from every token, as in one
+process; the rank runs its experts' einsums over its slice of the
+dispatch tensor and combines their share, and one sum over the axis joins
+the shares (its backward the identity).  The experts' input and the
+combine weights are copied to the axis (their gradients summed over it),
+so the router's and the input's gradients are whole on every rank, the
+balance loss's counted once."""
 
 from __future__ import annotations
 
@@ -104,8 +114,28 @@ class SwitchFFN(nn.Module):
         return xt, m, probs, oh, pos_in_e, capacity(self.capacity_factor,
                                                     g, e)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    def _experts(self, ep_axis):
+        """The expert tables as this rank holds them, their first expert's
+        index, and whether they are a block of the whole."""
+        tables = (self.w1, self.b1, self.w2, self.b2)
+        local = tables[0].shape[0]
+        if ep_axis is None or local == self.n_experts:
+            return tables, 0, False
+        if (any(t.shape[0] != local for t in tables)
+                or local * ep_axis.size != self.n_experts
+                or self.router.kernel.shape[1] != self.n_experts):
+            from fedml_tpu_torch.parallel.mesh import TP_UNPORTED
+            raise NotImplementedError(
+                f"SwitchFFN: expert tables of {[t.shape[0] for t in tables]}"
+                f" rows and a router of {self.router.kernel.shape[1]} "
+                f"columns are not the ep layout ({self.n_experts} experts, "
+                f"{ep_axis.size} ranks; {TP_UNPORTED})")
+        return tables, ep_axis.index * local, True
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                ep_axis=None):
         e = self.n_experts
+        (w1, b1, w2, b2), lo, sharded = self._experts(ep_axis)
         xt, m, probs, oh, pos_in_e, cap = self._route(x, mask)
         gate = torch.amax(probs, dim=-1) * m                     # [G, g]
 
@@ -120,16 +150,22 @@ class SwitchFFN(nn.Module):
         disp = oh[..., None] * _one_hot(pos_in_e, cap)[:, :, None, :]
 
         dt = self.dtype or x.dtype
-        xe = torch.einsum("gnec,gnd->gecd", disp.to(dt), xt.to(dt))
-        h = torch.einsum("gecd,edf->gecf", xe, self.w1.to(dt)) \
-            + self.b1.to(dt)[None, :, None, :]
-        h = F.gelu(h, approximate="tanh")
-        ye = torch.einsum("gecf,efd->gecd", h, self.w2.to(dt)) \
-            + self.b2.to(dt)[None, :, None, :]
-
-        # combine, gate-weighted; dropped and pad tokens come back as 0
+        # combine weights, gate-weighted; dropped and pad tokens get 0
         comb = (disp * gate[..., None, None]).to(dt)
+        if sharded:
+            n_loc = w1.shape[0]
+            disp = disp[:, :, lo:lo + n_loc]
+            comb = ep_axis.slice(comb, 2, n_loc)
+            xt = ep_axis.copy(xt)
+        xe = torch.einsum("gnec,gnd->gecd", disp.to(dt), xt.to(dt))
+        h = torch.einsum("gecd,edf->gecf", xe, w1.to(dt)) \
+            + b1.to(dt)[None, :, None, :]
+        h = F.gelu(h, approximate="tanh")
+        ye = torch.einsum("gecf,efd->gecd", h, w2.to(dt)) \
+            + b2.to(dt)[None, :, None, :]
         yt = torch.einsum("gnec,gecd->gnd", comb, ye)
+        if sharded:
+            yt = ep_axis.reduce(yt)
         return yt.reshape(x.shape).to(x.dtype), load_balance
 
     def dropped(self, x: torch.Tensor,

@@ -44,7 +44,17 @@ in the given cache tensors, which come back as the same dict: a
 CUDA-graph capture of the step replays over static buffers.  ``positions``
 must lie in ``[0, cache_len)``.
 ``dropout_rate`` drops after each attention and MLP in train mode (a
-``dropout_key``, the workload's dropout seam; not flax's masks)."""
+``dropout_key``, the workload's dropout seam; not flax's masks).
+
+``tp_axis`` (a `parallel.mesh.MeshAxis`): the parameters are this rank's
+blocks of a placement over that axis (`parallel.mesh.tp_shard_params` or
+`parallel.expert.ep_shard_params`), and every layer computes on what it
+holds: the embeddings and each Dense sharded on its output dim are
+column-parallel (gathered), the attention is head-parallel on the rank's
+H/n heads (flash, ``block_size`` or dense over them) with a row-parallel
+out-projection (one sum over the axis a block), and each MoE layer runs
+the rank's E/n experts (`models.moe.SwitchFFN`).  A layout no layer
+computes on raises ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -91,8 +101,17 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict] = None,
-                ring_axis=None) -> torch.Tensor:
-        q, k, v = self.query(x), self.key(x), self.value(x)
+                ring_axis=None, tp_axis=None) -> torch.Tensor:
+        heads = tp_axis is not None \
+            and self.query.kernel.shape[1] != self.query.out_shape[0]
+        if heads and (cache is not None or ring_axis is not None):
+            raise NotImplementedError(
+                "head-parallel attention composes with neither decode "
+                "(cache=) nor the ring (ring_axis=)")
+        # q, k and v from the rank's heads: x copied to the axis once
+        ax = tp_axis if heads else None
+        xi = tp_axis.copy(x) if heads else x
+        q, k, v = self.query(xi, ax), self.key(xi, ax), self.value(xi, ax)
         t = x.shape[1]
         if cache is not None:
             out = _decode_attention(q, k, v, positions, cache)
@@ -107,7 +126,7 @@ class CausalSelfAttention(nn.Module):
             out = blockwise_attention(q, k, v, positions, positions, blk)
         else:
             out = full_attention(q, k, v, positions, positions)
-        return self.out(out.to(x.dtype))
+        return self.out(out.to(x.dtype), ax)
 
 
 def _decode_attention(q, k, v, positions, cache):
@@ -150,6 +169,8 @@ class TransformerLM(nn.Module):
     """Per-position next-token logits, causal; flax's defaults (d_model
     128, 4 heads, 2 layers, d_ff 512, max_len 2048, the Switch paper's
     capacity factor 1.25 and alpha 0.01)."""
+
+    computes_on_shards = True
 
     def __init__(self, vocab_size: int, d_model: int = 128, n_heads: int = 4,
                  n_layers: int = 2, d_ff: int = 512, max_len: int = 2048,
@@ -196,30 +217,36 @@ class TransformerLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 ring_axis=None, cache=None,
                 dropout_key: Optional[torch.Tensor] = None,
-                moe_aux: bool = False):
+                moe_aux: bool = False, tp_axis=None):
         if cache is not None:
+            if tp_axis is not None:
+                raise NotImplementedError(
+                    "decode (cache=) runs on one device's whole tree; "
+                    "tp_axis does not compose with it")
             return self._decode(input_seq, positions, ring_axis, cache)
         t = input_seq.shape[1]
         if positions is None:
             positions = torch.arange(t, device=input_seq.device)
-        x = self.tok_embed(input_seq) + self.pos_embed(positions)[None]
+        x = self.tok_embed(input_seq, tp_axis) \
+            + self.pos_embed(positions, tp_axis)[None]
         load_balance = []
         for i in range(self.n_layers):
             h = getattr(self, f"LayerNorm_{2 * i}")(x)
-            h = getattr(self, f"attn_{i}")(h, positions, ring_axis=ring_axis)
+            h = getattr(self, f"attn_{i}")(h, positions, ring_axis=ring_axis,
+                                           tp_axis=tp_axis)
             x = x + dropout(h, self.dropout_rate, dropout_key, 2 * i)
             h = getattr(self, f"LayerNorm_{2 * i + 1}")(x)
             if self.moe_experts:
                 h, lb = getattr(self, f"moe_{i}")(
-                    h, mask=input_seq != self.pad_id)
+                    h, mask=input_seq != self.pad_id, ep_axis=tp_axis)
                 load_balance.append(lb)
             else:
-                h = F.gelu(getattr(self, f"Dense_{2 * i}")(h),
+                h = F.gelu(getattr(self, f"Dense_{2 * i}")(h, tp_axis),
                            approximate="tanh")
-                h = getattr(self, f"Dense_{2 * i + 1}")(h)
+                h = getattr(self, f"Dense_{2 * i + 1}")(h, tp_axis)
             x = x + dropout(h, self.dropout_rate, dropout_key, 2 * i + 1)
         x = getattr(self, f"LayerNorm_{2 * self.n_layers}")(x)
-        logits = self.lm_head(x)
+        logits = self.lm_head(x, tp_axis)
         if moe_aux:
             # Switch eq. 4: each layer's term sums into the loss
             return logits, sum(load_balance, 0.0)

@@ -30,7 +30,9 @@ axis) each rank trains its block of the cohort's rows with the keys of
 their global slots and the round's reductions become sums over the ranks
 (`Mesh.allsum`): `make_cohort_step` and `cohort_eval` take ``mesh=``, and
 `make_sharded_stateful_round` is the one wrap the stateful algorithms
-share.  A mesh always takes the host loop: no resident split and no CUDA
+share.  With a `parallel.mesh.Placement` the step is the ``[clients,
+model]`` (tensor-parallel) or ``[clients, experts]`` round.  A mesh always
+takes the host loop: no resident split and no CUDA
 graph (gloo's collectives cannot be captured).
 """
 
@@ -157,7 +159,7 @@ def _local(tree):
 
 def make_cohort_step(local_train, aggregate=tree_weighted_mean,
                      transform_update=None, client_axis: str = "vmap",
-                     mesh=None) -> Callable:
+                     mesh=None, placement=None) -> Callable:
     """Build ``step(global_params, cohort_data, seed_words) -> (new_global,
     metrics)``: train the cohort, apply the per-client hook, aggregate.
 
@@ -166,8 +168,26 @@ def make_cohort_step(local_train, aggregate=tree_weighted_mean,
     takes the weighted partial sums of its rows and one sum over the ranks
     gives every rank the new global; the per-client metrics come back
     gathered.  The cohort (all of it, or a `stage_global` shard) must
-    divide over the axis; the aggregate is the weighted mean."""
+    divide over the axis; the aggregate is the weighted mean.
 
+    ``placement`` (`parallel.mesh.Placement`, from ``tp_shard_params`` or
+    ``ep_shard_params``): the ``[clients, model]`` or ``[clients,
+    experts]`` round.  The parameters are sharded on the placement's
+    axis; ``local_train`` is a trainer whose workload runs the model on
+    that axis (``forward_kwargs={"tp_axis": mesh.axis(...)}``).  A rank
+    trains its clients one after another (``torch.func.vmap`` cannot
+    carry a collective), the weighted mean sums each block over the
+    ``clients`` subgroup, and the blocks are gathered back into the whole
+    tree in its leaf order, so every rank returns the same bytes; the
+    step takes the whole tree or the rank's blocks."""
+
+    if placement is not None:
+        if transform_update is not None or aggregate is not \
+                tree_weighted_mean:
+            raise ValueError(
+                "the model-parallel step averages blocks of the update: a "
+                "per-client hook or another aggregate needs whole updates")
+        return _model_parallel_step(local_train, mesh, placement)
     if mesh is None:
         def step(global_params: Tree, cohort_data: CohortData,
                  seed_words: Sequence[int] = (0, 0)):
@@ -203,6 +223,32 @@ def make_cohort_step(local_train, aggregate=tree_weighted_mean,
         return new_global, mesh.all_gather_rows(metrics)
 
     return sharded
+
+
+def _model_parallel_step(local_train, mesh, placement):
+    if "clients" not in mesh.shape:
+        raise ValueError(f"the cohort step needs a clients axis; the mesh "
+                         f"is {mesh.shape}")
+    workload = getattr(local_train, "workload", None)
+    if workload is not None:
+        placement.check(workload.model)
+
+    def step(global_params: Tree, cohort_data: CohortData,
+             seed_words: Sequence[int] = (0, 0)):
+        local = stage_global(cohort_data, mesh, "clients")
+        params = placement.shard(stage_global(dict(global_params), mesh))
+        offset = mesh.axis_index("clients") * local["num_samples"].shape[0]
+        stacked, metrics = train_cohort(
+            local_train, params, _local(local), seed_words,
+            client_axis="scan", index_offset=offset)
+        w = local["num_samples"].to(torch.float32)
+        ratio = w / mesh.allsum(torch.sum(w))
+        blocks = mesh.allsum({
+            k: torch.sum(x * bcast(ratio, x.dim()).to(x.dtype), 0)
+            for k, x in stacked.items()})
+        return placement.gather(blocks), mesh.all_gather_rows(metrics)
+
+    return step
 
 
 def make_sharded_stateful_round(core, mesh, in_specs, out_specs):

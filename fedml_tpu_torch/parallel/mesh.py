@@ -1,6 +1,5 @@
-"""Meshes over ``torch.distributed`` (port of ``fedml_tpu/parallel/mesh.py``,
-all of it but ``tp_shard_params``, and of ``make_sp_mesh`` from
-``fedml_tpu/parallel/sequence.py``).
+"""Meshes over ``torch.distributed`` (port of ``fedml_tpu/parallel/mesh.py``
+and of ``make_sp_mesh`` from ``fedml_tpu/parallel/sequence.py``).
 
 JAX places one controller over many devices; the port runs one process
 (rank) per mesh position, as PyTorch does, and a `Mesh` is the rank's view
@@ -24,6 +23,13 @@ two-level mesh the ``groups`` subgroup of its column).
   the same reduced bits, which the runs' per-rank sha256 of the globals
   (`Mesh.gather_hashes`) checks.
 * A collective that fails raises; nothing is retried on another backend.
+
+Tensor parallelism (`tp_shard_params`, JAX's placement rule) is a
+placement in the JAX package, where GSPMD inserts the collectives.  Here a
+rank holds its shards (`Placement`) and the layers that compute on them
+(`models.layers`, `models.transformer`, `models.moe`) call Megatron's
+three operators on the axis (`MeshAxis.copy`, ``reduce``, ``gather``),
+custom autograd functions whose time counts as ``collective_ms("tp")``.
 
 `init_distributed` is the ``mpirun -np N`` replacement: the coordinator
 flags (``tcp://`` rendezvous), torchrun's environment, or a file store
@@ -248,7 +254,8 @@ class Mesh:
     def collective_ms(self, kind: Optional[str] = None) -> float:
         """Milliseconds spent in collectives so far (synchronises with the
         device on a card); ``kind`` "p2p" counts the ring shifts alone,
-        "reduce" every other collective."""
+        "tp" the tensor- and expert-parallel layers' operators, "reduce"
+        every other collective."""
         if self._events:
             self._events[-1][1].synchronize()
             for a, b, k in self._events:
@@ -267,27 +274,28 @@ class Mesh:
             return host
         return t
 
-    def _gather_flat(self, flat: torch.Tensor, axis: str
-                     ) -> List[torch.Tensor]:
+    def _gather_flat(self, flat: torch.Tensor, axis: str,
+                     kind: str = "reduce") -> List[torch.Tensor]:
         """Every rank's ``flat`` along ``axis``, in rank order, on this
         rank's device."""
         group = self._groups.get(axis)
         if group is None:
             return [flat]
         start = self._timed_start()
-        src = self._staged(flat)
+        src = self._staged(flat.contiguous())
         parts = [torch.empty_like(src) for _ in range(self.shape[axis])]
         dist.all_gather(parts, src, group=group)
         if src is not flat:
             parts = [p.to(flat.device, non_blocking=True) for p in parts]
-        self._timed_end(start)
+        self._timed_end(start, kind)
         return parts
 
-    def allsum(self, tree, axis: str = "clients"):
+    def allsum(self, tree, axis: str = "clients", kind: str = "reduce"):
         """The sum over ``axis`` of a tensor or a dict of tensors; one
-        ``all_reduce`` per dtype."""
+        ``all_reduce`` per dtype.  ``kind`` names the share of
+        `collective_ms` the time counts in."""
         if isinstance(tree, torch.Tensor):
-            return self.allsum({"_": tree}, axis)["_"]
+            return self.allsum({"_": tree}, axis, kind)["_"]
         group = self._groups.get(axis)
         if group is None:
             return tree
@@ -299,7 +307,7 @@ class Mesh:
             dist.all_reduce(buf, group=group)
             if buf is not flat:
                 flat.copy_(buf, non_blocking=True)
-            self._timed_end(start)
+            self._timed_end(start, kind)
             out.update(_split(keys, flat, tree))
         return {k: out[k] for k in tree}
 
@@ -418,11 +426,70 @@ class _AllSumNoGrad(torch.autograd.Function):
         return None, None
 
 
+class _CopyToAxis(torch.autograd.Function):
+    """Megatron's copy to the model-parallel region: the identity forward;
+    backward sums the ranks' partial gradients over the axis, so a
+    replicated input (or parameter) gets the whole gradient on every
+    rank."""
+
+    @staticmethod
+    def forward(axis, x):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        return None, _fresh(axis.mesh.allsum(g.contiguous(), axis.name,
+                                             "tp"), g)
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    """Megatron's reduce from the model-parallel region: forward sums the
+    ranks' partial outputs over the axis; backward is the identity."""
+
+    @staticmethod
+    def forward(axis, x):
+        return _fresh(axis.mesh.allsum(x.contiguous(), axis.name, "tp"), x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    """Megatron's gather from the model-parallel region: forward
+    concatenates the ranks' column shards on the last dim; backward hands
+    each rank exactly its own slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(axis, x):
+        return torch.cat(axis.mesh._gather_flat(x, axis.name, "tp"), dim=-1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[0]
+        ctx.width = inputs[1].shape[-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.axis.index * ctx.width
+        return None, g[..., lo:lo + ctx.width].contiguous()
+
+
 class MeshAxis:
     """One axis of a `Mesh` as a model running along it sees it (the JAX
     package's ``axis_name`` inside ``shard_map``): ``size``, this rank's
-    ``index``, the ring shift autograd carries and a gradient-free sum.
-    Both run as custom autograd functions, so ``torch.func.grad`` takes
+    ``index``, the ring shift autograd carries, a gradient-free sum and
+    the tensor-parallel layers' ``copy``, ``reduce`` and ``gather``.  All
+    run as custom autograd functions, so ``torch.func.grad`` takes
     them."""
 
     def __init__(self, mesh: "Mesh", name: str):
@@ -436,6 +503,24 @@ class MeshAxis:
 
     def sum_no_grad(self, x: torch.Tensor) -> torch.Tensor:
         return _AllSumNoGrad.apply(self, x.detach())
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` unchanged; its gradient summed over the axis."""
+        return _CopyToAxis.apply(self, x)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the axis of the ranks' partial ``x``."""
+        return _ReduceFromAxis.apply(self, x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' column shards of ``x`` joined on the last dim."""
+        return _GatherFromAxis.apply(self, x)
+
+    def slice(self, x: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+        """This rank's block ``[index·width, (index+1)·width)`` of a
+        replicated ``x`` on ``dim``, its gradient summed over the axis
+        (so the replicated leaf's gradient is whole on every rank)."""
+        return self.copy(x).narrow(dim, self.index * width, width)
 
 
 def _by_dtype(tree: Dict[str, torch.Tensor]):
@@ -530,17 +615,13 @@ def make_mesh(client_axis: Optional[int] = None, model_axis: int = 1,
     """The ``[clients, model]`` mesh over the world's ranks (``devices``:
     their count or a sequence of them, for the factorization check).
 
-    Defaults: every rank on the clients axis.  A ``model`` axis over more
-    than one rank (tensor parallelism, ``tp_shard_params``) is not ported
-    yet (ROADMAP Queue 1 item 14b)."""
+    Defaults: every rank on the clients axis.  The model axis takes
+    contiguous ranks (rank ``r`` is client block ``r // model_axis``,
+    model shard ``r % model_axis``), each axis its subgroup;
+    `tp_shard_params` places parameters on it."""
     n = _n_devices(devices)
     client_axis, model_axis = check_mesh_factors(client_axis, model_axis, n,
                                                  axis_names)
-    if model_axis > 1:
-        raise NotImplementedError(
-            "a model axis over more than one rank (tensor parallelism, "
-            "tp_shard_params) is not ported yet; it needs column- and "
-            "row-parallel layers (ROADMAP Queue 1 item 14b)")
     _check_world((client_axis, model_axis), n)
     return Mesh({axis_names[0]: client_axis, axis_names[1]: model_axis},
                 device=device)
@@ -646,3 +727,145 @@ def broadcast_params(params, mesh: Optional[Mesh]):
         return params
     return mesh.broadcast({k: v.to(mesh.device).contiguous()
                            for k, v in params.items()})
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism: placements
+# ---------------------------------------------------------------------------
+
+# what a model whose placement shards a leaf outside the layers that
+# compute on shards raises, by ROADMAP item
+TP_UNPORTED = ("ROADMAP Queue 1 item 12: tensor parallelism over this "
+               "layer is not ported; the port computes on shards in the "
+               "LR and transformer Dense, DenseGeneral and Embed layers "
+               "and the Switch MoE experts only")
+
+
+class Placement:
+    """Where a tree's leaves lie on one mesh axis: ``dims[name]`` is the
+    dim a leaf is sharded on (its blocks in the order of the axis's
+    coordinates) or None (replicated); ``shapes`` the whole leaves'.
+
+    ``spec(name)`` is the leaf's sharding in the JAX package's
+    ``PartitionSpec`` form (``(None, "model")``; ``()`` replicated), which
+    the tests hold against JAX's ``.sharding.spec``.  ``shard(tree)`` takes
+    this rank's blocks (a leaf already a block passes), ``gather(tree)``
+    joins every rank's blocks back into the whole tree in its leaf order,
+    so every rank then holds the same bytes."""
+
+    def __init__(self, mesh: Mesh, axis: str, dims: Dict[str, Optional[int]],
+                 shapes: Dict[str, Tuple[int, ...]]):
+        self.mesh, self.axis = mesh, axis
+        self.size = mesh.shape[axis]
+        self.index = mesh.coords[axis]
+        self.dims = dict(dims)
+        self.shapes = {k: tuple(s) for k, s in shapes.items()}
+
+    @property
+    def sharded(self) -> List[str]:
+        return [k for k, d in self.dims.items() if d is not None]
+
+    def spec(self, name: str) -> Tuple:
+        dim = self.dims[name]
+        if dim is None:
+            return ()
+        out = [None] * len(self.shapes[name])
+        out[dim] = self.axis
+        return tuple(out)
+
+    def block_shape(self, name: str) -> Tuple[int, ...]:
+        shape = list(self.shapes[name])
+        dim = self.dims[name]
+        if dim is not None:
+            shape[dim] //= self.size
+        return tuple(shape)
+
+    def shard(self, tree):
+        out = {}
+        for k, v in tree.items():
+            dim = self.dims.get(k)
+            if dim is None or tuple(v.shape) == self.block_shape(k):
+                out[k] = v
+            elif tuple(v.shape) == self.shapes[k]:
+                w = self.shapes[k][dim] // self.size
+                out[k] = v.narrow(dim, self.index * w, w).contiguous()
+            else:
+                raise ValueError(
+                    f"{k}: shape {tuple(v.shape)} is neither the whole "
+                    f"leaf {self.shapes[k]} nor its block "
+                    f"{self.block_shape(k)}")
+        return out
+
+    def gather(self, tree):
+        """The whole tree from every rank's blocks (one ``all_gather`` a
+        dtype over the axis)."""
+        names = [k for k in self.sharded if k in tree]
+        if not names:
+            return dict(tree)
+        blocks = {k: tree[k] for k in names}
+        whole = {}
+        for keys, flat in _by_dtype(blocks):
+            parts = [_split(keys, p, blocks)
+                     for p in self.mesh._gather_flat(flat, self.axis)]
+            whole.update({k: torch.cat([p[k] for p in parts],
+                                       dim=self.dims[k]) for k in keys})
+        return {k: whole.get(k, v) for k, v in tree.items()}
+
+    def sq_norm(self, tree) -> torch.Tensor:
+        """The squared global norm of a tree of blocks: the replicated
+        leaves counted once, the blocks summed over the axis."""
+        rep = [torch.sum(torch.square(v)) for k, v in tree.items()
+               if self.dims.get(k) is None]
+        part = [torch.sum(torch.square(v)) for k, v in tree.items()
+                if self.dims.get(k) is not None]
+        total = sum(rep, torch.zeros((), device=self.mesh.device))
+        if part:
+            total = total + self.mesh.axis(self.axis).sum_no_grad(sum(part))
+        return total
+
+    def check(self, model) -> None:
+        """Raise unless ``model`` computes on every sharded leaf: its class
+        says so (``computes_on_shards``), and no leaf of a module outside
+        the ported layers is sharded."""
+        if not self.sharded:
+            return
+        if not getattr(model, "computes_on_shards", False):
+            raise NotImplementedError(
+                f"{type(model).__name__}: the placement shards "
+                f"{self.sharded[:4]} on {self.axis!r}, and the model does "
+                f"not compute on shards ({TP_UNPORTED})")
+
+
+def tp_shard_params(params, mesh: Mesh, axis: str = "model",
+                    min_size: int = 4096):
+    """The JAX package's tensor-parallel placement rule (JAX
+    ``mesh.py:98-151``), as this rank's shards and their `Placement`:
+
+    * a 2-D kernel shards its output dim when it divides by the axis size
+      n and the leaf has at least ``min_size`` elements;
+    * a 3-D kernel with at least ``min_size`` elements shards its heads:
+      at dim 1 when ``d0 > max(d1, d2)`` (``[d_model, H, dh]``, an
+      in-projection), at dim 0 when ``d2 > max(d0, d1)`` (``[H, dh,
+      d_model]``, the out-projection), when that dim divides by n;
+    * everything else is replicated (a ``[k, c_in, c_out]`` Conv1D-like
+      kernel included).
+
+    ``params``: a flat dict (``"attn_0/query/kernel"``)."""
+    n = mesh.shape[axis]
+    dims: Dict[str, Optional[int]] = {}
+    for k, x in params.items():
+        nd, size, dim = x.dim(), x.numel(), None
+        if nd == 2 and x.shape[-1] % n == 0 and size >= min_size:
+            dim = 1
+        elif nd == 3 and size >= min_size:
+            d0, d1, d2 = x.shape
+            if d0 > max(d1, d2):
+                dim = 1
+            elif d2 > max(d0, d1):
+                dim = 0
+            if dim is not None and x.shape[dim] % n:
+                dim = None
+        dims[k] = dim
+    placement = Placement(mesh, axis, dims,
+                          {k: tuple(v.shape) for k, v in params.items()})
+    return placement.shard(params), placement

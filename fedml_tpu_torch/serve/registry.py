@@ -29,7 +29,7 @@ once, so no request pays a host-to-device copy of the weights and no
 snapshot aliases a buffer the training loop will overwrite.
 `ServedModel.predict` runs ``apply_fn`` under ``torch.inference_mode()``
 on that device; `module_apply` builds a thread-safe ``apply_fn`` over a
-model module.
+model module, `pipeline_apply` one over a ``PipelineLM``'s stacked tree.
 """
 
 from __future__ import annotations
@@ -75,6 +75,24 @@ def module_apply(model: torch.nn.Module) -> Callable:
         flat = flatten_nested(params)
         with lock:
             return apply_model(model, flat, x)
+
+    return apply_fn
+
+
+def pipeline_apply(plm) -> Callable:
+    """``apply_fn(params, x)`` over a `parallel.pipeline.PipelineLM`'s
+    stacked tree (flat ``"blocks/..."`` keys or nested): the one-device
+    forward ``apply_seq``, the logits the JAX package serves through its
+    pipeline workload's ``apply`` (the same in one stage or S).  Calls are
+    serialized, as `module_apply`'s: the layers run through
+    ``functional_call`` on the model's modules."""
+    from fedml_tpu_torch.core.pytree import flatten_nested
+    lock = threading.Lock()
+
+    def apply_fn(params, x):
+        flat = flatten_nested(params)
+        with lock:
+            return plm.apply_seq(flat, x)
 
     return apply_fn
 

@@ -37,11 +37,15 @@ from fedml_tpu_torch.obs import telemetry
 from fedml_tpu_torch.trainer.workload import Workload, is_trained
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        sq_norm=None) -> Tree:
     """optax.clip_by_global_norm: keep the gradient when its global norm
     is below ``max_norm``, else ``g / norm * max_norm`` (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``)."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(grads[k]))
+    ``torch.nn.utils.clip_grad_norm_``).  ``sq_norm(grads)``: the squared
+    norm of a tree whose leaves are blocks of a placement
+    (`parallel.mesh.Placement.sq_norm`)."""
+    norm = torch.sqrt(sq_norm(grads) if sq_norm is not None else
+                      sum(torch.sum(torch.square(grads[k]))
                           for k in tree_keys(grads)))
     keep = norm < max_norm
     return {k: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
@@ -144,7 +148,8 @@ def instrument_train_fn(train_fn, epochs: int = 1, registry=None):
 
 
 def make_local_trainer(workload: Workload, optimizer, epochs: int,
-                       prox_mu: float = 0.0, grad_reduce=None):
+                       prox_mu: float = 0.0, grad_reduce=None,
+                       placement=None):
     """Returns ``train(params, data) -> (new_params, metrics)`` over data
     leaves ``[S, B, ...]`` with ``mask`` ``[S, B]``.  ``prox_mu`` adds
     FedProx's proximal gradient ``mu * (w - w_global)`` each step (the
@@ -153,7 +158,12 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
     ``grad_reduce(grads) -> grads`` runs right after the backward pass,
     before the proximal term, the clip and the step: sequence-parallel
     training sums each rank's partial gradient over the ``sequence`` axis
-    there (`parallel.sequence`), so every rank takes the same step."""
+    there (`parallel.sequence`), so every rank takes the same step.
+
+    ``placement``: the params are this rank's blocks of a tensor- or
+    expert-parallel placement; the clip takes the global norm over the
+    whole tree (`parallel.mesh.Placement.sq_norm`)."""
+    sq_norm = placement.sq_norm if placement is not None else None
 
     stateful = workload.stateful
 
@@ -178,7 +188,8 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
                 grads = {k: g + prox_mu * (params[k] - init_params[k])
                          for k, g in grads.items()}
             if workload.grad_clip_norm is not None:
-                grads = clip_by_global_norm(grads, workload.grad_clip_norm)
+                grads = clip_by_global_norm(grads, workload.grad_clip_norm,
+                                            sq_norm)
             updates, new_state = optimizer.update(grads, opt_state, params)
             new_params = {k: (params[k] + updates[k]).to(params[k].dtype)
                           for k in params}
@@ -194,6 +205,7 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
         return (join_state(params, state),
                 {"train_loss_per_step": torch.stack(losses)})
 
+    train.workload = workload
     return with_rng_inputs(train, workload, epochs)
 
 

@@ -149,10 +149,14 @@ def _module_names(params: Tree) -> Dict[str, torch.Tensor]:
 
 
 def apply_model(model: nn.Module, params: Tree, x: torch.Tensor,
-                rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rng: Optional[torch.Tensor] = None,
+                forward_kwargs: Optional[dict] = None) -> torch.Tensor:
     """The model's forward over ``params``; with ``rng`` (a key's words)
-    in train mode, its dropout masks keyed by it."""
-    kwargs = {} if rng is None else {"dropout_key": rng}
+    in train mode, its dropout masks keyed by it; ``forward_kwargs`` go
+    to the forward as they are (``tp_axis``)."""
+    kwargs = dict(forward_kwargs or {})
+    if rng is not None:
+        kwargs["dropout_key"] = rng
     return functional_call(model, _module_names(params), (x,), kwargs)
 
 
@@ -226,14 +230,19 @@ def _mixed_precision(compute_dtype) -> Optional[torch.dtype]:
 def ClassificationWorkload(model: nn.Module, num_classes: int,
                            grad_clip_norm: Optional[float] = 1.0,
                            stateful: bool = False,
-                           compute_dtype=None) -> Workload:
+                           compute_dtype=None,
+                           forward_kwargs: Optional[dict] = None
+                           ) -> Workload:
     """Softmax cross-entropy on logits, mean over valid rows; metrics sum
     top-1 (and top-5 above 5 classes) hits, loss and row count.
     ``stateful=True`` for BatchNorm models (see the module docstring).
     ``compute_dtype``: ``loss_fn`` runs the model in it (see the module
-    docstring); ``metric_fn`` evaluates in f32, as the JAX package's."""
+    docstring); ``metric_fn`` evaluates in f32, as the JAX package's.
+    ``forward_kwargs``: passed to every forward (``{"tp_axis": axis}``
+    runs the model on a placement's blocks, `parallel.mesh`)."""
     paths = check_stateful(model, stateful)
     dtype = _mixed_precision(compute_dtype)
+    fk = dict(forward_kwargs or {})
 
     def _cast(params, x):
         if dtype is None:
@@ -247,7 +256,7 @@ def ClassificationWorkload(model: nn.Module, num_classes: int,
         x = batch["x"]
         if train:
             params, x = _cast(params, x)
-        logits = apply_model(model, params, x, rng).to(torch.float32)
+        logits = apply_model(model, params, x, rng, fk).to(torch.float32)
         ce = F.cross_entropy(logits, batch["y"].long(), reduction="none")
         return logits, ce
 
@@ -325,27 +334,30 @@ def make_nwp_loss_metrics(forward, pad_id: int = 0):
 
 def NWPWorkload(model: nn.Module, pad_id: int = 0,
                 grad_clip_norm: Optional[float] = None,
-                compute_dtype=None) -> Workload:
+                compute_dtype=None,
+                forward_kwargs: Optional[dict] = None) -> Workload:
     """Next-word/char prediction over ``[B, T, V]`` logits.
     ``compute_dtype``: the parameters are cast to it in training and in
     evaluation alike (the JAX package's forward), and the model must be
     built with the same ``dtype`` for its layers to compute in it.  A
     model with MoE layers adds ``moe_aux_weight x`` the sum of their
-    load-balance terms to the training loss (evaluation ignores it)."""
+    load-balance terms to the training loss (evaluation ignores it).
+    ``forward_kwargs``: as `ClassificationWorkload`'s."""
     dtype = _mixed_precision(compute_dtype)
     moe = bool(getattr(model, "moe_experts", 0))
+    fk = dict(forward_kwargs or {})
 
     def forward(params, x, rng=None, train=False):
         if dtype is not None:
             params = cast_floats(params, dtype)
         if moe and train:
-            kwargs = {"moe_aux": True}
+            kwargs = {**fk, "moe_aux": True}
             if rng is not None:
                 kwargs["dropout_key"] = rng
             logits, load_balance = functional_call(
                 model, _module_names(params), (x,), kwargs)
             return logits, model.moe_aux_weight * load_balance
-        return apply_model(model, params, x, rng), None
+        return apply_model(model, params, x, rng, fk), None
 
     loss_fn, metric_fn = make_nwp_loss_metrics(forward, pad_id)
     return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,

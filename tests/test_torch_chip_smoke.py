@@ -1334,3 +1334,68 @@ def test_parallel_phase_holds_every_round(case):
     if case == "ok":
         assert len(held["max_abs_diff"]) == 2
         assert held["limit"] == [2e-5, 2e-5]
+
+
+def test_tp_ep_phase_configs_parse_and_pass_the_gates():
+    """Phase 8t's argv: each keyed run (the dropout CNN under ditto and
+    cross_silo, no refusal left) and the served 2-stage pipeline pass the
+    CLI's gates."""
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    from fedml_tpu_torch.experiments.main import check_config
+    for argv in cs.KEYED_RUNS.values():
+        cfg = config_from_argv([*argv, *cs.KEYED_COMMON])
+        check_config(cfg)
+        assert cfg.model == "cnn" and cfg.deterministic
+    cfg = config_from_argv([*cs.PP_SERVE_ARGS, "--serve_port", "8080"])
+    check_config(cfg)
+    assert cfg.mesh_stages == 2 and cfg.serve_port == 8080
+
+
+@pytest.mark.parametrize("case", ["ok", "shed", "version", "far", "short"])
+def test_pp_serve_check_fails_on_a_wrong_answer(case):
+    """8t (b): every published round needs a 200 of its own version whose
+    logits sit within ``tol`` x max|logit| of the CPU forward."""
+    import numpy as np
+    refs = [np.array([[1.0, -4.0]]), np.array([[2.0, 0.5]])]
+    answers = [(200, {"version": v, "y": (r + 1e-6).tolist()})
+               for v, r in enumerate(refs)]
+    if case == "shed":
+        answers[0] = (429, {"error": "shed", "reason": "deadline"})
+    elif case == "version":
+        answers[1] = (200, {"version": 0, "y": refs[1].tolist()})
+    elif case == "far":
+        answers[1] = (200, {"version": 1, "y": (refs[1] + 1e-3).tolist()})
+    elif case == "short":
+        answers = answers[:1]
+    problems = cs.pp_serve_check(answers, refs, 1e-5)
+    assert (problems == []) == (case == "ok"), problems
+
+
+@pytest.mark.parametrize("case", ["ok", "drift", "hashes", "k4", "unsharded",
+                                  "untimed"])
+def test_tp_ep_problems(monkeypatch, case):
+    """8t (c)/(d)'s verdict: rank 0's rounds held to one process, the
+    ranks byte-equal, a leaf sharded, the tp layers timed and, on the card,
+    K4 launched a rank a round as in one process."""
+    monkeypatch.setattr(cs, "CARD", "cuda")
+    k4 = {n: 16 for n in cs.K4_NAMES}
+    ref = {"rounds": [{"w": torch.tensor([1.0])}, {"w": torch.tensor([2.0])}],
+           "k4_launches": [dict(k4), dict(k4)]}
+    run = {"rounds": [{"w": torch.tensor([1.0])}, {"w": torch.tensor([2.0])}],
+           "hashes": ["a", "a"], "sharded": ["Dense_0/kernel"],
+           "tp_ms": [3.0, 2.5], "rank": 0,
+           "k4_launches": [dict(k4), dict(k4)]}
+    if case == "drift":
+        run["rounds"][1] = {"w": torch.tensor([2.001])}
+    elif case == "hashes":
+        run["hashes"] = ["a", "b"]
+    elif case == "k4":
+        run["k4_launches"][1] = {**k4, "flash_bwd_dq": 0}
+    elif case == "unsharded":
+        run["sharded"] = []
+    elif case == "untimed":
+        run["tp_ms"] = [0.0, 0.0]
+    other = dict(run, rank=1, rounds=None)
+    verdict = cs.tp_ep_problems("tp", [{"tp": run}, {"tp": other}], ref,
+                                cs.TP_TOL)
+    assert (verdict["problems"] == []) == (case == "ok"), verdict

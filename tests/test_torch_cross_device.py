@@ -489,8 +489,6 @@ _GATE_BASE = ["--model", "lr", "--dataset", "mnist", "--platform", "cpu",
      "wave_size"),
     (["--algo", "async_fl", "--cross_device", "true"], ValueError,
      "cannot combine"),
-    (["--algo", "ditto", "--model", "cnn", "--dataset", "femnist"],
-     NotImplementedError, "dropout"),
 ])
 def test_cross_device_config_gates(flags, exc, match):
     with pytest.raises(exc, match=match):

@@ -97,6 +97,7 @@ def test_cross_silo_slice_modules_import_without_jax():
 TRANSFORMER_MODULES = (
     "fedml_tpu_torch.parallel.ring_attention",
     "fedml_tpu_torch.parallel.sequence", "fedml_tpu_torch.parallel.pipeline",
+    "fedml_tpu_torch.parallel.expert", "fedml_tpu_torch.models.moe",
     "fedml_tpu_torch.models.layers", "fedml_tpu_torch.models.flash_attention",
     "fedml_tpu_torch.models.transformer", "fedml_tpu_torch.trainer.workload",
     "fedml_tpu_torch.data.registry", "fedml_tpu_torch.experiments.models",

@@ -367,7 +367,9 @@ def test_mesh_factorization_errors():
         mesh_lib.check_two_level_factors(3, None, 8)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         mesh_lib.make_mesh(client_axis=2, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    # a model axis over 2 ranks is built (tensor parallelism), and like
+    # any mesh it needs its ranks
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         mesh_lib.make_mesh(client_axis=1, model_axis=2, devices=2,
                            device="cpu")
     one = mesh_lib.make_mesh(device="cpu")    # one position, no group
