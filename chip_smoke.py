@@ -343,6 +343,23 @@ each printed as it ends; any failure exits non-zero:
    2`` on the FEMNIST CNN (340 clients, 100 a round in waves of 32), 2
    rounds, the ranks byte-equal and within ``PAR_WAVE_TOL`` x max|w| of
    the one-rank engine every round, the gather's ms a round;
+8u. data layer — (a) LEAF MNIST at config 1's 1000 users (10 train
+   samples a user), written as ``train/`` and ``test/all_data.json`` and
+   read by the CLI's loader (``--data_dir``), 2 rounds of ``--algo
+   fedavg_robust --model lr --defense weak_dp --defense_backend cuda``,
+   10 clients a round: K1n and K1 once a round each, the globals within
+   ``ROUND_TOL`` of the same run on the CPU (TF32 off); (b) that split
+   saved with ``save_stacked``, memory-mapped back, 2 FedAvg rounds from
+   the map over the device-data budget (the host gather) bit-equal to 2
+   from memory; (c) CIFAR-10's pickles at full size (50,000 + 10,000),
+   the CLI's ``--partition_method hetero --partition_alpha 0.5`` over 10
+   clients (each >= 10 samples) and one ResNet-56 round at E=1, B=64, 2
+   clients a round (``DATA_CIFAR_PER_ROUND``, cut from 10) on the host
+   gather (a graphed one-round run is mostly its capture):
+   the load and partition seconds, each client's count, the round's ms,
+   rounds/s and the peak GB; (d) ``cifar_train_augment`` and
+   ``fed_cifar100_train_augment`` on a [10, 64, 32, 32, 3] tensor on the
+   card bit-equal to the CPU with one key, and their ms a call;
 12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
    and K2 also at their library call's configuration, sigma 0; K2's
    launches are phase 8j's adam run's, phase 8's and 8q's beside them; K4's
@@ -8055,6 +8072,334 @@ def check_tp_ep(root: Path) -> dict:
     return out
 
 
+# phase 8u: the data layer — config 1's LEAF MNIST and config 3's CIFAR-10
+# read from files in their own layouts (written here from the seed), the
+# hetero partition, augmentation on the card, memmap staging
+DATA_SEED = 0
+DATA_LEAF_USERS = 1000         # LEAF MNIST's users (BASELINE config 1)
+# train samples a user, cut from LEAF MNIST's ~69: the json write and
+# load of 1000 users take ~5 s at 10 (a user's test split: 2)
+DATA_LEAF_SAMPLES = 10
+DATA_LEAF_ARGS = ["--algo", "fedavg_robust", "--model", "lr", "--dataset",
+                  "mnist", "--defense", "weak_dp", "--defense_backend",
+                  "cuda", "--norm_bound", str(CLIP_BOUND), "--stddev",
+                  str(SIGMA), "--client_num_per_round", str(N_CLIENTS),
+                  "--batch_size", "10", "--lr", "0.03", "--epochs", "1",
+                  "--comm_round", "2", "--frequency_of_the_test", "1000",
+                  "--log_stdout", "false"]
+DATA_CIFAR_TRAIN = 50_000      # CIFAR-10's files at full size
+DATA_CIFAR_TEST = 10_000
+# cut: 2 of the 10 clients a round, on the host gather (the device-data
+# budget set to 0).  The hetero split's largest client pads every client
+# to ~100 steps of 64, and a graphed run's one round is its warm-up, the
+# capture of every step's kernels and the replay: 77.8 s at 2 clients a
+# round on an H100, where the eager round takes ~13 s
+DATA_CIFAR_PER_ROUND = 2
+DATA_CIFAR_ARGS = ["--algo", "fedavg", "--model", "resnet56", "--dataset",
+                   "cifar10", "--partition_method", "hetero",
+                   "--partition_alpha", "0.5", "--client_num_in_total", "10",
+                   "--client_num_per_round", str(DATA_CIFAR_PER_ROUND),
+                   "--batch_size", "64",
+                   "--lr", "0.001", "--epochs", "1", "--comm_round", "1",
+                   "--frequency_of_the_test", "1000", "--log_stdout",
+                   "false"]
+DATA_MIN_CLIENT = 10           # the hetero partition's min-size floor
+DATA_AUG_SHAPE = (10, 64, 32, 32, 3)   # a round's cohort of CIFAR batches
+DATA_AUG_REPS = 20
+DATA_MEMMAP_ROUNDS = 2
+
+
+def write_leaf_mnist(root: Path, users: int = DATA_LEAF_USERS,
+                     samples: int = DATA_LEAF_SAMPLES,
+                     seed: int = DATA_SEED) -> Path:
+    """LEAF MNIST's layout under ``root``: ``train/all_data.json`` and
+    ``test/all_data.json`` ({users, num_samples, user_data}), ``samples``
+    train and ``max(2, samples // 4)`` test rows a user of 784 pixels in
+    [0, 1] (8 in 10 zero, the rest in hundredths), labels 0-9.  The json
+    text is laid out from a table of the pixels' printed forms (each
+    padded to 4 characters, which json allows), not printed float by
+    float."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    names = [f"f_{u:05d}" for u in range(users)]
+    table = np.array([list((repr(v / 100).ljust(4) + ",").encode())
+                      for v in range(101)], np.uint8)
+    for split, n in (("train", samples), ("test", max(2, samples // 4))):
+        hundredths = np.where(rng.rand(users, n, 784) < 0.8, 0,
+                              rng.randint(1, 101, (users, n, 784)))
+        y = rng.randint(0, 10, (users, n))
+        rows = np.empty((users, n, 2 + 784 * 5), np.uint8)
+        rows[..., 0] = ord("[")
+        rows[..., 1:-1] = table[hundredths].reshape(users, n, -1)
+        rows[..., -2] = ord("]")         # the last pixel's comma
+        rows[..., -1] = ord(",")
+        parts = [f'{{"users": {json.dumps(names)}, "num_samples": '
+                 f'{json.dumps([n] * users)}, "user_data": {{'.encode()]
+        for i, u in enumerate(names):
+            parts.append(b"%s\"%s\": {\"x\": [%s], \"y\": %s}" % (
+                b", " if i else b"", u.encode(), rows[i].tobytes()[:-1],
+                json.dumps(y[i].tolist()).encode()))
+        parts.append(b"}}")
+        out = root / split
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "all_data.json").write_bytes(b"".join(parts))
+    return root
+
+
+def write_cifar10(root: Path, n_train: int = DATA_CIFAR_TRAIN,
+                  n_test: int = DATA_CIFAR_TEST,
+                  seed: int = DATA_SEED) -> Path:
+    """CIFAR-10's python layout under ``root``:
+    ``cifar-10-batches-py/data_batch_1..5`` and ``test_batch``, each a
+    latin1-readable pickle of {batch_label, data: [n, 3072] uint8
+    (channel-major rows), labels: list of 0-9}."""
+    import pickle
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = root / "cifar-10-batches-py"
+    out.mkdir(parents=True, exist_ok=True)
+    per = n_train // 5
+    batches = [(f"data_batch_{b}", f"training batch {b} of 5", per)
+               for b in range(1, 6)]
+    for name, label, n in batches + [("test_batch", "testing batch 1 of 1",
+                                      n_test)]:
+        data = rng.randint(0, 256, (n, 3072), dtype=np.uint8)
+        labels = rng.randint(0, 10, n).tolist()
+        with open(out / name, "wb") as f:
+            pickle.dump({"batch_label": label, "data": data,
+                         "labels": labels}, f, protocol=2)
+    return root
+
+
+def data_cfg(argv, data_dir: Path, device: str = None):
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    cfg = config_from_argv([*argv, "--data_dir", str(data_dir)])
+    if device is not None:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, platform=device)
+    return cfg
+
+
+def data_leaf(root: Path) -> dict:
+    """8u (a): LEAF MNIST through the CLI's loader and the defended runner
+    (K1n + K1) on the card, against the same run on the CPU."""
+    from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobust
+    from fedml_tpu_torch.core import fused_agg as fa
+    from fedml_tpu_torch.experiments.main import (_make_workload,
+                                                  _summary,
+                                                  fedavg_robust_config,
+                                                  load_experiment_data)
+    t0 = time.perf_counter()
+    write_leaf_mnist(root)
+    write_s = time.perf_counter() - t0
+    cfg = data_cfg(DATA_LEAF_ARGS, root)
+    t0 = time.perf_counter()
+    data = load_experiment_data(cfg)
+    load_s = time.perf_counter() - t0
+    out, launches = {}, {}
+    with deterministic():
+        for dev in (CARD, "cpu"):
+            fa.reset_launch_counts()
+            algo = FedAvgRobust(_make_workload(cfg, data), data,
+                                fedavg_robust_config(cfg), device=dev)
+            params = algo.run()
+            sync(dev)
+            if dev == CARD:
+                summary = _summary(algo, params)
+                launches = {k: fa.launch_counts[k]
+                            for k in ("clip_norm", "robust_agg")}
+            out[dev] = {k: v.cpu() for k, v in params.items()}
+    return {"data": data, "cfg": cfg, "write_s": write_s, "load_s": load_s,
+            "clients": data.client_num,
+            "train_samples": int(data.train["num_samples"].sum()),
+            "launches": launches, "rounds": cfg.comm_round,
+            "vs_cpu_max_abs_diff": max_diff(out[CARD], out["cpu"]),
+            "round_ms": summary["round_ms"],
+            "params_finite": summary["params_finite"]}
+
+
+def data_cifar(root: Path) -> dict:
+    """8u (b): CIFAR-10's files at full size, loaded and partitioned
+    (hetero, alpha 0.5) by the CLI's loader; one round of ResNet-56 at
+    E=1 through the CLI's runner, on the host gather."""
+    from fedml_tpu_torch.experiments.main import (load_experiment_data,
+                                                  run_fedavg)
+    from fedml_tpu_torch.utils.metrics import MetricsSink
+    t0 = time.perf_counter()
+    write_cifar10(root)
+    write_s = time.perf_counter() - t0
+    cfg = data_cfg(DATA_CIFAR_ARGS, root, CARD)
+    t0 = time.perf_counter()
+    data = load_experiment_data(cfg)
+    load_s = time.perf_counter() - t0
+    counts = [int(n) for n in data.train["num_samples"]]
+    reset_peak()
+    t0 = time.perf_counter()
+    with MetricsSink(None) as sink, env("FEDML_TPU_DEVICE_DATA_BYTES", "0"):
+        summary = run_fedavg(cfg, data, sink)
+    sync(CARD)
+    return {"write_s": write_s, "load_partition_s": load_s,
+            "client_counts": counts, "test_samples": int(
+                data.test["num_samples"].sum()),
+            "steps": int(data.train["x"].shape[1]),
+            "run_s": time.perf_counter() - t0,
+            "round_ms": summary["round_ms"],
+            "rounds_per_s": summary["rounds_per_s"], "peak_gb": peak_gb(),
+            "params_finite": summary["params_finite"],
+            "clients_per_round": cfg.client_num_per_round}
+
+
+def ulps(a, b) -> int:
+    """The largest distance in units of the last place between two f32
+    tensors of one shape (0: bit-equal)."""
+    import numpy as np
+    ia = a.cpu().numpy().view(np.int32).astype(np.int64)
+    ib = b.cpu().numpy().view(np.int32).astype(np.int64)
+    return int(np.abs(ia - ib).max()) if ia.size else 0
+
+
+def data_augment() -> dict:
+    """8u (c): the two train pipelines on a cohort of CIFAR batches on the
+    card against the same tensor on the CPU, one key; ``normalize``
+    alone too."""
+    import numpy as np
+    import torch
+    from fedml_tpu_torch.core import prng
+    from fedml_tpu_torch.data import augment as aug
+    x = torch.from_numpy(np.random.RandomState(DATA_SEED).rand(
+        *DATA_AUG_SHAPE).astype(np.float32))
+    xc = x.to(CARD)
+    key = prng.key(DATA_SEED)
+    pipes = {
+        "cifar_train_augment": lambda v: aug.cifar_train_augment(
+            key, v, aug.CIFAR10_MEAN, aug.CIFAR10_STD),
+        "fed_cifar100_train_augment": lambda v:
+            aug.fed_cifar100_train_augment(key, v, aug.CIFAR100_MEAN,
+                                           aug.CIFAR100_STD),
+        "normalize": lambda v: aug.normalize(v, aug.CIFAR10_MEAN,
+                                             aug.CIFAR10_STD)}
+    rows = {}
+    for name, fn in pipes.items():
+        want, got = fn(x), fn(xc)
+        rows[name] = {"shape": list(got.shape), "ulps": ulps(got, want),
+                      "ms": (time_ms(lambda: fn(xc), DATA_AUG_REPS)
+                             if CARD == "cuda" else None)}
+    return rows
+
+
+def data_memmap(data, cfg, root: Path) -> dict:
+    """8u (d): the LEAF split saved with `save_stacked` and memory-mapped
+    back; FedAvg's rounds from the map (over the device budget: the host
+    gather) against the same rounds from the split in memory."""
+    import dataclasses
+    import numpy as np
+    from fedml_tpu_torch.data.stacking import (FederatedData,
+                                               load_stacked_memmap,
+                                               save_stacked)
+    cfg = dataclasses.replace(cfg, algo="fedavg",
+                              comm_round=DATA_MEMMAP_ROUNDS)
+    t0 = time.perf_counter()
+    for split in ("train", "test"):
+        save_stacked(getattr(data, split), str(root / split))
+    mapped = FederatedData(
+        client_num=data.client_num, class_num=data.class_num,
+        train=load_stacked_memmap(str(root / "train")),
+        test=load_stacked_memmap(str(root / "test")))
+    stage_s = time.perf_counter() - t0
+    out, host_gather = {}, {}
+    with deterministic(), env("FEDML_TPU_DEVICE_DATA_BYTES", "0"):
+        for name, src in (("memmap", mapped), ("ram", data)):
+            algo = fedavg_algo(cfg, src, device=CARD)
+            params = algo.run()
+            sync(CARD)
+            host_gather[name] = algo._train_dev is None
+            out[name] = {k: v.cpu() for k, v in params.items()}
+    return {"stage_s": stage_s, "rounds": DATA_MEMMAP_ROUNDS,
+            "host_gather": host_gather,
+            "still_mapped": all(isinstance(v, np.memmap)
+                                for v in mapped.train.values()),
+            "bit_equal": bit_equal(out["memmap"], out["ram"]),
+            "max_abs_diff": max_diff(out["memmap"], out["ram"])}
+
+
+def data_problems(leaf: dict, cifar: dict, augment: dict,
+                  memmap: dict) -> list:
+    """What the data-layer phase got wrong (empty: it passed)."""
+    problems = []
+    for k in ("clip_norm", "robust_agg"):
+        if leaf["launches"].get(k) != leaf["rounds"]:
+            problems.append(f"LEAF MNIST launched {k} "
+                            f"{leaf['launches'].get(k)} times, need "
+                            f"{leaf['rounds']} (one a round)")
+    if leaf["clients"] != DATA_LEAF_USERS:
+        problems.append(f"LEAF MNIST loaded {leaf['clients']} users, "
+                        f"wrote {DATA_LEAF_USERS}")
+    if not leaf["vs_cpu_max_abs_diff"] <= ROUND_TOL:
+        problems.append(f"LEAF MNIST run {leaf['vs_cpu_max_abs_diff']} "
+                        f"from the CPU's > {ROUND_TOL}")
+    if not (leaf["params_finite"] and cifar["params_finite"]):
+        problems.append("a data-layer run ended with non-finite params")
+    counts = cifar["client_counts"]
+    if sum(counts) != DATA_CIFAR_TRAIN or min(counts) < DATA_MIN_CLIENT:
+        problems.append(f"the hetero partition gave {counts}: need "
+                        f"{DATA_CIFAR_TRAIN} in all, each >= "
+                        f"{DATA_MIN_CLIENT}")
+    if len(set(counts)) == 1:
+        problems.append(f"the hetero partition is even: {counts}")
+    if cifar["test_samples"] != DATA_CIFAR_TEST:
+        problems.append(f"CIFAR-10's test split holds "
+                        f"{cifar['test_samples']}, wrote {DATA_CIFAR_TEST}")
+    norm_ulps = augment["normalize"]["ulps"]
+    for name, row in augment.items():
+        # a pipeline may sit 1 ulp off only where the card's divide is
+        if row["ulps"] and (norm_ulps == 0 or row["ulps"] > 1):
+            problems.append(f"{name} on the card is {row['ulps']} ulps "
+                            f"from the CPU's (normalize alone: "
+                            f"{norm_ulps})")
+    if not memmap["bit_equal"]:
+        problems.append(f"memmap rounds {memmap['max_abs_diff']} from the "
+                        f"in-memory rounds, not bit-equal")
+    if not (memmap["still_mapped"] and all(memmap["host_gather"].values())):
+        problems.append(f"memmap staging left the host gather: "
+                        f"{memmap['host_gather']}, mapped "
+                        f"{memmap['still_mapped']}")
+    return problems
+
+
+def check_data_layer(root: Path) -> dict:
+    """Phase 8u, deterministic (TF32 off where held to the CPU): (a) LEAF
+    MNIST at config 1's 1000 users, written as json and read by the CLI's
+    loader, 2 defended rounds (weak DP, K1n + K1) on the card against the
+    CPU; (b) CIFAR-10's pickles at full size, the hetero partition over 10
+    clients and one ResNet-56 round at E=1 (2 clients a round); (c) the
+    two augmentation pipelines bit-equal to the CPU; (d) FedAvg from the
+    memmapped LEAF split bit-equal to FedAvg from memory."""
+    t_phase = time.perf_counter()
+    base = root / "build" / "data_layer"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    leaf = data_leaf(base / "leaf")
+    phase("data layer leaf mnist", **{k: v for k, v in leaf.items()
+                                      if k not in ("data", "cfg")})
+    memmap = data_memmap(leaf["data"], leaf["cfg"], base / "memmap")
+    phase("data layer memmap", **memmap)
+    cifar = data_cifar(base / "cifar")
+    phase("data layer cifar10", **cifar)
+    augment = data_augment()
+    phase("data layer augment", **augment)
+    shutil.rmtree(base, ignore_errors=True)
+    problems = data_problems(leaf, cifar, augment, memmap)
+    if problems:
+        fail("phase 8u: " + "; ".join(problems))
+    out = {"leaf": {k: v for k, v in leaf.items() if k not in ("data",
+                                                               "cfg")},
+           "cifar": cifar, "augment": augment, "memmap": memmap,
+           "seconds": time.perf_counter() - t_phase}
+    phase("data layer", seconds=out["seconds"], hand_written_kernels=[
+        "clip_norm, robust_agg (the defended rounds on LEAF MNIST)"])
+    return out
+
+
 # serving's extra round time, split (``--serve-split``): rounds an arm,
 # the first a warm-up
 SPLIT_ROUNDS = 4
@@ -8286,6 +8631,7 @@ def main() -> None:
                                   lm_row["steady_round_ms"])
     serving = check_serving(data)
     tp_ep = check_tp_ep(root)
+    data_layer = check_data_layer(root)
 
     # one round of the defended slice: the norm pass and one aggregate
     # launch over the CNN's leaves
@@ -8310,6 +8656,8 @@ def main() -> None:
         # phase 8m: the defended round of the BatchNorm ResNet-56, its
         # 292-leaf table (statistics unclipped)
         "launches_bn_defended": models["robust"]["launches"]["robust_agg"],
+        # phase 8u: the defended rounds on LEAF MNIST read from its files
+        "launches_leaf_mnist": data_layer["leaf"]["launches"]["robust_agg"],
         "max_abs_err_bn_table": models["robust"]["k1"]["max_abs_err"],
         **{f"{k}_bn_table": models["robust"]["k1"]["table"][k]
            for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -8326,6 +8674,7 @@ def main() -> None:
         # leaves; plain_ms is the eager clip pass the kernel replaced
         "library_ms": None,
         "launches_bn_defended": models["robust"]["launches"]["clip_norm"],
+        "launches_leaf_mnist": data_layer["leaf"]["launches"]["clip_norm"],
         "max_rel_err_bn_table": models["robust"]["k1"]["scales_max_rel_err"],
         **{f"{k}_bn_table": models["robust"]["k1"]["clip_norm"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
@@ -8568,6 +8917,15 @@ def main() -> None:
           tp_ep_rank_peak_gb={k: tp_ep[k]["rank_peak_gb"]
                               for k in ("tp", "ep")},
           tp_ep_seconds=tp_ep["seconds"],
+          data_leaf_vs_cpu_max_abs_diff=data_layer["leaf"][
+              "vs_cpu_max_abs_diff"],
+          data_cifar_load_partition_s=data_layer["cifar"][
+              "load_partition_s"],
+          data_cifar_round_ms=data_layer["cifar"]["round_ms"],
+          data_augment_ms={k: v["ms"]
+                           for k, v in data_layer["augment"].items()},
+          data_memmap_bit_equal=data_layer["memmap"]["bit_equal"],
+          data_layer_seconds=data_layer["seconds"],
           device_round_vs_cpu_max_abs_diff=device_round_cpu_diff,
           fedavg_round_ms={k: v["round_ms"] for k, v in paths.items()},
           fedavg_rounds_per_s={k: v["rounds_per_s"]

@@ -18,7 +18,13 @@ streams in both packages.  The semantics are those of JAX with
   as XLA's f32 polynomial (Giles' single-precision approximation);
 * ``permutation(k, n)`` is ``jax.random.permutation``: rounds of a
   stable sort of ``arange(n)`` by fresh random bits, one ``split`` per
-  round.
+  round;
+* ``bernoulli(k, p, shape)`` is ``uniform < p`` on f32 uniforms;
+* ``randint(k, shape, lo, hi)`` (int32) splits ``k`` in two, draws 32
+  bits from each half, and combines them as ``(hi_bits % span) *
+  (2^32 % span) + lo_bits % span``, modulo the span, in uint32
+  arithmetic (``2^32 % span`` taken as ``(2^16 % span)^2 % span``, the
+  square wrapping at 2^32).
 
 A key is a tuple of two Python ints, the two uint32 words of
 ``jax.random.key_data``.  Arithmetic runs on Python ints (one key at a
@@ -146,6 +152,32 @@ def uniform_f32(k: Key, numel: int, device, minval: float = 0.0,
     out = (floats.to(torch.float64) * float(span) + float(lo)).to(
         torch.float32)
     return torch.clamp_min(out, float(lo))
+
+
+def bernoulli(k: Key, p: float = 0.5, shape: Sequence[int] = (),
+              device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)`` for a float ``p`` (f32): a
+    bool tensor on ``device``."""
+    u = uniform_f32(k, math.prod(shape), device)
+    return (u < float(np.float32(p))).reshape(tuple(shape))
+
+
+def randint(k: Key, shape: Sequence[int], minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32 bounds and
+    result) on ``device``; ``maxval <= minval`` gives ``minval``."""
+    if not (-2 ** 31 <= minval < 2 ** 31 and -2 ** 31 <= maxval < 2 ** 31):
+        raise OverflowError(f"randint bounds [{minval}, {maxval}) are not "
+                            f"int32")
+    k1, k2 = split(k)
+    numel = math.prod(shape)
+    higher = random_bits_tensor(k1, numel, device)
+    lower = random_bits_tensor(k2, numel, device)
+    span = (maxval - minval) & M32 if maxval > minval else 1
+    multiplier = (((2 ** 16 % span) ** 2) & M32) % span
+    offset = ((((higher % span) * multiplier) & M32) + lower % span) & M32
+    out = minval + offset % span
+    return out.to(torch.int32).reshape(tuple(shape))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

@@ -1,45 +1,35 @@
-"""Dataset registry for the port: the hermetic twins of this slice.
+"""Dataset registry: ``load_data(name, data_dir=..., **kw)`` dispatches to
+the dataset's loader and returns `FederatedData`.
 
-Port of ``fedml_tpu/data/registry.py`` restricted to ``mnist``,
-``mnist_learnable_twin``, ``femnist`` (28x28x1, 62 classes), the 32x32x3
-twins ``fed_cifar100`` (100 classes), ``cifar10``, ``cifar100`` and
-``cinic10``, and the next-word twins ``shakespeare`` and
-``fed_shakespeare`` (80 tokens, vocab 90) and ``stackoverflow_nwp`` (20
-tokens, vocab 10004).  As in the JAX package a twin takes its client
-count from the caller (``num_clients``); the CIFAR loaders' own default
-of 10 clients belongs to the real on-disk loaders (LEAF, TFF h5, the
-CIFAR partitions), which arrive with a later slice of the port."""
+Port of ``fedml_tpu/data/registry.py``, the same names, loaders, twins and
+defaults.  With ``data_dir`` the on-disk loader reads it: a ``data_dir``
+that does not exist raises `FileNotFoundError` (never a silent twin), an
+option that neither the loader nor the twin takes raises `TypeError`, and
+an option only the twin takes (``num_clients``) is dropped.  Without
+``data_dir`` the hermetic twin, with the real dataset's shapes, stands in
+(``synthetic_ok=False`` refuses it)."""
 
 from __future__ import annotations
 
 import inspect
+import os
 from functools import partial
 from typing import Callable, Dict, Optional
 
 from fedml_tpu_torch.data.stacking import FederatedData
-from fedml_tpu_torch.data.synthetic import (mnist_learnable_twin,
+from fedml_tpu_torch.data.synthetic import (load_synthetic,
+                                            mnist_learnable_twin,
                                             synthetic_federated_dataset)
 
-_REGISTRY: Dict[str, Callable[..., FederatedData]] = {
-    "mnist": partial(synthetic_federated_dataset, sample_shape=(784,),
-                     class_num=10),
-    "mnist_learnable_twin": mnist_learnable_twin,
-    "femnist": partial(synthetic_federated_dataset, sample_shape=(28, 28, 1),
-                       class_num=62),
-    "shakespeare": partial(synthetic_federated_dataset, sample_shape=(80,),
-                           sequence_vocab=90, class_num=90),
-    "fed_shakespeare": partial(synthetic_federated_dataset,
-                               sample_shape=(80,), sequence_vocab=90,
-                               class_num=90),
-    "stackoverflow_nwp": partial(synthetic_federated_dataset,
-                                 sample_shape=(20,), sequence_vocab=10004,
-                                 class_num=10004),
-    "fed_cifar100": partial(synthetic_federated_dataset,
-                            sample_shape=(32, 32, 3), class_num=100),
-    **{name: partial(synthetic_federated_dataset, sample_shape=(32, 32, 3),
-                     class_num=100 if name == "cifar100" else 10)
-       for name in ("cifar10", "cifar100", "cinic10")},
-}
+# name -> {"loader": on-disk loader, "twin": hermetic twin, "defaults"}
+_REGISTRY: Dict[str, Dict] = {}
+
+
+def register_dataset(name: str, loader: Callable,
+                     synthetic_twin: Optional[Callable] = None,
+                     **defaults) -> None:
+    _REGISTRY[name] = {"loader": loader, "twin": synthetic_twin,
+                       "defaults": defaults}
 
 
 def dataset_names():
@@ -47,20 +37,90 @@ def dataset_names():
 
 
 def _accepted_kwargs(fn, kw: Dict) -> Dict:
-    """Keep only the kwargs ``fn`` accepts (twins differ in signature)."""
-    params = inspect.signature(fn).parameters
-    return {k: v for k, v in kw.items() if k in params}
+    """The kwargs ``fn`` accepts (all of them when it takes ``**kw``)."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return kw
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD
+           for p in sig.parameters.values()):
+        return kw
+    return {k: v for k, v in kw.items() if k in sig.parameters}
 
 
 def load_data(name: str, data_dir: Optional[str] = None,
-              **kw) -> FederatedData:
+              synthetic_ok: bool = True, **kw) -> FederatedData:
     if name not in _REGISTRY:
         raise KeyError(f"unknown dataset {name!r}; have {dataset_names()}")
+    entry = _REGISTRY[name]
     if data_dir is not None:
-        raise NotImplementedError(
-            f"dataset {name!r}: the port has no on-disk loaders yet; the "
-            f"real LEAF/TFF loaders arrive with the data-loader slice "
-            f"(ROADMAP Queue 1, the long tail).  Drop --data_dir to use the "
-            f"hermetic twin")
-    twin = _REGISTRY[name]
-    return twin(**_accepted_kwargs(twin, kw))
+        if not os.path.isdir(data_dir):
+            raise FileNotFoundError(
+                f"dataset {name!r}: data_dir {data_dir!r} does not exist")
+        merged = {**entry["defaults"], **kw}
+        accepted = _accepted_kwargs(entry["loader"], merged)
+        dropped = set(merged) - set(accepted)
+        twin_ok = (set(_accepted_kwargs(entry["twin"], merged))
+                   if entry["twin"] is not None else set())
+        unknown = dropped - twin_ok
+        if unknown:
+            raise TypeError(
+                f"dataset {name!r}: unknown option(s) {sorted(unknown)}")
+        return entry["loader"](data_dir=data_dir, **accepted)
+    if synthetic_ok and entry["twin"] is not None:
+        return entry["twin"](**_accepted_kwargs(entry["twin"], kw))
+    raise FileNotFoundError(
+        f"dataset {name!r}: no data_dir given and synthetic fallback "
+        f"disabled/unavailable")
+
+
+def _register_all() -> None:
+    from fedml_tpu_torch.data import cifar, imagenet, leaf, tff_h5
+
+    def img_twin(shape, classes):
+        return partial(synthetic_federated_dataset, sample_shape=shape,
+                       class_num=classes)
+
+    def text_twin(length, vocab):
+        return partial(synthetic_federated_dataset, sample_shape=(length,),
+                       sequence_vocab=vocab, class_num=vocab)
+
+    register_dataset("mnist", leaf.load_mnist, img_twin((784,), 10))
+    # the learnable MNIST stand-in (class prototypes + noise, LEAF
+    # power-law sizes): a model learns on it, unlike the noise twin
+    register_dataset("mnist_learnable_twin", leaf.load_mnist,
+                     mnist_learnable_twin)
+    register_dataset("shakespeare", leaf.load_shakespeare_leaf,
+                     text_twin(80, 90))
+    register_dataset("synthetic", lambda data_dir=None, **kw:
+                     leaf.load_synthetic_leaf(data_dir, **kw),
+                     load_synthetic)
+    register_dataset("femnist", tff_h5.load_federated_emnist,
+                     img_twin((28, 28, 1), 62))
+    register_dataset("fed_cifar100", tff_h5.load_fed_cifar100,
+                     img_twin((32, 32, 3), 100))
+    register_dataset("fed_shakespeare", tff_h5.load_fed_shakespeare,
+                     text_twin(80, 90))
+    register_dataset("stackoverflow_nwp", tff_h5.load_stackoverflow_nwp,
+                     text_twin(20, 10004))
+    register_dataset("stackoverflow_lr", tff_h5.load_stackoverflow_lr,
+                     partial(synthetic_federated_dataset,
+                             sample_shape=(10000,), class_num=500,
+                             multilabel=True))
+    for ds in ("cifar10", "cifar100", "cinic10"):
+        register_dataset(
+            ds, partial(cifar.load_cifar_partitioned, ds),
+            img_twin((32, 32, 3), 100 if ds == "cifar100" else 10),
+            client_num=10)
+    register_dataset("ilsvrc2012", imagenet.load_imagenet,
+                     img_twin((224, 224, 3), 1000))
+    # the Landmarks mapping csvs under the data root
+    register_dataset(
+        "gld23k", imagenet.load_landmarks, img_twin((224, 224, 3), 203),
+        mapping_csv="data_user_dict/gld23k_user_dict_train.csv")
+    register_dataset(
+        "gld160k", imagenet.load_landmarks, img_twin((224, 224, 3), 2028),
+        mapping_csv="data_user_dict/gld160k_user_dict_train.csv")
+
+
+_register_all()

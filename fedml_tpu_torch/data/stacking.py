@@ -9,6 +9,8 @@ sample-weighted aggregate stays exact despite padding."""
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -76,9 +78,43 @@ def batch_global(x: Array, y: Array, batch_size: int) -> Dict[str, Array]:
     return {"x": d["x"][0], "y": d["y"][0], "mask": d["mask"][0]}
 
 
+def save_stacked(stacked: Dict[str, Array], out_dir: str) -> None:
+    """Persist a stacked client tree as one ``.npy`` per key (the staging
+    format of corpora larger than host memory, `load_stacked_memmap`)."""
+    os.makedirs(out_dir, exist_ok=True)
+    for k, v in stacked.items():
+        np.save(os.path.join(out_dir, f"{k}.npy"), np.asarray(v))
+
+
+def load_stacked_memmap(in_dir: str) -> Dict[str, Array]:
+    """A saved stacked tree, memory-mapped read-only.  The ``[N, S, B,
+    ...]`` arrays stay on disk: `gather_cohort`'s ``v[ids]`` copies only
+    the sampled cohort's rows, and FedAvg's device-data budget reads
+    ``nbytes`` without reading the data, so a corpus over the budget
+    stays on the per-round host gather."""
+    out = {}
+    for f in sorted(os.listdir(in_dir)):
+        if f.endswith(".npy"):
+            out[f[:-4]] = np.load(os.path.join(in_dir, f), mmap_mode="r")
+    return out
+
+
+def _tensor(v, device: torch.device) -> torch.Tensor:
+    a = np.asarray(v)
+    if a.flags.writeable:
+        return torch.as_tensor(a).to(device)
+    # a read-only memmap: a CPU tensor gets its own copy (a tensor on the
+    # map would fault on a write); a CUDA one is read once off the map
+    if device.type == "cpu":
+        return torch.from_numpy(a.copy())
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(a).to(device)
+
+
 def to_device(stacked: Dict[str, Array], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in stacked.items()}
+    device = torch.device(device)
+    return {k: _tensor(v, device) for k, v in stacked.items()}
 
 
 def gather_cohort(stacked: Dict[str, Array], client_ids: Sequence[int],

@@ -22,6 +22,9 @@ class ExperimentConfig:
     model: str = "lr"
     dataset: str = "mnist"
     data_dir: Optional[str] = None       # None => hermetic synthetic twin
+    partition_method: str = "hetero"     # cifar10/100, cinic10 on disk:
+    #                                      homo | hetero (Dirichlet)
+    partition_alpha: float = 0.5         # hetero: the Dirichlet alpha
     client_num_in_total: int = 1000
     client_num_per_round: int = 10
     batch_size: int = 10

@@ -4,7 +4,10 @@ Runs ``fedavg``, ``fedavg_robust``, ``turboaggregate``, ``cross_silo``,
 ``async_fl``, ``hierarchical``, ``cross_device``, ``centralized`` and the
 stateful cohort algorithms
 (``fedopt``, ``fedprox``, ``fednova``, ``scaffold``, ``feddyn``,
-``ditto``, ``fedac``, ``dp_fedavg``) on the hermetic twins, on the GPU
+``ditto``, ``fedac``, ``dp_fedavg``) on the hermetic twins, or on the
+files under ``--data_dir`` (LEAF json, TFF h5, the CIFAR pickles and
+CINIC-10 folders partitioned by ``--partition_method homo|hetero`` and
+``--partition_alpha``, ImageNet and Landmarks), on the GPU
 unless ``--platform cpu`` is given, writes ``metrics.jsonl`` and
 ``summary.json`` into ``--run_dir`` and prints one final JSON summary
 line.  Examples, the
@@ -122,10 +125,21 @@ def runner(name: str):
 
 
 def load_experiment_data(cfg: ExperimentConfig):
+    """Registry dispatch with the JAX package's kwargs: the CIFAR family's
+    loaders take ``client_num``, ``--partition_method``,
+    ``--partition_alpha`` and the seed.  Every twin also takes
+    ``num_clients`` (``--client_num_in_total``), which an on-disk loader
+    drops; the JAX package's CIFAR twins keep their default of 8 clients
+    instead."""
     from fedml_tpu_torch.data import load_data
-    return load_data(cfg.dataset, data_dir=cfg.data_dir,
-                     batch_size=cfg.batch_size,
-                     num_clients=cfg.client_num_in_total, seed=cfg.seed)
+    kw: Dict[str, Any] = {"batch_size": cfg.batch_size,
+                          "num_clients": cfg.client_num_in_total,
+                          "seed": cfg.seed}
+    if cfg.dataset in ("cifar10", "cifar100", "cinic10"):
+        kw.update(client_num=cfg.client_num_in_total,
+                  partition_method=cfg.partition_method,
+                  partition_alpha=cfg.partition_alpha)
+    return load_data(cfg.dataset, data_dir=cfg.data_dir, **kw)
 
 
 def _fedavg_cfg_kwargs(cfg: ExperimentConfig) -> Dict[str, Any]:

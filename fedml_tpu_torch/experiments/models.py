@@ -7,7 +7,9 @@ twins; on the next-word twins ``transformer``, and the LSTMs for every
 other model name, as in the JAX package (``RNNStackOverflow`` on
 ``stackoverflow_nwp``, ``RNNOriginalFedAvg`` on the Shakespeare twins).
 ``compute_dtype`` ("bfloat16") is the workloads' mixed precision, and the
-NWP models' ``dtype``."""
+NWP models' ``dtype``.  On ``stackoverflow_lr`` every model name gives
+the tag-prediction LR (10,000 words onto 500 tags), as in the JAX
+package."""
 
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from fedml_tpu_torch.models import (CNNDropOut, CNNOriginalFedAvg,
                                     resnet18_gn, resnet56, resnet110, vgg11,
                                     vgg13, vgg16)
 from fedml_tpu_torch.trainer.workload import (ClassificationWorkload,
-                                              NWPWorkload, Workload,
+                                              NWPWorkload,
+                                              TagPredictionWorkload, Workload,
                                               compute_dtype_of)
 
 # next-word/char-prediction datasets -> NWP workload
@@ -61,6 +64,10 @@ def create_workload(model_name: str, dataset: str, class_num: int,
             model = RNNOriginalFedAvg(vocab_size=class_num, dtype=dtype)
         return NWPWorkload(model, compute_dtype=dtype)
     input_dim = int(np.prod(sample_shape))
+    if dataset == "stackoverflow_lr":
+        # tag prediction: an LR of the bag of words onto the tags
+        return TagPredictionWorkload(LogisticRegression(input_dim,
+                                                        class_num))
     small = class_num <= 10
     # an HWC image's channels, and VGG's dense head its pooled map (flax
     # infers both from the first batch)

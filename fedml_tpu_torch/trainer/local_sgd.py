@@ -209,17 +209,39 @@ def make_local_trainer(workload: Workload, optimizer, epochs: int,
     return with_rng_inputs(train, workload, epochs)
 
 
+# rows one forward of the evaluator takes at most; a larger stack is
+# evaluated in chunks of its steps axis, as the JAX package scans it
+EVAL_ROWS = 16384
+
+
 def make_evaluator(workload: Workload):
-    """Returns ``evaluate(params, data) -> summed metrics`` over ``[..., B]``
-    batch stacks.  The metrics are sums, so all leading axes fold into one
-    batch."""
+    """Returns ``evaluate(params, data) -> summed metrics`` over ``[..., S,
+    B]`` batch stacks.  The metrics are sums, so the leading axes fold into
+    one batch: the whole stack at once up to `EVAL_ROWS` rows, else chunks
+    of the steps axis ``S`` of at most that many rows, summed."""
+
+    def metrics(params, data, lead):
+        return workload.metric_fn(params, {
+            k: v.reshape((-1,) + tuple(v.shape[lead:]))
+            for k, v in data.items()})
 
     def evaluate(params: Tree, data: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         lead = data["mask"].dim()
-        flat = {k: v.reshape((-1,) + tuple(v.shape[lead:]))
-                for k, v in data.items()}
+        rows = data["mask"].numel()
         with torch.no_grad():
-            return workload.metric_fn(params, flat)
+            if lead < 2 or rows <= EVAL_ROWS:
+                return metrics(params, data, lead)
+            axis = lead - 2
+            steps = data["mask"].shape[axis]
+            chunk = max(1, EVAL_ROWS // (rows // steps))
+            total = None
+            for lo in range(0, steps, chunk):
+                part = {k: v.narrow(axis, lo, min(chunk, steps - lo))
+                        for k, v in data.items()}
+                m = metrics(params, part, lead)
+                total = m if total is None else {k: total[k] + m[k]
+                                                 for k in total}
+            return total
 
     return evaluate

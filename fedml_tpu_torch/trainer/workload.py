@@ -363,3 +363,46 @@ def NWPWorkload(model: nn.Module, pad_id: int = 0,
     return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
                     grad_clip_norm=grad_clip_norm,
                     stochastic=is_stochastic(model))
+
+
+def _sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """optax's ``sigmoid_binary_cross_entropy``, elementwise."""
+    return -labels * F.logsigmoid(logits) \
+        - (1.0 - labels) * F.logsigmoid(-logits)
+
+
+def TagPredictionWorkload(model: nn.Module,
+                          grad_clip_norm: Optional[float] = None
+                          ) -> Workload:
+    """Multi-label tag prediction (``stackoverflow_lr``): binary
+    cross-entropy with logits, averaged over the tags and the valid rows;
+    evaluation predicts ``logits > 0`` (sigmoid > 0.5) and sums the
+    exact-match hits (``correct``), the loss, the rows and each row's
+    precision and recall (``precision_sum``, ``recall_sum``)."""
+
+    def _bce(params, batch):
+        logits = apply_model(model, params, batch["x"]).to(torch.float32)
+        return logits, torch.mean(_sigmoid_bce(logits, batch["y"]), dim=-1)
+
+    def loss_fn(params, batch, rng=None):
+        _, bce = _bce(params, batch)
+        loss = _masked_mean(bce, batch["mask"])
+        return loss, {"loss": loss}
+
+    def metric_fn(params, batch):
+        logits, bce = _bce(params, batch)
+        y, mask = batch["y"], batch["mask"]
+        pred = (logits > 0.0).to(torch.float32)
+        exact = torch.all(pred == y, dim=-1).to(torch.float32)
+        tp = torch.sum(y * pred, dim=-1)
+        precision = tp / (torch.sum(pred, dim=-1) + 1e-13)
+        recall = tp / (torch.sum(y, dim=-1) + 1e-13)
+        return {"correct": torch.sum(exact * mask),
+                "loss_sum": torch.sum(bce * mask),
+                "total": torch.sum(mask),
+                "precision_sum": torch.sum(precision * mask),
+                "recall_sum": torch.sum(recall * mask)}
+
+    return Workload(model=model, loss_fn=loss_fn, metric_fn=metric_fn,
+                    grad_clip_norm=grad_clip_norm,
+                    stochastic=is_stochastic(model))

@@ -717,12 +717,14 @@ def test_zoo_phase_on_the_cpu(monkeypatch):
     monkeypatch.setattr(exp_models, "RNNStackOverflow",
                         lambda dtype=None: RNNStackOverflow(
                             embedding_size=8, latent_size=16, dtype=dtype))
-    monkeypatch.setitem(registry._REGISTRY, "shakespeare", partial(
-        synthetic_federated_dataset, sample_shape=(8,), sequence_vocab=90,
-        class_num=90))
-    monkeypatch.setitem(registry._REGISTRY, "stackoverflow_nwp", partial(
-        synthetic_federated_dataset, sample_shape=(4,),
-        sequence_vocab=10004, class_num=10004))
+    monkeypatch.setitem(registry._REGISTRY, "shakespeare", {
+        **registry._REGISTRY["shakespeare"], "twin": partial(
+            synthetic_federated_dataset, sample_shape=(8,),
+            sequence_vocab=90, class_num=90)})
+    monkeypatch.setitem(registry._REGISTRY, "stackoverflow_nwp", {
+        **registry._REGISTRY["stackoverflow_nwp"], "twin": partial(
+            synthetic_federated_dataset, sample_shape=(4,),
+            sequence_vocab=10004, class_num=10004)})
     small = ["--client_num_in_total", "6", "--client_num_per_round", "3"]
     monkeypatch.setattr(cs, "ZOO_NWP_ARGS", {
         "config5a": [*cs.ZOO_NWP_ARGS["config5a"], *small, "--batch_size",
@@ -1399,3 +1401,137 @@ def test_tp_ep_problems(monkeypatch, case):
     verdict = cs.tp_ep_problems("tp", [{"tp": run}, {"tp": other}], ref,
                                 cs.TP_TOL)
     assert (verdict["problems"] == []) == (case == "ok"), verdict
+
+
+# ---------------------------------------------------------------------------
+# phase 8u: the data layer
+# ---------------------------------------------------------------------------
+
+def _fd_bytes_equal(a, b):
+    assert (a.client_num, a.class_num) == (b.client_num, b.class_num)
+    for split in ("train", "test", "train_global", "test_global"):
+        sa, sb = getattr(a, split), getattr(b, split)
+        assert sorted(sa) == sorted(sb)
+        for k in sa:
+            assert sa[k].dtype == sb[k].dtype
+            assert sa[k].tobytes() == sb[k].tobytes(), (split, k)
+
+
+def test_data_layer_phase_configs_parse_and_pass_the_gates(tmp_path):
+    """Phase 8u's argv: the defended LEAF MNIST run and the CIFAR-10 hetero
+    run pass the CLI's gates with their ``--data_dir``."""
+    from fedml_tpu_torch.experiments.main import check_config
+    leaf = cs.data_cfg(cs.DATA_LEAF_ARGS, tmp_path)
+    check_config(leaf)
+    assert (leaf.defense, leaf.defense_backend, leaf.model) == (
+        "weak_dp", "cuda", "lr")
+    cifar = cs.data_cfg(cs.DATA_CIFAR_ARGS, tmp_path, "cpu")
+    check_config(cifar)
+    assert (cifar.partition_method, cifar.partition_alpha) == ("hetero", 0.5)
+    assert cifar.data_dir == str(tmp_path) and cifar.platform == "cpu"
+    assert cifar.client_num_per_round == cs.DATA_CIFAR_PER_ROUND
+
+
+def test_leaf_mnist_writer_read_by_both_packages(tmp_path):
+    """The phase's LEAF json, read by JAX's loader and the port's: the same
+    `FederatedData` byte for byte; 8 in 10 pixels zero, the rest in
+    hundredths."""
+    import numpy as np
+    from fedml_tpu.data.leaf import load_mnist as j_load
+    from fedml_tpu_torch.data.leaf import load_mnist as t_load
+    cs.write_leaf_mnist(tmp_path, users=12, samples=10, seed=3)
+    a, b = t_load(str(tmp_path)), j_load(str(tmp_path))
+    _fd_bytes_equal(a, b)
+    assert a.client_num == 12 and a.train["num_samples"].tolist() == [10] * 12
+    assert a.test["num_samples"].tolist() == [2] * 12
+    x = a.train_global["x"][a.train_global["mask"] > 0]
+    assert 0.7 < float((x == 0).mean()) < 0.9
+    assert np.allclose(x * 100, np.round(x * 100), atol=1e-4)
+    assert 0.0 <= float(x.min()) and float(x.max()) <= 1.0
+
+
+def test_cifar10_writer_read_by_both_packages(tmp_path):
+    """The phase's CIFAR-10 pickles (latin1-readable dicts of data and
+    labels), read and partitioned (hetero) by JAX's loader and the port's:
+    byte-equal, every sample in a client."""
+    import pickle
+    from fedml_tpu.data.cifar import load_cifar_partitioned as j_load
+    from fedml_tpu_torch.data.cifar import load_cifar_partitioned as t_load
+    cs.write_cifar10(tmp_path, n_train=500, n_test=100, seed=1)
+    with open(tmp_path / "cifar-10-batches-py" / "data_batch_3", "rb") as f:
+        batch = pickle.load(f, encoding="latin1")
+    assert batch["data"].shape == (100, 3072)
+    assert batch["data"].dtype.name == "uint8"
+    assert len(batch["labels"]) == 100 and max(batch["labels"]) <= 9
+    kw = dict(client_num=4, partition_method="hetero", partition_alpha=0.5,
+              batch_size=16, seed=0)
+    a = t_load("cifar10", str(tmp_path), **kw)
+    _fd_bytes_equal(a, j_load("cifar10", str(tmp_path), **kw))
+    assert a.train["num_samples"].sum() == 500
+    assert a.test["num_samples"].sum() == 100
+
+
+def _data_rows(**over):
+    leaf = {"launches": {"clip_norm": 2, "robust_agg": 2}, "rounds": 2,
+            "clients": cs.DATA_LEAF_USERS, "vs_cpu_max_abs_diff": 3e-8,
+            "params_finite": True}
+    counts = [9000, 2000, 500, 12000, 4000, 3000, 6000, 7000, 5500, 1000]
+    cifar = {"client_counts": counts, "test_samples": cs.DATA_CIFAR_TEST,
+             "params_finite": True}
+    augment = {k: {"ulps": 0} for k in ("cifar_train_augment",
+                                        "fed_cifar100_train_augment",
+                                        "normalize")}
+    memmap = {"bit_equal": True, "max_abs_diff": 0.0, "still_mapped": True,
+              "host_gather": {"memmap": True, "ram": True}}
+    rows = {"leaf": leaf, "cifar": cifar, "augment": augment,
+            "memmap": memmap}
+    for path, value in over.items():
+        part, key = path.split("__")
+        rows[part][key] = value
+    return rows
+
+
+@pytest.mark.parametrize("over, ok", [
+    ({}, True),
+    ({"leaf__launches": {"clip_norm": 2, "robust_agg": 0}}, False),
+    ({"leaf__vs_cpu_max_abs_diff": 2e-4}, False),
+    ({"leaf__clients": 999}, False),
+    ({"cifar__client_counts": [5000] * 10}, False),
+    ({"cifar__client_counts": [9, 49991] + [0] * 8}, False),
+    ({"cifar__params_finite": False}, False),
+    ({"augment__cifar_train_augment": {"ulps": 1}}, False),
+    ({"augment__cifar_train_augment": {"ulps": 1},
+      "augment__normalize": {"ulps": 1}}, True),
+    ({"augment__fed_cifar100_train_augment": {"ulps": 2},
+      "augment__normalize": {"ulps": 1}}, False),
+    ({"memmap__bit_equal": False}, False),
+    ({"memmap__host_gather": {"memmap": False, "ram": True}}, False),
+])
+def test_data_layer_problems(over, ok):
+    """8u's verdict: K1n and K1 once a round on LEAF MNIST, the card within
+    ROUND_TOL of the CPU, every user loaded, a hetero split of all 50,000
+    samples with each client >= 10, augmentation bit-equal (1 ulp only
+    where the card's normalize itself is 1 ulp off), memmap rounds
+    bit-equal on the host gather."""
+    rows = _data_rows(**over)
+    problems = cs.data_problems(rows["leaf"], rows["cifar"], rows["augment"],
+                                rows["memmap"])
+    assert (problems == []) == ok, problems
+
+
+def test_data_layer_cpu_parts(monkeypatch, tmp_path):
+    """8u (c) and (d) on the CPU: the pipelines against themselves (0
+    ulps), and the memmapped LEAF split's FedAvg rounds bit-equal to the
+    in-memory ones on the host gather."""
+    from fedml_tpu_torch.experiments.main import load_experiment_data
+    monkeypatch.setattr(cs, "CARD", "cpu")
+    monkeypatch.setattr(cs, "DATA_AUG_SHAPE", (2, 3, 32, 32, 3))
+    aug = cs.data_augment()
+    assert all(r["ulps"] == 0 for r in aug.values())
+    assert aug["fed_cifar100_train_augment"]["shape"] == [2, 3, 24, 24, 3]
+    cs.write_leaf_mnist(tmp_path / "leaf", users=30, samples=10)
+    cfg = cs.data_cfg(cs.DATA_LEAF_ARGS, tmp_path / "leaf", "cpu")
+    data = load_experiment_data(cfg)
+    out = cs.data_memmap(data, cfg, tmp_path / "mm")
+    assert out["bit_equal"] and out["still_mapped"]
+    assert out["host_gather"] == {"memmap": True, "ram": True}

@@ -36,11 +36,26 @@ def test_sampler_bit_exact(total, per_round):
     ("cifar10", dict(num_clients=3, batch_size=8)),
     ("cifar100", dict(num_clients=2, batch_size=8)),
     ("cinic10", dict(num_clients=2, batch_size=8)),
+    ("synthetic", dict(num_users=2, batch_size=10)),
+    ("stackoverflow_lr", dict(num_clients=2, samples_per_client=6,
+                              batch_size=4)),
+    ("cifar_learnable_twin", dict(num_clients=3, samples_per_client=60,
+                                  batch_size=16)),
+    ("gld23k", dict(num_clients=2, samples_per_client=3, batch_size=2)),
 ])
 def test_twins_byte_equal(name, kw):
-    """Same seed, same arrays, byte for byte, in every split."""
-    a = load_data(name, seed=3, **kw)
-    b = j_registry.load_data(name, seed=3, **kw)
+    """Same seed, same arrays, byte for byte, in every split (the CIFAR
+    learnable twin at the flagship difficulty)."""
+    if name == "cifar_learnable_twin":
+        from fedml_tpu.data import synthetic as j_synthetic
+        from fedml_tpu_torch.data import synthetic as t_synthetic
+        kw = {**kw, **t_synthetic.FLAGSHIP_TWIN_KWARGS}
+        assert kw == {**kw, **j_synthetic.FLAGSHIP_TWIN_KWARGS}
+        a = t_synthetic.cifar_learnable_twin(seed=3, **kw)
+        b = j_synthetic.cifar_learnable_twin(seed=3, **kw)
+    else:
+        a = load_data(name, seed=3, **kw)
+        b = j_registry.load_data(name, seed=3, **kw)
     assert (a.client_num, a.class_num) == (b.client_num, b.class_num)
     for split in ("train", "test", "train_global", "test_global"):
         sa, sb = getattr(a, split), getattr(b, split)
@@ -50,11 +65,20 @@ def test_twins_byte_equal(name, kw):
             assert sa[k].tobytes() == sb[k].tobytes(), (split, k)
 
 
-def test_data_dir_names_the_later_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice"):
-        load_data("femnist", data_dir=str(tmp_path))
-    with pytest.raises(KeyError):
-        load_data("ilsvrc2012")
+def test_data_dir_dispatches_to_the_loader_and_new_twins(tmp_path):
+    """``data_dir`` reaches the on-disk loader (a TFF h5 FEMNIST the JAX
+    package's writer made), and ``ilsvrc2012`` has its twin (224x224x3,
+    1000 classes; small sizes here, its defaults are ~150 MB)."""
+    from fedml_tpu.data.tff_h5 import fake_femnist_h5
+    fake_femnist_h5(str(tmp_path), num_clients=3, samples=5)
+    a = load_data("femnist", data_dir=str(tmp_path), batch_size=4)
+    b = j_registry.load_data("femnist", data_dir=str(tmp_path), batch_size=4)
+    assert (a.client_num, a.class_num) == (3, 62)
+    for k in b.train:
+        assert a.train[k].tobytes() == b.train[k].tobytes()
+    twin = load_data("ilsvrc2012", num_clients=2, samples_per_client=4)
+    assert (twin.client_num, twin.class_num) == (2, 1000)
+    assert twin.train["x"].shape[-3:] == (224, 224, 3)
 
 
 def test_gather_cohort_matches_and_zeroes_pad_slots():

@@ -351,3 +351,39 @@ def test_serving_modules_import_without_jax():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+DATA_MODULES = (
+    "fedml_tpu_torch.core.partition", "fedml_tpu_torch.core.prng",
+    "fedml_tpu_torch.data", "fedml_tpu_torch.data.text",
+    "fedml_tpu_torch.data.leaf", "fedml_tpu_torch.data.synthetic",
+    "fedml_tpu_torch.data.stacking", "fedml_tpu_torch.data.tff_h5",
+    "fedml_tpu_torch.data.cifar", "fedml_tpu_torch.data.augment",
+    "fedml_tpu_torch.data.imagenet", "fedml_tpu_torch.data.edge_case",
+    "fedml_tpu_torch.data.uci", "fedml_tpu_torch.data.tabular",
+    "fedml_tpu_torch.data.registry", "fedml_tpu_torch.trainer.workload",
+    "fedml_tpu_torch.experiments.models",
+    "fedml_tpu_torch.experiments.config",
+    "fedml_tpu_torch.experiments.main")
+FILE_FORMAT_LIBS = ("h5py", "PIL", "pandas")
+
+
+def test_data_slice_modules_import_without_jax_or_file_libraries():
+    """The data layer (the partitioners, every loader, augmentation, the
+    registry, tag prediction, the CLI), each named, imports with JAX and
+    the JAX package blocked and with h5py, PIL and pandas blocked too:
+    they are imported when a file of theirs is read, and the machine with
+    the card may have none of them.  The registry's twins still load."""
+    blocked = BLOCKED + FILE_FORMAT_LIBS
+    code = (f"import sys\nfor name in {blocked!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {DATA_MODULES!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"from fedml_tpu_torch.data import load_data\n"
+            f"fd = load_data('stackoverflow_lr', num_clients=2,\n"
+            f"               samples_per_client=3)\n"
+            f"assert fd.train['y'].shape[-1] == 500\n"
+            f"print('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
