@@ -360,6 +360,25 @@ each printed as it ends; any failure exits non-zero:
    rounds/s and the peak GB; (d) ``cifar_train_augment`` and
    ``fed_cifar100_train_augment`` on a [10, 64, 32, 32, 3] tensor on the
    card bit-equal to the CPU with one key, and their ms a call;
+8v. long tail — each run on the card against the same run on the CPU
+   from the same init, TF32 off: (a) ``--algo decentralized`` on the
+   FEMNIST CNN at full width (1,690,046 parameters a node), 10 nodes,
+   ``--neighbor_num 4``, B=20, 3 rounds, every round's stacked nodes
+   within ``LT_TOL`` x max|w|, the round's and the mix's ms and the peak
+   GB; (b) ``--algo decentralized_online`` at the CLI's defaults (128
+   nodes, T=100, the synthetic stream) in DOL, PUSHSUM and time-varying
+   PUSHSUM, the final regret and z within ``LT_ONLINE_TOL`` relative,
+   steps/s; (c) ``--algo split_nn`` on the FEMNIST twin, 4 clients, 2
+   sweeps, and one client's epoch over the hub actors against the
+   simulator's; (d) ``--algo vfl``, 2 parties, ``fit`` and the wire
+   protocol against the joint step; (e) ``--algo fedgkt`` at full width
+   (client ResNet-8, server layers (9, 9), GroupNorm) on the CIFAR-10
+   twin, 4 clients, B=64, 2 rounds, the round's ms by part and the peak
+   GB; (f) ``--algo fedavg_robust --backdoor --attacker_num 1 --defense
+   weak_dp --defense_backend cuda`` on the FEMNIST CNN (100 clients, 10 a
+   round, 2 rounds): K1n and K1 once a round each, the globals within
+   ``ROUND_TOL`` of the CPU's, ``backdoor_acc`` equal; (g)
+   ``--completion_signal`` writes the summary line;
 12. a JSON line with each kernel's numbers (K1's norm pass beside K1; K1
    and K2 also at their library call's configuration, sigma 0; K2's
    launches are phase 8j's adam run's, phase 8's and 8q's beside them; K4's
@@ -8400,6 +8419,410 @@ def check_data_layer(root: Path) -> dict:
     return out
 
 
+# phase 8v: the decentralized, split and vertical long tail, each run on
+# the card against the same run on the CPU from the same init (TF32 off)
+LT_TOL = 1e-4                  # x max|w|: a card run vs the CPU's
+LT_ONLINE_TOL = 1e-5           # relative: final regret and z vs the CPU's
+LT_CNN_PARAMS = 1_690_046      # the FEMNIST CNN, each gossip node
+LT_GOSSIP_ARGS = ["--algo", "decentralized", "--model", "cnn_fedavg",
+                  "--dataset", "femnist", "--client_num_in_total", "10",
+                  "--neighbor_num", "4", "--batch_size", "20", "--lr", "0.1",
+                  "--epochs", "1", "--comm_round", "3",
+                  "--frequency_of_the_test", "1000", "--log_stdout", "false"]
+LT_MIX_REPS = 50
+# the CLI's defaults: 128 nodes (1000 clients capped), T = 100, the
+# synthetic stream
+LT_ONLINE_ARGS = ["--algo", "decentralized_online", "--log_stdout", "false"]
+LT_ONLINE_RUNS = {"DOL": [], "PUSHSUM": ["--mode", "PUSHSUM"],
+                  "PUSHSUM time-varying": ["--mode", "PUSHSUM",
+                                           "--time_varying", "true"]}
+LT_SPLIT_ARGS = ["--algo", "split_nn", "--model", "lr", "--dataset",
+                 "femnist", "--client_num_in_total", "10",
+                 "--client_num_per_round", "4", "--batch_size", "20", "--lr",
+                 "0.05", "--comm_round", "2", "--log_stdout", "false"]
+LT_VFL_ARGS = ["--algo", "vfl", "--batch_size", "64", "--lr", "0.1",
+               "--comm_round", "20", "--frequency_of_the_test", "10",
+               "--client_num_in_total", "2", "--log_stdout", "false"]
+LT_GKT_ARGS = ["--algo", "fedgkt", "--dataset", "cifar10",
+               "--client_num_in_total", "4", "--client_num_per_round", "4",
+               "--batch_size", "64", "--comm_round", "2", "--log_stdout",
+               "false"]
+# cut: 100 clients of FEMNIST's 3400 (the poisoning copies the whole
+# stacked train split, the targeted set takes every honest client's eval
+# rows)
+LT_BACKDOOR_ARGS = ["--algo", "fedavg_robust", "--backdoor", "true",
+                    "--attacker_num", "1", "--defense", "weak_dp",
+                    "--defense_backend", "cuda", "--norm_bound",
+                    str(CLIP_BOUND), "--stddev", str(SIGMA), "--model",
+                    "cnn_fedavg", "--dataset", "femnist",
+                    "--client_num_in_total", "100", "--client_num_per_round",
+                    str(N_CLIENTS), "--batch_size", "20", "--lr", "0.1",
+                    "--epochs", "1", "--comm_round", "2",
+                    "--frequency_of_the_test", "1000", "--log_stdout",
+                    "false"]
+
+
+def lt_cfg(argv, device=None):
+    import dataclasses
+    from fedml_tpu_torch.experiments.config import config_from_argv
+    cfg = config_from_argv(argv)
+    return cfg if device is None else dataclasses.replace(cfg,
+                                                          platform=device)
+
+
+def rel_diff(a, b) -> float:
+    """max|a − b| over every leaf, over max|b|."""
+    scale = max(float(b[k].double().abs().max()) for k in b)
+    return max_diff(a, b) / max(scale, 1e-30)
+
+
+def lt_gossip() -> dict:
+    """8v (a): `--algo decentralized` on the FEMNIST CNN at full width,
+    10 nodes, each round's stacked nodes against the CPU's."""
+    from fedml_tpu_torch.algorithms.decentralized import mix_stacked
+    from fedml_tpu_torch.experiments.main import (decentralized_algo,
+                                                  load_experiment_data)
+    cfg = lt_cfg(LT_GOSSIP_ARGS)
+    data = load_experiment_data(cfg)
+    rounds, out = {}, {}
+    with deterministic():
+        for dev in (CARD, "cpu"):
+            algo = decentralized_algo(lt_cfg(LT_GOSSIP_ARGS, dev), data)
+            per = rounds[dev] = []
+            reset_peak()
+            stacked = algo.run(on_round=lambda r, s: per.append(
+                _cpu_tree(s)))
+            sync(dev)
+            if dev == CARD:
+                out.update(round_ms=steady(algo.round_times)["round_ms"],
+                           peak_gb=peak_gb(), history=algo.history,
+                           node_params=sum(v[0].numel()
+                                           for v in stacked.values()),
+                           mix_ms=(time_ms(lambda: mix_stacked(
+                               stacked, algo.W), LT_MIX_REPS)
+                               if CARD == "cuda" else None))
+    out["nodes"] = data.client_num
+    out["rounds_vs_cpu"] = [rel_diff(a, b) for a, b in
+                            zip(rounds[CARD], rounds["cpu"])]
+    out["rounds"] = len(rounds[CARD])
+    return out
+
+
+def lt_online() -> dict:
+    """8v (b): `--algo decentralized_online` at the CLI's defaults in DOL,
+    PUSHSUM and time-varying PUSHSUM, the card's final regret and z
+    against the CPU's."""
+    import numpy as np
+    from fedml_tpu_torch.algorithms.decentralized_online import (
+        DecentralizedOnline, _topology_bank)
+    from fedml_tpu_torch.experiments.main import online_setup
+    out = {}
+    for name, extra in LT_ONLINE_RUNS.items():
+        stream, config = online_setup(lt_cfg(LT_ONLINE_ARGS + extra))
+        runs = {}
+        for dev in (CARD, "cpu"):
+            algo = DecentralizedOnline(stream, config, device=dev)
+            if dev == CARD:     # warm: the kernels' first use, untimed
+                algo.run()
+                sync(dev)
+            t0 = time.perf_counter()
+            res = algo.run()
+            sync(dev)
+            runs[dev] = (res, time.perf_counter() - t0)
+            if dev == CARD:
+                graph = {"graph_captures": algo._run.captures,
+                         "capture_s": algo._run.capture_s,
+                         "replay_ms": algo._run.replay_ms}
+        (card, card_s), (cpu, _) = runs[CARD], runs["cpu"]
+        t0 = time.perf_counter()
+        _topology_bank(config, algo.n, algo.T * max(config.epochs, 1))
+        bank_s = time.perf_counter() - t0
+        z_rel = max(float(np.abs(card["params_z"][k].cpu().numpy()
+                                 - cpu["params_z"][k].numpy()).max())
+                    / max(float(np.abs(cpu["params_z"][k].numpy()).max()),
+                          1e-30) for k in ("w", "b"))
+        out[name] = {
+            "nodes": algo.n, "steps": len(card["losses"]),
+            "final_regret": card["final_regret"],
+            "final_regret_cpu": cpu["final_regret"],
+            "regret_rel_diff": abs(card["final_regret"]
+                                   - cpu["final_regret"])
+            / abs(cpu["final_regret"]),
+            "z_rel_diff": z_rel, "run_s": card_s, "bank_s": bank_s,
+            **graph, "steps_per_s": len(card["losses"]) / card_s,
+            "replay_steps_per_s": (
+                1e3 * len(card["losses"]) / graph["replay_ms"]
+                if graph["replay_ms"] else None)}
+    return out
+
+
+def lt_split() -> dict:
+    """8v (c): `--algo split_nn` on the FEMNIST twin, 4 clients, 2 sweeps,
+    card against CPU from one init; one client's epoch over the hub
+    actors on the card against the simulator's."""
+    import torch
+    from fedml_tpu_torch.algorithms.split_nn import (SplitNNClientActor,
+                                                     SplitNNServerActor)
+    from fedml_tpu_torch.comm.local import LocalHub
+    from fedml_tpu_torch.experiments.main import (load_experiment_data,
+                                                  split_nn_sim)
+    cfg = lt_cfg(LT_SPLIT_ARGS)
+    data = load_experiment_data(cfg)
+    outs = {}
+    with deterministic():
+        for dev in (CARD, "cpu"):
+            sim, client_data = split_nn_sim(lt_cfg(LT_SPLIT_ARGS, dev), data)
+            init = sim.split.init(cfg.seed, device=dev)
+            t0 = time.perf_counter()
+            res = sim.run(client_data, params=init)
+            sync(dev)
+            outs[dev] = (res, time.perf_counter() - t0, sim, init,
+                         client_data)
+        res, card_s, sim, init, client_data = outs[CARD]
+        cpu = outs["cpu"][0]
+        body, head = init
+        d0 = {k: torch.as_tensor(v).to(CARD)
+              for k, v in client_data[0].items()}
+        ref = sim._epoch_step(body, head, sim.client_opt.init(body),
+                              sim.server_opt.init(head), d0)
+        hub = LocalHub()
+        server = SplitNNServerActor(0, hub.transport(0), sim.split, head,
+                                    sim.cfg, device=CARD)
+        client = SplitNNClientActor(1, hub.transport(1), sim.split, body,
+                                    client_data[0], server_id=0,
+                                    cfg=sim.cfg, device=CARD)
+        server.register_handlers()
+        client.register_handlers()
+        client.start_epoch()
+        hub.pump()
+    return {"clients": len(client_data), "sweeps": cfg.comm_round,
+            "steps": len(res["history"]) * int(data.train["x"].shape[1]),
+            "run_s": card_s,
+            "body_vs_cpu": rel_diff(_cpu_tree(res["body_params"]),
+                                    _cpu_tree(cpu["body_params"])),
+            "head_vs_cpu": rel_diff(_cpu_tree(res["head_params"]),
+                                    _cpu_tree(cpu["head_params"])),
+            "actors_vs_simulator": max(
+                rel_diff(_cpu_tree(client.body_params), _cpu_tree(ref[0])),
+                rel_diff(_cpu_tree(server.head_params), _cpu_tree(ref[1]))),
+            "history_loss": [h["loss"] for h in res["history"]]}
+
+
+def lt_vfl() -> dict:
+    """8v (d): `--algo vfl`, 2 parties: `fit` on the card against the CPU
+    from one seed, and the wire protocol on the card against the joint
+    step's parties."""
+    from fedml_tpu_torch.algorithms.vertical_fl import (VFLGuest, VFLHost,
+                                                        run_vfl_protocol)
+    from fedml_tpu_torch.experiments.main import vfl_setup
+    cfg = lt_cfg(LT_VFL_ARGS)
+    fits = {}
+    with deterministic():
+        for dev in (CARD, "cpu"):
+            vfl, train, test = vfl_setup(lt_cfg(LT_VFL_ARGS, dev))
+            t0 = time.perf_counter()
+            fits[dev] = vfl.fit(train, test, cfg.seed)
+            sync(dev)
+            if dev == CARD:
+                card_s, models = time.perf_counter() - t0, vfl.party_models
+        guest = VFLGuest(models[0], train[0], train[-1], vfl.cfg,
+                         device=CARD)
+        host = VFLHost(models[1], train[1], vfl.cfg, device=CARD)
+        losses = run_vfl_protocol(guest, [host], cfg.comm_round,
+                                  cfg.batch_size, rng=cfg.seed)
+    card, cpu = fits[CARD], fits["cpu"]
+    return {"parties": len(models), "rounds": cfg.comm_round,
+            "fit_s": card_s,
+            "fit_vs_cpu": max(rel_diff(_cpu_tree(a), _cpu_tree(b))
+                              for a, b in zip(card["params"],
+                                              cpu["params"])),
+            "wire_vs_joint": max(
+                rel_diff(_cpu_tree(p.params), _cpu_tree(q))
+                for p, q in zip((guest, host), card["params"])),
+            "test_acc": card["history"][-1]["test_acc"],
+            "test_acc_cpu": cpu["history"][-1]["test_acc"],
+            "wire_last_loss": losses[-1]}
+
+
+def lt_gkt() -> dict:
+    """8v (e): `--algo fedgkt` at full width (client ResNet-8, server
+    layers (9, 9), GroupNorm) on the CIFAR-10 twin, 4 clients, B=64, 2
+    rounds, card against CPU from one init."""
+    from fedml_tpu_torch.experiments.main import (fedgkt_algo,
+                                                  load_experiment_data)
+    cfg = lt_cfg(LT_GKT_ARGS)
+    data = load_experiment_data(cfg)
+    outs = {}
+    with deterministic():
+        for dev in (CARD, "cpu"):
+            algo, cohort = fedgkt_algo(lt_cfg(LT_GKT_ARGS, dev), data)
+            if dev == CARD:
+                cp, _, sp, _ = algo.init(cfg.seed, cohort)
+                init = (_cpu_tree(cp), _cpu_tree(sp))
+            reset_peak()
+            res = algo.run(cohort, params=init)
+            sync(dev)
+            outs[dev] = res
+            if dev == CARD:
+                phases = algo.phase_times
+                peak = peak_gb()
+                n_client = sum(v[0].numel() for v in cp.values())
+                n_server = sum(v.numel() for v in sp.values())
+    card, cpu = outs[CARD], outs["cpu"]
+    steady = phases[1:] or phases
+    return {"clients": int(cohort["x"].shape[0]),
+            "steps": int(cohort["x"].shape[1]), "rounds": len(phases),
+            "client_params": n_client, "server_params": n_server,
+            "round_ms": {k: 1e3 * statistics.median(p[k] for p in steady)
+                         for k in ("clients", "server", "distil")},
+            "peak_gb": peak,
+            "clients_vs_cpu": rel_diff(_cpu_tree(card["client_params"]),
+                                       _cpu_tree(cpu["client_params"])),
+            "server_vs_cpu": rel_diff(_cpu_tree(card["server_params"]),
+                                      _cpu_tree(cpu["server_params"])),
+            "server_loss": card["history"][-1]["server_loss"]}
+
+
+def lt_backdoor() -> dict:
+    """8v (f): `--algo fedavg_robust --backdoor --attacker_num 1 --defense
+    weak_dp --defense_backend cuda` on the FEMNIST CNN, 10 a round, 2
+    rounds: K1n's and K1's launches on the card, the globals and the
+    backdoor's accuracy against the CPU's."""
+    from fedml_tpu_torch.algorithms.backdoor import targeted_accuracy
+    from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobust
+    from fedml_tpu_torch.core import fused_agg as fa
+    from fedml_tpu_torch.experiments.main import (_make_workload, _summary,
+                                                  backdoor_data,
+                                                  fedavg_robust_config,
+                                                  load_experiment_data)
+    cfg = lt_cfg(LT_BACKDOOR_ARGS)
+    data, targeted = backdoor_data(cfg, load_experiment_data(cfg))
+    out, acc, launches = {}, {}, {}
+    with deterministic():
+        for dev in (CARD, "cpu"):
+            fa.reset_launch_counts()
+            wl = _make_workload(cfg, data)
+            algo = FedAvgRobust(wl, data, fedavg_robust_config(cfg),
+                                device=dev)
+            params = algo.run()
+            sync(dev)
+            if dev == CARD:
+                summary = _summary(algo, params)
+                launches = {k: fa.launch_counts[k]
+                            for k in ("clip_norm", "robust_agg")}
+            acc[dev] = targeted_accuracy(wl, params, targeted)
+            out[dev] = _cpu_tree(params)
+    return {"launches": launches, "rounds": cfg.comm_round,
+            "targeted_rows": int(len(targeted["y"])),
+            "backdoor_acc": acc[CARD], "backdoor_acc_cpu": acc["cpu"],
+            "vs_cpu_max_abs_diff": max_diff(out[CARD], out["cpu"]),
+            "round_ms": summary["round_ms"],
+            "params_finite": summary["params_finite"]}
+
+
+def lt_signal(root: Path) -> dict:
+    """8v (g): `--completion_signal` through the CLI's `main` (the vfl
+    runner, 2 rounds on the card): the file holds the summary line."""
+    from fedml_tpu_torch.experiments.main import main as cli_main
+    path = root / "completion_signal.json"
+    path.unlink(missing_ok=True)
+    summary = cli_main([*LT_VFL_ARGS, "--comm_round", "2", "--platform",
+                        CARD, "--completion_signal", str(path)])
+    line = json.loads(path.read_text()) if path.exists() else {}
+    return {"written": path.exists(),
+            "matches": bool(line) and line.get("algo") == "vfl"
+            and all(line.get(k) == v for k, v in summary.items()
+                    if isinstance(v, (int, float, str)))}
+
+
+def long_tail_problems(r: dict) -> list:
+    """What the long-tail phase got wrong (empty: it passed)."""
+    problems = []
+    g = r["gossip"]
+    if g["node_params"] != LT_CNN_PARAMS or g["rounds"] != 3:
+        problems.append(f"gossip ran {g['rounds']} rounds of "
+                        f"{g['node_params']} parameters a node, need 3 of "
+                        f"{LT_CNN_PARAMS}")
+    worst = max(g["rounds_vs_cpu"], default=float("inf"))
+    if not worst <= LT_TOL:
+        problems.append(f"gossip rounds {g['rounds_vs_cpu']} x max|w| from "
+                        f"the CPU's > {LT_TOL}")
+    for name, o in r["online"].items():
+        if CARD == "cuda" and not o["graph_captures"]:
+            problems.append(f"{name}: the card's run took the host loop, "
+                            f"not its CUDA graph")
+        if not (o["regret_rel_diff"] <= LT_ONLINE_TOL
+                and o["z_rel_diff"] <= LT_ONLINE_TOL):
+            problems.append(f"{name}: regret {o['regret_rel_diff']} and z "
+                            f"{o['z_rel_diff']} relative from the CPU's > "
+                            f"{LT_ONLINE_TOL}")
+    s = r["split"]
+    for k in ("body_vs_cpu", "head_vs_cpu", "actors_vs_simulator"):
+        if not s[k] <= LT_TOL:
+            problems.append(f"split_nn {k} {s[k]} x max|w| > {LT_TOL}")
+    v = r["vfl"]
+    for k in ("fit_vs_cpu", "wire_vs_joint"):
+        if not v[k] <= LT_TOL:
+            problems.append(f"vfl {k} {v[k]} x max|w| > {LT_TOL}")
+    k = r["gkt"]
+    for key in ("clients_vs_cpu", "server_vs_cpu"):
+        if not k[key] <= LT_TOL:
+            problems.append(f"fedgkt {key} {k[key]} x max|w| > {LT_TOL}")
+    b = r["backdoor"]
+    for name in ("clip_norm", "robust_agg"):
+        if b["launches"].get(name) != b["rounds"]:
+            problems.append(f"the backdoor run launched {name} "
+                            f"{b['launches'].get(name)} times, need "
+                            f"{b['rounds']} (one a round)")
+    if not b["vs_cpu_max_abs_diff"] <= ROUND_TOL:
+        problems.append(f"the backdoor run {b['vs_cpu_max_abs_diff']} from "
+                        f"the CPU's > {ROUND_TOL}")
+    if b["backdoor_acc"] != b["backdoor_acc_cpu"]:
+        problems.append(f"backdoor_acc {b['backdoor_acc']} on the card, "
+                        f"{b['backdoor_acc_cpu']} on the CPU")
+    if not b["params_finite"]:
+        problems.append("the backdoor run ended with non-finite params")
+    if not (r["signal"]["written"] and r["signal"]["matches"]):
+        problems.append(f"--completion_signal: {r['signal']}")
+    return problems
+
+
+def check_long_tail(root: Path) -> dict:
+    """Phase 8v, deterministic (TF32 off): (a) gossip on the FEMNIST CNN,
+    (b) online DSGD / PushSum, (c) SplitNN and its hub actors, (d)
+    vertical FL and its wire protocol, (e) FedGKT at full width, (f) the
+    backdoor on the defended mean (K1n + K1), (g) the completion signal;
+    each on the card against the CPU."""
+    t_phase = time.perf_counter()
+    base = root / "build" / "long_tail"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    r = {}
+    for name, fn in (("gossip", lt_gossip), ("online", lt_online),
+                     ("split", lt_split), ("vfl", lt_vfl), ("gkt", lt_gkt),
+                     ("backdoor", lt_backdoor),
+                     ("signal", lambda: lt_signal(base))):
+        t0 = time.perf_counter()
+        r[name] = fn()
+        if name == "online":
+            for run, row in r[name].items():
+                phase(f"long tail online {run}", **row)
+        else:
+            phase(f"long tail {name}", **r[name])
+        r[name + "_s"] = time.perf_counter() - t0
+    shutil.rmtree(base, ignore_errors=True)
+    problems = long_tail_problems(r)
+    if problems:
+        fail("phase 8v: " + "; ".join(problems))
+    r["seconds"] = time.perf_counter() - t_phase
+    phase("long tail", seconds=r["seconds"],
+          part_seconds={k[:-2]: v for k, v in r.items()
+                        if k.endswith("_s") and k != "seconds"},
+          hand_written_kernels=[
+              "clip_norm, robust_agg (the --backdoor defended rounds)"])
+    return r
+
+
 # serving's extra round time, split (``--serve-split``): rounds an arm,
 # the first a warm-up
 SPLIT_ROUNDS = 4
@@ -8632,6 +9055,7 @@ def main() -> None:
     serving = check_serving(data)
     tp_ep = check_tp_ep(root)
     data_layer = check_data_layer(root)
+    long_tail = check_long_tail(root)
 
     # one round of the defended slice: the norm pass and one aggregate
     # launch over the CNN's leaves
@@ -8658,6 +9082,8 @@ def main() -> None:
         "launches_bn_defended": models["robust"]["launches"]["robust_agg"],
         # phase 8u: the defended rounds on LEAF MNIST read from its files
         "launches_leaf_mnist": data_layer["leaf"]["launches"]["robust_agg"],
+        # phase 8v: the --backdoor run's defended rounds
+        "launches_backdoor": long_tail["backdoor"]["launches"]["robust_agg"],
         "max_abs_err_bn_table": models["robust"]["k1"]["max_abs_err"],
         **{f"{k}_bn_table": models["robust"]["k1"]["table"][k]
            for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -8675,6 +9101,7 @@ def main() -> None:
         "library_ms": None,
         "launches_bn_defended": models["robust"]["launches"]["clip_norm"],
         "launches_leaf_mnist": data_layer["leaf"]["launches"]["clip_norm"],
+        "launches_backdoor": long_tail["backdoor"]["launches"]["clip_norm"],
         "max_rel_err_bn_table": models["robust"]["k1"]["scales_max_rel_err"],
         **{f"{k}_bn_table": models["robust"]["k1"]["clip_norm"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
@@ -8926,6 +9353,17 @@ def main() -> None:
                            for k, v in data_layer["augment"].items()},
           data_memmap_bit_equal=data_layer["memmap"]["bit_equal"],
           data_layer_seconds=data_layer["seconds"],
+          gossip_round_ms=long_tail["gossip"]["round_ms"],
+          gossip_mix_ms=long_tail["gossip"]["mix_ms"],
+          gossip_vs_cpu=max(long_tail["gossip"]["rounds_vs_cpu"]),
+          online_steps_per_s={k: v["steps_per_s"]
+                              for k, v in long_tail["online"].items()},
+          online_replay_steps_per_s={
+              k: v["replay_steps_per_s"]
+              for k, v in long_tail["online"].items()},
+          gkt_round_ms=long_tail["gkt"]["round_ms"],
+          backdoor_acc=long_tail["backdoor"]["backdoor_acc"],
+          long_tail_seconds=long_tail["seconds"],
           device_round_vs_cpu_max_abs_diff=device_round_cpu_diff,
           fedavg_round_ms={k: v["round_ms"] for k, v in paths.items()},
           fedavg_rounds_per_s={k: v["rounds_per_s"]

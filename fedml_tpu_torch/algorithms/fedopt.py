@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 import zlib
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -29,9 +29,12 @@ from fedml_tpu_torch.algorithms.fedavg import FedAvg, FedAvgConfig
 from fedml_tpu_torch.core.pytree import Tree, tree_keys
 from fedml_tpu_torch.server_opt import ServerOptMismatchError
 
-# an optimizer: (init(params) -> state, update(grads, state, params) ->
-# (updates, state)), optax's GradientTransformation over flat dicts
-Transform = Tuple[Callable[[Tree], dict], Callable]
+class Transform(NamedTuple):
+    """An optimizer, optax's GradientTransformation over flat dicts:
+    ``init(params) -> state``, ``update(grads, state, params) ->
+    (updates, state)``."""
+    init: Callable[[Tree], dict]
+    update: Callable
 
 
 def _full_like(params: Tree, value: float) -> Tree:
@@ -73,7 +76,23 @@ def sgd(lr: float, momentum) -> Transform:
             t = {k: g[k] + momentum * state["trace"][k] for k in g}
             return _scale(t, -lr), {"trace": t}
         return _scale(g, -lr), state
-    return init, update
+    return Transform(init, update)
+
+
+def decayed_sgd(lr: float, momentum, weight_decay: float) -> Transform:
+    """``optax.chain(add_decayed_weights(weight_decay), sgd(lr,
+    momentum))``: ``g + wd·w`` into the trace, then ``−lr``."""
+    init, sgd_update = sgd(lr, momentum)
+
+    def update(g, state, params):
+        g = {k: g[k] + weight_decay * params[k] for k in g}
+        return sgd_update(g, state, params)
+    return Transform(init, update)
+
+
+def apply_updates(params: Tree, updates: Tree) -> Tree:
+    """``optax.apply_updates``: ``w + u`` leaf by leaf."""
+    return {k: params[k] + updates[k] for k in params}
 
 
 def _adam_update(g, state, b1, b2, eps):
@@ -95,7 +114,7 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
     def update(g, state, params):
         upd, state = _adam_update(g, state, b1, b2, eps)
         return _scale(upd, -lr), state
-    return init, update
+    return Transform(init, update)
 
 
 def adamw(lr: float, weight_decay: float = 1e-4) -> Transform:
@@ -106,7 +125,7 @@ def adamw(lr: float, weight_decay: float = 1e-4) -> Transform:
         upd, state = _adam_update(g, state, 0.9, 0.999, 1e-8)
         upd = {k: upd[k] + weight_decay * params[k] for k in upd}
         return _scale(upd, -lr), state
-    return init, update
+    return Transform(init, update)
 
 
 def adagrad(lr: float, initial_accumulator_value: float = 0.1,
@@ -121,7 +140,7 @@ def adagrad(lr: float, initial_accumulator_value: float = 0.1,
         upd = {k: torch.where(ss[k] > 0, torch.rsqrt(ss[k] + eps),
                               torch.zeros_like(ss[k])) * g[k] for k in g}
         return _scale(upd, -lr), {"sum_of_squares": ss}
-    return init, update
+    return Transform(init, update)
 
 
 def rmsprop(lr: float, momentum, decay: float = 0.9,
@@ -141,7 +160,7 @@ def rmsprop(lr: float, momentum, decay: float = 0.9,
             upd = {k: upd[k] + momentum * state["trace"][k] for k in upd}
             new["trace"] = upd
         return upd, new
-    return init, update
+    return Transform(init, update)
 
 
 def yogi(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3,
@@ -163,7 +182,7 @@ def yogi(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3,
         nu_hat = _bias_correction(nu, b2, count)
         upd = {k: mu_hat[k] / (torch.sqrt(nu_hat[k]) + eps) for k in g}
         return _scale(upd, -lr), {"count": count, "mu": mu, "nu": nu}
-    return init, update
+    return Transform(init, update)
 
 
 # name -> factory(lr, momentum), the JAX package's registry

@@ -25,9 +25,38 @@ def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
     return {k: fn(tree[k], *(r[k] for r in rest)) for k in tree_keys(tree)}
 
 
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_scale(tree: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a: Tree, b: Tree) -> Tree:
     """a - b, elementwise."""
     return tree_map(torch.sub, a, b)
+
+
+def tree_cast(tree: Tree, dtype) -> Tree:
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_global_norm(tree: Tree) -> torch.Tensor:
+    """L2 norm of the concatenation of all leaves (each squared and
+    summed in f32, the leaves' sums added in leaf order), without
+    materialising the flat vector."""
+    return torch.sqrt(sum(torch.sum(torch.square(tree[k].to(torch.float32)))
+                          for k in tree_keys(tree)))
+
+
+def tree_vector_norm(a: Tree, b: Tree) -> torch.Tensor:
+    """|| a - b ||_2 over all leaves (the norm of an update)."""
+    return tree_global_norm(tree_sub(a, b))
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -56,6 +85,21 @@ def tree_weighted_mean(trees: Union[Sequence[Tree], Tree],
         return (x.to(acc) * r.to(acc)).sum(0).to(x.dtype)
 
     return tree_map(_avg, stacked)
+
+
+def tree_weighted_psum_mean(local_tree: Tree, local_weight: torch.Tensor,
+                            axis) -> Tree:
+    """The weighted mean over a mesh axis (``axis``: a
+    `parallel.mesh.MeshAxis`): each rank holds one client's (or a block's
+    partial) tree and weight; the weights' sum and then the weighted
+    leaves' sum are taken over the axis, normalised in f32 as the JAX
+    package's two ``psum`` s."""
+    w = torch.as_tensor(local_weight).to(torch.float32)
+    total = axis.mesh.allsum(w.reshape(()), axis.name)
+    ratio = w / total
+    return axis.mesh.allsum(
+        tree_map(lambda x: x * ratio.to(x.device, x.dtype), local_tree),
+        axis.name)
 
 
 # ---------------------------------------------------------------------------

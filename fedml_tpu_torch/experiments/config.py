@@ -51,13 +51,27 @@ class ExperimentConfig:
     gm_iters: int = 8                    # geometric_median: Weiszfeld steps
     gm_eps: float = 1e-6                 # geometric_median: smoothing floor
 
-    target_label: int = 9                # --adversary backdoor: target
+    # fedavg_robust: the backdoor attack's evaluation
+    backdoor: bool = False               # poison attacker shards + eval
+    attacker_num: int = 1                # the first K clients attack
+    target_label: int = 9                # --backdoor, --adversary backdoor:
+    #                                      the attack's target
     poison_frac: float = 1.0             # backdoor: fraction stamped
     trigger_size: int = 3                # backdoor: pixel-trigger side
     group_num: int = 2                   # hierarchical / turboaggregate
     group_comm_round: int = 2            # hierarchical: group rounds
     drop_tolerance: int = 1              # turboaggregate
     secagg_backend: str = "torch"        # turboaggregate: "torch" | "cuda"
+    neighbor_num: int = 2                # decentralized topology
+    # decentralized_online (DSGD / PushSum on a stream)
+    mode: str = "DOL"                    # "DOL" | "PUSHSUM" | "LOCAL"
+    iteration_number: int = 100          # stream length T per client
+    beta: float = 0.0                    # adversarial (kmeans) stream frac
+    b_symmetric: bool = False            # undirected vs directed topology
+    topology_neighbors_num_undirected: int = 4
+    topology_neighbors_num_directed: int = 4
+    time_varying: bool = False           # regenerate graph each iteration
+    temperature: float = 3.0             # FedGKT KD temperature
 
     # cross_silo: the live federation over the in-process hub, or one node
     # of it per process over gRPC
@@ -235,6 +249,9 @@ class ExperimentConfig:
     process_id: int = 0
     client_axis: str = "vmap"            # "vmap" | "scan"
     eval_chunk_clients: int = 1024       # evaluate_global clients per call
+    completion_signal: str = ""          # write the final summary line
+    #                                      here on completion (a FIFO or a
+    #                                      file)
     platform: Optional[str] = None       # None/"gpu" -> cuda; "cpu"
     deterministic: bool = False          # cuDNN deterministic, TF32 off
     # observability (obs/): the live paths (cross_silo, async_fl,

@@ -114,8 +114,11 @@ class GroupNorm(nn.Module):
         if x.dtype == torch.float32 and (
                 self.scale is None or self.scale.dtype == self.bias.dtype
                 == torch.float32):
-            return F.group_norm(x, self.groups, self.scale, self.bias,
-                                self.eps)
+            # contiguous: a CPU conv of a permuted (channels-last) input
+            # returns channels-last, and `F.group_norm` under a vmap of
+            # one client cannot query that layout
+            return F.group_norm(x.contiguous(), self.groups, self.scale,
+                                self.bias, self.eps)
         n, c = x.shape[:2]
         xg = x.reshape((n, self.groups, c // self.groups) + x.shape[2:])
         mean, var = stats(xg, tuple(range(2, xg.dim())))

@@ -50,7 +50,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.core.pytree import Tree, tree_global_norm, tree_keys
 from fedml_tpu_torch.obs import telemetry
 
 SERVER_OPT_NAMES = ("plain", "momentum", "adam", "fedac")
@@ -65,11 +65,6 @@ class ServerOptMismatchError(ValueError):
     """A snapshot written under another server optimizer (or shard plan)
     than the one restoring it; restoring it would continue a foreign
     trajectory, so it is refused."""
-
-
-def _global_norm(leaves) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
-                          for l in leaves))
 
 
 class ServerOptimizer:
@@ -246,9 +241,9 @@ class ServerOptimizer:
         on (each is a device sync)."""
         if not self._norms_on:
             return
-        self._m_delta.set(float(_global_norm(delta.values())))
-        self._m_update.set(float(_global_norm(
-            new[k] - params[k] for k in self._keys)))
+        self._m_delta.set(float(tree_global_norm(delta)))
+        self._m_update.set(float(tree_global_norm(
+            {k: new[k] - params[k] for k in self._keys})))
 
     # -- checkpoint / journal -------------------------------------------------
     def _tree_slots(self) -> List[str]:

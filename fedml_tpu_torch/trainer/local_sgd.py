@@ -32,7 +32,7 @@ import torch
 from torch.func import grad
 
 from fedml_tpu_torch.core import prng
-from fedml_tpu_torch.core.pytree import Tree, tree_keys
+from fedml_tpu_torch.core.pytree import Tree, tree_global_norm, tree_keys
 from fedml_tpu_torch.obs import telemetry
 from fedml_tpu_torch.trainer.workload import Workload, is_trained
 
@@ -44,9 +44,8 @@ def clip_by_global_norm(grads: Tree, max_norm: float,
     ``torch.nn.utils.clip_grad_norm_``).  ``sq_norm(grads)``: the squared
     norm of a tree whose leaves are blocks of a placement
     (`parallel.mesh.Placement.sq_norm`)."""
-    norm = torch.sqrt(sq_norm(grads) if sq_norm is not None else
-                      sum(torch.sum(torch.square(grads[k]))
-                          for k in tree_keys(grads)))
+    norm = (torch.sqrt(sq_norm(grads)) if sq_norm is not None
+            else tree_global_norm(grads))
     keep = norm < max_norm
     return {k: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for k, g in grads.items()}

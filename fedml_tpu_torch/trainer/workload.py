@@ -122,17 +122,33 @@ class Workload:
         """Fresh parameters in JAX's leaf order, drawn on the CPU from
         ``generator`` (so one seed gives the same weights on any device);
         a stateful workload's running means 0 and variances 1."""
-        for m in self.model.modules():
-            if m is not self.model and hasattr(m, "reset_parameters"):
-                m.reset_parameters(generator)
-        params = {k.replace(".", "/"): p.detach().clone()
-                  for k, p in self.model.named_parameters()}
-        if self.stateful:
-            params = {**{f"params/{k}": v for k, v in params.items()},
-                      **{"batch_stats/" + k.replace(".", "/"):
-                         b.detach().clone()
-                         for k, b in self.model.named_buffers()}}
-        return {k: params[k].to(device) for k in tree_keys(params)}
+        return init_module(self.model, generator, device, self.stateful)
+
+
+def generator_of(rng, seed: int = 0) -> torch.Generator:
+    """The CPU generator a run draws its weights from: ``rng`` itself, a
+    generator seeded with ``rng`` (an int), or with ``seed`` (None)."""
+    if isinstance(rng, torch.Generator):
+        return rng
+    return torch.Generator().manual_seed(seed if rng is None else int(rng))
+
+
+def init_module(model: nn.Module, generator: Optional[torch.Generator] = None,
+                device="cpu", stateful: bool = False) -> Tree:
+    """A module's fresh parameters as a flat dict keyed by the flax path,
+    in JAX's leaf order, drawn on the CPU from ``generator``; ``stateful``:
+    ``params/...`` and the running statistics as ``batch_stats/...``."""
+    for m in model.modules():
+        if m is not model and hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
+    params = {k.replace(".", "/"): p.detach().clone()
+              for k, p in model.named_parameters()}
+    if stateful:
+        params = {**{f"params/{k}": v for k, v in params.items()},
+                  **{"batch_stats/" + k.replace(".", "/"):
+                     b.detach().clone()
+                     for k, b in model.named_buffers()}}
+    return {k: params[k].to(device) for k in tree_keys(params)}
 
 
 def is_trained(path: str) -> bool:

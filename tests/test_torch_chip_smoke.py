@@ -1535,3 +1535,113 @@ def test_data_layer_cpu_parts(monkeypatch, tmp_path):
     out = cs.data_memmap(data, cfg, tmp_path / "mm")
     assert out["bit_equal"] and out["still_mapped"]
     assert out["host_gather"] == {"memmap": True, "ram": True}
+
+
+def test_long_tail_phase_configs_parse_and_pass_the_gates():
+    """Phase 8v's argv: each run passes the CLI's gates; the gossip runs
+    10 FEMNIST CNN nodes over ``--neighbor_num 4``, the online runs keep
+    the CLI's defaults (128 nodes, T=100), the backdoor run is K1n + K1's
+    defended path."""
+    from fedml_tpu_torch.experiments.main import check_config
+    for argv in (cs.LT_GOSSIP_ARGS, cs.LT_SPLIT_ARGS, cs.LT_VFL_ARGS,
+                 cs.LT_GKT_ARGS, cs.LT_BACKDOOR_ARGS,
+                 *(cs.LT_ONLINE_ARGS + extra
+                   for extra in cs.LT_ONLINE_RUNS.values())):
+        check_config(cs.lt_cfg(argv, "cpu"))
+    g = cs.lt_cfg(cs.LT_GOSSIP_ARGS)
+    assert (g.model, g.client_num_in_total, g.neighbor_num, g.batch_size,
+            g.comm_round) == ("cnn_fedavg", 10, 4, 20, 3)
+    o = cs.lt_cfg(cs.LT_ONLINE_ARGS)
+    assert (min(o.client_num_in_total, 128), o.iteration_number) == (128,
+                                                                     100)
+    b = cs.lt_cfg(cs.LT_BACKDOOR_ARGS)
+    assert (b.backdoor, b.attacker_num, b.defense, b.defense_backend,
+            b.client_num_per_round, b.comm_round) == (True, 1, "weak_dp",
+                                                      "cuda", 10, 2)
+    k = cs.lt_cfg(cs.LT_GKT_ARGS)
+    assert (k.client_num_per_round, k.batch_size, k.comm_round) == (4, 64, 2)
+
+
+def _long_tail_rows(**over):
+    online = {"regret_rel_diff": 2e-7, "z_rel_diff": 3e-7,
+              "graph_captures": 2}
+    rows = {"gossip": {"node_params": cs.LT_CNN_PARAMS, "rounds": 3,
+                       "rounds_vs_cpu": [1e-7, 2e-7, 3e-7]},
+            "online": {k: dict(online) for k in cs.LT_ONLINE_RUNS},
+            "split": {"body_vs_cpu": 1e-7, "head_vs_cpu": 0.0,
+                      "actors_vs_simulator": 1e-7},
+            "vfl": {"fit_vs_cpu": 1e-7, "wire_vs_joint": 2e-7},
+            "gkt": {"clients_vs_cpu": 3e-6, "server_vs_cpu": 4e-6},
+            "backdoor": {"launches": {"clip_norm": 2, "robust_agg": 2},
+                         "rounds": 2, "vs_cpu_max_abs_diff": 3e-8,
+                         "backdoor_acc": 0.25, "backdoor_acc_cpu": 0.25,
+                         "params_finite": True},
+            "signal": {"written": True, "matches": True}}
+    for path, value in over.items():
+        part, key = path.split("__")
+        if part == "online":
+            rows["online"]["PUSHSUM"][key] = value
+        else:
+            rows[part][key] = value
+    return rows
+
+
+@pytest.mark.parametrize("over, ok", [
+    ({}, True),
+    ({"gossip__rounds_vs_cpu": [1e-7, 2e-4, 0.0]}, False),
+    ({"gossip__rounds_vs_cpu": []}, False),
+    ({"gossip__node_params": 1_199_882}, False),
+    ({"online__regret_rel_diff": 2e-5}, False),
+    ({"online__z_rel_diff": float("nan")}, False),
+    ({"online__graph_captures": 0}, False),
+    ({"split__actors_vs_simulator": 3e-4}, False),
+    ({"vfl__wire_vs_joint": 1e-3}, False),
+    ({"gkt__server_vs_cpu": 2e-4}, False),
+    ({"backdoor__launches": {"clip_norm": 2, "robust_agg": 0}}, False),
+    ({"backdoor__launches": {"clip_norm": 0, "robust_agg": 2}}, False),
+    ({"backdoor__vs_cpu_max_abs_diff": 2e-4}, False),
+    ({"backdoor__backdoor_acc": 0.26}, False),
+    ({"backdoor__params_finite": False}, False),
+    ({"signal__written": False}, False),
+    ({"signal__matches": False}, False),
+])
+def test_long_tail_problems(over, ok):
+    """8v's verdict: every gossip round within LT_TOL x max|w| of the CPU
+    at the CNN's full width, the online runs' regret and z within
+    LT_ONLINE_TOL relative on the card's graphed loop, SplitNN, its
+    actors, VFL, its wire and FedGKT
+    within LT_TOL, the backdoor run's K1n and K1 once a round and its
+    globals within ROUND_TOL, its backdoor_acc equal, the signal
+    written."""
+    problems = cs.long_tail_problems(_long_tail_rows(**over))
+    assert (problems == []) == ok, problems
+
+
+def test_long_tail_cpu_parts(monkeypatch, tmp_path):
+    """8v (c), (d) and (g) on the CPU: the card runs are the CPU's own, so
+    every difference is 0, and the completion signal is the summary."""
+    monkeypatch.setattr(cs, "CARD", "cpu")
+    split = cs.lt_split()
+    assert (split["clients"], split["sweeps"]) == (4, 2)
+    assert split["body_vs_cpu"] == split["head_vs_cpu"] == 0.0
+    assert split["actors_vs_simulator"] <= cs.LT_TOL
+    vfl = cs.lt_vfl()
+    assert vfl["fit_vs_cpu"] == 0.0 and vfl["wire_vs_joint"] <= cs.LT_TOL
+    assert cs.lt_signal(tmp_path) == {"written": True, "matches": True}
+
+
+def test_chip_smoke_defines_each_name_once():
+    """Every top-level function, class and constant of the script is
+    defined once: a phase's helper of an earlier phase's name would
+    replace it for every phase (a second ``_cpu_tree`` once broke phase
+    12 on the card)."""
+    import ast
+    import collections
+    from pathlib import Path
+    tree = ast.parse(Path(cs.__file__).read_text())
+    names = collections.Counter(
+        n.name for n in tree.body
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)))
+    names.update(t.id for n in tree.body if isinstance(n, ast.Assign)
+                 for t in n.targets if isinstance(t, ast.Name))
+    assert [k for k, v in names.items() if v > 1] == []

@@ -289,8 +289,8 @@ def test_refusals_are_named():
     # needs 2 devices
     with pytest.raises(ValueError, match="from 1 devices"):
         main(["--mesh_clients", "2", "--platform", "cpu"])
-    with pytest.raises(KeyError):
-        main(["--algo", "decentralized", "--platform", "cpu"])
+    with pytest.raises(KeyError, match="item 12"):
+        main(["--algo", "fednas", "--platform", "cpu"])
 
 
 def test_gpu_is_the_default_device():

@@ -387,3 +387,35 @@ def test_data_slice_modules_import_without_jax_or_file_libraries():
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+LONG_TAIL_MODULES = (
+    "fedml_tpu_torch.core.topology", "fedml_tpu_torch.core.pytree",
+    "fedml_tpu_torch.algorithms.backdoor",
+    "fedml_tpu_torch.algorithms.decentralized",
+    "fedml_tpu_torch.algorithms.decentralized_online",
+    "fedml_tpu_torch.algorithms.split_nn",
+    "fedml_tpu_torch.algorithms.vertical_fl",
+    "fedml_tpu_torch.algorithms.fedgkt",
+    "fedml_tpu_torch.algorithms.base_framework",
+    "fedml_tpu_torch.models.vfl", "fedml_tpu_torch.models.resnet_gkt",
+    "fedml_tpu_torch.experiments.main")
+
+
+def test_long_tail_modules_import_without_jax():
+    """The decentralized, split and vertical slice (the topology, the
+    pytree helpers, backdoor, gossip, online DSGD/PushSum, SplitNN,
+    vertical FL, FedGKT, the base framework, their models and the CLI),
+    each named, imports with JAX and the JAX package blocked, and the
+    base framework's demo runs there."""
+    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+            f"    sys.modules[name] = None\nimport importlib\n"
+            f"for m in {LONG_TAIL_MODULES!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"from fedml_tpu_torch.algorithms.base_framework import "
+            f"run_base_framework_demo\n"
+            f"assert run_base_framework_demo(3, 2) == [3, 3]\n"
+            f"print('ok')\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

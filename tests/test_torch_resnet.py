@@ -154,3 +154,23 @@ def test_same_padding_is_flax_asymmetric(size, k, stride):
     got_pool = max_pool_same(torch.tensor(x).permute(0, 3, 1, 2), k,
                              stride).permute(0, 2, 3, 1)
     np.testing.assert_array_equal(got_pool.numpy(), want_pool)
+
+
+@pytest.mark.parametrize("clients", [1, 2])
+def test_groupnorm_resnet_under_a_vmap_of_one_client(clients):
+    """The cohort engine vmaps a client's forward; with one client a CPU
+    conv of the permuted (channels-last) input returns channels-last,
+    which `F.group_norm` under vmap could not query.  The vmapped logits
+    equal each client's own forward."""
+    from torch.func import vmap
+    from fedml_tpu_torch.trainer.workload import init_module
+    model = resnet56(10)
+    params = init_module(model, torch.Generator().manual_seed(0))
+    stacked = {k: torch.stack([v] * clients) for k, v in params.items()}
+    x = torch.rand(clients, 4, 16, 16, 3,
+                   generator=torch.Generator().manual_seed(1))
+    got = vmap(lambda p, xx: apply_model(model, p, xx))(stacked, x)
+    for c in range(clients):
+        np.testing.assert_allclose(got[c].numpy(),
+                                   apply_model(model, params, x[c]).numpy(),
+                                   rtol=1e-5, atol=1e-6)

@@ -1,5 +1,5 @@
 """Rank jobs of the port's mesh tests (`test_torch_mesh.py`,
-`test_torch_mesh_algorithms.py`).
+`test_torch_mesh_algorithms.py`, `test_torch_topology_gossip.py`).
 
 `parallel.launch.spawn_ranks` runs one of these on every rank of a gloo
 group on the CPU; each returns plain numpy results, which the tests hold
@@ -179,3 +179,42 @@ def failing_job(bad_rank: int):
     if mesh.rank == bad_rank:
         raise RuntimeError(f"rank {bad_rank} gives up")
     return mesh.allsum(torch.ones(1)).item()
+
+
+def gossip_job(world: int, spec: Dict[str, Any]):
+    """The ring gossip on this rank's 1-D ``clients`` mesh of ``world``
+    ranks, one node a rank (see `test_torch_topology_gossip.py`): the
+    gossip run from the given stack, the weighted mean over the axis of
+    the rank's tree, and the one-node-a-rank refusal."""
+    import torch
+    from fedml_tpu_torch.algorithms.decentralized import (
+        DecentralizedConfig, DecentralizedGossip)
+    from fedml_tpu_torch.core.pytree import tree_weighted_psum_mean
+    from fedml_tpu_torch.parallel.mesh import make_mesh, params_sha256
+    mesh = make_mesh(world, device="cpu")
+    g = spec["gossip"]
+    data = fed_data(g["xs"], g["ys"], g["batch"], g["classes"])
+    algo = DecentralizedGossip(lr_workload(g["dim"], g["classes"]), data,
+                               DecentralizedConfig(**g["cfg"]), mesh=mesh,
+                               device="cpu")
+    stacked = algo.run({k: torch.tensor(np.array(v))
+                        for k, v in g["init"].items()})
+    out: Dict[str, Any] = {"gossip": _np(stacked),
+                           "gossip_sha256": params_sha256(stacked),
+                           "history": algo.history,
+                           "p2p_ms": mesh.collective_ms("p2p")}
+    p = spec["psum"]
+    local = {k: torch.tensor(np.array(v[mesh.rank]))
+             for k, v in p["trees"].items()}
+    out["psum_mean"] = _np(tree_weighted_psum_mean(
+        local, torch.tensor(p["weights"][mesh.rank]), mesh.axis("clients")))
+    extra = fed_data(g["xs"] + g["xs"][:1], g["ys"] + g["ys"][:1],
+                     g["batch"], g["classes"])
+    try:
+        DecentralizedGossip(lr_workload(g["dim"], g["classes"]), extra,
+                            DecentralizedConfig(**g["cfg"]), mesh=mesh,
+                            device="cpu")
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = str(e)
+    return out
